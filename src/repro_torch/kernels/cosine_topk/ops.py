@@ -1,0 +1,201 @@
+"""Wrappers around the cosine top-k kernels (K1 f32, K2 int8).
+
+For CUDA tensors each wrapper launches its hand-written kernel (see
+``kernel.py``) on the current stream, or raises; for CPU tensors it runs
+the plain version in ``ref.py``. There is no fallback from one to the
+other. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+
+``quantize_rows`` is host numpy, carried over from the reference as is.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.cosine_topk import kernel as K
+from repro_torch.kernels.cosine_topk import ref
+
+KMAX = 16    # the kernels keep at most 16 candidates per query
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def quantize_rows(rows: np.ndarray, width: int | None = None
+                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-row symmetric int8 quantization of an (n, d) f32 matrix.
+
+    Returns (codes (n, width) int8 — lane-padded with zero columns when
+    ``width`` > d, scales (n,) f32, err (n,) f64) where
+    ``row_j ~= codes_j * scale_j`` and ``err_j = ||row_j - codes_j *
+    scale_j||_2`` computed in float64. ``err_j`` bounds the quantized-sim
+    deviation for any query: |q . row_j - (q . codes_j) * scale_j|
+    <= ||q||_2 * err_j (Cauchy-Schwarz), which is what makes the margin
+    rescoring in SemanticCache exact (DESIGN.md §15).
+    """
+    rows = np.ascontiguousarray(np.asarray(rows, np.float32))
+    n, d = rows.shape
+    width = int(width if width is not None else d)
+    amax = np.abs(rows).max(axis=1) if n else np.zeros((0,), np.float32)
+    scales = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    codes = np.zeros((n, width), np.int8)
+    if n:
+        codes[:, :d] = np.clip(np.rint(rows / scales[:, None]),
+                               -127, 127).astype(np.int8)
+    deq = codes[:, :d].astype(np.float32) * scales[:, None]
+    err = np.linalg.norm(rows.astype(np.float64) - deq.astype(np.float64),
+                         axis=1)
+    return codes, scales, err
+
+
+def _on_cpu(*tensors) -> bool:
+    """True when every tensor lies on the CPU; CUDA tensors must all share
+    one device. Anything else raises."""
+    devs = {t.device for t in tensors if t is not None}
+    if all(d.type == "cpu" for d in devs):
+        return True
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"cosine top-k needs all tensors on one CUDA "
+                         f"device (or all on the CPU), got {devs}")
+    return False
+
+
+def _lane_padded(x: torch.Tensor, width: int, dtype) -> torch.Tensor:
+    """x as a contiguous (rows, width) tensor of ``dtype``, zero-padded on
+    the right; no copy when it already is one (the serving mirror)."""
+    if x.shape[1] == width and x.dtype == dtype and x.is_contiguous():
+        return x
+    out = torch.zeros((x.shape[0], width), dtype=dtype, device=x.device)
+    out[:, :x.shape[1]] = x.to(dtype)
+    return out
+
+
+def _valid_bytes(valid, n: int, device) -> torch.Tensor:
+    if valid is None:
+        return torch.ones((n,), dtype=torch.uint8, device=device)
+    if valid.shape != (n,):
+        raise ValueError(f"valid must have shape ({n},), got "
+                         f"{tuple(valid.shape)}")
+    return (valid != 0).to(torch.uint8).contiguous()
+
+
+def _check_k(k: int) -> None:
+    if not 1 <= k <= KMAX:
+        raise ValueError(f"k must be in [1, {KMAX}], got {k}")
+
+
+def _empty(k: int, device):
+    return (torch.zeros((0, k), dtype=torch.float32, device=device),
+            torch.zeros((0, k), dtype=torch.int32, device=device),
+            torch.zeros((0,), dtype=torch.bool, device=device))
+
+
+def _outputs(B: int, T: int, k: int, device):
+    f32, i32 = torch.float32, torch.int32
+    return (torch.empty((B, T, k), dtype=f32, device=device),
+            torch.empty((B, T, k), dtype=i32, device=device),
+            torch.empty((B, k), dtype=f32, device=device),
+            torch.empty((B, k), dtype=i32, device=device),
+            torch.empty((B,), dtype=torch.uint8, device=device))
+
+
+def _check_rc(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def cosine_topk(queries: torch.Tensor, centroids: torch.Tensor, k: int = 1,
+                valid: torch.Tensor | None = None, theta: float = 2.0,
+                block_n: int = 512, early_exit: bool = False,
+                return_hit: bool = False):
+    """queries (B, D) x centroids (N, D) -> (sims (B, k) f32, idx (B, k)
+    i32[, hit (B,) bool]).
+
+    ``valid`` (N,) marks the rows to consider (default all); invalid rows
+    score -inf, and idx is -1 where the value is not finite. ``hit`` is
+    ``best >= f32(theta)``. With ``early_exit`` a logical tile is skipped
+    once every query's best so far clears theta (match-good-enough
+    semantics of the reference kernel). A lane-padded f32 matrix (the
+    serving mirror) is read in place.
+    """
+    _check_k(k)
+    B, D = queries.shape
+    N, Dc = centroids.shape
+    if _on_cpu(queries, centroids, valid):
+        out = ref.cosine_topk_ref(queries, centroids, k, valid, theta,
+                                  early_exit, block_n)
+    elif B == 0:
+        out = _empty(k, queries.device)
+    else:
+        dev = queries.device
+        Dp = _ceil_to(max(D, Dc, 1), 128)
+        q = _lane_padded(queries, Dp, torch.float32)
+        c = _lane_padded(centroids, Dp, torch.float32)
+        v = _valid_bytes(valid, N, dev)
+        bn = ref.logical_block(N, block_n)
+        T = -(-N // bn)
+        part_v, part_i, vals, idx, hit = _outputs(B, T, k, dev)
+        fn = K.load("cosine_topk")
+        with torch.cuda.device(dev):
+            rc = fn(q.data_ptr(), c.data_ptr(), v.data_ptr(),
+                    part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
+                    idx.data_ptr(), hit.data_ptr(), B, N, Dp, k, bn,
+                    float(np.float32(theta)), int(bool(early_exit)),
+                    torch.cuda.current_stream(dev).cuda_stream)
+        _check_rc(rc, "cosine_topk")
+        cosine_topk.launches += 1
+        out = (vals, idx, hit.bool())
+    return out if return_hit else out[:2]
+
+
+cosine_topk.launches = 0
+
+
+def cosine_topk_q8(queries: torch.Tensor, codes: torch.Tensor,
+                   scales: torch.Tensor, k: int = 1,
+                   valid: torch.Tensor | None = None, theta: float = 2.0,
+                   margin: float = 0.0, block_n: int = 512,
+                   early_exit: bool = False, return_hit: bool = False):
+    """Quantized lookup: queries (B, D) x codes (N, Dc) int8 with per-row
+    scales (N,) f32 -> (quant sims (B, k) f32, idx (B, k) i32[, hit]).
+
+    The similarity of row j is ``(q . codes_j) * scale_j``; the hit mask
+    and early exit compare against ``f32(theta) + f32(margin)``, so a
+    reported hit is conservative (DESIGN.md §15).
+    """
+    _check_k(k)
+    B, D = queries.shape
+    N, Dc = codes.shape
+    if _on_cpu(queries, codes, scales, valid):
+        out = ref.cosine_topk_q8_ref(queries, codes, scales, k, valid,
+                                     theta, margin, early_exit, block_n)
+    elif B == 0:
+        out = _empty(k, queries.device)
+    else:
+        dev = queries.device
+        Dp = _ceil_to(max(D, Dc, 1), 128)
+        q = _lane_padded(queries, Dp, torch.float32)
+        c = _lane_padded(codes, Dp, torch.int8)
+        s = scales.to(torch.float32).contiguous()
+        if s.shape != (N,):
+            raise ValueError(f"scales must have shape ({N},)")
+        v = _valid_bytes(valid, N, dev)
+        bn = ref.logical_block(N, block_n)
+        T = -(-N // bn)
+        part_v, part_i, vals, idx, hit = _outputs(B, T, k, dev)
+        thr = float(np.float32(theta) + np.float32(margin))
+        fn = K.load("cosine_topk_q8")
+        with torch.cuda.device(dev):
+            rc = fn(q.data_ptr(), c.data_ptr(), s.data_ptr(), v.data_ptr(),
+                    part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
+                    idx.data_ptr(), hit.data_ptr(), B, N, Dp, k, bn, thr,
+                    int(bool(early_exit)),
+                    torch.cuda.current_stream(dev).cuda_stream)
+        _check_rc(rc, "cosine_topk_q8")
+        cosine_topk_q8.launches += 1
+        out = (vals, idx, hit.bool())
+    return out if return_hit else out[:2]
+
+
+cosine_topk_q8.launches = 0

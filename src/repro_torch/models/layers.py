@@ -1,0 +1,243 @@
+"""Core NN layers in plain PyTorch: the dense subset of
+``repro/models/layers.py``.
+
+Conventions (kept from the reference so the two can be compared):
+  * params are nested dicts of tensors; init functions take an explicit
+    ``torch.Generator`` and ``device``;
+  * activation layout at the public functions: (batch, seq, heads,
+    head_dim) for attention;
+  * compute dtype follows the inputs (bf16 for the big configs); softmax,
+    norms and attention scores accumulate in fp32.
+
+The attention functions are the reference's jnp versions (the JAX package
+runs them outside any Pallas kernel), written as plain torch.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+Params = dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
+               scale: float | None = None) -> torch.Tensor:
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=device)
+    return (w * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm_init(d: int, dtype, device) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(d: int, dtype, device) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                         device=device) / dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., L, H, D); positions: broadcastable to (..., L)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)
+    angles = positions[..., :, None].float() * freqs       # (..., L, d/2)
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (plain torch)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    prefix_len: int = 0, q_offset: int = 0,
+                    kv_valid_len: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Softmax attention with GQA, the reference's masks and fp32 scores.
+
+    q: (B, Lq, Hq, Dq); k: (B, Lkv, Hkv, Dq); v: (B, Lkv, Hkv, Dv).
+    q_offset: global position of q[0]; kv_valid_len: optional (B,) count of
+    valid kv positions. Fully masked rows return 0, as the reference's
+    online-softmax recurrence does. Returns (B, Lq, Hq, Dv).
+    """
+    B, Lq, Hq, Dq = q.shape
+    _, Lkv, Hkv, Dv = v.shape
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(Dq)
+    qg = q.reshape(B, Lq, Hkv, G, Dq)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    qpos = q_offset + torch.arange(Lq, device=q.device)[:, None]
+    kpos = torch.arange(Lkv, device=q.device)[None, :]
+    mask = torch.ones((Lq, Lkv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    if prefix_len:
+        mask = mask | (kpos < prefix_len)
+    mask = mask[None, None, None]
+    if kv_valid_len is not None:
+        ragged = kpos[0][None, :] < kv_valid_len.long()[:, None]   # (B, Lkv)
+        mask = mask & ragged[:, None, None, None, :]
+    s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = torch.where(torch.isfinite(m), p, torch.zeros_like(p))
+    l = p.sum(dim=-1)                                        # (B,Hkv,G,Lq)
+    pv = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    l = l.permute(0, 3, 1, 2)[..., None]                     # (B,Lq,Hkv,G,1)
+    out = pv / l.clamp_min(1e-37)
+    return out.reshape(B, Lq, Hq, Dv).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, *, kv_len: torch.Tensor,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """Single-token attention over a KV cache.
+
+    q: (B, 1, Hq, D); k_cache/v_cache: (B, Lmax, Hkv, D); kv_len: (B,)
+    number of valid cache entries.
+    """
+    B, Lmax, Hkv, Dv = v_cache.shape
+    Hq = q.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qg = q.reshape(B, Hkv, G, q.shape[-1])
+    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float()) * scale
+    kpos = torch.arange(Lmax, device=q.device)[None, :]
+    mask = kpos < kv_len.long()[:, None]
+    if window is not None:
+        mask = mask & (kpos > kv_len.long()[:, None] - 1 - window)
+    s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, 1, Hq, Dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+
+
+def gqa_init(gen: torch.Generator, cfg, dtype, device) -> Params:
+    d, H, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p: Params = {
+        "wq": dense_init(gen, d, H * Dh, dtype, device),
+        "wk": dense_init(gen, d, Hkv * Dh, dtype, device),
+        "wv": dense_init(gen, d, Hkv * Dh, dtype, device),
+        "wo": dense_init(gen, H * Dh, d, dtype, device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H * Dh,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((Hkv * Dh,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((Hkv * Dh,), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(Dh, dtype, device)
+        p["k_norm"] = rmsnorm_init(Dh, dtype, device)
+    return p
+
+
+def gqa_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
+            rope: bool = True):
+    B, L, _ = x.shape
+    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, L, H, Dh)
+    k = k.reshape(B, L, Hkv, Dh)
+    v = v.reshape(B, L, Hkv, Dh)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q)
+        k = rmsnorm(p["k_norm"], k)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_attend(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor, *,
+               causal: bool = True, prefix_len: int = 0) -> torch.Tensor:
+    q, k, v = gqa_qkv(p, cfg, x, positions)
+    out = flash_attention(q, k, v, causal=causal, window=cfg.window,
+                          prefix_len=prefix_len)
+    B, L = x.shape[:2]
+    return out.reshape(B, L, -1) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+_ACTS: dict[str, Callable] = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu_sq": lambda x: torch.square(F.relu(x)),
+}
+
+
+def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype, device,
+             gated: bool = True) -> Params:
+    p = {"w_up": dense_init(gen, d, d_ff, dtype, device),
+         "w_down": dense_init(gen, d_ff, d, dtype, device)}
+    if gated:
+        p["w_gate"] = dense_init(gen, d, d_ff, dtype, device)
+    return p
+
+
+def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    a = _ACTS[act]
+    h = x @ p["w_up"]
+    if "w_gate" in p:
+        h = a(x @ p["w_gate"]) * h
+    else:
+        h = a(h)
+    return h @ p["w_down"]

@@ -1,0 +1,59 @@
+"""Convert the JAX package's parameters into the port's.
+
+Input is the reference parameter tree as numpy arrays (for example
+``jax.tree.map(np.asarray, params)`` on the JAX side); this module never
+imports jax. bfloat16 arrays (numpy dtype name ``bfloat16``) are carried
+bit for bit. After conversion both packages compute the same function.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.uint16)
+        return torch.tensor(bits.view(np.int16), device=device).view(
+            torch.bfloat16)
+    return torch.tensor(np.ascontiguousarray(a), device=device)
+
+
+def to_torch(tree: Any, device: DeviceLike = None) -> Any:
+    """Nested dicts/lists of arrays -> the same structure of tensors."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: to_torch(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_torch(v, dev) for v in tree]
+    return _tensor(tree, dev)
+
+
+def _layer(tree: Any, i: int) -> Any:
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def convert_embedder(params: dict, device: DeviceLike = None) -> dict:
+    """Embedder params: the same tree, as tensors (one shared layer)."""
+    return to_torch(params, device)
+
+
+def convert_lm(params: dict, cfg: ModelConfig,
+               device: DeviceLike = None) -> dict:
+    """Dense LM params: the reference stacks ``blocks`` along a leading
+    layer axis (one scan over layers); the port keeps a list of layers."""
+    if set(params) - {"embed", "final_norm", "lm_head", "blocks"}:
+        raise NotImplementedError("only the dense LM kind is ported")
+    out = {k: to_torch(v, device) for k, v in params.items()
+           if k != "blocks"}
+    out["blocks"] = [to_torch(_layer(params["blocks"], i), device)
+                     for i in range(cfg.n_layers)]
+    return out

@@ -22,3 +22,8 @@ def unit_vectors(rng):
     def make(n: int, d: int = 32) -> np.ndarray:
         return normalize(rng.normal(size=(n, d)).astype(np.float32))
     return make
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips with a reason without one)")
