@@ -5,13 +5,24 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build    — both cosine top-k kernels from ``src/repro_torch/csrc``,
-              one nvcc per source, started together;
+1. build    — all four kernels from ``src/repro_torch/csrc`` (K1, K2
+              cosine top-k; K3 decode attention; K4 prefill attention),
+              one nvcc per source, started together; ptxas register and
+              spill lines logged;
 2. kernels  — K1 (f32) and K2 (int8) against their plain PyTorch versions
               at serving shapes (D=768, N=65,536 rows, B in {0, 1, 4, 8,
               32}, k in {1, 16}, early exit on/off, a valid mask with
               holes), then timed beside the plain version and one library
               call (torch.topk over a masked q @ c.T, a yardstick only);
+              K4 against its plain version over every mask mode (causal,
+              bidirectional, window, prefix, ragged kv with a q offset,
+              right-aligned queries) in f32 and bf16, and K3 with f32, bf16
+              and int8 caches; both at the main path's shapes too, then
+              timed there beside the plain version, a bound and
+              scaled_dot_product_attention (a yardstick only, never called
+              by the port); bf16 outputs are held to 2^-7 |plain| + c x
+              the rms of the output row (kernels.bf16_excess), and a kv
+              tile dropped from the plain version must fail that limit;
 3. cache    — one interleaved lookup / insert_spill stream with a shadow
               refresh commit, through the dense, pallas (K1) and pallas_q8
               (K2 + exact rescore) backends: identical decisions, and q8
@@ -29,10 +40,29 @@ Phases (any failure exits non-zero and prints no result line):
               zeroed just before its run and read just after. Every
               distinct kernel call of these runs (B, N, k, early exit,
               theta) is then held against the plain version at its own
-              arguments.
+              arguments. K4 runs in the embedder and the engine's prefill,
+              K3 in every decode step; their launch counters are zeroed
+              and read around each stream too, and every distinct K3/K4
+              call (shapes, dtypes, masks, kv lengths) is held against the
+              plain version at its own arguments. Before the stream, the
+              engine check (reduced qwen3, fp32: cached decode equals
+              re-prefill greedy decoding; with the int8 KV cache, batched
+              decode equals one-sequence decode) runs on the card;
+5. engine-long — qwen3-14b at full width and depth, the served run's
+              weights, ModelEngine(n_slots=4, max_len=8192): four 4,096-token
+              prompts through prefill (K4 on every layer), then 16 decode
+              steps (K3 on every layer), once with the bf16 KV cache and
+              once with the int8 one. The first prefill's last-position
+              logits and the first decode step's logits are held against
+              the plain layers on the same inputs; a planted fault in the
+              prefill attention must exceed the limit. Every K3/K4 call
+              of the prefills and steps is re-checked at its own
+              arguments. Two more decode steps run under torch.profiler:
+              the device's busy time per step and its idle share.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is the device JSON. Details go to DIR/chip_smoke.json (default
+The line before the last is a JSON object with one entry per kernel (K3's
+int8 mode its own entry, with its own bound); the line before it is the
+card's name and power limit; the last line is the device JSON. Details go to DIR/chip_smoke.json (default
 results/, relative to the repository root).
 """
 from __future__ import annotations
@@ -325,6 +355,371 @@ def phase_timing(torch, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 2b: attention kernels (K3, K4) against their plain versions
+# ---------------------------------------------------------------------------
+
+ATT_ATOL_F32 = 2e-5   # the reference's own for f32 outputs: sums in
+                      # another order
+# bf16 outputs: |kernel - plain| <= 2^-7 |plain| + ATT_ROW_RTOL x the rms of
+# plain's row (kernels.bf16_excess). K4 rounds P to bf16 at each kv tile's
+# running max, its plain version at the row's final max: independent
+# roundings of up to 2^-9 each, whose sum over the row's keys is about
+# 0.002 of the row's rms (one standard deviation), so the largest of the
+# 2e7 outputs at the prefill shape lies near 0.012. A kv tile dropped from
+# a 4,096-key row moves it by about sqrt(64 / 4096) = 0.125 of the rms.
+# K3 is f32 throughout, as is its plain version: only the summation order
+# differs.
+ATT_ROW_RTOL = {"flash_attention": 2.0 ** -5,
+                "decode_attention": 2.0 ** -10,
+                "decode_attention_int8": 2.0 ** -10}
+H100_BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
+EMBED_SHAPE = dict(B=4, Lq=24, Lkv=24, H=12, Hkv=12, Dh=64)
+PREFILL_SHAPE = dict(B=1, Lq=4096, Lkv=4096, H=40, Hkv=8, Dh=128)
+DECODE_SHAPE = dict(B=4, H=40, Hkv=8, Dh=128)
+DECODE_LENS = (4096, 32768)         # engine-long's prompt; decode_32k
+DECODE_TIMED = ((8192, 4096),       # (cache length, kv_len): engine-long's
+                (32768, 32768))     # layout; decode_32k
+FLASH_MODES = {
+    "causal": dict(causal=True),
+    "bidirectional": dict(causal=False),
+    "window": dict(causal=True, window=100),
+    "prefix": dict(causal=True, prefix_len=40),
+    "offset-ragged": dict(causal=True, q_offset=150, kv_valid_len=[300, 97]),
+    "right-aligned": dict(causal=True, Lq=77),
+}
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def flash_inputs(torch, B, Lq, Lkv, H, Hkv, Dh, dtype, seed):
+    g = gen(torch, seed)
+    return tuple(torch.randn(s, generator=g, device=DEV).to(dtype)
+                 for s in ((B, Lq, H, Dh), (B, Lkv, Hkv, Dh),
+                           (B, Lkv, Hkv, Dh)))
+
+
+def decode_inputs(torch, B, H, Hkv, Dh, Lc, qdtype, int8, seed):
+    """q (B, H, Dh) and caches (B, Lc, Hkv, Dh) in ``qdtype``, or int8
+    codes and f16 scales made by the model's quantizer."""
+    from repro_torch.models import lm
+    g = gen(torch, seed)
+    q = torch.randn((B, H, Dh), generator=g, device=DEV).to(qdtype)
+    k, v = (torch.randn((B, Lc, Hkv, Dh), generator=g, device=DEV)
+            for _ in range(2))
+    if not int8:
+        return q, k.to(qdtype), v.to(qdtype), {}
+    (kq, ks), (vq, vs) = lm.kv_quant(k), lm.kv_quant(v)
+    return q, kq, vq, {"k_scale": ks, "v_scale": vs}
+
+
+class Agreement:
+    """Per kernel entry: the largest |kernel - plain| and the largest share
+    of the bf16 limit used (``kernels.bf16_excess``) over its comparisons."""
+
+    def __init__(self):
+        self.err = dict.fromkeys(ATT_ROW_RTOL, 0.0)
+        self.share = dict.fromkeys(ATT_ROW_RTOL, 0.0)
+        self.n = 0
+
+    def hold(self, torch, key: str, out, plain, ctx: str) -> None:
+        from repro_torch.kernels import bf16_excess
+        check(out.shape == plain.shape and out.dtype == plain.dtype,
+              f"{ctx}: shape or dtype")
+        check(bool(torch.isfinite(out).all()), f"{ctx}: non-finite output")
+        e = float((out.float() - plain.float()).abs().max())
+        self.err[key] = max(self.err[key], e)
+        self.n += 1
+        if out.dtype == torch.float32:
+            check(e <= ATT_ATOL_F32, f"{ctx}: max abs err {e}")
+            return
+        x = bf16_excess(out, plain, ATT_ROW_RTOL[key])
+        self.share[key] = max(self.share[key], x)
+        check(x <= 1.0, f"{ctx}: max abs err {e}, {x:.3g} of the bf16 limit")
+
+    def merge(self, other: "Agreement") -> None:
+        for key in self.err:
+            self.err[key] = max(self.err[key], other.err[key])
+            self.share[key] = max(self.share[key], other.share[key])
+        self.n += other.n
+
+
+def compare_flash(torch, agree: Agreement, shape: dict, dtype, seed: int,
+                  **kw) -> None:
+    """K4 against its plain version, which rounds P as the kernel does."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    q, k, v = flash_inputs(torch, **shape, dtype=dtype, seed=seed)
+    if kw.get("kv_valid_len") is not None:
+        kw["kv_valid_len"] = torch.tensor(kw["kv_valid_len"], device=DEV)
+    out = ops.flash_attention(q, k, v, **kw)
+    plain = ref.attention_ref(q, k, v, p_dtype=v.dtype, **kw)
+    torch.cuda.synchronize()
+    agree.hold(torch, "flash_attention", out, plain,
+               f"flash_attention {shape} {_dtype_name(dtype)} {kw}")
+
+
+def compare_decode(torch, agree: Agreement, shape: dict, Lc: int, kv_len,
+                   qdtype, int8: bool, seed: int) -> None:
+    from repro_torch.kernels.decode_attention import ops, ref
+    q, k, v, sc = decode_inputs(torch, **shape, Lc=Lc, qdtype=qdtype,
+                                int8=int8, seed=seed)
+    kv_len = torch.tensor(kv_len, device=DEV)
+    out = ops.decode_attention(q, k, v, kv_len, **sc)
+    plain = ref.decode_attention_ref(q, k, v, kv_len, **sc)
+    torch.cuda.synchronize()
+    agree.hold(torch, "decode_attention_int8" if int8 else "decode_attention",
+               out, plain, f"decode_attention {shape} Lc={Lc} kv_len="
+               f"{kv_len.tolist()} q {_dtype_name(qdtype)} cache "
+               f"{_dtype_name(k.dtype)}")
+
+
+def log_agreement(what: str, agree: Agreement) -> None:
+    log(f"[kernels] {agree.n} {what} agree with the plain version (f32 "
+        f"atol {ATT_ATOL_F32}; bf16 2^-7 |plain| + 2^-5 (K4) or 2^-10 (K3) "
+        f"x the row's rms): " + "; ".join(
+            f"{key} max abs err {agree.err[key]:.3g}, largest share of the "
+            f"bf16 limit {agree.share[key]:.3g}" for key in agree.err))
+
+
+def phase_attention_kernels(torch, seed: int) -> Agreement:
+    """K4 over every mask mode in f32 and bf16 (B=2, L=300, H=8/2, Dh=128)
+    and at the embedder's and the engine prefill's shapes; K3 with f32,
+    bf16 and int8 caches, ragged kv_len, at the engine decode's shape."""
+    agree = Agreement()
+    for i, (mode, kw) in enumerate(FLASH_MODES.items()):
+        kw = dict(kw)
+        shape = dict(B=2, Lq=kw.pop("Lq", 300), Lkv=300, H=8, Hkv=2, Dh=128)
+        for dtype in (torch.float32, torch.bfloat16):
+            compare_flash(torch, agree, shape, dtype, seed + 10 + i, **kw)
+    compare_flash(torch, agree, EMBED_SHAPE, torch.float32, seed + 20,
+                  causal=False)
+    compare_flash(torch, agree, PREFILL_SHAPE, torch.bfloat16, seed + 21,
+                  causal=True)
+    compare_flash(torch, agree, PREFILL_SHAPE, torch.float32, seed + 22,
+                  causal=True)
+    B = DECODE_SHAPE["B"]
+    for Lc in DECODE_LENS:
+        lens = [Lc, Lc - 1, Lc // 2 + 3, 1][:B]
+        for qdtype, int8 in ((torch.bfloat16, False), (torch.float32, False),
+                             (torch.bfloat16, True), (torch.float32, True)):
+            compare_decode(torch, agree, DECODE_SHAPE, Lc, lens, qdtype,
+                           int8, seed + Lc)
+    log_agreement("attention kernel-vs-plain comparisons", agree)
+    return agree
+
+
+FAULT_TILE = 64     # K4's kv tile at Dh <= 128; K3 splits 256 positions
+
+
+def flash_tile_dropped(torch, q, k, v):
+    """Causal prefill (Lq == Lkv) through K4's plain version with one kv
+    tile (keys L/2 .. L/2 + 64) left out of the last quarter of the query
+    rows: a planted fault that the checks must fail."""
+    from repro_torch.kernels.flash_attention import ref
+    L = q.shape[1]
+    lo, r0 = L // 2, 3 * L // 4
+    out = ref.attention_ref(q, k, v, causal=True, p_dtype=v.dtype)
+
+    def holed(x):
+        return torch.cat([x[:, :lo], x[:, lo + FAULT_TILE:]], dim=1)
+    # rows r0.. see every key before the hole; shifting the positions of
+    # the later keys and of the rows by the hole's width keeps causality
+    out[:, r0:] = ref.attention_ref(q[:, r0:], holed(k), holed(v),
+                                    causal=True, q_offset=r0 - FAULT_TILE,
+                                    p_dtype=v.dtype)
+    return out
+
+
+def phase_planted_faults(torch, seed: int) -> dict:
+    """The bf16 limit must fail a dropped kv tile: K4 at the engine
+    prefill's shape with one 64-key tile left out of the last quarter of
+    the rows, K3 at decode_32k's kv length with one 256-position split
+    left out. Plain versions only; the readings are logged."""
+    from repro_torch.kernels import bf16_excess
+    from repro_torch.kernels.decode_attention import ref as dr
+    from repro_torch.kernels.flash_attention import ref as fr
+    q, k, v = flash_inputs(torch, **PREFILL_SHAPE, dtype=torch.bfloat16,
+                           seed=seed + 40)
+    plain = fr.attention_ref(q, k, v, causal=True, p_dtype=v.dtype)
+    bad = flash_tile_dropped(torch, q, k, v)
+    out = {"flash_attention": (
+        bf16_excess(bad, plain, ATT_ROW_RTOL["flash_attention"]),
+        float((bad.float() - plain.float()).abs().max()))}
+    del q, k, v, plain, bad
+    Lc = DECODE_LENS[-1]
+    q, k, v, _ = decode_inputs(torch, **DECODE_SHAPE, Lc=Lc,
+                               qdtype=torch.bfloat16, int8=False,
+                               seed=seed + 41)
+    kv_len = torch.full((DECODE_SHAPE["B"],), Lc, device=DEV)
+    plain = dr.decode_attention_ref(q, k, v, kv_len)
+    split = 256
+    lo = Lc // 2
+    holed = [torch.cat([x[:, :lo], x[:, lo + split:]], dim=1) for x in (k, v)]
+    bad = dr.decode_attention_ref(q, *holed, kv_len - split)
+    out["decode_attention"] = (
+        bf16_excess(bad, plain, ATT_ROW_RTOL["decode_attention"]),
+        float((bad.float() - plain.float()).abs().max()))
+    for key, (x, e) in out.items():
+        check(x > 1.0, f"[kernels] the bf16 limit passes a planted fault in "
+                       f"{key}: {x:.3g} of the limit")
+        log(f"[kernels] planted fault in {key} (one kv tile dropped): "
+            f"{x:.3g} times the bf16 limit, max abs {e:.3g}")
+    return out
+
+
+def att_bound(nbytes: float, flops: float, peak: float):
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_attention_timing(torch, seed: int) -> dict:
+    """K4 at the embedder's shape (f32, bidirectional) and the engine
+    prefill's (bf16, causal), K3 at the engine decode's (bf16 and int8
+    caches; kv_len 4,096 in an 8,192-position cache, engine-long's
+    layout, and 32,768 in a full one): kernel, plain version, bound and
+    scaled_dot_product_attention (a yardstick; it takes no int8 cache, and
+    is given the kv_len mask). The bound counts each input that the work
+    needs read once and the output written once: for causal prefill only
+    the unmasked half of the scores, for decode the first kv_len
+    positions."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as da, ref as dr
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fr
+    out = {}
+    for label, shape, dtype, causal in (
+            ("embedder", EMBED_SHAPE, torch.float32, False),
+            ("prefill", PREFILL_SHAPE, torch.bfloat16, True)):
+        q, k, v = flash_inputs(torch, **shape, dtype=dtype, seed=seed + 31)
+        B, L, H, Hkv, Dh = (shape[x] for x in ("B", "Lq", "H", "Hkv", "Dh"))
+        esz = q.element_size()
+        nbytes = esz * (2 * B * L * H * Dh + 2 * B * L * Hkv * Dh)
+        pairs = L * (L + 1) // 2 if causal else L * L
+        peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_FP32_FLOPS
+        b_ms, b_by = att_bound(nbytes, 4.0 * B * H * Dh * pairs, peak)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        rec = {"shape": shape, "dtype": _dtype_name(dtype), "causal": causal,
+               "ms": cuda_ms(torch, lambda: fa.flash_attention(
+                   q, k, v, causal=causal)),
+               "plain_ms": cuda_ms(torch, lambda: fr.attention_ref(
+                   q, k, v, causal=causal)),
+               "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=causal, enable_gqa=H != Hkv)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        out[f"flash_attention/{label}"] = rec
+        log(f"[timing] flash_attention {label} {shape} "
+            f"{rec['dtype']}: kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+    B, H, Hkv, Dh = (DECODE_SHAPE[x] for x in ("B", "H", "Hkv", "Dh"))
+    for Lc, n_kv in DECODE_TIMED:
+        for int8 in (False, True):
+            q, k, v, sc = decode_inputs(torch, **DECODE_SHAPE, Lc=Lc,
+                                        qdtype=torch.bfloat16, int8=int8,
+                                        seed=seed + 32)
+            kv_len = torch.full((B,), n_kv, device=DEV)
+            row = Hkv * Dh * k.element_size() + (Hkv * 2 if int8 else 0)
+            nbytes = 2 * B * H * Dh * 2 + 2 * B * n_kv * row + B * 4
+            b_ms, b_by = att_bound(nbytes, 4.0 * B * H * Dh * n_kv,
+                                   H100_BF16_FLOPS)
+            name = "decode_attention_int8" if int8 else "decode_attention"
+            lib = None
+            if not int8:
+                qt = q[:, :, None]
+                kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+                mask = (torch.arange(Lc, device=DEV)[None, :]
+                        < kv_len[:, None])[:, None, None, :]
+                lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True))
+            rec = {"Lc": Lc, "kv_len": n_kv,
+                   "ms": cuda_ms(torch, lambda: da.decode_attention(
+                       q, k, v, kv_len, **sc)),
+                   "plain_ms": cuda_ms(torch, lambda: dr.decode_attention_ref(
+                       q, k, v, kv_len, **sc)),
+                   "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+            out[f"{name}/{Lc}/{n_kv}"] = rec
+            log(f"[timing] {name} B={B} H={H}/{Hkv} Dh={Dh} Lc={Lc} "
+                f"kv_len={n_kv}: "
+                f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+                f"library {'n/a (no int8 cache)' if lib is None else f'{lib:.4f} ms'}"
+                f", bound {b_ms:.4f} ms ({b_by})")
+            del q, k, v, sc
+    return out
+
+
+class AttnRecorder:
+    """Stands in for an attention ops module inside ``models.layers`` while
+    the main path runs: notes the arguments that decide each K3/K4 call's
+    work (shapes, dtypes, masks; K3's kv_len is kept on the card and read
+    after the stream) and passes the call on to the real wrapper, which
+    does its own launch counting."""
+
+    def __init__(self, ops):
+        self._ops = ops
+        self.calls: list = []
+
+    def flash_attention(self, q, k, v, *, causal=True, window=None,
+                        prefix_len=0, q_offset=None, kv_valid_len=None):
+        B, Lq, H, Dh = q.shape
+        self.calls.append(("flash_attention", dict(
+            B=B, Lq=Lq, Lkv=k.shape[1], H=H, Hkv=k.shape[2], Dh=Dh),
+            _dtype_name(q.dtype), dict(causal=causal, window=window,
+                                       prefix_len=prefix_len,
+                                       q_offset=q_offset),
+            None if kv_valid_len is None else kv_valid_len.clone()))
+        return self._ops.flash_attention(
+            q, k, v, causal=causal, window=window, prefix_len=prefix_len,
+            q_offset=q_offset, kv_valid_len=kv_valid_len)
+
+    def decode_attention(self, q, k_cache, v_cache, kv_len, *, k_scale=None,
+                         v_scale=None):
+        B, H, Dh = q.shape
+        self.calls.append(("decode_attention", dict(
+            B=B, H=H, Hkv=k_cache.shape[2], Dh=Dh), k_cache.shape[1],
+            _dtype_name(q.dtype), k_scale is not None, kv_len.clone()))
+        return self._ops.decode_attention(q, k_cache, v_cache, kv_len,
+                                          k_scale=k_scale, v_scale=v_scale)
+
+    def distinct(self) -> set:
+        out = set()
+        for c in self.calls:
+            if c[0] == "flash_attention":
+                _, shape, dt, kw, kvl = c
+                out.add(("flash_attention", tuple(shape.items()), dt,
+                         tuple(kw.items()),
+                         None if kvl is None else tuple(kvl.tolist())))
+            else:
+                _, shape, Lc, dt, int8, kvl = c
+                out.add(("decode_attention", tuple(shape.items()), Lc, dt,
+                         int8, tuple(kvl.tolist())))
+        return out
+
+
+def phase_attention_main_shapes(torch, calls: set, seed: int) -> Agreement:
+    """Every distinct K3/K4 call of the main path (served streams and
+    engine-long), held against the plain version at its own shapes,
+    dtypes, masks and kv lengths."""
+    agree = Agreement()
+    for i, c in enumerate(sorted(calls, key=repr)):
+        if c[0] == "flash_attention":
+            _, shape, dt, kw, kvl = c
+            compare_flash(torch, agree, dict(shape), getattr(torch, dt),
+                          seed + 1000 + i,
+                          kv_valid_len=None if kvl is None else list(kvl),
+                          **dict(kw))
+        else:
+            _, shape, Lc, dt, int8, kvl = c
+            compare_decode(torch, agree, dict(shape), Lc, list(kvl),
+                           getattr(torch, dt), int8, seed + 1000 + i)
+    n_f = sum(c[0] == "flash_attention" for c in calls)
+    log_agreement(f"distinct calls of the main path ({n_f} K4, "
+                  f"{len(calls) - n_f} K3), each at its own arguments,",
+                  agree)
+    return agree
+
+
+# ---------------------------------------------------------------------------
 # phase 3: cache decisions across backends
 # ---------------------------------------------------------------------------
 
@@ -476,14 +871,18 @@ def phase_cache(torch, np, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_engine_consistency(torch, np, seed: int) -> None:
-    """Small-input reference check of the engine on the card: batched,
-    per-slot KV-cached decode gives the tokens of greedy decoding by full
-    re-prefill (no cache), reduced qwen3 in fp32."""
+def phase_engine_consistency(torch, np, seed: int, kv_dtype: str) -> None:
+    """Small-input reference check of the engine on the card, through K4
+    and K3, reduced qwen3 in fp32. With the f32 KV cache, batched per-slot
+    KV-cached decode gives the tokens of greedy decoding by full re-prefill
+    (no cache). With the int8 cache, whose codes change what decode attends
+    to, it gives the tokens of one-sequence decoding with its own int8
+    cache."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import lm
     from repro_torch.serving.engine import ModelEngine
-    cfg = get_config("qwen3-14b").reduced().replace(dtype="float32")
+    cfg = get_config("qwen3-14b").reduced().replace(dtype="float32",
+                                                    kv_dtype=kv_dtype)
     params = lm.init_params(gen(torch, seed),
                             cfg, device=DEV)
     eng = ModelEngine(params, cfg, n_slots=2, max_len=32, device=DEV)
@@ -495,18 +894,30 @@ def phase_engine_consistency(torch, np, seed: int) -> None:
         toks = eng.decode_active(toks)
         for s in range(2):
             outs[s].append(int(toks[s]))
-    for p, out in zip(prompts, outs):
-        seq = list(p)
-        for t in out:
+    with torch.inference_mode():
+        for p, out in zip(prompts, outs):
+            seq = list(p)
             cache = lm.init_cache(cfg, 1, 32, device=DEV)
             logits, _ = lm.prefill(params, cfg, {"tokens": torch.tensor(
                 [seq], device=DEV)}, cache)
-            ref_tok = int(torch.argmax(logits[0]))
-            check(ref_tok == t, "[serve] cached decode disagrees with "
-                                "re-prefill greedy decoding")
-            seq.append(t)
-    log("[serve] engine: batched KV-cached decode == re-prefill greedy "
-        "(reduced qwen3, fp32, on the card)")
+            for i, t in enumerate(out):
+                ref_tok = int(torch.argmax(logits[0]))
+                check(ref_tok == t, f"[serve] {kv_dtype} KV: cached batched "
+                                    f"decode disagrees with the reference "
+                                    f"at token {i}")
+                seq.append(t)
+                if kv_dtype == "int8":
+                    logits, cache = lm.decode_step(
+                        params, cfg, torch.tensor([[t]], device=DEV), cache,
+                        len(seq) - 1)
+                else:
+                    logits, _ = lm.prefill(params, cfg, {
+                        "tokens": torch.tensor([seq], device=DEV)},
+                        lm.init_cache(cfg, 1, 32, device=DEV))
+    ref = ("one-sequence int8-cached decode" if kv_dtype == "int8"
+           else "re-prefill greedy decoding")
+    log(f"[serve] engine, {kv_dtype} KV: batched KV-cached decode == {ref} "
+        f"(reduced qwen3, fp32, through K4/K3 on the card)")
 
 
 def build_models(torch, layers: int, seed: int):
@@ -532,13 +943,14 @@ def build_models(torch, layers: int, seed: int):
     return ecfg, eparams, mcfg, mparams
 
 
-def serve_once(torch, np, backend, models, recorder, seed: int) -> dict:
+def serve_once(torch, np, backend, models, recorder, att_recorders,
+               seed: int) -> dict:
     from repro_torch.core import semantic_cache as SC
     from repro_torch.core.siso import SISO, SISOConfig
     from repro_torch.data.synth import SyntheticWorkload
     from repro_torch.data.tokenizer import HashTokenizer
     from repro_torch.kernels.cosine_topk import ops
-    from repro_torch.models import embedder as E
+    from repro_torch.models import embedder as E, layers as L
     from repro_torch.serving.engine import ModelEngine
     from repro_torch.serving.gateway import GatewayRequest, ServingGateway
     ecfg, eparams, mcfg, mparams = models
@@ -588,31 +1000,36 @@ def serve_once(torch, np, backend, models, recorder, seed: int) -> dict:
     kern.launches = 0
     other = ops.cosine_topk_q8 if backend == "pallas" else ops.cosine_topk
     other.launches = 0
+    zero_attention_launches()
     fallbacks0 = siso.cache.quant_fallbacks
     windows = WindowRecorder(siso.cache) if backend == "pallas_q8" else None
     SC.ctk_ops = recorder
     t0 = time.perf_counter()
-    for base in range(0, len(stream), 4):
-        reqs = []
-        for rid, text in enumerate(stream[base:base + 4], start=base):
-            ids, mask = tok.encode_batch([text])
-            prompt = np.asarray(tok.tokenize(text)[:12], np.int64) \
-                % mcfg.vocab_size
-            reqs.append(GatewayRequest(rid=rid, model_tokens=prompt,
-                                       embed_tokens=(ids[0], mask[0]),
-                                       max_new=8))
-        gw.submit(reqs)
-    done = gw.drain()
-    torch.cuda.synchronize()
+    with recorded_ops(L, att_recorders):
+        for base in range(0, len(stream), 4):
+            reqs = []
+            for rid, text in enumerate(stream[base:base + 4], start=base):
+                ids, mask = tok.encode_batch([text])
+                prompt = np.asarray(tok.tokenize(text)[:12], np.int64) \
+                    % mcfg.vocab_size
+                reqs.append(GatewayRequest(rid=rid, model_tokens=prompt,
+                                           embed_tokens=(ids[0], mask[0]),
+                                           max_new=8))
+            gw.submit(reqs)
+        done = gw.drain()
+        torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     SC.ctk_ops = ops
     launches = kern.launches
+    att = attention_launches()
     rep = gw.report()
     check(rep["completed"] == len(stream) == len(done),
           f"[serve] {rep['completed']} of {len(stream)} completed")
     check(rep["served_cache"] > 0, "[serve] nothing served from the cache")
     check(rep["served_engine"] > 0, "[serve] nothing served by the engine")
     check(launches > 0, f"[serve] {name} was never launched")
+    check(att["flash_attention"] > 0 and att["decode_attention"] > 0,
+          f"[serve] attention kernels not launched: {att}")
     for r in done:
         if r.served_by == "engine":
             check(len(r.out) == 8 and all(0 <= t < mcfg.vocab_size
@@ -626,7 +1043,9 @@ def serve_once(torch, np, backend, models, recorder, seed: int) -> dict:
         f"{rep['served_cache']} from cache, {rep['served_engine']} through "
         f"the engine; hits={rep['hits']} misses={rep['misses']}; lookup "
         f"p50={lk['p50_ms']:.3f} ms p99={lk['p99_ms']:.3f} ms; "
-        f"{name} launches={launches}; centroids={n_cent}, mirror rows="
+        f"{name} launches={launches}; K4 launches="
+        f"{att['flash_attention']}, K3 launches={att['decode_attention']}; "
+        f"centroids={n_cent}, mirror rows="
         f"{siso.cache._dev.pad if siso.cache._dev is not None else 0}; "
         f"refreshes={rep['refreshes']}; set-up {setup_s:.1f} s, "
         f"served in {serve_s:.1f} s")
@@ -663,11 +1082,243 @@ def serve_once(torch, np, backend, models, recorder, seed: int) -> dict:
             + f"; {extra['queries_with_full_window']} of {len(wins)} "
             f"queries had a full window ({siso.cache.rescore_k})")
     return {"backend": backend, "kernel": name, "launches": launches,
+            "attention_launches": att,
             "other_kernel_launches": other.launches, **extra,
             "batches": len(stream) // 4, "served_s": serve_s,
             "setup_s": setup_s, "centroids": n_cent,
             "report": {k: v for k, v in rep.items()
                        if k not in ("theta_trace", "lam_trace")}}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: engine-long, qwen3-14b at full depth on 4,096-token prompts
+# ---------------------------------------------------------------------------
+
+LONG_PROMPT, LONG_SLOTS, LONG_MAX, LONG_STEPS = 4096, 4, 8192, 16
+ENGINE_RTOL = 0.05   # largest |kernel - plain| logit over the largest
+                     # |plain| logit: bf16 activations through 40 layers of
+                     # random weights round differently once an attention
+                     # output moves by one bf16 ulp. Each K3/K4 call is
+                     # also held against its plain version at its own
+                     # arguments; this limit must fail a planted fault
+                     # (one kv tile dropped from the last quarter of the
+                     # prefill rows, every layer)
+
+
+class swap_attention:
+    """Within the block, ``models.layers`` runs its plain attention on CUDA
+    tensors too (the reference the kernels are held against), or the given
+    prefill attention in place of K4 (a planted fault)."""
+
+    def __init__(self, L, flash=None):
+        self.L = L
+        self.fns = (flash or L.flash_attention_plain,
+                    L.decode_attention_plain)
+
+    def __enter__(self):
+        L = self.L
+        self.saved = (L.flash_attention, L.decode_attention)
+        L.flash_attention, L.decode_attention = self.fns
+
+    def __exit__(self, *exc):
+        self.L.flash_attention, self.L.decode_attention = self.saved
+
+
+class recorded_ops:
+    """Within the block, ``models.layers`` reaches the kernels through the
+    AttnRecorders, which note each call and pass it on."""
+
+    def __init__(self, L, att_recorders):
+        self.L, self.rec = L, att_recorders
+
+    def __enter__(self):
+        self.saved = (self.L.fa_ops, self.L.da_ops)
+        self.L.fa_ops, self.L.da_ops = self.rec
+
+    def __exit__(self, *exc):
+        self.L.fa_ops, self.L.da_ops = self.saved
+
+
+def trace_decode(torch, eng, toks, steps: int = 2) -> dict:
+    """``steps`` decode steps under torch.profiler: the device's busy time
+    per step (the union of the kernel and copy intervals the profiler
+    records on the card) and the kernels that took the most of it. Empty
+    where the profiler recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            toks = eng.decode_active(toks)
+        torch.cuda.synchronize()
+    dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events()
+                 if str(e.device_type).endswith("CUDA"))
+    if not dev:
+        return {}
+    busy, end = 0.0, float("-inf")
+    by_name: dict = {}
+    for t0, t1, name in dev:
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": steps, "device_events": len(dev),
+            "busy_ms_per_step": busy / 1e3 / steps,
+            "top_kernels_ms_per_step": [(n[:120], t / 1e3 / steps)
+                                        for n, t in top]}
+
+
+def rel_diff(torch, a, b) -> float:
+    a, b = a.float(), b.float()
+    check(bool(torch.isfinite(a).all()), "[engine-long] non-finite logits")
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def attention_launches():
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    return {"flash_attention": fa.flash_attention.launches,
+            "decode_attention": (da.decode_attention.launches
+                                 - da.decode_attention.launches_int8),
+            "decode_attention_int8": da.decode_attention.launches_int8}
+
+
+def zero_attention_launches() -> None:
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    fa.flash_attention.launches = 0
+    da.decode_attention.launches = da.decode_attention.launches_int8 = 0
+
+
+def phase_engine_long(torch, np, models, att_recorders, seed: int,
+                      kv_dtype: str) -> dict:
+    """Four 4,096-token prompts prefilled into a 4-slot engine (K4 on every
+    layer), then 16 batched decode steps (K3 on every layer). The launch
+    counters are zeroed before the prefills and before the decode steps and
+    read after each, and the AttnRecorders note every K3/K4 call of those
+    windows; the comparisons with the plain layers run outside them. The
+    first prefill's last-position logits and the first decode step's
+    logits are held against the plain layers at ENGINE_RTOL; with the bf16
+    cache, a planted fault must exceed it. The comparison's decode step
+    writes the new k/v at each slot's position, which the engine's own
+    first step then overwrites with the same computation, so the engine's
+    state is unchanged by it. Two more decode steps then run under the
+    profiler (``trace_decode``): the device's busy time and idle share."""
+    from repro_torch.models import layers as L, lm
+    from repro_torch.serving.engine import ModelEngine
+    mparams, mcfg = models[3], models[2]
+    cfg = mcfg.replace(kv_dtype=kv_dtype)
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 5)
+    prompts = [rng.integers(0, cfg.vocab_size, LONG_PROMPT)
+               for _ in range(LONG_SLOTS)]
+    first = {"tokens": torch.tensor(prompts[0][None], device=DEV)}
+    with torch.inference_mode():
+        kl, _ = lm.prefill(mparams, cfg, first, lm.init_cache(
+            cfg, 1, LONG_PROMPT, device=DEV))
+        with swap_attention(L):
+            pl, _ = lm.prefill(mparams, cfg, first, lm.init_cache(
+                cfg, 1, LONG_PROMPT, device=DEV))
+        rel_fault = None
+        if kv_dtype == "bfloat16":
+            def faulty(q, k, v, **kw):
+                check(kw == {"causal": True}, f"[engine-long] prefill "
+                                              f"attention called with {kw}")
+                return flash_tile_dropped(torch, q, k, v)
+            with swap_attention(L, flash=faulty):
+                fl, _ = lm.prefill(mparams, cfg, first, lm.init_cache(
+                    cfg, 1, LONG_PROMPT, device=DEV))
+            rel_fault = rel_diff(torch, fl, pl)
+            check(rel_fault > ENGINE_RTOL,
+                  f"[engine-long] a planted attention fault moves the logits"
+                  f" by {rel_fault:.4g} of the largest, within ENGINE_RTOL "
+                  f"{ENGINE_RTOL}: the limit cannot see it")
+            log(f"[engine-long] planted fault (one kv tile dropped from the "
+                f"last quarter of the prefill rows, every layer): logits "
+                f"move by {rel_fault:.4g} of the largest (limit "
+                f"{ENGINE_RTOL})")
+            del fl
+    rel_prefill = rel_diff(torch, kl, pl)
+    del kl, pl
+    torch.cuda.empty_cache()
+    eng = ModelEngine(mparams, cfg, n_slots=LONG_SLOTS, max_len=LONG_MAX,
+                      device=DEV)
+    torch.cuda.synchronize()
+    zero_attention_launches()
+    prefill_ms, toks = [], []
+    with recorded_ops(L, att_recorders):
+        for s, p in enumerate(prompts):
+            t0 = time.perf_counter()
+            toks.append(eng.prefill_into(s, p))
+            torch.cuda.synchronize()
+            prefill_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = attention_launches()
+    toks = np.asarray(toks, np.int64)
+    with torch.inference_mode():
+        pos = torch.tensor(eng.pos.astype(np.int64), device=DEV)
+        tok = torch.tensor(toks, device=DEV)[:, None]
+        kd, _ = lm.decode_step(mparams, cfg, tok, eng.cache, pos,
+                               kv_len=pos + 1)
+        with swap_attention(L):
+            pd, _ = lm.decode_step(mparams, cfg, tok, eng.cache, pos,
+                                   kv_len=pos + 1)
+    rel_decode = rel_diff(torch, kd, pd)
+    torch.cuda.synchronize()
+    zero_attention_launches()
+    decode_ms = []
+    with recorded_ops(L, att_recorders):
+        for _ in range(LONG_STEPS):
+            t0 = time.perf_counter()
+            toks = eng.decode_active(toks)
+            decode_ms.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    for k, v in attention_launches().items():
+        launches[k] += v
+    n = cfg.n_layers
+    k3 = "decode_attention_int8" if kv_dtype == "int8" else "decode_attention"
+    check(launches["flash_attention"] == LONG_SLOTS * n
+          and launches[k3] == LONG_STEPS * n,
+          f"[engine-long] {kv_dtype}: launches {launches}, expected "
+          f"{LONG_SLOTS * n} K4 and {LONG_STEPS * n} {k3}")
+    check(all(0 <= t < cfg.vocab_size for t in toks),
+          f"[engine-long] {kv_dtype}: bad tokens {toks}")
+    check(rel_prefill <= ENGINE_RTOL and rel_decode <= ENGINE_RTOL,
+          f"[engine-long] {kv_dtype}: kernel vs plain logits differ by "
+          f"{rel_prefill:.4g} (prefill) / {rel_decode:.4g} (decode) of the "
+          f"largest logit, over {ENGINE_RTOL}")
+    kv_bytes = sum(t.numel() * t.element_size() for t in eng.cache.values())
+    rec = {"kv_dtype": kv_dtype, "prefill_ms": prefill_ms,
+           "decode_ms": decode_ms,
+           "prefill_ms_median": statistics.median(prefill_ms),
+           "decode_ms_median": statistics.median(decode_ms),
+           "rel_diff_prefill": rel_prefill, "rel_diff_decode": rel_decode,
+           "rel_diff_planted_fault": rel_fault, "launches": launches, "kv_cache_bytes": kv_bytes,
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    log(f"[engine-long] {kv_dtype} KV ({kv_bytes / 2**30:.2f} GiB cache): "
+        f"{LONG_SLOTS} prompts of {LONG_PROMPT} tokens, prefill "
+        f"{rec['prefill_ms_median']:.1f} ms per prompt (median; "
+        f"{', '.join(f'{t:.1f}' for t in prefill_ms)}), {LONG_STEPS} decode "
+        f"steps {rec['decode_ms_median']:.2f} ms per step (median); kernel vs "
+        f"plain logits: largest difference {rel_prefill:.4g} (prefill) and "
+        f"{rel_decode:.4g} (decode) of the largest logit (tolerance "
+        f"{ENGINE_RTOL}); launches {launches}; peak memory "
+        f"{rec['max_memory_allocated'] / 2**30:.1f} GiB")
+    rec["trace"] = tr = trace_decode(torch, eng, toks)
+    if not tr:
+        log(f"[engine-long] {kv_dtype} KV: the profiler recorded no device "
+            f"activity; device busy time not measured")
+    else:
+        busy = tr["busy_ms_per_step"]
+        log(f"[engine-long] {kv_dtype} KV, profiled decode: device busy "
+            f"{busy:.3f} ms per step ({tr['device_events']} device events "
+            f"over {tr['steps']} steps), idle share "
+            f"{1 - busy / rec['decode_ms_median']:.3f} of the unprofiled "
+            f"median step; most device time: " + "; ".join(
+                f"{n} {t:.3f} ms" for n, t in tr["top_kernels_ms_per_step"]))
+    del eng
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -699,6 +1350,7 @@ def main() -> int:
               "script; run it from a checkout of the repository",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -706,15 +1358,18 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.device import strict_fp32
-    from repro_torch.kernels.cosine_topk import kernel as K, ops
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.cosine_topk import ops
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     strict_fp32()
     smi = nvidia_smi()
     log(f"[device] {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}; torch {torch.__version__} cuda "
-        f"{torch.version.cuda}")
+        f"{torch.version.cuda}; {smi}")
     detail = {"nvidia_smi": smi}
     t0 = time.perf_counter()
-    reports = K.build()
+    reports = _build.build()
     build_s = time.perf_counter() - t0
     for name, rep in reports.items():
         for line in rep.splitlines():
@@ -723,50 +1378,103 @@ def main() -> int:
     log(f"[build] {len(reports)} kernels built in {build_s:.1f} s "
         f"(nvcc per source, in parallel)")
     detail["build_s"] = build_s
-    for name in K.KERNELS:
-        K.load(name)
+    for name in _build.KERNELS:
+        _build.load(name)
     t = time.perf_counter()
     err = phase_kernels(torch, args.seed)
+    agree = phase_attention_kernels(torch, args.seed)
+    detail["planted_faults"] = phase_planted_faults(torch, args.seed)
+    att_err = agree.err
     timing = phase_timing(torch, args.seed)
-    detail.update(max_abs_err=err, timing=timing,
+    timing.update(phase_attention_timing(torch, args.seed))
+    detail.update(max_abs_err={**err, **att_err}, timing=timing,
                   kernels_s=time.perf_counter() - t)
     t = time.perf_counter()
     detail["cache"] = phase_cache(torch, np, args.seed)
     detail["cache_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    phase_engine_consistency(torch, np, args.seed)
+    for kv_dtype in ("float32", "int8"):
+        phase_engine_consistency(torch, np, args.seed, kv_dtype)
     models = build_models(torch, args.layers, args.seed)
     recorder = CallRecorder(ops)
-    serve = {b: serve_once(torch, np, b, models, recorder, args.seed)
+    att_rec = (AttnRecorder(fa_ops), AttnRecorder(da_ops))
+    serve = {b: serve_once(torch, np, b, models, recorder, att_rec,
+                           args.seed)
              for b in ("pallas", "pallas_q8")}
     detail["serve"] = serve
     detail["serve_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    long_runs = {kv: phase_engine_long(torch, np, models, att_rec,
+                                       args.seed, kv)
+                 for kv in ("bfloat16", "int8")}
+    detail["engine_long"] = long_runs
+    detail["engine_long_s"] = time.perf_counter() - t
     main_err = phase_main_shapes(torch, recorder.calls, args.seed)
     check({c[0] for c in recorder.calls} == set(err),
           "[kernels] a kernel of the main path was never called")
+    att_calls = att_rec[0].distinct() | att_rec[1].distinct()
+    check({c[0] for c in att_calls} == {"flash_attention",
+                                        "decode_attention"},
+          "[kernels] an attention kernel of the main path was never called")
+    check(any(c[0] == "decode_attention" and c[2] == LONG_MAX
+              for c in att_calls),
+          "[kernels] engine-long's K3 calls were not recorded")
+    agree.merge(phase_attention_main_shapes(torch, att_calls, args.seed))
     err = {fn: max(err[fn], main_err[fn]) for fn in err}
-    detail.update(max_abs_err=err, main_path_calls=sorted(recorder.calls))
+    att_err = agree.err
+    detail.update(max_abs_err={**err, **att_err},
+                  bf16_limit_share=agree.share,
+                  main_path_calls=sorted(recorder.calls),
+                  main_path_attention_calls=sorted(att_calls, key=repr))
 
     main_b = 4      # the served batch size, the one the kernels line times
     for name in err:
         check(any(c[:3] == (name, main_b, N_ROWS) for c in recorder.calls),
               f"[kernels] {name}: the main path never ran B={main_b} at "
               f"N={N_ROWS}, the shape that is timed")
-    replaces = {"cosine_topk": "src/repro/kernels/cosine_topk/kernel.py:49",
-                "cosine_topk_q8": "src/repro/kernels/cosine_topk/kernel.py:98"}
-    sources = {"cosine_topk": "src/repro_torch/csrc/cosine_topk.cu",
-               "cosine_topk_q8": "src/repro_torch/csrc/cosine_topk_q8.cu"}
+    replaces = {
+        "cosine_topk": "src/repro/kernels/cosine_topk/kernel.py:49",
+        "cosine_topk_q8": "src/repro/kernels/cosine_topk/kernel.py:98",
+        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:19",
+        "decode_attention": "src/repro/kernels/decode_attention/kernel.py:25",
+        "decode_attention_int8":
+            "src/repro/kernels/decode_attention/kernel.py:25"}
+    sources = {
+        "cosine_topk": "src/repro_torch/csrc/cosine_topk.cu",
+        "cosine_topk_q8": "src/repro_torch/csrc/cosine_topk_q8.cu",
+        "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+        "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
+        "decode_attention_int8": "src/repro_torch/csrc/decode_attention.cu"}
+    # launches on the main path: K1/K2 in their served stream; K3/K4 in
+    # both served streams and both engine-long runs
     launches = {"cosine_topk": serve["pallas"]["launches"],
                 "cosine_topk_q8": serve["pallas_q8"]["launches"]}
+    for name in att_err:
+        launches[name] = sum(r["attention_launches"][name]
+                             for r in serve.values()) + sum(
+            r["launches"][name] for r in long_runs.values())
+        check(launches[name] > 0, f"[kernels] {name} was never launched on "
+                                  f"the main path")
+    # timed at the main path's shapes: K1/K2 at the served batch; K4 at the
+    # engine's 4,096-token prefill; K3 at engine-long's kv length
+    timed = {name: next(r for r in timing[name] if r["B"] == main_b)
+             for name in err}
+    timed["flash_attention"] = timing["flash_attention/prefill"]
+    timed["decode_attention"] = \
+        timing[f"decode_attention/{LONG_MAX}/{LONG_PROMPT}"]
+    timed["decode_attention_int8"] = \
+        timing[f"decode_attention_int8/{LONG_MAX}/{LONG_PROMPT}"]
+    all_err = {**err, **att_err}
     kernels = []
-    for name in ("cosine_topk", "cosine_topk_q8"):
-        rec = next(r for r in timing[name] if r["B"] == main_b)
+    for name, rec in timed.items():
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": err[name], "ms": rec["ms"],
+            "max_abs_err": all_err[name], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    detail["total_s"] = time.perf_counter() - t_start
+    log(f"[done] every phase passed in {detail['total_s']:.1f} s")
     out_dir = ROOT / args.out
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

@@ -1,4 +1,41 @@
 """Hand-written Hopper kernels. Each kernel package keeps the reference's
 three files: ``kernel.py`` (build + launch of the CUDA source in
 ``repro_torch/csrc``), ``ops.py`` (the wrapper: kernel for CUDA tensors,
-plain version for CPU tensors) and ``ref.py`` (the plain PyTorch version)."""
+plain version for CPU tensors) and ``ref.py`` (the plain PyTorch version).
+``_build`` builds and binds every CUDA source."""
+from __future__ import annotations
+
+
+def on_cpu(*tensors) -> bool:
+    """True when every tensor (None skipped) lies on the CPU, so a wrapper
+    runs its plain version; False when all lie on one CUDA device, so it
+    launches its kernel. Anything else raises."""
+    devs = {t.device for t in tensors if t is not None}
+    if all(d.type == "cpu" for d in devs):
+        return True
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"a kernel needs all tensors on one CUDA device "
+                         f"(or all on the CPU), got {devs}")
+    return False
+
+
+BF16_RTOL = 2.0 ** -7     # one bf16 ulp of the value, at most
+
+
+def bf16_excess(out, plain, row_rtol: float) -> float:
+    """The largest |out - plain| over its limit, for bf16 outputs of an
+    attention kernel and its plain version. The limit is 2^-7 |plain|
+    (both round an f32 result to bf16, so they may differ by one ulp) plus
+    ``row_rtol`` times the root mean square of plain's row (the last dim):
+    the sums' own error, which scales with the row's size, so a late query
+    row of a long causal prefill, whose output is small, is held as
+    tightly as an early one. At most 1 passes; a difference in a row whose
+    plain output is all 0 gives inf."""
+    import torch
+    out, plain = out.float(), plain.float()
+    lim = BF16_RTOL * plain.abs() \
+        + row_rtol * plain.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    d = (out - plain).abs()
+    ratio = torch.where(lim > 0, d / lim,
+                        torch.where(d > 0, float("inf"), 0.0))
+    return float(ratio.max()) if ratio.numel() else 0.0

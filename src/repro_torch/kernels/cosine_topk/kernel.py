@@ -1,102 +1,20 @@
-"""Build and bind the hand-written Hopper cosine top-k kernels.
+"""Build and bind the hand-written Hopper cosine top-k kernels (K1, K2).
 
-The CUDA sources live in ``repro_torch/csrc``. Each ``.cu`` file is built
-by its own ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface, loaded with ``ctypes``. Libraries are named by a hash of their
-sources and land in ``build/kernels`` at the repository root (listed in
-``.gitignore``), so a checkout builds them at first use and a rebuilt
-source never loads a stale library. All builds start together.
-
-Nothing here runs at import time: this module is imported on machines
-without ``nvcc`` or a GPU.
+The build machinery is shared by every kernel of the port
+(``repro_torch.kernels._build``): one ``nvcc`` per source for ``sm_90a``,
+a plain C entry point loaded with ``ctypes``, libraries named by source
+hash under ``build/kernels``. Nothing here runs at import time.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import BUILD_DIR, CSRC, NVCC_FLAGS, load  # noqa: F401
 
-CSRC = Path(__file__).resolve().parents[2] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-# library stem -> (source, C entry point, argtypes)
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-KERNELS = {
-    "cosine_topk": ("cosine_topk.cu", "cosine_topk_f32",
-                    [_P] * 8 + [_I] * 5 + [_F, _I, _P]),
-    "cosine_topk_q8": ("cosine_topk_q8.cu", "cosine_topk_q8",
-                       [_P] * 9 + [_I] * 5 + [_F, _I, _P]),
-}
-
-_loaded: dict[str, ctypes.CDLL] = {}
+NAMES = ("cosine_topk", "cosine_topk_q8")
+KERNELS = {n: _build.KERNELS[n] for n in NAMES}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
-                       "machine with the GPU")
-
-
-def _lib_path(name: str) -> Path:
-    src = CSRC / KERNELS[name][0]
-    h = hashlib.sha256()
-    for f in sorted(CSRC.glob("*.cuh")) + [src]:
-        h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-
-
-def build(names=None) -> dict[str, str]:
-    """Build the named kernels (default: all) that have no library yet, one
-    ``nvcc`` process per source, all started together. Returns
-    {name: ptxas report} for the ones built now."""
-    names = list(KERNELS) if names is None else list(names)
-    todo = [n for n in names if not _lib_path(n).exists()]
-    if not todo:
-        return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for n in todo:
-        out = _lib_path(n)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / KERNELS[n][0])]
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.PIPE, text=True),
-                    tmp, out)
-    reports, errors = {}, []
-    for n, (p, tmp, out) in procs.items():
-        stdout, stderr = p.communicate()
-        if p.returncode != 0:
-            errors.append(f"{n}: nvcc exit {p.returncode}\n{stderr}")
-            continue
-        os.replace(tmp, out)
-        reports[n] = stdout + stderr
-    if errors:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
-    return reports
-
-
-def load(name: str) -> ctypes._CFuncPtr:
-    """The C entry point of kernel ``name``, built on first use."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _loaded[name] = lib
-    _, sym, argtypes = KERNELS[name]
-    fn = getattr(lib, sym)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+def build(names=NAMES) -> dict[str, str]:
+    """Build K1 and K2 (or ``names``) where no library exists yet, in
+    parallel; returns {name: ptxas report} for the ones built now."""
+    return _build.build(names)

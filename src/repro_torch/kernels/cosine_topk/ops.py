@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels import _build, on_cpu
 from repro_torch.kernels.cosine_topk import kernel as K
 from repro_torch.kernels.cosine_topk import ref
 
@@ -47,18 +48,6 @@ def quantize_rows(rows: np.ndarray, width: int | None = None
     err = np.linalg.norm(rows.astype(np.float64) - deq.astype(np.float64),
                          axis=1)
     return codes, scales, err
-
-
-def _on_cpu(*tensors) -> bool:
-    """True when every tensor lies on the CPU; CUDA tensors must all share
-    one device. Anything else raises."""
-    devs = {t.device for t in tensors if t is not None}
-    if all(d.type == "cpu" for d in devs):
-        return True
-    if len(devs) != 1 or next(iter(devs)).type != "cuda":
-        raise ValueError(f"cosine top-k needs all tensors on one CUDA "
-                         f"device (or all on the CPU), got {devs}")
-    return False
 
 
 def _lane_padded(x: torch.Tensor, width: int, dtype) -> torch.Tensor:
@@ -100,11 +89,6 @@ def _outputs(B: int, T: int, k: int, device):
             torch.empty((B,), dtype=torch.uint8, device=device))
 
 
-def _check_rc(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-
-
 def cosine_topk(queries: torch.Tensor, centroids: torch.Tensor, k: int = 1,
                 valid: torch.Tensor | None = None, theta: float = 2.0,
                 block_n: int = 512, early_exit: bool = False,
@@ -122,7 +106,7 @@ def cosine_topk(queries: torch.Tensor, centroids: torch.Tensor, k: int = 1,
     _check_k(k)
     B, D = queries.shape
     N, Dc = centroids.shape
-    if _on_cpu(queries, centroids, valid):
+    if on_cpu(queries, centroids, valid):
         out = ref.cosine_topk_ref(queries, centroids, k, valid, theta,
                                   early_exit, block_n)
     elif B == 0:
@@ -143,7 +127,7 @@ def cosine_topk(queries: torch.Tensor, centroids: torch.Tensor, k: int = 1,
                     idx.data_ptr(), hit.data_ptr(), B, N, Dp, k, bn,
                     float(np.float32(theta)), int(bool(early_exit)),
                     torch.cuda.current_stream(dev).cuda_stream)
-        _check_rc(rc, "cosine_topk")
+        _build.check_rc(rc, "cosine_topk")
         cosine_topk.launches += 1
         out = (vals, idx, hit.bool())
     return out if return_hit else out[:2]
@@ -167,7 +151,7 @@ def cosine_topk_q8(queries: torch.Tensor, codes: torch.Tensor,
     _check_k(k)
     B, D = queries.shape
     N, Dc = codes.shape
-    if _on_cpu(queries, codes, scales, valid):
+    if on_cpu(queries, codes, scales, valid):
         out = ref.cosine_topk_q8_ref(queries, codes, scales, k, valid,
                                      theta, margin, early_exit, block_n)
     elif B == 0:
@@ -192,7 +176,7 @@ def cosine_topk_q8(queries: torch.Tensor, codes: torch.Tensor,
                     idx.data_ptr(), hit.data_ptr(), B, N, Dp, k, bn, thr,
                     int(bool(early_exit)),
                     torch.cuda.current_stream(dev).cuda_stream)
-        _check_rc(rc, "cosine_topk_q8")
+        _build.check_rc(rc, "cosine_topk_q8")
         cosine_topk_q8.launches += 1
         out = (vals, idx, hit.bool())
     return out if return_hit else out[:2]

@@ -1,0 +1,72 @@
+"""Wrapper around the prefill attention kernel (K4).
+
+For CUDA tensors ``flash_attention`` launches the hand-written kernel (see
+``kernel.py``) on the current stream, or raises; for CPU tensors it runs
+the plain version in ``ref.py`` with P rounded to v's dtype before P·V,
+as the bf16 kernel does. There is no fallback from one to the
+other. Launches are counted in ``flash_attention.launches``.
+
+Unlike the Pallas wrapper, the kernel reads q/k/v in the (B, L, H, Dh)
+layout through their strides (no transposed or padded copies), and takes
+an explicit ``q_offset`` and a ragged ``kv_valid_len``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import on_cpu
+from repro_torch.kernels.flash_attention import kernel as K
+from repro_torch.kernels.flash_attention import ref
+
+DH_MAX = 256
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    prefix_len: int = 0, q_offset: Optional[int] = None,
+                    kv_valid_len: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """q (B, Lq, H, Dh), k/v (B, Lkv, Hkv, Dh) -> (B, Lq, H, Dh) in q's
+    dtype. ``q_offset`` is the position of q[:, 0] (default ``Lkv - Lq``,
+    right-aligned queries); ``kv_valid_len`` (B,) masks keys at or past it.
+    The mask is ``ref.attention_mask``'s."""
+    B, Lq, H, Dh = q.shape
+    Lkv, Hkv = k.shape[1], k.shape[2]
+    if q_offset is None:
+        q_offset = Lkv - Lq
+    if on_cpu(q, k, v, kv_valid_len):
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 prefix_len=prefix_len, q_offset=q_offset,
+                                 kv_valid_len=kv_valid_len,
+                                 p_dtype=v.dtype)
+    if k.shape != (B, Lkv, Hkv, Dh) or v.shape != k.shape:
+        raise ValueError(f"k/v must be (B, Lkv, Hkv, {Dh}) like q's batch and "
+                         f"head dim, got {tuple(k.shape)}, {tuple(v.shape)}")
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"H={H} must be a multiple of Hkv={Hkv}")
+    if not 1 <= Dh <= DH_MAX:
+        raise ValueError(f"head dim {Dh} outside [1, {DH_MAX}]")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must all be float32 or all bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("q/k/v need unit stride in the head dim")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if kv_valid_len is not None:
+        if kv_valid_len.shape != (B,):
+            raise ValueError(f"kv_valid_len must have shape ({B},)")
+        kv_valid_len = kv_valid_len.to(torch.int32).contiguous()
+    out = torch.empty((B, Lq, H, Dh), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    K.launch(q, k, v, out, kv_valid_len, causal=causal,
+             window=window or 0, prefix_len=prefix_len, q_offset=q_offset)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

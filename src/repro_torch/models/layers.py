@@ -9,8 +9,12 @@ Conventions (kept from the reference so the two can be compared):
   * compute dtype follows the inputs (bf16 for the big configs); softmax,
     norms and attention scores accumulate in fp32.
 
-The attention functions are the reference's jnp versions (the JAX package
-runs them outside any Pallas kernel), written as plain torch.
+The attention functions route CUDA tensors to the hand-written Hopper
+kernels (K4 ``kernels/flash_attention``, K3 ``kernels/decode_attention``),
+which launch or raise. CPU tensors run ``flash_attention_plain`` and
+``decode_attention_plain``: the kernels' plain versions (``ref.py``) in
+the reference model's form (``repro/models/layers.py``), including the
+cast of P to the value dtype before P·V.
 """
 from __future__ import annotations
 
@@ -19,6 +23,11 @@ from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention import ref as da_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 
 Params = dict[str, Any]
 
@@ -89,7 +98,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# attention (plain torch)
+# attention
 # ---------------------------------------------------------------------------
 
 
@@ -98,66 +107,85 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     prefix_len: int = 0, q_offset: int = 0,
                     kv_valid_len: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """Softmax attention with GQA, the reference's masks and fp32 scores.
+    """Softmax attention with GQA and the reference's masks: K4 on CUDA
+    tensors, ``flash_attention_plain`` on CPU tensors (arguments as
+    there)."""
+    if q.is_cuda:
+        return fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                      prefix_len=prefix_len,
+                                      q_offset=q_offset,
+                                      kv_valid_len=kv_valid_len)
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 prefix_len=prefix_len, q_offset=q_offset,
+                                 kv_valid_len=kv_valid_len)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, causal: bool = True,
+                          window: Optional[int] = None, prefix_len: int = 0,
+                          q_offset: int = 0,
+                          kv_valid_len: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Softmax attention with GQA, the reference's masks and fp32 scores,
+    P rounded to v's dtype before P·V: K4's plain version
+    (``fa_ref.attention_ref``) in the reference model layer's form.
 
     q: (B, Lq, Hq, Dq); k: (B, Lkv, Hkv, Dq); v: (B, Lkv, Hkv, Dv).
     q_offset: global position of q[0]; kv_valid_len: optional (B,) count of
     valid kv positions. Fully masked rows return 0, as the reference's
     online-softmax recurrence does. Returns (B, Lq, Hq, Dv).
     """
-    B, Lq, Hq, Dq = q.shape
-    _, Lkv, Hkv, Dv = v.shape
-    G = Hq // Hkv
-    scale = 1.0 / math.sqrt(Dq)
-    qg = q.reshape(B, Lq, Hkv, G, Dq)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
-    qpos = q_offset + torch.arange(Lq, device=q.device)[:, None]
-    kpos = torch.arange(Lkv, device=q.device)[None, :]
-    mask = torch.ones((Lq, Lkv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (kpos <= qpos)
-    if window is not None:
-        mask = mask & (kpos > qpos - window)
-    if prefix_len:
-        mask = mask | (kpos < prefix_len)
-    mask = mask[None, None, None]
-    if kv_valid_len is not None:
-        ragged = kpos[0][None, :] < kv_valid_len.long()[:, None]   # (B, Lkv)
-        mask = mask & ragged[:, None, None, None, :]
-    s = s.masked_fill(~mask, float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    p = torch.where(torch.isfinite(m), p, torch.zeros_like(p))
-    l = p.sum(dim=-1)                                        # (B,Hkv,G,Lq)
-    pv = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
-    l = l.permute(0, 3, 1, 2)[..., None]                     # (B,Lq,Hkv,G,1)
-    out = pv / l.clamp_min(1e-37)
-    return out.reshape(B, Lq, Hq, Dv).to(q.dtype)
+    return fa_ref.attention_ref(q, k, v, causal=causal, window=window,
+                                prefix_len=prefix_len, q_offset=q_offset,
+                                kv_valid_len=kv_valid_len, p_dtype=v.dtype)
+
+
+def kv_dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """int8 codes * per-(position, head) scale, in ``dtype`` (the reference
+    model's ``kv_dequant``)."""
+    return da_ref.dequant(q, scale, dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, *, kv_len: torch.Tensor,
-                     window: Optional[int] = None) -> torch.Tensor:
-    """Single-token attention over a KV cache.
+                     window: Optional[int] = None,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Single-token attention over a KV cache: K3 on CUDA tensors (int8
+    codes and f16 scales read in place), ``decode_attention_plain`` on CPU
+    tensors. q: (B, 1, Hq, D); caches (B, Lmax, Hkv, D), int8 when
+    ``k_scale``/``v_scale`` (B, Lmax, Hkv) are given; kv_len: (B,)."""
+    if q.is_cuda:
+        if window is not None:
+            raise NotImplementedError("decode attention with a window has "
+                                      "no kernel yet")
+        out = da_ops.decode_attention(q[:, 0], k_cache, v_cache, kv_len,
+                                      k_scale=k_scale, v_scale=v_scale)
+        return out[:, None]
+    return decode_attention_plain(q, k_cache, v_cache, kv_len=kv_len,
+                                  window=window, k_scale=k_scale,
+                                  v_scale=v_scale)
+
+
+def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, *, kv_len: torch.Tensor,
+                           window: Optional[int] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Single-token attention over a KV cache, the reference model's form
+    of K3's plain version (``da_ref.decode_attention_ref``): an int8 cache
+    is first dequantized into q's dtype (``kv_dequant``), and the
+    normalised P is rounded to the value dtype before P·V.
 
     q: (B, 1, Hq, D); k_cache/v_cache: (B, Lmax, Hkv, D); kv_len: (B,)
     number of valid cache entries.
     """
-    B, Lmax, Hkv, Dv = v_cache.shape
-    Hq = q.shape[2]
-    G = Hq // Hkv
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    qg = q.reshape(B, Hkv, G, q.shape[-1])
-    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float()) * scale
-    kpos = torch.arange(Lmax, device=q.device)[None, :]
-    mask = kpos < kv_len.long()[:, None]
-    if window is not None:
-        mask = mask & (kpos > kv_len.long()[:, None] - 1 - window)
-    s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
-                       v_cache.float())
-    return out.reshape(B, 1, Hq, Dv).to(q.dtype)
+    out = da_ref.decode_attention_ref(
+        q[:, 0], k_cache, v_cache, kv_len, k_scale=k_scale, v_scale=v_scale,
+        window=window, dequant_dtype=q.dtype,
+        p_dtype=q.dtype if k_scale is not None else v_cache.dtype)
+    return out[:, None]
 
 
 # ---------------------------------------------------------------------------

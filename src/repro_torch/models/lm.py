@@ -11,8 +11,13 @@ Public entry points:
 Params are nested dicts; the reference's layer-stacked ``blocks`` pytree is
 a list of per-layer dicts here (``repro_torch.weights`` converts). The KV
 cache is updated in place (the reference returns a new pytree). MoE, MLA,
-SSM, encoder-decoder, VLM, sliding windows and the int8 KV cache arrive in
-later slices and raise ``NotImplementedError``.
+SSM, encoder-decoder, VLM and sliding windows arrive in later slices and
+raise ``NotImplementedError``.
+
+``kv_dtype="int8"`` keeps the reference's int8 KV cache: int8 codes with a
+per-(position, head) f16 scale (``kv_quant``). On the card, decode hands
+the codes and scales straight to the K3 kernel; on the CPU it dequantizes
+into the model dtype first, as the reference model does.
 """
 from __future__ import annotations
 
@@ -34,8 +39,7 @@ def _dtype(cfg: ModelConfig):
 def _check_dense(cfg: ModelConfig) -> None:
     if (cfg.is_moe or cfg.ssm_kind or cfg.is_encoder_decoder
             or cfg.attn_kind != "gqa" or cfg.family in ("vlm", "audio")
-            or cfg.window is not None or cfg.kv_dtype == "int8"
-            or cfg.first_dense_layers):
+            or cfg.window is not None or cfg.first_dense_layers):
         raise NotImplementedError(
             f"{cfg.name}: only the dense GQA kind is ported so far")
 
@@ -101,6 +105,21 @@ def cache_len(cfg: ModelConfig, max_len: int) -> int:
     return max_len
 
 
+kv_dequant = L.kv_dequant
+
+
+def kv_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., H, D) -> (int8 codes, f16 per-(..., H) symmetric scale). The
+    codes come from the f32 scale, which is then stored as f16 (the
+    reference's ``kv_quant``; ``torch.round`` rounds half to even, as
+    ``jnp.round`` does)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.round(xf / scale[..., None])
+    return q.to(torch.int8), scale.to(torch.float16)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device: DeviceLike = None) -> Params:
     _check_dense(cfg)
@@ -108,8 +127,28 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     dtype = dtype or _dtype(cfg)
     shape = (cfg.n_layers, batch, cache_len(cfg, max_len), cfg.n_kv_heads,
              cfg.head_dim)
+    if cfg.kv_dtype == "int8":
+        # int8 codes + per-(position, head) f16 scales
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.float16,
+                                       device=dev),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.float16,
+                                       device=dev)}
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _write_kv(cache: Params, i: int, idx, k: torch.Tensor,
+              v: torch.Tensor) -> None:
+    """Store k/v (quantized for an int8 cache) at ``cache[key][i][idx]``."""
+    if "k_scale" in cache:
+        (kq, ks), (vq, vs) = kv_quant(k), kv_quant(v)
+        cache["k_scale"][i][idx] = ks
+        cache["v_scale"][i][idx] = vs
+        k, v = kq, vq
+    cache["k"][i][idx] = k.to(cache["k"].dtype)
+    cache["v"][i][idx] = v.to(cache["v"].dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -129,9 +168,8 @@ def prefill(p: Params, cfg: ModelConfig, batch: dict, cache: Params
     for i, bp in enumerate(p["blocks"]):
         def attend(h, bp=bp, i=i):
             q, k, v = L.gqa_qkv(bp["attn"], cfg, h, positions)
-            cache["k"][i, :, :Lx] = k.to(cache["k"].dtype)
-            cache["v"][i, :, :Lx] = v.to(cache["v"].dtype)
             a = L.flash_attention(q, k, v, causal=True)
+            _write_kv(cache, i, (slice(None), slice(0, Lx)), k, v)
             return a.reshape(B, Lx, -1) @ bp["attn"]["wo"]
         x = _block(bp, cfg, x, attend)
     logits = unembed(p, cfg, L.rmsnorm(p["final_norm"], x[:, -1:]))
@@ -153,14 +191,19 @@ def decode_step(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
         kv_len = pos + 1
     rows = torch.arange(B, device=dev)
     positions = pos[:, None]                                  # (B, 1)
+
+    def scale(kv, i):
+        s = cache.get(f"{kv}_scale")
+        return None if s is None else s[i]
+
     x = embed_tokens(p, cfg, tokens)
     for i, bp in enumerate(p["blocks"]):
         def attend(h, bp=bp, i=i):
             q, k, v = L.gqa_qkv(bp["attn"], cfg, h, positions)
-            cache["k"][i, rows, pos] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][i, rows, pos] = v[:, 0].to(cache["v"].dtype)
+            _write_kv(cache, i, (rows, pos), k[:, 0], v[:, 0])
             a = L.decode_attention(q, cache["k"][i], cache["v"][i],
-                                   kv_len=kv_len)
+                                   kv_len=kv_len, k_scale=scale("k", i),
+                                   v_scale=scale("v", i))
             return a.reshape(B, 1, -1) @ bp["attn"]["wo"]
         x = _block(bp, cfg, x, attend)
     logits = unembed(p, cfg, L.rmsnorm(p["final_norm"], x))

@@ -1,0 +1,173 @@
+"""The hand-written attention kernels on the card, held against their plain
+PyTorch versions on the same CUDA tensors: K4 (prefill) over every mask
+mode, f32 and bf16, head dims 64, 128 and 256; K3 (decode) with f32, bf16
+and int8 caches read in place. The kernels have no CPU mode, so these tests
+are marked ``gpu`` and skip without a CUDA device. The file imports neither
+jax nor the reference package:
+
+    PYTHONPATH=src python -m pytest tests/test_torch_cuda_attention.py
+
+Tolerances: atol 2e-5 for f32 outputs (the reference's own, softmax
+attention summed in another order). bf16 outputs: |kernel - plain| <=
+2^-7 |plain| (one bf16 ulp) + ROW_RTOL x the rms of plain's row
+(``kernels.bf16_excess``). K4 rounds P to bf16 before P·V, as the model
+layer does, and its plain version is given the same rounding; the two
+round at different running maxima, which moves an output by about 0.002
+of its row's rms, so K4 is held at 2^-5 of it. K3 is f32 throughout, as
+its plain version is, and is held at 2^-10.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import bf16_excess
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention import ref as da_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+
+pytestmark = pytest.mark.gpu
+
+DEV = "cuda"
+ATOL_F32 = 2e-5
+ROW_RTOL = {"flash": 2.0 ** -5, "decode": 2.0 ** -10}
+
+FLASH_MODES = {
+    "causal": dict(causal=True),
+    "bidirectional": dict(causal=False),
+    "window": dict(causal=True, window=37),
+    "prefix": dict(causal=True, prefix_len=20),
+    "offset-ragged": dict(causal=True, q_offset=70, ragged=True),
+    "bidirectional-ragged": dict(causal=False, ragged=True),
+    "right-aligned": dict(causal=True, Lq=45),
+}
+
+
+@pytest.fixture(autouse=True)
+def _needs_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+
+
+def _gen(seed):
+    return torch.Generator(device=DEV).manual_seed(seed)
+
+
+def _randn(shape, g, dtype):
+    return torch.randn(shape, generator=g, device=DEV).to(dtype)
+
+
+def _assert_agree(out, plain, kernel):
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(out, plain, atol=ATOL_F32, rtol=0)
+    else:
+        assert bf16_excess(out, plain, ROW_RTOL[kernel]) <= 1.0
+
+
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("mode", list(FLASH_MODES))
+def test_flash_kernel_matches_plain(mode, dtype, Dh):
+    kw = dict(FLASH_MODES[mode])
+    B, Lkv, H, Hkv = 2, 150, 4, 2
+    Lq = kw.pop("Lq", Lkv)
+    g = _gen(Dh + len(mode))
+    # q/k/v are strided views into one packed projection, read in place
+    qkv = _randn((B, Lkv, H + 2 * Hkv, Dh), g, dtype)
+    q = qkv[:, Lkv - Lq:, :H]
+    k, v = qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
+    if kw.pop("ragged", False):
+        kw["kv_valid_len"] = torch.tensor([150, 61], device=DEV)
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    plain = fa_ref.attention_ref(q, k, v, p_dtype=v.dtype, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    assert out.shape == (B, Lq, H, Dh) and out.dtype == dtype
+    _assert_agree(out, plain, "flash")
+
+
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8-f32q", "int8-bf16q"])
+def test_decode_kernel_matches_plain(kind, Dh):
+    B, H, Hkv, Lc = 3, 10, 2, 700          # G = 5, three 256-row splits
+    qdt = torch.bfloat16 if kind.endswith("bf16") or kind.endswith("bf16q") \
+        else torch.float32
+    g = _gen(Dh + len(kind))
+    q = _randn((B, H, Dh), g, qdt)
+    # caches are per-layer views of a stacked cache, read in place
+    kv = _randn((2, 2, B, Lc, Hkv, Dh), g, torch.float32)
+    kv_len = torch.tensor([1, 700, 413], device=DEV)
+    scales = {}
+    if kind.startswith("int8"):
+        amax = kv.abs().amax(dim=-1)
+        s = (amax / 127.0).to(torch.float16)
+        codes = torch.round(kv / s.float()[..., None]).clamp(-127, 127)
+        kv = codes.to(torch.int8)
+        scales = dict(k_scale=s[0, 1], v_scale=s[1, 1])
+    else:
+        kv = kv.to(qdt)
+    k, v = kv[0, 1], kv[1, 1]
+    before = (da_ops.decode_attention.launches,
+              da_ops.decode_attention.launches_int8)
+    out = da_ops.decode_attention(q, k, v, kv_len, **scales)
+    plain = da_ref.decode_attention_ref(q, k, v, kv_len, **scales)
+    torch.cuda.synchronize()
+    assert da_ops.decode_attention.launches == before[0] + 1
+    assert da_ops.decode_attention.launches_int8 == before[1] + bool(scales)
+    assert out.shape == (B, H, Dh) and out.dtype == qdt
+    _assert_agree(out, plain, "decode")
+
+
+def test_model_layers_route_cuda_tensors_to_the_kernels():
+    from repro_torch.models import layers as L
+    g = _gen(1)
+    q = _randn((2, 9, 4, 64), g, torch.float32)
+    k = _randn((2, 9, 2, 64), g, torch.float32)
+    f0, d0 = fa_ops.flash_attention.launches, da_ops.decode_attention.launches
+    out = L.flash_attention(q, k, k, causal=True)
+    torch.testing.assert_close(
+        out, L.flash_attention_plain(q, k, k, causal=True), atol=2e-5,
+        rtol=0)
+    kv_len = torch.tensor([9, 4], device=DEV)
+    dec = L.decode_attention(q[:, :1], k, k, kv_len=kv_len)
+    torch.testing.assert_close(
+        dec, L.decode_attention_plain(q[:, :1], k, k, kv_len=kv_len),
+        atol=2e-5, rtol=0)
+    assert fa_ops.flash_attention.launches == f0 + 1
+    assert da_ops.decode_attention.launches == d0 + 1
+    with pytest.raises(NotImplementedError):
+        L.decode_attention(q[:, :1], k, k, kv_len=kv_len, window=4)
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q.half(), k.half(), k.half())
+
+
+def test_int8_engine_kernels_match_plain_layers(monkeypatch):
+    """Reduced qwen3 in fp32 with the int8 KV cache on the card: prefill
+    and decode logits through K4 + K3 (int8 codes read in place) against
+    the plain layers (dequantize, then attend) from the same cache. atol
+    1e-3: a k/v value within an ulp of a rounding boundary may take the
+    neighbouring code in the two runs, one code step being 1/127 of its
+    row's largest magnitude."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    cfg = get_config("qwen3-14b").reduced().replace(dtype="float32",
+                                                    kv_dtype="int8")
+    params = lm.init_params(_gen(0), cfg, device=DEV)
+    toks = torch.arange(3, 23, device=DEV).reshape(2, 10) * 37 \
+        % cfg.vocab_size
+    cache = lm.init_cache(cfg, 2, 16, device=DEV)
+    d0 = da_ops.decode_attention.launches_int8
+    last, cache = lm.prefill(params, cfg, {"tokens": toks}, cache)
+    nxt = torch.argmax(last, dim=-1)[:, None]
+    start = {k: v.clone() for k, v in cache.items()}
+    dec, _ = lm.decode_step(params, cfg, nxt, cache, 10)
+    assert da_ops.decode_attention.launches_int8 == d0 + cfg.n_layers
+    monkeypatch.setattr(L, "flash_attention", L.flash_attention_plain)
+    monkeypatch.setattr(L, "decode_attention", L.decode_attention_plain)
+    plain_last, _ = lm.prefill(params, cfg, {"tokens": toks},
+                               lm.init_cache(cfg, 2, 16, device=DEV))
+    plain_dec, _ = lm.decode_step(params, cfg, nxt, start, 10)
+    torch.testing.assert_close(last, plain_last, atol=1e-3, rtol=0)
+    torch.testing.assert_close(dec, plain_dec, atol=1e-3, rtol=0)
