@@ -13,12 +13,16 @@ Phases (any failure exits non-zero and prints no result line):
               at serving shapes (D=768, N=65,536 rows, B in {0, 1, 4, 8,
               32}, k in {1, 16}, early exit on/off, a valid mask with
               holes), then timed beside the plain version and one library
-              call (torch.topk over a masked q @ c.T, a yardstick only);
+              call (torch.topk over a masked q @ c.T, a yardstick only),
+              with a torch.profiler split into pass 1 and pass 2 at B=4;
               K4 against its plain version over every mask mode (causal,
               bidirectional, window, prefix, ragged kv with a q offset,
-              right-aligned queries) in f32 and bf16, and K3 with f32, bf16
-              and int8 caches; both at the main path's shapes too, then
-              timed there beside the plain version, a bound and
+              right-aligned queries) in f32 and bf16, bf16 at shapes
+              ragged against its 128-row and 128-key tiles, with a kv ring
+              that wraps four times and with qwen3's 40/8 heads, and K3
+              with f32, bf16 and int8 caches; both at the main path's
+              shapes too, then timed there (K4's TFLOP/s and share of its
+              bound logged) beside the plain version, a bound and
               scaled_dot_product_attention (a yardstick only, never called
               by the port); bf16 outputs are held to 2^-7 |plain| + c x
               the rms of the output row (kernels.bf16_excess), and a kv
@@ -58,7 +62,8 @@ Phases (any failure exits non-zero and prints no result line):
               prefill attention must exceed the limit. Every K3/K4 call
               of the prefills and steps is re-checked at its own
               arguments. Two more decode steps run under torch.profiler:
-              the device's busy time per step and its idle share.
+              the device's busy time per step and its idle share; then one
+              more prefill: its device busy time and K4's share of it.
 
 The line before the last is a JSON object with one entry per kernel (K3's
 int8 mode its own entry, with its own bound); the line before it is the
@@ -350,8 +355,26 @@ def phase_timing(torch, seed: int) -> dict:
             log(f"[timing] {fn} B={B} k={k}: kernel {rec['ms']:.4f} ms, "
                 f"plain {rec['plain_ms']:.4f} ms, library "
                 f"{rec['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
-                f"({b_by})")
+                f"({b_by}, {b_ms / rec['ms']:.3f} of it)")
+            if B == SPLIT_B:
+                rec["device_split_ms"] = split = pass_split(torch, kern)
+                log(f"[timing] {fn} B={B}, torch.profiler: " + (
+                    "; ".join(f"{n} {t:.4f} ms" for n, t in split.items())
+                    or "no device activity recorded (not measured)"))
     return out
+
+
+SPLIT_B = 4     # the served batch: K1/K2 traced pass by pass there
+
+
+def pass_split(torch, fn) -> dict:
+    """Device ms per call of each of the kernel's own launches (pass 1
+    ``sims_tile_*`` and pass 2 ``merge_tiles``), from a torch.profiler
+    trace of 10 calls; the wrapper's small PyTorch copies are left out."""
+    sys.path.insert(0, str(ROOT))
+    from tools.trace_kernels import device_kernel_ms
+    return {n.split("(")[0]: t for n, t in
+            device_kernel_ms(torch, fn, iters=10).items() if "ctk::" in n}
 
 
 # ---------------------------------------------------------------------------
@@ -387,6 +410,17 @@ FLASH_MODES = {
     "offset-ragged": dict(causal=True, q_offset=150, kv_valid_len=[300, 97]),
     "right-aligned": dict(causal=True, Lq=77),
 }
+
+
+FLASH_SWEEP = (
+    (dict(B=2, Lq=77, Lkv=333, H=4, Hkv=2, Dh=128), dict(causal=True)),
+    (dict(B=2, Lq=300, Lkv=333, H=4, Hkv=2, Dh=128), dict(causal=False)),
+    (dict(B=1, Lq=1000, Lkv=1000, H=2, Hkv=1, Dh=128), dict(causal=True)),
+    (dict(B=1, Lq=1000, Lkv=1000, H=2, Hkv=1, Dh=128),
+     dict(causal=True, window=300)),
+    (dict(B=3, Lq=260, Lkv=260, H=40, Hkv=8, Dh=128),
+     dict(causal=True, kv_valid_len=[260, 77, 129])),
+)
 
 
 def _dtype_name(dtype) -> str:
@@ -492,6 +526,11 @@ def phase_attention_kernels(torch, seed: int) -> Agreement:
         shape = dict(B=2, Lq=kw.pop("Lq", 300), Lkv=300, H=8, Hkv=2, Dh=128)
         for dtype in (torch.float32, torch.bfloat16):
             compare_flash(torch, agree, shape, dtype, seed + 10 + i, **kw)
+    # bf16 K4 against its tiles (128 q rows, 128 keys in a 2-stage ring):
+    # ragged edges, a ring that wraps four times, qwen3's 40/8 heads
+    for i, (shape, kw) in enumerate(FLASH_SWEEP):
+        compare_flash(torch, agree, shape, torch.bfloat16, seed + 50 + i,
+                      **kw)
     compare_flash(torch, agree, EMBED_SHAPE, torch.float32, seed + 20,
                   causal=False)
     compare_flash(torch, agree, PREFILL_SHAPE, torch.bfloat16, seed + 21,
@@ -509,7 +548,7 @@ def phase_attention_kernels(torch, seed: int) -> Agreement:
     return agree
 
 
-FAULT_TILE = 64     # K4's kv tile at Dh <= 128; K3 splits 256 positions
+FAULT_TILE = 64     # half of K4's 128-key kv tile; K3 splits 256 positions
 
 
 def flash_tile_dropped(torch, q, k, v):
@@ -607,11 +646,14 @@ def phase_attention_timing(torch, seed: int) -> dict:
                "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=causal, enable_gqa=H != Hkv)),
                "bound_ms": b_ms, "bound_by": b_by}
+        rec["tflops"] = 4.0 * B * H * Dh * pairs / rec["ms"] / 1e9
         out[f"flash_attention/{label}"] = rec
         log(f"[timing] flash_attention {label} {shape} "
-            f"{rec['dtype']}: kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['dtype']}: kernel {rec['ms']:.4f} ms "
+            f"({rec['tflops']:.1f} TFLOP/s), plain "
             f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"bound {b_ms:.4f} ms ({b_by}); the kernel takes "
+            f"{b_ms / rec['ms']:.3f} of its bound")
     B, H, Hkv, Dh = (DECODE_SHAPE[x] for x in ("B", "H", "Hkv", "Dh"))
     for Lc, n_kv in DECODE_TIMED:
         for int8 in (False, True):
@@ -1151,6 +1193,18 @@ def trace_decode(torch, eng, toks, steps: int = 2) -> dict:
         for _ in range(steps):
             toks = eng.decode_active(toks)
         torch.cuda.synchronize()
+    tr = device_summary(prof, steps)
+    if not tr:
+        return {}
+    return {"steps": steps, "device_events": tr["device_events"],
+            "busy_ms_per_step": tr["busy_ms"],
+            "top_kernels_ms_per_step": tr["top_kernels_ms"]}
+
+
+def device_summary(prof, n: int) -> dict:
+    """Per one of ``n`` repeats: the device's busy ms (the union of the
+    kernel and copy intervals the profiler recorded on the card), ms by
+    kernel name and the largest kernels. Empty without device events."""
     dev = sorted((e.time_range.start, e.time_range.end, e.name)
                  for e in prof.events()
                  if str(e.device_type).endswith("CUDA"))
@@ -1161,12 +1215,32 @@ def trace_decode(torch, eng, toks, steps: int = 2) -> dict:
     for t0, t1, name in dev:
         busy += max(0.0, t1 - max(t0, end))
         end = max(end, t1)
-        by_name[name] = by_name.get(name, 0.0) + (t1 - t0)
+        by_name[name] = by_name.get(name, 0.0) + (t1 - t0) / 1e3 / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"steps": steps, "device_events": len(dev),
-            "busy_ms_per_step": busy / 1e3 / steps,
-            "top_kernels_ms_per_step": [(n[:120], t / 1e3 / steps)
-                                        for n, t in top]}
+    return {"device_events": len(dev), "busy_ms": busy / 1e3 / n,
+            "by_name_ms": by_name,
+            "top_kernels_ms": [(k[:120], t) for k, t in top]}
+
+
+def trace_prefill(torch, eng, prompt) -> dict:
+    """One prefill of ``prompt`` into slot 0 under torch.profiler: the
+    device's busy ms, K4's ms (the ``flash_bf16`` launches) and its share
+    of the busy time, and the largest kernels. Empty where the profiler
+    recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.prefill_into(0, prompt)
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    tr = device_summary(prof, 1)
+    if not tr:
+        return {}
+    k4 = sum(t for k, t in tr.pop("by_name_ms").items() if "flash_bf16" in k)
+    return {"profiled_wall_ms": wall, "k4_ms": k4,
+            "k4_share_of_busy": k4 / tr["busy_ms"], **tr}
 
 
 def rel_diff(torch, a, b) -> float:
@@ -1316,6 +1390,18 @@ def phase_engine_long(torch, np, models, att_recorders, seed: int,
             f"{1 - busy / rec['decode_ms_median']:.3f} of the unprofiled "
             f"median step; most device time: " + "; ".join(
                 f"{n} {t:.3f} ms" for n, t in tr["top_kernels_ms_per_step"]))
+    rec["prefill_trace"] = pt = trace_prefill(torch, eng, prompts[0])
+    if not pt:
+        log(f"[engine-long] {kv_dtype} KV: the profiler recorded no device "
+            f"activity in a prefill; its split is not measured")
+    else:
+        log(f"[engine-long] {kv_dtype} KV, profiled prefill of "
+            f"{LONG_PROMPT} tokens: device busy {pt['busy_ms']:.3f} ms "
+            f"({pt['device_events']} device events, "
+            f"{pt['profiled_wall_ms']:.1f} ms on the host clock); K4 {pt['k4_ms']:.3f} ms, "
+            f"{pt['k4_share_of_busy']:.3f} of the busy time; most device "
+            f"time: " + "; ".join(f"{n} {t:.3f} ms"
+                                  for n, t in pt["top_kernels_ms"]))
     del eng
     torch.cuda.empty_cache()
     return rec

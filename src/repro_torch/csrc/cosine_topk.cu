@@ -14,9 +14,11 @@
 // warp streams whole rows with coalesced 16-byte loads and does the 8 dot
 // products against queries held in shared memory, so each row is read
 // once per 8 queries; the tile's sims stay in shared memory and one warp
-// per query selects the tile's top-k. Pass 2 (topk_common.cuh) merges the
-// tiles in order, which reproduces the sequential kernel's early exit.
-// Work on tiles that early exit skips is not saved yet.
+// per query selects the tile's top-k. Pass 2 (topk_common.cuh, shared with
+// K2) finds the early-exit stop tile from a prefix over the per-tile bests
+// and takes the top-k of the tiles before it, one warp per query, which
+// reproduces the sequential kernel's result. Work on tiles that early exit
+// skips is not saved yet.
 #include "topk_common.cuh"
 
 namespace ctk {
@@ -101,7 +103,6 @@ extern "C" int cosine_topk_f32(const float* q, const float* rows,
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
-  merge_tiles<<<1, MERGE_THREADS, 0, s>>>(part_v, part_i, B, T, k, theta,
-                                          early_exit, vals, idx, hit);
-  return (int)cudaGetLastError();
+  return (int)launch_merge(part_v, part_i, B, T, k, theta, early_exit,
+                           vals, idx, hit, s);
 }

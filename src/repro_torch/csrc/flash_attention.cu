@@ -13,22 +13,39 @@
 // operations. The embedder's f32 attention (L = 24) is tiny and bound by
 // launch latency.
 //
-// Design: one CTA per (q tile, head, batch). Head h reads kv head
-// h / (H / Hkv) in place, through the caller's strides: no transposed or
-// padded copy. The CTA loops over kv tiles, keeping the running max m, sum
-// l and accumulator in registers (bf16) or shared memory (f32), and divides
-// by l at the end (0 for a fully masked row). The loop bounds skip the kv
-// tiles that the causal mask or the window masks entirely, and tiles past
-// the sequence's kv length.
-//   * bf16: 4 warps, 16 query rows each (64-row q tile), 64 keys a tile
-//     (32 at Dh = 256). S = Q K^T and O += P V on the tensor cores with
-//     mma.sync m16n8k16 (bf16 in, f32 accumulate; the products are exact in
-//     f32). P is rounded to bf16 before P V, as the model layer does; the
-//     softmax and l stay f32. Plain loads into padded shared rows (no
-//     cp.async, no TMA, no wgmma yet): simple first.
+// Design: head h reads kv head h / (H / Hkv) in place, through the
+// caller's strides: no transposed or padded copy. A CTA loops over kv
+// tiles, keeping the running max m and sum l in f32, and divides by l at
+// the end (0 for a fully masked row). The loop bounds skip the kv tiles that
+// the causal mask or the window masks entirely, and tiles past the
+// sequence's kv length.
+//   * bf16, warp-specialised for Hopper. A CTA takes a 128-row q tile with
+//     three warpgroups: one producer thread keeps TMA loads in flight (Q
+//     once; K and V into a two-stage ring, 128 keys a tile, 64 at
+//     Dh = 256, with full/empty mbarriers), and two consumer warpgroups of
+//     64 rows each run S = Q K^T on wgmma with both operands in shared
+//     memory and O += P V on wgmma with P from registers and V read as a
+//     transposed (MN-major) operand. setmaxnreg moves registers from the
+//     producer (40) to the consumers (232), which hold S, O and P. The two
+//     consumers take the tensor cores in turn (named barriers): each turn
+//     issues P V of the previous tile and S of this one, so one consumer's
+//     softmax runs under the other's products. Loads are
+//     4-D tensor maps (Dh, heads, positions, batch) with byte strides and
+//     128-byte swizzle (a 128-column row is two 64-column boxes), encoded on
+//     the host per call; TMA zero-fills past the tensor's extent, and keys
+//     past kv_valid_len are masked here. Only edge tiles (the causal
+//     diagonal, the window's far edge, the kv_valid_len edge, the prefix
+//     boundary) evaluate the per-element mask. Scores go to the exp2
+//     domain with scale * log2(e) folded into one FFMA before ex2; P is
+//     rounded to bf16 before P V, as the model layer does, and l sums the
+//     unrounded f32 P. The q tile is the
+//     slowest grid index, reversed, so the longest causal tiles start first.
+//     The old mma.sync kernel waited on synchronous loads before each tile's
+//     products; here the next tile's K and V land while this one computes.
 //   * f32: CUDA-core FMAs in full fp32, never TF32 (a TF32 score moves the
 //     embedding and can flip a theta_R decision). 16-row q tile, 32-key kv
-//     tile, one warp per query row in the softmax.
+//     tile, one warp per query row in the softmax; 4 warps a CTA.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -36,7 +53,7 @@
 
 namespace fa {
 
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;          // f32 kernel
 
 struct Args {
   const void* q;
@@ -86,16 +103,110 @@ __device__ __forceinline__ int kv_limit(const Args& a, int b) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: warp-specialised TMA + wgmma
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
+constexpr int BQ = 128;                 // q rows a CTA: two consumers of 64
+constexpr int WG = 128;                 // threads in a warpgroup
+constexpr int FA_THREADS = 3 * WG;      // producer + two consumers
+constexpr int STAGES = 2;               // K and V ring depth
+constexpr int SLAB = 64;                // bf16 columns of one 128-byte box
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One box of a 4-D tensor map (Dh, heads, positions, batch) into shared
+// memory, completing on ``bar``.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int d, int h, int l,
+                                         int b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(d),
+         "r"(h), "r"(l), "r"(b), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle. K-major operands (Q, K:
+// rows of 128 bytes, 8-row groups 1,024 bytes apart) use only the stride
+// byte offset; the MN-major V uses the leading byte offset between its
+// 64-column slabs too.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+       | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16
+       | (uint64_t)((sbo & 0x3FFFF) >> 4) << 32
+       | 1ull << 62;
+}
+
+// Named barriers over the two consumer warpgroups (256 threads).
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pins wgmma operand registers to this point: before wgmma.fence, so that
+// no write to them moves below it (ptxas would then fence and serialise the
+// wgmma itself), and after the wait, so that no read moves above it.
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+// 2^x on the SFU (relative error about 2^-22; -inf gives 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -103,176 +214,504 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// rows x DP tile of bf16 into shared rows of stride SD (zero past Dh and
-// past n_valid rows). src points at row 0, element 0; rows are rs apart.
-template <int DP, int SD>
-__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long rs, int rows,
-                                               int n_valid, int Dh,
-                                               bool vec) {
-  if (vec) {                              // 16-byte chunks, Dh % 8 == 0
-    constexpr int CH = DP / 8;
-    for (int e = threadIdx.x; e < rows * CH; e += THREADS) {
-      const int r = e / CH, d = (e - r * CH) * 8;
-      uint4 x = make_uint4(0, 0, 0, 0);
-      if (r < n_valid && d < Dh)
-        x = *reinterpret_cast<const uint4*>(src + r * rs + d);
-      *reinterpret_cast<uint4*>(dst + r * SD + d) = x;
-    }
-  } else {
-    for (int e = threadIdx.x; e < rows * DP; e += THREADS) {
-      const int r = e / DP, d = e - r * DP;
-      dst[r * SD + d] = (r < n_valid && d < Dh) ? src[r * rs + d]
-                                                : __float2bfloat16(0.f);
-    }
-  }
+// wgmma m64nNk16, bf16 in, f32 accumulate; each accumulator register
+// spelled out as an operand (written by the generator these lines came
+// from: one specialisation per N the kernel uses).
+// S = Q K^T: A and B from shared memory, both K-major; scale-d from acc.
+template <int N>
+__device__ void wgmma_ss(float* d, uint64_t a, uint64_t b, int acc);
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}"
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// O += P V: A (P, bf16) from registers, B (V) from shared memory,
+// MN-major (trans-b = 1), accumulating.
+template <int N>
+__device__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+      "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+      "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+      "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(1));
+}
+
+
+template <int DP, int BK>
+struct Layout {
+  static constexpr int SLABS = DP / SLAB;
+  static constexpr int Q_HALF = SLABS * 64 * 128;       // one consumer's Q
+  static constexpr int Q_BYTES = 2 * Q_HALF;
+  static constexpr int KV_BYTES = BK * DP * 2;           // one K or V tile
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES;
+};
+
+// True when the mask allows every (query, key) of rows with positions
+// [q_lo, q_hi] and keys [k0, k1): such a tile runs unmasked.
+__device__ __forceinline__ bool tile_full(const Args& a, int q_lo, int q_hi,
+                                          int k0, int k1, int kvlim) {
+  if (k1 > kvlim) return false;
+  if (k1 <= a.prefix_len) return true;
+  return (!a.causal || k1 - 1 <= q_lo) &&
+         (a.window <= 0 || q_hi - k0 < a.window);
 }
 
 template <int DP, int BK>
-__global__ void __launch_bounds__(THREADS)
-flash_bf16(Args a, int vec) {
-  constexpr int BQ = 64, SD = DP + 8, NT = BK / 8, NO = DP / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BQ * SD;
-  __nv_bfloat16* Vs = Ks + BK * SD;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+__global__ void __launch_bounds__(FA_THREADS, 1)
+flash_bf16(const __grid_constant__ CUtensorMap tq,
+           const __grid_constant__ CUtensorMap tk,
+           const __grid_constant__ CUtensorMap tv, const Args a) {
+  using LY = Layout<DP, BK>;
+  constexpr int SLABS = LY::SLABS;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 4 * STAGES];
+  // 128-byte swizzled boxes need 1,024-byte aligned destinations
+  unsigned char* Qs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Ks = Qs + LY::Q_BYTES;      // [STAGES][SLABS][BK][128 B]
+  unsigned char* Vs = Ks + STAGES * LY::KV_BYTES;
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* k_empty = v_full + STAGES;
+  uint64_t* v_empty = k_empty + STAGES;
+
+  // heaviest causal q tiles first: the q tile is the slowest grid index
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
   const int hk = h / (a.H / a.Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
   const int row0 = qt * BQ;
   const int kvlim = kv_limit(a, b);
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k);
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v);
-
-  load_rows_bf16<DP, SD>(Qs, q + b * a.qsB + row0 * a.qsL + h * a.qsH,
-                         a.qsL, BQ, min(BQ, a.Lq - row0), a.Dh, vec);
-
-  // this thread's two query rows: r0 = warp*16 + g, r1 = r0 + 8
-  const int qp0 = a.q_offset + row0 + warp * 16 + g, qp1 = qp0 + 8;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[NO][4];
-#pragma unroll
-  for (int i = 0; i < NO; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-
   const int q_lo = a.q_offset + row0;
   const int q_hi = a.q_offset + min(row0 + BQ, a.Lq) - 1;
   int k_begin, k_end;
   kv_range(a, q_lo, q_hi, kvlim, &k_begin, &k_end);
-  for (int k0 = k_begin / BK * BK; k0 < k_end; k0 += BK) {
-    if (tile_masked(a, q_lo, q_hi, k0, k0 + BK)) continue;   // CTA-uniform
-    __syncthreads();                       // previous tile fully consumed
-    const int nk = min(BK, kvlim - k0);
-    load_rows_bf16<DP, SD>(Ks, k + b * a.ksB + k0 * a.ksL + hk * a.ksH,
-                           a.ksL, BK, nk, a.Dh, vec);
-    load_rows_bf16<DP, SD>(Vs, v + b * a.vsB + k0 * a.vsL + hk * a.vsH,
-                           a.vsL, BK, nk, a.Dh, vec);
-    __syncthreads();
+  const int n_begin = k_begin / BK, n_end = (k_end + BK - 1) / BK;
+  int ntiles = 0;
+  for (int n = n_begin; n < n_end; ++n)
+    ntiles += !tile_masked(a, q_lo, q_hi, n * BK, n * BK + BK);
 
-    // S = Q K^T for this warp's 16 rows and BK keys
-    float s[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    const __nv_bfloat16* qw = Qs + (warp * 16) * SD;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      uint32_t af[4];
-      const __nv_bfloat16* qb = qw + kk * 16 + t * 2;
-      af[0] = *reinterpret_cast<const uint32_t*>(qb + g * SD);
-      af[1] = *reinterpret_cast<const uint32_t*>(qb + (g + 8) * SD);
-      af[2] = *reinterpret_cast<const uint32_t*>(qb + g * SD + 8);
-      af[3] = *reinterpret_cast<const uint32_t*>(qb + (g + 8) * SD + 8);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* kb = Ks + (n * 8 + g) * SD + kk * 16 + t * 2;
-        mma_bf16(s[n], af, *reinterpret_cast<const uint32_t*>(kb),
-                 *reinterpret_cast<const uint32_t*>(kb + 8));
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(k_empty + s, 8);           // one arrival per consumer warp
+      mbar_init(v_empty + s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG) {
+    // ---- producer: one thread keeps the TMA loads in flight ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, LY::Q_BYTES);
+      for (int half = 0; half < 2; ++half)
+        for (int sl = 0; sl < SLABS; ++sl)
+          tma_load(Qs + half * LY::Q_HALF + sl * 64 * 128, &tq, q_full,
+                   sl * SLAB, h, row0 + 64 * half, b);
+      int it = 0;
+      for (int n = n_begin; n < n_end; ++n) {
+        const int k0 = n * BK;
+        if (tile_masked(a, q_lo, q_hi, k0, k0 + BK)) continue;
+        const int st = it % STAGES;
+        const uint32_t ph = (it / STAGES) & 1;
+        ++it;
+        mbar_wait(k_empty + st, ph ^ 1);
+        mbar_expect_tx(k_full + st, LY::KV_BYTES);
+        for (int sl = 0; sl < SLABS; ++sl)
+          tma_load(Ks + st * LY::KV_BYTES + sl * BK * 128, &tk, k_full + st,
+                   sl * SLAB, hk, k0, b);
+        mbar_wait(v_empty + st, ph ^ 1);
+        mbar_expect_tx(v_full + st, LY::KV_BYTES);
+        for (int sl = 0; sl < SLABS; ++sl)
+          tma_load(Vs + st * LY::KV_BYTES + sl * BK * 128, &tv, v_full + st,
+                   sl * SLAB, hk, k0, b);
       }
     }
-
-    // scale, mask, online softmax (rows r0 and r1; a quad shares a row)
-    float mt[2] = {-INFINITY, -INFINITY};
+  } else {
+    // ---- consumers: 64 q rows each, S and P V on wgmma ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = threadIdx.x / WG - 1;
+    const int tid = threadIdx.x % WG;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int rl0 = 64 * cw + 16 * warp + g;          // row in the q tile
+    const int qp0 = a.q_offset + row0 + rl0, qp1 = qp0 + 8;
+    const int wq_lo = a.q_offset + row0 + 64 * cw;
+    const int wq_hi = a.q_offset + min(row0 + 64 * cw + 64, a.Lq) - 1;
+    const float sl2 = a.scale * LOG2E;                // exp2 domain
+    const uint32_t q_addr = smem_u32(Qs + cw * LY::Q_HALF);
+    float o[DP / 2];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float s[BK / 2];
+    uint32_t pf[BK / 16][4];                          // P, bf16 A fragments
+    // The kv tiles this CTA takes, in order: n_begin .. n_end, less the
+    // wholly masked ones.
+    auto next_tile = [&](int n) {
+      while (n < n_end && tile_masked(a, q_lo, q_hi, n * BK, n * BK + BK)) ++n;
+      return n;
+    };
+    // S = Q K^T (64 x BK), both operands in shared memory
+    auto gemm_s = [&](int st) {
+      const uint32_t k_addr = smem_u32(Ks + st * LY::KV_BYTES);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kp = k0 + n * 8 + t * 2 + (e & 1);
-        const int qp = e < 2 ? qp0 : qp1;
-        s[n][e] = allowed(a, qp, kp, kvlim) ? s[n][e] * a.scale : -INFINITY;
-        mt[e >> 1] = fmaxf(mt[e >> 1], s[n][e]);
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;           // 16 columns a k-step
+        wgmma_ss<BK>(s,
+                     desc_sw128(q_addr + (kk / 4) * 64 * 128 + off, 16, 1024),
+                     desc_sw128(k_addr + (kk / 4) * BK * 128 + off, 16, 1024),
+                     kk > 0);
       }
+    };
+    // O += P V: P from registers, V (keys x Dh) read MN-major
+    auto gemm_pv = [&](int st) {
+      const uint32_t v_addr = smem_u32(Vs + st * LY::KV_BYTES);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<DP>(o, pf[kk],
+                     desc_sw128(v_addr + kk * 16 * 128, BK * 128, 1024));
+    };
+    // S to P for the tile at k0: scale into the exp2 domain, mask (edge
+    // tiles only), online softmax (a quad shares a row), rescale O, round
+    // P to bf16 in the A-fragment layout of m64nNk16
+    auto softmax = [&](int k0) {
+      const bool full = tile_full(a, wq_lo, wq_hi, k0, k0 + BK, kvlim);
+      float mt[2] = {-INFINITY, -INFINITY};          // raw scores' max
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!full) {
+            const int kp = k0 + 8 * i + 2 * t + (e & 1);
+            if (!allowed(a, e < 2 ? qp0 : qp1, kp, kvlim))
+              s[4 * i + e] = -INFINITY;
+          }
+          mt[e >> 1] = fmaxf(mt[e >> 1], s[4 * i + e]);
+        }
+      }
+      float alpha[2], safe[2], ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+        mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+        const float mn = fmaxf(m[r], mt[r] * sl2);    // exp2 domain
+        safe[r] = mn == -INFINITY ? 0.f : mn;
+        alpha[r] = ex2(m[r] - safe[r]);                // 0 while m is -inf
+        m[r] = mn;
+      }
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const float p = ex2(fmaf(s[i], sl2, -safe[(i >> 1) & 1]));
+        s[i] = p;
+        ls[(i >> 1) & 1] += p;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 1);
+        ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 2);
+        l[r] = alpha[r] * l[r] + ls[r];
+      }
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pf[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+    };
+
+    // The two consumers take the tensor cores in turn (named barriers 1
+    // and 2), consumer 0 first: one turn issues P V of the previous tile
+    // and S of this one, so that one consumer's softmax runs under the
+    // other's products. Every wgmma sequence is straight-line code (the
+    // first tile is peeled), which lets ptxas keep them in flight together.
+    if (cw == 1 && ntiles > 0) bar_arrive(1);
+    mbar_wait(q_full, 0);
+    if (ntiles > 0) {
+      int n = next_tile(n_begin);
+      mbar_wait(k_full, 0);
+      bar_sync(1 + cw);
+      keep(s);
+      wgmma_fence();
+      gemm_s(0);
+      wgmma_commit();
+      if (!(cw == 1 && ntiles == 1)) bar_arrive(2 - cw);
+      wgmma_wait0();
+      keep(s);
+      if (lane == 0) mbar_arrive(k_empty);
+      softmax(n * BK);
+      for (int it = 1; it < ntiles; ++it) {
+        n = next_tile(n + 1);
+        const int st = it % STAGES, pst = (it - 1) % STAGES;
+        const uint32_t ph = (it / STAGES) & 1, pph = ((it - 1) / STAGES) & 1;
+        mbar_wait(k_full + st, ph);
+        mbar_wait(v_full + pst, pph);
+        bar_sync(1 + cw);
+        keep(o);
+        keep(s);
+        keep(pf);
+        wgmma_fence();
+        gemm_pv(pst);
+        gemm_s(st);
+        wgmma_commit();
+        if (!(cw == 1 && it == ntiles - 1)) bar_arrive(2 - cw);
+        wgmma_wait0();
+        keep(o);
+        keep(s);
+        if (lane == 0) {
+          mbar_arrive(k_empty + st);
+          mbar_arrive(v_empty + pst);
+        }
+        softmax(n * BK);
+      }
+      const int pst = (ntiles - 1) % STAGES;           // the last tile's P V
+      mbar_wait(v_full + pst, ((ntiles - 1) / STAGES) & 1);
+      keep(o);
+      keep(pf);
+      wgmma_fence();
+      gemm_pv(pst);
+      wgmma_commit();
+      wgmma_wait0();
+      keep(o);
+      if (lane == 0) mbar_arrive(v_empty + pst);
     }
-    float alpha[2], safe[2], ls[2] = {0.f, 0.f};
+
+    // out = O / l (0 for a fully masked row); nothing past Lq or Dh
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-      const float mn = fmaxf(m[r], mt[r]);
-      safe[r] = mn == -INFINITY ? 0.f : mn;
-      alpha[r] = m[r] == -INFINITY ? 0.f : expf(m[r] - safe[r]);
-      m[r] = mn;
-    }
+      const int row = row0 + rl0 + 8 * r;
+      if (row >= a.Lq) continue;
+      const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+      __nv_bfloat16* orow =
+          out + (((long long)b * a.Lq + row) * a.H + h) * a.Dh;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = s[n][e] == -INFINITY ? 0.f
-                                             : expf(s[n][e] - safe[e >> 1]);
-        s[n][e] = p;
-        ls[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 1);
-      ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 2);
-      l[r] = alpha[r] * l[r] + ls[r];
-    }
-#pragma unroll
-    for (int i = 0; i < NO; ++i) {
-      o[i][0] *= alpha[0]; o[i][1] *= alpha[0];
-      o[i][2] *= alpha[1]; o[i][3] *= alpha[1];
-    }
-
-    // O += P V: P from the S accumulators (bf16), V (keys x Dh) from smem
-    const uint16_t* vs = reinterpret_cast<const uint16_t*>(Vs);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pf[4];
-      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const uint16_t* vk = vs + (kk * 16 + t * 2) * SD + g;
-#pragma unroll
-      for (int i = 0; i < NO; ++i) {
-        const uint16_t* vp = vk + i * 8;
-        const uint32_t b0 = (uint32_t)vp[0] | ((uint32_t)vp[SD] << 16);
-        const uint32_t b1 = (uint32_t)vp[8 * SD] | ((uint32_t)vp[9 * SD] << 16);
-        mma_bf16(o[i], pf, b0, b1);
+      for (int i = 0; i < DP / 8; ++i) {
+        const int d = 8 * i + 2 * t;
+        if (d < a.Dh)
+          *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
+              o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
       }
     }
   }
+}
 
-  // out = O / l (0 for a fully masked row)
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + warp * 16 + g + 8 * r;
-    if (row >= a.Lq) continue;
-    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
-    __nv_bfloat16* orow = out + (((long long)b * a.Lq + row) * a.H + h) * a.Dh;
-#pragma unroll
-    for (int i = 0; i < NO; ++i) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = i * 8 + t * 2 + e;
-        if (d < a.Dh) orow[d] = __float2bfloat16(o[i][2 * r + e] * inv);
-      }
-    }
+// cuTensorMapEncodeTiled from the driver, without linking libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &res);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &res);
+#endif
+    if (res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
   }
+  return fn;
+}
+
+// A (B, L, Hn, Dh) bf16 tensor read in place as a 4-D map (Dh, Hn, L, B)
+// with byte strides; boxes of 64 columns x ``rows`` positions, 128-byte
+// swizzle, zero fill past the tensor's extent.
+static bool encode_map(CUtensorMap* map, const void* ptr, int Dh, int Hn,
+                       int L, int B, long long sH, long long sL,
+                       long long sB, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  // an empty kv range still needs a valid map; the kernel loads nothing
+  const cuuint64_t dims[4] = {(cuuint64_t)Dh, (cuuint64_t)Hn,
+                              (cuuint64_t)(L > 0 ? L : 1), (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sH * 2, (cuuint64_t)sL * 2,
+                                 (cuuint64_t)sB * 2};
+  const cuuint32_t box[4] = {SLAB, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP, int BK>
+cudaError_t launch_bf16(const Args& a, cudaStream_t s) {
+  alignas(64) CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, a.q, a.Dh, a.H, a.Lq, a.B, a.qsH, a.qsL, a.qsB, 64) ||
+      !encode_map(&tk, a.k, a.Dh, a.Hkv, a.Lkv, a.B, a.ksH, a.ksL, a.ksB,
+                  BK) ||
+      !encode_map(&tv, a.v, a.Dh, a.Hkv, a.Lkv, a.B, a.vsH, a.vsL, a.vsB,
+                  BK))
+    return cudaErrorInvalidValue;
+  const int smem = Layout<DP, BK>::SMEM;
+  static bool raised[64] = {};           // per device: once, not on every
+  int dev = 0;                           // call
+  cudaGetDevice(&dev);
+  if (!raised[dev & 63]) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_bf16<DP, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return e;
+    raised[dev & 63] = true;
+  }
+  dim3 grid(a.H, a.B, (a.Lq + BQ - 1) / BQ);
+  flash_bf16<DP, BK><<<grid, FA_THREADS, smem, s>>>(tq, tk, tv, a);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -377,18 +816,6 @@ flash_f32(Args a) {
   }
 }
 
-template <int DP, int BK>
-cudaError_t launch_bf16(const Args& a, int vec, cudaStream_t s) {
-  const size_t smem = sizeof(__nv_bfloat16) * (size_t)(64 + 2 * BK) * (DP + 8);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bf16<DP, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((a.Lq + 63) / 64, a.H, a.B);
-  flash_bf16<DP, BK><<<grid, THREADS, smem, s>>>(a, vec);
-  return cudaGetLastError();
-}
-
 }  // namespace fa
 
 // q (B, Lq, H, Dh), k/v (B, Lkv, Hkv, Dh), each with unit stride in Dh and
@@ -410,14 +837,9 @@ extern "C" int flash_attention(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || Lq == 0 || H == 0) return 0;
   if (is_bf16) {
-    const bool vec =
-        Dh % 8 == 0 && qsB % 8 == 0 && qsL % 8 == 0 && qsH % 8 == 0 &&
-        ksB % 8 == 0 && ksL % 8 == 0 && ksH % 8 == 0 && vsB % 8 == 0 &&
-        vsL % 8 == 0 && vsH % 8 == 0 &&
-        ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
-    if (Dh <= 64) return (int)launch_bf16<64, 64>(a, vec, s);
-    if (Dh <= 128) return (int)launch_bf16<128, 64>(a, vec, s);
-    return (int)launch_bf16<256, 32>(a, vec, s);
+    if (Dh <= 64) return (int)launch_bf16<64, 128>(a, s);
+    if (Dh <= 128) return (int)launch_bf16<128, 128>(a, s);
+    return (int)launch_bf16<256, 64>(a, s);
   }
   const size_t smem = sizeof(float) *
       (size_t)(BQF * Dh + BKF * (Dh + 1) + BKF * Dh + BQF * BKF + BQF * Dh +

@@ -39,7 +39,7 @@ KERNELS = {
                          [_P] * 9 + [_L] * 17 + [_P]),
 }
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[str, ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -96,15 +96,14 @@ def build(names=None) -> dict[str, str]:
 
 def load(name: str) -> ctypes._CFuncPtr:
     """The C entry point of kernel ``name``, built on first use."""
-    lib = _loaded.get(name)
-    if lib is None:
+    fn = _loaded.get(name)
+    if fn is None:
         build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _loaded[name] = lib
-    _, sym, argtypes = KERNELS[name]
-    fn = getattr(lib, sym)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+        _, sym, argtypes = KERNELS[name]
+        fn = getattr(ctypes.CDLL(str(_lib_path(name))), sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = fn
     return fn
 
 

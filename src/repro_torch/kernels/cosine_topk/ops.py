@@ -66,6 +66,8 @@ def _valid_bytes(valid, n: int, device) -> torch.Tensor:
     if valid.shape != (n,):
         raise ValueError(f"valid must have shape ({n},), got "
                          f"{tuple(valid.shape)}")
+    if valid.dtype == torch.bool and valid.is_contiguous():
+        return valid.view(torch.uint8)          # 0/1 bytes already
     return (valid != 0).to(torch.uint8).contiguous()
 
 
@@ -86,7 +88,7 @@ def _outputs(B: int, T: int, k: int, device):
             torch.empty((B, T, k), dtype=i32, device=device),
             torch.empty((B, k), dtype=f32, device=device),
             torch.empty((B, k), dtype=i32, device=device),
-            torch.empty((B,), dtype=torch.uint8, device=device))
+            torch.empty((B,), dtype=torch.bool, device=device))
 
 
 def cosine_topk(queries: torch.Tensor, centroids: torch.Tensor, k: int = 1,
@@ -129,7 +131,7 @@ def cosine_topk(queries: torch.Tensor, centroids: torch.Tensor, k: int = 1,
                     torch.cuda.current_stream(dev).cuda_stream)
         _build.check_rc(rc, "cosine_topk")
         cosine_topk.launches += 1
-        out = (vals, idx, hit.bool())
+        out = (vals, idx, hit)
     return out if return_hit else out[:2]
 
 
@@ -178,7 +180,7 @@ def cosine_topk_q8(queries: torch.Tensor, codes: torch.Tensor,
                     torch.cuda.current_stream(dev).cuda_stream)
         _build.check_rc(rc, "cosine_topk_q8")
         cosine_topk_q8.launches += 1
-        out = (vals, idx, hit.bool())
+        out = (vals, idx, hit)
     return out if return_hit else out[:2]
 
 

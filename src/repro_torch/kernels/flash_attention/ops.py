@@ -4,7 +4,8 @@ For CUDA tensors ``flash_attention`` launches the hand-written kernel (see
 ``kernel.py``) on the current stream, or raises; for CPU tensors it runs
 the plain version in ``ref.py`` with P rounded to v's dtype before P·V,
 as the bf16 kernel does. There is no fallback from one to the
-other. Launches are counted in ``flash_attention.launches``.
+other. A bf16 view that TMA cannot describe raises ``ValueError``
+(``tma_layout_check``). Launches are counted in ``flash_attention.launches``.
 
 Unlike the Pallas wrapper, the kernel reads q/k/v in the (B, L, H, Dh)
 layout through their strides (no transposed or padded copies), and takes
@@ -60,6 +61,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if kv_valid_len.shape != (B,):
             raise ValueError(f"kv_valid_len must have shape ({B},)")
         kv_valid_len = kv_valid_len.to(torch.int32).contiguous()
+    if q.dtype == torch.bfloat16:
+        tma_layout_check(q, k, v)
     out = torch.empty((B, Lq, H, Dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -70,3 +73,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def tma_layout_check(*tensors: torch.Tensor) -> None:
+    """The bf16 kernel reads q/k/v through TMA tensor maps, which take
+    16-byte aligned base addresses and byte strides that are multiples of
+    16: a head dim that is a multiple of 8, and B/L/H strides (of dims
+    longer than 1) that are positive multiples of 8 elements. Anything else
+    raises; it is never sent to another kernel."""
+    for name, t in zip("qkv", tensors):
+        bad = [f"stride {st} of dim {i}" for i, (n, st) in
+               enumerate(zip(t.shape[:3], t.stride()[:3]))
+               if n > 1 and (st <= 0 or st % 8)]
+        if t.shape[3] % 8:
+            bad.append(f"head dim {t.shape[3]}")
+        if t.data_ptr() % 16:
+            bad.append(f"base address {t.data_ptr():#x}")
+        if bad:
+            raise ValueError(
+                f"bf16 flash_attention reads {name} through a TMA tensor map, "
+                f"which needs a 16-byte aligned base, a head dim that is a "
+                f"multiple of 8 and B/L/H strides that are multiples of 8 "
+                f"elements (16 bytes); {name} has " + ", ".join(bad))

@@ -206,3 +206,22 @@ def test_flash_plain_bf16_matches_model_layer_and_limit_sees_a_dropped_tile():
                                        causal=True, q_offset=r0 - 64,
                                        p_dtype=torch.bfloat16)
     assert bf16_excess(bad, plain, 2.0 ** -5) > 10.0
+
+
+def test_bf16_tma_layout_limit_is_checked_before_any_launch():
+    """The bf16 kernel reads q/k/v through TMA tensor maps; the wrapper's
+    check accepts what the engine hands over (contiguous (B, L, H, 128),
+    slices of a fused projection, a length-1 dim of any stride) and names
+    the limit for what a tensor map cannot describe."""
+    x = torch.zeros((2, 16, 6, 128), dtype=torch.bfloat16)
+    fa_ops.tma_layout_check(x[:, :, :4], x[:, :, 4:5], x[:, :, 5:])
+    fa_ops.tma_layout_check(*(x[:1, :, :1],) * 3)
+    wide = torch.zeros((1, 16, 2, 72), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned base"):
+        fa_ops.tma_layout_check(*(wide[..., 1:65],) * 3)
+    odd = torch.zeros((1, 16, 2, 36), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 36"):
+        fa_ops.tma_layout_check(odd, odd, odd)
+    strided = torch.zeros((1, 16, 3, 68), dtype=torch.bfloat16)[..., :64]
+    with pytest.raises(ValueError, match="stride 68 of dim 2"):
+        fa_ops.tma_layout_check(strided, x, x)

@@ -1,6 +1,8 @@
 """The hand-written attention kernels on the card, held against their plain
 PyTorch versions on the same CUDA tensors: K4 (prefill) over every mask
-mode, f32 and bf16, head dims 64, 128 and 256; K3 (decode) with f32, bf16
+mode, f32 and bf16, head dims 64, 128 and 256, and bf16 at shapes ragged
+against its tiles, with a wrapping kv ring, qwen3's 40/8 heads and strided
+views (a misaligned view raises); K3 (decode) with f32, bf16
 and int8 caches read in place. The kernels have no CPU mode, so these tests
 are marked ``gpu`` and skip without a CUDA device. The file imports neither
 jax nor the reference package:
@@ -86,6 +88,84 @@ def test_flash_kernel_matches_plain(mode, dtype, Dh):
     assert out.shape == (B, Lq, H, Dh) and out.dtype == dtype
     _assert_agree(out, plain, "flash")
 
+
+
+# bf16 K4 at shapes that exercise its tiles and tensor maps: 128-row q
+# tiles and 128-key kv tiles (64 at Dh = 256) in a 2-stage ring
+TILE_CASES = {
+    # Lq and Lkv ragged against both tiles, right-aligned queries
+    "ragged-causal": dict(B=2, Lq=77, Lkv=333, H=4, Hkv=2, causal=True),
+    "ragged-bidirectional": dict(B=2, Lq=300, Lkv=333, H=4, Hkv=2,
+                                 causal=False),
+    # 8 kv tiles (16 at Dh = 256): the ring wraps more than three times
+    "ring-wrap-bidirectional": dict(B=1, Lq=1000, Lkv=1000, H=2, Hkv=1,
+                                    causal=False),
+    "ring-wrap-causal": dict(B=1, Lq=1000, Lkv=1000, H=2, Hkv=1,
+                             causal=True),
+    "ring-wrap-window": dict(B=1, Lq=1000, Lkv=1000, H=2, Hkv=1,
+                             causal=True, window=300),
+    "ring-wrap-prefix": dict(B=1, Lq=1000, Lkv=1000, H=2, Hkv=1,
+                             causal=True, prefix_len=200),
+    # qwen3-14b's 40/8 heads (H/Hkv = 5), B > 1, ragged kv_valid_len
+    "gqa-5-ragged": dict(B=3, Lq=260, Lkv=260, H=40, Hkv=8, causal=True,
+                         kv_valid_len=[260, 77, 129]),
+}
+
+
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_flash_bf16_tile_edges(case, Dh):
+    kw = dict(TILE_CASES[case])
+    shape = {x: kw.pop(x) for x in ("B", "Lq", "Lkv", "H", "Hkv")}
+    g = _gen(Dh + len(case))
+    q = _randn((shape["B"], shape["Lq"], shape["H"], Dh), g, torch.bfloat16)
+    k, v = (_randn((shape["B"], shape["Lkv"], shape["Hkv"], Dh), g,
+                   torch.bfloat16) for _ in range(2))
+    if "kv_valid_len" in kw:
+        kw["kv_valid_len"] = torch.tensor(kw["kv_valid_len"], device=DEV)
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    plain = fa_ref.attention_ref(q, k, v, p_dtype=v.dtype, **kw)
+    torch.cuda.synchronize()
+    _assert_agree(out, plain, "flash")
+
+
+@pytest.mark.parametrize("layout", ["fused-projection", "heads-major"])
+def test_flash_bf16_reads_strided_views_in_place(layout):
+    """q/k/v as slices of one fused (B, L, (H + 2 Hkv) Dh) projection, and
+    as transposes of (B, H, L, Dh) tensors: the tensor maps take their
+    strides as they are."""
+    B, L, H, Hkv, Dh = 2, 200, 10, 2, 128
+    g = _gen(3)
+    if layout == "fused-projection":
+        fused = _randn((B, L, (H + 2 * Hkv) * Dh), g, torch.bfloat16)
+        heads = fused.view(B, L, H + 2 * Hkv, Dh)
+        q = heads[:, :, :H]
+        k, v = heads[:, :, H:H + Hkv], heads[:, :, H + Hkv:]
+    else:
+        q = _randn((B, H, L, Dh), g, torch.bfloat16).transpose(1, 2)
+        k, v = (_randn((B, Hkv, L, Dh), g, torch.bfloat16).transpose(1, 2)
+                for _ in range(2))
+    assert not q.is_contiguous()
+    for kw in (dict(causal=True), dict(causal=False)):
+        out = fa_ops.flash_attention(q, k, v, **kw)
+        plain = fa_ref.attention_ref(q, k, v, p_dtype=v.dtype, **kw)
+        torch.cuda.synchronize()
+        _assert_agree(out, plain, "flash")
+
+
+def test_flash_bf16_misaligned_view_raises():
+    """A bf16 view that a TMA tensor map cannot describe raises and is
+    never sent to another kernel."""
+    g = _gen(4)
+    wide = _randn((1, 64, 2, 72), g, torch.bfloat16)
+    before = fa_ops.flash_attention.launches
+    with pytest.raises(ValueError, match="TMA"):
+        x = wide[..., 1:65]                          # base 2 bytes off
+        fa_ops.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="head dim"):
+        x = _randn((1, 64, 2, 36), g, torch.bfloat16)
+        fa_ops.flash_attention(x, x, x)
+    assert fa_ops.flash_attention.launches == before
 
 @pytest.mark.parametrize("Dh", [64, 128, 256])
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8-f32q", "int8-bf16q"])

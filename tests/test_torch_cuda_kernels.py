@@ -97,6 +97,104 @@ def test_cuda_kernel_counts_launches_and_handles_empty_inputs(fn):
     assert not kh.any()
 
 
+
+def _run(fn, q, rows, valid, k, early, theta=0.9, margin=0.01):
+    """Kernel and plain results for numpy inputs, and the thresholds."""
+    q, v = torch.from_numpy(q).to(DEV), torch.from_numpy(valid).to(DEV)
+    if fn == "f32":
+        r = torch.from_numpy(rows).to(DEV)
+        kern = ops.cosine_topk(q, r, k=k, valid=v, theta=theta,
+                               early_exit=early, return_hit=True)
+        plain = ref.cosine_topk_ref(q, r, k, v, theta, early)
+    else:
+        codes, scales, _ = ops.quantize_rows(rows)
+        c = torch.from_numpy(codes).to(DEV)
+        s = torch.from_numpy(scales).to(DEV)
+        kern = ops.cosine_topk_q8(q, c, s, k=k, valid=v, theta=theta,
+                                  margin=margin, early_exit=early,
+                                  return_hit=True)
+        plain = ref.cosine_topk_q8_ref(q, c, s, k, v, theta, margin, early)
+    torch.cuda.synchronize()
+    return kern, plain
+
+
+def _assert_same(kern, plain, ctx):
+    (kv, ki, kh), (pv, pi, ph) = kern, plain
+    assert torch.equal(ki, pi) and torch.equal(kh, ph), ctx
+    torch.testing.assert_close(kv, pv, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("Bq", [1, 4, 5, 8, 32, 33])
+@pytest.mark.parametrize("fn", ["f32", "q8"])
+def test_cuda_kernel_every_query_bucket(fn, Bq):
+    """Every query bucket of K2's pass 1 (1, 2, 4, 8, 16, 32 and a second
+    group past 32) and its ragged edge, at the served width (768) over a
+    row count that is not a multiple of 512 (6 logical tiles, the last of
+    440 rows), k in {1, 16}, early exit on and off."""
+    rng = np.random.default_rng(100 + Bq)
+    n, d = 3000, 768
+    rows = _unit(rng, n, d)
+    valid = rng.random(n) > 0.1
+    q = _unit(rng, Bq, d)
+    near = 5 + 7 * np.arange(Bq)                  # tile 0, sim ~0.98
+    noisy = q + 0.2 * _unit(rng, Bq, d)
+    rows[near] = noisy / np.linalg.norm(noisy, axis=1, keepdims=True)
+    valid[near] = True
+    for k in (1, 16):
+        for early in (False, True):
+            _assert_same(*_run(fn, q, rows, valid, k, early),
+                         (fn, Bq, k, early))
+
+
+@pytest.mark.parametrize("fn", ["f32", "q8"])
+def test_cuda_kernel_ties_go_to_the_lower_row(fn):
+    """Equal sims in two logical tiles (and twice in one) rank by row."""
+    rng = np.random.default_rng(5)
+    rows = _unit(rng, N, D)
+    valid = np.ones(N, bool)
+    q = _unit(rng, 2, D)
+    rows[[100, 1000, 1001]] = q[0]
+    rows[[40, 600]] = q[1]
+    for k in (1, 16):
+        kern, plain = _run(fn, q, rows, valid, k, False)
+        _assert_same(kern, plain, (fn, k))
+        ki = kern[1].cpu().numpy()
+        assert ki[0, 0] == 100 and ki[1, 0] == 40
+        if k == 16:
+            assert list(ki[0, :3]) == [100, 1000, 1001]
+            assert list(ki[1, :2]) == [40, 600]
+
+
+@pytest.mark.parametrize("stop", ["tile0", "middle", "never"])
+@pytest.mark.parametrize("fn", ["f32", "q8"])
+def test_cuda_kernel_early_exit_stop_tile(fn, stop):
+    """Early exit stops after tile 0, after tile 3 of 6 (the last query to
+    clear theta does so there), or never; exact copies in the last tile
+    are served only when it is reached."""
+    rng = np.random.default_rng(9)
+    n, d, Bq = 3000, 96, 4
+    rows = _unit(rng, n, d)
+    valid = np.ones(n, bool)
+    q = _unit(rng, Bq, d)
+    tile_of = {"tile0": [0, 0, 0, 0], "middle": [1, 1, 0, 3],
+               "never": [0, 0, 0, 0]}[stop]
+    near = np.array([512 * t + 11 + 3 * i for i, t in enumerate(tile_of)])
+    noisy = q + 0.2 * _unit(rng, Bq, d)
+    rows[near] = noisy / np.linalg.norm(noisy, axis=1, keepdims=True)
+    rows[2600 + np.arange(Bq)] = q                 # last tile, sim 1.0
+    theta = 2.0 if stop == "never" else 0.9
+    for k in (1, 16):
+        kern, plain = _run(fn, q, rows, valid, k, True, theta=theta)
+        _assert_same(kern, plain, (fn, stop, k))
+        served = kern[1][:, 0].cpu().numpy()
+        if stop == "never":
+            np.testing.assert_array_equal(served, 2600 + np.arange(Bq))
+        else:
+            np.testing.assert_array_equal(served, near)
+            last = max(tile_of)
+            assert (kern[1].cpu().numpy() < 512 * (last + 1)).all()
+
+
 def test_cuda_cache_backends_decide_identically():
     """One interleaved lookup / insert_spill stream with a shadow commit:
     pallas (K1) and pallas_q8 (K2 + rescore) give the dense backend's
