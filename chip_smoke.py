@@ -22,7 +22,9 @@ Phases (any failure exits non-zero and prints no result line):
               that wraps four times and with qwen3's 40/8 heads, and K3
               with f32, bf16 and int8 caches; both at the main path's
               shapes too, then timed there (K4's TFLOP/s and share of its
-              bound logged) beside the plain version, a bound and
+              bound logged; K3 also on the device through torch.profiler,
+              which must show its one kernel and no other) beside the
+              plain version, a bound and
               scaled_dot_product_attention (a yardstick only, never called
               by the port); bf16 outputs are held to 2^-7 |plain| + c x
               the rms of the output row (kernels.bf16_excess), and a kv
@@ -62,11 +64,13 @@ Phases (any failure exits non-zero and prints no result line):
               prefill attention must exceed the limit. Every K3/K4 call
               of the prefills and steps is re-checked at its own
               arguments. Two more decode steps run under torch.profiler:
-              the device's busy time per step and its idle share; then one
+              the device's busy time per step, K3's share of it and the
+              idle share; then one
               more prefill: its device busy time and K4's share of it.
 
 The line before the last is a JSON object with one entry per kernel (K3's
-int8 mode its own entry, with its own bound); the line before it is the
+int8 mode its own entry, with its own bound; K3's entries also carry
+``device_ms``, the profiler's device time); the line before it is the
 card's name and power limit; the last line is the device JSON. Details go to DIR/chip_smoke.json (default
 results/, relative to the repository root).
 """
@@ -548,7 +552,8 @@ def phase_attention_kernels(torch, seed: int) -> Agreement:
     return agree
 
 
-FAULT_TILE = 64     # half of K4's 128-key kv tile; K3 splits 256 positions
+FAULT_TILE = 64     # half of K4's 128-key kv tile; K3's fault drops 256
+                    # positions, four of its 64-position chunk steps
 
 
 def flash_tile_dropped(torch, q, k, v):
@@ -674,20 +679,44 @@ def phase_attention_timing(torch, seed: int) -> dict:
                         < kv_len[:, None])[:, None, None, :]
                 lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=mask, enable_gqa=True))
-            rec = {"Lc": Lc, "kv_len": n_kv,
-                   "ms": cuda_ms(torch, lambda: da.decode_attention(
-                       q, k, v, kv_len, **sc)),
+            call = lambda: da.decode_attention(q, k, v, kv_len, **sc)
+            rec = {"Lc": Lc, "kv_len": n_kv, "ms": cuda_ms(torch, call),
                    "plain_ms": cuda_ms(torch, lambda: dr.decode_attention_ref(
                        q, k, v, kv_len, **sc)),
                    "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+            rec.update(decode_device_ms(torch, call, name))
             out[f"{name}/{Lc}/{n_kv}"] = rec
+            dev_ms = rec["device_ms"]
             log(f"[timing] {name} B={B} H={H}/{Hkv} Dh={Dh} Lc={Lc} "
                 f"kv_len={n_kv}: "
-                f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-                f"library {'n/a (no int8 cache)' if lib is None else f'{lib:.4f} ms'}"
-                f", bound {b_ms:.4f} ms ({b_by})")
+                f"kernel {rec['ms']:.4f} ms (CUDA events), "
+                + ("device not measured (no profiler activity)"
+                   if dev_ms is None else
+                   f"{dev_ms:.4f} ms on the device "
+                   f"({b_ms / dev_ms:.3f} of the bound)")
+                + f", plain {rec['plain_ms']:.4f} ms, library "
+                f"{'n/a (no int8 cache)' if lib is None else f'{lib:.4f} ms'}"
+                f", bound {b_ms:.4f} ms ({b_by}); device kernels "
+                f"{rec['device_kernels']}")
             del q, k, v, sc
     return out
+
+
+def decode_device_ms(torch, call, name: str) -> dict:
+    """K3's device ms per call from a torch.profiler trace (the int64
+    kv_len the timing passes included), and the kernels one call launches:
+    K3 launches one (two on its generic path) and nothing else, no
+    conversion or fill."""
+    sys.path.insert(0, str(ROOT))
+    from tools.trace_kernels import device_kernel_ms
+    split = device_kernel_ms(torch, call, iters=10)
+    if not split:
+        return {"device_ms": None, "device_kernels": {}}
+    check(len(split) <= 2 and all("da::decode" in n for n in split),
+          f"[timing] {name}: one call launches {list(split)}, not K3's "
+          f"kernel alone")
+    return {"device_ms": sum(split.values()),
+            "device_kernels": {n.split("(")[0]: t for n, t in split.items()}}
 
 
 class AttnRecorder:
@@ -1196,8 +1225,10 @@ def trace_decode(torch, eng, toks, steps: int = 2) -> dict:
     tr = device_summary(prof, steps)
     if not tr:
         return {}
+    k3 = sum(t for n, t in tr["by_name_ms"].items() if "da::decode" in n)
     return {"steps": steps, "device_events": tr["device_events"],
-            "busy_ms_per_step": tr["busy_ms"],
+            "busy_ms_per_step": tr["busy_ms"], "k3_ms_per_step": k3,
+            "k3_share_of_busy": k3 / tr["busy_ms"],
             "top_kernels_ms_per_step": tr["top_kernels_ms"]}
 
 
@@ -1386,7 +1417,8 @@ def phase_engine_long(torch, np, models, att_recorders, seed: int,
         busy = tr["busy_ms_per_step"]
         log(f"[engine-long] {kv_dtype} KV, profiled decode: device busy "
             f"{busy:.3f} ms per step ({tr['device_events']} device events "
-            f"over {tr['steps']} steps), idle share "
+            f"over {tr['steps']} steps), K3 {tr['k3_ms_per_step']:.3f} ms "
+            f"of it ({tr['k3_share_of_busy']:.3f}), idle share "
             f"{1 - busy / rec['decode_ms_median']:.3f} of the unprofiled "
             f"median step; most device time: " + "; ".join(
                 f"{n} {t:.3f} ms" for n, t in tr["top_kernels_ms_per_step"]))
@@ -1559,6 +1591,8 @@ def main() -> int:
             "max_abs_err": all_err[name], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+        if "device_ms" in rec:      # K3: its device time beside the events'
+            kernels[-1]["device_ms"] = rec["device_ms"]
     detail["total_s"] = time.perf_counter() - t_start
     log(f"[done] every phase passed in {detail['total_s']:.1f} s")
     out_dir = ROOT / args.out

@@ -36,7 +36,7 @@ KERNELS = {
     "flash_attention": ("flash_attention.cu", "flash_attention",
                         [_P] * 5 + [_L] * 20 + [_P]),
     "decode_attention": ("decode_attention.cu", "decode_attention",
-                         [_P] * 9 + [_L] * 17 + [_P]),
+                         [_P] * 10 + [_L] * 17 + [_P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

@@ -3,16 +3,44 @@
 ``repro_torch.kernels._build``. Nothing here runs at import time."""
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build
 
-CHUNK = 256          # cache positions per split (CHUNK in the source)
+GENERIC_CHUNK = 256   # cache positions a split of the generic path takes
+CTA_ROWS = 64         # the fast path's chunks are multiples of this (the
+                      # fast path: a bf16 q with a bf16 or int8 cache)
+CTAS_PER_SM = 16      # the most CTAs of 128 threads an SM holds
 KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
+# per (device index, stream): int32 arrival counters (zeroed once, left 0
+# by every launch) and f32 partials, both grown on demand
+_scratch: dict = {}
+_n_sm: dict = {}
+# the last launch's splits per (sequence, kv head); 0: the generic path
+last_n_split = ctypes.c_int(0)
 
-def n_splits(Lc: int) -> int:
-    return max(1, -(-Lc // CHUNK))
+
+def split_capacity(B: int, Hkv: int, Lc: int, n_sm: int) -> int:
+    """Splits per (sequence, kv head) the partials must hold: the generic
+    path's ceil(Lc / 256), or the fast path's one wave of resident CTAs."""
+    generic = -(-Lc // GENERIC_CHUNK)
+    fast = min(-(-Lc // CTA_ROWS), CTAS_PER_SM * n_sm // max(1, B * Hkv))
+    return max(1, generic, fast)
+
+
+def _scratch_for(dev: torch.device, stream: int, n_count: int,
+                 n_part: int) -> tuple[torch.Tensor, torch.Tensor]:
+    key = (dev.index, stream)
+    count, part = _scratch.get(key, (None, None))
+    if count is None or count.numel() < n_count:
+        count = torch.zeros(max(n_count, 256), dtype=torch.int32, device=dev)
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=dev)
+    _scratch[key] = (count, part)
+    return count, part
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -20,25 +48,33 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            kv_len: torch.Tensor, out: torch.Tensor) -> None:
     """q (B, H, Dh); caches (B, Lc, Hkv, Dh) read in place through their
     (shared) strides; scales (B, Lc, Hkv) f16 with shared strides, or None;
-    kv_len (B,) int32; ``out`` contiguous (B, H, Dh) of q's dtype. The
-    caller has checked shapes, dtypes, strides and devices."""
+    kv_len (B,) int32 or int64, contiguous; ``out`` contiguous (B, H, Dh)
+    of q's dtype. The caller has checked shapes, dtypes, strides and
+    devices. One launch (two on the generic path), nothing else: no
+    conversion, no fill."""
     B, H, Dh = q.shape
     Lc, Hkv = k.shape[1], k.shape[2]
-    S = n_splits(Lc)
-    G = H // Hkv
     dev = q.device
-    part_ml = torch.empty((B, Hkv, S, G, 2), dtype=torch.float32, device=dev)
-    part_acc = torch.empty((B, Hkv, S, G, Dh), dtype=torch.float32,
-                           device=dev)
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return launch(q, k, v, k_scale, v_scale, kv_len, out)
+    n_sm = _n_sm.get(dev.index)
+    if n_sm is None:
+        n_sm = _n_sm[dev.index] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    s_cap = split_capacity(B, Hkv, Lc, n_sm)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    count, part = _scratch_for(dev, stream, B * Hkv,
+                               B * Hkv * s_cap * (H // Hkv) * (Dh + 2))
     sstride = k_scale.stride() if k_scale is not None else (0, 0, 0)
     fn = _build.load("decode_attention")
-    with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                k_scale.data_ptr() if k_scale is not None else None,
-                v_scale.data_ptr() if v_scale is not None else None,
-                kv_len.data_ptr(), out.data_ptr(), part_ml.data_ptr(),
-                part_acc.data_ptr(), B, H, Hkv, Dh, Lc, q.stride(0),
-                q.stride(1), *k.stride()[:3], *sstride, S,
-                int(q.dtype == torch.bfloat16), KV_KIND[k.dtype], CHUNK,
-                torch.cuda.current_stream(dev).cuda_stream)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            k_scale.data_ptr() if k_scale is not None else None,
+            v_scale.data_ptr() if v_scale is not None else None,
+            kv_len.data_ptr(), out.data_ptr(), part.data_ptr(),
+            count.data_ptr(), ctypes.addressof(last_n_split), B, H, Hkv,
+            Dh, Lc, q.stride(0), q.stride(1), *k.stride()[:3], *sstride,
+            s_cap,
+            int(q.dtype == torch.bfloat16), KV_KIND[k.dtype],
+            int(kv_len.dtype == torch.int64), stream)
     _build.check_rc(rc, "decode_attention")

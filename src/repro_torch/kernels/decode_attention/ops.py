@@ -31,8 +31,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_scale: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
     """q (B, H, Dh); caches (B, Lc, Hkv, Dh) f32/bf16, or int8 codes with
-    f16 ``k_scale``/``v_scale`` (B, Lc, Hkv); kv_len (B,) valid lengths.
-    Returns (B, H, Dh) in q's dtype."""
+    f16 ``k_scale``/``v_scale`` (B, Lc, Hkv); kv_len (B,) valid lengths,
+    read by the kernel as they are when int32 or int64 (the model passes
+    int32). Returns (B, H, Dh) in q's dtype."""
     B, H, Dh = q.shape
     Lc, Hkv = k_cache.shape[1], k_cache.shape[2]
     quant = k_scale is not None
@@ -67,7 +68,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                              "with equal strides")
     if kv_len.shape != (B,):
         raise ValueError(f"kv_len must have shape ({B},)")
-    kv_len = kv_len.to(torch.int32).contiguous()
+    if kv_len.dtype not in (torch.int32, torch.int64) \
+            or kv_len.stride(0) != 1:
+        kv_len = kv_len.to(torch.int32).contiguous()
     out = torch.empty((B, H, Dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out

@@ -182,13 +182,14 @@ def decode_step(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """One decode step. tokens: (B, 1); pos: write index, an int or a (B,)
     tensor (one position per slot — the reference vmaps a scalar pos over
     slots); kv_len: (B,) valid lengths (default pos + 1). Returns
-    (logits (B, V), cache), the cache updated in place."""
+    (logits (B, V), cache), the cache updated in place. kv_len goes to
+    every layer's attention as int32, converted here once a step (not
+    once a layer) when it comes in another type."""
     _check_dense(cfg)
     B = tokens.shape[0]
     dev = tokens.device
     pos = torch.as_tensor(pos, device=dev).long().expand(B)
-    if kv_len is None:
-        kv_len = pos + 1
+    kv_len = (pos + 1 if kv_len is None else kv_len).to(torch.int32)
     rows = torch.arange(B, device=dev)
     positions = pos[:, None]                                  # (B, 1)
 

@@ -53,8 +53,10 @@ class ModelEngine:
         tok = torch.tensor(np.asarray(tokens, np.int64),
                            device=self.device)[:, None]
         pos = torch.tensor(self.pos.astype(np.int64), device=self.device)
+        kv_len = torch.tensor((self.pos + 1).astype(np.int32),
+                              device=self.device)
         logits, self.cache = lm.decode_step(self.params, self.cfg, tok,
-                                            self.cache, pos, kv_len=pos + 1)
+                                            self.cache, pos, kv_len=kv_len)
         self.pos[self.active] += 1
         return torch.argmax(logits, dim=-1).cpu().numpy()
 

@@ -3,7 +3,10 @@ PyTorch versions on the same CUDA tensors: K4 (prefill) over every mask
 mode, f32 and bf16, head dims 64, 128 and 256, and bf16 at shapes ragged
 against its tiles, with a wrapping kv ring, qwen3's 40/8 heads and strided
 views (a misaligned view raises); K3 (decode) with f32, bf16
-and int8 caches read in place. The kernels have no CPU mode, so these tests
+and int8 caches read in place, with G in {1, 4, 5, 8, 16} query heads a kv
+head, kv_len at the edges of its tiles and splits, all 0, at decode_32k,
+through packed, misaligned and odd-width views, and bit-identical across
+repeated calls. The kernels have no CPU mode, so these tests
 are marked ``gpu`` and skip without a CUDA device. The file imports neither
 jax nor the reference package:
 
@@ -22,6 +25,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import bf16_excess
+from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -167,27 +171,30 @@ def test_flash_bf16_misaligned_view_raises():
         fa_ops.flash_attention(x, x, x)
     assert fa_ops.flash_attention.launches == before
 
-@pytest.mark.parametrize("Dh", [64, 128, 256])
-@pytest.mark.parametrize("kind", ["f32", "bf16", "int8-f32q", "int8-bf16q"])
-def test_decode_kernel_matches_plain(kind, Dh):
-    B, H, Hkv, Lc = 3, 10, 2, 700          # G = 5, three 256-row splits
+DECODE_KINDS = ["f32", "bf16", "int8-f32q", "int8-bf16q"]
+
+
+def _decode_inputs(kind, B, H, Hkv, Dh, Lc, g, layers=1):
+    """q (B, H, Dh) and caches (B, Lc, Hkv, Dh) as views of layer
+    ``layers - 1`` of a stacked (2, layers, ...) cache, read in place;
+    int8 kinds give codes and f16 scales (views of a stacked scale too)."""
     qdt = torch.bfloat16 if kind.endswith("bf16") or kind.endswith("bf16q") \
         else torch.float32
-    g = _gen(Dh + len(kind))
     q = _randn((B, H, Dh), g, qdt)
-    # caches are per-layer views of a stacked cache, read in place
-    kv = _randn((2, 2, B, Lc, Hkv, Dh), g, torch.float32)
-    kv_len = torch.tensor([1, 700, 413], device=DEV)
+    kv = _randn((2, layers, B, Lc, Hkv, Dh), g, torch.float32)
     scales = {}
     if kind.startswith("int8"):
         amax = kv.abs().amax(dim=-1)
         s = (amax / 127.0).to(torch.float16)
         codes = torch.round(kv / s.float()[..., None]).clamp(-127, 127)
         kv = codes.to(torch.int8)
-        scales = dict(k_scale=s[0, 1], v_scale=s[1, 1])
+        scales = dict(k_scale=s[0, -1], v_scale=s[1, -1])
     else:
         kv = kv.to(qdt)
-    k, v = kv[0, 1], kv[1, 1]
+    return q, kv[0, -1], kv[1, -1], scales
+
+
+def _decode_check(q, k, v, kv_len, scales):
     before = (da_ops.decode_attention.launches,
               da_ops.decode_attention.launches_int8)
     out = da_ops.decode_attention(q, k, v, kv_len, **scales)
@@ -195,8 +202,110 @@ def test_decode_kernel_matches_plain(kind, Dh):
     torch.cuda.synchronize()
     assert da_ops.decode_attention.launches == before[0] + 1
     assert da_ops.decode_attention.launches_int8 == before[1] + bool(scales)
-    assert out.shape == (B, H, Dh) and out.dtype == qdt
+    assert out.shape == q.shape and out.dtype == q.dtype
     _assert_agree(out, plain, "decode")
+    return out
+
+
+# G = H / Hkv query heads a kv head: one tensor-core n-block (G <= 8) or
+# two (G = 16); head dims of the fast path
+@pytest.mark.parametrize("G", [1, 4, 5, 8, 16])
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+@pytest.mark.parametrize("kind", DECODE_KINDS)
+def test_decode_kernel_matches_plain(kind, Dh, G):
+    B, Hkv, Lc = 3, 2, 700
+    g = _gen(Dh + len(kind) + 17 * G)
+    # caches are per-layer views of a stacked cache, read in place
+    q, k, v, scales = _decode_inputs(kind, B, G * Hkv, Hkv, Dh, Lc, g,
+                                     layers=2)
+    _decode_check(q, k, v, torch.tensor([1, 700, 413], device=DEV), scales)
+
+
+@pytest.mark.parametrize("kind", DECODE_KINDS)
+def test_decode_kv_len_at_split_edges(kind):
+    """kv_len 0, 1, one 16-position tile and one 64-position chunk step and
+    their neighbours, the generic path's 256-position split and its
+    neighbours, the whole cache; with a bf16 q (the fast path) also n x 64
+    and its neighbours, n the splits of the kernel's grid (the last split
+    full, one short, one row into a longer chunk). int32 and int64."""
+    Hkv, Dh, Lc = 2, 128, 2048
+    lens = [0, 1, 15, 16, 17, 63, 64, 65, 255, 256, 257, 1000, Lc]
+    g = _gen(len(kind))
+    q, k, v, scales = _decode_inputs(kind, len(lens) + 3, 5 * Hkv, Hkv, Dh,
+                                     Lc, g)
+    da_ops.decode_attention(q, k, v, torch.tensor(lens + [1, 2, 3],
+                                                  device=DEV), **scales)
+    n = da_kernel.last_n_split.value
+    if q.dtype == torch.bfloat16:
+        assert 1 <= n <= Lc // 64
+        lens += [n * 64 - 1, n * 64, n * 64 + 1]
+    else:
+        assert n == 0                    # an f32 q takes the generic path
+        lens += [511, 512, 513]
+    for dtype in (torch.int32, torch.int64):
+        _decode_check(q, k, v, torch.tensor(lens, dtype=dtype, device=DEV),
+                      scales)
+
+
+@pytest.mark.parametrize("kind", DECODE_KINDS)
+def test_decode_kv_len_all_zero_gives_zero(kind):
+    q, k, v, scales = _decode_inputs(kind, 3, 10, 2, 128, 300, _gen(5))
+    out = _decode_check(q, k, v, torch.zeros(3, dtype=torch.int32,
+                                             device=DEV), scales)
+    assert not out.any()
+
+
+@pytest.mark.parametrize("layout", ["heads-interleaved", "misaligned",
+                                    "odd-head-dim"])
+def test_decode_reads_views_in_place(layout):
+    """k and v as slices of one packed (B, Lc, 2 Hkv, Dh) cache (the fast
+    path: 16-byte aligned rows, head stride 2 Dh); a view 4 bytes off a
+    16-byte boundary and a head dim of 40 take the generic path. Both read
+    the cache through its strides, and both agree."""
+    B, H, Hkv, Lc = 3, 10, 2, 500
+    g = _gen(7)
+    Dh = 40 if layout == "odd-head-dim" else 128
+    q = _randn((B, H, Dh), g, torch.bfloat16)
+    if layout == "heads-interleaved":
+        kv = _randn((B, Lc, 2, Hkv, Dh), g, torch.bfloat16)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+    else:
+        wide = _randn((2, B, Lc, Hkv, Dh + 2), g, torch.bfloat16)
+        k, v = (wide[i, ..., 2:] if layout == "misaligned"
+                else wide[i, ..., :Dh] for i in range(2))
+    assert not k.is_contiguous()
+    kv_len = torch.tensor([500, 3, 260], device=DEV)
+    _decode_check(q, k, v, kv_len, {})
+    generic = da_kernel.last_n_split.value == 0
+    assert generic == (layout != "heads-interleaved")
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8-bf16q"])
+def test_decode_back_to_back_calls_are_bit_identical(kind):
+    """The last CTA of a (sequence, kv head) merges the splits in split
+    order, whichever arrives last, and leaves its counter at 0: repeated
+    calls give the same bits, interleaved with a call of another shape."""
+    q, k, v, scales = _decode_inputs(kind, 4, 40, 8, 128, 8192, _gen(9))
+    kv_len = torch.tensor([4096, 4097, 8192, 100], device=DEV)
+    first = _decode_check(q, k, v, kv_len, scales)
+    assert da_kernel.last_n_split.value > 1
+    again = da_ops.decode_attention(q, k, v, kv_len, **scales)
+    q2, k2, v2, sc2 = _decode_inputs(kind, 2, 10, 2, 128, 1000, _gen(10))
+    da_ops.decode_attention(q2, k2, v2, torch.tensor([999, 5], device=DEV),
+                            **sc2)
+    third = da_ops.decode_attention(q, k, v, kv_len, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, third)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8-bf16q"])
+def test_decode_engine_long_shape_at_32k(kind):
+    """qwen3-14b's decode layout (B=4, H=40/8, Dh=128) at decode_32k's
+    kv_len = Lc = 32,768, and a ragged batch in the same cache."""
+    Lc = 32768
+    q, k, v, scales = _decode_inputs(kind, 4, 40, 8, 128, Lc, _gen(11))
+    for lens in ([Lc] * 4, [Lc, Lc - 1, 4097, 1]):
+        _decode_check(q, k, v, torch.tensor(lens, device=DEV), scales)
 
 
 def test_model_layers_route_cuda_tensors_to_the_kernels():

@@ -163,3 +163,30 @@ def test_unported_model_kinds_raise():
     with pytest.raises(NotImplementedError):
         TLM.init_cache(get_config("qwen3-14b").reduced().replace(window=8),
                        1, 8, device=CPU)
+
+
+def test_decode_step_hands_attention_an_int32_kv_len(qwen, monkeypatch):
+    """Every layer's attention gets kv_len as int32, whatever the caller
+    passed (an int pos, an int64 kv_len, the engine's step), so the K3
+    wrapper converts nothing per layer; the logits do not change."""
+    cfg, _, _, tp = qwen
+    seen = []
+    real = TL.decode_attention
+
+    def recording(q, k_cache, v_cache, *, kv_len, **kw):
+        seen.append(kv_len.dtype)
+        return real(q, k_cache, v_cache, kv_len=kv_len, **kw)
+
+    monkeypatch.setattr(TL, "decode_attention", recording)
+    toks = torch.tensor([[3], [7]])
+    cache = TLM.init_cache(cfg, 2, 16, device=CPU)
+    pos = torch.tensor([4, 9])
+    by_default, _ = TLM.decode_step(tp, cfg, toks, cache, pos)
+    given_int64, _ = TLM.decode_step(tp, cfg, toks, cache, pos,
+                                     kv_len=pos + 1)
+    torch.testing.assert_close(by_default, given_int64, atol=0, rtol=0)
+    eng = TEngine(tp, cfg, n_slots=2, max_len=16, device=CPU)
+    eng.prefill_into(0, np.array([5, 6, 7]))
+    eng.decode_active(np.array([1, 0]))
+    assert len(seen) == 3 * cfg.n_layers
+    assert set(seen) == {torch.int32}

@@ -3,13 +3,22 @@
 read from a ``torch.profiler`` trace, at the main path's shapes.
 
     python3 tools/trace_kernels.py [--src DIR] [--iters N] [--out DIR]
+                                   [--only topk,prefill,decode]
 
 Traces K1 (f32 cosine top-k, B=4, k=1, early exit on, random queries so
 every tile is needed), K2 (int8 cosine top-C, B in {1, 4, 8, 32}, k=16)
-over N=65,536 rows of dim 768, and K4 (prefill attention, bf16, causal,
-B=1, L=4,096, H=40/8, Dh=128). For each call it prints every device kernel
-the call launched (pass 1 and pass 2 of K1/K2 apart) with its mean time per
-call, and for K4 the achieved TFLOP/s of the causal half. ``--src`` names
+over N=65,536 rows of dim 768, K4 (prefill attention, bf16, causal, B=1,
+L=4,096, H=40/8, Dh=128) and K3 (decode attention, bf16 q, B=4, H=40/8,
+Dh=128, bf16 and int8 caches; kv_len 4,096 in an 8,192-position cache,
+engine-long's layout, and kv_len = Lc = 32,768, decode_32k; kv_len given
+as int32 and as int64, the engine's type before and after the change that
+makes it int32), with scaled_dot_product_attention beside bf16 K3 as a
+yardstick. For each call it prints every device kernel the call launched
+(pass 1 and pass 2 of K1/K2 apart, K3's casts and passes apart) with its
+mean time per call; for K4 the achieved TFLOP/s of the causal half, for K3
+the share of its bytes bound (3.35 TB/s) that its own kernels reach and
+the host time a call takes to enqueue them.
+``--only`` picks groups of calls (default: all). ``--src`` names
 the directory that holds the ``repro_torch`` package (default: this
 checkout's ``src``), so an older tree can be traced with the same script.
 Needs one CUDA card; writes DIR/trace_kernels.json (default results/).
@@ -25,6 +34,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 D, N_ROWS = 768, 65536
 PREFILL = dict(B=1, L=4096, H=40, Hkv=8, Dh=128)
+DECODE = dict(B=4, H=40, Hkv=8, Dh=128)
+DECODE_CALLS = ((8192, 4096), (32768, 32768))   # (cache length, kv_len)
+H100_BYTES_PER_S = 3.35e12
+GROUPS = ("topk", "prefill", "decode")
 
 
 def device_kernel_ms(torch, fn, iters: int = 10, warmup: int = 3) -> dict:
@@ -49,12 +62,32 @@ def device_kernel_ms(torch, fn, iters: int = 10, warmup: int = 3) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
+def host_us_per_call(torch, fn, n: int = 50) -> float:
+    """Host microseconds one call of ``fn`` takes to enqueue its work,
+    over ``n`` calls that run back to back (the device lags behind)."""
+    import time
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / n
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--out", default="results")
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help="comma-separated groups of calls: "
+                         + ", ".join(GROUPS))
     args = ap.parse_args()
+    only = set(args.only.split(","))
+    if not only <= set(GROUPS):
+        ap.error(f"--only takes {GROUPS}")
     import torch
     if not torch.cuda.is_available():
         print("trace_kernels.py: no CUDA device", file=sys.stderr)
@@ -72,13 +105,26 @@ def main() -> int:
           flush=True)
     _build.build()
     g = torch.Generator(device="cuda").manual_seed(0)
+    res = {"nvidia_smi": smi, "src": args.src}
+    if "topk" in only:
+        trace_topk(torch, ops, g, args.iters, res)
+    if "prefill" in only:
+        trace_prefill(torch, fa, g, args.iters, res)
+    if "decode" in only:
+        trace_decode(torch, g, args.iters, res)
+    out = ROOT / args.out
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "trace_kernels.json").write_text(json.dumps(res, indent=1))
+    return 0
+
+
+def trace_topk(torch, ops, g, iters: int, res: dict) -> None:
     rows = torch.nn.functional.normalize(
         torch.randn((N_ROWS, D), generator=g, device="cuda"), dim=1)
     valid = torch.rand((N_ROWS,), generator=g, device="cuda") > 0.1
     codes_np, scales_np, _ = ops.quantize_rows(rows.cpu().numpy())
     codes = torch.tensor(codes_np, device="cuda")
     scales = torch.tensor(scales_np, device="cuda")
-    res = {"nvidia_smi": smi, "src": args.src}
     calls = [("cosine_topk", 4)] + [("cosine_topk_q8", b)
                                      for b in (1, 4, 8, 32)]
     for fn, B in calls:
@@ -92,16 +138,19 @@ def main() -> int:
             call = lambda: ops.cosine_topk_q8(q, codes, scales, k=16,
                                               valid=valid, theta=0.95,
                                               return_hit=True)
-        split = device_kernel_ms(torch, call, args.iters)
+        split = device_kernel_ms(torch, call, iters)
         res[f"{fn}/B={B}"] = split
         print(f"[trace] {fn} B={B}: " + "; ".join(
             f"{n} {t:.4f} ms" for n, t in split.items()), flush=True)
+
+
+def trace_prefill(torch, fa, g, iters: int, res: dict) -> None:
     B, L, H, Hkv, Dh = (PREFILL[x] for x in ("B", "L", "H", "Hkv", "Dh"))
     q = torch.randn((B, L, H, Dh), generator=g, device="cuda").bfloat16()
     k, v = (torch.randn((B, L, Hkv, Dh), generator=g,
                         device="cuda").bfloat16() for _ in range(2))
     split = device_kernel_ms(
-        torch, lambda: fa.flash_attention(q, k, v, causal=True), args.iters)
+        torch, lambda: fa.flash_attention(q, k, v, causal=True), iters)
     flops = 4.0 * B * H * Dh * L * (L + 1) // 2
     main_ms = max(split.values()) if split else float("nan")
     res["flash_attention/prefill"] = {"kernels_ms": split,
@@ -109,10 +158,66 @@ def main() -> int:
     print(f"[trace] flash_attention prefill {PREFILL} bf16 causal: " +
           "; ".join(f"{n} {t:.4f} ms" for n, t in split.items()) +
           f"; {flops / main_ms / 1e9:.1f} TFLOP/s", flush=True)
-    out = ROOT / args.out
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "trace_kernels.json").write_text(json.dumps(res, indent=1))
-    return 0
+
+
+def trace_decode(torch, g, iters: int, res: dict) -> None:
+    """K3 at engine-long's layout and at decode_32k, bf16 and int8 caches,
+    kv_len int32 and int64; SDPA (bf16 cache, kv_len mask) beside it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.models import lm
+    B, H, Hkv, Dh = (DECODE[x] for x in ("B", "H", "Hkv", "Dh"))
+    for Lc, n_kv in DECODE_CALLS:
+        q = torch.randn((B, H, Dh), generator=g, device="cuda").bfloat16()
+        kf, vf = (torch.randn((B, Lc, Hkv, Dh), generator=g, device="cuda")
+                  for _ in range(2))
+        caches = {"bf16": (kf.bfloat16(), vf.bfloat16(), {})}
+        (kq, ks), (vq, vs) = lm.kv_quant(kf), lm.kv_quant(vf)
+        caches["int8"] = (kq, vq, {"k_scale": ks, "v_scale": vs})
+        del kf, vf
+        for mode, (k, v, sc) in caches.items():
+            row = Hkv * Dh * k.element_size() + (Hkv * 2 if sc else 0)
+            nbytes = 2 * B * H * Dh * 2 + 2 * B * n_kv * row + B * 4
+            bound_ms = 1e3 * nbytes / H100_BYTES_PER_S
+            for idt in (torch.int32, torch.int64):
+                kv_len = torch.full((B,), n_kv, dtype=idt, device="cuda")
+                split = device_kernel_ms(
+                    torch, lambda: da.decode_attention(q, k, v, kv_len, **sc),
+                    iters)
+                own = sum(t for n, t in split.items() if "da::" in n)
+                total = sum(split.values())
+                host_us = host_us_per_call(
+                    torch, lambda: da.decode_attention(q, k, v, kv_len, **sc))
+                key = f"decode_attention/{mode}/Lc={Lc}/kv_len={n_kv}/" \
+                      f"{str(idt).rsplit('.', 1)[-1]}"
+                res[key] = {"kernels_ms": split, "kernel_ms": own,
+                            "all_ms": total, "launches": len(split),
+                            "host_us_per_call": host_us,
+                            "bound_ms": bound_ms,
+                            "share_of_bound": bound_ms / own if own else None}
+                print(f"[trace] {key}: " + "; ".join(
+                    f"{n} {t:.4f} ms" for n, t in split.items())
+                    + f"; K3's own {own:.4f} ms, {len(split)} device "
+                      f"kernels {total:.4f} ms; host {host_us:.1f} us a "
+                      f"call; bound {bound_ms:.4f} ms "
+                      f"(bytes), share "
+                      f"{bound_ms / own if own else float('nan'):.3f}",
+                      flush=True)
+            if not sc:
+                mask = (torch.arange(Lc, device="cuda")[None, :]
+                        < n_kv)[:, None, None, :].expand(B, 1, 1, Lc)
+                qt = q[:, :, None]
+                kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+                split = device_kernel_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
+                key = f"sdpa/bf16/Lc={Lc}/kv_len={n_kv}"
+                res[key] = {"kernels_ms": split,
+                            "all_ms": sum(split.values())}
+                print(f"[trace] {key}: " + "; ".join(
+                    f"{n} {t:.4f} ms" for n, t in split.items())
+                    + f"; total {sum(split.values()):.4f} ms", flush=True)
+        del q, caches
 
 
 if __name__ == "__main__":
