@@ -10,11 +10,13 @@ Phases (any failure exits non-zero and prints no result line):
               one nvcc per source, started together; ptxas register and
               spill lines logged;
 2. kernels  — K1 (f32) and K2 (int8) against their plain PyTorch versions
-              at serving shapes (D=768, N=65,536 rows, B in {0, 1, 4, 8,
-              32}, k in {1, 16}, early exit on/off, a valid mask with
+              at serving shapes (D=768, N=65,536 rows, B in {0, 1, 4, 5, 8,
+              32, 33}, k in {1, 16}, early exit on/off, a valid mask with
               holes), then timed beside the plain version and one library
               call (torch.topk over a masked q @ c.T, a yardstick only),
-              with a torch.profiler split into pass 1 and pass 2 at B=4;
+              with a torch.profiler split into pass 1 and pass 2 (K1 at
+              every timed batch, K2 at B=4), which must show the kernel's
+              own two launches and no other;
               K4 against its plain version over every mask mode (causal,
               bidirectional, window, prefix, ragged kv with a q offset,
               right-aligned queries) in f32 and bf16, bf16 at shapes
@@ -22,8 +24,9 @@ Phases (any failure exits non-zero and prints no result line):
               that wraps four times and with qwen3's 40/8 heads, and K3
               with f32, bf16 and int8 caches; both at the main path's
               shapes too, then timed there (K4's TFLOP/s and share of its
-              bound logged; K3 also on the device through torch.profiler,
-              which must show its one kernel and no other) beside the
+              bound logged; the embedder's f32 K4 and SDPA beside it also
+              on the device through torch.profiler; K3 too, which must
+              show its one kernel and no other) beside the
               plain version, a bound and
               scaled_dot_product_attention (a yardstick only, never called
               by the port); bf16 outputs are held to 2^-7 |plain| + c x
@@ -69,9 +72,9 @@ Phases (any failure exits non-zero and prints no result line):
               more prefill: its device busy time and K4's share of it.
 
 The line before the last is a JSON object with one entry per kernel (K3's
-int8 mode its own entry, with its own bound; K3's entries also carry
-``device_ms``, the profiler's device time); the line before it is the
-card's name and power limit; the last line is the device JSON. Details go to DIR/chip_smoke.json (default
+int8 mode its own entry, with its own bound; the entries of K1, K2 and K3
+also carry ``device_ms``, the profiler's device time); the line before it
+is the card's name and power limit; the last line is the device JSON. Details go to DIR/chip_smoke.json (default
 results/, relative to the repository root).
 """
 from __future__ import annotations
@@ -228,12 +231,13 @@ def compare(torch, ops, ref, fn: str, x: Inputs, k: int, early: bool,
 
 
 def phase_kernels(torch, seed: int) -> dict:
-    """Both kernels at D=768, N=65,536 over B in {0, 1, 4, 8, 32} (4 is the
-    served batch), k in {1, 16}, early exit on and off."""
+    """Both kernels at D=768, N=65,536 over B in {0, 1, 4, 5, 8, 32, 33}
+    (4 is the served batch; 5 and 33 are ragged against the query
+    buckets), k in {1, 16}, early exit on and off."""
     from repro_torch.kernels.cosine_topk import ops, ref
     err = {"cosine_topk": 0.0, "cosine_topk_q8": 0.0}
     checks = 0
-    for B in (0, 1, 4, 8, 32):
+    for B in (0, 1, 4, 5, 8, 32, 33):
         x = Inputs(torch, ops, B, seed + B)
         for fn in err:
             for k in (1, 16):
@@ -360,25 +364,40 @@ def phase_timing(torch, seed: int) -> dict:
                 f"plain {rec['plain_ms']:.4f} ms, library "
                 f"{rec['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
                 f"({b_by}, {b_ms / rec['ms']:.3f} of it)")
-            if B == SPLIT_B:
-                rec["device_split_ms"] = split = pass_split(torch, kern)
+            if fn == "cosine_topk" or B == SPLIT_B:
+                rec.update(topk_device_ms(torch, kern, fn))
+                split = rec["device_kernels"]
                 log(f"[timing] {fn} B={B}, torch.profiler: " + (
                     "; ".join(f"{n} {t:.4f} ms" for n, t in split.items())
-                    or "no device activity recorded (not measured)"))
+                    + f"; {rec['device_ms']:.4f} ms on the device "
+                      f"({b_ms / rec['device_ms']:.3f} of the bound)"
+                    if split else
+                    "no device activity recorded (not measured)"))
     return out
 
 
-SPLIT_B = 4     # the served batch: K1/K2 traced pass by pass there
+SPLIT_B = 4     # the served batch: K2 traced pass by pass there; K1 at
+                # every batch
 
 
-def pass_split(torch, fn) -> dict:
-    """Device ms per call of each of the kernel's own launches (pass 1
+def topk_device_ms(torch, fn, name: str) -> dict:
+    """Device ms per call of each of the kernel's launches (pass 1
     ``sims_tile_*`` and pass 2 ``merge_tiles``), from a torch.profiler
-    trace of 10 calls; the wrapper's small PyTorch copies are left out."""
+    trace of 10 calls. One call launches these two and nothing else: no
+    copy, cast or fill."""
     sys.path.insert(0, str(ROOT))
     from tools.trace_kernels import device_kernel_ms
-    return {n.split("(")[0]: t for n, t in
-            device_kernel_ms(torch, fn, iters=10).items() if "ctk::" in n}
+    split = device_kernel_ms(torch, fn, iters=10)
+    if not split:
+        return {"device_ms": None, "device_kernels": {}}
+    names = sorted(n.split("(")[0].split("<")[0].replace("void ", "")
+                   for n in split)
+    check(names == ["ctk::merge_tiles", f"ctk::sims_tile_"
+                    f"{'f32' if name == 'cosine_topk' else 'q8'}"],
+          f"[timing] {name}: one call launches {list(split)}, not its own "
+          f"two passes alone")
+    return {"device_ms": sum(split.values()),
+            "device_kernels": {n.split("(")[0]: t for n, t in split.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -659,6 +678,18 @@ def phase_attention_timing(torch, seed: int) -> dict:
             f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}); the kernel takes "
             f"{b_ms / rec['ms']:.3f} of its bound")
+        if label == "embedder":     # short: events time the host too
+            rec.update(embedder_device_ms(
+                torch, lambda: fa.flash_attention(q, k, v, causal=causal),
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=H != Hkv)))
+            log(f"[timing] flash_attention embedder, torch.profiler: "
+                + ("not measured (no profiler activity)"
+                   if rec["device_ms"] is None else
+                   f"kernel {rec['device_ms']:.4f} ms on the device "
+                   f"({b_ms / rec['device_ms']:.3f} of the bound), library "
+                   f"{rec['library_device_ms']:.4f} ms in its kernels "
+                   f"{rec['library_kernels']}"))
     B, H, Hkv, Dh = (DECODE_SHAPE[x] for x in ("B", "H", "Hkv", "Dh"))
     for Lc, n_kv in DECODE_TIMED:
         for int8 in (False, True):
@@ -700,6 +731,19 @@ def phase_attention_timing(torch, seed: int) -> dict:
                 f"{rec['device_kernels']}")
             del q, k, v, sc
     return out
+
+
+def embedder_device_ms(torch, call, lib) -> dict:
+    """The embedder's f32 K4 call and scaled_dot_product_attention on the
+    same inputs, device ms per call from torch.profiler traces."""
+    sys.path.insert(0, str(ROOT))
+    from tools.trace_kernels import device_kernel_ms
+    own, other = (device_kernel_ms(torch, f, iters=20) for f in (call, lib))
+    return {"device_ms": sum(own.values()) if own else None,
+            "device_kernels": {n.split("(")[0]: t for n, t in own.items()},
+            "library_device_ms": sum(other.values()) if other else None,
+            "library_kernels": {n.split("(")[0][:60]: t
+                                for n, t in other.items()}}
 
 
 def decode_device_ms(torch, call, name: str) -> dict:
@@ -1591,7 +1635,7 @@ def main() -> int:
             "max_abs_err": all_err[name], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
-        if "device_ms" in rec:      # K3: its device time beside the events'
+        if "device_ms" in rec:      # K1-K3: device time beside the events'
             kernels[-1]["device_ms"] = rec["device_ms"]
     detail["total_s"] = time.perf_counter() - t_start
     log(f"[done] every phase passed in {detail['total_s']:.1f} s")

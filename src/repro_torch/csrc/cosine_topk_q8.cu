@@ -43,39 +43,6 @@ namespace ctk {
 constexpr int Q8_WARPS = 16;
 constexpr int Q8_THREADS = Q8_WARPS * 32;
 constexpr int Q8_ROWS = 8;           // rows a warp takes at a time
-constexpr int Q8_GROUP = 32;         // most queries a CTA takes
-
-// One step of the halving butterfly across the 8 lanes of a row group:
-// each lane keeps half of its M sums, adds its partner's half, and passes
-// on to the next offset; a single sum is added across the pair as is.
-template <int M, int O>
-__device__ __forceinline__ void fold(float* v, int sub) {
-  if constexpr (M >= 2) {
-    constexpr int H = M / 2;
-    const bool up = sub & O;
-#pragma unroll
-    for (int i = 0; i < H; ++i) {
-      const float send = up ? v[i] : v[i + H];
-      const float keep = up ? v[i + H] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-    }
-    if constexpr (O > 1) fold<H, O / 2>(v, sub);
-  } else {
-    v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
-    if constexpr (O > 1) fold<1, O / 2>(v, sub);
-  }
-}
-
-// The index (into the 2 x NQ sums) of a lane's first sum after fold<M, 4>.
-template <int M>
-__device__ __forceinline__ int fold_base(int sub) {
-  int off = 0, m = M;
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) {
-    if (m >= 2) { m /= 2; if (sub & o) off += m; }
-  }
-  return off;
-}
 
 // 4 int8 codes (one 32-bit word) to exact floats.
 __device__ __forceinline__ void widen4(uint32_t w, float* x) {
@@ -183,16 +150,9 @@ cudaError_t launch_q8(const float* q, const int8_t* codes,
                       int N, int Dp, int k, int block_n, int T,
                       float* part_v, int* part_i, cudaStream_t s) {
   const int smem = (int)(sizeof(float) * (size_t)NQ * (Dp + block_n));
-  static int allowed[64] = {};           // per device: raised once, not
-  int dev = 0;                           // on every call
-  cudaGetDevice(&dev);
-  if (smem > 48 * 1024 && smem > allowed[dev & 63]) {
-    cudaError_t e = cudaFuncSetAttribute(
-        sims_tile_q8<NQ, CPB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return e;
-    allowed[dev & 63] = smem;
-  }
+  static int allowed[64] = {};           // per device
+  cudaError_t e = allow_smem(sims_tile_q8<NQ, CPB>, smem, allowed);
+  if (e != cudaSuccess) return e;
   dim3 grid(T, (B + NQ - 1) / NQ);
   sims_tile_q8<NQ, CPB><<<grid, Q8_THREADS, smem, s>>>(
       q, codes, scales, valid, B, N, Dp, k, block_n, T, part_v, part_i);
@@ -215,13 +175,8 @@ extern "C" int cosine_topk_q8(const float* q, const int8_t* codes,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int T = (N + block_n - 1) / block_n;
   if (T > 0) {
-    // the query bucket, shrunk while its shared memory would not fit
-    int nq = B <= 1 ? 1 : B <= 2 ? 2 : B <= 4 ? 4 : B <= 8 ? 8
-           : B <= 16 ? 16 : Q8_GROUP;
-    while (nq > 1 && sizeof(float) * (size_t)nq * (Dp + block_n) > 200 * 1024)
-      nq /= 2;
     cudaError_t e;
-    switch (nq) {
+    switch (query_bucket(B, Dp, block_n)) {
       case 1: e = launch_q8<1, 6>(q, codes, scales, valid, B, N, Dp, k,
                                   block_n, T, part_v, part_i, s); break;
       case 2: e = launch_q8<2, 6>(q, codes, scales, valid, B, N, Dp, k,
@@ -232,8 +187,8 @@ extern "C" int cosine_topk_q8(const float* q, const int8_t* codes,
                                   block_n, T, part_v, part_i, s); break;
       case 16: e = launch_q8<16, 4>(q, codes, scales, valid, B, N, Dp, k,
                                     block_n, T, part_v, part_i, s); break;
-      default: e = launch_q8<Q8_GROUP, 2>(q, codes, scales, valid, B, N, Dp,
-                                          k, block_n, T, part_v, part_i, s);
+      default: e = launch_q8<QGROUP, 2>(q, codes, scales, valid, B, N, Dp,
+                                        k, block_n, T, part_v, part_i, s);
     }
     if (e != cudaSuccess) return (int)e;
   }

@@ -1,7 +1,7 @@
 // Shared pieces of the cosine top-k lookup kernels (cosine_topk.cu,
-// cosine_topk_q8.cu): the per-tile top-k selection that ends pass 1, and
-// pass 2, the merge of the per-tile candidates under the early-exit rule of
-// the reference kernel.
+// cosine_topk_q8.cu): pass 1's query bucket, its lane-group reduction and
+// the per-tile top-k selection that ends it, and pass 2, the merge of the
+// per-tile candidates under the early-exit rule of the reference kernel.
 //
 // Logical tiles follow the reference's block_n rule (min(512, ceil128(N))):
 // the row that is served under early exit depends on it.
@@ -15,9 +15,63 @@
 namespace ctk {
 
 constexpr int KMAX = 16;           // largest k taken (serving: 1 and 16)
-constexpr int QB = 8;              // queries per pass-1 block
-constexpr int WARPS = 8;           // one warp selects for one query
-constexpr int THREADS = WARPS * 32;
+constexpr int QGROUP = 32;         // most queries a pass-1 CTA takes
+
+// Pass 1's query bucket for a batch of B: 1, 2, 4, 8, 16 or 32 (larger B
+// runs groups of 32 over grid.y), shrunk while the CTA's f32 queries and
+// sims, nq * (Dp + block_n) floats, would not fit in shared memory.
+inline int query_bucket(int B, int Dp, int block_n) {
+  int nq = B <= 1 ? 1 : B <= 2 ? 2 : B <= 4 ? 4 : B <= 8 ? 8
+         : B <= 16 ? 16 : QGROUP;
+  while (nq > 1 && sizeof(float) * (size_t)nq * (Dp + block_n) > 200 * 1024)
+    nq /= 2;
+  return nq;
+}
+
+// One step of the halving butterfly across the 8 lanes of a row group:
+// each lane keeps half of its M sums, adds its partner's half, and passes
+// on to the next offset; a single sum is added across the pair as is.
+template <int M, int O>
+__device__ __forceinline__ void fold(float* v, int sub) {
+  if constexpr (M >= 2) {
+    constexpr int H = M / 2;
+    const bool up = sub & O;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float send = up ? v[i] : v[i + H];
+      const float keep = up ? v[i + H] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    if constexpr (O > 1) fold<H, O / 2>(v, sub);
+  } else {
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+    if constexpr (O > 1) fold<1, O / 2>(v, sub);
+  }
+}
+
+// The index (into the 2 x NQ sums) of a lane's first sum after fold<M, 4>.
+template <int M>
+__device__ __forceinline__ int fold_base(int sub) {
+  int off = 0, m = M;
+#pragma unroll
+  for (int o = 4; o > 0; o >>= 1) {
+    if (m >= 2) { m /= 2; if (sub & o) off += m; }
+  }
+  return off;
+}
+
+// Raise a kernel's dynamic shared memory limit once per device and size,
+// not on every call.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int smem, int* allowed) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (smem <= 48 * 1024 || smem <= allowed[dev & 63]) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) allowed[dev & 63] = smem;
+  return e;
+}
 
 // Top-k of one query's tile of sims in shared memory, written to out_v/out_i
 // (global row ids = base + column). Ties go to the lowest column, the
@@ -44,13 +98,6 @@ __device__ inline void tile_topk(float* s_row, int tile, int k, int base,
   }
 }
 
-__device__ inline float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // Pass 2. The sequential reference walks the logical tiles in order and,
 // with early_exit, stops before the first tile t > 0 at which every query's
 // best so far is >= thr. That tile is t_end = min(F + 1, T), where F is the
@@ -70,37 +117,44 @@ __device__ inline float warp_sum(float v) {
 // winner's list.
 constexpr int MERGE_THREADS = 128;
 constexpr int MERGE_CAP = 2048;
+constexpr int MERGE_QCAP = 256;       // queries the stop-tile search takes
+                                      // at a time
 
 __device__ __forceinline__ bool ahead(float v, int i, float ov, int oi) {
   return v > ov || (v == ov && i < oi);
 }
 
+template <bool EARLY>
 __global__ void __launch_bounds__(MERGE_THREADS)
 merge_tiles(const float* __restrict__ part_v, const int* __restrict__ part_i,
-            int B, int T, int k, float thr, int early_exit,
-            float* __restrict__ vals, int* __restrict__ idx,
-            uint8_t* __restrict__ hit) {
+            int B, int T, int k, float thr, float* __restrict__ vals,
+            int* __restrict__ idx, uint8_t* __restrict__ hit) {
   __shared__ float sv[KMAX + MERGE_CAP];
   __shared__ int si[KMAX + MERGE_CAP];
   __shared__ uint8_t sp[MERGE_CAP + 1];
-  __shared__ int last_first;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b = blockIdx.x;
   int t_end = T;
-  if (early_exit && T > 1) {
-    // F = the largest over queries of the first tile whose best >= thr
+  if constexpr (EARLY) {
+    // F = the largest over queries of the first tile whose best >= thr.
+    // Every (query, tile) best is tested by its own thread, with no load
+    // waiting on another; first_s[q] takes the least tile that clears.
+    __shared__ int first_s[MERGE_QCAP];
+    __shared__ int last_first;
     if (threadIdx.x == 0) last_first = -1;
-    __syncthreads();
-    for (int q = warp; q < B; q += MERGE_THREADS / 32) {
-      int first = T;
-      for (int t = lane; t < T; t += 32)
-        if (part_v[((size_t)q * T + t) * k] >= thr) { first = t; break; }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        first = min(first, __shfl_xor_sync(0xffffffffu, first, off));
-      if (lane == 0) atomicMax(&last_first, first);
+    for (int q0 = 0; q0 < B; q0 += MERGE_QCAP) {
+      const int nqc = min(MERGE_QCAP, B - q0);
+      for (int j = threadIdx.x; j < nqc; j += MERGE_THREADS) first_s[j] = T;
+      __syncthreads();
+      const float* pv = part_v + (size_t)q0 * T * k;
+#pragma unroll 8
+      for (int e = threadIdx.x; e < nqc * T; e += MERGE_THREADS)
+        if (pv[(size_t)e * k] >= thr) atomicMin(&first_s[e / T], e % T);
+      __syncthreads();
+      for (int j = threadIdx.x; j < nqc; j += MERGE_THREADS)
+        atomicMax(&last_first, first_s[j]);
+      __syncthreads();
     }
-    __syncthreads();
     t_end = min(last_first + 1, T);
   }
   for (int j = threadIdx.x; j < k; j += MERGE_THREADS) {
@@ -167,8 +221,12 @@ inline cudaError_t launch_merge(const float* part_v, const int* part_i,
                                 int B, int T, int k, float thr,
                                 int early_exit, float* vals, int* idx,
                                 uint8_t* hit, cudaStream_t s) {
-  merge_tiles<<<B, MERGE_THREADS, 0, s>>>(part_v, part_i, B, T, k, thr,
-                                          early_exit, vals, idx, hit);
+  if (early_exit && T > 1)
+    merge_tiles<true><<<B, MERGE_THREADS, 0, s>>>(part_v, part_i, B, T, k,
+                                                  thr, vals, idx, hit);
+  else
+    merge_tiles<false><<<B, MERGE_THREADS, 0, s>>>(part_v, part_i, B, T, k,
+                                                   thr, vals, idx, hit);
   return cudaGetLastError();
 }
 

@@ -61,13 +61,15 @@ def _lane_padded(x: torch.Tensor, width: int, dtype) -> torch.Tensor:
 
 
 def _valid_bytes(valid, n: int, device) -> torch.Tensor:
+    """The mask as contiguous 0/1 bytes; a contiguous bool mask (the serving
+    mirror's) is passed as it is."""
     if valid is None:
         return torch.ones((n,), dtype=torch.uint8, device=device)
     if valid.shape != (n,):
         raise ValueError(f"valid must have shape ({n},), got "
                          f"{tuple(valid.shape)}")
     if valid.dtype == torch.bool and valid.is_contiguous():
-        return valid.view(torch.uint8)          # 0/1 bytes already
+        return valid                            # 0/1 bytes already
     return (valid != 0).to(torch.uint8).contiguous()
 
 
@@ -82,13 +84,37 @@ def _empty(k: int, device):
             torch.zeros((0,), dtype=torch.bool, device=device))
 
 
-def _outputs(B: int, T: int, k: int, device):
-    f32, i32 = torch.float32, torch.int32
-    return (torch.empty((B, T, k), dtype=f32, device=device),
-            torch.empty((B, T, k), dtype=i32, device=device),
-            torch.empty((B, k), dtype=f32, device=device),
-            torch.empty((B, k), dtype=i32, device=device),
-            torch.empty((B,), dtype=torch.bool, device=device))
+# per (device index, stream): the pass-1 candidate lists, grown on demand
+_scratch: dict = {}
+
+
+def _launch(name: str, dev: torch.device, B: int, T: int, k: int,
+            inputs: tuple, args: tuple):
+    """Launch kernel ``name`` on ``dev``'s current stream with the input
+    pointers ``inputs`` and the scalar ``args``; returns fresh (vals (B, k),
+    idx (B, k), hit (B,)). The candidate lists are scratch kept per device
+    and stream, so a call allocates only its outputs and launches only the
+    kernel's own two passes."""
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(name, dev, B, T, k, inputs, args)
+    # torch.cuda.current_stream(dev).cuda_stream, without building a Stream
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    key = (dev.index, stream)
+    part_v, part_i = _scratch.get(key, (None, None))
+    if part_v is None or part_v.numel() < B * T * k:
+        n = max(B * T * k, 4096)
+        part_v = torch.empty(n, dtype=torch.float32, device=dev)
+        part_i = torch.empty(n, dtype=torch.int32, device=dev)
+        _scratch[key] = (part_v, part_i)
+    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, k), dtype=torch.int32, device=dev)
+    hit = torch.empty((B,), dtype=torch.bool, device=dev)
+    rc = K.load(name)(*inputs, part_v.data_ptr(), part_i.data_ptr(),
+                      vals.data_ptr(), idx.data_ptr(), hit.data_ptr(),
+                      *args, stream)
+    _build.check_rc(rc, name)
+    return vals, idx, hit
 
 
 def cosine_topk(queries: torch.Tensor, centroids: torch.Tensor, k: int = 1,
@@ -121,17 +147,11 @@ def cosine_topk(queries: torch.Tensor, centroids: torch.Tensor, k: int = 1,
         v = _valid_bytes(valid, N, dev)
         bn = ref.logical_block(N, block_n)
         T = -(-N // bn)
-        part_v, part_i, vals, idx, hit = _outputs(B, T, k, dev)
-        fn = K.load("cosine_topk")
-        with torch.cuda.device(dev):
-            rc = fn(q.data_ptr(), c.data_ptr(), v.data_ptr(),
-                    part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
-                    idx.data_ptr(), hit.data_ptr(), B, N, Dp, k, bn,
-                    float(np.float32(theta)), int(bool(early_exit)),
-                    torch.cuda.current_stream(dev).cuda_stream)
-        _build.check_rc(rc, "cosine_topk")
+        out = _launch("cosine_topk", dev, B, T, k,
+                      (q.data_ptr(), c.data_ptr(), v.data_ptr()),
+                      (B, N, Dp, k, bn, float(np.float32(theta)),
+                       int(bool(early_exit))))
         cosine_topk.launches += 1
-        out = (vals, idx, hit)
     return out if return_hit else out[:2]
 
 
@@ -169,18 +189,12 @@ def cosine_topk_q8(queries: torch.Tensor, codes: torch.Tensor,
         v = _valid_bytes(valid, N, dev)
         bn = ref.logical_block(N, block_n)
         T = -(-N // bn)
-        part_v, part_i, vals, idx, hit = _outputs(B, T, k, dev)
         thr = float(np.float32(theta) + np.float32(margin))
-        fn = K.load("cosine_topk_q8")
-        with torch.cuda.device(dev):
-            rc = fn(q.data_ptr(), c.data_ptr(), s.data_ptr(), v.data_ptr(),
-                    part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
-                    idx.data_ptr(), hit.data_ptr(), B, N, Dp, k, bn, thr,
-                    int(bool(early_exit)),
-                    torch.cuda.current_stream(dev).cuda_stream)
-        _build.check_rc(rc, "cosine_topk_q8")
+        out = _launch("cosine_topk_q8", dev, B, T, k,
+                      (q.data_ptr(), c.data_ptr(), s.data_ptr(),
+                       v.data_ptr()),
+                      (B, N, Dp, k, bn, thr, int(bool(early_exit))))
         cosine_topk_q8.launches += 1
-        out = (vals, idx, hit)
     return out if return_hit else out[:2]
 
 

@@ -245,3 +245,165 @@ def test_cuda_cache_backends_decide_identically():
                 np.testing.assert_array_equal(r.sim, d.sim)
             else:
                 np.testing.assert_allclose(r.sim, d.sim, atol=ATOL, rtol=0)
+
+
+# K1's pass 1: 16 warps a 512-row logical tile, 8 rows a warp step (two
+# rows for each group of 8 lanes, at a stride of 4), 128 rows a sweep of
+# the CTA, and a query bucket of 1, 2, 4, 8, 16 or 32 over grid.y.
+
+def _f32_same(q, rows, valid, k, early, theta=0.9, ctx=()):
+    kern, plain = _run("f32", q, rows, valid, k, early, theta=theta)
+    _assert_same(kern, plain, ctx)
+    return kern
+
+
+@pytest.mark.parametrize("d, width", [(100, 100), (200, 256), (700, 768),
+                                      (700, 700), (1000, 1024),
+                                      (1024, 1024)])
+def test_cuda_f32_every_lane_padded_width(d, width):
+    """Dp 128, 256, 768 and 1024: queries of dim d against rows stored at
+    ``width`` (zero columns on the right, the serving mirror's layout) or
+    at d, which the wrapper pads."""
+    rng = np.random.default_rng(d + width)
+    n, Bq = 1300, 5
+    rows = np.zeros((n, width), np.float32)
+    rows[:, :d] = _unit(rng, n, d)
+    valid = rng.random(n) > 0.2
+    q = _unit(rng, Bq, d)
+    rows[900 + np.arange(Bq), :d] = q
+    valid[900 + np.arange(Bq)] = True
+    for k in (1, 16):
+        for early in (False, True):
+            _f32_same(q, rows, valid, k, early, ctx=(d, width, k, early))
+
+
+@pytest.mark.parametrize("Bq", [2, 3, 16, 17, 64])
+def test_cuda_f32_query_bucket_edges(Bq):
+    """The buckets' edges and a batch of two full groups of 32."""
+    rng = np.random.default_rng(200 + Bq)
+    n, d = 2100, 768
+    rows = _unit(rng, n, d)
+    valid = rng.random(n) > 0.1
+    q = _unit(rng, Bq, d)
+    near = 5 + 7 * np.arange(Bq)
+    noisy = q + 0.2 * _unit(rng, Bq, d)
+    rows[near] = noisy / np.linalg.norm(noisy, axis=1, keepdims=True)
+    valid[near] = True
+    for k in (1, 16):
+        for early in (False, True):
+            _f32_same(q, rows, valid, k, early, ctx=(Bq, k, early))
+
+
+@pytest.mark.parametrize("n", [1, 7, 127, 129, 515, 4099])
+def test_cuda_f32_row_counts_ragged_against_the_sweep(n):
+    """N not a multiple of a warp step (8), a CTA sweep (128) or a logical
+    tile (512), down to one row (block_n 128)."""
+    rng = np.random.default_rng(300 + n)
+    d, Bq = 768, 4
+    rows = _unit(rng, n, d)
+    valid = rng.random(n) > 0.1
+    q = _unit(rng, Bq, d)
+    rows[n - 1] = q[0]
+    valid[n - 1] = True
+    for k in (1, 16):
+        kern = _f32_same(q, rows, valid, k, False, ctx=(n, k))
+        assert kern[1][0, 0].item() == n - 1
+
+
+def test_cuda_f32_invalid_runs_at_group_sweep_and_tile_edges():
+    """Invalid runs across a row group's two rows, a CTA sweep's edge, a
+    logical tile's edge and one whole tile; every row of a tile invalid
+    but one; best rows planted right beside each run."""
+    rng = np.random.default_rng(11)
+    n, d, Bq = 3000, 768, 4
+    rows = _unit(rng, n, d)
+    valid = np.ones(n, bool)
+    valid[0:4] = False                   # row a of every group of a step
+    valid[124:132] = False               # across the first sweep's edge
+    valid[505:519] = False               # across tile 0's edge
+    valid[1024:1536] = False             # tile 2
+    valid[1536:2048] = False
+    valid[2047] = True                   # tile 3 holds one valid row
+    q = _unit(rng, Bq, d)
+    plant = [4, 132, 519, 2047]
+    rows[plant] = q
+    rows[[3, 131, 518, 1100]] = q        # the same rows, but invalid
+    for k in (1, 16):
+        for early in (False, True):
+            kern = _f32_same(q, rows, valid, k, early, ctx=(k, early))
+            if not early:
+                np.testing.assert_array_equal(kern[1][:, 0].cpu().numpy(),
+                                              plant)
+
+
+def test_cuda_f32_ties_across_groups_sweeps_and_tiles():
+    """One query's exact copy at rows that different lanes, row groups,
+    warps, sweeps and tiles score: the lowest row wins, and k = 16 lists
+    them in row order."""
+    rng = np.random.default_rng(12)
+    n, d = 2000, 768
+    rows = _unit(rng, n, d)
+    valid = np.ones(n, bool)
+    q = _unit(rng, 3, d)
+    ties = [1700, 600, 511, 300, 130, 13, 9]    # 9 and 13: rows a and b
+    rows[ties] = q[0]
+    rows[[255, 128, 127]] = q[1]
+    rows[[8, 12]] = q[2]
+    for k in (1, 16):
+        kern = _f32_same(q, rows, valid, k, False, ctx=(k,))
+        ki = kern[1].cpu().numpy()
+        assert list(ki[:, 0]) == [9, 127, 8]
+        if k == 16:
+            assert list(ki[0, :7]) == sorted(ties)
+            assert list(ki[1, :3]) == [127, 128, 255]
+
+
+@pytest.mark.parametrize("stop", ["tile0", "middle", "never"])
+def test_cuda_f32_k16_early_exit_stop_tile_at_served_width(stop):
+    """k = 16 at dim 768 with a batch of 17 (bucket 32): early exit stops
+    after tile 0, after tile 4 of 8, or never."""
+    rng = np.random.default_rng(13)
+    n, d, Bq = 4000, 768, 17
+    rows = _unit(rng, n, d)
+    valid = rng.random(n) > 0.05
+    q = _unit(rng, Bq, d)
+    tile_of = np.zeros(Bq, int)
+    if stop == "middle":
+        tile_of = np.arange(Bq) % 5
+    near = 512 * tile_of + 20 + 3 * np.arange(Bq)
+    noisy = q + 0.2 * _unit(rng, Bq, d)
+    rows[near] = noisy / np.linalg.norm(noisy, axis=1, keepdims=True)
+    valid[near] = True
+    far = 3600 + np.arange(Bq)
+    rows[far] = q
+    valid[far] = True
+    kern = _f32_same(q, rows, valid, 16, True,
+                     theta=2.0 if stop == "never" else 0.9, ctx=(stop,))
+    served = kern[1][:, 0].cpu().numpy()
+    if stop == "never":
+        np.testing.assert_array_equal(served, far)
+    else:
+        np.testing.assert_array_equal(served, near)
+        assert (kern[1].cpu().numpy() < 512 * (tile_of.max() + 1)).all()
+
+
+def test_cuda_f32_two_calls_bit_identical_and_outputs_fresh():
+    """Two calls give the same bits; the second does not write over the
+    first's outputs (the candidate scratch is reused, the outputs are
+    not)."""
+    rng = np.random.default_rng(14)
+    n, d, Bq = 3000, 768, 8
+    q = torch.from_numpy(_unit(rng, Bq, d)).to(DEV)
+    rows = torch.from_numpy(_unit(rng, n, d)).to(DEV)
+    valid = torch.from_numpy(rng.random(n) > 0.1).to(DEV)
+    a = ops.cosine_topk(q, rows, k=16, valid=valid, theta=0.5,
+                        early_exit=True, return_hit=True)
+    snap = [x.clone() for x in a]
+    b = ops.cosine_topk(q, rows, k=16, valid=valid, theta=0.5,
+                        early_exit=True, return_hit=True)
+    c = ops.cosine_topk(q[:3], rows, k=4, valid=valid, return_hit=True)
+    torch.cuda.synchronize()
+    for x, y, s in zip(a, b, snap):
+        assert torch.equal(x, s) and torch.equal(x, y)
+    assert a[0].data_ptr() != b[0].data_ptr() != c[0].data_ptr()
+    _assert_same(c, ref.cosine_topk_ref(q[:3], rows, 4, valid), "k=4")

@@ -3,21 +3,24 @@
 read from a ``torch.profiler`` trace, at the main path's shapes.
 
     python3 tools/trace_kernels.py [--src DIR] [--iters N] [--out DIR]
-                                   [--only topk,prefill,decode]
+                                   [--only topk,prefill,decode] [--sass]
 
-Traces K1 (f32 cosine top-k, B=4, k=1, early exit on, random queries so
-every tile is needed), K2 (int8 cosine top-C, B in {1, 4, 8, 32}, k=16)
-over N=65,536 rows of dim 768, K4 (prefill attention, bf16, causal, B=1,
-L=4,096, H=40/8, Dh=128) and K3 (decode attention, bf16 q, B=4, H=40/8,
+Traces K1 (f32 cosine top-k, k=1, early exit on, random queries so every
+tile is needed) and K2 (int8 cosine top-C, k=16), both at B in {1, 4, 8,
+32} over N=65,536 rows of dim 768 with 10% invalid holes, K4 (prefill
+attention, bf16, causal, B=1, L=4,096, H=40/8, Dh=128) and K3 (decode attention, bf16 q, B=4, H=40/8,
 Dh=128, bf16 and int8 caches; kv_len 4,096 in an 8,192-position cache,
 engine-long's layout, and kv_len = Lc = 32,768, decode_32k; kv_len given
 as int32 and as int64, the engine's type before and after the change that
 makes it int32), with scaled_dot_product_attention beside bf16 K3 as a
 yardstick. For each call it prints every device kernel the call launched
 (pass 1 and pass 2 of K1/K2 apart, K3's casts and passes apart) with its
-mean time per call; for K4 the achieved TFLOP/s of the causal half, for K3
-the share of its bytes bound (3.35 TB/s) that its own kernels reach and
-the host time a call takes to enqueue them.
+mean time per call; for K4 the achieved TFLOP/s of the causal half, for
+K1, K2 and K3 the share of their bytes bound (3.35 TB/s) that their own
+kernels reach and the host time a call takes to enqueue them.
+``--sass`` also counts, from ``cuobjdump -sass`` of the built K1 and K2,
+the instructions of each pass-1 kernel's row loop and the 16-byte loads a
+lane starts in it before its first FFMA.
 ``--only`` picks groups of calls (default: all). ``--src`` names
 the directory that holds the ``repro_torch`` package (default: this
 checkout's ``src``), so an older tree can be traced with the same script.
@@ -38,6 +41,7 @@ DECODE = dict(B=4, H=40, Hkv=8, Dh=128)
 DECODE_CALLS = ((8192, 4096), (32768, 32768))   # (cache length, kv_len)
 H100_BYTES_PER_S = 3.35e12
 GROUPS = ("topk", "prefill", "decode")
+TOPK_BATCHES = (1, 4, 8, 32)
 
 
 def device_kernel_ms(torch, fn, iters: int = 10, warmup: int = 3) -> dict:
@@ -76,11 +80,54 @@ def host_us_per_call(torch, fn, n: int = 50) -> float:
     return 1e6 * (t1 - t0) / n
 
 
+def sass_row_loop(lib: str) -> dict:
+    """For each pass-1 kernel (``sims_tile_*``) in the shared library
+    ``lib``: the innermost loop that holds an FFMA and a global load, its
+    instruction count, the 16-byte global loads before its first FFMA and
+    its commonest opcodes, read from ``cuobjdump -sass``."""
+    import collections
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    txt = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, check=True).stdout
+    out = {}
+    for f in re.split(r"\n\s*Function : ", txt)[1:]:
+        name = f.split("\n", 1)[0].strip()
+        if "sims_tile" not in name:
+            continue
+        ops = [(int(m.group(1), 16),
+                re.sub(r"^@!?U?P[T0-9]+\s+", "", m.group(2).strip()))
+               for m in re.finditer(r"/\*([0-9a-f]{4,5})\*/\s+(.*?);", f)]
+        loops = []
+        for addr, ins in ops:
+            t = re.search(r"0x([0-9a-f]+)", ins) if ins.startswith("BRA") \
+                else None
+            if t and int(t.group(1), 16) < addr:
+                body = [i for a, i in ops if int(t.group(1), 16) <= a <= addr]
+                if any(i.startswith("FFMA") for i in body) and \
+                        any(i.startswith("LDG") for i in body):
+                    loops.append(body)
+        if not loops:
+            continue
+        body = min(loops, key=len)
+        first = next(n for n, i in enumerate(body) if i.startswith("FFMA"))
+        out[name] = {
+            "instructions": len(body),
+            "ldg128_before_first_ffma": sum(
+                1 for i in body[:first] if i.startswith("LDG") and ".128" in i),
+            "opcodes": collections.Counter(
+                i.split()[0] for i in body).most_common(8)}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--out", default="results")
+    ap.add_argument("--sass", action="store_true",
+                    help="count K1/K2 pass-1 row-loop instructions")
     ap.add_argument("--only", default=",".join(GROUPS),
                     help="comma-separated groups of calls: "
                          + ", ".join(GROUPS))
@@ -106,6 +153,14 @@ def main() -> int:
     _build.build()
     g = torch.Generator(device="cuda").manual_seed(0)
     res = {"nvidia_smi": smi, "src": args.src}
+    if args.sass:
+        for name in ("cosine_topk", "cosine_topk_q8"):
+            for fn, c in sass_row_loop(str(_build._lib_path(name))).items():
+                res.setdefault("sass", {})[fn] = c
+                print(f"[sass] {fn}: row loop of {c['instructions']} "
+                      f"instructions, {c['ldg128_before_first_ffma']} "
+                      f"LDG.128 before the first FFMA; {c['opcodes']}",
+                      flush=True)
     if "topk" in only:
         trace_topk(torch, ops, g, args.iters, res)
     if "prefill" in only:
@@ -119,29 +174,51 @@ def main() -> int:
 
 
 def trace_topk(torch, ops, g, iters: int, res: dict) -> None:
+    """K1 as served (k=1, early exit on at theta 0.95) and K2 as served
+    (k=16, off) at B in {1, 4, 8, 32}, chip_smoke's timing shape: N=65,536
+    unit rows of dim 768 with 10% invalid holes and random queries, so no
+    query clears theta and every tile is needed. Per call: each device
+    kernel's ms, the host us a call takes to enqueue them, and the bytes
+    bound of the valid rows (K1 f32 rows, K2 codes + scales)."""
     rows = torch.nn.functional.normalize(
         torch.randn((N_ROWS, D), generator=g, device="cuda"), dim=1)
     valid = torch.rand((N_ROWS,), generator=g, device="cuda") > 0.1
     codes_np, scales_np, _ = ops.quantize_rows(rows.cpu().numpy())
     codes = torch.tensor(codes_np, device="cuda")
     scales = torch.tensor(scales_np, device="cuda")
-    calls = [("cosine_topk", 4)] + [("cosine_topk_q8", b)
-                                     for b in (1, 4, 8, 32)]
-    for fn, B in calls:
-        q = torch.nn.functional.normalize(
-            torch.randn((B, D), generator=g, device="cuda"), dim=1)
-        if fn == "cosine_topk":
-            call = lambda: ops.cosine_topk(q, rows, k=1, valid=valid,
-                                           theta=0.95, early_exit=True,
-                                           return_hit=True)
-        else:
-            call = lambda: ops.cosine_topk_q8(q, codes, scales, k=16,
-                                              valid=valid, theta=0.95,
-                                              return_hit=True)
-        split = device_kernel_ms(torch, call, iters)
-        res[f"{fn}/B={B}"] = split
-        print(f"[trace] {fn} B={B}: " + "; ".join(
-            f"{n} {t:.4f} ms" for n, t in split.items()), flush=True)
+    n_valid = int(valid.sum())
+    for fn in ("cosine_topk", "cosine_topk_q8"):
+        for B in TOPK_BATCHES:
+            q = torch.nn.functional.normalize(
+                torch.randn((B, D), generator=g, device="cuda"), dim=1)
+            if fn == "cosine_topk":
+                k, row_bytes = 1, 4 * D
+                call = lambda: ops.cosine_topk(q, rows, k=k, valid=valid,
+                                               theta=0.95, early_exit=True,
+                                               return_hit=True)
+            else:
+                k, row_bytes = 16, D + 4
+                call = lambda: ops.cosine_topk_q8(q, codes, scales, k=k,
+                                                  valid=valid, theta=0.95,
+                                                  return_hit=True)
+            split = device_kernel_ms(torch, call, iters)
+            own = sum(t for n, t in split.items() if "ctk::" in n)
+            host_us = host_us_per_call(torch, call)
+            nbytes = (B * D * 4 + N_ROWS + n_valid * row_bytes
+                      + B * k * 8 + B)
+            bound_ms = 1e3 * nbytes / H100_BYTES_PER_S
+            res[f"{fn}/B={B}"] = {
+                "kernels_ms": split, "kernel_ms": own,
+                "all_ms": sum(split.values()), "launches": len(split),
+                "host_us_per_call": host_us, "bound_ms": bound_ms,
+                "share_of_bound": bound_ms / own if own else None}
+            print(f"[trace] {fn} B={B} k={k}: " + "; ".join(
+                f"{n} {t:.4f} ms" for n, t in split.items())
+                + f"; own {own:.4f} ms in {len(split)} device kernels; "
+                  f"host {host_us:.1f} us a call; bound {bound_ms:.4f} ms "
+                  f"(bytes), share "
+                  f"{bound_ms / own if own else float('nan'):.3f}",
+                  flush=True)
 
 
 def trace_prefill(torch, fa, g, iters: int, res: dict) -> None:
