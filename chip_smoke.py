@@ -24,9 +24,10 @@ Phases (any failure exits non-zero and prints no result line):
               that wraps four times and with qwen3's 40/8 heads, and K3
               with f32, bf16 and int8 caches; both at the main path's
               shapes too, then timed there (K4's TFLOP/s and share of its
-              bound logged; the embedder's f32 K4 and SDPA beside it also
-              on the device through torch.profiler; K3 too, which must
-              show its one kernel and no other) beside the
+              bound logged; both K4 calls, the bf16 prefill and the
+              embedder's f32 one, and SDPA beside each also on the device
+              through torch.profiler, K3 too: each call must show its
+              one kernel and no other) beside the
               plain version, a bound and
               scaled_dot_product_attention (a yardstick only, never called
               by the port); bf16 outputs are held to 2^-7 |plain| + c x
@@ -53,7 +54,8 @@ Phases (any failure exits non-zero and prints no result line):
               K3 in every decode step; their launch counters are zeroed
               and read around each stream too, and every distinct K3/K4
               call (shapes, dtypes, masks, kv lengths) is held against the
-              plain version at its own arguments. Before the stream, the
+              plain version at its own arguments. E.encode's host ms per
+              batch (median over the stream) is logged. Before the stream, the
               engine check (reduced qwen3, fp32: cached decode equals
               re-prefill greedy decoding; with the int8 KV cache, batched
               decode equals one-sequence decode) runs on the card;
@@ -72,9 +74,12 @@ Phases (any failure exits non-zero and prints no result line):
               more prefill: its device busy time and K4's share of it.
 
 The line before the last is a JSON object with one entry per kernel (K3's
-int8 mode its own entry, with its own bound; the entries of K1, K2 and K3
-also carry ``device_ms``, the profiler's device time); the line before it
-is the card's name and power limit; the last line is the device JSON. Details go to DIR/chip_smoke.json (default
+int8 mode and K4's f32 mode, the embedder's call, their own entries, with
+their own bounds; every entry also carries ``device_ms``, the profiler's
+device time, and each entry with a library call ``library_device_ms``,
+that call's); the line
+before it is the card's name and power limit; the last line is the device
+JSON. Details go to DIR/chip_smoke.json (default
 results/, relative to the repository root).
 """
 from __future__ import annotations
@@ -373,7 +378,21 @@ def phase_timing(torch, seed: int) -> dict:
                       f"({b_ms / rec['device_ms']:.3f} of the bound)"
                     if split else
                     "no device activity recorded (not measured)"))
+            if B == SPLIT_B:
+                rec["library_device_ms"] = library_device_ms(torch, lib)
+                log(f"[timing] {fn} B={B}, library on the device: "
+                    f"{rec['library_device_ms']} ms")
     return out
+
+
+def library_device_ms(torch, lib):
+    """Device ms per call of the library yardstick ``lib`` (all the
+    kernels one call launches), from a torch.profiler trace of 10 calls;
+    None when the profiler records no device activity."""
+    sys.path.insert(0, str(ROOT))
+    from tools.trace_kernels import device_kernel_ms
+    split = device_kernel_ms(torch, lib, iters=10)
+    return sum(split.values()) if split else None
 
 
 SPLIT_B = 4     # the served batch: K2 traced pass by pass there; K1 at
@@ -418,6 +437,10 @@ ATT_ATOL_F32 = 2e-5   # the reference's own for f32 outputs: sums in
 ATT_ROW_RTOL = {"flash_attention": 2.0 ** -5,
                 "decode_attention": 2.0 ** -10,
                 "decode_attention_int8": 2.0 ** -10}
+# the attention kernels' entries: K4 bf16 and f32 apart (the f32 outputs are
+# held at ATT_ATOL_F32, with no bf16 limit)
+ATT_KEYS = ("flash_attention", "flash_attention_f32", "decode_attention",
+            "decode_attention_int8")
 H100_BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 EMBED_SHAPE = dict(B=4, Lq=24, Lkv=24, H=12, Hkv=12, Dh=64)
 PREFILL_SHAPE = dict(B=1, Lq=4096, Lkv=4096, H=40, Hkv=8, Dh=128)
@@ -476,8 +499,8 @@ class Agreement:
     of the bf16 limit used (``kernels.bf16_excess``) over its comparisons."""
 
     def __init__(self):
-        self.err = dict.fromkeys(ATT_ROW_RTOL, 0.0)
-        self.share = dict.fromkeys(ATT_ROW_RTOL, 0.0)
+        self.err = dict.fromkeys(ATT_KEYS, 0.0)
+        self.share = dict.fromkeys(ATT_KEYS, 0.0)
         self.n = 0
 
     def hold(self, torch, key: str, out, plain, ctx: str) -> None:
@@ -512,7 +535,8 @@ def compare_flash(torch, agree: Agreement, shape: dict, dtype, seed: int,
     out = ops.flash_attention(q, k, v, **kw)
     plain = ref.attention_ref(q, k, v, p_dtype=v.dtype, **kw)
     torch.cuda.synchronize()
-    agree.hold(torch, "flash_attention", out, plain,
+    agree.hold(torch, "flash_attention_f32" if dtype == torch.float32
+               else "flash_attention", out, plain,
                f"flash_attention {shape} {_dtype_name(dtype)} {kw}")
 
 
@@ -678,18 +702,21 @@ def phase_attention_timing(torch, seed: int) -> dict:
             f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}); the kernel takes "
             f"{b_ms / rec['ms']:.3f} of its bound")
-        if label == "embedder":     # short: events time the host too
-            rec.update(embedder_device_ms(
-                torch, lambda: fa.flash_attention(q, k, v, causal=causal),
-                lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal, enable_gqa=H != Hkv)))
-            log(f"[timing] flash_attention embedder, torch.profiler: "
-                + ("not measured (no profiler activity)"
-                   if rec["device_ms"] is None else
-                   f"kernel {rec['device_ms']:.4f} ms on the device "
-                   f"({b_ms / rec['device_ms']:.3f} of the bound), library "
-                   f"{rec['library_device_ms']:.4f} ms in its kernels "
-                   f"{rec['library_kernels']}"))
+        # device time beside the events' (which time the wrapper's host
+        # work too, most of a call this short)
+        rec.update(flash_device_ms(
+            torch, lambda: fa.flash_attention(q, k, v, causal=causal),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=H != Hkv),
+            "flash_f32" if dtype == torch.float32 else "flash_bf16", label))
+        log(f"[timing] flash_attention {label}, torch.profiler: "
+            + ("not measured (no profiler activity)"
+               if rec["device_ms"] is None else
+               f"kernel {rec['device_ms']:.4f} ms on the device "
+               f"({b_ms / rec['device_ms']:.3f} of the bound) in "
+               f"{list(rec['device_kernels'])}, library "
+               f"{rec['library_device_ms']:.4f} ms in its kernels "
+               f"{rec['library_kernels']}"))
     B, H, Hkv, Dh = (DECODE_SHAPE[x] for x in ("B", "H", "Hkv", "Dh"))
     for Lc, n_kv in DECODE_TIMED:
         for int8 in (False, True):
@@ -708,14 +735,17 @@ def phase_attention_timing(torch, seed: int) -> dict:
                 kt, vt = k.transpose(1, 2), v.transpose(1, 2)
                 mask = (torch.arange(Lc, device=DEV)[None, :]
                         < kv_len[:, None])[:, None, None, :]
-                lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, enable_gqa=True))
+                sdpa = lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+                lib = cuda_ms(torch, sdpa)
             call = lambda: da.decode_attention(q, k, v, kv_len, **sc)
             rec = {"Lc": Lc, "kv_len": n_kv, "ms": cuda_ms(torch, call),
                    "plain_ms": cuda_ms(torch, lambda: dr.decode_attention_ref(
                        q, k, v, kv_len, **sc)),
                    "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
             rec.update(decode_device_ms(torch, call, name))
+            if lib is not None:
+                rec["library_device_ms"] = library_device_ms(torch, sdpa)
             out[f"{name}/{Lc}/{n_kv}"] = rec
             dev_ms = rec["device_ms"]
             log(f"[timing] {name} B={B} H={H}/{Hkv} Dh={Dh} Lc={Lc} "
@@ -727,18 +757,25 @@ def phase_attention_timing(torch, seed: int) -> dict:
                    f"({b_ms / dev_ms:.3f} of the bound)")
                 + f", plain {rec['plain_ms']:.4f} ms, library "
                 f"{'n/a (no int8 cache)' if lib is None else f'{lib:.4f} ms'}"
-                f", bound {b_ms:.4f} ms ({b_by}); device kernels "
+                + ("" if lib is None else
+                   f" ({rec['library_device_ms']} ms on the device)")
+                + f", bound {b_ms:.4f} ms ({b_by}); device kernels "
                 f"{rec['device_kernels']}")
             del q, k, v, sc
     return out
 
 
-def embedder_device_ms(torch, call, lib) -> dict:
-    """The embedder's f32 K4 call and scaled_dot_product_attention on the
-    same inputs, device ms per call from torch.profiler traces."""
+def flash_device_ms(torch, call, lib, kernel: str, label: str) -> dict:
+    """A K4 call and scaled_dot_product_attention on the same inputs,
+    device ms per call from torch.profiler traces (mean of 20 calls). One
+    K4 call launches its own kernel (``kernel`` in its name) and nothing
+    else: no fill, copy or second pass."""
     sys.path.insert(0, str(ROOT))
     from tools.trace_kernels import device_kernel_ms
     own, other = (device_kernel_ms(torch, f, iters=20) for f in (call, lib))
+    check(not own or (len(own) == 1 and kernel in next(iter(own))),
+          f"[timing] flash_attention {label}: one call launches "
+          f"{list(own)}, not its {kernel} kernel alone")
     return {"device_ms": sum(own.values()) if own else None,
             "device_kernels": {n.split("(")[0]: t for n, t in own.items()},
             "library_device_ms": sum(other.values()) if other else None,
@@ -1070,11 +1107,16 @@ def serve_once(torch, np, backend, models, recorder, att_recorders,
     from repro_torch.serving.gateway import GatewayRequest, ServingGateway
     ecfg, eparams, mcfg, mparams = models
     tok = HashTokenizer(vocab_size=ecfg.vocab_size, max_len=24)
+    encode_ms: dict = {}      # batch size -> host ms of each E.encode
 
     def encode(ids, mask):
+        t0 = time.perf_counter()
         with torch.inference_mode():
-            return E.encode(eparams, ecfg, torch.tensor(ids, device=DEV),
-                            torch.tensor(mask, device=DEV)).cpu().numpy()
+            out = E.encode(eparams, ecfg, torch.tensor(ids, device=DEV),
+                           torch.tensor(mask, device=DEV)).cpu().numpy()
+        encode_ms.setdefault(len(ids), []).append(
+            1e3 * (time.perf_counter() - t0))    # .cpu() synchronised
+        return out
 
     def embed_tokens(batches):
         return encode(np.stack([t[0] for t in batches]),
@@ -1119,6 +1161,7 @@ def serve_once(torch, np, backend, models, recorder, att_recorders,
     fallbacks0 = siso.cache.quant_fallbacks
     windows = WindowRecorder(siso.cache) if backend == "pallas_q8" else None
     SC.ctk_ops = recorder
+    encode_ms.clear()
     t0 = time.perf_counter()
     with recorded_ops(L, att_recorders):
         for base in range(0, len(stream), 4):
@@ -1135,6 +1178,7 @@ def serve_once(torch, np, backend, models, recorder, att_recorders,
         torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     SC.ctk_ops = ops
+    encode_p50 = {b: statistics.median(t) for b, t in encode_ms.items()}
     launches = kern.launches
     att = attention_launches()
     rep = gw.report()
@@ -1143,7 +1187,8 @@ def serve_once(torch, np, backend, models, recorder, att_recorders,
     check(rep["served_cache"] > 0, "[serve] nothing served from the cache")
     check(rep["served_engine"] > 0, "[serve] nothing served by the engine")
     check(launches > 0, f"[serve] {name} was never launched")
-    check(att["flash_attention"] > 0 and att["decode_attention"] > 0,
+    check(att["flash_attention"] > 0 and att["flash_attention_f32"] > 0
+          and att["decode_attention"] > 0,
           f"[serve] attention kernels not launched: {att}")
     for r in done:
         if r.served_by == "engine":
@@ -1159,11 +1204,15 @@ def serve_once(torch, np, backend, models, recorder, att_recorders,
         f"the engine; hits={rep['hits']} misses={rep['misses']}; lookup "
         f"p50={lk['p50_ms']:.3f} ms p99={lk['p99_ms']:.3f} ms; "
         f"{name} launches={launches}; K4 launches="
-        f"{att['flash_attention']}, K3 launches={att['decode_attention']}; "
+        f"{att['flash_attention']} bf16 + {att['flash_attention_f32']} f32, "
+        f"K3 launches={att['decode_attention']}; "
         f"centroids={n_cent}, mirror rows="
         f"{siso.cache._dev.pad if siso.cache._dev is not None else 0}; "
         f"refreshes={rep['refreshes']}; set-up {setup_s:.1f} s, "
-        f"served in {serve_s:.1f} s")
+        f"served in {serve_s:.1f} s; E.encode host ms (median) "
+        + ", ".join(f"{encode_p50[b]:.3f} at B={b} ({len(encode_ms[b])} "
+                    f"calls)" for b in sorted(encode_p50)))
+    check(4 in encode_p50, "[serve] no batch of 4 was embedded")
     extra = {}
     if backend == "pallas_q8":
         # what one margin-coverage fallback costs (the dense reference over
@@ -1197,7 +1246,7 @@ def serve_once(torch, np, backend, models, recorder, att_recorders,
             + f"; {extra['queries_with_full_window']} of {len(wins)} "
             f"queries had a full window ({siso.cache.rescore_k})")
     return {"backend": backend, "kernel": name, "launches": launches,
-            "attention_launches": att,
+            "attention_launches": att, "encode_ms_median": encode_p50,
             "other_kernel_launches": other.launches, **extra,
             "batches": len(stream) // 4, "served_s": serve_s,
             "setup_s": setup_s, "centroids": n_cent,
@@ -1325,9 +1374,13 @@ def rel_diff(torch, a, b) -> float:
 
 
 def attention_launches():
+    """K4's launches by dtype (the bf16 prefill; the f32 embedder and
+    engine check) and K3's by cache."""
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
-    return {"flash_attention": fa.flash_attention.launches,
+    return {"flash_attention": (fa.flash_attention.launches
+                                - fa.flash_attention.launches_f32),
+            "flash_attention_f32": fa.flash_attention.launches_f32,
             "decode_attention": (da.decode_attention.launches
                                  - da.decode_attention.launches_int8),
             "decode_attention_int8": da.decode_attention.launches_int8}
@@ -1336,7 +1389,7 @@ def attention_launches():
 def zero_attention_launches() -> None:
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
-    fa.flash_attention.launches = 0
+    fa.flash_attention.launches = fa.flash_attention.launches_f32 = 0
     da.decode_attention.launches = da.decode_attention.launches_int8 = 0
 
 
@@ -1598,6 +1651,8 @@ def main() -> int:
         "cosine_topk": "src/repro/kernels/cosine_topk/kernel.py:49",
         "cosine_topk_q8": "src/repro/kernels/cosine_topk/kernel.py:98",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:19",
+        "flash_attention_f32":
+            "src/repro/kernels/flash_attention/kernel.py:19",
         "decode_attention": "src/repro/kernels/decode_attention/kernel.py:25",
         "decode_attention_int8":
             "src/repro/kernels/decode_attention/kernel.py:25"}
@@ -1605,6 +1660,7 @@ def main() -> int:
         "cosine_topk": "src/repro_torch/csrc/cosine_topk.cu",
         "cosine_topk_q8": "src/repro_torch/csrc/cosine_topk_q8.cu",
         "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+        "flash_attention_f32": "src/repro_torch/csrc/flash_attention.cu",
         "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
         "decode_attention_int8": "src/repro_torch/csrc/decode_attention.cu"}
     # launches on the main path: K1/K2 in their served stream; K3/K4 in
@@ -1622,6 +1678,7 @@ def main() -> int:
     timed = {name: next(r for r in timing[name] if r["B"] == main_b)
              for name in err}
     timed["flash_attention"] = timing["flash_attention/prefill"]
+    timed["flash_attention_f32"] = timing["flash_attention/embedder"]
     timed["decode_attention"] = \
         timing[f"decode_attention/{LONG_MAX}/{LONG_PROMPT}"]
     timed["decode_attention_int8"] = \
@@ -1635,8 +1692,9 @@ def main() -> int:
             "max_abs_err": all_err[name], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
-        if "device_ms" in rec:      # K1-K3: device time beside the events'
-            kernels[-1]["device_ms"] = rec["device_ms"]
+        for key in ("device_ms", "library_device_ms"):   # from the profiler
+            if key in rec:
+                kernels[-1][key] = rec[key]
     detail["total_s"] = time.perf_counter() - t_start
     log(f"[done] every phase passed in {detail['total_s']:.1f} s")
     out_dir = ROOT / args.out

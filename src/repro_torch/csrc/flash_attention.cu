@@ -42,18 +42,36 @@
 //     slowest grid index, reversed, so the longest causal tiles start first.
 //     The old mma.sync kernel waited on synchronous loads before each tile's
 //     products; here the next tile's K and V land while this one computes.
-//   * f32: CUDA-core FMAs in full fp32, never TF32 (a TF32 score moves the
-//     embedding and can flip a theta_R decision). 16-row q tile, 32-key kv
-//     tile, one warp per query row in the softmax; 4 warps a CTA.
+//   * f32: CUDA-core FMAs in full fp32, never TF32 and no tensor cores (a
+//     TF32 score moves the embedding and can flip a theta_R decision). The
+//     embedder's call (B = 4 or 1, L = 24, H = 12, Dh = 64) is 0.4 us of
+//     bytes: it is bound by latency, the chain from the loads to the
+//     stores. Calls with Lkv <= 128 (64 at Dh > 128) take a one-pass kernel:
+//     a CTA of 4 warps takes 16 query rows of one head (8 where the grid
+//     would be thinner than the card's 132 SMs), loads Q and its whole kv
+//     span with 16-byte cp.async into shared memory at once, and computes
+//     S, an exact softmax (the row's max and sum over the whole row,
+//     nothing rescaled) and P V as register micro-tiles (each half-warp RQ
+//     = 2 or 1 rows; each lane RQ x KJ scores, then RQ rows x 16-byte
+//     chunks of O), so every 16-byte shared read feeds several independent
+//     FFMA chains, with one __syncthreads. Longer calls take the tiled
+//     form of the same code: 32 rows a CTA, 64-key tiles (32 at Dh > 128)
+//     in a two-stage cp.async ring, online softmax. A view that is not
+//     16-byte aligned takes the 4-byte-copy instance of the same
+//     templates. Scores go to the exp2 domain with scale * log2(e) in one
+//     FFMA before ex2, as in bf16. The host side is one ctypes argument
+//     (the packed int64s below) and no shared-memory attribute call for
+//     the embedder's instance (23 KB).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace fa {
 
-constexpr int THREADS = 128;          // f32 kernel
+constexpr int THREADS = 128;          // f32 kernels
 
 struct Args {
   const void* q;
@@ -718,136 +736,424 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t s) {
 // f32: CUDA-core FMAs, no TF32
 // ---------------------------------------------------------------------------
 
-constexpr int BQF = 16, BKF = 32;
+// A CTA of 4 warps takes BQ = 8 * RQ query rows of one (sequence, head):
+// each half-warp owns RQ consecutive rows. In S = Q K^T lane tl of a
+// half-warp holds the RQ x KJ micro-tile of keys tl + 16 j, so one 16-byte
+// read of Q (a broadcast across the half-warp) and one of K feed 4 RQ KJ
+// FFMAs; the row's max and sum are reduced over the half-warp by shuffles.
+// P goes to shared memory (read back only by the same half-warp) and, in
+// O = P V, lane tl holds the RQ rows x 16-byte column chunks tl + 16 c.
+// K is stored with its 16-byte chunks XOR-swizzled by the row, so the 8
+// lanes of a quarter-warp that read 8 keys' same chunk hit 8 distinct
+// bank groups; Q, P and V reads are broadcasts or consecutive chunks and
+// need no swizzle.
+template <int DP, int RQ, int BK, bool ONE_PASS>
+struct F32Cfg {
+  static constexpr int BQ = 8 * RQ;
+  static constexpr int KJ = BK / 16;         // keys a lane in S
+  static constexpr int NC = DP / 64;         // 16-byte chunks a lane in O
+  static constexpr int PS = BK + 16 / RQ;    // P row stride: the two
+                                             // half-warps' stores apart
+  static constexpr int NST = ONE_PASS ? 1 : 2;   // K/V stages
+  static constexpr int SMEM =
+      4 * (BQ * DP + BQ * PS + NST * 2 * BK * DP);
+};
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+               "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::
+               "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Rows [0, rows) of a [rows][DP] shared tile from global rows src + r *
+// stride: rows past nvalid and columns past Dh are zero-filled (cp.async
+// with a source size of 0 reads nothing). VEC: 16-byte copies (16-byte
+// aligned base and strides, Dh % 4 == 0); else 4-byte ones. SWZ: chunk c
+// of row r lands at chunk c ^ (r & 7).
+template <int DP, bool VEC, bool SWZ>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long stride, int rows,
+                                          int nvalid, int Dh,
+                                          const void* safe) {
+  if constexpr (VEC) {
+    constexpr int CH = DP / 4;
+    for (int e = threadIdx.x; e < rows * CH; e += THREADS) {
+      const int r = e / CH, c = e % CH;
+      const bool in = r < nvalid && 4 * c < Dh;
+      cp_async16(dst + r * DP + ((SWZ ? c ^ (r & 7) : c) << 2),
+                 in ? src + r * stride + 4 * c : safe, in ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * DP; e += THREADS) {
+      const int r = e / DP, d = e % DP;
+      const bool in = r < nvalid && d < Dh;
+      const int c = d >> 2;
+      cp_async4(dst + r * DP + ((SWZ ? c ^ (r & 7) : c) << 2) + (d & 3),
+                in ? src + r * stride + d : safe, in ? 4 : 0);
+    }
+  }
+}
+
+// One kv tile of a half-warp's RQ rows: keys k0 .. k0 + n - 1 at shared
+// rows 0 .. n - 1 of Ks/Vs (V zero up to a multiple of 4). Computes S,
+// masks it (unless full), takes the rows' max and sum in the exp2 domain
+// and adds P V into o. ONE_PASS: the tile is the whole row, so m starts at
+// -inf and nothing is rescaled; else the running m, l and o are rescaled.
+template <int DP, int RQ, int BK, bool ONE_PASS>
+__device__ __forceinline__ void f32_tile(
+    const Args& a, const float* Qs, const float* Ks, const float* Vs,
+    float* Ps, int rg, int tl, int qpos0, int k0, int n, int kvlim,
+    bool full, float sl2, float (&o)[RQ][DP / 64][4], float (&m)[RQ],
+    float (&l)[RQ]) {
+  using C = F32Cfg<DP, RQ, BK, ONE_PASS>;
+  constexpr int KJ = C::KJ, NC = C::NC;
+  float s[RQ][KJ];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i)
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
+  const float* qrow = Qs + rg * RQ * DP;
+#pragma unroll
+  for (int lo = 0; lo < 8; ++lo) {
+    const float* kp = Ks + tl * DP + ((lo ^ (tl & 7)) << 2);
+    const float* qp = qrow + (lo << 2);
+#pragma unroll
+    for (int hi = 0; hi < DP / 32; ++hi) {
+      float4 qv[RQ], kv[KJ];
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qp + i * DP + hi * 32);
+#pragma unroll
+      for (int j = 0; j < KJ; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(kp + j * 16 * DP + hi * 32);
+#pragma unroll
+      for (int i = 0; i < RQ; ++i)
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+        }
+    }
+  }
+  // the mask as per-row bounds: key kp is seen when lo_b <= kp < hi_b, or
+  // when it is a prefix key (kp < pre); keys at or past the tile's n lie at
+  // or past the CTA's kv end, which every row's hi_b or pre excludes
+  const int pre = min(a.prefix_len, kvlim);
+  float mx[RQ];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int qp = qpos0 + i;
+    const int lo_b = a.window > 0 ? qp - a.window + 1 : INT_MIN;
+    const int hi_b = a.causal ? min(kvlim, qp + 1) : kvlim;
+    mx[i] = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const int kp = k0 + tl + 16 * j;
+      const bool ok = full || (kp >= lo_b && kp < hi_b) || kp < pre;
+      s[i][j] = ok ? s[i][j] : -INFINITY;
+      mx[i] = fmaxf(mx[i], s[i][j]);
+    }
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], off));
+  float sum[RQ];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const float mn = ONE_PASS ? mx[i] : fmaxf(m[i], mx[i]);
+    const float neg = mn == -INFINITY ? 0.f : -mn * sl2;   // 0: all masked
+    if (!ONE_PASS) {
+      const float alpha = ex2(fmaf(m[i], sl2, neg));      // 0 while m = -inf
+      m[i] = mn;
+      l[i] *= alpha;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][c][e] *= alpha;
+    }
+    sum[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) {
+      const float p = ex2(fmaf(s[i][j], sl2, neg));       // masked: 0
+      sum[i] += p;
+      Ps[(rg * RQ + i) * C::PS + tl + 16 * j] = p;
+    }
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], off);
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) l[i] += sum[i];
+  __syncwarp();
+  // O += P V over the tile's keys, four at a time
+  const float* prow = Ps + rg * RQ * C::PS;
+#pragma unroll
+  for (int g = 0; g < BK / 4; ++g) {
+    if (4 * g >= n) break;
+    float4 p4[RQ];
+#pragma unroll
+    for (int i = 0; i < RQ; ++i)
+      p4[i] = *reinterpret_cast<const float4*>(prow + i * C::PS + 4 * g);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float4 vv = *reinterpret_cast<const float4*>(
+            Vs + (4 * g + kk) * DP + (tl + 16 * c) * 4);
+#pragma unroll
+        for (int i = 0; i < RQ; ++i) {
+          const float p = kk == 0 ? p4[i].x : kk == 1 ? p4[i].y
+                        : kk == 2 ? p4[i].z : p4[i].w;
+          o[i][c][0] = fmaf(p, vv.x, o[i][c][0]);
+          o[i][c][1] = fmaf(p, vv.y, o[i][c][1]);
+          o[i][c][2] = fmaf(p, vv.z, o[i][c][2]);
+          o[i][c][3] = fmaf(p, vv.w, o[i][c][3]);
+        }
+      }
+    }
+  }
+}
+
+// grid (q tiles, H, B), 128 threads. ONE_PASS: the CTA's whole kv span
+// (at most BK keys; the host sends only Lkv <= BK here) is loaded at once
+// and the softmax is exact in one pass. Else kv tiles of BK keys stream
+// through a two-stage cp.async ring under an online softmax.
+template <int DP, int RQ, int BK, bool VEC, bool ONE_PASS>
 __global__ void __launch_bounds__(THREADS)
 flash_f32(Args a) {
-  extern __shared__ float fsm[];
-  const int Dh = a.Dh;
-  float* Qs = fsm;                        // [BQF][Dh]
-  float* Ks = Qs + BQF * Dh;              // [BKF][Dh + 1]
-  float* Vs = Ks + BKF * (Dh + 1);        // [BKF][Dh]
-  float* Ps = Vs + BKF * Dh;              // [BQF][BKF]
-  float* Acc = Ps + BQF * BKF;            // [BQF][Dh]
-  float* Alpha = Acc + BQF * Dh;          // [BQF]
-  float* Lsum = Alpha + BQF;              // [BQF]
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  using C = F32Cfg<DP, RQ, BK, ONE_PASS>;
+  constexpr int NC = C::NC;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                              // [BQ][DP]
+  float* Ps = Qs + C::BQ * DP;                  // [BQ][PS]
+  float* KV = Ps + C::BQ * C::PS;               // NST x {K, V} [BK][DP]
+  const int qt = gridDim.x - 1 - blockIdx.x;    // longest causal tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hkv);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = qt * BQF;
+  const int tl = lane & 15, rg = warp * 2 + (lane >> 4);
+  const int row0 = qt * C::BQ;
   const int kvlim = kv_limit(a, b);
-  const float* q = static_cast<const float*>(a.q) + b * a.qsB + h * a.qsH;
+  const float* q = static_cast<const float*>(a.q) + b * a.qsB + h * a.qsH +
+                   row0 * a.qsL;
   const float* k = static_cast<const float*>(a.k) + b * a.ksB + hk * a.ksH;
   const float* v = static_cast<const float*>(a.v) + b * a.vsB + hk * a.vsH;
-
-  for (int e = threadIdx.x; e < BQF * Dh; e += THREADS) {
-    const int r = e / Dh, d = e - r * Dh;
-    Qs[e] = row0 + r < a.Lq ? q[(row0 + r) * a.qsL + d] : 0.f;
-    Acc[e] = 0.f;
-  }
-  // warp w owns rows w, w + 4, w + 8, w + 12 in the softmax
-  constexpr int RW = BQF / 4;
-  float m[RW], l[RW];
-#pragma unroll
-  for (int i = 0; i < RW; ++i) { m[i] = -INFINITY; l[i] = 0.f; }
-
   const int q_lo = a.q_offset + row0;
-  const int q_hi = a.q_offset + min(row0 + BQF, a.Lq) - 1;
+  const int q_hi = a.q_offset + min(row0 + C::BQ, a.Lq) - 1;
   int k_begin, k_end;
   kv_range(a, q_lo, q_hi, kvlim, &k_begin, &k_end);
-  for (int k0 = k_begin / BKF * BKF; k0 < k_end; k0 += BKF) {
-    if (tile_masked(a, q_lo, q_hi, k0, k0 + BKF)) continue;   // CTA-uniform
-    __syncthreads();
-    const int nk = min(BKF, kvlim - k0);
-    for (int e = threadIdx.x; e < BKF * Dh; e += THREADS) {
-      const int r = e / Dh, d = e - r * Dh;
-      const bool in = r < nk;
-      Ks[r * (Dh + 1) + d] = in ? k[(k0 + r) * a.ksL + d] : 0.f;
-      Vs[e] = in ? v[(k0 + r) * a.vsL + d] : 0.f;
-    }
-    __syncthreads();
+  // the warp's rows, for its own skip and mask decisions
+  const int wrow0 = row0 + warp * 2 * RQ;
+  const bool active = wrow0 < a.Lq;
+  const int wq_lo = a.q_offset + wrow0;
+  const int wq_hi = a.q_offset + min(wrow0 + 2 * RQ, a.Lq) - 1;
+  const int qpos0 = a.q_offset + row0 + rg * RQ;
+  const float sl2 = a.scale * LOG2E;              // exp2 domain
+
+  float o[RQ][NC][4], m[RQ], l[RQ];
 #pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      const int r = warp + 4 * i;
-      const int qp = a.q_offset + row0 + r, kp = k0 + lane;
-      const float* qr = Qs + r * Dh;
-      const float* kr = Ks + lane * (Dh + 1);
-      float acc = 0.f;
-      for (int d = 0; d < Dh; ++d) acc = fmaf(qr[d], kr[d], acc);
-      const float s = allowed(a, qp, kp, kvlim) ? acc * a.scale : -INFINITY;
-      float mt = s;
+  for (int i = 0; i < RQ; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float mn = fmaxf(m[i], mt);
-      const float safe = mn == -INFINITY ? 0.f : mn;
-      const float alpha = m[i] == -INFINITY ? 0.f : expf(m[i] - safe);
-      const float p = s == -INFINITY ? 0.f : expf(s - safe);
-      float ps = p;
+    for (int c = 0; c < NC; ++c)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      m[i] = mn;
-      l[i] = alpha * l[i] + ps;
-      Ps[r * BKF + lane] = p;
-      if (lane == 0) Alpha[r] = alpha;
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < BQF * Dh; e += THREADS) {
-      const int r = e / Dh, d = e - r * Dh;
-      const float* pr = Ps + r * BKF;
-      float acc = Acc[e] * Alpha[r];
-      for (int c = 0; c < BKF; ++c) acc = fmaf(pr[c], Vs[c * Dh + d], acc);
-      Acc[e] = acc;
-    }
+      for (int e = 0; e < 4; ++e) o[i][c][e] = 0.f;
   }
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < RW; ++i) Lsum[warp + 4 * i] = l[i];
+  load_rows<DP, VEC, false>(Qs, q, a.qsL, C::BQ, a.Lq - row0, a.Dh, a.q);
+  if constexpr (ONE_PASS) {
+    const int nk = max(k_end - k_begin, 0), nk4 = (nk + 3) & ~3;
+    load_rows<DP, VEC, true>(KV, k + k_begin * a.ksL, a.ksL, nk4, nk, a.Dh,
+                             a.k);
+    load_rows<DP, VEC, false>(KV + BK * DP, v + k_begin * a.vsL, a.vsL, nk4,
+                              nk, a.Dh, a.v);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    if (!active) return;
+    f32_tile<DP, RQ, BK, true>(a, Qs, KV, KV + BK * DP, Ps, rg, tl, qpos0,
+                               k_begin, nk, kvlim, false, sl2, o, m, l);
+  } else {
+    auto next = [&](int k0) {      // the next tile that holds a seen key
+      while (k0 < k_end && tile_masked(a, q_lo, q_hi, k0, k0 + BK)) k0 += BK;
+      return k0;
+    };
+    auto load_kv = [&](int st, int k0) {
+      const int n = min(BK, k_end - k0), n4 = (n + 3) & ~3;
+      float* Ks = KV + st * 2 * BK * DP;
+      load_rows<DP, VEC, true>(Ks, k + k0 * a.ksL, a.ksL, n4, n, a.Dh, a.k);
+      load_rows<DP, VEC, false>(Ks + BK * DP, v + k0 * a.vsL, a.vsL, n4, n,
+                                a.Dh, a.v);
+    };
+    int k0 = next(k_begin), st = 0;
+    if (k0 < k_end) load_kv(0, k0);
+    cp_async_commit();
+    while (k0 < k_end) {
+      const int kn = next(k0 + BK);
+      if (kn < k_end) load_kv(st ^ 1, kn);
+      cp_async_commit();
+      cp_async_wait<1>();                 // this tile (and Q) have landed
+      __syncthreads();
+      if (active) {
+        const float* Ks = KV + st * 2 * BK * DP;
+        f32_tile<DP, RQ, BK, false>(
+            a, Qs, Ks, Ks + BK * DP, Ps, rg, tl, qpos0, k0,
+            min(BK, k_end - k0), kvlim,
+            tile_full(a, wq_lo, wq_hi, k0, k0 + BK, kvlim), sl2, o, m, l);
+      }
+      __syncthreads();                    // the stage is refilled next
+      st ^= 1;
+      k0 = kn;
+    }
+    cp_async_wait<0>();
+    if (!active) return;
   }
-  __syncthreads();
   float* out = static_cast<float*>(a.o);
-  for (int e = threadIdx.x; e < BQF * Dh; e += THREADS) {
-    const int r = e / Dh, d = e - r * Dh;
-    if (row0 + r >= a.Lq) continue;
-    const float lr = Lsum[r];
-    out[(((long long)b * a.Lq + row0 + r) * a.H + h) * Dh + d] =
-        lr > 0.f ? Acc[e] / lr : 0.f;
+#pragma unroll
+  for (int i = 0; i < RQ; ++i) {
+    const int row = row0 + rg * RQ + i;
+    if (row >= a.Lq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;   // fully masked: 0
+    float* orow = out + (((long long)b * a.Lq + row) * a.H + h) * a.Dh;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d0 = (tl + 16 * c) * 4;
+      if (d0 >= a.Dh) continue;
+      const float4 r = make_float4(o[i][c][0] * inv, o[i][c][1] * inv,
+                                   o[i][c][2] * inv, o[i][c][3] * inv);
+      if (VEC) {
+        *reinterpret_cast<float4*>(orow + d0) = r;
+      } else {
+        const float rr[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (d0 + e < a.Dh) orow[d0 + e] = rr[e];
+      }
+    }
   }
+}
+
+template <int DP, int RQ, int BK, bool VEC, bool ONE_PASS>
+cudaError_t launch_f32(const Args& a, cudaStream_t s) {
+  using C = F32Cfg<DP, RQ, BK, ONE_PASS>;
+  if constexpr (C::SMEM > 48 * 1024) {   // raised once per device
+    static bool raised[64] = {};
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (!raised[dev & 63]) {
+      cudaError_t e = cudaFuncSetAttribute(
+          flash_f32<DP, RQ, BK, VEC, ONE_PASS>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      if (e != cudaSuccess) return e;
+      raised[dev & 63] = true;
+    }
+  }
+  dim3 grid((unsigned)((a.Lq + C::BQ - 1) / C::BQ), (unsigned)a.H,
+            (unsigned)a.B);
+  flash_f32<DP, RQ, BK, VEC, ONE_PASS><<<grid, THREADS, C::SMEM, s>>>(a);
+  return cudaGetLastError();
+}
+
+// Lkv <= 128 (<= 64 at Dh > 128) takes the one-pass kernel with the
+// smallest kv width that holds it; 2 rows a half-warp, or 1 where the grid
+// would otherwise hold fewer CTAs than the card has SMs (the embedder's
+// one-answer call: more CTAs, each with half the chain). The
+// 4-byte-copy instance has one width and 2 rows. Longer calls take the
+// tiled kernel.
+constexpr int H100_SMS = 132;
+
+template <int DP, int RQ, bool VEC>
+cudaError_t one_pass_f32(const Args& a, cudaStream_t s) {
+  constexpr int ONE_MAX = DP > 128 ? 64 : 128;
+  if (a.Lkv <= 32) return launch_f32<DP, RQ, 32, VEC, true>(a, s);
+  if (ONE_MAX == 64 || a.Lkv <= 64)
+    return launch_f32<DP, RQ, 64, VEC, true>(a, s);
+  return launch_f32<DP, RQ, ONE_MAX, VEC, true>(a, s);
+}
+
+template <int DP, bool VEC>
+cudaError_t dispatch_f32(const Args& a, cudaStream_t s) {
+  constexpr int ONE_MAX = DP > 128 ? 64 : 128;
+  if (a.Lkv > ONE_MAX)
+    return launch_f32<DP, 4, (DP > 128 ? 32 : 64), VEC, false>(a, s);
+  if (!VEC) return launch_f32<DP, 2, ONE_MAX, false, true>(a, s);
+  if ((long long)((a.Lq + 7) / 8) * a.H * a.B <= H100_SMS)
+    return one_pass_f32<DP, 1, true>(a, s);
+  return one_pass_f32<DP, 2, true>(a, s);
+}
+
+template <bool VEC>
+cudaError_t dispatch_f32(const Args& a, cudaStream_t s) {
+  if (a.Dh <= 64) return dispatch_f32<64, VEC>(a, s);
+  if (a.Dh <= 128) return dispatch_f32<128, VEC>(a, s);
+  return dispatch_f32<256, VEC>(a, s);
+}
+
+// 16-byte copies need a 16-byte aligned base and B/L/H strides (of dims
+// longer than 1) that are multiples of 4 elements.
+inline bool f32_aligned(const void* p, long long sB, long long sL,
+                        long long sH, long long B, long long L, long long H) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 &&
+         (B == 1 || sB % 4 == 0) && (L == 1 || sL % 4 == 0) &&
+         (H == 1 || sH % 4 == 0);
 }
 
 }  // namespace fa
 
+// The arguments come packed as 28 int64 (one ctypes argument instead of 26:
+// converting each costs the host more than the launch itself):
+//   [0..4]   q, k, v, o, kv_valid (pointers; kv_valid 0 for none)
+//   [5..10]  B, Lq, Lkv, H, Hkv, Dh
+//   [11..22] the element strides of q, k, v, four each (B, L, H, Dh)
+//   [23..27] causal, window, prefix_len, q_offset, is_bf16
 // q (B, Lq, H, Dh), k/v (B, Lkv, Hkv, Dh), each with unit stride in Dh and
-// the given element strides for B, L, H; o contiguous (B, Lq, H, Dh) of q's
-// dtype (bf16 when is_bf16, else f32); kv_valid (B,) int32 or null;
-// window <= 0 means none. Dh <= 256. Returns the launch status.
-extern "C" int flash_attention(
-    const void* q, const void* k, const void* v, void* o, const int* kv_valid,
-    long long B, long long Lq, long long Lkv, long long H, long long Hkv,
-    long long Dh, long long qsB, long long qsL, long long qsH, long long ksB,
-    long long ksL, long long ksH, long long vsB, long long vsL, long long vsH,
-    long long causal, long long window, long long prefix_len,
-    long long q_offset, long long is_bf16, void* stream) {
+// the given strides for B, L, H; o contiguous (B, Lq, H, Dh) of q's dtype
+// (bf16 when is_bf16, else f32); kv_valid (B,) int32; window <= 0 means
+// none. Dh <= 256. Returns the launch status.
+extern "C" int flash_attention(const long long* p, void* stream) {
   using namespace fa;
-  Args a{q, k, v, o, kv_valid, (int)B, (int)Lq, (int)Lkv, (int)H, (int)Hkv,
-         (int)Dh, qsB, qsL, qsH, ksB, ksL, ksH, vsB, vsL, vsH, (int)causal,
-         (int)window, (int)prefix_len, (int)q_offset,
-         1.0f / sqrtf((float)Dh)};
+  const void* q = reinterpret_cast<const void*>(p[0]);
+  const void* k = reinterpret_cast<const void*>(p[1]);
+  const void* v = reinterpret_cast<const void*>(p[2]);
+  void* o = reinterpret_cast<void*>(p[3]);
+  const long long B = p[5], Lq = p[6], Lkv = p[7], H = p[8], Hkv = p[9],
+                  Dh = p[10];
+  const long long *qs = p + 11, *ks = p + 15, *vs = p + 19;
+  Args a{q, k, v, o, reinterpret_cast<const int*>(p[4]), (int)B, (int)Lq,
+         (int)Lkv, (int)H, (int)Hkv, (int)Dh, qs[0], qs[1], qs[2], ks[0],
+         ks[1], ks[2], vs[0], vs[1], vs[2], (int)p[23], (int)p[24],
+         (int)p[25], (int)p[26], 1.0f / sqrtf((float)Dh)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || Lq == 0 || H == 0) return 0;
-  if (is_bf16) {
+  if (p[27]) {
     if (Dh <= 64) return (int)launch_bf16<64, 128>(a, s);
     if (Dh <= 128) return (int)launch_bf16<128, 128>(a, s);
     return (int)launch_bf16<256, 64>(a, s);
   }
-  const size_t smem = sizeof(float) *
-      (size_t)(BQF * Dh + BKF * (Dh + 1) + BKF * Dh + BQF * BKF + BQF * Dh +
-               2 * BQF);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)((Lq + BQF - 1) / BQF), (unsigned)H, (unsigned)B);
-  flash_f32<<<grid, THREADS, smem, s>>>(a);
-  return (int)cudaGetLastError();
+  const bool vec = Dh % 4 == 0 && (reinterpret_cast<uintptr_t>(o) & 15) == 0 &&
+                   f32_aligned(q, qs[0], qs[1], qs[2], B, Lq, H) &&
+                   f32_aligned(k, ks[0], ks[1], ks[2], B, Lkv, Hkv) &&
+                   f32_aligned(v, vs[0], vs[1], vs[2], B, Lkv, Hkv);
+  return (int)(vec ? dispatch_f32<true>(a, s) : dispatch_f32<false>(a, s));
 }

@@ -10,6 +10,14 @@ def on_cpu(*tensors) -> bool:
     """True when every tensor (None skipped) lies on the CPU, so a wrapper
     runs its plain version; False when all lie on one CUDA device, so it
     launches its kernel. Anything else raises."""
+    first = tensors[0]
+    index = first.get_device()             # -1 off CUDA
+    if index >= 0 and first.is_cuda:       # the kernel's common case, one
+        for t in tensors[1:]:              # CUDA device: no set built
+            if t is not None and t.get_device() != index:
+                break
+        else:
+            return False
     devs = {t.device for t in tensors if t is not None}
     if all(d.type == "cpu" for d in devs):
         return True

@@ -3,37 +3,55 @@
 ``repro_torch.kernels._build``. Nothing here runs at import time."""
 from __future__ import annotations
 
+import struct
+
 import torch
 
 from repro_torch.kernels import _build
 
+# the C entry point's 28 int64 arguments, packed into one bytes object
+_ARGS = struct.Struct("28q")
+
 
 def _strides(t: torch.Tensor) -> list[int]:
-    """t's element strides for B, L, H; a dim of length 1 is given its
+    """t's element strides for B, L, H, Dh; a dim of length 1 is given its
     contiguous stride, which addresses nothing but keeps a tensor map's
     strides aligned."""
     n_b, n_l, n_h, dh = t.shape
     dense = (n_l * n_h * dh, n_h * dh, dh)
     return [st if n > 1 else c
-            for n, st, c in zip((n_b, n_l, n_h), t.stride()[:3], dense)]
+            for n, st, c in zip((n_b, n_l, n_h), t.stride()[:3], dense)] + [1]
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            out: torch.Tensor, kv_valid: torch.Tensor | None, *, causal: bool,
-           window: int, prefix_len: int, q_offset: int) -> None:
+           window: int, prefix_len: int, q_offset: int,
+           strides: tuple) -> None:
     """q (B, Lq, H, Dh), k/v (B, Lkv, Hkv, Dh) with unit stride in Dh, read
     in place through their strides; ``out`` contiguous (B, Lq, H, Dh) of
     q's dtype; ``kv_valid`` (B,) int32 or None; ``window`` 0 for none. The
-    caller has checked shapes, dtypes and devices."""
-    B, Lq, H, Dh = q.shape
-    Lkv, Hkv = k.shape[1], k.shape[2]
+    caller has checked shapes, dtypes and devices, and read ``strides``,
+    ``q.stride() + k.stride() + v.stride()``: the f32 kernels take them as
+    they are (and ignore those of dims of length 1), the bf16 tensor maps
+    take ``_strides``."""
     fn = _build.load("flash_attention")
-    dev = q.device
-    with torch.cuda.device(dev):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                kv_valid.data_ptr() if kv_valid is not None else None,
-                B, Lq, Lkv, H, Hkv, Dh, *_strides(q), *_strides(k),
-                *_strides(v), int(causal), window, prefix_len, q_offset,
-                int(q.dtype == torch.bfloat16),
-                torch.cuda.current_stream(dev).cuda_stream)
+    index = q.device.index
+    if index != torch._C._cuda_getDevice():
+        with torch.cuda.device(index):
+            return launch(q, k, v, out, kv_valid, causal=causal,
+                          window=window, prefix_len=prefix_len,
+                          q_offset=q_offset, strides=strides)
+    B, Lq, H, Dh = q.shape
+    is_bf16 = q.dtype == torch.bfloat16
+    if is_bf16:
+        strides = (*_strides(q), *_strides(k), *_strides(v))
+    rc = fn(_ARGS.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(),
+                       0 if kv_valid is None else kv_valid.data_ptr(),
+                       B, Lq, k.shape[1], H, k.shape[2], Dh,
+                       *strides, causal, window, prefix_len, q_offset,
+                       is_bf16),
+            # torch.cuda.current_stream(dev).cuda_stream, without building
+            # a Stream object
+            torch._C._cuda_getCurrentRawStream(index))
     _build.check_rc(rc, "flash_attention")

@@ -5,7 +5,10 @@ For CUDA tensors ``flash_attention`` launches the hand-written kernel (see
 the plain version in ``ref.py`` with P rounded to v's dtype before P·V,
 as the bf16 kernel does. There is no fallback from one to the
 other. A bf16 view that TMA cannot describe raises ``ValueError``
-(``tma_layout_check``). Launches are counted in ``flash_attention.launches``.
+(``tma_layout_check``); an f32 view of any strides is read in place (16
+bytes at a time where it is 16-byte aligned, else 4). Launches are counted
+in ``flash_attention.launches``, the f32 ones also in
+``flash_attention.launches_f32``.
 
 Unlike the Pallas wrapper, the kernel reads q/k/v in the (B, L, H, Dh)
 layout through their strides (no transposed or padded copies), and takes
@@ -43,6 +46,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  prefix_len=prefix_len, q_offset=q_offset,
                                  kv_valid_len=kv_valid_len,
                                  p_dtype=v.dtype)
+    dtype = q.dtype
+    if dtype not in DTYPES or k.dtype != dtype or v.dtype != dtype:
+        raise TypeError(f"q/k/v must all be float32 or all bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if k.shape != (B, Lkv, Hkv, Dh) or v.shape != k.shape:
         raise ValueError(f"k/v must be (B, Lkv, Hkv, {Dh}) like q's batch and "
                          f"head dim, got {tuple(k.shape)}, {tuple(v.shape)}")
@@ -50,10 +57,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"H={H} must be a multiple of Hkv={Hkv}")
     if not 1 <= Dh <= DH_MAX:
         raise ValueError(f"head dim {Dh} outside [1, {DH_MAX}]")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q/k/v must all be float32 or all bfloat16, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
+    strides = q.stride() + k.stride() + v.stride()
+    if strides[3] != 1 or strides[7] != 1 or strides[11] != 1:
         raise ValueError("q/k/v need unit stride in the head dim")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
@@ -61,18 +66,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if kv_valid_len.shape != (B,):
             raise ValueError(f"kv_valid_len must have shape ({B},)")
         kv_valid_len = kv_valid_len.to(torch.int32).contiguous()
-    if q.dtype == torch.bfloat16:
+    if dtype == torch.bfloat16:
         tma_layout_check(q, k, v)
-    out = torch.empty((B, Lq, H, Dh), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if not (B and Lq and H):
         return out
     K.launch(q, k, v, out, kv_valid_len, causal=causal,
-             window=window or 0, prefix_len=prefix_len, q_offset=q_offset)
+             window=window or 0, prefix_len=prefix_len, q_offset=q_offset,
+             strides=strides)
     flash_attention.launches += 1
+    if dtype == torch.float32:
+        flash_attention.launches_f32 += 1
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches = 0        # every K4 launch
+flash_attention.launches_f32 = 0    # of which f32 (the embedder's)
 
 
 def tma_layout_check(*tensors: torch.Tensor) -> None:

@@ -39,6 +39,12 @@ CASES = [
     dict(B=1, Lq=96, Lkv=96, H=2, Hkv=2, Dh=48, causal=True, prefix_len=16),
     dict(B=2, Lq=32, Lkv=32, H=4, Hkv=2, Dh=32, causal=False),
     dict(B=1, Lq=7, Lkv=7, H=1, Hkv=1, Dh=8, causal=True),
+] + [
+    # the embedder's attention (siso-embedder: 12 heads of 64, bidirectional)
+    # at its served batches of 4 and 1, at L=24 and at the tokenizer's
+    # default length of 64
+    dict(B=B, Lq=L, Lkv=L, H=12, Hkv=12, Dh=64, causal=False)
+    for B in (1, 4) for L in (24, 64)
 ]
 
 # tests/test_kernels.py decode shapes: (B, H, Hkv, Dh, Lc)

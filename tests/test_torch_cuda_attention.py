@@ -171,6 +171,155 @@ def test_flash_bf16_misaligned_view_raises():
         fa_ops.flash_attention(x, x, x)
     assert fa_ops.flash_attention.launches == before
 
+# f32 K4: the one-pass kernel takes Lkv <= 128 (64 at Dh > 128), the tiled
+# kernel (32-row q tiles, 64-key kv tiles, 32 at Dh > 128) the rest; the
+# lengths sit on both sides of those limits and of every tile edge
+F32_LENGTHS = [1, 7, 23, 24, 25, 63, 64, 65, 127, 128, 129, 300]
+F32_HEADS = [(12, 12), (8, 2), (40, 8)]
+F32_BATCHES = [1, 4, 5]
+
+
+def _f32_check(q, k, v, **kw):
+    before = (fa_ops.flash_attention.launches,
+              fa_ops.flash_attention.launches_f32)
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    plain = fa_ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (fa_ops.flash_attention.launches,
+            fa_ops.flash_attention.launches_f32) == (before[0] + 1,
+                                                     before[1] + 1)
+    assert out.shape == q.shape[:3] + v.shape[3:] and out.dtype == q.dtype
+    torch.testing.assert_close(out, plain, atol=ATOL_F32, rtol=0)
+    return out
+
+
+@pytest.mark.parametrize("Dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("L", F32_LENGTHS)
+def test_flash_f32_lengths(L, Dh):
+    """Lq = Lkv = L, then L queries over the next length's keys (so Lq and
+    Lkv differ on both sides of the limits), causal and bidirectional,
+    with each head layout; B cycles through 1, 4, 5."""
+    i = F32_LENGTHS.index(L)
+    other = F32_LENGTHS[(i + 1) % len(F32_LENGTHS)]
+    for n, (H, Hkv) in enumerate(F32_HEADS):
+        B = F32_BATCHES[(i + n) % len(F32_BATCHES)]
+        g = _gen(1000 * Dh + 10 * L + n)
+        for Lq, Lkv in ((L, L), (L, other)):
+            q = _randn((B, Lq, H, Dh), g, torch.float32)
+            k, v = (_randn((B, Lkv, Hkv, Dh), g, torch.float32)
+                    for _ in range(2))
+            for causal in (False, True):
+                _f32_check(q, k, v, causal=causal)
+
+
+F32_MODES = {
+    "causal": dict(causal=True),
+    "bidirectional": dict(causal=False),
+    "window": dict(causal=True, window=9),
+    "window-bidirectional": dict(causal=False, window=9),
+    "prefix": dict(causal=True, prefix_len=5),
+    "window-prefix": dict(causal=True, window=9, prefix_len=5),
+    # kv_valid_len per sequence, 0 included (its rows give 0), with queries
+    # placed mid-sequence by q_offset
+    "offset-ragged": dict(causal=True, q_offset=11, ragged=True),
+    "bidirectional-ragged": dict(causal=False, ragged=True),
+    "right-aligned": dict(causal=True, short_q=True),
+}
+
+
+@pytest.mark.parametrize("L", [24, 64, 129, 300])
+@pytest.mark.parametrize("mode", list(F32_MODES))
+def test_flash_f32_mask_modes(mode, L):
+    """Every mask mode at the embedder's width (H = 12, Dh = 64) and at
+    qwen3's head layout (40/8, Dh = 128), B = 5, on the one-pass kernel
+    (L <= 64) and the tiled one (129, 300)."""
+    kw = dict(F32_MODES[mode])
+    ragged, short_q = kw.pop("ragged", False), kw.pop("short_q", False)
+    if "window" in kw:
+        kw["window"] = max(kw["window"], L // 3)
+    if "prefix_len" in kw:
+        kw["prefix_len"] = max(kw["prefix_len"], L // 4)
+    for H, Hkv, Dh in ((12, 12, 64), (40, 8, 128)):
+        B = 5
+        g = _gen(len(mode) + L + Dh)
+        Lq = max(1, L // 3) if short_q else L
+        q = _randn((B, Lq, H, Dh), g, torch.float32)
+        k, v = (_randn((B, L, Hkv, Dh), g, torch.float32) for _ in range(2))
+        call = dict(kw)
+        if ragged:
+            call["kv_valid_len"] = torch.tensor(
+                [L, 0, 1, max(1, L // 2), L - 1], device=DEV)
+        if "q_offset" in call:
+            call["q_offset"] = min(call["q_offset"], L - 1)
+        out = _f32_check(q, k, v, **call)
+        if ragged:
+            assert not out[1].any()           # kv_valid_len 0: all masked
+
+
+@pytest.mark.parametrize("L", [24, 300])
+@pytest.mark.parametrize("layout", ["fused-projection", "misaligned",
+                                    "odd-head-dim"])
+def test_flash_f32_reads_views_in_place(layout, L):
+    """q/k/v as slices of one fused (B, L, (H + 2 Hkv) Dh) projection (the
+    16-byte copies), as views 4 bytes off a 16-byte boundary and with a
+    head dim of 42 (the 4-byte copies of the same kernels), on the one-pass
+    and the tiled kernel."""
+    B, H, Hkv = 4, 12, 4
+    Dh = 42 if layout == "odd-head-dim" else 64
+    g = _gen(len(layout) + L)
+    if layout == "fused-projection":
+        heads = _randn((B, L, (H + 2 * Hkv) * Dh), g,
+                       torch.float32).view(B, L, H + 2 * Hkv, Dh)
+        q, k, v = heads[:, :, :H], heads[:, :, H:H + Hkv], \
+            heads[:, :, H + Hkv:]
+    else:
+        wide = _randn((B, L, H + 2 * Hkv, Dh + 1), g, torch.float32)
+        heads = wide[..., 1:] if layout == "misaligned" else wide[..., :Dh]
+        q, k, v = heads[:, :, :H], heads[:, :, H:H + Hkv], \
+            heads[:, :, H + Hkv:]
+        assert layout != "misaligned" or q.data_ptr() % 16
+    assert not q.is_contiguous()
+    for causal in (False, True):
+        _f32_check(q, k, v, causal=causal)
+    _f32_check(q, k, v, causal=True, q_offset=3,
+               kv_valid_len=torch.tensor([L, 2, 0, L // 2], device=DEV))
+
+
+def _profiled_kernels(fn):
+    """The device kernels that one call of ``fn`` launches, from a
+    torch.profiler trace (after a warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if str(e.device_type).endswith("CUDA")]
+
+
+@pytest.mark.parametrize("shape", [(4, 24, 12, 12, 64), (1, 24, 12, 12, 64),
+                                   (4, 64, 12, 12, 64), (2, 300, 8, 2, 128)],
+                         ids=["embed-B4", "embed-B1", "L64", "L300"])
+def test_flash_f32_one_launch_and_bit_identical(shape):
+    """One call launches one kernel (the f32 K4's, no fill or copy), and
+    two calls on the same inputs give the same bits in fresh outputs."""
+    B, L, H, Hkv, Dh = shape
+    g = _gen(L + B)
+    q = _randn((B, L, H, Dh), g, torch.float32)
+    k, v = (_randn((B, L, Hkv, Dh), g, torch.float32) for _ in range(2))
+    causal = L > 64
+    names = _profiled_kernels(
+        lambda: fa_ops.flash_attention(q, k, v, causal=causal))
+    assert len(names) == 1 and "flash_f32" in names[0], names
+    first = _f32_check(q, k, v, causal=causal)
+    again = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert again.data_ptr() != first.data_ptr()
+    assert torch.equal(first, again)
+
+
 DECODE_KINDS = ["f32", "bf16", "int8-f32q", "int8-bf16q"]
 
 

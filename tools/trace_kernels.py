@@ -3,7 +3,7 @@
 read from a ``torch.profiler`` trace, at the main path's shapes.
 
     python3 tools/trace_kernels.py [--src DIR] [--iters N] [--out DIR]
-                                   [--only topk,prefill,decode] [--sass]
+                                   [--only topk,prefill,decode,embed] [--sass]
 
 Traces K1 (f32 cosine top-k, k=1, early exit on, random queries so every
 tile is needed) and K2 (int8 cosine top-C, k=16), both at B in {1, 4, 8,
@@ -13,7 +13,15 @@ Dh=128, bf16 and int8 caches; kv_len 4,096 in an 8,192-position cache,
 engine-long's layout, and kv_len = Lc = 32,768, decode_32k; kv_len given
 as int32 and as int64, the engine's type before and after the change that
 makes it int32), with scaled_dot_product_attention beside bf16 K3 as a
-yardstick. For each call it prints every device kernel the call launched
+yardstick; and the f32 K4 (``embed``) at the embedder's served shapes (B=4
+and B=1, L=24, H=12, Dh=64, bidirectional), at L=64 (the tokenizer's
+default length), at the reduced qwen3 engine check's causal shape and at
+chip_smoke's longer f32 checks (B=2, L=300, H=8/2, Dh=128; B=1, L=4,096,
+H=40/8, Dh=128), each beside scaled_dot_product_attention, with the host
+us a call (median of 200) at the short shapes, the device time of an
+empty kernel launched through ctypes on the current stream (the floor of
+a call this small) and, from ``cuobjdump -sass``, the instruction mix of
+each f32 K4 kernel and of its loops. For each call it prints every device kernel the call launched
 (pass 1 and pass 2 of K1/K2 apart, K3's casts and passes apart) with its
 mean time per call; for K4 the achieved TFLOP/s of the causal half, for
 K1, K2 and K3 the share of their bytes bound (3.35 TB/s) that their own
@@ -40,7 +48,7 @@ PREFILL = dict(B=1, L=4096, H=40, Hkv=8, Dh=128)
 DECODE = dict(B=4, H=40, Hkv=8, Dh=128)
 DECODE_CALLS = ((8192, 4096), (32768, 32768))   # (cache length, kv_len)
 H100_BYTES_PER_S = 3.35e12
-GROUPS = ("topk", "prefill", "decode")
+GROUPS = ("topk", "prefill", "decode", "embed")
 TOPK_BATCHES = (1, 4, 8, 32)
 
 
@@ -167,6 +175,8 @@ def main() -> int:
         trace_prefill(torch, fa, g, args.iters, res)
     if "decode" in only:
         trace_decode(torch, g, args.iters, res)
+    if "embed" in only:
+        trace_embed(torch, fa, _build, g, max(args.iters, 20), res)
     out = ROOT / args.out
     out.mkdir(parents=True, exist_ok=True)
     (out / "trace_kernels.json").write_text(json.dumps(res, indent=1))
@@ -295,6 +305,186 @@ def trace_decode(torch, g, iters: int, res: dict) -> None:
                     f"{n} {t:.4f} ms" for n, t in split.items())
                     + f"; total {sum(split.values()):.4f} ms", flush=True)
         del q, caches
+
+
+# f32 K4 calls: (label, shape, mask); the first two are the embedder's
+# served calls (chip_smoke phase 4 encodes batches of 4 queries and each
+# miss's answer alone), L=64 the tokenizer's default length, "engine-check"
+# the reduced qwen3 fp32 engine check's longest prompt, the last two
+# chip_smoke phase 2's longer f32 checks
+EMBED_CALLS = (
+    ("embed/B=4", dict(B=4, Lq=24, Lkv=24, H=12, Hkv=12, Dh=64),
+     dict(causal=False)),
+    ("embed/B=1", dict(B=1, Lq=24, Lkv=24, H=12, Hkv=12, Dh=64),
+     dict(causal=False)),
+    ("embed/L=64", dict(B=4, Lq=64, Lkv=64, H=12, Hkv=12, Dh=64),
+     dict(causal=False)),
+    ("engine-check", dict(B=1, Lq=15, Lkv=15, H=4, Hkv=4, Dh=16),
+     dict(causal=True)),
+    ("phase2/L=300", dict(B=2, Lq=300, Lkv=300, H=8, Hkv=2, Dh=128),
+     dict(causal=True)),
+    ("phase2/L=4096", dict(B=1, Lq=4096, Lkv=4096, H=40, Hkv=8, Dh=128),
+     dict(causal=True)),
+)
+HOST_TIMED_MAX_L = 64        # host us a call only where the device is quick
+LONG_ITERS = 3               # the longer checks: a call may take 25 ms
+H100_FP32_FLOPS = 67e12
+
+
+def host_us_median(torch, fn, n: int = 200) -> float:
+    """Median host microseconds of one call of ``fn`` over ``n`` calls,
+    each timed on its own (the enqueue; the device lags behind)."""
+    import statistics
+    import time
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e6 * statistics.median(ts)
+
+
+EMPTY_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(long long gx, long long gy, long long gz,
+                            void* stream) {
+  empty_kernel<<<dim3((unsigned)gx, (unsigned)gy, (unsigned)gz), 128, 0,
+                 static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def empty_launcher(torch, _build):
+    """A call that launches an empty kernel through ctypes on the current
+    stream, built with the port's nvcc flags into build/trace: the floor
+    of any small launch."""
+    import ctypes
+    d = ROOT / "build" / "trace"
+    d.mkdir(parents=True, exist_ok=True)
+    src, lib = d / "empty.cu", d / "libempty.so"
+    src.write_text(EMPTY_CU)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).empty_launch
+    fn.argtypes = [ctypes.c_longlong] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lambda gx, gy, gz: fn(
+        gx, gy, gz, torch._C._cuda_getCurrentRawStream(
+            torch.cuda.current_device()))
+
+
+def sass_mix(lib: str, match: str) -> dict:
+    """For each kernel of the shared library ``lib`` whose name holds
+    ``match``: its instruction count and mix (FFMA, scalar and 16-byte
+    shared and global loads, cp.async) over the whole function and over
+    each loop (a backward branch) that holds an FFMA, from
+    ``cuobjdump -sass``."""
+    import collections
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    txt = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, check=True).stdout
+
+    def mix(body):
+        def n(pred):
+            return sum(1 for i in body if pred(i))
+        return {"instructions": len(body),
+                "top": collections.Counter(
+                    i.split()[0] for i in body).most_common(12),
+                "FFMA": n(lambda i: i.startswith("FFMA")),
+                "LDS": n(lambda i: i.startswith("LDS")
+                         and ".64" not in i and ".128" not in i),
+                "LDS.64": n(lambda i: i.startswith("LDS") and ".64" in i),
+                "LDS.128": n(lambda i: i.startswith("LDS") and ".128" in i),
+                "LDG": n(lambda i: i.startswith("LDG.")
+                         and ".128" not in i),
+                "LDG.128": n(lambda i: i.startswith("LDG.") and ".128" in i),
+                "LDGSTS": n(lambda i: i.startswith("LDGSTS")),
+                "STG.128": n(lambda i: i.startswith("STG") and ".128" in i)}
+    out = {}
+    for f in re.split(r"\n\s*Function : ", txt)[1:]:
+        name = f.split("\n", 1)[0].strip()
+        if match not in name:
+            continue
+        ops = [(int(m.group(1), 16),
+                re.sub(r"^@!?U?P[T0-9]+\s+", "", m.group(2).strip()))
+               for m in re.finditer(r"/\*([0-9a-f]{4,5})\*/\s+(.*?);", f)]
+        loops = []
+        for addr, ins in ops:
+            t = re.search(r"0x([0-9a-f]+)", ins) if ins.startswith("BRA") \
+                else None
+            if t and int(t.group(1), 16) < addr:
+                body = [i for a, i in ops if int(t.group(1), 16) <= a <= addr]
+                if any(i.startswith("FFMA") for i in body):
+                    loops.append(mix(body))
+        out[name] = {"function": mix([i for _, i in ops]), "loops": loops}
+    return out
+
+
+def trace_embed(torch, fa, _build, g, iters: int, res: dict) -> None:
+    """The f32 K4 at EMBED_CALLS' shapes beside SDPA on the same inputs:
+    device ms a call (mean of ``iters`` under torch.profiler; of
+    LONG_ITERS past L=64), the
+    kernels a call launches, host us a call (median of 200) at the short
+    shapes, and the bound (bytes at 3.35 TB/s or f32 FMAs at 67 TFLOP/s).
+    Then an empty kernel launched through ctypes at the embedder's grids,
+    and the SASS mix of every f32 K4 kernel."""
+    import torch.nn.functional as F
+    for label, shape, kw in EMBED_CALLS:
+        B, Lq, Lkv, H, Hkv, Dh = (shape[x] for x in
+                                  ("B", "Lq", "Lkv", "H", "Hkv", "Dh"))
+        q = torch.randn((B, Lq, H, Dh), generator=g, device="cuda")
+        k, v = (torch.randn((B, Lkv, Hkv, Dh), generator=g, device="cuda")
+                for _ in range(2))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        call = lambda: fa.flash_attention(q, k, v, **kw)
+        lib = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=kw["causal"], enable_gqa=H != Hkv)
+        n = iters if Lq <= HOST_TIMED_MAX_L else LONG_ITERS
+        own, other = (device_kernel_ms(torch, f, n, warmup=1)
+                      for f in (call, lib))
+        pairs = Lq * (Lq + 1) // 2 if kw["causal"] else Lq * Lkv
+        nbytes = 4 * (2 * B * Lq * H * Dh + 2 * B * Lkv * Hkv * Dh)
+        bound_ms = 1e3 * max(nbytes / H100_BYTES_PER_S,
+                             4.0 * B * H * Dh * pairs / H100_FP32_FLOPS)
+        rec = {"shape": shape, "mask": kw, "kernels_ms": own,
+               "kernel_ms": sum(own.values()) if own else None,
+               "launches": len(own), "library_kernels_ms": other,
+               "library_ms": sum(other.values()) if other else None,
+               "bound_ms": bound_ms}
+        if Lq <= HOST_TIMED_MAX_L:
+            rec["host_us_per_call"] = host_us_median(torch, call)
+            rec["library_host_us_per_call"] = host_us_median(torch, lib)
+        res[f"flash_attention_f32/{label}"] = rec
+        print(f"[trace] flash_attention f32 {label} {shape} {kw}: " + "; ".join(
+            f"{n} {t:.4f} ms" for n, t in own.items())
+            + f"; {len(own)} device kernels; SDPA {rec['library_ms']:.4f} ms "
+              f"in {list(other)}; bound {bound_ms:.4f} ms"
+            + (f"; host {rec['host_us_per_call']:.1f} us a call (SDPA "
+               f"{rec['library_host_us_per_call']:.1f})"
+               if "host_us_per_call" in rec else ""), flush=True)
+        del q, k, v, qt, kt, vt
+    empty = empty_launcher(torch, _build)
+    for B in (4, 1):
+        split = device_kernel_ms(torch, lambda: empty(1, 12, B), iters)
+        host = host_us_median(torch, lambda: empty(1, 12, B))
+        res[f"empty_kernel/grid=1x12x{B}"] = {
+            "kernels_ms": split, "kernel_ms": sum(split.values()),
+            "host_us_per_call": host}
+        print(f"[trace] empty kernel, grid 1x12x{B} x 128 threads, through "
+              f"ctypes: {sum(split.values()):.4f} ms on the device, host "
+              f"{host:.1f} us a call", flush=True)
+    lib_path = str(_build._lib_path("flash_attention"))
+    for name, c in sass_mix(lib_path, "f32").items():
+        res.setdefault("sass_f32", {})[name] = c
+        print(f"[sass] {name[:90]}: whole {c['function']}; loops with FFMA: "
+              + "; ".join(str(x) for x in c["loops"]), flush=True)
 
 
 if __name__ == "__main__":
