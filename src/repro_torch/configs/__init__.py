@@ -1,5 +1,5 @@
-from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
-                                      get_config, list_configs)
+from repro_torch.configs.base import (ARCH_IDS, SHAPES, ModelConfig,
+                                      ShapeConfig, get_config, list_configs)
 
-__all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "get_config",
+__all__ = ["ARCH_IDS", "SHAPES", "ModelConfig", "ShapeConfig", "get_config",
            "list_configs"]

@@ -262,9 +262,18 @@ def list_configs() -> list[str]:
 
 
 def _load_all() -> None:
-    # the port carries the configurations its serving path runs; the
-    # rest of the reference zoo arrives with the non-dense model kinds
-    from repro_torch.configs import qwen3_14b, siso_embedder  # noqa: F401
+    # every configuration of the reference zoo; models/lm.py builds the
+    # dense kinds only (the rest raise until ROADMAP Queue A item 6), the
+    # analytic engine reads them all
+    from repro_torch.configs import (  # noqa: F401
+        qwen3_14b, command_r_35b, qwen2_5_14b, minicpm3_4b, rwkv6_7b,
+        mixtral_8x7b, deepseek_v2_236b, zamba2_7b, paligemma_3b,
+        whisper_base, siso_embedder,
+    )
 
 
-ARCH_IDS = ["qwen3-14b"]
+ARCH_IDS = [
+    "qwen3-14b", "command-r-35b", "qwen2.5-14b", "minicpm3-4b", "rwkv6-7b",
+    "mixtral-8x7b", "deepseek-v2-236b", "zamba2-7b", "paligemma-3b",
+    "whisper-base",
+]

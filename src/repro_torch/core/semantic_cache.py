@@ -11,9 +11,12 @@ Lookup backends:
                   version), theta_R hit mask and early exit from the kernel;
   * "pallas_q8" — int8 plane through K2 + exact theta-margin rescoring
                   (DESIGN.md §15): decisions and sims bit-identical to
-                  "dense".
-The reference's "hnsw" backend and the sharded plane (``shard=``) arrive in
-later slices and raise ``NotImplementedError`` here.
+                  "dense";
+  * "hnsw"      — locality-ordered HNSW on the host (``core/hnsw.py``,
+                  §4.3), built lazily from centroids + spill and guarded
+                  against a stale serving generation.
+The sharded plane (``shard=`` with more than one shard) arrives with
+ROADMAP Queue A item 5 and raises ``NotImplementedError`` here.
 
 Device-resident hot path (DESIGN.md §4): the padded centroid/answer
 matrices are persistent tensors on ``device``. Offline refreshes rebuild
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.clustering import _pow2_pad
+from repro_torch.core.hnsw import HNSW
 from repro_torch.core.store import CentroidStore
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.cosine_topk import ops as ctk_ops
@@ -156,20 +160,21 @@ class SemanticCache:
                  backend: str = "dense", spill_lru: bool = True,
                  shard=None, rescore_k: int = 16,
                  device: DeviceLike = None):
-        if backend == "hnsw" or (shard is not None
-                                 and getattr(shard, "n_shards", 1) > 1):
-            raise NotImplementedError(
-                "the hnsw backend and the sharded cache plane are not "
-                "ported yet")
-        if backend not in ("dense", "pallas", "pallas_q8"):
+        if backend not in ("dense", "hnsw", "pallas", "pallas_q8"):
             raise ValueError(f"unknown cache backend {backend!r}")
+        # n_shards == 1 is the single-device path, as in the reference
+        self.shard = shard if shard is not None \
+            and getattr(shard, "n_shards", 1) > 1 else None
+        self.backend = backend
+        self._reject_hnsw_shard()
+        if self.shard is not None:
+            raise NotImplementedError(
+                "the sharded cache plane is not ported yet")
         self.device = resolve_device(device)
         self.dim = dim
         self.answer_dim = answer_dim
         self.capacity = capacity
-        self.backend = backend
         self.spill_lru = spill_lru
-        self.shard = None
         self.rescore_k = rescore_k
         self.quant_rescored = 0     # full-precision rows rescored
         self.quant_fallbacks = 0    # margin-coverage misses -> dense ref
@@ -178,13 +183,26 @@ class SemanticCache:
         self._spill_clock = 0
         self._spill_last_use: np.ndarray = np.zeros((0,), np.int64)
         self._dev = None
+        self._hnsw = None
         self.hits = 0
         self.misses = 0
         self.dev_rebuilds = 0
         self.dev_row_writes = 0
         self.dev_swaps = 0
         self.generation = 0
+        # generation the HNSW index was built at, guarded against the
+        # serving generation at every graph lookup
+        self._hnsw_gen = 0
         self._shadow: Optional[dict] = None
+
+    def _reject_hnsw_shard(self) -> None:
+        """The hnsw backend serves from a host graph and would silently
+        ignore a sharded device plane. Checked at construction and at
+        every graph lookup (a post-construction mutation would otherwise
+        fall through)."""
+        if self.shard is not None and self.backend == "hnsw":
+            raise ValueError("sharded cache plane needs a device-resident "
+                             "backend (dense/pallas); hnsw is host-graph")
 
     # ----------------------------------------------------------------- state
 
@@ -198,7 +216,7 @@ class SemanticCache:
         store.take(order)  # locality-first layout
         self.centroids = store
         self._trim_spill()
-        self._dev = None
+        self._invalidate()
 
     def _trim_spill(self) -> None:
         """LRU-evict spill rows that no longer fit the leftover capacity
@@ -220,6 +238,12 @@ class SemanticCache:
     def finish_update(self) -> None:
         self.set_centroids(self._staging)
         del self._staging
+
+    def _invalidate(self) -> None:
+        """Full invalidation (the offline refresh path): online spill
+        inserts patch the device mirror in place instead."""
+        self._dev = None
+        self._hnsw = None
 
     # ---------------------------------------------------------------- device
 
@@ -361,6 +385,7 @@ class SemanticCache:
                 _upload(sh["ans"], self.device),
                 _upload(sh["valid"], self.device),
                 _upload(sh["aid"], self.device), pad)
+        self._hnsw = None        # graph path stays rebuild-based
         self._shadow = None
         self.generation += 1
         self.dev_swaps += 1
@@ -385,7 +410,11 @@ class SemanticCache:
                                 np.full(B, -1, np.int64),
                                 np.full(B, -1, np.int8),
                                 generation=self.generation)
-        if self.backend == "pallas_q8":
+        if self.backend == "hnsw":
+            sims, idx = self._hnsw_lookup(queries)
+            hit = sims >= theta_r
+            answer, answer_id = self._host_gather(hit, idx, nc, B)
+        elif self.backend == "pallas_q8":
             # int8 plane: K2 top-C on the device, exact margin rescore;
             # answers are host resident
             sims, idx = self._quant_lookup(queries, theta_r)
@@ -507,7 +536,7 @@ class SemanticCache:
 
     def _host_gather(self, hit: np.ndarray, idx: np.ndarray, nc: int,
                      B: int) -> tuple[np.ndarray, np.ndarray]:
-        """Vectorized host-side answer gather (quant backend)."""
+        """Vectorized host-side answer gather (hnsw + quant backends)."""
         answer = np.zeros((B, self.answer_dim), np.float32)
         answer_id = np.full(B, -1, np.int64)
         hc = hit & (idx < nc)
@@ -520,6 +549,29 @@ class SemanticCache:
             answer[hs] = self.spill.answers[sj]
             answer_id[hs] = self.spill.answer_id[sj]
         return answer, answer_id
+
+    def _hnsw_lookup(self, queries: np.ndarray):
+        self._reject_hnsw_shard()   # serving-time guard, not just __init__
+        if self._hnsw is None:
+            vecs = np.concatenate([self.centroids.vectors, self.spill.vectors]) \
+                if len(self.spill) else self.centroids.vectors
+            size = np.concatenate([self.centroids.cluster_size,
+                                   np.zeros(len(self.spill))]) \
+                if len(self.spill) else self.centroids.cluster_size
+            self._hnsw = HNSW.build(vecs, locality=size)
+            if self._dev is None:
+                # pure graph serving: an index rebuild is a new serving
+                # state, so it bumps the generation as a mirror rebuild does
+                self.generation += 1
+            self._hnsw_gen = self.generation
+        if self._hnsw_gen != self.generation:
+            # a device rebuild/shadow swap advanced the serving state
+            # without invalidating the graph: serving from it would mix
+            # generations mid-refresh
+            raise RuntimeError(
+                f"HNSW index generation {self._hnsw_gen} is stale vs "
+                f"serving generation {self.generation}")
+        return self._hnsw.search_batch(queries, k=1)
 
     # ----------------------------------------------------------------- spill
 
@@ -550,6 +602,7 @@ class SemanticCache:
                 self.dev_row_writes += 1
             else:               # outgrew the padding: rebuild (pow2 growth)
                 self._dev = None
+        self._hnsw = None       # graph path stays rebuild-based
 
     # --------------------------------------------------------------- metrics
 

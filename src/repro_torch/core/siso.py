@@ -26,6 +26,7 @@ from repro_torch.core.semantic_cache import LookupResult, SemanticCache
 from repro_torch.core.store import CentroidStore
 from repro_torch.core.threshold import DynamicThreshold, T2HTable
 from repro_torch.device import DeviceLike
+from repro_torch.distributed.cache_plane import ShardedCacheConfig
 
 
 @dataclass
@@ -48,7 +49,9 @@ class SISOConfig:
                                      # clustering of an un-bootstrapped system
     refresh_async: bool = True       # incremental RefreshPipeline (§10)
     refresh_budget_s: float = 0.002  # ~wall budget of one refresh_tick()
-    shard: Optional[Any] = None      # not ported yet: must stay None
+    shard: Optional[Any] = None      # only ShardedCacheConfig(n_shards=1),
+                                     # the single-device path; the sharded
+                                     # plane is not ported yet and raises
     tiered: Optional[Any] = None     # not ported yet: must stay None
     tenancy: Optional[Any] = None    # not ported yet: must stay None
 
@@ -56,10 +59,15 @@ class SISOConfig:
 class SISO:
     def __init__(self, cfg: SISOConfig, slo_latency: float = 1.0,
                  llm_latency: float = 0.5, device: DeviceLike = None):
-        if cfg.shard is not None or cfg.tiered is not None \
-                or cfg.tenancy is not None:
-            raise NotImplementedError(
-                "shard=/tiered=/tenancy= are not ported yet")
+        for plane, is_set in (
+                ("tiered", cfg.tiered is not None),
+                ("tenancy", cfg.tenancy is not None),
+                ("shard", cfg.shard is not None and not (
+                    isinstance(cfg.shard, ShardedCacheConfig)
+                    and cfg.shard.n_shards == 1))):
+            if is_set:
+                raise NotImplementedError(
+                    f"SISOConfig.{plane}: the plane is not ported yet")
         self.cfg = cfg
         self.cache = SemanticCache(cfg.dim, cfg.answer_dim, cfg.capacity,
                                    backend=cfg.backend,
@@ -82,8 +90,15 @@ class SISO:
         self.tenant_of = None
 
     @classmethod
-    def from_config(cls, cfg) -> "SISO":
-        raise NotImplementedError("ServingConfig is not ported yet")
+    def from_config(cls, cfg, device: DeviceLike = None) -> "SISO":
+        """Build from a :class:`repro_torch.serving.config.ServingConfig`
+        (DESIGN.md §16.4). Lowers to the flat SISOConfig through
+        ``cfg.to_siso_config()``, so the result is bit-identical to
+        building from a SISOConfig with the same fields. A plane that is
+        not ported yet raises ``NotImplementedError`` naming it."""
+        cfg.check_ported()
+        return cls(cfg.to_siso_config(), slo_latency=cfg.slo_latency,
+                   llm_latency=cfg.llm_latency, device=device)
 
     # ----------------------------------------------------------------- online
 

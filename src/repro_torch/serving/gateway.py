@@ -18,10 +18,11 @@ examples used to hand-wire:
                       batch; drain() completes any in-flight cycle
                       (DESIGN.md §10)
 
-Port of ``repro/serving/gateway.py``: batching, wiring and serving
-metrics are carried over. Crash-safe persistence (``attach_persistence``,
-snapshots, ``warm_start``) and ``from_config`` arrive with the checkpoint
-manager in a later slice and raise ``NotImplementedError``.
+Port of ``repro/serving/gateway.py``: batching, wiring, serving metrics
+and ``from_config`` are carried over. Crash-safe persistence
+(``attach_persistence``, snapshots, ``warm_start``, a ``ServingConfig``
+with a persistence directory) arrives with the checkpoint manager (ROADMAP
+Queue A item 3) and raises ``NotImplementedError``.
 
 The gateway is deliberately thin: the frontend owns cache policy, the
 scheduler owns slot management, and this class owns only batching, wiring,
@@ -150,8 +151,21 @@ class ServingGateway:
         self.last_result = None
 
     @classmethod
-    def from_config(cls, cfg, **kwargs) -> "ServingGateway":
-        raise NotImplementedError("ServingConfig is not ported yet")
+    def from_config(cls, cfg, *, engine: Engine,
+                    embed_fn: Callable[[Sequence[np.ndarray]], np.ndarray],
+                    answer_fn: Optional[Callable] = None,
+                    clock: Optional[Callable[[], float]] = None,
+                    auto_refresh: bool = True) -> "ServingGateway":
+        """Build a fully wired gateway from a
+        :class:`repro_torch.serving.config.ServingConfig` (DESIGN.md
+        §16.4): the frontend through ``SISO.from_config`` on the engine's
+        device (the port's default, ``cuda``, for an engine without one).
+        A plane that is not ported yet, persistence with a directory
+        included, raises ``NotImplementedError`` naming it."""
+        from repro_torch.core.siso import SISO
+        siso = SISO.from_config(cfg, device=getattr(engine, "device", None))
+        return cls(siso, engine, embed_fn, answer_fn=answer_fn, clock=clock,
+                   auto_refresh=auto_refresh, slo_latency=cfg.slo_latency)
 
     # ------------------------------------------------------------------ api
 

@@ -25,6 +25,8 @@ from repro_torch.configs.base import get_config
 from repro_torch.core.siso import SISO, SISOConfig
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.models import embedder as TE
+from repro_torch.serving.config import (CacheConfig, PersistenceConfig,
+                                        ServingConfig)
 from repro_torch.serving.engine import ModelEngine
 from repro_torch.serving.gateway import GatewayRequest, ServingGateway
 
@@ -152,5 +154,8 @@ def test_gateway_edge_paths():
                    GatewayRequest(1, np.ones(8))])
     with pytest.raises(NotImplementedError):
         gw.attach_persistence("unused")
-    with pytest.raises(NotImplementedError):
-        ServingGateway.from_config(None)
+    cfg = ServingConfig(cache=CacheConfig(dim=8, answer_dim=8, capacity=8),
+                        persistence=PersistenceConfig(directory="snapshots"))
+    with pytest.raises(NotImplementedError, match="persistence"):
+        ServingGateway.from_config(cfg, engine=Stub(),
+                                   embed_fn=lambda vs: np.stack(vs))

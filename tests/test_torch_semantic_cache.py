@@ -159,9 +159,8 @@ def test_state_dict_and_delta_match_jax_keys():
 
 
 def test_unported_backends_raise():
-    with pytest.raises(NotImplementedError):
-        TCache(D, A, 16, backend="hnsw", device="cpu")
-
+    # the hnsw backend is ported (tests/test_torch_hnsw.py); the sharded
+    # plane is not
     class Shard:
         n_shards = 2
     with pytest.raises(NotImplementedError):
