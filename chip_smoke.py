@@ -89,6 +89,32 @@ Phases (any failure exits non-zero and prints no result line):
               re-checked at its own arguments with the earlier phases'.
               Hit ratio, SLO attainment, theta range and wall seconds are
               logged per system, not asserted.
+7. planes   — persistence, the device -> host -> disk tiers and tenant
+              namespaces at dim 768, after slo, on the served weights:
+              (a) a child process (this script with ``--planes-child``)
+              builds SISO on ``pallas`` with a device tier of 8,320 rows,
+              a host tier of 512 (below the host HNSW's 4,096-row
+              switch-over), a disk tier and four tenants, serves a seeded
+              multi-tenant stream, saves through the port's
+              CheckpointManager, and SIGKILLs itself; this process runs
+              the same thing uninterrupted, restores the survivor,
+              warm-starts, and requires equal tier membership, tier
+              stats, tenant state, counters and clock, then serves a
+              phase B in lockstep; the child's plain pallas_q8 SISO is
+              restored too: its codes and scales must equal the dead
+              mirror's, and its phase B must decide as dense with
+              bit-equal sims; (b) bench_restart's drill over the served
+              qwen3-14b with slo (b)'s virtual clock: phase A with
+              persistence attached (at least one refresh commit), a
+              drained full snapshot and a delta, phase B uninterrupted
+              and on a fresh gateway warm-started from a copy of the
+              directory ("full+delta"): equal hit masks, counters, theta
+              trace and generation; a cold gateway for contrast; (c)
+              bench_tiered's and bench_tenancy's drills at their smoke
+              sizes, noise scaled by sqrt(32/768): the tier lift and the
+              steady tenant's degradation, logged, not asserted. Every
+              K1/K2/K3/K4 call (the child's too) is counted and re-checked
+              at its own arguments with the other phases'.
 
 The line before the last is a JSON object with one entry per kernel (K3's
 int8 mode and K4's f32 mode, the embedder's call, their own entries, with
@@ -1713,19 +1739,21 @@ class VirtualClock:
 
 
 def slo_drive(gw, clock, batch, vocab: int, seed: int = 0, chunk: int = 8,
-              max_ticks: int = 200_000) -> None:
-    """benchmarks/bench_slo.py's discrete-event drive loop: submit arrivals
-    as they come due, one engine tick per SLO_TICK_S of virtual time
-    (gw.submit's internal tick is billed too), jump idle gaps."""
+              lo: int = 0, hi=None, max_ticks: int = 200_000) -> list:
+    """benchmarks/bench_slo.py's discrete-event drive loop over requests
+    [lo, hi): submit arrivals as they come due, one engine tick per
+    SLO_TICK_S of virtual time (gw.submit's internal tick is billed too),
+    jump idle gaps. Returns each submitted batch's hit mask."""
     import numpy as np
     from repro_torch.serving.gateway import GatewayRequest
     rng = np.random.default_rng(seed)
-    n = len(batch.vectors)
-    toks = rng.integers(0, vocab, size=(n, 6)).astype(np.int32)
-    i = 0
+    toks = rng.integers(0, vocab, size=(len(batch.vectors), 6)).astype(
+        np.int32)
+    n = len(batch.vectors) if hi is None else hi
+    i, hits = lo, []
     for _ in range(max_ticks):
         if i >= n and not gw.sched.queue and not gw.sched.active:
-            return
+            return hits
         due = []
         while i < n and batch.arrivals[i] <= clock.t:
             due.append(GatewayRequest(
@@ -1735,7 +1763,7 @@ def slo_drive(gw, clock, batch, vocab: int, seed: int = 0, chunk: int = 8,
             i += 1
         if due:
             for j in range(0, len(due), chunk):
-                gw.submit(due[j: j + chunk], now=clock.t)
+                hits.append(gw.submit(due[j: j + chunk], now=clock.t).copy())
                 clock.t += SLO_TICK_S          # submit ran one engine tick
         else:
             gw.step()
@@ -1870,6 +1898,575 @@ def phase_slo_gateway(torch, np, models, recorder, att_recorders,
     return {"scenarios": out, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: planes — persistence, the device -> host -> disk tiers, tenants
+# ---------------------------------------------------------------------------
+
+# (a) the kill drill's SISO at the served width: a device tier of 8,320
+# rows (8,192 centroid rows + a 128-row spill), a host tier kept below the
+# host HNSW's switch-over (brute force: the port's HNSW build of 4,096 rows
+# at dim 768 is a host cost this drill does not need), a disk tier in a
+# temporary directory, and four tenants besides anonymous traffic
+PLANES_HIST, PLANES_CAPACITY, PLANES_RESERVE = 9000, 8320, 128
+PLANES_HOST, PLANES_DISK, PLANES_HNSW_MIN = 512, 16384, 4096
+PLANES_TENANTS, PLANES_BATCH = 4, 8
+PLANES_A, PLANES_B, PLANES_Q8_A, PLANES_Q8_B = 64, 24, 32, 16   # batches
+PLANES_JITTER = 0.005   # per component at dim 768: a revisit's sim ~0.99,
+                        # clear of every theta on the 0.60-0.98 grid; a
+                        # fresh query's best sim stays near 0.15
+PLANES_CHILD_S = 300.0  # the killed child's time limit
+# (b) bench_restart's drill at dim 768 over the served qwen3-14b, with
+# slo (b)'s virtual clock; a training set of 160 makes a refresh due
+# after 16 misses, so phase A commits at least one refresh
+RESTART_TRAIN, RESTART_A, RESTART_B = 160, 40, 32
+# (c) bench_tiered / bench_tenancy at their smoke sizes, dim 768: every
+# per-component noise (and the tier universe's question spread) scaled by
+# sqrt(32 / 768), so a revisit's similarity is the benches' own
+DRILL_SCALE = (32.0 / 768.0) ** 0.5
+
+
+def planes_data(np, seed: int) -> dict:
+    """The kill drill's seeded history and multi-tenant stream: revisits
+    of history rows (some of which the bootstrap demoted to host/disk),
+    re-asks of the same user's own recent query (repeat escapes, then
+    personal answers in the tenant's overlay) and fresh queries."""
+    rng = np.random.default_rng(seed + 70)
+    d = SIM_DIM
+
+    def unit(x):
+        return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(
+            np.float32)
+
+    hist = unit(rng.normal(size=(PLANES_HIST, d)))
+    answers = unit(rng.normal(size=(PLANES_HIST, d)))
+    n = (PLANES_A + PLANES_B) * PLANES_BATCH
+    vecs = np.empty((n, d), np.float32)
+    tenants = rng.integers(-1, PLANES_TENANTS, size=n)
+    recent: dict = {}
+    for i in range(n):
+        u = rng.random()
+        own = recent.get(int(tenants[i]))
+        if own is not None and u < 0.2:
+            base = own
+        elif u < 0.65:
+            base = hist[rng.integers(PLANES_HIST)]
+        else:
+            base = unit(rng.normal(size=d))
+        vecs[i] = unit(base + PLANES_JITTER * rng.normal(size=d))
+        recent[int(tenants[i])] = vecs[i]
+    return {"hist": hist, "answers": answers, "vecs": vecs,
+            "tenants": tenants.astype(np.int64),
+            "users": (100 + tenants).astype(np.int64),
+            "ans": unit(rng.normal(size=(n, d)))}
+
+
+def planes_siso(np, data, disk_dir, backend: str = "pallas",
+                planes: bool = True):
+    """The drill's SISO on the card; bootstrapped from the history unless
+    ``data`` is None (a fresh process image that a restore fills)."""
+    from repro_torch.core.siso import SISO, SISOConfig
+    from repro_torch.core.tenancy import TenancyConfig
+    from repro_torch.core.tiered import TieredCacheConfig
+    tiered = TieredCacheConfig(
+        host_capacity=PLANES_HOST, disk_capacity=PLANES_DISK,
+        disk_dir=disk_dir, device_reserve=PLANES_RESERVE,
+        hnsw_min=PLANES_HNSW_MIN) if planes else None
+    cfg = SISOConfig(dim=SIM_DIM, answer_dim=SIM_DIM,
+                     capacity=PLANES_CAPACITY, theta_r=0.86,
+                     backend=backend, refresh_async=False,
+                     tiered=tiered,
+                     tenancy=TenancyConfig() if planes else None)
+    siso = SISO(cfg, device=DEV)
+    if data is not None:
+        siso.bootstrap(data["hist"], data["answers"],
+                       answer_ids=np.arange(PLANES_HIST))
+    return siso
+
+
+def planes_drive(np, siso, data, lo: int, hi: int,
+                 tenants: bool = True) -> list:
+    """Batches [lo, hi) of the stream; misses record their answers back
+    (under their tenant); one refresh_tick (promotions) a batch."""
+    out = []
+    B = PLANES_BATCH
+    for b in range(lo, hi):
+        s = slice(b * B, (b + 1) * B)
+        q, tid = data["vecs"][s], data["tenants"][s]
+        kw = {"tenant_ids": tid} if tenants else {}
+        res = siso.handle_batch(q.copy(), now=0.5 * b,
+                                user_ids=data["users"][s], **kw)
+        out.append({f: np.array(getattr(res, f)) for f in
+                    ("hit", "sim", "entry", "region", "answer_id")}
+                   | {"generation": res.generation})
+        for j in np.flatnonzero(~res.hit):
+            i = b * B + j
+            t = int(tid[j]) if tenants else -1
+            siso.record_llm_answer(q[j], data["ans"][i],
+                                   answer_id=10**6 + i,
+                                   tenant=t if t >= 0 else None)
+        siso.observe_completion(0.3, 0.2)
+        siso.refresh_tick(0.0)
+    return out
+
+
+def planes_view(siso) -> dict:
+    """What the restore must reproduce: tier membership and stats (the
+    disk's segment count aside: a snapshot flushes the pending buffer),
+    tenant state, serving counters and the hierarchy clock."""
+    c = siso.cache
+    st = c.tier_stats()
+    st.pop("disk_segments")
+    return {"membership": c.tier_membership(), "tier_stats": st,
+            "tenants": siso.tenant_stats(),
+            "registry": list(siso.registry._map.items()),
+            "overlays": {t: ts.overlay.answer_id.copy()
+                         for t, ts in siso._tenants.items()},
+            "counts": (c.hits, c.misses, c.device.hits, c.device.misses),
+            "clock": c.clock, "generation": c.generation}
+
+
+def same(np, a, b) -> bool:
+    """Exact equality of nested observations (sims included: one process,
+    one kernel, the same mirror)."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and sorted(a) == sorted(b) and all(
+            same(np, a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same(np, x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return np.array_equal(np.asarray(a), np.asarray(b))
+    return a == b
+
+
+def planes_child(torch, np, out_dir: str, seed: int) -> None:
+    """The killed process: serve phase A on the tiered multi-tenant SISO
+    and on a plain pallas_q8 SISO, save both through the CheckpointManager
+    (with the q8 mirror's live codes and scales beside the snapshot), note
+    its kernel calls, then SIGKILL itself."""
+    import os
+    import signal
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import semantic_cache as SC
+    from repro_torch.kernels.cosine_topk import ops
+    recorder = CallRecorder(ops)
+    SC.ctk_ops = recorder
+    zero_topk_launches()
+    data = planes_data(np, seed)
+    s = planes_siso(np, data, os.path.join(out_dir, "cold"))
+    planes_drive(np, s, data, 0, PLANES_A)
+    q8 = planes_siso(np, data, None, backend="pallas_q8", planes=False)
+    planes_drive(np, q8, data, 0, PLANES_Q8_A, tenants=False)
+    torch.cuda.synchronize()
+    (Path(out_dir) / "calls.json").write_text(json.dumps(
+        {"launches": topk_launches(), "calls": sorted(recorder.calls)}))
+    dev = q8.cache._dev
+    CheckpointManager(os.path.join(out_dir, "ckpt")).save(1, {
+        "siso": s.state_dict(), "q8": q8.state_dict(),
+        "q8_live": {"codes": dev.codes, "scales": dev.scales}})
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def phase_planes_kill(torch, np, seed: int, workdir: str) -> dict:
+    """(a): the child serves and dies by SIGKILL while this process runs
+    the same thing uninterrupted; then restore, warm_start, compare, and
+    serve phase B in lockstep. The pallas_q8 snapshot is restored twice,
+    as pallas_q8 and as dense: codes equal to the dead mirror's, phase-B
+    decisions equal and sims bit-equal to dense."""
+    import os
+    import signal
+    from repro_torch.checkpoint import CheckpointManager
+    child_dir = os.path.join(workdir, "child")
+    os.makedirs(child_dir)
+    t0 = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--seed", str(seed),
+         "--planes-child", child_dir], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        data = planes_data(np, seed)
+        t1 = time.perf_counter()
+        s1 = planes_siso(np, data, os.path.join(workdir, "ref_cold"))
+        boot_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        planes_drive(np, s1, data, 0, PLANES_A)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t1
+        _, err = child.communicate(timeout=PLANES_CHILD_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    child_s = time.perf_counter() - t0
+    check(child.returncode == -signal.SIGKILL,
+          f"[planes] the child did not die by SIGKILL (exit "
+          f"{child.returncode}): {err[-2000:]}")
+    ckpt = CheckpointManager(os.path.join(child_dir, "ckpt"))
+    check(ckpt.all_steps() == [1], f"[planes] no full snapshot survived: "
+                                   f"{ckpt.all_steps()}")
+    t1 = time.perf_counter()
+    rec = ckpt.restore(1)
+    s2 = planes_siso(np, None, os.path.join(child_dir, "cold"))
+    s2.load_state(rec["siso"])
+    s2.warm_start()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    v1, v2 = planes_view(s1), planes_view(s2)
+    for key in v1:
+        check(same(np, v1[key], v2[key]),
+              f"[planes] restored {key} differs from the uninterrupted run")
+    m = v1["membership"]
+    check(len(m["host"]) > 0 and len(m["disk"]) > 0
+          and v1["tier_stats"]["promotions"] > 0
+          and len(v1["tenants"]) == PLANES_TENANTS
+          and any(len(o) for o in v1["overlays"].values()),
+          f"[planes] the drill did not reach every plane: "
+          f"{v1['tier_stats']}, overlays {v1['overlays']}")
+    t1 = time.perf_counter()
+    b1 = planes_drive(np, s1, data, PLANES_A, PLANES_A + PLANES_B)
+    b2 = planes_drive(np, s2, data, PLANES_A, PLANES_A + PLANES_B)
+    torch.cuda.synchronize()
+    phase_b_s = time.perf_counter() - t1
+    check(same(np, b1, b2), "[planes] phase B after the restore is not in "
+                            "lockstep with the uninterrupted run")
+    check(same(np, planes_view(s1), planes_view(s2)),
+          "[planes] state after phase B differs")
+    # the int8 plane: codes from the snapshot, decisions as dense
+    live = rec["q8_live"]
+    q8 = planes_siso(np, None, None, backend="pallas_q8", planes=False)
+    dense = planes_siso(np, None, None, backend="dense", planes=False)
+    for s in (q8, dense):
+        s.load_state(rec["q8"])
+        s.warm_start()
+    n = len(rec["q8"]["cache"]["quant"]["codes"])
+    dev = q8.cache._dev
+    check(np.array_equal(dev.codes[:n].cpu().numpy(), live["codes"][:n])
+          and np.array_equal(dev.scales[:n].cpu().numpy(),
+                             live["scales"][:n])
+          and np.array_equal(rec["q8"]["cache"]["quant"]["codes"],
+                             live["codes"][:n]),
+          "[planes] the restored int8 plane is not the dead process's")
+    fb0 = q8.cache.quant_fallbacks
+    lo, hi = PLANES_Q8_A, PLANES_Q8_A + PLANES_Q8_B
+    r_q8 = planes_drive(np, q8, data, lo, hi, tenants=False)
+    r_dense = planes_drive(np, dense, data, lo, hi, tenants=False)
+    check(same(np, [{k: v for k, v in r.items() if k != "generation"}
+                    for r in r_q8],
+               [{k: v for k, v in r.items() if k != "generation"}
+                for r in r_dense]),
+          "[planes] restored pallas_q8 is not bitwise dense in phase B")
+    calls = json.loads((Path(child_dir) / "calls.json").read_text())
+    out = {"child_s": child_s, "bootstrap_s": boot_s, "serve_a_s": serve_s,
+           "restore_s": restore_s, "phase_b_s": phase_b_s,
+           "tier_stats": v1["tier_stats"],
+           "tenants": {int(k): v for k, v in v1["tenants"].items()},
+           "centroids": len(s1.cache.centroids),
+           "mirror_rows": int(s1.cache.device._dev.pad),
+           "q8_fallbacks_b": q8.cache.quant_fallbacks - fb0,
+           "q8_rows": n, "child_launches": calls["launches"],
+           "child_calls": [tuple(c) for c in calls["calls"]]}
+    log(f"[planes] (a) kill drill: child SIGKILLed after {child_s:.1f} s "
+        f"(this process bootstrapped {len(s1.cache.centroids)} centroid "
+        f"rows in {boot_s:.1f} s, served {PLANES_A * PLANES_BATCH} "
+        f"requests in {serve_s:.1f} s meanwhile); restored + warm_start in "
+        f"{restore_s:.2f} s; tiers, tenants, counters and clock equal; "
+        f"phase B ({PLANES_B * PLANES_BATCH} requests) in lockstep; "
+        f"tier stats {v1['tier_stats']}")
+    log(f"[planes] (a) pallas_q8: {n} restored code rows equal the dead "
+        f"mirror's; phase B ({PLANES_Q8_B * PLANES_BATCH} requests) "
+        f"decides as dense with bit-equal sims "
+        f"({out['q8_fallbacks_b']} dense fallbacks)")
+    return out
+
+
+def restart_gateway(np, engine, train=None, persist_dir=None):
+    """bench_restart's gateway: SISO (pallas) through
+    ServingGateway.from_config, persistence attached when a directory is
+    given; slo (b)'s blocking refresh and mis-set llm_latency."""
+    from repro_torch.serving.config import (CacheConfig, PersistenceConfig,
+                                            RefreshConfig, ServingConfig)
+    from repro_torch.serving.gateway import ServingGateway
+    from repro_torch.serving.simulator import bootstrap_frontend
+    cfg = ServingConfig(
+        cache=CacheConfig(dim=SIM_DIM, answer_dim=SIM_DIM,
+                          capacity=SLO_CAPACITY, theta_r=SLO_THETA,
+                          backend="pallas", dynamic_threshold=True),
+        refresh=RefreshConfig(async_pipeline=False),
+        persistence=(PersistenceConfig(directory=persist_dir, delta_every=4)
+                     if persist_dir else None),
+        slo_latency=SLO_S, llm_latency=0.2 * SLO_MAX_NEW * SLO_TICK_S)
+    clock = VirtualClock()
+    gw = ServingGateway.from_config(cfg, engine=engine,
+                                    embed_fn=lambda vs: np.stack(vs),
+                                    clock=clock)
+    gw.frontend.threshold.lambda_window = SLO_LAMBDA_WINDOW
+    if train is not None:
+        bootstrap_frontend(gw.frontend, train)
+    return gw, clock
+
+
+def phase_planes_restart(torch, np, models, seed: int, workdir: str) -> dict:
+    """(b): phase A with persistence attached (a refresh commit in it), a
+    drained full snapshot and a delta at that boundary; phase B twice,
+    uninterrupted and on a fresh gateway warm-started from a copy of the
+    directory, which must match batch for batch; a cold gateway serves
+    phase B for contrast."""
+    import os
+    import shutil
+    from repro_torch.serving.engine import ModelEngine
+    from repro_torch.serving.workloads import build_scenario
+    mcfg, mparams = models[2], models[3]
+    engine = ModelEngine(mparams, mcfg, n_slots=SLO_SLOTS, max_len=48,
+                         device=DEV)
+    scn = build_scenario("repeat_heavy", dim=SIM_DIM,
+                         n_clusters=SLO_CLUSTERS, seed=seed,
+                         n_train=RESTART_TRAIN,
+                         n_test=RESTART_A + RESTART_B)
+    live = os.path.join(workdir, "restart_live")
+    survivor = os.path.join(workdir, "restart_survivor")
+    t0 = time.perf_counter()
+    gw1, c1 = restart_gateway(np, engine, scn.train, live)
+    slo_drive(gw1, c1, scn.test, mcfg.vocab_size, seed=seed + 2,
+              hi=RESTART_A)
+    commits = gw1.stats.refreshes
+    check(commits >= 1, f"[planes] (b) phase A made no refresh commit "
+                        f"({gw1.report()['misses']} misses)")
+    gw1.drain()                         # the drained full snapshot
+    gw1.snapshot(full=False)            # and a delta at the boundary
+    gw1.ckpt.wait()
+    shutil.copytree(live, survivor)     # the disk that survives
+    boundary = c1.t
+    phase_a_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = slo_drive(gw1, c1, scn.test, mcfg.vocab_size, seed=seed + 2,
+                    lo=RESTART_A)
+    gw1.drain()
+    gw1.ckpt.wait()
+    rep1 = gw1.report()
+    ref_s = time.perf_counter() - t0
+    gw2, c2 = restart_gateway(np, engine, persist_dir=survivor)
+    meta = gw2.warm_start()
+    c2.t = boundary
+    t0 = time.perf_counter()
+    warm = slo_drive(gw2, c2, scn.test, mcfg.vocab_size, seed=seed + 2,
+                     lo=RESTART_A)
+    gw2.drain()
+    gw2.ckpt.wait()
+    rep2 = gw2.report()
+    warm_s = time.perf_counter() - t0
+    check(meta["kind"] == "full+delta",
+          f"[planes] (b) restored {meta['kind']}, not full+delta")
+    check(same(np, ref, warm), "[planes] (b) the warm-started phase B's "
+                               "per-batch hit masks differ")
+    for k in ("hits", "misses", "hit_ratio", "submitted", "completed",
+              "served_cache", "served_engine", "theta_r", "theta_trace",
+              "mirror_generation", "refreshes"):
+        check(rep1[k] == rep2[k], f"[planes] (b) {k} differs after the "
+                                  f"warm restart: {rep1[k]} vs {rep2[k]}")
+    gw3, c3 = restart_gateway(np, engine)
+    c3.t = boundary
+    cold = slo_drive(gw3, c3, scn.test, mcfg.vocab_size, seed=seed + 2,
+                     lo=RESTART_A)
+    gw3.drain()
+    del engine
+    torch.cuda.empty_cache()
+    hr = {k: float(np.concatenate(v).mean()) if v else 0.0
+          for k, v in (("ref", ref), ("warm", warm), ("cold", cold))}
+    out = {"refresh_commits_a": commits, "restored": meta["kind"],
+           "restored_step": meta["step"], "recovery_s": meta["recovery_s"],
+           "hit_ratio_b": hr, "phase_a_s": phase_a_s, "ref_b_s": ref_s,
+           "warm_b_s": warm_s, "generation": rep1["mirror_generation"],
+           "served_b": (rep1["served_cache"], rep1["served_engine"])}
+    log(f"[planes] (b) gateway warm restart: phase A ({RESTART_A} "
+        f"requests, {commits} refresh commit(s)) in {phase_a_s:.1f} s; "
+        f"restored {meta['kind']} (step {meta['step']}) in "
+        f"{1e3 * meta['recovery_s']:.1f} ms; phase B ({RESTART_B} "
+        f"requests) equal batch for batch (hit masks, counters, theta "
+        f"trace, generation {rep1['mirror_generation']}); phase-B hit "
+        f"ratio uninterrupted {hr['ref']:.4f}, warm {hr['warm']:.4f}, "
+        f"cold {hr['cold']:.4f}")
+    return out
+
+
+def tier_drill(np, workdir: str) -> dict:
+    """bench_tiered at its smoke size, dim 768: device-only against three
+    tiers at equal device rows, fixed theta_R 0.92."""
+    import os
+    from repro_torch.core.siso import SISO, SISOConfig
+    from repro_torch.core.tiered import TieredCacheConfig
+    cap, n_topics, per_topic, steps, phase_len = 32, 16, 20, 900, 30
+    rng = np.random.default_rng(0)
+    d = SIM_DIM
+
+    def norm(x):
+        return (x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True),
+                               1e-9)).astype(np.float32)
+
+    anchors = norm(rng.normal(size=(n_topics, d)))
+    qs = norm(anchors.repeat(per_topic, axis=0) + 0.35 * DRILL_SCALE
+              * rng.normal(size=(n_topics * per_topic, d)))
+    answers = rng.normal(size=(len(qs), d)).astype(np.float32)
+    topic = np.arange(n_topics).repeat(per_topic)
+    by_topic = [np.flatnonzero(topic == t) for t in range(n_topics)]
+    seen, seen_set = [], set()
+    sched = np.empty(steps, np.int64)
+    for i in range(steps):
+        t = (i // phase_len) % n_topics
+        if seen and rng.random() < 0.55:
+            q = int(seen[int(rng.integers(len(seen)))])
+        else:
+            q = int(by_topic[t][int(rng.integers(len(by_topic[t])))])
+        sched[i] = q
+        if q not in seen_set:
+            seen_set.add(q)
+            seen.append(q)
+    boot = rng.choice(len(qs), size=2 * cap, replace=False)
+    out = {}
+    for name in ("device_only", "tiered"):
+        tiered = TieredCacheConfig(
+            host_capacity=4 * cap, disk_capacity=16 * cap,
+            disk_dir=os.path.join(workdir, "tier_drill_cold"),
+            device_reserve=cap // 4, promote_budget=8) \
+            if name == "tiered" else None
+        s = SISO(SISOConfig(dim=d, answer_dim=d, capacity=cap,
+                            theta_r=0.92, dynamic_threshold=False,
+                            backend="pallas", refresh_async=False,
+                            tiered=tiered), device=DEV)
+        s.bootstrap(qs[boot], answers[boot], answer_ids=boot)
+        r = np.random.default_rng(3)
+        hits = np.zeros(steps, bool)
+        t0 = time.perf_counter()
+        for i, q in enumerate(sched):
+            v = norm(qs[q] + 0.06 * DRILL_SCALE * r.normal(size=d))
+            hits[i] = bool(s.handle_batch(v[None, :]).hit[0])
+            if not hits[i]:
+                s.record_llm_answer(v, answers[q], answer_id=int(q))
+            s.refresh_tick(0.0)
+        s.refresh_drain()
+        out[name] = {"hit_ratio": float(hits[steps // 4:].mean()),
+                     "wall_s": time.perf_counter() - t0}
+        if tiered is not None:
+            out[name]["tier_stats"] = s.cache.tier_stats()
+    out["lift"] = out["tiered"]["hit_ratio"] - out["device_only"]["hit_ratio"]
+    out["pressure_x"] = len(qs) / cap
+    return out
+
+
+def tenancy_drill(np) -> dict:
+    """bench_tenancy at its smoke size, dim 768: the steady tenant's hit
+    ratio alone (phase A) and under an 8:1 flood (phase B), weighted
+    (tenancy on) and unweighted."""
+    from repro_torch.core.siso import SISO, SISOConfig
+    from repro_torch.core.tenancy import TenancyConfig
+    cap, n_topics, n_a, n_b = 64, 16, 96, 432
+    d = SIM_DIM
+    rng = np.random.default_rng(0)
+
+    def norm(x):
+        return (x / np.maximum(np.linalg.norm(x, axis=-1, keepdims=True),
+                               1e-9)).astype(np.float32)
+
+    topics = norm(rng.normal(size=(n_topics, d)))
+    stream, k = [], 0
+    for _ in range(n_a):
+        stream.append((1, norm(topics[k % n_topics] + 0.02 * DRILL_SCALE
+                                * rng.normal(size=d))))
+        k += 1
+    for i in range(n_b):
+        if i % 9 == 8:
+            stream.append((1, norm(topics[k % n_topics] + 0.02 * DRILL_SCALE
+                                    * rng.normal(size=d))))
+            k += 1
+        else:
+            stream.append((0, norm(rng.normal(size=d))))
+    tenants = np.asarray([t for t, _ in stream], np.int64)
+    vecs = np.stack([v for _, v in stream])
+    answers = rng.normal(size=(len(stream), d)).astype(np.float32)
+    out = {}
+    for name, ten in (("weighted", TenancyConfig()), ("unweighted", None)):
+        s = SISO(SISOConfig(dim=d, answer_dim=d, capacity=cap, theta_r=0.92,
+                            dynamic_threshold=False, backend="pallas",
+                            refresh_async=False, tenancy=ten), device=DEV)
+        hits = np.zeros(len(stream), bool)
+        for i in range(len(stream)):
+            kw = {"tenant_ids": tenants[i:i + 1]} if ten else {}
+            hits[i] = bool(s.handle_batch(vecs[i][None, :], now=float(i),
+                                          **kw).hit[0])
+            if not hits[i]:
+                s.record_llm_answer(vecs[i], answers[i], answer_id=i,
+                                    tenant=int(tenants[i]) if ten else None)
+        st = tenants == 1
+        a = float(hits[:n_a][st[:n_a]][n_topics:].mean())
+        b = float(hits[n_a:][st[n_a:]].mean())
+        out[name] = {"steady_hit_a": a, "steady_hit_b": b,
+                     "rel_degradation": max(0.0, a - b) / max(a, 1e-9)}
+    return out
+
+
+def phase_planes(torch, np, models, recorder, att_recorders,
+                 seed: int) -> dict:
+    """Phase 7: the kill drill (a), the gateway warm restart (b) and the
+    tier and tenancy drills (c). K1-K4 launch counters are zeroed just
+    before and read just after; the killed child's K1/K2 launches and
+    calls come back in a file beside its snapshot. Every K1/K2 call (the
+    child's too) and every K3/K4 call is noted for the re-checks at its
+    own arguments."""
+    import os
+    import shutil
+    from repro_torch.core import semantic_cache as SC
+    from repro_torch.kernels.cosine_topk import ops
+    from repro_torch.models import layers as L
+    workdir = ROOT / "build" / f"planes-{os.getpid()}"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    torch.cuda.synchronize()
+    zero_topk_launches()
+    zero_attention_launches()
+    SC.ctk_ops = recorder
+    t0 = time.perf_counter()
+    try:
+        with recorded_ops(L, att_recorders):
+            kill = phase_planes_kill(torch, np, seed, str(workdir))
+            t1 = time.perf_counter()
+            restart = phase_planes_restart(torch, np, models, seed,
+                                           str(workdir))
+            restart_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            tiers = tier_drill(np, str(workdir))
+            tenancy = tenancy_drill(np)
+            drills_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+    finally:
+        SC.ctk_ops = ops
+        shutil.rmtree(workdir, ignore_errors=True)
+    n = {**topk_launches(), **attention_launches()}
+    for fn, c in kill.pop("child_launches").items():
+        n[fn] += c
+    recorder.calls.update(kill.pop("child_calls"))
+    check(n["cosine_topk"] > 0 and n["cosine_topk_q8"] > 0
+          and n["flash_attention"] > 0 and n["decode_attention"] > 0,
+          f"[planes] a kernel of the phase was never launched: {n}")
+    log(f"[planes] (c) tiers at dim {SIM_DIM} ({tiers['pressure_x']:.0f}x "
+        f"the device rows): steady hit ratio device-only "
+        f"{tiers['device_only']['hit_ratio']:.4f}, three tiers "
+        f"{tiers['tiered']['hit_ratio']:.4f} (lift {tiers['lift']:+.4f}); "
+        f"tier stats {tiers['tiered']['tier_stats']}")
+    log(f"[planes] (c) tenancy at dim {SIM_DIM}: steady tenant alone / "
+        f"under the 8:1 flood: weighted {tenancy['weighted']['steady_hit_a']:.4f} / "
+        f"{tenancy['weighted']['steady_hit_b']:.4f} (relative degradation "
+        f"{tenancy['weighted']['rel_degradation']:.4f}), unweighted "
+        f"{tenancy['unweighted']['steady_hit_a']:.4f} / "
+        f"{tenancy['unweighted']['steady_hit_b']:.4f} "
+        f"({tenancy['unweighted']['rel_degradation']:.4f})")
+    wall = time.perf_counter() - t0
+    log(f"[planes] phase done in {wall:.1f} s (kill drill "
+        f"{wall - restart_s - drills_s:.1f} s, gateway restart "
+        f"{restart_s:.1f} s, tier + tenancy drills {drills_s:.1f} s); "
+        f"launches {n}")
+    return {"kill": kill, "restart": restart, "tiers": tiers,
+            "tenancy": tenancy, "launches": n, "wall_s": wall}
+
+
 def nvidia_smi() -> str:
     try:
         out = subprocess.run(
@@ -1890,6 +2487,8 @@ def main() -> int:
     ap.add_argument("--out", default="results",
                     help="directory for chip_smoke.json, relative to the "
                          "repository root")
+    ap.add_argument("--planes-child", metavar="DIR",
+                    help=argparse.SUPPRESS)   # phase 7's killed process
     args = ap.parse_args()
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this "
@@ -1903,6 +2502,10 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if args.planes_child:
+        from repro_torch.device import strict_fp32
+        strict_fp32()
+        planes_child(torch, np, args.planes_child, args.seed)
     from repro_torch.device import strict_fp32
     from repro_torch.kernels import _build
     from repro_torch.kernels.cosine_topk import ops
@@ -1964,6 +2567,9 @@ def main() -> int:
     detail["slo_s"] = time.perf_counter() - t
     log(f"[slo] phase done in {detail['slo_s']:.1f} s (simulator "
         f"{sim_s:.1f} s, live gateway {detail['slo_s'] - sim_s:.1f} s)")
+    planes = phase_planes(torch, np, models, recorder, att_rec, args.seed)
+    detail["planes"] = planes
+    detail["planes_s"] = planes["wall_s"]
     main_err = phase_main_shapes(torch, recorder.calls, args.seed)
     check({c[0] for c in recorder.calls} == set(err),
           "[kernels] a kernel of the main path was never called")
@@ -2003,19 +2609,22 @@ def main() -> int:
         "flash_attention_f32": "src/repro_torch/csrc/flash_attention.cu",
         "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
         "decode_attention_int8": "src/repro_torch/csrc/decode_attention.cu"}
-    # launches on the main path: K1/K2 in their served stream and the slo
-    # phase's runs; K3/K4 in both served streams, both engine-long runs and
-    # the slo phase's live gateway
+    # launches on the main path: K1/K2 in their served stream, the slo
+    # phase's runs and the planes phase (its killed child included); K3/K4
+    # in both served streams, both engine-long runs, the slo phase's live
+    # gateway and the planes phase's gateway restart
     launches = {"cosine_topk": serve["pallas"]["launches"]
                 + slo_sim["launches"]["cosine_topk"]
-                + slo_live["launches"]["cosine_topk"],
+                + slo_live["launches"]["cosine_topk"]
+                + planes["launches"]["cosine_topk"],
                 "cosine_topk_q8": serve["pallas_q8"]["launches"]
-                + slo_sim["launches"]["cosine_topk_q8"]}
+                + slo_sim["launches"]["cosine_topk_q8"]
+                + planes["launches"]["cosine_topk_q8"]}
     for name in att_err:
         launches[name] = sum(r["attention_launches"][name]
                              for r in serve.values()) + sum(
             r["launches"][name] for r in long_runs.values()) \
-            + slo_live["launches"][name]
+            + slo_live["launches"][name] + planes["launches"][name]
         check(launches[name] > 0, f"[kernels] {name} was never launched on "
                                   f"the main path")
     # timed at the main path's shapes: K1/K2 at the served batch; K4 at the

@@ -15,8 +15,7 @@ Faithful semantics:
 
 Ported from ``repro/core/cache_manager.py``: the device passes run as
 torch on ``device`` (:mod:`repro_torch.core.clustering`); the host logic is
-carried over. The tenant-weighted eviction of the reference arrives with
-tenancy in a later slice.
+carried over.
 
 The merge is fully vectorized and blocked on-device: repo centroids are
 matched against the current cache with a blocked top-1 pass; the unmatched
@@ -37,6 +36,7 @@ import torch
 from repro_torch.core.clustering import (_pow2_pad, gt_mask_block,
                                          run_budgeted, top1_block)
 from repro_torch.core.store import CentroidStore
+from repro_torch.core.tenancy import fair_share_take
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -248,19 +248,35 @@ def merge_centroids_reference(c_cur: CentroidStore, c_repo: CentroidStore,
 
 
 def filter_centroids(c_new: CentroidStore, capacity: int,
-                     decay: float = 1.1, collect_evicted: bool = False):
+                     decay: float = 1.1, collect_evicted: bool = False,
+                     tenants: np.ndarray | None = None):
     """capacity: max number of entries (TotalMemoryUsage / bytes_per_entry).
 
     With ``collect_evicted`` the return gains a third element: a store of
-    the evicted rows (pre-decay field values)."""
+    the evicted rows (pre-decay field values), so a tiered hierarchy can
+    demote cold centroids instead of discarding them (DESIGN.md §13).
+
+    ``tenants`` (one namespace id per row, DESIGN.md §14) switches victim
+    selection to fair-share: the ascending (cluster_size, access_count)
+    order becomes a per-row rank, and rows leave from the most-occupying
+    namespace first, coldest-ranked within it. None keeps Algorithm 1's
+    unweighted prefix eviction."""
     evicted = 0
     evicted_store = None
     if len(c_new) > capacity:
         # ascending (cluster_size, access_count); evict the prefix
         order = np.lexsort((c_new.access_count, c_new.cluster_size))
         evicted = len(c_new) - capacity
-        keep = np.sort(order[len(c_new) - capacity:])
-        victims = np.sort(order[:evicted])
+        if tenants is not None:
+            # rank key: fair_share_take's within-namespace ascending-key
+            # order then equals the composite lexsort order
+            rank = np.empty(len(c_new), np.int64)
+            rank[order] = np.arange(len(c_new))
+            victims = np.sort(fair_share_take(tenants, rank, evicted))
+            keep = np.setdiff1d(np.arange(len(c_new)), victims)
+        else:
+            keep = np.sort(order[len(c_new) - capacity:])
+            victims = np.sort(order[:evicted])
         if collect_evicted:
             evicted_store = c_new.copy()
             evicted_store.take(victims)
@@ -286,10 +302,21 @@ class CacheManager:
         self.update_group = update_group
 
     def plan(self, c_cur: CentroidStore, c_repo: CentroidStore,
-             capacity: int) -> tuple[CentroidStore, RefreshStats]:
+             capacity: int, collect_evicted: bool = False,
+             tenant_of=None):
         c_new, stats = merge_centroids(c_cur, c_repo, self.theta_c,
                                        device=self.device)
-        c_new, stats.evicted = filter_centroids(c_new, capacity, self.decay)
+        # resolve row ownership once, on the merged pre-filter store
+        # (answer_id -> namespace; DESIGN.md §14), None = unweighted
+        tenants = tenant_of(c_new.answer_id) if tenant_of is not None \
+            else None
+        if collect_evicted:
+            c_new, stats.evicted, evicted = filter_centroids(
+                c_new, capacity, self.decay, collect_evicted=True,
+                tenants=tenants)
+            return c_new, stats, evicted
+        c_new, stats.evicted = filter_centroids(c_new, capacity, self.decay,
+                                                tenants=tenants)
         return c_new, stats
 
     def update_chunks(self, c_new: CentroidStore) -> Iterator[CentroidStore]:

@@ -30,8 +30,7 @@ Phases (each ``step()`` consumes ~budget_s of bounded units):
             independent of shard count.
 
 Ported from ``repro/core/refresh.py``: host logic carried over; the
-clustering and merge units run on the cache's device. The tiered demotion
-and tenant-weighted filter of the reference arrive in later slices.
+clustering and merge units run on the SISO's device.
 
 Equivalence: driving the pipeline to completion yields the same centroid
 store, T2H table, and lookup results as the synchronous ``SISO.refresh()``
@@ -120,7 +119,7 @@ class RefreshPipeline:
             self._vecs, threshold=self.siso.cfg.theta_c,
             count_block=self.count_block, seed_block=self.seed_block,
             scan_rows=self.scan_rows, fused_counts=False,
-            device=self.siso.cache.device)
+            device=self.siso.device)
         # freeze the live access counts at cycle start: had the refresh
         # run synchronously here, every later hit would land post-swap —
         # the commit carries exactly that delta into the new store
@@ -139,7 +138,7 @@ class RefreshPipeline:
         self._planner = MergePlanner(self.siso.cache.centroids, repo,
                                      self.siso.cfg.theta_c,
                                      block=self.merge_block,
-                                     device=self.siso.cache.device)
+                                     device=self.siso.device)
         self.phase = "plan"
 
     def _unit_plan(self) -> None:
@@ -147,8 +146,23 @@ class RefreshPipeline:
             return
         c_new, stats = self._planner.result()
         self._planner = None
-        c_new, stats.evicted = filter_centroids(
-            c_new, self.siso.centroid_capacity, self.siso.manager.decay)
+        # fair-share filter eviction (DESIGN.md §14): resolve each merged
+        # row's namespace through the registry; None = unweighted
+        tenant_of = getattr(self.siso, "tenant_of", None)
+        tenants = tenant_of(c_new.answer_id) if tenant_of is not None \
+            else None
+        if getattr(self.siso.cache, "evict_sink", None) is not None:
+            # tiered hierarchy (DESIGN.md §13): keep the filter's evicted
+            # centroids; the commit demotes them instead of discarding
+            c_new, stats.evicted, self._evicted = filter_centroids(
+                c_new, self.siso.centroid_capacity,
+                self.siso.manager.decay, collect_evicted=True,
+                tenants=tenants)
+        else:
+            c_new, stats.evicted = filter_centroids(
+                c_new, self.siso.centroid_capacity, self.siso.manager.decay,
+                tenants=tenants)
+            self._evicted = None
         # final store in the cache's locality-first layout, rebuilt through
         # a fresh add() so ids match the synchronous staging path exactly
         final = CentroidStore(self.siso.cfg.dim, self.siso.cfg.answer_dim)
@@ -182,6 +196,16 @@ class RefreshPipeline:
         self._carry_access_counts()
         self.siso.cache.commit_shadow(self._final)
         self._final = None
+        ev = getattr(self, "_evicted", None)
+        if ev is not None and len(ev):
+            # demote cold centroids after the swap: the new region is live,
+            # so the demoted entries never coexist with their former device
+            # rows (DESIGN.md §13)
+            sink = getattr(self.siso.cache, "evict_sink", None)
+            if sink is not None:
+                sink(ev.vectors, ev.answers, ev.answer_id, ev.cluster_size,
+                     ev.access_count, "refresh_evict")
+        self._evicted = None
         # T2H sample exactly as the synchronous path draws it (§4.1: 5%
         # of the fresh queries), probed against the NEW state
         self._t2h_sample = self.siso.draw_t2h_sample(self._vecs, self._rng)
@@ -259,6 +283,7 @@ class RefreshPipeline:
         # overlays) is discarded wholesale
         self._detector = self._planner = None
         self._raw = self._final = None
+        self._evicted = None
         self.cycles = int(state["cycles"])
         self.ticks = int(state["ticks"])
         phase = str(np.asarray(state["phase"]))
@@ -288,7 +313,7 @@ class RefreshPipeline:
             self._vecs, threshold=self.siso.cfg.theta_c,
             count_block=self.count_block, seed_block=self.seed_block,
             scan_rows=self.scan_rows, fused_counts=False,
-            device=self.siso.cache.device)
+            device=self.siso.device)
         self.phase = "cluster"
 
     def _carry_access_counts(self) -> None:

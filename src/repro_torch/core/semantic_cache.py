@@ -24,7 +24,15 @@ them once; online spill inserts patch one row. The JAX reference patches
 with a donated ``dynamic_update_slice``; the port updates the persistent
 tensors in place with index writes. Double-buffered refresh (DESIGN.md
 §10) stages the new region on the host and swaps the mirror in one upload;
-every swap or rebuild bumps ``generation``.
+every swap or rebuild bumps ``generation``, except the one rebuild that
+re-materializes a restored snapshot (DESIGN.md §12), which rebuilds the
+mirror once and keeps the snapshot's generation.
+
+Eviction taps (DESIGN.md §13-14): ``evict_sink`` receives every spill LRU
+victim and spill trim (the tiered hierarchy demotes them), and
+``fair_share_eviction`` with ``tenant_of`` makes victim selection
+tenant-weighted. Unset, every path is bit-identical to the single-tier,
+single-namespace cache.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ import torch
 from repro_torch.core.clustering import _pow2_pad
 from repro_torch.core.hnsw import HNSW
 from repro_torch.core.store import CentroidStore
+from repro_torch.core.tenancy import fair_share_take
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.cosine_topk import ops as ctk_ops
 from repro_torch.kernels.cosine_topk.ops import quantize_rows
@@ -194,6 +203,20 @@ class SemanticCache:
         # serving generation at every graph lookup
         self._hnsw_gen = 0
         self._shadow: Optional[dict] = None
+        # set by load_state: the next mirror (re)build reproduces the
+        # snapshot's serving state, so it must NOT advance the generation
+        self._restore_pending = False
+        self._quant_restore: Optional[dict] = None   # snapshot codes
+        # demotion tap (DESIGN.md §13): when set, every evicted entry
+        # (spill LRU victim, spill trim) is handed to the sink as
+        #   sink(vectors, answers, answer_id, cluster_size, access_count,
+        #        kind)
+        # instead of being discarded
+        self.evict_sink = None
+        # tenant-weighted victim selection (DESIGN.md §14): both set by
+        # SISO from its TenancyConfig
+        self.fair_share_eviction = False
+        self.tenant_of = None     # answer_ids -> tenants, or None
 
     def _reject_hnsw_shard(self) -> None:
         """The hnsw backend serves from a host graph and would silently
@@ -216,17 +239,62 @@ class SemanticCache:
         store.take(order)  # locality-first layout
         self.centroids = store
         self._trim_spill()
+        self._restore_pending = False   # a real new state supersedes restore
+        self._quant_restore = None
         self._invalidate()
 
+    def _fair_share(self) -> bool:
+        return self.fair_share_eviction and self.tenant_of is not None
+
+    def _evicted_rows(self, rows: np.ndarray) -> Optional[tuple]:
+        """Copies of the spill rows about to leave, for the sink (None
+        without one)."""
+        if self.evict_sink is None:
+            return None
+        sp = self.spill
+        return (sp.vectors[rows].copy(), sp.answers[rows].copy(),
+                sp.answer_id[rows].copy(), sp.cluster_size[rows].copy(),
+                sp.access_count[rows].copy())
+
     def _trim_spill(self) -> None:
-        """LRU-evict spill rows that no longer fit the leftover capacity
-        (shared by set_centroids and commit_shadow)."""
+        """Evict spill rows that no longer fit the leftover capacity (shared
+        by set_centroids and commit_shadow): LRU, or over-budget
+        namespaces first with fair-share eviction."""
         if len(self.spill) > self.spill_capacity:
             drop = len(self.spill) - self.spill_capacity
-            victims = np.argsort(self._spill_last_use)[:drop]
+            if self._fair_share():
+                victims = fair_share_take(
+                    self.tenant_of(self.spill.answer_id),
+                    self._spill_last_use, drop)
+            else:
+                victims = np.argsort(self._spill_last_use)[:drop]
+            dead = self._evicted_rows(np.sort(victims))
             keep = np.setdiff1d(np.arange(len(self.spill)), victims)
             self.spill.take(keep)
             self._spill_last_use = self._spill_last_use[keep]
+            if dead is not None:    # the sink fires after the rows left
+                self.evict_sink(*dead, "spill_trim")
+
+    def drop_spill_ids(self, answer_ids: np.ndarray) -> int:
+        """Remove spill rows whose answer identity (>= 0) is in
+        ``answer_ids``: the tiered wrapper calls this right before a
+        refresh commit, so an identity promoted into the new centroid
+        region keeps no second copy in the spill (DESIGN.md §13). It
+        invalidates the mirror, which that commit rebuilds or swaps
+        anyway."""
+        ids = np.asarray(answer_ids)
+        ids = ids[ids >= 0]
+        if not len(ids) or not len(self.spill):
+            return 0
+        dup = np.isin(self.spill.answer_id, ids)
+        n = int(dup.sum())
+        if n:
+            keep = np.where(~dup)[0]
+            self.spill.take(keep)
+            self._spill_last_use = self._spill_last_use[keep]
+            self._quant_restore = None
+            self._invalidate()
+        return n
 
     def apply_chunk(self, chunk: CentroidStore, first: bool) -> None:
         """Progressive update entry point (CacheManager.update_chunks)."""
@@ -247,6 +315,31 @@ class SemanticCache:
 
     # ---------------------------------------------------------------- device
 
+    def _bump_generation(self) -> None:
+        """A mirror/index rebuild starts a new serving state, except the one
+        rebuild that re-materializes a restored snapshot."""
+        if self._restore_pending:
+            self._restore_pending = False
+        else:
+            self.generation += 1
+
+    def _quantize_all(self, vecs: np.ndarray) -> tuple:
+        """(codes, scales, err_max) for the full host row set; a pending
+        snapshot restore hands back the snapshot's own codes and scales
+        when their shapes match, so a warm restart serves from the very
+        same int8 plane."""
+        n = len(vecs)
+        dpad = _lane_pad(self.dim)
+        restore, self._quant_restore = self._quant_restore, None
+        if restore is not None:
+            codes = np.asarray(restore["codes"], np.int8)
+            scales = np.asarray(restore["scales"], np.float32)
+            if len(codes) == n and codes.shape[1] == dpad \
+                    and len(scales) == n:
+                return codes, scales, float(restore["err_max"])
+        codes, scales, err = quantize_rows(vecs, width=dpad)
+        return codes, scales, float(err.max()) if n else 0.0
+
     @property
     def _mat_width(self) -> int:
         """The K1 backend keeps the f32 mirror lane-padded so the kernel
@@ -264,14 +357,13 @@ class SemanticCache:
             valid[:n] = True
             if self.backend == "pallas_q8":   # int8 plane (DESIGN.md §15)
                 dpad = _lane_pad(self.dim)
-                codes, scales, err = quantize_rows(vecs, width=dpad)
+                codes, scales, err_max = self._quantize_all(vecs)
                 cp = np.zeros((pad, dpad), np.int8)
                 sp = np.zeros((pad,), np.float32)
                 cp[:n], sp[:n] = codes, scales
                 self._dev = _QuantDeviceState(
                     _upload(cp, self.device), _upload(sp, self.device),
-                    _upload(valid, self.device), pad, dpad,
-                    float(err.max()) if n else 0.0)
+                    _upload(valid, self.device), pad, dpad, err_max)
             else:
                 mat = np.zeros((pad, self._mat_width), np.float32)
                 ans = np.zeros((pad, self.answer_dim), np.float32)
@@ -286,7 +378,7 @@ class SemanticCache:
                     _upload(valid, self.device), _upload(aid, self.device),
                     pad)
             self.dev_rebuilds += 1
-            self.generation += 1
+            self._bump_generation()
         return self._dev
 
     # --------------------------------------------- double-buffered refresh
@@ -387,6 +479,8 @@ class SemanticCache:
                 _upload(sh["aid"], self.device), pad)
         self._hnsw = None        # graph path stays rebuild-based
         self._shadow = None
+        self._restore_pending = False   # a real new state supersedes restore
+        self._quant_restore = None
         self.generation += 1
         self.dev_swaps += 1
 
@@ -562,7 +656,8 @@ class SemanticCache:
             if self._dev is None:
                 # pure graph serving: an index rebuild is a new serving
                 # state, so it bumps the generation as a mirror rebuild does
-                self.generation += 1
+                # (unless it re-materializes a restored snapshot)
+                self._bump_generation()
             self._hnsw_gen = self.generation
         if self._hnsw_gen != self.generation:
             # a device rebuild/shadow swap advanced the serving state
@@ -583,12 +678,27 @@ class SemanticCache:
         if not self.spill_lru or self.spill_capacity == 0:
             return
         nc = len(self.centroids)
+        self._quant_restore = None   # snapshot codes no longer match
         self._spill_clock += 1
         if len(self.spill) >= self.spill_capacity:
-            victim = int(np.argmin(self._spill_last_use))
+            if self._fair_share():
+                # charge the incoming row to its namespace, then evict
+                # from the largest-occupancy namespace (its own LRU row)
+                incoming = int(self.tenant_of(
+                    np.asarray([answer_id], np.int64))[0])
+                victim = int(fair_share_take(
+                    self.tenant_of(self.spill.answer_id),
+                    self._spill_last_use, 1, incoming=incoming)[0])
+            else:
+                victim = int(np.argmin(self._spill_last_use))
+            # copies: set_row overwrites the slot; the sink fires once the
+            # row has left the device
+            dead = self._evicted_rows(slice(victim, victim + 1))
             self.spill.set_row(victim, vector, answer, answer_id,
                                cluster_size=cluster_size)
             self._spill_last_use[victim] = self._spill_clock
+            if dead is not None:
+                self.evict_sink(*dead, "spill_evict")
             row = nc + victim
         else:
             self.spill.add(vector, answer, cluster_size,
@@ -651,7 +761,11 @@ class SemanticCache:
                 "hits": np.asarray(self.hits),
                 "misses": np.asarray(self.misses),
                 "generation": np.asarray(self.generation),
-                "mirror_live": np.asarray(self._dev is not None),
+                # was a serving mirror or graph index materialized at
+                # snapshot time? Then the restore-rebuild reproduces it
+                # without a generation bump; a pending invalidation bumps
+                "mirror_live": np.asarray(self._dev is not None
+                                          or self._hnsw is not None),
                 "dev_rebuilds": np.asarray(self.dev_rebuilds),
                 "dev_row_writes": np.asarray(self.dev_row_writes),
                 "dev_swaps": np.asarray(self.dev_swaps),
@@ -686,3 +800,61 @@ class SemanticCache:
         return {"centroid_ids": self.centroids.ids,
                 "centroid_access": self.centroids.access_count,
                 **self._counters()}
+
+    def _load_common(self, state: dict) -> None:
+        # np.array (copy): an in-process restore must not alias the donor's
+        # live recency buffer
+        self._spill_last_use = np.array(state["spill_last_use"], np.int64)
+        self._spill_clock = int(state["spill_clock"])
+        self.hits = int(state["hits"])
+        self.misses = int(state["misses"])
+        self.generation = int(state.get("generation", self.generation))
+        for name in ("dev_rebuilds", "dev_row_writes", "dev_swaps",
+                     "quant_rescored", "quant_fallbacks"):
+            setattr(self, name, int(state.get(name, getattr(self, name))))
+
+    def load_state(self, state: dict) -> None:
+        """Restore a full snapshot (DESIGN.md §12); the mirror is rebuilt
+        once, on the next lookup or by :meth:`rebuild_mirror`."""
+        cent = CentroidStore.from_state(state["centroids"])
+        if cent.vectors.shape[1] != self.dim:
+            raise ValueError(f"snapshot dim {cent.vectors.shape[1]} != "
+                             f"cache dim {self.dim}")
+        self.centroids = cent
+        self.spill = CentroidStore.from_state(state["spill"])
+        self._load_common(state)
+        self._quant_restore = state.get("quant")
+        self._restore_pending = bool(state.get("mirror_live",
+                                               "generation" in state))
+        self._invalidate()
+
+    def load_delta(self, state: dict) -> None:
+        """Overlay a delta snapshot on an already-restored base (the full
+        snapshot of the same refresh epoch; the caller checks epochs)."""
+        access = np.array(state["centroid_access"], np.float64)
+        ids = np.asarray(state.get("centroid_ids", ()), np.int64)
+        if len(access) != len(self.centroids) \
+                or not np.array_equal(ids, self.centroids.ids):
+            raise ValueError(
+                "delta centroid region does not match the restored base "
+                "— the delta belongs to another refresh epoch")
+        self.centroids.access_count = access
+        self.spill = CentroidStore.from_state(state["spill"])
+        self._load_common(state)
+        # the delta's spill supersedes the full snapshot's codes; the
+        # rebuild requantizes (bit-deterministic, so still identical)
+        self._quant_restore = None
+        self._restore_pending = bool(state.get("mirror_live", True))
+        self._invalidate()
+
+    def rebuild_mirror(self) -> None:
+        """Re-materialize the serving state from the restored host arrays
+        (warm restart): the device mirror, or the graph index for hnsw,
+        built once and keeping the restored generation."""
+        if len(self.centroids) + len(self.spill) == 0:
+            self._restore_pending = False
+            return
+        if self.backend == "hnsw":
+            self._hnsw_lookup(np.zeros((1, self.dim), np.float32))
+        else:
+            self._device_state()

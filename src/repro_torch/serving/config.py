@@ -7,8 +7,10 @@ per concern:
     ServingConfig(
         cache=CacheConfig(dim=64, capacity=4096, backend="dense"),
         refresh=RefreshConfig(frac=0.10, async_pipeline=True),
-        tiering=None, tenancy=None, sharding=None,
-        persistence=None, replication=None,
+        tiering=TieredCacheConfig(...),      # or None
+        tenancy=TenancyConfig(...),          # or None
+        persistence=PersistenceConfig(directory="..."),  # or None
+        sharding=None, replication=None,
         slo_latency=1.0, llm_latency=0.5,
     )
 
@@ -17,10 +19,10 @@ built through ``SISO.from_config(cfg)`` and
 through :meth:`ServingConfig.to_siso_config`, so new-style construction is
 bit-identical to building ``SISO(SISOConfig(...))`` with the same fields.
 
-The plane configs are carried over field for field, but the planes
-themselves are not ported yet (ROADMAP Queue A items 3-5): building from a
-config with tiering, tenancy, sharding over more than one shard,
-replication or a persistence directory raises ``NotImplementedError``
+The plane configs are carried over field for field. Tiering, tenancy and
+persistence are ported; the sharded plane and replication are not yet
+(ROADMAP Queue A items 4-5): building from a config with sharding over
+more than one shard or with replication raises ``NotImplementedError``
 naming the plane (:meth:`ServingConfig.check_ported`).
 """
 from __future__ import annotations
@@ -64,8 +66,8 @@ class RefreshConfig:
 
 @dataclass
 class PersistenceConfig:
-    """Crash-safe snapshotting (DESIGN.md §12). Not ported yet: a config
-    with a directory raises in ``ServingGateway.from_config``."""
+    """Crash-safe snapshotting (DESIGN.md §12); wired by
+    ``ServingGateway.from_config`` via ``attach_persistence``."""
     directory: str = ""
     keep: int = 3
     async_write: bool = True
@@ -88,16 +90,12 @@ class ServingConfig:
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` naming the first plane that is set
-        but not ported yet (tiering, tenancy, sharding over more than one
-        shard, replication, persistence with a directory)."""
+        but not ported yet (sharding over more than one shard,
+        replication)."""
         unported = {
-            "tiering": self.tiering is not None,
-            "tenancy": self.tenancy is not None,
             "sharding": (self.sharding is not None
                          and self.sharding.n_shards > 1),
             "replication": self.replication is not None,
-            "persistence": (self.persistence is not None
-                            and bool(self.persistence.directory)),
         }
         for plane, is_set in unported.items():
             if is_set:

@@ -18,11 +18,10 @@ examples used to hand-wire:
                       batch; drain() completes any in-flight cycle
                       (DESIGN.md §10)
 
-Port of ``repro/serving/gateway.py``: batching, wiring, serving metrics
-and ``from_config`` are carried over. Crash-safe persistence
-(``attach_persistence``, snapshots, ``warm_start``, a ``ServingConfig``
-with a persistence directory) arrives with the checkpoint manager (ROADMAP
-Queue A item 3) and raises ``NotImplementedError``.
+Port of ``repro/serving/gateway.py``: batching, wiring, serving metrics,
+``from_config`` and crash-safe persistence (DESIGN.md §12: full snapshots
+at refresh commits and drains, deltas every ``delta_every`` batches, and
+``warm_start`` from the newest full + same-epoch delta) are carried over.
 
 The gateway is deliberately thin: the frontend owns cache policy, the
 scheduler owns slot management, and this class owns only batching, wiring,
@@ -44,6 +43,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.serving.scheduler import (ContinuousBatchScheduler, Engine,
                                            Request)
 
@@ -126,6 +126,13 @@ class ServingGateway:
                                               answer_fn=answer_fn,
                                               clock=self.clock)
         self.stats = GatewayStats()
+        # crash-safe persistence (DESIGN.md §12); attach_persistence wires
+        self.ckpt: Optional[CheckpointManager] = None
+        self._delta_every = 0
+        self._since_snap = 0
+        self._snap_step = 0
+        self._snap_epoch: Optional[int] = None
+        self._full_steps: deque = deque(maxlen=2)
         # running completion counters: report() ingests only the done-list
         # suffix it has not seen yet, so per-call cost stays O(new + window)
         # instead of rescanning every completion since process start
@@ -159,13 +166,20 @@ class ServingGateway:
         """Build a fully wired gateway from a
         :class:`repro_torch.serving.config.ServingConfig` (DESIGN.md
         §16.4): the frontend through ``SISO.from_config`` on the engine's
-        device (the port's default, ``cuda``, for an engine without one).
-        A plane that is not ported yet, persistence with a directory
-        included, raises ``NotImplementedError`` naming it."""
+        device (the port's default, ``cuda``, for an engine without one),
+        and persistence attached when ``cfg.persistence`` has a directory.
+        A plane that is not ported yet raises ``NotImplementedError``
+        naming it."""
         from repro_torch.core.siso import SISO
         siso = SISO.from_config(cfg, device=getattr(engine, "device", None))
-        return cls(siso, engine, embed_fn, answer_fn=answer_fn, clock=clock,
-                   auto_refresh=auto_refresh, slo_latency=cfg.slo_latency)
+        gw = cls(siso, engine, embed_fn, answer_fn=answer_fn, clock=clock,
+                 auto_refresh=auto_refresh, slo_latency=cfg.slo_latency)
+        p = cfg.persistence
+        if p is not None and p.directory:
+            gw.attach_persistence(p.directory, keep=p.keep,
+                                  async_write=p.async_write,
+                                  delta_every=p.delta_every)
+        return gw
 
     # ------------------------------------------------------------------ api
 
@@ -231,6 +245,7 @@ class ServingGateway:
                 self.sched.enqueue(req)
         self.sched.step()
         self._maybe_refresh()
+        self._maybe_snapshot()
         return res.hit
 
     def step(self) -> int:
@@ -244,6 +259,8 @@ class ServingGateway:
         Per-path serving counts live in report(), derived from done."""
         out = self.sched.drain(max_ticks)
         self._maybe_refresh(drain=True)
+        if self.ckpt is not None:
+            self.snapshot(full=True)    # drained = cheap consistent point
         return out
 
     @property
@@ -279,8 +296,142 @@ class ServingGateway:
 
     # --------------------------------------------------------- persistence
 
-    def attach_persistence(self, directory: str, **kwargs) -> None:
-        raise NotImplementedError("persistence is not ported yet")
+    def attach_persistence(self, directory: str, keep: int = 3,
+                           async_write: bool = True,
+                           delta_every: int = 16) -> None:
+        """Wire crash-safe snapshotting (DESIGN.md §12).
+
+        Full snapshots are written whenever the frontend completes a
+        refresh cycle (piggybacked on the commit that just rewrote the
+        centroid region — the one moment the big matrices actually
+        changed) and at every drain(). Between commits, a cheap *delta*
+        snapshot (spill region, recency, controller, counters — no
+        centroid matrices) is written every ``delta_every`` submitted
+        batches. With ``async_write`` the writer runs on its own thread,
+        so submit() never blocks on disk.
+        """
+        fe = self.frontend
+        if not (hasattr(fe, "state_dict") and hasattr(fe, "load_state")):
+            raise ValueError("frontend has no state_dict/load_state — "
+                             "persistence needs a snapshot-capable "
+                             "frontend (e.g. SISO)")
+        self.ckpt = CheckpointManager(directory, keep=keep,
+                                      async_write=async_write)
+        self._delta_every = delta_every
+        steps = self.ckpt.all_steps()
+        self._snap_step = (steps[-1] + 1) if steps else 1
+        self._snap_epoch = self._epoch()
+        if not steps:
+            # fresh directory: lay down a base full immediately, or the
+            # first delta_every batches would write deltas with no full
+            # to compose against — a crash in that window would be
+            # unrecoverable despite snapshots on disk. (A populated
+            # directory means a restart: warm_start() restores first.)
+            self.snapshot(full=True)
+
+    def _epoch(self) -> int:
+        return int(getattr(self.frontend, "refresh_epoch", 0))
+
+    def snapshot(self, full: bool = True) -> int:
+        """Write one snapshot now; returns its step id. Composition:
+        ``meta`` (kind + refresh epoch) + frontend state + gateway
+        counters. Delta snapshots are valid only against the full
+        snapshot of the same refresh epoch (warm_start checks)."""
+        if self.ckpt is None:
+            raise RuntimeError("attach_persistence first")
+        fe = self.frontend
+        state = {
+            "meta": {"kind": np.asarray("full" if full else "delta"),
+                     "epoch": np.asarray(self._epoch())},
+            "frontend": (fe.state_dict() if full
+                         else fe.state_dict(delta=True)),
+            "gateway": self.state_dict(),
+        }
+        step = self._snap_step
+        self._snap_step += 1
+        self.ckpt.save(step, state)
+        if full:
+            # retention must never strand deltas without their base full.
+            # Keep the last TWO fulls protected: the async writer reaps in
+            # FIFO order, so by the time the older one becomes reapable
+            # (a third full enqueued), the middle one is already on disk —
+            # a crash can never leave only deltas behind.
+            self._full_steps.append(step)
+            self.ckpt.protect = set(self._full_steps)
+        self._since_snap = 0
+        self._snap_epoch = self._epoch()
+        return step
+
+    def _maybe_snapshot(self) -> None:
+        """Piggybacked cadence: a completed refresh commit triggers a full
+        snapshot (the centroid region just changed — deltas against the
+        old epoch stopped being valid); otherwise every ``delta_every``
+        batches ships a delta. The async writer makes both O(host-copy)
+        on the serving path."""
+        if self.ckpt is None:
+            return
+        epoch = self._epoch()
+        if epoch != self._snap_epoch:
+            self.snapshot(full=True)
+        else:
+            self._since_snap += 1
+            if self._delta_every and self._since_snap >= self._delta_every:
+                self.snapshot(full=False)
+
+    def warm_start(self) -> dict:
+        """Crash recovery (DESIGN.md §12): restore the newest full
+        snapshot (+ the newest later delta of the same refresh epoch),
+        rebuild the device mirror without advancing the serving
+        generation, retune the controller, and resume. Returns recovery
+        metadata: the restored step/kind and wall-clock spent."""
+        if self.ckpt is None:
+            raise RuntimeError("attach_persistence first")
+        t0 = time.perf_counter()
+        self.ckpt.wait()
+        steps = self.ckpt.all_steps()
+        full_step = delta_step = None
+        full_snap = delta_snap = None
+        for step in reversed(steps):
+            # classify from the tiny meta entry alone — loading whole
+            # intermediate snapshots here would bill recovery wall-clock
+            # for payloads that are about to be discarded
+            kind = str(np.asarray(
+                self.ckpt.restore_entry(step, "meta")["kind"]))
+            if kind == "delta" and delta_step is None and full_step is None:
+                delta_step = step
+            elif kind == "full":
+                full_step = step
+                break
+        if full_step is None:
+            raise FileNotFoundError(
+                f"no full snapshot under {self.ckpt.dir}")
+        full_snap = self.ckpt.restore(full_step)
+        if delta_step is not None:
+            delta_snap = self.ckpt.restore(delta_step)
+        fe = self.frontend
+        fe.load_state(full_snap["frontend"])
+        self.load_state(full_snap["gateway"])
+        restored = {"step": full_step, "kind": "full"}
+        if delta_snap is not None:
+            same_epoch = int(np.asarray(delta_snap["meta"]["epoch"])) \
+                == int(np.asarray(full_snap["meta"]["epoch"]))
+            if same_epoch:
+                fe.load_state(delta_snap["frontend"], delta=True)
+                self.load_state(delta_snap["gateway"])
+                restored = {"step": delta_step, "kind": "full+delta"}
+        if hasattr(fe, "warm_start"):
+            fe.warm_start()     # eager mirror rebuild + retune
+        self._snap_step = steps[-1] + 1
+        self._snap_epoch = self._epoch()
+        self._since_snap = 0
+        # re-protect the restored base: this process's fresh manager
+        # started with an empty protect set, and post-restart retention
+        # must never reap the full snapshot its deltas compose against
+        self._full_steps.append(full_step)
+        self.ckpt.protect = set(self._full_steps)
+        restored["recovery_s"] = time.perf_counter() - t0
+        return restored
+
 
     def state_dict(self) -> dict:
         """Gateway/scheduler serving counters (the request path's own

@@ -138,10 +138,11 @@ def test_port_backends_serve_identically():
     assert rep["quant_fallbacks"] == 0 and rep["quant_rescored"] > 0
 
 
-def test_gateway_edge_paths():
+def test_gateway_edge_paths(tmp_path):
     class Stub:
         n_slots, max_len = 1, 8
         pos = np.zeros(1, np.int32)
+        device = "cpu"
 
         def free_slots(self):
             return []
@@ -152,10 +153,15 @@ def test_gateway_edge_paths():
     with pytest.raises(ValueError, match="mixed batch"):
         gw.submit([GatewayRequest(0, np.ones(2), np.ones(8)),
                    GatewayRequest(1, np.ones(8))])
-    with pytest.raises(NotImplementedError):
-        gw.attach_persistence("unused")
+    # persistence is ported: attaching lays down a base full snapshot, and
+    # a ServingConfig with a directory attaches it in from_config
+    gw.attach_persistence(str(tmp_path / "attached"), async_write=False)
+    assert gw.ckpt.all_steps() == [1]
     cfg = ServingConfig(cache=CacheConfig(dim=8, answer_dim=8, capacity=8),
-                        persistence=PersistenceConfig(directory="snapshots"))
-    with pytest.raises(NotImplementedError, match="persistence"):
-        ServingGateway.from_config(cfg, engine=Stub(),
-                                   embed_fn=lambda vs: np.stack(vs))
+                        persistence=PersistenceConfig(
+                            directory=str(tmp_path / "snapshots"),
+                            async_write=False))
+    gw2 = ServingGateway.from_config(cfg, engine=Stub(),
+                                     embed_fn=lambda vs: np.stack(vs))
+    assert gw2.ckpt is not None and gw2.ckpt.all_steps() == [1]
+    assert gw2.warm_start()["kind"] == "full"

@@ -3,8 +3,10 @@ package (ports of tests/test_serving_config.py): the nested config lowers
 to and rises from the flat SISOConfig field for field as the reference's
 does; ``SISO.from_config`` is bit-identical to old-style construction and
 decides as the reference does; every frontend satisfies the
-CacheFrontend protocol; and every plane that is not ported yet raises
-``NotImplementedError`` naming it.
+CacheFrontend protocol; every plane that is not ported yet (sharding over
+more than one shard, replication) raises ``NotImplementedError`` naming
+it; and the ported planes (tiering, tenancy, persistence) build through
+``ServingGateway.from_config`` as the reference's do.
 """
 import dataclasses
 
@@ -202,16 +204,101 @@ def test_protocol_rejects_non_frontends():
 # -------------------------------------------------------- unported planes
 
 
-@pytest.mark.parametrize("plane", ["tiering", "tenancy", "sharding",
-                                   "replication", "persistence"])
+@pytest.mark.parametrize("plane", ["sharding", "replication"])
 def test_each_set_plane_raises_naming_it(plane):
-    value = {"tiering": TieredCacheConfig(host_capacity=64),
-             "tenancy": TenancyConfig(),
-             "sharding": ShardedCacheConfig(n_shards=2),
+    value = {"sharding": ShardedCacheConfig(n_shards=2),
              "replication": ReplicationConfig(
-                 transport=TransportConfig(kind="socket")),
-             "persistence": PersistenceConfig(directory="snapshots")}[plane]
+                 transport=TransportConfig(kind="socket"))}[plane]
     cfg = ServingConfig(cache=CacheConfig(dim=D, answer_dim=D, capacity=32),
                         **{plane: value})
     with pytest.raises(NotImplementedError, match=plane):
         SISO.from_config(cfg, **CPU)
+
+
+# --------------------------------------------------------- ported planes
+
+
+class _Stub:
+    """An engine the gateway wires but never runs."""
+    n_slots, max_len = 1, 8
+    pos = np.zeros(1, np.int32)
+    device = "cpu"
+
+    def free_slots(self):
+        return []
+
+
+def _plane_pair(plane, tmp_path):
+    """The same plane config in both packages (directories apart)."""
+    def dirs(pkg):
+        return str(tmp_path / pkg / "cold"), str(tmp_path / pkg / "snap")
+    if plane == "tiering":
+        kw = dict(host_capacity=16, disk_capacity=32, device_reserve=4,
+                  promote_budget=3, flush_rows=5)
+        return ({"tiering": TieredCacheConfig(disk_dir=dirs("t")[0], **kw)},
+                {"tiering": JTiered(disk_dir=dirs("j")[0], **kw)})
+    if plane == "tenancy":
+        kw = dict(overlay_capacity=4, registry_cap=99, max_tenants=3)
+        return ({"tenancy": TenancyConfig(**kw)},
+                {"tenancy": JTenancy(**kw)})
+    kw = dict(keep=2, async_write=False, delta_every=3)
+    return ({"persistence": PersistenceConfig(directory=dirs("t")[1], **kw)},
+            {"persistence": J.PersistenceConfig(directory=dirs("j")[1],
+                                                **kw)})
+
+
+@pytest.mark.parametrize("plane", ["tiering", "tenancy", "persistence"])
+def test_each_ported_plane_builds_like_the_reference(plane, tmp_path):
+    """ServingGateway.from_config builds each newly ported plane as the
+    reference's from_config does, field for field."""
+    from repro.serving.gateway import ServingGateway as JGateway
+    from repro_torch.serving.gateway import ServingGateway
+    t_plane, j_plane = _plane_pair(plane, tmp_path)
+    cache = dict(dim=D, answer_dim=D, capacity=32)
+    embed = lambda vs: np.stack(vs)     # noqa: E731
+    t = ServingGateway.from_config(
+        ServingConfig(cache=CacheConfig(**cache), slo_latency=2.0,
+                      **t_plane), engine=_Stub(), embed_fn=embed)
+    j = JGateway.from_config(
+        J.ServingConfig(cache=J.CacheConfig(**cache), slo_latency=2.0,
+                        **j_plane), engine=_Stub(), embed_fn=embed)
+    ts, js = t.frontend, j.frontend
+    ta, ja = _asdict(ts.cfg), _asdict(js.cfg)
+    if ta["tiered"] is not None:        # directories differ by design
+        ta["tiered"].pop("disk_dir"), ja["tiered"].pop("disk_dir")
+    assert ta == ja
+    assert type(ts.cache).__name__ == type(js.cache).__name__
+    assert ts.centroid_capacity == js.centroid_capacity
+    assert t.slo_latency == j.slo_latency
+    assert (ts.registry is None) == (js.registry is None)
+    if ts.registry is not None:
+        assert ts.registry.cap == js.registry.cap
+    assert (ts.tenant_of is None) == (js.tenant_of is None)
+    tdev, jdev = ts.cache, js.cache
+    if plane == "tiering":
+        tdev, jdev = ts.cache.device, js.cache.device
+        for tier in ("host", "disk"):
+            assert (getattr(ts.cache, tier) is None) \
+                == (getattr(js.cache, tier) is None), tier
+        assert ts.cache.host.hnsw_min == js.cache.host.hnsw_min
+        assert ts.cache.disk.flush_rows == js.cache.disk.flush_rows
+        assert ts.cache.tier_stats() == js.cache.tier_stats()
+    assert (tdev.evict_sink is None) == (jdev.evict_sink is None)
+    assert tdev.fair_share_eviction == jdev.fair_share_eviction
+    assert (t.ckpt is None) == (j.ckpt is None)
+    if plane == "persistence":
+        for attr in ("_delta_every", "_snap_step", "_snap_epoch",
+                     "_since_snap"):
+            assert getattr(t, attr) == getattr(j, attr), attr
+        assert list(t._full_steps) == list(j._full_steps)
+        assert t.ckpt.keep == j.ckpt.keep
+        assert t.ckpt.protect == j.ckpt.protect
+        assert t.ckpt.all_steps() == j.ckpt.all_steps() == [1]
+        # the base full each wrote holds the same tree
+        from repro.checkpoint.manager import _flatten
+        ft = _flatten(t.ckpt.restore(1))
+        fj = _flatten(j.ckpt.restore(1))
+        assert sorted(ft) == sorted(fj)
+        for k in fj:
+            np.testing.assert_array_equal(np.asarray(ft[k]),
+                                          np.asarray(fj[k]), err_msg=k)

@@ -268,7 +268,15 @@ def test_mid_refresh_lookups_one_buffer_generation_and_spill_survives():
 
 
 def test_unported_planes_raise():
-    for kw in ({"tiered": object()}, {"tenancy": object()},
-               {"shard": object()}):
-        with pytest.raises(NotImplementedError):
-            SISO(SISOConfig(**kw), **CPU)
+    """Only the sharded plane is still unported; the tiered hierarchy and
+    tenant namespaces build (their parity is tests/test_torch_tiered.py and
+    tests/test_torch_tenancy.py)."""
+    from repro_torch.core.tenancy import TenancyConfig
+    from repro_torch.core.tiered import TieredCache, TieredCacheConfig
+    from repro_torch.distributed.cache_plane import ShardedCacheConfig
+    for shard in (object(), ShardedCacheConfig(n_shards=2)):
+        with pytest.raises(NotImplementedError, match="shard"):
+            SISO(SISOConfig(shard=shard), **CPU)
+    s = SISO(SISOConfig(tiered=TieredCacheConfig(host_capacity=8),
+                        tenancy=TenancyConfig()), **CPU)
+    assert isinstance(s.cache, TieredCache) and s.registry is not None
