@@ -115,6 +115,38 @@ Phases (any failure exits non-zero and prints no result line):
               steady tenant's degradation, logged, not asserted. Every
               K1/K2/K3/K4 call (the child's too) is counted and re-checked
               at its own arguments with the other phases'.
+8. replicas — the replica plane, its transports and the HTTP front end,
+              after planes, on the served weights: (a) two Replicas in a
+              ReplicaGroup (sync_every=1), each a
+              ServingGateway.from_config over its own ModelEngine
+              (qwen3-14b, 40 layers, bf16) on backend pallas at dim 768,
+              the served embedder on every request, behind the port's
+              CacheHTTPServer driven by urllib: 16 requests (a fresh
+              query from user 0, its repeat from user 1 on the other
+              replica, then anonymous traffic); every response 200 with
+              X-Cache, X-Cache-Region and X-Replica, each fresh query a
+              MISS, each repeat a spill HIT on the peer, /healthz with both
+              replicas' replication stats, 503 + Retry-After after the
+              drain; the same stream with sync_every=0 misses on every
+              repeat; then on pallas_q8, where rows r0 re-answers are
+              patched on r1 by update_spill_row and must decide as a dense
+              replica fed the same record, sims bit-equal; (b)
+              bench_replica's kill and rejoin (smoke sizes, dim 768): a
+              child (``--replicas-child``) serves phase 1 with B
+              snapshotting and is SIGKILLed by spawn_and_kill; phase 1 is
+              replayed here and a fresh replica rejoins (warm_start, then
+              add(reconcile=True)): its lookups equal the donor's
+              element-wise; (c) the same over SocketTransport (B in a
+              child, its successor reconciles through fetch_state) and
+              R=3 under delays, drops and a healed partition: identical
+              lookup content after two settle rounds; (b)/(c)'s engines
+              are qwen3-14b at full width cut to 2 layers; (d) ``python -m
+              repro_torch.launch.serve --mode replica --transport socket
+              --replicas 2`` at its defaults: a MISS, then the peer's HIT
+              once the delta crossed, transport stats in /healthz, SIGTERM
+              ends all three processes with exit 0. Every kernel call (the
+              children's through the files they leave, the launcher's
+              replayed here) is re-checked at its own arguments.
 
 The line before the last is a JSON object with one entry per kernel (K3's
 int8 mode and K4's f32 mode, the embedder's call, their own entries, with
@@ -2467,6 +2499,952 @@ def phase_planes(torch, np, models, recorder, att_recorders,
             "tenancy": tenancy, "launches": n, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: replicas (the replica plane, its transports, the HTTP front end)
+# ---------------------------------------------------------------------------
+
+# (a) the HTTP stream: REPL_PAIRS fresh queries from user 0 (replica r0),
+# each repeated by user 1 (replica r1), then anonymous traffic
+REPL_PAIRS, REPL_ANON, REPL_MAX_NEW, REPL_PROMPT = 6, 4, 4, 8
+REPL_UPDATES = 3        # q8 run: identities r0 re-answers (update_spill_row)
+# the embedder's weights are random, so unrelated prompts already sit at
+# cosine ~0.96 ((a) logs the largest); a repeat is exact (1.0)
+REPL_HTTP_THETA = 0.999
+# (b)/(c): benchmarks/bench_replica.py's drills at their smoke sizes, dim
+# 768, noise scaled by sqrt(32/768); the engines are qwen3-14b at full
+# width cut to REPL_DRILL_LAYERS layers, seeded alike in parent and child
+REPL_DRILL_LAYERS = 2
+REPL_CLUSTERS, REPL_TRAIN, REPL_TEST = 16, 96, 64
+REPL_CAPACITY, REPL_THETA, REPL_SLOTS = 256, 0.86, 2
+REPL_DRILL_NEW, REPL_TICK_S, REPL_CHUNK = 6, 0.05, 8
+REPL_SNAPSHOTS = 3      # the child is killed once this many are on disk
+REPL_CHILD_S = 300.0    # a child's time limit
+REPL_SERVE_S = 180.0    # (d): the launcher's start-up deadline
+
+
+def repl_drill_models(torch, seed: int):
+    """(b)/(c)'s engine weights: qwen3-14b at full width, depth cut."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    mcfg = get_config("qwen3-14b").replace(n_layers=REPL_DRILL_LAYERS)
+    return mcfg, lm.init_params(gen(torch, seed + 2), mcfg, device=DEV)
+
+
+def repl_workload(np, n_replicas: int, seed: int):
+    """bench_replica's workload at dim 768: zipf-popular clusters, each
+    with a home replica, 35% of traffic spilled to a random peer. Returns
+    (train, centers, stream of (arrival, replica, cluster, q, answer))."""
+    rng = np.random.default_rng(seed)
+    d = SIM_DIM
+
+    def norm(x):
+        return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(
+            np.float32)
+
+    train = norm(rng.standard_normal((REPL_TRAIN, d)))
+    centers = norm(rng.standard_normal((REPL_CLUSTERS, d)))
+    p = 1.0 / np.arange(1, REPL_CLUSTERS + 1) ** 1.1
+    cids = rng.choice(REPL_CLUSTERS, size=REPL_TEST, p=p / p.sum())
+    arrivals = np.cumsum(rng.exponential(0.015, size=REPL_TEST))
+    spill = rng.random(REPL_TEST) < 0.35
+    alt = rng.integers(0, n_replicas, size=REPL_TEST)
+    stream = []
+    for i in range(REPL_TEST):
+        c = int(cids[i])
+        r = int(alt[i]) if spill[i] else c % n_replicas
+        q = norm(centers[c] + 0.02 * DRILL_SCALE * rng.standard_normal(d))
+        stream.append((float(arrivals[i]), r, c, q, centers[c]))
+    return train, centers, stream
+
+
+def repl_repeat_chances(stream) -> int:
+    """Phase-1 requests whose cluster was first asked at least one miss's
+    engine time earlier (prefill + REPL_DRILL_NEW ticks): the repeats
+    that could hit a recorded answer."""
+    first, n = {}, 0
+    for t, _, c, _, _ in stream[:len(stream) // 2]:
+        if c in first and t - first[c] > (REPL_DRILL_NEW + 1) * REPL_TICK_S:
+            n += 1
+        first.setdefault(c, t)
+    return n
+
+
+def repl_probe(np, centers, stream):
+    """The drills' probe: the clusters phase 1 saw, re-noised."""
+    rng = np.random.default_rng(99)
+    seen = sorted({c for _, _, c, _, _ in stream[:len(stream) // 2]})
+    q = centers[seen] + 0.02 * DRILL_SCALE * rng.standard_normal(
+        (len(seen), SIM_DIM))
+    return (q / np.linalg.norm(q, axis=-1, keepdims=True)).astype(
+        np.float32)
+
+
+def repl_gateway(np, engine, clock, train, persist_dir=None):
+    """bench_replica's replica image on backend pallas (K1): fixed theta,
+    refresh suppressed (one commit epoch for the run)."""
+    from repro_torch.serving.config import (CacheConfig, PersistenceConfig,
+                                            RefreshConfig, ServingConfig)
+    from repro_torch.serving.gateway import ServingGateway
+    cfg = ServingConfig(
+        cache=CacheConfig(dim=SIM_DIM, answer_dim=SIM_DIM,
+                          capacity=REPL_CAPACITY, theta_r=REPL_THETA,
+                          backend="pallas", dynamic_threshold=False),
+        refresh=RefreshConfig(frac=1000.0, min=10_000_000,
+                              async_pipeline=False),
+        persistence=(PersistenceConfig(directory=persist_dir,
+                                       delta_every=1)
+                     if persist_dir else None),
+        slo_latency=1.3 * REPL_DRILL_NEW * REPL_TICK_S)
+    gw = ServingGateway.from_config(cfg, engine=engine,
+                                    embed_fn=lambda vs: np.stack(vs),
+                                    clock=clock)
+    gw.frontend.bootstrap(train, train, answer_ids=np.arange(len(train)))
+    return gw
+
+
+def repl_engines(mcfg, mparams, n: int):
+    from repro_torch.serving.engine import ModelEngine
+    return [ModelEngine(mparams, mcfg, n_slots=REPL_SLOTS, max_len=48,
+                        device=DEV) for _ in range(n)]
+
+
+def repl_drive(np, targets, clock, stream, lo: int = 0, hi=None,
+               rid_base: int = 10_000, after_submit=None):
+    """bench_replica's drive loop: submit stream[lo:hi] to its routed
+    target as arrivals come due (chunks of REPL_CHUNK), one engine tick
+    per REPL_TICK_S of virtual time. Returns the flat hit mask."""
+    from repro_torch.serving.gateway import GatewayRequest
+    hi = len(stream) if hi is None else hi
+    gws = [getattr(t, "gw", t) for t in targets]
+    hits, i = [], lo
+    for _ in range(500_000):
+        idle = all(not g.sched.queue and not g.sched.active for g in gws)
+        if i >= hi and idle:
+            return np.concatenate(hits) if hits else np.zeros(0, bool)
+        due = [[] for _ in targets]
+        while i < hi and stream[i][0] <= clock.t:
+            _, r, c, q, ans = stream[i]
+            due[r % len(targets)].append(GatewayRequest(
+                rid=rid_base + i,
+                model_tokens=np.asarray([c % 97, 1, 2], np.int32),
+                embed_tokens=q, max_new=REPL_DRILL_NEW, answer_vec=ans))
+            i += 1
+        if any(due):
+            for r, reqs in enumerate(due):
+                for j in range(0, len(reqs), REPL_CHUNK):
+                    hits.append(np.asarray(targets[r].submit(
+                        reqs[j: j + REPL_CHUNK], now=clock.t)).copy())
+                    if after_submit is not None:
+                        after_submit()
+            clock.t += REPL_TICK_S
+        else:
+            for g in gws:
+                g.step()
+            clock.t += REPL_TICK_S
+            if idle and i < hi and stream[i][0] > clock.t:
+                clock.t = float(stream[i][0])
+    raise PhaseError("[replicas] drive loop exceeded its ticks")
+
+
+def repl_view(res) -> dict:
+    """What a rejoined replica must reproduce element-wise."""
+    return {f: getattr(res, f).copy()
+            for f in ("hit", "sim", "region", "answer_id")}
+
+
+def steps_on_disk(d: str) -> list:
+    import os
+    try:
+        return sorted(int(n.split("_")[1]) for n in os.listdir(d)
+                      if n.startswith("step_") and "tmp" not in n)
+    except (FileNotFoundError, ValueError):
+        return []
+
+
+def write_json(path: Path, obj) -> None:
+    """Atomic: a reader never sees half a file."""
+    tmp = path.with_suffix(".tmp")
+    tmp.write_text(json.dumps(obj))
+    tmp.replace(path)
+
+
+def tuplify(x):
+    """A call signature read back from JSON (lists) as the tuples the
+    recorders note."""
+    return tuple(tuplify(v) for v in x) if isinstance(x, list) else x
+
+
+def replicas_child(torch, np, spec_path: str) -> None:
+    """A killed replica process of (b) or (c). It serves its share of
+    phase 1 with replica B snapshotting; once REPL_SNAPSHOTS snapshots are
+    on disk it writes its kernel launches and calls to ``calls.json``
+    and ``ready``, then waits for its SIGKILL (exiting by itself after
+    REPL_CHILD_S)."""
+    import os
+    from repro_torch.core import semantic_cache as SC
+    from repro_torch.distributed.replication import (Replica, ReplicaGroup,
+                                                     ReplicationConfig)
+    from repro_torch.distributed.transport import (SocketTransport,
+                                                   TransportConfig)
+    from repro_torch.kernels.cosine_topk import ops
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import layers as L
+    spec = json.loads(Path(spec_path).read_text())
+    out = Path(spec["out"])
+    recorder = CallRecorder(ops)
+    att = (AttnRecorder(fa_ops), AttnRecorder(da_ops))
+    SC.ctk_ops = recorder
+    zero_topk_launches()
+    zero_attention_launches()
+    mcfg, mparams = repl_drill_models(torch, spec["seed"])
+    train, _, stream = repl_workload(np, 2, seed=1)
+    clock = VirtualClock()
+
+    def maybe_ready():
+        if len(steps_on_disk(spec["dir"])) < REPL_SNAPSHOTS:
+            return
+        torch.cuda.synchronize()
+        write_json(out / "calls.json", {
+            "launches": {**topk_launches(), **attention_launches()},
+            "calls": sorted(recorder.calls),
+            "att_calls": sorted(att[0].distinct() | att[1].distinct(),
+                                key=repr)})
+        (out / "ready").write_text("1")
+        time.sleep(REPL_CHILD_S)
+        os._exit(3)                 # never killed: the parent has gone
+
+    with recorded_ops(L, att):
+        if spec["kind"] == "inproc":
+            engines = repl_engines(mcfg, mparams, 2)
+            group = ReplicaGroup(ReplicationConfig(sync_every=1,
+                                                   apply_budget=64))
+            ra = group.add("a", repl_gateway(np, engines[0], clock, train))
+            rb = group.add("b", repl_gateway(np, engines[1], clock, train,
+                                             spec["dir"]))
+            rb.gw.snapshot(full=True)
+            repl_drive(np, [ra, rb], clock, stream, hi=len(stream) // 2,
+                       after_submit=maybe_ready)
+            group.drain_all()
+        else:
+            engine = repl_engines(mcfg, mparams, 1)[0]
+            gw = repl_gateway(np, engine, clock, train, spec["dir"])
+            # no state provider: nothing in the drill reconciles from B,
+            # so no transport thread of this process touches the card
+            t = SocketTransport("b", TransportConfig(kind="socket"))
+            rep = Replica("b", gw, t)
+            t.connect("a", ("127.0.0.1", spec["port_a"]))
+            write_json(out / "port_b.json", {"port": t.address[1]})
+            gw.snapshot(full=True)
+            mine = [s for s in stream[:len(stream) // 2] if s[1] == 1]
+            repl_drive(np, [rep], clock, mine, rid_base=50_000,
+                       after_submit=maybe_ready)
+            rep.drain()
+        maybe_ready()
+    # phase 1 ended before the snapshots did: say so to the parent
+    write_json(out / "calls.json", {"error": "phase 1 ended with "
+                                    f"{steps_on_disk(spec['dir'])} on disk"})
+    (out / "ready").write_text("1")
+    time.sleep(REPL_CHILD_S)
+    os._exit(3)
+
+
+def repl_child_argv(seed: int, spec_path: Path) -> list:
+    return [sys.executable, str(ROOT / "chip_smoke.py"), "--seed",
+            str(seed), "--replicas-child", str(spec_path)]
+
+
+def repl_child_calls(out: Path) -> dict:
+    got = json.loads((out / "calls.json").read_text())
+    check("error" not in got, f"[replicas] child: {got.get('error')}")
+    return {"launches": got["launches"],
+            "calls": [tuplify(c) for c in got["calls"]],
+            "att_calls": [tuplify(c) for c in got["att_calls"]]}
+
+
+def replicas_http(torch, np, models, backend: str, sync_every: int,
+                  seed: int) -> dict:
+    """(a): two Replicas (each a from_config gateway over its own
+    ModelEngine on the served weights, the served embedder on every
+    request) behind the port's CacheHTTPServer, driven by urllib. On
+    pallas_q8, r0 then re-answers REPL_UPDATES identities r1 holds, and
+    r1's patched rows (update_spill_row re-quantizes them) must decide as
+    a dense replica cloned from r1 and fed the same record, with bit-equal
+    sims."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from repro_torch.distributed.replication import (ReplicaGroup,
+                                                     ReplicationConfig)
+    from repro_torch.launch.serve import CacheHTTPServer, hash_embed_fn
+    from repro_torch.models import embedder as E
+    from repro_torch.serving.config import (CacheConfig, RefreshConfig,
+                                            ServingConfig)
+    from repro_torch.serving.engine import ModelEngine
+    from repro_torch.serving.gateway import ServingGateway
+    ecfg, eparams, mcfg, mparams = models
+    dim = ecfg.d_model
+    answer = hash_embed_fn(dim)
+
+    def embed(token_lists):
+        # the served embedder over the request tokens; grad mode is per
+        # thread, and this runs on the server's handler threads
+        ids = np.zeros((len(token_lists), 24), np.int32)
+        for i, t in enumerate(token_lists):
+            ids[i, :len(t)] = t
+        with torch.inference_mode():
+            return E.encode(eparams, ecfg, torch.tensor(ids, device=DEV),
+                            torch.tensor(ids > 0, device=DEV)).cpu().numpy()
+
+    def gateway(backend_, engine):
+        cfg = ServingConfig(
+            cache=CacheConfig(dim=dim, answer_dim=dim, capacity=256,
+                              backend=backend_, theta_r=REPL_HTTP_THETA,
+                              dynamic_threshold=False),
+            refresh=RefreshConfig(min=10_000))
+        return ServingGateway.from_config(
+            cfg, engine=engine, embed_fn=embed,
+            answer_fn=lambda t: answer([t])[0])
+
+    engines = [ModelEngine(mparams, mcfg, n_slots=2, max_len=48,
+                           device=DEV) for _ in range(2)]
+    group = ReplicaGroup(ReplicationConfig(sync_every=sync_every,
+                                           apply_budget=64))
+    reps = [group.add(f"r{i}", gateway(backend, engines[i]))
+            for i in range(2)]
+    server = CacheHTTPServer(("127.0.0.1", 0), reps, ["r0", "r1"])
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+
+    def query(tokens, user=None):
+        body = {"tokens": [int(t) for t in tokens], "max_new": REPL_MAX_NEW}
+        if user is not None:
+            body["user"] = user
+        req = urllib.request.Request(
+            f"{url}/v1/query", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=120.0) as r:
+                return r.status, dict(r.headers), json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, dict(e.headers), json.loads(e.read())
+
+    rng = np.random.default_rng(seed + 80)
+    vocab = min(ecfg.vocab_size, mcfg.vocab_size)
+    prompts = rng.integers(1, vocab, size=(REPL_PAIRS + REPL_ANON // 2,
+                                           REPL_PROMPT))
+    stream = []
+    for i in range(REPL_PAIRS):
+        stream += [(prompts[i], 0), (prompts[i], 1)]
+    for j in range(REPL_ANON // 2):
+        stream += [(prompts[REPL_PAIRS + j], None), (prompts[j], None)]
+    thread.start()
+    t0 = time.perf_counter()
+    try:
+        resp = [query(t, u) for t, u in stream]
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60.0) as r:
+            health = json.loads(r.read())
+        server.begin_drain()
+        refused = query(prompts[0], 0)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    check(server.failed is None, f"[replicas] (a) the front end failed: "
+                                 f"{server.failed!r}")
+    for st, hdr, body in resp:
+        check(st == 200 and all(k in hdr for k in
+                                ("X-Cache", "X-Cache-Region", "X-Replica")),
+              f"[replicas] (a) a response lacks its status or headers: "
+              f"{st} {hdr} {body}")
+    pairs = [(resp[2 * i], resp[2 * i + 1]) for i in range(REPL_PAIRS)]
+    for first, again in pairs:
+        check(first[1]["X-Cache"] == "MISS"
+              and first[1]["X-Replica"] == "r0",
+              f"[replicas] (a) a fresh query was not a MISS on r0: "
+              f"{first[1]}")
+        if sync_every:
+            check(again[1]["X-Cache"] == "HIT"
+                  and again[1]["X-Cache-Region"] == "spill"
+                  and again[1]["X-Replica"] == "r1",
+                  f"[replicas] (a) {backend}: the peer's repeat was not a "
+                  f"spill HIT on r1: {again[1]}")
+        else:
+            check(again[1]["X-Cache"] == "MISS",
+                  f"[replicas] (a) an isolated replica hit a repeat it "
+                  f"never served: {again[1]}")
+    rep_h = {n: health["replicas"].get(n, {}).get("replication")
+             for n in ("r0", "r1")}
+    check(all(r is not None and "transport" in r and "merged_rows" in r
+              for r in rep_h.values()),
+          f"[replicas] (a) /healthz lacks a replica's stats: {health}")
+    check(refused[0] == 503 and refused[1].get("Retry-After") == "1",
+          f"[replicas] (a) a query after the drain got {refused[0]} "
+          f"{refused[1]}")
+    merged = reps[1].merged_rows
+    if sync_every:
+        check(merged >= 1, "[replicas] (a) r1 merged no row")
+    hits = [bool(body["hit"]) for _, _, body in resp]
+    e = embed(list(prompts))
+    cos = e @ e.T
+    unrelated = float(cos[~np.eye(len(e), dtype=bool)].max())
+    check(unrelated < REPL_HTTP_THETA, f"[replicas] (a) two distinct "
+                                       f"prompts embed at cosine {unrelated}")
+    out = {"backend": backend, "sync_every": sync_every, "wall_s": wall,
+           "max_unrelated_cos": unrelated,
+           "hits": int(sum(hits)), "requests": len(resp),
+           "pair_hits": sum(a[2]["hit"] for _, a in pairs),
+           "merged_rows": merged, "health": rep_h}
+    if backend == "pallas_q8":
+        out["q8"] = repl_q8_updates(np, reps, gateway, engines[1], answer,
+                                    embed, prompts)
+    return out
+
+
+def repl_q8_updates(np, reps, gateway, engine, answer, embed,
+                    prompts) -> dict:
+    """r0 re-answers REPL_UPDATES identities r1 merged: r1 applies the
+    record through update_spill_row (its q8 mirror re-quantizes each
+    row); a dense replica cloned from r1 applies the same record. Their
+    lookups must decide alike with bit-equal sims."""
+    from repro_torch.distributed.replication import Replica, ReplicaGroup
+    r0, r1 = reps
+    c0, c1 = r0.gw.frontend.cache, r1.gw.frontend.cache
+    dense = Replica("d", gateway("dense", engine),
+                    ReplicaGroup().log)        # a log of its own
+    dense._adopt_reconcile(*r1._reconcile_payload(copy=True))
+    aids = [int(a) for a in c1.spill.answer_id if a >= 0][:REPL_UPDATES]
+    check(len(aids) == REPL_UPDATES, f"[replicas] (a) r1 holds only "
+                                     f"{len(aids)} merged identities")
+    rng = np.random.default_rng(3)
+    new_vecs = []
+    for aid in aids:
+        row = int(np.nonzero(c0.spill.answer_id == aid)[0][-1])
+        v = c0.spill.vectors[row] + 0.5 / np.sqrt(c0.spill.vectors.shape[1]) \
+            * rng.standard_normal(c0.spill.vectors.shape[1])
+        v = (v / np.linalg.norm(v)).astype(np.float32)
+        new_vecs.append(v)
+        r0.gw.frontend.record_llm_answer(
+            v, answer([np.asarray([aid, 1])])[0], answer_id=aid)
+    rows = {a: int(np.nonzero(c1.spill.answer_id == a)[0][0]) for a in aids}
+    writes = c1.dev_row_writes
+    rec = r0.publish(r0.gw.clock())
+    merged0 = r1.merged_rows
+    check(r1.apply(rec) and dense.apply(rec),
+          "[replicas] (a) the update record was refused")
+    check(r1.merged_rows - merged0 == REPL_UPDATES
+          and c1.dev_row_writes - writes == REPL_UPDATES
+          and all(int(c1.spill.answer_id[r]) == a for a, r in rows.items()),
+          "[replicas] (a) the updates did not patch r1's rows in place")
+    q = np.concatenate([np.stack(new_vecs), embed(list(prompts))])
+    fb = c1.quant_fallbacks
+    got = c1.lookup(q.copy(), REPL_HTTP_THETA)
+    want = dense.gw.frontend.cache.lookup(q.copy(), REPL_HTTP_THETA)
+    for f in ("hit", "sim", "answer_id", "entry", "region"):
+        check(np.array_equal(getattr(got, f), getattr(want, f)),
+              f"[replicas] (a) pallas_q8 after update_spill_row differs "
+              f"from dense in {f}")
+    check(bool(got.hit[:REPL_UPDATES].all())
+          and [int(a) for a in got.answer_id[:REPL_UPDATES]] == aids,
+          "[replicas] (a) a patched row does not serve its new vector")
+    return {"patched_rows": REPL_UPDATES, "probe": len(q),
+            "probe_hits": int(got.hit.sum()),
+            "dense_fallbacks": c1.quant_fallbacks - fb}
+
+
+def replicas_kill_inproc(torch, np, drill, seed: int, workdir: Path) -> dict:
+    """(b): bench_replica's run_drill. A child serves phase 1 on a
+    2-replica group with B snapshotting and is SIGKILLed (spawn_and_kill);
+    this process replays phase 1 on a never-killed group, then rejoins a
+    fresh replica from B's disk: warm_start, then add(reconcile=True).
+    The rejoined replica's lookups must equal the donor's element-wise."""
+    from repro_torch.distributed.fault_tolerance import spawn_and_kill
+    from repro_torch.distributed.replication import (ReplicaGroup,
+                                                     ReplicationConfig)
+    out = workdir / "inproc_child"
+    out.mkdir()
+    ckpt = workdir / "inproc_b"
+    spec = workdir / "inproc_spec.json"
+    spec.write_text(json.dumps({"kind": "inproc", "dir": str(ckpt),
+                                "out": str(out), "seed": seed}))
+    killed, ran_s = spawn_and_kill(repl_child_argv(seed, spec),
+                                   ready=lambda: (out / "ready").exists(),
+                                   timeout_s=REPL_CHILD_S)
+    check(killed, "[replicas] (b) the child exited before its SIGKILL")
+    child = repl_child_calls(out)
+    steps = steps_on_disk(str(ckpt))
+    t0 = time.perf_counter()
+    mcfg, mparams = drill
+    train, centers, stream = repl_workload(np, 2, seed=1)
+    engines = repl_engines(mcfg, mparams, 2)
+    clock = VirtualClock()
+    group = ReplicaGroup(ReplicationConfig(sync_every=1, apply_budget=64))
+    ra = group.add("a", repl_gateway(np, engines[0], clock, train))
+    rb = group.add("b", repl_gateway(np, engines[1], clock, train))
+    hits = repl_drive(np, [ra, rb], clock, stream, hi=len(stream) // 2)
+    group.drain_all()
+    group.sync_all(clock.t)
+    gw2 = repl_gateway(np, engines[1], clock, train, str(ckpt))
+    meta = gw2.warm_start()
+    r2 = group.add("b2", gw2, reconcile=True)
+    donor = group.donor_for(r2)
+    probe = repl_probe(np, centers, stream)
+    want = repl_view(donor.gw.frontend.handle_batch(probe.copy(),
+                                                    now=clock.t))
+    got = repl_view(r2.gw.frontend.handle_batch(probe.copy(), now=clock.t))
+    torch.cuda.synchronize()
+    check(same(np, want, got), "[replicas] (b) the rejoined replica's "
+                               "lookups differ from the donor's")
+    check(want["hit"].any(), "[replicas] (b) the probe hit nothing")
+    res = {"child_s": ran_s, "snapshots": len(steps),
+           "restored": meta["kind"], "recovery_s": meta["recovery_s"],
+           "donor": donor.name, "probe": len(probe),
+           "probe_hits": int(want["hit"].sum()),
+           "phase1_hit_ratio": float(hits.mean()),
+           "phase1_repeat_chances": repl_repeat_chances(stream),
+           "replay_s": time.perf_counter() - t0, "child": child}
+    log(f"[replicas] (b) kill and rejoin: child SIGKILLed after "
+        f"{ran_s:.1f} s with {len(steps)} snapshot(s) on disk; phase 1 "
+        f"replayed (hit ratio {res['phase1_hit_ratio']:.4f}; "
+        f"{res['phase1_repeat_chances']} requests repeat a cluster asked "
+        f"one miss's engine time before), restored "
+        f"{meta['kind']} in {1e3 * meta['recovery_s']:.1f} ms, cloned "
+        f"{donor.name}; probe {res['probe_hits']}/{len(probe)} hits, "
+        f"element-wise equal to the donor")
+    return res
+
+
+def replicas_kill_socket(torch, np, drill, seed: int, workdir: Path) -> dict:
+    """(c), first part: bench_replica's run_drill_socket. Replica B runs
+    in a child over SocketTransport on loopback and is SIGKILLed
+    mid-stream; its successor warm-starts from B's disk and reconciles
+    through fetch_state; its probes must equal A's."""
+    import signal
+    from repro_torch.distributed.replication import Replica
+    from repro_torch.distributed.transport import (SocketTransport,
+                                                   TransportConfig)
+    out = workdir / "socket_child"
+    out.mkdir()
+    ckpt = workdir / "socket_b"
+    mcfg, mparams = drill
+    train, centers, stream = repl_workload(np, 2, seed=1)
+    engines = repl_engines(mcfg, mparams, 2)
+    clock = VirtualClock()
+    ta = SocketTransport("a", TransportConfig(kind="socket"))
+    tb2 = None
+    ra = Replica("a", repl_gateway(np, engines[0], clock, train), ta)
+    ta.state_provider = lambda: ra._reconcile_payload(copy=False)
+    spec = workdir / "socket_spec.json"
+    spec.write_text(json.dumps({"kind": "socket", "dir": str(ckpt),
+                                "out": str(out), "seed": seed,
+                                "port_a": ta.address[1]}))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(repl_child_argv(seed, spec))
+    try:
+        while not (out / "port_b.json").exists():
+            check(proc.poll() is None and time.perf_counter() - t0
+                  < REPL_CHILD_S, "[replicas] (c) the socket child never "
+                                  "listened")
+            time.sleep(0.05)
+        port_b = json.loads((out / "port_b.json").read_text())["port"]
+        ta.connect("b", ("127.0.0.1", port_b))
+        mine = [s for s in stream[:len(stream) // 2] if s[1] == 0]
+        killed, i = False, 0
+        while time.perf_counter() - t0 < REPL_CHILD_S:
+            if not killed and (out / "ready").exists():
+                proc.send_signal(signal.SIGKILL)
+                proc.wait()
+                killed = proc.returncode == -signal.SIGKILL
+            if i < len(mine):
+                nxt = min(i + REPL_CHUNK, len(mine))
+                repl_drive(np, [ra], clock, mine, lo=i, hi=nxt)
+                i = nxt
+            elif killed or proc.poll() is not None:
+                break
+            else:
+                time.sleep(0.05)
+        child_s = time.perf_counter() - t0
+        check(killed, "[replicas] (c) the socket child was not SIGKILLed "
+                      "while alive")
+        child = repl_child_calls(out)
+        ra.drain()
+        steps = steps_on_disk(str(ckpt))
+        gw2 = repl_gateway(np, engines[1], clock, train, str(ckpt))
+        meta = gw2.warm_start()
+        tb2 = SocketTransport("b2", TransportConfig(kind="socket"))
+        r2 = Replica("b2", gw2, tb2)
+        tb2.state_provider = lambda: r2._reconcile_payload(copy=False)
+        tb2.connect("a", ta.address)
+        ta.connect("b2", tb2.address)
+        r2._reconcile_due = True        # the disk state is stale
+        r2.apply_pending(None)          # -> fetch_state over the wire
+        check(r2.reconciles == 1, "[replicas] (c) the successor did not "
+                                  "reconcile over the transport")
+        probe = repl_probe(np, centers, stream)
+        want = repl_view(ra.gw.frontend.handle_batch(probe.copy(),
+                                                     now=clock.t))
+        got = repl_view(r2.gw.frontend.handle_batch(probe.copy(),
+                                                    now=clock.t))
+        torch.cuda.synchronize()
+        check(same(np, want, got), "[replicas] (c) the successor's probes "
+                                   "differ from A's")
+        stats = ta.stats()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        ta.close()
+        if tb2 is not None:
+            tb2.close()
+    res = {"child_s": child_s, "snapshots": len(steps),
+           "restored": meta["kind"], "probe": len(probe),
+           "probe_hits": int(want["hit"].sum()),
+           "transport": stats, "child": child}
+    log(f"[replicas] (c) socket kill and rejoin: B SIGKILLed after "
+        f"{child_s:.1f} s with {len(steps)} snapshot(s); successor "
+        f"restored {meta['kind']} and fetched A's state over TCP; probe "
+        f"{res['probe_hits']}/{len(probe)} hits, equal to A's; A's "
+        f"transport sent {sum(p['sent'] for p in stats['peers'].values())} "
+        f"frames")
+    return res
+
+
+def replicas_socket_faults(torch, np, drill) -> dict:
+    """(c), second part: bench_replica's run_socket_faults. R=3 over
+    sockets with per-record delays, every third record per link dropped
+    and an r0<->r1 partition that heals; after the stream the faults are
+    lifted, the group drains and settles in two publish rounds, and every
+    replica must then give identical lookup content."""
+    from repro_torch.distributed.fault_tolerance import NetworkFaultHooks
+    from repro_torch.distributed.replication import (ReplicaGroup,
+                                                     ReplicationConfig)
+    from repro_torch.distributed.transport import TransportConfig
+    mcfg, mparams = drill
+    train, centers, stream = repl_workload(np, 3, seed=2)
+    engines = repl_engines(mcfg, mparams, 3)
+    clock = VirtualClock()
+    hooks = NetworkFaultHooks(delay_s=0.001, drop_every=3)
+    group = ReplicaGroup(
+        ReplicationConfig(n_replicas=3, sync_every=1, apply_budget=64,
+                          transport=TransportConfig(kind="socket")),
+        fault_hooks=hooks)
+    try:
+        reps = [group.add(f"r{k}", repl_gateway(np, engines[k], clock,
+                                                train)) for k in range(3)]
+        t0 = time.perf_counter()
+        third = len(stream) // 3
+        repl_drive(np, reps, clock, stream, hi=third)
+        hooks.partition("r0", "r1")
+        repl_drive(np, reps, clock, stream, lo=third, hi=2 * third)
+        hooks.heal()
+        repl_drive(np, reps, clock, stream, lo=2 * third)
+        stream_s = time.perf_counter() - t0
+        dropped, delayed = hooks.dropped, hooks.delayed
+        hooks.drop_every, hooks.delay_s = 0, 0.0
+        group.drain_all()
+        rounds = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            for r in reps:
+                r.publish(clock.t)
+            rounds.append({"settled": group.barrier(60.0),
+                           "s": time.perf_counter() - t1})
+        probe = centers + 0.02 * DRILL_SCALE * np.random.default_rng(
+            11).standard_normal(centers.shape)
+        probe = (probe / np.linalg.norm(probe, axis=-1, keepdims=True)
+                 ).astype(np.float32)
+        res = [r.gw.frontend.handle_batch(probe.copy(), now=clock.t)
+               for r in reps]
+        torch.cuda.synchronize()
+        gaps = sum(r.gap_reconciles for r in reps)
+        out = {"dropped": dropped, "delayed": delayed, "gap_reconciles": gaps,
+               "reconciles": sum(r.reconciles for r in reps),
+               "rounds": rounds, "stream_s": stream_s,
+               "hit_ratio": float(np.mean([x.hit.mean() for x in res]))}
+    finally:
+        group.close()
+    check(all(r["settled"] for r in rounds),
+          f"[replicas] (c) the group did not settle: {rounds}")
+    for k, x in enumerate(res[1:], 1):
+        check(all(np.array_equal(getattr(res[0], f), getattr(x, f))
+                  for f in ("hit", "answer_id", "region")),
+              f"[replicas] (c) r{k}'s lookup content differs from r0's "
+              f"after two settle rounds")
+    check(dropped > 0 and delayed > 0 and gaps > 0,
+          f"[replicas] (c) the faults were not exercised: {out}")
+    log(f"[replicas] (c) R=3 under faults: {dropped} records dropped, "
+        f"{delayed} delayed, {gaps} gap reconciles "
+        f"({out['reconciles']} reconciles); stream {stream_s:.1f} s; "
+        f"settle rounds {[round(r['s'], 3) for r in rounds]} s; every "
+        f"replica's lookup content equal (hit ratio "
+        f"{out['hit_ratio']:.4f})")
+    return out
+
+
+def free_base_port() -> int:
+    """A base port whose router (base), worker (base+1, base+2) and
+    transport (base+1000, base+1001) ports are free, drawn below the
+    kernel's ephemeral range: the phase's own connections and OS-assigned
+    listeners take ports meanwhile, and none lands there."""
+    import random
+    import socket
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = random.Random()
+    for _ in range(200):
+        base = rng.randrange(10_000, max(10_001, low - 1002))
+        try:
+            for p in (base, base + 1, base + 2, base + 1000, base + 1001):
+                with socket.socket() as s:
+                    s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+    raise PhaseError("[replicas] (d) no free port range")
+
+
+class ServeLauncher:
+    """(d): ``python -m repro_torch.launch.serve --mode replica --transport
+    socket --replicas 2`` at the reference's defaults (reduced qwen3, dim
+    32, hash embedder, dense cache) on this card, in its own process group so
+    that nothing it starts outlives the phase."""
+
+    def __init__(self, workdir: Path):
+        import os
+        self.base = free_base_port()
+        self.url = f"http://127.0.0.1:{self.base}"
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(ROOT / "src") + (
+            os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+        self.log_path = workdir / "serve.log"
+        self.log = open(self.log_path, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--mode",
+             "replica", "--transport", "socket", "--replicas", "2",
+             "--port", str(self.base)], env=env, stdout=self.log,
+            stderr=subprocess.STDOUT, start_new_session=True)
+
+    def tail(self) -> str:
+        return self.log_path.read_text()[-3000:]
+
+    def get(self, path: str):
+        import urllib.request
+        with urllib.request.urlopen(self.url + path, timeout=30.0) as r:
+            return json.loads(r.read())
+
+    def post(self, body: dict):
+        import urllib.error
+        import urllib.request
+        req = urllib.request.Request(
+            self.url + "/v1/query", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=120.0) as r:
+                return r.status, dict(r.headers), json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, dict(e.headers), json.loads(e.read())
+
+    def run(self) -> dict:
+        import signal
+        import urllib.error
+        while True:
+            check(self.proc.poll() is None, f"[replicas] (d) the launcher "
+                                            f"exited: {self.tail()}")
+            try:
+                if self.get("/healthz")["status"] == "serving":
+                    break
+            except (urllib.error.URLError, OSError, ValueError):
+                pass
+            check(time.perf_counter() - self.t0 < REPL_SERVE_S,
+                  f"[replicas] (d) the workers never came up: {self.tail()}")
+            time.sleep(0.25)
+        up_s = time.perf_counter() - self.t0
+        toks = [11, 12, 13, 14, 15]
+        miss = self.post({"tokens": toks, "user": 0, "max_new": 4})
+        check(miss[0] == 200 and miss[1].get("X-Cache") == "MISS"
+              and miss[1].get("X-Routed-To") == "r0",
+              f"[replicas] (d) the first query was not a MISS on r0: "
+              f"{miss}")
+        t1 = time.perf_counter()
+        while True:
+            r1 = self.get("/healthz")["replicas"]["r1"]
+            if r1.get("replication", {}).get("merged_rows", 0) >= 1:
+                break
+            check(time.perf_counter() - t1 < 30.0,
+                  f"[replicas] (d) r0's delta never reached r1: {r1}")
+            time.sleep(0.05)
+        cross_s = time.perf_counter() - t1
+        hit = self.post({"tokens": toks, "user": 1, "max_new": 4})
+        check(hit[0] == 200 and hit[1].get("X-Cache") == "HIT"
+              and hit[1].get("X-Routed-To") == "r1",
+              f"[replicas] (d) the peer's repeat was not a HIT on r1: {hit}")
+        health = self.get("/healthz")
+        for name in ("r0", "r1"):
+            t = health["replicas"][name]["replication"]["transport"]
+            check(t["kind"] == "socket" and len(t["peers"]) == 1,
+                  f"[replicas] (d) {name}'s /healthz lacks its transport "
+                  f"stats: {t}")
+        launches = {}
+        for name in ("r0", "r1"):
+            worker = self.get_worker(name)
+            for k, v in worker["kernel_launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        t1 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            code = self.proc.wait(timeout=30.0)
+        except subprocess.TimeoutExpired:
+            code = None
+        stop_s = time.perf_counter() - t1
+        check(code == 0, f"[replicas] (d) SIGTERM: the launcher exited "
+                         f"{code}: {self.tail()}")
+        return {"up_s": up_s, "cross_s": cross_s, "stop_s": stop_s,
+                "miss_tokens": miss[2]["tokens_out"],
+                "transport": {n: health["replicas"][n]["replication"][
+                    "transport"] for n in ("r0", "r1")},
+                "launches": launches}
+
+    def get_worker(self, name: str) -> dict:
+        """A worker's own /healthz (its kernel launch counts)."""
+        import urllib.request
+        port = self.base + 1 + int(name[1:])
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                    timeout=30.0) as r:
+            return json.loads(r.read())
+
+    def close(self) -> None:
+        import os
+        import signal
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+        else:
+            try:            # the workers share the launcher's group
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except (ProcessLookupError, PermissionError):
+                pass
+        self.log.close()
+
+
+def replay_serve_calls(torch, np, att_recorders) -> None:
+    """(d)'s kernel calls, made again here under the recorders: r0's one
+    miss (the launcher's reduced qwen3 from seed 0, the same prompt and
+    max_new) on the same engine shape, so each is re-checked at its own
+    arguments with the others'. The launcher's workers count their own
+    launches; this replay's are not counted."""
+    from repro_torch.launch.serve import _init_lm
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving.engine import ModelEngine
+    from repro_torch.serving.scheduler import ContinuousBatchScheduler, \
+        Request
+    cfg = get_config("qwen3-14b").reduced()
+    eng = ModelEngine(_init_lm(cfg, 0, torch.device(DEV)), cfg, n_slots=4,
+                      max_len=128, device=DEV)
+    sched = ContinuousBatchScheduler(eng)
+    sched.submit(Request(rid=0, tokens=np.asarray([11, 12, 13, 14, 15],
+                                                  np.int32), max_new=4))
+    sched.drain()
+
+
+def phase_replicas(torch, np, models, recorder, att_recorders,
+                   seed: int) -> dict:
+    """Phase 8: (a) the HTTP front end over an in-process replica group
+    (synced on pallas, isolated, synced on pallas_q8), (b) the in-process
+    kill and rejoin, (c) the socket kill and rejoin and the R=3 fault
+    drill, (d) the serve launcher's socket mode. K1-K4 launch counters are
+    zeroed just before and read just after; the children's launches and
+    calls come back in the files they leave, the launcher's workers'
+    launches through their /healthz. Every call is noted for the
+    re-checks at its own arguments."""
+    import os
+    import shutil
+    from repro_torch.core import semantic_cache as SC
+    from repro_torch.kernels.cosine_topk import ops
+    from repro_torch.models import layers as L
+    workdir = ROOT / "build" / f"replicas-{os.getpid()}"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    # the launcher starts first: its workers come up while (a)-(c) run
+    launcher = ServeLauncher(workdir)
+    torch.cuda.synchronize()
+    zero_topk_launches()
+    zero_attention_launches()
+    SC.ctk_ops = recorder
+    t0 = time.perf_counter()
+    walls = {}
+    try:
+        with recorded_ops(L, att_recorders):
+            t = time.perf_counter()
+            http = {name: replicas_http(torch, np, models, backend, sync,
+                                        seed)
+                    for name, backend, sync in (
+                        ("synced", "pallas", 1), ("isolated", "pallas", 0),
+                        ("q8", "pallas_q8", 1))}
+            torch.cuda.synchronize()
+            walls["a"] = time.perf_counter() - t
+            t = time.perf_counter()
+            drill = repl_drill_models(torch, seed)
+            kill = replicas_kill_inproc(torch, np, drill, seed, workdir)
+            walls["b"] = time.perf_counter() - t
+            t = time.perf_counter()
+            sock = replicas_kill_socket(torch, np, drill, seed, workdir)
+            faults = replicas_socket_faults(torch, np, drill)
+            walls["c"] = time.perf_counter() - t
+            del drill
+            torch.cuda.synchronize()
+            n = {**topk_launches(), **attention_launches()}
+            t = time.perf_counter()
+            serve = launcher.run()
+            replay_serve_calls(torch, np, att_recorders)
+            walls["d"] = time.perf_counter() - t
+    finally:
+        SC.ctk_ops = ops
+        launcher.close()
+        shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    child_att = set()
+    for part in (kill, sock):
+        child = part.pop("child")
+        for fn, c in child["launches"].items():
+            n[fn] += c
+        recorder.calls.update(child["calls"])
+        child_att.update(child["att_calls"])
+    for fn, c in serve["launches"].items():
+        n[fn] += c
+    check(n["cosine_topk"] > 0 and n["cosine_topk_q8"] > 0
+          and n["flash_attention"] > 0 and n["flash_attention_f32"] > 0
+          and n["decode_attention"] > 0,
+          f"[replicas] a kernel of the phase was never launched: {n}")
+    syn, iso, q8 = http["synced"], http["isolated"], http["q8"]
+    log(f"[replicas] (a) HTTP front end, 2 replicas at full width and "
+        f"depth, {syn['requests']} requests each (distinct prompts embed "
+        f"at cosine <= {syn['max_unrelated_cos']:.4f}, theta_R "
+        f"{REPL_HTTP_THETA}): synced (pallas) "
+        f"{syn['hits']} hits ({syn['pair_hits']}/{REPL_PAIRS} peer repeats "
+        f"hit, {syn['merged_rows']} rows merged) in {syn['wall_s']:.1f} s; "
+        f"isolated {iso['hits']} hits ({iso['pair_hits']}/{REPL_PAIRS}) in "
+        f"{iso['wall_s']:.1f} s; pallas_q8 {q8['hits']} hits in "
+        f"{q8['wall_s']:.1f} s, {q8['q8']['patched_rows']} rows patched by "
+        f"update_spill_row decide as dense with bit-equal sims "
+        f"({q8['q8']['probe_hits']}/{q8['q8']['probe']} probe hits)")
+    log(f"[replicas] (d) serve --mode replica --transport socket: up in "
+        f"{serve['up_s']:.1f} s, MISS then peer HIT (delta crossed in "
+        f"{serve['cross_s']:.3f} s), SIGTERM ended all three in "
+        f"{serve['stop_s']:.1f} s; worker launches {serve['launches']}")
+    wall = time.perf_counter() - t0
+    log(f"[replicas] phase done in {wall:.1f} s (a {walls['a']:.1f} s, b "
+        f"{walls['b']:.1f} s, c {walls['c']:.1f} s, d {walls['d']:.1f} s); "
+        f"launches {n}")
+    return {"http": http, "kill": kill, "socket": sock, "faults": faults,
+            "serve": serve, "launches": n, "walls": walls, "wall_s": wall,
+            "child_att_calls": child_att}
+
+
 def nvidia_smi() -> str:
     try:
         out = subprocess.run(
@@ -2489,6 +3467,8 @@ def main() -> int:
                          "repository root")
     ap.add_argument("--planes-child", metavar="DIR",
                     help=argparse.SUPPRESS)   # phase 7's killed process
+    ap.add_argument("--replicas-child", metavar="SPEC",
+                    help=argparse.SUPPRESS)   # phase 8's killed replicas
     args = ap.parse_args()
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this "
@@ -2506,6 +3486,11 @@ def main() -> int:
         from repro_torch.device import strict_fp32
         strict_fp32()
         planes_child(torch, np, args.planes_child, args.seed)
+    if args.replicas_child:
+        from repro_torch.device import strict_fp32
+        sys.stdout = sys.stderr     # the parent's stdout carries its result
+        strict_fp32()
+        replicas_child(torch, np, args.replicas_child)
     from repro_torch.device import strict_fp32
     from repro_torch.kernels import _build
     from repro_torch.kernels.cosine_topk import ops
@@ -2570,10 +3555,15 @@ def main() -> int:
     planes = phase_planes(torch, np, models, recorder, att_rec, args.seed)
     detail["planes"] = planes
     detail["planes_s"] = planes["wall_s"]
+    replicas = phase_replicas(torch, np, models, recorder, att_rec,
+                              args.seed)
+    child_att = replicas.pop("child_att_calls")
+    detail["replicas"] = replicas
+    detail["replicas_s"] = replicas["wall_s"]
     main_err = phase_main_shapes(torch, recorder.calls, args.seed)
     check({c[0] for c in recorder.calls} == set(err),
           "[kernels] a kernel of the main path was never called")
-    att_calls = att_rec[0].distinct() | att_rec[1].distinct()
+    att_calls = att_rec[0].distinct() | att_rec[1].distinct() | child_att
     check({c[0] for c in att_calls} == {"flash_attention",
                                         "decode_attention"},
           "[kernels] an attention kernel of the main path was never called")
@@ -2610,21 +3600,26 @@ def main() -> int:
         "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
         "decode_attention_int8": "src/repro_torch/csrc/decode_attention.cu"}
     # launches on the main path: K1/K2 in their served stream, the slo
-    # phase's runs and the planes phase (its killed child included); K3/K4
-    # in both served streams, both engine-long runs, the slo phase's live
-    # gateway and the planes phase's gateway restart
+    # phase's runs, the planes phase (its killed child included) and the
+    # replicas phase (its children and the launcher's workers included);
+    # K3/K4 in both served streams, both engine-long runs, the slo phase's
+    # live gateway, the planes phase's gateway restart and the replicas
+    # phase
     launches = {"cosine_topk": serve["pallas"]["launches"]
                 + slo_sim["launches"]["cosine_topk"]
                 + slo_live["launches"]["cosine_topk"]
-                + planes["launches"]["cosine_topk"],
+                + planes["launches"]["cosine_topk"]
+                + replicas["launches"]["cosine_topk"],
                 "cosine_topk_q8": serve["pallas_q8"]["launches"]
                 + slo_sim["launches"]["cosine_topk_q8"]
-                + planes["launches"]["cosine_topk_q8"]}
+                + planes["launches"]["cosine_topk_q8"]
+                + replicas["launches"]["cosine_topk_q8"]}
     for name in att_err:
         launches[name] = sum(r["attention_launches"][name]
                              for r in serve.values()) + sum(
             r["launches"][name] for r in long_runs.values()) \
-            + slo_live["launches"][name] + planes["launches"][name]
+            + slo_live["launches"][name] + planes["launches"][name] \
+            + replicas["launches"][name]
         check(launches[name] > 0, f"[kernels] {name} was never launched on "
                                   f"the main path")
     # timed at the main path's shapes: K1/K2 at the served batch; K4 at the

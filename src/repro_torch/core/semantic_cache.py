@@ -28,7 +28,7 @@ every swap or rebuild bumps ``generation``, except the one rebuild that
 re-materializes a restored snapshot (DESIGN.md §12), which rebuilds the
 mirror once and keeps the snapshot's generation.
 
-Eviction taps (DESIGN.md §13-14): ``evict_sink`` receives every spill LRU
+Eviction taps (DESIGN.md §13, §14): ``evict_sink`` receives every spill LRU
 victim and spill trim (the tiered hierarchy demotes them), and
 ``fair_share_eviction`` with ``tenant_of`` makes victim selection
 tenant-weighted. Unset, every path is bit-identical to the single-tier,
@@ -713,6 +713,51 @@ class SemanticCache:
             else:               # outgrew the padding: rebuild (pow2 growth)
                 self._dev = None
         self._hnsw = None       # graph path stays rebuild-based
+
+    def update_spill_row(self, row: int, vector: np.ndarray,
+                         answer: np.ndarray) -> None:
+        """In-place overwrite of a live spill row's vector + answer,
+        keeping its answer identity and LRU recency (newest-answer-wins
+        replication merge, DESIGN.md §16). Recency does not move: a peer's
+        answer refresh is not a local access. The device mirror gets the
+        same single-row patch as ``insert_spill`` (the q8 mirror
+        re-quantizes the row)."""
+        vector = np.asarray(vector, np.float32)
+        answer = np.asarray(answer, np.float32)
+        self._quant_restore = None   # snapshot codes no longer match
+        self.spill.vectors[row] = vector
+        self.spill.answers[row] = answer
+        drow = len(self.centroids) + row
+        if self._dev is not None:
+            if drow < self._dev.rows:
+                self._dev.write_row(drow, vector, answer,
+                                    int(self.spill.answer_id[row]))
+                self.dev_row_writes += 1
+            else:
+                self._dev = None
+        self._hnsw = None
+
+    def merge_access(self, ids: np.ndarray, access: np.ndarray) -> int:
+        """Fold a peer's centroid access counts into ours by per-id max
+        (replication merge policy, DESIGN.md §16), over the id
+        intersection only. Access counts live host-side, so the mirror is
+        untouched. Returns the number of rows whose count was raised."""
+        ids = np.asarray(ids, np.int64)
+        access = np.asarray(access, np.float64)
+        if not len(ids) or not len(self.centroids):
+            return 0
+        order = np.argsort(self.centroids.ids, kind="stable")
+        sorted_ids = self.centroids.ids[order]
+        loc = np.minimum(np.searchsorted(sorted_ids, ids),
+                         len(sorted_ids) - 1)
+        present = sorted_ids[loc] == ids
+        rows = order[loc[present]]
+        if not len(rows):
+            return 0
+        peer = access[present]
+        raised = peer > self.centroids.access_count[rows]
+        self.centroids.access_count[rows[raised]] = peer[raised]
+        return int(raised.sum())
 
     # --------------------------------------------------------------- metrics
 

@@ -121,8 +121,10 @@ class SISO:
         """Build from a :class:`repro_torch.serving.config.ServingConfig`
         (DESIGN.md §16.4). Lowers to the flat SISOConfig through
         ``cfg.to_siso_config()``, so the result is bit-identical to
-        building from a SISOConfig with the same fields. A plane that is
-        not ported yet raises ``NotImplementedError`` naming it."""
+        building from a SISOConfig with the same fields.
+        ``cfg.replication`` is read by the launcher, which builds the
+        replica group, and is ignored here, as in the reference. A plane
+        that is not ported yet raises ``NotImplementedError`` naming it."""
         cfg.check_ported()
         return cls(cfg.to_siso_config(), slo_latency=cfg.slo_latency,
                    llm_latency=cfg.llm_latency, device=device)

@@ -19,11 +19,13 @@ built through ``SISO.from_config(cfg)`` and
 through :meth:`ServingConfig.to_siso_config`, so new-style construction is
 bit-identical to building ``SISO(SISOConfig(...))`` with the same fields.
 
-The plane configs are carried over field for field. Tiering, tenancy and
-persistence are ported; the sharded plane and replication are not yet
-(ROADMAP Queue A items 4-5): building from a config with sharding over
-more than one shard or with replication raises ``NotImplementedError``
-naming the plane (:meth:`ServingConfig.check_ported`).
+The plane configs are carried over field for field. Tiering, tenancy,
+persistence and replication are ported; ``replication`` is read by the
+launcher, which builds the replica group (``launch/serve.py``), and
+``SISO.from_config`` ignores it, as the reference does. The sharded plane
+is not ported yet (ROADMAP Queue A item 5): building from a config with
+sharding over more than one shard raises ``NotImplementedError`` naming
+the plane (:meth:`ServingConfig.check_ported`).
 """
 from __future__ import annotations
 
@@ -90,12 +92,10 @@ class ServingConfig:
 
     def check_ported(self) -> None:
         """Raise ``NotImplementedError`` naming the first plane that is set
-        but not ported yet (sharding over more than one shard,
-        replication)."""
+        but not ported yet (sharding over more than one shard)."""
         unported = {
             "sharding": (self.sharding is not None
                          and self.sharding.n_shards > 1),
-            "replication": self.replication is not None,
         }
         for plane, is_set in unported.items():
             if is_set:

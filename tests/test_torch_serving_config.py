@@ -3,10 +3,11 @@ package (ports of tests/test_serving_config.py): the nested config lowers
 to and rises from the flat SISOConfig field for field as the reference's
 does; ``SISO.from_config`` is bit-identical to old-style construction and
 decides as the reference does; every frontend satisfies the
-CacheFrontend protocol; every plane that is not ported yet (sharding over
-more than one shard, replication) raises ``NotImplementedError`` naming
-it; and the ported planes (tiering, tenancy, persistence) build through
-``ServingGateway.from_config`` as the reference's do.
+CacheFrontend protocol; the plane that is not ported yet (sharding over
+more than one shard) raises ``NotImplementedError`` naming it, while a
+set ``replication`` builds and is ignored by ``SISO.from_config`` as in
+the reference; and the ported planes (tiering, tenancy, persistence)
+build through ``ServingGateway.from_config`` as the reference's do.
 """
 import dataclasses
 
@@ -206,13 +207,37 @@ def test_protocol_rejects_non_frontends():
 
 @pytest.mark.parametrize("plane", ["sharding", "replication"])
 def test_each_set_plane_raises_naming_it(plane):
+    """Sharding over more than one shard is not ported and raises naming
+    the plane. Replication is ported: as in the reference, the launcher
+    builds the replica group and ``SISO.from_config`` ignores the field —
+    it builds, and decides as the reference's and as a config without
+    it."""
     value = {"sharding": ShardedCacheConfig(n_shards=2),
              "replication": ReplicationConfig(
                  transport=TransportConfig(kind="socket"))}[plane]
     cfg = ServingConfig(cache=CacheConfig(dim=D, answer_dim=D, capacity=32),
                         **{plane: value})
-    with pytest.raises(NotImplementedError, match=plane):
-        SISO.from_config(cfg, **CPU)
+    if plane == "sharding":
+        with pytest.raises(NotImplementedError, match=plane):
+            SISO.from_config(cfg, **CPU)
+        return
+    jcfg = J.ServingConfig(
+        cache=J.CacheConfig(dim=D, answer_dim=D, capacity=32),
+        replication=JReplication(transport=JTransport(kind="socket")))
+    rng = np.random.default_rng(5)
+    train, probe = _unit(rng, 24), _unit(rng, 8)
+    built = [SISO.from_config(cfg, **CPU), JSISO.from_config(jcfg),
+             SISO.from_config(dataclasses.replace(cfg, replication=None),
+                              **CPU)]
+    res = []
+    for s in built:
+        s.bootstrap(train, train, answer_ids=np.arange(len(train)))
+        res.append(s.handle_batch(np.concatenate([train[:4], probe])))
+    for r in res[1:]:
+        for f in ("hit", "answer_id", "entry", "region"):
+            np.testing.assert_array_equal(getattr(res[0], f), getattr(r, f))
+        np.testing.assert_allclose(res[0].sim, r.sim, atol=1e-5)
+    assert res[0].hit[:4].all() and not res[0].hit[4:].any()
 
 
 # --------------------------------------------------------- ported planes
