@@ -147,9 +147,41 @@ Phases (any failure exits non-zero and prints no result line):
               ends all three processes with exit 0. Every kernel call (the
               children's through the files they leave, the launcher's
               replayed here) is re-checked at its own arguments.
+9. shard    — the sharded cache plane (DESIGN.md §11) on S virtual shards
+              of the card (``make_cache_mesh(S, devices=[cuda:0] * S)``),
+              after replicas, on the served weights: (a) the served SISO
+              (dim 768, 36,114 centroid rows) restored onto S = 1, 2, 4, 8
+              on dense, pallas (K1's shard-local mode, K1-local) and
+              pallas_q8 (K2 per shard + the exact rescore), with room for
+              48 spill rows beyond its centroids: 324 queries in
+              batches of 4 and 32 (the served stream's embeddings, exact
+              repeats of centroid and spill rows, fresh misses recorded as
+              spill rows, evicting LRU victims) with one refresh committed
+              mid-stream, ticked a unit at a time: every LookupResult
+              field, the generations
+              through the refresh, LRU victims, spill clocks and counters
+              equal one device's exact top-1 (dense; sims within ATOL;
+              pallas_q8 bit for bit), the pallas shard counts equal each
+              other bit for bit, row writes and no rebuild; (b) the served
+              stream from the SISO's pre-stream state through
+              ServingGateway.from_config with sharding over 4 shards and
+              the 40-layer qwen3-14b engine: served-by per request as one
+              device's pallas gateway, answers and answer ids as one
+              device's dense gateway; cache_shards, rows and bytes per
+              shard logged; (c) the S=4 cache saved through the
+              CheckpointManager and restored onto S=4, 8 and one device:
+              12 batches element-wise equal to the uninterrupted cache;
+              (d) bench_shard's capacity scaling at dim 768 (16,384 rows a
+              shard, S = 1-8: the layout's bytes a shard flat, the
+              bytes the card holds measured beside) and lookup times over
+              65,536 rows split S ways, logged; (e) K1-local against its
+              plain version at every shape it ran, at N = 32 and 33 and
+              on an all-invalid block, bit for bit against K1 over the
+              whole mirror, and timed at the S=4 block (B = 4).
 
-The line before the last is a JSON object with one entry per kernel (K3's
-int8 mode and K4's f32 mode, the embedder's call, their own entries, with
+The line before the last is a JSON object with one entry per kernel (K1's
+shard-local mode, K3's int8 mode and K4's f32 mode, the embedder's call,
+their own entries, with
 their own bounds; every entry also carries ``device_ms``, the profiler's
 device time, and each entry with a library call ``library_device_ms``,
 that call's); the line
@@ -160,6 +192,7 @@ results/, relative to the repository root).
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import statistics
 import subprocess
@@ -236,7 +269,7 @@ def far_start(n: int) -> int:
     """First row of the exact copies: the second-to-last 512-row tile, or
     the second half of a table no longer than one tile (the slo phase's
     cache plane)."""
-    return (n // 512 - 2) * 512 if n >= 1024 else n // 2
+    return max(n // 512 - 2, 1) * 512 if n >= 1024 else n // 2
 
 
 def kernel_inputs(torch, B: int, seed: int, n: int = N_ROWS):
@@ -358,6 +391,11 @@ class CallRecorder:
         return self._ops.cosine_topk(q, rows, k=k, valid=valid, theta=theta,
                                      early_exit=early_exit, **kw)
 
+    def cosine_top1_local(self, q, rows, valid=None, **kw):
+        self.calls.add(("cosine_top1_local", q.shape[0], rows.shape[0], 1,
+                        False, 2.0, 0.0))
+        return self._ops.cosine_top1_local(q, rows, valid, **kw)
+
     def cosine_topk_q8(self, q, codes, scales, k=1, valid=None, theta=2.0,
                        margin=0.0, early_exit=False, **kw):
         self.calls.add(("cosine_topk_q8", q.shape[0], codes.shape[0], k,
@@ -368,11 +406,14 @@ class CallRecorder:
 
 
 def phase_main_shapes(torch, calls: set, seed: int) -> dict:
-    """Every distinct kernel call of the main path, held against the plain
-    version at its own B, N, k, early exit, theta and margin."""
+    """Every distinct K1/K2 call of the main path, held against the plain
+    version at its own B, N, k, early exit, theta and margin (K1-local's
+    calls are the shard phase's own checks)."""
     from repro_torch.kernels.cosine_topk import ops, ref
     err = {"cosine_topk": 0.0, "cosine_topk_q8": 0.0}
     for fn, B, n, k, early, theta, margin in sorted(calls):
+        if fn not in err:
+            continue
         x = Inputs(torch, ops, B, seed + 7 * B + 1, n)
         err[fn] = max(err[fn], compare(torch, ops, ref, fn, x, k, early,
                                        theta, margin))
@@ -460,44 +501,52 @@ def phase_timing(torch, seed: int) -> dict:
                     if split else
                     "no device activity recorded (not measured)"))
             if B == SPLIT_B:
-                rec["library_device_ms"] = library_device_ms(torch, lib)
+                rec.update(library_device_ms(torch, lib))
                 log(f"[timing] {fn} B={B}, library on the device: "
-                    f"{rec['library_device_ms']} ms")
+                    f"{rec['library_device_ms']} ms (records "
+                    f"{rec['library_device_records']} of 10 calls)")
     return out
 
 
-def library_device_ms(torch, lib):
+def library_device_ms(torch, lib) -> dict:
     """Device ms per call of the library yardstick ``lib`` (all the
-    kernels one call launches), from a torch.profiler trace of 10 calls;
-    None when the profiler records no device activity."""
+    kernels one call launches), from a torch.profiler trace of 10 calls,
+    None when the profiler records no device activity; and each kernel's
+    record count in the trace."""
     sys.path.insert(0, str(ROOT))
     from tools.trace_kernels import device_kernel_ms
-    split = device_kernel_ms(torch, lib, iters=10)
-    return sum(split.values()) if split else None
+    split, records = device_kernel_ms(torch, lib, iters=10)
+    return {"library_device_ms": sum(split.values()) if split else None,
+            "library_device_records": list(records.values())}
 
 
 SPLIT_B = 4     # the served batch: K2 traced pass by pass there; K1 at
                 # every batch
 
 
-def topk_device_ms(torch, fn, name: str) -> dict:
+def topk_device_ms(torch, fn, name: str, iters: int = 10) -> dict:
     """Device ms per call of each of the kernel's launches (pass 1
     ``sims_tile_*`` and pass 2 ``merge_tiles``), from a torch.profiler
-    trace of 10 calls. One call launches these two and nothing else: no
-    copy, cast or fill."""
+    trace of ``iters`` calls, with each launch's record count. One call
+    launches these two and nothing else (no copy, cast or fill), but for
+    K1-local's clamp of a miss's row."""
     sys.path.insert(0, str(ROOT))
     from tools.trace_kernels import device_kernel_ms
-    split = device_kernel_ms(torch, fn, iters=10)
+    split, records = device_kernel_ms(torch, fn, iters=iters)
     if not split:
         return {"device_ms": None, "device_kernels": {}}
+    local = name == "cosine_top1_local"
     names = sorted(n.split("(")[0].split("<")[0].replace("void ", "")
-                   for n in split)
+                   for n in split if not (local and "clamp" in n))
     check(names == ["ctk::merge_tiles", f"ctk::sims_tile_"
-                    f"{'f32' if name == 'cosine_topk' else 'q8'}"],
+                    f"{'q8' if name == 'cosine_topk_q8' else 'f32'}"]
+          and len(split) == 2 + local,
           f"[timing] {name}: one call launches {list(split)}, not its own "
-          f"two passes alone")
+          f"two passes{' and its clamp' if local else ''} alone")
     return {"device_ms": sum(split.values()),
-            "device_kernels": {n.split("(")[0]: t for n, t in split.items()}}
+            "device_kernels": {n.split("(")[0]: t for n, t in split.items()},
+            "device_records": {n.split("(")[0]: c
+                               for n, c in records.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -826,7 +875,7 @@ def phase_attention_timing(torch, seed: int) -> dict:
                    "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
             rec.update(decode_device_ms(torch, call, name))
             if lib is not None:
-                rec["library_device_ms"] = library_device_ms(torch, sdpa)
+                rec.update(library_device_ms(torch, sdpa))
             out[f"{name}/{Lc}/{n_kv}"] = rec
             dev_ms = rec["device_ms"]
             log(f"[timing] {name} B={B} H={H}/{Hkv} Dh={Dh} Lc={Lc} "
@@ -853,7 +902,8 @@ def flash_device_ms(torch, call, lib, kernel: str, label: str) -> dict:
     else: no fill, copy or second pass."""
     sys.path.insert(0, str(ROOT))
     from tools.trace_kernels import device_kernel_ms
-    own, other = (device_kernel_ms(torch, f, iters=20) for f in (call, lib))
+    own, other = (device_kernel_ms(torch, f, iters=20)[0]
+                  for f in (call, lib))
     check(not own or (len(own) == 1 and kernel in next(iter(own))),
           f"[timing] flash_attention {label}: one call launches "
           f"{list(own)}, not its {kernel} kernel alone")
@@ -871,7 +921,7 @@ def decode_device_ms(torch, call, name: str) -> dict:
     conversion or fill."""
     sys.path.insert(0, str(ROOT))
     from tools.trace_kernels import device_kernel_ms
-    split = device_kernel_ms(torch, call, iters=10)
+    split, _ = device_kernel_ms(torch, call, iters=10)
     if not split:
         return {"device_ms": None, "device_kernels": {}}
     check(len(split) <= 2 and all("da::decode" in n for n in split),
@@ -1176,8 +1226,26 @@ def build_models(torch, layers: int, seed: int):
     return ecfg, eparams, mcfg, mparams
 
 
+def served_requests(np, tok, mcfg, texts, base: int) -> list:
+    """The gateway requests for ``texts`` (request ids from ``base``)."""
+    from repro_torch.serving.gateway import GatewayRequest
+    reqs = []
+    for rid, text in enumerate(texts, start=base):
+        ids, mask = tok.encode_batch([text])
+        prompt = np.asarray(tok.tokenize(text)[:12], np.int64) \
+            % mcfg.vocab_size
+        reqs.append(GatewayRequest(rid=rid, model_tokens=prompt,
+                                   embed_tokens=(ids[0], mask[0]),
+                                   max_new=8))
+    return reqs
+
+
 def serve_once(torch, np, backend, models, recorder, att_recorders,
-               seed: int) -> dict:
+               seed: int, keep=None) -> dict:
+    """One served stream; with ``keep`` (a dict), the SISO's state before
+    the stream, the served SISO, its embed and answer functions, the
+    stream and the stream's embeddings are left there for the shard
+    phase."""
     from repro_torch.core import semantic_cache as SC
     from repro_torch.core.siso import SISO, SISOConfig
     from repro_torch.data.synth import SyntheticWorkload
@@ -1185,9 +1253,10 @@ def serve_once(torch, np, backend, models, recorder, att_recorders,
     from repro_torch.kernels.cosine_topk import ops
     from repro_torch.models import embedder as E, layers as L
     from repro_torch.serving.engine import ModelEngine
-    from repro_torch.serving.gateway import GatewayRequest, ServingGateway
+    from repro_torch.serving.gateway import ServingGateway
     ecfg, eparams, mcfg, mparams = models
     tok = HashTokenizer(vocab_size=ecfg.vocab_size, max_len=24)
+    embedded = []             # the stream's query embeddings, as served
     encode_ms: dict = {}      # batch size -> host ms of each E.encode
 
     def encode(ids, mask):
@@ -1200,8 +1269,10 @@ def serve_once(torch, np, backend, models, recorder, att_recorders,
         return out
 
     def embed_tokens(batches):
-        return encode(np.stack([t[0] for t in batches]),
-                      np.stack([t[1] for t in batches]))
+        out = encode(np.stack([t[0] for t in batches]),
+                     np.stack([t[1] for t in batches]))
+        embedded.append(out)
+        return out
 
     def answer_embed(out_tokens):
         ids, mask = tok.encode_batch([" ".join(f"t{t}" for t in out_tokens)])
@@ -1222,6 +1293,8 @@ def serve_once(torch, np, backend, models, recorder, att_recorders,
     n_cent = len(siso.cache.centroids)
     check(n_cent >= MIN_CENTROIDS,
           f"[serve] centroid region {n_cent} < {MIN_CENTROIDS} rows")
+    if keep is not None:      # the shard phase replays the stream from here
+        keep["boot_state"] = copy.deepcopy(siso.state_dict())
     engine = ModelEngine(mparams, mcfg, n_slots=3, max_len=96, device=DEV)
     gw = ServingGateway(siso, engine, embed_fn=embed_tokens,
                         answer_fn=answer_embed)
@@ -1246,15 +1319,8 @@ def serve_once(torch, np, backend, models, recorder, att_recorders,
     t0 = time.perf_counter()
     with recorded_ops(L, att_recorders):
         for base in range(0, len(stream), 4):
-            reqs = []
-            for rid, text in enumerate(stream[base:base + 4], start=base):
-                ids, mask = tok.encode_batch([text])
-                prompt = np.asarray(tok.tokenize(text)[:12], np.int64) \
-                    % mcfg.vocab_size
-                reqs.append(GatewayRequest(rid=rid, model_tokens=prompt,
-                                           embed_tokens=(ids[0], mask[0]),
-                                           max_new=8))
-            gw.submit(reqs)
+            gw.submit(served_requests(np, tok, mcfg, stream[base:base + 4],
+                                      base))
         done = gw.drain()
         torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
@@ -1294,6 +1360,10 @@ def serve_once(torch, np, backend, models, recorder, att_recorders,
         + ", ".join(f"{encode_p50[b]:.3f} at B={b} ({len(encode_ms[b])} "
                     f"calls)" for b in sorted(encode_p50)))
     check(4 in encode_p50, "[serve] no batch of 4 was embedded")
+    if keep is not None:
+        keep.update(siso=siso, embed_fn=embed_tokens, answer_fn=answer_embed,
+                    tok=tok, stream=stream,
+                    queries=np.concatenate(embedded))
     extra = {}
     if backend == "pallas_q8":
         # what one margin-coverage fallback costs (the dense reference over
@@ -1646,12 +1716,14 @@ SLO_SYSTEMS = ("siso", "vectorcache", "nocache")
 def topk_launches() -> dict:
     from repro_torch.kernels.cosine_topk import ops
     return {"cosine_topk": ops.cosine_topk.launches,
+            "cosine_top1_local": ops.cosine_top1_local.launches,
             "cosine_topk_q8": ops.cosine_topk_q8.launches}
 
 
 def zero_topk_launches() -> None:
     from repro_torch.kernels.cosine_topk import ops
-    ops.cosine_topk.launches = ops.cosine_topk_q8.launches = 0
+    ops.cosine_topk.launches = ops.cosine_top1_local.launches = \
+        ops.cosine_topk_q8.launches = 0
 
 
 def paraphrase_cosine(np, batch, theta: float) -> dict:
@@ -3445,6 +3517,639 @@ def phase_replicas(torch, np, models, recorder, att_recorders,
             "child_att_calls": child_att}
 
 
+# ---------------------------------------------------------------------------
+# phase 9: shard — the sharded cache plane on virtual shards of the card
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (2, 4, 8)
+SHARD_BACKENDS = ("dense", "pallas", "pallas_q8")
+SHARD_BATCHES = (4, 32)       # (a) alternates these batch sizes
+SHARD_ROUNDS = 9              # (a): 9 x (4 + 32) = 324 queries
+SHARD_COMMIT_AT = 8           # (a): the refresh commit after this batch
+SHARD_SPILL_ROOM = 48         # (a): capacity beyond the served centroids,
+                              # so misses evict LRU spill rows before the
+                              # refresh and its commit trims the spill
+SHARD_MAIN_S = 4              # (b), (c) and the timed K1-local block
+SHARD_GW_REQUESTS = 40        # (b): the serve_with_siso stream, whole
+SHARD_RESTORE_BATCHES = 12    # (c)
+SHARD_PER_SHARD = 16384       # (d): rows per shard held fixed
+SHARD_TOTAL = 65536           # (d): the fixed corpus of the lookup times
+SHARD_LOOKUP_REPS = 20        # (d)
+
+
+def shard_mesh(torch, S: int):
+    """S virtual shards on the one card (the counterpart of the
+    reference's forced host devices)."""
+    from repro_torch.launch.mesh import make_cache_mesh
+    return make_cache_mesh(S, devices=[torch.device(DEV, 0)] * S)
+
+
+def shard_siso(torch, np, kept, backend: str, S: int):
+    """A SISO with the served SISO's configuration on ``backend`` and S
+    shards (1: the single-device path) and SHARD_SPILL_ROOM rows of
+    capacity beyond the served centroids, restored from the served SISO's
+    state and warm-started."""
+    import dataclasses
+    from repro_torch.core.siso import SISO
+    from repro_torch.distributed.cache_plane import ShardedCacheConfig
+    served = kept["siso"]
+    cfg = dataclasses.replace(
+        served.cfg, backend=backend,
+        capacity=len(served.cache.centroids) + SHARD_SPILL_ROOM,
+        shard=ShardedCacheConfig(n_shards=S, mesh=shard_mesh(torch, S))
+        if S > 1 else None)
+    s = SISO(cfg, device=DEV)
+    s.load_state(copy.deepcopy(kept["state"]))
+    s.warm_start()
+    return s
+
+
+def shard_stream(np, kept, seed: int) -> list:
+    """(a)'s batches: the served stream's embeddings, exact repeats of
+    centroid and spill rows (hits), fresh unit vectors (misses, recorded
+    as spill rows with these answers)."""
+    rng = np.random.default_rng(seed + 9)
+    cache = kept["siso"].cache
+    served, cent, spill = (kept["queries"], cache.centroids.vectors,
+                           cache.spill.vectors)
+    batches = []
+    for r in range(SHARD_ROUNDS):
+        for B in SHARD_BATCHES:
+            q = rng.normal(size=(B, D)).astype(np.float32)
+            q /= np.linalg.norm(q, axis=1, keepdims=True)
+            kind = rng.integers(0, 4, size=B)
+            pick = rng.integers(0, 1 << 30, size=B)
+            q[kind == 1] = served[pick[kind == 1] % len(served)]
+            q[kind == 2] = cent[pick[kind == 2] % len(cent)]
+            q[kind == 3] = spill[pick[kind == 3] % len(spill)]
+            ans = rng.normal(size=(B, D)).astype(np.float32)
+            batches.append((q, ans))
+    return batches
+
+
+def shard_drive(torch, np, siso, batches, probe) -> dict:
+    """(a) on one SISO: each batch through handle_batch, its misses
+    recorded (an LRU spill insert each); after SHARD_COMMIT_AT batches the
+    refresh cycle is ticked to its end one unit a tick (budget 0, so every
+    SISO commits at the same point), the probe looked up between ticks."""
+    res, gens, t_commit, victims = [], [], None, 0
+    aid = 2_000_000
+    for b, (q, ans) in enumerate(batches):
+        r = siso.handle_batch(q)
+        res.append(r)
+        for i in np.flatnonzero(~r.hit):
+            c = siso.cache
+            victims += 0 < c.spill_capacity <= len(c.spill)
+            siso.record_llm_answer(q[i], ans[i], aid)
+            aid += 1
+        if b == SHARD_COMMIT_AT:
+            check(siso.needs_refresh(), "[shard] no refresh came due")
+            rebuilds = siso.cache.dev_rebuilds
+            while True:
+                gens.append(siso.cache.lookup(
+                    probe, siso.theta_r, update_counts=False).generation)
+                if siso.refresh_tick(budget_s=0.0) is not None:
+                    break
+            t_commit = len(gens)
+            gens.append(siso.cache.lookup(
+                probe, siso.theta_r, update_counts=False).generation)
+            check(siso.cache.dev_rebuilds == rebuilds,
+                  "[shard] the refresh rebuilt the mirror")
+    c = siso.cache
+    return {"results": res, "gens": gens, "ticks": t_commit,
+            "victims": victims,
+            "spill_ids": c.spill.answer_id.copy(),
+            "spill_last_use": c._spill_last_use.copy(),
+            "spill_clock": c._spill_clock,
+            "counters": (c.hits, c.misses, c.generation, c.dev_swaps),
+            "row_writes": c.dev_row_writes, "rebuilds": c.dev_rebuilds,
+            "quant": (c.quant_rescored, c.quant_fallbacks)}
+
+
+def shard_same(np, a: dict, b: dict, sims: str, ctx: str) -> float:
+    """(a)'s equality: every LookupResult field, the generations seen
+    through the refresh, LRU victims and spill clocks, counters. ``sims``
+    is "bitwise" or "allclose" (within ATOL); returns the largest sim
+    difference."""
+    worst = 0.0
+    for i, (x, y) in enumerate(zip(a["results"], b["results"])):
+        for f in ("hit", "entry", "region", "answer_id", "answer"):
+            check(np.array_equal(getattr(x, f), getattr(y, f)),
+                  f"[shard] {ctx} batch {i}: {f} differs")
+        check(x.generation == y.generation,
+              f"[shard] {ctx} batch {i}: generation differs")
+        d = float(np.abs(x.sim - y.sim).max())
+        worst = max(worst, d)
+        check(d == 0.0 if sims == "bitwise" else d <= ATOL,
+              f"[shard] {ctx} batch {i}: sims differ by {d} ({sims})")
+    for k in ("gens", "ticks", "victims", "spill_ids", "spill_last_use",
+              "spill_clock", "counters"):
+        check(same(np, a[k], b[k]), f"[shard] {ctx}: {k} differs")
+    return worst
+
+
+def shard_plane_equality(torch, np, kept, seed: int) -> dict:
+    """(a): S in SHARD_COUNTS on each backend, held against one device's
+    exact top-1 (dense): the shard-local top-1 is exact by design (K1's
+    early exit off, as in the reference), while one device's pallas
+    lookup may stop at a good-enough tile, so it is compared for the
+    record only. The pallas shard counts agree with each other bit for
+    bit; K1-local's sims against K1's are (e)'s check."""
+    batches = shard_stream(np, kept, seed)
+    probe = batches[0][0][:4]
+    out = {"queries": sum(len(q) for q, _ in batches),
+           "batches": len(batches)}
+    runs = {}
+    for backend in SHARD_BACKENDS:
+        for S in (1,) + SHARD_COUNTS:
+            t = time.perf_counter()
+            siso = shard_siso(torch, np, kept, backend, S)
+            runs[backend, S] = shard_drive(torch, np, siso, batches, probe)
+            runs[backend, S]["wall_s"] = time.perf_counter() - t
+            if backend == "pallas" and S == SHARD_MAIN_S:
+                kept["siso_s4"] = siso
+            del siso
+    exact = runs["dense", 1]
+    check(exact["ticks"] > 1 and len(set(exact["gens"])) == 2
+          and exact["gens"][-1] == exact["gens"][0] + 1,
+          f"[shard] the refresh did not commit mid-stream once: "
+          f"{sorted(set(exact['gens']))}")
+    hits = sum(int(r.hit.sum()) for r in exact["results"])
+    check(hits > 20 and exact["counters"][1] > 20 and exact["victims"] > 0,
+          f"[shard] (a) served {hits} hits and evicted {exact['victims']} "
+          f"spill rows: too few to mean anything")
+    for backend in SHARD_BACKENDS:
+        for S in (1,) + SHARD_COUNTS:
+            r = runs[backend, S]
+            rec = {"wall_s": r["wall_s"], "row_writes": r["row_writes"],
+                   "quant": r["quant"]}
+            out[f"{backend}/S{S}"] = rec
+            if S == 1 and backend != "pallas_q8":
+                continue
+            check(r["row_writes"] > 0 and r["rebuilds"] == exact["rebuilds"],
+                  f"[shard] {backend} S={S}: {r['row_writes']} row writes, "
+                  f"{r['rebuilds']} rebuilds (one device: "
+                  f"{exact['rebuilds']})")
+            # DESIGN.md §15: the int8 plane decides as dense, bit for bit
+            rec["max_sim_diff"] = shard_same(
+                np, r, exact, "bitwise" if backend == "pallas_q8"
+                else "allclose", f"{backend} S={S} against one device")
+            if backend == "pallas" and S > SHARD_COUNTS[0]:
+                shard_same(np, r, runs["pallas", SHARD_COUNTS[0]], "bitwise",
+                           f"pallas S={S} against S={SHARD_COUNTS[0]}")
+    # one device's pallas lookups against the exact top-1, for the record:
+    # where its early exit stopped before the best row, it names another
+    # row above theta (the states part after the first such batch)
+    first = next((i for i, (x, y) in enumerate(zip(
+        runs["pallas", 1]["results"], exact["results"]))
+        if not np.array_equal(x.entry, y.entry)), None)
+    if first is not None:
+        x, y = runs["pallas", 1]["results"][first], exact["results"][first]
+        d = x.entry != y.entry
+        check(np.array_equal(x.hit, y.hit) and bool(
+              (x.sim[d] <= y.sim[d] + ATOL).all()),
+              "[shard] one device's pallas lookup is not a good-enough "
+              "answer of the exact one")
+    out["pallas_one_device_first_early_exit_batch"] = first
+    out.update(hits=hits, misses=exact["counters"][1],
+               victims=exact["victims"],
+               refresh_ticks=exact["ticks"],
+               generations=sorted(set(exact["gens"])))
+    worst = {b: max(out[f"{b}/S{S}"]["max_sim_diff"] for S in SHARD_COUNTS)
+             for b in SHARD_BACKENDS}
+    log(f"[shard] (a) {out['queries']} queries in {len(batches)} batches "
+        f"of {SHARD_BATCHES} ({hits} hits, {exact['counters'][1]} misses "
+        f"recorded, {exact['victims']} of them over LRU spill victims), "
+        f"one refresh committed after batch "
+        f"{SHARD_COMMIT_AT} in {exact['ticks']} ticks (generations "
+        f"{out['generations']}): S = {SHARD_COUNTS} decide as one device's "
+        f"exact top-1 on dense (largest sim difference {worst['dense']:.3g})"
+        f", pallas ({worst['pallas']:.3g}; S = 2, 4, 8 bit-equal to each "
+        f"other) and pallas_q8 (bitwise as dense); one device's pallas "
+        f"first stopped early at batch "
+        f"{out['pallas_one_device_first_early_exit_batch']}; walls " +
+        ", ".join(f"{b} " + "/".join(
+            f"{out[f'{b}/S{S}']['wall_s']:.1f}" for S in (1,) + SHARD_COUNTS)
+            for b in SHARD_BACKENDS) + " s (S = 1/2/4/8)")
+    return out
+
+
+def shard_gateway(torch, np, models, kept, S: int,
+                  backend: str = "pallas") -> dict:
+    """(b) one gateway (S shards, or one device) from ServingConfig over
+    the served engine, restored from the SISO's state before the served
+    stream; the served stream again. The refresh is left off: its budget
+    is wall-clock, so two gateways could commit at different requests."""
+    import dataclasses
+    from repro_torch.distributed.cache_plane import ShardedCacheConfig
+    from repro_torch.serving.config import ServingConfig
+    from repro_torch.serving.engine import ModelEngine
+    from repro_torch.serving.gateway import ServingGateway
+    _, _, mcfg, mparams = models
+    scfg = ServingConfig.from_siso_config(dataclasses.replace(
+        kept["siso"].cfg, backend=backend,
+        shard=ShardedCacheConfig(n_shards=S, mesh=shard_mesh(torch, S))
+        if S > 1 else None))
+    engine = ModelEngine(mparams, mcfg, n_slots=3, max_len=96, device=DEV)
+    gw = ServingGateway.from_config(scfg, engine=engine,
+                                    embed_fn=kept["embed_fn"],
+                                    answer_fn=kept["answer_fn"],
+                                    auto_refresh=False)
+    gw.frontend.load_state(copy.deepcopy(kept["boot_state"]))
+    gw.frontend.warm_start()
+    ids = []              # the answer id of each lookup, batch by batch
+    handle = gw.frontend.handle_batch
+
+    def recording(*a, **kw):
+        res = handle(*a, **kw)
+        ids.extend(int(i) for i in res.answer_id)
+        return res
+    gw.frontend.handle_batch = recording
+    stream = kept["stream"][:SHARD_GW_REQUESTS]
+    t = time.perf_counter()
+    for base in range(0, len(stream), 4):
+        gw.submit(served_requests(np, kept["tok"], mcfg,
+                                  stream[base:base + 4], base))
+    done = sorted(gw.drain(), key=lambda r: r.rid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    rep = gw.report()
+    del engine, gw
+    return {"served_by": [r.served_by for r in done],
+            "answers": [None if r.answer is None else r.answer.copy()
+                        for r in done],
+            "answer_ids": ids,
+            "outs": [list(r.out) for r in done], "wall_s": wall,
+            "report": {k: v for k, v in rep.items()
+                       if k not in ("theta_trace", "lam_trace", "lookup")},
+            "lookup": rep["lookup"]}
+
+
+def shard_served(torch, np, models, kept) -> dict:
+    """(b): the served stream through a 4-shard pallas gateway and through
+    one device: served-by per request as one device's pallas gateway
+    (hits do not depend on where its early exit stopped), answers and
+    answer ids as one device's exact top-1 (dense)."""
+    one = shard_gateway(torch, np, models, kept, 1)
+    exact = shard_gateway(torch, np, models, kept, 1, "dense")
+    four = shard_gateway(torch, np, models, kept, SHARD_MAIN_S)
+    n = len(one["served_by"])
+    check(one["report"]["completed"] == four["report"]["completed"]
+          == exact["report"]["completed"] == n,
+          "[shard] (b) not every request completed")
+    check(one["served_by"] == four["served_by"] == exact["served_by"],
+          "[shard] (b) served-by differs from one device")
+    check(four["answer_ids"] == exact["answer_ids"] and all(
+          (a is None and b is None) or np.array_equal(a, b)
+          for a, b in zip(exact["answers"], four["answers"])),
+          "[shard] (b) answers differ from one device's exact top-1")
+    check(one["outs"] == four["outs"] == exact["outs"],
+          "[shard] (b) completions differ")
+    early = sum(a != b for a, b in zip(one["answer_ids"],
+                                       four["answer_ids"]))
+    rep = four["report"]
+    mem = rep["memory"]
+    check(rep["cache_shards"] == SHARD_MAIN_S
+          and mem["n_shards"] == SHARD_MAIN_S
+          and mem["per_shard_bytes"] * SHARD_MAIN_S
+          == mem["device_total_bytes"],
+          f"[shard] (b) the report does not show the plane: {rep}")
+    for k in ("hits", "misses", "dev_row_writes", "served_cache",
+              "served_engine"):
+        check(rep[k] == one["report"][k],
+              f"[shard] (b) report {k} differs from one device")
+    check(rep["served_cache"] > 0 and rep["served_engine"] > 0,
+          "[shard] (b) the stream did not use both the cache and engine")
+    log(f"[shard] (b) ServingGateway.from_config(sharding=S "
+        f"{SHARD_MAIN_S}) over qwen3-14b ({models[2].n_layers} layers): "
+        f"{n} requests, {rep['served_cache']} from cache, "
+        f"{rep['served_engine']} through the engine, served-by equal one "
+        f"device's, answers and ids one device's exact top-1 (one "
+        f"device's pallas early exit answered {early} hits from another "
+        f"row above theta); cache_shards={rep['cache_shards']}, "
+        f"cache_rows_per_shard={rep['cache_rows_per_shard']}, per-shard "
+        f"bytes {mem['per_shard_bytes']:,} (one device "
+        f"{one['report']['memory']['per_shard_bytes']:,}); lookup p50 "
+        f"{four['lookup']['p50_ms']:.3f} ms (one device "
+        f"{one['lookup']['p50_ms']:.3f}); wall {four['wall_s']:.1f} s "
+        f"(one device {one['wall_s']:.1f})")
+    return {"requests": n, "one_device": one["report"],
+            "one_device_early_exit_answers": early,
+            "sharded": rep, "lookup_p50_ms": four["lookup"]["p50_ms"],
+            "lookup_p50_ms_one_device": one["lookup"]["p50_ms"],
+            "wall_s": four["wall_s"], "wall_s_one_device": one["wall_s"]}
+
+
+def shard_restore(torch, np, kept, seed: int, workdir) -> dict:
+    """(c): the S=4 cache of (a) snapshotted through the port's
+    CheckpointManager, restored onto S=4, S=8 and one device; each serves
+    SHARD_RESTORE_BATCHES batches (spill inserts between them) as the
+    uninterrupted cache does, element-wise, generation included."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.semantic_cache import SemanticCache
+    from repro_torch.distributed.cache_plane import ShardedCacheConfig
+    live = kept.pop("siso_s4").cache
+    t = time.perf_counter()
+    mgr = CheckpointManager(str(workdir / "ckpt"), keep=1)
+    mgr.save(1, {"cache": live.state_dict()})
+    _, rec = CheckpointManager(str(workdir / "ckpt"), keep=1) \
+        .restore_latest()
+    save_s = time.perf_counter() - t
+    layout = {k: int(v) for k, v in rec["cache"]["layout"].items()}
+    check(layout["n_shards"] == SHARD_MAIN_S,
+          f"[shard] (c) snapshot layout {layout}")
+    restored = {}
+    for S in (SHARD_MAIN_S, 8, 1):
+        c = SemanticCache(live.dim, live.answer_dim, live.capacity,
+                          backend="pallas", device=DEV,
+                          shard=ShardedCacheConfig(
+                              n_shards=S, mesh=shard_mesh(torch, S))
+                          if S > 1 else None)
+        c.load_state(rec["cache"])
+        c.rebuild_mirror()
+        restored[S] = c
+    rng = np.random.default_rng(seed + 19)
+    theta = kept["siso"].theta_r
+    for b in range(SHARD_RESTORE_BATCHES):
+        q = rng.normal(size=(4, D)).astype(np.float32)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        q[0] = live.spill.vectors[b % len(live.spill)]
+        q[1] = live.centroids.vectors[(7919 * b) % len(live.centroids)]
+        ref = live.lookup(q, theta)
+        for S, c in restored.items():
+            r = c.lookup(q, theta)
+            for f in ("hit", "sim", "entry", "region", "answer_id",
+                      "answer"):
+                check(np.array_equal(getattr(r, f), getattr(ref, f)),
+                      f"[shard] (c) restored S={S} batch {b}: {f} differs")
+            check(r.generation == ref.generation,
+                  f"[shard] (c) restored S={S} batch {b}: generation")
+        a = rng.normal(size=(D,)).astype(np.float32)
+        for c in (live, *restored.values()):
+            c.insert_spill(q[2], a, answer_id=3_000_000 + b)
+    for S, c in restored.items():
+        check(np.array_equal(c._spill_last_use, live._spill_last_use),
+              f"[shard] (c) restored S={S}: spill clocks differ")
+    log(f"[shard] (c) the S={SHARD_MAIN_S} cache snapshotted "
+        f"(layout {layout}) and restored onto S={SHARD_MAIN_S}, 8 and one "
+        f"device in {save_s:.2f} s: {SHARD_RESTORE_BATCHES} batches "
+        f"element-wise equal to the uninterrupted cache (sims bit-equal, "
+        f"generation {live.generation})")
+    return {"layout": layout, "save_restore_s": save_s,
+            "batches": SHARD_RESTORE_BATCHES}
+
+
+def shard_capacity(torch, np, seed: int) -> dict:
+    """(d), bench_shard's measurement 1 at dim 768: SHARD_PER_SHARD rows a
+    shard, S = 1, 2, 4, 8; then the batched top-1 lookup (pallas, host
+    clock around lookup, which ends in a copy to the host) over a fixed
+    SHARD_TOTAL-row corpus split S ways. No speedup is asserted: the
+    shards share one card. Bytes a shard are the layout's arithmetic
+    (``nbytes_per_shard``); what the card holds is measured beside them
+    (``torch.cuda.memory_allocated`` around the build), and grows with S
+    here, where every shard is on one card."""
+    import gc
+    from repro_torch.core.semantic_cache import SemanticCache
+    from repro_torch.core.store import CentroidStore
+    from repro_torch.distributed.cache_plane import ShardedCacheConfig
+    g = gen(torch, seed + 29)
+
+    def cache(S, n):
+        c = SemanticCache(D, D, capacity=n, backend="pallas", device=DEV,
+                          shard=ShardedCacheConfig(
+                              n_shards=S, mesh=shard_mesh(torch, S))
+                          if S > 1 else None)
+        v = torch.nn.functional.normalize(
+            torch.randn((n, D), generator=g, device=DEV), dim=1)
+        v = v.cpu().numpy()
+        st = CentroidStore(D, D)
+        st.add(v, v, np.ones(n), answer_id=np.arange(n))
+        c.set_centroids(st)
+        return c, v
+
+    cap = []
+    for S in (1,) + SHARD_COUNTS:
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        c, v = cache(S, SHARD_PER_SHARD * S)
+        c.lookup(v[:4], 0.9, update_counts=False)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        dev = c._dev
+        per = (dev.nbytes_per_shard() if S > 1 else
+               c.memory_bytes()["device_total_bytes"])
+        cap.append({"n_shards": S, "resident_rows": len(v),
+                    "rows_capacity": dev.rows, "per_shard_bytes": per,
+                    "card_bytes_held": held})
+        del c, v, dev
+    check(all(r["resident_rows"] == SHARD_PER_SHARD * r["n_shards"]
+              and r["per_shard_bytes"] == cap[0]["per_shard_bytes"]
+              for r in cap),
+          f"[shard] (d) the layout's bytes a shard are not flat: {cap}")
+    check(all(r["card_bytes_held"] >= r["n_shards"] * r["per_shard_bytes"]
+              for r in cap),
+          f"[shard] (d) the card holds fewer bytes than the shards' "
+          f"layout: {cap}")
+    lat = []
+    rng = np.random.default_rng(seed + 31)
+    for S in (1,) + SHARD_COUNTS:
+        c, v = cache(S, SHARD_TOTAL)
+        row = {"n_shards": S, "total_rows": SHARD_TOTAL}
+        for B in SHARD_BATCHES:
+            # random queries (no early exit) and one exact copy
+            q = rng.normal(size=(B, D)).astype(np.float32)
+            q /= np.linalg.norm(q, axis=1, keepdims=True)
+            q[0] = v[int(rng.integers(0, SHARD_TOTAL))]
+            c.lookup(q, 0.9, update_counts=False)       # warm
+            ts = []
+            for _ in range(SHARD_LOOKUP_REPS):
+                t0 = time.perf_counter()
+                r = c.lookup(q, 0.9, update_counts=False)
+                ts.append(1e3 * (time.perf_counter() - t0))
+            check(bool(r.hit[0]) and not r.hit[1:].any(),
+                  f"[shard] (d) S={S}: the copy missed or a random hit")
+            row[f"p50_ms_B{B}"] = statistics.median(ts)
+        lat.append(row)
+        del c, v
+    torch.cuda.empty_cache()
+    log("[shard] (d) capacity at dim 768, " + f"{SHARD_PER_SHARD:,} rows a "
+        "shard: " + "; ".join(
+            f"S={r['n_shards']} {r['resident_rows']:,} rows, "
+            f"{r['per_shard_bytes']:,} B a shard by the layout, "
+            f"{r['card_bytes_held']:,} B held on the card (allocator)"
+            for r in cap) + "; capacity across cards not verified (one card)")
+    log(f"[shard] (d) lookup over {SHARD_TOTAL:,} rows (pallas, host p50 "
+        f"of {SHARD_LOOKUP_REPS}, ms at B = {SHARD_BATCHES}): " + "; ".join(
+            f"S={r['n_shards']} " + "/".join(
+                f"{r[f'p50_ms_B{B}']:.3f}" for B in SHARD_BATCHES)
+            for r in lat))
+    return {"capacity": cap, "latency": lat}
+
+
+def compare_local(torch, ops, ref, x) -> float:
+    """K1's shard-local mode against its plain version on one input."""
+    kb, kl = ops.cosine_top1_local(x.q, x.rows, x.valid)
+    pb, pl = ref.cosine_top1_local_ref(x.q, x.rows, x.valid)
+    torch.cuda.synchronize()
+    B, n = x.q.shape[0], x.n
+    ctx = f"cosine_top1_local B={B} N={n}"
+    check(kb.shape == (B,) and kl.shape == (B,) and kl.dtype == torch.int32,
+          f"{ctx}: shapes")
+    check(torch.equal(kl, pl), f"{ctx}: rows differ")
+    fin = torch.isfinite(pb)
+    check(torch.equal(fin, torch.isfinite(kb)), f"{ctx}: finiteness")
+    e = float((kb[fin] - pb[fin]).abs().max()) if bool(fin.any()) else 0.0
+    check(e <= ATOL, f"{ctx}: max abs err {e}")
+    if not bool(x.valid.any()):
+        check(not bool(fin.any()) and bool((kl == 0).all()),
+              f"{ctx}: an all-invalid block must give -inf at row 0")
+    return e
+
+
+def shard_kernel_checks(torch, np, calls: set, kept, seed: int) -> dict:
+    """(e): K1-local against its plain version at every (B, N) the phase
+    launched, at N = 32 and 33 and on an all-invalid block; then timed at
+    the main shard shape (block 0 of the S=4 served mirror, B = 4)."""
+    from repro_torch.kernels.cosine_topk import ops, ref
+    shapes = {(B, n) for fn, B, n, *_ in calls if fn == "cosine_top1_local"}
+    check(shapes, "[shard] (e) K1-local was never called")
+    err = 0.0
+    for B, n in sorted(shapes | {(4, 32), (4, 33), (32, 33)}):
+        x = Inputs(torch, ops, B, seed + 3 * B + n, n)
+        err = max(err, compare_local(torch, ops, ref, x))
+    x = Inputs(torch, ops, 4, seed + 5, 4096)
+    x.valid = torch.zeros_like(x.valid)
+    compare_local(torch, ops, ref, x)
+    log(f"[shard] (e) K1-local agrees with its plain version at "
+        f"{len(shapes)} launched shapes (B, N) "
+        f"{sorted(shapes)}, at N = 32 and 33 and on an all-invalid block "
+        f"(max abs err {err:.3g})")
+    # K1's per-row arithmetic does not depend on N or on the row's tile:
+    # each shard block's K1-local result is K1's over the whole mirror
+    # with only that shard's rows valid, bit for bit (so sharded pallas
+    # sims equal one device's wherever both scan every row)
+    dev = kept["s4_dev"]
+    S, pad = dev.n_shards, dev.pad
+    whole = torch.empty((S * pad, D), device=DEV)
+    for s in range(S):
+        whole[s::S] = dev.mat[s]
+    for B in SHARD_BATCHES:
+        q = torch.tensor(kept["queries"][:B], device=DEV)
+        for s in range(S):
+            only = torch.zeros(S * pad, dtype=torch.bool, device=DEV)
+            only[s::S] = dev.valid[s]
+            fv, fi = ops.cosine_topk(q, whole, k=1, valid=only)
+            kb, kl = ops.cosine_top1_local(q, dev.mat[s], dev.valid[s])
+            check(torch.equal(kb, fv[:, 0])
+                  and torch.equal(kl.long() * S + s, fi[:, 0].long()),
+                  f"[shard] (e) K1-local on shard {s} of {S} (B={B}) is "
+                  f"not K1 over the whole mirror bit for bit")
+    del whole
+    log(f"[shard] (e) K1-local on each of the {S} shard blocks ({pad:,} "
+        f"rows) equals K1 over the whole {S * pad:,}-row mirror with only "
+        f"that shard's rows valid, bit for bit, at B = {SHARD_BATCHES}")
+    # timed at the main shard shape, B = 4 on the served mirror's S=4
+    # blocks in turn, as a lookup reads them: the four blocks' valid rows
+    # (about 112 MB) exceed the 50 MB L2, where one block alone would stay
+    # in it from call to call
+    q = torch.tensor(kept["queries"][:4], device=DEV)
+    need = sum(int(v.sum()) for v in dev.valid) / S
+    neg = torch.tensor(float("-inf"), device=DEV)
+    turn = [0]
+
+    def rotating(f):
+        def call():
+            s = turn[0] % S
+            turn[0] += 1
+            return f(dev.mat[s], dev.valid[s])
+        return call
+    kern = rotating(lambda m, v: ops.cosine_top1_local(q, m, v))
+    plain = rotating(lambda m, v: ref.cosine_top1_local_ref(q, m, v))
+    lib = rotating(lambda m, v: torch.max(torch.where(v[None], q @ m.T, neg),
+                                          dim=1))
+    b_ms, b_by = bound("cosine_topk", 4, 1, need, pad)
+    rec = {"B": 4, "N": pad, "rows_needed": need,
+           "ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain),
+           "library_ms": cuda_ms(torch, lib), "bound_ms": b_ms,
+           "bound_by": b_by}
+    rec.update(topk_device_ms(torch, kern, "cosine_top1_local", iters=20))
+    rec.update(library_device_ms(torch, lib))
+    dms = rec["device_ms"]
+    log(f"[shard] (e) K1-local B=4 on the {S} {pad:,}-row shard blocks in "
+        f"turn ({need:,.0f} valid rows each on average): kernel "
+        f"{rec['ms']:.4f} ms, device "
+        f"{'not measured' if dms is None else f'{dms:.4f} ms'} "
+        f"(records {rec.get('device_records')} of 20 calls), plain "
+        f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms "
+        f"(device {rec['library_device_ms']}, records "
+        f"{rec['library_device_records']} of 10 calls), bound {b_ms:.4f} ms ({b_by}"
+        f", {b_ms / rec['ms']:.3f} of the events time)")
+    return {"max_abs_err": err, "shapes": sorted(shapes), "timing": rec}
+
+
+def phase_shard(torch, np, models, kept, recorder, att_recorders,
+                seed: int) -> dict:
+    """Phase 9: the sharded cache plane (DESIGN.md §11) at the main path's
+    size on S virtual shards of the card: (a) plane equality, (b) the
+    served stream through a sharded gateway, (c) restore across shard
+    counts, (d) capacity scaling, (e) K1-local's checks and times. The
+    K1, K1-local, K2, K3 and K4 launch counters are zeroed just before
+    (a)-(c) and read just after; every call is noted for the re-checks."""
+    import os
+    import shutil
+    from repro_torch.core import semantic_cache as SC
+    from repro_torch.distributed import cache_plane as CP
+    from repro_torch.kernels.cosine_topk import ops
+    from repro_torch.models import layers as L
+    workdir = ROOT / "build" / f"shard-{os.getpid()}"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    kept["state"] = kept["siso"].state_dict()
+    t0 = time.perf_counter()
+    walls = {}
+    torch.cuda.synchronize()
+    zero_topk_launches()
+    zero_attention_launches()
+    SC.ctk_ops = CP.ctk_ops = recorder
+    try:
+        with recorded_ops(L, att_recorders):
+            t = time.perf_counter()
+            plane = shard_plane_equality(torch, np, kept, seed)
+            kept["s4_dev"] = kept["siso_s4"].cache._dev
+            walls["a"] = time.perf_counter() - t
+            t = time.perf_counter()
+            served = shard_served(torch, np, models, kept)
+            walls["b"] = time.perf_counter() - t
+            t = time.perf_counter()
+            restore = shard_restore(torch, np, kept, seed, workdir)
+            walls["c"] = time.perf_counter() - t
+            torch.cuda.synchronize()
+            n = {**topk_launches(), **attention_launches()}
+    finally:
+        SC.ctk_ops = CP.ctk_ops = ops
+        shutil.rmtree(workdir, ignore_errors=True)
+    check(n["cosine_top1_local"] > 0 and n["cosine_topk"] > 0
+          and n["cosine_topk_q8"] > 0 and n["flash_attention"] > 0
+          and n["flash_attention_f32"] > 0 and n["decode_attention"] > 0,
+          f"[shard] a kernel of the phase was never launched: {n}")
+    t = time.perf_counter()
+    capacity = shard_capacity(torch, np, seed)
+    walls["d"] = time.perf_counter() - t
+    t = time.perf_counter()
+    kern = shard_kernel_checks(torch, np, recorder.calls, kept, seed)
+    walls["e"] = time.perf_counter() - t
+    for k in ("s4_dev", "state", "boot_state"):
+        kept.pop(k)
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"[shard] phase done in {wall:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()) + f"); launches {n}")
+    return {"plane": plane, "served": served, "restore": restore,
+            "capacity": capacity, "kernel": kern, "launches": n,
+            "walls": walls, "wall_s": wall}
+
+
 def nvidia_smi() -> str:
     try:
         out = subprocess.run(
@@ -3532,8 +4237,9 @@ def main() -> int:
     models = build_models(torch, args.layers, args.seed)
     recorder = CallRecorder(ops)
     att_rec = (AttnRecorder(fa_ops), AttnRecorder(da_ops))
+    kept: dict = {}         # the served pallas SISO, for the shard phase
     serve = {b: serve_once(torch, np, b, models, recorder, att_rec,
-                           args.seed)
+                           args.seed, keep=kept if b == "pallas" else None)
              for b in ("pallas", "pallas_q8")}
     detail["serve"] = serve
     detail["serve_s"] = time.perf_counter() - t
@@ -3560,7 +4266,13 @@ def main() -> int:
     child_att = replicas.pop("child_att_calls")
     detail["replicas"] = replicas
     detail["replicas_s"] = replicas["wall_s"]
+    shard = phase_shard(torch, np, models, kept, recorder, att_rec,
+                        args.seed)
+    del kept
+    detail["shard"] = shard
+    detail["shard_s"] = shard["wall_s"]
     main_err = phase_main_shapes(torch, recorder.calls, args.seed)
+    err["cosine_top1_local"] = shard["kernel"]["max_abs_err"]
     check({c[0] for c in recorder.calls} == set(err),
           "[kernels] a kernel of the main path was never called")
     att_calls = att_rec[0].distinct() | att_rec[1].distinct() | child_att
@@ -3571,7 +4283,7 @@ def main() -> int:
               for c in att_calls),
           "[kernels] engine-long's K3 calls were not recorded")
     agree.merge(phase_attention_main_shapes(torch, att_calls, args.seed))
-    err = {fn: max(err[fn], main_err[fn]) for fn in err}
+    err = {fn: max(err[fn], main_err.get(fn, 0.0)) for fn in err}
     att_err = agree.err
     detail.update(max_abs_err={**err, **att_err},
                   bf16_limit_share=agree.share,
@@ -3579,12 +4291,16 @@ def main() -> int:
                   main_path_attention_calls=sorted(att_calls, key=repr))
 
     main_b = 4      # the served batch size, the one the kernels line times
+    timed_n = {name: N_ROWS for name in err}
+    timed_n["cosine_top1_local"] = shard["kernel"]["timing"]["N"]
     for name in err:
-        check(any(c[:3] == (name, main_b, N_ROWS) for c in recorder.calls),
+        check(any(c[:3] == (name, main_b, timed_n[name])
+                  for c in recorder.calls),
               f"[kernels] {name}: the main path never ran B={main_b} at "
-              f"N={N_ROWS}, the shape that is timed")
+              f"N={timed_n[name]}, the shape that is timed")
     replaces = {
         "cosine_topk": "src/repro/kernels/cosine_topk/kernel.py:49",
+        "cosine_top1_local": "src/repro/kernels/cosine_topk/ops.py:222",
         "cosine_topk_q8": "src/repro/kernels/cosine_topk/kernel.py:98",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:19",
         "flash_attention_f32":
@@ -3594,38 +4310,44 @@ def main() -> int:
             "src/repro/kernels/decode_attention/kernel.py:25"}
     sources = {
         "cosine_topk": "src/repro_torch/csrc/cosine_topk.cu",
+        "cosine_top1_local": "src/repro_torch/csrc/cosine_topk.cu",
         "cosine_topk_q8": "src/repro_torch/csrc/cosine_topk_q8.cu",
         "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
         "flash_attention_f32": "src/repro_torch/csrc/flash_attention.cu",
         "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
         "decode_attention_int8": "src/repro_torch/csrc/decode_attention.cu"}
     # launches on the main path: K1/K2 in their served stream, the slo
-    # phase's runs, the planes phase (its killed child included) and the
-    # replicas phase (its children and the launcher's workers included);
-    # K3/K4 in both served streams, both engine-long runs, the slo phase's
-    # live gateway, the planes phase's gateway restart and the replicas
-    # phase
+    # phase's runs, the planes phase (its killed child included), the
+    # replicas phase (its children and the launcher's workers included)
+    # and the shard phase, where K1-local runs; K3/K4 in both served
+    # streams, both engine-long runs, the slo phase's live gateway, the
+    # planes phase's gateway restart, the replicas phase and the shard
+    # phase's gateways
     launches = {"cosine_topk": serve["pallas"]["launches"]
                 + slo_sim["launches"]["cosine_topk"]
                 + slo_live["launches"]["cosine_topk"]
                 + planes["launches"]["cosine_topk"]
-                + replicas["launches"]["cosine_topk"],
+                + replicas["launches"]["cosine_topk"]
+                + shard["launches"]["cosine_topk"],
+                "cosine_top1_local": shard["launches"]["cosine_top1_local"],
                 "cosine_topk_q8": serve["pallas_q8"]["launches"]
                 + slo_sim["launches"]["cosine_topk_q8"]
                 + planes["launches"]["cosine_topk_q8"]
-                + replicas["launches"]["cosine_topk_q8"]}
+                + replicas["launches"]["cosine_topk_q8"]
+                + shard["launches"]["cosine_topk_q8"]}
     for name in att_err:
         launches[name] = sum(r["attention_launches"][name]
                              for r in serve.values()) + sum(
             r["launches"][name] for r in long_runs.values()) \
             + slo_live["launches"][name] + planes["launches"][name] \
-            + replicas["launches"][name]
+            + replicas["launches"][name] + shard["launches"][name]
         check(launches[name] > 0, f"[kernels] {name} was never launched on "
                                   f"the main path")
     # timed at the main path's shapes: K1/K2 at the served batch; K4 at the
     # engine's 4,096-token prefill; K3 at engine-long's kv length
     timed = {name: next(r for r in timing[name] if r["B"] == main_b)
-             for name in err}
+             for name in ("cosine_topk", "cosine_topk_q8")}
+    timed["cosine_top1_local"] = shard["kernel"]["timing"]
     timed["flash_attention"] = timing["flash_attention/prefill"]
     timed["flash_attention_f32"] = timing["flash_attention/embedder"]
     timed["decode_attention"] = \

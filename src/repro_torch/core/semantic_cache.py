@@ -15,8 +15,16 @@ Lookup backends:
   * "hnsw"      — locality-ordered HNSW on the host (``core/hnsw.py``,
                   §4.3), built lazily from centroids + spill and guarded
                   against a stale serving generation.
-The sharded plane (``shard=`` with more than one shard) arrives with
-ROADMAP Queue A item 5 and raises ``NotImplementedError`` here.
+Sharded cache plane (DESIGN.md §11): with a ``ShardedCacheConfig`` of
+more than one shard the mirror is split over the shards of a
+:class:`~repro_torch.launch.mesh.CacheMesh` (host row ``r`` on shard
+``r % S`` at local row ``r // S``, pow2-padded per shard,
+``distributed/cache_plane.py``). A lookup runs the top-1 on each shard and
+one cross-shard merge; spill inserts patch the owner shard in place; the
+shadow is staged in the (S, pad, ...) owner layout and committed with one
+upload per shard and one pointer swap. The host bookkeeping (LRU clocks,
+access counts, victims, generation) is the single-device path's, so the
+decisions are too; ``n_shards == 1`` is the single-device path itself.
 
 Device-resident hot path (DESIGN.md §4): the padded centroid/answer
 matrices are persistent tensors on ``device``. Offline refreshes rebuild
@@ -47,6 +55,8 @@ from repro_torch.core.hnsw import HNSW
 from repro_torch.core.store import CentroidStore
 from repro_torch.core.tenancy import fair_share_take
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.cache_plane import (ShardedDeviceState,
+                                                 ShardedQuantState, shard_pad)
 from repro_torch.kernels.cosine_topk import ops as ctk_ops
 from repro_torch.kernels.cosine_topk.ops import quantize_rows
 
@@ -66,6 +76,12 @@ def _upload(a: np.ndarray, device) -> torch.Tensor:
     """Copy a host array to the device (a copy on the CPU too: the mirror
     must never alias host buffers that keep mutating)."""
     return torch.tensor(np.ascontiguousarray(a), device=device)
+
+
+def _nbytes(t) -> int:
+    """Bytes of a mirror tensor, or of a sharded plane's list of blocks."""
+    return sum(int(b.nbytes) for b in t) if isinstance(t, list) \
+        else int(t.nbytes)
 
 
 def _f32(x: float, device) -> torch.Tensor:
@@ -171,14 +187,11 @@ class SemanticCache:
                  device: DeviceLike = None):
         if backend not in ("dense", "hnsw", "pallas", "pallas_q8"):
             raise ValueError(f"unknown cache backend {backend!r}")
-        # n_shards == 1 is the single-device path, as in the reference
-        self.shard = shard if shard is not None \
-            and getattr(shard, "n_shards", 1) > 1 else None
+        # n_shards == 1 is the single-device path, bit for bit
+        self.shard = shard if shard is not None and shard.n_shards > 1 \
+            else None
         self.backend = backend
         self._reject_hnsw_shard()
-        if self.shard is not None:
-            raise NotImplementedError(
-                "the sharded cache plane is not ported yet")
         self.device = resolve_device(device)
         self.dim = dim
         self.answer_dim = answer_dim
@@ -346,6 +359,16 @@ class SemanticCache:
         reads it in place; zero columns add exactly 0.0 to every dot."""
         return _lane_pad(self.dim) if self.backend == "pallas" else self.dim
 
+    def _mesh(self):
+        return self.shard.make_mesh()
+
+    @property
+    def _shard_floor(self) -> int:
+        """Per-shard pad floor: the int8 plane keeps >= 128 rows a shard,
+        so each block is kernel-tile shaped."""
+        return max(self.shard.pad_floor, 128) \
+            if self.backend == "pallas_q8" else self.shard.pad_floor
+
     def _device_state(self):
         if self._dev is None:
             nc = len(self.centroids)
@@ -358,12 +381,25 @@ class SemanticCache:
             if self.backend == "pallas_q8":   # int8 plane (DESIGN.md §15)
                 dpad = _lane_pad(self.dim)
                 codes, scales, err_max = self._quantize_all(vecs)
-                cp = np.zeros((pad, dpad), np.int8)
-                sp = np.zeros((pad,), np.float32)
-                cp[:n], sp[:n] = codes, scales
-                self._dev = _QuantDeviceState(
-                    _upload(cp, self.device), _upload(sp, self.device),
-                    _upload(valid, self.device), pad, dpad, err_max)
+                if self.shard is not None:
+                    self._dev = ShardedQuantState.build(
+                        self._mesh(), self.shard.n_shards, codes, scales,
+                        err_max, pad_floor=self._shard_floor)
+                else:
+                    cp = np.zeros((pad, dpad), np.int8)
+                    sp = np.zeros((pad,), np.float32)
+                    cp[:n], sp[:n] = codes, scales
+                    self._dev = _QuantDeviceState(
+                        _upload(cp, self.device), _upload(sp, self.device),
+                        _upload(valid, self.device), pad, dpad, err_max)
+            elif self.shard is not None:   # the sharded plane (§11)
+                self._dev = ShardedDeviceState.build(
+                    self._mesh(), self.shard.n_shards, vecs,
+                    np.concatenate([self.centroids.answers,
+                                    self.spill.answers]),
+                    np.concatenate([self.centroids.answer_id,
+                                    self.spill.answer_id]),
+                    pad_floor=self._shard_floor, backend=self.backend)
             else:
                 mat = np.zeros((pad, self._mat_width), np.float32)
                 ans = np.zeros((pad, self.answer_dim), np.float32)
@@ -383,55 +419,85 @@ class SemanticCache:
 
     # --------------------------------------------- double-buffered refresh
 
+    def _staged_rows(self, need: int) -> tuple:
+        """Leading shape of the staged buffers for ``need`` host rows:
+        (pad,), or (S, pad) in the sharded plane's owner layout."""
+        if self.shard is None:
+            return (_pow2_pad(need),)
+        S = self.shard.n_shards
+        return (S, shard_pad(need, S, self._shard_floor))
+
+    def _staged_at(self, lo: int, hi: int) -> tuple:
+        """Index of host rows lo..hi-1 in the staged buffers: the row
+        slice, or (shard r % S, local row r // S) when sharded."""
+        if self.shard is None:
+            return (slice(lo, hi),)
+        rows = np.arange(lo, hi)
+        return (rows % self.shard.n_shards, rows // self.shard.n_shards)
+
     def begin_shadow(self, n_new: int) -> None:
         """Open the shadow buffer for a refresh in flight (DESIGN.md §10):
         the new centroid region is staged host-side chunk by chunk while
-        the live mirror keeps serving; one commit_shadow makes it live."""
+        the live mirror keeps serving; one commit_shadow makes it live.
+        The sharded plane stages straight into the owner layout, so the
+        commit is one upload per shard."""
         keep_spill = min(len(self.spill), max(0, self.capacity - n_new))
-        pad = _pow2_pad(n_new + keep_spill)
+        rows = self._staged_rows(n_new + keep_spill)
         if self.backend == "pallas_q8":
             self._shadow = {
-                "codes": np.zeros((pad, _lane_pad(self.dim)), np.int8),
-                "scales": np.zeros((pad,), np.float32),
-                "valid": np.zeros((pad,), bool),
+                "codes": np.zeros(rows + (_lane_pad(self.dim),), np.int8),
+                "scales": np.zeros(rows, np.float32),
+                "valid": np.zeros(rows, bool),
                 "err_max": 0.0, "n_new": n_new, "filled": 0}
             return
+        # the sharded plane's blocks are (pad, dim), as the reference's
+        width = self.dim if self.shard is not None else self._mat_width
         self._shadow = {
-            "mat": np.zeros((pad, self._mat_width), np.float32),
-            "ans": np.zeros((pad, self.answer_dim), np.float32),
-            "valid": np.zeros((pad,), bool),
-            "aid": np.full((pad,), -1, np.int32),
+            "mat": np.zeros(rows + (width,), np.float32),
+            "ans": np.zeros(rows + (self.answer_dim,), np.float32),
+            "valid": np.zeros(rows, bool),
+            "aid": np.full(rows, -1, np.int32),
             "n_new": n_new, "filled": 0}
+
+    def _stage(self, at: tuple, vectors: np.ndarray, answers: np.ndarray,
+               answer_id: np.ndarray) -> None:
+        """Write host rows into the staged buffers at ``at``."""
+        sh = self._shadow
+        if self.backend == "pallas_q8":
+            codes, scales, err = quantize_rows(
+                np.asarray(vectors, np.float32).reshape(-1, self.dim),
+                width=_lane_pad(self.dim))
+            if len(err):
+                sh["err_max"] = max(sh["err_max"], float(err.max()))
+            sh["codes"][at] = codes
+            sh["scales"][at] = scales
+        else:
+            sh["mat"][at + (slice(0, self.dim),)] = vectors
+            sh["ans"][at] = answers
+            sh["aid"][at] = answer_id
+        sh["valid"][at] = True
 
     def shadow_write(self, vectors: np.ndarray, answers: np.ndarray,
                      answer_id: np.ndarray) -> None:
         """Stage one bounded chunk of the new centroid region (host-side
         memcpy — the live mirror is untouched)."""
-        sh = self._shadow
-        s, k = sh["filled"], len(vectors)
-        if self.backend == "pallas_q8":
-            codes, scales, err = quantize_rows(
-                np.asarray(vectors, np.float32).reshape(k, self.dim),
-                width=_lane_pad(self.dim))
-            if len(err):
-                sh["err_max"] = max(sh["err_max"], float(err.max()))
-            sh["codes"][s:s + k] = codes
-            sh["scales"][s:s + k] = scales
-        else:
-            sh["mat"][s:s + k, :self.dim] = vectors
-            sh["ans"][s:s + k] = answers
-            sh["aid"][s:s + k] = answer_id
-        sh["valid"][s:s + k] = True
-        sh["filled"] = s + k
+        s, k = self._shadow["filled"], len(vectors)
+        self._stage(self._staged_at(s, s + k), vectors, answers, answer_id)
+        self._shadow["filled"] = s + k
 
-    @staticmethod
-    def _regrow(arrays: dict, keys_fill: tuple, nc: int, pad: int) -> None:
-        """Grow staged host buffers to ``pad`` rows, keeping the first nc."""
+    def _regrow(self, keys_fill: tuple, need: int) -> None:
+        """Grow the staged buffers when ``need`` rows outgrow them (the
+        spill grew past the headroom while the shadow was staged)."""
+        sh = self._shadow
+        rows = self._staged_rows(need)
+        old = sh["valid"].shape
+        if rows[-1] <= old[-1]:
+            return
         for key, fill in keys_fill:
-            old = arrays[key]
-            grown = np.full((pad,) + old.shape[1:], fill, old.dtype)
-            grown[:nc] = old[:nc]
-            arrays[key] = grown
+            grown = np.full(rows + sh[key].shape[len(rows):], fill,
+                            sh[key].dtype)
+            grown[tuple(slice(0, n) for n in old)] = sh[key]
+            sh[key] = grown
 
     def commit_shadow(self, store: CentroidStore) -> None:
         """Atomic swap ending a double-buffered refresh: install the store,
@@ -448,24 +514,24 @@ class SemanticCache:
         nc, ns = len(store), len(self.spill)
         need = nc + ns
         q8 = self.backend == "pallas_q8"
-        if need > len(sh["valid"]):     # spill grew past the headroom
-            keys = ((("codes", 0), ("scales", 0.0), ("valid", False)) if q8
-                    else (("mat", 0.0), ("ans", 0.0), ("valid", False),
-                          ("aid", -1)))
-            self._regrow(sh, keys, nc, _pow2_pad(need))
+        self._regrow((("codes", 0), ("scales", 0.0), ("valid", False)) if q8
+                     else (("mat", 0.0), ("ans", 0.0), ("valid", False),
+                           ("aid", -1)), need)
         if ns:
-            sh["valid"][nc:need] = True
+            self._stage(self._staged_at(nc, need), self.spill.vectors,
+                        self.spill.answers, self.spill.answer_id)
+        pad = sh["valid"].shape[-1]
+        if self.shard is not None:     # one upload per shard, one swap
+            mesh, S = self._mesh(), self.shard.n_shards
             if q8:
-                sc, ss, err = quantize_rows(self.spill.vectors,
-                                            width=_lane_pad(self.dim))
-                sh["err_max"] = max(sh["err_max"], float(err.max()))
-                sh["codes"][nc:need], sh["scales"][nc:need] = sc, ss
+                self._dev = ShardedQuantState.from_shard_layout(
+                    mesh, S, sh["codes"], sh["scales"], sh["valid"],
+                    sh["err_max"])
             else:
-                sh["mat"][nc:need, :self.dim] = self.spill.vectors
-                sh["ans"][nc:need] = self.spill.answers
-                sh["aid"][nc:need] = self.spill.answer_id
-        pad = len(sh["valid"])
-        if q8:
+                self._dev = ShardedDeviceState.from_shard_layout(
+                    mesh, S, sh["mat"], sh["ans"], sh["valid"], sh["aid"],
+                    backend=self.backend)
+        elif q8:
             self._dev = _QuantDeviceState(
                 _upload(sh["codes"], self.device),
                 _upload(sh["scales"], self.device),
@@ -515,6 +581,13 @@ class SemanticCache:
             # f32-exact compare, as the device compares f32 sims to f32
             hit = sims >= np.float32(theta_r)
             answer, answer_id = self._host_gather(hit, idx, nc, B)
+        elif self.shard is not None:
+            # the sharded plane: the top-1 on each shard (K1's shard-local
+            # mode on pallas, the masked product on dense), then the merge
+            h, s, i, a, ai = self._device_state().lookup(queries, theta_r)
+            hit, sims, idx, answer, answer_id = (
+                x.cpu().numpy() for x in (h, s, i, a, ai))
+            answer_id = answer_id.astype(np.int64)
         else:
             dev = self._device_state()
             q = self._to_device(queries)
@@ -553,15 +626,24 @@ class SemanticCache:
 
     def _quant_lookup(self, queries: np.ndarray, theta_r: float
                       ) -> tuple[np.ndarray, np.ndarray]:
-        """K2 top-C (C = rescore_k) on the device, then the exact rescore."""
+        """K2 top-C (C = rescore_k) on the device, then the exact rescore.
+        Sharded, each shard gives its own top-C; a shard's C-th sim bounds
+        what it left out, so the margin check reads each shard's."""
         dev = self._device_state()
-        C = min(self.rescore_k, dev.rows)
-        s, i = ctk_ops.cosine_topk_q8(
-            self._to_device(queries), dev.codes, dev.scales, k=C,
-            valid=dev.valid, theta=theta_r, early_exit=False)
-        cand_s, cand_r = s.cpu().numpy(), i.cpu().numpy()
-        return self._rescore_exact(queries, cand_s, cand_r, cand_s[:, -1:],
-                                   dev.err_max)
+        if isinstance(dev, ShardedQuantState):
+            C = min(self.rescore_k, dev.pad)
+            s3, r3 = dev.candidates(queries, C)          # (B, S, C)
+            cand_s = s3.reshape(len(queries), -1)
+            cand_r = r3.reshape(len(queries), -1)
+            kth = s3[:, :, -1]                           # per-shard C-th
+        else:
+            C = min(self.rescore_k, dev.rows)
+            s, i = ctk_ops.cosine_topk_q8(
+                self._to_device(queries), dev.codes, dev.scales, k=C,
+                valid=dev.valid, theta=theta_r, early_exit=False)
+            cand_s, cand_r = s.cpu().numpy(), i.cpu().numpy()
+            kth = cand_s[:, -1:]
+        return self._rescore_exact(queries, cand_s, cand_r, kth, dev.err_max)
 
     def _rows_matrix(self, rows: Optional[np.ndarray]) -> torch.Tensor:
         """A zero (_pow2_pad(n), dim) matrix — the dense mirror's shape —
@@ -767,33 +849,46 @@ class SemanticCache:
         return self.hits / t if t else 0.0
 
     def layout_dict(self) -> dict:
-        """Device-mirror layout descriptor (single device)."""
-        pad = (self._dev.pad if self._dev is not None
-               else _pow2_pad(len(self.centroids) + len(self.spill)))
-        return {"n_shards": np.asarray(1), "rows": np.asarray(pad),
+        """Device-mirror layout descriptor (DESIGN.md §11, §12): how the
+        host rows sit on the device plane. Informational in a snapshot: a
+        restore may re-shard (the owner mapping is a pure function of the
+        row and the shard count, and lookups do not depend on it)."""
+        if self._dev is not None:
+            if self.shard is not None:
+                return self._dev.layout_dict()
+            return {"n_shards": np.asarray(1),
+                    "rows": np.asarray(self._dev.rows),
+                    "pad": np.asarray(self._dev.pad)}
+        n = len(self.centroids) + len(self.spill)
+        S = self.shard.n_shards if self.shard is not None else 1
+        pad = (shard_pad(n, S, self._shard_floor) if self.shard is not None
+               else _pow2_pad(n))
+        return {"n_shards": np.asarray(S), "rows": np.asarray(pad * S),
                 "pad": np.asarray(pad)}
 
     def memory_bytes(self) -> dict:
-        """Bytes-level accounting of the device mirror (DESIGN.md §15)."""
-        out = {"backend": self.backend, "n_shards": 1,
+        """Bytes-level accounting of the device mirror (DESIGN.md §15);
+        per-shard bytes divide the (evenly sharded) totals."""
+        S = self.shard.n_shards if self.shard is not None else 1
+        out = {"backend": self.backend, "n_shards": S,
                "mirror_live": self._dev is not None,
                "rows": len(self.centroids) + len(self.spill),
                "centroid_bytes": 0, "answer_bytes": 0,
                "codes_bytes": 0, "scales_bytes": 0, "meta_bytes": 0}
         dev = self._dev
-        if isinstance(dev, _QuantDeviceState):
-            out["codes_bytes"] = int(dev.codes.nbytes)
-            out["scales_bytes"] = int(dev.scales.nbytes)
+        if isinstance(dev, (_QuantDeviceState, ShardedQuantState)):
+            out["codes_bytes"] = _nbytes(dev.codes)
+            out["scales_bytes"] = _nbytes(dev.scales)
             out["centroid_bytes"] = out["codes_bytes"] + out["scales_bytes"]
-            out["meta_bytes"] = int(dev.valid.nbytes)
+            out["meta_bytes"] = _nbytes(dev.valid)
         elif dev is not None:
-            out["centroid_bytes"] = int(dev.mat.nbytes)
-            out["answer_bytes"] = int(dev.ans.nbytes)
-            out["meta_bytes"] = int(dev.valid.nbytes + dev.aid.nbytes)
+            out["centroid_bytes"] = _nbytes(dev.mat)
+            out["answer_bytes"] = _nbytes(dev.ans)
+            out["meta_bytes"] = _nbytes(dev.valid) + _nbytes(dev.aid)
         out["device_total_bytes"] = (out["centroid_bytes"]
                                      + out["answer_bytes"]
                                      + out["meta_bytes"])
-        out["per_shard_bytes"] = out["device_total_bytes"]
+        out["per_shard_bytes"] = out["device_total_bytes"] // S
         out["host_store_bytes"] = int(
             self.centroids.vectors.nbytes + self.centroids.answers.nbytes
             + self.spill.vectors.nbytes + self.spill.answers.nbytes)

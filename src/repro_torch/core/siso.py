@@ -11,15 +11,15 @@ The tiered hierarchy (``tiered=``, DESIGN.md §13) wraps the device cache
 in a :class:`~repro_torch.core.tiered.TieredCache`; tenant namespaces
 (``tenancy=``, §14) add per-tenant overlays, theta and fair-share
 eviction; ``state_dict``/``load_state``/``warm_start`` restore the whole
-serving plane (§12). The sharded plane (``shard=`` with more than one
-shard) arrives in a later slice and raises ``NotImplementedError``;
+serving plane (§12); the sharded cache plane (``shard=`` with more than
+one shard, §11) splits the device mirror over the shards of a cache mesh.
 ``tenant_ids`` without a tenancy config takes the single-namespace path,
 exactly as in the reference.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Optional
 
 import numpy as np
 
@@ -56,9 +56,11 @@ class SISOConfig:
                                      # clustering of an un-bootstrapped system
     refresh_async: bool = True       # incremental RefreshPipeline (§10)
     refresh_budget_s: float = 0.002  # ~wall budget of one refresh_tick()
-    shard: Optional[Any] = None      # only ShardedCacheConfig(n_shards=1),
-                                     # the single-device path; the sharded
-                                     # plane is not ported yet and raises
+    shard: Optional[ShardedCacheConfig] = None
+                                     # split the device mirror over a cache
+                                     # mesh (DESIGN.md §11); None or
+                                     # n_shards=1 keeps the single-device
+                                     # hot path bit-identical
     tiered: Optional[TieredCacheConfig] = None
                                      # device → host → disk hierarchy
                                      # (DESIGN.md §13); None keeps the
@@ -72,15 +74,11 @@ class SISOConfig:
 class SISO:
     def __init__(self, cfg: SISOConfig, slo_latency: float = 1.0,
                  llm_latency: float = 0.5, device: DeviceLike = None):
-        if cfg.shard is not None and not (
-                isinstance(cfg.shard, ShardedCacheConfig)
-                and cfg.shard.n_shards == 1):
-            raise NotImplementedError(
-                "SISOConfig.shard: the plane is not ported yet")
         self.cfg = cfg
         self.cache = SemanticCache(cfg.dim, cfg.answer_dim, cfg.capacity,
                                    backend=cfg.backend,
                                    spill_lru=cfg.spill_lru,
+                                   shard=cfg.shard,
                                    rescore_k=cfg.rescore_k, device=device)
         self.device = self.cache.device
         if cfg.tiered is not None:     # device→host→disk (DESIGN.md §13)
@@ -123,9 +121,7 @@ class SISO:
         ``cfg.to_siso_config()``, so the result is bit-identical to
         building from a SISOConfig with the same fields.
         ``cfg.replication`` is read by the launcher, which builds the
-        replica group, and is ignored here, as in the reference. A plane
-        that is not ported yet raises ``NotImplementedError`` naming it."""
-        cfg.check_ported()
+        replica group, and is ignored here, as in the reference."""
         return cls(cfg.to_siso_config(), slo_latency=cfg.slo_latency,
                    llm_latency=cfg.llm_latency, device=device)
 
@@ -704,7 +700,9 @@ class SISO:
             "refresh_cycles": self.pipeline.cycles,
             "refresh_ticks": self.pipeline.ticks,
             "mirror_generation": self.cache.generation,
-            "cache_shards": 1,
+            # sharded cache plane (DESIGN.md §11): 1 = single-device path
+            "cache_shards": (self.cache.shard.n_shards
+                             if self.cache.shard is not None else 1),
         }
         if hasattr(self.cache, "tier_stats"):   # hierarchy (DESIGN.md §13)
             out["tiers"] = self.cache.tier_stats()

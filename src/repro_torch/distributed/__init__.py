@@ -1,8 +1,15 @@
-"""Distributed planes, ported: delta replication across gateway replicas
+"""Distributed planes, ported: the sharded cache plane (``cache_plane``,
+its merges in ``collectives``), delta replication across gateway replicas
 (``replication``), its in-process and socket transports (``transport``)
 and the host-side fault tooling the drills use (``fault_tolerance``:
-network fault hooks, the SIGKILL helper). The sharded cache plane
-(``cache_plane``) holds its configuration until ROADMAP Queue A item 5."""
+network fault hooks, the SIGKILL helper)."""
+from repro_torch.distributed.cache_plane import (ShardedCacheConfig,
+                                                 ShardedDeviceState,
+                                                 ShardedQuantState,
+                                                 owner_shard,
+                                                 shard_local_row, shard_pad)
+from repro_torch.distributed.collectives import (cross_shard_top1,
+                                                 local_topk, sharded_topk)
 from repro_torch.distributed.fault_tolerance import (NetworkFaultHooks,
                                                      spawn_and_kill)
 from repro_torch.distributed.replication import (DeltaRecord, Replica,
@@ -15,4 +22,7 @@ from repro_torch.distributed.transport import (InProcessTransport,
 
 __all__ = ["DeltaRecord", "InProcessTransport", "NetworkFaultHooks",
            "Replica", "ReplicaGroup", "ReplicationConfig", "ReplicationLog",
-           "SocketTransport", "TransportConfig", "spawn_and_kill"]
+           "ShardedCacheConfig", "ShardedDeviceState", "ShardedQuantState",
+           "SocketTransport", "TransportConfig", "cross_shard_top1",
+           "local_topk", "owner_shard", "shard_local_row", "shard_pad",
+           "sharded_topk", "spawn_and_kill"]

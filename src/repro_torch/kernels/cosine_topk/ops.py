@@ -1,4 +1,5 @@
-"""Wrappers around the cosine top-k kernels (K1 f32, K2 int8).
+"""Wrappers around the cosine top-k kernels (K1 f32, K2 int8; K1's
+shard-local mode for the sharded cache plane, ``cosine_top1_local``).
 
 For CUDA tensors each wrapper launches its hand-written kernel (see
 ``kernel.py``) on the current stream, or raises; for CPU tensors it runs
@@ -132,30 +133,59 @@ def cosine_topk(queries: torch.Tensor, centroids: torch.Tensor, k: int = 1,
     serving mirror) is read in place.
     """
     _check_k(k)
-    B, D = queries.shape
-    N, Dc = centroids.shape
     if on_cpu(queries, centroids, valid):
         out = ref.cosine_topk_ref(queries, centroids, k, valid, theta,
                                   early_exit, block_n)
-    elif B == 0:
+    elif queries.shape[0] == 0:
         out = _empty(k, queries.device)
     else:
-        dev = queries.device
-        Dp = _ceil_to(max(D, Dc, 1), 128)
-        q = _lane_padded(queries, Dp, torch.float32)
-        c = _lane_padded(centroids, Dp, torch.float32)
-        v = _valid_bytes(valid, N, dev)
-        bn = ref.logical_block(N, block_n)
-        T = -(-N // bn)
-        out = _launch("cosine_topk", dev, B, T, k,
-                      (q.data_ptr(), c.data_ptr(), v.data_ptr()),
-                      (B, N, Dp, k, bn, float(np.float32(theta)),
-                       int(bool(early_exit))))
+        out = _k1(queries, centroids, k, valid, theta, block_n, early_exit)
         cosine_topk.launches += 1
     return out if return_hit else out[:2]
 
 
 cosine_topk.launches = 0
+
+
+def _k1(queries, centroids, k, valid, theta, block_n, early_exit):
+    """One launch of K1 on the card; the calling wrapper counts it."""
+    B, D = queries.shape
+    N, Dc = centroids.shape
+    dev = queries.device
+    Dp = _ceil_to(max(D, Dc, 1), 128)
+    q = _lane_padded(queries, Dp, torch.float32)
+    c = _lane_padded(centroids, Dp, torch.float32)
+    v = _valid_bytes(valid, N, dev)
+    bn = ref.logical_block(N, block_n)
+    T = -(-N // bn)
+    return _launch("cosine_topk", dev, B, T, k,
+                   (q.data_ptr(), c.data_ptr(), v.data_ptr()),
+                   (B, N, Dp, k, bn, float(np.float32(theta)),
+                    int(bool(early_exit))))
+
+
+def cosine_top1_local(queries: torch.Tensor, centroids: torch.Tensor,
+                      valid: torch.Tensor | None = None, block_n: int = 512
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shard-local exact top-1 for the sharded cache plane (DESIGN.md §11):
+    K1 at k=1, theta 2.0, early exit off, since the cross-shard merge needs
+    each shard's exact best row, not a good-enough one. A shard with no
+    valid row reports its -inf sim at row 0 (the reference clamps the -1),
+    which loses every cross-shard comparison. Returns ((B,) best sims f32,
+    (B,) local rows i32). Its launches count in
+    ``cosine_top1_local.launches``, not in K1's."""
+    if on_cpu(queries, centroids, valid):
+        return ref.cosine_top1_local_ref(queries, centroids, valid, block_n)
+    if queries.shape[0] == 0:
+        vals, idx, _ = _empty(1, queries.device)
+    else:
+        vals, idx, _ = _k1(queries, centroids, 1, valid, 2.0, block_n,
+                           False)
+        cosine_top1_local.launches += 1
+    return vals[:, 0], idx[:, 0].clamp_min(0)
+
+
+cosine_top1_local.launches = 0
 
 
 def cosine_topk_q8(queries: torch.Tensor, codes: torch.Tensor,

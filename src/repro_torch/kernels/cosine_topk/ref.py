@@ -89,6 +89,16 @@ def cosine_topk_ref(queries: torch.Tensor, centroids: torch.Tensor,
     return topk_tiles(sims, k, thr, early_exit, block_n)
 
 
+def cosine_top1_local_ref(queries: torch.Tensor, centroids: torch.Tensor,
+                          valid: torch.Tensor | None = None,
+                          block_n: int = 512):
+    """K1 at k=1, theta 2.0, early exit off -> ((B,) best, (B,) row); a
+    miss (no valid row) keeps its -inf sim at row 0, not -1."""
+    vals, idx, _ = cosine_topk_ref(queries, centroids, 1, valid, 2.0, False,
+                                   block_n)
+    return vals[:, 0], idx[:, 0].clamp_min(0)
+
+
 def cosine_topk_q8_ref(queries: torch.Tensor, codes: torch.Tensor,
                        scales: torch.Tensor, k: int = 1,
                        valid: torch.Tensor | None = None,

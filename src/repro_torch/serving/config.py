@@ -10,7 +10,8 @@ per concern:
         tiering=TieredCacheConfig(...),      # or None
         tenancy=TenancyConfig(...),          # or None
         persistence=PersistenceConfig(directory="..."),  # or None
-        sharding=None, replication=None,
+        sharding=ShardedCacheConfig(...),    # or None
+        replication=None,
         slo_latency=1.0, llm_latency=0.5,
     )
 
@@ -19,13 +20,13 @@ built through ``SISO.from_config(cfg)`` and
 through :meth:`ServingConfig.to_siso_config`, so new-style construction is
 bit-identical to building ``SISO(SISOConfig(...))`` with the same fields.
 
-The plane configs are carried over field for field. Tiering, tenancy,
-persistence and replication are ported; ``replication`` is read by the
-launcher, which builds the replica group (``launch/serve.py``), and
-``SISO.from_config`` ignores it, as the reference does. The sharded plane
-is not ported yet (ROADMAP Queue A item 5): building from a config with
-sharding over more than one shard raises ``NotImplementedError`` naming
-the plane (:meth:`ServingConfig.check_ported`).
+The plane configs are carried over field for field, and every plane is
+ported. ``replication`` is read by the launcher, which builds the replica
+group (``launch/serve.py``), and ``SISO.from_config`` ignores it, as the
+reference does. ``sharding`` places the cache's shards on the devices of
+its ``mesh`` (``launch/mesh.py``); left unset, the mesh is the first
+``n_shards`` CUDA devices, or virtual shards on the CPU for a frontend
+built with ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -89,19 +90,6 @@ class ServingConfig:
     replication: Optional[ReplicationConfig] = None  # DESIGN.md §16
     slo_latency: float = 1.0
     llm_latency: float = 0.5
-
-    def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` naming the first plane that is set
-        but not ported yet (sharding over more than one shard)."""
-        unported = {
-            "sharding": (self.sharding is not None
-                         and self.sharding.n_shards > 1),
-        }
-        for plane, is_set in unported.items():
-            if is_set:
-                raise NotImplementedError(
-                    f"ServingConfig.{plane}: the {plane} plane is not "
-                    f"ported yet")
 
     def to_siso_config(self) -> SISOConfig:
         """Lower to the flat ``SISOConfig``. Pure field plumbing, so

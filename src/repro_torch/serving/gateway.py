@@ -167,9 +167,7 @@ class ServingGateway:
         :class:`repro_torch.serving.config.ServingConfig` (DESIGN.md
         §16.4): the frontend through ``SISO.from_config`` on the engine's
         device (the port's default, ``cuda``, for an engine without one),
-        and persistence attached when ``cfg.persistence`` has a directory.
-        A plane that is not ported yet raises ``NotImplementedError``
-        naming it."""
+        and persistence attached when ``cfg.persistence`` has a directory."""
         from repro_torch.core.siso import SISO
         siso = SISO.from_config(cfg, device=getattr(engine, "device", None))
         gw = cls(siso, engine, embed_fn, answer_fn=answer_fn, clock=clock,

@@ -407,3 +407,107 @@ def test_cuda_f32_two_calls_bit_identical_and_outputs_fresh():
         assert torch.equal(x, s) and torch.equal(x, y)
     assert a[0].data_ptr() != b[0].data_ptr() != c[0].data_ptr()
     _assert_same(c, ref.cosine_topk_ref(q[:3], rows, 4, valid), "k=4")
+
+
+# K1's shard-local mode (cosine_top1_local) and the sharded cache plane on
+# virtual shards of one card.
+
+@pytest.mark.parametrize("Bq, n, d", [(4, 32, 768), (4, 33, 768),
+                                      (5, 600, 48), (1, 16384, 768),
+                                      (32, 4099, 100)])
+def test_cuda_top1_local_matches_plain_version(Bq, n, d):
+    """Blocks shorter than one 512-row tile and longer; an all-invalid
+    block reports -inf at row 0; each call counts one K1-local launch and
+    none of K1's."""
+    rng = np.random.default_rng(n)
+    rows = _unit(rng, n, d)
+    q = _unit(rng, Bq, d)
+    q[0] = rows[n - 1]
+    r, qq = torch.from_numpy(rows).to(DEV), torch.from_numpy(q).to(DEV)
+    for valid in (rng.random(n) > 0.3, np.zeros(n, bool)):
+        valid[n - 1] = valid.any()
+        v = torch.from_numpy(valid).to(DEV)
+        k1, local = ops.cosine_topk.launches, ops.cosine_top1_local.launches
+        kb, kl = ops.cosine_top1_local(qq, r, v)
+        pb, pl = ref.cosine_top1_local_ref(qq, r, v)
+        torch.cuda.synchronize()
+        assert ops.cosine_topk.launches == k1
+        assert ops.cosine_top1_local.launches == local + 1
+        assert kl.dtype == torch.int32 and torch.equal(kl, pl)
+        assert torch.equal(torch.isfinite(kb), torch.isfinite(pb))
+        fin = torch.isfinite(pb)
+        torch.testing.assert_close(kb[fin], pb[fin], atol=ATOL, rtol=0)
+        if not valid.any():
+            assert not fin.any() and (kl == 0).all()
+        else:
+            assert kl[0].item() == n - 1
+
+
+def test_cuda_top1_local_sims_do_not_depend_on_block_or_tile():
+    """K1's per-row arithmetic does not depend on N or on the row's tile:
+    each shard block's best sim equals K1's over the whole plane with only
+    that shard's rows valid, bit for bit. This is why sharded ``pallas``
+    sims equal unsharded ones."""
+    rng = np.random.default_rng(21)
+    n, d, S, Bq = 3000, 768, 4, 4
+    rows = _unit(rng, n, d)
+    q = torch.from_numpy(_unit(rng, Bq, d)).to(DEV)
+    r = torch.from_numpy(rows).to(DEV)
+    for s in range(S):
+        block = r[s::S].contiguous()
+        kb, kl = ops.cosine_top1_local(q, block)
+        only = torch.zeros(n, dtype=torch.bool, device=DEV)
+        only[s::S] = True
+        fv, fi = ops.cosine_topk(q, r, k=1, valid=only)
+        assert torch.equal(kb, fv[:, 0]), s
+        assert torch.equal(kl.long() * S + s, fi[:, 0].long()), s
+
+
+@pytest.mark.parametrize("S", [2, 4, 8])
+def test_cuda_sharded_plane_decides_as_single_device(S):
+    """The sharded plane on S virtual shards of the card: pallas (K1's
+    shard-local mode) equals the unsharded pallas cache field for field,
+    sims bit for bit; dense decides as dense, sims within ATOL; pallas_q8
+    decides as dense with bit-equal sims (DESIGN.md §15)."""
+    from repro_torch.core.semantic_cache import SemanticCache
+    from repro_torch.core.store import CentroidStore
+    from repro_torch.distributed.cache_plane import ShardedCacheConfig
+    from repro_torch.launch.mesh import make_cache_mesh
+    A = 16
+
+    def stream(backend, shards):
+        rng = np.random.default_rng(S)
+        shard = ShardedCacheConfig(n_shards=shards, mesh=make_cache_mesh(
+            shards, devices=[DEV] * shards)) if shards > 1 else None
+        cache = SemanticCache(D, A, capacity=760, backend=backend,
+                              device=DEV, shard=shard)
+        pool = _unit(rng, 700, D)
+        st = CentroidStore(D, A)
+        st.add(pool, pool[:, :A], rng.uniform(1, 50, 700).round(),
+               answer_id=np.arange(700))
+        cache.set_centroids(st)
+        out = []
+        for step in range(10):
+            m = int(rng.integers(1, 12))
+            q = _unit(rng, m, D)
+            q[::2] = pool[rng.integers(0, len(pool), size=m)][::2]
+            out.append(cache.lookup(q, 0.9))
+            for _ in range(int(rng.integers(0, 9))):
+                v = _unit(rng, 1, D)[0]
+                cache.insert_spill(v, v[:A], answer_id=1000 + step)
+                pool = np.vstack([pool, v])
+        return out, cache
+
+    dense, _ = stream("dense", 1)
+    for backend in ("pallas", "dense", "pallas_q8"):
+        single, _ = stream(backend, 1)
+        sharded, cache = stream(backend, S)
+        assert cache.dev_row_writes > 0 and cache.dev_rebuilds == 1
+        for r, u, d in zip(sharded, single, dense):
+            for f in ("hit", "entry", "region", "answer_id", "answer"):
+                np.testing.assert_array_equal(getattr(r, f), getattr(u, f))
+            if backend == "dense":
+                np.testing.assert_allclose(r.sim, u.sim, atol=ATOL, rtol=0)
+            else:
+                np.testing.assert_array_equal(r.sim, (u if backend ==
+                                                      "pallas" else d).sim)

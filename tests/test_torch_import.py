@@ -39,6 +39,19 @@ def test_port_imports_no_jax_and_no_reference():
     assert int(n) >= 20 and bad == "[]", out.stdout
 
 
+def test_sharded_plane_modules_import_no_jax():
+    """The sharded cache plane's modules are among those the probe above
+    walks; imported alone, each pulls in neither jax nor repro."""
+    probe = ("import sys, repro_torch.launch.mesh, "
+             "repro_torch.distributed.collectives, "
+             "repro_torch.distributed.cache_plane; print(sorted(m for m in "
+             "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", probe], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
 def test_chip_smoke_imports_no_jax_or_reference():
     src = (ROOT / "chip_smoke.py").read_text()
     for line in src.splitlines():

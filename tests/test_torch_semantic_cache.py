@@ -159,9 +159,37 @@ def test_state_dict_and_delta_match_jax_keys():
 
 
 def test_unported_backends_raise():
-    # the hnsw backend is ported (tests/test_torch_hnsw.py); the sharded
-    # plane is not
+    """Every backend and plane is ported now (the name is kept from when
+    the sharded plane raised here). A ShardedCacheConfig of two virtual
+    CPU shards builds and runs the stream as
+    the reference's single-device cache does (a sharded plane decides as
+    one device, DESIGN.md §11; the reference's own sharded plane is held
+    in tests/test_torch_sharded_cache.py, where it gets its devices). A
+    shard config without a mesh factory fails at the first lookup, as in
+    the reference."""
+    from repro_torch.distributed.cache_plane import ShardedCacheConfig
+    from repro_torch.launch.mesh import make_cache_mesh
+    mesh = make_cache_mesh(2, devices=["cpu"] * 2)
+    for backend in ("dense", "pallas"):
+        jc, jout = _run_stream(JCache, JStore, backend, 3)
+        tc, tout = _run_stream(TCache, TStore, backend, 3, device="cpu",
+                               shard=ShardedCacheConfig(n_shards=2,
+                                                        mesh=mesh))
+        assert tc.shard is not None and tc._dev.n_shards == 2
+        for jr, tr in zip(jout, tout):
+            for f in ("hit", "answer", "answer_id", "entry", "region"):
+                np.testing.assert_array_equal(getattr(tr, f),
+                                              getattr(jr, f), err_msg=f)
+            np.testing.assert_allclose(tr.sim, jr.sim, rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(tc._spill_last_use,
+                                      jc._spill_last_use)
+
     class Shard:
         n_shards = 2
-    with pytest.raises(NotImplementedError):
-        TCache(D, A, 16, shard=Shard(), device="cpu")
+    for cls, store, kw in ((TCache, TStore, {"device": "cpu"}),
+                           (JCache, JStore, {})):
+        c = cls(D, A, 16, shard=Shard(), **kw)
+        c.set_centroids(_store(store, _unit(np.random.default_rng(0), 4),
+                               np.ones(4), 0))
+        with pytest.raises(AttributeError, match="make_mesh"):
+            c.lookup(_unit(np.random.default_rng(1), 1), 0.9)

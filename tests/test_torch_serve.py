@@ -202,6 +202,14 @@ def test_socket_replica_launcher_miss_peer_hit_and_sigterm(tmp_path):
         for name, other in (("r0", "r1"), ("r1", "r0")):
             t = health["replicas"][name]["replication"]["transport"]
             assert t["kind"] == "socket" and other in t["peers"]
+        # r1's ack of the record crosses back to r0 after r1 applied it:
+        # under load /healthz can be read before r0 has taken it
+        deadline = time.monotonic() + 30.0
+        while health["replicas"]["r0"]["replication"]["transport"][
+                "peers"]["r1"]["acked_seq"] < 0:
+            assert time.monotonic() < deadline, f"no ack reached r0: {health}"
+            time.sleep(0.05)
+            health = _get(f"{url}/healthz")
         assert health["replicas"]["r0"]["replication"]["transport"][
             "peers"]["r1"]["acked_seq"] >= 0
         proc.send_signal(signal.SIGTERM)

@@ -3,11 +3,12 @@ package (ports of tests/test_serving_config.py): the nested config lowers
 to and rises from the flat SISOConfig field for field as the reference's
 does; ``SISO.from_config`` is bit-identical to old-style construction and
 decides as the reference does; every frontend satisfies the
-CacheFrontend protocol; the plane that is not ported yet (sharding over
-more than one shard) raises ``NotImplementedError`` naming it, while a
-set ``replication`` builds and is ignored by ``SISO.from_config`` as in
-the reference; and the ported planes (tiering, tenancy, persistence)
-build through ``ServingGateway.from_config`` as the reference's do.
+CacheFrontend protocol; a set ``sharding`` (two virtual CPU shards) and a
+set ``replication`` build and decide as the reference's configs do (the
+replica group is the launcher's, so ``SISO.from_config`` ignores
+``replication``, as in the reference); and the other planes (tiering,
+tenancy, persistence) build through ``ServingGateway.from_config`` as the
+reference's do.
 """
 import dataclasses
 
@@ -28,6 +29,7 @@ from repro_torch.core.tiered import TieredCacheConfig
 from repro_torch.distributed.cache_plane import ShardedCacheConfig
 from repro_torch.distributed.replication import ReplicationConfig
 from repro_torch.distributed.transport import TransportConfig
+from repro_torch.launch.mesh import make_cache_mesh
 from repro_torch.serving import CacheFrontend
 from repro_torch.serving.baselines import NoCache, VectorCache
 from repro_torch.serving.config import (CacheConfig, PersistenceConfig,
@@ -202,33 +204,37 @@ def test_protocol_rejects_non_frontends():
     assert not isinstance({"lookup": 1}, CacheFrontend)
 
 
-# -------------------------------------------------------- unported planes
+# ------------------------------------------- sharding and replication
 
 
 @pytest.mark.parametrize("plane", ["sharding", "replication"])
 def test_each_set_plane_raises_naming_it(plane):
-    """Sharding over more than one shard is not ported and raises naming
-    the plane. Replication is ported: as in the reference, the launcher
-    builds the replica group and ``SISO.from_config`` ignores the field —
-    it builds, and decides as the reference's and as a config without
-    it."""
-    value = {"sharding": ShardedCacheConfig(n_shards=2),
+    """Both planes are ported (the name is kept from when sharding raised
+    here). Sharding over two virtual CPU shards builds and decides as the
+    reference's config and
+    as the port's without it: a sharded plane decides as one device
+    (DESIGN.md §11); the reference's own sharded config is held in
+    tests/test_torch_sharded_cache.py, where it gets its devices.
+    Replication: as in the reference, the launcher builds the replica
+    group and ``SISO.from_config`` ignores the field — it builds, and
+    decides as the reference's and as a config without it."""
+    value = {"sharding": ShardedCacheConfig(
+                 n_shards=2, mesh=make_cache_mesh(2, devices=["cpu"] * 2)),
              "replication": ReplicationConfig(
                  transport=TransportConfig(kind="socket"))}[plane]
     cfg = ServingConfig(cache=CacheConfig(dim=D, answer_dim=D, capacity=32),
                         **{plane: value})
-    if plane == "sharding":
-        with pytest.raises(NotImplementedError, match=plane):
-            SISO.from_config(cfg, **CPU)
-        return
     jcfg = J.ServingConfig(
         cache=J.CacheConfig(dim=D, answer_dim=D, capacity=32),
-        replication=JReplication(transport=JTransport(kind="socket")))
+        replication=JReplication(transport=JTransport(kind="socket"))
+        if plane == "replication" else None)
     rng = np.random.default_rng(5)
     train, probe = _unit(rng, 24), _unit(rng, 8)
     built = [SISO.from_config(cfg, **CPU), JSISO.from_config(jcfg),
-             SISO.from_config(dataclasses.replace(cfg, replication=None),
+             SISO.from_config(dataclasses.replace(cfg, **{plane: None}),
                               **CPU)]
+    assert built[0].stats()["cache_shards"] == (2 if plane == "sharding"
+                                                else 1)
     res = []
     for s in built:
         s.bootstrap(train, train, answer_ids=np.arange(len(train)))

@@ -268,15 +268,45 @@ def test_mid_refresh_lookups_one_buffer_generation_and_spill_survives():
 
 
 def test_unported_planes_raise():
-    """Only the sharded plane is still unported; the tiered hierarchy and
-    tenant namespaces build (their parity is tests/test_torch_tiered.py and
-    tests/test_torch_tenancy.py)."""
+    """Every plane is ported now (the name is kept from when the sharded
+    plane raised here). A shard config that is not one fails as the
+    reference's SISO fails (AttributeError on ``n_shards``); a
+    ShardedCacheConfig of two virtual CPU shards builds and
+    serves as the reference's single-device SISO does (a sharded plane
+    decides as one device, DESIGN.md §11; the reference's own sharded SISO
+    is held in tests/test_torch_sharded_cache.py). The tiered hierarchy and
+    tenant namespaces build (their parity is tests/test_torch_tiered.py
+    and tests/test_torch_tenancy.py)."""
+    import warnings
     from repro_torch.core.tenancy import TenancyConfig
     from repro_torch.core.tiered import TieredCache, TieredCacheConfig
     from repro_torch.distributed.cache_plane import ShardedCacheConfig
-    for shard in (object(), ShardedCacheConfig(n_shards=2)):
-        with pytest.raises(NotImplementedError, match="shard"):
-            SISO(SISOConfig(shard=shard), **CPU)
+    from repro_torch.launch.mesh import make_cache_mesh
+    with pytest.raises(AttributeError, match="n_shards"):
+        SISO(SISOConfig(shard=object()), **CPU)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        with pytest.raises(AttributeError, match="n_shards"):
+            JSISO(JConfig(shard=object()))
+    rng = np.random.default_rng(4)
+    hist = _unit(rng, 64)
+    kw = dict(dim=16, answer_dim=16, capacity=96, dynamic_threshold=False,
+              theta_r=0.9)
+    shard = ShardedCacheConfig(n_shards=2,
+                               mesh=make_cache_mesh(2, devices=["cpu"] * 2))
+    s2 = SISO(SISOConfig(shard=shard, **kw), **CPU)
+    js = JSISO(JConfig(**kw))
+    q = np.concatenate([hist[:4], _unit(rng, 4)])
+    res = []
+    for s in (s2, js):
+        s.bootstrap(hist, hist, answer_ids=np.arange(64))
+        res.append(s.handle_batch(q))
+    assert s2.stats()["cache_shards"] == 2 and s2.cache._dev.n_shards == 2
+    for f in ("hit", "answer_id", "entry", "region"):
+        np.testing.assert_array_equal(getattr(res[0], f),
+                                      getattr(res[1], f))
+    np.testing.assert_allclose(res[0].sim, res[1].sim, atol=1e-5)
+    assert res[0].hit[:4].all() and not res[0].hit[4:].any()
     s = SISO(SISOConfig(tiered=TieredCacheConfig(host_capacity=8),
                         tenancy=TenancyConfig()), **CPU)
     assert isinstance(s.cache, TieredCache) and s.registry is not None

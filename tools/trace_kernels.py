@@ -3,7 +3,8 @@
 read from a ``torch.profiler`` trace, at the main path's shapes.
 
     python3 tools/trace_kernels.py [--src DIR] [--iters N] [--out DIR]
-                                   [--only topk,prefill,decode,embed] [--sass]
+                                   [--only topk,prefill,decode,embed,local]
+                                   [--sass]
 
 Traces K1 (f32 cosine top-k, k=1, early exit on, random queries so every
 tile is needed) and K2 (int8 cosine top-C, k=16), both at B in {1, 4, 8,
@@ -21,7 +22,12 @@ H=40/8, Dh=128), each beside scaled_dot_product_attention, with the host
 us a call (median of 200) at the short shapes, the device time of an
 empty kernel launched through ctypes on the current stream (the floor of
 a call this small) and, from ``cuobjdump -sass``, the instruction mix of
-each f32 K4 kernel and of its loops. For each call it prints every device kernel the call launched
+each f32 K4 kernel and of its loops; and K1's shard-local mode
+(``local``, ``cosine_top1_local``) at B=4 on four 16,384-row blocks of
+dim 768 whose first 9,072 rows are valid (chip_smoke's S=4 shard of the
+served mirror): one block every call, the four in turn, and the four in
+turn with a 128 MB write between calls that evicts the 50 MB L2, each
+with the number of kernel records the trace holds. For each call it prints every device kernel the call launched
 (pass 1 and pass 2 of K1/K2 apart, K3's casts and passes apart) with its
 mean time per call; for K4 the achieved TFLOP/s of the causal half, for
 K1, K2 and K3 the share of their bytes bound (3.35 TB/s) that their own
@@ -48,14 +54,20 @@ PREFILL = dict(B=1, L=4096, H=40, Hkv=8, Dh=128)
 DECODE = dict(B=4, H=40, Hkv=8, Dh=128)
 DECODE_CALLS = ((8192, 4096), (32768, 32768))   # (cache length, kv_len)
 H100_BYTES_PER_S = 3.35e12
-GROUPS = ("topk", "prefill", "decode", "embed")
+GROUPS = ("topk", "prefill", "decode", "embed", "local")
 TOPK_BATCHES = (1, 4, 8, 32)
 
 
-def device_kernel_ms(torch, fn, iters: int = 10, warmup: int = 3) -> dict:
-    """{device kernel name: mean ms per call of ``fn``} from a profiler
-    trace of ``iters`` calls, after ``warmup`` untraced ones. Empty when
-    the profiler recorded no device activity."""
+def device_kernel_ms(torch, fn, iters: int = 10, warmup: int = 3
+                     ) -> tuple[dict, dict]:
+    """({device kernel name: ms per call of ``fn``}, {name: records}) from
+    a profiler trace of ``iters`` calls, after ``warmup`` untraced ones.
+    A kernel's ms per call is its mean over the records the trace holds,
+    times the whole launches per call those records show (at least one):
+    a trace can come back short of records, and a sum over ``iters``
+    calls would then read short. Where the trace is whole this is the sum
+    over the calls divided by ``iters``. Both empty when the profiler
+    recorded no device activity."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -65,13 +77,18 @@ def device_kernel_ms(torch, fn, iters: int = 10, warmup: int = 3) -> dict:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    out: dict = {}
+    total: dict = {}
+    records: dict = {}
     for e in prof.events():
         if str(e.device_type).endswith("CUDA"):
             name = e.name[:100]
-            out[name] = out.get(name, 0.0) \
-                + (e.time_range.end - e.time_range.start) / 1e3 / iters
-    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+            total[name] = total.get(name, 0.0) \
+                + (e.time_range.end - e.time_range.start) / 1e3
+            records[name] = records.get(name, 0) + 1
+    ms = {n: t / records[n] * max(1, records[n] // iters)
+          for n, t in total.items()}
+    order = sorted(ms, key=lambda n: -ms[n])
+    return {n: ms[n] for n in order}, {n: records[n] for n in order}
 
 
 def host_us_per_call(torch, fn, n: int = 50) -> float:
@@ -177,6 +194,8 @@ def main() -> int:
         trace_decode(torch, g, args.iters, res)
     if "embed" in only:
         trace_embed(torch, fa, _build, g, max(args.iters, 20), res)
+    if "local" in only:
+        trace_local(torch, ops, g, max(args.iters, 20), res)
     out = ROOT / args.out
     out.mkdir(parents=True, exist_ok=True)
     (out / "trace_kernels.json").write_text(json.dumps(res, indent=1))
@@ -211,14 +230,14 @@ def trace_topk(torch, ops, g, iters: int, res: dict) -> None:
                 call = lambda: ops.cosine_topk_q8(q, codes, scales, k=k,
                                                   valid=valid, theta=0.95,
                                                   return_hit=True)
-            split = device_kernel_ms(torch, call, iters)
+            split, records = device_kernel_ms(torch, call, iters)
             own = sum(t for n, t in split.items() if "ctk::" in n)
             host_us = host_us_per_call(torch, call)
             nbytes = (B * D * 4 + N_ROWS + n_valid * row_bytes
                       + B * k * 8 + B)
             bound_ms = 1e3 * nbytes / H100_BYTES_PER_S
             res[f"{fn}/B={B}"] = {
-                "kernels_ms": split, "kernel_ms": own,
+                "kernels_ms": split, "records": records, "kernel_ms": own,
                 "all_ms": sum(split.values()), "launches": len(split),
                 "host_us_per_call": host_us, "bound_ms": bound_ms,
                 "share_of_bound": bound_ms / own if own else None}
@@ -231,12 +250,56 @@ def trace_topk(torch, ops, g, iters: int, res: dict) -> None:
                   flush=True)
 
 
+def trace_local(torch, ops, g, iters: int, res: dict) -> None:
+    """K1-local at B=4 on four (16,384, 768) blocks, the first 9,072 rows
+    of each valid: every device kernel's mean ms a call and its record
+    count, for one block every call, the blocks in turn, and the blocks in
+    turn with the L2 evicted between calls (the eviction's own kernel is
+    left out). The bytes bound counts the valid rows once."""
+    S, pad, n_valid, B = 4, 16384, 9072, 4
+    blocks = [torch.nn.functional.normalize(
+        torch.randn((pad, D), generator=g, device="cuda"), dim=1)
+        for _ in range(S)]
+    valid = torch.zeros(pad, dtype=torch.bool, device="cuda")
+    valid[:n_valid] = True
+    q = torch.nn.functional.normalize(
+        torch.randn((B, D), generator=g, device="cuda"), dim=1)
+    evict = torch.empty(32 << 20, device="cuda")     # 128 MB
+    bound_ms = 1e3 * (B * D * 4 + pad + n_valid * 4 * D + B * 8) \
+        / H100_BYTES_PER_S
+    for label, turn, flush in (("one block", False, False),
+                               ("in turn", True, False),
+                               ("in turn, L2 evicted", True, True)):
+        calls = [0]
+
+        def call():
+            if flush:
+                evict.zero_()
+            ops.cosine_top1_local(q, blocks[calls[0] % S if turn else 0],
+                                  valid)
+            calls[0] += 1
+        split, records = device_kernel_ms(torch, call, iters)
+        ms = {n[:60]: t for n, t in split.items()
+              if "ctk::" in n or "clamp" in n}
+        count = {n[:60]: records[n] for n in split
+                 if "ctk::" in n or "clamp" in n}
+        own = sum(ms.values())
+        res[f"cosine_top1_local/{label}"] = {
+            "kernels_ms": ms, "records": count, "calls": iters,
+            "kernel_ms": own, "bound_ms": bound_ms,
+            "share_of_bound": bound_ms / own if own else None}
+        print(f"[trace] cosine_top1_local B={B}, {label}: " + "; ".join(
+            f"{n} {t:.4f} ms ({count[n]} records of {iters} calls)"
+            for n, t in ms.items()) + f"; own {own:.4f} ms; bound "
+            f"{bound_ms:.4f} ms (bytes)", flush=True)
+
+
 def trace_prefill(torch, fa, g, iters: int, res: dict) -> None:
     B, L, H, Hkv, Dh = (PREFILL[x] for x in ("B", "L", "H", "Hkv", "Dh"))
     q = torch.randn((B, L, H, Dh), generator=g, device="cuda").bfloat16()
     k, v = (torch.randn((B, L, Hkv, Dh), generator=g,
                         device="cuda").bfloat16() for _ in range(2))
-    split = device_kernel_ms(
+    split, _ = device_kernel_ms(
         torch, lambda: fa.flash_attention(q, k, v, causal=True), iters)
     flops = 4.0 * B * H * Dh * L * (L + 1) // 2
     main_ms = max(split.values()) if split else float("nan")
@@ -268,7 +331,7 @@ def trace_decode(torch, g, iters: int, res: dict) -> None:
             bound_ms = 1e3 * nbytes / H100_BYTES_PER_S
             for idt in (torch.int32, torch.int64):
                 kv_len = torch.full((B,), n_kv, dtype=idt, device="cuda")
-                split = device_kernel_ms(
+                split, _ = device_kernel_ms(
                     torch, lambda: da.decode_attention(q, k, v, kv_len, **sc),
                     iters)
                 own = sum(t for n, t in split.items() if "da::" in n)
@@ -295,7 +358,7 @@ def trace_decode(torch, g, iters: int, res: dict) -> None:
                         < n_kv)[:, None, None, :].expand(B, 1, 1, Lc)
                 qt = q[:, :, None]
                 kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-                split = device_kernel_ms(
+                split, _ = device_kernel_ms(
                     torch, lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=mask, enable_gqa=True), iters)
                 key = f"sdpa/bf16/Lc={Lc}/kv_len={n_kv}"
@@ -447,7 +510,7 @@ def trace_embed(torch, fa, _build, g, iters: int, res: dict) -> None:
         lib = lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=kw["causal"], enable_gqa=H != Hkv)
         n = iters if Lq <= HOST_TIMED_MAX_L else LONG_ITERS
-        own, other = (device_kernel_ms(torch, f, n, warmup=1)
+        own, other = (device_kernel_ms(torch, f, n, warmup=1)[0]
                       for f in (call, lib))
         pairs = Lq * (Lq + 1) // 2 if kw["causal"] else Lq * Lkv
         nbytes = 4 * (2 * B * Lq * H * Dh + 2 * B * Lkv * Hkv * Dh)
@@ -472,7 +535,7 @@ def trace_embed(torch, fa, _build, g, iters: int, res: dict) -> None:
         del q, k, v, qt, kt, vt
     empty = empty_launcher(torch, _build)
     for B in (4, 1):
-        split = device_kernel_ms(torch, lambda: empty(1, 12, B), iters)
+        split, _ = device_kernel_ms(torch, lambda: empty(1, 12, B), iters)
         host = host_us_median(torch, lambda: empty(1, 12, B))
         res[f"empty_kernel/grid=1x12x{B}"] = {
             "kernels_ms": split, "kernel_ms": sum(split.values()),
