@@ -178,6 +178,31 @@ Phases (any failure exits non-zero and prints no result line):
               plain version at every shape it ran, at N = 32 and 33 and
               on an all-invalid block, bit for bit against K1 over the
               whole mirror, and timed at the S=4 block (B = 4).
+10. zoo     — the MoE + sliding-window kind and the VLM prefix-LM, after
+              shard, once the qwen3 weights are freed: (a) mixtral-8x7b at
+              full width (d 4,096, 8 experts of d_ff 14,336 top-2, 32/8
+              heads of 128, window 4,096) cut to 8 of its 32 layers (93.4
+              GB in bf16 is more than the card), seeded random weights,
+              ModelEngine(n_slots=4, max_len=8192), a ring of 4,096 slots:
+              four 4,608-token prompts (K4 with the window; the ring
+              wraps in prefill), then 16 decode steps (K3 over the ring),
+              once with the bf16 KV cache and once with the int8 one; the
+              first prefill's and the first step's logits held against
+              the plain layers at ZOO_RTOL (a routing flip between the two
+              runs may be held with the kernel run's routing forced; the
+              share of flipped tokens a layer is logged), and the window
+              dropped from the plain prefill must exceed it; (b)
+              paligemma-3b at full size (18 layers): lm.prefill of B = 2,
+              256 seeded patch embeddings + 256 text tokens (K4: prefix
+              256, Dh 256, one kv head), then 8 decode steps (K3: Dh 256,
+              8 query heads a kv head), logits held the same way, the
+              prefix made causal the fault; (c) for both, the K3/K4
+              counters zeroed and read around the runs, every distinct
+              call re-checked at its own arguments with the other
+              phases', and a short torch.profiler trace of a prefill and
+              two decode steps: busy ms, K4's/K3's share, the MoE's and
+              its dispatch's share; prefill and decode ms and the peak
+              memory logged.
 
 The line before the last is a JSON object with one entry per kernel (K1's
 shard-local mode, K3's int8 mode and K4's f32 mode, the embedder's call,
@@ -193,6 +218,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import statistics
 import subprocess
@@ -1482,7 +1508,9 @@ def device_summary(prof, n: int) -> dict:
     kernel name and the largest kernels. Empty without device events."""
     dev = sorted((e.time_range.start, e.time_range.end, e.name)
                  for e in prof.events()
-                 if str(e.device_type).endswith("CUDA"))
+                 if str(e.device_type).endswith("CUDA")
+                 # a range's device-side copy is a span, gaps included
+                 and not getattr(e, "is_user_annotation", False))
     if not dev:
         return {}
     busy, end = 0.0, float("-inf")
@@ -1576,8 +1604,9 @@ def phase_engine_long(torch, np, models, att_recorders, seed: int,
         rel_fault = None
         if kv_dtype == "bfloat16":
             def faulty(q, k, v, **kw):
-                check(kw == {"causal": True}, f"[engine-long] prefill "
-                                              f"attention called with {kw}")
+                check(kw == {"causal": True, "window": None,
+                             "prefix_len": 0},
+                      f"[engine-long] prefill attention called with {kw}")
                 return flash_tile_dropped(torch, q, k, v)
             with swap_attention(L, flash=faulty):
                 fl, _ = lm.prefill(mparams, cfg, first, lm.init_cache(
@@ -4150,6 +4179,439 @@ def phase_shard(torch, np, models, kept, recorder, att_recorders,
             "walls": walls, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: zoo, the MoE + sliding-window kind and the VLM prefix-LM
+# ---------------------------------------------------------------------------
+
+ZOO_RTOL = 0.05     # as ENGINE_RTOL: the largest |kernel - plain| logit
+                    # over the largest |plain| logit, bf16 activations
+                    # through 8 (mixtral) or 18 (paligemma) layers of random
+                    # weights; each K3/K4 call is also held against its
+                    # plain version at its own arguments. A planted fault
+                    # must exceed it: the window dropped from mixtral's
+                    # prefill (the last 512 of 4,608 rows see 512 more
+                    # keys), paligemma's prefix made causal
+MIXTRAL_LAYERS = 8  # of 32: 32 layers in bf16 are 93.4 GB, more than the
+                    # card's 80 GB; widths, experts and window unchanged
+MIXTRAL_PROMPT = 4608       # past the 4,096-token window: the ring wraps
+MIXTRAL_SLOTS, MIXTRAL_MAX, MIXTRAL_STEPS = 4, 8192, 16     # Lc = 4,096
+PALI_B, PALI_TEXT, PALI_STEPS = 2, 256, 8    # after 256 patch embeddings
+
+
+class routing:
+    """Within the block, every MoE layer's gating notes its expert indices
+    in ``idx`` (one entry a call), or takes them from ``force`` (a run's
+    notes) with the gates renormalised over the forced experts' own
+    probabilities: the plain run held with the kernel run's routing."""
+
+    def __init__(self, L, force=None):
+        self.L, self.force, self.idx = L, force, []
+
+    def __enter__(self):
+        real = self.saved = self.L.moe_gating
+
+        def gating(logits, top_k, renormalize=True):
+            gates, idx, aux = real(logits, top_k, renormalize)
+            if self.force is not None:
+                idx = self.force[len(self.idx)]
+                gates = logits.float().softmax(dim=-1).gather(-1, idx)
+                gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(
+                    1e-9)
+            self.idx.append(idx)
+            return gates, idx, aux
+        self.L.moe_gating = gating
+        return self
+
+    def __exit__(self, *exc):
+        self.L.moe_gating = self.saved
+
+
+def flip_shares(a: list, b: list) -> list:
+    """Per MoE call (one a layer), the share of tokens whose top-k expert
+    set differs between two runs' notes."""
+    return [float((x.sort(dim=-1).values != y.sort(dim=-1).values)
+                  .any(dim=-1).float().mean()) for x, y in zip(a, b)]
+
+
+def zoo_trace(torch, L, fn, n: int) -> dict:
+    """``fn`` (``n`` repeats of the work) under torch.profiler, each MoE
+    dispatch in a ``zoo::moe`` range and its expert products
+    (``layers._experts``) in ``zoo::experts``: per repeat, the device's
+    busy ms, K4's (``flash_bf16``) and K3's (``da::decode``) ms, the MoE's
+    device ms and its dispatch's (the MoE's kernels other than the expert
+    products: routing, ranking, scatter, gather, combine). Empty where
+    the profiler recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    real_moe, real_experts = L._moe_dispatch, L._experts
+
+    def moe(*a, **kw):
+        with record_function("zoo::moe"):
+            return real_moe(*a, **kw)
+
+    def experts(*a, **kw):
+        with record_function("zoo::experts"):
+            return real_experts(*a, **kw)
+    torch.cuda.synchronize()
+    L._moe_dispatch, L._experts = moe, experts
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        L._moe_dispatch, L._experts = real_moe, real_experts
+    tr = device_summary(prof, n)
+    if not tr:
+        return {}
+    by_name = tr.pop("by_name_ms")
+    out = {"busy_ms": tr["busy_ms"], "device_events": tr["device_events"],
+           "k4_ms": sum(t for k, t in by_name.items() if "flash_bf16" in k),
+           "k3_ms": sum(t for k, t in by_name.items() if "da::decode" in k),
+           "top_kernels_ms": tr["top_kernels_ms"]}
+
+    # the host-side ranges: their kernels and their children's, each once
+    # (the profiler's device-side copy of a range is a span, gaps
+    # included, and is left out)
+    ranges: dict = {}
+    for e in prof.events():
+        if e.name.startswith("zoo::") and str(e.device_type).endswith("CPU"):
+            ranges[e.name] = ranges.get(e.name, 0.0) + e.device_time_total
+    if "zoo::moe" in ranges:       # None: the ranges hold no device time
+        moe = ranges["zoo::moe"] / 1e3 / n
+        out["moe_ms"] = moe or None
+        out["moe_dispatch_ms"] = (
+            moe - ranges.get("zoo::experts", 0.0) / 1e3 / n) if moe else None
+    for key in ("k4_ms", "k3_ms", "moe_ms", "moe_dispatch_ms"):
+        if out.get(key) is not None:
+            out[key.replace("_ms", "_share")] = out[key] / out["busy_ms"]
+    return out
+
+
+def log_zoo_trace(what: str, tr: dict) -> None:
+    if not tr:
+        log(f"[zoo] {what}: the profiler recorded no device activity; the "
+            f"split is not measured")
+        return
+    parts = [f"device busy {tr['busy_ms']:.3f} ms ({tr['device_events']} "
+             f"device events)"]
+    for key, name in (("k4", "K4"), ("k3", "K3"), ("moe", "MoE"),
+                      ("moe_dispatch", "MoE dispatch")):
+        if tr.get(f"{key}_share") is not None and tr[f"{key}_ms"]:
+            parts.append(f"{name} {tr[f'{key}_ms']:.3f} ms "
+                         f"({tr[f'{key}_share']:.3f})")
+        elif f"{key}_ms" in tr and key.startswith("moe"):
+            parts.append(f"{name} not measured")
+    log(f"[zoo] {what}: " + ", ".join(parts) + "; most device time: "
+        + "; ".join(f"{n} {t:.3f} ms" for n, t in tr["top_kernels_ms"]))
+
+
+def zoo_rel(torch, cfg, a, b) -> float:
+    """``rel_diff`` over the vocabulary's logits: the padded columns hold
+    the dtype's lowest value in both and would be the largest."""
+    V = cfg.vocab_size
+    return rel_diff(torch, a[..., :V], b[..., :V])
+
+
+def zoo_held(torch, L, cfg, what: str, forward, kernel, kernel_notes, plain,
+             plain_notes) -> dict:
+    """The kernel run's logits held against the plain layers' at
+    ZOO_RTOL. A routing flip (a token's expert set differing between the
+    two runs) can move the logits past it on its own; then ``forward``
+    runs the plain side again with the kernel run's routing forced, and
+    that is held."""
+    rel = zoo_rel(torch, cfg, kernel, plain)
+    flips = flip_shares(kernel_notes, plain_notes)
+    held, forced = rel, None
+    if rel > ZOO_RTOL and any(flips):
+        with routing(L, force=kernel_notes), swap_attention(L):
+            held = forced = zoo_rel(torch, cfg, kernel, forward())
+    check(held <= ZOO_RTOL, f"[zoo] {what}: kernel vs plain logits differ "
+                            f"by {held:.4g} of the largest logit, over "
+                            f"{ZOO_RTOL} (routing flips per layer {flips})")
+    return {"rel_diff": rel, "rel_diff_forced_routing": forced,
+            "rel_diff_held": held, "routing_flip_share": flips}
+
+
+def zoo_mixtral(torch, np, L, lm, mparams, mcfg, att_recorders, seed: int,
+                kv_dtype: str) -> dict:
+    """Four 4,608-token prompts prefilled into a 4-slot engine (K4 with the
+    window on every layer; the ring of 4,096 slots wraps), then 16 batched
+    decode steps (K3 over the ring). The first prefill's last-position
+    logits and the first decode step's are held against the plain layers
+    (``zoo_held``); with the bf16 cache, the window dropped from the plain
+    prefill must move them past ZOO_RTOL. Launch counters and recorders
+    as in engine-long."""
+    from repro_torch.serving.engine import ModelEngine
+    cfg = mcfg.replace(kv_dtype=kv_dtype)
+    n = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 11)
+    prompts = [rng.integers(0, cfg.vocab_size, MIXTRAL_PROMPT)
+               for _ in range(MIXTRAL_SLOTS)]
+    first = {"tokens": torch.tensor(prompts[0][None], device=DEV)}
+    rec: dict = {"kv_dtype": kv_dtype}
+    with torch.inference_mode():
+        def prefill1():
+            return lm.prefill(mparams, cfg, first, lm.init_cache(
+                cfg, 1, MIXTRAL_PROMPT, device=DEV))[0]
+        with routing(L) as kr:
+            kl = prefill1()
+        with routing(L) as pr, swap_attention(L):
+            pl = prefill1()
+        rec["prefill"] = zoo_held(torch, L, cfg,
+                                  f"mixtral {kv_dtype} prefill", prefill1,
+                                  kl, kr.idx, pl, pr.idx)
+        if kv_dtype == "bfloat16":
+            def window_dropped(q, k, v, **kw):
+                check(kw == {"causal": True, "window": cfg.window,
+                             "prefix_len": 0},
+                      f"[zoo] mixtral prefill attention called with {kw}")
+                return L.flash_attention_plain(q, k, v, causal=True)
+            with routing(L, force=pr.idx), swap_attention(
+                    L, flash=window_dropped):
+                fl = prefill1()
+            rec["rel_diff_planted_fault"] = f = zoo_rel(torch, cfg, fl, pl)
+            check(f > ZOO_RTOL, f"[zoo] mixtral: the window dropped from the"
+                                f" prefill moves the logits by {f:.4g} of "
+                                f"the largest, within ZOO_RTOL {ZOO_RTOL}")
+            log(f"[zoo] mixtral planted fault (the window dropped from the "
+                f"prefill, the plain run's routing forced): logits move by "
+                f"{f:.4g} of the largest (limit {ZOO_RTOL})")
+            del fl
+        del kl, pl
+    torch.cuda.empty_cache()
+    eng = ModelEngine(mparams, cfg, n_slots=MIXTRAL_SLOTS,
+                      max_len=MIXTRAL_MAX, device=DEV)
+    check(eng.cache["k"].shape[2] == cfg.window, "[zoo] ring length")
+    torch.cuda.synchronize()
+    zero_attention_launches()
+    prefill_ms, toks = [], []
+    with recorded_ops(L, att_recorders):
+        for s, p in enumerate(prompts):
+            t0 = time.perf_counter()
+            toks.append(eng.prefill_into(s, p))
+            torch.cuda.synchronize()
+            prefill_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = attention_launches()
+    toks = np.asarray(toks, np.int64)
+    with torch.inference_mode():
+        pos = torch.tensor(eng.pos.astype(np.int64), device=DEV)
+        tok = torch.tensor(toks, device=DEV)[:, None]
+
+        def decode1():
+            return lm.decode_step(mparams, cfg, tok, eng.cache, pos,
+                                  kv_len=pos + 1,
+                                  moe_groups=MIXTRAL_SLOTS)[0]
+        with routing(L) as kr:
+            kd = decode1()
+        with routing(L) as pr, swap_attention(L):
+            pd = decode1()
+        rec["decode"] = zoo_held(torch, L, cfg,
+                                 f"mixtral {kv_dtype} decode", decode1, kd,
+                                 kr.idx, pd, pr.idx)
+    torch.cuda.synchronize()
+    zero_attention_launches()
+    decode_ms = []
+    with recorded_ops(L, att_recorders):
+        for _ in range(MIXTRAL_STEPS):
+            t0 = time.perf_counter()
+            toks = eng.decode_active(toks)
+            decode_ms.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    for k, v in attention_launches().items():
+        launches[k] += v
+    k3 = "decode_attention_int8" if kv_dtype == "int8" else "decode_attention"
+    check(launches["flash_attention"] == MIXTRAL_SLOTS * n
+          and launches[k3] == MIXTRAL_STEPS * n,
+          f"[zoo] mixtral {kv_dtype}: launches {launches}, expected "
+          f"{MIXTRAL_SLOTS * n} K4 and {MIXTRAL_STEPS * n} {k3}")
+    check(all(0 <= t < cfg.vocab_size for t in toks),
+          f"[zoo] mixtral {kv_dtype}: bad tokens {toks}")
+    rec.update(launches=launches, prefill_ms=prefill_ms, decode_ms=decode_ms,
+               prefill_ms_median=statistics.median(prefill_ms),
+               decode_ms_median=statistics.median(decode_ms),
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    log(f"[zoo] mixtral {kv_dtype} KV: {MIXTRAL_SLOTS} prompts of "
+        f"{MIXTRAL_PROMPT} tokens over window {cfg.window}, prefill "
+        f"{rec['prefill_ms_median']:.1f} ms per prompt (median; "
+        f"{', '.join(f'{t:.1f}' for t in prefill_ms)}), {MIXTRAL_STEPS} "
+        f"decode steps {rec['decode_ms_median']:.2f} ms per step (median); "
+        f"kernel vs plain logits {rec['prefill']['rel_diff']:.4g} (prefill)"
+        f" and {rec['decode']['rel_diff']:.4g} (decode) of the largest "
+        f"(held {rec['prefill']['rel_diff_held']:.4g} / "
+        f"{rec['decode']['rel_diff_held']:.4g}, limit {ZOO_RTOL}); routing "
+        f"flips per layer: prefill "
+        f"{[round(x, 4) for x in rec['prefill']['routing_flip_share']]}, "
+        f"decode {[round(x, 4) for x in rec['decode']['routing_flip_share']]}"
+        f"; launches {launches}; peak memory "
+        f"{rec['max_memory_allocated'] / 2**30:.1f} GiB")
+    rec["decode_trace"] = tr = zoo_trace(
+        torch, L, lambda: [eng.decode_active(toks) for _ in range(2)], 2)
+    log_zoo_trace(f"mixtral {kv_dtype} KV, profiled decode (per step of 2)",
+                  tr)
+    if tr:
+        tr["idle_share"] = 1 - tr["busy_ms"] / rec["decode_ms_median"]
+        log(f"[zoo] mixtral {kv_dtype} KV: idle share {tr['idle_share']:.3f}"
+            f" of the unprofiled median step")
+    rec["prefill_trace"] = tr = zoo_trace(
+        torch, L, lambda: eng.prefill_into(0, prompts[0]), 1)
+    log_zoo_trace(f"mixtral {kv_dtype} KV, profiled prefill of "
+                  f"{MIXTRAL_PROMPT} tokens", tr)
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def zoo_paligemma(torch, np, L, lm, att_recorders, seed: int) -> dict:
+    """paligemma-3b at full size: B = 2 of 256 seeded patch embeddings and
+    256 text tokens through ``lm.prefill`` (K4: prefix 256, Dh 256, one kv
+    head), then 8 greedy ``decode_step``s (K3: Dh 256, 8 query heads a kv
+    head). The prefill's and the first step's logits are held against the
+    plain layers; the prefix made causal must move them past ZOO_RTOL."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config("paligemma-3b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(gen(torch, seed + 21), cfg, device=DEV)
+    torch.cuda.synchronize()
+    log(f"[zoo] {cfg.name} d={cfg.d_model} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} d_head={cfg.head_dim} d_ff={cfg.d_ff} (gated "
+        f"{cfg.act}) vocab={cfg.vocab_size} layers={cfg.n_layers} prefix="
+        f"{cfg.prefix_len} bf16, tied embeddings: "
+        f"{lm.n_params(params) / 1e9:.2f}B params, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed + 22)
+    batch = {"tokens": torch.tensor(rng.integers(
+        0, cfg.vocab_size, (PALI_B, PALI_TEXT)), device=DEV),
+        "patch_embed": torch.randn(
+            (PALI_B, cfg.prefix_len, cfg.d_model), generator=gen(
+                torch, seed + 23), device=DEV).to(torch.bfloat16)}
+    Lx = cfg.prefix_len + PALI_TEXT
+    max_len = Lx + PALI_STEPS + 2           # 2 more steps traced
+
+    def new_cache():
+        return lm.init_cache(cfg, PALI_B, max_len, device=DEV)
+    rec: dict = {}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        zero_attention_launches()
+        with recorded_ops(L, att_recorders):
+            t0 = time.perf_counter()
+            kl, cache = lm.prefill(params, cfg, batch, new_cache())
+            torch.cuda.synchronize()
+            rec["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+            start = {k: v.clone() for k, v in cache.items()}
+            nxt0 = nxt = torch.argmax(kl, dim=-1)[:, None]
+            decode_ms = []
+            for step in range(PALI_STEPS):
+                t0 = time.perf_counter()
+                d, cache = lm.decode_step(params, cfg, nxt, cache, Lx + step)
+                nxt = torch.argmax(d, dim=-1)[:, None]
+                torch.cuda.synchronize()
+                decode_ms.append(1e3 * (time.perf_counter() - t0))
+                if step == 0:
+                    kd = d
+        launches = attention_launches()
+        n = cfg.n_layers
+        check(launches["flash_attention"] == n
+              and launches["decode_attention"] == PALI_STEPS * n,
+              f"[zoo] paligemma: launches {launches}, expected {n} K4 and "
+              f"{PALI_STEPS * n} K3")
+        with swap_attention(L):
+            pl, _ = lm.prefill(params, cfg, batch, new_cache())
+            pd, _ = lm.decode_step(params, cfg, nxt0, start, Lx)
+
+        def causal_prefix(q, k, v, **kw):
+            check(kw == {"causal": True, "window": None,
+                         "prefix_len": cfg.prefix_len},
+                  f"[zoo] paligemma prefill attention called with {kw}")
+            return L.flash_attention_plain(q, k, v, causal=True)
+        with swap_attention(L, flash=causal_prefix):
+            fl, _ = lm.prefill(params, cfg, batch, new_cache())
+        rec["rel_diff_prefill"] = rp = zoo_rel(torch, cfg, kl, pl)
+        rec["rel_diff_decode"] = rd = zoo_rel(torch, cfg, kd, pd)
+        rec["rel_diff_planted_fault"] = f = zoo_rel(torch, cfg, fl, pl)
+        check(rp <= ZOO_RTOL and rd <= ZOO_RTOL,
+              f"[zoo] paligemma: kernel vs plain logits differ by {rp:.4g} "
+              f"(prefill) / {rd:.4g} (decode) of the largest, over "
+              f"{ZOO_RTOL}")
+        check(f > ZOO_RTOL, f"[zoo] paligemma: the prefix made causal moves "
+                            f"the logits by {f:.4g} of the largest, within "
+                            f"ZOO_RTOL {ZOO_RTOL}")
+        del pl, pd, fl, start
+        rec.update(launches=launches, decode_ms=decode_ms,
+                   decode_ms_median=statistics.median(decode_ms),
+                   tokens=nxt[:, 0].tolist(),
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        log(f"[zoo] paligemma: B={PALI_B}, {cfg.prefix_len} patches + "
+            f"{PALI_TEXT} text tokens, prefill {rec['prefill_ms']:.1f} ms, "
+            f"{PALI_STEPS} decode steps {rec['decode_ms_median']:.2f} ms per "
+            f"step (median); kernel vs plain logits {rp:.4g} (prefill) and "
+            f"{rd:.4g} (decode) of the largest (limit {ZOO_RTOL}); planted "
+            f"fault (the prefix made causal) {f:.4g}; launches {launches}; "
+            f"peak memory {rec['max_memory_allocated'] / 2**30:.1f} GiB")
+        pos = [Lx + PALI_STEPS]
+
+        def two_steps():
+            nonlocal cache, nxt
+            for _ in range(2):
+                d, cache = lm.decode_step(params, cfg, nxt, cache, pos[0])
+                nxt = torch.argmax(d, dim=-1)[:, None]
+                pos[0] += 1
+        rec["decode_trace"] = tr = zoo_trace(torch, L, two_steps, 2)
+        log_zoo_trace("paligemma, profiled decode (per step of 2)", tr)
+        if tr:
+            tr["idle_share"] = 1 - tr["busy_ms"] / rec["decode_ms_median"]
+        rec["prefill_trace"] = tr = zoo_trace(
+            torch, L, lambda: lm.prefill(params, cfg, batch, new_cache()), 1)
+        log_zoo_trace("paligemma, profiled prefill", tr)
+    del params, cache
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_zoo(torch, np, att_recorders, seed: int) -> dict:
+    """Phase 10: mixtral-8x7b (MoE + sliding window) at full width cut to
+    MIXTRAL_LAYERS layers through ModelEngine, bf16 and int8 KV, then
+    paligemma-3b (the VLM prefix-LM) at full size through lm.prefill /
+    decode_step. Every K3/K4 call is noted for the re-checks."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers as L, lm
+    t0 = time.perf_counter()
+    full = get_config("mixtral-8x7b")
+    mcfg = full.replace(n_layers=MIXTRAL_LAYERS)
+    t = time.perf_counter()
+    mparams = lm.init_params(gen(torch, seed + 20), mcfg, device=DEV)
+    torch.cuda.synchronize()
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in (mparams["embed"], mparams["lm_head"]))
+    layer_bytes = (lm.n_params(mparams["blocks"][0]) * 2)
+    log(f"[zoo] depth cut: {full.name} at {MIXTRAL_LAYERS} of "
+        f"{full.n_layers} layers ({full.n_layers} in bf16: "
+        f"{(nbytes + full.n_layers * layer_bytes) / 1e9:.1f} GB, over the "
+        f"card's 80 GB); widths unchanged: d={mcfg.d_model} heads="
+        f"{mcfg.n_heads}/{mcfg.n_kv_heads} d_head={mcfg.head_dim} "
+        f"{mcfg.n_experts} experts top-{mcfg.top_k} d_ff={mcfg.d_ff_expert} "
+        f"window={mcfg.window} vocab={mcfg.vocab_size}: "
+        f"{layer_bytes / 1e9:.2f} GB a layer, "
+        f"{lm.n_params(mparams) * 2 / 1e9:.1f} GB in all, init "
+        f"{time.perf_counter() - t:.1f} s")
+    mixtral = {kv: zoo_mixtral(torch, np, L, lm, mparams, mcfg,
+                               att_recorders, seed, kv)
+               for kv in ("bfloat16", "int8")}
+    del mparams
+    torch.cuda.empty_cache()
+    pali = zoo_paligemma(torch, np, L, lm, att_recorders, seed)
+    launches = dict.fromkeys(ATT_KEYS, 0)
+    for r in (*mixtral.values(), pali):
+        for k, v in r["launches"].items():
+            launches[k] += v
+    wall = time.perf_counter() - t0
+    log(f"[zoo] phase done in {wall:.1f} s; launches {launches}")
+    return {"mixtral": mixtral, "paligemma": pali, "launches": launches,
+            "wall_s": wall}
+
+
 def nvidia_smi() -> str:
     try:
         out = subprocess.run(
@@ -4271,6 +4733,12 @@ def main() -> int:
     del kept
     detail["shard"] = shard
     detail["shard_s"] = shard["wall_s"]
+    del models          # the qwen3 weights: the zoo's models need the room
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo = phase_zoo(torch, np, att_rec, args.seed)
+    detail["zoo"] = zoo
+    detail["zoo_s"] = zoo["wall_s"]
     main_err = phase_main_shapes(torch, recorder.calls, args.seed)
     err["cosine_top1_local"] = shard["kernel"]["max_abs_err"]
     check({c[0] for c in recorder.calls} == set(err),
@@ -4321,8 +4789,8 @@ def main() -> int:
     # replicas phase (its children and the launcher's workers included)
     # and the shard phase, where K1-local runs; K3/K4 in both served
     # streams, both engine-long runs, the slo phase's live gateway, the
-    # planes phase's gateway restart, the replicas phase and the shard
-    # phase's gateways
+    # planes phase's gateway restart, the replicas phase, the shard
+    # phase's gateways and the zoo phase's mixtral and paligemma runs
     launches = {"cosine_topk": serve["pallas"]["launches"]
                 + slo_sim["launches"]["cosine_topk"]
                 + slo_live["launches"]["cosine_topk"]
@@ -4340,7 +4808,8 @@ def main() -> int:
                              for r in serve.values()) + sum(
             r["launches"][name] for r in long_runs.values()) \
             + slo_live["launches"][name] + planes["launches"][name] \
-            + replicas["launches"][name] + shard["launches"][name]
+            + replicas["launches"][name] + shard["launches"][name] \
+            + zoo["launches"][name]
         check(launches[name] > 0, f"[kernels] {name} was never launched on "
                                   f"the main path")
     # timed at the main path's shapes: K1/K2 at the served batch; K4 at the

@@ -263,8 +263,8 @@ def list_configs() -> list[str]:
 
 def _load_all() -> None:
     # every configuration of the reference zoo; models/lm.py builds the
-    # dense kinds only (the rest raise until ROADMAP Queue A item 6), the
-    # analytic engine reads them all
+    # dense, MoE, sliding-window and VLM kinds (the rest raise until
+    # ROADMAP Queue A item 3), the analytic engine reads them all
     from repro_torch.configs import (  # noqa: F401
         qwen3_14b, command_r_35b, qwen2_5_14b, minicpm3_4b, rwkv6_7b,
         mixtral_8x7b, deepseek_v2_236b, zamba2_7b, paligemma_3b,

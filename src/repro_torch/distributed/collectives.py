@@ -74,15 +74,20 @@ def cross_shard_top1(best: Sequence[torch.Tensor],
     on shard ``r % S`` at local row ``r // S``). Returns (hit, best sim,
     winning host row, answer, answer_id) on shard 0's device, the answer
     zero and the id -1 on a miss; ``hit`` compares f32 sims with
-    f32(theta)."""
+    f32(theta). A NaN best sim (a NaN query) is a miss whose row is shard
+    0's candidate."""
     S = len(best)
     lead = best[0].device
     bg = torch.stack([b.to(lead) for b in best], dim=1)           # (B, S)
     rg = torch.stack([r.to(lead, torch.int32) for r in host_row], dim=1)
     m = bg.max(dim=1).values
-    # shards tied at the max compete on host row; the others drop out
+    # shards tied at the max compete on host row; the others drop out. The
+    # winner is an index into the gathered rows, never the key itself: a
+    # NaN max matches no shard, and the argmin then picks shard 0's
+    # candidate (a miss), as the reference's argmin + take_along_axis does
     key = torch.where(bg == m[:, None], rg, torch.full_like(rg, INT32_MAX))
-    row_win = key.min(dim=1).values
+    win = key.argmin(dim=1)
+    row_win = rg.gather(1, win[:, None])[:, 0]
     owner, local = row_win % S, (row_win // S).long()
     ans_win = torch.zeros((len(m), answer[0].shape[1]),
                           dtype=answer[0].dtype, device=lead)

@@ -1,1 +1,2 @@
-"""Dense transformer layers, the ALBERT-style embedder and the dense LM."""
+"""Transformer layers (dense and MoE), the ALBERT-style embedder and the
+LM (dense, MoE with sliding windows, VLM prefix-LM)."""

@@ -1,5 +1,6 @@
-"""Core NN layers in plain PyTorch: the dense subset of
-``repro/models/layers.py``.
+"""Core NN layers in plain PyTorch: the dense and MoE subset of
+``repro/models/layers.py`` (norms, RoPE, GQA attention, MLPs, the
+scatter-dispatch MoE).
 
 Conventions (kept from the reference so the two can be compared):
   * params are nested dicts of tensors; init functions take an explicit
@@ -269,3 +270,135 @@ def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     else:
         h = a(h)
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (scatter dispatch with a static capacity; the reference's jnp MoE,
+# whose expert products are batched matmuls outside any kernel)
+# ---------------------------------------------------------------------------
+
+
+def moe_init(gen: torch.Generator, cfg, dtype, device) -> Params:
+    """``router`` (d, E), ``w_gate``/``w_up`` (E, d, dff), ``w_down``
+    (E, dff, d), and a dense ``shared`` MLP with ``n_shared_experts``."""
+    d, E, dff = cfg.d_model, cfg.n_experts, cfg.d_ff_expert
+
+    def expert(d_in, d_out):
+        w = torch.randn((E, d_in, d_out), generator=gen, dtype=torch.float32,
+                        device=device)
+        return (w / math.sqrt(d_in)).to(dtype)
+
+    p: Params = {"router": dense_init(gen, d, E, dtype, device, scale=0.02),
+                 "w_gate": expert(d, dff), "w_up": expert(d, dff),
+                 "w_down": expert(dff, d)}
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(gen, d, dff * cfg.n_shared_experts, dtype,
+                               device)
+    return p
+
+
+def moe_gating(logits: torch.Tensor, top_k: int, renormalize: bool = True):
+    """(..., T, E) router logits -> (gates (..., T, k), idx (..., T, k),
+    aux (...)): f32 softmax, top-k, gates renormalised, the Switch
+    load-balancing loss E * sum_e f_e * p_e over the T tokens.
+
+    The top-k is a stable descending sort: of equal probabilities the lower
+    expert index comes first, as ``lax.top_k`` orders them."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = gates[..., :top_k], idx[..., :top_k]
+    if renormalize:
+        gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    E = logits.shape[-1]
+    me = probs.mean(dim=-2)
+    ce = F.one_hot(idx[..., 0], E).float().mean(dim=-2)
+    aux = E * (me * ce).sum(dim=-1)
+    return gates, idx, aux
+
+
+def moe_capacity(cfg, T: int) -> int:
+    """Slots per expert for a dispatch of T tokens (a multiple of 8, at
+    least 8)."""
+    k, E = cfg.top_k, cfg.n_experts
+    return max(8, int(math.ceil(cfg.capacity_factor * T * k / E / 8.0)) * 8)
+
+
+def _experts(p: Params, cfg, buf: torch.Tensor) -> torch.Tensor:
+    """The gated expert MLPs over their slots, (E, S, d) -> (E, S, d)."""
+    a = _ACTS[cfg.act]
+    h = a(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
+    return torch.bmm(h, p["w_down"])
+
+
+def _moe_dispatch(p: Params, cfg, xg: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """G independent dispatches of T tokens each, xg (G, T, d) -> (out
+    (G, T, d), aux (G,)): each group has its own capacity C, its own
+    ranking and its own drops, and all groups share one (E, G x C, d)
+    buffer, so each expert's weights are read once.
+
+    Each (token, k) assignment is ranked within its (group, expert) by a
+    stable argsort, so earlier tokens take the slots first; assignments
+    ranked past C go to the trash slot E x G x C and read zeros back."""
+    G, T, d = xg.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = moe_capacity(cfg, T)
+    dev = xg.device
+    xt = xg.reshape(G * T, d)
+    gates, idx, aux = moe_gating((xt @ p["router"]).reshape(G, T, E), k)
+
+    group = torch.arange(G, device=dev).repeat_interleave(T * k)
+    flat_e = idx.reshape(-1)                                   # (G*T*k,)
+    key = group * E + flat_e
+    order = torch.argsort(key, stable=True)
+    counts = torch.bincount(key, minlength=G * E)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.empty_like(key)
+    pos[order] = torch.arange(key.numel(), device=dev) - starts[key[order]]
+    slot = torch.where(pos < C, (flat_e * G + group) * C + pos,
+                       torch.full_like(pos, E * G * C))
+
+    x_rep = xt.repeat_interleave(k, dim=0)                     # (G*T*k, d)
+    # the slots are unique apart from the trash slot: the add is a copy
+    buf = torch.zeros((E * G * C + 1, d), dtype=xg.dtype, device=dev)
+    buf.index_add_(0, slot, x_rep)
+    buf = buf[:-1].reshape(E, G * C, d)
+
+    y = _experts(p, cfg, buf)                                  # (E, G*C, d)
+
+    y_flat = torch.cat([y.reshape(E * G * C, d),
+                        torch.zeros((1, d), dtype=y.dtype, device=dev)])
+    y_tok = y_flat[slot] * gates.reshape(-1, 1).to(y.dtype)
+    out = y_tok.reshape(G * T, k, d).sum(dim=1)
+    if cfg.n_shared_experts:
+        out = out + mlp(p["shared"], xt, cfg.act)
+    return out.reshape(G, T, d), aux
+
+
+def moe_apply(p: Params, cfg, x: torch.Tensor, groups: int = 1
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, L, d) -> (out, aux loss): the reference's ``moe_apply``.
+
+    The B x L tokens form one dispatch, with its capacity from all of them.
+    ``groups`` > 1 splits them along B into that many dispatches of equal
+    size, each with its own capacity: what the reference computes when it
+    vmaps a one-row call over the batch (its engine's decode over slots).
+    ``cfg.moe_chunk_tokens`` cuts each dispatch into chunks of at most that
+    many tokens (the largest divisor), run one after another with a
+    capacity each, and averages their aux losses."""
+    B, L, d = x.shape
+    Tg = B * L // groups
+    xg = x.reshape(groups, Tg, d)
+    chunk = cfg.moe_chunk_tokens
+    if chunk and Tg > chunk:
+        while Tg % chunk:                 # largest divisor <= requested
+            chunk -= 1
+        outs, aux = [], torch.zeros((groups,), device=x.device)
+        for c in range(0, Tg, chunk):
+            y, a = _moe_dispatch(p, cfg, xg[:, c:c + chunk])
+            outs.append(y)
+            aux = aux + a
+        return (torch.cat(outs, dim=1).reshape(B, L, d),
+                (aux / (Tg // chunk)).mean())
+    y, aux = _moe_dispatch(p, cfg, xg)
+    return y.reshape(B, L, d), aux.mean()

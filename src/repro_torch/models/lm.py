@@ -1,6 +1,7 @@
-"""Config-driven LM, dense kind (port of the dense path of
-``repro/models/lm.py``): GQA with optional ``qk_norm`` (as qwen3 uses),
-gated MLP, RMSNorm, padded-vocab unembedding.
+"""Config-driven LM (port of ``repro/models/lm.py``): the dense and MoE
+kinds with GQA (optional ``qk_norm``, ``qkv_bias``), sliding windows over a
+ring KV cache, and the VLM prefix-LM (patch embeddings before the text,
+attended bidirectionally); gated MLP, RMSNorm, padded-vocab unembedding.
 
 Public entry points:
     init_params(gen, cfg, device)               -> params
@@ -8,11 +9,17 @@ Public entry points:
     prefill(params, cfg, batch, cache)          -> (last_logits, cache)
     decode_step(params, cfg, tokens, cache, pos, kv_len) -> (logits, cache)
 
-Params are nested dicts; the reference's layer-stacked ``blocks`` pytree is
-a list of per-layer dicts here (``repro_torch.weights`` converts). The KV
-cache is updated in place (the reference returns a new pytree). MoE, MLA,
-SSM, encoder-decoder, VLM and sliding windows arrive in later slices and
-raise ``NotImplementedError``.
+``batch`` is a dict: ``tokens`` (B, L), plus ``patch_embed`` (B, P, d) for
+the VLM kind. Params are nested dicts; the reference's layer-stacked
+``blocks`` pytree is a list of per-layer dicts here (``repro_torch.weights``
+converts). The KV cache is updated in place (the reference returns a new
+pytree). MLA, SSM, hybrid, encoder-decoder, audio and ``first_dense_layers``
+arrive in later slices and raise ``NotImplementedError``.
+
+A config with a ``window`` keeps a ring of ``cache_len`` positions: prefill
+stores the trailing ``Lc`` positions with token t at slot t % Lc, decode
+writes at pos % Lc and attends over min(kv_len, Lc) slots with no window
+(the ring bounds it), as the reference does.
 
 ``kv_dtype="int8"`` keeps the reference's int8 KV cache: int8 codes with a
 per-(position, head) f16 scale (``kv_quant``). On the card, decode hands
@@ -21,6 +28,7 @@ into the model dtype first, as the reference model does.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Optional
 
 import torch
@@ -36,26 +44,36 @@ def _dtype(cfg: ModelConfig):
     return getattr(torch, cfg.dtype)
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if (cfg.is_moe or cfg.ssm_kind or cfg.is_encoder_decoder
-            or cfg.attn_kind != "gqa" or cfg.family in ("vlm", "audio")
-            or cfg.window is not None or cfg.first_dense_layers):
+def _check_kind(cfg: ModelConfig) -> None:
+    """Raise for the kinds the port does not run yet, naming the kind."""
+    unported = [name for name, on in (
+        (f"attn_kind={cfg.attn_kind!r}", cfg.attn_kind != "gqa"),
+        (f"ssm_kind={cfg.ssm_kind!r}", bool(cfg.ssm_kind)),
+        ("encoder-decoder", cfg.is_encoder_decoder),
+        (f"family={cfg.family!r}", cfg.family in ("audio", "hybrid")),
+        ("first_dense_layers", bool(cfg.first_dense_layers))) if on]
+    if unported:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA kind is ported so far")
+            f"{cfg.name}: {', '.join(unported)} is not ported yet (the port "
+            f"runs the dense, MoE, sliding-window and VLM kinds)")
 
 
 def _block_init(gen, cfg: ModelConfig, dtype, device) -> Params:
-    gated = cfg.act != "gelu"
-    return {"ln1": L.rmsnorm_init(cfg.d_model, dtype, device),
-            "attn": L.gqa_init(gen, cfg, dtype, device),
-            "ln2": L.rmsnorm_init(cfg.d_model, dtype, device),
-            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device,
-                              gated=gated)}
+    p: Params = {"ln1": L.rmsnorm_init(cfg.d_model, dtype, device),
+                 "attn": L.gqa_init(gen, cfg, dtype, device),
+                 "ln2": L.rmsnorm_init(cfg.d_model, dtype, device)}
+    if cfg.is_moe:
+        p["mlp"] = L.moe_init(gen, cfg, dtype, device)
+    else:
+        gated = cfg.act != "gelu" or cfg.family == "vlm"
+        p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device,
+                              gated=gated)
+    return p
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 device: DeviceLike = None) -> Params:
-    _check_dense(cfg)
+    _check_kind(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     d = cfg.d_model
@@ -72,7 +90,21 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 
 
 def embed_tokens(p: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embed"][tokens.long()]
+    x = p["embed"][tokens.long()]
+    if cfg.family == "vlm":     # gemma: sqrt(d) rounded to the dtype first
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def _assemble_input(p: Params, cfg, batch: dict) -> tuple[torch.Tensor, int]:
+    """tokens (after the VLM's patch embeddings) -> (x (B, L, d),
+    prefix_len: how many leading positions attend bidirectionally)."""
+    x = embed_tokens(p, cfg, batch["tokens"])
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patch_embed"].to(x.dtype), x], dim=1)
+        return x, cfg.prefix_len
+    return x, 0
 
 
 def unembed(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -84,12 +116,16 @@ def unembed(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _block(bp: Params, cfg, x, attend):
+def _block(bp: Params, cfg, x, attend, moe_groups: int = 1):
     """Pre-norm block; ``attend(h) -> attention output`` supplies the
-    prefill or decode attention."""
+    prefill or decode attention. An MoE block dispatches its tokens in
+    ``moe_groups`` groups along the batch (``L.moe_apply``)."""
     h = L.rmsnorm(bp["ln1"], x)
     x = x + attend(h)
     h = L.rmsnorm(bp["ln2"], x)
+    if "router" in bp["mlp"]:
+        m, _ = L.moe_apply(bp["mlp"], cfg, h, groups=moe_groups)
+        return x + m
     return x + L.mlp(bp["mlp"], h, cfg.act)
 
 
@@ -122,7 +158,7 @@ def kv_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device: DeviceLike = None) -> Params:
-    _check_dense(cfg)
+    _check_kind(cfg)
     dev = resolve_device(device)
     dtype = dtype or _dtype(cfg)
     shape = (cfg.n_layers, batch, cache_len(cfg, max_len), cfg.n_kv_heads,
@@ -156,20 +192,35 @@ def _write_kv(cache: Params, i: int, idx, k: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _ring_place(kv: torch.Tensor, seq_len: int, ring_len: int
+                ) -> torch.Tensor:
+    """Align prefill's trailing-``ring_len`` slice (positions [seq_len -
+    ring_len, seq_len)) with decode's pos % ring_len slots, so decode
+    overwrites the oldest entry first."""
+    if kv.shape[1] < ring_len or seq_len <= ring_len:
+        return kv
+    return torch.roll(kv, seq_len % ring_len, dims=1)
+
+
 def prefill(p: Params, cfg: ModelConfig, batch: dict, cache: Params
             ) -> tuple[torch.Tensor, Params]:
-    """Process the full prompt ``batch["tokens"]`` (B, L); write its K/V
-    into cache positions [0, L) in place; return last-position logits."""
-    _check_dense(cfg)
-    tokens = batch["tokens"]
-    x = embed_tokens(p, cfg, tokens)
+    """Process the full prompt (``batch["tokens"]`` (B, L), after the VLM's
+    ``patch_embed``); write its K/V into the cache in place: positions
+    [0, L), or for a window the trailing ``cache_len`` positions placed
+    for decode's ring (``_ring_place``); return last-position logits."""
+    _check_kind(cfg)
+    x, prefix_len = _assemble_input(p, cfg, batch)
     B, Lx, _ = x.shape
+    Lc = cache_len(cfg, Lx)
     positions = torch.arange(Lx, device=x.device)
     for i, bp in enumerate(p["blocks"]):
         def attend(h, bp=bp, i=i):
             q, k, v = L.gqa_qkv(bp["attn"], cfg, h, positions)
-            a = L.flash_attention(q, k, v, causal=True)
-            _write_kv(cache, i, (slice(None), slice(0, Lx)), k, v)
+            a = L.flash_attention(q, k, v, causal=True, window=cfg.window,
+                                  prefix_len=prefix_len)
+            _write_kv(cache, i, (slice(None), slice(0, Lc)),
+                      _ring_place(k[:, -Lc:], Lx, Lc),
+                      _ring_place(v[:, -Lc:], Lx, Lc))
             return a.reshape(B, Lx, -1) @ bp["attn"]["wo"]
         x = _block(bp, cfg, x, attend)
     logits = unembed(p, cfg, L.rmsnorm(p["final_norm"], x[:, -1:]))
@@ -177,19 +228,32 @@ def prefill(p: Params, cfg: ModelConfig, batch: dict, cache: Params
 
 
 def decode_step(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: Params, pos, kv_len: Optional[torch.Tensor] = None
-                ) -> tuple[torch.Tensor, Params]:
-    """One decode step. tokens: (B, 1); pos: write index, an int or a (B,)
-    tensor (one position per slot — the reference vmaps a scalar pos over
-    slots); kv_len: (B,) valid lengths (default pos + 1). Returns
-    (logits (B, V), cache), the cache updated in place. kv_len goes to
-    every layer's attention as int32, converted here once a step (not
-    once a layer) when it comes in another type."""
-    _check_dense(cfg)
+                cache: Params, pos, kv_len: Optional[torch.Tensor] = None,
+                *, moe_groups: int = 1) -> tuple[torch.Tensor, Params]:
+    """One decode step. tokens: (B, 1); pos: the token's position, an int
+    or a (B,) tensor (one position per slot — the reference vmaps a scalar
+    pos over slots); kv_len: (B,) valid lengths (default pos + 1). With a
+    window the k/v go to ring slot pos % Lc and attention reads
+    min(kv_len, Lc) slots. Returns (logits (B, V), cache), the cache
+    updated in place. kv_len goes to every layer's attention as int32,
+    converted here once a step (not once a layer) when it comes in another
+    type.
+
+    ``moe_groups``: an MoE layer dispatches the B rows in that many groups,
+    each with its own capacity (``L.moe_apply``). The default, one group,
+    takes the capacity from all B tokens, as the reference's decode_step
+    does; ``ModelEngine`` passes B, as the reference engine's decode
+    vmapped over slots computes (each slot its own T = 1 dispatch)."""
+    _check_kind(cfg)
     B = tokens.shape[0]
     dev = tokens.device
     pos = torch.as_tensor(pos, device=dev).long().expand(B)
     kv_len = (pos + 1 if kv_len is None else kv_len).to(torch.int32)
+    write = pos
+    if cfg.window is not None:      # the ring already bounds the window
+        Lc = cache["k"].shape[2]
+        write = pos % Lc
+        kv_len = kv_len.clamp_max(Lc)
     rows = torch.arange(B, device=dev)
     positions = pos[:, None]                                  # (B, 1)
 
@@ -201,12 +265,12 @@ def decode_step(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for i, bp in enumerate(p["blocks"]):
         def attend(h, bp=bp, i=i):
             q, k, v = L.gqa_qkv(bp["attn"], cfg, h, positions)
-            _write_kv(cache, i, (rows, pos), k[:, 0], v[:, 0])
+            _write_kv(cache, i, (rows, write), k[:, 0], v[:, 0])
             a = L.decode_attention(q, cache["k"][i], cache["v"][i],
                                    kv_len=kv_len, k_scale=scale("k", i),
                                    v_scale=scale("v", i))
             return a.reshape(B, 1, -1) @ bp["attn"]["wo"]
-        x = _block(bp, cfg, x, attend)
+        x = _block(bp, cfg, x, attend, moe_groups=moe_groups)
     logits = unembed(p, cfg, L.rmsnorm(p["final_norm"], x))
     return logits[:, 0], cache
 

@@ -15,7 +15,9 @@ Two tiers (DESIGN.md §9.2):
   decode step for every slot with its own position / kv_len (the
   continuous-batching requirement). The reference vmaps a single-sequence
   decode over the slots; the port runs one batched decode with per-slot
-  positions. Placing a slot's prefill cache is an index copy.
+  positions, and an MoE layer dispatches each slot's token on its own
+  (``moe_groups``), with the capacity the vmapped one-slot call has.
+  Placing a slot's prefill cache is an index copy.
 """
 from __future__ import annotations
 
@@ -172,7 +174,8 @@ class ModelEngine:
         kv_len = torch.tensor((self.pos + 1).astype(np.int32),
                               device=self.device)
         logits, self.cache = lm.decode_step(self.params, self.cfg, tok,
-                                            self.cache, pos, kv_len=kv_len)
+                                            self.cache, pos, kv_len=kv_len,
+                                            moe_groups=self.n_slots)
         self.pos[self.active] += 1
         return torch.argmax(logits, dim=-1).cpu().numpy()
 

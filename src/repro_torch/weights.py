@@ -48,10 +48,15 @@ def convert_embedder(params: dict, device: DeviceLike = None) -> dict:
 
 def convert_lm(params: dict, cfg: ModelConfig,
                device: DeviceLike = None) -> dict:
-    """Dense LM params: the reference stacks ``blocks`` along a leading
-    layer axis (one scan over layers); the port keeps a list of layers."""
-    if set(params) - {"embed", "final_norm", "lm_head", "blocks"}:
-        raise NotImplementedError("only the dense LM kind is ported")
+    """LM params of the dense, MoE and VLM kinds: the reference stacks
+    ``blocks`` along a leading layer axis (one scan over layers), its MoE
+    leaves as (n, E, d, dff); the port keeps a list of layers, each with its
+    (E, d, dff) experts. A tied embedding (paligemma) has no ``lm_head``."""
+    extra = set(params) - {"embed", "final_norm", "lm_head", "blocks"}
+    if extra:
+        raise NotImplementedError(
+            f"{cfg.name}: parameters {sorted(extra)} belong to a kind that "
+            f"is not ported yet")
     out = {k: to_torch(v, device) for k, v in params.items()
            if k != "blocks"}
     out["blocks"] = [to_torch(_layer(params["blocks"], i), device)

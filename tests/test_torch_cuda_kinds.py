@@ -1,0 +1,160 @@
+"""The attention kernels at the masks and shapes of the MoE + sliding-window
+kind (mixtral-8x7b) and the VLM prefix-LM (paligemma-3b), and both reduced
+models on the card against the plain layers. K4 (prefill): paligemma's
+256-token bidirectional prefix at head dim 256 with one kv head (MQA), and
+a window shorter than the keys; K3 (decode): a ring cache that has wrapped,
+at head dims 128 (mixtral, 4 query heads a kv head) and 256 (paligemma, 8),
+held against the plain attention over the same positions laid out in
+order. The kernels have no CPU mode, so these tests are marked ``gpu`` and
+skip without a CUDA device:
+
+    PYTHONPATH=src python -m pytest tests/test_torch_cuda_kinds.py
+
+Tolerances: bf16 outputs as in tests/test_torch_cuda_attention.py
+(2^-7 |plain| + 2^-5 (K4) or 2^-10 (K3) x the row's rms); the reduced
+models in f32 at atol 1e-4 on logits of |logit| < ~1 (f32 kernels and
+plain layers sum in another order), with the int8 KV cache at 1e-3 (a
+value within an ulp of a rounding boundary may take the neighbouring code
+in the two runs).
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import bf16_excess
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention import ref as da_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+
+pytestmark = pytest.mark.gpu
+
+DEV = "cuda"
+ROW_RTOL = {"flash": 2.0 ** -5, "decode": 2.0 ** -10}
+
+
+@pytest.fixture(autouse=True)
+def _needs_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+
+
+def _randn(shape, g, dtype=torch.bfloat16):
+    return torch.randn(shape, generator=g, device=DEV).to(dtype)
+
+
+def _flash_check(q, k, v, **kw):
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    plain = fa_ref.attention_ref(q, k, v, p_dtype=v.dtype, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    assert bf16_excess(out, plain, ROW_RTOL["flash"]) <= 1.0
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_flash_paligemma_prefix_mask(B):
+    """256 patch positions attended bidirectionally, then 256 causal text
+    positions: H 8, Hkv 1, Dh 256."""
+    g = torch.Generator(device=DEV).manual_seed(B)
+    q = _randn((B, 512, 8, 256), g)
+    k, v = _randn((B, 512, 1, 256), g), _randn((B, 512, 1, 256), g)
+    _flash_check(q, k, v, causal=True, prefix_len=256)
+
+
+@pytest.mark.parametrize("L,window", [(1100, 300), (700, 128), (513, 512)])
+def test_flash_window_shorter_than_the_keys(L, window):
+    """mixtral's heads (32/8 of 128) with a window that the prompt
+    outgrows, at and off K4's 128-key tile edges."""
+    g = torch.Generator(device=DEV).manual_seed(L)
+    q = _randn((1, L, 32, 128), g)
+    k, v = _randn((1, L, 8, 128), g), _randn((1, L, 8, 128), g)
+    _flash_check(q, k, v, causal=True, window=window)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("Dh,G", [(128, 4), (256, 8)])
+def test_decode_over_a_wrapped_ring(Dh, G, kind):
+    """Positions 0..n-1 written at slot t % Lc of a ring of Lc slots (as
+    prefill's ring placement and decode's writes leave it): K3 over the
+    ring with kv_len min(n, Lc) equals the plain attention over the last
+    Lc positions in order (attention is slot-order invariant)."""
+    from repro_torch.models import lm
+    B, Hkv, Lc = 4, 2, 320
+    n = torch.tensor([Lc + 77, 3 * Lc + 5, Lc, 50])     # positions written
+    g = torch.Generator(device=DEV).manual_seed(Dh + G)
+    q = _randn((B, G * Hkv, Dh), g)
+    kv = _randn((2, B, int(n.max()), Hkv, Dh), g, torch.float32)
+    ring = torch.zeros((2, B, Lc, Hkv, Dh), device=DEV)
+    lin = torch.zeros_like(ring)
+    for b in range(B):      # what the writes leave: the last Lc positions
+        nb = int(n[b])
+        keep = torch.arange(max(0, nb - Lc), nb, device=DEV)
+        ring[:, b, keep % Lc] = kv[:, b, keep]
+        lin[:, b, :len(keep)] = kv[:, b, keep]
+    kv_len = n.clamp_max(Lc).to(torch.int32).to(DEV)
+    before = da_ops.decode_attention.launches
+    if kind == "int8":
+        (rk, rks), (rv, rvs) = lm.kv_quant(ring[0]), lm.kv_quant(ring[1])
+        (lk, lks), (lv, lvs) = lm.kv_quant(lin[0]), lm.kv_quant(lin[1])
+        out = da_ops.decode_attention(q, rk, rv, kv_len, k_scale=rks,
+                                      v_scale=rvs)
+        plain = da_ref.decode_attention_ref(q, lk, lv, kv_len, k_scale=lks,
+                                            v_scale=lvs)
+    else:
+        out = da_ops.decode_attention(q, ring[0].bfloat16(),
+                                      ring[1].bfloat16(), kv_len)
+        plain = da_ref.decode_attention_ref(q, lin[0].bfloat16(),
+                                            lin[1].bfloat16(), kv_len)
+    torch.cuda.synchronize()
+    assert da_ops.decode_attention.launches == before + 1
+    assert bf16_excess(out, plain, ROW_RTOL["decode"]) <= 1.0
+
+
+@pytest.mark.parametrize("arch,kv_dtype", [("mixtral-8x7b", ""),
+                                           ("mixtral-8x7b", "int8"),
+                                           ("paligemma-3b", "")])
+def test_reduced_model_kernels_match_plain_layers(arch, kv_dtype,
+                                                  monkeypatch):
+    """Reduced, f32: mixtral's 48-token prompt over window 32 (the ring
+    wraps in prefill) and 4 decode steps; paligemma's 8 patch embeddings
+    before 12 text tokens and 4 decode steps; the same tokens in both runs.
+    Logits through K4/K3 against the plain layers, one K4 and one K3
+    launch a layer each call."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    cfg = get_config(arch).reduced().replace(dtype="float32",
+                                             kv_dtype=kv_dtype)
+    atol = 1e-3 if kv_dtype else 1e-4
+    g = torch.Generator(device=DEV).manual_seed(7)
+    params = lm.init_params(g, cfg, device=DEV)
+    B, Lt = 2, 48 if cfg.window else 12
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, Lt), generator=g,
+                                     device=DEV)}
+    if cfg.family == "vlm":
+        batch["patch_embed"] = torch.randn((B, cfg.prefix_len, cfg.d_model),
+                                           generator=g, device=DEV)
+    Lx = Lt + (cfg.prefix_len if cfg.family == "vlm" else 0)
+    max_len = Lx + 8
+    steps = torch.randint(0, cfg.vocab_size, (4, B, 1), generator=g,
+                          device=DEV)
+
+    def run():
+        cache = lm.init_cache(cfg, B, max_len, device=DEV)
+        logits, cache = lm.prefill(params, cfg, batch, cache)
+        out = [logits]
+        for step, tok in enumerate(steps):
+            d, cache = lm.decode_step(params, cfg, tok, cache, Lx + step)
+            out.append(d)
+        return out
+
+    f0, d0 = fa_ops.flash_attention.launches, da_ops.decode_attention.launches
+    kernel = run()
+    assert fa_ops.flash_attention.launches == f0 + cfg.n_layers
+    assert da_ops.decode_attention.launches == d0 + 4 * cfg.n_layers
+    monkeypatch.setattr(L, "flash_attention", L.flash_attention_plain)
+    monkeypatch.setattr(L, "decode_attention", L.decode_attention_plain)
+    plain = run()
+    for i, (a, b) in enumerate(zip(kernel, plain)):
+        torch.testing.assert_close(a, b, atol=atol, rtol=0,
+                                   msg=f"call {i}")

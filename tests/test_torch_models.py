@@ -156,13 +156,54 @@ def test_attention_masks_match_jax():
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=1e-5)
 
 
-def test_unported_model_kinds_raise():
-    cfg = get_config("qwen3-14b").reduced().replace(n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError):
+UNPORTED = {"minicpm3-4b": "attn_kind='mla'",
+            "deepseek-v2-236b": "attn_kind='mla'",
+            "whisper-base": "encoder-decoder",
+            "rwkv6-7b": "ssm_kind='rwkv6'",
+            "zamba2-7b": "ssm_kind='mamba2'"}
+
+
+@pytest.mark.parametrize("arch", sorted(UNPORTED))
+def test_unported_model_kinds_raise(arch):
+    """The kinds still unported raise NotImplementedError naming the kind,
+    from init_params and init_cache alike."""
+    cfg = get_config(arch).reduced()
+    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
         TLM.init_params(torch.Generator().manual_seed(0), cfg, device=CPU)
-    with pytest.raises(NotImplementedError):
-        TLM.init_cache(get_config("qwen3-14b").reduced().replace(window=8),
-                       1, 8, device=CPU)
+    with pytest.raises(NotImplementedError, match=arch):
+        TLM.init_cache(cfg, 1, 8, device=CPU)
+
+
+DENSE_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "command-r-35b"])
+def test_dense_config_logits_match_jax(arch):
+    """Dense configs beside qwen3: qwen2.5's qkv biases, command-r's tied
+    embeddings. Reduced, fp32: prefill and two decode steps' logits within
+    1e-5 (|logit| < ~1; a few ulps of drift per layer)."""
+    cfg = get_config(arch).reduced().replace(dtype="float32")
+    jcfg = j_get_config(arch).reduced().replace(dtype="float32")
+    assert cfg.qkv_bias or cfg.tie_embeddings
+    jp = JLM.init_params(jax.random.PRNGKey(4), jcfg)
+    tp = weights.convert_lm(_np_tree(jp), cfg, device=CPU)
+    assert ("lm_head" in tp) != cfg.tie_embeddings
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (2, 9)).astype(np.int32)
+    jc = JLM.init_cache(jcfg, 2, 16)
+    jl, jc = JLM.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)}, jc)
+    tc = TLM.init_cache(cfg, 2, 16, device=CPU)
+    tl, tc = TLM.prefill(tp, cfg, {"tokens": torch.from_numpy(toks)}, tc)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=DENSE_ATOL)
+    nxt = np.asarray(jnp.argmax(jl, axis=-1)).astype(np.int32)
+    for pos in (9, 10):
+        jd, jc = JLM.decode_step(jp, jcfg, jnp.asarray(nxt)[:, None], jc,
+                                 jnp.int32(pos))
+        td, tc = TLM.decode_step(tp, cfg, torch.from_numpy(nxt)[:, None], tc,
+                                 pos)
+        np.testing.assert_allclose(td.numpy(), np.asarray(jd),
+                                   atol=DENSE_ATOL, err_msg=f"pos {pos}")
+        nxt = np.asarray(jnp.argmax(jd, axis=-1)).astype(np.int32)
 
 
 def test_decode_step_hands_attention_an_int32_kv_len(qwen, monkeypatch):

@@ -57,17 +57,23 @@ def _numbers(text: str) -> list:
     return [_WALL.sub("<s>", line) for line in text.strip().splitlines()]
 
 
-def test_run_batch_prints_the_reference_numbers(monkeypatch, capsys):
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mixtral-8x7b"])
+def test_run_batch_prints_the_reference_numbers(monkeypatch, capsys, arch):
+    """``--arch`` through ``get_config(arch).reduced()`` in both launchers:
+    the dense qwen3 and the MoE + sliding-window mixtral (bf16, as the
+    launchers build them)."""
+    args = BATCH_ARGS + ["--arch", arch]
+
     def ref_bootstrap(frontend, train):
         return frontend.bootstrap(train.vectors, train.answers,
                                   answer_ids=np.arange(len(train.vectors)))
 
     monkeypatch.setattr(JSim, "bootstrap_frontend", ref_bootstrap)
-    assert JServe.main(BATCH_ARGS) == 0
+    assert JServe.main(args) == 0
     ref = capsys.readouterr().out
 
     def carried_lm(cfg, seed, device):
-        jcfg = j_get_config("qwen3-14b").reduced().replace(remat=False)
+        jcfg = j_get_config(arch).reduced().replace(remat=False)
         jp = JLM.init_params(jax.random.PRNGKey(seed), jcfg)
         return weights.convert_lm(jax.tree.map(np.asarray, jp), cfg, device)
 
@@ -76,7 +82,7 @@ def test_run_batch_prints_the_reference_numbers(monkeypatch, capsys):
         EngineModel.from_config(get_config(arch), n_chips=8,
                                 peak_flops=JEng.PEAK_FLOPS,
                                 hbm_bw=JEng.HBM_BW)))
-    assert PServe.main(BATCH_ARGS + ["--device", "cpu"]) == 0
+    assert PServe.main(args + ["--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert _numbers(out) == _numbers(ref), (out, ref)
     assert "cache hits" in out and len(out.strip().splitlines()) == 4

@@ -430,6 +430,28 @@ def sc_cross(P, S: int) -> dict:
     return out
 
 
+NAN_ROW = 3
+
+
+def sc_nan(P, backend: str, S: int) -> dict:
+    """A NaN query row among ordinary ones (a centroid repeat, fresh
+    misses): the NaN row is a miss, as the reference's argmin over the
+    gathered candidates makes it; the same batch without that row is looked
+    up after it for the rest's decisions alone."""
+    rng = np.random.default_rng(9)
+    vecs = _unit(rng, 60)
+    c = _cache(P, S, 80, backend)
+    _fill(P, c, vecs, rng.normal(size=(60, A)).astype(np.float32))
+    q = _unit(rng, 5)
+    q[1] = vecs[7]
+    q[NAN_ROW] = np.nan
+    out = {}
+    _put(out, "nan", c.lookup(q, 0.9))
+    _put(out, "rest", c.lookup(np.delete(q, NAN_ROW, axis=0), 0.9))
+    _state(out, "end", c)
+    return out
+
+
 SCENARIOS = {
     **{f"equiv_{b}_{S}": (sc_equiv, (b, S))
        for b in ("dense", "pallas") for S in (2, 8)},
@@ -442,6 +464,7 @@ SCENARIOS = {
     "tiered_2": (sc_tiered, (2,)),
     "topk_8": (sc_topk, (8,)),
     **{f"cross_{S}": (sc_cross, (S,)) for S in (2, 8)},
+    **{f"nan_{b}_2": (sc_nan, (b, 2)) for b in ("dense", "pallas")},
 }
 
 
@@ -524,7 +547,8 @@ def _assert_same(port: dict, ref: dict, ctx: str = "") -> None:
         if k.endswith("sim"):
             assert np.array_equal(np.isfinite(a), np.isfinite(b)), (ctx, k)
             fin = np.isfinite(b)
-            assert np.array_equal(a[~fin], b[~fin]), (ctx, k)
+            assert np.array_equal(a[~fin], b[~fin], equal_nan=True), \
+                (ctx, k)
             np.testing.assert_allclose(a[fin], b[fin], rtol=0,
                                        atol=SIM_ATOL, err_msg=f"{ctx} {k}")
         else:
@@ -540,6 +564,28 @@ def test_scenario_matches_reference(reference, name):
     state, counters, generations, layouts and byte counts; sims within
     atol 1e-6."""
     _assert_same(_port(name), reference(name), name)
+
+
+@pytest.mark.parametrize("backend", ["dense", "pallas"])
+def test_nan_query_is_a_miss_beside_the_reference(reference, backend):
+    """A NaN query row through a 2-shard cache is a miss (hit False, sim
+    NaN, answer zero, answer id -1), as in the reference, where the
+    merge's argmin falls back to shard 0's candidate; the other rows decide
+    as the same batch without it does. The winning row is an index into
+    the gathered candidates, not a key: a NaN max once made it INT32_MAX
+    and the answer gather raised."""
+    name = f"nan_{backend}_2"
+    port = _port(name)
+    _assert_same(port, reference(name), name)
+    assert not port["nan/hit"][NAN_ROW]
+    assert np.isnan(port["nan/sim"][NAN_ROW])
+    assert port["nan/answer_id"][NAN_ROW] == -1
+    assert not port["nan/answer"][NAN_ROW].any()
+    assert port["nan/hit"][1], "the centroid repeat must hit"
+    for f in FIELDS:
+        np.testing.assert_array_equal(
+            np.delete(port[f"nan/{f}"], NAN_ROW, axis=0), port[f"rest/{f}"],
+            err_msg=f)
 
 
 def test_shadow_regrows_the_staged_pad_at_two_shards():
