@@ -203,10 +203,40 @@ Phases (any failure exits non-zero and prints no result line):
               two decode steps: busy ms, K4's/K3's share, the MoE's and
               its dispatch's share; prefill and decode ms and the peak
               memory logged.
+11. mla_encdec — the MLA kind and the encoder-decoder, after zoo, once its
+              weights are freed: (a) minicpm3-4b at full size (62 layers,
+              d 2,560, 40 heads, q_lora 768, kv_lora 256, Dq 64 + 32, Dv
+              64, vocab 73,448, tied; 8.1 GB of seeded random bf16
+              weights) through ModelEngine(n_slots=4, max_len=8192): four
+              4,096-token prompts (K4's Dv mode on every layer), then 16
+              decode steps with ``mla_absorb`` off (K/V materialised from
+              the latent cache, K3's Dv mode) and the same 16 steps from
+              the same state with it on (absorbed f32 products, no K3);
+              the first prefill's logits and each form's first step held
+              against the plain layers at ZOO_RTOL (plain prefill
+              attention 1,024 query rows at a time), the two forms against
+              each other, and a kv tile dropped from the plain prefill
+              must exceed the limit; (b) deepseek-v2-236b at full width
+              (d 5,120, 128 heads, Dq 128 + 64, Dv 128, kv_lora 512, 160
+              experts of 1,536 top-6 + 2 shared) cut to 4 of its 60 layers
+              (the dense layer 0 and 3 MoE layers; 471.5 GB in bf16 at
+              full depth), the same engine run, routing flips between the
+              kernel and plain runs logged; (c) whisper-base at full size
+              (6 + 6 layers, d 512, 8 heads of 64, LayerNorm, ungated gelu):
+              lm.prefill of B = 2, 1,500 seeded stub frames (K4
+              non-causal) and 64 text tokens (K4 causal, then the
+              cross-attention: K4 non-causal, 64 queries over 1,500 keys),
+              then 16 decode steps (K3 over the self cache and over the
+              1,500 cross positions), held the same way, the encoder made
+              causal the fault; (d) for each, launch counters zeroed and
+              read around every window, every distinct K3/K4 call
+              re-checked with the other phases', and profiled prefill and
+              decode: busy ms, K4's/K3's share, idle share, prefill and
+              decode ms and peak memory logged.
 
 The line before the last is a JSON object with one entry per kernel (K1's
 shard-local mode, K3's int8 mode and K4's f32 mode, the embedder's call,
-their own entries, with
+and both attention kernels' Dv mode, MLA's, their own entries, with
 their own bounds; every entry also carries ``device_ms``, the profiler's
 device time, and each entry with a library call ``library_device_ms``,
 that call's); the line
@@ -591,12 +621,16 @@ ATT_ATOL_F32 = 2e-5   # the reference's own for f32 outputs: sums in
 # K3 is f32 throughout, as is its plain version: only the summation order
 # differs.
 ATT_ROW_RTOL = {"flash_attention": 2.0 ** -5,
+                "flash_attention_dv": 2.0 ** -5,
                 "decode_attention": 2.0 ** -10,
-                "decode_attention_int8": 2.0 ** -10}
+                "decode_attention_int8": 2.0 ** -10,
+                "decode_attention_dv": 2.0 ** -10}
 # the attention kernels' entries: K4 bf16 and f32 apart (the f32 outputs are
-# held at ATT_ATOL_F32, with no bf16 limit)
-ATT_KEYS = ("flash_attention", "flash_attention_f32", "decode_attention",
-            "decode_attention_int8")
+# held at ATT_ATOL_F32, with no bf16 limit), and both kernels' Dv mode (a
+# value head dim other than the q/k one: MLA) apart
+ATT_KEYS = ("flash_attention", "flash_attention_f32", "flash_attention_dv",
+            "decode_attention", "decode_attention_int8",
+            "decode_attention_dv")
 H100_BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 EMBED_SHAPE = dict(B=4, Lq=24, Lkv=24, H=12, Hkv=12, Dh=64)
 PREFILL_SHAPE = dict(B=1, Lq=4096, Lkv=4096, H=40, Hkv=8, Dh=128)
@@ -604,6 +638,14 @@ DECODE_SHAPE = dict(B=4, H=40, Hkv=8, Dh=128)
 DECODE_LENS = (4096, 32768)         # engine-long's prompt; decode_32k
 DECODE_TIMED = ((8192, 4096),       # (cache length, kv_len): engine-long's
                 (32768, 32768))     # layout; decode_32k
+# the Dv mode at minicpm3-4b's shapes (Dq = 64 + 32, Dv = 64): its prefill
+# of a 4,096-token prompt and its engine's decode (4 slots, Lc 8,192,
+# kv_len 4,096, one kv head a query head)
+DV_PREFILL_SHAPE = dict(B=1, Lq=4096, Lkv=4096, H=40, Hkv=40, Dh=96, Dv=64)
+DV_DECODE_SHAPE = dict(B=4, H=40, Hkv=40, Dh=96, Dv=64)
+DV_DECODE_TIMED = (8192, 4096)
+# deepseek-v2-236b's (Dq = 128 + 64, Dv = 128) at fewer heads, for the checks
+DV_DEEPSEEK = dict(Dh=192, Dv=128)
 FLASH_MODES = {
     "causal": dict(causal=True),
     "bidirectional": dict(causal=False),
@@ -629,21 +671,24 @@ def _dtype_name(dtype) -> str:
     return str(dtype).rsplit(".", 1)[-1]
 
 
-def flash_inputs(torch, B, Lq, Lkv, H, Hkv, Dh, dtype, seed):
+def flash_inputs(torch, B, Lq, Lkv, H, Hkv, Dh, dtype, seed, Dv=None):
+    """q (B, Lq, H, Dh), k (B, Lkv, Hkv, Dh) and v (B, Lkv, Hkv, Dv or
+    Dh)."""
     g = gen(torch, seed)
     return tuple(torch.randn(s, generator=g, device=DEV).to(dtype)
                  for s in ((B, Lq, H, Dh), (B, Lkv, Hkv, Dh),
-                           (B, Lkv, Hkv, Dh)))
+                           (B, Lkv, Hkv, Dv or Dh)))
 
 
-def decode_inputs(torch, B, H, Hkv, Dh, Lc, qdtype, int8, seed):
-    """q (B, H, Dh) and caches (B, Lc, Hkv, Dh) in ``qdtype``, or int8
-    codes and f16 scales made by the model's quantizer."""
+def decode_inputs(torch, B, H, Hkv, Dh, Lc, qdtype, int8, seed, Dv=None):
+    """q (B, H, Dh), k cache (B, Lc, Hkv, Dh) and v cache (B, Lc, Hkv, Dv or
+    Dh) in ``qdtype``, or int8 codes and f16 scales made by the model's
+    quantizer."""
     from repro_torch.models import lm
     g = gen(torch, seed)
     q = torch.randn((B, H, Dh), generator=g, device=DEV).to(qdtype)
-    k, v = (torch.randn((B, Lc, Hkv, Dh), generator=g, device=DEV)
-            for _ in range(2))
+    k, v = (torch.randn((B, Lc, Hkv, d), generator=g, device=DEV)
+            for d in (Dh, Dv or Dh))
     if not int8:
         return q, k.to(qdtype), v.to(qdtype), {}
     (kq, ks), (vq, vs) = lm.kv_quant(k), lm.kv_quant(v)
@@ -691,8 +736,10 @@ def compare_flash(torch, agree: Agreement, shape: dict, dtype, seed: int,
     out = ops.flash_attention(q, k, v, **kw)
     plain = ref.attention_ref(q, k, v, p_dtype=v.dtype, **kw)
     torch.cuda.synchronize()
-    agree.hold(torch, "flash_attention_f32" if dtype == torch.float32
-               else "flash_attention", out, plain,
+    key = ("flash_attention_dv" if v.shape[-1] != q.shape[-1]
+           else "flash_attention_f32" if dtype == torch.float32
+           else "flash_attention")
+    agree.hold(torch, key, out, plain,
                f"flash_attention {shape} {_dtype_name(dtype)} {kw}")
 
 
@@ -705,7 +752,9 @@ def compare_decode(torch, agree: Agreement, shape: dict, Lc: int, kv_len,
     out = ops.decode_attention(q, k, v, kv_len, **sc)
     plain = ref.decode_attention_ref(q, k, v, kv_len, **sc)
     torch.cuda.synchronize()
-    agree.hold(torch, "decode_attention_int8" if int8 else "decode_attention",
+    key = ("decode_attention_dv" if v.shape[-1] != q.shape[-1]
+           else "decode_attention_int8" if int8 else "decode_attention")
+    agree.hold(torch, key,
                out, plain, f"decode_attention {shape} Lc={Lc} kv_len="
                f"{kv_len.tolist()} q {_dtype_name(qdtype)} cache "
                f"{_dtype_name(k.dtype)}")
@@ -747,6 +796,25 @@ def phase_attention_kernels(torch, seed: int) -> Agreement:
                              (torch.bfloat16, True), (torch.float32, True)):
             compare_decode(torch, agree, DECODE_SHAPE, Lc, lens, qdtype,
                            int8, seed + Lc)
+    # the Dv mode: minicpm3's (Dq 96, Dv 64) and deepseek-v2's (192, 128)
+    # head dims, bf16 and f32, ragged against the tiles, then at minicpm3's
+    # prefill and decode shapes
+    for i, dims in enumerate((dict(Dh=96, Dv=64), DV_DEEPSEEK)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for j, kw in enumerate((dict(causal=True), dict(causal=False),
+                                    dict(causal=True, q_offset=150,
+                                         kv_valid_len=[300, 97]))):
+                compare_flash(torch, agree, dict(B=2, Lq=300, Lkv=300, H=8,
+                                                 Hkv=8, **dims), dtype,
+                              seed + 60 + 3 * i + j, **dict(kw))
+            compare_decode(torch, agree, dict(B=4, H=8, Hkv=8, **dims), 700,
+                           [700, 256, 1, 0], dtype, False, seed + 70 + i)
+    compare_flash(torch, agree, DV_PREFILL_SHAPE, torch.bfloat16, seed + 72,
+                  causal=True)
+    Lc, n_kv = DV_DECODE_TIMED
+    compare_decode(torch, agree, DV_DECODE_SHAPE, Lc,
+                   [n_kv, n_kv + 1, n_kv + 7, 1], torch.bfloat16, False,
+                   seed + 73)
     log_agreement("attention kernel-vs-plain comparisons", agree)
     return agree
 
@@ -758,7 +826,8 @@ FAULT_TILE = 64     # half of K4's 128-key kv tile; K3's fault drops 256
 def flash_tile_dropped(torch, q, k, v):
     """Causal prefill (Lq == Lkv) through K4's plain version with one kv
     tile (keys L/2 .. L/2 + 64) left out of the last quarter of the query
-    rows: a planted fault that the checks must fail."""
+    rows: a planted fault that the checks must fail. v may be narrower than
+    q/k (the Dv mode)."""
     from repro_torch.kernels.flash_attention import ref
     L = q.shape[1]
     lo, r0 = L // 2, 3 * L // 4
@@ -802,6 +871,28 @@ def phase_planted_faults(torch, seed: int) -> dict:
     bad = dr.decode_attention_ref(q, *holed, kv_len - split)
     out["decode_attention"] = (
         bf16_excess(bad, plain, ATT_ROW_RTOL["decode_attention"]),
+        float((bad.float() - plain.float()).abs().max()))
+    del q, k, v, plain, bad, holed
+    # the Dv mode at minicpm3's prefill and decode shapes
+    q, k, v = flash_inputs(torch, **DV_PREFILL_SHAPE, dtype=torch.bfloat16,
+                           seed=seed + 42)
+    plain = fr.attention_ref(q, k, v, causal=True, p_dtype=v.dtype)
+    bad = flash_tile_dropped(torch, q, k, v)
+    out["flash_attention_dv"] = (
+        bf16_excess(bad, plain, ATT_ROW_RTOL["flash_attention_dv"]),
+        float((bad.float() - plain.float()).abs().max()))
+    del q, k, v, plain, bad
+    Lc, n_kv = DV_DECODE_TIMED
+    q, k, v, _ = decode_inputs(torch, **DV_DECODE_SHAPE, Lc=Lc,
+                               qdtype=torch.bfloat16, int8=False,
+                               seed=seed + 43)
+    kv_len = torch.full((DV_DECODE_SHAPE["B"],), n_kv, device=DEV)
+    plain = dr.decode_attention_ref(q, k, v, kv_len)
+    holed = [torch.cat([x[:, :n_kv // 2], x[:, n_kv // 2 + split:]], dim=1)
+             for x in (k, v)]
+    bad = dr.decode_attention_ref(q, *holed, kv_len - split)
+    out["decode_attention_dv"] = (
+        bf16_excess(bad, plain, ATT_ROW_RTOL["decode_attention_dv"]),
         float((bad.float() - plain.float()).abs().max()))
     for key, (x, e) in out.items():
         check(x > 1.0, f"[kernels] the bf16 limit passes a planted fault in "
@@ -918,6 +1009,82 @@ def phase_attention_timing(torch, seed: int) -> dict:
                 + f", bound {b_ms:.4f} ms ({b_by}); device kernels "
                 f"{rec['device_kernels']}")
             del q, k, v, sc
+    out.update(dv_timing(torch, seed))
+    return out
+
+
+def dv_timing(torch, seed: int) -> dict:
+    """Both kernels' Dv mode at minicpm3's shapes (DV_PREFILL_SHAPE, causal;
+    DV_DECODE_SHAPE at Lc 8,192 and kv_len 4,096): kernel, plain version,
+    bound and scaled_dot_product_attention, which takes a value head dim of
+    its own (a yardstick; the port never calls it). The bound counts q, k
+    and v read once (K3: the first kv_len positions) and the output written
+    once; prefill's operations 2 H (Dq + Dv) over the unmasked (query, key)
+    pairs, decode's 2 B H kv_len (Dq + Dv)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops as da, ref as dr
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fr
+    out = {}
+    sh = DV_PREFILL_SHAPE
+    B, L, H, Hkv, Dq, Dv = (sh[x] for x in ("B", "Lq", "H", "Hkv", "Dh",
+                                            "Dv"))
+    q, k, v = flash_inputs(torch, **sh, dtype=torch.bfloat16, seed=seed + 33)
+    nbytes = 2 * B * L * (H * Dq + Hkv * Dq + Hkv * Dv + H * Dv)
+    pairs = L * (L + 1) // 2
+    flops = 2.0 * B * H * (Dq + Dv) * pairs
+    b_ms, b_by = att_bound(nbytes, flops, H100_BF16_FLOPS)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    call = lambda: fa.flash_attention(q, k, v, causal=True)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    rec = {"shape": sh, "dtype": "bfloat16", "causal": True,
+           "ms": cuda_ms(torch, call),
+           "plain_ms": cuda_ms(torch, lambda: fr.attention_ref(
+               q, k, v, causal=True, p_dtype=v.dtype), iters=5, warmup=1),
+           "library_ms": cuda_ms(torch, sdpa),
+           "bound_ms": b_ms, "bound_by": b_by}
+    rec["tflops"] = flops / rec["ms"] / 1e9
+    rec.update(flash_device_ms(torch, call, sdpa, "flash_bf16", "Dv prefill"))
+    out["flash_attention_dv/prefill"] = rec
+    log(f"[timing] flash_attention_dv prefill {sh} bf16: kernel "
+        f"{rec['ms']:.4f} ms ({rec['tflops']:.1f} TFLOP/s), plain "
+        f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}); the kernel takes "
+        f"{b_ms / rec['ms']:.3f} of its bound; device "
+        + ("not measured" if rec["device_ms"] is None else
+           f"{rec['device_ms']:.4f} ms, library "
+           f"{rec['library_device_ms']} ms in {rec['library_kernels']}"))
+    del q, k, v, qt, kt, vt
+    sh = DV_DECODE_SHAPE
+    Lc, n_kv = DV_DECODE_TIMED
+    B, H, Hkv, Dq, Dv = (sh[x] for x in ("B", "H", "Hkv", "Dh", "Dv"))
+    q, k, v, _ = decode_inputs(torch, **sh, Lc=Lc, qdtype=torch.bfloat16,
+                               int8=False, seed=seed + 34)
+    kv_len = torch.full((B,), n_kv, device=DEV)
+    nbytes = 2 * B * H * (Dq + Dv) + 2 * B * n_kv * Hkv * (Dq + Dv) + B * 8
+    b_ms, b_by = att_bound(nbytes, 2.0 * B * H * n_kv * (Dq + Dv),
+                           H100_BF16_FLOPS)
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(Lc, device=DEV)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    call = lambda: da.decode_attention(q, k, v, kv_len)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    rec = {"Lc": Lc, "kv_len": n_kv, "ms": cuda_ms(torch, call),
+           "plain_ms": cuda_ms(torch, lambda: dr.decode_attention_ref(
+               q, k, v, kv_len)),
+           "library_ms": cuda_ms(torch, sdpa), "bound_ms": b_ms,
+           "bound_by": b_by}
+    rec.update(decode_device_ms(torch, call, "decode_attention_dv"))
+    rec.update(library_device_ms(torch, sdpa))
+    out[f"decode_attention_dv/{Lc}/{n_kv}"] = rec
+    log(f"[timing] decode_attention_dv B={B} H={H}/{Hkv} Dq={Dq} Dv={Dv} "
+        f"Lc={Lc} kv_len={n_kv}: kernel {rec['ms']:.4f} ms (CUDA events), "
+        + ("device not measured" if rec["device_ms"] is None else
+           f"{rec['device_ms']:.4f} ms on the device "
+           f"({b_ms / rec['device_ms']:.3f} of the bound)")
+        + f", plain {rec['plain_ms']:.4f} ms, library "
+        f"{rec['library_ms']:.4f} ms ({rec['library_device_ms']} ms on the "
+        f"device), bound {b_ms:.4f} ms ({b_by}); device kernels "
+        f"{rec['device_kernels']}")
     return out
 
 
@@ -971,8 +1138,9 @@ class AttnRecorder:
     def flash_attention(self, q, k, v, *, causal=True, window=None,
                         prefix_len=0, q_offset=None, kv_valid_len=None):
         B, Lq, H, Dh = q.shape
+        dv = {} if v.shape[-1] == Dh else {"Dv": v.shape[-1]}
         self.calls.append(("flash_attention", dict(
-            B=B, Lq=Lq, Lkv=k.shape[1], H=H, Hkv=k.shape[2], Dh=Dh),
+            B=B, Lq=Lq, Lkv=k.shape[1], H=H, Hkv=k.shape[2], Dh=Dh, **dv),
             _dtype_name(q.dtype), dict(causal=causal, window=window,
                                        prefix_len=prefix_len,
                                        q_offset=q_offset),
@@ -984,8 +1152,9 @@ class AttnRecorder:
     def decode_attention(self, q, k_cache, v_cache, kv_len, *, k_scale=None,
                          v_scale=None):
         B, H, Dh = q.shape
+        dv = {} if v_cache.shape[-1] == Dh else {"Dv": v_cache.shape[-1]}
         self.calls.append(("decode_attention", dict(
-            B=B, H=H, Hkv=k_cache.shape[2], Dh=Dh), k_cache.shape[1],
+            B=B, H=H, Hkv=k_cache.shape[2], Dh=Dh, **dv), k_cache.shape[1],
             _dtype_name(q.dtype), k_scale is not None, kv_len.clone()))
         return self._ops.decode_attention(q, k_cache, v_cache, kv_len,
                                           k_scale=k_scale, v_scale=v_scale)
@@ -1554,15 +1723,11 @@ def rel_diff(torch, a, b) -> float:
 
 def attention_launches():
     """K4's launches by dtype (the bf16 prefill; the f32 embedder and
-    engine check) and K3's by cache."""
-    from repro_torch.kernels.decode_attention import ops as da
-    from repro_torch.kernels.flash_attention import ops as fa
-    return {"flash_attention": (fa.flash_attention.launches
-                                - fa.flash_attention.launches_f32),
-            "flash_attention_f32": fa.flash_attention.launches_f32,
-            "decode_attention": (da.decode_attention.launches
-                                 - da.decode_attention.launches_int8),
-            "decode_attention_int8": da.decode_attention.launches_int8}
+    engine check) and in the Dv mode (MLA's prefill), and K3's by cache
+    and in the Dv mode (MLA's materialised decode): the launcher's
+    ``kernel_launches`` without K1/K2."""
+    from repro_torch.launch.serve import kernel_launches
+    return {k: v for k, v in kernel_launches().items() if k in ATT_KEYS}
 
 
 def zero_attention_launches() -> None:
@@ -1570,6 +1735,7 @@ def zero_attention_launches() -> None:
     from repro_torch.kernels.flash_attention import ops as fa
     fa.flash_attention.launches = fa.flash_attention.launches_f32 = 0
     da.decode_attention.launches = da.decode_attention.launches_int8 = 0
+    fa.flash_attention.launches_dv = da.decode_attention.launches_dv = 0
 
 
 def phase_engine_long(torch, np, models, att_recorders, seed: int,
@@ -4287,9 +4453,9 @@ def zoo_trace(torch, L, fn, n: int) -> dict:
     return out
 
 
-def log_zoo_trace(what: str, tr: dict) -> None:
+def log_zoo_trace(what: str, tr: dict, tag: str = "zoo") -> None:
     if not tr:
-        log(f"[zoo] {what}: the profiler recorded no device activity; the "
+        log(f"[{tag}] {what}: the profiler recorded no device activity; the "
             f"split is not measured")
         return
     parts = [f"device busy {tr['busy_ms']:.3f} ms ({tr['device_events']} "
@@ -4301,7 +4467,7 @@ def log_zoo_trace(what: str, tr: dict) -> None:
                          f"({tr[f'{key}_share']:.3f})")
         elif f"{key}_ms" in tr and key.startswith("moe"):
             parts.append(f"{name} not measured")
-    log(f"[zoo] {what}: " + ", ".join(parts) + "; most device time: "
+    log(f"[{tag}] {what}: " + ", ".join(parts) + "; most device time: "
         + "; ".join(f"{n} {t:.3f} ms" for n, t in tr["top_kernels_ms"]))
 
 
@@ -4313,17 +4479,18 @@ def zoo_rel(torch, cfg, a, b) -> float:
 
 
 def zoo_held(torch, L, cfg, what: str, forward, kernel, kernel_notes, plain,
-             plain_notes) -> dict:
+             plain_notes, flash=None) -> dict:
     """The kernel run's logits held against the plain layers' at
     ZOO_RTOL. A routing flip (a token's expert set differing between the
     two runs) can move the logits past it on its own; then ``forward``
-    runs the plain side again with the kernel run's routing forced, and
-    that is held."""
+    runs the plain side again with the kernel run's routing forced (and
+    ``flash`` as its prefill attention, as in the plain run), and that is
+    held."""
     rel = zoo_rel(torch, cfg, kernel, plain)
     flips = flip_shares(kernel_notes, plain_notes)
     held, forced = rel, None
     if rel > ZOO_RTOL and any(flips):
-        with routing(L, force=kernel_notes), swap_attention(L):
+        with routing(L, force=kernel_notes), swap_attention(L, flash=flash):
             held = forced = zoo_rel(torch, cfg, kernel, forward())
     check(held <= ZOO_RTOL, f"[zoo] {what}: kernel vs plain logits differ "
                             f"by {held:.4g} of the largest logit, over "
@@ -4612,6 +4779,375 @@ def phase_zoo(torch, np, att_recorders, seed: int) -> dict:
             "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the MLA kind and the encoder-decoder
+# ---------------------------------------------------------------------------
+
+MLA_SLOTS, MLA_MAX, MLA_PROMPT, MLA_STEPS = 4, 8192, 4096, 16
+DEEPSEEK_LAYERS = 4  # of 60: the dense layer 0 and 3 MoE layers; 60 layers
+                     # in bf16 are 471.5 GB, over the card's 80 GB; widths,
+                     # heads, experts and ranks unchanged
+WHISPER_B, WHISPER_TEXT, WHISPER_STEPS = 2, 64, 16
+PLAIN_ROWS = 1024    # query rows a plain prefill attention call takes at
+                     # once: deepseek's f32 scores over 128 heads and 4,096
+                     # keys would be 8.6 GB a copy
+
+
+def plain_rows(torch, L, hole: bool = False):
+    """K4's plain version (``L.flash_attention_plain``) over PLAIN_ROWS
+    query rows at a time, which gives the same rows (each row's output
+    depends on its own scores alone). ``hole``: the rows of the last
+    quarter see the keys with one FAULT_TILE-key tile at L/2 left out, the
+    planted fault of ``flash_tile_dropped`` (causal prefill only)."""
+    def flash(q, k, v, *, causal=True, window=None, prefix_len=0,
+              q_offset=0, kv_valid_len=None):
+        Lq, Lkv = q.shape[1], k.shape[1]
+        lo, r_hole = Lkv // 2, 3 * Lq // 4
+        outs = []
+        for r0 in range(0, Lq, PLAIN_ROWS):
+            kk, vv, off = k, v, q_offset + r0
+            if hole:
+                check(causal and Lq == Lkv and r_hole % PLAIN_ROWS == 0,
+                      "[mla] the planted fault is a causal prefill's")
+            if hole and r0 >= r_hole:
+                kk, vv = (torch.cat([x[:, :lo], x[:, lo + FAULT_TILE:]], 1)
+                          for x in (k, v))
+                off -= FAULT_TILE
+            outs.append(L.flash_attention_plain(
+                q[:, r0:r0 + PLAIN_ROWS], kk, vv, causal=causal,
+                window=window, prefix_len=prefix_len, q_offset=off,
+                kv_valid_len=kv_valid_len))
+        return torch.cat(outs, dim=1)
+    return flash
+
+
+def log_mla_trace(what: str, tr: dict, step_ms) -> None:
+    log_zoo_trace(what, tr, tag="mla")
+    if tr and step_ms:
+        tr["idle_share"] = 1 - tr["busy_ms"] / step_ms
+        log(f"[mla] {what}: idle share {tr['idle_share']:.3f} of the "
+            f"unprofiled median ({step_ms:.2f} ms)")
+
+
+def mla_engine(torch, np, L, lm, params, cfg, att_recorders, seed: int
+               ) -> dict:
+    """An MLA model (``mla_absorb`` off in ``cfg``) at full width through
+    ModelEngine(n_slots=4, max_len=8192): the first prompt's prefill logits
+    held against the plain layers (rows in blocks, ``plain_rows``), which a
+    kv tile dropped from the plain prefill must move past ZOO_RTOL; four
+    4,096-token prompts prefilled (K4's Dv mode on every layer), then the
+    first decode step's logits held against the plain layers in each form
+    (materialised: K3's Dv mode; absorbed: f32 products, no kernel) and the
+    two forms against each other; then 16 steps in each form from the same
+    state (K3's Dv mode on every layer of the materialised steps, no K3 in
+    the absorbed ones). Launch counters zeroed and read around each window,
+    every K3/K4 call recorded for the re-checks; profiled prefill and
+    decode of each form."""
+    from repro_torch.serving.engine import ModelEngine
+    n = cfg.n_layers
+    name = cfg.name
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, MLA_PROMPT)
+               for _ in range(MLA_SLOTS)]
+    first = {"tokens": torch.tensor(prompts[0][None], device=DEV)}
+    rec: dict = {}
+    with torch.inference_mode():
+        def prefill1():
+            return lm.prefill(params, cfg, first, lm.init_cache(
+                cfg, 1, MLA_PROMPT, device=DEV))[0]
+        plain = plain_rows(torch, L)
+        with routing(L) as kr:
+            kl = prefill1()
+        with routing(L) as pr, swap_attention(L, flash=plain):
+            pl = prefill1()
+        rec["prefill"] = zoo_held(torch, L, cfg, f"{name} prefill", prefill1,
+                                  kl, kr.idx, pl, pr.idx, flash=plain)
+        with routing(L, force=pr.idx), swap_attention(
+                L, flash=plain_rows(torch, L, hole=True)):
+            fl = prefill1()
+        rec["rel_diff_planted_fault"] = f = zoo_rel(torch, cfg, fl, pl)
+        check(f > ZOO_RTOL, f"[mla] {name}: a kv tile dropped from the plain "
+                            f"prefill moves the logits by {f:.4g} of the "
+                            f"largest, within ZOO_RTOL {ZOO_RTOL}")
+        log(f"[mla] {name} planted fault (one {FAULT_TILE}-key tile dropped "
+            f"from the last quarter of the prefill rows, every layer): "
+            f"logits move by {f:.4g} of the largest (limit {ZOO_RTOL})")
+        del kl, pl, fl
+    torch.cuda.empty_cache()
+    eng = ModelEngine(params, cfg, n_slots=MLA_SLOTS, max_len=MLA_MAX,
+                      device=DEV)
+    check(set(eng.cache) == {"latent", "krope"}, f"[mla] {name}: cache keys")
+    torch.cuda.synchronize()
+    zero_attention_launches()
+    prefill_ms, toks = [], []
+    with recorded_ops(L, att_recorders):
+        for s, p in enumerate(prompts):
+            t0 = time.perf_counter()
+            toks.append(eng.prefill_into(s, p))
+            torch.cuda.synchronize()
+            prefill_ms.append(1e3 * (time.perf_counter() - t0))
+    launches = attention_launches()
+    check(launches["flash_attention_dv"] == MLA_SLOTS * n
+          and sum(launches.values()) == MLA_SLOTS * n,
+          f"[mla] {name} prefill: launches {launches}, expected "
+          f"{MLA_SLOTS * n} K4 in the Dv mode and nothing else")
+    toks = np.asarray(toks, np.int64)
+    start = ({k: v.clone() for k, v in eng.cache.items()}, eng.pos.copy(),
+             toks.copy())
+    forms = {"materialised": cfg, "absorbed": cfg.replace(mla_absorb=True)}
+    first_logits = {}
+    with torch.inference_mode():
+        pos = torch.tensor(eng.pos.astype(np.int64), device=DEV)
+        tok = torch.tensor(toks, device=DEV)[:, None]
+        for form, c in forms.items():
+            def decode1(c=c):
+                return lm.decode_step(params, c, tok, eng.cache, pos,
+                                      kv_len=pos + 1, moe_groups=MLA_SLOTS,
+                                      kv_max=int(eng.pos.max()) + 1)[0]
+            with routing(L) as kr:
+                first_logits[form] = kd = decode1()
+            with routing(L) as pr, swap_attention(L):
+                pd = decode1()
+            rec[f"decode_{form}"] = zoo_held(
+                torch, L, c, f"{name} {form} decode", decode1, kd, kr.idx, pd,
+                pr.idx)
+            del pd
+        rec["rel_diff_forms"] = rf = zoo_rel(torch, cfg,
+                                             first_logits["absorbed"],
+                                             first_logits["materialised"])
+        check(rf <= ZOO_RTOL, f"[mla] {name}: the absorbed and materialised "
+                              f"decode's logits differ by {rf:.4g} of the "
+                              f"largest, over {ZOO_RTOL}")
+        del first_logits
+    steps: dict = {}
+    for form, c in forms.items():
+        cache, pos0, toks0 = start
+        for k, v in cache.items():
+            eng.cache[k].copy_(v)
+        eng.pos[:] = pos0
+        eng.cfg = c
+        out, decode_ms = toks0.copy(), []
+        torch.cuda.synchronize()
+        zero_attention_launches()
+        with recorded_ops(L, att_recorders):
+            for _ in range(MLA_STEPS):
+                t0 = time.perf_counter()
+                out = eng.decode_active(out)
+                decode_ms.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+        got = attention_launches()
+        want = 0 if c.mla_absorb else MLA_STEPS * n
+        check(got["decode_attention_dv"] == want
+              and sum(got.values()) == want,
+              f"[mla] {name} {form} decode: launches {got}, expected {want}"
+              f" K3 in the Dv mode and nothing else")
+        check(all(0 <= t < cfg.vocab_size for t in out),
+              f"[mla] {name} {form}: bad tokens {out}")
+        for k, v in got.items():
+            launches[k] += v
+        steps[form] = {"decode_ms": decode_ms,
+                       "decode_ms_median": statistics.median(decode_ms),
+                       "tokens": out.tolist()}
+        steps[form]["trace"] = tr = zoo_trace(
+            torch, L, lambda: [eng.decode_active(out) for _ in range(2)], 2)
+        log_mla_trace(f"{name} {form}, profiled decode (per step of 2)", tr,
+                      steps[form]["decode_ms_median"])
+    eng.cfg = cfg
+    same = float(np.mean(np.asarray(steps["materialised"]["tokens"])
+                         == np.asarray(steps["absorbed"]["tokens"])))
+    rec.update(launches=launches, prefill_ms=prefill_ms,
+               prefill_ms_median=statistics.median(prefill_ms), steps=steps,
+               last_tokens_equal_share=same,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    flips = {k: [round(x, 4) for x in rec[k]["routing_flip_share"]]
+             for k in ("prefill", "decode_materialised", "decode_absorbed")}
+    log(f"[mla] {name}: {MLA_SLOTS} prompts of {MLA_PROMPT} tokens, prefill "
+        f"{rec['prefill_ms_median']:.1f} ms per prompt (median; "
+        f"{', '.join(f'{t:.1f}' for t in prefill_ms)}), {MLA_STEPS} decode "
+        f"steps {steps['materialised']['decode_ms_median']:.2f} ms per step "
+        f"materialised, {steps['absorbed']['decode_ms_median']:.2f} ms "
+        f"absorbed (medians); kernel vs plain logits "
+        f"{rec['prefill']['rel_diff']:.4g} (prefill), "
+        f"{rec['decode_materialised']['rel_diff']:.4g} (materialised decode)"
+        f", {rec['decode_absorbed']['rel_diff']:.4g} (absorbed decode) of "
+        f"the largest (held {rec['prefill']['rel_diff_held']:.4g} / "
+        f"{rec['decode_materialised']['rel_diff_held']:.4g} / "
+        f"{rec['decode_absorbed']['rel_diff_held']:.4g}, limit {ZOO_RTOL});"
+        f" absorbed vs materialised {rf:.4g}; the two forms' tokens after "
+        f"{MLA_STEPS} steps equal in {same:.2f} of the slots; routing flips "
+        f"per layer {flips}; launches {launches}; peak memory "
+        f"{rec['max_memory_allocated'] / 2**30:.1f} GiB")
+    rec["prefill_trace"] = tr = zoo_trace(
+        torch, L, lambda: eng.prefill_into(0, prompts[0]), 1)
+    log_mla_trace(f"{name}, profiled prefill of {MLA_PROMPT} tokens", tr,
+                  rec["prefill_ms_median"])
+    del eng, start
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mla_whisper(torch, np, L, lm, att_recorders, seed: int) -> dict:
+    """whisper-base at full size: ``lm.prefill`` of B = 2 with 1,500 seeded
+    stub frames (the encoder: K4 non-causal over 1,500 frames) and 64 text
+    tokens (K4 causal; the cross-attention: K4 non-causal, 64 queries over
+    1,500 keys), then 16 greedy ``decode_step``s (K3 over the self cache
+    and over the 1,500 cross positions). The prefill's and the first
+    step's logits held against the plain layers; the encoder's attention
+    made causal must move them past ZOO_RTOL."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config("whisper-base")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(gen(torch, seed + 41), cfg, device=DEV)
+    torch.cuda.synchronize()
+    log(f"[mla] {cfg.name} {cfg.enc_layers}+{cfg.n_layers} layers d="
+        f"{cfg.d_model} heads={cfg.n_heads} of {cfg.head_dim} d_ff="
+        f"{cfg.d_ff} ({cfg.act}, ungated) enc_len={cfg.enc_len} vocab="
+        f"{cfg.vocab_size} bf16, LayerNorm, tied embeddings: "
+        f"{lm.n_params(params) / 1e6:.1f}M params, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed + 42)
+    batch = {"tokens": torch.tensor(rng.integers(
+        0, cfg.vocab_size, (WHISPER_B, WHISPER_TEXT)), device=DEV),
+        "frames": torch.randn(
+            (WHISPER_B, cfg.enc_len, cfg.d_model), generator=gen(
+                torch, seed + 43), device=DEV).to(torch.bfloat16)}
+    max_len = WHISPER_TEXT + WHISPER_STEPS + 2       # 2 more steps traced
+
+    def new_cache():
+        return lm.init_cache(cfg, WHISPER_B, max_len, device=DEV)
+    rec: dict = {}
+    n, n_enc = cfg.n_layers, cfg.enc_layers
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        zero_attention_launches()
+        with recorded_ops(L, att_recorders):
+            t0 = time.perf_counter()
+            kl, cache = lm.prefill(params, cfg, batch, new_cache())
+            torch.cuda.synchronize()
+            rec["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+            start = {k: v.clone() for k, v in cache.items()}
+            nxt0 = nxt = torch.argmax(kl, dim=-1)[:, None]
+            decode_ms = []
+            for step in range(WHISPER_STEPS):
+                t0 = time.perf_counter()
+                d, cache = lm.decode_step(params, cfg, nxt, cache,
+                                          WHISPER_TEXT + step)
+                nxt = torch.argmax(d, dim=-1)[:, None]
+                torch.cuda.synchronize()
+                decode_ms.append(1e3 * (time.perf_counter() - t0))
+                if step == 0:
+                    kd = d
+        launches = attention_launches()
+        want_k4, want_k3 = n_enc + 2 * n, WHISPER_STEPS * 2 * n
+        check(launches["flash_attention"] == want_k4
+              and launches["decode_attention"] == want_k3
+              and sum(launches.values()) == want_k4 + want_k3,
+              f"[mla] whisper: launches {launches}, expected {want_k4} K4 "
+              f"and {want_k3} K3")
+        with swap_attention(L):
+            pl, _ = lm.prefill(params, cfg, batch, new_cache())
+            pd, _ = lm.decode_step(params, cfg, nxt0, start, WHISPER_TEXT)
+
+        def causal_encoder(q, k, v, *, causal=True, **kw):
+            if not causal and q.shape[1] == k.shape[1] == cfg.enc_len:
+                causal = True
+            return L.flash_attention_plain(q, k, v, causal=causal, **kw)
+        with swap_attention(L, flash=causal_encoder):
+            fl, _ = lm.prefill(params, cfg, batch, new_cache())
+        rec["rel_diff_prefill"] = rp = zoo_rel(torch, cfg, kl, pl)
+        rec["rel_diff_decode"] = rd = zoo_rel(torch, cfg, kd, pd)
+        rec["rel_diff_planted_fault"] = f = zoo_rel(torch, cfg, fl, pl)
+        check(rp <= ZOO_RTOL and rd <= ZOO_RTOL,
+              f"[mla] whisper: kernel vs plain logits differ by {rp:.4g} "
+              f"(prefill) / {rd:.4g} (decode) of the largest, over "
+              f"{ZOO_RTOL}")
+        check(f > ZOO_RTOL, f"[mla] whisper: the encoder made causal moves "
+                            f"the logits by {f:.4g} of the largest, within "
+                            f"ZOO_RTOL {ZOO_RTOL}")
+        del pl, pd, fl, start
+        rec.update(launches=launches, decode_ms=decode_ms,
+                   decode_ms_median=statistics.median(decode_ms),
+                   tokens=nxt[:, 0].tolist(),
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        log(f"[mla] whisper: B={WHISPER_B}, {cfg.enc_len} frames + "
+            f"{WHISPER_TEXT} text tokens, prefill {rec['prefill_ms']:.1f} ms,"
+            f" {WHISPER_STEPS} decode steps {rec['decode_ms_median']:.2f} ms "
+            f"per step (median); kernel vs plain logits {rp:.4g} (prefill) "
+            f"and {rd:.4g} (decode) of the largest (limit {ZOO_RTOL}); "
+            f"planted fault (the encoder made causal) {f:.4g}; launches "
+            f"{launches}; peak memory "
+            f"{rec['max_memory_allocated'] / 2**30:.2f} GiB")
+        pos = [WHISPER_TEXT + WHISPER_STEPS]
+
+        def two_steps():
+            nonlocal cache, nxt
+            for _ in range(2):
+                d, cache = lm.decode_step(params, cfg, nxt, cache, pos[0])
+                nxt = torch.argmax(d, dim=-1)[:, None]
+                pos[0] += 1
+        rec["decode_trace"] = tr = zoo_trace(torch, L, two_steps, 2)
+        log_mla_trace("whisper, profiled decode (per step of 2)", tr,
+                      rec["decode_ms_median"])
+        rec["prefill_trace"] = tr = zoo_trace(
+            torch, L, lambda: lm.prefill(params, cfg, batch, new_cache()), 1)
+        log_mla_trace("whisper, profiled prefill", tr, rec["prefill_ms"])
+    del params, cache
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_mla_encdec(torch, np, att_recorders, seed: int) -> dict:
+    """Phase 11: minicpm3-4b at full size and deepseek-v2-236b at full
+    width cut to DEEPSEEK_LAYERS layers (its dense layer 0 and MoE layers)
+    through ModelEngine (``mla_engine``), then whisper-base at full size
+    through lm.prefill / decode_step (``mla_whisper``). Every K3/K4 call is
+    noted for the re-checks."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers as L, lm
+    t0 = time.perf_counter()
+    out: dict = {}
+    for i, (arch, layers) in enumerate((("minicpm3-4b", None),
+                                        ("deepseek-v2-236b",
+                                         DEEPSEEK_LAYERS))):
+        full = get_config(arch)
+        cfg = full if layers is None else full.replace(n_layers=layers)
+        t = time.perf_counter()
+        params = lm.init_params(gen(torch, seed + 30 + i), cfg, device=DEV)
+        torch.cuda.synchronize()
+        nbytes = lm.n_params(params) * 2
+        cut = ""
+        if layers is not None:
+            moe_layer = lm.n_params(params["blocks"][0]) * 2
+            total = nbytes + (full.n_layers - layers) * moe_layer
+            cut = (f"; depth cut to {layers} of {full.n_layers} layers (the "
+                   f"dense layer 0 and {layers - 1} MoE layers; "
+                   f"{full.n_layers} layers in bf16: {total / 1e9:.1f} GB, "
+                   f"over the card's 80 GB)")
+        log(f"[mla] {arch} d={cfg.d_model} heads={cfg.n_heads} q_lora="
+            f"{cfg.q_lora_rank} kv_lora={cfg.kv_lora_rank} Dq="
+            f"{cfg.qk_nope_dim}+{cfg.qk_rope_dim} Dv={cfg.v_head_dim} "
+            + (f"{cfg.n_experts} experts of {cfg.d_ff_expert} top-"
+               f"{cfg.top_k} + {cfg.n_shared_experts} shared, dense d_ff "
+               f"{cfg.d_ff} " if cfg.is_moe else f"d_ff={cfg.d_ff} ")
+            + f"vocab={cfg.vocab_size} layers={cfg.n_layers} bf16: "
+            f"{nbytes / 1e9:.1f} GB, init {time.perf_counter() - t:.1f} s"
+            + cut)
+        out[arch] = mla_engine(torch, np, L, lm, params, cfg, att_recorders,
+                               seed + 35 + i)
+        del params
+        torch.cuda.empty_cache()
+    out["whisper-base"] = mla_whisper(torch, np, L, lm, att_recorders, seed)
+    launches = dict.fromkeys(ATT_KEYS, 0)
+    for r in out.values():
+        for k, v in r["launches"].items():
+            launches[k] += v
+    wall = time.perf_counter() - t0
+    log(f"[mla] phase done in {wall:.1f} s; launches {launches}")
+    return {**out, "launches": launches, "wall_s": wall}
+
+
 def nvidia_smi() -> str:
     try:
         out = subprocess.run(
@@ -4739,6 +5275,11 @@ def main() -> int:
     zoo = phase_zoo(torch, np, att_rec, args.seed)
     detail["zoo"] = zoo
     detail["zoo_s"] = zoo["wall_s"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla = phase_mla_encdec(torch, np, att_rec, args.seed)
+    detail["mla_encdec"] = mla
+    detail["mla_encdec_s"] = mla["wall_s"]
     main_err = phase_main_shapes(torch, recorder.calls, args.seed)
     err["cosine_top1_local"] = shard["kernel"]["max_abs_err"]
     check({c[0] for c in recorder.calls} == set(err),
@@ -4775,6 +5316,12 @@ def main() -> int:
             "src/repro/kernels/flash_attention/kernel.py:19",
         "decode_attention": "src/repro/kernels/decode_attention/kernel.py:25",
         "decode_attention_int8":
+            "src/repro/kernels/decode_attention/kernel.py:25",
+        # the Dv mode, which the Pallas kernels lack, is held against the
+        # reference model layer's jnp attention (src/repro/models/
+        # layers.py:157 and :252), which MLA calls
+        "flash_attention_dv": "src/repro/kernels/flash_attention/kernel.py:19",
+        "decode_attention_dv":
             "src/repro/kernels/decode_attention/kernel.py:25"}
     sources = {
         "cosine_topk": "src/repro_torch/csrc/cosine_topk.cu",
@@ -4783,14 +5330,18 @@ def main() -> int:
         "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
         "flash_attention_f32": "src/repro_torch/csrc/flash_attention.cu",
         "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
-        "decode_attention_int8": "src/repro_torch/csrc/decode_attention.cu"}
+        "decode_attention_int8": "src/repro_torch/csrc/decode_attention.cu",
+        "flash_attention_dv": "src/repro_torch/csrc/flash_attention.cu",
+        "decode_attention_dv": "src/repro_torch/csrc/decode_attention.cu"}
     # launches on the main path: K1/K2 in their served stream, the slo
     # phase's runs, the planes phase (its killed child included), the
     # replicas phase (its children and the launcher's workers included)
     # and the shard phase, where K1-local runs; K3/K4 in both served
     # streams, both engine-long runs, the slo phase's live gateway, the
     # planes phase's gateway restart, the replicas phase, the shard
-    # phase's gateways and the zoo phase's mixtral and paligemma runs
+    # phase's gateways, the zoo phase's mixtral and paligemma runs and the
+    # mla_encdec phase's minicpm3, deepseek-v2 and whisper runs (the Dv
+    # mode's only there)
     launches = {"cosine_topk": serve["pallas"]["launches"]
                 + slo_sim["launches"]["cosine_topk"]
                 + slo_live["launches"]["cosine_topk"]
@@ -4809,7 +5360,7 @@ def main() -> int:
             r["launches"][name] for r in long_runs.values()) \
             + slo_live["launches"][name] + planes["launches"][name] \
             + replicas["launches"][name] + shard["launches"][name] \
-            + zoo["launches"][name]
+            + zoo["launches"][name] + mla["launches"][name]
         check(launches[name] > 0, f"[kernels] {name} was never launched on "
                                   f"the main path")
     # timed at the main path's shapes: K1/K2 at the served batch; K4 at the
@@ -4823,6 +5374,10 @@ def main() -> int:
         timing[f"decode_attention/{LONG_MAX}/{LONG_PROMPT}"]
     timed["decode_attention_int8"] = \
         timing[f"decode_attention_int8/{LONG_MAX}/{LONG_PROMPT}"]
+    # the Dv mode at minicpm3's prefill and decode shapes
+    timed["flash_attention_dv"] = timing["flash_attention_dv/prefill"]
+    timed["decode_attention_dv"] = \
+        timing["decode_attention_dv/{}/{}".format(*DV_DECODE_TIMED)]
     all_err = {**err, **att_err}
     kernels = []
     for name, rec in timed.items():

@@ -53,7 +53,12 @@
 //
 // decode_generic keeps the former two-pass design (256-position splits, a
 // warp per K row, scalar loads) for every other shape: any Dh <= 256,
-// unaligned views, an f32 cache at Dh = 256.
+// unaligned views, an f32 cache at Dh = 256, and a value head dim Dv other
+// than the q/k one Dq (MLA decode with its K/V materialised from the latent
+// cache: Dq 96 and Dv 64 in minicpm3, 192 and 128 in deepseek-v2, G = 1; a
+// port extension held against the model layer's jnp decode attention).
+// There V has its own strides, the partial record is G x (2 + Dv) floats
+// and the scale stays 1 / sqrt(Dq).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -73,15 +78,15 @@ constexpr float LOG2E = 1.4426950408889634f;
 struct Args {
   const void* q;           // (B, H, Dh), bf16 or f32
   const void* k;           // (B, Lc, Hkv, Dh)
-  const void* v;
+  const void* v;           // (B, Lc, Hkv, Dv)
   const __half* ks;        // (B, Lc, Hkv) or null
   const __half* vs;
   const void* kv_len;      // (B,) int32 or int64
-  void* o;                 // contiguous (B, H, Dh), q's dtype
-  float* part;             // (B, Hkv, n_split, G, 2 + Dh): m, l, acc
+  void* o;                 // contiguous (B, H, Dv), q's dtype
+  float* part;             // (B, Hkv, n_split, G, 2 + Dv): m, l, acc
   int* count;              // (B, Hkv) arrival counters, 0 between calls
-  int B, H, Hkv, Dh, Lc, G;
-  long long qsB, qsH, csB, csL, csH, ssB, ssL, ssH;
+  int B, H, Hkv, Dh, Dv, Lc, G;     // Dh: the q/k head dim
+  long long qsB, qsH, csB, csL, csH, vsB, vsL, vsH, ssB, ssL, ssH;
   int n_split, q_bf16, kv64;
   float scale;             // 1 / sqrt(Dh)
 };
@@ -627,21 +632,21 @@ decode_generic(Args a) {
   __shared__ float ps[GMAX * GCHUNK];
   __shared__ float vsc[GCHUNK];
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int G = a.G, Dh = a.Dh;
+  const int G = a.G, Dh = a.Dh, Dv = a.Dv;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int len = seq_len(a, b);
   const int start = split * GCHUNK, n = min(GCHUNK, len - start);
   if (n <= 0) return;                      // pass 2 reads splits < kv_len
   float* rec = a.part + (((long long)b * a.Hkv + hk) * a.n_split + split) *
-                            G * (2 + Dh);
+                            G * (2 + Dv);
   for (int e = threadIdx.x; e < G * Dh; e += THREADS) {
     const int g = e / Dh, d = e - g * Dh;
     qs[g * DMAX + d] = q_at(a, b * a.qsB + (long long)(hk * G + g) * a.qsH + d);
   }
   const KT* kbase = static_cast<const KT*>(a.k) + b * a.csB +
                     (long long)start * a.csL + hk * a.csH;
-  const KT* vbase = static_cast<const KT*>(a.v) + b * a.csB +
-                    (long long)start * a.csL + hk * a.csH;
+  const KT* vbase = static_cast<const KT*>(a.v) + b * a.vsB +
+                    (long long)start * a.vsL + hk * a.vsH;
   const long long sbase = b * a.ssB + (long long)start * a.ssL + hk * a.ssH;
   if (Q8) {
     for (int j = threadIdx.x; j < n; j += THREADS)
@@ -686,19 +691,19 @@ decode_generic(Args a) {
     }
     l = warp_sum(l);
     if (lane == 0) {
-      rec[g * (2 + Dh)] = m;
-      rec[g * (2 + Dh) + 1] = l;
+      rec[g * (2 + Dv)] = m;
+      rec[g * (2 + Dv) + 1] = l;
     }
   }
   __syncthreads();
 
   // partial P V: a thread per column, each V row read once for all heads
-  for (int d = threadIdx.x; d < Dh; d += THREADS) {
+  for (int d = threadIdx.x; d < Dv; d += THREADS) {
     float acc[GMAX];
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) acc[g] = 0.f;
     for (int j = 0; j < n; ++j) {
-      const KT x = vbase[j * a.csL + d];
+      const KT x = vbase[j * a.vsL + d];
       const float vf = Q8 ? to_f32(x) * vsc[j] : to_f32(x);
 #pragma unroll
       for (int g = 0; g < GMAX; ++g)
@@ -706,7 +711,7 @@ decode_generic(Args a) {
     }
 #pragma unroll
     for (int g = 0; g < GMAX; ++g)
-      if (g < G) rec[g * (2 + Dh) + 2 + d] = acc[g];
+      if (g < G) rec[g * (2 + Dv) + 2 + d] = acc[g];
   }
 }
 
@@ -714,14 +719,14 @@ decode_generic(Args a) {
 __global__ void __launch_bounds__(THREADS)
 decode_generic_combine(Args a) {
   const int h = blockIdx.x, b = blockIdx.y;
-  const int G = a.G, hk = h / G, g = h - hk * G, Dh = a.Dh;
+  const int G = a.G, hk = h / G, g = h - hk * G, Dv = a.Dv;
   const int ns = (seq_len(a, b) + GCHUNK - 1) / GCHUNK;
   const float* p0 = a.part +
-      ((long long)b * a.Hkv + hk) * a.n_split * G * (2 + Dh) + g * (2 + Dh);
-  const long long stride = (long long)G * (2 + Dh);
+      ((long long)b * a.Hkv + hk) * a.n_split * G * (2 + Dv) + g * (2 + Dv);
+  const long long stride = (long long)G * (2 + Dv);
   float M = -INFINITY;
   for (int s = 0; s < ns; ++s) M = fmaxf(M, p0[s * stride]);
-  for (int d = threadIdx.x; d < Dh; d += THREADS) {
+  for (int d = threadIdx.x; d < Dv; d += THREADS) {
     float acc = 0.f, l = 0.f;
     for (int s = 0; s < ns; ++s) {
       const float* rec = p0 + s * stride;
@@ -729,7 +734,7 @@ decode_generic_combine(Args a) {
       l = fmaf(rec[1], w, l);
       acc = fmaf(rec[2 + d], w, acc);
     }
-    store_out(a, ((long long)b * a.H + h) * Dh + d, l > 0.f ? acc / l : 0.f);
+    store_out(a, ((long long)b * a.H + h) * Dv + d, l > 0.f ? acc / l : 0.f);
   }
 }
 
@@ -800,42 +805,46 @@ cudaError_t launch_generic(Args a, long long s_cap, cudaStream_t s) {
 
 }  // namespace da
 
-// q (B, H, Dh) bf16 or f32 with unit stride in Dh; k/v caches (B, Lc, Hkv,
-// Dh) sharing the strides csB, csL, csH (unit stride in Dh); kv_kind 0 =
-// f32, 1 = bf16, 2 = int8 codes with f16 scales ks/vs (B, Lc, Hkv) sharing
-// ssB, ssL, ssH; kv_len (B,) int32, or int64 when kv64; o contiguous (B, H,
-// Dh) of q's dtype; part f32 scratch of B * Hkv * s_cap * G * (2 + Dh)
-// floats, s_cap >= ceil(Lc / 256); count (B * Hkv) int32 counters that are
-// 0 on entry and are left 0. Writes the grid's splits per (sequence, kv
-// head) to *n_split, 0 for the generic path. Returns the launch status.
+// q (B, H, Dh) bf16 or f32 with unit stride in Dh; k cache (B, Lc, Hkv, Dh)
+// with strides ksB, ksL, ksH and v cache (B, Lc, Hkv, Dv) with strides vsB,
+// vsL, vsH (each with unit stride in its head dim); kv_kind 0 = f32, 1 =
+// bf16, 2 = int8 codes with f16 scales ks/vs (B, Lc, Hkv) sharing ssB, ssL,
+// ssH; kv_len (B,) int32, or int64 when kv64; o contiguous (B, H, Dv) of
+// q's dtype; part f32 scratch of B * Hkv * s_cap * G * (2 + Dv) floats,
+// s_cap >= ceil(Lc / 256); count (B * Hkv) int32 counters that are 0 on
+// entry and are left 0. Writes the grid's splits per (sequence, kv head)
+// to *n_split, 0 for the generic path. Returns the launch status.
 extern "C" int decode_attention(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* kv_len, void* o, float* part, int* count,
     int* n_split, long long B, long long H, long long Hkv, long long Dh,
-    long long Lc, long long qsB, long long qsH, long long csB, long long csL,
-    long long csH, long long ssB, long long ssL, long long ssH,
-    long long s_cap, long long q_bf16, long long kv_kind, long long kv64,
-    void* stream) {
+    long long Dv, long long Lc, long long qsB, long long qsH, long long ksB,
+    long long ksL, long long ksH, long long vsB, long long vsL, long long vsH,
+    long long ssB, long long ssL, long long ssH, long long s_cap,
+    long long q_bf16, long long kv_kind, long long kv64, void* stream) {
   using namespace da;
   if (B == 0 || H == 0) return 0;
-  if (Hkv <= 0 || H % Hkv || H / Hkv > GMAX || Dh < 1 || Dh > DMAX)
+  if (Hkv <= 0 || H % Hkv || H / Hkv > GMAX || Dh < 1 || Dh > DMAX ||
+      Dv < 1 || Dv > DMAX)
     return (int)cudaErrorInvalidValue;
   Args a{q, k, v, static_cast<const __half*>(ks),
          static_cast<const __half*>(vs), kv_len, o, part, count,
-         (int)B, (int)H, (int)Hkv, (int)Dh, (int)Lc, (int)(H / Hkv),
-         qsB, qsH, csB, csL, csH, ssB, ssL, ssH, 0, (int)q_bf16, (int)kv64,
-         1.0f / sqrtf((float)Dh)};
+         (int)B, (int)H, (int)Hkv, (int)Dh, (int)Dv, (int)Lc, (int)(H / Hkv),
+         qsB, qsH, ksB, ksL, ksH, vsB, vsL, vsH, ssB, ssL, ssH, 0,
+         (int)q_bf16, (int)kv64, 1.0f / sqrtf((float)Dh)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // decode_fast: a bf16 q with a bf16 or int8 cache at Dh 64, 128 or 256,
-  // rows 16-byte aligned; decode_generic: everything else
+  // decode_fast: a bf16 q with a bf16 or int8 cache at Dh = Dv of 64, 128
+  // or 256, both caches with one set of strides, rows 16-byte aligned;
+  // decode_generic: everything else
   const long long es = kv_kind == 0 ? 4 : (kv_kind == 1 ? 2 : 1);
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) %
-       16) == 0 && (csB * es) % 16 == 0 && (csL * es) % 16 == 0 &&
-      (csH * es) % 16 == 0;
+       16) == 0 && (ksB * es) % 16 == 0 && (ksL * es) % 16 == 0 &&
+      (ksH * es) % 16 == 0;
   const bool narrow =                  // int8 scale offsets fit 32 bits
       kv_kind != 2 || ssL * (Lc - 1) < (1LL << 31);
-  const bool fast = q_bf16 && kv_kind != 0 && aligned && narrow &&
+  const bool same_kv = Dv == Dh && vsB == ksB && vsL == ksL && vsH == ksH;
+  const bool fast = q_bf16 && kv_kind != 0 && aligned && narrow && same_kv &&
                     (Dh == 64 || Dh == 128 || Dh == 256);
   cudaError_t e;
   if (fast)

@@ -62,6 +62,15 @@
 //     FFMA before ex2, as in bf16. The host side is one ctypes argument
 //     (the packed int64s below) and no shared-memory attribute call for
 //     the embedder's instance (23 KB).
+//   * A value head dim Dv other than the q/k one Dq (MLA: Dq 96 and Dv 64
+//     in minicpm3, 192 and 128 in deepseek-v2; a port extension, held
+//     against the model layer's jnp attention, which takes a separate Dv).
+//     Both kernels are templated on the q/k width and the v width apart,
+//     each padded to a multiple of 64: V has its own tensor map, shared
+//     tile and row width, O and the epilogue are sized by Dv, and the
+//     scale stays 1 / sqrt(Dq). Dq 96 pads to 128: TMA (bf16) or the
+//     zero-filling copies (f32) put zeros past Dq in both Q and K, which
+//     add nothing to S. Nothing is padded or sliced in device memory.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,9 +86,9 @@ struct Args {
   const void* q;
   const void* k;
   const void* v;
-  void* o;                 // contiguous (B, Lq, H, Dh), q's dtype
+  void* o;                 // contiguous (B, Lq, H, Dv), q's dtype
   const int* kv_valid;     // (B,) or null
-  int B, Lq, Lkv, H, Hkv, Dh;
+  int B, Lq, Lkv, H, Hkv, Dq, Dv;     // q/k head dim, v head dim
   long long qsB, qsL, qsH, ksB, ksL, ksH, vsB, vsL, vsH;
   int causal, window, prefix_len, q_offset;   // window <= 0: none
   float scale;
@@ -396,13 +405,16 @@ __device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a,
 }
 
 
-template <int DP, int BK>
+// DQ: the q/k width, DV: the v width, each padded to a multiple of 64
+template <int DQ, int DV, int BK>
 struct Layout {
-  static constexpr int SLABS = DP / SLAB;
-  static constexpr int Q_HALF = SLABS * 64 * 128;       // one consumer's Q
+  static constexpr int SLABS_Q = DQ / SLAB;
+  static constexpr int SLABS_V = DV / SLAB;
+  static constexpr int Q_HALF = SLABS_Q * 64 * 128;     // one consumer's Q
   static constexpr int Q_BYTES = 2 * Q_HALF;
-  static constexpr int KV_BYTES = BK * DP * 2;           // one K or V tile
-  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES;
+  static constexpr int K_BYTES = BK * DQ * 2;            // one K tile
+  static constexpr int V_BYTES = BK * DV * 2;            // one V tile
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * (K_BYTES + V_BYTES);
 };
 
 // True when the mask allows every (query, key) of rows with positions
@@ -415,20 +427,19 @@ __device__ __forceinline__ bool tile_full(const Args& a, int q_lo, int q_hi,
          (a.window <= 0 || q_hi - k0 < a.window);
 }
 
-template <int DP, int BK>
+template <int DQ, int DV, int BK>
 __global__ void __launch_bounds__(FA_THREADS, 1)
 flash_bf16(const __grid_constant__ CUtensorMap tq,
            const __grid_constant__ CUtensorMap tk,
            const __grid_constant__ CUtensorMap tv, const Args a) {
-  using LY = Layout<DP, BK>;
-  constexpr int SLABS = LY::SLABS;
+  using LY = Layout<DQ, DV, BK>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 4 * STAGES];
   // 128-byte swizzled boxes need 1,024-byte aligned destinations
   unsigned char* Qs = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* Ks = Qs + LY::Q_BYTES;      // [STAGES][SLABS][BK][128 B]
-  unsigned char* Vs = Ks + STAGES * LY::KV_BYTES;
+  unsigned char* Ks = Qs + LY::Q_BYTES;   // [STAGES][SLABS_Q][BK][128 B]
+  unsigned char* Vs = Ks + STAGES * LY::K_BYTES;   // [STAGES][SLABS_V]...
   uint64_t* q_full = bars;
   uint64_t* k_full = bars + 1;
   uint64_t* v_full = k_full + STAGES;
@@ -468,7 +479,7 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, LY::Q_BYTES);
       for (int half = 0; half < 2; ++half)
-        for (int sl = 0; sl < SLABS; ++sl)
+        for (int sl = 0; sl < LY::SLABS_Q; ++sl)
           tma_load(Qs + half * LY::Q_HALF + sl * 64 * 128, &tq, q_full,
                    sl * SLAB, h, row0 + 64 * half, b);
       int it = 0;
@@ -479,14 +490,14 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
         const uint32_t ph = (it / STAGES) & 1;
         ++it;
         mbar_wait(k_empty + st, ph ^ 1);
-        mbar_expect_tx(k_full + st, LY::KV_BYTES);
-        for (int sl = 0; sl < SLABS; ++sl)
-          tma_load(Ks + st * LY::KV_BYTES + sl * BK * 128, &tk, k_full + st,
+        mbar_expect_tx(k_full + st, LY::K_BYTES);
+        for (int sl = 0; sl < LY::SLABS_Q; ++sl)
+          tma_load(Ks + st * LY::K_BYTES + sl * BK * 128, &tk, k_full + st,
                    sl * SLAB, hk, k0, b);
         mbar_wait(v_empty + st, ph ^ 1);
-        mbar_expect_tx(v_full + st, LY::KV_BYTES);
-        for (int sl = 0; sl < SLABS; ++sl)
-          tma_load(Vs + st * LY::KV_BYTES + sl * BK * 128, &tv, v_full + st,
+        mbar_expect_tx(v_full + st, LY::V_BYTES);
+        for (int sl = 0; sl < LY::SLABS_V; ++sl)
+          tma_load(Vs + st * LY::V_BYTES + sl * BK * 128, &tv, v_full + st,
                    sl * SLAB, hk, k0, b);
       }
     }
@@ -502,9 +513,9 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
     const int wq_hi = a.q_offset + min(row0 + 64 * cw + 64, a.Lq) - 1;
     const float sl2 = a.scale * LOG2E;                // exp2 domain
     const uint32_t q_addr = smem_u32(Qs + cw * LY::Q_HALF);
-    float o[DP / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     float s[BK / 2];
     uint32_t pf[BK / 16][4];                          // P, bf16 A fragments
@@ -516,9 +527,9 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
     };
     // S = Q K^T (64 x BK), both operands in shared memory
     auto gemm_s = [&](int st) {
-      const uint32_t k_addr = smem_u32(Ks + st * LY::KV_BYTES);
+      const uint32_t k_addr = smem_u32(Ks + st * LY::K_BYTES);
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
+      for (int kk = 0; kk < DQ / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;           // 16 columns a k-step
         wgmma_ss<BK>(s,
                      desc_sw128(q_addr + (kk / 4) * 64 * 128 + off, 16, 1024),
@@ -526,12 +537,12 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
                      kk > 0);
       }
     };
-    // O += P V: P from registers, V (keys x Dh) read MN-major
+    // O += P V: P from registers, V (keys x Dv) read MN-major
     auto gemm_pv = [&](int st) {
-      const uint32_t v_addr = smem_u32(Vs + st * LY::KV_BYTES);
+      const uint32_t v_addr = smem_u32(Vs + st * LY::V_BYTES);
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<DP>(o, pf[kk],
+        wgmma_rs<DV>(o, pf[kk],
                      desc_sw128(v_addr + kk * 16 * 128, BK * 128, 1024));
     };
     // S to P for the tile at k0: scale into the exp2 domain, mask (edge
@@ -575,7 +586,7 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
         l[r] = alpha[r] * l[r] + ls[r];
       }
 #pragma unroll
-      for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < DV / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         pf[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
@@ -641,7 +652,7 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
       if (lane == 0) mbar_arrive(v_empty + pst);
     }
 
-    // out = O / l (0 for a fully masked row); nothing past Lq or Dh
+    // out = O / l (0 for a fully masked row); nothing past Lq or Dv
     __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -649,11 +660,11 @@ flash_bf16(const __grid_constant__ CUtensorMap tq,
       if (row >= a.Lq) continue;
       const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
       __nv_bfloat16* orow =
-          out + (((long long)b * a.Lq + row) * a.H + h) * a.Dh;
+          out + (((long long)b * a.Lq + row) * a.H + h) * a.Dv;
 #pragma unroll
-      for (int i = 0; i < DP / 8; ++i) {
+      for (int i = 0; i < DV / 8; ++i) {
         const int d = 8 * i + 2 * t;
-        if (d < a.Dh)
+        if (d < a.Dv)
           *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
               o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
       }
@@ -707,28 +718,28 @@ static bool encode_map(CUtensorMap* map, const void* ptr, int Dh, int Hn,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DP, int BK>
+template <int DQ, int DV, int BK>
 cudaError_t launch_bf16(const Args& a, cudaStream_t s) {
   alignas(64) CUtensorMap tq, tk, tv;
-  if (!encode_map(&tq, a.q, a.Dh, a.H, a.Lq, a.B, a.qsH, a.qsL, a.qsB, 64) ||
-      !encode_map(&tk, a.k, a.Dh, a.Hkv, a.Lkv, a.B, a.ksH, a.ksL, a.ksB,
+  if (!encode_map(&tq, a.q, a.Dq, a.H, a.Lq, a.B, a.qsH, a.qsL, a.qsB, 64) ||
+      !encode_map(&tk, a.k, a.Dq, a.Hkv, a.Lkv, a.B, a.ksH, a.ksL, a.ksB,
                   BK) ||
-      !encode_map(&tv, a.v, a.Dh, a.Hkv, a.Lkv, a.B, a.vsH, a.vsL, a.vsB,
+      !encode_map(&tv, a.v, a.Dv, a.Hkv, a.Lkv, a.B, a.vsH, a.vsL, a.vsB,
                   BK))
     return cudaErrorInvalidValue;
-  const int smem = Layout<DP, BK>::SMEM;
+  const int smem = Layout<DQ, DV, BK>::SMEM;
   static bool raised[64] = {};           // per device: once, not on every
   int dev = 0;                           // call
   cudaGetDevice(&dev);
   if (!raised[dev & 63]) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bf16<DP, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_bf16<DQ, DV, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return e;
     raised[dev & 63] = true;
   }
   dim3 grid(a.H, a.B, (a.Lq + BQ - 1) / BQ);
-  flash_bf16<DP, BK><<<grid, FA_THREADS, smem, s>>>(tq, tk, tv, a);
+  flash_bf16<DQ, DV, BK><<<grid, FA_THREADS, smem, s>>>(tq, tk, tv, a);
   return cudaGetLastError();
 }
 
@@ -746,17 +757,17 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t s) {
 // K is stored with its 16-byte chunks XOR-swizzled by the row, so the 8
 // lanes of a quarter-warp that read 8 keys' same chunk hit 8 distinct
 // bank groups; Q, P and V reads are broadcasts or consecutive chunks and
-// need no swizzle.
-template <int DP, int RQ, int BK, bool ONE_PASS>
+// need no swizzle. DQ: the q/k width, DV: the v width (each padded).
+template <int DQ, int DV, int RQ, int BK, bool ONE_PASS>
 struct F32Cfg {
   static constexpr int BQ = 8 * RQ;
   static constexpr int KJ = BK / 16;         // keys a lane in S
-  static constexpr int NC = DP / 64;         // 16-byte chunks a lane in O
+  static constexpr int NC = DV / 64;         // 16-byte chunks a lane in O
   static constexpr int PS = BK + 16 / RQ;    // P row stride: the two
                                              // half-warps' stores apart
   static constexpr int NST = ONE_PASS ? 1 : 2;   // K/V stages
-  static constexpr int SMEM =
-      4 * (BQ * DP + BQ * PS + NST * 2 * BK * DP);
+  static constexpr int KV = BK * (DQ + DV);  // a stage's K and V tiles
+  static constexpr int SMEM = 4 * (BQ * DQ + BQ * PS + NST * KV);
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -810,37 +821,38 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
 }
 
 // One kv tile of a half-warp's RQ rows: keys k0 .. k0 + n - 1 at shared
-// rows 0 .. n - 1 of Ks/Vs (V zero up to a multiple of 4). Computes S,
+// rows 0 .. n - 1 of Ks/Vs (rows of DQ and DV floats; V zero up to a
+// multiple of 4). Computes S,
 // masks it (unless full), takes the rows' max and sum in the exp2 domain
 // and adds P V into o. ONE_PASS: the tile is the whole row, so m starts at
 // -inf and nothing is rescaled; else the running m, l and o are rescaled.
-template <int DP, int RQ, int BK, bool ONE_PASS>
+template <int DQ, int DV, int RQ, int BK, bool ONE_PASS>
 __device__ __forceinline__ void f32_tile(
     const Args& a, const float* Qs, const float* Ks, const float* Vs,
     float* Ps, int rg, int tl, int qpos0, int k0, int n, int kvlim,
-    bool full, float sl2, float (&o)[RQ][DP / 64][4], float (&m)[RQ],
+    bool full, float sl2, float (&o)[RQ][DV / 64][4], float (&m)[RQ],
     float (&l)[RQ]) {
-  using C = F32Cfg<DP, RQ, BK, ONE_PASS>;
+  using C = F32Cfg<DQ, DV, RQ, BK, ONE_PASS>;
   constexpr int KJ = C::KJ, NC = C::NC;
   float s[RQ][KJ];
 #pragma unroll
   for (int i = 0; i < RQ; ++i)
 #pragma unroll
     for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
-  const float* qrow = Qs + rg * RQ * DP;
+  const float* qrow = Qs + rg * RQ * DQ;
 #pragma unroll
   for (int lo = 0; lo < 8; ++lo) {
-    const float* kp = Ks + tl * DP + ((lo ^ (tl & 7)) << 2);
+    const float* kp = Ks + tl * DQ + ((lo ^ (tl & 7)) << 2);
     const float* qp = qrow + (lo << 2);
 #pragma unroll
-    for (int hi = 0; hi < DP / 32; ++hi) {
+    for (int hi = 0; hi < DQ / 32; ++hi) {
       float4 qv[RQ], kv[KJ];
 #pragma unroll
       for (int i = 0; i < RQ; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qp + i * DP + hi * 32);
+        qv[i] = *reinterpret_cast<const float4*>(qp + i * DQ + hi * 32);
 #pragma unroll
       for (int j = 0; j < KJ; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(kp + j * 16 * DP + hi * 32);
+        kv[j] = *reinterpret_cast<const float4*>(kp + j * 16 * DQ + hi * 32);
 #pragma unroll
       for (int i = 0; i < RQ; ++i)
 #pragma unroll
@@ -920,7 +932,7 @@ __device__ __forceinline__ void f32_tile(
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const float4 vv = *reinterpret_cast<const float4*>(
-            Vs + (4 * g + kk) * DP + (tl + 16 * c) * 4);
+            Vs + (4 * g + kk) * DV + (tl + 16 * c) * 4);
 #pragma unroll
         for (int i = 0; i < RQ; ++i) {
           const float p = kk == 0 ? p4[i].x : kk == 1 ? p4[i].y
@@ -939,15 +951,15 @@ __device__ __forceinline__ void f32_tile(
 // (at most BK keys; the host sends only Lkv <= BK here) is loaded at once
 // and the softmax is exact in one pass. Else kv tiles of BK keys stream
 // through a two-stage cp.async ring under an online softmax.
-template <int DP, int RQ, int BK, bool VEC, bool ONE_PASS>
+template <int DQ, int DV, int RQ, int BK, bool VEC, bool ONE_PASS>
 __global__ void __launch_bounds__(THREADS)
 flash_f32(Args a) {
-  using C = F32Cfg<DP, RQ, BK, ONE_PASS>;
+  using C = F32Cfg<DQ, DV, RQ, BK, ONE_PASS>;
   constexpr int NC = C::NC;
   extern __shared__ __align__(16) float fsm[];
-  float* Qs = fsm;                              // [BQ][DP]
-  float* Ps = Qs + C::BQ * DP;                  // [BQ][PS]
-  float* KV = Ps + C::BQ * C::PS;               // NST x {K, V} [BK][DP]
+  float* Qs = fsm;                              // [BQ][DQ]
+  float* Ps = Qs + C::BQ * DQ;                  // [BQ][PS]
+  float* KV = Ps + C::BQ * C::PS;   // NST x {K [BK][DQ], V [BK][DV]}
   const int qt = gridDim.x - 1 - blockIdx.x;    // longest causal tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hkv);
@@ -981,19 +993,20 @@ flash_f32(Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[i][c][e] = 0.f;
   }
-  load_rows<DP, VEC, false>(Qs, q, a.qsL, C::BQ, a.Lq - row0, a.Dh, a.q);
+  load_rows<DQ, VEC, false>(Qs, q, a.qsL, C::BQ, a.Lq - row0, a.Dq, a.q);
   if constexpr (ONE_PASS) {
     const int nk = max(k_end - k_begin, 0), nk4 = (nk + 3) & ~3;
-    load_rows<DP, VEC, true>(KV, k + k_begin * a.ksL, a.ksL, nk4, nk, a.Dh,
+    load_rows<DQ, VEC, true>(KV, k + k_begin * a.ksL, a.ksL, nk4, nk, a.Dq,
                              a.k);
-    load_rows<DP, VEC, false>(KV + BK * DP, v + k_begin * a.vsL, a.vsL, nk4,
-                              nk, a.Dh, a.v);
+    load_rows<DV, VEC, false>(KV + BK * DQ, v + k_begin * a.vsL, a.vsL, nk4,
+                              nk, a.Dv, a.v);
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
     if (!active) return;
-    f32_tile<DP, RQ, BK, true>(a, Qs, KV, KV + BK * DP, Ps, rg, tl, qpos0,
-                               k_begin, nk, kvlim, false, sl2, o, m, l);
+    f32_tile<DQ, DV, RQ, BK, true>(a, Qs, KV, KV + BK * DQ, Ps, rg, tl,
+                                   qpos0, k_begin, nk, kvlim, false, sl2, o,
+                                   m, l);
   } else {
     auto next = [&](int k0) {      // the next tile that holds a seen key
       while (k0 < k_end && tile_masked(a, q_lo, q_hi, k0, k0 + BK)) k0 += BK;
@@ -1001,10 +1014,10 @@ flash_f32(Args a) {
     };
     auto load_kv = [&](int st, int k0) {
       const int n = min(BK, k_end - k0), n4 = (n + 3) & ~3;
-      float* Ks = KV + st * 2 * BK * DP;
-      load_rows<DP, VEC, true>(Ks, k + k0 * a.ksL, a.ksL, n4, n, a.Dh, a.k);
-      load_rows<DP, VEC, false>(Ks + BK * DP, v + k0 * a.vsL, a.vsL, n4, n,
-                                a.Dh, a.v);
+      float* Ks = KV + st * C::KV;
+      load_rows<DQ, VEC, true>(Ks, k + k0 * a.ksL, a.ksL, n4, n, a.Dq, a.k);
+      load_rows<DV, VEC, false>(Ks + BK * DQ, v + k0 * a.vsL, a.vsL, n4, n,
+                                a.Dv, a.v);
     };
     int k0 = next(k_begin), st = 0;
     if (k0 < k_end) load_kv(0, k0);
@@ -1016,9 +1029,9 @@ flash_f32(Args a) {
       cp_async_wait<1>();                 // this tile (and Q) have landed
       __syncthreads();
       if (active) {
-        const float* Ks = KV + st * 2 * BK * DP;
-        f32_tile<DP, RQ, BK, false>(
-            a, Qs, Ks, Ks + BK * DP, Ps, rg, tl, qpos0, k0,
+        const float* Ks = KV + st * C::KV;
+        f32_tile<DQ, DV, RQ, BK, false>(
+            a, Qs, Ks, Ks + BK * DQ, Ps, rg, tl, qpos0, k0,
             min(BK, k_end - k0), kvlim,
             tile_full(a, wq_lo, wq_hi, k0, k0 + BK, kvlim), sl2, o, m, l);
       }
@@ -1035,11 +1048,11 @@ flash_f32(Args a) {
     const int row = row0 + rg * RQ + i;
     if (row >= a.Lq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;   // fully masked: 0
-    float* orow = out + (((long long)b * a.Lq + row) * a.H + h) * a.Dh;
+    float* orow = out + (((long long)b * a.Lq + row) * a.H + h) * a.Dv;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d0 = (tl + 16 * c) * 4;
-      if (d0 >= a.Dh) continue;
+      if (d0 >= a.Dv) continue;
       const float4 r = make_float4(o[i][c][0] * inv, o[i][c][1] * inv,
                                    o[i][c][2] * inv, o[i][c][3] * inv);
       if (VEC) {
@@ -1048,22 +1061,22 @@ flash_f32(Args a) {
         const float rr[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          if (d0 + e < a.Dh) orow[d0 + e] = rr[e];
+          if (d0 + e < a.Dv) orow[d0 + e] = rr[e];
       }
     }
   }
 }
 
-template <int DP, int RQ, int BK, bool VEC, bool ONE_PASS>
+template <int DQ, int DV, int RQ, int BK, bool VEC, bool ONE_PASS>
 cudaError_t launch_f32(const Args& a, cudaStream_t s) {
-  using C = F32Cfg<DP, RQ, BK, ONE_PASS>;
+  using C = F32Cfg<DQ, DV, RQ, BK, ONE_PASS>;
   if constexpr (C::SMEM > 48 * 1024) {   // raised once per device
     static bool raised[64] = {};
     int dev = 0;
     cudaGetDevice(&dev);
     if (!raised[dev & 63]) {
       cudaError_t e = cudaFuncSetAttribute(
-          flash_f32<DP, RQ, BK, VEC, ONE_PASS>,
+          flash_f32<DQ, DV, RQ, BK, VEC, ONE_PASS>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
       if (e != cudaSuccess) return e;
       raised[dev & 63] = true;
@@ -1071,7 +1084,8 @@ cudaError_t launch_f32(const Args& a, cudaStream_t s) {
   }
   dim3 grid((unsigned)((a.Lq + C::BQ - 1) / C::BQ), (unsigned)a.H,
             (unsigned)a.B);
-  flash_f32<DP, RQ, BK, VEC, ONE_PASS><<<grid, THREADS, C::SMEM, s>>>(a);
+  flash_f32<DQ, DV, RQ, BK, VEC, ONE_PASS><<<grid, THREADS, C::SMEM, s>>>(
+      a);
   return cudaGetLastError();
 }
 
@@ -1086,28 +1100,47 @@ constexpr int H100_SMS = 132;
 template <int DP, int RQ, bool VEC>
 cudaError_t one_pass_f32(const Args& a, cudaStream_t s) {
   constexpr int ONE_MAX = DP > 128 ? 64 : 128;
-  if (a.Lkv <= 32) return launch_f32<DP, RQ, 32, VEC, true>(a, s);
+  if (a.Lkv <= 32) return launch_f32<DP, DP, RQ, 32, VEC, true>(a, s);
   if (ONE_MAX == 64 || a.Lkv <= 64)
-    return launch_f32<DP, RQ, 64, VEC, true>(a, s);
-  return launch_f32<DP, RQ, ONE_MAX, VEC, true>(a, s);
+    return launch_f32<DP, DP, RQ, 64, VEC, true>(a, s);
+  return launch_f32<DP, DP, RQ, ONE_MAX, VEC, true>(a, s);
 }
 
 template <int DP, bool VEC>
 cudaError_t dispatch_f32(const Args& a, cudaStream_t s) {
   constexpr int ONE_MAX = DP > 128 ? 64 : 128;
   if (a.Lkv > ONE_MAX)
-    return launch_f32<DP, 4, (DP > 128 ? 32 : 64), VEC, false>(a, s);
-  if (!VEC) return launch_f32<DP, 2, ONE_MAX, false, true>(a, s);
+    return launch_f32<DP, DP, 4, (DP > 128 ? 32 : 64), VEC, false>(a, s);
+  if (!VEC) return launch_f32<DP, DP, 2, ONE_MAX, false, true>(a, s);
   if ((long long)((a.Lq + 7) / 8) * a.H * a.B <= H100_SMS)
     return one_pass_f32<DP, 1, true>(a, s);
   return one_pass_f32<DP, 2, true>(a, s);
 }
 
+// The padded widths of the instances: Dq and Dv each to 64, 128 or 256
+// when they pad alike; else the two MLA pairs, Dq <= 128 with Dv <= 64
+// and Dq <= 192 with Dv <= 128. 0 when no instance takes (Dq, Dv).
+inline int pad_dh(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
+inline int dq_instance(int Dq, int Dv) {
+  const int pq = pad_dh(Dq), pv = pad_dh(Dv);
+  if (pq == pv) return pq;
+  if (pq == 128 && pv == 64) return 128;
+  if (pv == 128 && Dq <= 192) return 192;
+  return 0;
+}
+
+// f32: the pairs with Dq != Dv take the tiled kernel at any Lkv
 template <bool VEC>
 cudaError_t dispatch_f32(const Args& a, cudaStream_t s) {
-  if (a.Dh <= 64) return dispatch_f32<64, VEC>(a, s);
-  if (a.Dh <= 128) return dispatch_f32<128, VEC>(a, s);
-  return dispatch_f32<256, VEC>(a, s);
+  const int pq = dq_instance(a.Dq, a.Dv), pv = pad_dh(a.Dv);
+  if (pq == 0) return cudaErrorInvalidValue;
+  if (pq == pv) {
+    if (pq == 64) return dispatch_f32<64, VEC>(a, s);
+    if (pq == 128) return dispatch_f32<128, VEC>(a, s);
+    return dispatch_f32<256, VEC>(a, s);
+  }
+  if (pq == 128) return launch_f32<128, 64, 4, 64, VEC, false>(a, s);
+  return launch_f32<192, 128, 4, 32, VEC, false>(a, s);
 }
 
 // 16-byte copies need a 16-byte aligned base and B/L/H strides (of dims
@@ -1121,16 +1154,17 @@ inline bool f32_aligned(const void* p, long long sB, long long sL,
 
 }  // namespace fa
 
-// The arguments come packed as 28 int64 (one ctypes argument instead of 26:
+// The arguments come packed as 29 int64 (one ctypes argument instead of 27:
 // converting each costs the host more than the launch itself):
 //   [0..4]   q, k, v, o, kv_valid (pointers; kv_valid 0 for none)
-//   [5..10]  B, Lq, Lkv, H, Hkv, Dh
-//   [11..22] the element strides of q, k, v, four each (B, L, H, Dh)
-//   [23..27] causal, window, prefix_len, q_offset, is_bf16
-// q (B, Lq, H, Dh), k/v (B, Lkv, Hkv, Dh), each with unit stride in Dh and
-// the given strides for B, L, H; o contiguous (B, Lq, H, Dh) of q's dtype
-// (bf16 when is_bf16, else f32); kv_valid (B,) int32; window <= 0 means
-// none. Dh <= 256. Returns the launch status.
+//   [5..11]  B, Lq, Lkv, H, Hkv, Dq, Dv
+//   [12..23] the element strides of q, k, v, four each (B, L, H, head dim)
+//   [24..28] causal, window, prefix_len, q_offset, is_bf16
+// q (B, Lq, H, Dq), k (B, Lkv, Hkv, Dq), v (B, Lkv, Hkv, Dv), each with unit
+// stride in its head dim and the given strides for B, L, H; o contiguous
+// (B, Lq, H, Dv) of q's dtype (bf16 when is_bf16, else f32); kv_valid (B,)
+// int32; window <= 0 means none. Dq, Dv <= 256, a pair that dq_instance
+// takes. Returns the launch status.
 extern "C" int flash_attention(const long long* p, void* stream) {
   using namespace fa;
   const void* q = reinterpret_cast<const void*>(p[0]);
@@ -1138,20 +1172,27 @@ extern "C" int flash_attention(const long long* p, void* stream) {
   const void* v = reinterpret_cast<const void*>(p[2]);
   void* o = reinterpret_cast<void*>(p[3]);
   const long long B = p[5], Lq = p[6], Lkv = p[7], H = p[8], Hkv = p[9],
-                  Dh = p[10];
-  const long long *qs = p + 11, *ks = p + 15, *vs = p + 19;
+                  Dq = p[10], Dv = p[11];
+  const long long *qs = p + 12, *ks = p + 16, *vs = p + 20;
   Args a{q, k, v, o, reinterpret_cast<const int*>(p[4]), (int)B, (int)Lq,
-         (int)Lkv, (int)H, (int)Hkv, (int)Dh, qs[0], qs[1], qs[2], ks[0],
-         ks[1], ks[2], vs[0], vs[1], vs[2], (int)p[23], (int)p[24],
-         (int)p[25], (int)p[26], 1.0f / sqrtf((float)Dh)};
+         (int)Lkv, (int)H, (int)Hkv, (int)Dq, (int)Dv, qs[0], qs[1], qs[2],
+         ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], (int)p[24], (int)p[25],
+         (int)p[26], (int)p[27], 1.0f / sqrtf((float)Dq)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || Lq == 0 || H == 0) return 0;
-  if (p[27]) {
-    if (Dh <= 64) return (int)launch_bf16<64, 128>(a, s);
-    if (Dh <= 128) return (int)launch_bf16<128, 128>(a, s);
-    return (int)launch_bf16<256, 64>(a, s);
+  if (p[28]) {
+    const int pq = dq_instance((int)Dq, (int)Dv), pv = pad_dh((int)Dv);
+    if (pq == pv) {
+      if (pq == 64) return (int)launch_bf16<64, 64, 128>(a, s);
+      if (pq == 128) return (int)launch_bf16<128, 128, 128>(a, s);
+      return (int)launch_bf16<256, 256, 64>(a, s);
+    }
+    if (pq == 128) return (int)launch_bf16<128, 64, 128>(a, s);
+    if (pq == 192) return (int)launch_bf16<192, 128, 128>(a, s);
+    return (int)cudaErrorInvalidValue;
   }
-  const bool vec = Dh % 4 == 0 && (reinterpret_cast<uintptr_t>(o) & 15) == 0 &&
+  const bool vec = Dq % 4 == 0 && Dv % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(o) & 15) == 0 &&
                    f32_aligned(q, qs[0], qs[1], qs[2], B, Lq, H) &&
                    f32_aligned(k, ks[0], ks[1], ks[2], B, Lkv, Hkv) &&
                    f32_aligned(v, vs[0], vs[1], vs[2], B, Lkv, Hkv);

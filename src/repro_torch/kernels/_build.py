@@ -33,11 +33,11 @@ KERNELS = {
                     [_P] * 8 + [_I] * 5 + [_F, _I, _P]),
     "cosine_topk_q8": ("cosine_topk_q8.cu", "cosine_topk_q8",
                        [_P] * 9 + [_I] * 5 + [_F, _I, _P]),
-    # 28 int64 packed into one bytes argument (flash_attention.cu)
+    # 29 int64 packed into one bytes argument (flash_attention.cu)
     "flash_attention": ("flash_attention.cu", "flash_attention",
                         [ctypes.c_char_p, _P]),
     "decode_attention": ("decode_attention.cu", "decode_attention",
-                         [_P] * 10 + [_L] * 17 + [_P]),
+                         [_P] * 10 + [_L] * 21 + [_P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

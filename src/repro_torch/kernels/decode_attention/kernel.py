@@ -46,14 +46,15 @@ def _scratch_for(dev: torch.device, stream: int, n_count: int,
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            k_scale: torch.Tensor | None, v_scale: torch.Tensor | None,
            kv_len: torch.Tensor, out: torch.Tensor) -> None:
-    """q (B, H, Dh); caches (B, Lc, Hkv, Dh) read in place through their
-    (shared) strides; scales (B, Lc, Hkv) f16 with shared strides, or None;
-    kv_len (B,) int32 or int64, contiguous; ``out`` contiguous (B, H, Dh)
-    of q's dtype. The caller has checked shapes, dtypes, strides and
-    devices. One launch (two on the generic path), nothing else: no
-    conversion, no fill."""
+    """q (B, H, Dh); k cache (B, Lc, Hkv, Dh) and v cache (B, Lc, Hkv, Dv)
+    read in place, each through its own strides; scales (B, Lc, Hkv) f16
+    with shared strides, or None; kv_len (B,) int32 or int64, contiguous;
+    ``out`` contiguous (B, H, Dv) of q's dtype. The caller has checked
+    shapes, dtypes, strides and devices. One launch (two on the generic
+    path, which every Dv != Dh call takes), nothing else: no conversion,
+    no fill."""
     B, H, Dh = q.shape
-    Lc, Hkv = k.shape[1], k.shape[2]
+    Lc, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     dev = q.device
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
@@ -65,7 +66,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s_cap = split_capacity(B, Hkv, Lc, n_sm)
     stream = torch.cuda.current_stream(dev).cuda_stream
     count, part = _scratch_for(dev, stream, B * Hkv,
-                               B * Hkv * s_cap * (H // Hkv) * (Dh + 2))
+                               B * Hkv * s_cap * (H // Hkv) * (Dv + 2))
     sstride = k_scale.stride() if k_scale is not None else (0, 0, 0)
     fn = _build.load("decode_attention")
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -73,7 +74,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v_scale.data_ptr() if v_scale is not None else None,
             kv_len.data_ptr(), out.data_ptr(), part.data_ptr(),
             count.data_ptr(), ctypes.addressof(last_n_split), B, H, Hkv,
-            Dh, Lc, q.stride(0), q.stride(1), *k.stride()[:3], *sstride,
+            Dh, Dv, Lc, q.stride(0), q.stride(1), *k.stride()[:3],
+            *v.stride()[:3], *sstride,
             s_cap,
             int(q.dtype == torch.bfloat16), KV_KIND[k.dtype],
             int(kv_len.dtype == torch.int64), stream)

@@ -9,12 +9,12 @@ import torch
 
 from repro_torch.kernels import _build
 
-# the C entry point's 28 int64 arguments, packed into one bytes object
-_ARGS = struct.Struct("28q")
+# the C entry point's 29 int64 arguments, packed into one bytes object
+_ARGS = struct.Struct("29q")
 
 
 def _strides(t: torch.Tensor) -> list[int]:
-    """t's element strides for B, L, H, Dh; a dim of length 1 is given its
+    """t's element strides for B, L, H, D; a dim of length 1 is given its
     contiguous stride, which addresses nothing but keeps a tensor map's
     strides aligned."""
     n_b, n_l, n_h, dh = t.shape
@@ -27,9 +27,10 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            out: torch.Tensor, kv_valid: torch.Tensor | None, *, causal: bool,
            window: int, prefix_len: int, q_offset: int,
            strides: tuple) -> None:
-    """q (B, Lq, H, Dh), k/v (B, Lkv, Hkv, Dh) with unit stride in Dh, read
-    in place through their strides; ``out`` contiguous (B, Lq, H, Dh) of
-    q's dtype; ``kv_valid`` (B,) int32 or None; ``window`` 0 for none. The
+    """q (B, Lq, H, Dq), k (B, Lkv, Hkv, Dq), v (B, Lkv, Hkv, Dv), each
+    with unit stride in its head dim, read in place through their strides;
+    ``out`` contiguous (B, Lq, H, Dv) of q's dtype; ``kv_valid`` (B,)
+    int32 or None; ``window`` 0 for none. The
     caller has checked shapes, dtypes and devices, and read ``strides``,
     ``q.stride() + k.stride() + v.stride()``: the f32 kernels take them as
     they are (and ignore those of dims of length 1), the bf16 tensor maps
@@ -41,14 +42,14 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return launch(q, k, v, out, kv_valid, causal=causal,
                           window=window, prefix_len=prefix_len,
                           q_offset=q_offset, strides=strides)
-    B, Lq, H, Dh = q.shape
+    B, Lq, H, Dq = q.shape
     is_bf16 = q.dtype == torch.bfloat16
     if is_bf16:
         strides = (*_strides(q), *_strides(k), *_strides(v))
     rc = fn(_ARGS.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(),
                        0 if kv_valid is None else kv_valid.data_ptr(),
-                       B, Lq, k.shape[1], H, k.shape[2], Dh,
+                       B, Lq, k.shape[1], H, k.shape[2], Dq, v.shape[3],
                        *strides, causal, window, prefix_len, q_offset,
                        is_bf16),
             # torch.cuda.current_stream(dev).cuda_stream, without building

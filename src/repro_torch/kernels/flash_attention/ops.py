@@ -7,8 +7,17 @@ as the bf16 kernel does. There is no fallback from one to the
 other. A bf16 view that TMA cannot describe raises ``ValueError``
 (``tma_layout_check``); an f32 view of any strides is read in place (16
 bytes at a time where it is 16-byte aligned, else 4). Launches are counted
-in ``flash_attention.launches``, the f32 ones also in
-``flash_attention.launches_f32``.
+in ``flash_attention.launches``; of them, those with a value head dim
+other than the q/k one also in ``flash_attention.launches_dv``, and the
+other f32 ones in ``flash_attention.launches_f32`` (the two are
+disjoint).
+
+The Dv mode (MLA: q/k of Dq = 96 with v of Dv = 64 in minicpm3, 192 with
+128 in deepseek-v2) is a port extension: the Pallas kernel takes one head
+dim, and the mode is held against the reference model layer's jnp
+``flash_attention``, which takes a separate Dv. The kernel reads v at its
+own width and writes the (B, Lq, H, Dv) output directly; nothing is padded
+or sliced around it (``dv_supported`` names the pairs it takes).
 
 Unlike the Pallas wrapper, the kernel reads q/k/v in the (B, L, H, Dh)
 layout through their strides (no transposed or padded copies), and takes
@@ -33,12 +42,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     prefix_len: int = 0, q_offset: Optional[int] = None,
                     kv_valid_len: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """q (B, Lq, H, Dh), k/v (B, Lkv, Hkv, Dh) -> (B, Lq, H, Dh) in q's
-    dtype. ``q_offset`` is the position of q[:, 0] (default ``Lkv - Lq``,
-    right-aligned queries); ``kv_valid_len`` (B,) masks keys at or past it.
-    The mask is ``ref.attention_mask``'s."""
+    """q (B, Lq, H, Dh), k (B, Lkv, Hkv, Dh), v (B, Lkv, Hkv, Dv) ->
+    (B, Lq, H, Dv) in q's dtype, scaled by 1 / sqrt(Dh). ``q_offset`` is
+    the position of q[:, 0] (default ``Lkv - Lq``, right-aligned queries);
+    ``kv_valid_len`` (B,) masks keys at or past it. The mask is
+    ``ref.attention_mask``'s."""
     B, Lq, H, Dh = q.shape
-    Lkv, Hkv = k.shape[1], k.shape[2]
+    Lkv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     if q_offset is None:
         q_offset = Lkv - Lq
     if on_cpu(q, k, v, kv_valid_len):
@@ -50,13 +60,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dtype not in DTYPES or k.dtype != dtype or v.dtype != dtype:
         raise TypeError(f"q/k/v must all be float32 or all bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if k.shape != (B, Lkv, Hkv, Dh) or v.shape != k.shape:
+    if k.shape != (B, Lkv, Hkv, Dh) or v.shape != (B, Lkv, Hkv, Dv):
         raise ValueError(f"k/v must be (B, Lkv, Hkv, {Dh}) like q's batch and "
-                         f"head dim, got {tuple(k.shape)}, {tuple(v.shape)}")
+                         f"head dim, and (B, Lkv, Hkv, Dv), got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"H={H} must be a multiple of Hkv={Hkv}")
-    if not 1 <= Dh <= DH_MAX:
-        raise ValueError(f"head dim {Dh} outside [1, {DH_MAX}]")
+    if not (1 <= Dh <= DH_MAX and 1 <= Dv <= DH_MAX):
+        raise ValueError(f"head dims {Dh}, {Dv} outside [1, {DH_MAX}]")
+    if not dv_supported(Dh, Dv):
+        raise ValueError(f"no kernel instance takes q/k head dim {Dh} with "
+                         f"v head dim {Dv}")
     strides = q.stride() + k.stride() + v.stride()
     if strides[3] != 1 or strides[7] != 1 or strides[11] != 1:
         raise ValueError("q/k/v need unit stride in the head dim")
@@ -68,20 +82,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kv_valid_len = kv_valid_len.to(torch.int32).contiguous()
     if dtype == torch.bfloat16:
         tma_layout_check(q, k, v)
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    out = torch.empty((B, Lq, H, Dv), dtype=dtype, device=q.device)
     if not (B and Lq and H):
         return out
     K.launch(q, k, v, out, kv_valid_len, causal=causal,
              window=window or 0, prefix_len=prefix_len, q_offset=q_offset,
              strides=strides)
     flash_attention.launches += 1
-    if dtype == torch.float32:
+    if Dv != Dh:
+        flash_attention.launches_dv += 1
+    elif dtype == torch.float32:
         flash_attention.launches_f32 += 1
     return out
 
 
 flash_attention.launches = 0        # every K4 launch
-flash_attention.launches_f32 = 0    # of which f32 (the embedder's)
+flash_attention.launches_f32 = 0    # of which f32 with Dv = Dq (embedder)
+flash_attention.launches_dv = 0     # of which Dv != Dq (MLA's prefill)
+
+
+def _pad(d: int) -> int:
+    return 64 if d <= 64 else 128 if d <= 128 else 256
+
+
+def dv_supported(Dq: int, Dv: int) -> bool:
+    """True when a kernel instance takes q/k of head dim Dq with v of Dv
+    (``flash_attention.cu``'s ``dq_instance``): both pad alike to 64, 128
+    or 256, or Dq <= 128 with Dv <= 64, or Dq <= 192 with Dv <= 128 (the
+    MLA pairs)."""
+    pq, pv = _pad(Dq), _pad(Dv)
+    return pq == pv or (pq == 128 and pv == 64) or (pv == 128 and Dq <= 192)
 
 
 def tma_layout_check(*tensors: torch.Tensor) -> None:

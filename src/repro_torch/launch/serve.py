@@ -94,19 +94,24 @@ def hash_embed_fn(dim: int):
 def kernel_launches() -> dict:
     """Launches of each hand-written kernel in this process (each wrapper
     counts where it launches; the plain versions on CPU tensors count
-    nothing): K1/K2 cosine top-k, K4 prefill attention in bf16 and in
-    f32, K3 decode attention over a bf16/f32 cache and an int8 one."""
+    nothing): K1/K2 cosine top-k, K4 prefill attention in bf16, in f32
+    and with a value head dim other than the q/k one (MLA), K3 decode
+    attention over a bf16/f32 cache, an int8 one and one with a value head
+    dim other than the q/k one."""
     from repro_torch.kernels.cosine_topk import ops as ctk
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
+    fa_n, da_n = fa.flash_attention, da.decode_attention
     return {"cosine_topk": ctk.cosine_topk.launches,
             "cosine_topk_q8": ctk.cosine_topk_q8.launches,
-            "flash_attention": (fa.flash_attention.launches
-                                - fa.flash_attention.launches_f32),
-            "flash_attention_f32": fa.flash_attention.launches_f32,
-            "decode_attention": (da.decode_attention.launches
-                                 - da.decode_attention.launches_int8),
-            "decode_attention_int8": da.decode_attention.launches_int8}
+            "flash_attention": (fa_n.launches - fa_n.launches_f32
+                                - fa_n.launches_dv),
+            "flash_attention_f32": fa_n.launches_f32,
+            "flash_attention_dv": fa_n.launches_dv,
+            "decode_attention": (da_n.launches - da_n.launches_int8
+                                 - da_n.launches_dv),
+            "decode_attention_int8": da_n.launches_int8,
+            "decode_attention_dv": da_n.launches_dv}
 
 
 class CacheHTTPServer(ThreadingHTTPServer):

@@ -1,5 +1,5 @@
-"""Core NN layers in plain PyTorch: the dense and MoE subset of
-``repro/models/layers.py`` (norms, RoPE, GQA attention, MLPs, the
+"""Core NN layers in plain PyTorch: the serving subset of
+``repro/models/layers.py`` (norms, RoPE, GQA and MLA attention, MLPs, the
 scatter-dispatch MoE).
 
 Conventions (kept from the reference so the two can be compared):
@@ -154,8 +154,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Single-token attention over a KV cache: K3 on CUDA tensors (int8
     codes and f16 scales read in place), ``decode_attention_plain`` on CPU
-    tensors. q: (B, 1, Hq, D); caches (B, Lmax, Hkv, D), int8 when
-    ``k_scale``/``v_scale`` (B, Lmax, Hkv) are given; kv_len: (B,)."""
+    tensors. q: (B, 1, Hq, D); caches (B, Lmax, Hkv, D) and (B, Lmax, Hkv,
+    Dv), int8 when ``k_scale``/``v_scale`` (B, Lmax, Hkv) are given;
+    kv_len: (B,). Returns (B, 1, Hq, Dv)."""
     if q.is_cuda:
         if window is not None:
             raise NotImplementedError("decode attention with a window has "
@@ -179,8 +180,8 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     is first dequantized into q's dtype (``kv_dequant``), and the
     normalised P is rounded to the value dtype before P·V.
 
-    q: (B, 1, Hq, D); k_cache/v_cache: (B, Lmax, Hkv, D); kv_len: (B,)
-    number of valid cache entries.
+    q: (B, 1, Hq, D); k_cache: (B, Lmax, Hkv, D); v_cache: (B, Lmax, Hkv,
+    Dv); kv_len: (B,) number of valid cache entries.
     """
     out = da_ref.decode_attention_ref(
         q[:, 0], k_cache, v_cache, kv_len, k_scale=k_scale, v_scale=v_scale,
@@ -212,20 +213,32 @@ def gqa_init(gen: torch.Generator, cfg, dtype, device) -> Params:
     return p
 
 
+def gqa_q(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """The queries (B, L, H, Dh) before RoPE: ``gqa_qkv``'s q, and an
+    encoder-decoder's cross-attention queries (the reference takes the q of
+    ``gqa_qkv(..., rope=False)``, whose k and v it drops)."""
+    B, L, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(B, L, cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q)
+    return q
+
+
 def gqa_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
             rope: bool = True):
     B, L, _ = x.shape
-    H, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = x @ p["wq"]
+    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    q = gqa_q(p, cfg, x)
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, L, H, Dh)
+        k, v = k + p["bk"], v + p["bv"]
     k = k.reshape(B, L, Hkv, Dh)
     v = v.reshape(B, L, Hkv, Dh)
     if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q)
         k = rmsnorm(p["k_norm"], k)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -240,6 +253,120 @@ def gqa_attend(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor, *,
                           prefix_len=prefix_len)
     B, L = x.shape[:2]
     return out.reshape(B, L, -1) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention) block
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen: torch.Generator, cfg, dtype, device) -> Params:
+    d, H = cfg.d_model, cfg.n_heads
+    qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    R = cfg.kv_lora_rank
+    p: Params = {}
+    if cfg.q_lora_rank:
+        p["wq_a"] = dense_init(gen, d, cfg.q_lora_rank, dtype, device)
+        p["q_norm"] = rmsnorm_init(cfg.q_lora_rank, dtype, device)
+        p["wq_b"] = dense_init(gen, cfg.q_lora_rank, H * qd, dtype, device)
+    else:
+        p["wq"] = dense_init(gen, d, H * qd, dtype, device)
+    p["wkv_a"] = dense_init(gen, d, R, dtype, device)
+    p["kv_norm"] = rmsnorm_init(R, dtype, device)
+    p["wk_rope"] = dense_init(gen, d, cfg.qk_rope_dim, dtype, device)
+    p["wk_b"] = dense_init(gen, R, H * cfg.qk_nope_dim, dtype, device)
+    p["wv_b"] = dense_init(gen, R, H * cfg.v_head_dim, dtype, device)
+    p["wo"] = dense_init(gen, H * cfg.v_head_dim, d, dtype, device)
+    return p
+
+
+def mla_latent(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """The (latent (B, L, R), k_rope (B, L, rope_d)) pair the MLA cache
+    stores."""
+    latent = rmsnorm(p["kv_norm"], x @ p["wkv_a"])
+    k_rope = apply_rope((x @ p["wk_rope"])[:, :, None, :], positions,
+                        cfg.rope_theta)
+    return latent, k_rope[:, :, 0, :]
+
+
+def mla_queries(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """(q_nope (B, L, H, nope), q_rope (B, L, H, rope), rotated)."""
+    B, L, _ = x.shape
+    qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    if cfg.q_lora_rank:
+        q = rmsnorm(p["q_norm"], x @ p["wq_a"]) @ p["wq_b"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(B, L, cfg.n_heads, qd)
+    q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_kv(p: Params, cfg, latent: torch.Tensor, k_rope: torch.Tensor):
+    """Per-head K (B, L, H, nope + rope) and V (B, L, H, v_head_dim)
+    materialised from the latent; every head shares k_rope."""
+    B, L, _ = latent.shape
+    H = cfg.n_heads
+    k_nope = (latent @ p["wk_b"]).reshape(B, L, H, cfg.qk_nope_dim)
+    v = (latent @ p["wv_b"]).reshape(B, L, H, cfg.v_head_dim)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, L, H, cfg.qk_rope_dim)], dim=-1)
+    return k, v
+
+
+def mla_attend(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
+               latent: torch.Tensor, k_rope: torch.Tensor, *,
+               causal: bool = True) -> torch.Tensor:
+    """Prefill: per-head K/V materialised from ``mla_latent``'s (latent,
+    k_rope) of the same x (the caller caches them; the reference computes
+    them again here), then K4's Dv mode (q/k of nope + rope, v of
+    v_head_dim)."""
+    B, L, _ = x.shape
+    q_nope, q_rope = mla_queries(p, cfg, x, positions)
+    k, v = _mla_kv(p, cfg, latent, k_rope)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = flash_attention(q, k, v, causal=causal)
+    return out.reshape(B, L, -1) @ p["wo"]
+
+
+def mla_decode(p: Params, cfg, x: torch.Tensor, latent_cache: torch.Tensor,
+               krope_cache: torch.Tensor, kv_len: torch.Tensor,
+               positions: torch.Tensor, kv_max: Optional[int] = None
+               ) -> torch.Tensor:
+    """Decode over the latent cache (B, Lmax, R) and k_rope cache (B, Lmax,
+    rope_d). With ``cfg.mla_absorb`` attention runs in latent space (W_uk
+    and W_uv absorbed; f32 products, no kernel, as in the reference);
+    otherwise K/V are materialised and K3's Dv mode attends. ``kv_max``:
+    the largest kv_len, known on the host; then only the first kv_max
+    positions are read or materialised, which gives the same result as
+    all Lmax of them (the rest are masked)."""
+    B = x.shape[0]
+    H, R = cfg.n_heads, cfg.kv_lora_rank
+    if kv_max is not None:
+        latent_cache = latent_cache[:, :kv_max]
+        krope_cache = krope_cache[:, :kv_max]
+    q_nope, q_rope = mla_queries(p, cfg, x, positions)        # (B, 1, H, *)
+    if cfg.mla_absorb:
+        scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+        Lm = latent_cache.shape[1]
+        wk_b = p["wk_b"].reshape(R, H, cfg.qk_nope_dim)
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, wk_b)
+        lat = latent_cache.float()
+        s = torch.einsum("bqhr,blr->bhql", q_lat.float(), lat)
+        s = s + torch.einsum("bqhd,bld->bhql", q_rope.float(),
+                             krope_cache.float())
+        s = s * scale
+        kpos = torch.arange(Lm, device=x.device)[None, :]
+        mask = kpos < kv_len.to(x.device).long()[:, None]
+        s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
+        o_lat = torch.einsum("bhql,blr->bqhr", torch.softmax(s, dim=-1), lat)
+        wv_b = p["wv_b"].reshape(R, H, cfg.v_head_dim).float()
+        out = torch.einsum("bqhr,rhd->bqhd", o_lat, wv_b).to(x.dtype)
+    else:
+        k, v = _mla_kv(p, cfg, latent_cache, krope_cache)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = decode_attention(q, k, v, kv_len=kv_len)
+    return out.reshape(B, 1, -1) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

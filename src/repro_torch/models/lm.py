@@ -1,7 +1,11 @@
 """Config-driven LM (port of ``repro/models/lm.py``): the dense and MoE
-kinds with GQA (optional ``qk_norm``, ``qkv_bias``), sliding windows over a
-ring KV cache, and the VLM prefix-LM (patch embeddings before the text,
-attended bidirectionally); gated MLP, RMSNorm, padded-vocab unembedding.
+kinds with GQA (optional ``qk_norm``, ``qkv_bias``) or MLA (multi-head
+latent attention over a latent cache, deepseek's leading dense layers in
+``first_dense_layers``), sliding windows over a ring KV cache, the VLM
+prefix-LM (patch embeddings before the text, attended bidirectionally) and
+the encoder-decoder (whisper: an encoder over stub frame embeddings,
+cross-attention in every decoder layer, LayerNorm and the ungated gelu
+MLP); gated MLP, RMSNorm, padded-vocab unembedding.
 
 Public entry points:
     init_params(gen, cfg, device)               -> params
@@ -10,11 +14,19 @@ Public entry points:
     decode_step(params, cfg, tokens, cache, pos, kv_len) -> (logits, cache)
 
 ``batch`` is a dict: ``tokens`` (B, L), plus ``patch_embed`` (B, P, d) for
-the VLM kind. Params are nested dicts; the reference's layer-stacked
-``blocks`` pytree is a list of per-layer dicts here (``repro_torch.weights``
-converts). The KV cache is updated in place (the reference returns a new
-pytree). MLA, SSM, hybrid, encoder-decoder, audio and ``first_dense_layers``
-arrive in later slices and raise ``NotImplementedError``.
+the VLM kind and ``frames`` (B, enc_len, d) for the encoder-decoder. Params
+are nested dicts; the reference's layer-stacked ``blocks`` and
+``enc_blocks`` pytrees are lists of per-layer dicts here
+(``repro_torch.weights`` converts); ``dense0`` is a list in both. The KV
+cache is updated in place (the reference returns a new pytree); it holds
+``dense0``'s layers first, then ``blocks``'. The SSM and hybrid kinds arrive
+in later slices and raise ``NotImplementedError``.
+
+MLA caches ``latent`` (n, B, Lc, kv_lora_rank) and ``krope`` (n, B, Lc,
+qk_rope_dim) in the model dtype, also when ``kv_dtype`` is int8, as the
+reference does. Prefill materialises per-head K/V and runs K4's Dv mode;
+decode runs the absorbed f32 products with ``mla_absorb``, else
+materialises K/V and runs K3's Dv mode (``layers.mla_decode``).
 
 A config with a ``window`` keeps a ring of ``cache_len`` positions: prefill
 stores the trailing ``Lc`` positions with token t at slot t % Lc, decode
@@ -47,27 +59,39 @@ def _dtype(cfg: ModelConfig):
 def _check_kind(cfg: ModelConfig) -> None:
     """Raise for the kinds the port does not run yet, naming the kind."""
     unported = [name for name, on in (
-        (f"attn_kind={cfg.attn_kind!r}", cfg.attn_kind != "gqa"),
         (f"ssm_kind={cfg.ssm_kind!r}", bool(cfg.ssm_kind)),
-        ("encoder-decoder", cfg.is_encoder_decoder),
-        (f"family={cfg.family!r}", cfg.family in ("audio", "hybrid")),
-        ("first_dense_layers", bool(cfg.first_dense_layers))) if on]
+        (f"family={cfg.family!r}", cfg.family == "hybrid")) if on]
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unported)} is not ported yet (the port "
-            f"runs the dense, MoE, sliding-window and VLM kinds)")
+            f"runs the dense, MoE, sliding-window, VLM, MLA and "
+            f"encoder-decoder kinds)")
 
 
-def _block_init(gen, cfg: ModelConfig, dtype, device) -> Params:
-    p: Params = {"ln1": L.rmsnorm_init(cfg.d_model, dtype, device),
-                 "attn": L.gqa_init(gen, cfg, dtype, device),
-                 "ln2": L.rmsnorm_init(cfg.d_model, dtype, device)}
-    if cfg.is_moe:
+def _norm_init(cfg, d: int, dtype, device) -> Params:
+    return (L.layernorm_init(d, dtype, device) if cfg.family == "audio"
+            else L.rmsnorm_init(d, dtype, device))
+
+
+def _norm(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    return L.layernorm(p, x) if cfg.family == "audio" else L.rmsnorm(p, x)
+
+
+def _block_init(gen, cfg: ModelConfig, kind: str, dtype, device) -> Params:
+    """kind: "dense", "moe" or "decoder" (with cross-attention)."""
+    p: Params = {"ln1": _norm_init(cfg, cfg.d_model, dtype, device),
+                 "attn": (L.mla_init if cfg.attn_kind == "mla"
+                          else L.gqa_init)(gen, cfg, dtype, device),
+                 "ln2": _norm_init(cfg, cfg.d_model, dtype, device)}
+    if kind == "moe":
         p["mlp"] = L.moe_init(gen, cfg, dtype, device)
     else:
         gated = cfg.act != "gelu" or cfg.family == "vlm"
         p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device,
                               gated=gated)
+    if kind == "decoder":
+        p["ln_x"] = _norm_init(cfg, cfg.d_model, dtype, device)
+        p["xattn"] = L.gqa_init(gen, cfg, dtype, device)
     return p
 
 
@@ -80,13 +104,28 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     emb = torch.randn((cfg.padded_vocab, d), generator=gen,
                       dtype=torch.float32, device=dev) * 0.02
     p: Params = {"embed": emb.to(dtype),
-                 "final_norm": L.rmsnorm_init(d, dtype, dev)}
+                 "final_norm": _norm_init(cfg, d, dtype, dev)}
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, d, cfg.padded_vocab, dtype, dev,
                                     scale=0.02)
-    p["blocks"] = [_block_init(gen, cfg, dtype, dev)
-                   for _ in range(cfg.n_layers)]
+    kind = ("decoder" if cfg.is_encoder_decoder
+            else "moe" if cfg.is_moe else "dense")
+    p["blocks"] = [_block_init(gen, cfg, kind, dtype, dev)
+                   for _ in range(cfg.n_layers - cfg.first_dense_layers)]
+    if cfg.first_dense_layers:
+        p["dense0"] = [_block_init(gen, cfg, "dense", dtype, dev)
+                       for _ in range(cfg.first_dense_layers)]
+    if cfg.is_encoder_decoder:
+        p["enc_blocks"] = [_block_init(gen, cfg, "dense", dtype, dev)
+                           for _ in range(cfg.enc_layers)]
+        p["enc_norm"] = _norm_init(cfg, d, dtype, dev)
     return p
+
+
+def _layers(p: Params) -> list:
+    """The decoder stack in cache order: ``dense0``'s layers, then
+    ``blocks``'."""
+    return p.get("dense0", []) + p["blocks"]
 
 
 def embed_tokens(p: Params, cfg, tokens: torch.Tensor) -> torch.Tensor:
@@ -116,17 +155,31 @@ def unembed(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _block(bp: Params, cfg, x, attend, moe_groups: int = 1):
+def _block(bp: Params, cfg, x, attend, moe_groups: int = 1, cross=None):
     """Pre-norm block; ``attend(h) -> attention output`` supplies the
-    prefill or decode attention. An MoE block dispatches its tokens in
+    prefill or decode attention, ``cross(h)`` a decoder layer's
+    cross-attention (after ``ln_x``). An MoE block dispatches its tokens in
     ``moe_groups`` groups along the batch (``L.moe_apply``)."""
-    h = L.rmsnorm(bp["ln1"], x)
+    h = _norm(cfg, bp["ln1"], x)
     x = x + attend(h)
-    h = L.rmsnorm(bp["ln2"], x)
+    if cross is not None:
+        x = x + cross(_norm(cfg, bp["ln_x"], x))
+    h = _norm(cfg, bp["ln2"], x)
     if "router" in bp["mlp"]:
         m, _ = L.moe_apply(bp["mlp"], cfg, h, groups=moe_groups)
         return x + m
     return x + L.mlp(bp["mlp"], h, cfg.act)
+
+
+def _encode(p: Params, cfg, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder over stub frame embeddings (B, enc_len, d): bidirectional
+    self-attention (K4, non-causal), then ``enc_norm``."""
+    x = frames.to(_dtype(cfg))
+    positions = torch.arange(x.shape[1], device=x.device)
+    for bp in p["enc_blocks"]:
+        x = _block(bp, cfg, x, lambda h, bp=bp: L.gqa_attend(
+            bp["attn"], cfg, h, positions, causal=False))
+    return _norm(cfg, p["enc_norm"], x)
 
 
 # ---------------------------------------------------------------------------
@@ -161,18 +214,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     _check_kind(cfg)
     dev = resolve_device(device)
     dtype = dtype or _dtype(cfg)
-    shape = (cfg.n_layers, batch, cache_len(cfg, max_len), cfg.n_kv_heads,
-             cfg.head_dim)
+    n, Lc = cfg.n_layers, cache_len(cfg, max_len)
+    if cfg.attn_kind == "mla":
+        return {"latent": torch.zeros((n, batch, Lc, cfg.kv_lora_rank),
+                                      dtype=dtype, device=dev),
+                "krope": torch.zeros((n, batch, Lc, cfg.qk_rope_dim),
+                                     dtype=dtype, device=dev)}
+    shape = (n, batch, Lc, cfg.n_kv_heads, cfg.head_dim)
     if cfg.kv_dtype == "int8":
         # int8 codes + per-(position, head) f16 scales
-        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
-                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
-                "k_scale": torch.zeros(shape[:-1], dtype=torch.float16,
-                                       device=dev),
-                "v_scale": torch.zeros(shape[:-1], dtype=torch.float16,
-                                       device=dev)}
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        cache = {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                 "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                 "k_scale": torch.zeros(shape[:-1], dtype=torch.float16,
+                                        device=dev),
+                 "v_scale": torch.zeros(shape[:-1], dtype=torch.float16,
+                                        device=dev)}
+    else:
+        cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if cfg.is_encoder_decoder:
+        xshape = (n, batch, cfg.enc_len, cfg.n_heads, cfg.head_dim)
+        cache["xk"] = torch.zeros(xshape, dtype=dtype, device=dev)
+        cache["xv"] = torch.zeros(xshape, dtype=dtype, device=dev)
+    return cache
 
 
 def _write_kv(cache: Params, i: int, idx, k: torch.Tensor,
@@ -205,31 +269,58 @@ def _ring_place(kv: torch.Tensor, seq_len: int, ring_len: int
 def prefill(p: Params, cfg: ModelConfig, batch: dict, cache: Params
             ) -> tuple[torch.Tensor, Params]:
     """Process the full prompt (``batch["tokens"]`` (B, L), after the VLM's
-    ``patch_embed``); write its K/V into the cache in place: positions
-    [0, L), or for a window the trailing ``cache_len`` positions placed
-    for decode's ring (``_ring_place``); return last-position logits."""
+    ``patch_embed``; an encoder-decoder first encodes ``batch["frames"]``);
+    write its K/V (MLA: latent and k_rope) into the cache in place:
+    positions [0, L), or for a window the trailing ``cache_len`` positions
+    placed for decode's ring (``_ring_place``), and a decoder layer's
+    cross-attention K/V over the encoder's output in ``xk``/``xv``; return
+    last-position logits."""
     _check_kind(cfg)
     x, prefix_len = _assemble_input(p, cfg, batch)
     B, Lx, _ = x.shape
     Lc = cache_len(cfg, Lx)
     positions = torch.arange(Lx, device=x.device)
-    for i, bp in enumerate(p["blocks"]):
+    memory = (_encode(p, cfg, batch["frames"]) if cfg.is_encoder_decoder
+              else None)
+    head = (slice(None), slice(0, Lc))
+
+    def ring(t):
+        return _ring_place(t[:, -Lc:], Lx, Lc)
+
+    for i, bp in enumerate(_layers(p)):
         def attend(h, bp=bp, i=i):
+            if cfg.attn_kind == "mla":
+                latent, krope = L.mla_latent(bp["attn"], cfg, h, positions)
+                cache["latent"][i][head] = ring(latent).to(
+                    cache["latent"].dtype)
+                cache["krope"][i][head] = ring(krope).to(
+                    cache["krope"].dtype)
+                return L.mla_attend(bp["attn"], cfg, h, positions, latent,
+                                    krope)
             q, k, v = L.gqa_qkv(bp["attn"], cfg, h, positions)
             a = L.flash_attention(q, k, v, causal=True, window=cfg.window,
                                   prefix_len=prefix_len)
-            _write_kv(cache, i, (slice(None), slice(0, Lc)),
-                      _ring_place(k[:, -Lc:], Lx, Lc),
-                      _ring_place(v[:, -Lc:], Lx, Lc))
+            _write_kv(cache, i, head, ring(k), ring(v))
             return a.reshape(B, Lx, -1) @ bp["attn"]["wo"]
-        x = _block(bp, cfg, x, attend)
-    logits = unembed(p, cfg, L.rmsnorm(p["final_norm"], x[:, -1:]))
+
+        def cross(h, bp=bp, i=i):
+            q = L.gqa_q(bp["xattn"], cfg, h)
+            mpos = torch.arange(memory.shape[1], device=x.device)
+            _, mk, mv = L.gqa_qkv(bp["xattn"], cfg, memory, mpos, rope=False)
+            a = L.flash_attention(q, mk, mv, causal=False)
+            cache["xk"][i] = mk.to(cache["xk"].dtype)
+            cache["xv"][i] = mv.to(cache["xv"].dtype)
+            return a.reshape(B, Lx, -1) @ bp["xattn"]["wo"]
+        x = _block(bp, cfg, x, attend,
+                   cross=cross if memory is not None else None)
+    logits = unembed(p, cfg, _norm(cfg, p["final_norm"], x[:, -1:]))
     return logits[:, 0], cache
 
 
 def decode_step(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Params, pos, kv_len: Optional[torch.Tensor] = None,
-                *, moe_groups: int = 1) -> tuple[torch.Tensor, Params]:
+                *, moe_groups: int = 1, kv_max: Optional[int] = None
+                ) -> tuple[torch.Tensor, Params]:
     """One decode step. tokens: (B, 1); pos: the token's position, an int
     or a (B,) tensor (one position per slot — the reference vmaps a scalar
     pos over slots); kv_len: (B,) valid lengths (default pos + 1). With a
@@ -243,35 +334,62 @@ def decode_step(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     each with its own capacity (``L.moe_apply``). The default, one group,
     takes the capacity from all B tokens, as the reference's decode_step
     does; ``ModelEngine`` passes B, as the reference engine's decode
-    vmapped over slots computes (each slot its own T = 1 dispatch)."""
+    vmapped over slots computes (each slot its own T = 1 dispatch).
+
+    ``kv_max``: the largest kv_len, when the caller knows it on the host
+    (``ModelEngine`` does): MLA decode then reads or materialises only the
+    first kv_max cache positions, which gives the same result. An
+    encoder-decoder's cross-attention reads all ``enc_len`` positions of
+    ``xk``/``xv``."""
     _check_kind(cfg)
     B = tokens.shape[0]
     dev = tokens.device
+    mla = cfg.attn_kind == "mla"
     pos = torch.as_tensor(pos, device=dev).long().expand(B)
     kv_len = (pos + 1 if kv_len is None else kv_len).to(torch.int32)
     write = pos
     if cfg.window is not None:      # the ring already bounds the window
-        Lc = cache["k"].shape[2]
+        Lc = cache["latent" if mla else "k"].shape[2]
         write = pos % Lc
         kv_len = kv_len.clamp_max(Lc)
+        kv_max = None if kv_max is None else min(kv_max, Lc)
     rows = torch.arange(B, device=dev)
     positions = pos[:, None]                                  # (B, 1)
+    if cfg.is_encoder_decoder:
+        enc_len = torch.full((B,), cache["xk"].shape[2], dtype=torch.int32,
+                             device=dev)
 
     def scale(kv, i):
         s = cache.get(f"{kv}_scale")
         return None if s is None else s[i]
 
     x = embed_tokens(p, cfg, tokens)
-    for i, bp in enumerate(p["blocks"]):
+    for i, bp in enumerate(_layers(p)):
         def attend(h, bp=bp, i=i):
+            if mla:
+                latent, krope = L.mla_latent(bp["attn"], cfg, h, positions)
+                cache["latent"][i][rows, write] = latent[:, 0].to(
+                    cache["latent"].dtype)
+                cache["krope"][i][rows, write] = krope[:, 0].to(
+                    cache["krope"].dtype)
+                return L.mla_decode(bp["attn"], cfg, h, cache["latent"][i],
+                                    cache["krope"][i], kv_len, positions,
+                                    kv_max=kv_max)
             q, k, v = L.gqa_qkv(bp["attn"], cfg, h, positions)
             _write_kv(cache, i, (rows, write), k[:, 0], v[:, 0])
             a = L.decode_attention(q, cache["k"][i], cache["v"][i],
                                    kv_len=kv_len, k_scale=scale("k", i),
                                    v_scale=scale("v", i))
             return a.reshape(B, 1, -1) @ bp["attn"]["wo"]
-        x = _block(bp, cfg, x, attend, moe_groups=moe_groups)
-    logits = unembed(p, cfg, L.rmsnorm(p["final_norm"], x))
+
+        def cross(h, bp=bp, i=i):
+            q = L.gqa_q(bp["xattn"], cfg, h)
+            a = L.decode_attention(q, cache["xk"][i], cache["xv"][i],
+                                   kv_len=enc_len)
+            return a.reshape(B, 1, -1) @ bp["xattn"]["wo"]
+        x = _block(bp, cfg, x, attend, moe_groups=moe_groups,
+                   cross=cross if cfg.is_encoder_decoder else None)
+    logits = unembed(p, cfg, _norm(cfg, p["final_norm"], x))
     return logits[:, 0], cache
 
 

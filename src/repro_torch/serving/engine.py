@@ -17,7 +17,10 @@ Two tiers (DESIGN.md §9.2):
   decode over the slots; the port runs one batched decode with per-slot
   positions, and an MoE layer dispatches each slot's token on its own
   (``moe_groups``), with the capacity the vmapped one-slot call has.
-  Placing a slot's prefill cache is an index copy.
+  Placing a slot's prefill cache is an index copy, whatever its keys (the
+  MLA latent cache too). The slots' largest kv length, known here on the
+  host, goes to the decode as ``kv_max`` (MLA reads or materialises only
+  that many cache positions).
 """
 from __future__ import annotations
 
@@ -173,9 +176,9 @@ class ModelEngine:
         pos = torch.tensor(self.pos.astype(np.int64), device=self.device)
         kv_len = torch.tensor((self.pos + 1).astype(np.int32),
                               device=self.device)
-        logits, self.cache = lm.decode_step(self.params, self.cfg, tok,
-                                            self.cache, pos, kv_len=kv_len,
-                                            moe_groups=self.n_slots)
+        logits, self.cache = lm.decode_step(
+            self.params, self.cfg, tok, self.cache, pos, kv_len=kv_len,
+            moe_groups=self.n_slots, kv_max=int(self.pos.max()) + 1)
         self.pos[self.active] += 1
         return torch.argmax(logits, dim=-1).cpu().numpy()
 

@@ -48,17 +48,24 @@ def convert_embedder(params: dict, device: DeviceLike = None) -> dict:
 
 def convert_lm(params: dict, cfg: ModelConfig,
                device: DeviceLike = None) -> dict:
-    """LM params of the dense, MoE and VLM kinds: the reference stacks
-    ``blocks`` along a leading layer axis (one scan over layers), its MoE
-    leaves as (n, E, d, dff); the port keeps a list of layers, each with its
-    (E, d, dff) experts. A tied embedding (paligemma) has no ``lm_head``."""
-    extra = set(params) - {"embed", "final_norm", "lm_head", "blocks"}
+    """LM params of the dense, MoE, VLM, MLA and encoder-decoder kinds: the
+    reference stacks ``blocks`` and ``enc_blocks`` along a leading layer
+    axis (one scan over layers), its MoE leaves as (n, E, d, dff); the port
+    keeps a list of layers, each with its (E, d, dff) experts. ``dense0``
+    (deepseek's leading dense layers) is a list in both. A tied embedding
+    has no ``lm_head``."""
+    stacked = {"blocks": cfg.n_layers - cfg.first_dense_layers,
+               "enc_blocks": cfg.enc_layers}
+    extra = set(params) - {"embed", "final_norm", "lm_head", "dense0",
+                           "enc_norm", *stacked}
     if extra:
         raise NotImplementedError(
             f"{cfg.name}: parameters {sorted(extra)} belong to a kind that "
             f"is not ported yet")
     out = {k: to_torch(v, device) for k, v in params.items()
-           if k != "blocks"}
-    out["blocks"] = [to_torch(_layer(params["blocks"], i), device)
-                     for i in range(cfg.n_layers)]
+           if k not in stacked}
+    for key, n in stacked.items():
+        if key in params:
+            out[key] = [to_torch(_layer(params[key], i), device)
+                        for i in range(n)]
     return out

@@ -1,12 +1,15 @@
 """The attention kernels at the masks and shapes of the MoE + sliding-window
-kind (mixtral-8x7b) and the VLM prefix-LM (paligemma-3b), and both reduced
+kind (mixtral-8x7b), the VLM prefix-LM (paligemma-3b), MLA (minicpm3-4b,
+deepseek-v2-236b) and the encoder-decoder (whisper-base), and the reduced
 models on the card against the plain layers. K4 (prefill): paligemma's
 256-token bidirectional prefix at head dim 256 with one kv head (MQA), and
 a window shorter than the keys; K3 (decode): a ring cache that has wrapped,
 at head dims 128 (mixtral, 4 query heads a kv head) and 256 (paligemma, 8),
 held against the plain attention over the same positions laid out in
-order. The kernels have no CPU mode, so these tests are marked ``gpu`` and
-skip without a CUDA device:
+order; both kernels' Dv mode (v head dim other than the q/k one: MLA's Dq
+96 with Dv 64 and Dq 192 with Dv 128) in bf16 and f32, with a dropped kv
+tile that the bf16 limit must fail. The kernels have no CPU mode, so these
+tests are marked ``gpu`` and skip without a CUDA device:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_kinds.py
 
@@ -110,21 +113,138 @@ def test_decode_over_a_wrapped_ring(Dh, G, kind):
     assert bf16_excess(out, plain, ROW_RTOL["decode"]) <= 1.0
 
 
+# MLA's (Dq, Dv) at full width: minicpm3-4b and deepseek-v2-236b
+MLA_DIMS = {"minicpm3": (96, 64), "deepseek-v2": (192, 128)}
+ATOL_F32 = 2e-5
+
+
+def _dv_flash_inputs(dims, dtype, B, L, H, seed):
+    Dq, Dv = MLA_DIMS[dims]
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    return (_randn((B, L, H, Dq), g, dtype), _randn((B, L, H, Dq), g, dtype),
+            _randn((B, L, H, Dv), g, dtype))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(causal=True), dict(causal=False),
+    dict(causal=True, q_offset=40, ragged=True)],
+    ids=["causal", "bidirectional", "offset-ragged"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("dims", sorted(MLA_DIMS))
+def test_flash_dv_mode_matches_plain(dims, dtype, kw):
+    """K4 with v narrower than q/k (B 2, L 300 ragged against the 128-row
+    and 128-key tiles, 8 heads): the output is (B, L, H, Dv), one launch,
+    counted in ``launches_dv``."""
+    kw = dict(kw)
+    B, L, H = 2, 300, 8
+    q, k, v = _dv_flash_inputs(dims, dtype, B, L, H, seed=len(kw))
+    if kw.pop("ragged", False):
+        kw["kv_valid_len"] = torch.tensor([300, 131], device=DEV)
+    before = (fa_ops.flash_attention.launches,
+              fa_ops.flash_attention.launches_dv)
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    plain = fa_ref.attention_ref(q, k, v, p_dtype=v.dtype, **kw)
+    torch.cuda.synchronize()
+    assert out.shape == (B, L, H, v.shape[-1]) and out.dtype == dtype
+    assert (fa_ops.flash_attention.launches,
+            fa_ops.flash_attention.launches_dv) == (before[0] + 1,
+                                                    before[1] + 1)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, plain, atol=ATOL_F32, rtol=0)
+    else:
+        assert bf16_excess(out, plain, ROW_RTOL["flash"]) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("dims", sorted(MLA_DIMS))
+def test_decode_dv_mode_matches_plain(dims, dtype):
+    """K3 with v narrower than q/k, each cache with its own strides (k a
+    view of a wider buffer, v contiguous), G = 1 as in MLA and G = 4,
+    kv_len at and off the 256-position splits, one of them 0."""
+    Dq, Dv = MLA_DIMS[dims]
+    B, Lc = 4, 700
+    g = torch.Generator(device=DEV).manual_seed(Dq)
+    kv_len = torch.tensor([700, 256, 1, 0], device=DEV)
+    for H, Hkv in ((8, 8), (8, 2)):
+        q = _randn((B, H, Dq), g, dtype)
+        k = _randn((B, Lc, Hkv, Dq + 8), g, dtype)[..., :Dq]
+        v = _randn((B, Lc, Hkv, Dv), g, dtype)
+        before = (da_ops.decode_attention.launches,
+                  da_ops.decode_attention.launches_dv)
+        out = da_ops.decode_attention(q, k, v, kv_len)
+        plain = da_ref.decode_attention_ref(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        assert out.shape == (B, H, Dv)
+        assert (da_ops.decode_attention.launches,
+                da_ops.decode_attention.launches_dv) == (before[0] + 1,
+                                                         before[1] + 1)
+        assert float(out[3].abs().max()) == 0.0          # kv_len 0
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, plain, atol=ATOL_F32, rtol=0)
+        else:
+            assert bf16_excess(out, plain, ROW_RTOL["decode"]) <= 1.0
+
+
+@pytest.mark.parametrize("dims", sorted(MLA_DIMS))
+def test_dv_mode_dropped_tile_fails_the_limit(dims):
+    """A planted fault the checks above must catch: the plain versions with
+    one kv tile left out (K4: 64 keys out of the last quarter of a causal
+    prefill's rows; K3: one 256-position split) exceed the bf16 limit, while
+    the kernels stay within it."""
+    Dq, Dv = MLA_DIMS[dims]
+    B, L, H = 1, 1024, 8
+    q, k, v = _dv_flash_inputs(dims, torch.bfloat16, B, L, H, seed=5)
+    plain = fa_ref.attention_ref(q, k, v, causal=True, p_dtype=v.dtype)
+    bad = plain.clone()
+    lo, r0 = L // 2, 3 * L // 4
+
+    def holed(x, n):
+        return torch.cat([x[:, :lo], x[:, lo + n:]], dim=1)
+    bad[:, r0:] = fa_ref.attention_ref(
+        q[:, r0:], holed(k, 64), holed(v, 64), causal=True,
+        q_offset=r0 - 64, p_dtype=v.dtype)
+    assert bf16_excess(bad, plain, ROW_RTOL["flash"]) > 1.0
+    out = fa_ops.flash_attention(q, k, v, causal=True)
+    assert bf16_excess(out, plain, ROW_RTOL["flash"]) <= 1.0
+    qd, kc, vc = q[:, -1], k, v                       # one decode query
+    kv_len = torch.full((B,), L, device=DEV)
+    plain = da_ref.decode_attention_ref(qd, kc, vc, kv_len)
+    bad = da_ref.decode_attention_ref(qd, holed(kc, 256), holed(vc, 256),
+                                      kv_len - 256)
+    assert bf16_excess(bad, plain, ROW_RTOL["decode"]) > 1.0
+    out = da_ops.decode_attention(qd, kc, vc, kv_len)
+    torch.cuda.synchronize()
+    assert bf16_excess(out, plain, ROW_RTOL["decode"]) <= 1.0
+
+
 @pytest.mark.parametrize("arch,kv_dtype", [("mixtral-8x7b", ""),
                                            ("mixtral-8x7b", "int8"),
-                                           ("paligemma-3b", "")])
+                                           ("paligemma-3b", ""),
+                                           ("minicpm3-4b", ""),
+                                           ("minicpm3-4b", "absorb"),
+                                           ("deepseek-v2-236b", ""),
+                                           ("whisper-base", "")])
 def test_reduced_model_kernels_match_plain_layers(arch, kv_dtype,
                                                   monkeypatch):
     """Reduced, f32: mixtral's 48-token prompt over window 32 (the ring
     wraps in prefill) and 4 decode steps; paligemma's 8 patch embeddings
-    before 12 text tokens and 4 decode steps; the same tokens in both runs.
-    Logits through K4/K3 against the plain layers, one K4 and one K3
-    launch a layer each call."""
+    before 12 text tokens and 4 decode steps; minicpm3 and deepseek-v2
+    (MLA, Dv mode; "absorb": the absorbed decode, which runs no K3) and
+    whisper (32 stub frames through the encoder, cross-attention) over 12
+    tokens and 4 decode steps; the same tokens in both runs. Logits through
+    K4/K3 against the plain layers, with the launches each call makes: one
+    K4 a layer in prefill (whisper: one an encoder layer, two a decoder
+    layer), one K3 a layer a decode step (whisper: two)."""
     from repro_torch.configs.base import get_config
     from repro_torch.models import layers as L
     from repro_torch.models import lm
+    absorb = kv_dtype == "absorb"
+    kv_dtype = "" if absorb else kv_dtype
     cfg = get_config(arch).reduced().replace(dtype="float32",
-                                             kv_dtype=kv_dtype)
+                                             kv_dtype=kv_dtype,
+                                             mla_absorb=absorb)
     atol = 1e-3 if kv_dtype else 1e-4
     g = torch.Generator(device=DEV).manual_seed(7)
     params = lm.init_params(g, cfg, device=DEV)
@@ -134,6 +254,9 @@ def test_reduced_model_kernels_match_plain_layers(arch, kv_dtype,
     if cfg.family == "vlm":
         batch["patch_embed"] = torch.randn((B, cfg.prefix_len, cfg.d_model),
                                            generator=g, device=DEV)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.randn((B, cfg.enc_len, cfg.d_model),
+                                      generator=g, device=DEV)
     Lx = Lt + (cfg.prefix_len if cfg.family == "vlm" else 0)
     max_len = Lx + 8
     steps = torch.randint(0, cfg.vocab_size, (4, B, 1), generator=g,
@@ -150,8 +273,11 @@ def test_reduced_model_kernels_match_plain_layers(arch, kv_dtype,
 
     f0, d0 = fa_ops.flash_attention.launches, da_ops.decode_attention.launches
     kernel = run()
-    assert fa_ops.flash_attention.launches == f0 + cfg.n_layers
-    assert da_ops.decode_attention.launches == d0 + 4 * cfg.n_layers
+    per_layer = 2 if cfg.is_encoder_decoder else 1
+    assert fa_ops.flash_attention.launches == \
+        f0 + per_layer * cfg.n_layers + cfg.enc_layers
+    assert da_ops.decode_attention.launches == \
+        d0 + (0 if absorb else 4 * per_layer * cfg.n_layers)
     monkeypatch.setattr(L, "flash_attention", L.flash_attention_plain)
     monkeypatch.setattr(L, "decode_attention", L.decode_attention_plain)
     plain = run()

@@ -156,10 +156,7 @@ def test_attention_masks_match_jax():
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=1e-5)
 
 
-UNPORTED = {"minicpm3-4b": "attn_kind='mla'",
-            "deepseek-v2-236b": "attn_kind='mla'",
-            "whisper-base": "encoder-decoder",
-            "rwkv6-7b": "ssm_kind='rwkv6'",
+UNPORTED = {"rwkv6-7b": "ssm_kind='rwkv6'",
             "zamba2-7b": "ssm_kind='mamba2'"}
 
 

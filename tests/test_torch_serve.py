@@ -57,10 +57,12 @@ def _numbers(text: str) -> list:
     return [_WALL.sub("<s>", line) for line in text.strip().splitlines()]
 
 
-@pytest.mark.parametrize("arch", ["qwen3-14b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["qwen3-14b", "mixtral-8x7b", "minicpm3-4b",
+                                  "deepseek-v2-236b"])
 def test_run_batch_prints_the_reference_numbers(monkeypatch, capsys, arch):
     """``--arch`` through ``get_config(arch).reduced()`` in both launchers:
-    the dense qwen3 and the MoE + sliding-window mixtral (bf16, as the
+    the dense qwen3, the MoE + sliding-window mixtral, the MLA minicpm3 and
+    the MLA + MoE deepseek-v2 with its dense first layer (bf16, as the
     launchers build them)."""
     args = BATCH_ARGS + ["--arch", arch]
 
