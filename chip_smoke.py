@@ -644,6 +644,9 @@ DECODE_TIMED = ((8192, 4096),       # (cache length, kv_len): engine-long's
 DV_PREFILL_SHAPE = dict(B=1, Lq=4096, Lkv=4096, H=40, Hkv=40, Dh=96, Dv=64)
 DV_DECODE_SHAPE = dict(B=4, H=40, Hkv=40, Dh=96, Dv=64)
 DV_DECODE_TIMED = (8192, 4096)
+# deepseek-v2-236b's decode at the same slots and lengths (128 heads, one kv
+# head a query head, Dq 128 + 64, Dv 128), timed beside minicpm3's
+DV_DEEPSEEK_DECODE_SHAPE = dict(B=4, H=128, Hkv=128, Dh=192, Dv=128)
 # deepseek-v2-236b's (Dq = 128 + 64, Dv = 128) at fewer heads, for the checks
 DV_DEEPSEEK = dict(Dh=192, Dv=128)
 FLASH_MODES = {
@@ -1015,14 +1018,14 @@ def phase_attention_timing(torch, seed: int) -> dict:
 
 def dv_timing(torch, seed: int) -> dict:
     """Both kernels' Dv mode at minicpm3's shapes (DV_PREFILL_SHAPE, causal;
-    DV_DECODE_SHAPE at Lc 8,192 and kv_len 4,096): kernel, plain version,
+    DV_DECODE_SHAPE at Lc 8,192 and kv_len 4,096), and K3's at
+    deepseek-v2's decode (DV_DEEPSEEK_DECODE_SHAPE): kernel, plain version,
     bound and scaled_dot_product_attention, which takes a value head dim of
     its own (a yardstick; the port never calls it). The bound counts q, k
     and v read once (K3: the first kv_len positions) and the output written
     once; prefill's operations 2 H (Dq + Dv) over the unmasked (query, key)
     pairs, decode's 2 B H kv_len (Dq + Dv)."""
     import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import ops as da, ref as dr
     from repro_torch.kernels.flash_attention import ops as fa, ref as fr
     out = {}
     sh = DV_PREFILL_SHAPE
@@ -1054,11 +1057,26 @@ def dv_timing(torch, seed: int) -> dict:
            f"{rec['device_ms']:.4f} ms, library "
            f"{rec['library_device_ms']} ms in {rec['library_kernels']}"))
     del q, k, v, qt, kt, vt
-    sh = DV_DECODE_SHAPE
     Lc, n_kv = DV_DECODE_TIMED
+    for key, sh in (("decode_attention_dv", DV_DECODE_SHAPE),
+                    ("decode_attention_dv_deepseek",
+                     DV_DEEPSEEK_DECODE_SHAPE)):
+        out[f"{key}/{Lc}/{n_kv}"] = dv_decode_timing(torch, sh, Lc, n_kv,
+                                                     seed + 34)
+    return out
+
+
+def dv_decode_timing(torch, sh: dict, Lc: int, n_kv: int, seed: int) -> dict:
+    """K3's Dv mode at ``sh`` (kv_len ``n_kv`` of ``Lc``): kernel, plain,
+    bound, scaled_dot_product_attention and device ms, and the splits the
+    fast kernel's grid took (``last_n_split``; 0 would be the generic
+    kernel, which fails the run)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention import ops as da, ref as dr
     B, H, Hkv, Dq, Dv = (sh[x] for x in ("B", "H", "Hkv", "Dh", "Dv"))
     q, k, v, _ = decode_inputs(torch, **sh, Lc=Lc, qdtype=torch.bfloat16,
-                               int8=False, seed=seed + 34)
+                               int8=False, seed=seed)
     kv_len = torch.full((B,), n_kv, device=DEV)
     nbytes = 2 * B * H * (Dq + Dv) + 2 * B * n_kv * Hkv * (Dq + Dv) + B * 8
     b_ms, b_by = att_bound(nbytes, 2.0 * B * H * n_kv * (Dq + Dv),
@@ -1068,14 +1086,18 @@ def dv_timing(torch, seed: int) -> dict:
             < kv_len[:, None])[:, None, None, :]
     call = lambda: da.decode_attention(q, k, v, kv_len)
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-    rec = {"Lc": Lc, "kv_len": n_kv, "ms": cuda_ms(torch, call),
+    call()
+    n_split = dk.last_n_split.value
+    check(n_split > 0, f"[timing] decode_attention_dv {sh}: the generic "
+                       f"kernel ran, not the fast one")
+    rec = {"shape": sh, "Lc": Lc, "kv_len": n_kv, "n_split": n_split,
+           "ms": cuda_ms(torch, call),
            "plain_ms": cuda_ms(torch, lambda: dr.decode_attention_ref(
                q, k, v, kv_len)),
            "library_ms": cuda_ms(torch, sdpa), "bound_ms": b_ms,
            "bound_by": b_by}
     rec.update(decode_device_ms(torch, call, "decode_attention_dv"))
     rec.update(library_device_ms(torch, sdpa))
-    out[f"decode_attention_dv/{Lc}/{n_kv}"] = rec
     log(f"[timing] decode_attention_dv B={B} H={H}/{Hkv} Dq={Dq} Dv={Dv} "
         f"Lc={Lc} kv_len={n_kv}: kernel {rec['ms']:.4f} ms (CUDA events), "
         + ("device not measured" if rec["device_ms"] is None else
@@ -1083,9 +1105,9 @@ def dv_timing(torch, seed: int) -> dict:
            f"({b_ms / rec['device_ms']:.3f} of the bound)")
         + f", plain {rec['plain_ms']:.4f} ms, library "
         f"{rec['library_ms']:.4f} ms ({rec['library_device_ms']} ms on the "
-        f"device), bound {b_ms:.4f} ms ({b_by}); device kernels "
-        f"{rec['device_kernels']}")
-    return out
+        f"device), bound {b_ms:.4f} ms ({b_by}); last_n_split {n_split}; "
+        f"device kernels {rec['device_kernels']}")
+    return rec
 
 
 def flash_device_ms(torch, call, lib, kernel: str, label: str) -> dict:
@@ -1134,6 +1156,7 @@ class AttnRecorder:
     def __init__(self, ops):
         self._ops = ops
         self.calls: list = []
+        self.n_split: list = []     # K3: ``last_n_split`` after each call
 
     def flash_attention(self, q, k, v, *, causal=True, window=None,
                         prefix_len=0, q_offset=None, kv_valid_len=None):
@@ -1153,11 +1176,14 @@ class AttnRecorder:
                          v_scale=None):
         B, H, Dh = q.shape
         dv = {} if v_cache.shape[-1] == Dh else {"Dv": v_cache.shape[-1]}
+        from repro_torch.kernels.decode_attention import kernel
         self.calls.append(("decode_attention", dict(
             B=B, H=H, Hkv=k_cache.shape[2], Dh=Dh, **dv), k_cache.shape[1],
             _dtype_name(q.dtype), k_scale is not None, kv_len.clone()))
-        return self._ops.decode_attention(q, k_cache, v_cache, kv_len,
-                                          k_scale=k_scale, v_scale=v_scale)
+        out = self._ops.decode_attention(q, k_cache, v_cache, kv_len,
+                                         k_scale=k_scale, v_scale=v_scale)
+        self.n_split.append(kernel.last_n_split.value)
+        return out
 
     def distinct(self) -> set:
         out = set()
@@ -4930,6 +4956,7 @@ def mla_engine(torch, np, L, lm, params, cfg, att_recorders, seed: int
         out, decode_ms = toks0.copy(), []
         torch.cuda.synchronize()
         zero_attention_launches()
+        mark = len(att_recorders[1].n_split)
         with recorded_ops(L, att_recorders):
             for _ in range(MLA_STEPS):
                 t0 = time.perf_counter()
@@ -4944,6 +4971,16 @@ def mla_engine(torch, np, L, lm, params, cfg, att_recorders, seed: int
               f" K3 in the Dv mode and nothing else")
         check(all(0 <= t < cfg.vocab_size for t in out),
               f"[mla] {name} {form}: bad tokens {out}")
+        # K3's Dv mode on its fast kernel in every call: a reroute to the
+        # generic kernel (last_n_split 0) fails the run
+        splits = att_recorders[1].n_split[mark:]
+        check(len(splits) == want and all(x > 0 for x in splits),
+              f"[mla] {name} {form} decode: K3 splits {sorted(set(splits))}"
+              f" over {len(splits)} calls; every call must take the fast "
+              f"kernel")
+        if want:
+            log(f"[mla] {name} {form} decode: all {want} K3 calls took the "
+                f"fast kernel, splits {sorted(set(splits))}")
         for k, v in got.items():
             launches[k] += v
         steps[form] = {"decode_ms": decode_ms,

@@ -14,7 +14,9 @@
 // at 3.35 TB/s), reading each valid row once, in place, and spending few
 // instructions per byte so that the arithmetic hides under the loads.
 //
-// Design (decode_fast, for Dh in {64, 128, 256} and 16-byte aligned rows):
+// Design (decode_fast: a bf16 q with a bf16 or int8 cache at Dq = Dv of 64,
+// 128 or 256, or a bf16 cache at (Dq, Dv) = (96, 64) or (192, 128); K and V
+// each through their own 16-byte aligned base and strides):
 // - Work: one CTA of 4 warps per (split, kv head, sequence). The split
 //   count follows kv_len on the device: the host sizes the grid to one wave
 //   of resident CTAs (occupancy x SMs over B x Hkv), and each CTA reads
@@ -30,35 +32,51 @@
 //   no CTA barrier sits in the loop. The cache is read in place through its
 //   strides: no copy, no transpose. int8 scales come by ordinary loads, as
 //   many tiles ahead as the ring.
-// - Tensor cores (a bf16 q with a bf16 or int8 cache; mma.sync m16n8k16,
-//   f32 accumulators). S^T = q K^T puts the query heads on M (G <= 16 in
-//   one block), the tile's positions on N and Dh on K; q's fragments are
-//   built once, and each lane reads K's as whole 16-byte chunks of a row
-//   (the Dh index is permuted alike in both). int8 codes become bf16
-//   exactly (|code| <= 127; two bit masks and one bf16x2 subtraction a
-//   pair) and the k scale multiplies the f32 dot afterwards. The online
-//   softmax runs on S^T's accumulators in registers, in log2 units; P
-//   (int8: times the position's v scale) stays f32 and enters
-//   out^T += V^T P^T as two bf16 terms, hi + lo (error <= 2^-16 |p|),
-//   with Dh on M and the heads on N. Reads of K and V hit each bank once
-//   (chunks XOR-swizzled as they are copied in).
-// - CUDA cores (an f32 q, or an f32 cache): f32 FMAs, two lanes a K row,
-//   P through a 16 x G tile in shared memory to P V, each lane owning
-//   Dh / 32 columns. TF32 is never used.
+// - Tensor cores (mma.sync m16n8k16, f32 accumulators). S^T = q K^T puts
+//   the query heads on M (G <= 16 in one block), the tile's positions on N
+//   and Dq on K; q's fragments are built once, and each lane reads K's as
+//   whole 16-byte chunks of a row (the Dq index is permuted alike in both).
+//   int8 codes become bf16 exactly (|code| <= 127; two bit masks and one
+//   bf16x2 subtraction a pair) and the k scale multiplies the f32 dot
+//   afterwards. The online softmax runs on S^T's accumulators in
+//   registers, in log2 units; P (int8: times the position's v scale) stays
+//   f32 and enters out^T += V^T P^T as two bf16 terms, hi + lo (error <=
+//   2^-16 |p|), with Dv on M and the heads on N. Reads of K and V hit each
+//   bank once (chunks XOR-swizzled as they are copied in). TF32 is never
+//   used.
 // - Merge: the 4 warps' states are merged in warp order; a CTA that is the
 //   only split of its (sequence, kv head) writes the output, otherwise it
 //   writes a partial (m, l, acc) and bumps an arrival counter, and the last
 //   CTA to arrive merges the partials in split order (so the result does
 //   not depend on arrival order) and resets the counter to 0. One launch.
 //
+// The Dv mode (a value head dim other than the q/k one: MLA's decode with
+// its K/V materialised from the latent cache, Dq 96 and Dv 64 in
+// minicpm3-4b, 192 and 128 in deepseek-v2-236b, G = 1; a port extension
+// held against the model layer's jnp decode attention) is decode_fast
+// templated on Dq and Dv apart: K and V rows of their own sizes (192 or 384
+// and 128 or 256 bytes), each with its own base and strides; the copy deals
+// a tile's chunks to the lanes in row-major order, so that a row need not
+// divide 32 (Dq 96: 12 chunks, 192: 24); the K swizzle applies only where a
+// row is a multiple of 128 bytes (at 192 bytes odd rows already start in
+// the other half of the banks); the P V tiles, the partial record G x (2 +
+// Dv), the merge and the output are sized by Dv; the scale stays
+// 1 / sqrt(Dq). Why this and not a CUDA-core instance for G = 1, where 15
+// of the 16 rows of S^T's m16n8k16 tile are empty: the work is bound by
+// bytes (at G = 1 each position costs Dq + Dv multiply-adds a head for
+// 2 (Dq + Dv) bytes), and what the tensor cores waste is instruction
+// slots, not bytes. A warp spends some 100 instructions on a 5 KB tile at
+// (96, 64) (20 mma, 10 shared loads, 10 copies, the softmax), where f32
+// FMAs with bf16x2 unpacking would take about 160 per lane a tile; both
+// are far under what an SM can dispatch at 3.35 TB/s / 132 SMs (~15 bytes
+// a clock), and one kernel for every mode keeps one set of copy, softmax
+// and merge code.
+//
 // decode_generic keeps the former two-pass design (256-position splits, a
-// warp per K row, scalar loads) for every other shape: any Dh <= 256,
-// unaligned views, an f32 cache at Dh = 256, and a value head dim Dv other
-// than the q/k one Dq (MLA decode with its K/V materialised from the latent
-// cache: Dq 96 and Dv 64 in minicpm3, 192 and 128 in deepseek-v2, G = 1; a
-// port extension held against the model layer's jnp decode attention).
-// There V has its own strides, the partial record is G x (2 + Dv) floats
-// and the scale stays 1 / sqrt(Dq).
+// warp per K row, scalar loads) for every other shape: an f32 q or cache,
+// any other Dq <= 256 and Dv <= 256, and views that are not 16-byte
+// aligned. V has its own strides there too, the partial record is
+// G x (2 + Dv) floats and the scale 1 / sqrt(Dq).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -181,32 +199,38 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
 
 // ---- decode_fast -----------------------------------------------------------
 
-template <typename KT, int DH, int NB>
+template <typename KT, int DQ, int DV, int NB>
 struct Fast {
   static constexpr int ES = (int)sizeof(KT);     // bf16 or int8
-  static constexpr int RB = DH * ES;             // bytes of a cache row
-  static constexpr int NCH = RB / 16;            // 16-byte chunks a row
+  static constexpr int RK = DQ * ES, RV = DV * ES;   // bytes of a K, V row
+  static constexpr int NCK = RK / 16, NCV = RV / 16; // 16-byte chunks a row
   static constexpr int EPC = 16 / ES;            // elements a chunk
-  static constexpr int SB = 2 * ROWS * RB;       // a stage: K and V tiles
+  static constexpr int SB = ROWS * (RK + RV);    // a stage: K and V tiles
   static constexpr int STAGES = SB <= 4096 ? 4 : 2;   // ~16 KB a warp
   static constexpr int GP = 8 * NB;              // heads, padded
   static constexpr int RING = WARPS * STAGES * SB;
-  // P V as V^T P^T: Dh on M in m-blocks of 16; a lane row of the A
+  // P V as V^T P^T: Dv on M in m-blocks of 16; a lane row of the A
   // fragment owns DPL consecutive head-dim elements (SEG bytes)
-  static constexpr int MB = DH / 16, DPL = DH / 8, SEG = DPL * ES;
+  static constexpr int MB = DV / 16, DPL = DV / 8, SEG = DPL * ES;
   // after the ring (floats): each warp's running max and sum per head
   static constexpr int MRUN = 0, LSUM = MRUN + WARPS * GP,
                        NF = LSUM + WARPS * GP;
   static constexpr int SMEM = RING + 4 * NF + 16;
-  static_assert(ES <= 2 && NCH >= 4, "a bf16 or int8 row of >= 64 bytes");
-  static_assert(RING >= 4 * WARPS * GP * DH, "the merge reuses the ring");
+  static_assert(ES <= 2 && NCK % 4 == 0 && NCV >= 4,
+                "bf16 or int8 rows, K's of 64-byte multiples");
+  static_assert(ROWS * NCK % 32 == 0 && ROWS * NCV % 32 == 0,
+                "a tile's chunks deal evenly to the lanes");
+  static_assert(RING >= 4 * WARPS * GP * DV, "the merge reuses the ring");
 
   // Where chunk c of row r lies, so that a warp's 16-byte fragment reads
-  // hit each bank once. K (rows g, g + 8, chunks 4i + t): odd rows swap
-  // 64-byte halves. V (rows 2t + {0, 1, 8, 9}, the lane's SEG bytes at
-  // g * SEG): chunks XORed by a function of (r >> 1) & 3.
+  // hit each bank once. K (rows g, g + 8, chunks 4i + t; a quarter warp
+  // reads rows 2p and 2p + 1): where a row is a multiple of 128 bytes, odd
+  // rows swap 64-byte halves (XOR 4 stays within a row of 8k chunks); a
+  // row of 64 mod 128 bytes already puts odd rows in the other half.
+  // V (rows 2t + {0, 1, 8, 9}, the lane's SEG bytes at g * SEG): chunks
+  // XORed by a function of (r >> 1) & 3.
   __device__ static int phys_k(int r, int c) {
-    return NCH >= 8 ? (c ^ ((r & 1) << 2)) : c;
+    return NCK % 8 == 0 ? (c ^ ((r & 1) << 2)) : c;
   }
   __device__ static int phys_v(int r, int c) {
     const int t = (r >> 1) & 3;
@@ -223,11 +247,12 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <typename KT, int DH, int NB>
+template <typename KT, int DQ, int DV, int NB>
 __global__ void __launch_bounds__(THREADS)
 decode_fast(Args a) {
-  using F = Fast<KT, DH, NB>;
-  constexpr int ES = F::ES, RB = F::RB, NCH = F::NCH, EPC = F::EPC;
+  using F = Fast<KT, DQ, DV, NB>;
+  constexpr int ES = F::ES, RK = F::RK, RV = F::RV, EPC = F::EPC;
+  constexpr int NCK = F::NCK, NCV = F::NCV;
   constexpr int SB = F::SB, STAGES = F::STAGES, GP = F::GP;
   constexpr bool Q8 = sizeof(KT) == 1;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -236,11 +261,11 @@ decode_fast(Args a) {
 
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int G = a.G, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long obase = ((long long)b * a.H + (long long)hk * G) * DH;
+  const long long obase = ((long long)b * a.H + (long long)hk * G) * DV;
   const int len = seq_len(a, b);
   if (len == 0) {                             // no valid position: output 0
     if (split == 0)
-      for (int e = tid; e < G * DH; e += THREADS) store_out(a, obase + e, 0.f);
+      for (int e = tid; e < G * DV; e += THREADS) store_out(a, obase + e, 0.f);
     return;
   }
   int chunk = (len + a.n_split - 1) / a.n_split;
@@ -254,8 +279,8 @@ decode_fast(Args a) {
   const unsigned char* kb = static_cast<const unsigned char*>(a.k) +
                             (b * a.csB + hk * a.csH) * ES;
   const unsigned char* vb = static_cast<const unsigned char*>(a.v) +
-                            (b * a.csB + hk * a.csH) * ES;
-  const long long rstride = a.csL * ES;
+                            (b * a.vsB + hk * a.vsH) * ES;
+  const long long krs = a.csL * ES, vrs = a.vsL * ES;   // row strides
   unsigned char* ring = smem + warp * STAGES * SB;
   // int8 scales of (b, hk); a position's offset fits 32 bits (the host
   // checks)
@@ -263,22 +288,27 @@ decode_fast(Args a) {
   const __half* vsb = Q8 ? a.vs + b * a.ssB + hk * a.ssH : nullptr;
   const int ssl = (int)a.ssL;
 
-  // a lane copies chunk cl of rows r0, r0 + 32 / NCH, ... of each tile
-  constexpr int RSTEP = 32 / NCH;
-  const int cl = lane % NCH, r0 = lane / NCH;
-  const long long lane_off = r0 * rstride + cl * 16;
+  // a lane copies chunks lane, lane + 32, ... of a tile's ROWS x NC
+  // chunks in row-major order (NC need not divide 32)
   auto issue = [&](int i) {                   // this warp's i-th tile
     unsigned char* Ks = ring + (i % STAGES) * SB;
-    unsigned char* Vs = Ks + ROWS * RB;
+    unsigned char* Vs = Ks + ROWS * RK;
     const int p0 = start + (warp + WARPS * i) * ROWS;
-    const long long base = p0 * rstride + lane_off;
+    const unsigned char* kt = kb + p0 * krs;
+    const unsigned char* vt = vb + p0 * vrs;
 #pragma unroll
-    for (int it = 0; it < ROWS / RSTEP; ++it) {
-      const int r = r0 + RSTEP * it;
+    for (int it = 0; it < ROWS * NCK / 32; ++it) {
+      const int f = lane + 32 * it, r = f / NCK, c = f % NCK;
       const bool ok = p0 + r < end;
-      const long long off = ok ? base + it * RSTEP * rstride : 0;
-      cp16(Ks + r * RB + F::phys_k(r, cl) * 16, kb + off, ok);
-      cp16(Vs + r * RB + F::phys_v(r, cl) * 16, vb + off, ok);
+      cp16(Ks + r * RK + F::phys_k(r, c) * 16,
+           ok ? kt + r * krs + c * 16 : kb, ok);
+    }
+#pragma unroll
+    for (int it = 0; it < ROWS * NCV / 32; ++it) {
+      const int f = lane + 32 * it, r = f / NCV, c = f % NCV;
+      const bool ok = p0 + r < end;
+      cp16(Vs + r * RV + F::phys_v(r, c) * 16,
+           ok ? vt + r * vrs + c * 16 : vb, ok);
     }
   };
   for (int i = 0; i < STAGES; ++i) {
@@ -288,13 +318,13 @@ decode_fast(Args a) {
 
   float* mrun = fs + F::MRUN;                 // (WARPS, GP), for the merge
   float* lsum = fs + F::LSUM;
-  float* wacc = reinterpret_cast<float*>(smem);   // (WARPS, GP, DH), later
+  float* wacc = reinterpret_cast<float*>(smem);   // (WARPS, GP, DV), later
   const float sc2 = a.scale * LOG2E;
   const int g8 = lane >> 2, t4 = lane & 3;
 
   // ---- tensor cores. S^T = q K^T: the heads on M (16 rows: G <= 16),
-  // the tile's 16 positions on N (two n-blocks: K rows g8 and g8 + 8), Dh
-  // on K. Then out^T += V^T P^T: Dh on M, the heads on N (NB n-blocks of
+  // the tile's 16 positions on N (two n-blocks: K rows g8 and g8 + 8), Dq
+  // on K. Then out^T += V^T P^T: Dv on M, the heads on N (NB n-blocks of
   // 8), the 16 positions on K, with P from S^T's accumulators in
   // registers (split into bf16 hi + lo). Lane (g8, t4) keeps the softmax
   // state of heads g8 (and g8 + 8) and reads P for positions 2t4, 2t4 + 1,
@@ -303,7 +333,7 @@ decode_fast(Args a) {
   // q as A fragments: k-step s, lane t4 holds slots 2t4, 2t4 + 1,
   // 2t4 + 8, 2t4 + 9 = four consecutive head-dim elements from d0, the
   // ones the same lane's B fragment takes from its 16-byte chunk of K
-  uint32_t qa[DH / 16][4];
+  uint32_t qa[DQ / 16][4];
 #pragma unroll
   for (int hb = 0; hb < 2; ++hb) {
     const int n = g8 + 8 * hb;
@@ -311,7 +341,7 @@ decode_fast(Args a) {
                          (long long)(hk * G + min(n, G - 1)) * a.qsH;
     const bool on = n < G;
 #pragma unroll
-    for (int s = 0; s < DH / 16; ++s) {
+    for (int s = 0; s < DQ / 16; ++s) {
       const int d0 = (s / SP) * 4 * EPC + t4 * EPC + 4 * (s % SP);
       qa[s][hb] =
           on ? (uint32_t)qp[d0] | ((uint32_t)qp[d0 + 1] << 16) : 0u;
@@ -367,7 +397,7 @@ decode_fast(Args a) {
     cp_wait<STAGES - 1>();
     __syncwarp();
     const unsigned char* Ks = ring + (i % STAGES) * SB;
-    const unsigned char* Vs = Ks + ROWS * RB;
+    const unsigned char* Vs = Ks + ROWS * RK;
     const int nrow = min(ROWS, end - (start + (warp + WARPS * i) * ROWS));
 
     // S^T: c[nb] holds (head g8, positions 8nb + 2t4 + {0, 1}) and
@@ -377,10 +407,10 @@ decode_fast(Args a) {
     for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) c[nb][e] = 0.f;
-    const unsigned char* K0 = Ks + g8 * RB;
-    const unsigned char* K1 = K0 + 8 * RB;
+    const unsigned char* K0 = Ks + g8 * RK;
+    const unsigned char* K1 = K0 + 8 * RK;
 #pragma unroll
-    for (int ci = 0; ci < NCH / 4; ++ci) {
+    for (int ci = 0; ci < NCK / 4; ++ci) {
       const int ch = F::phys_k(g8, 4 * ci + t4) * 16;
       const uint4 x0 = *reinterpret_cast<const uint4*>(K0 + ch);
       const uint4 x1 = *reinterpret_cast<const uint4*>(K1 + ch);
@@ -461,12 +491,12 @@ decode_fast(Args a) {
     }
 
     // out^T += V^T P^T. The lane's V^T rows g8 and g8 + 8 of m-block mb
-    // are head-dim elements g8 DPL + 2 mb and + 1; its k slots the
+    // are v head-dim elements g8 DPL + 2 mb and + 1; its k slots the
     // positions 2t4, 2t4 + 1 (a0, a1) and 2t4 + 8, 2t4 + 9 (a2, a3)
     const unsigned char* Vr[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      Vr[e] = Vs + (2 * t4 + (e & 1) + 8 * (e >> 1)) * RB;
+      Vr[e] = Vs + (2 * t4 + (e & 1) + 8 * (e >> 1)) * RV;
     constexpr int STEP = SEG < 16 ? SEG : 16;   // bytes a load
 #pragma unroll
     for (int cs = 0; cs < SEG / STEP; ++cs) {
@@ -536,10 +566,10 @@ decode_fast(Args a) {
 #pragma unroll
     for (int mb = 0; mb < MB; ++mb) {
       const int d = g8 * DPL + 2 * mb, h = 8 * hb + 2 * t4;
-      float* w0 = wacc + (warp * GP + h) * DH + d;
+      float* w0 = wacc + (warp * GP + h) * DV + d;
       *reinterpret_cast<float2*>(w0) =
           make_float2(acc[hb][mb][0], acc[hb][mb][2]);
-      *reinterpret_cast<float2*>(w0 + DH) =
+      *reinterpret_cast<float2*>(w0 + DV) =
           make_float2(acc[hb][mb][1], acc[hb][mb][3]);
     }
   }
@@ -548,9 +578,9 @@ decode_fast(Args a) {
   // ---- the CTA's (m, l, acc): warps merged in order
   const float* mw = fs + F::MRUN;
   const long long pair = (long long)b * a.Hkv + hk;
-  float* part = a.part + (pair * a.n_split + split) * G * (2 + DH);
-  for (int e = tid; e < G * DH; e += THREADS) {
-    const int g = e / DH, d = e - g * DH;
+  float* part = a.part + (pair * a.n_split + split) * G * (2 + DV);
+  for (int e = tid; e < G * DV; e += THREADS) {
+    const int g = e / DV, d = e - g * DV;
     float M = -INFINITY;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) M = fmaxf(M, mw[w * GP + g]);
@@ -559,12 +589,12 @@ decode_fast(Args a) {
     for (int w = 0; w < WARPS; ++w) {
       const float wt = exp2f(mw[w * GP + g] - M);   // empty warp: 0
       L = fmaf(lsum[w * GP + g], wt, L);
-      A = fmaf(wacc[(w * GP + g) * DH + d], wt, A);
+      A = fmaf(wacc[(w * GP + g) * DV + d], wt, A);
     }
     if (ns == 1) {
       store_out(a, obase + e, A / L);
     } else {
-      float* rec = part + g * (2 + DH);
+      float* rec = part + g * (2 + DV);
       rec[2 + d] = A;
       if (d == 0) { rec[0] = M; rec[1] = L; }
     }
@@ -581,13 +611,13 @@ decode_fast(Args a) {
   // the splits' weights exp2(m - M) and 1 / L per head, in the free ring;
   // then each thread sums its outputs over the splits, its loads of one
   // split independent of each other
-  const float* p0 = a.part + pair * a.n_split * G * (2 + DH);
+  const float* p0 = a.part + pair * a.n_split * G * (2 + DV);
   float* wsp = reinterpret_cast<float*>(smem);     // (ns, G) m, then weight
   float* lsp = wsp + ns * G;                       // (ns, G) l
   float* linv = lsp + ns * G;                      // (G,)
   for (int e = tid; e < ns * G; e += THREADS) {
-    wsp[e] = __ldcg(p0 + e * (2 + DH));
-    lsp[e] = __ldcg(p0 + e * (2 + DH) + 1);
+    wsp[e] = __ldcg(p0 + e * (2 + DV));
+    lsp[e] = __ldcg(p0 + e * (2 + DV) + 1);
   }
   __syncthreads();
   if (tid < G) {
@@ -601,7 +631,7 @@ decode_fast(Args a) {
     linv[tid] = 1.f / L;
   }
   __syncthreads();
-  constexpr int PER = (GP * DH + THREADS - 1) / THREADS;
+  constexpr int PER = (GP * DV + THREADS - 1) / THREADS;
   float A[PER];
 #pragma unroll
   for (int k = 0; k < PER; ++k) A[k] = 0.f;
@@ -609,15 +639,15 @@ decode_fast(Args a) {
   for (int sp = 0; sp < ns; ++sp) {
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
-      const int e = tid + k * THREADS, g = e / DH;
+      const int e = tid + k * THREADS, g = e / DV;
       if (g < G)
-        A[k] = fmaf(__ldcg(p0 + (sp * G + g) * (2 + DH) + 2 + (e - g * DH)),
+        A[k] = fmaf(__ldcg(p0 + (sp * G + g) * (2 + DV) + 2 + (e - g * DV)),
                     wsp[sp * G + g], A[k]);
     }
   }
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
-    const int e = tid + k * THREADS, g = e / DH;
+    const int e = tid + k * THREADS, g = e / DV;
     if (g < G) store_out(a, obase + e, A[k] * linv[g]);
   }
   if (tid == 0) a.count[pair] = 0;            // ready for the next call
@@ -740,20 +770,20 @@ decode_generic_combine(Args a) {
 
 // ---- launch ----------------------------------------------------------------
 
-template <typename KT, int DH, int NB>
+template <typename KT, int DQ, int DV, int NB>
 cudaError_t launch_fast(Args& a, long long s_cap, cudaStream_t s) {
-  using F = Fast<KT, DH, NB>;
+  using F = Fast<KT, DQ, DV, NB>;
   static int resident[64] = {};          // per device: CTAs of one wave
   int dev = 0;
   cudaGetDevice(&dev);
   if (!resident[dev & 63]) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_fast<KT, DH, NB>,
+        decode_fast<KT, DQ, DV, NB>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM);
     int per_sm = 0, sms = 0;
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, decode_fast<KT, DH, NB>, THREADS, F::SMEM);
+          &per_sm, decode_fast<KT, DQ, DV, NB>, THREADS, F::SMEM);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
@@ -770,24 +800,30 @@ cudaError_t launch_fast(Args& a, long long s_cap, cudaStream_t s) {
   most = most < fit ? most : fit;
   a.n_split = (int)(want > most ? most : want);
   dim3 grid((unsigned)a.n_split, (unsigned)a.Hkv, (unsigned)a.B);
-  decode_fast<KT, DH, NB><<<grid, THREADS, F::SMEM, s>>>(a);
+  decode_fast<KT, DQ, DV, NB><<<grid, THREADS, F::SMEM, s>>>(a);
   return cudaGetLastError();
+}
+
+template <typename KT, int DQ, int DV>
+cudaError_t launch_g(Args& a, long long s_cap, cudaStream_t s) {
+  // the heads on two n-blocks of P V where G > 8
+  return a.G > 8 ? launch_fast<KT, DQ, DV, 2>(a, s_cap, s)
+                 : launch_fast<KT, DQ, DV, 1>(a, s_cap, s);
 }
 
 template <typename KT>
 cudaError_t launch_dh(Args& a, long long s_cap, cudaStream_t s) {
-  const bool wide = a.G > 8;               // heads on two n-blocks of P V
   switch (a.Dh) {
-    case 64:
-      return wide ? launch_fast<KT, 64, 2>(a, s_cap, s)
-                  : launch_fast<KT, 64, 1>(a, s_cap, s);
-    case 128:
-      return wide ? launch_fast<KT, 128, 2>(a, s_cap, s)
-                  : launch_fast<KT, 128, 1>(a, s_cap, s);
-    default:
-      return wide ? launch_fast<KT, 256, 2>(a, s_cap, s)
-                  : launch_fast<KT, 256, 1>(a, s_cap, s);
+    case 64: return launch_g<KT, 64, 64>(a, s_cap, s);
+    case 128: return launch_g<KT, 128, 128>(a, s_cap, s);
+    default: return launch_g<KT, 256, 256>(a, s_cap, s);
   }
+}
+
+// the Dv mode at MLA's head dims: minicpm3-4b's and deepseek-v2-236b's
+cudaError_t launch_dv(Args& a, long long s_cap, cudaStream_t s) {
+  return a.Dh == 96 ? launch_g<__nv_bfloat16, 96, 64>(a, s_cap, s)
+                    : launch_g<__nv_bfloat16, 192, 128>(a, s_cap, s);
 }
 
 template <typename KT, bool Q8>
@@ -834,22 +870,26 @@ extern "C" int decode_attention(
          (int)q_bf16, (int)kv64, 1.0f / sqrtf((float)Dh)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // decode_fast: a bf16 q with a bf16 or int8 cache at Dh = Dv of 64, 128
-  // or 256, both caches with one set of strides, rows 16-byte aligned;
-  // decode_generic: everything else
+  // or 256, or a bf16 cache at (Dh, Dv) = (96, 64) or (192, 128); K and V
+  // each with 16-byte aligned base and strides. decode_generic: the rest
   const long long es = kv_kind == 0 ? 4 : (kv_kind == 1 ? 2 : 1);
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) %
        16) == 0 && (ksB * es) % 16 == 0 && (ksL * es) % 16 == 0 &&
-      (ksH * es) % 16 == 0;
+      (ksH * es) % 16 == 0 && (vsB * es) % 16 == 0 && (vsL * es) % 16 == 0 &&
+      (vsH * es) % 16 == 0;
   const bool narrow =                  // int8 scale offsets fit 32 bits
       kv_kind != 2 || ssL * (Lc - 1) < (1LL << 31);
-  const bool same_kv = Dv == Dh && vsB == ksB && vsL == ksL && vsH == ksH;
-  const bool fast = q_bf16 && kv_kind != 0 && aligned && narrow && same_kv &&
-                    (Dh == 64 || Dh == 128 || Dh == 256);
+  const bool same_d = Dv == Dh && (Dh == 64 || Dh == 128 || Dh == 256);
+  const bool mla = kv_kind == 1 && ((Dh == 96 && Dv == 64) ||
+                                    (Dh == 192 && Dv == 128));
+  const bool fast = q_bf16 && kv_kind != 0 && aligned && narrow &&
+                    (same_d || mla);
   cudaError_t e;
   if (fast)
-    e = kv_kind == 2 ? launch_dh<int8_t>(a, s_cap, s)
-                     : launch_dh<__nv_bfloat16>(a, s_cap, s);
+    e = mla ? launch_dv(a, s_cap, s)
+        : kv_kind == 2 ? launch_dh<int8_t>(a, s_cap, s)
+                       : launch_dh<__nv_bfloat16>(a, s_cap, s);
   else
     e = kv_kind == 2 ? launch_generic<int8_t, true>(a, s_cap, s)
         : kv_kind == 1 ? launch_generic<__nv_bfloat16, false>(a, s_cap, s)

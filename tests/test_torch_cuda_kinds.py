@@ -8,8 +8,12 @@ at head dims 128 (mixtral, 4 query heads a kv head) and 256 (paligemma, 8),
 held against the plain attention over the same positions laid out in
 order; both kernels' Dv mode (v head dim other than the q/k one: MLA's Dq
 96 with Dv 64 and Dq 192 with Dv 128) in bf16 and f32, with a dropped kv
-tile that the bf16 limit must fail. The kernels have no CPU mode, so these
-tests are marked ``gpu`` and skip without a CUDA device:
+tile that the bf16 limit must fail; K3's Dv mode in bf16 takes the fast
+one-launch kernel (``last_n_split > 0``) at its tile and split edges, in
+a full 32,768-position cache, on ``_mla_kv``'s own layouts and on a
+16-byte aligned view, gives the same bits twice, and a misaligned view
+takes the generic kernel. The kernels have no CPU mode, so these tests
+are marked ``gpu`` and skip without a CUDA device:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_kinds.py
 
@@ -24,6 +28,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import bf16_excess
+from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -156,35 +161,121 @@ def test_flash_dv_mode_matches_plain(dims, dtype, kw):
         assert bf16_excess(out, plain, ROW_RTOL["flash"]) <= 1.0
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
-                         ids=["bf16", "f32"])
+def _mla_layout(Dq, Dv, B, Lc, H, g):
+    """K and V as ``layers._mla_kv`` builds them from a latent cache (k_nope
+    and the shared k_rope concatenated, v a reshaped product), at the
+    model's rank of 256 and rope width of 32."""
+    from types import SimpleNamespace
+    from repro_torch.models import layers as L
+    rope, R = 32 if Dq == 96 else 64, 256
+    cfg = SimpleNamespace(n_heads=H, qk_nope_dim=Dq - rope, qk_rope_dim=rope,
+                          v_head_dim=Dv)
+    p = {"wk_b": _randn((R, H * (Dq - rope)), g) / R ** 0.5,
+         "wv_b": _randn((R, H * Dv), g) / R ** 0.5}
+    return L._mla_kv(p, cfg, _randn((B, Lc, R), g), _randn((B, Lc, rope), g))
+
+
+# K3 Dv cases: (Lc, kv_len, layout); "views": k a 16-byte aligned view of
+# a wider buffer, v contiguous; "edges": the fast path's 16-row tiles and
+# 64-position chunk steps, and the grid's split edges (added at run time);
+# "full": kv_len = Lc = 32,768; "mla": _mla_kv's own k and v
+DV_DECODE_CASES = {
+    "views": (700, [700, 256, 1, 0], "views"),
+    "edges": (4096, [0, 1, 15, 16, 17, 63, 64, 65, 4096], "contiguous"),
+    "full": (32768, [32768, 32768], "contiguous"),
+    "mla": (1100, [1100, 513, 64, 1], "mla"),
+}
+
+
+@pytest.mark.parametrize("case,dtype", [
+    ("views", torch.bfloat16), ("views", torch.float32),
+    ("edges", torch.bfloat16), ("full", torch.bfloat16),
+    ("mla", torch.bfloat16)],
+    ids=["bf16", "f32", "edges-bf16", "full-bf16", "mla-bf16"])
 @pytest.mark.parametrize("dims", sorted(MLA_DIMS))
-def test_decode_dv_mode_matches_plain(dims, dtype):
-    """K3 with v narrower than q/k, each cache with its own strides (k a
-    view of a wider buffer, v contiguous), G = 1 as in MLA and G = 4,
-    kv_len at and off the 256-position splits, one of them 0."""
+def test_decode_dv_mode_matches_plain(dims, dtype, case):
+    """K3 with v narrower than q/k, each cache with its own strides, G = 1
+    as in MLA and G = 4, at the kv lengths of ``DV_DECODE_CASES``. bf16
+    takes the fast one-launch kernel (``last_n_split > 0``), f32 the
+    generic one."""
     Dq, Dv = MLA_DIMS[dims]
-    B, Lc = 4, 700
-    g = torch.Generator(device=DEV).manual_seed(Dq)
-    kv_len = torch.tensor([700, 256, 1, 0], device=DEV)
+    Lc, lens, layout = DV_DECODE_CASES[case]
+    g = torch.Generator(device=DEV).manual_seed(Dq + len(case))
     for H, Hkv in ((8, 8), (8, 2)):
+        B = len(lens) + (3 if case == "edges" else 0)
+        if layout == "mla":
+            k, v = _mla_layout(Dq, Dv, B, Lc, Hkv, g)
+        else:
+            k = _randn((B, Lc, Hkv, Dq + (8 if layout == "views" else 0)),
+                       g, dtype)[..., :Dq]
+            v = _randn((B, Lc, Hkv, Dv), g, dtype)
         q = _randn((B, H, Dq), g, dtype)
-        k = _randn((B, Lc, Hkv, Dq + 8), g, dtype)[..., :Dq]
-        v = _randn((B, Lc, Hkv, Dv), g, dtype)
+        kv_len = lens
+        if case == "edges":     # the grid's split edges: n x 64 and around
+            da_ops.decode_attention(q, k, v, torch.tensor(
+                lens + [1, 2, 3], device=DEV))
+            n = da_kernel.last_n_split.value
+            assert 1 <= n <= Lc // 64
+            kv_len = lens + [n * 64 - 1, n * 64, n * 64 + 1]
+        kv_len = torch.tensor(kv_len, device=DEV)
         before = (da_ops.decode_attention.launches,
                   da_ops.decode_attention.launches_dv)
         out = da_ops.decode_attention(q, k, v, kv_len)
+        fast = da_kernel.last_n_split.value > 0
         plain = da_ref.decode_attention_ref(q, k, v, kv_len)
         torch.cuda.synchronize()
         assert out.shape == (B, H, Dv)
         assert (da_ops.decode_attention.launches,
                 da_ops.decode_attention.launches_dv) == (before[0] + 1,
                                                          before[1] + 1)
-        assert float(out[3].abs().max()) == 0.0          # kv_len 0
+        assert fast == (dtype == torch.bfloat16)
+        for b in range(B):                               # kv_len 0
+            if int(kv_len[b]) == 0:
+                assert float(out[b].abs().max()) == 0.0
         if dtype == torch.float32:
             torch.testing.assert_close(out, plain, atol=ATOL_F32, rtol=0)
         else:
             assert bf16_excess(out, plain, ROW_RTOL["decode"]) <= 1.0
+
+
+@pytest.mark.parametrize("dims", sorted(MLA_DIMS))
+def test_decode_dv_misaligned_view_takes_the_generic_path(dims):
+    """k 4 bytes off a 16-byte boundary: the generic kernel reads it through
+    its strides (``last_n_split == 0``) and agrees."""
+    Dq, Dv = MLA_DIMS[dims]
+    B, H, Lc = 3, 8, 500
+    g = torch.Generator(device=DEV).manual_seed(Dq + 1)
+    q = _randn((B, H, Dq), g)
+    k = _randn((B, Lc, H, Dq + 2), g)[..., 2:]
+    v = _randn((B, Lc, H, Dv), g)
+    kv_len = torch.tensor([500, 3, 260], device=DEV)
+    out = da_ops.decode_attention(q, k, v, kv_len)
+    assert da_kernel.last_n_split.value == 0
+    plain = da_ref.decode_attention_ref(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert bf16_excess(out, plain, ROW_RTOL["decode"]) <= 1.0
+
+
+@pytest.mark.parametrize("dims", sorted(MLA_DIMS))
+def test_decode_dv_back_to_back_calls_are_bit_identical(dims):
+    """The fast Dv kernel merges its splits in split order and leaves its
+    arrival counters at 0: repeated calls give the same bits, interleaved
+    with a call of another shape."""
+    Dq, Dv = MLA_DIMS[dims]
+    B, H, Lc = 4, 8, 8192
+    g = torch.Generator(device=DEV).manual_seed(Dq + 2)
+    q = _randn((B, H, Dq), g)
+    k, v = _randn((B, Lc, H, Dq), g), _randn((B, Lc, H, Dv), g)
+    kv_len = torch.tensor([4096, 4097, 8192, 100], device=DEV)
+    first = da_ops.decode_attention(q, k, v, kv_len)
+    assert da_kernel.last_n_split.value > 1
+    again = da_ops.decode_attention(q, k, v, kv_len)
+    q2, k2, v2 = _randn((2, 4, Dq), g), _randn((2, 1000, 4, Dq), g), \
+        _randn((2, 1000, 4, Dv), g)
+    da_ops.decode_attention(q2, k2, v2, torch.tensor([999, 5], device=DEV))
+    third = da_ops.decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, third)
 
 
 @pytest.mark.parametrize("dims", sorted(MLA_DIMS))
@@ -215,6 +306,7 @@ def test_dv_mode_dropped_tile_fails_the_limit(dims):
                                       kv_len - 256)
     assert bf16_excess(bad, plain, ROW_RTOL["decode"]) > 1.0
     out = da_ops.decode_attention(qd, kc, vc, kv_len)
+    assert da_kernel.last_n_split.value > 0       # the fast kernel
     torch.cuda.synchronize()
     assert bf16_excess(out, plain, ROW_RTOL["decode"]) <= 1.0
 

@@ -230,16 +230,26 @@ def test_plain_flash_attention_dv_matches_reference(shape, kw):
     np.testing.assert_allclose(ta.numpy(), np.asarray(ja), atol=ATT_ATOL)
 
 
-@pytest.mark.parametrize("shape", sorted(DV_SHAPES))
+# K3 cases: (H, Hkv, Dq, Dv), the cache length and the kv lengths; the
+# narrow shapes over ragged lengths (one of them the whole cache), and
+# MLA's full head dims (minicpm3-4b, deepseek-v2-236b) at the fast
+# kernel's tile and chunk edges in a 65-position cache
+DV_DECODE = {**{name: (shape, 19, [19, 1, 9])
+                for name, shape in DV_SHAPES.items()},
+             **{name: (shape, 65, [1, 15, 16, 17, 63, 64, 65])
+                for name, shape in (("minicpm3", (4, 4, 96, 64)),
+                                    ("deepseek-v2", (4, 4, 192, 128)))}}
+
+
+@pytest.mark.parametrize("shape", sorted(DV_DECODE))
 def test_plain_decode_attention_dv_matches_reference(shape):
-    """K3's plain version with Dv != Dq over ragged kv lengths (one of them
-    the whole cache) against the reference model layer's jnp
-    decode_attention."""
-    H, Hkv, Dq, Dv = DV_SHAPES[shape]
-    B, Lc = 3, 19
+    """K3's plain version with Dv != Dq against the reference model layer's
+    jnp decode_attention, at 1e-5."""
+    (H, Hkv, Dq, Dv), Lc, lens = DV_DECODE[shape]
+    B = len(lens)
     q, k, v = _np(B, 1, H, Dq, seed=4), _np(B, Lc, Hkv, Dq, seed=5), \
         _np(B, Lc, Hkv, Dv, seed=6)
-    kvl = np.asarray([19, 1, 9], np.int32)
+    kvl = np.asarray(lens, np.int32)
     ja = JL.decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                              kv_len=jnp.asarray(kvl))
     ta = TL.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
