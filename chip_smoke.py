@@ -22,8 +22,9 @@ Phases (any failure exits non-zero and prints no result line):
               right-aligned queries) in f32 and bf16, bf16 at shapes
               ragged against its 128-row and 128-key tiles, with a kv ring
               that wraps four times and with qwen3's 40/8 heads, and K3
-              with f32, bf16 and int8 caches; both at the main path's
-              shapes too, then timed there (K4's TFLOP/s and share of its
+              with f32, bf16 and int8 caches; both at zamba2's head dim
+              112 (32 heads, MHA; K4 pads it to 128, K3 takes its generic
+              kernel) and at the main path's shapes too, then timed there (K4's TFLOP/s and share of its
               bound logged; both K4 calls, the bf16 prefill and the
               embedder's f32 one, and SDPA beside each also on the device
               through torch.profiler, K3 too: each call must show its
@@ -233,11 +234,43 @@ Phases (any failure exits non-zero and prints no result line):
               re-checked with the other phases', and profiled prefill and
               decode: busy ms, K4's/K3's share, idle share, prefill and
               decode ms and peak memory logged.
+12. ssm_hybrid — the SSM kind and the hybrid, after mla_encdec, once its
+              weights are freed: (a) rwkv6-7b at full size (32 layers, d
+              4,096, 64 heads of 64, d_ff 14,336, vocab 65,536; 7.6B
+              seeded random bf16 params): its shortest prompt through
+              lm.prefill and 4 decode steps with the WKV6 kernel (K5),
+              the logits held against the plain step loop's in f32 (the
+              weights widened) at 1e-3 of the largest and in bf16 at 0.1
+              (above the floor that rounding noise sets), with every
+              bf16 WKV6 call held against the plain loop on its own
+              inputs, and the update applied before y (a planted fault)
+              must exceed each limit; then
+              ModelEngine(n_slots=4) with prompts of 2,048, 1,999, 1,537
+              and 1,024 tokens (K5 over each prompt, zero state) and 16
+              decode steps (K5 at B 4, L 1, the carried state); (b)
+              zamba2-7b at full size (81 Mamba2 layers, d 3,584, d_inner
+              7,168, 112 SSM heads of 64, state 64, conv 4, chunk 128, the
+              shared block of 32 heads x 112 after every 6th layer, 13
+              invocations, LoRA rank 64; 6.7B params) through
+              ModelEngine(n_slots=4, max_len=8192): the first prompt's
+              prefill and 4 decode steps held against the plain attention
+              layers the same way, in bf16 at ZOO_RTOL, each head's last
+              16 of 112 output columns dropped in prefill and decode the
+              fault; four 4,096-token prompts (K4 at Dh 112), then 16
+              decode steps (K3 at Dh 112); (c) the WKV6 and K3/K4
+              counters zeroed and read around the engine runs, every
+              distinct WKV6 call held against the plain loop at its own
+              arguments (the K3/K4 calls go to the re-checks with the other
+              phases'), a profiled prefill and two decode steps of each
+              model (busy ms, WKV6's/K4's/K3's share, idle share), prefill
+              and decode ms and peak memory logged; WKV6 timed at rwkv6's
+              prefill and K4/K3 at zamba2's head dim 112.
 
 The line before the last is a JSON object with one entry per kernel (K1's
 shard-local mode, K3's int8 mode and K4's f32 mode, the embedder's call,
 and both attention kernels' Dv mode, MLA's, their own entries, with
-their own bounds; every entry also carries ``device_ms``, the profiler's
+their own bounds; the WKV6 recurrence ``wkv6``, which no library call
+computes; every entry also carries ``device_ms``, the profiler's
 device time, and each entry with a library call ``library_device_ms``,
 that call's); the line
 before it is the card's name and power limit; the last line is the device
@@ -254,7 +287,9 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import nullcontext
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 DEV = "cuda"
@@ -818,6 +853,24 @@ def phase_attention_kernels(torch, seed: int) -> Agreement:
     compare_decode(torch, agree, DV_DECODE_SHAPE, Lc,
                    [n_kv, n_kv + 1, n_kv + 7, 1], torch.bfloat16, False,
                    seed + 73)
+    # zamba2's shared block: 32 heads of 112 (MHA), K4 padding q, k and v
+    # to 128, K3 on its generic kernel; ragged against the tiles, then at
+    # its prefill and decode shapes
+    for dtype in (torch.bfloat16, torch.float32):
+        for j, kw in enumerate((dict(causal=True),
+                                dict(causal=True, q_offset=0,
+                                     kv_valid_len=[300, 97]))):
+            compare_flash(torch, agree, dict(B=2, Lq=300, Lkv=300, H=32,
+                                             Hkv=32, Dh=112), dtype,
+                          seed + 80 + j, **kw)
+        compare_decode(torch, agree, dict(ZAMBA_DECODE_SHAPE), 700,
+                       [700, 256, 1, 0], dtype, False, seed + 82)
+    compare_flash(torch, agree, ZAMBA_PREFILL_SHAPE, torch.bfloat16,
+                  seed + 83, causal=True)
+    Lc, n_kv = ZAMBA_DECODE_TIMED
+    compare_decode(torch, agree, ZAMBA_DECODE_SHAPE, Lc,
+                   [n_kv, n_kv + 1, n_kv + 7, 1], torch.bfloat16, False,
+                   seed + 84)
     log_agreement("attention kernel-vs-plain comparisons", agree)
     return agree
 
@@ -1146,12 +1199,13 @@ def decode_device_ms(torch, call, name: str) -> dict:
             "device_kernels": {n.split("(")[0]: t for n, t in split.items()}}
 
 
-class AttnRecorder:
-    """Stands in for an attention ops module inside ``models.layers`` while
-    the main path runs: notes the arguments that decide each K3/K4 call's
-    work (shapes, dtypes, masks; K3's kv_len is kept on the card and read
-    after the stream) and passes the call on to the real wrapper, which
-    does its own launch counting."""
+class OpsRecorder:
+    """Stands in for a kernel's ops module (K4's or K3's inside
+    ``models.layers``, WKV6's inside ``models.ssm``) while the main path
+    runs: notes the arguments that decide each call's work (shapes,
+    dtypes, masks; K3's kv_len and the largest |state| WKV6 was given are
+    kept on the card and read after the stream) and passes the call on to
+    the real wrapper, which does its own launch counting."""
 
     def __init__(self, ops):
         self._ops = ops
@@ -1185,7 +1239,14 @@ class AttnRecorder:
         self.n_split.append(kernel.last_n_split.value)
         return out
 
+    def wkv6(self, r, k, v, w, u, state):
+        self.calls.append(("wkv6", tuple(r.shape), _dtype_name(r.dtype),
+                           state.abs().amax()))
+        return self._ops.wkv6(r, k, v, w, u, state)
+
     def distinct(self) -> set:
+        """The distinct calls; a WKV6 call as (name, shape, dtype, whether
+        its state was carried, i.e. not all 0)."""
         out = set()
         for c in self.calls:
             if c[0] == "flash_attention":
@@ -1193,6 +1254,9 @@ class AttnRecorder:
                 out.add(("flash_attention", tuple(shape.items()), dt,
                          tuple(kw.items()),
                          None if kvl is None else tuple(kvl.tolist())))
+            elif c[0] == "wkv6":
+                _, shape, dt, st = c
+                out.add(("wkv6", shape, dt, float(st) > 0))
             else:
                 _, shape, Lc, dt, int8, kvl = c
                 out.add(("decode_attention", tuple(shape.items()), Lc, dt,
@@ -1644,35 +1708,50 @@ ENGINE_RTOL = 0.05   # largest |kernel - plain| logit over the largest
 class swap_attention:
     """Within the block, ``models.layers`` runs its plain attention on CUDA
     tensors too (the reference the kernels are held against), or the given
-    prefill attention in place of K4 (a planted fault)."""
+    prefill (``flash``) or decode attention (``decode``) in place of K4 or
+    K3 (a planted fault). Given ``S`` (``models.ssm``), its WKV6 recurrence
+    likewise runs the plain step loop, or ``wkv`` (in
+    ``kernels.wkv6.ops.wkv6``'s signature), in place of the kernel."""
 
-    def __init__(self, L, flash=None):
-        self.L = L
+    def __init__(self, L, flash=None, decode=None, S=None, wkv=None):
+        from repro_torch.kernels.wkv6.ref import wkv6_ref
+        self.L, self.S = L, S
         self.fns = (flash or L.flash_attention_plain,
-                    L.decode_attention_plain)
+                    decode or L.decode_attention_plain)
+        self.wkv_ops = SimpleNamespace(wkv6=wkv or wkv6_ref)
 
     def __enter__(self):
         L = self.L
         self.saved = (L.flash_attention, L.decode_attention)
         L.flash_attention, L.decode_attention = self.fns
+        if self.S is not None:
+            self.saved_wkv, self.S.wkv6_ops = self.S.wkv6_ops, self.wkv_ops
 
     def __exit__(self, *exc):
         self.L.flash_attention, self.L.decode_attention = self.saved
+        if self.S is not None:
+            self.S.wkv6_ops = self.saved_wkv
 
 
 class recorded_ops:
-    """Within the block, ``models.layers`` reaches the kernels through the
-    AttnRecorders, which note each call and pass it on."""
+    """Within the block, ``models.layers`` reaches K4 and K3 through the
+    first two OpsRecorders of ``recorders`` and, given ``S``
+    (``models.ssm``), WKV6 through the third; each notes each call and
+    passes it on."""
 
-    def __init__(self, L, att_recorders):
-        self.L, self.rec = L, att_recorders
+    def __init__(self, L, recorders, S=None):
+        self.L, self.rec, self.S = L, recorders, S
 
     def __enter__(self):
         self.saved = (self.L.fa_ops, self.L.da_ops)
-        self.L.fa_ops, self.L.da_ops = self.rec
+        self.L.fa_ops, self.L.da_ops = self.rec[:2]
+        if self.S is not None:
+            self.saved_wkv, self.S.wkv6_ops = self.S.wkv6_ops, self.rec[2]
 
     def __exit__(self, *exc):
         self.L.fa_ops, self.L.da_ops = self.saved
+        if self.S is not None:
+            self.S.wkv6_ops = self.saved_wkv
 
 
 def trace_decode(torch, eng, toks, steps: int = 2) -> dict:
@@ -1769,7 +1848,7 @@ def phase_engine_long(torch, np, models, att_recorders, seed: int,
     """Four 4,096-token prompts prefilled into a 4-slot engine (K4 on every
     layer), then 16 batched decode steps (K3 on every layer). The launch
     counters are zeroed before the prefills and before the decode steps and
-    read after each, and the AttnRecorders note every K3/K4 call of those
+    read after each, and the OpsRecorders note every K3/K4 call of those
     windows; the comparisons with the plain layers run outside them. The
     first prefill's last-position logits and the first decode step's
     logits are held against the plain layers at ENGINE_RTOL; with the bf16
@@ -2986,7 +3065,7 @@ def replicas_child(torch, np, spec_path: str) -> None:
     spec = json.loads(Path(spec_path).read_text())
     out = Path(spec["out"])
     recorder = CallRecorder(ops)
-    att = (AttnRecorder(fa_ops), AttnRecorder(da_ops))
+    att = (OpsRecorder(fa_ops), OpsRecorder(da_ops))
     SC.ctk_ops = recorder
     zero_topk_launches()
     zero_attention_launches()
@@ -5185,6 +5264,659 @@ def phase_mla_encdec(torch, np, att_recorders, seed: int) -> dict:
     return {**out, "launches": launches, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the SSM kind and the hybrid
+# ---------------------------------------------------------------------------
+
+RWKV_PROMPTS = (2048, 1999, 1537, 1024)
+RWKV_SLOTS, RWKV_MAX, RWKV_STEPS = 4, 4096, 16
+SSM_PLAIN_STEPS = 4     # the held runs: one prompt (rwkv6's shortest, the
+                        # plain recurrence being a Python loop of L steps a
+                        # layer) and 4 decode steps
+ZAMBA_SLOTS, ZAMBA_MAX, ZAMBA_PROMPT, ZAMBA_STEPS = 4, 8192, 4096, 16
+SSM_F32_RTOL = 1e-3  # the held runs' logits, in f32 (the bf16 weights
+                     # widened): the largest |kernel - plain| over the
+                     # largest |plain| logit
+SSM_BF16_RTOL = {"rwkv6": 0.1, "zamba2": ZOO_RTOL}
+                     # the same in bf16, each bf16 kernel call also held
+                     # against its plain version on its own inputs. In
+                     # rwkv6's 32 layers one f32 ulp of noise in each WKV6
+                     # output moves the logits by 0.0554-0.0667 of the
+                     # largest (``ssm_held``'s floor run on an H100), past
+                     # ZOO_RTOL: its limit sits above that floor and below
+                     # its planted fault
+BF16_FLOOR_NOISE = {"wkv6": 2.0 ** -23, "attention": 2.0 ** -9}
+                    # the floor run's relative noise on the plain outputs:
+                    # an f32 ulp on WKV6's f32 y, a quarter of a bf16 ulp on
+                    # the attention's bf16 output before it is rounded
+WKV6_RTOL = 1e-5    # of the largest |y| or |state|: the kernel's f32 FMAs
+                    # against the plain loop's products and sums, a few
+                    # ulps that the decay keeps from growing
+WKV6_TIMED = dict(B=1, L=2048, H=64, K=64)      # rwkv6-7b's prefill
+# zamba2-7b's shared attention block: 32 heads of 112 (MHA); its prefill of
+# a 4,096-token prompt and its engine's decode (4 slots, Lc 8,192, kv_len
+# 4,096)
+ZAMBA_PREFILL_SHAPE = dict(B=1, Lq=4096, Lkv=4096, H=32, Hkv=32, Dh=112)
+ZAMBA_DECODE_SHAPE = dict(B=4, H=32, Hkv=32, Dh=112)
+ZAMBA_DECODE_TIMED = (8192, 4096)
+
+
+class held_calls:
+    """Within the block, every WKV6, K4 and K3 call of the model runs the
+    kernel and, on the same inputs, its plain version (``flash_plain`` for
+    prefill attention; K3's ``ref.decode_attention_ref``, whose P stays f32
+    as the kernel's does); the kernel's output goes on. WKV6 is held at
+    WKV6_RTOL of the largest |y| and |state|, K3/K4 by ``agree`` (the bf16
+    limits). ``n`` counts the calls held, ``wkv6_err`` WKV6's largest
+    |kernel - plain|."""
+
+    def __init__(self, torch, L, S, agree, flash_plain):
+        self.torch, self.L, self.S = torch, L, S
+        self.agree, self.flash_plain = agree, flash_plain
+        self.n, self.wkv6_err = 0, 0.0
+
+    def __enter__(self):
+        from repro_torch.kernels.wkv6.ref import wkv6_ref
+        torch, L, S = self.torch, self.L, self.S
+        self.saved = (L.flash_attention, L.decode_attention, S.wkv6_ops)
+        flash, decode, wkv_ops = self.saved
+
+        def held_flash(q, k, v, **kw):
+            out = flash(q, k, v, **kw)
+            self.agree.hold(torch, "flash_attention", out,
+                            self.flash_plain(q, k, v, **kw),
+                            f"[ssm] K4 call {tuple(q.shape)} {kw}")
+            self.n += 1
+            return out
+
+        def held_decode(q, k_cache, v_cache, *, kv_len, **kw):
+            from repro_torch.kernels.decode_attention import ref
+            out = decode(q, k_cache, v_cache, kv_len=kv_len, **kw)
+            plain = ref.decode_attention_ref(q[:, 0], k_cache, v_cache,
+                                             kv_len)     # K3's own form
+            self.agree.hold(torch, "decode_attention", out,
+                            plain[:, None], f"[ssm] K3 call "
+                            f"{tuple(q.shape)} Lc {k_cache.shape[1]}")
+            self.n += 1
+            return out
+
+        def held_wkv(r, k, v, w, u, state):
+            y, s = wkv_ops.wkv6(r, k, v, w, u, state)
+            plain = wkv6_ref(r, k, v, w, u, state)
+            for out, ref, what in zip((y, s), plain, ("y", "state")):
+                e = float((out - ref).abs().max())
+                lim = WKV6_RTOL * float(ref.abs().max())
+                check(e <= lim, f"[ssm] WKV6 call {tuple(r.shape)}: {what} "
+                                f"max abs err {e:.4g} over {lim:.4g}")
+                self.wkv6_err = max(self.wkv6_err, e)
+            self.n += 1
+            return y, s
+        L.flash_attention, L.decode_attention = held_flash, held_decode
+        S.wkv6_ops = SimpleNamespace(wkv6=held_wkv)
+        return self
+
+    def __exit__(self, *exc):
+        (self.L.flash_attention, self.L.decode_attention,
+         self.S.wkv6_ops) = self.saved
+
+
+def noisy(torch, fn, rel: float):
+    """``fn`` with its (first) output times 1 + rel N(0, 1), seeded by the
+    call's order: a run at the floor that rounding noise of that size
+    sets."""
+    calls = [0]
+
+    def out_fn(*a, **kw):
+        out = fn(*a, **kw)
+        y = out[0] if isinstance(out, tuple) else out
+        calls[0] += 1
+        eps = torch.randn(y.shape, generator=gen(torch, calls[0]),
+                          device=y.device)
+        z = (y.float() * (1 + rel * eps)).to(y.dtype)
+        return (z, *out[1:]) if isinstance(out, tuple) else z
+    return out_fn
+
+
+def f32_copy(tree):
+    """The params tree with every tensor widened to f32 (a new copy)."""
+    if isinstance(tree, dict):
+        return {k: f32_copy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [f32_copy(v) for v in tree]
+    return tree.float()
+
+
+def ssm_held(torch, L, S, lm, cfg, params, prompt, step_toks, swaps: dict,
+             agree, tag: str) -> dict:
+    """The held runs: ``prompt`` (1, Lp) through lm.prefill and the decode
+    steps of ``step_toks``, every logit of the kernel run against the plain
+    run (``swaps["plain"]``, ``swap_attention``'s arguments). (1) In f32,
+    the bf16 weights widened: within SSM_F32_RTOL of the largest, and the
+    planted fault (``swaps["fault"]``) past it. (2) In bf16, every kernel
+    call held against its plain version on its own inputs
+    (``held_calls``): within SSM_BF16_RTOL[tag] of the largest, and the
+    planted fault past it; the floor run (``swaps["floor"]``: the plain
+    outputs with noise of rounding size) against the plain run is logged
+    beside them."""
+    def run(p, c, swap=None):
+        """The kernels, or ``swap_attention(**swap)``'s functions."""
+        with torch.inference_mode(), (
+                nullcontext() if swap is None
+                else swap_attention(L, S=S, **swap)):
+            cache = lm.init_cache(c, 1, prompt.shape[1] + len(step_toks),
+                                  device=DEV)
+            out, cache = lm.prefill(p, c, {"tokens": prompt}, cache)
+            outs = [out]
+            for i, tok in enumerate(step_toks):
+                d, cache = lm.decode_step(p, c, tok, cache,
+                                          prompt.shape[1] + i)
+                outs.append(d)
+            return outs
+
+    def rels(c, a, b):
+        return [zoo_rel(torch, c, x, y) for x, y in zip(a, b)]
+    rec: dict = {}
+    t0 = time.perf_counter()
+    c32, p32 = cfg.replace(dtype="float32"), f32_copy(params)
+    k32, pl32 = run(p32, c32), run(p32, c32, swaps["plain"])
+    fl32 = run(p32, c32, swaps["fault"])
+    del p32
+    torch.cuda.empty_cache()
+    rec["f32_rel_diff"] = r32 = rels(c32, k32, pl32)
+    rec["f32_rel_diff_planted_fault"] = f32 = rels(c32, fl32, pl32)
+    del k32, pl32, fl32
+    check(max(r32) <= SSM_F32_RTOL,
+          f"[ssm] {tag} f32: kernel vs plain logits differ by "
+          f"{[round(x, 7) for x in r32]} of the largest (prefill, then "
+          f"{len(step_toks)} steps), over {SSM_F32_RTOL}")
+    check(max(f32) > SSM_F32_RTOL,
+          f"[ssm] {tag} f32: the planted fault moves the logits by "
+          f"{[round(x, 7) for x in f32]} of the largest, within "
+          f"{SSM_F32_RTOL}")
+    t1 = time.perf_counter()
+    with held_calls(torch, L, S, agree, swaps["plain"].get(
+            "flash", L.flash_attention_plain)) as held:
+        kb = run(params, cfg)
+    pb = run(params, cfg, swaps["plain"])
+    nb, fb = (run(params, cfg, swaps[x]) for x in ("floor", "fault"))
+    rec["bf16_rel_diff"] = rb = rels(cfg, kb, pb)
+    rec["bf16_floor_rel_diff"] = nf = rels(cfg, nb, pb)
+    rec["bf16_rel_diff_planted_fault"] = fbr = rels(cfg, fb, pb)
+    rec.update(bf16_calls_held=held.n, wkv6_err=held.wkv6_err,
+               held_s=time.perf_counter() - t0)
+    lim = SSM_BF16_RTOL[tag]
+    log(f"[ssm] {tag} held runs ({prompt.shape[1]}-token prompt, "
+        f"{len(step_toks)} decode steps; prefill, then each step): f32 "
+        f"kernel vs plain logits {', '.join(f'{x:.3g}' for x in r32)} of "
+        f"the largest (limit {SSM_F32_RTOL}), planted fault "
+        f"{', '.join(f'{x:.4g}' for x in f32)}; bf16: {held.n} kernel calls "
+        f"each held against its plain version on its own inputs, kernel vs "
+        f"plain logits {', '.join(f'{x:.4g}' for x in rb)} (limit {lim}), "
+        f"planted fault {', '.join(f'{x:.4g}' for x in fbr)}, the floor run "
+        f"(plain outputs with noise of rounding size) against plain "
+        f"{', '.join(f'{x:.4g}' for x in nf)}; f32 runs {t1 - t0:.1f} s, "
+        f"bf16 runs {time.perf_counter() - t1:.1f} s")
+    check(max(rb) <= lim,
+          f"[ssm] {tag} bf16: kernel vs plain logits differ by "
+          f"{[round(x, 5) for x in rb]} of the largest, over {lim}")
+    check(max(fbr) > lim,
+          f"[ssm] {tag} bf16: the planted fault moves the logits by "
+          f"{[round(x, 5) for x in fbr]} of the largest, within {lim}")
+    return rec
+
+
+def wkv6_update_first(torch):
+    """The planted fault: the plain recurrence with each step's update
+    applied before its y (y_t read from S_t, not S_{t-1}), in
+    ``kernels.wkv6.ops.wkv6``'s signature."""
+    def fault(r, k, v, w, u, state):
+        S = state.float()
+        uf = u.float()[None, :, :, None]
+        ys = []
+        for t in range(r.shape[1]):
+            rt, kt, vt, wt = (x[:, t].float() for x in (r, k, v, w))
+            kv = kt[..., :, None] * vt[..., None, :]
+            S = wt[..., None] * S + kv
+            ys.append(torch.einsum("bhk,bhkv->bhv", rt, S + uf * kv))
+        return torch.stack(ys, dim=1), S
+    return fault
+
+
+def wkv6_inputs(torch, B, L, H, K, dtype, carried: bool, seed: int):
+    """r, k, v (B, L, H, K) in ``dtype``; w from the reference's decay
+    formula over its clipped exponent's middle band [-3, 1]; u (H, K) in
+    ``dtype``; a random (carried) or zero state (B, H, K, K) f32."""
+    g = gen(torch, seed)
+    r, k, v = (torch.randn((B, L, H, K), generator=g, device=DEV).to(dtype)
+               for _ in range(3))
+    w_raw = -3.0 + 4.0 * torch.rand((B, L, H, K), generator=g, device=DEV)
+    w = torch.exp(-torch.exp(w_raw))
+    u = torch.randn((H, K), generator=g, device=DEV).to(dtype)
+    s = torch.randn((B, H, K, K), generator=g, device=DEV)
+    return r, k, v, w, u, s if carried else torch.zeros_like(s)
+
+
+def compare_wkv6(torch, shape, dt: str, carried: bool, seed: int) -> float:
+    """The WKV6 kernel against its plain loop at a call's own arguments:
+    y and the final state within WKV6_RTOL of their largest |value|.
+    Returns the largest |kernel - plain|."""
+    from repro_torch.kernels.wkv6 import ops, ref
+    B, L, H, K = shape
+    args = wkv6_inputs(torch, B, L, H, K, getattr(torch, dt), carried, seed)
+    y, S = ops.wkv6(*args)
+    py, pS = ref.wkv6_ref(*args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for out, plain, what in ((y, py, "y"), (S, pS, "state")):
+        check(bool(torch.isfinite(out).all()),
+              f"[ssm] wkv6 {shape} {dt}: non-finite {what}")
+        e = float((out - plain).abs().max())
+        lim = WKV6_RTOL * float(plain.abs().max())
+        check(e <= lim, f"[ssm] wkv6 {shape} {dt} carried={carried}: {what} "
+                        f"max abs err {e:.4g} over {lim:.4g} ({WKV6_RTOL} "
+                        f"of the largest)")
+        err = max(err, e)
+    return err
+
+
+def ssm_trace(torch, fn, n: int) -> dict:
+    """``fn`` (``n`` repeats of the work) under torch.profiler: per repeat,
+    the device's busy ms, WKV6's (``wkv6_fwd``), K4's (``flash_bf16``) and
+    K3's (``da::decode``) ms and shares, the largest kernels. Empty where
+    the profiler recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    tr = device_summary(prof, n)
+    if not tr:
+        return {}
+    by_name = tr.pop("by_name_ms")
+    out = {"busy_ms": tr["busy_ms"], "device_events": tr["device_events"],
+           "top_kernels_ms": tr["top_kernels_ms"]}
+    for key, tag in (("wkv6", "wkv6_fwd"), ("k4", "flash_bf16"),
+                     ("k3", "da::decode")):
+        out[f"{key}_ms"] = ms = sum(t for k, t in by_name.items()
+                                    if tag in k)
+        out[f"{key}_share"] = ms / out["busy_ms"]
+    return out
+
+
+def log_ssm_trace(what: str, tr: dict, step_ms=None) -> None:
+    if not tr:
+        log(f"[ssm] {what}: the profiler recorded no device activity; the "
+            f"split is not measured")
+        return
+    if step_ms:
+        tr["idle_share"] = 1 - tr["busy_ms"] / step_ms
+    log(f"[ssm] {what}: device busy {tr['busy_ms']:.3f} ms "
+        f"({tr['device_events']} device events)"
+        + "".join(f", {name} {tr[f'{key}_ms']:.3f} ms "
+                  f"({tr[f'{key}_share']:.3f})"
+                  for key, name in (("wkv6", "WKV6"), ("k4", "K4"),
+                                    ("k3", "K3")) if tr[f"{key}_ms"])
+        + ("" if not step_ms else
+           f"; idle share {tr['idle_share']:.3f} of the unprofiled median "
+           f"({step_ms:.2f} ms)")
+        + "; most device time: "
+        + "; ".join(f"{n} {t:.3f} ms" for n, t in tr["top_kernels_ms"]))
+
+
+def ssm_init(torch, lm, arch: str, seed: int):
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    t = time.perf_counter()
+    params = lm.init_params(gen(torch, seed), cfg, device=DEV)
+    torch.cuda.synchronize()
+    f32 = sum(x.numel() * 4 for bp in params["blocks"] for x in bp.values()
+              if isinstance(x, torch.Tensor) and x.dtype == torch.float32)
+    log(f"[ssm] {arch} layers={cfg.n_layers} d={cfg.d_model} "
+        f"{cfg.ssm_kind} heads={cfg.ssm_heads}x{cfg.ssm_head_dim}"
+        + (f" state={cfg.ssm_state} d_inner={cfg.d_inner} conv="
+           f"{cfg.conv_kernel} chunk={cfg.chunk_size}, shared block "
+           f"{cfg.n_heads}x{cfg.head_dim} every {cfg.attn_every} layers, "
+           f"LoRA rank {cfg.shared_lora_rank}" if cfg.attn_every else "")
+        + f" d_ff={cfg.d_ff} vocab={cfg.vocab_size} bf16: "
+        f"{lm.n_params(params) / 1e9:.2f}B params "
+        f"({(lm.n_params(params) * 2 + f32 // 2) / 1e9:.1f} GB; "
+        f"{f32 / 1e6:.1f} MB of it f32), init "
+        f"{time.perf_counter() - t:.1f} s")
+    return cfg, params
+
+
+def ssm_prefill_all(torch, np, eng, prompts) -> tuple[list, object]:
+    """Prefill every prompt into its slot: host ms of each, synchronised,
+    and the first tokens."""
+    prefill_ms, toks = [], []
+    for s, p in enumerate(prompts):
+        t0 = time.perf_counter()
+        toks.append(eng.prefill_into(s, p))
+        torch.cuda.synchronize()
+        prefill_ms.append(1e3 * (time.perf_counter() - t0))
+    return prefill_ms, np.asarray(toks, np.int64)
+
+
+def ssm_decode_steps(torch, eng, toks, steps: int, tag: str):
+    """``steps`` batched decode steps: host ms of each, synchronised, and
+    the last tokens."""
+    decode_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        toks = eng.decode_active(toks)
+        torch.cuda.synchronize()
+        decode_ms.append(1e3 * (time.perf_counter() - t0))
+    check(all(0 <= t < eng.cfg.vocab_size for t in toks),
+          f"[ssm] {tag}: bad tokens {toks}")
+    return decode_ms, toks
+
+
+def ssm_rwkv6(torch, np, L, lm, S, recorders, agree, seed: int) -> dict:
+    """rwkv6-7b at full size. (1) ``ssm_held`` over its shortest prompt and
+    SSM_PLAIN_STEPS decode steps: the WKV6 kernel against the plain step
+    loop, the planted fault each step's update before its y;
+    (2) ModelEngine(n_slots=4): four prompts of RWKV_PROMPTS tokens, then
+    RWKV_STEPS decode steps, every WKV6 call noted by the third
+    OpsRecorder of ``recorders``; (3) a profiled prefill and two decode
+    steps."""
+    from repro_torch.serving.engine import ModelEngine
+    cfg, params = ssm_init(torch, lm, "rwkv6-7b", seed + 40)
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 41)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in RWKV_PROMPTS]
+    short = torch.tensor(min(prompts, key=len), device=DEV)[None]
+    step_toks = torch.tensor(rng.integers(0, cfg.vocab_size,
+                                          (SSM_PLAIN_STEPS, 1, 1)),
+                             device=DEV)
+    from repro_torch.kernels.wkv6 import ops as wkv6_ops
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    rec = ssm_held(torch, L, S, lm, cfg, params, short, step_toks, {
+        "plain": {}, "fault": {"wkv": wkv6_update_first(torch)},
+        "floor": {"wkv": noisy(torch, wkv6_ref, BF16_FLOOR_NOISE["wkv6"])}},
+        agree, "rwkv6")
+    eng = ModelEngine(params, cfg, n_slots=RWKV_SLOTS, max_len=RWKV_MAX,
+                      device=DEV)
+    torch.cuda.synchronize()
+    wkv6_ops.wkv6.launches = 0
+    with recorded_ops(L, recorders, S):
+        prefill_ms, toks = ssm_prefill_all(torch, np, eng, prompts)
+        decode_ms, toks = ssm_decode_steps(torch, eng, toks, RWKV_STEPS,
+                                           "rwkv6")
+    rec["launches"] = n = wkv6_ops.wkv6.launches
+    run = {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
+           "decode_ms_median": statistics.median(decode_ms)}
+    rec.update(run)
+    want = (len(prompts) + RWKV_STEPS) * cfg.n_layers
+    check(n == want, f"[ssm] rwkv6: {n} WKV6 launches, expected {want}")
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"[ssm] rwkv6 engine: prompts {list(RWKV_PROMPTS)}, prefill "
+        f"{', '.join(f'{t:.1f}' for t in run['prefill_ms'])} ms, "
+        f"{RWKV_STEPS} decode steps {run['decode_ms_median']:.2f} ms per "
+        f"step (median); WKV6 launches {n}; peak memory "
+        f"{rec['max_memory_allocated'] / 2**30:.1f} GiB")
+
+    def two_steps():
+        nonlocal toks
+        for _ in range(2):
+            toks = eng.decode_active(toks)
+    rec["decode_trace"] = tr = ssm_trace(torch, two_steps, 2)
+    log_ssm_trace("rwkv6, profiled decode (per step of 2)", tr,
+                  run["decode_ms_median"])
+    rec["prefill_trace"] = tr = ssm_trace(
+        torch, lambda: eng.prefill_into(0, prompts[0]), 1)
+    log_ssm_trace(f"rwkv6, profiled prefill of {RWKV_PROMPTS[0]} tokens", tr,
+                  run["prefill_ms"][0])
+    del eng, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ssm_zamba2(torch, np, L, lm, S, recorders, agree, seed: int) -> dict:
+    """zamba2-7b at full size. (1) ``ssm_held`` over its first prompt and
+    SSM_PLAIN_STEPS decode steps: K4 and K3 at Dh 112 against the plain
+    attention (prefill over PLAIN_ROWS query rows at a time), the planted
+    fault each head's last 16 of 112 output columns dropped in prefill and
+    decode; (2)
+    ModelEngine(n_slots=4, max_len=8192): four 4,096-token prompts (K4 at
+    Dh 112 in 13 invocations each), then 16 decode steps (K3 at Dh 112),
+    every K3/K4 call noted by the first two OpsRecorders of
+    ``recorders``; (3) a profiled prefill and two decode steps."""
+    from repro_torch.serving.engine import ModelEngine
+    cfg, params = ssm_init(torch, lm, "zamba2-7b", seed + 50)
+    n_inv = cfg.n_layers // cfg.attn_every
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed + 51)
+    prompts = [rng.integers(0, cfg.vocab_size, ZAMBA_PROMPT)
+               for _ in range(ZAMBA_SLOTS)]
+    step_toks = torch.tensor(rng.integers(0, cfg.vocab_size,
+                                          (SSM_PLAIN_STEPS, 1, 1)),
+                             device=DEV)
+    plain_flash = plain_rows(torch, L)
+
+    def columns_dropped(fn):
+        def out_fn(*a, **kw):
+            out = fn(*a, **kw)
+            out[..., -16:] = 0
+            return out
+        return out_fn
+    floor = BF16_FLOOR_NOISE["attention"]
+    rec = ssm_held(
+        torch, L, S, lm, cfg, params,
+        torch.tensor(prompts[0], device=DEV)[None], step_toks, {
+            "plain": {"flash": plain_flash},
+            "fault": {"flash": columns_dropped(plain_flash),
+                      "decode": columns_dropped(L.decode_attention_plain)},
+            "floor": {"flash": noisy(torch, plain_flash, floor),
+                      "decode": noisy(torch, L.decode_attention_plain,
+                                      floor)}},
+        agree, "zamba2")
+    torch.cuda.empty_cache()
+    eng = ModelEngine(params, cfg, n_slots=ZAMBA_SLOTS, max_len=ZAMBA_MAX,
+                      device=DEV)
+    check(tuple(eng.cache["ak"].shape) == (n_inv, ZAMBA_SLOTS, ZAMBA_MAX,
+                                           cfg.n_heads, cfg.head_dim),
+          f"[ssm] zamba2 ak cache {tuple(eng.cache['ak'].shape)}")
+    torch.cuda.synchronize()
+    zero_attention_launches()
+    with recorded_ops(L, recorders):
+        prefill_ms, toks = ssm_prefill_all(torch, np, eng, prompts)
+    launches = attention_launches()
+    torch.cuda.synchronize()
+    zero_attention_launches()
+    with recorded_ops(L, recorders):
+        decode_ms, toks = ssm_decode_steps(torch, eng, toks, ZAMBA_STEPS,
+                                           "zamba2")
+    for k, v in attention_launches().items():
+        launches[k] += v
+    run = {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
+           "decode_ms_median": statistics.median(decode_ms)}
+    rec.update(run, launches=launches,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    want_k4, want_k3 = ZAMBA_SLOTS * n_inv, ZAMBA_STEPS * n_inv
+    check(launches["flash_attention"] == want_k4
+          and launches["decode_attention"] == want_k3,
+          f"[ssm] zamba2: launches {launches}, expected {want_k4} K4 and "
+          f"{want_k3} K3")
+    log(f"[ssm] zamba2 engine: {ZAMBA_SLOTS} prompts of {ZAMBA_PROMPT} "
+        f"tokens, prefill "
+        f"{', '.join(f'{t:.1f}' for t in run['prefill_ms'])} ms, "
+        f"{ZAMBA_STEPS} decode steps {run['decode_ms_median']:.2f} ms per "
+        f"step (median); launches {launches}; peak memory "
+        f"{rec['max_memory_allocated'] / 2**30:.1f} GiB")
+
+    def two_steps():
+        nonlocal toks
+        for _ in range(2):
+            toks = eng.decode_active(toks)
+    rec["decode_trace"] = tr = ssm_trace(torch, two_steps, 2)
+    log_ssm_trace("zamba2, profiled decode (per step of 2)", tr,
+                  run["decode_ms_median"])
+    rec["prefill_trace"] = tr = ssm_trace(
+        torch, lambda: eng.prefill_into(0, prompts[0]), 1)
+    log_ssm_trace(f"zamba2, profiled prefill of {ZAMBA_PROMPT} tokens", tr,
+                  run["prefill_ms"][0])
+    del eng, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def wkv6_timing(torch, seed: int) -> dict:
+    """The WKV6 kernel at rwkv6-7b's prefill (WKV6_TIMED, bf16 r/k/v, a
+    zero state): kernel (CUDA events and torch.profiler), its plain step
+    loop, and the bound: the fp32 flops the function needs a (token,
+    head), 5 K V + 3 K + 2 V (y_v = sum_k r_k S_kv + v_v sum_k r_k u_k
+    k_k: one FMA an entry and O(K) for the bonus; the update w_k S_kv +
+    k_k v_v: a product and an FMA an entry), against r, k, v (bf16), w and
+    y (f32) and the state in and out (f32) moved once. No single PyTorch
+    call computes this function: library_ms is None."""
+    from repro_torch.kernels.wkv6 import ops, ref
+    B, L, H, K = (WKV6_TIMED[x] for x in "BLHK")
+    args = wkv6_inputs(torch, B, L, H, K, torch.bfloat16, False, seed + 36)
+    flops = B * L * H * (5.0 * K * K + 3 * K + 2 * K)
+    nbytes = (3 * 2 + 4 + 4) * B * L * H * K + 2 * H * K \
+        + 2 * 4 * B * H * K * K
+    b_ms, b_by = att_bound(nbytes, flops, H100_FP32_FLOPS)
+    call = lambda: ops.wkv6(*args)
+    rec = {"shape": WKV6_TIMED, "dtype": "bfloat16",
+           "ms": cuda_ms(torch, call),
+           "plain_ms": cuda_ms(torch, lambda: ref.wkv6_ref(*args), iters=3,
+                               warmup=1),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    sys.path.insert(0, str(ROOT))
+    from tools.trace_kernels import device_kernel_ms
+    own, _ = device_kernel_ms(torch, call, iters=10)
+    kern = {n: t for n, t in own.items() if "wkv6_fwd" in n}
+    check(not own or len(kern) == 1,
+          f"[timing] wkv6: one call launches {list(own)}")
+    rec["device_ms"] = sum(kern.values()) if kern else None
+    rec["device_kernels"] = {n.split("(")[0][:60]: t for n, t in own.items()}
+    log(f"[timing] wkv6 {WKV6_TIMED} bf16: kernel {rec['ms']:.4f} ms (CUDA "
+        f"events), "
+        + ("device not measured" if rec["device_ms"] is None else
+           f"{rec['device_ms']:.4f} ms on the device "
+           f"({b_ms / rec['device_ms']:.3f} of the bound)")
+        + f", plain {rec['plain_ms']:.2f} ms, library none, bound "
+        f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB); device kernels {rec['device_kernels']}")
+    return rec
+
+
+def dh112_timing(torch, seed: int) -> dict:
+    """K4 and K3 at zamba2's head dim 112 (ZAMBA_PREFILL_SHAPE causal;
+    ZAMBA_DECODE_SHAPE at kv_len 4,096 of 8,192, K3's generic kernel):
+    kernel, plain version, bound and scaled_dot_product_attention (a
+    yardstick; the port never calls it), as ``phase_attention_timing``
+    times qwen3's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention import ops as da, ref as dr
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fr
+    out = {}
+    sh = ZAMBA_PREFILL_SHAPE
+    B, L, H, Dh = (sh[x] for x in ("B", "Lq", "H", "Dh"))
+    q, k, v = flash_inputs(torch, **sh, dtype=torch.bfloat16, seed=seed + 37)
+    pairs = L * (L + 1) // 2
+    b_ms, b_by = att_bound(2 * 4 * B * L * H * Dh,
+                           4.0 * B * H * Dh * pairs, H100_BF16_FLOPS)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    call = lambda: fa.flash_attention(q, k, v, causal=True)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    rec = {"shape": sh, "dtype": "bfloat16", "causal": True,
+           "ms": cuda_ms(torch, call),
+           "plain_ms": cuda_ms(torch, lambda: fr.attention_ref(
+               q, k, v, causal=True, p_dtype=v.dtype), iters=5, warmup=1),
+           "library_ms": cuda_ms(torch, sdpa), "bound_ms": b_ms,
+           "bound_by": b_by}
+    rec.update(flash_device_ms(torch, call, sdpa, "flash_bf16",
+                               "Dh 112 prefill"))
+    out["flash_attention/zamba2_prefill"] = rec
+    log(f"[timing] flash_attention Dh 112 {sh} bf16: kernel {rec['ms']:.4f}"
+        f" ms, plain {rec['plain_ms']:.4f} ms, library "
+        f"{rec['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); device "
+        + ("not measured" if rec["device_ms"] is None else
+           f"{rec['device_ms']:.4f} ms ({b_ms / rec['device_ms']:.3f} of "
+           f"the bound), library {rec['library_device_ms']} ms"))
+    del q, k, v, qt, kt, vt
+    Lc, n_kv = ZAMBA_DECODE_TIMED
+    sh = ZAMBA_DECODE_SHAPE
+    B, H, Dh = (sh[x] for x in ("B", "H", "Dh"))
+    q, k, v, _ = decode_inputs(torch, **sh, Lc=Lc, qdtype=torch.bfloat16,
+                               int8=False, seed=seed + 38)
+    kv_len = torch.full((B,), n_kv, device=DEV)
+    b_ms, b_by = att_bound(2 * 2 * B * H * Dh + 2 * 2 * B * n_kv * H * Dh
+                           + B * 8, 4.0 * B * H * Dh * n_kv, H100_BF16_FLOPS)
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(Lc, device=DEV)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    call = lambda: da.decode_attention(q, k, v, kv_len)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    call()
+    rec = {"shape": sh, "Lc": Lc, "kv_len": n_kv,
+           "n_split": dk.last_n_split.value, "ms": cuda_ms(torch, call),
+           "plain_ms": cuda_ms(torch, lambda: dr.decode_attention_ref(
+               q, k, v, kv_len)),
+           "library_ms": cuda_ms(torch, sdpa), "bound_ms": b_ms,
+           "bound_by": b_by}
+    rec.update(decode_device_ms(torch, call, "decode_attention Dh 112"))
+    rec.update(library_device_ms(torch, sdpa))
+    out[f"decode_attention/zamba2/{Lc}/{n_kv}"] = rec
+    log(f"[timing] decode_attention Dh 112 B={B} H={H}/{H} Lc={Lc} "
+        f"kv_len={n_kv}: kernel {rec['ms']:.4f} ms (CUDA events), "
+        + ("device not measured" if rec["device_ms"] is None else
+           f"{rec['device_ms']:.4f} ms on the device "
+           f"({b_ms / rec['device_ms']:.3f} of the bound)")
+        + f", plain {rec['plain_ms']:.4f} ms, library "
+        f"{rec['library_ms']:.4f} ms ({rec['library_device_ms']} ms on the "
+        f"device), bound {b_ms:.4f} ms ({b_by}); last_n_split "
+        f"{rec['n_split']} (0: the generic kernel); device kernels "
+        f"{rec['device_kernels']}")
+    return out
+
+
+def phase_ssm_hybrid(torch, np, recorders, seed: int) -> dict:
+    """Phase 12: rwkv6-7b (``ssm_rwkv6``) and zamba2-7b (``ssm_zamba2``)
+    at full size, each freed before the next, their K4, K3 and WKV6 calls
+    noted by ``recorders`` (three OpsRecorders); every distinct WKV6 call
+    of the engine runs held against the plain loop at its own arguments
+    (the K3/K4 calls go to the re-checks with the other phases'); then WKV6
+    timed at rwkv6's prefill and K4/K3 at zamba2's head dim 112."""
+    from repro_torch.models import layers as L, lm, ssm as S
+    t0 = time.perf_counter()
+    agree = Agreement()
+    rwkv = ssm_rwkv6(torch, np, L, lm, S, recorders, agree, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zamba = ssm_zamba2(torch, np, L, lm, S, recorders, agree, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    calls = sorted(c[1:] for c in recorders[2].distinct())
+    err = max(compare_wkv6(torch, shape, dt, carried, seed + 60 + i)
+              for i, (shape, dt, carried) in enumerate(calls))
+    check({c[2] for c in calls} == {False, True}
+          and any(c[0][1] > 1 for c in calls),
+          f"[ssm] the WKV6 calls {calls} lack a prefill or a decode")
+    kinds = ", ".join(f"{s} {d} {'carried' if c else 'zero'} state"
+                      for s, d, c in calls)
+    log(f"[ssm] {len(calls)} distinct WKV6 calls of the engine ({kinds}) "
+        f"agree with the plain loop at their own arguments (within "
+        f"{WKV6_RTOL} of the largest; max abs err {err:.3g})")
+    timing = {"wkv6": wkv6_timing(torch, seed)}
+    timing.update(dh112_timing(torch, seed))
+    launches = dict.fromkeys(ATT_KEYS, 0)
+    for k, v in zamba["launches"].items():
+        launches[k] += v
+    launches["wkv6"] = rwkv["launches"]
+    wall = time.perf_counter() - t0
+    log(f"[ssm] phase done in {wall:.1f} s; launches {launches}")
+    log_agreement("K3/K4 calls of the held bf16 runs, each on its own "
+                  "inputs,", agree)
+    return {"rwkv6-7b": rwkv, "zamba2-7b": zamba, "wkv6_calls": calls,
+            "wkv6_max_abs_err": max(err, rwkv["wkv6_err"]),
+            "agreement": agree, "timing": timing,
+            "launches": launches, "wall_s": wall}
+
+
 def nvidia_smi() -> str:
     try:
         out = subprocess.run(
@@ -5236,6 +5968,7 @@ def main() -> int:
     from repro_torch.kernels.cosine_topk import ops
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.wkv6 import ops as wkv6_ops
     strict_fp32()
     smi = nvidia_smi()
     log(f"[device] {torch.cuda.get_device_name(0)} x "
@@ -5271,7 +6004,8 @@ def main() -> int:
         phase_engine_consistency(torch, np, args.seed, kv_dtype)
     models = build_models(torch, args.layers, args.seed)
     recorder = CallRecorder(ops)
-    att_rec = (AttnRecorder(fa_ops), AttnRecorder(da_ops))
+    att_rec = (OpsRecorder(fa_ops), OpsRecorder(da_ops),
+               OpsRecorder(wkv6_ops))     # WKV6's only in phase 12
     kept: dict = {}         # the served pallas SISO, for the shard phase
     serve = {b: serve_once(torch, np, b, models, recorder, att_rec,
                            args.seed, keep=kept if b == "pallas" else None)
@@ -5317,6 +6051,13 @@ def main() -> int:
     mla = phase_mla_encdec(torch, np, att_rec, args.seed)
     detail["mla_encdec"] = mla
     detail["mla_encdec_s"] = mla["wall_s"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm = phase_ssm_hybrid(torch, np, att_rec, args.seed)
+    timing.update(ssm.pop("timing"))
+    agree.merge(ssm.pop("agreement"))
+    detail["ssm_hybrid"] = ssm
+    detail["ssm_hybrid_s"] = ssm["wall_s"]
     main_err = phase_main_shapes(torch, recorder.calls, args.seed)
     err["cosine_top1_local"] = shard["kernel"]["max_abs_err"]
     check({c[0] for c in recorder.calls} == set(err),
@@ -5359,7 +6100,10 @@ def main() -> int:
         # layers.py:157 and :252), which MLA calls
         "flash_attention_dv": "src/repro/kernels/flash_attention/kernel.py:19",
         "decode_attention_dv":
-            "src/repro/kernels/decode_attention/kernel.py:25"}
+            "src/repro/kernels/decode_attention/kernel.py:25",
+        # no Pallas kernel: the reference's jnp step scan, which XLA
+        # compiles into one loop on the TPU
+        "wkv6": "src/repro/models/ssm.py:93"}
     sources = {
         "cosine_topk": "src/repro_torch/csrc/cosine_topk.cu",
         "cosine_top1_local": "src/repro_torch/csrc/cosine_topk.cu",
@@ -5369,16 +6113,17 @@ def main() -> int:
         "decode_attention": "src/repro_torch/csrc/decode_attention.cu",
         "decode_attention_int8": "src/repro_torch/csrc/decode_attention.cu",
         "flash_attention_dv": "src/repro_torch/csrc/flash_attention.cu",
-        "decode_attention_dv": "src/repro_torch/csrc/decode_attention.cu"}
+        "decode_attention_dv": "src/repro_torch/csrc/decode_attention.cu",
+        "wkv6": "src/repro_torch/csrc/wkv6.cu"}
     # launches on the main path: K1/K2 in their served stream, the slo
     # phase's runs, the planes phase (its killed child included), the
     # replicas phase (its children and the launcher's workers included)
     # and the shard phase, where K1-local runs; K3/K4 in both served
     # streams, both engine-long runs, the slo phase's live gateway, the
     # planes phase's gateway restart, the replicas phase, the shard
-    # phase's gateways, the zoo phase's mixtral and paligemma runs and the
+    # phase's gateways, the zoo phase's mixtral and paligemma runs, the
     # mla_encdec phase's minicpm3, deepseek-v2 and whisper runs (the Dv
-    # mode's only there)
+    # mode's only there) and the ssm_hybrid phase's zamba2 run
     launches = {"cosine_topk": serve["pallas"]["launches"]
                 + slo_sim["launches"]["cosine_topk"]
                 + slo_live["launches"]["cosine_topk"]
@@ -5397,9 +6142,14 @@ def main() -> int:
             r["launches"][name] for r in long_runs.values()) \
             + slo_live["launches"][name] + planes["launches"][name] \
             + replicas["launches"][name] + shard["launches"][name] \
-            + zoo["launches"][name] + mla["launches"][name]
+            + zoo["launches"][name] + mla["launches"][name] \
+            + ssm["launches"][name]
         check(launches[name] > 0, f"[kernels] {name} was never launched on "
                                   f"the main path")
+    # WKV6: phase 12's rwkv6 engine run
+    launches["wkv6"] = ssm["launches"]["wkv6"]
+    check(launches["wkv6"] > 0, "[kernels] wkv6 was never launched on the "
+                                "main path")
     # timed at the main path's shapes: K1/K2 at the served batch; K4 at the
     # engine's 4,096-token prefill; K3 at engine-long's kv length
     timed = {name: next(r for r in timing[name] if r["B"] == main_b)
@@ -5415,7 +6165,9 @@ def main() -> int:
     timed["flash_attention_dv"] = timing["flash_attention_dv/prefill"]
     timed["decode_attention_dv"] = \
         timing["decode_attention_dv/{}/{}".format(*DV_DECODE_TIMED)]
-    all_err = {**err, **att_err}
+    # WKV6 at rwkv6-7b's prefill
+    timed["wkv6"] = timing["wkv6"]
+    all_err = {**err, **att_err, "wkv6": ssm["wkv6_max_abs_err"]}
     kernels = []
     for name, rec in timed.items():
         kernels.append({

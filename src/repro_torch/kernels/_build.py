@@ -38,6 +38,7 @@ KERNELS = {
                         [ctypes.c_char_p, _P]),
     "decode_attention": ("decode_attention.cu", "decode_attention",
                          [_P] * 10 + [_L] * 21 + [_P]),
+    "wkv6": ("wkv6.cu", "wkv6", [_P] * 8 + [_L] * 12 + [_I] * 5 + [_P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

@@ -19,8 +19,20 @@ are nested dicts; the reference's layer-stacked ``blocks`` and
 ``enc_blocks`` pytrees are lists of per-layer dicts here
 (``repro_torch.weights`` converts); ``dense0`` is a list in both. The KV
 cache is updated in place (the reference returns a new pytree); it holds
-``dense0``'s layers first, then ``blocks``'. The SSM and hybrid kinds arrive
-in later slices and raise ``NotImplementedError``.
+``dense0``'s layers first, then ``blocks``'.
+
+The SSM kind (rwkv6: ``models.ssm``'s RWKV6 layers, whose WKV recurrence
+is the K5 kernel on the card) caches per layer the f32 state ``s`` (n, B,
+H, K, K) and the last normalised inputs of the time and channel mixes,
+``tm_x`` and ``cm_x`` (n, B, d); its prefill starts from zero state, as
+the reference's does, whatever cache it is given. The hybrid kind (zamba2:
+Mamba2 layers, and after every ``attn_every``-th of them, for the first
+``n_layers // attn_every``, the one weight-shared attention + MLP block
+over ``cat([x, x0])`` with a LoRA on q per invocation) caches ``s`` (n, B,
+H, N, P) f32, ``conv`` (n, B, k-1, d_inner + 2N) and the shared block's
+k/v per invocation, ``ak``/``av`` (n_inv, B, Lc, H, Dh): prefill runs K4
+causal over the prompt, decode K3 over ``ak[inv]``/``av[inv]``. In decode
+``x0`` is this step's token embedding, as in the reference.
 
 MLA caches ``latent`` (n, B, Lc, kv_lora_rank) and ``krope`` (n, B, Lc,
 qk_rope_dim) in the model dtype, also when ``kv_dtype`` is int8, as the
@@ -48,6 +60,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 Params = dict[str, Any]
 
@@ -56,16 +69,12 @@ def _dtype(cfg: ModelConfig):
     return getattr(torch, cfg.dtype)
 
 
-def _check_kind(cfg: ModelConfig) -> None:
-    """Raise for the kinds the port does not run yet, naming the kind."""
-    unported = [name for name, on in (
-        (f"ssm_kind={cfg.ssm_kind!r}", bool(cfg.ssm_kind)),
-        (f"family={cfg.family!r}", cfg.family == "hybrid")) if on]
-    if unported:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unported)} is not ported yet (the port "
-            f"runs the dense, MoE, sliding-window, VLM, MLA and "
-            f"encoder-decoder kinds)")
+def _main_kind(cfg: ModelConfig) -> str:
+    if cfg.is_encoder_decoder:
+        return "decoder"
+    if cfg.ssm_kind in ("rwkv6", "mamba2"):
+        return cfg.ssm_kind
+    return "moe" if cfg.is_moe else "dense"
 
 
 def _norm_init(cfg, d: int, dtype, device) -> Params:
@@ -78,7 +87,12 @@ def _norm(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def _block_init(gen, cfg: ModelConfig, kind: str, dtype, device) -> Params:
-    """kind: "dense", "moe" or "decoder" (with cross-attention)."""
+    """kind: "dense", "moe", "decoder" (with cross-attention), "rwkv6" or
+    "mamba2"."""
+    if kind == "rwkv6":
+        return S.rwkv6_init(gen, cfg, dtype, device)
+    if kind == "mamba2":
+        return S.mamba2_init(gen, cfg, dtype, device)
     p: Params = {"ln1": _norm_init(cfg, cfg.d_model, dtype, device),
                  "attn": (L.mla_init if cfg.attn_kind == "mla"
                           else L.gqa_init)(gen, cfg, dtype, device),
@@ -95,9 +109,29 @@ def _block_init(gen, cfg: ModelConfig, kind: str, dtype, device) -> Params:
     return p
 
 
+def _zamba_shared_init(gen, cfg, dtype, device) -> Params:
+    """Zamba2's weight-shared (attention + MLP) block over cat([x, x0]),
+    with a LoRA delta on q for each of its n_layers // attn_every
+    invocations, stacked along a leading axis as in the reference."""
+    d2, H, Dh = 2 * cfg.d_model, cfg.n_heads, cfg.head_dim
+    n_inv, r = cfg.n_layers // cfg.attn_every, cfg.shared_lora_rank
+
+    def dense(d_in, d_out):
+        return L.dense_init(gen, d_in, d_out, dtype, device)
+    lora_a = torch.randn((n_inv, d2, r), generator=gen, dtype=torch.float32,
+                         device=device) * 0.01
+    return {"ln": L.rmsnorm_init(d2, dtype, device),
+            "wq": dense(d2, H * Dh), "wk": dense(d2, H * Dh),
+            "wv": dense(d2, H * Dh), "wo": dense(H * Dh, cfg.d_model),
+            "ln2": L.rmsnorm_init(cfg.d_model, dtype, device),
+            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device),
+            "lora_a": lora_a.to(dtype),
+            "lora_b": torch.zeros((n_inv, r, H * Dh), dtype=dtype,
+                                  device=device)}
+
+
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 device: DeviceLike = None) -> Params:
-    _check_kind(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     d = cfg.d_model
@@ -108,8 +142,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, d, cfg.padded_vocab, dtype, dev,
                                     scale=0.02)
-    kind = ("decoder" if cfg.is_encoder_decoder
-            else "moe" if cfg.is_moe else "dense")
+    kind = _main_kind(cfg)
     p["blocks"] = [_block_init(gen, cfg, kind, dtype, dev)
                    for _ in range(cfg.n_layers - cfg.first_dense_layers)]
     if cfg.first_dense_layers:
@@ -119,6 +152,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
         p["enc_blocks"] = [_block_init(gen, cfg, "dense", dtype, dev)
                            for _ in range(cfg.enc_layers)]
         p["enc_norm"] = _norm_init(cfg, d, dtype, dev)
+    if cfg.family == "hybrid":
+        p["shared_attn"] = _zamba_shared_init(gen, cfg, dtype, dev)
     return p
 
 
@@ -211,10 +246,27 @@ def kv_quant(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device: DeviceLike = None) -> Params:
-    _check_kind(cfg)
     dev = resolve_device(device)
     dtype = dtype or _dtype(cfg)
     n, Lc = cfg.n_layers, cache_len(cfg, max_len)
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+    if cfg.ssm_kind == "rwkv6":
+        H, K = cfg.ssm_heads, cfg.ssm_head_dim
+        return {"s": zeros((n, batch, H, K, K), torch.float32),
+                "tm_x": zeros((n, batch, cfg.d_model)),
+                "cm_x": zeros((n, batch, cfg.d_model))}
+    if cfg.ssm_kind == "mamba2":
+        H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+        cache = {"s": zeros((n, batch, H, N, P), torch.float32),
+                 "conv": zeros((n, batch, cfg.conv_kernel - 1,
+                                cfg.d_inner + 2 * N))}
+        if cfg.attn_every:
+            shape = (n // cfg.attn_every, batch, Lc, cfg.n_heads,
+                     cfg.head_dim)
+            cache["ak"], cache["av"] = zeros(shape), zeros(shape)
+        return cache
     if cfg.attn_kind == "mla":
         return {"latent": torch.zeros((n, batch, Lc, cfg.kv_lora_rank),
                                       dtype=dtype, device=dev),
@@ -266,6 +318,75 @@ def _ring_place(kv: torch.Tensor, seq_len: int, ring_len: int
     return torch.roll(kv, seq_len % ring_len, dims=1)
 
 
+def _invocation(cfg: ModelConfig, i: int) -> Optional[int]:
+    """The shared block's invocation after Mamba2 layer i, or None: after
+    every ``attn_every``-th layer, for the first n_layers // attn_every."""
+    every = cfg.attn_every
+    if not every or i % every != every - 1 \
+            or i // every >= cfg.n_layers // every:
+        return None
+    return i // every
+
+
+def _zamba_shared_fwd(sp: Params, cfg, x, x0, inv: int, positions, k_cache,
+                      v_cache, decode=None) -> torch.Tensor:
+    """Zamba2's shared attention + MLP block, invocation ``inv``, over
+    cat([x, x0]); q carries the invocation's LoRA delta, q and k RoPE. The
+    (B, Lc, H, Dh) caches are written in place: in prefill (``decode``
+    None) the prompt's k/v at positions [0, L), then causal attention over
+    them (K4); in a decode step (``decode`` = (rows, pos, kv_len)) the
+    token's k/v at (rows, pos), then attention over kv_len positions
+    (K3)."""
+    B = x.shape[0]
+    H, Dh = cfg.n_heads, cfg.head_dim
+    h = L.rmsnorm(sp["ln"], torch.cat([x, x0], dim=-1))
+    q = h @ sp["wq"] + (h @ sp["lora_a"][inv]) @ sp["lora_b"][inv]
+    q = L.apply_rope(q.reshape(B, -1, H, Dh), positions, cfg.rope_theta)
+    k = L.apply_rope((h @ sp["wk"]).reshape(B, -1, H, Dh), positions,
+                     cfg.rope_theta)
+    v = (h @ sp["wv"]).reshape(B, -1, H, Dh)
+    if decode is None:
+        k_cache[:, :k.shape[1]] = k.to(k_cache.dtype)
+        v_cache[:, :v.shape[1]] = v.to(v_cache.dtype)
+        a = L.flash_attention(q, k, v, causal=True)
+    else:
+        rows, pos, kv_len = decode
+        k_cache[rows, pos] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, pos] = v[:, 0].to(v_cache.dtype)
+        a = L.decode_attention(q, k_cache, v_cache, kv_len=kv_len)
+    x = x + a.reshape(B, -1, H * Dh) @ sp["wo"]
+    return x + L.mlp(sp["mlp"], L.rmsnorm(sp["ln2"], x), cfg.act)
+
+
+def _ssm_stack(p: Params, cfg: ModelConfig, x: torch.Tensor, cache: Params,
+               decode=None) -> torch.Tensor:
+    """The SSM and hybrid kinds' layers over x (B, L, d), their states
+    written into ``cache`` in place. Prefill (``decode`` None) starts every
+    layer from zero state; a decode step (``decode`` = (rows, pos, kv_len),
+    one token a row) carries each layer's state. The hybrid's shared block
+    runs after the layers ``_invocation`` names (``_zamba_shared_fwd``)."""
+    x0 = x
+    positions = (torch.arange(x.shape[1], device=x.device) if decode is None
+                 else decode[1][:, None])
+    for i, bp in enumerate(p["blocks"]):
+        st = None if decode is None else {
+            key: cache[key][i] for key in cache if key not in ("ak", "av")}
+        if cfg.ssm_kind == "rwkv6":
+            x, st = S.rwkv6_block(bp, cfg, x, st, cfg.chunk_size)
+        elif decode is None:
+            x, st = S.mamba2_block(bp, cfg, x, None, cfg.chunk_size)
+        else:
+            x, st = S.mamba2_decode_step(bp, cfg, x, st)
+        for key, val in st.items():
+            cache[key][i] = val.to(cache[key].dtype)
+        inv = _invocation(cfg, i)
+        if inv is not None:
+            x = _zamba_shared_fwd(p["shared_attn"], cfg, x, x0, inv,
+                                  positions, cache["ak"][inv],
+                                  cache["av"][inv], decode)
+    return x
+
+
 def prefill(p: Params, cfg: ModelConfig, batch: dict, cache: Params
             ) -> tuple[torch.Tensor, Params]:
     """Process the full prompt (``batch["tokens"]`` (B, L), after the VLM's
@@ -274,9 +395,13 @@ def prefill(p: Params, cfg: ModelConfig, batch: dict, cache: Params
     positions [0, L), or for a window the trailing ``cache_len`` positions
     placed for decode's ring (``_ring_place``), and a decoder layer's
     cross-attention K/V over the encoder's output in ``xk``/``xv``; return
-    last-position logits."""
-    _check_kind(cfg)
+    last-position logits. The SSM and hybrid kinds store their layers'
+    final states instead (``_ssm_stack``)."""
     x, prefix_len = _assemble_input(p, cfg, batch)
+    if cfg.ssm_kind:
+        x = _ssm_stack(p, cfg, x, cache)
+        logits = unembed(p, cfg, _norm(cfg, p["final_norm"], x[:, -1:]))
+        return logits[:, 0], cache
     B, Lx, _ = x.shape
     Lc = cache_len(cfg, Lx)
     positions = torch.arange(Lx, device=x.device)
@@ -340,20 +465,27 @@ def decode_step(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     (``ModelEngine`` does): MLA decode then reads or materialises only the
     first kv_max cache positions, which gives the same result. An
     encoder-decoder's cross-attention reads all ``enc_len`` positions of
-    ``xk``/``xv``."""
-    _check_kind(cfg)
+    ``xk``/``xv``.
+
+    The SSM and hybrid kinds carry each layer's state; the hybrid's shared
+    block writes its k/v at pos and reads kv_len positions (K3)."""
     B = tokens.shape[0]
     dev = tokens.device
     mla = cfg.attn_kind == "mla"
     pos = torch.as_tensor(pos, device=dev).long().expand(B)
     kv_len = (pos + 1 if kv_len is None else kv_len).to(torch.int32)
+    rows = torch.arange(B, device=dev)
+    if cfg.ssm_kind:
+        x = _ssm_stack(p, cfg, embed_tokens(p, cfg, tokens), cache,
+                       decode=(rows, pos, kv_len))
+        logits = unembed(p, cfg, _norm(cfg, p["final_norm"], x))
+        return logits[:, 0], cache
     write = pos
     if cfg.window is not None:      # the ring already bounds the window
         Lc = cache["latent" if mla else "k"].shape[2]
         write = pos % Lc
         kv_len = kv_len.clamp_max(Lc)
         kv_max = None if kv_max is None else min(kv_max, Lc)
-    rows = torch.arange(B, device=dev)
     positions = pos[:, None]                                  # (B, 1)
     if cfg.is_encoder_decoder:
         enc_len = torch.full((B,), cache["xk"].shape[2], dtype=torch.int32,

@@ -48,20 +48,21 @@ def convert_embedder(params: dict, device: DeviceLike = None) -> dict:
 
 def convert_lm(params: dict, cfg: ModelConfig,
                device: DeviceLike = None) -> dict:
-    """LM params of the dense, MoE, VLM, MLA and encoder-decoder kinds: the
-    reference stacks ``blocks`` and ``enc_blocks`` along a leading layer
-    axis (one scan over layers), its MoE leaves as (n, E, d, dff); the port
-    keeps a list of layers, each with its (E, d, dff) experts. ``dense0``
-    (deepseek's leading dense layers) is a list in both. A tied embedding
-    has no ``lm_head``."""
+    """LM params of every kind: the reference stacks ``blocks`` and
+    ``enc_blocks`` along a leading layer axis (one scan over layers), its
+    MoE leaves as (n, E, d, dff); the port keeps a list of layers, each
+    with its (E, d, dff) experts, and the same for the RWKV6 and Mamba2
+    layers. ``dense0`` (deepseek's leading dense layers) is a list in both.
+    Zamba2's ``shared_attn`` is one block in both, its LoRA ``lora_a`` (n_inv,
+    2d, r) and ``lora_b`` (n_inv, r, H Dh) kept stacked by invocation. A
+    tied embedding has no ``lm_head``. Every leaf keeps its dtype (f32
+    leaves of a bf16 model, such as Mamba2's ``A_log``, stay f32)."""
     stacked = {"blocks": cfg.n_layers - cfg.first_dense_layers,
                "enc_blocks": cfg.enc_layers}
     extra = set(params) - {"embed", "final_norm", "lm_head", "dense0",
-                           "enc_norm", *stacked}
+                           "enc_norm", "shared_attn", *stacked}
     if extra:
-        raise NotImplementedError(
-            f"{cfg.name}: parameters {sorted(extra)} belong to a kind that "
-            f"is not ported yet")
+        raise ValueError(f"{cfg.name}: unknown parameters {sorted(extra)}")
     out = {k: to_torch(v, device) for k, v in params.items()
            if k not in stacked}
     for key, n in stacked.items():

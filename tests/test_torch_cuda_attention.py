@@ -1,10 +1,12 @@
 """The hand-written attention kernels on the card, held against their plain
 PyTorch versions on the same CUDA tensors: K4 (prefill) over every mask
-mode, f32 and bf16, head dims 64, 128 and 256, and bf16 at shapes ragged
+mode, f32 and bf16, head dims 64, 128 and 256 (and zamba2's 112, padded
+to 128), and bf16 at shapes ragged
 against its tiles, with a wrapping kv ring, qwen3's 40/8 heads and strided
 views (a misaligned view raises); K3 (decode) with f32, bf16
 and int8 caches read in place, with G in {1, 4, 5, 8, 16} query heads a kv
 head, kv_len at the edges of its tiles and splits, all 0, at decode_32k,
+at head dim 112 (the generic kernel),
 through packed, misaligned and odd-width views, and bit-identical across
 repeated calls. The kernels have no CPU mode, so these tests
 are marked ``gpu`` and skip without a CUDA device. The file imports neither
@@ -347,6 +349,30 @@ def test_flash_f32_one_launch_and_bit_identical(shape):
     assert torch.equal(first, again)
 
 
+# zamba2-7b's shared attention block: 32 heads of 112 (MHA). K4 pads the
+# head dim to 128 (q, k and v: TMA's zero fill past 112 in bf16, the
+# zero-filling copies in f32) and writes exactly 112 columns a head, head
+# h + 1 starting 112 elements after head h
+@pytest.mark.parametrize("ragged", [False, True], ids=["full", "ragged"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_head_dim_112(dtype, ragged):
+    B, L, H, Dh = 2, 333, 32, 112
+    g = _gen(Dh + ragged)
+    q, k, v = (_randn((B, L, H, Dh), g, dtype) for _ in range(3))
+    kw = dict(causal=True)
+    if ragged:
+        kw.update(kv_valid_len=torch.tensor([333, 150], device=DEV),
+                  q_offset=0)
+    before = fa_ops.flash_attention.launches
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    plain = fa_ref.attention_ref(q, k, v, p_dtype=v.dtype, **kw)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches == before + 1
+    assert out.shape == (B, L, H, Dh) and out.is_contiguous()
+    _assert_agree(out, plain, "flash")
+
+
 DECODE_KINDS = ["f32", "bf16", "int8-f32q", "int8-bf16q"]
 
 
@@ -395,6 +421,18 @@ def test_decode_kernel_matches_plain(kind, Dh, G):
     q, k, v, scales = _decode_inputs(kind, B, G * Hkv, Hkv, Dh, Lc, g,
                                      layers=2)
     _decode_check(q, k, v, torch.tensor([1, 700, 413], device=DEV), scales)
+
+
+# K3 at zamba2's head dim 112 (32 heads, MHA): no fast instance, so the
+# generic two-pass kernel, with kv_len ragged across the batch
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_decode_head_dim_112_takes_the_generic_kernel(kind):
+    B, H, Dh, Lc = 4, 32, 112, 700
+    q, k, v, scales = _decode_inputs(kind, B, H, H, Dh, Lc, _gen(112),
+                                     layers=2)
+    _decode_check(q, k, v, torch.tensor([1, 700, 413, 256], device=DEV),
+                  scales)
+    assert da_kernel.last_n_split.value == 0
 
 
 @pytest.mark.parametrize("kind", DECODE_KINDS)

@@ -12,8 +12,13 @@ tile that the bf16 limit must fail; K3's Dv mode in bf16 takes the fast
 one-launch kernel (``last_n_split > 0``) at its tile and split edges, in
 a full 32,768-position cache, on ``_mla_kv``'s own layouts and on a
 16-byte aligned view, gives the same bits twice, and a misaligned view
-takes the generic kernel. The kernels have no CPU mode, so these tests
-are marked ``gpu`` and skip without a CUDA device:
+takes the generic kernel. The SSM kind's WKV6 recurrence (K5) against its
+plain step loop: B 1-4, L 1 to 1,000 around its 32-step tiles, K 16, 40
+and 64, a carried and a zero state, w near 0 and near 1, f32 and bf16
+views of a packed projection or heads-major, two calls bit-identical; then
+reduced rwkv6 and zamba2 (K4 and K3 in its shared block) against the plain
+versions. The kernels have no CPU mode, so these tests are marked ``gpu``
+and skip without a CUDA device:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_kinds.py
 
@@ -24,6 +29,8 @@ plain layers sum in another order), with the int8 KV cache at 1e-3 (a
 value within an ulp of a rounding boundary may take the neighbouring code
 in the two runs).
 """
+from types import SimpleNamespace
+
 import pytest
 import torch
 
@@ -376,3 +383,138 @@ def test_reduced_model_kernels_match_plain_layers(arch, kv_dtype,
     for i, (a, b) in enumerate(zip(kernel, plain)):
         torch.testing.assert_close(a, b, atol=atol, rtol=0,
                                    msg=f"call {i}")
+
+
+# ---------------------------------------------------------------------------
+# the SSM kind's WKV6 recurrence (K5) and the SSM and hybrid models
+# ---------------------------------------------------------------------------
+
+WKV6_RTOL = 1e-5     # of the largest |y| or |state|: f32 sums of K terms
+                     # in another order (the kernel's FMAs against the
+                     # plain loop's products), which the decay keeps small
+
+
+def _wkv6_inputs(B, L, H, K, g, dtype, decay, layout="packed"):
+    """r, k, v as views of one projection (``packed``: (B, L, H, 3K), the
+    K-wide slices; ``heads-major``: a (3, B, H, L, K) tensor transposed),
+    read in place; w from the reference's decay formula over a band of its
+    clipped exponent: "mid" [-3, 1], "near-0" [4, 6] (exp(-exp(6)) is 0 in
+    f32), "near-1" [-12, -10]."""
+    if layout == "packed":
+        rkv = _randn((B, L, H, 3 * K), g, dtype)
+        r, k, v = rkv[..., :K], rkv[..., K:2 * K], rkv[..., 2 * K:]
+    else:
+        rkv = _randn((3, B, H, L, K), g, dtype)
+        r, k, v = (x.transpose(1, 2) for x in rkv)
+    lo, hi = {"mid": (-3.0, 1.0), "near-0": (4.0, 6.0),
+              "near-1": (-12.0, -10.0)}[decay]
+    w_raw = lo + (hi - lo) * torch.rand((B, L, H, K), generator=g,
+                                        device=DEV)
+    w = torch.exp(-torch.exp(w_raw))
+    u = _randn((H, K), g, dtype)
+    s = torch.randn((B, H, K, K), generator=g, device=DEV)
+    return r, k, v, w, u, s
+
+
+def _wkv6_check(r, k, v, w, u, s):
+    from repro_torch.kernels.wkv6 import ops, ref
+    before, s_before = ops.wkv6.launches, s.clone()
+    y, S = ops.wkv6(r, k, v, w, u, s)
+    py, pS = ref.wkv6_ref(r, k, v, w, u, s)
+    torch.cuda.synchronize()
+    assert ops.wkv6.launches == before + 1
+    assert y.shape == v.shape and y.dtype == S.dtype == torch.float32
+    torch.testing.assert_close(s, s_before, rtol=0, atol=0)
+    for out, plain, what in ((y, py, "y"), (S, pS, "state")):
+        err = float((out - plain).abs().max()) if out.numel() else 0.0
+        lim = WKV6_RTOL * float(plain.abs().max()) if plain.numel() else 0.0
+        assert err <= lim, (what, err, lim)
+
+
+@pytest.mark.parametrize("K", [16, 64])
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 1000])
+@pytest.mark.parametrize("B", [1, 4])
+def test_wkv6_matches_plain(B, L, K):
+    """bf16 r/k/v views of a packed projection, a carried state, 64 / K
+    heads at K 16 and 64 (rwkv6-7b's heads at full width are 64 of 64)."""
+    g = torch.Generator(device=DEV).manual_seed(B * 1000 + L + K)
+    _wkv6_check(*_wkv6_inputs(B, L, 64 // K * 2, K, g, torch.bfloat16,
+                              "mid"))
+
+
+@pytest.mark.parametrize("layout", ["packed", "heads-major"])
+@pytest.mark.parametrize("decay", ["near-0", "near-1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_wkv6_decay_extremes_dtypes_and_views(dtype, decay, layout):
+    """w near 0 (the state forgets at once) and near 1 (it keeps 300
+    steps), f32 and bf16 r/k/v, packed and heads-major views; K 40 (not a
+    multiple of 16: the padded rows stay 0) and B 3."""
+    g = torch.Generator(device=DEV).manual_seed(len(decay) + len(layout))
+    _wkv6_check(*_wkv6_inputs(3, 300, 3, 40, g, dtype, decay, layout))
+
+
+def test_wkv6_zero_state_and_back_to_back_calls_are_bit_identical():
+    g = torch.Generator(device=DEV).manual_seed(11)
+    r, k, v, w, u, s = _wkv6_inputs(2, 130, 4, 64, g, torch.bfloat16, "mid")
+    s = torch.zeros_like(s)
+    _wkv6_check(r, k, v, w, u, s)
+    from repro_torch.kernels.wkv6 import ops
+    a, b = ops.wkv6(r, k, v, w, u, s), ops.wkv6(r, k, v, w, u, s)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-7b"])
+def test_reduced_ssm_kinds_match_plain_layers(arch, monkeypatch):
+    """Reduced, f32: a 37-token prompt (over two chunks of 16) and 4 decode
+    steps. rwkv6 through the WKV6 kernel, one launch a layer a call;
+    zamba2's shared block through K4 (one a prompt and invocation) and K3
+    (one a step and invocation); logits against the plain versions (the
+    step loop, the plain attention) at atol 1e-4."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.wkv6 import ops as wkv6_ops
+    from repro_torch.kernels.wkv6.ref import wkv6_ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.models import ssm as S
+    cfg = get_config(arch).reduced().replace(dtype="float32")
+    g = torch.Generator(device=DEV).manual_seed(9)
+    params = lm.init_params(g, cfg, device=DEV)
+    if arch == "rwkv6-7b":         # a bonus that is not 0, as trained
+        for bp in params["blocks"]:
+            bp["u"].normal_(generator=g)
+    B, Lt = 2, 37
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, Lt), generator=g,
+                                     device=DEV)}
+    steps = torch.randint(0, cfg.vocab_size, (4, B, 1), generator=g,
+                          device=DEV)
+
+    def run():
+        cache = lm.init_cache(cfg, B, Lt + 8, device=DEV)
+        logits, cache = lm.prefill(params, cfg, batch, cache)
+        out = [logits]
+        for step, tok in enumerate(steps):
+            d, cache = lm.decode_step(params, cfg, tok, cache, Lt + step)
+            out.append(d)
+        return out, cache
+
+    n0 = (wkv6_ops.wkv6.launches, fa_ops.flash_attention.launches,
+          da_ops.decode_attention.launches)
+    kernel, kcache = run()
+    n_inv = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+    rwkv = arch == "rwkv6-7b"
+    assert (wkv6_ops.wkv6.launches - n0[0],
+            fa_ops.flash_attention.launches - n0[1],
+            da_ops.decode_attention.launches - n0[2]) == (
+        5 * cfg.n_layers if rwkv else 0, n_inv, 4 * n_inv)
+    monkeypatch.setattr(S, "wkv6_ops", SimpleNamespace(wkv6=wkv6_ref))
+    monkeypatch.setattr(L, "flash_attention", L.flash_attention_plain)
+    monkeypatch.setattr(L, "decode_attention", L.decode_attention_plain)
+    plain, pcache = run()
+    for i, (a, b) in enumerate(zip(kernel, plain)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=0, msg=f"call {i}")
+    for key in kcache:
+        torch.testing.assert_close(kcache[key], pcache[key], atol=1e-4,
+                                   rtol=0, msg=key)

@@ -156,21 +156,6 @@ def test_attention_masks_match_jax():
     np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=1e-5)
 
 
-UNPORTED = {"rwkv6-7b": "ssm_kind='rwkv6'",
-            "zamba2-7b": "ssm_kind='mamba2'"}
-
-
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_model_kinds_raise(arch):
-    """The kinds still unported raise NotImplementedError naming the kind,
-    from init_params and init_cache alike."""
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-        TLM.init_params(torch.Generator().manual_seed(0), cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match=arch):
-        TLM.init_cache(cfg, 1, 8, device=CPU)
-
-
 DENSE_ATOL = 1e-5
 
 

@@ -58,12 +58,13 @@ def _numbers(text: str) -> list:
 
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "mixtral-8x7b", "minicpm3-4b",
-                                  "deepseek-v2-236b"])
+                                  "deepseek-v2-236b", "rwkv6-7b",
+                                  "zamba2-7b"])
 def test_run_batch_prints_the_reference_numbers(monkeypatch, capsys, arch):
     """``--arch`` through ``get_config(arch).reduced()`` in both launchers:
-    the dense qwen3, the MoE + sliding-window mixtral, the MLA minicpm3 and
-    the MLA + MoE deepseek-v2 with its dense first layer (bf16, as the
-    launchers build them)."""
+    the dense qwen3, the MoE + sliding-window mixtral, the MLA minicpm3,
+    the MLA + MoE deepseek-v2 with its dense first layer, the SSM rwkv6 and
+    the hybrid zamba2 (bf16, as the launchers build them)."""
     args = BATCH_ARGS + ["--arch", arch]
 
     def ref_bootstrap(frontend, train):

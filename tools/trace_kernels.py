@@ -3,7 +3,7 @@
 read from a ``torch.profiler`` trace, at the main path's shapes.
 
     python3 tools/trace_kernels.py [--src DIR] [--iters N] [--out DIR]
-                                   [--only topk,prefill,decode,embed,local]
+                                   [--only topk,prefill,decode,embed,local,ssm]
                                    [--sass]
 
 Traces K1 (f32 cosine top-k, k=1, early exit on, random queries so every
@@ -27,7 +27,11 @@ each f32 K4 kernel and of its loops; and K1's shard-local mode
 dim 768 whose first 9,072 rows are valid (chip_smoke's S=4 shard of the
 served mirror): one block every call, the four in turn, and the four in
 turn with a 128 MB write between calls that evicts the 50 MB L2, each
-with the number of kernel records the trace holds. For each call it prints every device kernel the call launched
+with the number of kernel records the trace holds; and (``ssm``) the WKV6
+recurrence at rwkv6-7b's prefill (B=1, L=2,048, H=64, K=V=64, bf16 r/k/v,
+a zero state) beside its operations bound, K4 at zamba2-7b's prefill
+(B=1, L=4,096, H=32, Dh=112, causal) and K3 at its decode (B=4, H=32,
+Dh=112, kv_len 4,096 of 8,192). For each call it prints every device kernel the call launched
 (pass 1 and pass 2 of K1/K2 apart, K3's casts and passes apart) with its
 mean time per call; for K4 the achieved TFLOP/s of the causal half, for
 K1, K2 and K3 the share of their bytes bound (3.35 TB/s) that their own
@@ -54,7 +58,8 @@ PREFILL = dict(B=1, L=4096, H=40, Hkv=8, Dh=128)
 DECODE = dict(B=4, H=40, Hkv=8, Dh=128)
 DECODE_CALLS = ((8192, 4096), (32768, 32768))   # (cache length, kv_len)
 H100_BYTES_PER_S = 3.35e12
-GROUPS = ("topk", "prefill", "decode", "embed", "local")
+GROUPS = ("topk", "prefill", "decode", "embed", "local", "ssm")
+H100_FP32_FLOPS = 67e12
 TOPK_BATCHES = (1, 4, 8, 32)
 
 
@@ -196,6 +201,8 @@ def main() -> int:
         trace_embed(torch, fa, _build, g, max(args.iters, 20), res)
     if "local" in only:
         trace_local(torch, ops, g, max(args.iters, 20), res)
+    if "ssm" in only:
+        trace_ssm(torch, fa, g, args.iters, res)
     out = ROOT / args.out
     out.mkdir(parents=True, exist_ok=True)
     (out / "trace_kernels.json").write_text(json.dumps(res, indent=1))
@@ -308,6 +315,59 @@ def trace_prefill(torch, fa, g, iters: int, res: dict) -> None:
     print(f"[trace] flash_attention prefill {PREFILL} bf16 causal: " +
           "; ".join(f"{n} {t:.4f} ms" for n, t in split.items()) +
           f"; {flops / main_ms / 1e9:.1f} TFLOP/s", flush=True)
+
+
+def trace_ssm(torch, fa, g, iters: int, res: dict) -> None:
+    """WKV6 at rwkv6-7b's prefill; K4 and K3 at zamba2-7b's head dim 112.
+    WKV6's bound counts the fp32 flops the function needs a (token, head),
+    5 K V + 3 K + 2 V, over 67 TFLOP/s, and the bytes it moves once (r,
+    k, v bf16; w, y f32; u; the state in and out) over 3.35 TB/s."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.wkv6 import ops as wkv6
+    B, L, H, K = 1, 2048, 64, 64
+    r, k, v = (torch.randn((B, L, H, K), generator=g,
+                           device="cuda").bfloat16() for _ in range(3))
+    w = torch.exp(-torch.exp(-3.0 + 4.0 * torch.rand(
+        (B, L, H, K), generator=g, device="cuda")))
+    u = torch.randn((H, K), generator=g, device="cuda").bfloat16()
+    s0 = torch.zeros((B, H, K, K), device="cuda")
+    split, _ = device_kernel_ms(torch, lambda: wkv6.wkv6(r, k, v, w, u, s0),
+                                iters)
+    own = sum(t for n, t in split.items() if "wkv6_fwd" in n)
+    flops = B * L * H * (5.0 * K * K + 3 * K + 2 * K)
+    nbytes = (3 * 2 + 4 + 4) * B * L * H * K + 2 * H * K \
+        + 2 * 4 * B * H * K * K
+    bound_ms = 1e3 * max(flops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S)
+    res["wkv6/prefill"] = {"kernels_ms": split, "kernel_ms": own,
+                           "bound_ms": bound_ms,
+                           "share_of_bound": bound_ms / own if own else None}
+    print(f"[trace] wkv6 B={B} L={L} H={H} K={K} bf16: " + "; ".join(
+        f"{n} {t:.4f} ms" for n, t in split.items())
+        + f"; bound {bound_ms:.4f} ms ({flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB), share "
+          f"{bound_ms / own if own else float('nan'):.3f}", flush=True)
+    del r, k, v, w
+    L, H, Dh = 4096, 32, 112
+    q, k, v = (torch.randn((1, L, H, Dh), generator=g,
+                           device="cuda").bfloat16() for _ in range(3))
+    split, _ = device_kernel_ms(
+        torch, lambda: fa.flash_attention(q, k, v, causal=True), iters)
+    res["flash_attention/dh112"] = {"kernels_ms": split}
+    print(f"[trace] flash_attention Dh 112 B=1 L={L} H={H} bf16 causal: "
+          + "; ".join(f"{n} {t:.4f} ms" for n, t in split.items()),
+          flush=True)
+    Bd, Lc, n_kv = 4, 8192, 4096
+    q = torch.randn((Bd, H, Dh), generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn((Bd, Lc, H, Dh), generator=g,
+                        device="cuda").bfloat16() for _ in range(2))
+    kv_len = torch.full((Bd,), n_kv, dtype=torch.int32, device="cuda")
+    split, _ = device_kernel_ms(
+        torch, lambda: da.decode_attention(q, k, v, kv_len), iters)
+    res["decode_attention/dh112"] = {"kernels_ms": split}
+    print(f"[trace] decode_attention Dh 112 B={Bd} H={H}/{H} Lc={Lc} "
+          f"kv_len={n_kv} bf16: "
+          + "; ".join(f"{n} {t:.4f} ms" for n, t in split.items()),
+          flush=True)
 
 
 def trace_decode(torch, g, iters: int, res: dict) -> None:
