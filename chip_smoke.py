@@ -23,8 +23,8 @@ Phases (any failure exits non-zero and prints no result line):
               ragged against its 128-row and 128-key tiles, with a kv ring
               that wraps four times and with qwen3's 40/8 heads, and K3
               with f32, bf16 and int8 caches; both at zamba2's head dim
-              112 (32 heads, MHA; K4 pads it to 128, K3 takes its generic
-              kernel) and at the main path's shapes too, then timed there (K4's TFLOP/s and share of its
+              112 (32 heads, MHA; K4 and K3 pad it to 128, K3's bf16
+              calls on its fast kernel) and at the main path's shapes too, then timed there (K4's TFLOP/s and share of its
               bound logged; both K4 calls, the bf16 prefill and the
               embedder's f32 one, and SDPA beside each also on the device
               through torch.profiler, K3 too: each call must show its
@@ -854,8 +854,8 @@ def phase_attention_kernels(torch, seed: int) -> Agreement:
                    [n_kv, n_kv + 1, n_kv + 7, 1], torch.bfloat16, False,
                    seed + 73)
     # zamba2's shared block: 32 heads of 112 (MHA), K4 padding q, k and v
-    # to 128, K3 on its generic kernel; ragged against the tiles, then at
-    # its prefill and decode shapes
+    # to 128, K3 its tile rows (bf16; f32 on its generic kernel); ragged
+    # against the tiles, then at its prefill and decode shapes
     for dtype in (torch.bfloat16, torch.float32):
         for j, kw in enumerate((dict(causal=True),
                                 dict(causal=True, q_offset=0,
@@ -5724,11 +5724,20 @@ def ssm_zamba2(torch, np, L, lm, S, recorders, agree, seed: int) -> dict:
     launches = attention_launches()
     torch.cuda.synchronize()
     zero_attention_launches()
+    mark = len(recorders[1].n_split)
     with recorded_ops(L, recorders):
         decode_ms, toks = ssm_decode_steps(torch, eng, toks, ZAMBA_STEPS,
                                            "zamba2")
     for k, v in attention_launches().items():
         launches[k] += v
+    # K3 at Dh 112 on its fast kernel in every bf16 call: a reroute to the
+    # generic kernel (last_n_split 0) fails the run
+    splits = recorders[1].n_split[mark:]
+    check(len(splits) == ZAMBA_STEPS * n_inv and all(x > 0 for x in splits),
+          f"[ssm] zamba2 decode: K3 splits {sorted(set(splits))} over "
+          f"{len(splits)} calls; every call must take the fast kernel")
+    log(f"[ssm] zamba2 decode: all {len(splits)} K3 calls took the fast "
+        f"kernel, splits {sorted(set(splits))}")
     run = {"prefill_ms": prefill_ms, "decode_ms": decode_ms,
            "decode_ms_median": statistics.median(decode_ms)}
     rec.update(run, launches=launches,
@@ -5804,7 +5813,8 @@ def wkv6_timing(torch, seed: int) -> dict:
 
 def dh112_timing(torch, seed: int) -> dict:
     """K4 and K3 at zamba2's head dim 112 (ZAMBA_PREFILL_SHAPE causal;
-    ZAMBA_DECODE_SHAPE at kv_len 4,096 of 8,192, K3's generic kernel):
+    ZAMBA_DECODE_SHAPE at kv_len 4,096 of 8,192, K3's fast kernel, which
+    the timed call must take):
     kernel, plain version, bound and scaled_dot_product_attention (a
     yardstick; the port never calls it), as ``phase_attention_timing``
     times qwen3's."""
@@ -5858,6 +5868,9 @@ def dh112_timing(torch, seed: int) -> dict:
                q, k, v, kv_len)),
            "library_ms": cuda_ms(torch, sdpa), "bound_ms": b_ms,
            "bound_by": b_by}
+    check(rec["n_split"] > 0,
+          f"[timing] decode_attention Dh 112: last_n_split "
+          f"{rec['n_split']}; the timed call must take the fast kernel")
     rec.update(decode_device_ms(torch, call, "decode_attention Dh 112"))
     rec.update(library_device_ms(torch, sdpa))
     out[f"decode_attention/zamba2/{Lc}/{n_kv}"] = rec
@@ -5869,7 +5882,7 @@ def dh112_timing(torch, seed: int) -> dict:
         + f", plain {rec['plain_ms']:.4f} ms, library "
         f"{rec['library_ms']:.4f} ms ({rec['library_device_ms']} ms on the "
         f"device), bound {b_ms:.4f} ms ({b_by}); last_n_split "
-        f"{rec['n_split']} (0: the generic kernel); device kernels "
+        f"{rec['n_split']} (the fast kernel's splits); device kernels "
         f"{rec['device_kernels']}")
     return out
 

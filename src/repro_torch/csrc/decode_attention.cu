@@ -15,8 +15,8 @@
 // instructions per byte so that the arithmetic hides under the loads.
 //
 // Design (decode_fast: a bf16 q with a bf16 or int8 cache at Dq = Dv of 64,
-// 128 or 256, or a bf16 cache at (Dq, Dv) = (96, 64) or (192, 128); K and V
-// each through their own 16-byte aligned base and strides):
+// 128 or 256, or a bf16 cache at (Dq, Dv) = (96, 64), (192, 128) or (112,
+// 112); K and V each through their own 16-byte aligned base and strides):
 // - Work: one CTA of 4 warps per (split, kv head, sequence). The split
 //   count follows kv_len on the device: the host sizes the grid to one wave
 //   of resident CTAs (occupancy x SMs over B x Hkv), and each CTA reads
@@ -72,11 +72,26 @@
 // a clock), and one kernel for every mode keeps one set of copy, softmax
 // and merge code.
 //
+// Head dim 112 (zamba2-7b's shared attention block: 32 heads, MHA, G = 1)
+// runs the 128 instance over rows padded in shared memory, as K4
+// pads it with TMA's zero fill: each 224-byte K and V row comes in as its
+// 14 chunks, and chunks 14-15 of the tile row are zero-filled by the same
+// cp.async (src-size 0). q's fragments are 0 past 112, so S^T is exact; V's
+// padded columns give accumulators of 0 that are never written: the
+// partial records, the merge and the output are sized by the real Dv
+// (G x (2 + 112) floats a split, (B, H, 112) out), and the scale stays
+// 1 / sqrt(112). Device memory still sees 224 bytes a row; only shared
+// memory and the tensor cores do 1/7 more, and the kernel is bound by
+// bytes. A true 112 template (7 m-blocks of P V, 14-chunk rows, a phys_v
+// for 28-byte lane segments) would save that 1/7 of instruction work, not
+// a byte. The int8 cache at 112 stays on decode_generic: no config serves
+// it (zamba2 decodes from a bf16 cache).
+//
 // decode_generic keeps the former two-pass design (256-position splits, a
 // warp per K row, scalar loads) for every other shape: an f32 q or cache,
-// any other Dq <= 256 and Dv <= 256, and views that are not 16-byte
-// aligned. V has its own strides there too, the partial record is
-// G x (2 + Dv) floats and the scale 1 / sqrt(Dq).
+// any other Dq <= 256 and Dv <= 256, an int8 cache at 112, and views that
+// are not 16-byte aligned. V has its own strides there too, the partial
+// record is G x (2 + Dv) floats and the scale 1 / sqrt(Dq).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -199,11 +214,14 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
 
 // ---- decode_fast -----------------------------------------------------------
 
-template <typename KT, int DQ, int DV, int NB>
+template <typename KT, int DQ, int DV, int NB, int DQR, int DVR>
 struct Fast {
   static constexpr int ES = (int)sizeof(KT);     // bf16 or int8
   static constexpr int RK = DQ * ES, RV = DV * ES;   // bytes of a K, V row
   static constexpr int NCK = RK / 16, NCV = RV / 16; // 16-byte chunks a row
+  // of them, the chunks the cache holds (DQR, DVR: the real head dims; the
+  // rest of a tile row is zero-filled)
+  static constexpr int NCKR = DQR * ES / 16, NCVR = DVR * ES / 16;
   static constexpr int EPC = 16 / ES;            // elements a chunk
   static constexpr int SB = ROWS * (RK + RV);    // a stage: K and V tiles
   static constexpr int STAGES = SB <= 4096 ? 4 : 2;   // ~16 KB a warp
@@ -221,6 +239,10 @@ struct Fast {
   static_assert(ROWS * NCK % 32 == 0 && ROWS * NCV % 32 == 0,
                 "a tile's chunks deal evenly to the lanes");
   static_assert(RING >= 4 * WARPS * GP * DV, "the merge reuses the ring");
+  static_assert((DQR == DQ && DVR == DV) ||
+                    (ES == 2 && DQR * 2 % 16 == 0 && DVR * 2 % 16 == 0 &&
+                     DQR <= DQ && DVR <= DV),
+                "padded rows: bf16 rows of whole 16-byte chunks");
 
   // Where chunk c of row r lies, so that a warp's 16-byte fragment reads
   // hit each bank once. K (rows g, g + 8, chunks 4i + t; a quarter warp
@@ -247,10 +269,10 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <typename KT, int DQ, int DV, int NB>
+template <typename KT, int DQ, int DV, int NB, int DQR, int DVR>
 __global__ void __launch_bounds__(THREADS)
 decode_fast(Args a) {
-  using F = Fast<KT, DQ, DV, NB>;
+  using F = Fast<KT, DQ, DV, NB, DQR, DVR>;
   constexpr int ES = F::ES, RK = F::RK, RV = F::RV, EPC = F::EPC;
   constexpr int NCK = F::NCK, NCV = F::NCV;
   constexpr int SB = F::SB, STAGES = F::STAGES, GP = F::GP;
@@ -261,11 +283,11 @@ decode_fast(Args a) {
 
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int G = a.G, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long obase = ((long long)b * a.H + (long long)hk * G) * DV;
+  const long long obase = ((long long)b * a.H + (long long)hk * G) * DVR;
   const int len = seq_len(a, b);
   if (len == 0) {                             // no valid position: output 0
     if (split == 0)
-      for (int e = tid; e < G * DV; e += THREADS) store_out(a, obase + e, 0.f);
+      for (int e = tid; e < G * DVR; e += THREADS) store_out(a, obase + e, 0.f);
     return;
   }
   int chunk = (len + a.n_split - 1) / a.n_split;
@@ -299,14 +321,14 @@ decode_fast(Args a) {
 #pragma unroll
     for (int it = 0; it < ROWS * NCK / 32; ++it) {
       const int f = lane + 32 * it, r = f / NCK, c = f % NCK;
-      const bool ok = p0 + r < end;
+      const bool ok = p0 + r < end && c < F::NCKR;
       cp16(Ks + r * RK + F::phys_k(r, c) * 16,
            ok ? kt + r * krs + c * 16 : kb, ok);
     }
 #pragma unroll
     for (int it = 0; it < ROWS * NCV / 32; ++it) {
       const int f = lane + 32 * it, r = f / NCV, c = f % NCV;
-      const bool ok = p0 + r < end;
+      const bool ok = p0 + r < end && c < F::NCVR;
       cp16(Vs + r * RV + F::phys_v(r, c) * 16,
            ok ? vt + r * vrs + c * 16 : vb, ok);
     }
@@ -343,10 +365,11 @@ decode_fast(Args a) {
 #pragma unroll
     for (int s = 0; s < DQ / 16; ++s) {
       const int d0 = (s / SP) * 4 * EPC + t4 * EPC + 4 * (s % SP);
+      const bool in = on && d0 < DQR;          // zero past the real Dq
       qa[s][hb] =
-          on ? (uint32_t)qp[d0] | ((uint32_t)qp[d0 + 1] << 16) : 0u;
+          in ? (uint32_t)qp[d0] | ((uint32_t)qp[d0 + 1] << 16) : 0u;
       qa[s][hb + 2] =
-          on ? (uint32_t)qp[d0 + 2] | ((uint32_t)qp[d0 + 3] << 16) : 0u;
+          in ? (uint32_t)qp[d0 + 2] | ((uint32_t)qp[d0 + 3] << 16) : 0u;
     }
   }
   const uint32_t k128 = bf16x2_128();
@@ -578,9 +601,9 @@ decode_fast(Args a) {
   // ---- the CTA's (m, l, acc): warps merged in order
   const float* mw = fs + F::MRUN;
   const long long pair = (long long)b * a.Hkv + hk;
-  float* part = a.part + (pair * a.n_split + split) * G * (2 + DV);
-  for (int e = tid; e < G * DV; e += THREADS) {
-    const int g = e / DV, d = e - g * DV;
+  float* part = a.part + (pair * a.n_split + split) * G * (2 + DVR);
+  for (int e = tid; e < G * DVR; e += THREADS) {     // the real Dv only
+    const int g = e / DVR, d = e - g * DVR;
     float M = -INFINITY;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) M = fmaxf(M, mw[w * GP + g]);
@@ -594,7 +617,7 @@ decode_fast(Args a) {
     if (ns == 1) {
       store_out(a, obase + e, A / L);
     } else {
-      float* rec = part + g * (2 + DV);
+      float* rec = part + g * (2 + DVR);
       rec[2 + d] = A;
       if (d == 0) { rec[0] = M; rec[1] = L; }
     }
@@ -611,13 +634,13 @@ decode_fast(Args a) {
   // the splits' weights exp2(m - M) and 1 / L per head, in the free ring;
   // then each thread sums its outputs over the splits, its loads of one
   // split independent of each other
-  const float* p0 = a.part + pair * a.n_split * G * (2 + DV);
+  const float* p0 = a.part + pair * a.n_split * G * (2 + DVR);
   float* wsp = reinterpret_cast<float*>(smem);     // (ns, G) m, then weight
   float* lsp = wsp + ns * G;                       // (ns, G) l
   float* linv = lsp + ns * G;                      // (G,)
   for (int e = tid; e < ns * G; e += THREADS) {
-    wsp[e] = __ldcg(p0 + e * (2 + DV));
-    lsp[e] = __ldcg(p0 + e * (2 + DV) + 1);
+    wsp[e] = __ldcg(p0 + e * (2 + DVR));
+    lsp[e] = __ldcg(p0 + e * (2 + DVR) + 1);
   }
   __syncthreads();
   if (tid < G) {
@@ -631,7 +654,7 @@ decode_fast(Args a) {
     linv[tid] = 1.f / L;
   }
   __syncthreads();
-  constexpr int PER = (GP * DV + THREADS - 1) / THREADS;
+  constexpr int PER = (GP * DVR + THREADS - 1) / THREADS;
   float A[PER];
 #pragma unroll
   for (int k = 0; k < PER; ++k) A[k] = 0.f;
@@ -639,15 +662,15 @@ decode_fast(Args a) {
   for (int sp = 0; sp < ns; ++sp) {
 #pragma unroll
     for (int k = 0; k < PER; ++k) {
-      const int e = tid + k * THREADS, g = e / DV;
+      const int e = tid + k * THREADS, g = e / DVR;
       if (g < G)
-        A[k] = fmaf(__ldcg(p0 + (sp * G + g) * (2 + DV) + 2 + (e - g * DV)),
+        A[k] = fmaf(__ldcg(p0 + (sp * G + g) * (2 + DVR) + 2 + (e - g * DVR)),
                     wsp[sp * G + g], A[k]);
     }
   }
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
-    const int e = tid + k * THREADS, g = e / DV;
+    const int e = tid + k * THREADS, g = e / DVR;
     if (g < G) store_out(a, obase + e, A[k] * linv[g]);
   }
   if (tid == 0) a.count[pair] = 0;            // ready for the next call
@@ -770,20 +793,20 @@ decode_generic_combine(Args a) {
 
 // ---- launch ----------------------------------------------------------------
 
-template <typename KT, int DQ, int DV, int NB>
+template <typename KT, int DQ, int DV, int NB, int DQR, int DVR>
 cudaError_t launch_fast(Args& a, long long s_cap, cudaStream_t s) {
-  using F = Fast<KT, DQ, DV, NB>;
+  using F = Fast<KT, DQ, DV, NB, DQR, DVR>;
   static int resident[64] = {};          // per device: CTAs of one wave
   int dev = 0;
   cudaGetDevice(&dev);
   if (!resident[dev & 63]) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_fast<KT, DQ, DV, NB>,
+        decode_fast<KT, DQ, DV, NB, DQR, DVR>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM);
     int per_sm = 0, sms = 0;
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, decode_fast<KT, DQ, DV, NB>, THREADS, F::SMEM);
+          &per_sm, decode_fast<KT, DQ, DV, NB, DQR, DVR>, THREADS, F::SMEM);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
@@ -800,15 +823,15 @@ cudaError_t launch_fast(Args& a, long long s_cap, cudaStream_t s) {
   most = most < fit ? most : fit;
   a.n_split = (int)(want > most ? most : want);
   dim3 grid((unsigned)a.n_split, (unsigned)a.Hkv, (unsigned)a.B);
-  decode_fast<KT, DQ, DV, NB><<<grid, THREADS, F::SMEM, s>>>(a);
+  decode_fast<KT, DQ, DV, NB, DQR, DVR><<<grid, THREADS, F::SMEM, s>>>(a);
   return cudaGetLastError();
 }
 
-template <typename KT, int DQ, int DV>
+template <typename KT, int DQ, int DV, int DQR = DQ, int DVR = DV>
 cudaError_t launch_g(Args& a, long long s_cap, cudaStream_t s) {
   // the heads on two n-blocks of P V where G > 8
-  return a.G > 8 ? launch_fast<KT, DQ, DV, 2>(a, s_cap, s)
-                 : launch_fast<KT, DQ, DV, 1>(a, s_cap, s);
+  return a.G > 8 ? launch_fast<KT, DQ, DV, 2, DQR, DVR>(a, s_cap, s)
+                 : launch_fast<KT, DQ, DV, 1, DQR, DVR>(a, s_cap, s);
 }
 
 template <typename KT>
@@ -818,6 +841,12 @@ cudaError_t launch_dh(Args& a, long long s_cap, cudaStream_t s) {
     case 128: return launch_g<KT, 128, 128>(a, s_cap, s);
     default: return launch_g<KT, 256, 256>(a, s_cap, s);
   }
+}
+
+// zamba2-7b's head dim 112 in a bf16 cache: the 128 instance over rows
+// zero-filled past 112
+cudaError_t launch_112(Args& a, long long s_cap, cudaStream_t s) {
+  return launch_g<__nv_bfloat16, 128, 128, 112, 112>(a, s_cap, s);
 }
 
 // the Dv mode at MLA's head dims: minicpm3-4b's and deepseek-v2-236b's
@@ -870,8 +899,9 @@ extern "C" int decode_attention(
          (int)q_bf16, (int)kv64, 1.0f / sqrtf((float)Dh)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // decode_fast: a bf16 q with a bf16 or int8 cache at Dh = Dv of 64, 128
-  // or 256, or a bf16 cache at (Dh, Dv) = (96, 64) or (192, 128); K and V
-  // each with 16-byte aligned base and strides. decode_generic: the rest
+  // or 256, or a bf16 cache at (Dh, Dv) = (96, 64), (192, 128) or (112,
+  // 112); K and V each with 16-byte aligned base and strides.
+  // decode_generic: the rest
   const long long es = kv_kind == 0 ? 4 : (kv_kind == 1 ? 2 : 1);
   const bool aligned =
       ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) %
@@ -883,11 +913,13 @@ extern "C" int decode_attention(
   const bool same_d = Dv == Dh && (Dh == 64 || Dh == 128 || Dh == 256);
   const bool mla = kv_kind == 1 && ((Dh == 96 && Dv == 64) ||
                                     (Dh == 192 && Dv == 128));
+  const bool pad112 = kv_kind == 1 && Dh == 112 && Dv == 112;
   const bool fast = q_bf16 && kv_kind != 0 && aligned && narrow &&
-                    (same_d || mla);
+                    (same_d || mla || pad112);
   cudaError_t e;
   if (fast)
     e = mla ? launch_dv(a, s_cap, s)
+        : pad112 ? launch_112(a, s_cap, s)
         : kv_kind == 2 ? launch_dh<int8_t>(a, s_cap, s)
                        : launch_dh<__nv_bfloat16>(a, s_cap, s);
   else

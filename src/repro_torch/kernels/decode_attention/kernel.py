@@ -11,8 +11,10 @@ from repro_torch.kernels import _build
 
 GENERIC_CHUNK = 256   # cache positions a split of the generic path takes
 CTA_ROWS = 64         # the fast path's chunks are multiples of this (the
-                      # fast path: a bf16 q with a bf16 or int8 cache, or
-                      # MLA's Dv mode in bf16)
+                      # fast path: a bf16 q with a bf16 or int8 cache at
+                      # head dim 64, 128 or 256, MLA's Dv mode in bf16, or
+                      # a bf16 cache at zamba2's 112, padded to 128 in
+                      # shared memory)
 CTAS_PER_SM = 16      # the most CTAs of 128 threads an SM holds
 KV_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -53,8 +55,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``out`` contiguous (B, H, Dv) of q's dtype. The caller has checked
     shapes, dtypes, strides and devices. One launch (two on the generic
     path, which the dispatch in ``csrc/decode_attention.cu`` gives an f32
-    q or cache, a view that is not 16-byte aligned and head dims the fast
-    kernel has no instance for), nothing else: no conversion, no fill.
+    q or cache, a view that is not 16-byte aligned, an int8 cache at head
+    dim 112 and head dims the fast kernel has no instance for), nothing
+    else: no conversion, no fill.
     ``last_n_split`` then holds the fast kernel's splits per (sequence,
     kv head), or 0 for the generic path."""
     B, H, Dh = q.shape

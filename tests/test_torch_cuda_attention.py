@@ -6,7 +6,10 @@ against its tiles, with a wrapping kv ring, qwen3's 40/8 heads and strided
 views (a misaligned view raises); K3 (decode) with f32, bf16
 and int8 caches read in place, with G in {1, 4, 5, 8, 16} query heads a kv
 head, kv_len at the edges of its tiles and splits, all 0, at decode_32k,
-at head dim 112 (the generic kernel),
+at head dim 112 (bf16 on the fast kernel, padded to 128 in shared memory,
+at its tile, chunk and split edges in an 8,192-position cache, repeated
+bit for bit and against a dropped span; f32 and misaligned views on the
+generic kernel),
 through packed, misaligned and odd-width views, and bit-identical across
 repeated calls. The kernels have no CPU mode, so these tests
 are marked ``gpu`` and skip without a CUDA device. The file imports neither
@@ -423,16 +426,94 @@ def test_decode_kernel_matches_plain(kind, Dh, G):
     _decode_check(q, k, v, torch.tensor([1, 700, 413], device=DEV), scales)
 
 
-# K3 at zamba2's head dim 112 (32 heads, MHA): no fast instance, so the
-# generic two-pass kernel, with kv_len ragged across the batch
+# K3 at zamba2's head dim 112 (32 heads, MHA): a bf16 q and cache take the
+# fast kernel, its 128 instance over rows zero-filled past 112 in shared
+# memory; f32 the generic two-pass kernel. kv_len ragged across the batch
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
-def test_decode_head_dim_112_takes_the_generic_kernel(kind):
+def test_decode_head_dim_112_routes_bf16_to_the_fast_kernel(kind):
     B, H, Dh, Lc = 4, 32, 112, 700
     q, k, v, scales = _decode_inputs(kind, B, H, H, Dh, Lc, _gen(112),
                                      layers=2)
-    _decode_check(q, k, v, torch.tensor([1, 700, 413, 256], device=DEV),
-                  scales)
+    out = _decode_check(q, k, v, torch.tensor([1, 700, 413, 256],
+                                              device=DEV), scales)
+    assert out.shape == (B, H, Dh) and out.is_contiguous()
+    fast = da_kernel.last_n_split.value > 0
+    assert fast == (kind == "bf16")
+
+
+def _dh112_inputs(B, Lc, seed, H=32):
+    g = _gen(seed)
+    q = _randn((B, H, 112), g, torch.bfloat16)
+    k, v = (_randn((B, Lc, H, 112), g, torch.bfloat16) for _ in range(2))
+    return q, k, v
+
+
+def test_decode_head_dim_112_kv_len_at_its_edges():
+    """An 8,192-position cache (zamba2's max_len): kv_len 0, 1, a 16-row
+    tile and a 64-position chunk step and their neighbours, 4,096 and the
+    whole cache, then n x 64 and its neighbours, n the grid's splits (the
+    last split full, one short, one row into a longer chunk). bf16 on the
+    fast kernel, int32 and int64 lengths."""
+    Lc = 8192
+    lens = [0, 1, 15, 16, 17, 63, 64, 65, 4095, 4096, 4097, Lc]
+    q, k, v = _dh112_inputs(len(lens) + 3, Lc, 113, H=4)
+    da_ops.decode_attention(q, k, v, torch.tensor(lens + [1, 2, 3],
+                                                  device=DEV))
+    n = da_kernel.last_n_split.value
+    assert 1 <= n <= Lc // 64
+    lens += [n * 64 - 1, n * 64, n * 64 + 1]
+    for dtype in (torch.int32, torch.int64):
+        kv_len = torch.tensor(lens, dtype=dtype, device=DEV)
+        out = _decode_check(q, k, v, kv_len, {})
+        assert da_kernel.last_n_split.value > 0
+        assert float(out[0].abs().max()) == 0.0          # kv_len 0
+
+
+def test_decode_head_dim_112_misaligned_view_takes_the_generic_path():
+    """k and v 4 bytes off a 16-byte boundary: the generic kernel reads
+    them through their strides (``last_n_split == 0``) and agrees."""
+    B, H, Lc = 3, 8, 500
+    g = _gen(114)
+    q = _randn((B, H, 112), g, torch.bfloat16)
+    wide = _randn((2, B, Lc, H, 114), g, torch.bfloat16)
+    k, v = wide[0, ..., 2:], wide[1, ..., 2:]
+    _decode_check(q, k, v, torch.tensor([500, 3, 260], device=DEV), {})
     assert da_kernel.last_n_split.value == 0
+
+
+def test_decode_head_dim_112_back_to_back_calls_are_bit_identical():
+    """zamba2's decode (B 4, 32 heads, an 8,192 cache): the splits merge in
+    split order and the counters are left at 0, so repeated calls give
+    the same bits, interleaved with a call of another shape."""
+    q, k, v = _dh112_inputs(4, 8192, 115)
+    kv_len = torch.tensor([4096, 4097, 8192, 100], device=DEV)
+    first = _decode_check(q, k, v, kv_len, {})
+    assert da_kernel.last_n_split.value > 1
+    again = da_ops.decode_attention(q, k, v, kv_len)
+    q2, k2, v2 = _dh112_inputs(2, 1000, 116, H=4)
+    da_ops.decode_attention(q2, k2, v2, torch.tensor([999, 5], device=DEV))
+    third = da_ops.decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.equal(first, third)
+
+
+def test_decode_head_dim_112_dropped_tile_fails_the_limit():
+    """A planted fault the checks above must catch: the plain version with
+    one 256-position span of the cache left out exceeds the bf16 limit,
+    while the fast kernel stays within it."""
+    B, Lc, n = 2, 2048, 2048
+    q, k, v = _dh112_inputs(B, Lc, 117)
+    kv_len = torch.full((B,), n, device=DEV)
+    plain = da_ref.decode_attention_ref(q, k, v, kv_len)
+
+    def holed(x):
+        return torch.cat([x[:, :1024], x[:, 1280:]], dim=1)
+    bad = da_ref.decode_attention_ref(q, holed(k), holed(v), kv_len - 256)
+    assert bf16_excess(bad, plain, ROW_RTOL["decode"]) > 1.0
+    out = da_ops.decode_attention(q, k, v, kv_len)
+    assert da_kernel.last_n_split.value > 0
+    torch.cuda.synchronize()
+    assert bf16_excess(out, plain, ROW_RTOL["decode"]) <= 1.0
 
 
 @pytest.mark.parametrize("kind", DECODE_KINDS)

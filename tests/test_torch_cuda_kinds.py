@@ -13,9 +13,13 @@ one-launch kernel (``last_n_split > 0``) at its tile and split edges, in
 a full 32,768-position cache, on ``_mla_kv``'s own layouts and on a
 16-byte aligned view, gives the same bits twice, and a misaligned view
 takes the generic kernel. The SSM kind's WKV6 recurrence (K5) against its
-plain step loop: B 1-4, L 1 to 1,000 around its 32-step tiles, K 16, 40
-and 64, a carried and a zero state, w near 0 and near 1, f32 and bf16
-views of a packed projection or heads-major, two calls bit-identical; then
+plain step loop: B 1-4, L 1 to 1,000 (below 16 its column kernel, then
+around the split kernel's 32-step tiles), K 16, 24, 40 and 64 (24 and 40
+off its 32-column groups), a carried and a zero
+state, w near 0 and near 1, f32 and bf16 views of a packed projection,
+one element off it (not 16-byte aligned) or heads-major, rwkv6-7b's own
+prefill (B 1, L 2,048, H 64) and decode (B 4, L 1) calls, one kernel a
+call in a fresh process's trace, two calls bit-identical; then
 reduced rwkv6 and zamba2 (K4 and K3 in its shared block) against the plain
 versions. The kernels have no CPU mode, so these tests are marked ``gpu``
 and skip without a CUDA device:
@@ -396,12 +400,15 @@ WKV6_RTOL = 1e-5     # of the largest |y| or |state|: f32 sums of K terms
 
 def _wkv6_inputs(B, L, H, K, g, dtype, decay, layout="packed"):
     """r, k, v as views of one projection (``packed``: (B, L, H, 3K), the
-    K-wide slices; ``heads-major``: a (3, B, H, L, K) tensor transposed),
-    read in place; w from the reference's decay formula over a band of its
-    clipped exponent: "mid" [-3, 1], "near-0" [4, 6] (exp(-exp(6)) is 0 in
-    f32), "near-1" [-12, -10]."""
-    if layout == "packed":
-        rkv = _randn((B, L, H, 3 * K), g, dtype)
+    K-wide slices; ``misaligned``: the same one element into a (B, L, H,
+    3K + 1) tensor, so a bf16 view is 2-byte aligned and is staged by plain
+    loads; ``heads-major``: a (3, B, H, L, K) tensor transposed), read in
+    place; w from the reference's decay formula over a band of its clipped
+    exponent: "mid" [-3, 1], "near-0" [4, 6] (exp(-exp(6)) is 0 in f32),
+    "near-1" [-12, -10]."""
+    if layout in ("packed", "misaligned"):
+        off = int(layout == "misaligned")
+        rkv = _randn((B, L, H, 3 * K + off), g, dtype)[..., off:]
         r, k, v = rkv[..., :K], rkv[..., K:2 * K], rkv[..., 2 * K:]
     else:
         rkv = _randn((3, B, H, L, K), g, dtype)
@@ -432,11 +439,14 @@ def _wkv6_check(r, k, v, w, u, s):
 
 
 @pytest.mark.parametrize("K", [16, 64])
-@pytest.mark.parametrize("L", [1, 63, 64, 65, 1000])
+@pytest.mark.parametrize("L", [1, 15, 16, 17, 31, 32, 33, 63, 64, 65,
+                               1000])
 @pytest.mark.parametrize("B", [1, 4])
 def test_wkv6_matches_plain(B, L, K):
     """bf16 r/k/v views of a packed projection, a carried state, 64 / K
-    heads at K 16 and 64 (rwkv6-7b's heads at full width are 64 of 64)."""
+    heads at K 16 and 64 (rwkv6-7b's heads at full width are 64 of 64); L
+    below 16 (the column kernel) and around the split kernel's 32-step
+    tiles."""
     g = torch.Generator(device=DEV).manual_seed(B * 1000 + L + K)
     _wkv6_check(*_wkv6_inputs(B, L, 64 // K * 2, K, g, torch.bfloat16,
                               "mid"))
@@ -452,6 +462,84 @@ def test_wkv6_decay_extremes_dtypes_and_views(dtype, decay, layout):
     multiple of 16: the padded rows stay 0) and B 3."""
     g = torch.Generator(device=DEV).manual_seed(len(decay) + len(layout))
     _wkv6_check(*_wkv6_inputs(3, 300, 3, 40, g, dtype, decay, layout))
+
+
+# rwkv6-7b's own calls: the 2,048-token prefill (one prompt, a zero state
+# and a carried one) and the 4-slot decode step (L 1, a carried state)
+RWKV6_CALLS = {"prefill-zero": (1, 2048, False), "prefill-carried":
+               (1, 2048, True), "decode": (4, 1, True)}
+
+
+@pytest.mark.parametrize("call", sorted(RWKV6_CALLS))
+def test_wkv6_at_rwkv6_shapes(call):
+    """H 64 heads of K = V 64, bf16 r/k/v views of the packed projection;
+    the prefill's column groups split every head's state 2 ways, the decode
+    step takes the column kernel."""
+    B, L, carried = RWKV6_CALLS[call]
+    g = torch.Generator(device=DEV).manual_seed(L + B)
+    r, k, v, w, u, s = _wkv6_inputs(B, L, 64, 64, g, torch.bfloat16, "mid")
+    _wkv6_check(r, k, v, w, u, s if carried else torch.zeros_like(s))
+
+
+@pytest.mark.parametrize("layout", ["packed", "misaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("K", [24, 40])
+def test_wkv6_head_dims_off_the_column_group(K, dtype, layout):
+    """K 24 and 40 leave the last 32-column group part empty (its padded
+    columns and rows stay 0 and are never written); a view one element off
+    the packed one stages by 4-byte copies (f32) or plain loads (bf16). L
+    100 over 32-step tiles, B 2, a carried state."""
+    g = torch.Generator(device=DEV).manual_seed(K + len(layout))
+    r, k, v, w, u, s = _wkv6_inputs(2, 100, 3, K, g, dtype, "mid", layout)
+    assert layout == "packed" or r.data_ptr() % 16
+    _wkv6_check(r, k, v, w, u, s)
+
+
+_WKV6_PROFILE_CHILD = """
+import json, sys, torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels.wkv6 import ops
+B, L = json.loads(sys.argv[1])
+H, K = 64, 64
+g = torch.Generator(device="cuda").manual_seed(0)
+r, k, v = (torch.randn((B, L, H, K), generator=g, device="cuda").bfloat16()
+           for _ in range(3))
+w = torch.rand((B, L, H, K), generator=g, device="cuda")
+u = torch.randn((H, K), generator=g, device="cuda")
+s = torch.randn((B, H, K, K), generator=g, device="cuda")
+ops.wkv6(r, k, v, w, u, s)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    ops.wkv6(r, k, v, w, u, s)
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")]))
+"""
+
+
+@pytest.mark.parametrize("B,L", [(1, 2048), (4, 1)],
+                         ids=["prefill", "decode"])
+def test_wkv6_one_kernel_a_call(B, L):
+    """One call launches the WKV6 kernel alone (no copy, no fill), from a
+    torch.profiler trace after a warm-up call, taken in a fresh child
+    process: traces taken earlier in one process can drop a later trace's
+    records (tools/profiler_probe.py)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(src)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    run = subprocess.run(
+        [sys.executable, "-c", _WKV6_PROFILE_CHILD, json.dumps([B, L])],
+        env=env, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    names = json.loads(run.stdout.strip().splitlines()[-1])
+    assert len(names) == 1 and "wkv6_fwd" in names[0], names
 
 
 def test_wkv6_zero_state_and_back_to_back_calls_are_bit_identical():

@@ -29,9 +29,10 @@ served mirror): one block every call, the four in turn, and the four in
 turn with a 128 MB write between calls that evicts the 50 MB L2, each
 with the number of kernel records the trace holds; and (``ssm``) the WKV6
 recurrence at rwkv6-7b's prefill (B=1, L=2,048, H=64, K=V=64, bf16 r/k/v,
-a zero state) beside its operations bound, K4 at zamba2-7b's prefill
-(B=1, L=4,096, H=32, Dh=112, causal) and K3 at its decode (B=4, H=32,
-Dh=112, kv_len 4,096 of 8,192). For each call it prints every device kernel the call launched
+a zero state) beside its operations bound and at its decode step (B=4,
+L=1, a carried state), K4 at zamba2-7b's prefill (B=1, L=4,096, H=32,
+Dh=112, causal) and K3 at its decode (B=4, H=32, Dh=112, kv_len 4,096 of
+8,192) beside its bytes bound and scaled_dot_product_attention. For each call it prints every device kernel the call launched
 (pass 1 and pass 2 of K1/K2 apart, K3's casts and passes apart) with its
 mean time per call; for K4 the achieved TFLOP/s of the causal half, for
 K1, K2 and K3 the share of their bytes bound (3.35 TB/s) that their own
@@ -318,35 +319,42 @@ def trace_prefill(torch, fa, g, iters: int, res: dict) -> None:
 
 
 def trace_ssm(torch, fa, g, iters: int, res: dict) -> None:
-    """WKV6 at rwkv6-7b's prefill; K4 and K3 at zamba2-7b's head dim 112.
-    WKV6's bound counts the fp32 flops the function needs a (token, head),
-    5 K V + 3 K + 2 V, over 67 TFLOP/s, and the bytes it moves once (r,
-    k, v bf16; w, y f32; u; the state in and out) over 3.35 TB/s."""
+    """WKV6 at rwkv6-7b's prefill (a zero state) and at its decode step (B
+    4, L 1, a carried state; 32 layers a step); K4 and K3 at zamba2-7b's
+    head dim 112, with SDPA beside K3. WKV6's bound counts the fp32 flops
+    the function needs a (token, head), 5 K V + 3 K + 2 V, over 67
+    TFLOP/s, and the bytes it moves once (r, k, v bf16; w, y f32; u; the
+    state in and out) over 3.35 TB/s."""
+    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.wkv6 import ops as wkv6
-    B, L, H, K = 1, 2048, 64, 64
-    r, k, v = (torch.randn((B, L, H, K), generator=g,
-                           device="cuda").bfloat16() for _ in range(3))
-    w = torch.exp(-torch.exp(-3.0 + 4.0 * torch.rand(
-        (B, L, H, K), generator=g, device="cuda")))
-    u = torch.randn((H, K), generator=g, device="cuda").bfloat16()
-    s0 = torch.zeros((B, H, K, K), device="cuda")
-    split, _ = device_kernel_ms(torch, lambda: wkv6.wkv6(r, k, v, w, u, s0),
-                                iters)
-    own = sum(t for n, t in split.items() if "wkv6_fwd" in n)
-    flops = B * L * H * (5.0 * K * K + 3 * K + 2 * K)
-    nbytes = (3 * 2 + 4 + 4) * B * L * H * K + 2 * H * K \
-        + 2 * 4 * B * H * K * K
-    bound_ms = 1e3 * max(flops / H100_FP32_FLOPS, nbytes / H100_BYTES_PER_S)
-    res["wkv6/prefill"] = {"kernels_ms": split, "kernel_ms": own,
-                           "bound_ms": bound_ms,
-                           "share_of_bound": bound_ms / own if own else None}
-    print(f"[trace] wkv6 B={B} L={L} H={H} K={K} bf16: " + "; ".join(
-        f"{n} {t:.4f} ms" for n, t in split.items())
-        + f"; bound {bound_ms:.4f} ms ({flops / 1e9:.2f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB), share "
-          f"{bound_ms / own if own else float('nan'):.3f}", flush=True)
-    del r, k, v, w
+    H, K = 64, 64
+    for key, B, L, carried in (("wkv6/prefill", 1, 2048, False),
+                               ("wkv6/decode", 4, 1, True)):
+        r, k, v = (torch.randn((B, L, H, K), generator=g,
+                               device="cuda").bfloat16() for _ in range(3))
+        w = torch.exp(-torch.exp(-3.0 + 4.0 * torch.rand(
+            (B, L, H, K), generator=g, device="cuda")))
+        u = torch.randn((H, K), generator=g, device="cuda").bfloat16()
+        s0 = torch.randn((B, H, K, K), generator=g, device="cuda") \
+            if carried else torch.zeros((B, H, K, K), device="cuda")
+        split, _ = device_kernel_ms(
+            torch, lambda: wkv6.wkv6(r, k, v, w, u, s0), iters)
+        own = sum(t for n, t in split.items() if "wkv6_fwd" in n)
+        flops = B * L * H * (5.0 * K * K + 3 * K + 2 * K)
+        nbytes = (3 * 2 + 4 + 4) * B * L * H * K + 2 * H * K \
+            + 2 * 4 * B * H * K * K
+        bound_ms = 1e3 * max(flops / H100_FP32_FLOPS,
+                             nbytes / H100_BYTES_PER_S)
+        res[key] = {"kernels_ms": split, "kernel_ms": own,
+                    "bound_ms": bound_ms,
+                    "share_of_bound": bound_ms / own if own else None}
+        print(f"[trace] {key} B={B} L={L} H={H} K={K} bf16: " + "; ".join(
+            f"{n} {t:.4f} ms" for n, t in split.items())
+            + f"; bound {bound_ms:.4f} ms ({flops / 1e9:.4f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB), share "
+              f"{bound_ms / own if own else float('nan'):.3f}", flush=True)
+        del r, k, v, w
     L, H, Dh = 4096, 32, 112
     q, k, v = (torch.randn((1, L, H, Dh), generator=g,
                            device="cuda").bfloat16() for _ in range(3))
@@ -363,11 +371,27 @@ def trace_ssm(torch, fa, g, iters: int, res: dict) -> None:
     kv_len = torch.full((Bd,), n_kv, dtype=torch.int32, device="cuda")
     split, _ = device_kernel_ms(
         torch, lambda: da.decode_attention(q, k, v, kv_len), iters)
-    res["decode_attention/dh112"] = {"kernels_ms": split}
+    nbytes = 2 * Bd * H * Dh * 2 + 2 * Bd * n_kv * H * Dh * 2 + Bd * 4
+    bound_ms = 1e3 * nbytes / H100_BYTES_PER_S
+    own = sum(split.values())
+    res["decode_attention/dh112"] = {
+        "kernels_ms": split, "bound_ms": bound_ms,
+        "share_of_bound": bound_ms / own if own else None}
     print(f"[trace] decode_attention Dh 112 B={Bd} H={H}/{H} Lc={Lc} "
           f"kv_len={n_kv} bf16: "
-          + "; ".join(f"{n} {t:.4f} ms" for n, t in split.items()),
-          flush=True)
+          + "; ".join(f"{n} {t:.4f} ms" for n, t in split.items())
+          + f"; bound {bound_ms:.4f} ms (bytes), share "
+            f"{bound_ms / own if own else float('nan'):.3f}", flush=True)
+    mask = (torch.arange(Lc, device="cuda")[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    split, _ = device_kernel_ms(
+        torch, lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask), iters)
+    res["sdpa/dh112"] = {"kernels_ms": split, "all_ms": sum(split.values())}
+    print("[trace] sdpa Dh 112 (the same call): " + "; ".join(
+        f"{n} {t:.4f} ms" for n, t in split.items())
+        + f"; total {sum(split.values()):.4f} ms", flush=True)
 
 
 def trace_decode(torch, g, iters: int, res: dict) -> None:
