@@ -5,10 +5,10 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build    — all four kernels from ``src/repro_torch/csrc`` (K1, K2
-              cosine top-k; K3 decode attention; K4 prefill attention),
-              one nvcc per source, started together; ptxas register and
-              spill lines logged;
+1. build    — every kernel source in ``src/repro_torch/csrc`` (K1, K2
+              cosine top-k; K3 decode attention; K4 prefill attention and
+              its backward; K5 WKV6), one nvcc per source, started
+              together; ptxas register and spill lines logged;
 2. kernels  — K1 (f32) and K2 (int8) against their plain PyTorch versions
               at serving shapes (D=768, N=65,536 rows, B in {0, 1, 4, 5, 8,
               32, 33}, k in {1, 16}, early exit on/off, a valid mask with
@@ -264,13 +264,57 @@ Phases (any failure exits non-zero and prints no result line):
               phases'), a profiled prefill and two decode steps of each
               model (busy ms, WKV6's/K4's/K3's share, idle share), prefill
               and decode ms and peak memory logged; WKV6 timed at rwkv6's
-              prefill and K4/K3 at zamba2's head dim 112.
+              prefill and K4/K3 at zamba2's head dim 112 (in the timing
+              child, below).
+13. train   — the training path, after ssm_hybrid, once its weights are
+              freed: (a) the attention backward's two kernels
+              (``csrc/flash_attention_bwd.cu``: dQ, then dK/dV) against
+              their plain version ``attention_bwd_ref`` in f32 and bf16
+              over every mask mode (causal, bidirectional, window, prefix,
+              cross attention with Lq != Lkv, an explicit q_offset, masked
+              rows), head dims 64, 112 and 128 at 1, 5 and 8 query heads a
+              kv head, at qwen3-14b's 4,096-token prefill (40/8 heads
+              of 128), and at the two trainers' shapes of (c) (the
+              embedder's f32 B 48 x 24 tokens, 12 heads of 64,
+              bidirectional; the reduced qwen3's bf16 B 8 x 128, 4 heads
+              of 16, causal), f32 within 1e-5 of the largest |gradient|,
+              bf16 within 2^-7 |plain| + 2^-5 x the row's rms of the
+              terms' root sum of squares; a kv tile dropped from (a)'s
+              pass 2 and one from (b) must each exceed the limit (at 256
+              and 4,096 causal tokens and at both trainers' shapes); (b)
+              qwen3-14b at full
+              width cut to 4 of 40 layers (2.88 B params; remat on, bf16),
+              B 1 x 4,096 tokens, chunked CE of 512: one step's loss, grad
+              norm and every gradient leaf held against the same step with
+              every attention call plain, then 4 steps of
+              ``make_train_step`` with AdamW (lr 3e-3, warmup 1) on that
+              fixed batch: the loss falls, the backward kernels launch at
+              least twice a layer a step and the plain backward never;
+              step ms, peak memory and a traced step (busy ms, idle share,
+              the backward kernels' and K4's shares) logged; (c)
+              ``launch.train --reduced --steps 10`` on the card (the loss
+              decreases) and ``launch.train_embedder`` at the full
+              siso-embedder in f32 for 60 steps (the dup/non-dup gap
+              widens and stays positive; the f32 K4 and the f32 backward
+              every step).
+
+Every kernel's timing (CUDA events, the plain version, the library call,
+the bound, and the profiler's device time) is taken in one child process
+of this script (``--timing-child``), started after phase 2's checks,
+so that no earlier trace in the process can drop a kernel's record (late
+traces lose them: tools/profiler_probe.py); K1-local's is taken in phase
+9 on the served mirror's blocks.
 
 The line before the last is a JSON object with one entry per kernel (K1's
 shard-local mode, K3's int8 mode and K4's f32 mode, the embedder's call,
 and both attention kernels' Dv mode, MLA's, their own entries, with
 their own bounds; the WKV6 recurrence ``wkv6``, which no library call
-computes; every entry also carries ``device_ms``, the profiler's
+computes; the attention backward's two kernels,
+``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` (bf16, at
+qwen3-14b's prefill) and their f32 instances ``flash_attention_bwd_dq_f32``
+and ``flash_attention_bwd_dkv_f32`` (the embedder's call), each with its
+own launches and bound and SDPA's backward as its library call; every
+entry also carries ``device_ms``, the profiler's
 device time, and each entry with a library call ``library_device_ms``,
 that call's); the line
 before it is the card's name and power limit; the last line is the device
@@ -3098,6 +3142,7 @@ def replicas_child(torch, np, spec_path: str) -> None:
             repl_drive(np, [ra, rb], clock, stream, hi=len(stream) // 2,
                        after_submit=maybe_ready)
             group.drain_all()
+            ckpt = rb.gw.ckpt
         else:
             engine = repl_engines(mcfg, mparams, 1)[0]
             gw = repl_gateway(np, engine, clock, train, spec["dir"])
@@ -3112,6 +3157,10 @@ def replicas_child(torch, np, spec_path: str) -> None:
             repl_drive(np, [rep], clock, mine, rid_base=50_000,
                        after_submit=maybe_ready)
             rep.drain()
+            ckpt = gw.ckpt
+        # the writer thread may still hold phase 1's last snapshots (the
+        # drain's full among them): count the disk once they are written
+        ckpt.wait()
         maybe_ready()
     # phase 1 ended before the snapshots did: say so to the parent
     write_json(out / "calls.json", {"error": "phase 1 ended with "
@@ -5892,8 +5941,9 @@ def phase_ssm_hybrid(torch, np, recorders, seed: int) -> dict:
     at full size, each freed before the next, their K4, K3 and WKV6 calls
     noted by ``recorders`` (three OpsRecorders); every distinct WKV6 call
     of the engine runs held against the plain loop at its own arguments
-    (the K3/K4 calls go to the re-checks with the other phases'); then WKV6
-    timed at rwkv6's prefill and K4/K3 at zamba2's head dim 112."""
+    (the K3/K4 calls go to the re-checks with the other phases'). WKV6 at
+    rwkv6's prefill and K4/K3 at zamba2's head dim 112 are timed in the
+    timing child (``timing_child``)."""
     from repro_torch.models import layers as L, lm, ssm as S
     t0 = time.perf_counter()
     agree = Agreement()
@@ -5914,8 +5964,6 @@ def phase_ssm_hybrid(torch, np, recorders, seed: int) -> dict:
     log(f"[ssm] {len(calls)} distinct WKV6 calls of the engine ({kinds}) "
         f"agree with the plain loop at their own arguments (within "
         f"{WKV6_RTOL} of the largest; max abs err {err:.3g})")
-    timing = {"wkv6": wkv6_timing(torch, seed)}
-    timing.update(dh112_timing(torch, seed))
     launches = dict.fromkeys(ATT_KEYS, 0)
     for k, v in zamba["launches"].items():
         launches[k] += v
@@ -5926,8 +5974,507 @@ def phase_ssm_hybrid(torch, np, recorders, seed: int) -> dict:
                   "inputs,", agree)
     return {"rwkv6-7b": rwkv, "zamba2-7b": zamba, "wkv6_calls": calls,
             "wkv6_max_abs_err": max(err, rwkv["wkv6_err"]),
-            "agreement": agree, "timing": timing,
+            "agreement": agree, "launches": launches, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: training
+# ---------------------------------------------------------------------------
+
+# the backward kernels against attention_bwd_ref: f32 within BWD_RTOL_F32 of
+# the plain version's largest |gradient| (fp32 FMAs summed in another
+# order); bf16 within 2^-7 |plain| + BWD_ROW_RTOL x the row's rms of the
+# root sum of squares of the gradient's terms (ref.attention_bwd_rss): P
+# and dS are rounded to bf16 as tensor-core operands (about 2^-9 each, of
+# random sign), and a gradient row can cancel to 0 where its terms do not
+BWD_RTOL_F32 = 1e-5
+BWD_ROW_RTOL = 2.0 ** -5
+BWD_TIMED = dict(B=1, Lq=4096, Lkv=4096, H=40, Hkv=8, Dh=128)  # qwen3-14b
+BWD_EMBED = dict(B=48, Lq=24, Lkv=24, H=12, Hkv=12, Dh=64)     # embedder
+BWD_FAULT_TILE = (64, 128)   # the kv tile each planted fault drops (the
+                             # first, (0, Lkv), where Lkv <= 64)
+# launch.train --reduced's attention (B 8 x 128 tokens, qwen3-14b reduced)
+BWD_REDUCED = dict(B=8, Lq=128, Lkv=128, H=4, Hkv=4, Dh=16)
+# (shape, mask) of (a): every mode at B 2, H 10/2, Dh 64; then head dims
+# 64, 112 and 128 at G = 1, 5 and 8
+BWD_SWEEP = tuple(
+    (dict(B=2, Lq=lq, Lkv=lkv, H=10, Hkv=2, Dh=64), kw) for lq, lkv, kw in (
+        (200, 200, dict(causal=True)),
+        (150, 150, dict(causal=False)),
+        (300, 300, dict(causal=True, window=70)),
+        (260, 260, dict(causal=True, prefix_len=96)),
+        (77, 190, dict(causal=False)),                  # cross attention
+        (100, 230, dict(causal=True, q_offset=40)),
+        (90, 90, dict(causal=True, q_offset=-20)))      # masked rows
+) + tuple((dict(B=1, Lq=129, Lkv=129, H=2 * G, Hkv=2, Dh=d),
+           dict(causal=True)) for d in (64, 112, 128) for G in (1, 5, 8))
+
+TRAIN_ARCH = "qwen3-14b"
+TRAIN_LAYERS = 4     # of 40: 2.88 B params, 34.5 GB with bf16 grads and
+                     # f32 moments; all 40 would be about 177 GB
+TRAIN_SEQ = 4096     # train_4k's sequence length, B 1
+TRAIN_CE_CHUNK = 512
+TRAIN_STEPS = 4
+TRAIN_LR = 3e-3      # warmup 1, as the reference's tiny train
+                     # (tests/test_models.py:115)
+# one step's loss, global grad norm and per-leaf gradients against the same
+# step with every attention call plain (written before the first run):
+# K4's bf16 output sits within 2^-5 of a row's rms of the plain one, and the
+# backward's bf16 operands within 2^-9; through 4 bf16 layers a leaf's
+# gradient moves by a few bf16 ulps (2^-8) of its largest
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GNORM_RTOL = 1e-2
+TRAIN_GRAD_RTOL = 0.05
+EMBED_TRAIN_STEPS = 60
+
+
+def bwd_inputs(torch, shape: dict, dtype, seed: int, **kw):
+    """q, k, v, the plain forward's output o (contiguous, as K4's) and a
+    seeded cotangent do."""
+    from repro_torch.kernels.flash_attention import ref
+    q, k, v = flash_inputs(torch, **shape, dtype=dtype, seed=seed)
+    o = ref.attention_ref(q, k, v, p_dtype=v.dtype, **kw).contiguous()
+    do = torch.randn(o.shape, generator=gen(torch, seed + 1),
+                     device=DEV).to(dtype)
+    return q, k, v, o, do
+
+
+def bwd_excess(torch, got, plain, rss) -> float:
+    """The largest error of the three gradients over its limit (f32:
+    BWD_RTOL_F32 of the largest |plain|; bf16: ``kernels.bf16_excess``
+    with the terms' root sum of squares)."""
+    from repro_torch.kernels import bf16_excess
+    if got[0].dtype == torch.float32:
+        return max(float((a - b).abs().max())
+                   / (BWD_RTOL_F32 * float(b.abs().max()))
+                   for a, b in zip(got, plain))
+    return max(bf16_excess(a, b, BWD_ROW_RTOL, scale=r)
+               for a, b, r in zip(got, plain, rss))
+
+
+def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
+                fault: bool = False, **kw) -> None:
+    """The backward kernels on seeded inputs against attention_bwd_ref;
+    with ``fault``, also the kernels' output as it would be without one kv
+    tile in (a)'s pass 2 and without one kv tile's (b) CTA, each of which
+    must fail the limit against the plain version. Notes the largest |kernel - plain| of dq and of dk/dv and the
+    largest share of the limit in ``res``."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    q, k, v, o, do = bwd_inputs(torch, shape, dtype, seed, **kw)
+    got = ops.flash_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    plain = ref.attention_bwd_ref(q, k, v, o, do, **kw)
+    rss = ref.attention_bwd_rss(q, k, v, o, do, **kw)
+    ctx = f"[train] backward {shape} {_dtype_name(dtype)} {kw}"
+    for g in got:
+        check(bool(torch.isfinite(g).all()), f"{ctx}: non-finite gradient")
+    x = bwd_excess(torch, got, plain, rss)
+    dt = _dtype_name(dtype)
+    res["share"][dt] = max(res["share"][dt], x)
+    err = res["err"][dt]
+    err["dq"] = max(err["dq"], float(
+        (got[0].float() - plain[0].float()).abs().max()))
+    err["dkv"] = max(err["dkv"], max(
+        float((a.float() - b.float()).abs().max())
+        for a, b in zip(got[1:], plain[1:])))
+    res["n"] += 1
+    check(x <= 1.0, f"{ctx}: {x:.3g} of the limit")
+    if not fault:
+        return
+    t0, t1 = BWD_FAULT_TILE if shape["Lkv"] > 64 else (0, shape["Lkv"])
+    p, dp, dsum, _, _, scale = ref._bwd_terms(
+        q, k, v, o, do, kw.get("causal", True), kw.get("window"),
+        kw.get("prefix_len", 0), kw.get("q_offset"))
+    part = torch.einsum("bhgqk,bkhd->bqhgd", (p * (dp - dsum))[..., t0:t1],
+                        k[:, t0:t1].float())
+    dq_fault = (got[0].float() - part.reshape(q.shape) * scale).to(dtype)
+    dk_fault = got[1].clone()
+    dk_fault[:, t0:t1] = 0
+    del p, dp, dsum, part
+    fa = bwd_excess(torch, (dq_fault, got[1], got[2]), plain, rss)
+    fb = bwd_excess(torch, (got[0], dk_fault, got[2]), plain, rss)
+    res["faults"].append({"shape": shape, "dtype": dt, "dq_tile_dropped": fa,
+                          "dkv_tile_dropped": fb})
+    check(fa > 1.0 and fb > 1.0,
+          f"{ctx}: a dropped kv tile stays within the limit ((a) {fa:.3g}, "
+          f"(b) {fb:.3g})")
+
+
+def train_kernels(torch, seed: int) -> dict:
+    """(a): the backward kernels against their plain version over
+    BWD_SWEEP in f32 and bf16, at qwen3-14b's 4,096-token prefill in bf16
+    and at 1,024 tokens in f32, and at the shapes (c)'s trainers give them
+    (the embedder's in f32, the reduced qwen3's in bf16); the planted
+    faults at 256 tokens, at 4,096 and at both trainers' shapes."""
+    res = {"err": {dt: {"dq": 0.0, "dkv": 0.0}
+                   for dt in ("float32", "bfloat16")},
+           "share": {"float32": 0.0, "bfloat16": 0.0}, "n": 0, "faults": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (shape, kw) in enumerate(BWD_SWEEP):
+            bwd_compare(torch, res, shape, dtype, seed + 300 + i, **kw)
+        bwd_compare(torch, res, dict(B=1, Lq=256, Lkv=256, H=8, Hkv=2,
+                                     Dh=128), dtype, seed + 340, fault=True,
+                    causal=True)
+    bwd_compare(torch, res, dict(BWD_TIMED, Lq=1024, Lkv=1024),
+                torch.float32, seed + 341, causal=True)
+    bwd_compare(torch, res, BWD_TIMED, torch.bfloat16, seed + 342,
+                fault=True, causal=True)
+    bwd_compare(torch, res, BWD_EMBED, torch.float32, seed + 343,
+                fault=True, causal=False)
+    bwd_compare(torch, res, BWD_REDUCED, torch.bfloat16, seed + 344,
+                fault=True, causal=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] (a) {res['n']} backward calls agree with the plain version "
+        f"(f32 {BWD_RTOL_F32} of the largest |gradient|, largest share "
+        f"{res['share']['float32']:.3g}; bf16 2^-7 |plain| + 2^-5 x the "
+        f"row's rms of the terms' root sum of squares, largest share "
+        f"{res['share']['bfloat16']:.3g}); max abs err dq, dk/dv: " + ", ".join(
+            f"{dt} {e['dq']:.3g}, {e['dkv']:.3g}"
+            for dt, e in res["err"].items()) + "; planted faults " + "; ".join(
+            f"{f['dtype']} B {f['shape']['B']} L {f['shape']['Lq']}: (a) "
+            f"{f['dq_tile_dropped']:.3g}"
+            f", (b) {f['dkv_tile_dropped']:.3g} of the limit"
+            for f in res["faults"]))
+    return res
+
+
+def train_trace(torch, fn) -> dict:
+    """``fn`` (one train step) under torch.profiler: the device's busy ms,
+    the backward kernels' ms (``fab::bwd``) and K4's forward (``flash_bf16``)
+    and their shares of it, the largest kernels. The profiled wall clock
+    carries the profiler's own host cost; the caller sets the idle share
+    against an untraced step's."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    tr = device_summary(prof, 1)
+    if not tr:
+        return {"profiled_wall_ms": wall}
+    by = tr.pop("by_name_ms")
+    bwd = {n.split("(")[0][:60]: t for n, t in by.items() if "fab::bwd" in n}
+    k4 = sum(t for n, t in by.items() if "flash_bf16" in n)
+    return {"profiled_wall_ms": wall, **tr, "bwd_ms": bwd, "bwd_share": sum(bwd.values()) / tr["busy_ms"],
+            "k4_ms": k4, "k4_share": k4 / tr["busy_ms"]}
+
+
+def train_qwen3(torch, np, seed: int) -> dict:
+    """(b): qwen3-14b at full width cut to TRAIN_LAYERS layers, remat on,
+    bf16 params: one step's loss, grad norm and gradients held against the
+    same step with every attention call plain; then TRAIN_STEPS steps of
+    ``make_train_step`` on one fixed B 1 x TRAIN_SEQ batch, the last one
+    traced."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fr
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import layers as L, lm
+    from repro_torch.training import optimizer as opt
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS, remat=True)
+    params = lm.init_params(gen(torch, seed + 400), cfg, DEV)
+    n_params = lm.n_params(params)
+    batch = synth_batch(cfg, np.random.default_rng(seed + 401), 1, TRAIN_SEQ,
+                        DEV)
+    def grads():
+        return steps.value_and_grad(lambda p: steps.chunked_ce_loss(
+            p, cfg, batch, TRAIN_CE_CHUNK)[0], params)
+    loss_k, g_k = grads()
+    with swap_attention(L):
+        loss_p, g_p = grads()
+    norm_k, norm_p = float(opt.global_norm(g_k)), float(opt.global_norm(g_p))
+    worst, worst_leaf = 0.0, None
+    for (path, a), (_, b) in zip(opt.tree_leaves(g_k), opt.tree_leaves(g_p)):
+        top = float(b.abs().max())
+        r = float((a.float() - b.float()).abs().max()) / top if top else \
+            float(a.abs().max())
+        if r > worst:
+            worst, worst_leaf = r, "/".join(map(str, path))
+    del g_k, g_p
+    held = {"loss": float(loss_k), "loss_plain": float(loss_p),
+            "grad_norm": norm_k, "grad_norm_plain": norm_p,
+            "worst_leaf": worst_leaf, "worst_leaf_rel": worst}
+    log(f"[train] (b) {TRAIN_ARCH} x {TRAIN_LAYERS} layers ({n_params / 1e9:.2f}"
+        f" B params, bf16, remat), B 1 x {TRAIN_SEQ}: one step with the "
+        f"kernels against the plain attention: loss {held['loss']:.5f} vs "
+        f"{held['loss_plain']:.5f}, grad norm {norm_k:.5f} vs {norm_p:.5f}, "
+        f"largest leaf difference {worst:.4g} of its largest |gradient| "
+        f"({worst_leaf})")
+    check(abs(held["loss"] - held["loss_plain"])
+          <= TRAIN_LOSS_RTOL * abs(held["loss_plain"]),
+          f"[train] loss {held['loss']} vs plain {held['loss_plain']}")
+    check(abs(norm_k - norm_p) <= TRAIN_GNORM_RTOL * norm_p,
+          f"[train] grad norm {norm_k} vs plain {norm_p}")
+    check(worst <= TRAIN_GRAD_RTOL,
+          f"[train] gradient leaf {worst_leaf} differs by {worst:.4g} of its "
+          f"largest |gradient|")
+    gc.collect()
+    torch.cuda.empty_cache()
+    state = opt.init_state(params)
+    step = steps.make_train_step(cfg, optc=opt.AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=30),
+        ce_chunk=TRAIN_CE_CHUNK)
+    zero_attention_launches()
+    fa.flash_attention.launches_bwd = fa.flash_attention.launches_bwd_f32 = 0
+    fr.attention_bwd_ref.calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, host_ms, tr = [], [], {}
+    for i in range(TRAIN_STEPS):
+        def one():
+            nonlocal params, state
+            params, state, metrics = step(params, state, batch)
+            losses.append(float(metrics["loss"]))
+        t0 = time.perf_counter()
+        if i == TRAIN_STEPS - 1:
+            tr = train_trace(torch, one)
+        else:
+            one()
+            torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = statistics.median(host_ms[:-1])
+    if tr.get("busy_ms"):
+        tr["idle_share"] = max(0.0, 1.0 - tr["busy_ms"] / step_ms)
+    bwd_launches = fa.flash_attention.launches_bwd
+    plain_bwd = fr.attention_bwd_ref.calls
+    att = attention_launches()
+    log(f"[train] (b) {TRAIN_STEPS} steps (lr {TRAIN_LR}, warmup 1): losses "
+        f"{[round(x, 5) for x in losses]}; host ms a step "
+        f"{[round(x, 1) for x in host_ms]} (the last profiled; median of "
+        f"the others {step_ms:.1f}); peak memory "
+        f"{peak:.1f} GiB; backward kernel launches {bwd_launches}, plain "
+        f"backward calls {plain_bwd}, K4 launches {att['flash_attention']}")
+    if tr.get("busy_ms"):
+        log(f"[train] (b) traced step: wall {tr['profiled_wall_ms']:.1f} ms, "
+            f"device busy {tr['busy_ms']:.3f} ms (idle share "
+            f"{tr['idle_share']:.3f} of an untraced step's "
+            f"{step_ms:.1f} ms; {tr['device_events']} device events); "
+            f"backward kernels {tr['bwd_ms']} ({tr['bwd_share']:.4f} of busy)"
+            f", K4 forward {tr['k4_ms']:.3f} ms ({tr['k4_share']:.4f}); most "
+            "device time: " + "; ".join(f"{n} {t:.3f} ms"
+                                        for n, t in tr["top_kernels_ms"]))
+    else:
+        log("[train] (b) traced step: no device activity recorded (not "
+            "measured)")
+    check(all(np.isfinite(losses)), f"[train] non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"[train] the loss did not fall: {losses}")
+    check(bwd_launches >= 2 * TRAIN_LAYERS * TRAIN_STEPS,
+          f"[train] {bwd_launches} backward kernel launches in "
+          f"{TRAIN_STEPS} steps of {TRAIN_LAYERS} layers")
+    check(plain_bwd == 0, f"[train] the plain backward ran {plain_bwd} "
+                          f"times on the card")
+    del params, state, batch
+    return {"n_params": n_params, "held": held, "losses": losses,
+            "host_ms": host_ms, "step_ms": step_ms, "peak_gib": peak,
+            "trace": tr,
+            "bwd_launches": bwd_launches, "launches": att}
+
+
+def train_launchers(torch, np) -> dict:
+    """(c): ``launch.train`` on the reduced model, 10 steps on the card,
+    and ``launch.train_embedder`` at the full siso-embedder in f32 for
+    EMBED_TRAIN_STEPS steps (f32 K4 forward and the f32 backward kernels
+    every step)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import train, train_embedder
+    t0 = time.perf_counter()
+    res = train.run(["--reduced", "--steps", "10", "--device", DEV])
+    losses = res["losses"]
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    check(last < first, f"[train] (c) launch.train's loss did not decrease: "
+                        f"{losses}")
+    lm_s = time.perf_counter() - t0
+    f32_0, bwd_0 = fa.flash_attention.launches_f32, \
+        fa.flash_attention.launches_bwd_f32
+    t0 = time.perf_counter()
+    emb = train_embedder.train(steps=EMBED_TRAIN_STEPS, full=True,
+                               device=DEV, log_every=0)
+    emb_s = time.perf_counter() - t0
+    (d0, n0), (d1, n1) = emb["before"], emb["after"]
+    per_step = 2 * 6        # two encodes of the 6 shared layers
+    f32 = fa.flash_attention.launches_f32 - f32_0
+    bwd = fa.flash_attention.launches_bwd_f32 - bwd_0
+    log(f"[train] (c) launch.train --reduced: loss {first:.3f} -> {last:.3f} "
+        f"in 10 steps ({lm_s:.1f} s); train_embedder (d 768, f32, "
+        f"{EMBED_TRAIN_STEPS} steps, {emb_s:.1f} s): gap {d0 - n0:+.3f} -> "
+        f"{d1 - n1:+.3f} (dup {d1:.3f}, non-dup {n1:.3f}); f32 K4 launches "
+        f"{f32}, f32 backward kernel launches {bwd}")
+    check(d1 - n1 > 0 and d1 - n1 > d0 - n0,
+          f"[train] (c) the embedder's gap did not widen: {emb}")
+    check(f32 >= EMBED_TRAIN_STEPS * per_step
+          and bwd >= 2 * EMBED_TRAIN_STEPS * per_step,
+          f"[train] (c) f32 K4 launches {f32}, f32 backward launches {bwd} in "
+          f"{EMBED_TRAIN_STEPS} steps")
+    return {"lm_losses": losses, "embedder": emb, "lm_s": lm_s,
+            "embedder_s": emb_s}
+
+
+def phase_train(torch, np, seed: int) -> dict:
+    """Phase 13: the backward kernels against their plain version (a),
+    qwen3-14b training at full width (b) and the two trainers (c). The
+    backward's launches and K4's on the main path are counted from (b)'s
+    steps to the end of (c)."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    t0 = time.perf_counter()
+    kern = train_kernels(torch, seed)
+    qwen = train_qwen3(torch, np, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launchers = train_launchers(torch, np)
+    launches = attention_launches()
+    launches["flash_attention_bwd"] = fa.flash_attention.launches_bwd
+    launches["flash_attention_bwd_f32"] = fa.flash_attention.launches_bwd_f32
+    wall = time.perf_counter() - t0
+    log(f"[train] phase done in {wall:.1f} s; launches {launches}")
+    return {"kernels": kern, "qwen3": qwen, "launchers": launchers,
             "launches": launches, "wall_s": wall}
+
+
+def bwd_timing(torch, seed: int) -> dict:
+    """The backward's two kernels at qwen3-14b's 4,096-token causal prefill
+    (BWD_TIMED, bf16): each kernel by CUDA events, (a) then (b) on the same
+    buffers; the plain backward; SDPA's backward (autograd of
+    scaled_dot_product_attention, is_causal, enable_gqa; a yardstick the
+    port never calls); the bound; and each kernel's device ms from a
+    profiled call, which must launch the two and nothing else. The bound
+    of each kernel counts the products its outputs need in a standard
+    backward, over the causal half: (a) S, dP and dQ, (b) S, dP, dV and
+    dK (the five of a fused backward are S, dP, dV, dQ, dK; the extra Q K^T
+    pass of (a) is not credited), against the bytes of its inputs read and
+    outputs written once. The same at the embedder's f32 shape
+    (BWD_EMBED, bidirectional), the f32 instances' entries. A profiled
+    call that records no kernel fails."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fr
+    out = {}
+    for label, shape, dtype, causal in (
+            ("prefill", BWD_TIMED, torch.bfloat16, True),
+            ("embedder", BWD_EMBED, torch.float32, False)):
+        B, L, H, Hkv, Dh = (shape[x] for x in ("B", "Lq", "H", "Hkv", "Dh"))
+        q, k, v, o, do = bwd_inputs(torch, shape, dtype, seed + 39,
+                                    causal=causal)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        lse = torch.empty((B, H, L), device=DEV)
+        dsum = torch.empty_like(lse)
+        esz = q.element_size()
+        pairs = L * (L + 1) // 2 if causal else L * L
+        prod = 2.0 * B * H * Dh * pairs
+        peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else \
+            H100_FP32_FLOPS
+        qb, kb = esz * B * L * H * Dh, esz * B * L * Hkv * Dh
+        stats = 2 * 4 * B * H * L
+        bounds = {"dq": att_bound(3 * qb + 2 * kb + qb + stats, 3 * prod,
+                                  peak),
+                  "dkv": att_bound(2 * qb + 2 * kb + 2 * kb + stats,
+                                   4 * prod, peak)}
+        whole = att_bound(3 * qb + 2 * kb + qb + 2 * kb, 5 * prod, peak)
+        plain_ms = cuda_ms(torch, lambda: fr.attention_bwd_ref(
+            q, k, v, o, do, causal=causal), iters=3, warmup=1)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=H != Hkv)
+        dot = do.transpose(1, 2)
+        lib = lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                          retain_graph=True)
+        lib_ms = cuda_ms(torch, lib)
+        lib_dev = library_device_ms(torch, lib)
+        sys.path.insert(0, str(ROOT))
+        from tools.trace_kernels import device_kernel_ms
+        own, records = device_kernel_ms(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, o, do, causal=causal), iters=10)
+        names = sorted(n.split("(")[0].split("<")[0].replace("void ", "")
+                       for n in own)
+        check(names == ["fab::bwd_dkv_" + _kind(dtype),
+                        "fab::bwd_dq_" + _kind(dtype)],
+              f"[timing] flash_attention_bwd {label}: one call launches "
+              f"{list(own)}, not its two kernels alone")
+        for part, name in enumerate(("dq", "dkv")):
+            call = (lambda part=part: K.launch_bwd(
+                q, k, v, o, do, dq, dk, dv, lse, dsum, causal=causal,
+                window=0, prefix_len=0, q_offset=0, part=part))
+            dev = [t for n, t in own.items() if f"bwd_{name}_" in n]
+            b_ms, b_by = bounds[name]
+            rec = {"shape": shape, "dtype": _dtype_name(dtype),
+                   "causal": causal, "ms": cuda_ms(torch, call),
+                   "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "device_ms": dev[0],
+                   "library_device_ms": lib_dev["library_device_ms"],
+                   "whole_bound_ms": whole[0],
+                   "device_records": list(records.values())}
+            key = (f"flash_attention_bwd_{name}" if label == "prefill"
+                   else f"flash_attention_bwd_{name}_f32")
+            out[key] = rec
+            log(f"[timing] flash_attention_bwd ({'a' if part == 0 else 'b'})"
+                f" {name} {label} {shape} {_dtype_name(dtype)}: kernel "
+                f"{rec['ms']:.4f} ms (CUDA events), {rec['device_ms']:.4f} ms "
+                f"on the device ({b_ms / rec['device_ms']:.3f} of its bound)"
+                f", plain backward {plain_ms:.4f} ms, SDPA's backward "
+                f"{lib_ms:.4f} ms ({rec['library_device_ms']} ms on the "
+                f"device), bound {b_ms:.4f} ms ({b_by}; the whole "
+                f"backward's {whole[0]:.4f} ms, {whole[1]})")
+        del q, k, v, o, do, dq, dk, dv, qt, kt, vt, sdpa_out, dot
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _kind(dtype) -> str:
+    return "bf16" if "bfloat16" in str(dtype) else "f32"
+
+
+# ---------------------------------------------------------------------------
+# timing, in a fresh process
+# ---------------------------------------------------------------------------
+
+
+def timing_child(torch, out_dir: str, seed: int) -> None:
+    """``--timing-child DIR``: every kernel's timing (CUDA events and the
+    profiler's device time) at the main path's shapes, in this fresh
+    process, so that no earlier trace can drop a record of these
+    (tools/profiler_probe.py): K1/K2, K4/K3 and their Dv mode, WKV6, K4/K3
+    at Dh 112 and the attention backward. Fails if a timed call's trace
+    recorded no kernel of its own. Writes DIR/timing.json and exits."""
+    timing = phase_timing(torch, seed)
+    timing.update(phase_attention_timing(torch, seed))
+    timing["wkv6"] = wkv6_timing(torch, seed)
+    timing.update(dh112_timing(torch, seed))
+    timing.update(bwd_timing(torch, seed))
+    for name, recs in timing.items():
+        for rec in recs if isinstance(recs, list) else [recs]:
+            check(not isinstance(rec, dict) or "device_ms" not in rec
+                  or rec["device_ms"] is not None,
+                  f"[timing] {name}: the profiler recorded no kernel of the "
+                  f"timed call")
+    Path(out_dir).mkdir(parents=True, exist_ok=True)
+    write_json(Path(out_dir) / "timing.json", timing)
+    sys.exit(0)
+
+
+def run_timing_child(seed: int) -> dict:
+    """The timings of ``timing_child``, taken in a child process of this
+    script; its log lines go to this process's stdout. A failure fails the
+    phase."""
+    import os
+    import shutil
+    d = ROOT / "build" / f"timing-{os.getpid()}"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--timing-child", str(d), "--seed", str(seed)],
+                          timeout=600)
+    check(proc.returncode == 0,
+          f"[timing] the timing child exited {proc.returncode}")
+    timing = json.loads((d / "timing.json").read_text())
+    shutil.rmtree(d, ignore_errors=True)
+    log(f"[timing] every kernel timed in a fresh child process in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return timing
 
 
 def nvidia_smi() -> str:
@@ -5954,6 +6501,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # phase 7's killed process
     ap.add_argument("--replicas-child", metavar="SPEC",
                     help=argparse.SUPPRESS)   # phase 8's killed replicas
+    ap.add_argument("--timing-child", metavar="DIR",
+                    help=argparse.SUPPRESS)   # every kernel's timing
     args = ap.parse_args()
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this "
@@ -5976,6 +6525,10 @@ def main() -> int:
         sys.stdout = sys.stderr     # the parent's stdout carries its result
         strict_fp32()
         replicas_child(torch, np, args.replicas_child)
+    if args.timing_child:
+        from repro_torch.device import strict_fp32
+        strict_fp32()
+        timing_child(torch, args.timing_child, args.seed)
     from repro_torch.device import strict_fp32
     from repro_torch.kernels import _build
     from repro_torch.kernels.cosine_topk import ops
@@ -6005,8 +6558,8 @@ def main() -> int:
     agree = phase_attention_kernels(torch, args.seed)
     detail["planted_faults"] = phase_planted_faults(torch, args.seed)
     att_err = agree.err
-    timing = phase_timing(torch, args.seed)
-    timing.update(phase_attention_timing(torch, args.seed))
+    torch.cuda.empty_cache()        # the timing child's room
+    timing = run_timing_child(args.seed)
     detail.update(max_abs_err={**err, **att_err}, timing=timing,
                   kernels_s=time.perf_counter() - t)
     t = time.perf_counter()
@@ -6067,10 +6620,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ssm = phase_ssm_hybrid(torch, np, att_rec, args.seed)
-    timing.update(ssm.pop("timing"))
     agree.merge(ssm.pop("agreement"))
     detail["ssm_hybrid"] = ssm
     detail["ssm_hybrid_s"] = ssm["wall_s"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(torch, np, args.seed)
+    detail["train"] = train
+    detail["train_s"] = train["wall_s"]
     main_err = phase_main_shapes(torch, recorder.calls, args.seed)
     err["cosine_top1_local"] = shard["kernel"]["max_abs_err"]
     check({c[0] for c in recorder.calls} == set(err),
@@ -6116,7 +6673,12 @@ def main() -> int:
             "src/repro/kernels/decode_attention/kernel.py:25",
         # no Pallas kernel: the reference's jnp step scan, which XLA
         # compiles into one loop on the TPU
-        "wkv6": "src/repro/models/ssm.py:93"}
+        "wkv6": "src/repro/models/ssm.py:93",
+        # no Pallas VJP: the reference differentiates its jnp attention
+        "flash_attention_bwd_dq": "src/repro/models/layers.py:157",
+        "flash_attention_bwd_dkv": "src/repro/models/layers.py:157",
+        "flash_attention_bwd_dq_f32": "src/repro/models/layers.py:157",
+        "flash_attention_bwd_dkv_f32": "src/repro/models/layers.py:157"}
     sources = {
         "cosine_topk": "src/repro_torch/csrc/cosine_topk.cu",
         "cosine_top1_local": "src/repro_torch/csrc/cosine_topk.cu",
@@ -6127,7 +6689,14 @@ def main() -> int:
         "decode_attention_int8": "src/repro_torch/csrc/decode_attention.cu",
         "flash_attention_dv": "src/repro_torch/csrc/flash_attention.cu",
         "decode_attention_dv": "src/repro_torch/csrc/decode_attention.cu",
-        "wkv6": "src/repro_torch/csrc/wkv6.cu"}
+        "wkv6": "src/repro_torch/csrc/wkv6.cu",
+        "flash_attention_bwd_dq": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "flash_attention_bwd_dkv":
+            "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "flash_attention_bwd_dq_f32":
+            "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "flash_attention_bwd_dkv_f32":
+            "src/repro_torch/csrc/flash_attention_bwd.cu"}
     # launches on the main path: K1/K2 in their served stream, the slo
     # phase's runs, the planes phase (its killed child included), the
     # replicas phase (its children and the launcher's workers included)
@@ -6156,13 +6725,24 @@ def main() -> int:
             + slo_live["launches"][name] + planes["launches"][name] \
             + replicas["launches"][name] + shard["launches"][name] \
             + zoo["launches"][name] + mla["launches"][name] \
-            + ssm["launches"][name]
+            + ssm["launches"][name] + train["launches"][name]
         check(launches[name] > 0, f"[kernels] {name} was never launched on "
                                   f"the main path")
     # WKV6: phase 12's rwkv6 engine run
     launches["wkv6"] = ssm["launches"]["wkv6"]
     check(launches["wkv6"] > 0, "[kernels] wkv6 was never launched on the "
                                 "main path")
+    # the backward: phase 13's training steps and trainers, each call
+    # launching (a) and (b); bf16 in (b)'s steps and launch.train, f32 in
+    # the embedder's
+    n_f32 = train["launches"]["flash_attention_bwd_f32"]
+    n_bf16 = train["launches"]["flash_attention_bwd"] - n_f32
+    for part in ("dq", "dkv"):
+        launches[f"flash_attention_bwd_{part}"] = n_bf16 // 2
+        launches[f"flash_attention_bwd_{part}_f32"] = n_f32 // 2
+    for name in [n for n in launches if n.startswith("flash_attention_bwd")]:
+        check(launches[name] > 0, f"[kernels] {name} was never launched on "
+                                  f"the main path")
     # timed at the main path's shapes: K1/K2 at the served batch; K4 at the
     # engine's 4,096-token prefill; K3 at engine-long's kv length
     timed = {name: next(r for r in timing[name] if r["B"] == main_b)
@@ -6178,9 +6758,17 @@ def main() -> int:
     timed["flash_attention_dv"] = timing["flash_attention_dv/prefill"]
     timed["decode_attention_dv"] = \
         timing["decode_attention_dv/{}/{}".format(*DV_DECODE_TIMED)]
-    # WKV6 at rwkv6-7b's prefill
+    # WKV6 at rwkv6-7b's prefill; the bf16 backward at qwen3-14b's
+    # prefill, the f32 one at the embedder's call
     timed["wkv6"] = timing["wkv6"]
-    all_err = {**err, **att_err, "wkv6": ssm["wkv6_max_abs_err"]}
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32"):
+        timed[name] = timing[name]
+    all_err = {**err, **att_err, "wkv6": ssm["wkv6_max_abs_err"],
+               **{f"flash_attention_bwd_{part}{sfx}":
+                  train["kernels"]["err"][dt][part]
+                  for part in ("dq", "dkv")
+                  for sfx, dt in (("", "bfloat16"), ("_f32", "float32"))}}
     kernels = []
     for name, rec in timed.items():
         kernels.append({

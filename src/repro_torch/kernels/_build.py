@@ -39,6 +39,8 @@ KERNELS = {
     "decode_attention": ("decode_attention.cu", "decode_attention",
                          [_P] * 10 + [_L] * 21 + [_P]),
     "wkv6": ("wkv6.cu", "wkv6", [_P] * 8 + [_L] * 12 + [_I] * 5 + [_P]),
+    "flash_attention_bwd": ("flash_attention_bwd.cu", "flash_attention_bwd",
+                            [_P] * 10 + [_L] * 12 + [_P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

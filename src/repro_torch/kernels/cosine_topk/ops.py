@@ -5,6 +5,8 @@ For CUDA tensors each wrapper launches its hand-written kernel (see
 ``kernel.py``) on the current stream, or raises; for CPU tensors it runs
 the plain version in ``ref.py``. There is no fallback from one to the
 other. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+The kernels have no backward: under grad mode with an input that requires
+grad they raise (``kernels.refuse_grad``).
 
 ``quantize_rows`` is host numpy, carried over from the reference as is.
 """
@@ -13,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build, on_cpu
+from repro_torch.kernels import _build, on_cpu, refuse_grad
 from repro_torch.kernels.cosine_topk import kernel as K
 from repro_torch.kernels.cosine_topk import ref
 
@@ -139,6 +141,7 @@ def cosine_topk(queries: torch.Tensor, centroids: torch.Tensor, k: int = 1,
     elif queries.shape[0] == 0:
         out = _empty(k, queries.device)
     else:
+        refuse_grad("cosine_topk", queries, centroids)
         out = _k1(queries, centroids, k, valid, theta, block_n, early_exit)
         cosine_topk.launches += 1
     return out if return_hit else out[:2]
@@ -179,6 +182,7 @@ def cosine_top1_local(queries: torch.Tensor, centroids: torch.Tensor,
     if queries.shape[0] == 0:
         vals, idx, _ = _empty(1, queries.device)
     else:
+        refuse_grad("cosine_top1_local", queries, centroids)
         vals, idx, _ = _k1(queries, centroids, 1, valid, 2.0, block_n,
                            False)
         cosine_top1_local.launches += 1
@@ -209,6 +213,7 @@ def cosine_topk_q8(queries: torch.Tensor, codes: torch.Tensor,
     elif B == 0:
         out = _empty(k, queries.device)
     else:
+        refuse_grad("cosine_topk_q8", queries, scales)
         dev = queries.device
         Dp = _ceil_to(max(D, Dc, 1), 128)
         q = _lane_padded(queries, Dp, torch.float32)

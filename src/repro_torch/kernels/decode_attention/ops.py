@@ -8,7 +8,9 @@ mode); of them, those with a value head dim other than the q/k one (MLA's
 materialised decode: a port extension, held against the model layer's jnp
 ``decode_attention``, which takes a separate Dv) also in
 ``decode_attention.launches_dv``, and the other int8-KV ones in
-``decode_attention.launches_int8`` (the two are disjoint).
+``decode_attention.launches_int8`` (the two are disjoint). The kernel
+has no backward: under grad mode with an input that requires grad it
+raises (``kernels.refuse_grad``).
 
 Unlike the Pallas wrapper, the kernel reads the cache in place in the
 port's (B, Lc, Hkv, Dh) layout (no transposed or padded copy of the
@@ -20,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import on_cpu
+from repro_torch.kernels import on_cpu, refuse_grad
 from repro_torch.kernels.decode_attention import kernel as K
 from repro_torch.kernels.decode_attention import ref
 
@@ -48,6 +50,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if on_cpu(q, k_cache, v_cache, kv_len, k_scale, v_scale):
         return ref.decode_attention_ref(q, k_cache, v_cache, kv_len,
                                         k_scale=k_scale, v_scale=v_scale)
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     if k_cache.shape != (B, Lc, Hkv, Dh) or v_cache.shape != (B, Lc, Hkv, Dv):
         raise ValueError(f"caches must be (B, Lc, Hkv, {Dh}) and (B, Lc, Hkv, "
                          f"Dv), got {tuple(k_cache.shape)}, "

@@ -1,5 +1,6 @@
 """Launch the hand-written Hopper prefill attention kernel (K4,
-``repro_torch/csrc/flash_attention.cu``), built and bound by
+``repro_torch/csrc/flash_attention.cu``) and its backward's two kernels
+(``repro_torch/csrc/flash_attention_bwd.cu``), built and bound by
 ``repro_torch.kernels._build``. Nothing here runs at import time."""
 from __future__ import annotations
 
@@ -56,3 +57,32 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             # a Stream object
             torch._C._cuda_getCurrentRawStream(index))
     _build.check_rc(rc, "flash_attention")
+
+
+def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               o: torch.Tensor, do: torch.Tensor, dq: torch.Tensor,
+               dk: torch.Tensor, dv: torch.Tensor, lse: torch.Tensor,
+               dsum: torch.Tensor, *, causal: bool, window: int,
+               prefix_len: int, q_offset: int, part: int) -> None:
+    """One of the backward's two kernels (``csrc/flash_attention_bwd.cu``):
+    ``part`` 0 (a) writes dq, ``lse`` and ``dsum``; ``part`` 1 (b) reads
+    them and writes dk and dv. Every tensor contiguous: q, o, do, dq (B,
+    Lq, H, Dh); k, v, dk, dv (B, Lkv, Hkv, Dh); lse, dsum (B, H, Lq) f32;
+    ``window`` 0 for none. The caller has checked shapes, dtypes and
+    devices."""
+    fn = _build.load("flash_attention_bwd")
+    index = q.device.index
+    if index != torch._C._cuda_getDevice():
+        with torch.cuda.device(index):
+            return launch_bwd(q, k, v, o, do, dq, dk, dv, lse, dsum,
+                              causal=causal, window=window,
+                              prefix_len=prefix_len, q_offset=q_offset,
+                              part=part)
+    B, Lq, H, D = q.shape
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), B, Lq, k.shape[1], H,
+            k.shape[2], D, int(causal), window, prefix_len, q_offset,
+            int(q.dtype == torch.bfloat16), part,
+            torch._C._cuda_getCurrentRawStream(index))
+    _build.check_rc(rc, "flash_attention_bwd")

@@ -22,6 +22,17 @@ or sliced around it (``dv_supported`` names the pairs it takes).
 Unlike the Pallas wrapper, the kernel reads q/k/v in the (B, L, H, Dh)
 layout through their strides (no transposed or padded copies), and takes
 an explicit ``q_offset`` and a ragged ``kv_valid_len``.
+
+Training: with grad mode on and an input that requires grad,
+``flash_attention`` goes through ``FlashAttentionFn``, whose backward is
+``flash_attention_bwd``: two hand-written kernels on CUDA tensors
+(``csrc/flash_attention_bwd.cu``, counted in
+``flash_attention.launches_bwd``, the f32 ones also in
+``flash_attention.launches_bwd_f32``), ``ref.attention_bwd_ref`` on CPU
+tensors. It is a port extension: the Pallas kernel has no VJP, and the
+reference differentiates its jnp attention (held against ``jax.grad`` of
+``repro/models/layers.py``'s ``flash_attention``). Serving, without grad,
+takes the plain forward route above.
 """
 from __future__ import annotations
 
@@ -46,11 +57,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Lq, H, Dv) in q's dtype, scaled by 1 / sqrt(Dh). ``q_offset`` is
     the position of q[:, 0] (default ``Lkv - Lq``, right-aligned queries);
     ``kv_valid_len`` (B,) masks keys at or past it. The mask is
-    ``ref.attention_mask``'s."""
-    B, Lq, H, Dh = q.shape
-    Lkv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    ``ref.attention_mask``'s.
+
+    With grad mode on and q, k or v requiring grad, the call goes through
+    ``FlashAttentionFn`` (the same forward, and the backward kernels on
+    CUDA tensors), which takes Dv = Dh <= 128 and no ``kv_valid_len``;
+    anything else raises ``NotImplementedError`` there."""
+    Lq, Lkv = q.shape[1], k.shape[1]
     if q_offset is None:
         q_offset = Lkv - Lq
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        bwd_check(q.shape[-1], v.shape[-1], kv_valid_len)
+        return FlashAttentionFn.apply(q, k, v, causal, window, prefix_len,
+                                      q_offset)
+    return _forward(q, k, v, causal, window, prefix_len, q_offset,
+                    kv_valid_len)
+
+
+def _forward(q, k, v, causal, window, prefix_len, q_offset, kv_valid_len
+             ) -> torch.Tensor:
+    """K4's launch on CUDA tensors, ``ref.attention_ref`` on CPU tensors."""
+    B, Lq, H, Dh = q.shape
+    Lkv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     if on_cpu(q, k, v, kv_valid_len):
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  prefix_len=prefix_len, q_offset=q_offset,
@@ -99,6 +128,101 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0        # every K4 launch
 flash_attention.launches_f32 = 0    # of which f32 with Dv = Dq (embedder)
 flash_attention.launches_dv = 0     # of which Dv != Dq (MLA's prefill)
+flash_attention.launches_bwd = 0    # every backward kernel launch, (a) and (b)
+flash_attention.launches_bwd_f32 = 0    # of which f32 (the embedder's)
+
+BWD_DH_MAX = 128
+
+
+def bwd_check(Dq: int, Dv: int, kv_valid_len) -> None:
+    """Raise ``NotImplementedError`` for what the backward kernels do not
+    take: a value head dim other than the q/k one (MLA), a head dim over
+    128 (paligemma's 256) and a ragged ``kv_valid_len``. Nothing sends
+    these to the plain version instead."""
+    if Dv != Dq:
+        raise NotImplementedError(
+            f"the attention backward takes Dv = Dq, got Dq {Dq}, Dv {Dv}")
+    if Dq > BWD_DH_MAX:
+        raise NotImplementedError(
+            f"the attention backward takes head dims up to {BWD_DH_MAX}, "
+            f"got {Dq}")
+    if kv_valid_len is not None:
+        raise NotImplementedError("the attention backward takes no "
+                                  "kv_valid_len")
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with a hand-written backward: the forward is K4 (or
+    ``ref.attention_ref`` on CPU tensors), the backward
+    ``flash_attention_bwd`` from q, k, v and the saved output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, prefix_len, q_offset):
+        out = _forward(q, k, v, causal, window, prefix_len, q_offset, None)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = dict(causal=causal, window=window, prefix_len=prefix_len,
+                        q_offset=q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, **ctx.mask)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        prefix_len: int = 0, q_offset: Optional[int] = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention`` at q, k, v given its output o and
+    the output's cotangent do, in the inputs' dtypes: the backward's two
+    kernels on CUDA tensors, (a) then (b), each counted in
+    ``flash_attention.launches_bwd``; ``ref.attention_bwd_ref`` on CPU
+    tensors. Inputs of any strides are copied contiguous first. The modes
+    ``bwd_check`` refuses are refused by ``flash_attention`` before its
+    forward; here v must be shaped like k, and Dh at most 128."""
+    Lq, Lkv = q.shape[1], k.shape[1]
+    if q_offset is None:
+        q_offset = Lkv - Lq
+    if on_cpu(q, k, v, o, do):
+        return ref.attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                     window=window, prefix_len=prefix_len,
+                                     q_offset=q_offset)
+    B, _, H, Dh = q.shape
+    Hkv = k.shape[2]
+    dtype = q.dtype
+    if dtype not in DTYPES or any(t.dtype != dtype for t in (k, v, o, do)):
+        raise TypeError(f"q/k/v/o/do must all be float32 or all bfloat16, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}, {o.dtype}, "
+                        f"{do.dtype}")
+    if k.shape != (B, Lkv, Hkv, Dh) or v.shape != k.shape \
+            or o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"k/v must be (B, Lkv, Hkv, {Dh}) and o/do like q "
+                         f"{tuple(q.shape)}, got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}, {tuple(o.shape)}, "
+                         f"{tuple(do.shape)}")
+    if Hkv == 0 or H % Hkv:
+        raise ValueError(f"H={H} must be a multiple of Hkv={Hkv}")
+    if not 1 <= Dh <= BWD_DH_MAX:
+        raise ValueError(f"head dim {Dh} outside [1, {BWD_DH_MAX}]")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if not (B and Lq and H and Lkv):
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    dsum = torch.empty_like(lse)
+    for part in (0, 1):
+        K.launch_bwd(q, k, v, o, do, dq, dk, dv, lse, dsum, causal=causal,
+                     window=window or 0, prefix_len=prefix_len,
+                     q_offset=q_offset, part=part)
+        flash_attention.launches_bwd += 1
+        if dtype == torch.float32:
+            flash_attention.launches_bwd_f32 += 1
+    return dq, dk, dv
 
 
 def _pad(d: int) -> int:

@@ -16,6 +16,9 @@ bf16 kernel do with the value dtype; without it P stays f32, the Pallas
 kernel's form. ``models.layers.flash_attention_plain`` is this function
 with ``p_dtype`` the value dtype. The CPU tests run it, and
 ``chip_smoke.py`` holds the kernel against it on the card.
+
+``attention_bwd_ref`` is the plain version of the backward kernel: the
+gradients of ``attention_ref`` in the recurrence that kernel runs.
 """
 from __future__ import annotations
 
@@ -73,3 +76,79 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = l.permute(0, 3, 1, 2)[..., None]                     # (B,Lq,Hkv,G,1)
     out = pv / l.clamp_min(1e-37)
     return out.reshape(B, Lq, H, Dv).to(q.dtype)
+
+
+def _bwd_terms(q, k, v, o, do, causal, window, prefix_len, q_offset):
+    """P, dP and D (broadcast) (B, Hkv, G, Lq, Lkv) f32 of the backward's
+    recurrence, with the f32 q (B, Lq, Hkv, G, Dq), do (B, Lq, Hkv, G, Dv)
+    and the scale."""
+    B, Lq, H, Dq = q.shape
+    _, Lkv, Hkv, Dv = v.shape
+    G = H // Hkv
+    if q_offset is None:
+        q_offset = Lkv - Lq
+    scale = 1.0 / math.sqrt(Dq)
+    qf = q.float().reshape(B, Lq, Hkv, G, Dq)
+    dof = do.float().reshape(B, Lq, Hkv, G, Dv)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    mask = attention_mask(Lq, Lkv, causal=causal, window=window,
+                          prefix_len=prefix_len, q_offset=q_offset,
+                          kv_valid_len=None, device=q.device)[:, None, None]
+    s = s.masked_fill(~mask, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    lse = m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True))
+    p = torch.where(mask, torch.exp(s - torch.where(
+        torch.isfinite(lse), lse, torch.zeros_like(lse))), 0.0)
+    dsum = (dof * o.float().reshape(B, Lq, Hkv, G, Dv)).sum(dim=-1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
+    return p, dp, dsum.permute(0, 2, 3, 1)[..., None], qf, dof, scale
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      prefix_len: int = 0, q_offset: Optional[int] = None
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of ``attention_ref`` at q, k, v, given its
+    output o and the output's cotangent do (B, Lq, H, Dv), in the
+    recurrence the backward kernel (``csrc/flash_attention_bwd.cu``) runs,
+    all in f32: the row logsumexp LSE recomputed from the masked scores S,
+    D = rowsum(do . o), P = exp(S - LSE), dV = P^T do, dS = P . (do V^T -
+    D), dQ = dS K / sqrt(Dq), dK = dS^T Q / sqrt(Dq). A kv head's dk and
+    dv sum over its G query heads. A fully masked row has P = 0 and gives
+    no gradient, as its output is 0. Each gradient is returned in its
+    input's dtype. Calls are counted in ``attention_bwd_ref.calls``."""
+    attention_bwd_ref.calls += 1
+    p, dp, dsum, qf, dof, scale = _bwd_terms(q, k, v, o, do, causal, window,
+                                             prefix_len, q_offset)
+    ds = p * (dp - dsum)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+attention_bwd_ref.calls = 0
+
+
+def attention_bwd_rss(q, k, v, o, do, *, causal: bool = True,
+                      window: Optional[int] = None, prefix_len: int = 0,
+                      q_offset: Optional[int] = None):
+    """The root sum of squares of each gradient's terms, f32, shaped as dq,
+    dk and dv: sqrt(sum_k (dS_qk K_kd)^2) / sqrt(Dq), sqrt(sum_q (dS_qk
+    Q_qd)^2) / sqrt(Dq) and sqrt(sum_q (P_qk do_qd)^2), with |dS| taken as
+    P (|dP| + |D|). Rounding errors of random sign grow with it, and it
+    does not cancel where the gradient does (a causal row that sees one key
+    has dS = P (dP - D) = 0 exactly, so its dq is rounding noise). The bf16
+    backward kernels are held to 2^-7 |plain| + c x the row's rms of it
+    (``kernels.bf16_excess``'s ``scale``)."""
+    p, dp, dsum, qf, dof, scale = _bwd_terms(q, k, v, o, do, causal, window,
+                                             prefix_len, q_offset)
+    ds2 = torch.square(p * (dp.abs() + dsum.abs()))
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds2, torch.square(k.float()))
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds2, torch.square(qf))
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", torch.square(p),
+                      torch.square(dof))
+    return (torch.sqrt(dq).reshape(q.shape) * scale, torch.sqrt(dk) * scale,
+            torch.sqrt(dv))

@@ -3,7 +3,9 @@
 For CUDA tensors ``wkv6`` launches the hand-written kernel (see
 ``kernel.py``) on the current stream, or raises; for CPU tensors it runs
 the plain step loop in ``ref.py``. There is no fallback from one to the
-other. Launches are counted in ``wkv6.launches``.
+other. Launches are counted in ``wkv6.launches``. The kernel has no
+backward yet: under grad mode with an input that requires grad it raises
+(``kernels.refuse_grad``); the plain loop differentiates.
 
 The reference has no Pallas kernel here: XLA compiles its step scan
 (``repro/models/ssm.py:93``, ``rwkv6_linear_attention``) into one loop on
@@ -14,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import on_cpu
+from repro_torch.kernels import on_cpu, refuse_grad
 from repro_torch.kernels.wkv6 import kernel as K
 from repro_torch.kernels.wkv6 import ref
 
@@ -32,6 +34,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, H, K, K) f32)."""
     if on_cpu(r, k, v, w, u, state):
         return ref.wkv6_ref(r, k, v, w, u, state)
+    refuse_grad("wkv6", r, k, v, w, u, state)
     B, L, H, Kd = r.shape
     if k.shape != r.shape or v.shape != r.shape or w.shape != r.shape:
         raise ValueError(f"r, k, v and w must all be (B, L, H, K), got "

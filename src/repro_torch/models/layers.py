@@ -1,6 +1,6 @@
-"""Core NN layers in plain PyTorch: the serving subset of
-``repro/models/layers.py`` (norms, RoPE, GQA and MLA attention, MLPs, the
-scatter-dispatch MoE).
+"""Core NN layers in plain PyTorch: ``repro/models/layers.py`` (norms,
+RoPE, GQA and MLA attention, MLPs, the scatter-dispatch MoE, the bf16
+gradient barrier at layer boundaries) for one device.
 
 Conventions (kept from the reference so the two can be compared):
   * params are nested dicts of tensors; init functions take an explicit
@@ -44,6 +44,42 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
     w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
                     device=device)
     return (w * scale).to(dtype)
+
+
+class _BF16GradBarrier(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
+def bf16_grad_barrier(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; the backward rounds the cotangent through bf16
+    (the reference's custom VJP): at layer boundaries it puts the
+    cross-layer activation cotangents at bf16 width."""
+    return _BF16GradBarrier.apply(x)
+
+
+# toggled by the launcher, as the reference's CellPolicy.bf16_boundary
+_BF16_BOUNDARY: list = [False]
+
+
+def set_bf16_boundary(on: bool) -> None:
+    _BF16_BOUNDARY[0] = bool(on)
+
+
+def dp_constrain(x: torch.Tensor, axes: tuple) -> torch.Tensor:
+    """A layer-boundary activation. The reference pins its batch dim to the
+    data-parallel mesh ``axes``; the port runs on one device, so the
+    placement is the identity (meshes belong to the parallel-training
+    slice), and a bf16 ``x`` passes ``bf16_grad_barrier`` when the
+    boundary is on."""
+    if _BF16_BOUNDARY[0] and x.dtype == torch.bfloat16:
+        return bf16_grad_barrier(x)
+    return x
 
 
 # ---------------------------------------------------------------------------

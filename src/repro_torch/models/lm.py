@@ -9,6 +9,8 @@ MLP); gated MLP, RMSNorm, padded-vocab unembedding.
 
 Public entry points:
     init_params(gen, cfg, device)               -> params
+    forward(params, cfg, batch)                 -> (logits, aux_loss)
+    forward_features(params, cfg, batch)       -> (features, aux, prefix_len)
     init_cache(cfg, batch, max_len, dtype, device) -> cache
     prefill(params, cfg, batch, cache)          -> (last_logits, cache)
     decode_step(params, cfg, tokens, cache, pos, kv_len) -> (logits, cache)
@@ -56,6 +58,7 @@ import math
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -190,31 +193,142 @@ def unembed(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _block(bp: Params, cfg, x, attend, moe_groups: int = 1, cross=None):
+def _block(bp: Params, cfg, x, attend, moe_groups: int = 1, cross=None,
+           aux: Optional[list] = None):
     """Pre-norm block; ``attend(h) -> attention output`` supplies the
-    prefill or decode attention, ``cross(h)`` a decoder layer's
+    training, prefill or decode attention, ``cross(h)`` a decoder layer's
     cross-attention (after ``ln_x``). An MoE block dispatches its tokens in
-    ``moe_groups`` groups along the batch (``L.moe_apply``)."""
+    ``moe_groups`` groups along the batch (``L.moe_apply``) and appends its
+    load-balancing loss to ``aux`` when one is given."""
     h = _norm(cfg, bp["ln1"], x)
     x = x + attend(h)
     if cross is not None:
         x = x + cross(_norm(cfg, bp["ln_x"], x))
     h = _norm(cfg, bp["ln2"], x)
     if "router" in bp["mlp"]:
-        m, _ = L.moe_apply(bp["mlp"], cfg, h, groups=moe_groups)
+        m, a = L.moe_apply(bp["mlp"], cfg, h, groups=moe_groups)
+        if aux is not None:
+            aux.append(a)
         return x + m
     return x + L.mlp(bp["mlp"], h, cfg.act)
+
+
+def _remat(cfg, fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward
+    (``torch.utils.checkpoint``) when ``cfg.remat`` is set and grad mode is
+    on: the reference's ``jax.checkpoint`` of each scan body."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _cross(bp: Params, cfg, h: torch.Tensor, memory: torch.Tensor):
+    """A decoder layer's cross-attention from h (B, L, d) over the
+    encoder's output: (its output (B, L, d), the memory's k, v)."""
+    q = L.gqa_q(bp["xattn"], cfg, h)
+    mpos = torch.arange(memory.shape[1], device=h.device)
+    _, mk, mv = L.gqa_qkv(bp["xattn"], cfg, memory, mpos, rope=False)
+    a = L.flash_attention(q, mk, mv, causal=False)
+    return a.reshape(*h.shape[:2], -1) @ bp["xattn"]["wo"], mk, mv
 
 
 def _encode(p: Params, cfg, frames: torch.Tensor) -> torch.Tensor:
     """The encoder over stub frame embeddings (B, enc_len, d): bidirectional
     self-attention (K4, non-causal), then ``enc_norm``."""
-    x = frames.to(_dtype(cfg))
+    x = L.dp_constrain(frames.to(_dtype(cfg)), cfg.act_dp)
     positions = torch.arange(x.shape[1], device=x.device)
-    for bp in p["enc_blocks"]:
-        x = _block(bp, cfg, x, lambda h, bp=bp: L.gqa_attend(
+
+    def body(x, bp):
+        x = L.dp_constrain(x, cfg.act_dp)
+        return _block(bp, cfg, x, lambda h: L.gqa_attend(
             bp["attn"], cfg, h, positions, causal=False))
+    for bp in p["enc_blocks"]:
+        x = _remat(cfg, body, x, bp)
     return _norm(cfg, p["enc_norm"], x)
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+
+def forward(p: Params, cfg: ModelConfig, batch: dict
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training forward: (logits (B, L, V) over the token positions, the
+    MoE aux loss (f32 scalar, 0 without MoE))."""
+    x, aux, prefix_len = forward_features(p, cfg, batch)
+    logits = unembed(p, cfg, x)
+    if cfg.family == "vlm":
+        logits = logits[:, prefix_len:]
+    return logits, aux
+
+
+def forward_features(p: Params, cfg: ModelConfig, batch: dict
+                     ) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The forward up to and including the final norm, no unembedding:
+    (features (B, Lx, d), aux loss, prefix_len). The train step's chunked
+    cross-entropy unembeds them a sequence chunk at a time. Every kind:
+    dense and MoE (summing each MoE layer's aux loss), ``dense0``, the VLM
+    prefix, the encoder-decoder (``_encode``, then cross-attention in every
+    layer), rwkv6 and the mamba2 hybrid (``_hybrid_forward``), each from
+    zero state. With ``cfg.remat`` each layer is recomputed in the
+    backward."""
+    x, prefix_len = _assemble_input(p, cfg, batch)
+    x = L.dp_constrain(x, cfg.act_dp)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.ssm_kind == "rwkv6":
+        def body(x, bp):
+            x = L.dp_constrain(x, cfg.act_dp)
+            return S.rwkv6_block(bp, cfg, x, None, cfg.chunk_size)[0]
+        for bp in p["blocks"]:
+            x = _remat(cfg, body, x, bp)
+    elif cfg.ssm_kind == "mamba2":
+        x = _hybrid_forward(p, cfg, x)
+    else:
+        positions = torch.arange(x.shape[1], device=x.device)
+        memory = (_encode(p, cfg, batch["frames"]) if cfg.is_encoder_decoder
+                  else None)
+
+        def attend(bp, h):
+            if cfg.attn_kind == "mla":
+                latent, krope = L.mla_latent(bp["attn"], cfg, h, positions)
+                return L.mla_attend(bp["attn"], cfg, h, positions, latent,
+                                    krope)
+            return L.gqa_attend(bp["attn"], cfg, h, positions, causal=True,
+                                prefix_len=prefix_len)
+
+        def body(x, bp):
+            x = L.dp_constrain(x, cfg.act_dp)
+            auxes: list = []
+            x = _block(bp, cfg, x, lambda h: attend(bp, h),
+                       cross=None if memory is None
+                       else lambda h: _cross(bp, cfg, h, memory)[0],
+                       aux=auxes)
+            return x, sum(auxes, torch.zeros_like(aux))
+        for bp in _layers(p):
+            x, a = _remat(cfg, body, x, bp)
+            aux = aux + a
+    return _norm(cfg, p["final_norm"], x), aux, prefix_len
+
+
+def _hybrid_forward(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """Zamba2's training forward: the Mamba2 layers from zero state, the
+    shared attention + MLP block over cat([x, x0]) after the layers
+    ``_invocation`` names, x0 the embedded input; each layer with its
+    shared block one recomputed unit under ``cfg.remat``."""
+    x0 = x
+    positions = torch.arange(x.shape[1], device=x.device)
+
+    def body(x, bp, inv):
+        x = L.dp_constrain(x, cfg.act_dp)
+        x = S.mamba2_block(bp, cfg, x, None, cfg.chunk_size)[0]
+        if inv is None:
+            return x
+        return _zamba_shared_fwd(p["shared_attn"], cfg, x, x0, inv,
+                                 positions, None, None)
+    for i, bp in enumerate(p["blocks"]):
+        x = _remat(cfg, body, x, bp, _invocation(cfg, i))
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +450,7 @@ def _zamba_shared_fwd(sp: Params, cfg, x, x0, inv: int, positions, k_cache,
     None) the prompt's k/v at positions [0, L), then causal attention over
     them (K4); in a decode step (``decode`` = (rows, pos, kv_len)) the
     token's k/v at (rows, pos), then attention over kv_len positions
-    (K3)."""
+    (K3). The training forward passes no caches (None)."""
     B = x.shape[0]
     H, Dh = cfg.n_heads, cfg.head_dim
     h = L.rmsnorm(sp["ln"], torch.cat([x, x0], dim=-1))
@@ -346,8 +460,9 @@ def _zamba_shared_fwd(sp: Params, cfg, x, x0, inv: int, positions, k_cache,
                      cfg.rope_theta)
     v = (h @ sp["wv"]).reshape(B, -1, H, Dh)
     if decode is None:
-        k_cache[:, :k.shape[1]] = k.to(k_cache.dtype)
-        v_cache[:, :v.shape[1]] = v.to(v_cache.dtype)
+        if k_cache is not None:
+            k_cache[:, :k.shape[1]] = k.to(k_cache.dtype)
+            v_cache[:, :v.shape[1]] = v.to(v_cache.dtype)
         a = L.flash_attention(q, k, v, causal=True)
     else:
         rows, pos, kv_len = decode
@@ -429,13 +544,10 @@ def prefill(p: Params, cfg: ModelConfig, batch: dict, cache: Params
             return a.reshape(B, Lx, -1) @ bp["attn"]["wo"]
 
         def cross(h, bp=bp, i=i):
-            q = L.gqa_q(bp["xattn"], cfg, h)
-            mpos = torch.arange(memory.shape[1], device=x.device)
-            _, mk, mv = L.gqa_qkv(bp["xattn"], cfg, memory, mpos, rope=False)
-            a = L.flash_attention(q, mk, mv, causal=False)
+            out, mk, mv = _cross(bp, cfg, h, memory)
             cache["xk"][i] = mk.to(cache["xk"].dtype)
             cache["xv"][i] = mv.to(cache["xv"].dtype)
-            return a.reshape(B, Lx, -1) @ bp["xattn"]["wo"]
+            return out
         x = _block(bp, cfg, x, attend,
                    cross=cross if memory is not None else None)
     logits = unembed(p, cfg, _norm(cfg, p["final_norm"], x[:, -1:]))

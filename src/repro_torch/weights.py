@@ -4,6 +4,9 @@ Input is the reference parameter tree as numpy arrays (for example
 ``jax.tree.map(np.asarray, params)`` on the JAX side); this module never
 imports jax. bfloat16 arrays (numpy dtype name ``bfloat16``) are carried
 bit for bit. After conversion both packages compute the same function.
+``convert_lm`` and ``convert_embedder`` carry any tree shaped like the
+parameters the same way: gradients and AdamW moments, which the tests
+compare leaf by leaf.
 """
 from __future__ import annotations
 

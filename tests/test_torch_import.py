@@ -8,6 +8,7 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -80,27 +81,35 @@ _RESTORE_PROBE = r"""
 import sys
 from repro_torch.checkpoint import CheckpointManager
 step, rec = CheckpointManager(sys.argv[1]).restore_latest()
-opt, half = rec["opt"], rec["half"]
+opt, other, half = rec["opt"], rec["other"], rec["half"]
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro", "ml_dtypes")
              or m.startswith(("jax.", "jaxlib", "repro.", "ml_dtypes.")))
-print(step, type(opt).__name__, sorted(opt), str(half.dtype),
+print(step, type(opt).__module__, type(opt).__name__, list(opt._fields),
+      type(other).__name__, sorted(other), str(half.dtype),
       half.float().tolist(), bad)
 """
 
 
+class _NoCounterpart(NamedTuple):
+    a: object
+    b: object
+
+
 def test_restoring_a_reference_checkpoint_imports_no_jax(tmp_path):
-    """A checkpoint the reference wrote, with a NamedTuple spec naming a
-    ``repro.…`` class and a bf16 leaf, restores in the port without
-    importing ``repro``, ``jax`` or ``ml_dtypes``: the class has no port
-    counterpart, so its fields decay to a dict, and the bf16 leaf comes
-    back as a torch bf16 tensor."""
+    """A checkpoint the reference wrote, with NamedTuple specs and a bf16
+    leaf, restores in the port without importing ``repro``, ``jax`` or
+    ``ml_dtypes``: the reference's ``repro.training.optimizer.AdamWState``
+    resolves to the port's counterpart, a class the port does not have
+    decays to a dict of its fields, and the bf16 leaf comes back as a
+    torch bf16 tensor."""
     import ml_dtypes
     import numpy as np
     from repro.checkpoint import CheckpointManager
     from repro.training.optimizer import AdamWState
     state = {"opt": AdamWState(step=np.asarray(2), m={"w": np.ones(3)},
                                v={"w": np.zeros(3)}),
+             "other": _NoCounterpart(a=np.ones(2), b=np.zeros(1)),
              "half": np.asarray([1.0, -0.5], np.float32).astype(
                  ml_dtypes.bfloat16)}
     CheckpointManager(str(tmp_path)).save(5, state)
@@ -108,5 +117,6 @@ def test_restoring_a_reference_checkpoint_imports_no_jax(tmp_path):
                           str(tmp_path)], env=_env(), capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == \
-        "5 dict ['m', 'step', 'v'] torch.bfloat16 [1.0, -0.5] []", out.stdout
+    assert out.stdout.strip() == (
+        "5 repro_torch.training.optimizer AdamWState ['step', 'm', 'v'] "
+        "dict ['a', 'b'] torch.bfloat16 [1.0, -0.5] []"), out.stdout

@@ -1,0 +1,143 @@
+"""The attention backward on the CPU: ``FlashAttentionFn`` (the route
+``kernels.flash_attention.ops.flash_attention`` takes under grad) held
+against ``jax.grad`` of the reference model layer's ``flash_attention``,
+and its plain version ``attention_bwd_ref`` against autograd through
+``attention_ref``, in every mask mode (causal, bidirectional, window,
+prefix, cross attention with Lq != Lkv, an explicit q_offset, a fully
+masked row) with GQA (1 and 4 query heads a kv head); what the
+backward does not take raises under grad; the wrappers of the kernels
+without a backward refuse inputs that require grad (``refuse_grad``, on
+CUDA tensors only: on the CPU their plain versions differentiate).
+
+Tolerance: f32 gradients within 1e-5 of the largest |gradient| (f32 sums
+in another order).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import layers as JL
+from repro_torch.kernels import refuse_grad
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.wkv6 import ops as wkv6_ops
+
+torch.set_num_threads(2)
+
+RTOL = 1e-5
+
+# (Lq, Lkv, causal, window, prefix_len, q_offset)
+MODES = {
+    "causal": (24, 24, True, None, 0, 0),
+    "bidirectional": (24, 24, False, None, 0, 0),
+    "window": (40, 40, True, 7, 0, 0),
+    "prefix": (30, 30, True, None, 9, 0),
+    "cross": (13, 37, False, None, 0, 0),
+    "q_offset": (10, 31, True, None, 0, 21),
+    "masked_row": (12, 12, True, None, 0, -3),
+}
+
+
+def _inputs(B, Lq, Lkv, H, Hkv, D, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, Lq, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, Lkv, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, Lkv, Hkv, D)).astype(np.float32)
+    do = rng.normal(size=(B, Lq, H, D)).astype(np.float32)
+    return q, k, v, do
+
+
+def _close(got, want):
+    want = np.asarray(want)
+    err = np.abs(np.asarray(got) - want).max()
+    assert err <= RTOL * np.abs(want).max(), (err, np.abs(want).max())
+
+
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("mode", list(MODES))
+def test_flash_attention_fn_grads_match_jax(mode, G):
+    Lq, Lkv, causal, window, prefix, q_offset = MODES[mode]
+    q, k, v, do = _inputs(2, Lq, Lkv, 2 * G, 2, 16, seed=G)
+    kw = dict(causal=causal, window=window, prefix_len=prefix,
+              q_offset=q_offset)
+
+    def j_loss(q, k, v):
+        return jnp.sum(JL.flash_attention(q, k, v, **kw) * do)
+    jg = jax.grad(j_loss, argnums=(0, 1, 2))(q, k, v)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    calls = fa_ref.attention_bwd_ref.calls
+    out = fa_ops.flash_attention(tq, tk, tv, **kw)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    tg = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    assert fa_ref.attention_bwd_ref.calls == calls + 1
+    for a, b in zip(tg, jg):
+        _close(a.numpy(), b)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_attention_bwd_ref_is_the_autograd_of_attention_ref(mode):
+    Lq, Lkv, causal, window, prefix, q_offset = MODES[mode]
+    q, k, v, do = (torch.from_numpy(x) for x in
+                   _inputs(1, Lq, Lkv, 6, 2, 8, seed=7))
+    kw = dict(causal=causal, window=window, prefix_len=prefix,
+              q_offset=q_offset)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fa_ref.attention_ref(*xs, **kw)
+    want = torch.autograd.grad(out, xs, do)
+    got = fa_ref.attention_bwd_ref(q, k, v, out.detach(), do, **kw)
+    for a, b in zip(got, want):
+        _close(a.numpy(), b.numpy())
+    # the error scale of the bf16 limit: 0 exactly where nothing is
+    # attended, positive wherever a gradient has a term
+    rss = fa_ref.attention_bwd_rss(q, k, v, out.detach(), do, **kw)
+    mask = fa_ref.attention_mask(Lq, Lkv, causal=causal, window=window,
+                                 prefix_len=prefix, q_offset=q_offset,
+                                 kv_valid_len=None, device="cpu")[0]
+    for r, seen in zip(rss, (mask.any(1), mask.any(0), mask.any(0))):
+        assert bool((r.amax(dim=(0, 2, 3)) > 0).eq(seen).all())
+
+
+def test_without_grad_serving_takes_the_plain_forward():
+    q, k, v, _ = (torch.from_numpy(x) for x in _inputs(1, 8, 8, 2, 1, 8, 0))
+    out = fa_ops.flash_attention(q, k, v)
+    assert out.grad_fn is None
+    with torch.no_grad():
+        out = fa_ops.flash_attention(q.requires_grad_(), k, v)
+    assert out.grad_fn is None
+
+
+@pytest.mark.parametrize("case", ["dv", "dh", "kv_valid_len"])
+def test_backward_modes_it_does_not_take_raise_under_grad(case):
+    Dq, Dv = {"dv": (96, 64), "dh": (256, 256)}.get(case, (16, 16))
+    q = torch.randn(1, 4, 2, Dq, requires_grad=True)
+    k = torch.randn(1, 4, 2, Dq)
+    v = torch.randn(1, 4, 2, Dv)
+    kvl = torch.tensor([3]) if case == "kv_valid_len" else None
+    with pytest.raises(NotImplementedError):
+        fa_ops.flash_attention(q, k, v, kv_valid_len=kvl)
+    with torch.no_grad():                 # serving takes them all
+        fa_ops.flash_attention(q, k, v, kv_valid_len=kvl)
+
+
+def test_refuse_grad():
+    x = torch.zeros(3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        refuse_grad("k", None, x)
+    refuse_grad("k", x.detach(), None)
+    with torch.no_grad():
+        refuse_grad("k", x)
+
+
+def test_wkv6_plain_version_differentiates_on_the_cpu():
+    """On CPU tensors the WKV6 wrapper runs its plain loop, which autograd
+    differentiates (its kernel refuses grad on the card)."""
+    g = torch.Generator().manual_seed(0)
+    r, k, v = (torch.randn(1, 5, 2, 4, generator=g, requires_grad=True)
+               for _ in range(3))
+    w = torch.rand(1, 5, 2, 4, generator=g)
+    u = torch.randn(2, 4, generator=g)
+    y, s = wkv6_ops.wkv6(r, k, v, w, u, torch.zeros(1, 2, 4, 4))
+    grads = torch.autograd.grad((y.sum() + s.sum()), (r, k, v))
+    assert all(bool(x.abs().sum() > 0) for x in grads)
