@@ -8,7 +8,10 @@ Phases (any failure exits non-zero and prints no result line):
 1. build    — every kernel source in ``src/repro_torch/csrc`` (K1, K2
               cosine top-k; K3 decode attention; K4 prefill attention and
               its backward; K5 WKV6), one nvcc per source, started
-              together; ptxas register and spill lines logged;
+              together; ptxas register and spill lines logged, and for
+              the attention backward's two bf16 kernels (TMA and wgmma,
+              each instance) their registers, shared memory and spills,
+              which must be none;
 2. kernels  — K1 (f32) and K2 (int8) against their plain PyTorch versions
               at serving shapes (D=768, N=65,536 rows, B in {0, 1, 4, 5, 8,
               32, 33}, k in {1, 16}, early exit on/off, a valid mask with
@@ -6359,8 +6362,7 @@ def bwd_timing(torch, seed: int) -> dict:
         q, k, v, o, do = bwd_inputs(torch, shape, dtype, seed + 39,
                                     causal=causal)
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-        lse = torch.empty((B, H, L), device=DEV)
-        dsum = torch.empty_like(lse)
+        lse, dsum = K.bwd_scratch(q)
         esz = q.element_size()
         pairs = L * (L + 1) // 2 if causal else L * L
         prod = 2.0 * B * H * Dh * pairs
@@ -6422,6 +6424,77 @@ def bwd_timing(torch, seed: int) -> dict:
         del q, k, v, o, do, dq, dk, dv, qt, kt, vt, sdpa_out, dot
         gc.collect()
         torch.cuda.empty_cache()
+    return out
+
+
+# what the bf16 backward kernels (csrc/flash_attention_bwd.cu) ask for at
+# launch besides ptxas's figures: the consumer warpgroups' registers after
+# setmaxnreg (the producer's drop to 24), and the dynamic shared memory of
+# Tiles<DP>: 1 KB of alignment, four resident 64-row tiles (Q and dO, or K
+# and V) and three ring stages (a K and a V tile; or a Q and a dO tile with
+# 1 KB for LSE and D)
+BWD_CONSUMER_REGS = 240
+
+
+def bwd_bf16_smem(kernel: str, dp: int) -> int:
+    tile = dp // 64 * 64 * 128
+    stage = 2 * tile if kernel == "bwd_dq_bf16" else 2 * tile + 1024
+    return 1024 + 4 * tile + 3 * stage
+
+
+def bwd_bf16_ptxas(report) -> dict:
+    """Registers, shared memory and spills of each bf16 backward kernel
+    instance from the ptxas report of its library's build, logged; fails
+    if one spills, if ptxas serialised its wgmma (a warning that names the
+    function: about a fifth of dQ's time when it happened), or if one is
+    missing from a report (a build of this run)."""
+    import re
+    if report is None:
+        log("[build] flash_attention_bwd was built before this run: no "
+            "ptxas report to read")
+        return {}
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?_ZN3fab\d+(bwd_\w+_bf16)ILi(\d+)E", line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}>"
+            out.setdefault(name, {"kernel": m.group(1),
+                                  "dp": int(m.group(2))})
+            continue
+        if "serialized" in line:
+            m = re.search(r"_ZN3fab\d+(bwd_\w+_bf16)ILi(\d+)E", line)
+            if m:
+                out.setdefault(f"{m.group(1)}<{m.group(2)}>", {}).update(
+                    wgmma_serialized=line.strip())
+            continue
+        if name is None or "bf16" not in name:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m:
+            out[name].update(registers=int(m.group(1)),
+                             static_smem=int(m.group(2)))
+    check(len(out) == 4, f"[build] the ptxas report names {sorted(out)}, "
+          f"not the four bf16 backward kernels")
+    for name, r in sorted(out.items()):
+        r["dynamic_smem"] = bwd_bf16_smem(r["kernel"], r["dp"])
+        r["consumer_registers"] = BWD_CONSUMER_REGS
+        log(f"[build] fab::{name}: {r.get('registers')} registers a thread "
+            f"at launch ({BWD_CONSUMER_REGS} in the consumer warpgroups by "
+            f"setmaxnreg), {r.get('static_smem')} B static + "
+            f"{r['dynamic_smem']:,} B dynamic shared memory, "
+            f"{r.get('spill_stores')} B spill stores, "
+            f"{r.get('spill_loads')} B spill loads, {r.get('stack')} B stack")
+        check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+              f"[build] fab::{name} spills: {r}")
+        check("wgmma_serialized" not in r,
+              f"[build] fab::{name}: {r.get('wgmma_serialized')}")
     return out
 
 
@@ -6551,6 +6624,8 @@ def main() -> int:
     log(f"[build] {len(reports)} kernels built in {build_s:.1f} s "
         f"(nvcc per source, in parallel)")
     detail["build_s"] = build_s
+    detail["bwd_bf16_ptxas"] = bwd_bf16_ptxas(
+        reports.get("flash_attention_bwd"))
     for name in _build.KERNELS:
         _build.load(name)
     t = time.perf_counter()

@@ -11,47 +11,79 @@
 // ref.py attention_bwd_ref and, through it, against jax.grad of the
 // reference layer. The mask is ref.py attention_mask's, element by element.
 //
-// Recurrence (all sums in f32): LSE = m + log(l) over the masked, scaled
-// scores S = Q K^T / sqrt(Dq); D = rowsum(do . o); P = exp(S - LSE);
-// dV = P^T do; dP = do V^T; dS = P . (dP - D); dQ = dS K / sqrt(Dq);
-// dK = dS^T Q / sqrt(Dq). A fully masked row has P = 0 everywhere.
+// Contract. Recurrence (all sums in f32): LSE = m + log(l) over the
+// masked, scaled scores S = Q K^T / sqrt(Dh); D = rowsum(do . o); P =
+// exp(S - LSE); dV = P^T do; dP = do V^T; dS = P . (dP - D); dQ = dS K /
+// sqrt(Dh); dK = dS^T Q / sqrt(Dh). A fully masked row has P = 0
+// everywhere, never NaN. Two kernels, launched one after the other on the
+// caller's stream, both deterministic (no atomics; every output element is
+// written by one CTA after a fixed-order loop, so repeats are
+// bit-identical):
+//   (a) dq: a CTA owns a q tile of one head. It computes D from do and o,
+//       runs pass 1 over the kv tiles for the row max and sum, writes LSE
+//       and D to a (B, H, Lq) scratch, and runs pass 2 over the kv tiles
+//       again, accumulating dQ.
+//   (b) dk/dv: a CTA owns a kv tile of one kv head. It loops over the G
+//       query heads of the kv head in order g = 0 .. G - 1 and over their
+//       live q tiles, reads LSE and D, and accumulates dK and dV (GQA's sum
+//       over the G heads is this loop).
+// K4's forward (flash_attention.cu) writes no LSE, so (a) recomputes it in
+// pass 1; an LSE stored by the forward, with its output bit-identical, is
+// later work. Tiles that the mask hides entirely (causal, window) are
+// skipped by an exact test on the tile's corner positions (tile_live).
+// Takes f32 and bf16, Dq = Dv up to 128, padded to 64 or 128 (zeros past
+// Dh), so any Dh <= 128 (zamba2's 112, launch.train --reduced's 16); the
+// wrapper raises on Dv != Dq, Dh > 128 and a kv_valid_len. Tensors are
+// contiguous (B, L, H, Dh); scale_dim is the head dim of the scale (the
+// wrapper gives bf16 rows of a head dim that is not a multiple of 8 as a
+// zero-padded copy, with the scale of the unpadded one).
 //
-// Two kernels, launched one after the other on the caller's stream, both
-// deterministic (no atomics; every output element is written by one CTA
-// after a fixed-order loop):
-//   (a) dq: one CTA per (64-row q tile, head, batch). It computes D from
-//       do and o and writes it, then pass 1 runs over the kv tiles for the
-//       row max and sum and writes LSE, and pass 2 runs over them again
-//       and accumulates dQ in f32.
-//   (b) dk/dv: one CTA per (64-key kv tile, kv head, batch). It loops over
-//       the G query heads of its kv head and over their q tiles, reads LSE
-//       and D, and accumulates dK and dV in f32 (GQA's sum over the G
-//       heads is this loop).
-// Why this split: K4's forward (flash_attention.cu) stays as it is and
-// writes no LSE, so (a) recomputes it in an extra Q K^T pass. Storing LSE
-// from K4 is a later speed step, and it must leave K4's output
-// bit-identical. Tiles that the mask hides entirely (causal, window) are
-// skipped by an exact test on the tile's corner positions.
+// Bound on an H100: the five products of a standard backward (S, dP, dV,
+// dQ, dK) at qwen3-14b's L = 4,096, H = 40/8, Dh = 128, causal half, are
+// 430 GFLOP, 0.435 ms at 989 TFLOP/s bf16; q, k, v, o, do, dq, dk and dv
+// once are 0.15 ms of bytes: bound by operations, on the tensor cores.
 //
-// Precision: bf16 inputs run every product on the tensor cores with
-// mma.sync m16n8k16 (bf16 operands, f32 accumulators), P and dS rounded to
-// bf16 as operands; D, LSE and the softmax are f32. f32 inputs run in full
-// fp32 FMAs on the CUDA cores, never TF32, as K4-f32's contract requires.
+// bf16 (the training path's): warp-specialised for Hopper, as K4's
+// forward. A CTA has three warpgroups: one producer thread keeps TMA loads
+// in flight (4-D tensor maps with 128-byte swizzle, boxes of 64 columns x
+// 64 rows, zero fill past Dh and past the sequence) into a three-stage
+// ring on full/empty mbarriers, and two consumer warpgroups of 64 rows
+// each run every product on wgmma; setmaxnreg moves registers from the
+// producer (24) to the consumers (240).
+//   (a) takes 128 q rows. Q and dO load once; pass 1 streams two 64-key K
+//       tiles a stage (the stage's V slot holds the second), pass 2 one K
+//       and one V tile. S = Q K^T and dP = dO V^T have both operands in
+//       shared memory (K and V read K-major); dQ += dS K takes dS from
+//       registers (the accumulator rounded to bf16 A fragments, as K4 does
+//       with P) and reads K MN-major from the same swizzled tile. A tile's
+//       dQ product is waited for after the next tile's S and dP are
+//       issued. Pass 1's row max and sum run through four partials a row.
+//   (b) takes 128 keys. K and V load once; Q, dO and the 64 LSE and D of
+//       each live 64-row q tile of each of the G heads stream through the
+//       ring. S^T = K Q^T and dP^T = V dO^T are shared-memory products;
+//       dV += P^T dO and dK += dS^T Q take P^T and dS^T from registers and
+//       read dO and Q MN-major from the tiles that fed the K-major
+//       products. The two consumers take the tensor cores in turn (named
+//       barriers), so that one's softmax runs under the other's products;
+//       in (a) the turns measured slower and are not taken.
+// Scores go to the exp2 domain with scale * log2(e) folded into one FFMA
+// before ex2; the scratch LSE is in log2 units and +inf where a row sees no
+// key or lies past Lq, so P is 0 there without a mask. The per-element
+// mask runs only on edge tiles (the causal diagonal, the window's far
+// edge, the prefix boundary, the sequence's end: tile_full), one branch a
+// tile; interior tiles take none. The heaviest causal tiles start first:
+// (a)'s q tile is its slowest grid index, reversed, and (b)'s kv tile its
+// slowest, kv tile 0 (the longest) first. Every consumer runs every live
+// tile of its CTA (where its own rows or keys see none of the tile, the
+// mask gives P = 0), so that both wait on and release each stage. An
+// instruction that writes a wgmma's accumulator registers where ptxas
+// cannot prove the product retired makes it serialise every wgmma of the
+// kernel (pass 1's mask writes a copy for that reason; chip_smoke fails
+// on the warning).
 //
-// What it takes: f32 and bf16; Dq = Dv up to 128, padded to 64 or 128 in
-// shared memory (zeros past Dh), so any Dh <= 128 (zamba2's 112 included);
-// contiguous (B, L, H, Dh) tensors (the wrapper makes them so). The
-// wrapper raises on Dv != Dq, Dh > 128 and a kv_valid_len.
-//
-// Bound on an H100: the five products of a standard attention backward
-// (S, dP, dV, dQ, dK) at qwen3-14b's L = 4,096, H = 40/8, Dh = 128, causal
-// half, are 430 GFLOP, over 989 TFLOP/s 0.435 ms; the bytes of q, k, v, o,
-// do, dq, dk and dv once are 0.15 ms: bound by operations. This simple
-// kernel does eight products (the extra S of pass 1, and S and dP in both
-// kernels), loads its tiles synchronously (16-byte loads, no cp.async or
-// TMA) and reads the B operands of dS K, P^T do and dS^T Q as pairs of
-// 16-bit shared loads. wgmma, TMA and an LSE stored by the forward are
-// later work.
+// f32 (the embedder's): full fp32 FMAs on the CUDA cores, never TF32, as
+// K4-f32's contract requires; one CTA of 256 threads a 64-row tile.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,14 +93,14 @@ namespace fab {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BQ = 64;    // query rows of a (a) CTA; (b)'s q tile in f32
-constexpr int BK = 64;    // keys of a (b) CTA; (a)'s kv tile
-constexpr int BQB = 32;   // (b)'s q tile in bf16 (keeps its registers < 255)
+constexpr int BQ = 64;    // f32: query rows of a (a) CTA; (b)'s q tile
+constexpr int BK = 64;    // f32: keys of a (b) CTA; (a)'s kv tile
 
 struct Args {
   const void *q, *k, *v, *o, *dout;
   void *dq, *dk, *dv;
-  float *lse, *dsum;      // (B, H, Lq) scratch: (a) writes, (b) reads
+  float *lse, *dsum;      // (B, H, Lq) scratch: (a) writes, (b) reads; in
+                          // bf16 Lq rounded up to 64, LSE in log2 units
   int B, Lq, Lkv, H, Hkv, D, G;
   int causal, window, prefix_len, q_offset;
   int vec;                // 16-byte loads: aligned bases, D a multiple
@@ -103,14 +135,8 @@ __device__ __forceinline__ bool tile_live(const Args& a, int q0, int q1,
 
 template <typename T> __device__ __forceinline__ float f32(T x);
 template <> __device__ __forceinline__ float f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float f32<bf16>(bf16 x) {
-  return __bfloat162float(x);
-}
 template <typename S> __device__ __forceinline__ S as(float x);
 template <> __device__ __forceinline__ float as<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 as<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // rows [row0, row0 + rows) of a (row stride ``stride``) into dst (row
 // stride LD), columns [0, DP); zeros past D and past nvalid rows
@@ -402,262 +428,855 @@ __global__ void __launch_bounds__(256) bwd_dkv_f32(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: mma.sync m16n8k16 (bf16 x bf16 -> f32). 4 warps; a warp owns 16
-// rows of the CTA's output tile. In a fragment, lane = 4 gid + tig: A
-// holds rows gid and gid + 8, columns 2 tig (+1) and 8 + 2 tig (+1); B
-// columns gid, rows 2 tig (+1) and 8 + 2 tig (+1); C rows gid and gid + 8,
-// columns 2 tig (+1). The C fragments of two neighbouring 8-column tiles
-// are the A fragment of one 16-deep slice, so P and dS feed the next
-// product from registers. Shared rows are padded by 8 bf16 (16 bytes), so
-// the 32-bit reads of a fragment fall in 32 banks.
+// bf16: warp-specialised TMA + wgmma. A CTA has three warpgroups: one
+// producer thread keeps TMA loads in flight into a ring of STAGES stages on
+// full/empty mbarriers, and two consumer warpgroups of 64 rows each run the
+// products on wgmma. Every shared tile is 64 rows of the head dim padded to
+// DP (64 or 128) columns, stored as DP / 64 slabs of 64 rows x 128 bytes
+// with 128-byte swizzle; TMA zero-fills the columns past Dh and the rows
+// past the sequence. In an m64nN accumulator, thread (warp w, lane 4 g +
+// t) of a warpgroup holds rows 16 w + g and 16 w + g + 8, columns 8 j + 2
+// t and 8 j + 2 t + 1: element 4 j + e is row (e >> 1), column (e & 1).
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma16816(float c[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
+constexpr int WG = 128;                 // threads in a warpgroup
+constexpr int HTHREADS = 3 * WG;        // producer + two consumers
+constexpr int TR = 64;                  // rows of a tile (a consumer's share)
+constexpr int STAGES = 3;               // ring depth
+constexpr int SLAB = 64;                // bf16 columns of one 128-byte row
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int DP>
+struct Tiles {
+  static constexpr int SLABS = DP / SLAB;
+  static constexpr int TILE = SLABS * TR * 128;         // one 64-row tile
+  // (a): Q and dO (a tile per consumer each), then K and V a stage
+  static constexpr int DQ_SMEM = 1024 + 4 * TILE + STAGES * 2 * TILE;
+  // (b): K and V (a tile per consumer each), then a stage of Q, dO, and
+  // 64 LSE and 64 D, padded to keep the next stage 1,024-byte aligned
+  static constexpr int STAT = TR * 4;
+  static constexpr int DKV_STAGE = 2 * TILE + 1024;
+  static constexpr int DKV_SMEM = 1024 + 4 * TILE + STAGES * DKV_STAGE;
+};
+
+// whether the mask allows every (row, key) of rows [q0, q1) x keys [k0,
+// k1), rows clipped to Lq and keys to Lkv: such a tile runs without the
+// per-element mask (keys past Lkv are the caller's to mask where they
+// matter)
+__device__ __forceinline__ bool tile_full(const Args& a, int q0, int q1,
+                                          int k0, int k1) {
+  q1 = min(q1, a.Lq);
+  k1 = min(k1, a.Lkv);
+  if (k1 <= a.prefix_len) return true;
+  const long long qlo = (long long)a.q_offset + q0;
+  const long long qhi = (long long)a.q_offset + q1 - 1;
+  return (!a.causal || k1 - 1 <= qlo) &&
+         (a.window <= 0 || qhi - k0 < a.window);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One 64-column x 64-row box of a 4-D tensor map (Dh, heads, positions,
+// batch) into shared memory, completing on ``bar``.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int d, int h, int l,
+                                         int b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(d),
+         "r"(h), "r"(l), "r"(b), "r"(smem_u32(bar))
+      : "memory");
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// ``bytes`` contiguous bytes (16-byte aligned, a multiple of 16) into
+// shared memory, completing on ``bar``.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
-// two bf16 of one column from neighbouring rows, the first in the low half
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p0, const bf16* p1) {
-  return (uint32_t)*reinterpret_cast<const uint16_t*>(p0) |
-         ((uint32_t)*reinterpret_cast<const uint16_t*>(p1) << 16);
+// wgmma shared-memory descriptor, 128-byte swizzle. K-major operands (rows
+// of 128 bytes, 8-row groups 1,024 bytes apart) use only the stride byte
+// offset; an MN-major one uses the leading byte offset between its
+// 64-column slabs too.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+       | (uint64_t)((lbo & 0x3FFFF) >> 4) << 16
+       | (uint64_t)((sbo & 0x3FFFF) >> 4) << 32
+       | 1ull << 62;
 }
 
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// dK/dV's two consumers take the tensor cores in turn, consumer 0 first
+// (named barriers 1 and 2 over their 256 threads): a turn issues one batch
+// of wgmma and hands on, so that one consumer's softmax runs under the
+// other's products. Both take the same number of turns, ``left``;
+// consumer 1 does not hand on its last.
+struct Turns {
+  int cw, left;
+  __device__ __forceinline__ Turns(int cw_, int n) : cw(cw_), left(n) {
+    if (cw == 1 && n > 0) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+  }
+  __device__ __forceinline__ void take() const {
+    asm volatile("bar.sync %0, 256;\n" :: "r"(1 + cw) : "memory");
+  }
+  __device__ __forceinline__ void pass() {
+    --left;
+    if (cw == 0 || left > 0)
+      asm volatile("bar.arrive %0, 256;\n" :: "r"(2 - cw) : "memory");
+  }
+};
+
+
+// Pins wgmma operand registers to this point: before wgmma.fence, so that
+// no write to them moves below it (ptxas would then fence and serialise the
+// wgmma itself), and after the wait, so that no read moves above it.
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+}
+
+// 2^x on the SFU (relative error about 2^-22; -inf gives 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// C[8 x NT columns] += A[rows row0.., DP] . B[rows n0.., DP]^T, both
-// row-major in shared memory (S = Q K^T, dP = dO V^T and their transposes)
-template <int DP, int NT>
-__device__ __forceinline__ void rows_x_rows(const bf16* A, int row0,
-                                            const bf16* Bm, float c[NT][4]) {
-  constexpr int LD = DP + 8;
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  const bf16* a0p = A + (row0 + gid) * LD + 2 * tig;
-  const bf16* a1p = a0p + 8 * LD;
+// S = A B^T over one k-step of 16: A and B from shared memory, both
+// K-major; m64n64k16, bf16 in, f32 accumulate (each accumulator register an
+// operand). wgmma_ss64_first overwrites d, which is then no input, so the
+// previous tile's values are dead before the product starts.
+__device__ __forceinline__ void wgmma_ss64(float* d, uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss64_first(float* d, uint64_t a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "l"(a), "l"(b), "r"(0));
+}
+
+// C += A M: A (bf16) from registers, M from shared memory read MN-major
+// (trans-b = 1); m64nNk16, accumulating.
+template <int N>
+__device__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// C (64 x 64) = A B^T over DP columns: A and B 64-row tiles in shared
+// memory, both read K-major (S = Q K^T, dP = dO V^T and their transposes)
+template <int DP>
+__device__ __forceinline__ void gemm_rows(float (&c)[TR / 2], uint32_t a,
+                                          uint32_t b) {
+  wgmma_ss64_first(c, desc_sw128(a, 16, 1024), desc_sw128(b, 16, 1024));
 #pragma unroll
-  for (int kd = 0; kd < DP; kd += 16) {
-    const uint32_t x0 = ld32(a0p + kd), x1 = ld32(a1p + kd),
-                   x2 = ld32(a0p + kd + 8), x3 = ld32(a1p + kd + 8);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const bf16* bp = Bm + (nt * 8 + gid) * LD + kd + 2 * tig;
-      mma16816(c[nt], x0, x1, x2, x3, ld32(bp), ld32(bp + 8));
-    }
+  for (int kk = 1; kk < DP / 16; ++kk) {
+    const uint32_t off = (kk / 4) * TR * 128 + (kk % 4) * 32;
+    wgmma_ss64(c, desc_sw128(a + off, 16, 1024),
+               desc_sw128(b + off, 16, 1024));
   }
 }
 
-// C[16 x DP] += A . M, A (16 x 16 KS) from the C fragments ``f`` (2 KS
-// tiles of 8 columns), M (16 KS x DP) row-major in shared memory
-template <int DP, int KS>
-__device__ __forceinline__ void frags_x_rows(const float f[2 * KS][4],
-                                             const bf16* M,
-                                             float c[DP / 8][4]) {
-  constexpr int LD = DP + 8;
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+// C (64 x DP) += F M: F (64 x 64) bf16 A fragments in registers, M a
+// 64-row tile in shared memory read MN-major (dQ += dS K, dV += P^T dO,
+// dK += dS^T Q)
+template <int DP>
+__device__ __forceinline__ void gemm_frags(float (&c)[DP / 2],
+                                           uint32_t (&f)[TR / 16][4],
+                                           uint32_t m) {
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const uint32_t x0 = pack(f[2 * kk][0], f[2 * kk][1]),
-                   x1 = pack(f[2 * kk][2], f[2 * kk][3]),
-                   x2 = pack(f[2 * kk + 1][0], f[2 * kk + 1][1]),
-                   x3 = pack(f[2 * kk + 1][2], f[2 * kk + 1][3]);
-    const bf16* mp = M + (16 * kk + 2 * tig) * LD + gid;
-#pragma unroll
-    for (int nt = 0; nt < DP / 8; ++nt) {
-      const bf16* p = mp + nt * 8;
-      mma16816(c[nt], x0, x1, x2, x3, ld_pair(p, p + LD),
-               ld_pair(p + 8 * LD, p + 9 * LD));
-    }
-  }
+  for (int kk = 0; kk < TR / 16; ++kk)
+    wgmma_rs<DP>(c, f[kk], desc_sw128(m + kk * 16 * 128, TR * 128, 1024));
+}
+
+// the 16 columns 16 kk .. 16 kk + 15 of a 64 x 64 accumulator as the A
+// fragment of one k-step (rounded to bf16)
+__device__ __forceinline__ void to_frag(const float (&s)[TR / 2], int kk,
+                                        uint32_t (&f)[4]) {
+  f[0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+  f[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+  f[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+  f[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// whether kv tile n (64 keys) holds a key that a row of the CTA's 128 sees
+__device__ __forceinline__ bool kv_live(const Args& a, int row0, int n) {
+  return tile_live(a, row0, row0 + 2 * TR, n * TR, n * TR + TR);
+}
+
+__device__ __forceinline__ int next_kv(const Args& a, int row0, int n,
+                                       int nkt) {
+  while (n < nkt && !kv_live(a, row0, n)) ++n;
+  return n;
 }
 
 template <int DP>
-__global__ void __launch_bounds__(128) bwd_dq_bf16(Args a) {
-  constexpr int LD = DP + 8, NT = BK / 8;
-  extern __shared__ __align__(16) unsigned char smraw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smraw);
-  bf16* dOs = Qs + BQ * LD;
-  bf16* Ks = dOs + BQ * LD;
-  bf16* Vs = Ks + BK * LD;
-  float* Ds = reinterpret_cast<float*>(Vs + BK * LD);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / a.G, q0 = blockIdx.x * BQ;
-  const size_t qs = (size_t)a.H * a.D, ks = (size_t)a.Hkv * a.D;
-  const size_t qoff = ((size_t)b * a.Lq * a.H + h) * a.D;
-  const size_t koff = ((size_t)b * a.Lkv * a.Hkv + hk) * a.D;
-  const bf16* q = static_cast<const bf16*>(a.q) + qoff;
-  const bf16* o = static_cast<const bf16*>(a.o) + qoff;
-  const bf16* dout = static_cast<const bf16*>(a.dout) + qoff;
-  const bf16* k = static_cast<const bf16*>(a.k) + koff;
-  const bf16* v = static_cast<const bf16*>(a.v) + koff;
-  load_rows<bf16, bf16, DP, LD>(Qs, q, qs, q0, a.Lq, BQ, a.D, a.vec);
-  load_rows<bf16, bf16, DP, LD>(dOs, dout, qs, q0, a.Lq, BQ, a.D, a.vec);
-  row_dsum<bf16, 2>(a, o, dout, qs, q0, Ds,
-                    a.dsum + ((size_t)b * a.H + h) * a.Lq);
+__global__ void __launch_bounds__(HTHREADS, 1)
+bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
+            const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv,
+            const __grid_constant__ CUtensorMap tdo, const Args a) {
+  using T = Tiles<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
+  unsigned char* Qs = align1024(smem_raw);
+  unsigned char* dOs = Qs + 2 * T::TILE;
+  unsigned char* Ks = dOs + 2 * T::TILE;          // [STAGES] K tiles
+  unsigned char* Vs = Ks + STAGES * T::TILE;      // [STAGES] V tiles
+  uint64_t* qd_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + STAGES;
+  // the heaviest causal q tiles first: the q tile is the slowest grid
+  // index, reversed
+  const int row0 = (gridDim.z - 1 - blockIdx.z) * 2 * TR;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / a.G;
+  const int nkt = (a.Lkv + TR - 1) / TR;
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);               // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  const int rw = warp * 16, rows[2] = {rw + gid, rw + gid + 8};
-  const int nkt = (a.Lkv + BK - 1) / BK;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int kt = 0; kt < nkt; ++kt) {       // pass 1: m and l
-    const int k0 = kt * BK;
-    if (!tile_live(a, q0, q0 + BQ, k0, k0 + BK)) continue;
-    __syncthreads();
-    load_rows<bf16, bf16, DP, LD>(Ks, k, ks, k0, a.Lkv, BK, a.D, a.vec);
-    __syncthreads();
-    float s[NT][4] = {};
-    rows_x_rows<DP, NT>(Qs, rw, Ks, s);
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[nt][2 * rr + e];
-          x = allowed(a, q0 + rows[rr], k0 + nt * 8 + 2 * tig + e)
-                  ? x * a.scale : -INFINITY;
-          mx = fmaxf(mx, x);
+
+  // Pass 1 takes the live kv tiles two at a time, a stage's K and V slots
+  // each holding a K tile; pass 2 one at a time, K and V.
+  if (threadIdx.x < WG) {
+    // ---- producer: Q and dO once; K (pass 1), then K and V (pass 2) ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qd_full, 4 * T::TILE);
+      for (int half = 0; half < 2; ++half)
+        for (int sl = 0; sl < T::SLABS; ++sl) {
+          const int off = half * T::TILE + sl * TR * 128;
+          tma_load(Qs + off, &tq, qd_full, sl * SLAB, h, row0 + TR * half, b);
+          tma_load(dOs + off, &tdo, qd_full, sl * SLAB, h, row0 + TR * half,
+                   b);
         }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float mn = fmaxf(m[rr], mx), base = mn == -INFINITY ? 0.f : mn;
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        sum += expf(s[nt][2 * rr] - base) + expf(s[nt][2 * rr + 1] - base);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l[rr] = l[rr] * (m[rr] == -INFINITY ? 0.f : expf(m[rr] - base)) + sum;
-      m[rr] = mn;
+      int it = 0;
+      for (int pass = 0; pass < 2; ++pass)
+        for (int n = next_kv(a, row0, 0, nkt); n < nkt;) {
+          const int n2 = pass ? n : next_kv(a, row0, n + 1, nkt);
+          const int st = it % STAGES;
+          const uint32_t ph = (it / STAGES) & 1;
+          ++it;
+          mbar_wait(empty + st, ph ^ 1);
+          mbar_expect_tx(full + st, (n2 < nkt ? 2 : 1) * T::TILE);
+          for (int sl = 0; sl < T::SLABS; ++sl) {
+            const int off = st * T::TILE + sl * TR * 128;
+            tma_load(Ks + off, &tk, full + st, sl * SLAB, hk, n * TR, b);
+            if (n2 < nkt)
+              tma_load(Vs + off, pass ? &tv : &tk, full + st, sl * SLAB, hk,
+                       n2 * TR, b);
+          }
+          n = n2 < nkt ? next_kv(a, row0, n2 + 1, nkt) : nkt;
+        }
     }
-  }
-  float lse[2], dsr[2];
+  } else {
+    // ---- consumers: 64 q rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = threadIdx.x / WG - 1, tid = threadIdx.x % WG;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int r0 = row0 + TR * cw;                // this consumer's rows
+    const int rl = r0 + 16 * warp + g;            // a thread's: rl, rl + 8
+    const float sl2 = a.scale * LOG2E;            // exp2 domain
+    const uint32_t q_addr = smem_u32(Qs + cw * T::TILE);
+    const uint32_t do_addr = smem_u32(dOs + cw * T::TILE);
+    const size_t qs = (size_t)a.H * a.D;
+    const size_t qoff = ((size_t)b * a.Lq * a.H + h) * a.D;
+    // D = rowsum(do . o) of rows rl and rl + 8 (a quad splits the columns),
+    // read while Q and dO land
+    float dsr[2];
 #pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    lse[rr] = l[rr] > 0.f ? m[rr] + logf(l[rr]) : -INFINITY;
-    dsr[rr] = Ds[rows[rr]];
-    const int gr = q0 + rows[rr];
-    if (tig == 0 && gr < a.Lq)
-      a.lse[((size_t)b * a.H + h) * a.Lq + gr] = lse[rr];
-  }
-  float acc[DP / 8][4] = {};
-  for (int kt = 0; kt < nkt; ++kt) {       // pass 2: dQ += dS K
-    const int k0 = kt * BK;
-    if (!tile_live(a, q0, q0 + BQ, k0, k0 + BK)) continue;
-    __syncthreads();
-    load_rows<bf16, bf16, DP, LD>(Ks, k, ks, k0, a.Lkv, BK, a.D, a.vec);
-    load_rows<bf16, bf16, DP, LD>(Vs, v, ks, k0, a.Lkv, BK, a.D, a.vec);
-    __syncthreads();
-    float s[NT][4] = {}, dp[NT][4] = {};
-    rows_x_rows<DP, NT>(Qs, rw, Ks, s);
-    rows_x_rows<DP, NT>(dOs, rw, Vs, dp);
+    for (int r = 0; r < 2; ++r) {
+      const int row = rl + 8 * r;
+      float acc = 0.f;
+      if (row < a.Lq) {
+        const bf16* op = static_cast<const bf16*>(a.o) + qoff + row * qs;
+        const bf16* dp = static_cast<const bf16*>(a.dout) + qoff + row * qs;
+        for (int c = 8 * t; c < a.D; c += 32) {
+          const uint4 x = *reinterpret_cast<const uint4*>(op + c);
+          const uint4 y = *reinterpret_cast<const uint4*>(dp + c);
+          const __nv_bfloat162* xe =
+              reinterpret_cast<const __nv_bfloat162*>(&x);
+          const __nv_bfloat162* ye =
+              reinterpret_cast<const __nv_bfloat162*>(&y);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = e >> 1;
-        const float p =
-            allowed(a, q0 + rows[rr], k0 + nt * 8 + 2 * tig + (e & 1))
-                ? expf(s[nt][e] * a.scale - lse[rr]) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - dsr[rr]);      // dS
+          for (int i = 0; i < 4; ++i) {
+            const float2 xf = __bfloat1622float2(xe[i]);
+            const float2 yf = __bfloat1622float2(ye[i]);
+            acc = fmaf(xf.x, yf.x, acc);
+            acc = fmaf(xf.y, yf.y, acc);
+          }
+        }
       }
-    frags_x_rows<DP, BK / 16>(s, Ks, acc);
-  }
-  bf16* dq = static_cast<bf16*>(a.dq) + qoff;
-#pragma unroll
-  for (int nt = 0; nt < DP / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int gr = q0 + rows[e >> 1], c = nt * 8 + 2 * tig + (e & 1);
-      if (gr < a.Lq && c < a.D)
-        dq[gr * qs + c] = __float2bfloat16(acc[nt][e] * a.scale);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      dsr[r] = acc;
     }
+    // Both consumers run every live kv tile of the CTA (where one's rows
+    // see no key of it, the mask gives P = 0).
+    mbar_wait(qd_full, 0);
+    // pass 1: the row max m and sum l, online, in the exp2 domain, over a
+    // stage's two tiles at once (x[1] of the last stage may be empty: k0b
+    // < 0). Row sums and maxima go through four partials each, so that no
+    // dependent chain is longer than 8.
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    // The mask writes a copy: an instruction that writes the accumulator
+    // registers themselves makes ptxas serialise every wgmma of the kernel.
+    auto row_stats = [&](const float (&acc_s)[2][TR / 2], int k0a, int k0b) {
+      float x[2][TR / 2];
+#pragma unroll
+      for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+        for (int i = 0; i < TR / 2; ++i) x[tt][i] = acc_s[tt][i];
+#pragma unroll
+      for (int tt = 0; tt < 2; ++tt) {
+        const int k0 = tt ? k0b : k0a;
+        if (k0 < 0) {
+#pragma unroll
+          for (int i = 0; i < TR / 2; ++i) x[tt][i] = -INFINITY;
+        } else if (!(k0 + TR <= a.Lkv &&
+                     tile_full(a, r0, r0 + TR, k0, k0 + TR))) {
+          // an edge tile: the causal diagonal, the window's far edge, the
+          // prefix boundary, the sequence's end
+#pragma unroll
+          for (int i = 0; i < TR / 2; ++i)
+            if (!allowed(a, rl + 8 * ((i >> 1) & 1),
+                         k0 + 8 * (i >> 2) + 2 * t + (i & 1)))
+              x[tt][i] = -INFINITY;
+        }
+      }
+      float mp[2][4], lp[2][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mp[r][c] = -INFINITY, lp[r][c] = 0.f;
+#pragma unroll
+      for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+        for (int i = 0; i < TR / 2; ++i) {
+          float& mx = mp[(i >> 1) & 1][((i >> 2) & 1) * 2 + (i & 1)];
+          mx = fmaxf(mx, x[tt][i]);
+        }
+      float safe[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mt = fmaxf(fmaxf(mp[r][0], mp[r][1]),
+                         fmaxf(mp[r][2], mp[r][3]));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+        const float mn = fmaxf(m[r], mt * sl2);
+        safe[r] = mn == -INFINITY ? 0.f : mn;
+        l[r] *= ex2(m[r] - safe[r]);                // 0 while m is -inf
+        m[r] = mn;
+      }
+#pragma unroll
+      for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+        for (int i = 0; i < TR / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          lp[r][((i >> 2) & 1) * 2 + (i & 1)] +=
+              ex2(fmaf(x[tt][i], sl2, -safe[r]));
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float ls = (lp[r][0] + lp[r][1]) + (lp[r][2] + lp[r][3]);
+        ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+        ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+        l[r] += ls;
+      }
+    };
+    float s[2][TR / 2];
+    int it = 0;
+    for (int n = next_kv(a, row0, 0, nkt); n < nkt;) {
+      const int n2 = next_kv(a, row0, n + 1, nkt);
+      const int st = it % STAGES;
+      mbar_wait(full + st, (it / STAGES) & 1);
+      ++it;
+      wgmma_fence();
+      gemm_rows<DP>(s[0], q_addr, smem_u32(Ks + st * T::TILE));   // S
+      if (n2 < nkt) gemm_rows<DP>(s[1], q_addr, smem_u32(Vs + st * T::TILE));
+      wgmma_commit();
+      wgmma_wait0();
+      keep(s[0]);
+      keep(s[1]);
+      if (lane == 0) mbar_arrive(empty + st);
+      row_stats(s, n * TR, n2 < nkt ? n2 * TR : -1);
+      n = n2 < nkt ? next_kv(a, row0, n2 + 1, nkt) : nkt;
+    }
+    // LSE in log2 units; +inf where a row sees no key (and past Lq), so
+    // that P = 2^(S log2e scale - LSE) is 0 there without a mask
+    const int Lqp = (a.Lq + TR - 1) / TR * TR;
+    float lse2[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rl + 8 * r;
+      lse2[r] = l[r] > 0.f ? m[r] + log2f(l[r]) : INFINITY;
+      if (t == 0 && row < Lqp) {
+        const size_t at = ((size_t)b * a.H + h) * Lqp + row;
+        a.lse[at] = row < a.Lq ? lse2[r] : INFINITY;
+        a.dsum[at] = row < a.Lq ? dsr[r] : 0.f;
+      }
+    }
+    // pass 2: dS = P (dP - D); dQ += dS K. A tile's dQ product is waited
+    // for, and its stage released, after the next tile's S and dP.
+    float (&dp)[TR / 2] = s[1];
+    float acc[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    uint32_t dsf[TR / 16][4];
+    int held = -1;                          // the stage the last dQ reads
+    for (int n = next_kv(a, row0, 0, nkt); n < nkt;
+         n = next_kv(a, row0, n + 1, nkt)) {
+      const int k0 = n * TR;
+      const int st = it % STAGES;
+      mbar_wait(full + st, (it / STAGES) & 1);
+      ++it;
+      const uint32_t k_addr = smem_u32(Ks + st * T::TILE);
+      wgmma_fence();
+      gemm_rows<DP>(s[0], q_addr, k_addr);                         // S
+      gemm_rows<DP>(dp, do_addr, smem_u32(Vs + st * T::TILE));     // dP
+      wgmma_commit();
+      wgmma_wait0();
+      keep(s[0]);
+      keep(dp);
+      if (held >= 0 && lane == 0) mbar_arrive(empty + held);
+      float (&p)[TR / 2] = s[0];
+#pragma unroll
+      for (int i = 0; i < TR / 2; ++i)
+        p[i] = ex2(fmaf(p[i], sl2, -lse2[(i >> 1) & 1]));
+      if (!(k0 + TR <= a.Lkv && tile_full(a, r0, r0 + TR, k0, k0 + TR)))
+#pragma unroll
+        for (int i = 0; i < TR / 2; ++i)         // an edge tile: the mask
+          if (!allowed(a, rl + 8 * ((i >> 1) & 1),
+                       k0 + 8 * (i >> 2) + 2 * t + (i & 1)))
+            p[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < TR / 2; ++i)
+        p[i] *= dp[i] - dsr[(i >> 1) & 1];                      // dS
+#pragma unroll
+      for (int kk = 0; kk < TR / 16; ++kk) to_frag(p, kk, dsf[kk]);
+      keep(acc);
+      keep(dsf);
+      wgmma_fence();
+      gemm_frags<DP>(acc, dsf, k_addr);            // K read MN-major
+      wgmma_commit();
+      held = st;
+    }
+    wgmma_wait0();
+    keep(acc);
+    if (held >= 0 && lane == 0) mbar_arrive(empty + held);
+    bf16* dq = static_cast<bf16*>(a.dq) + qoff;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = rl + 8 * r;
+      if (row >= a.Lq) continue;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        if (c < a.D)
+          *reinterpret_cast<__nv_bfloat162*>(dq + row * qs + c) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * r] * a.scale,
+                                    acc[4 * j + 2 * r + 1] * a.scale);
+      }
+    }
+  }
 }
 
 template <int DP>
-__global__ void __launch_bounds__(128) bwd_dkv_bf16(Args a) {
-  constexpr int LD = DP + 8, NT = BQB / 8;
-  extern __shared__ __align__(16) unsigned char smraw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smraw);
-  bf16* Vs = Ks + BK * LD;
-  bf16* Qs = Vs + BK * LD;
-  bf16* dOs = Qs + BQB * LD;
-  float* Ls = reinterpret_cast<float*>(dOs + BQB * LD);
-  float* Ds = Ls + BQB;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int hk = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BK;
-  const size_t qs = (size_t)a.H * a.D, ks = (size_t)a.Hkv * a.D;
-  const size_t koff = ((size_t)b * a.Lkv * a.Hkv + hk) * a.D;
-  load_rows<bf16, bf16, DP, LD>(Ks, static_cast<const bf16*>(a.k) + koff, ks,
-                                k0, a.Lkv, BK, a.D, a.vec);
-  load_rows<bf16, bf16, DP, LD>(Vs, static_cast<const bf16*>(a.v) + koff, ks,
-                                k0, a.Lkv, BK, a.D, a.vec);
-  const int rw = warp * 16, rows[2] = {rw + gid, rw + gid + 8};
-  float dk[DP / 8][4] = {}, dv[DP / 8][4] = {};
-  const int nqt = (a.Lq + BQB - 1) / BQB;
-  for (int g = 0; g < a.G; ++g) {
-    const int h = hk * a.G + g;
-    const size_t qoff = ((size_t)b * a.Lq * a.H + h) * a.D;
-    const bf16* q = static_cast<const bf16*>(a.q) + qoff;
-    const bf16* dout = static_cast<const bf16*>(a.dout) + qoff;
-    const float* lse_row = a.lse + ((size_t)b * a.H + h) * a.Lq;
-    const float* dsum_row = a.dsum + ((size_t)b * a.H + h) * a.Lq;
-    for (int qt = 0; qt < nqt; ++qt) {
-      const int q0 = qt * BQB;
-      if (!tile_live(a, q0, q0 + BQB, k0, k0 + BK)) continue;
-      __syncthreads();
-      load_rows<bf16, bf16, DP, LD>(Qs, q, qs, q0, a.Lq, BQB, a.D, a.vec);
-      load_rows<bf16, bf16, DP, LD>(dOs, dout, qs, q0, a.Lq, BQB, a.D,
-                                    a.vec);
-      if (threadIdx.x < BQB) {
-        const int gr = q0 + threadIdx.x;
-        Ls[threadIdx.x] = gr < a.Lq ? lse_row[gr] : 0.f;
-        Ds[threadIdx.x] = gr < a.Lq ? dsum_row[gr] : 0.f;
-      }
-      __syncthreads();
-      // S^T and dP^T: this warp's 16 keys x the tile's BQB queries
-      float st[NT][4] = {}, dpt[NT][4] = {};
-      rows_x_rows<DP, NT>(Ks, rw, Qs, st);
-      rows_x_rows<DP, NT>(Vs, rw, dOs, dpt);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = nt * 8 + 2 * tig + (e & 1);
-          const float p = allowed(a, q0 + qc, k0 + rows[e >> 1])
-                              ? expf(st[nt][e] * a.scale - Ls[qc]) : 0.f;
-          st[nt][e] = p;                               // P^T
-          dpt[nt][e] = p * (dpt[nt][e] - Ds[qc]);      // dS^T
+__global__ void __launch_bounds__(HTHREADS, 1)
+bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             const __grid_constant__ CUtensorMap tdo, const Args a) {
+  using T = Tiles<DP>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
+  unsigned char* Ks = align1024(smem_raw);
+  unsigned char* Vs = Ks + 2 * T::TILE;
+  unsigned char* ring = Vs + 2 * T::TILE;     // [STAGES][Q | dO | LSE | D]
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + STAGES;
+  // the heaviest causal kv tiles (the first) first: the kv tile is the
+  // slowest grid index
+  const int k0 = blockIdx.z * 2 * TR;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int nqt = (a.Lq + TR - 1) / TR, Lqp = nqt * TR;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);               // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG) {
+    // ---- producer: K and V once; Q, dO, LSE and D of each live q tile of
+    // each of the G heads, in order ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, 4 * T::TILE);
+      for (int half = 0; half < 2; ++half)
+        for (int sl = 0; sl < T::SLABS; ++sl) {
+          const int off = half * T::TILE + sl * TR * 128;
+          tma_load(Ks + off, &tk, kv_full, sl * SLAB, hk, k0 + TR * half, b);
+          tma_load(Vs + off, &tv, kv_full, sl * SLAB, hk, k0 + TR * half, b);
         }
-      frags_x_rows<DP, BQB / 16>(st, dOs, dv);
-      frags_x_rows<DP, BQB / 16>(dpt, Qs, dk);
+      int it = 0;
+      for (int gq = 0; gq < a.G; ++gq) {
+        const int h = hk * a.G + gq;
+        const size_t srow = ((size_t)b * a.H + h) * Lqp;
+        for (int qt = 0; qt < nqt; ++qt) {
+          const int q0 = qt * TR;
+          if (!tile_live(a, q0, q0 + TR, k0, k0 + 2 * TR)) continue;
+          const int st = it % STAGES;
+          const uint32_t ph = (it / STAGES) & 1;
+          ++it;
+          unsigned char* sp = ring + st * T::DKV_STAGE;
+          mbar_wait(empty + st, ph ^ 1);
+          mbar_expect_tx(full + st, 2 * T::TILE + 2 * T::STAT);
+          for (int sl = 0; sl < T::SLABS; ++sl) {
+            tma_load(sp + sl * TR * 128, &tq, full + st, sl * SLAB, h, q0, b);
+            tma_load(sp + T::TILE + sl * TR * 128, &tdo, full + st, sl * SLAB,
+                     h, q0, b);
+          }
+          bulk_load(sp + 2 * T::TILE, a.lse + srow + q0, T::STAT, full + st);
+          bulk_load(sp + 2 * T::TILE + T::STAT, a.dsum + srow + q0, T::STAT,
+                    full + st);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 keys each; S^T and dP^T (keys x queries), then
+    // dV += P^T dO and dK += dS^T Q ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = threadIdx.x / WG - 1, tid = threadIdx.x % WG;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int kr0 = k0 + TR * cw;                 // this consumer's keys
+    const int kl = kr0 + 16 * warp + g;           // a thread's: kl, kl + 8
+    const float sl2 = a.scale * LOG2E;
+    const uint32_t k_addr = smem_u32(Ks + cw * T::TILE);
+    const uint32_t v_addr = smem_u32(Vs + cw * T::TILE);
+    float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+    float s[TR / 2], dp[TR / 2];
+    uint32_t pf[TR / 16][4], dsf[TR / 16][4];
+    // Both consumers run every q tile of the CTA (where one's keys see no
+    // query of it, the mask gives P = 0), two turns a tile: S^T and dP^T,
+    // then dV and dK.
+    int nlive = 0;
+    for (int qt = 0; qt < nqt; ++qt)
+      nlive += tile_live(a, qt * TR, qt * TR + TR, k0, k0 + 2 * TR);
+    Turns turns(cw, 2 * a.G * nlive);
+    mbar_wait(kv_full, 0);
+    int it = 0;
+    for (int gq = 0; gq < a.G; ++gq) {
+      for (int qt = 0; qt < nqt; ++qt) {
+        const int q0 = qt * TR;
+        if (!tile_live(a, q0, q0 + TR, k0, k0 + 2 * TR)) continue;
+        const int st = it % STAGES;
+        const uint32_t ph = (it / STAGES) & 1;
+        ++it;
+        mbar_wait(full + st, ph);
+        const unsigned char* sp = ring + st * T::DKV_STAGE;
+        const uint32_t q_addr = smem_u32(sp);
+        const uint32_t do_addr = smem_u32(sp + T::TILE);
+        const float* Ls = reinterpret_cast<const float*>(sp + 2 * T::TILE);
+        const float* Ds = Ls + TR;
+        turns.take();
+        wgmma_fence();
+        gemm_rows<DP>(s, k_addr, q_addr);         // S^T = K Q^T
+        gemm_rows<DP>(dp, v_addr, do_addr);       // dP^T = V dO^T
+        wgmma_commit();
+        turns.pass();
+        wgmma_wait0();
+        keep(s);
+        keep(dp);
+        // S^T's rows are keys and its columns queries: the mask takes them
+        // swapped, LSE and D are the column's. Queries past Lq have LSE
+        // +inf, so P is 0 there without the mask; keys past Lkv give rows
+        // that are not stored.
+#pragma unroll
+        for (int j = 0; j < TR / 8; ++j) {          // P^T
+          const float2 lv =
+              *reinterpret_cast<const float2*>(Ls + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& x = s[4 * j + e];
+            x = ex2(fmaf(x, sl2, (e & 1) ? -lv.y : -lv.x));
+          }
+        }
+        if (!tile_full(a, q0, q0 + TR, kr0, kr0 + TR))
+#pragma unroll
+          for (int i = 0; i < TR / 2; ++i)       // an edge tile: the mask
+            if (!allowed(a, q0 + 8 * (i >> 2) + 2 * t + (i & 1),
+                         kl + 8 * ((i >> 1) & 1)))
+              s[i] = 0.f;
+#pragma unroll
+        for (int j = 0; j < TR / 8; ++j) {
+          const float2 dd =
+              *reinterpret_cast<const float2*>(Ds + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {                    // dS^T
+            float& x = dp[4 * j + e];
+            x = s[4 * j + e] * (x - ((e & 1) ? dd.y : dd.x));
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < TR / 16; ++kk) {
+          to_frag(s, kk, pf[kk]);
+          to_frag(dp, kk, dsf[kk]);
+        }
+        keep(dk);
+        keep(dv);
+        keep(pf);
+        keep(dsf);
+        turns.take();
+        wgmma_fence();
+        gemm_frags<DP>(dv, pf, do_addr);          // dO read MN-major
+        gemm_frags<DP>(dk, dsf, q_addr);          // Q read MN-major
+        wgmma_commit();
+        turns.pass();
+        wgmma_wait0();
+        keep(dk);
+        keep(dv);
+        if (lane == 0) mbar_arrive(empty + st);
+      }
+    }
+    const size_t ks = (size_t)a.Hkv * a.D;
+    const size_t koff = ((size_t)b * a.Lkv * a.Hkv + hk) * a.D;
+    bf16* dkp = static_cast<bf16*>(a.dk) + koff;
+    bf16* dvp = static_cast<bf16*>(a.dv) + koff;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = kl + 8 * r;
+      if (key >= a.Lkv) continue;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        if (c < a.D) {
+          *reinterpret_cast<__nv_bfloat162*>(dkp + key * ks + c) =
+              __floats2bfloat162_rn(dk[4 * j + 2 * r] * a.scale,
+                                    dk[4 * j + 2 * r + 1] * a.scale);
+          *reinterpret_cast<__nv_bfloat162*>(dvp + key * ks + c) =
+              __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+        }
+      }
     }
   }
-  bf16* dkp = static_cast<bf16*>(a.dk) + koff;
-  bf16* dvp = static_cast<bf16*>(a.dv) + koff;
-#pragma unroll
-  for (int nt = 0; nt < DP / 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int gr = k0 + rows[e >> 1], c = nt * 8 + 2 * tig + (e & 1);
-      if (gr < a.Lkv && c < a.D) {
-        dkp[gr * ks + c] = __float2bfloat16(dk[nt][e] * a.scale);
-        dvp[gr * ks + c] = __float2bfloat16(dv[nt][e]);
-      }
-    }
+}
+
+// cuTensorMapEncodeTiled from the driver, without linking libcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &res);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &res);
+#endif
+    if (res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// A contiguous (B, L, Hn, D) bf16 tensor as a 4-D map (D, Hn, L, B): boxes
+// of 64 columns x 64 positions, 128-byte swizzle, zero fill past the
+// tensor's extent (columns past D, positions past L).
+static bool encode_rows(CUtensorMap* map, const void* ptr, int D, int Hn,
+                        int L, int B) {
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hn, (cuuint64_t)L,
+                              (cuuint64_t)B};
+  const cuuint64_t row = (cuuint64_t)D * 2;
+  const cuuint64_t strides[3] = {row, row * Hn, row * Hn * L};
+  const cuuint32_t box[4] = {SLAB, 1, TR, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
+static cudaError_t run_bf16(const Args& a, int part, cudaStream_t s) {
+  auto kern = part == 0 ? bwd_dq_bf16<DP> : bwd_dkv_bf16<DP>;
+  const int smem = part == 0 ? Tiles<DP>::DQ_SMEM : Tiles<DP>::DKV_SMEM;
+  const dim3 grid = part == 0
+      ? dim3(a.H, a.B, (a.Lq + 2 * TR - 1) / (2 * TR))
+      : dim3(a.Hkv, a.B, (a.Lkv + 2 * TR - 1) / (2 * TR));
+  // a runtime call first: it makes the device's primary context current
+  // on this thread (autograd runs the backward on a thread of its own,
+  // where none may be yet), which the driver's map encoding needs
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  alignas(64) CUtensorMap tq, tk, tv, tdo;
+  if (!encode_rows(&tq, a.q, a.D, a.H, a.Lq, a.B) ||
+      !encode_rows(&tk, a.k, a.D, a.Hkv, a.Lkv, a.B) ||
+      !encode_rows(&tv, a.v, a.D, a.Hkv, a.Lkv, a.B) ||
+      !encode_rows(&tdo, a.dout, a.D, a.H, a.Lq, a.B))
+    return cudaErrorInvalidValue;
+  kern<<<grid, HTHREADS, smem, s>>>(tq, tk, tv, tdo, a);
+  return cudaGetLastError();
 }
 
 template <typename Kern>
@@ -671,18 +1290,9 @@ static cudaError_t launch(Kern kern, dim3 grid, int threads, size_t smem,
 }
 
 template <int DP>
-static cudaError_t run(const Args& a, bool bf16_in, int part,
-                       cudaStream_t s) {
+static cudaError_t run_f32(const Args& a, int part, cudaStream_t s) {
   const dim3 gq((a.Lq + BQ - 1) / BQ, a.H, a.B);
   const dim3 gk((a.Lkv + BK - 1) / BK, a.Hkv, a.B);
-  if (bf16_in) {
-    constexpr int LD = DP + 8;
-    if (part == 0)
-      return launch(bwd_dq_bf16<DP>, gq, 128,
-                    (size_t)(2 * BQ + 2 * BK) * LD * 2 + BQ * 4, a, s);
-    return launch(bwd_dkv_bf16<DP>, gk, 128,
-                  (size_t)(2 * BK + 2 * BQB) * LD * 2 + 2 * BQB * 4, a, s);
-  }
   constexpr int LD = DP + 1, LS = BK + 1;
   if (part == 0)
     return launch(bwd_dq_f32<DP>, gq, 256,
@@ -696,30 +1306,46 @@ static cudaError_t run(const Args& a, bool bf16_in, int part,
 
 // part 0 launches (a), which writes dq, lse and dsum; part 1 launches (b),
 // which reads lse and dsum and writes dk and dv. All tensors contiguous
-// (B, L, H, Dh); lse and dsum (B, H, Lq) f32. Returns the launch's CUDA
-// error code (0 on success).
+// (B, L, H, D); lse and dsum (B, H, Lq) f32, in bf16 (B, H, Lq rounded up
+// to 64). bf16 takes D a multiple of 8 and 16-byte aligned bases (TMA);
+// scale_dim is the head dim of the scale 1 / sqrt(scale_dim). Returns the
+// launch's CUDA error code (0 on success).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, float* lse, float* dsum,
     long long B, long long Lq, long long Lkv, long long H, long long Hkv,
-    long long D, long long causal, long long window, long long prefix_len,
-    long long q_offset, long long is_bf16, long long part, void* stream) {
+    long long D, long long scale_dim, long long causal, long long window,
+    long long prefix_len, long long q_offset, long long is_bf16,
+    long long part, void* stream) {
   using namespace fab;
   if (B == 0 || Lq == 0 || H == 0 || Lkv == 0) return 0;
-  if (D < 1 || D > 128 || Hkv < 1 || H % Hkv) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > 128 || scale_dim < 1 || Hkv < 1 || H % Hkv)
+    return (int)cudaErrorInvalidValue;
   const uintptr_t bases = reinterpret_cast<uintptr_t>(q) |
                           reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) |
                           reinterpret_cast<uintptr_t>(o) |
                           reinterpret_cast<uintptr_t>(dout);
+  const uintptr_t outs = reinterpret_cast<uintptr_t>(dq) |
+                         reinterpret_cast<uintptr_t>(dk) |
+                         reinterpret_cast<uintptr_t>(dv) |
+                         reinterpret_cast<uintptr_t>(lse) |
+                         reinterpret_cast<uintptr_t>(dsum);
+  if (is_bf16 && (D % 8 || ((bases | outs) & 15)))
+    return (int)cudaErrorInvalidValue;
   const int vec_elems = is_bf16 ? 8 : 4;
   Args a{q, k, v, o, dout, dq, dk, dv, lse, dsum,
          (int)B, (int)Lq, (int)Lkv, (int)H, (int)Hkv, (int)D, (int)(H / Hkv),
          (int)causal, (int)window, (int)prefix_len, (int)q_offset,
          (int)((bases & 15) == 0 && D % vec_elems == 0),
-         1.0f / sqrtf((float)D)};
+         1.0f / sqrtf((float)scale_dim)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = D <= 64 ? run<64>(a, is_bf16 != 0, (int)part, s)
-                                  : run<128>(a, is_bf16 != 0, (int)part, s);
+  cudaError_t err;
+  if (is_bf16)
+    err = D <= 64 ? run_bf16<64>(a, (int)part, s)
+                  : run_bf16<128>(a, (int)part, s);
+  else
+    err = D <= 64 ? run_f32<64>(a, (int)part, s)
+                  : run_f32<128>(a, (int)part, s);
   return (int)err;
 }

@@ -59,17 +59,31 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_rc(rc, "flash_attention")
 
 
+def bwd_scratch(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward's (B, H, Lq) f32 scratch for LSE and D, which (a)
+    writes and (b) reads: in bf16 Lq is rounded up to the kernels' 64-row
+    tile, whose rows past Lq (a) fills, so that (b) loads whole tiles."""
+    B, Lq, H, _ = q.shape
+    if q.dtype == torch.bfloat16:
+        Lq = -(-Lq // 64) * 64
+    lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    return lse, torch.empty_like(lse)
+
+
 def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                o: torch.Tensor, do: torch.Tensor, dq: torch.Tensor,
                dk: torch.Tensor, dv: torch.Tensor, lse: torch.Tensor,
                dsum: torch.Tensor, *, causal: bool, window: int,
-               prefix_len: int, q_offset: int, part: int) -> None:
+               prefix_len: int, q_offset: int, part: int,
+               scale_dim: int | None = None) -> None:
     """One of the backward's two kernels (``csrc/flash_attention_bwd.cu``):
     ``part`` 0 (a) writes dq, ``lse`` and ``dsum``; ``part`` 1 (b) reads
     them and writes dk and dv. Every tensor contiguous: q, o, do, dq (B,
-    Lq, H, Dh); k, v, dk, dv (B, Lkv, Hkv, Dh); lse, dsum (B, H, Lq) f32;
-    ``window`` 0 for none. The caller has checked shapes, dtypes and
-    devices."""
+    Lq, H, Dh); k, v, dk, dv (B, Lkv, Hkv, Dh); lse, dsum from
+    ``bwd_scratch``; in bf16 each 16-byte aligned with Dh a multiple of 8
+    (the tensor maps'). ``window`` 0 for none; the scale is 1 /
+    sqrt(``scale_dim``) (default Dh). The caller has checked shapes,
+    dtypes and devices."""
     fn = _build.load("flash_attention_bwd")
     index = q.device.index
     if index != torch._C._cuda_getDevice():
@@ -77,12 +91,12 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return launch_bwd(q, k, v, o, do, dq, dk, dv, lse, dsum,
                               causal=causal, window=window,
                               prefix_len=prefix_len, q_offset=q_offset,
-                              part=part)
+                              part=part, scale_dim=scale_dim)
     B, Lq, H, D = q.shape
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             lse.data_ptr(), dsum.data_ptr(), B, Lq, k.shape[1], H,
-            k.shape[2], D, int(causal), window, prefix_len, q_offset,
-            int(q.dtype == torch.bfloat16), part,
+            k.shape[2], D, scale_dim or D, int(causal), window, prefix_len,
+            q_offset, int(q.dtype == torch.bfloat16), part,
             torch._C._cuda_getCurrentRawStream(index))
     _build.check_rc(rc, "flash_attention_bwd")

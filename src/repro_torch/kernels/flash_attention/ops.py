@@ -180,9 +180,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the output's cotangent do, in the inputs' dtypes: the backward's two
     kernels on CUDA tensors, (a) then (b), each counted in
     ``flash_attention.launches_bwd``; ``ref.attention_bwd_ref`` on CPU
-    tensors. Inputs of any strides are copied contiguous first. The modes
-    ``bwd_check`` refuses are refused by ``flash_attention`` before its
-    forward; here v must be shaped like k, and Dh at most 128."""
+    tensors. Inputs of any strides are copied contiguous first, and bf16
+    ones as ``bwd_operands`` gives them (the gradients of a padded head dim
+    sliced back). The modes ``bwd_check`` refuses are refused by
+    ``flash_attention`` before its forward; here v must be shaped like k,
+    and Dh at most 128."""
     Lq, Lkv = q.shape[1], k.shape[1]
     if q_offset is None:
         q_offset = Lkv - Lq
@@ -209,20 +211,46 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {Dh} outside [1, {BWD_DH_MAX}]")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
-    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if not (B and Lq and H and Lkv):
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
-    dsum = torch.empty_like(lse)
+        return tuple(torch.zeros(t.shape, dtype=dtype, device=t.device)
+                     for t in (q, k, v))
+    if dtype == torch.bfloat16:
+        q, k, v, o, do = bwd_operands(q, k, v, o, do)
+    else:
+        q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse, dsum = K.bwd_scratch(q)
     for part in (0, 1):
         K.launch_bwd(q, k, v, o, do, dq, dk, dv, lse, dsum, causal=causal,
                      window=window or 0, prefix_len=prefix_len,
-                     q_offset=q_offset, part=part)
+                     q_offset=q_offset, part=part, scale_dim=Dh)
         flash_attention.launches_bwd += 1
         if dtype == torch.float32:
             flash_attention.launches_bwd_f32 += 1
+    if q.shape[-1] != Dh:
+        return tuple(t[..., :Dh].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
+
+
+def bwd_operands(*tensors: torch.Tensor) -> list[torch.Tensor]:
+    """q, k, v, o and do as the bf16 backward kernels read them through TMA
+    tensor maps: contiguous, with a 16-byte aligned base (a contiguous view
+    at a misaligned storage offset is copied) and a head dim that is a
+    multiple of 8 (16-byte rows): another head dim (100) is given as a
+    copy zero-padded to the next multiple, which adds nothing to S, dP or
+    D, and whose gradients' extra columns are zero. The kernels take the
+    scale of the unpadded head dim. Tensors already so are passed as they
+    are; nothing here depends on the device."""
+    pad = -tensors[0].shape[-1] % 8
+    out = []
+    for t in tensors:
+        t = t.contiguous()
+        if pad:
+            t = torch.nn.functional.pad(t, (0, pad))
+        elif t.data_ptr() % 16:
+            t = t.clone()
+        out.append(t)
+    return out
 
 
 def _pad(d: int) -> int:

@@ -78,16 +78,18 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Lq, H, Dv).to(q.dtype)
 
 
-def _bwd_terms(q, k, v, o, do, causal, window, prefix_len, q_offset):
+def _bwd_terms(q, k, v, o, do, causal, window, prefix_len, q_offset,
+               scale=None):
     """P, dP and D (broadcast) (B, Hkv, G, Lq, Lkv) f32 of the backward's
     recurrence, with the f32 q (B, Lq, Hkv, G, Dq), do (B, Lq, Hkv, G, Dv)
-    and the scale."""
+    and the scale (default 1 / sqrt(Dq))."""
     B, Lq, H, Dq = q.shape
     _, Lkv, Hkv, Dv = v.shape
     G = H // Hkv
     if q_offset is None:
         q_offset = Lkv - Lq
-    scale = 1.0 / math.sqrt(Dq)
+    if scale is None:
+        scale = 1.0 / math.sqrt(Dq)
     qf = q.float().reshape(B, Lq, Hkv, G, Dq)
     dof = do.float().reshape(B, Lq, Hkv, G, Dv)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
@@ -108,7 +110,8 @@ def _bwd_terms(q, k, v, o, do, causal, window, prefix_len, q_offset):
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, do: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
-                      prefix_len: int = 0, q_offset: Optional[int] = None
+                      prefix_len: int = 0, q_offset: Optional[int] = None,
+                      scale: Optional[float] = None
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of ``attention_ref`` at q, k, v, given its
     output o and the output's cotangent do (B, Lq, H, Dv), in the
@@ -118,10 +121,12 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D), dQ = dS K / sqrt(Dq), dK = dS^T Q / sqrt(Dq). A kv head's dk and
     dv sum over its G query heads. A fully masked row has P = 0 and gives
     no gradient, as its output is 0. Each gradient is returned in its
-    input's dtype. Calls are counted in ``attention_bwd_ref.calls``."""
+    input's dtype. ``scale`` replaces 1 / sqrt(Dq) (the route of a head
+    dim zero-padded for the bf16 kernels keeps the unpadded one's). Calls
+    are counted in ``attention_bwd_ref.calls``."""
     attention_bwd_ref.calls += 1
     p, dp, dsum, qf, dof, scale = _bwd_terms(q, k, v, o, do, causal, window,
-                                             prefix_len, q_offset)
+                                             prefix_len, q_offset, scale)
     ds = p * (dp - dsum)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale

@@ -1,10 +1,12 @@
 """The training path on the card: the attention backward's two kernels
 (``csrc/flash_attention_bwd.cu``: (a) dQ, (b) dK/dV) against their plain
-version ``attention_bwd_ref`` in f32 and bf16, head dims 16, 64, 112 and
-128, GQA with 1, 5 and 8 query heads a kv head, every mask mode (causal,
-bidirectional, window, prefix, cross attention with Lq != Lkv, an
-explicit q_offset, fully masked rows), a planted fault in each kernel
-that the limit must catch, bit-identical repeats and the launch count;
+version ``attention_bwd_ref`` in f32 and bf16, head dims 16, 64, 100,
+112 and 128, GQA with 1, 5 and 8 query heads a kv head, every mask mode
+(causal, bidirectional, window, prefix, cross attention with Lq != Lkv,
+an explicit q_offset, fully masked rows), bf16 at the edges of the
+kernels' 64-row tiles (L 1 to 4,095) and from a misaligned view, a
+planted fault in each kernel that the limit must catch, bit-identical
+repeats and the launch count;
 ``FlashAttentionFn`` on CUDA tensors (the backward kernels run, the plain
 backward does not); the kernels without a backward (K1, K2, K3, K5)
 refusing inputs that require grad; and one reduced train step on the card
@@ -105,9 +107,49 @@ def test_backward_kernels_every_mask_mode(mode, dtype):
 @pytest.mark.parametrize("G", [1, 5, 8])
 def test_backward_kernels_head_dims_and_groups(G, D, dtype):
     """Head dims padded to 64 or 128 in shared memory (16, 100 and 112 not
-    multiples of the pad; 100 not of 8, so its rows take the element-wise
-    loads), G query heads a kv head summed into dk and dv."""
+    multiples of the pad; 100 not of 8: its f32 rows take the element-wise
+    loads, and its bf16 ones go to the kernels as a copy zero-padded to
+    104, whose gradients are sliced back), G query heads a kv head summed
+    into dk and dv."""
     _check(1, 129, 129, 2 * G, 2, D, dtype, seed=D + G, causal=True)
+
+
+@pytest.mark.parametrize("D", [16, 64, 112, 128])
+@pytest.mark.parametrize("G", [1, 5, 8])
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 127, 128, 129, 4095])
+def test_bf16_backward_at_tile_edges(L, G, D):
+    """The bf16 kernels' 64-row tiles (a consumer's; a CTA takes two) at
+    and around their edges, causal: the last tile ragged or whole, the
+    diagonal tile shared by the two consumers or not, with the padded head
+    dims 16 and 112 beside 64 and 128."""
+    _check(1, L, L, 2 * G, 2, D, torch.bfloat16, seed=L + 10 * G + D,
+           causal=True)
+
+
+@pytest.mark.parametrize("mode", ["causal", "cross", "masked_rows"])
+def test_bf16_backward_of_a_misaligned_view(mode):
+    """q, k, v, o and do as contiguous views one element past a 16-byte
+    boundary: the wrapper copies each to an aligned tensor for the tensor
+    maps, and the gradients equal those of aligned copies bit for bit."""
+    Lq, Lkv, causal, window, prefix, q_offset = MODES[mode]
+    kw = dict(causal=causal, window=window, prefix_len=prefix,
+              q_offset=q_offset)
+    xs = _inputs(2, Lq, Lkv, 8, 2, 128, torch.bfloat16, 21, **kw)
+    views = []
+    for x in xs:
+        base = torch.empty(x.numel() + 1, dtype=x.dtype, device=DEV)
+        view = base[1:].view(x.shape)
+        view.copy_(x)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        views.append(view)
+    got = fa_ops.flash_attention_bwd(*views, **kw)
+    want = fa_ops.flash_attention_bwd(*xs, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    plain = fa_ref.attention_bwd_ref(*xs, **kw)
+    rss = fa_ref.attention_bwd_rss(*xs, **kw)
+    assert bwd_excess(got, plain, rss, torch.bfloat16) <= 1.0
 
 
 def test_backward_at_qwen3_prefill_width():

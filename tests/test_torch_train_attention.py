@@ -4,7 +4,10 @@ against ``jax.grad`` of the reference model layer's ``flash_attention``,
 and its plain version ``attention_bwd_ref`` against autograd through
 ``attention_ref``, in every mask mode (causal, bidirectional, window,
 prefix, cross attention with Lq != Lkv, an explicit q_offset, a fully
-masked row) with GQA (1 and 4 query heads a kv head); what the
+masked row) with GQA (1 and 4 query heads a kv head); the route by
+which the bf16 kernels take a head dim that is not a multiple of 8 (a
+zero-padded copy, ``ops.bwd_operands``) against the unpadded one, and the
+aligned copy it makes of a misaligned view; what the
 backward does not take raises under grad; the wrappers of the kernels
 without a backward refuse inputs that require grad (``refuse_grad``, on
 CUDA tensors only: on the CPU their plain versions differentiate).
@@ -12,6 +15,8 @@ CUDA tensors only: on the CPU their plain versions differentiate).
 Tolerance: f32 gradients within 1e-5 of the largest |gradient| (f32 sums
 in another order).
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -97,6 +102,42 @@ def test_attention_bwd_ref_is_the_autograd_of_attention_ref(mode):
                                  kv_valid_len=None, device="cpu")[0]
     for r, seen in zip(rss, (mask.any(1), mask.any(0), mask.any(0))):
         assert bool((r.amax(dim=(0, 2, 3)) > 0).eq(seen).all())
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_padded_head_dim_route_of_the_backward(mode):
+    """The route by which the bf16 kernels take a head dim that is not a
+    multiple of 8 (``ops.bwd_operands``: every operand zero-padded to the
+    next multiple, the scale the unpadded head dim's), held on the plain
+    version: ``attention_bwd_ref`` of the padded operands, sliced back,
+    equals it on the unpadded ones, and the padded columns of each
+    gradient are 0."""
+    Lq, Lkv, causal, window, prefix, q_offset = MODES[mode]
+    q, k, v, do = (torch.from_numpy(x) for x in
+                   _inputs(2, Lq, Lkv, 4, 2, 100, seed=3))
+    kw = dict(causal=causal, window=window, prefix_len=prefix,
+              q_offset=q_offset)
+    o = fa_ref.attention_ref(q, k, v, **kw)
+    padded = fa_ops.bwd_operands(q, k, v, o, do)
+    assert all(t.shape[-1] == 104 and t.data_ptr() % 16 == 0
+               for t in padded)
+    got = fa_ref.attention_bwd_ref(*padded, scale=1 / math.sqrt(100), **kw)
+    want = fa_ref.attention_bwd_ref(q, k, v, o, do, **kw)
+    for a, b in zip(got, want):
+        assert bool((a[..., 100:] == 0).all())
+        _close(a[..., :100].numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("offset", [0, 1, 8])
+def test_bwd_operands_align_a_view_at_a_storage_offset(offset):
+    """A contiguous bf16 view ``offset`` elements (2 bytes each) into its
+    storage: a 16-byte aligned one passes as it is, a misaligned one is
+    copied to an aligned tensor of the same values."""
+    x = torch.randn(2 * 5 * 3 * 16 + offset).to(torch.bfloat16)
+    view = x[offset:].view(2, 5, 3, 16)
+    (out,) = fa_ops.bwd_operands(view)
+    assert out.data_ptr() % 16 == 0 and torch.equal(out, view)
+    assert (out.data_ptr() == view.data_ptr()) == (view.data_ptr() % 16 == 0)
 
 
 def test_without_grad_serving_takes_the_plain_forward():
