@@ -270,21 +270,30 @@ Phases (any failure exits non-zero and prints no result line):
               prefill and K4/K3 at zamba2's head dim 112 (in the timing
               child, below).
 13. train   — the training path, after ssm_hybrid, once its weights are
-              freed: (a) the attention backward's two kernels
-              (``csrc/flash_attention_bwd.cu``: dQ, then dK/dV) against
-              their plain version ``attention_bwd_ref`` in f32 and bf16
-              over every mask mode (causal, bidirectional, window, prefix,
-              cross attention with Lq != Lkv, an explicit q_offset, masked
-              rows), head dims 64, 112 and 128 at 1, 5 and 8 query heads a
-              kv head, at qwen3-14b's 4,096-token prefill (40/8 heads
-              of 128), and at the two trainers' shapes of (c) (the
+              freed: (a) the attention backward's kernels
+              (``csrc/flash_attention_bwd.cu``: the tiled pair, dQ then
+              dK/dV; the f32 one-pass kernel, which ``ops.bwd_route``
+              gives f32 calls with Lq and Lkv at most 64) against
+              their plain version ``attention_bwd_ref``: the pair in f32
+              and bf16 over every mask mode (causal, bidirectional,
+              window, prefix, cross attention with Lq != Lkv, an explicit
+              q_offset, masked rows), head dims 64, 112 and 128 at 1, 5
+              and 8 query heads a kv head, at qwen3-14b's 4,096-token
+              prefill (40/8 heads of 128; f32 at 1,024); the one-pass
+              kernel over every mode at Lq, Lkv <= 64 and head dims 16,
+              64, 100, 112 and 128 at G 1, 5 and 8, each call twice and
+              bit-identical; both at the two trainers' shapes of (c) (the
               embedder's f32 B 48 x 24 tokens, 12 heads of 64,
-              bidirectional; the reduced qwen3's bf16 B 8 x 128, 4 heads
-              of 16, causal), f32 within 1e-5 of the largest |gradient|,
-              bf16 within 2^-7 |plain| + 2^-5 x the row's rms of the
-              terms' root sum of squares; a kv tile dropped from (a)'s
-              pass 2 and one from (b) must each exceed the limit (at 256
-              and 4,096 causal tokens and at both trainers' shapes); (b)
+              bidirectional: one pass; the reduced qwen3's bf16 B 8 x 128,
+              4 heads of 16, causal), f32 within 1e-5 of the largest
+              |gradient|, bf16 within 2^-7 |plain| + 2^-5 x the row's rms
+              of the terms' root sum of squares; a kv tile dropped from
+              (a)'s pass 2 and one from (b) must each exceed the limit (at
+              256 and 4,096 causal tokens and at the reduced qwen3's
+              shape), and at the embedder's 8 keys dropped from dQ's sum
+              and 8 rows of dK zeroed; the counters zeroed and read
+              around (a), whose f32 pair launches are the pair's
+              ``sweep_launches`` (no main-path call reaches it); (b)
               qwen3-14b at full
               width cut to 4 of 40 layers (2.88 B params; remat on, bf16),
               B 1 x 4,096 tokens, chunked CE of 512: one step's loss, grad
@@ -298,8 +307,11 @@ Phases (any failure exits non-zero and prints no result line):
               ``launch.train --reduced --steps 10`` on the card (the loss
               decreases) and ``launch.train_embedder`` at the full
               siso-embedder in f32 for 60 steps (the dup/non-dup gap
-              widens and stays positive; the f32 K4 and the f32 backward
-              every step).
+              widens and stays positive; the f32 K4 and the one-pass
+              backward every step, at least 12 launches a step; every f32
+              backward call of (b)-(c) one pass), each step timed on the
+              host and the last traced (busy ms, idle share, the
+              backward's and K4's shares).
 
 Every kernel's timing (CUDA events, the plain version, the library call,
 the bound, and the profiler's device time) is taken in one child process
@@ -313,10 +325,17 @@ shard-local mode, K3's int8 mode and K4's f32 mode, the embedder's call,
 and both attention kernels' Dv mode, MLA's, their own entries, with
 their own bounds; the WKV6 recurrence ``wkv6``, which no library call
 computes; the attention backward's two kernels,
-``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` (bf16, at
-qwen3-14b's prefill) and their f32 instances ``flash_attention_bwd_dq_f32``
-and ``flash_attention_bwd_dkv_f32`` (the embedder's call), each with its
-own launches and bound and SDPA's backward as its library call; every
+``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` (the tiled
+pair, bf16, at qwen3-14b's prefill), their f32 instances
+``flash_attention_bwd_dq_f32`` and ``flash_attention_bwd_dkv_f32`` (at
+phase 13 (a)'s 1,024 causal tokens, 40/8 heads of 128; no call of the
+main path reaches the f32 pair since the embedder's went to the one-pass
+kernel, so their ``launches`` are 0 and only these two entries are exempt
+from the launched-on-the-main-path check; (a)'s correctness sweep, which
+must launch them, gives its count as ``sweep_launches``), each with the
+bound of the products its own outputs need, and ``flash_attention_bwd_f32``, the one-pass kernel at the
+embedder's call (launches phase 13's one-pass ones, the whole backward's
+bound), each with SDPA's backward as its library call; every
 entry also carries ``device_ms``, the profiler's
 device time, and each entry with a library call ``library_device_ms``,
 that call's); the line
@@ -5994,8 +6013,9 @@ BWD_RTOL_F32 = 1e-5
 BWD_ROW_RTOL = 2.0 ** -5
 BWD_TIMED = dict(B=1, Lq=4096, Lkv=4096, H=40, Hkv=8, Dh=128)  # qwen3-14b
 BWD_EMBED = dict(B=48, Lq=24, Lkv=24, H=12, Hkv=12, Dh=64)     # embedder
-BWD_FAULT_TILE = (64, 128)   # the kv tile each planted fault drops (the
-                             # first, (0, Lkv), where Lkv <= 64)
+BWD_FAULT_TILE = (64, 128)   # the kv tile each planted fault drops
+BWD_FAULT_KEYS = (8, 16)     # the keys it drops where Lkv <= 64 (the
+                             # one-pass kernel's calls)
 # launch.train --reduced's attention (B 8 x 128 tokens, qwen3-14b reduced)
 BWD_REDUCED = dict(B=8, Lq=128, Lkv=128, H=4, Hkv=4, Dh=16)
 # (shape, mask) of (a): every mode at B 2, H 10/2, Dh 64; then head dims
@@ -6011,6 +6031,24 @@ BWD_SWEEP = tuple(
         (90, 90, dict(causal=True, q_offset=-20)))      # masked rows
 ) + tuple((dict(B=1, Lq=129, Lkv=129, H=2 * G, Hkv=2, Dh=d),
            dict(causal=True)) for d in (64, 112, 128) for G in (1, 5, 8))
+# (shape, mask) of (a)'s one-tile calls, which f32 sends to the one-pass
+# kernel (Lq, Lkv <= 64; its 32-row tile where both are at most 32): every
+# mode at B 3, H 10/2, Dh 64; then head dims 16-128 at G = 1, 5 and 8
+BWD_SHORT_SWEEP = tuple(
+    (dict(B=3, Lq=lq, Lkv=lkv, H=10, Hkv=2, Dh=64), kw) for lq, lkv, kw in (
+        (24, 24, dict(causal=True)),
+        (24, 24, dict(causal=False)),
+        (57, 57, dict(causal=True)),
+        (60, 60, dict(causal=True, window=9)),
+        (40, 40, dict(causal=True, prefix_len=13)),
+        (13, 37, dict(causal=False)),                   # cross attention
+        (50, 20, dict(causal=False)),
+        (10, 31, dict(causal=True, q_offset=21)),
+        (30, 30, dict(causal=True, q_offset=-7)),       # masked rows
+        (64, 48, dict(causal=True, window=16, q_offset=-20)))
+) + tuple((dict(B=2, Lq=L, Lkv=L, H=2 * G, Hkv=2, Dh=d), dict(causal=True))
+          for d in (16, 64, 100, 112, 128) for G in (1, 5, 8)
+          for L in (31, 64))
 
 TRAIN_ARCH = "qwen3-14b"
 TRAIN_LAYERS = 4     # of 40: 2.88 B params, 34.5 GB with bf16 grads and
@@ -6059,20 +6097,31 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
                 fault: bool = False, **kw) -> None:
     """The backward kernels on seeded inputs against attention_bwd_ref;
     with ``fault``, also the kernels' output as it would be without one kv
-    tile in (a)'s pass 2 and without one kv tile's (b) CTA, each of which
-    must fail the limit against the plain version. Notes the largest |kernel - plain| of dq and of dk/dv and the
-    largest share of the limit in ``res``."""
+    tile in (a)'s pass 2 and without one kv tile's (b) CTA (for the
+    one-pass kernel's calls, Lkv <= 64: without BWD_FAULT_KEYS in dQ's sum
+    and with those rows of dK zeroed), each of which must fail the limit
+    against the plain version; the one-pass kernel's calls run twice and
+    must repeat bit for bit. Notes the largest |kernel - plain| of dq and
+    of dk/dv and the largest share of the limit in ``res``, by route
+    (``one_pass``, or the tiled pair's dtype)."""
     from repro_torch.kernels.flash_attention import ops, ref
     q, k, v, o, do = bwd_inputs(torch, shape, dtype, seed, **kw)
     got = ops.flash_attention_bwd(q, k, v, o, do, **kw)
     torch.cuda.synchronize()
+    route = ops.bwd_route(dtype, shape["Lq"], shape["Lkv"], shape["Dh"])
+    ctx = f"[train] backward {shape} {_dtype_name(dtype)} {kw} ({route})"
+    if route == "one_pass":
+        again = ops.flash_attention_bwd(q, k, v, o, do, **kw)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{ctx}: two calls differ")
+        del again
     plain = ref.attention_bwd_ref(q, k, v, o, do, **kw)
     rss = ref.attention_bwd_rss(q, k, v, o, do, **kw)
-    ctx = f"[train] backward {shape} {_dtype_name(dtype)} {kw}"
     for g in got:
         check(bool(torch.isfinite(g).all()), f"{ctx}: non-finite gradient")
     x = bwd_excess(torch, got, plain, rss)
-    dt = _dtype_name(dtype)
+    dt = "one_pass" if route == "one_pass" else _dtype_name(dtype)
     res["share"][dt] = max(res["share"][dt], x)
     err = res["err"][dt]
     err["dq"] = max(err["dq"], float(
@@ -6084,7 +6133,7 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
     check(x <= 1.0, f"{ctx}: {x:.3g} of the limit")
     if not fault:
         return
-    t0, t1 = BWD_FAULT_TILE if shape["Lkv"] > 64 else (0, shape["Lkv"])
+    t0, t1 = BWD_FAULT_TILE if shape["Lkv"] > 64 else BWD_FAULT_KEYS
     p, dp, dsum, _, _, scale = ref._bwd_terms(
         q, k, v, o, do, kw.get("causal", True), kw.get("window"),
         kw.get("prefix_len", 0), kw.get("q_offset"))
@@ -6096,28 +6145,38 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
     del p, dp, dsum, part
     fa = bwd_excess(torch, (dq_fault, got[1], got[2]), plain, rss)
     fb = bwd_excess(torch, (got[0], dk_fault, got[2]), plain, rss)
-    res["faults"].append({"shape": shape, "dtype": dt, "dq_tile_dropped": fa,
-                          "dkv_tile_dropped": fb})
+    res["faults"].append({"shape": shape, "dtype": dt, "keys": (t0, t1),
+                          "dq_tile_dropped": fa, "dkv_tile_dropped": fb})
     check(fa > 1.0 and fb > 1.0,
-          f"{ctx}: a dropped kv tile stays within the limit ((a) {fa:.3g}, "
-          f"(b) {fb:.3g})")
+          f"{ctx}: dropped keys {t0}-{t1} stay within the limit (dq "
+          f"{fa:.3g}, dk {fb:.3g})")
 
 
 def train_kernels(torch, seed: int) -> dict:
     """(a): the backward kernels against their plain version over
     BWD_SWEEP in f32 and bf16, at qwen3-14b's 4,096-token prefill in bf16
-    and at 1,024 tokens in f32, and at the shapes (c)'s trainers give them
-    (the embedder's in f32, the reduced qwen3's in bf16); the planted
-    faults at 256 tokens, at 4,096 and at both trainers' shapes."""
+    and at 1,024 tokens in f32 (the tiled pair), over BWD_SHORT_SWEEP in
+    f32 (the one-pass kernel), and at the shapes (c)'s trainers give them
+    (the embedder's in f32, one pass; the reduced qwen3's in bf16); the
+    planted faults at 256 tokens, at 4,096 and at both trainers' shapes.
+    The backward's counters are zeroed before and read after: the tiled
+    f32 pair's launches here are its ``sweep_launches`` on the kernels
+    line, whose ``launches`` (the main path's) are 0 for it."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    fa.flash_attention.launches_bwd = fa.flash_attention.launches_bwd_f32 \
+        = fa.flash_attention.launches_bwd_f32_one_pass = 0
     res = {"err": {dt: {"dq": 0.0, "dkv": 0.0}
-                   for dt in ("float32", "bfloat16")},
-           "share": {"float32": 0.0, "bfloat16": 0.0}, "n": 0, "faults": []}
+                   for dt in ("float32", "bfloat16", "one_pass")},
+           "share": {"float32": 0.0, "bfloat16": 0.0, "one_pass": 0.0},
+           "n": 0, "faults": []}
     for dtype in (torch.float32, torch.bfloat16):
         for i, (shape, kw) in enumerate(BWD_SWEEP):
             bwd_compare(torch, res, shape, dtype, seed + 300 + i, **kw)
         bwd_compare(torch, res, dict(B=1, Lq=256, Lkv=256, H=8, Hkv=2,
                                      Dh=128), dtype, seed + 340, fault=True,
                     causal=True)
+    for i, (shape, kw) in enumerate(BWD_SHORT_SWEEP):
+        bwd_compare(torch, res, shape, torch.float32, seed + 350 + i, **kw)
     bwd_compare(torch, res, dict(BWD_TIMED, Lq=1024, Lkv=1024),
                 torch.float32, seed + 341, causal=True)
     bwd_compare(torch, res, BWD_TIMED, torch.bfloat16, seed + 342,
@@ -6126,25 +6185,36 @@ def train_kernels(torch, seed: int) -> dict:
                 fault=True, causal=False)
     bwd_compare(torch, res, BWD_REDUCED, torch.bfloat16, seed + 344,
                 fault=True, causal=True)
+    one = fa.flash_attention.launches_bwd_f32_one_pass
+    res["launches"] = {
+        "one_pass": one,
+        "tiled_f32": fa.flash_attention.launches_bwd_f32 - one,
+        "tiled_bf16": fa.flash_attention.launches_bwd
+        - fa.flash_attention.launches_bwd_f32}
+    check(one >= len(BWD_SHORT_SWEEP) and res["launches"]["tiled_f32"] > 0,
+          f"[train] (a) backward launches by route {res['launches']}")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[train] (a) {res['n']} backward calls agree with the plain version "
-        f"(f32 {BWD_RTOL_F32} of the largest |gradient|, largest share "
-        f"{res['share']['float32']:.3g}; bf16 2^-7 |plain| + 2^-5 x the "
+        f"(f32 {BWD_RTOL_F32} of the largest |gradient|, largest share: "
+        f"tiled {res['share']['float32']:.3g}, one-pass "
+        f"{res['share']['one_pass']:.3g}; bf16 2^-7 |plain| + 2^-5 x the "
         f"row's rms of the terms' root sum of squares, largest share "
         f"{res['share']['bfloat16']:.3g}); max abs err dq, dk/dv: " + ", ".join(
             f"{dt} {e['dq']:.3g}, {e['dkv']:.3g}"
-            for dt, e in res["err"].items()) + "; planted faults " + "; ".join(
-            f"{f['dtype']} B {f['shape']['B']} L {f['shape']['Lq']}: (a) "
-            f"{f['dq_tile_dropped']:.3g}"
-            f", (b) {f['dkv_tile_dropped']:.3g} of the limit"
+            for dt, e in res["err"].items()) + f"; launches by route "
+        f"{res['launches']}; one-pass repeats bit-identical; planted "
+        "faults " + "; ".join(
+            f"{f['dtype']} B {f['shape']['B']} L {f['shape']['Lq']} keys "
+            f"{f['keys'][0]}-{f['keys'][1]}: dq {f['dq_tile_dropped']:.3g}"
+            f", dk {f['dkv_tile_dropped']:.3g} of the limit"
             for f in res["faults"]))
     return res
 
 
 def train_trace(torch, fn) -> dict:
     """``fn`` (one train step) under torch.profiler: the device's busy ms,
-    the backward kernels' ms (``fab::bwd``) and K4's forward (``flash_bf16``)
+    the backward kernels' ms (``fab::bwd``) and K4's forward (``fa::flash_``)
     and their shares of it, the largest kernels. The profiled wall clock
     carries the profiler's own host cost; the caller sets the idle share
     against an untraced step's."""
@@ -6161,7 +6231,7 @@ def train_trace(torch, fn) -> dict:
         return {"profiled_wall_ms": wall}
     by = tr.pop("by_name_ms")
     bwd = {n.split("(")[0][:60]: t for n, t in by.items() if "fab::bwd" in n}
-    k4 = sum(t for n, t in by.items() if "flash_bf16" in n)
+    k4 = sum(t for n, t in by.items() if "fa::flash_" in n)
     return {"profiled_wall_ms": wall, **tr, "bwd_ms": bwd, "bwd_share": sum(bwd.values()) / tr["busy_ms"],
             "k4_ms": k4, "k4_share": k4 / tr["busy_ms"]}
 
@@ -6222,7 +6292,8 @@ def train_qwen3(torch, np, seed: int) -> dict:
         lr=TRAIN_LR, warmup_steps=1, total_steps=30),
         ce_chunk=TRAIN_CE_CHUNK)
     zero_attention_launches()
-    fa.flash_attention.launches_bwd = fa.flash_attention.launches_bwd_f32 = 0
+    fa.flash_attention.launches_bwd = fa.flash_attention.launches_bwd_f32 \
+        = fa.flash_attention.launches_bwd_f32_one_pass = 0
     fr.attention_bwd_ref.calls = 0
     torch.cuda.reset_peak_memory_stats()
     losses, host_ms, tr = [], [], {}
@@ -6280,8 +6351,10 @@ def train_qwen3(torch, np, seed: int) -> dict:
 def train_launchers(torch, np) -> dict:
     """(c): ``launch.train`` on the reduced model, 10 steps on the card,
     and ``launch.train_embedder`` at the full siso-embedder in f32 for
-    EMBED_TRAIN_STEPS steps (f32 K4 forward and the f32 backward kernels
-    every step)."""
+    EMBED_TRAIN_STEPS steps (f32 K4 forward and the one-pass backward
+    kernel every step: 12 calls a step, two encodes of 6 layers), each
+    step timed on the host and the last one traced (busy ms, idle share
+    against the untraced steps' median, the backward's and K4's shares)."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch import train, train_embedder
     t0 = time.perf_counter()
@@ -6291,36 +6364,68 @@ def train_launchers(torch, np) -> dict:
     check(last < first, f"[train] (c) launch.train's loss did not decrease: "
                         f"{losses}")
     lm_s = time.perf_counter() - t0
-    f32_0, bwd_0 = fa.flash_attention.launches_f32, \
-        fa.flash_attention.launches_bwd_f32
+    f32_0, one_0 = fa.flash_attention.launches_f32, \
+        fa.flash_attention.launches_bwd_f32_one_pass
+    host_ms, tr = [], {}
+
+    def timed(i, run):
+        t = time.perf_counter()
+        if i == EMBED_TRAIN_STEPS - 1:
+            out = []
+            tr.update(train_trace(torch, lambda: out.append(run())))
+            loss = out[0]
+        else:
+            loss = run()
+            torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t))
+        return loss
     t0 = time.perf_counter()
     emb = train_embedder.train(steps=EMBED_TRAIN_STEPS, full=True,
-                               device=DEV, log_every=0)
+                               device=DEV, log_every=0, wrap_step=timed)
     emb_s = time.perf_counter() - t0
     (d0, n0), (d1, n1) = emb["before"], emb["after"]
     per_step = 2 * 6        # two encodes of the 6 shared layers
     f32 = fa.flash_attention.launches_f32 - f32_0
-    bwd = fa.flash_attention.launches_bwd_f32 - bwd_0
+    one = fa.flash_attention.launches_bwd_f32_one_pass - one_0
+    step_ms = statistics.median(host_ms[1:-1])    # past the first step
+    if tr.get("busy_ms"):
+        tr["idle_share"] = max(0.0, 1.0 - tr["busy_ms"] / step_ms)
     log(f"[train] (c) launch.train --reduced: loss {first:.3f} -> {last:.3f} "
         f"in 10 steps ({lm_s:.1f} s); train_embedder (d 768, f32, "
-        f"{EMBED_TRAIN_STEPS} steps, {emb_s:.1f} s): gap {d0 - n0:+.3f} -> "
-        f"{d1 - n1:+.3f} (dup {d1:.3f}, non-dup {n1:.3f}); f32 K4 launches "
-        f"{f32}, f32 backward kernel launches {bwd}")
+        f"{EMBED_TRAIN_STEPS} steps, {emb_s:.1f} s, {step_ms:.2f} ms a step "
+        f"on the host, median): gap {d0 - n0:+.3f} -> {d1 - n1:+.3f} (dup "
+        f"{d1:.3f}, non-dup {n1:.3f}); f32 K4 launches {f32}, one-pass "
+        f"backward launches {one}")
+    if tr.get("busy_ms"):
+        log(f"[train] (c) traced embedder step: wall "
+            f"{tr['profiled_wall_ms']:.1f} ms, device busy "
+            f"{tr['busy_ms']:.3f} ms (idle share {tr['idle_share']:.3f} of "
+            f"an untraced step's {step_ms:.2f} ms; {tr['device_events']} "
+            f"device events); backward kernels {tr['bwd_ms']} "
+            f"({tr['bwd_share']:.4f} of busy), K4 forward "
+            f"{tr['k4_ms']:.3f} ms ({tr['k4_share']:.4f}); most device "
+            "time: " + "; ".join(f"{n} {t:.3f} ms"
+                                 for n, t in tr["top_kernels_ms"]))
+    else:
+        log("[train] (c) traced embedder step: no device activity recorded "
+            "(not measured)")
     check(d1 - n1 > 0 and d1 - n1 > d0 - n0,
           f"[train] (c) the embedder's gap did not widen: {emb}")
     check(f32 >= EMBED_TRAIN_STEPS * per_step
-          and bwd >= 2 * EMBED_TRAIN_STEPS * per_step,
-          f"[train] (c) f32 K4 launches {f32}, f32 backward launches {bwd} in "
-          f"{EMBED_TRAIN_STEPS} steps")
+          and one >= EMBED_TRAIN_STEPS * per_step,
+          f"[train] (c) f32 K4 launches {f32}, one-pass backward launches "
+          f"{one} in {EMBED_TRAIN_STEPS} steps")
     return {"lm_losses": losses, "embedder": emb, "lm_s": lm_s,
-            "embedder_s": emb_s}
+            "embedder_s": emb_s, "embedder_host_ms": host_ms,
+            "embedder_step_ms": step_ms, "embedder_trace": tr}
 
 
 def phase_train(torch, np, seed: int) -> dict:
     """Phase 13: the backward kernels against their plain version (a),
     qwen3-14b training at full width (b) and the two trainers (c). The
     backward's launches and K4's on the main path are counted from (b)'s
-    steps to the end of (c)."""
+    steps to the end of (c): every f32 call there (the embedder's) takes
+    the one-pass kernel, so the tiled f32 pair has none."""
     from repro_torch.kernels.flash_attention import ops as fa
     t0 = time.perf_counter()
     kern = train_kernels(torch, seed)
@@ -6331,6 +6436,12 @@ def phase_train(torch, np, seed: int) -> dict:
     launches = attention_launches()
     launches["flash_attention_bwd"] = fa.flash_attention.launches_bwd
     launches["flash_attention_bwd_f32"] = fa.flash_attention.launches_bwd_f32
+    launches["flash_attention_bwd_f32_one_pass"] = \
+        fa.flash_attention.launches_bwd_f32_one_pass
+    check(launches["flash_attention_bwd_f32"]
+          == launches["flash_attention_bwd_f32_one_pass"],
+          f"[train] an f32 backward call of the main path took the tiled "
+          f"pair: {launches}")
     wall = time.perf_counter() - t0
     log(f"[train] phase done in {wall:.1f} s; launches {launches}")
     return {"kernels": kern, "qwen3": qwen, "launchers": launchers,
@@ -6338,31 +6449,40 @@ def phase_train(torch, np, seed: int) -> dict:
 
 
 def bwd_timing(torch, seed: int) -> dict:
-    """The backward's two kernels at qwen3-14b's 4,096-token causal prefill
-    (BWD_TIMED, bf16): each kernel by CUDA events, (a) then (b) on the same
-    buffers; the plain backward; SDPA's backward (autograd of
-    scaled_dot_product_attention, is_causal, enable_gqa; a yardstick the
-    port never calls); the bound; and each kernel's device ms from a
-    profiled call, which must launch the two and nothing else. The bound
-    of each kernel counts the products its outputs need in a standard
-    backward, over the causal half: (a) S, dP and dQ, (b) S, dP, dV and
-    dK (the five of a fused backward are S, dP, dV, dQ, dK; the extra Q K^T
-    pass of (a) is not credited), against the bytes of its inputs read and
-    outputs written once. The same at the embedder's f32 shape
-    (BWD_EMBED, bidirectional), the f32 instances' entries. A profiled
-    call that records no kernel fails."""
+    """The backward's kernels, each beside the plain backward, SDPA's
+    backward (autograd of scaled_dot_product_attention, is_causal,
+    enable_gqa; a yardstick the port never calls) and its bound, with its
+    device ms from a profiled ``flash_attention_bwd`` call, which must
+    launch the route's kernels and nothing else: the tiled pair at
+    qwen3-14b's 4,096-token causal prefill (BWD_TIMED, bf16) and at phase
+    13 (a)'s 1,024-token f32 call (the f32 instances), each kernel by CUDA
+    events, (a) then (b) on the same buffers; and the one-pass kernel at
+    the embedder's call (BWD_EMBED, f32, bidirectional), by CUDA events
+    around one launch. The bound of each pair kernel counts the products
+    its outputs need in a standard backward, over the causal half: (a) S,
+    dP and dQ, (b) S, dP, dV and dK (the extra Q K^T pass of (a) is not
+    credited), against the bytes of its inputs read and outputs written
+    once; the one-pass kernel's is the whole backward's: the five
+    products (S, dP, dV, dQ, dK) against q, k, v, o, do read and dq, dk,
+    dv written once. A profiled call that records no kernel fails."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ops as fa, ref as fr
+    sys.path.insert(0, str(ROOT))
+    from tools.trace_kernels import device_kernel_ms
     out = {}
     for label, shape, dtype, causal in (
             ("prefill", BWD_TIMED, torch.bfloat16, True),
+            ("tiled_f32", dict(BWD_TIMED, Lq=1024, Lkv=1024), torch.float32,
+             True),
             ("embedder", BWD_EMBED, torch.float32, False)):
         B, L, H, Hkv, Dh = (shape[x] for x in ("B", "Lq", "H", "Hkv", "Dh"))
+        route = fa.bwd_route(dtype, L, L, Dh)
         q, k, v, o, do = bwd_inputs(torch, shape, dtype, seed + 39,
                                     causal=causal)
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-        lse, dsum = K.bwd_scratch(q)
+        lse, dsum = (None, None) if route == "one_pass" else \
+            K.bwd_scratch(q)
         esz = q.element_size()
         pairs = L * (L + 1) // 2 if causal else L * L
         prod = 2.0 * B * H * Dh * pairs
@@ -6370,11 +6490,12 @@ def bwd_timing(torch, seed: int) -> dict:
             H100_FP32_FLOPS
         qb, kb = esz * B * L * H * Dh, esz * B * L * Hkv * Dh
         stats = 2 * 4 * B * H * L
+        whole = att_bound(3 * qb + 2 * kb + qb + 2 * kb, 5 * prod, peak)
         bounds = {"dq": att_bound(3 * qb + 2 * kb + qb + stats, 3 * prod,
                                   peak),
                   "dkv": att_bound(2 * qb + 2 * kb + 2 * kb + stats,
-                                   4 * prod, peak)}
-        whole = att_bound(3 * qb + 2 * kb + qb + 2 * kb, 5 * prod, peak)
+                                   4 * prod, peak),
+                  "one_pass": whole}
         plain_ms = cuda_ms(torch, lambda: fr.attention_bwd_ref(
             q, k, v, o, do, causal=causal), iters=3, warmup=1)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
@@ -6386,17 +6507,17 @@ def bwd_timing(torch, seed: int) -> dict:
                                           retain_graph=True)
         lib_ms = cuda_ms(torch, lib)
         lib_dev = library_device_ms(torch, lib)
-        sys.path.insert(0, str(ROOT))
-        from tools.trace_kernels import device_kernel_ms
         own, records = device_kernel_ms(torch, lambda: fa.flash_attention_bwd(
             q, k, v, o, do, causal=causal), iters=10)
         names = sorted(n.split("(")[0].split("<")[0].replace("void ", "")
                        for n in own)
-        check(names == ["fab::bwd_dkv_" + _kind(dtype),
-                        "fab::bwd_dq_" + _kind(dtype)],
+        parts = (("one_pass", 2),) if route == "one_pass" else \
+            (("dq", 0), ("dkv", 1))
+        check(names == sorted(f"fab::bwd_{name}_{_kind(dtype)}"
+                              for name, _ in parts),
               f"[timing] flash_attention_bwd {label}: one call launches "
-              f"{list(own)}, not its two kernels alone")
-        for part, name in enumerate(("dq", "dkv")):
+              f"{list(own)}, not the {route} route's kernels alone")
+        for name, part in parts:
             call = (lambda part=part: K.launch_bwd(
                 q, k, v, o, do, dq, dk, dv, lse, dsum, causal=causal,
                 window=0, prefix_len=0, q_offset=0, part=part))
@@ -6410,11 +6531,14 @@ def bwd_timing(torch, seed: int) -> dict:
                    "library_device_ms": lib_dev["library_device_ms"],
                    "whole_bound_ms": whole[0],
                    "device_records": list(records.values())}
-            key = (f"flash_attention_bwd_{name}" if label == "prefill"
-                   else f"flash_attention_bwd_{name}_f32")
+            key = {"prefill": f"flash_attention_bwd_{name}",
+                   "tiled_f32": f"flash_attention_bwd_{name}_f32",
+                   "embedder": "flash_attention_bwd_f32"}[label]
             out[key] = rec
-            log(f"[timing] flash_attention_bwd ({'a' if part == 0 else 'b'})"
-                f" {name} {label} {shape} {_dtype_name(dtype)}: kernel "
+            what = {"dq": "(a) dq", "dkv": "(b) dkv",
+                    "one_pass": "one-pass"}[name]
+            log(f"[timing] flash_attention_bwd {what} {label} {shape} "
+                f"{_dtype_name(dtype)}: kernel "
                 f"{rec['ms']:.4f} ms (CUDA events), {rec['device_ms']:.4f} ms "
                 f"on the device ({b_ms / rec['device_ms']:.3f} of its bound)"
                 f", plain backward {plain_ms:.4f} ms, SDPA's backward "
@@ -6453,33 +6577,14 @@ def bwd_bf16_ptxas(report) -> dict:
         log("[build] flash_attention_bwd was built before this run: no "
             "ptxas report to read")
         return {}
-    out, name = {}, None
-    for line in report.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties "
-                      r"for) '?_ZN3fab\d+(bwd_\w+_bf16)ILi(\d+)E", line)
+    sys.path.insert(0, str(ROOT))
+    from tools.trace_kernels import ptxas_functions
+    out = {}
+    for fn, r in ptxas_functions(report).items():
+        m = re.match(r"_ZN3fab\d+(bwd_\w+_bf16)ILi(\d+)E", fn)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
-            out.setdefault(name, {"kernel": m.group(1),
-                                  "dp": int(m.group(2))})
-            continue
-        if "serialized" in line:
-            m = re.search(r"_ZN3fab\d+(bwd_\w+_bf16)ILi(\d+)E", line)
-            if m:
-                out.setdefault(f"{m.group(1)}<{m.group(2)}>", {}).update(
-                    wgmma_serialized=line.strip())
-            continue
-        if name is None or "bf16" not in name:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m:
-            out[name].update(stack=int(m.group(1)),
-                             spill_stores=int(m.group(2)),
-                             spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
-        if m:
-            out[name].update(registers=int(m.group(1)),
-                             static_smem=int(m.group(2)))
+            out.setdefault(f"{m.group(1)}<{m.group(2)}>", {
+                "kernel": m.group(1), "dp": int(m.group(2))}).update(r)
     check(len(out) == 4, f"[build] the ptxas report names {sorted(out)}, "
           f"not the four bf16 backward kernels")
     for name, r in sorted(out.items()):
@@ -6495,6 +6600,39 @@ def bwd_bf16_ptxas(report) -> dict:
               f"[build] fab::{name} spills: {r}")
         check("wgmma_serialized" not in r,
               f"[build] fab::{name}: {r.get('wgmma_serialized')}")
+    return out
+
+
+def bwd_one_pass_ptxas(report) -> dict:
+    """Registers and spills of each instance of the f32 one-pass backward
+    kernel (``bwd_one_pass_f32<T, DP, VEC, GQA>``) from the ptxas report of
+    its library's build, logged; fails if one spills (the embedder's
+    instance, T 32 and DP 64 with one query head a kv head, is capped at 96
+    registers for five CTAs an SM) or if that instance is missing from a
+    report of this run."""
+    import re
+    if report is None:
+        return {}
+    sys.path.insert(0, str(ROOT))
+    from tools.trace_kernels import ptxas_functions
+    out = {}
+    for fn, r in ptxas_functions(report).items():
+        m = re.match(r"_ZN3fab\d+bwd_one_pass_f32ILi(\d+)ELi(\d+)ELb(\d)"
+                     r"ELb(\d)E", fn)
+        if m:
+            out.setdefault("bwd_one_pass_f32<{}, {}, {}, {}>".format(
+                m.group(1), m.group(2), *("true" if x == "1" else "false"
+                                          for x in m.group(3, 4))),
+                {}).update(r)
+    for name, r in sorted(out.items()):
+        log(f"[build] fab::{name}: {r.get('registers')} registers a thread, "
+            f"{r.get('spill_stores')} B spill stores, {r.get('spill_loads')} "
+            f"B spill loads, {r.get('stack')} B stack")
+        check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+              f"[build] fab::{name} spills: {r}")
+    check("bwd_one_pass_f32<32, 64, true, false>" in out,
+          f"[build] the ptxas report names {sorted(out)}, not the "
+          f"embedder's one-pass instance")
     return out
 
 
@@ -6626,6 +6764,8 @@ def main() -> int:
     detail["build_s"] = build_s
     detail["bwd_bf16_ptxas"] = bwd_bf16_ptxas(
         reports.get("flash_attention_bwd"))
+    detail["bwd_one_pass_ptxas"] = bwd_one_pass_ptxas(
+        reports.get("flash_attention_bwd"))
     for name in _build.KERNELS:
         _build.load(name)
     t = time.perf_counter()
@@ -6753,7 +6893,8 @@ def main() -> int:
         "flash_attention_bwd_dq": "src/repro/models/layers.py:157",
         "flash_attention_bwd_dkv": "src/repro/models/layers.py:157",
         "flash_attention_bwd_dq_f32": "src/repro/models/layers.py:157",
-        "flash_attention_bwd_dkv_f32": "src/repro/models/layers.py:157"}
+        "flash_attention_bwd_dkv_f32": "src/repro/models/layers.py:157",
+        "flash_attention_bwd_f32": "src/repro/models/layers.py:157"}
     sources = {
         "cosine_topk": "src/repro_torch/csrc/cosine_topk.cu",
         "cosine_top1_local": "src/repro_torch/csrc/cosine_topk.cu",
@@ -6771,6 +6912,8 @@ def main() -> int:
         "flash_attention_bwd_dq_f32":
             "src/repro_torch/csrc/flash_attention_bwd.cu",
         "flash_attention_bwd_dkv_f32":
+            "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "flash_attention_bwd_f32":
             "src/repro_torch/csrc/flash_attention_bwd.cu"}
     # launches on the main path: K1/K2 in their served stream, the slo
     # phase's runs, the planes phase (its killed child included), the
@@ -6807,15 +6950,22 @@ def main() -> int:
     launches["wkv6"] = ssm["launches"]["wkv6"]
     check(launches["wkv6"] > 0, "[kernels] wkv6 was never launched on the "
                                 "main path")
-    # the backward: phase 13's training steps and trainers, each call
-    # launching (a) and (b); bf16 in (b)'s steps and launch.train, f32 in
-    # the embedder's
+    # the backward: phase 13's training steps and trainers; bf16 calls (in
+    # (b)'s steps and launch.train) launch the tiled pair, (a) and (b), the
+    # f32 ones (the embedder's) the one-pass kernel. No call of the main
+    # path reaches the tiled f32 pair (phase_train checks it), so its
+    # launches are 0 and exempt from the check; phase 13 (a)'s sweep
+    # launches are its ``sweep_launches``
     n_f32 = train["launches"]["flash_attention_bwd_f32"]
     n_bf16 = train["launches"]["flash_attention_bwd"] - n_f32
+    tiled_f32 = ("flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32")
     for part in ("dq", "dkv"):
         launches[f"flash_attention_bwd_{part}"] = n_bf16 // 2
-        launches[f"flash_attention_bwd_{part}_f32"] = n_f32 // 2
-    for name in [n for n in launches if n.startswith("flash_attention_bwd")]:
+        launches[f"flash_attention_bwd_{part}_f32"] = 0
+    launches["flash_attention_bwd_f32"] = \
+        train["launches"]["flash_attention_bwd_f32_one_pass"]
+    for name in [n for n in launches if n.startswith("flash_attention_bwd")
+                 and n not in tiled_f32]:
         check(launches[name] > 0, f"[kernels] {name} was never launched on "
                                   f"the main path")
     # timed at the main path's shapes: K1/K2 at the served batch; K4 at the
@@ -6833,17 +6983,22 @@ def main() -> int:
     timed["flash_attention_dv"] = timing["flash_attention_dv/prefill"]
     timed["decode_attention_dv"] = \
         timing["decode_attention_dv/{}/{}".format(*DV_DECODE_TIMED)]
-    # WKV6 at rwkv6-7b's prefill; the bf16 backward at qwen3-14b's
-    # prefill, the f32 one at the embedder's call
+    # WKV6 at rwkv6-7b's prefill; the bf16 backward pair at qwen3-14b's
+    # prefill, the f32 pair at phase 13 (a)'s 1,024 tokens, the one-pass
+    # kernel at the embedder's call
     timed["wkv6"] = timing["wkv6"]
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-                 "flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32"):
+                 "flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32",
+                 "flash_attention_bwd_f32"):
         timed[name] = timing[name]
+    one_err = train["kernels"]["err"]["one_pass"]
     all_err = {**err, **att_err, "wkv6": ssm["wkv6_max_abs_err"],
                **{f"flash_attention_bwd_{part}{sfx}":
                   train["kernels"]["err"][dt][part]
                   for part in ("dq", "dkv")
-                  for sfx, dt in (("", "bfloat16"), ("_f32", "float32"))}}
+                  for sfx, dt in (("", "bfloat16"), ("_f32", "float32"))},
+               "flash_attention_bwd_f32": max(one_err["dq"],
+                                              one_err["dkv"])}
     kernels = []
     for name, rec in timed.items():
         kernels.append({
@@ -6855,6 +7010,9 @@ def main() -> int:
         for key in ("device_ms", "library_device_ms"):   # from the profiler
             if key in rec:
                 kernels[-1][key] = rec[key]
+        if name in tiled_f32:
+            kernels[-1]["sweep_launches"] = \
+                train["kernels"]["launches"]["tiled_f32"] // 2
     detail["total_s"] = time.perf_counter() - t_start
     log(f"[done] every phase passed in {detail['total_s']:.1f} s")
     out_dir = ROOT / args.out

@@ -15,10 +15,11 @@
 // masked, scaled scores S = Q K^T / sqrt(Dh); D = rowsum(do . o); P =
 // exp(S - LSE); dV = P^T do; dP = do V^T; dS = P . (dP - D); dQ = dS K /
 // sqrt(Dh); dK = dS^T Q / sqrt(Dh). A fully masked row has P = 0
-// everywhere, never NaN. Two kernels, launched one after the other on the
-// caller's stream, both deterministic (no atomics; every output element is
-// written by one CTA after a fixed-order loop, so repeats are
-// bit-identical):
+// everywhere, never NaN. Every kernel here is deterministic (no atomics;
+// every output element is written by one CTA after a fixed-order loop, so
+// repeats are bit-identical). An f32 call with Lq <= 64 and Lkv <= 64 takes
+// one fused kernel (below); every other call takes two, launched one after
+// the other on the caller's stream:
 //   (a) dq: a CTA owns a q tile of one head. It computes D from do and o,
 //       runs pass 1 over the kv tiles for the row max and sum, writes LSE
 //       and D to a (B, H, Lq) scratch, and runs pass 2 over the kv tiles
@@ -81,11 +82,35 @@
 // kernel (pass 1's mask writes a copy for that reason; chip_smoke fails
 // on the warning).
 //
-// f32 (the embedder's): full fp32 FMAs on the CUDA cores, never TF32, as
-// K4-f32's contract requires; one CTA of 256 threads a 64-row tile.
+// f32: full fp32 FMAs on the CUDA cores, never TF32 and no tensor cores,
+// as K4-f32's contract requires (a TF32 gradient moves the embedder).
+//   One pass (bwd_one_pass_f32, Lq <= 64 and Lkv <= 64: the embedder's B
+//   48 x 24 tokens, 12 heads of 64, bidirectional). The tiled pair would
+//   run 64-row tiles of which 24 x 24 are live, compute S twice in (a) and
+//   S and dP again in (b), and pass LSE and D through a global scratch:
+//   about 11x the arithmetic the backward needs, in two launches of 576
+//   CTAs at two an SM. Here one launch does it all: a CTA owns one
+//   (sequence, kv head), loads K and V once with cp.async (16 bytes where
+//   aligned, else 4), and for each of its G query heads in order loads Q
+//   and dO, forms D = rowsum(dO . O) from O in global memory, computes S =
+//   Q K^T and dP = dO V^T, an exact softmax over the whole row (the row's
+//   max and sum at once: no LSE, no rescale), P and dS = P . (dP - D),
+//   writes dQ = dS K / sqrt(Dh), and adds P^T dO into dV and dS^T Q into
+//   dK in registers; dK / sqrt(Dh) and dV are written at the end. The tile
+//   is 32 x 32 where both lengths are at most 32 (128 threads, 41,984
+//   bytes of shared memory at Dh <= 64: five CTAs an SM, so the embedder's
+//   576 run in one wave), else 64 x 64 (256 threads). The products are
+//   register micro-tiles (each 16-byte shared read feeds several
+//   independent FFMA chains), with K and V swizzled by 16-byte chunk. The
+//   bound of the embedder's call is its bytes: q, k, v, o, do read and dq,
+//   dk, dv written once, 28.3 MB, 0.0085 ms at 3.35 TB/s (its five
+//   products, 0.21 GFLOP, take 0.0032 ms at 67 TFLOP/s).
+//   Tiled (longer calls): one CTA of 256 threads a 64-row tile, (a) then
+//   (b) as above, with the LSE and D scratch.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -1212,6 +1237,397 @@ bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ---------------------------------------------------------------------------
+// f32, one pass: a call with Lq <= 64 and Lkv <= 64 (the embedder's 24
+// tokens) in one launch, with no scratch. A CTA owns one (sequence, kv head)
+// and a T x T tile, T = 32 where both lengths are at most 32, else 64: T / 8
+// warps; thread (warp w, lane 8 q + tl) has the slots r0 = 8 w + 2 q and r0
+// + 1. In S and dP it holds rows r0, r0 + 1 x keys tl + 8 j; in dQ the same
+// rows x 16-byte chunks tl + 8 c of the head dim; in dK and dV keys r0, r0 +
+// 1 x the same chunks. A quarter-warp reads one Q (dO) row as a broadcast
+// and 8 keys' same chunk of K (V), whose rows are stored with chunk c of row
+// r at c ^ (r & 7), so the 8 reads fall in 8 bank groups. Warps whose rows
+// (keys) all lie past Lq (Lkv) skip their share, and S and dP take only the
+// 8-key groups below Lkv: at L = 24 the tile's dead quarter costs nothing.
+// ---------------------------------------------------------------------------
+
+template <int T, int DP, bool GQA>
+struct OnePass {
+  static constexpr int NT = 4 * T;          // threads: T / 8 warps
+  static constexpr int KJ = T / 8;          // keys a lane in S and dP
+  static constexpr int NC = DP / 32;        // 16-byte chunks a lane
+  static constexpr int LDP = T + 4;         // P and dS row stride
+  static constexpr int SMEM = 4 * (4 * T * DP + 2 * T * LDP);
+  // the embedder's instance (41,984 bytes, one query head a kv head): five
+  // CTAs an SM, so that its 576 CTAs run in one wave (four an SM measured
+  // slower), at <= 96 registers a thread with no spill, which holds only
+  // because dK and dV's 32 accumulators live in their own phase (with G >
+  // 1 they carry across the heads: four an SM)
+  static constexpr int MINB = T == 32 && DP == 64 ? (GQA ? 4 : 5) : 1;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+               "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::
+               "r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
+               "memory");
+}
+
+// rows [0, rows) of a [rows][DP] shared tile from global rows src + r *
+// stride, issued as cp.async (a source size of 0 reads nothing and
+// zero-fills): zeros past nvalid rows and past D columns. VEC: 16-byte
+// copies (16-byte aligned bases, D a multiple of 4); else 4-byte ones. SWZ:
+// chunk c of row r lands at chunk c ^ (r & 7).
+template <int DP, bool VEC, bool SWZ>
+__device__ __forceinline__ void async_rows(float* dst, const float* src,
+                                           size_t stride, int rows,
+                                           int nvalid, int D) {
+  if constexpr (VEC) {
+    constexpr int CH = DP / 4;
+    for (int e = threadIdx.x; e < rows * CH; e += blockDim.x) {
+      const int r = e / CH, c = e % CH;
+      const bool in = r < nvalid && 4 * c < D;
+      cp_async16(dst + r * DP + ((SWZ ? c ^ (r & 7) : c) << 2),
+                 in ? src + r * stride + 4 * c : src, in ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * DP; e += blockDim.x) {
+      const int r = e / DP, d = e % DP, c = d >> 2;
+      const bool in = r < nvalid && d < D;
+      cp_async4(dst + r * DP + ((SWZ ? c ^ (r & 7) : c) << 2) + (d & 3),
+                in ? src + r * stride + d : src, in ? 4 : 0);
+    }
+  }
+}
+
+// s[i][j] += row r0 + i of A . row tl + 8 j of Bm (swizzled) over DP
+// columns, for the first NJ key groups: each 16-byte read feeds 2 NJ or 2
+// independent FFMA chains
+template <int DP, int KJ, int NJ>
+__device__ __forceinline__ void dots(const float* A, const float* Bm, int r0,
+                                     int tl, float (&s)[2][KJ]) {
+  const float* ap = A + r0 * DP;
+  const float* bp = Bm + tl * DP;
+#pragma unroll 4    // fully unrolled, the 96-register instance spills
+  for (int c = 0; c < DP / 4; ++c) {
+    float4 av[2], bv[NJ];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      av[i] = *reinterpret_cast<const float4*>(ap + i * DP + 4 * c);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(bp + j * 8 * DP +
+                                               ((c ^ tl) << 2));
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        s[i][j] = fmaf(av[i].x, bv[j].x, s[i][j]);
+        s[i][j] = fmaf(av[i].y, bv[j].y, s[i][j]);
+        s[i][j] = fmaf(av[i].z, bv[j].z, s[i][j]);
+        s[i][j] = fmaf(av[i].w, bv[j].w, s[i][j]);
+      }
+  }
+}
+
+// dots over the nj key groups that hold a key below Lkv (1 <= nj <= KJ),
+// each count its own unrolled instance
+template <int DP, int KJ, int NJ = KJ>
+__device__ __forceinline__ void dots_upto(int nj, const float* A,
+                                          const float* Bm, int r0, int tl,
+                                          float (&s)[2][KJ]) {
+  if constexpr (NJ > 1) {
+    if (nj < NJ) {
+      dots_upto<DP, KJ, NJ - 1>(nj, A, Bm, r0, tl, s);
+      return;
+    }
+  }
+  dots<DP, KJ, NJ>(A, Bm, r0, tl, s);
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// dV += P^T dO and dK += dS^T Q at keys r0, r0 + 1 x chunks tl + 8 c, over
+// rows [0, nr) in order (rows past Lq hold P = dS = 0)
+template <int DP, int LDP, int NC>
+__device__ __forceinline__ void kv_rows(const float* Ps, const float* dSs,
+                                        const float* Qs, const float* dOs,
+                                        int nr, int r0, int tl,
+                                        float (&dk)[2][NC][4],
+                                        float (&dv)[2][NC][4]) {
+#pragma unroll 2    // 4 deep, the 96-register instance spills
+  for (int r = 0; r < nr; ++r) {
+    const float2 p2 = *reinterpret_cast<const float2*>(Ps + r * LDP + r0);
+    const float2 s2 = *reinterpret_cast<const float2*>(dSs + r * LDP + r0);
+    const float pv[2] = {p2.x, p2.y}, sv[2] = {s2.x, s2.y};
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float4 ov = *reinterpret_cast<const float4*>(
+          dOs + r * DP + (tl + 8 * c) * 4);
+      const float4 qv = *reinterpret_cast<const float4*>(
+          Qs + r * DP + (tl + 8 * c) * 4);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        dv[i][c][0] = fmaf(pv[i], ov.x, dv[i][c][0]);
+        dv[i][c][1] = fmaf(pv[i], ov.y, dv[i][c][1]);
+        dv[i][c][2] = fmaf(pv[i], ov.z, dv[i][c][2]);
+        dv[i][c][3] = fmaf(pv[i], ov.w, dv[i][c][3]);
+        dk[i][c][0] = fmaf(sv[i], qv.x, dk[i][c][0]);
+        dk[i][c][1] = fmaf(sv[i], qv.y, dk[i][c][1]);
+        dk[i][c][2] = fmaf(sv[i], qv.z, dk[i][c][2]);
+        dk[i][c][3] = fmaf(sv[i], qv.w, dk[i][c][3]);
+      }
+    }
+  }
+}
+
+// dk / sqrt(Dh) and dv of keys r0, r0 + 1 (those below Lkv) at chunks tl +
+// 8 c (those below D)
+template <bool VEC, int NC>
+__device__ __forceinline__ void store_kv(const Args& a, size_t koff, int r0,
+                                         int tl, const float (&dk)[2][NC][4],
+                                         const float (&dv)[2][NC][4]) {
+  const size_t ks = (size_t)a.Hkv * a.D;
+  float* dkp = static_cast<float*>(a.dk) + koff;
+  float* dvp = static_cast<float*>(a.dv) + koff;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = r0 + i;
+    if (key >= a.Lkv) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int d0 = (tl + 8 * c) * 4;
+      if (d0 >= a.D) continue;
+      const float rk[4] = {dk[i][c][0] * a.scale, dk[i][c][1] * a.scale,
+                           dk[i][c][2] * a.scale, dk[i][c][3] * a.scale};
+      if (VEC) {
+        *reinterpret_cast<float4*>(dkp + key * ks + d0) =
+            make_float4(rk[0], rk[1], rk[2], rk[3]);
+        *reinterpret_cast<float4*>(dvp + key * ks + d0) =
+            make_float4(dv[i][c][0], dv[i][c][1], dv[i][c][2], dv[i][c][3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (d0 + e < a.D) {
+            dkp[key * ks + d0 + e] = rk[e];
+            dvp[key * ks + d0 + e] = dv[i][c][e];
+          }
+      }
+    }
+  }
+}
+
+// grid (Hkv, B), OnePass<T, DP, GQA>::NT threads. GQA: G query heads a kv
+// head, G >= 1; else G = 1, and the head loop runs once
+template <int T, int DP, bool VEC, bool GQA>
+__global__ void __launch_bounds__(OnePass<T, DP, GQA>::NT,
+                                  OnePass<T, DP, GQA>::MINB)
+bwd_one_pass_f32(Args a) {
+  using C = OnePass<T, DP, GQA>;
+  constexpr int KJ = C::KJ, NC = C::NC, LDP = C::LDP;
+  extern __shared__ __align__(16) float osm[];
+  float* Qs = osm;                  // [T][DP], as loaded
+  float* dOs = Qs + T * DP;         // [T][DP], as loaded
+  float* Ks = dOs + T * DP;         // [T][DP], chunks swizzled
+  float* Vs = Ks + T * DP;          // [T][DP], chunks swizzled
+  float* Ps = Vs + T * DP;          // [T][LDP]: P, row-major
+  float* dSs = Ps + T * LDP;        // [T][LDP]: dS, row-major
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tl = lane & 7, r0 = warp * 8 + (lane >> 3) * 2;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const size_t qs = (size_t)a.H * a.D, ks = (size_t)a.Hkv * a.D;
+  const size_t koff = ((size_t)b * a.Lkv * a.Hkv + hk) * a.D;
+  const float* o = static_cast<const float*>(a.o);
+  // the rows and keys read: up to the next multiple of 8 (a warp's slots)
+  // past Lq and Lkv, zero-filled past them
+  const int nr = min(T, (a.Lq + 7) & ~7), nk = min(T, (a.Lkv + 7) & ~7);
+  const bool rows_live = warp * 8 < a.Lq, keys_live = warp * 8 < a.Lkv;
+  const bool full = tile_full(a, 0, T, 0, T);
+  const int pre = min(a.prefix_len, a.Lkv);
+  const float sl2 = a.scale * LOG2E;              // exp2 domain
+  async_rows<DP, VEC, true>(Ks, static_cast<const float*>(a.k) + koff, ks,
+                            nk, a.Lkv, a.D);
+  async_rows<DP, VEC, true>(Vs, static_cast<const float*>(a.v) + koff, ks,
+                            nk, a.Lkv, a.D);
+  float dk[2][NC][4] = {}, dv[2][NC][4] = {};   // over the G heads (GQA)
+  for (int g = 0; g < (GQA ? a.G : 1); ++g) {
+    const size_t qoff = ((size_t)b * a.Lq * a.H + hk * a.G + g) * a.D;
+    if (g) __syncthreads();       // the last head's dK/dV reads are done
+    async_rows<DP, VEC, false>(Qs, static_cast<const float*>(a.q) + qoff, qs,
+                               nr, a.Lq, a.D);
+    async_rows<DP, VEC, false>(dOs, static_cast<const float*>(a.dout) + qoff,
+                               qs, nr, a.Lq, a.D);
+    // O at the thread's rows and chunks, from global memory while the
+    // copies land, for D = rowsum(dO . O)
+    float4 ov[2][NC];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int row = r0 + i, d0 = (tl + 8 * c) * 4;
+        const float* op = o + qoff + row * qs + d0;
+        ov[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row < a.Lq && d0 < a.D) {
+          if (VEC) {
+            ov[i][c] = *reinterpret_cast<const float4*>(op);
+          } else {
+            ov[i][c].x = op[0];
+            if (d0 + 1 < a.D) ov[i][c].y = op[1];
+            if (d0 + 2 < a.D) ov[i][c].z = op[2];
+            if (d0 + 3 < a.D) ov[i][c].w = op[3];
+          }
+        }
+      }
+    cp_async_wait_all();
+    __syncthreads();
+    if (rows_live) {
+      float D[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float acc = 0.f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float4 dd = *reinterpret_cast<const float4*>(
+              dOs + (r0 + i) * DP + (tl + 8 * c) * 4);
+          acc = fmaf(dd.x, ov[i][c].x, acc);
+          acc = fmaf(dd.y, ov[i][c].y, acc);
+          acc = fmaf(dd.z, ov[i][c].z, acc);
+          acc = fmaf(dd.w, ov[i][c].w, acc);
+        }
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1)
+          acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        D[i] = acc;
+      }
+      float s[2][KJ], dp[2][KJ];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) s[i][j] = dp[i][j] = 0.f;
+      dots_upto<DP, KJ>(nk >> 3, Qs, Ks, r0, tl, s);
+      dots_upto<DP, KJ>(nk >> 3, dOs, Vs, r0, tl, dp);
+      // the mask (ref.py attention_mask) as per-row bounds: key j is seen
+      // when lo <= j < hi or j < pre; a tile the mask shows whole tests
+      // only j < Lkv. Then an exact softmax over the whole row: no online
+      // rescale, no LSE kept
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r0 + i, qp = a.q_offset + row;
+        const bool rv = row < a.Lq;
+        const int hi = a.causal ? min(a.Lkv, qp + 1) : a.Lkv;
+        const int lo = a.window > 0 ? qp - a.window + 1 : INT_MIN;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          const int key = tl + 8 * j;
+          const bool ok = rv && (full ? key < a.Lkv
+                                      : key < pre || (key >= lo && key < hi));
+          s[i][j] = ok ? s[i][j] : -INFINITY;
+          mx = fmaxf(mx, s[i][j]);
+        }
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float neg = mx == -INFINITY ? 0.f : -mx * sl2;  // 0: no key
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          s[i][j] = ex2(fmaf(s[i][j], sl2, neg));             // masked: 0
+          sum += s[i][j];
+        }
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        const float inv = sum > 0.f ? 1.f / sum : 0.f;
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          const float p = s[i][j] * inv;
+          Ps[row * LDP + tl + 8 * j] = p;
+          dSs[row * LDP + tl + 8 * j] = p * (dp[i][j] - D[i]);
+        }
+      }
+      __syncwarp();       // a quarter-warp reads back only its own rows
+      // dQ = dS K: rows r0, r0 + 1 x chunks tl + 8 c, over keys < nk
+      float acc[2][NC][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.f;
+#pragma unroll 2
+      for (int kk = 0; kk < nk; kk += 4) {
+        float4 d4[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          d4[i] = *reinterpret_cast<const float4*>(dSs + (r0 + i) * LDP + kk);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* kr = Ks + (kk + e) * DP;
+          const int sw = (kk + e) & 7;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            const float4 kv = *reinterpret_cast<const float4*>(
+                kr + (((tl + 8 * c) ^ sw) << 2));
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              const float d = lane4(d4[i], e);
+              acc[i][c][0] = fmaf(d, kv.x, acc[i][c][0]);
+              acc[i][c][1] = fmaf(d, kv.y, acc[i][c][1]);
+              acc[i][c][2] = fmaf(d, kv.z, acc[i][c][2]);
+              acc[i][c][3] = fmaf(d, kv.w, acc[i][c][3]);
+            }
+          }
+        }
+      }
+      float* dq = static_cast<float*>(a.dq) + qoff;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r0 + i;
+        if (row >= a.Lq) continue;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int d0 = (tl + 8 * c) * 4;
+          if (d0 >= a.D) continue;
+          const float r[4] = {acc[i][c][0] * a.scale, acc[i][c][1] * a.scale,
+                              acc[i][c][2] * a.scale, acc[i][c][3] * a.scale};
+          if (VEC) {
+            *reinterpret_cast<float4*>(dq + row * qs + d0) =
+                make_float4(r[0], r[1], r[2], r[3]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (d0 + e < a.D) dq[row * qs + d0 + e] = r[e];
+          }
+        }
+      }
+    }
+    __syncthreads();      // every row's P and dS are in shared memory
+    if (keys_live) {
+      if constexpr (GQA) {
+        kv_rows<DP, LDP>(Ps, dSs, Qs, dOs, nr, r0, tl, dk, dv);
+      } else {            // one head: the accumulators live here alone
+        float dk1[2][NC][4] = {}, dv1[2][NC][4] = {};
+        kv_rows<DP, LDP>(Ps, dSs, Qs, dOs, nr, r0, tl, dk1, dv1);
+        store_kv<VEC>(a, koff, r0, tl, dk1, dv1);
+      }
+    }
+  }
+  if (GQA && keys_live) store_kv<VEC>(a, koff, r0, tl, dk, dv);
+}
+
 // cuTensorMapEncodeTiled from the driver, without linking libcuda.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -1289,6 +1705,31 @@ static cudaError_t launch(Kern kern, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
+// the one-pass kernel's instance for the call: a 32 x 32 tile where both
+// lengths are at most 32, else 64 x 64; the head dim padded to 64 or 128;
+// one query head a kv head (the embedder's) or G
+template <int T, int DP, bool GQA = true>
+static cudaError_t run_one_pass(const Args& a, cudaStream_t s) {
+  using C = OnePass<T, DP, GQA>;
+  auto kern = a.vec ? bwd_one_pass_f32<T, DP, true, GQA>
+                    : bwd_one_pass_f32<T, DP, false, GQA>;
+  if (C::SMEM > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return err;
+  }
+  kern<<<dim3(a.Hkv, a.B), C::NT, C::SMEM, s>>>(a);
+  return cudaGetLastError();
+}
+
+static cudaError_t run_one_pass_f32(const Args& a, cudaStream_t s) {
+  const bool small = a.Lq <= 32 && a.Lkv <= 32;
+  if (a.D <= 64 && small && a.G == 1) return run_one_pass<32, 64, false>(a, s);
+  if (a.D <= 64)
+    return small ? run_one_pass<32, 64>(a, s) : run_one_pass<64, 64>(a, s);
+  return small ? run_one_pass<32, 128>(a, s) : run_one_pass<64, 128>(a, s);
+}
+
 template <int DP>
 static cudaError_t run_f32(const Args& a, int part, cudaStream_t s) {
   const dim3 gq((a.Lq + BQ - 1) / BQ, a.H, a.B);
@@ -1305,11 +1746,13 @@ static cudaError_t run_f32(const Args& a, int part, cudaStream_t s) {
 }  // namespace fab
 
 // part 0 launches (a), which writes dq, lse and dsum; part 1 launches (b),
-// which reads lse and dsum and writes dk and dv. All tensors contiguous
-// (B, L, H, D); lse and dsum (B, H, Lq) f32, in bf16 (B, H, Lq rounded up
-// to 64). bf16 takes D a multiple of 8 and 16-byte aligned bases (TMA);
-// scale_dim is the head dim of the scale 1 / sqrt(scale_dim). Returns the
-// launch's CUDA error code (0 on success).
+// which reads lse and dsum and writes dk and dv; part 2 launches the f32
+// one-pass kernel, which writes dq, dk and dv and takes no lse or dsum
+// (null), for Lq <= 64 and Lkv <= 64 only. All tensors contiguous (B, L, H,
+// D); lse and dsum (B, H, Lq) f32, in bf16 (B, H, Lq rounded up to 64).
+// bf16 takes D a multiple of 8 and 16-byte aligned bases (TMA); scale_dim
+// is the head dim of the scale 1 / sqrt(scale_dim). Returns the launch's
+// CUDA error code (0 on success).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, float* lse, float* dsum,
@@ -1333,17 +1776,24 @@ extern "C" int flash_attention_bwd(
                          reinterpret_cast<uintptr_t>(dsum);
   if (is_bf16 && (D % 8 || ((bases | outs) & 15)))
     return (int)cudaErrorInvalidValue;
+  if (part == 2 && (is_bf16 || Lq > 64 || Lkv > 64))
+    return (int)cudaErrorInvalidValue;
   const int vec_elems = is_bf16 ? 8 : 4;
+  // the one-pass kernel stores dq/dk/dv 16 bytes at a time where vec is
+  // set, so its outputs' alignment counts too; the tiled pair's does not
+  const uintptr_t vec_ptrs = part == 2 ? (bases | outs) : bases;
   Args a{q, k, v, o, dout, dq, dk, dv, lse, dsum,
          (int)B, (int)Lq, (int)Lkv, (int)H, (int)Hkv, (int)D, (int)(H / Hkv),
          (int)causal, (int)window, (int)prefix_len, (int)q_offset,
-         (int)((bases & 15) == 0 && D % vec_elems == 0),
+         (int)((vec_ptrs & 15) == 0 && D % vec_elems == 0),
          1.0f / sqrtf((float)scale_dim)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (is_bf16)
     err = D <= 64 ? run_bf16<64>(a, (int)part, s)
                   : run_bf16<128>(a, (int)part, s);
+  else if (part == 2)
+    err = run_one_pass_f32(a, s);
   else
     err = D <= 64 ? run_f32<64>(a, (int)part, s)
                   : run_f32<128>(a, (int)part, s);

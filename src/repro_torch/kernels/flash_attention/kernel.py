@@ -72,18 +72,19 @@ def bwd_scratch(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                o: torch.Tensor, do: torch.Tensor, dq: torch.Tensor,
-               dk: torch.Tensor, dv: torch.Tensor, lse: torch.Tensor,
-               dsum: torch.Tensor, *, causal: bool, window: int,
-               prefix_len: int, q_offset: int, part: int,
-               scale_dim: int | None = None) -> None:
-    """One of the backward's two kernels (``csrc/flash_attention_bwd.cu``):
+               dk: torch.Tensor, dv: torch.Tensor,
+               lse: torch.Tensor | None, dsum: torch.Tensor | None, *,
+               causal: bool, window: int, prefix_len: int, q_offset: int,
+               part: int, scale_dim: int | None = None) -> None:
+    """One of the backward's kernels (``csrc/flash_attention_bwd.cu``):
     ``part`` 0 (a) writes dq, ``lse`` and ``dsum``; ``part`` 1 (b) reads
-    them and writes dk and dv. Every tensor contiguous: q, o, do, dq (B,
-    Lq, H, Dh); k, v, dk, dv (B, Lkv, Hkv, Dh); lse, dsum from
-    ``bwd_scratch``; in bf16 each 16-byte aligned with Dh a multiple of 8
-    (the tensor maps'). ``window`` 0 for none; the scale is 1 /
-    sqrt(``scale_dim``) (default Dh). The caller has checked shapes,
-    dtypes and devices."""
+    them and writes dk and dv; ``part`` 2, the f32 one-pass kernel (Lq and
+    Lkv at most 64), writes dq, dk and dv and takes no ``lse`` or ``dsum``
+    (None). Every tensor contiguous: q, o, do, dq (B, Lq, H, Dh); k, v,
+    dk, dv (B, Lkv, Hkv, Dh); lse, dsum from ``bwd_scratch``; in bf16 each
+    16-byte aligned with Dh a multiple of 8 (the tensor maps'). ``window``
+    0 for none; the scale is 1 / sqrt(``scale_dim``) (default Dh). The
+    caller has checked shapes, dtypes and devices."""
     fn = _build.load("flash_attention_bwd")
     index = q.device.index
     if index != torch._C._cuda_getDevice():
@@ -95,7 +96,8 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Lq, H, D = q.shape
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            lse.data_ptr(), dsum.data_ptr(), B, Lq, k.shape[1], H,
+            0 if lse is None else lse.data_ptr(),
+            0 if dsum is None else dsum.data_ptr(), B, Lq, k.shape[1], H,
             k.shape[2], D, scale_dim or D, int(causal), window, prefix_len,
             q_offset, int(q.dtype == torch.bfloat16), part,
             torch._C._cuda_getCurrentRawStream(index))

@@ -25,14 +25,20 @@ an explicit ``q_offset`` and a ragged ``kv_valid_len``.
 
 Training: with grad mode on and an input that requires grad,
 ``flash_attention`` goes through ``FlashAttentionFn``, whose backward is
-``flash_attention_bwd``: two hand-written kernels on CUDA tensors
-(``csrc/flash_attention_bwd.cu``, counted in
-``flash_attention.launches_bwd``, the f32 ones also in
-``flash_attention.launches_bwd_f32``), ``ref.attention_bwd_ref`` on CPU
-tensors. It is a port extension: the Pallas kernel has no VJP, and the
-reference differentiates its jnp attention (held against ``jax.grad`` of
-``repro/models/layers.py``'s ``flash_attention``). Serving, without grad,
-takes the plain forward route above.
+``flash_attention_bwd``: hand-written kernels on CUDA tensors
+(``csrc/flash_attention_bwd.cu``), ``ref.attention_bwd_ref`` on CPU
+tensors. On the card ``bwd_route`` picks the kernels: an f32 call with Lq
+and Lkv at most 64 (the embedder's 24 tokens) takes one fused one-pass
+kernel, one launch with no LSE/D scratch; every other call takes the
+tiled pair, (a) dQ then (b) dK/dV. Every backward launch counts in
+``flash_attention.launches_bwd``; the f32 ones also in
+``flash_attention.launches_bwd_f32``, and of those the one-pass ones in
+``flash_attention.launches_bwd_f32_one_pass``. Neither route falls back
+to the other or to the plain version: a kernel that fails to build or
+launch raises. The backward is a port extension: the Pallas kernel has no
+VJP, and the reference differentiates its jnp attention (held against
+``jax.grad`` of ``repro/models/layers.py``'s ``flash_attention``).
+Serving, without grad, takes the plain forward route above.
 """
 from __future__ import annotations
 
@@ -128,10 +134,24 @@ def _forward(q, k, v, causal, window, prefix_len, q_offset, kv_valid_len
 flash_attention.launches = 0        # every K4 launch
 flash_attention.launches_f32 = 0    # of which f32 with Dv = Dq (embedder)
 flash_attention.launches_dv = 0     # of which Dv != Dq (MLA's prefill)
-flash_attention.launches_bwd = 0    # every backward kernel launch, (a) and (b)
-flash_attention.launches_bwd_f32 = 0    # of which f32 (the embedder's)
+flash_attention.launches_bwd = 0    # every backward kernel launch
+flash_attention.launches_bwd_f32 = 0    # of which f32
+flash_attention.launches_bwd_f32_one_pass = 0   # of which one-pass (embedder)
 
 BWD_DH_MAX = 128
+BWD_ONE_PASS_MAX = 64     # the one-pass kernel's largest Lq and Lkv
+
+
+def bwd_route(dtype: torch.dtype, Lq: int, Lkv: int, Dh: int) -> str:
+    """The backward kernels a CUDA call takes: ``"one_pass"`` (one fused
+    kernel) for float32 with Lq and Lkv at most 64, else ``"tiled"`` (the
+    pair (a) dQ, (b) dK/dV). Raises ``ValueError`` for a head dim that no
+    backward kernel takes (outside [1, 128])."""
+    if not 1 <= Dh <= BWD_DH_MAX:
+        raise ValueError(f"head dim {Dh} outside [1, {BWD_DH_MAX}]")
+    if dtype == torch.float32 and max(Lq, Lkv) <= BWD_ONE_PASS_MAX:
+        return "one_pass"
+    return "tiled"
 
 
 def bwd_check(Dq: int, Dv: int, kv_valid_len) -> None:
@@ -177,14 +197,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         prefix_len: int = 0, q_offset: Optional[int] = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention`` at q, k, v given its output o and
-    the output's cotangent do, in the inputs' dtypes: the backward's two
-    kernels on CUDA tensors, (a) then (b), each counted in
-    ``flash_attention.launches_bwd``; ``ref.attention_bwd_ref`` on CPU
-    tensors. Inputs of any strides are copied contiguous first, and bf16
-    ones as ``bwd_operands`` gives them (the gradients of a padded head dim
-    sliced back). The modes ``bwd_check`` refuses are refused by
-    ``flash_attention`` before its forward; here v must be shaped like k,
-    and Dh at most 128."""
+    the output's cotangent do, in the inputs' dtypes: on CUDA tensors the
+    kernels ``bwd_route`` names (the one-pass kernel in one launch, or (a)
+    then (b)), each launch counted as the module docstring says;
+    ``ref.attention_bwd_ref`` on CPU tensors. Inputs of any strides are
+    copied contiguous first, and bf16 ones as ``bwd_operands`` gives them
+    (the gradients of a padded head dim sliced back). The modes
+    ``bwd_check`` refuses are refused by ``flash_attention`` before its
+    forward; here v must be shaped like k, and Dh at most 128."""
     Lq, Lkv = q.shape[1], k.shape[1]
     if q_offset is None:
         q_offset = Lkv - Lq
@@ -207,8 +227,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(do.shape)}")
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"H={H} must be a multiple of Hkv={Hkv}")
-    if not 1 <= Dh <= BWD_DH_MAX:
-        raise ValueError(f"head dim {Dh} outside [1, {BWD_DH_MAX}]")
+    route = bwd_route(dtype, Lq, Lkv, Dh)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if not (B and Lq and H and Lkv):
@@ -219,14 +238,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse, dsum = K.bwd_scratch(q)
-    for part in (0, 1):
+    lse, dsum = (None, None) if route == "one_pass" else K.bwd_scratch(q)
+    for part in (2,) if route == "one_pass" else (0, 1):
         K.launch_bwd(q, k, v, o, do, dq, dk, dv, lse, dsum, causal=causal,
                      window=window or 0, prefix_len=prefix_len,
                      q_offset=q_offset, part=part, scale_dim=Dh)
         flash_attention.launches_bwd += 1
         if dtype == torch.float32:
             flash_attention.launches_bwd_f32 += 1
+        if part == 2:
+            flash_attention.launches_bwd_f32_one_pass += 1
     if q.shape[-1] != Dh:
         return tuple(t[..., :Dh].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv

@@ -51,13 +51,20 @@ def info_nce(params, cfg, a_ids, a_mask, b_ids, b_mask,
 
 
 def train(steps: int = 400, batch: int = 48, lr=None, seed: int = 0,
-          full: bool = False, device=None, log_every: int = 10) -> dict:
+          full: bool = False, device=None, log_every: int = 10,
+          wrap_step=None) -> dict:
     """Train and return {"before": (dup, nondup), "after": (dup, nondup),
     "losses": the per-step losses}: the median cosine of duplicate and of
     non-duplicate pairs over 128 fresh pairs each. ``lr`` defaults to the
     reference's 2e-3 for the reduced embedder and 3e-4 for the full one
     (at 2e-3 the full embedder collapses within ten steps: every sentence
-    maps to one vector and the loss sits at ln(batch))."""
+    maps to one vector and the loss sits at ln(batch)). ``wrap_step(i,
+    run)``, where given, runs step i by calling ``run()``, which returns
+    the step's loss, and returns that loss. It is a measurement seam, not
+    a training option: the command line never sets it, and
+    ``chip_smoke.py`` uses it to time each step on the host and trace the
+    last one, which it cannot reach from outside ``train`` (the step is a
+    closure over the optimiser state)."""
     dev = resolve_device(device)
     if lr is None:
         lr = 3e-4 if full else 2e-3
@@ -105,7 +112,8 @@ def train(steps: int = 400, batch: int = 48, lr=None, seed: int = 0,
         topics = rng.integers(0, N_TOPICS, size=batch)
         a = encode([sentence(t) for t in topics])
         b = encode([sentence(t) for t in topics])
-        losses.append(step(a, b))
+        losses.append(wrap_step(i, lambda: step(a, b)) if wrap_step
+                      else step(a, b))
         if log_every and (i + 1) % log_every == 0:
             print(f"step {i + 1:3d} loss={losses[-1]:.4f}", flush=True)
     after = eval_gap()

@@ -1,12 +1,14 @@
-"""The training path on the card: the attention backward's two kernels
-(``csrc/flash_attention_bwd.cu``: (a) dQ, (b) dK/dV) against their plain
-version ``attention_bwd_ref`` in f32 and bf16, head dims 16, 64, 100,
-112 and 128, GQA with 1, 5 and 8 query heads a kv head, every mask mode
-(causal, bidirectional, window, prefix, cross attention with Lq != Lkv,
-an explicit q_offset, fully masked rows), bf16 at the edges of the
-kernels' 64-row tiles (L 1 to 4,095) and from a misaligned view, a
-planted fault in each kernel that the limit must catch, bit-identical
-repeats and the launch count;
+"""The training path on the card: the attention backward's kernels
+(``csrc/flash_attention_bwd.cu``: the tiled pair (a) dQ, (b) dK/dV, and
+the f32 one-pass kernel that ``ops.bwd_route`` sends f32 calls with Lq and
+Lkv at most 64 to) against their plain version ``attention_bwd_ref`` in
+f32 and bf16, head dims 16, 64, 100, 112 and 128, GQA with 1, 5 and 8
+query heads a kv head, every mask mode (causal, bidirectional, window,
+prefix, cross attention with Lq != Lkv, an explicit q_offset, fully masked
+rows), bf16 at the edges of the pair's 64-row tiles (L 1 to 4,095), the
+one-pass kernel at its 32- and 64-row tiles' edges (L 1 to 64; 65 goes to
+the pair), a misaligned bf16 view, a planted fault in each kernel that the
+limit must catch, bit-identical repeats and the launch count by route;
 ``FlashAttentionFn`` on CUDA tensors (the backward kernels run, the plain
 backward does not); the kernels without a backward (K1, K2, K3, K5)
 refusing inputs that require grad; and one reduced train step on the card
@@ -68,27 +70,40 @@ def _inputs(B, Lq, Lkv, H, Hkv, D, dtype, seed, **kw):
     return q, k, v, o, do
 
 
-def bwd_excess(got, plain, rss, dtype) -> float:
-    """The largest error of the three gradients over its limit."""
+def bwd_excess(got, plain, rss, dtype, exact_zero=()) -> float:
+    """The largest error of the three gradients over its limit. In f32 a
+    gradient whose index is in ``exact_zero`` (0 in exact arithmetic, so
+    that its plain value is rounding noise: dq and dk where every row sees
+    one key) is held to the largest |plain| of the three instead of its
+    own."""
     if dtype == torch.float32:
-        return max(float((a - b).abs().max()) / (F32_RTOL * float(
-            b.abs().max())) for a, b in zip(got, plain))
+        top = max(float(b.abs().max()) for b in plain)
+        return max(float((a - b).abs().max()) / (F32_RTOL * (
+            top if i in exact_zero else float(b.abs().max())))
+            for i, (a, b) in enumerate(zip(got, plain)))
     return max(bf16_excess(a, b, BF16_ROW_RTOL, scale=m)
                for a, b, m in zip(got, plain, rss))
 
 
-def _check(B, Lq, Lkv, H, Hkv, D, dtype, seed, **kw):
+def _launches():
+    fa = fa_ops.flash_attention
+    return (fa.launches_bwd, fa.launches_bwd_f32,
+            fa.launches_bwd_f32_one_pass)
+
+
+def _check(B, Lq, Lkv, H, Hkv, D, dtype, seed, exact_zero=(), **kw):
     q, k, v, o, do = _inputs(B, Lq, Lkv, H, Hkv, D, dtype, seed, **kw)
-    before = (fa_ops.flash_attention.launches_bwd,
-              fa_ops.flash_attention.launches_bwd_f32)
+    one_pass = fa_ops.bwd_route(dtype, Lq, Lkv, D) == "one_pass"
+    n = 1 if one_pass else 2          # launches: one kernel, or (a) and (b)
+    before = _launches()
     got = fa_ops.flash_attention_bwd(q, k, v, o, do, **kw)
     torch.cuda.synchronize()
-    assert fa_ops.flash_attention.launches_bwd == before[0] + 2
-    assert fa_ops.flash_attention.launches_bwd_f32 == before[1] + 2 * (
-        dtype == torch.float32)
+    assert _launches() == (before[0] + n,
+                           before[1] + n * (dtype == torch.float32),
+                           before[2] + one_pass)
     plain = fa_ref.attention_bwd_ref(q, k, v, o, do, **kw)
     rss = fa_ref.attention_bwd_rss(q, k, v, o, do, **kw)
-    assert bwd_excess(got, plain, rss, dtype) <= 1.0
+    assert bwd_excess(got, plain, rss, dtype, exact_zero) <= 1.0
     return q, k, v, o, do, got, plain, rss
 
 
@@ -200,6 +215,119 @@ def test_backward_is_deterministic(dtype):
         assert x.data_ptr() != y.data_ptr() and torch.equal(x, y)
 
 
+# one-tile calls, which f32 sends to the one-pass kernel: (Lq, Lkv, causal,
+# window, prefix_len, q_offset); the 32-row tile where both lengths are at
+# most 32, else the 64-row one
+SHORT_MODES = {
+    "causal": (24, 24, True, None, 0, None),
+    "bidirectional": (24, 24, False, None, 0, None),
+    "causal_64": (57, 57, True, None, 0, None),
+    "window": (60, 60, True, 9, 0, None),
+    "window_32": (30, 30, True, 5, 0, None),
+    "prefix": (40, 40, True, None, 13, None),
+    "cross": (13, 37, False, None, 0, None),
+    "cross_long_q": (50, 20, False, None, 0, None),
+    "q_offset": (10, 31, True, None, 0, 21),
+    "masked_rows": (30, 30, True, None, 0, -7),
+    "masked_rows_64": (64, 48, True, 16, 0, -20),
+}
+
+
+@pytest.mark.parametrize("mode", list(SHORT_MODES))
+def test_one_pass_every_mask_mode(mode):
+    Lq, Lkv, causal, window, prefix, q_offset = SHORT_MODES[mode]
+    assert fa_ops.bwd_route(torch.float32, Lq, Lkv, 64) == "one_pass"
+    _check(3, Lq, Lkv, 10, 2, 64, torch.float32, seed=40 + len(mode),
+           causal=causal, window=window, prefix_len=prefix,
+           q_offset=q_offset)
+
+
+@pytest.mark.parametrize("D", [16, 64, 100, 112, 128])
+@pytest.mark.parametrize("G", [1, 5, 8])
+@pytest.mark.parametrize("L", [1, 24, 31, 32, 33, 64, 65])
+def test_f32_backward_at_the_one_pass_edges(L, G, D):
+    """f32 at and around the one-pass kernel's tiles (32 rows and keys up
+    to 32, else 64; 65 goes to the tiled pair), causal, G query heads a kv
+    head summed into dk and dv in the one CTA, head dims padded to 64 or
+    128 (16, 100 and 112 short of their pad). At L = 1 the one key a row
+    makes dS = 0, so dq and dk are 0 in exact arithmetic and are held to
+    the largest |gradient| of the three."""
+    _check(2, L, L, 2 * G, 2, D, torch.float32, seed=L + 10 * G + D,
+           exact_zero=(0, 1) if L == 1 else (), causal=True)
+
+
+def test_one_pass_is_deterministic_and_catches_planted_faults():
+    """At the embedder's call (B 48 x 24, 12 heads of 64, bidirectional):
+    two calls bit-identical with fresh outputs; dQ without 8 keys of its
+    sum and dK with 8 rows zeroed must each fail the limit against the
+    right output."""
+    kw = dict(causal=False)
+    q, k, v, o, do, got, plain, rss = _check(48, 24, 24, 12, 12, 64,
+                                              torch.float32, seed=13, **kw)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got, again):
+        assert x.data_ptr() != y.data_ptr() and torch.equal(x, y)
+    t0, t1 = 8, 16
+    p, dp, dsum, _, _, scale = fa_ref._bwd_terms(q, k, v, o, do, False, None,
+                                                 0, None)
+    ds = (p * (dp - dsum))[..., t0:t1]
+    part = torch.einsum("bhgqk,bkhd->bqhgd", ds, k[:, t0:t1].float())
+    dq_fault = got[0] - part.reshape(q.shape) * scale
+    dk_fault = got[1].clone()
+    dk_fault[:, t0:t1] = 0
+    f32 = torch.float32
+    assert bwd_excess((dq_fault, got[1], got[2]), plain, rss, f32) > 1
+    assert bwd_excess((got[0], dk_fault, got[2]), plain, rss, f32) > 1
+
+
+@pytest.mark.parametrize("D", [30, 64])
+def test_one_pass_with_four_byte_copies(D):
+    """Views one element past a 16-byte boundary, and a head dim of 30 (not
+    a multiple of 4), take the one-pass kernel's 4-byte copies and scalar
+    stores; the gradients of the misaligned views equal those of aligned
+    copies bit for bit."""
+    kw = dict(causal=True, q_offset=3)
+    xs = _inputs(2, 20, 23, 8, 4, D, torch.float32, 17, **kw)
+    views = []
+    for x in xs:
+        base = torch.empty(x.numel() + 1, dtype=x.dtype, device=DEV)
+        view = base[1:].view(x.shape)
+        view.copy_(x)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        views.append(view)
+    before = _launches()
+    got = fa_ops.flash_attention_bwd(*views, **kw)
+    want = fa_ops.flash_attention_bwd(*xs, **kw)
+    torch.cuda.synchronize()
+    assert _launches()[2] == before[2] + 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    plain = fa_ref.attention_bwd_ref(*xs, **kw)
+    rss = fa_ref.attention_bwd_rss(*xs, **kw)
+    assert bwd_excess(got, plain, rss, torch.float32) <= 1.0
+
+
+def test_flash_attention_fn_takes_the_one_pass_kernel():
+    """The embedder's route: f32 attention of 24 tokens under autograd runs
+    K4 forward and one one-pass backward launch, never the plain
+    backward."""
+    q, k, v, _, do = _inputs(4, 24, 24, 12, 12, 64, torch.float32, 8,
+                             causal=False)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    plain_calls = fa_ref.attention_bwd_ref.calls
+    before = _launches()
+    out = fa_ops.flash_attention(*xs, causal=False)
+    grads = torch.autograd.grad(out, xs, do)
+    torch.cuda.synchronize()
+    assert _launches() == tuple(x + 1 for x in before)
+    assert fa_ref.attention_bwd_ref.calls == plain_calls
+    want = fa_ops.flash_attention_bwd(q, k, v, out.detach(), do,
+                                      causal=False)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
+
+
 def test_flash_attention_fn_runs_the_backward_kernels():
     q, k, v, _, do = _inputs(2, 96, 96, 8, 4, 64, torch.bfloat16, 6,
                              causal=True)
@@ -259,12 +387,14 @@ def test_reduced_train_step_on_the_card_matches_the_cpu():
     toks = rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
     batch = {"tokens": torch.from_numpy(toks),
              "labels": torch.from_numpy(np.roll(toks, -1, axis=1))}
-    before = fa_ops.flash_attention.launches_bwd
+    before = _launches()
     def grads(params, b):
         return steps.value_and_grad(
             lambda p: steps.chunked_ce_loss(p, cfg, b, 16)[0], params)
     l_card, g_card = grads(card, {k: v.to(DEV) for k, v in batch.items()})
-    assert fa_ops.flash_attention.launches_bwd == before + 2 * cfg.n_layers
+    # 64 tokens in f32: one one-pass launch a layer
+    assert fa_ops.bwd_route(torch.float32, 64, 64, cfg.head_dim) == "one_pass"
+    assert _launches() == tuple(x + cfg.n_layers for x in before)
     l_cpu, g_cpu = grads(cpu, batch)
     np.testing.assert_allclose(float(l_card), float(l_cpu), atol=1e-5)
     for (path, a), (_, b) in zip(tree_leaves(g_card), tree_leaves(g_cpu)):

@@ -1,7 +1,10 @@
 """The attention backward on the CPU: ``FlashAttentionFn`` (the route
 ``kernels.flash_attention.ops.flash_attention`` takes under grad) held
-against ``jax.grad`` of the reference model layer's ``flash_attention``,
-and its plain version ``attention_bwd_ref`` against autograd through
+against ``jax.grad`` of the reference model layer's ``flash_attention``
+(also at the embedder's layout: 12 heads of 64, 24 tokens,
+bidirectional), the route ``ops.bwd_route`` gives a call on the card
+(the one-pass kernel or the tiled pair), and its plain version
+``attention_bwd_ref`` against autograd through
 ``attention_ref``, in every mask mode (causal, bidirectional, window,
 prefix, cross attention with Lq != Lkv, an explicit q_offset, a fully
 masked row) with GQA (1 and 4 query heads a kv head); the route by
@@ -60,11 +63,18 @@ def _close(got, want):
     assert err <= RTOL * np.abs(want).max(), (err, np.abs(want).max())
 
 
-@pytest.mark.parametrize("G", [1, 4])
-@pytest.mark.parametrize("mode", list(MODES))
+# the embedder's attention (launch.train_embedder --full): 24 tokens,
+# bidirectional, 12 heads of 64; on the card its backward is the one-pass
+# kernel
+EMBED_MODE = (24, 24, False, None, 0, 0)
+
+
+@pytest.mark.parametrize("mode,G", [(m, G) for m in MODES for G in (1, 4)]
+                         + [("embedder", 1)])
 def test_flash_attention_fn_grads_match_jax(mode, G):
-    Lq, Lkv, causal, window, prefix, q_offset = MODES[mode]
-    q, k, v, do = _inputs(2, Lq, Lkv, 2 * G, 2, 16, seed=G)
+    Lq, Lkv, causal, window, prefix, q_offset = MODES.get(mode, EMBED_MODE)
+    H, Hkv, D = (12, 12, 64) if mode == "embedder" else (2 * G, 2, 16)
+    q, k, v, do = _inputs(2, Lq, Lkv, H, Hkv, D, seed=G)
     kw = dict(causal=causal, window=window, prefix_len=prefix,
               q_offset=q_offset)
 
@@ -79,6 +89,32 @@ def test_flash_attention_fn_grads_match_jax(mode, G):
     assert fa_ref.attention_bwd_ref.calls == calls + 1
     for a, b in zip(tg, jg):
         _close(a.numpy(), b)
+
+
+@pytest.mark.parametrize("dtype,Lq,Lkv,Dh,route", [
+    (torch.float32, 24, 24, 64, "one_pass"),        # the embedder's call
+    (torch.float32, 1, 1, 16, "one_pass"),
+    (torch.float32, 32, 32, 128, "one_pass"),
+    (torch.float32, 33, 24, 100, "one_pass"),
+    (torch.float32, 64, 64, 112, "one_pass"),
+    (torch.float32, 65, 64, 64, "tiled"),
+    (torch.float32, 64, 65, 64, "tiled"),
+    (torch.float32, 1024, 1024, 128, "tiled"),
+    (torch.bfloat16, 24, 24, 64, "tiled"),
+    (torch.bfloat16, 1, 1, 16, "tiled"),
+    (torch.float32, 24, 24, 129, ValueError),
+    (torch.float32, 24, 24, 0, ValueError),
+], ids=lambda x: str(x).replace("torch.", "") if not isinstance(x, type)
+   else x.__name__)
+def test_bwd_route(dtype, Lq, Lkv, Dh, route):
+    """f32 calls with both lengths at most 64 take the one-pass kernel,
+    every other call the tiled pair; a head dim no backward kernel takes
+    raises."""
+    if isinstance(route, type):
+        with pytest.raises(route):
+            fa_ops.bwd_route(dtype, Lq, Lkv, Dh)
+    else:
+        assert fa_ops.bwd_route(dtype, Lq, Lkv, Dh) == route
 
 
 @pytest.mark.parametrize("mode", list(MODES))

@@ -4,8 +4,8 @@ reference's lines; a run stopped at a checkpoint and resumed with
 ``--resume`` equals the uninterrupted run bit for bit (params, moments,
 losses); mesh flags raise until the parallel-training slice;
 ``launch.train_embedder`` widens the dup/non-dup similarity gap of the
-reduced embedder; the prefill and decode step builders are ``lm``'s
-calls without grad.
+reduced embedder, and its ``wrap_step`` hook sees every step; the
+prefill and decode step builders are ``lm``'s calls without grad.
 """
 import shutil
 import subprocess
@@ -80,6 +80,22 @@ def test_embedder_training_widens_the_gap():
     (d0, n0), (d1, n1) = res["before"], res["after"]
     assert d1 - n1 > d0 - n0 and d1 - n1 > 0
     assert np.mean(res["losses"][-10:]) < np.mean(res["losses"][:10])
+
+
+def test_embedder_wrap_step_runs_every_step_and_keeps_the_losses():
+    """``train_embedder.train``'s ``wrap_step`` hook (chip_smoke times and
+    traces the embedder's steps through it): called once a step, in order,
+    and the losses are what it returns."""
+    seen, returned = [], []
+
+    def wrap(i, run):
+        seen.append(i)
+        returned.append(run())
+        return returned[-1]
+    res = train_embedder.train(steps=3, device="cpu", log_every=0,
+                               wrap_step=wrap)
+    assert seen == [0, 1, 2]
+    assert res["losses"] == returned and all(np.isfinite(returned))
 
 
 def test_prefill_and_decode_steps_are_lm_without_grad():

@@ -3,7 +3,7 @@
 read from a ``torch.profiler`` trace, at the main path's shapes.
 
     python3 tools/trace_kernels.py [--src DIR] [--iters N] [--out DIR]
-                                   [--only topk,prefill,decode,embed,local,ssm]
+                                   [--only topk,prefill,decode,embed,local,ssm,bwd]
                                    [--sass]
 
 Traces K1 (f32 cosine top-k, k=1, early exit on, random queries so every
@@ -32,8 +32,16 @@ recurrence at rwkv6-7b's prefill (B=1, L=2,048, H=64, K=V=64, bf16 r/k/v,
 a zero state) beside its operations bound and at its decode step (B=4,
 L=1, a carried state), K4 at zamba2-7b's prefill (B=1, L=4,096, H=32,
 Dh=112, causal) and K3 at its decode (B=4, H=32, Dh=112, kv_len 4,096 of
-8,192) beside its bytes bound and scaled_dot_product_attention. For each call it prints every device kernel the call launched
-(pass 1 and pass 2 of K1/K2 apart, K3's casts and passes apart) with its
+8,192) beside its bytes bound and scaled_dot_product_attention; and
+(``bwd``) the f32 attention backward at one-tile calls (the embedder's B
+48 x 24, 12 heads of 64, bidirectional; G = 5 at 64 causal tokens; Dh 128
+at 24): the one-pass kernel that ``flash_attention_bwd`` takes there
+beside the tiled pair (a) and (b) launched on the same inputs, SDPA's
+backward (autograd of scaled_dot_product_attention) and the whole
+backward's bytes bound, with ptxas's registers and spills of every
+one-pass instance (where this run built them) and the SASS mix of each.
+For each call it prints every device kernel the call launched (pass 1
+and pass 2 of K1/K2 apart, K3's casts and passes apart) with its
 mean time per call; for K4 the achieved TFLOP/s of the causal half, for
 K1, K2 and K3 the share of their bytes bound (3.35 TB/s) that their own
 kernels reach and the host time a call takes to enqueue them.
@@ -59,7 +67,7 @@ PREFILL = dict(B=1, L=4096, H=40, Hkv=8, Dh=128)
 DECODE = dict(B=4, H=40, Hkv=8, Dh=128)
 DECODE_CALLS = ((8192, 4096), (32768, 32768))   # (cache length, kv_len)
 H100_BYTES_PER_S = 3.35e12
-GROUPS = ("topk", "prefill", "decode", "embed", "local", "ssm")
+GROUPS = ("topk", "prefill", "decode", "embed", "local", "ssm", "bwd")
 H100_FP32_FLOPS = 67e12
 TOPK_BATCHES = (1, 4, 8, 32)
 
@@ -181,7 +189,7 @@ def main() -> int:
                          text=True).stdout.strip()
     print(f"[device] {smi}; torch {torch.__version__}; src {args.src}",
           flush=True)
-    _build.build()
+    reports = _build.build()
     g = torch.Generator(device="cuda").manual_seed(0)
     res = {"nvidia_smi": smi, "src": args.src}
     if args.sass:
@@ -204,6 +212,9 @@ def main() -> int:
         trace_local(torch, ops, g, max(args.iters, 20), res)
     if "ssm" in only:
         trace_ssm(torch, fa, g, args.iters, res)
+    if "bwd" in only:
+        trace_bwd(torch, fa, _build, reports.get("flash_attention_bwd"), g,
+                  max(args.iters, 20), res)
     out = ROOT / args.out
     out.mkdir(parents=True, exist_ok=True)
     (out / "trace_kernels.json").write_text(json.dumps(res, indent=1))
@@ -630,6 +641,115 @@ def trace_embed(torch, fa, _build, g, iters: int, res: dict) -> None:
     lib_path = str(_build._lib_path("flash_attention"))
     for name, c in sass_mix(lib_path, "f32").items():
         res.setdefault("sass_f32", {})[name] = c
+        print(f"[sass] {name[:90]}: whole {c['function']}; loops with FFMA: "
+              + "; ".join(str(x) for x in c["loops"]), flush=True)
+
+
+# (label, shape, causal) of the f32 backward's one-tile calls
+BWD_CALLS = (("embedder", dict(B=48, L=24, H=12, Hkv=12, Dh=64), False),
+             ("g5_l64", dict(B=4, L=64, H=40, Hkv=8, Dh=64), True),
+             ("dh128_l24", dict(B=16, L=24, H=8, Hkv=8, Dh=128), False))
+
+
+def ptxas_functions(report) -> dict:
+    """{mangled name: its registers, static shared memory, stack and spill
+    bytes} of every function of a build's ``-Xptxas -v`` report, with
+    ``wgmma_serialized``, ptxas's warning, where it serialised the
+    function's wgmma."""
+    import re
+    out, name = {}, None
+    for line in (report or "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        if "serialized" in line:
+            m = re.search(r"(_Z\w+)", line)
+            if m:
+                out.setdefault(m.group(1), {})["wgmma_serialized"] = \
+                    line.strip()
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[name]["static_smem"] = int(m.group(1))
+    return out
+
+
+def trace_bwd(torch, fa, _build, report, g, iters: int, res: dict) -> None:
+    """The f32 backward at BWD_CALLS: ``flash_attention_bwd`` (one launch
+    of the one-pass kernel there), the tiled pair (a) and (b) on the same
+    inputs through ``kernel.launch_bwd``, and SDPA's backward, each's
+    device ms a call (mean of ``iters`` under torch.profiler) beside the
+    whole backward's bound (q, k, v, o, do read and dq, dk, dv written
+    once at 3.35 TB/s, or its five products at 67 TFLOP/s); then ptxas's
+    lines and the SASS mix of every one-pass instance."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+    for label, shape, causal in BWD_CALLS:
+        B, L, H, Hkv, Dh = (shape[x] for x in ("B", "L", "H", "Hkv", "Dh"))
+        q = torch.randn((B, L, H, Dh), generator=g, device="cuda")
+        k, v = (torch.randn((B, L, Hkv, Dh), generator=g, device="cuda")
+                for _ in range(2))
+        o = fa.flash_attention(q, k, v, causal=causal)
+        do = torch.randn(o.shape, generator=g, device="cuda")
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        lse, dsum = K.bwd_scratch(q)
+        one = lambda: fa.flash_attention_bwd(q, k, v, o, do, causal=causal)
+        pair = [lambda part=part: K.launch_bwd(
+            q, k, v, o, do, dq, dk, dv, lse, dsum, causal=causal, window=0,
+            prefix_len=0, q_offset=0, part=part) for part in (0, 1)]
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                             enable_gqa=H != Hkv)
+        dot = do.transpose(1, 2)
+        lib = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                          retain_graph=True)
+        own = device_kernel_ms(torch, one, iters)[0]
+        tiled = {}
+        for f in pair:
+            tiled.update(device_kernel_ms(torch, f, iters)[0])
+        other = device_kernel_ms(torch, lib, iters)[0]
+        pairs = L * (L + 1) // 2 if causal else L * L
+        nbytes = 4 * (4 * B * L * H * Dh + 4 * B * L * Hkv * Dh)
+        bound_ms = 1e3 * max(nbytes / H100_BYTES_PER_S,
+                             10.0 * B * H * Dh * pairs / H100_FP32_FLOPS)
+        rec = {"shape": shape, "causal": causal, "kernels_ms": own,
+               "kernel_ms": sum(own.values()) if own else None,
+               "tiled_kernels_ms": tiled,
+               "tiled_ms": sum(tiled.values()) if tiled else None,
+               "library_kernels_ms": other,
+               "library_ms": sum(other.values()) if other else None,
+               "bound_ms": bound_ms}
+        res[f"flash_attention_bwd_f32/{label}"] = rec
+        print(f"[trace] flash_attention_bwd f32 {label} {shape} causal "
+              f"{causal}: " + "; ".join(f"{n} {t:.4f} ms"
+                                        for n, t in own.items())
+              + f"; the tiled pair {rec['tiled_ms']:.4f} ms ("
+              + "; ".join(f"{n} {t:.4f}" for n, t in tiled.items())
+              + f"); SDPA's backward {rec['library_ms']:.4f} ms; bound "
+                f"{bound_ms:.4f} ms", flush=True)
+        del q, k, v, o, do, dq, dk, dv, qt, kt, vt, out, dot
+    for name, r in ptxas_functions(report).items():
+        if "bwd_one_pass" in name:
+            res.setdefault("bwd_one_pass_ptxas", {})[name] = r
+            print(f"[ptxas] {name}: {r}", flush=True)
+    lib_path = str(_build._lib_path("flash_attention_bwd"))
+    for name, c in sass_mix(lib_path, "one_pass").items():
+        res.setdefault("sass_bwd_one_pass", {})[name] = c
         print(f"[sass] {name[:90]}: whole {c['function']}; loops with FFMA: "
               + "; ".join(str(x) for x in c["loops"]), flush=True)
 
