@@ -750,6 +750,14 @@ DV_DECODE_TIMED = (8192, 4096)
 DV_DEEPSEEK_DECODE_SHAPE = dict(B=4, H=128, Hkv=128, Dh=192, Dv=128)
 # deepseek-v2-236b's (Dq = 128 + 64, Dv = 128) at fewer heads, for the checks
 DV_DEEPSEEK = dict(Dh=192, Dv=128)
+# deepseek-v2-236b's prefill of a 4,096-token prompt (128 heads, one kv
+# head a query head), timed beside minicpm3's
+DV_DEEPSEEK_PREFILL_SHAPE = dict(B=1, Lq=4096, Lkv=4096, H=128, Hkv=128,
+                                 Dh=192, Dv=128)
+# (Dq, Dv) of bf16 K4's persistent route and the lengths phase 2 holds it
+# at: both sides of its 128-row q tiles and its 96-192-key kv tiles
+PERSISTENT_PAIRS = ((96, 64), (112, 112), (192, 128))
+PERSISTENT_LENGTHS = (1, 63, 65, 129, 193, 300, 4095)
 FLASH_MODES = {
     "causal": dict(causal=True),
     "bidirectional": dict(causal=False),
@@ -933,6 +941,21 @@ def phase_attention_kernels(torch, seed: int) -> Agreement:
                        [700, 256, 1, 0], dtype, False, seed + 82)
     compare_flash(torch, agree, ZAMBA_PREFILL_SHAPE, torch.bfloat16,
                   seed + 83, causal=True)
+    # bf16's persistent route (ops.fwd_route: zamba2's 112 and MLA's pairs
+    # at exact widths; 128-row q tiles, kv tiles of 192, 128 or 96 keys):
+    # lengths on both sides of the tiles' edges, a ragged kv_valid_len
+    # with a q_offset, a window and a prefix, 2 query heads a kv head
+    for i, (dq, dv) in enumerate(PERSISTENT_PAIRS):
+        for j, L in enumerate(PERSISTENT_LENGTHS):
+            for k, kw in enumerate((
+                    dict(causal=True),
+                    dict(causal=True, q_offset=L // 3,
+                         kv_valid_len=[L, (L + 1) // 3]),
+                    dict(causal=True, window=100, prefix_len=40))):
+                compare_flash(torch, agree, dict(B=2, Lq=L, Lkv=L, H=8,
+                                                 Hkv=4, Dh=dq, Dv=dv),
+                              torch.bfloat16, seed + 500 + 100 * i + 10 * j
+                              + k, **kw)
     Lc, n_kv = ZAMBA_DECODE_TIMED
     compare_decode(torch, agree, ZAMBA_DECODE_SHAPE, Lc,
                    [n_kv, n_kv + 1, n_kv + 7, 1], torch.bfloat16, False,
@@ -967,9 +990,10 @@ def flash_tile_dropped(torch, q, k, v):
 
 def phase_planted_faults(torch, seed: int) -> dict:
     """The bf16 limit must fail a dropped kv tile: K4 at the engine
-    prefill's shape with one 64-key tile left out of the last quarter of
-    the rows, K3 at decode_32k's kv length with one 256-position split
-    left out. Plain versions only; the readings are logged."""
+    prefill's shape (and at minicpm3's and zamba2's) with one 64-key tile
+    left out of the last quarter of the rows, K3 at decode_32k's kv length
+    (and minicpm3's decode) with one 256-position split left out. Plain
+    versions only; the readings are logged."""
     from repro_torch.kernels import bf16_excess
     from repro_torch.kernels.decode_attention import ref as dr
     from repro_torch.kernels.flash_attention import ref as fr
@@ -1002,6 +1026,15 @@ def phase_planted_faults(torch, seed: int) -> dict:
     bad = flash_tile_dropped(torch, q, k, v)
     out["flash_attention_dv"] = (
         bf16_excess(bad, plain, ATT_ROW_RTOL["flash_attention_dv"]),
+        float((bad.float() - plain.float()).abs().max()))
+    del q, k, v, plain, bad
+    # zamba2's head dim 112 (the persistent route, not MLA's Dv mode)
+    q, k, v = flash_inputs(torch, **ZAMBA_PREFILL_SHAPE, dtype=torch.bfloat16,
+                           seed=seed + 44)
+    plain = fr.attention_ref(q, k, v, causal=True, p_dtype=v.dtype)
+    bad = flash_tile_dropped(torch, q, k, v)
+    out["flash_attention_dh112"] = (
+        bf16_excess(bad, plain, ATT_ROW_RTOL["flash_attention"]),
         float((bad.float() - plain.float()).abs().max()))
     del q, k, v, plain, bad
     Lc, n_kv = DV_DECODE_TIMED
@@ -1077,7 +1110,7 @@ def phase_attention_timing(torch, seed: int) -> dict:
             torch, lambda: fa.flash_attention(q, k, v, causal=causal),
             lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal, enable_gqa=H != Hkv),
-            "flash_f32" if dtype == torch.float32 else "flash_bf16", label))
+            fa.fwd_route(dtype, Dh, Dh), label))
         log(f"[timing] flash_attention {label}, torch.profiler: "
             + ("not measured (no profiler activity)"
                if rec["device_ms"] is None else
@@ -1137,20 +1170,36 @@ def phase_attention_timing(torch, seed: int) -> dict:
 
 def dv_timing(torch, seed: int) -> dict:
     """Both kernels' Dv mode at minicpm3's shapes (DV_PREFILL_SHAPE, causal;
-    DV_DECODE_SHAPE at Lc 8,192 and kv_len 4,096), and K3's at
-    deepseek-v2's decode (DV_DEEPSEEK_DECODE_SHAPE): kernel, plain version,
-    bound and scaled_dot_product_attention, which takes a value head dim of
-    its own (a yardstick; the port never calls it). The bound counts q, k
-    and v read once (K3: the first kv_len positions) and the output written
-    once; prefill's operations 2 H (Dq + Dv) over the unmasked (query, key)
-    pairs, decode's 2 B H kv_len (Dq + Dv)."""
+    DV_DECODE_SHAPE at Lc 8,192 and kv_len 4,096), K4's at deepseek-v2's
+    prefill (DV_DEEPSEEK_PREFILL_SHAPE) and K3's at deepseek-v2's decode
+    (DV_DEEPSEEK_DECODE_SHAPE): kernel, plain version, bound and
+    scaled_dot_product_attention, which takes a value head dim of its own
+    (a yardstick; the port never calls it). The bound counts q, k and v
+    read once (K3: the first kv_len positions) and the output written
+    once; prefill's operations 2 H (Dq + Dv) over the unmasked (query,
+    key) pairs, decode's 2 B H kv_len (Dq + Dv)."""
+    out = {"flash_attention_dv/prefill": dv_prefill_timing(
+        torch, DV_PREFILL_SHAPE, "Dv prefill", seed + 33)}
+    out["flash_attention_dv/deepseek_prefill"] = dv_prefill_timing(
+        torch, DV_DEEPSEEK_PREFILL_SHAPE, "Dv prefill deepseek-v2", seed + 35)
+    Lc, n_kv = DV_DECODE_TIMED
+    for key, sh in (("decode_attention_dv", DV_DECODE_SHAPE),
+                    ("decode_attention_dv_deepseek",
+                     DV_DEEPSEEK_DECODE_SHAPE)):
+        out[f"{key}/{Lc}/{n_kv}"] = dv_decode_timing(torch, sh, Lc, n_kv,
+                                                     seed + 34)
+    return out
+
+
+def dv_prefill_timing(torch, sh: dict, label: str, seed: int) -> dict:
+    """K4's Dv mode at ``sh`` (causal): kernel (CUDA events and the
+    profiler's device time; the call must launch ``ops.fwd_route``'s
+    instance alone), plain version, bound and SDPA."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa, ref as fr
-    out = {}
-    sh = DV_PREFILL_SHAPE
     B, L, H, Hkv, Dq, Dv = (sh[x] for x in ("B", "Lq", "H", "Hkv", "Dh",
                                             "Dv"))
-    q, k, v = flash_inputs(torch, **sh, dtype=torch.bfloat16, seed=seed + 33)
+    q, k, v = flash_inputs(torch, **sh, dtype=torch.bfloat16, seed=seed)
     nbytes = 2 * B * L * (H * Dq + Hkv * Dq + Hkv * Dv + H * Dv)
     pairs = L * (L + 1) // 2
     flops = 2.0 * B * H * (Dq + Dv) * pairs
@@ -1165,24 +1214,18 @@ def dv_timing(torch, seed: int) -> dict:
            "library_ms": cuda_ms(torch, sdpa),
            "bound_ms": b_ms, "bound_by": b_by}
     rec["tflops"] = flops / rec["ms"] / 1e9
-    rec.update(flash_device_ms(torch, call, sdpa, "flash_bf16", "Dv prefill"))
-    out["flash_attention_dv/prefill"] = rec
-    log(f"[timing] flash_attention_dv prefill {sh} bf16: kernel "
+    rec.update(flash_device_ms(torch, call, sdpa,
+                               fa.fwd_route(torch.bfloat16, Dq, Dv), label))
+    log(f"[timing] flash_attention_dv {label} {sh} bf16: kernel "
         f"{rec['ms']:.4f} ms ({rec['tflops']:.1f} TFLOP/s), plain "
         f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}); the kernel takes "
         f"{b_ms / rec['ms']:.3f} of its bound; device "
         + ("not measured" if rec["device_ms"] is None else
-           f"{rec['device_ms']:.4f} ms, library "
+           f"{rec['device_ms']:.4f} ms ({b_ms / rec['device_ms']:.3f} of "
+           f"the bound) in {list(rec['device_kernels'])}, library "
            f"{rec['library_device_ms']} ms in {rec['library_kernels']}"))
-    del q, k, v, qt, kt, vt
-    Lc, n_kv = DV_DECODE_TIMED
-    for key, sh in (("decode_attention_dv", DV_DECODE_SHAPE),
-                    ("decode_attention_dv_deepseek",
-                     DV_DEEPSEEK_DECODE_SHAPE)):
-        out[f"{key}/{Lc}/{n_kv}"] = dv_decode_timing(torch, sh, Lc, n_kv,
-                                                     seed + 34)
-    return out
+    return rec
 
 
 def dv_decode_timing(torch, sh: dict, Lc: int, n_kv: int, seed: int) -> dict:
@@ -1232,8 +1275,9 @@ def dv_decode_timing(torch, sh: dict, Lc: int, n_kv: int, seed: int) -> dict:
 def flash_device_ms(torch, call, lib, kernel: str, label: str) -> dict:
     """A K4 call and scaled_dot_product_attention on the same inputs,
     device ms per call from torch.profiler traces (mean of 20 calls). One
-    K4 call launches its own kernel (``kernel`` in its name) and nothing
-    else: no fill, copy or second pass."""
+    K4 call launches its own kernel (``kernel``, the instance
+    ``ops.fwd_route`` names, in its name) and nothing else: no fill, copy
+    or second pass."""
     sys.path.insert(0, str(ROOT))
     from tools.trace_kernels import device_kernel_ms
     own, other = (device_kernel_ms(torch, f, iters=20)[0]
@@ -1907,6 +1951,7 @@ def zero_attention_launches() -> None:
     fa.flash_attention.launches = fa.flash_attention.launches_f32 = 0
     da.decode_attention.launches = da.decode_attention.launches_int8 = 0
     fa.flash_attention.launches_dv = da.decode_attention.launches_dv = 0
+    fa.flash_attention.launches_persistent = 0
 
 
 def phase_engine_long(torch, np, models, att_recorders, seed: int,
@@ -5019,6 +5064,7 @@ def mla_engine(torch, np, L, lm, params, cfg, att_recorders, seed: int
     the absorbed ones). Launch counters zeroed and read around each window,
     every K3/K4 call recorded for the re-checks; profiled prefill and
     decode of each form."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.serving.engine import ModelEngine
     n = cfg.n_layers
     name = cfg.name
@@ -5068,6 +5114,10 @@ def mla_engine(torch, np, L, lm, params, cfg, att_recorders, seed: int
           and sum(launches.values()) == MLA_SLOTS * n,
           f"[mla] {name} prefill: launches {launches}, expected "
           f"{MLA_SLOTS * n} K4 in the Dv mode and nothing else")
+    persistent = fa_ops.flash_attention.launches_persistent
+    check(persistent == MLA_SLOTS * n,
+          f"[mla] {name} prefill: {persistent} K4 launches on "
+          f"flash_bf16_persistent, expected every one of {MLA_SLOTS * n}")
     toks = np.asarray(toks, np.int64)
     start = ({k: v.clone() for k, v in eng.cache.items()}, eng.pos.copy(),
              toks.copy())
@@ -5793,6 +5843,13 @@ def ssm_zamba2(torch, np, L, lm, S, recorders, agree, seed: int) -> dict:
     with recorded_ops(L, recorders):
         prefill_ms, toks = ssm_prefill_all(torch, np, eng, prompts)
     launches = attention_launches()
+    # every bf16 K4 call of zamba2's prefill (head dim 112) on the
+    # persistent kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    persistent = fa_ops.flash_attention.launches_persistent
+    check(persistent == launches["flash_attention"] > 0,
+          f"[ssm] zamba2 prefill: {persistent} K4 launches on "
+          f"flash_bf16_persistent of {launches['flash_attention']}")
     torch.cuda.synchronize()
     zero_attention_launches()
     mark = len(recorders[1].n_split)
@@ -5909,7 +5966,8 @@ def dh112_timing(torch, seed: int) -> dict:
                q, k, v, causal=True, p_dtype=v.dtype), iters=5, warmup=1),
            "library_ms": cuda_ms(torch, sdpa), "bound_ms": b_ms,
            "bound_by": b_by}
-    rec.update(flash_device_ms(torch, call, sdpa, "flash_bf16",
+    rec.update(flash_device_ms(torch, call, sdpa,
+                               fa.fwd_route(torch.bfloat16, Dh, Dh),
                                "Dh 112 prefill"))
     out["flash_attention/zamba2_prefill"] = rec
     log(f"[timing] flash_attention Dh 112 {sh} bf16: kernel {rec['ms']:.4f}"
@@ -5917,7 +5975,8 @@ def dh112_timing(torch, seed: int) -> dict:
         f"{rec['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); device "
         + ("not measured" if rec["device_ms"] is None else
            f"{rec['device_ms']:.4f} ms ({b_ms / rec['device_ms']:.3f} of "
-           f"the bound), library {rec['library_device_ms']} ms"))
+           f"the bound) in {list(rec['device_kernels'])}, library "
+           f"{rec['library_device_ms']} ms"))
     del q, k, v, qt, kt, vt
     Lc, n_kv = ZAMBA_DECODE_TIMED
     sh = ZAMBA_DECODE_SHAPE
@@ -6636,6 +6695,68 @@ def bwd_one_pass_ptxas(report) -> dict:
     return out
 
 
+def fwd_bf16_smem(kernel: str, dq: int, dv: int, bk: int) -> int:
+    """Dynamic shared memory of a bf16 K4 instance (flash_attention.cu's
+    Layout and PCfg): 64-column slabs of 128-byte rows; flash_bf16 one Q
+    tile and a two-stage K/V ring, flash_bf16_persistent two Q tiles and
+    as many stages (2 or 3) as 227 KB holds."""
+    sq, sv = -(-dq // 64), -(-dv // 64)
+    q, kv = 2 * sq * 64 * 128, bk * (sq + sv) * 128
+    if kernel == "flash_bf16":
+        return 1024 + q + 2 * kv
+    stages = 3 if (232448 - 1536 - 2 * q) // kv >= 3 else 2
+    return 1024 + 2 * q + stages * kv
+
+
+def fwd_bf16_ptxas(report) -> dict:
+    """Registers, shared memory and spills of every bf16 K4 instance
+    (``fa::flash_bf16<DQ, DV, BK>`` and
+    ``fa::flash_bf16_persistent<DQ, DV, BK>``) from the ptxas report of
+    its library's build, logged; fails if a flash_bf16_persistent instance
+    spills or ptxas serialised its wgmma, or if an instance that
+    ``ops.fwd_route`` names is missing from a report of this run. The
+    older flash_bf16 instances are logged only."""
+    import re
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    if report is None:
+        log("[build] flash_attention was built before this run: no ptxas "
+            "report to read")
+        return {}
+    sys.path.insert(0, str(ROOT))
+    from tools.trace_kernels import ptxas_functions
+    out = {}
+    for fn, r in ptxas_functions(report).items():
+        m = re.match(r"_ZN2fa\d+(flash_bf16(?:_persistent)?)ILi(\d+)ELi(\d+)"
+                     r"ELi(\d+)E", fn)
+        if m:
+            kernel, dq, dv, bk = m.group(1), *map(int, m.group(2, 3, 4))
+            out.setdefault(f"{kernel}<{dq}, {dv}, {bk}>", {
+                "kernel": kernel,
+                "dynamic_smem": fwd_bf16_smem(kernel, dq, dv, bk)}).update(r)
+    for name, r in sorted(out.items()):
+        new = r["kernel"] == "flash_bf16_persistent"
+        log(f"[build] fa::{name}: {r.get('registers')} registers a thread "
+            f"at launch, {r.get('static_smem')} B static + "
+            f"{r['dynamic_smem']:,} B dynamic shared memory, "
+            f"{r.get('spill_stores')} B spill stores, "
+            f"{r.get('spill_loads')} B spill loads, {r.get('stack')} B "
+            f"stack, wgmma serialised: "
+            f"{r.get('wgmma_serialized', 'no')}"
+            + ("" if new else " (logged only)"))
+        if new:
+            check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+                  f"[build] fa::{name} spills: {r}")
+            check("wgmma_serialized" not in r,
+                  f"[build] fa::{name}: {r.get('wgmma_serialized')}")
+    routed = {fa_ops.fwd_route(torch.bfloat16, dq, dv)
+              for dq, dv in PERSISTENT_PAIRS + ((64, 64), (128, 128),
+                                                (256, 256))}
+    check(routed <= set(out), f"[build] the ptxas report names "
+          f"{sorted(out)}, not every routed bf16 instance {sorted(routed)}")
+    return out
+
+
 def _kind(dtype) -> str:
     return "bf16" if "bfloat16" in str(dtype) else "f32"
 
@@ -6766,6 +6887,7 @@ def main() -> int:
         reports.get("flash_attention_bwd"))
     detail["bwd_one_pass_ptxas"] = bwd_one_pass_ptxas(
         reports.get("flash_attention_bwd"))
+    detail["fwd_bf16_ptxas"] = fwd_bf16_ptxas(reports.get("flash_attention"))
     for name in _build.KERNELS:
         _build.load(name)
     t = time.perf_counter()

@@ -111,6 +111,21 @@ def load(name: str) -> ctypes._CFuncPtr:
     return fn
 
 
+def entry(name: str, sym: str) -> ctypes._CFuncPtr:
+    """Another C entry point ``sym`` of kernel ``name``'s library, with the
+    registered entry's argument types (a probe that no wrapper routes to),
+    built on first use."""
+    fn = _loaded.get(f"{name}:{sym}")
+    if fn is None:
+        load(name)
+        _, _, argtypes = KERNELS[name]
+        fn = getattr(ctypes.CDLL(str(_lib_path(name))), sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[f"{name}:{sym}"] = fn
+    return fn
+
+
 def check_rc(rc: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error at launch."""
     if rc != 0:

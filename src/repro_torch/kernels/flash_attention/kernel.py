@@ -27,7 +27,7 @@ def _strides(t: torch.Tensor) -> list[int]:
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            out: torch.Tensor, kv_valid: torch.Tensor | None, *, causal: bool,
            window: int, prefix_len: int, q_offset: int,
-           strides: tuple) -> None:
+           strides: tuple, entry=None) -> None:
     """q (B, Lq, H, Dq), k (B, Lkv, Hkv, Dq), v (B, Lkv, Hkv, Dv), each
     with unit stride in its head dim, read in place through their strides;
     ``out`` contiguous (B, Lq, H, Dv) of q's dtype; ``kv_valid`` (B,)
@@ -35,14 +35,16 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     caller has checked shapes, dtypes and devices, and read ``strides``,
     ``q.stride() + k.stride() + v.stride()``: the f32 kernels take them as
     they are (and ignore those of dims of length 1), the bf16 tensor maps
-    take ``_strides``."""
-    fn = _build.load("flash_attention")
+    take ``_strides``. ``entry``: another C entry point of the library
+    with the same arguments (``tools/trace_kernels.py``'s unrouted
+    probe); default the routed one."""
+    fn = entry or _build.load("flash_attention")
     index = q.device.index
     if index != torch._C._cuda_getDevice():
         with torch.cuda.device(index):
             return launch(q, k, v, out, kv_valid, causal=causal,
                           window=window, prefix_len=prefix_len,
-                          q_offset=q_offset, strides=strides)
+                          q_offset=q_offset, strides=strides, entry=entry)
     B, Lq, H, Dq = q.shape
     is_bf16 = q.dtype == torch.bfloat16
     if is_bf16:

@@ -6,11 +6,15 @@ the plain version in ``ref.py`` with P rounded to v's dtype before P·V,
 as the bf16 kernel does. There is no fallback from one to the
 other. A bf16 view that TMA cannot describe raises ``ValueError``
 (``tma_layout_check``); an f32 view of any strides is read in place (16
-bytes at a time where it is 16-byte aligned, else 4). Launches are counted
+bytes at a time where it is 16-byte aligned, else 4). ``fwd_route``
+names the kernel instance a CUDA call takes: in bf16 zamba2's (112, 112)
+and the MLA pairs take ``flash_bf16_persistent`` at exact widths, the
+other pairs ``flash_bf16``. Launches are counted
 in ``flash_attention.launches``; of them, those with a value head dim
 other than the q/k one also in ``flash_attention.launches_dv``, and the
 other f32 ones in ``flash_attention.launches_f32`` (the two are
-disjoint).
+disjoint); the bf16 ones on ``flash_bf16_persistent`` also in
+``flash_attention.launches_persistent``.
 
 The Dv mode (MLA: q/k of Dq = 96 with v of Dv = 64 in minicpm3, 192 with
 128 in deepseek-v2) is a port extension: the Pallas kernel takes one head
@@ -128,12 +132,15 @@ def _forward(q, k, v, causal, window, prefix_len, q_offset, kv_valid_len
         flash_attention.launches_dv += 1
     elif dtype == torch.float32:
         flash_attention.launches_f32 += 1
+    if dtype == torch.bfloat16 and _persistent(Dh, Dv):
+        flash_attention.launches_persistent += 1
     return out
 
 
 flash_attention.launches = 0        # every K4 launch
 flash_attention.launches_f32 = 0    # of which f32 with Dv = Dq (embedder)
 flash_attention.launches_dv = 0     # of which Dv != Dq (MLA's prefill)
+flash_attention.launches_persistent = 0     # bf16 on flash_bf16_persistent
 flash_attention.launches_bwd = 0    # every backward kernel launch
 flash_attention.launches_bwd_f32 = 0    # of which f32
 flash_attention.launches_bwd_f32_one_pass = 0   # of which one-pass (embedder)
@@ -285,6 +292,38 @@ def dv_supported(Dq: int, Dv: int) -> bool:
     MLA pairs)."""
     pq, pv = _pad(Dq), _pad(Dv)
     return pq == pv or (pq == 128 and pv == 64) or (pv == 128 and Dq <= 192)
+
+
+def fwd_route(dtype: torch.dtype, Dq: int, Dv: int) -> str:
+    """The forward kernel a CUDA call with q/k head dim Dq and v head dim
+    Dv takes, as its device name begins (``flash_attention.cu``'s
+    ``flash_attention`` dispatch): ``"flash_f32"`` for float32; in bf16
+    ``"flash_bf16_persistent<DQ, DV, BK>"`` at exact widths for zamba2's
+    (112, 112) and the MLA pairs (Dq <= 96 with Dv <= 64 past the 64s at
+    <96, 64, 192>, minicpm3's; every other MLA pair at <192, 128, 96>,
+    deepseek-v2's), and ``"flash_bf16<P, P, BK>"`` where both pad alike to
+    P = 64, 128 or 256 (BK 128, 64 at 256). Raises ``ValueError`` for a
+    pair that ``dv_supported`` refuses."""
+    if not (1 <= Dq <= DH_MAX and 1 <= Dv <= DH_MAX
+            and dv_supported(Dq, Dv)):
+        raise ValueError(f"no kernel instance takes q/k head dim {Dq} with "
+                         f"v head dim {Dv}")
+    if dtype == torch.float32:
+        return "flash_f32"
+    pq = _pad(Dq)
+    if not _persistent(Dq, Dv):
+        return f"flash_bf16<{pq}, {pq}, {64 if pq == 256 else 128}>"
+    if (Dq, Dv) == (112, 112):
+        return "flash_bf16_persistent<112, 112, 128>"
+    if pq == 128 and Dq <= 96:
+        return "flash_bf16_persistent<96, 64, 192>"
+    return "flash_bf16_persistent<192, 128, 96>"
+
+
+def _persistent(Dq: int, Dv: int) -> bool:
+    """A supported pair that bf16 sends to flash_bf16_persistent: zamba2's
+    (112, 112) and every pair whose widths pad apart (the MLA pairs)."""
+    return (Dq, Dv) == (112, 112) or _pad(Dq) != _pad(Dv)
 
 
 def tma_layout_check(*tensors: torch.Tensor) -> None:

@@ -1,7 +1,10 @@
 """The hand-written attention kernels on the card, held against their plain
 PyTorch versions on the same CUDA tensors: K4 (prefill) over every mask
-mode, f32 and bf16, head dims 64, 128 and 256 (and zamba2's 112, padded
-to 128), and bf16 at shapes ragged
+mode, f32 and bf16, head dims 64, 128 and 256 (and zamba2's 112), bf16's
+persistent route (``ops.fwd_route``: zamba2's (112, 112) and MLA's (96,
+64) and (192, 128) at exact widths) at L 1-4,095 on both sides of its
+tile edges in every mask mode, one kernel a call and bit-identical
+repeats, and bf16 at shapes ragged
 against its tiles, with a wrapping kv ring, qwen3's 40/8 heads and strided
 views (a misaligned view raises); K3 (decode) with f32, bf16
 and int8 caches read in place, with G in {1, 4, 5, 8, 16} query heads a kv
@@ -316,9 +319,11 @@ print(json.dumps([e.name for e in prof.events()
 """
 
 
-def _profiled_kernels(shape, causal: bool) -> list:
+def _profiled_kernels(shape, causal: bool, child: str = _PROFILE_CHILD
+                      ) -> list:
     """The device kernels that one f32 K4 call at ``shape`` (B, L, H, Hkv,
-    Dh) launches, from a torch.profiler trace after a warm-up call, taken
+    Dh) launches (``child``: another script of the same arguments), from a
+    torch.profiler trace after a warm-up call, taken
     in a fresh child process: traces taken earlier in one process move its
     profiler's clock, and a later trace can then drop a kernel's record
     (tools/profiler_probe.py counts such drops)."""
@@ -326,7 +331,7 @@ def _profiled_kernels(shape, causal: bool) -> list:
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(src)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     run = subprocess.run(
-        [sys.executable, "-c", _PROFILE_CHILD, json.dumps([*shape, causal])],
+        [sys.executable, "-c", child, json.dumps([*shape, causal])],
         env=env, capture_output=True, text=True, timeout=600)
     assert run.returncode == 0, run.stderr[-4000:]
     return json.loads(run.stdout.strip().splitlines()[-1])
@@ -352,10 +357,11 @@ def test_flash_f32_one_launch_and_bit_identical(shape):
     assert torch.equal(first, again)
 
 
-# zamba2-7b's shared attention block: 32 heads of 112 (MHA). K4 pads the
-# head dim to 128 (q, k and v: TMA's zero fill past 112 in bf16, the
-# zero-filling copies in f32) and writes exactly 112 columns a head, head
-# h + 1 starting 112 elements after head h
+# zamba2-7b's shared attention block: 32 heads of 112 (MHA). bf16 K4
+# takes its products at 112 (flash_bf16_persistent; TMA zero-fills the
+# second 64-column slab past 112), f32 K4 pads to 128 (the zero-filling
+# copies); both write exactly 112 columns a head, head h + 1 starting 112
+# elements after head h
 @pytest.mark.parametrize("ragged", [False, True], ids=["full", "ragged"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -374,6 +380,128 @@ def test_flash_head_dim_112(dtype, ragged):
     assert fa_ops.flash_attention.launches == before + 1
     assert out.shape == (B, L, H, Dh) and out.is_contiguous()
     _assert_agree(out, plain, "flash")
+
+
+# flash_bf16_persistent, the bf16 route of zamba2's (112, 112) and MLA's
+# pairs (ops.fwd_route): a persistent grid over 128-row q tiles (two
+# consumers of 64 rows) and kv tiles of 192 keys (Dv 64), 128 (112) or 96
+# (192 / 128), the products at the exact widths; lengths on both sides of
+# each tile edge, every mask mode, 2 query heads a kv head
+PERSISTENT_DIMS = {"minicpm3": (96, 64), "zamba2": (112, 112),
+                   "deepseek-v2": (192, 128)}
+PERSISTENT_LENGTHS = [1, 63, 64, 65, 127, 128, 129, 300, 4095]
+
+
+def _persistent_inputs(dims, B, Lq, Lkv, H, Hkv, seed):
+    Dq, Dv = PERSISTENT_DIMS[dims]
+    g = _gen(seed)
+    return (_randn((B, Lq, H, Dq), g, torch.bfloat16),
+            _randn((B, Lkv, Hkv, Dq), g, torch.bfloat16),
+            _randn((B, Lkv, Hkv, Dv), g, torch.bfloat16))
+
+
+@pytest.mark.parametrize("L", PERSISTENT_LENGTHS)
+@pytest.mark.parametrize("mode", list(FLASH_MODES))
+@pytest.mark.parametrize("dims", sorted(PERSISTENT_DIMS))
+def test_flash_persistent_tile_edges(dims, mode, L):
+    kw = dict(FLASH_MODES[mode])
+    B, H, Hkv = 2, 4, 2
+    Lq = min(kw.pop("Lq", L), L)
+    q, k, v = _persistent_inputs(dims, B, Lq, L, H, Hkv,
+                                 seed=L + len(mode) + len(dims))
+    if kw.pop("ragged", False):
+        kw["kv_valid_len"] = torch.tensor([L, (L + 1) // 3], device=DEV)
+    before = (fa_ops.flash_attention.launches,
+              fa_ops.flash_attention.launches_dv,
+              fa_ops.flash_attention.launches_persistent)
+    out = fa_ops.flash_attention(q, k, v, **kw)
+    plain = fa_ref.attention_ref(q, k, v, p_dtype=v.dtype, **kw)
+    torch.cuda.synchronize()
+    dv = int(q.shape[-1] != v.shape[-1])
+    assert (fa_ops.flash_attention.launches,
+            fa_ops.flash_attention.launches_dv,
+            fa_ops.flash_attention.launches_persistent) == (
+                before[0] + 1, before[1] + dv, before[2] + 1)
+    assert out.shape == (B, Lq, H, v.shape[-1]) and out.is_contiguous()
+    _assert_agree(out, plain, "flash")
+
+
+_PROFILE_BF16_CHILD = """
+import json, sys, torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels.flash_attention import ops
+B, L, H, Hkv, Dq, Dv, causal = json.loads(sys.argv[1])
+g = torch.Generator(device="cuda").manual_seed(0)
+q = torch.randn((B, L, H, Dq), generator=g, device="cuda").bfloat16()
+k = torch.randn((B, L, Hkv, Dq), generator=g, device="cuda").bfloat16()
+v = torch.randn((B, L, Hkv, Dv), generator=g, device="cuda").bfloat16()
+ops.flash_attention(q, k, v, causal=causal)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")]))
+"""
+
+
+@pytest.mark.parametrize("dims", sorted(PERSISTENT_DIMS))
+def test_flash_persistent_one_launch_and_bit_identical(dims):
+    """One call launches one kernel, the route's flash_bf16_persistent
+    instance (no fill, copy or second pass), and two calls on the same
+    inputs give the same bits in fresh outputs (a static tile order, no
+    atomics)."""
+    Dq, Dv = PERSISTENT_DIMS[dims]
+    B, L, H, Hkv = 2, 1000, 8, 4
+    names = _profiled_kernels((B, L, H, Hkv, Dq, Dv), True,
+                              child=_PROFILE_BF16_CHILD)
+    route = fa_ops.fwd_route(torch.bfloat16, Dq, Dv)
+    assert route.startswith("flash_bf16_persistent<")
+    assert len(names) == 1 and route in names[0], names
+    q, k, v = _persistent_inputs(dims, B, L, L, H, Hkv, seed=7)
+    first = fa_ops.flash_attention(q, k, v, causal=True)
+    again = fa_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert again.data_ptr() != first.data_ptr()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("Dh", [64, 128, 256])
+def test_flash_bf16_pairs_that_pad_alike_stay_on_flash_bf16(Dh):
+    """qwen3's Dh 128 (and 64, 256) keep flash_bf16's instance: one kernel
+    of that name, and the persistent count does not move."""
+    names = _profiled_kernels((1, 300, 8, 4, Dh, Dh), True,
+                              child=_PROFILE_BF16_CHILD)
+    route = fa_ops.fwd_route(torch.bfloat16, Dh, Dh)
+    assert route.startswith("flash_bf16<")
+    assert len(names) == 1 and route in names[0], names
+    g = _gen(Dh)
+    q, k, v = (_randn((1, 300, 8 if i == 0 else 4, Dh), g, torch.bfloat16)
+               for i in range(3))
+    before = fa_ops.flash_attention.launches_persistent
+    fa_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches_persistent == before
+
+
+@pytest.mark.parametrize("dims", sorted(PERSISTENT_DIMS))
+def test_flash_persistent_misaligned_view_raises(dims):
+    """A view that TMA cannot describe (a base 2 bytes off, a head dim not
+    a multiple of 8) raises at the new routes' widths, as at the old ones,
+    and launches nothing."""
+    Dq, Dv = PERSISTENT_DIMS[dims]
+    g = _gen(5)
+    k = _randn((1, 64, 2, Dq), g, torch.bfloat16)
+    v = _randn((1, 64, 2, Dv), g, torch.bfloat16)
+    before = fa_ops.flash_attention.launches
+    with pytest.raises(ValueError, match="TMA"):
+        q = _randn((1, 64, 2, Dq + 8), g, torch.bfloat16)[..., 1:Dq + 1]
+        fa_ops.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="TMA"):
+        vv = _randn((1, 64, 2, Dv + 8), g, torch.bfloat16)[..., 1:Dv + 1]
+        fa_ops.flash_attention(k[:, :, :2], k, vv)
+    assert fa_ops.flash_attention.launches == before
 
 
 DECODE_KINDS = ["f32", "bf16", "int8-f32q", "int8-bf16q"]

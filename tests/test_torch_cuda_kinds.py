@@ -8,7 +8,10 @@ at head dims 128 (mixtral, 4 query heads a kv head) and 256 (paligemma, 8),
 held against the plain attention over the same positions laid out in
 order; both kernels' Dv mode (v head dim other than the q/k one: MLA's Dq
 96 with Dv 64 and Dq 192 with Dv 128) in bf16 and f32, with a dropped kv
-tile that the bf16 limit must fail; K3's Dv mode in bf16 takes the fast
+tile that the bf16 limit must fail; K4's persistent route at the
+4,096-token prefill calls of minicpm3, zamba2 (32 heads of 112) and
+deepseek-v2 (128 heads), three calls bit-identical, and a dropped kv tile
+at zamba2's head dim; K3's Dv mode in bf16 takes the fast
 one-launch kernel (``last_n_split > 0``) at its tile and split edges, in
 a full 32,768-position cache, on ``_mla_kv``'s own layouts and on a
 16-byte aligned view, gives the same bits twice, and a misaligned view
@@ -320,6 +323,66 @@ def test_dv_mode_dropped_tile_fails_the_limit(dims):
     assert da_kernel.last_n_split.value > 0       # the fast kernel
     torch.cuda.synchronize()
     assert bf16_excess(out, plain, ROW_RTOL["decode"]) <= 1.0
+
+
+# K4's persistent route (ops.fwd_route) at the main path's prefill calls:
+# (B, L, H, Hkv, Dq, Dv) of minicpm3-4b, zamba2-7b and deepseek-v2-236b
+PERSISTENT_CALLS = {"minicpm3": (1, 4096, 40, 40, 96, 64),
+                    "zamba2": (1, 4096, 32, 32, 112, 112),
+                    "deepseek-v2": (1, 4096, 128, 128, 192, 128)}
+
+
+@pytest.mark.parametrize("call", sorted(PERSISTENT_CALLS))
+def test_flash_persistent_at_the_main_path_shapes(call):
+    """The models' 4,096-token causal prefill through
+    flash_bf16_persistent: within the bf16 limit of the plain version,
+    one launch a call (counted in ``launches_persistent``, and in
+    ``launches_dv`` for MLA's pairs), and
+    the same bits from three calls."""
+    B, L, H, Hkv, Dq, Dv = PERSISTENT_CALLS[call]
+    g = torch.Generator(device=DEV).manual_seed(11)
+    q = _randn((B, L, H, Dq), g)
+    k, v = _randn((B, L, Hkv, Dq), g), _randn((B, L, Hkv, Dv), g)
+    assert fa_ops.fwd_route(torch.bfloat16, Dq, Dv).startswith(
+        "flash_bf16_persistent<")
+    before = (fa_ops.flash_attention.launches,
+              fa_ops.flash_attention.launches_dv,
+              fa_ops.flash_attention.launches_persistent)
+    first = fa_ops.flash_attention(q, k, v, causal=True)
+    again = fa_ops.flash_attention(q, k, v, causal=True)
+    third = fa_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert (fa_ops.flash_attention.launches,
+            fa_ops.flash_attention.launches_dv,
+            fa_ops.flash_attention.launches_persistent) == (
+                before[0] + 3, before[1] + 3 * (Dq != Dv), before[2] + 3)
+    assert torch.equal(first, again) and torch.equal(first, third)
+    plain = torch.cat([fa_ref.attention_ref(
+        q[:, :, h:h + 8], k[:, :, h:h + 8], v[:, :, h:h + 8], causal=True,
+        p_dtype=v.dtype) for h in range(0, H, 8)], dim=2)
+    assert bf16_excess(first, plain, ROW_RTOL["flash"]) <= 1.0
+
+
+def test_flash_head_dim_112_dropped_tile_fails_the_limit():
+    """zamba2's (112, 112) on the persistent route: the plain version with
+    64 keys left out of the last quarter of a causal prefill's rows
+    exceeds the bf16 limit, while the kernel stays within it."""
+    B, L, H = 1, 1024, 8
+    g = torch.Generator(device=DEV).manual_seed(6)
+    q, k, v = (_randn((B, L, H, 112), g) for _ in range(3))
+    plain = fa_ref.attention_ref(q, k, v, causal=True, p_dtype=v.dtype)
+    bad = plain.clone()
+    lo, r0 = L // 2, 3 * L // 4
+
+    def holed(x):
+        return torch.cat([x[:, :lo], x[:, lo + 64:]], dim=1)
+    bad[:, r0:] = fa_ref.attention_ref(q[:, r0:], holed(k), holed(v),
+                                       causal=True, q_offset=r0 - 64,
+                                       p_dtype=v.dtype)
+    assert bf16_excess(bad, plain, ROW_RTOL["flash"]) > 1.0
+    out = fa_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert bf16_excess(out, plain, ROW_RTOL["flash"]) <= 1.0
 
 
 @pytest.mark.parametrize("arch,kv_dtype", [("mixtral-8x7b", ""),

@@ -3,7 +3,7 @@
 read from a ``torch.profiler`` trace, at the main path's shapes.
 
     python3 tools/trace_kernels.py [--src DIR] [--iters N] [--out DIR]
-                                   [--only topk,prefill,decode,embed,local,ssm,bwd]
+                                   [--only topk,prefill,decode,embed,local,ssm,bwd,k4]
                                    [--sass]
 
 Traces K1 (f32 cosine top-k, k=1, early exit on, random queries so every
@@ -39,7 +39,15 @@ at 24): the one-pass kernel that ``flash_attention_bwd`` takes there
 beside the tiled pair (a) and (b) launched on the same inputs, SDPA's
 backward (autograd of scaled_dot_product_attention) and the whole
 backward's bytes bound, with ptxas's registers and spills of every
-one-pass instance (where this run built them) and the SASS mix of each.
+one-pass instance (where this run built them) and the SASS mix of each;
+and (``k4``) bf16 K4 at the 4,096-token causal prefill of qwen3-14b
+(40/8 heads of 128), minicpm3-4b (40 heads, Dq 96 / Dv 64),
+deepseek-v2-236b (128 heads, 192 / 128) and zamba2-7b (32 heads of 112),
+each beside scaled_dot_product_attention and its operations bound, twice,
+with two calls compared bit for bit; at qwen3's call also the unrouted
+probe ``flash_attention_probe`` (flash_bf16_persistent at 128 / 128,
+where the library has it) against the routed flash_bf16; then ptxas's
+report of every bf16 forward instance.
 For each call it prints every device kernel the call launched (pass 1
 and pass 2 of K1/K2 apart, K3's casts and passes apart) with its
 mean time per call; for K4 the achieved TFLOP/s of the causal half, for
@@ -50,7 +58,8 @@ the instructions of each pass-1 kernel's row loop and the 16-byte loads a
 lane starts in it before its first FFMA.
 ``--only`` picks groups of calls (default: all). ``--src`` names
 the directory that holds the ``repro_torch`` package (default: this
-checkout's ``src``), so an older tree can be traced with the same script.
+checkout's ``src``), so an older tree can be traced with the same script;
+a run builds only the kernel libraries its groups call.
 Needs one CUDA card; writes DIR/trace_kernels.json (default results/).
 """
 from __future__ import annotations
@@ -67,38 +76,54 @@ PREFILL = dict(B=1, L=4096, H=40, Hkv=8, Dh=128)
 DECODE = dict(B=4, H=40, Hkv=8, Dh=128)
 DECODE_CALLS = ((8192, 4096), (32768, 32768))   # (cache length, kv_len)
 H100_BYTES_PER_S = 3.35e12
-GROUPS = ("topk", "prefill", "decode", "embed", "local", "ssm", "bwd")
+GROUPS = ("topk", "prefill", "decode", "embed", "local", "ssm", "bwd", "k4")
 H100_FP32_FLOPS = 67e12
 TOPK_BATCHES = (1, 4, 8, 32)
+H100_BF16_FLOPS = 989e12
+# the groups that need each kernel library: a run builds only those
+GROUP_LIBS = {"cosine_topk": {"topk", "local"}, "cosine_topk_q8": {"topk"},
+              "decode_attention": {"decode", "ssm"}, "wkv6": {"ssm"},
+              "flash_attention": {"prefill", "embed", "ssm", "bwd", "k4"},
+              "flash_attention_bwd": {"bwd"}}
+# bf16 K4 at the main path's prefill calls (B 1, 4,096 causal tokens):
+# (label, H, Hkv, Dq, Dv)
+K4_CALLS = (("qwen3-14b", 40, 8, 128, 128), ("minicpm3-4b", 40, 40, 96, 64),
+            ("deepseek-v2-236b", 128, 128, 192, 128),
+            ("zamba2-7b", 32, 32, 112, 112))
 
 
-def device_kernel_ms(torch, fn, iters: int = 10, warmup: int = 3
-                     ) -> tuple[dict, dict]:
+def device_kernel_ms(torch, fn, iters: int = 10, warmup: int = 3,
+                     attempts: int = 3) -> tuple[dict, dict]:
     """({device kernel name: ms per call of ``fn``}, {name: records}) from
     a profiler trace of ``iters`` calls, after ``warmup`` untraced ones.
     A kernel's ms per call is its mean over the records the trace holds,
     times the whole launches per call those records show (at least one):
     a trace can come back short of records, and a sum over ``iters``
     calls would then read short. Where the trace is whole this is the sum
-    over the calls divided by ``iters``. Both empty when the profiler
-    recorded no device activity."""
+    over the calls divided by ``iters``. A trace that holds no device
+    record at all (the profiler can drop every record of a session,
+    tools/profiler_probe.py) is taken again, ``attempts`` traces in all;
+    both empty when none recorded device activity."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     total: dict = {}
     records: dict = {}
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
-            name = e.name[:100]
-            total[name] = total.get(name, 0.0) \
-                + (e.time_range.end - e.time_range.start) / 1e3
-            records[name] = records.get(name, 0) + 1
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if str(e.device_type).endswith("CUDA"):
+                name = e.name[:100]
+                total[name] = total.get(name, 0.0) \
+                    + (e.time_range.end - e.time_range.start) / 1e3
+                records[name] = records.get(name, 0) + 1
+        if records:
+            break
     ms = {n: t / records[n] * max(1, records[n] // iters)
           for n, t in total.items()}
     order = sorted(ms, key=lambda n: -ms[n])
@@ -189,7 +214,9 @@ def main() -> int:
                          text=True).stdout.strip()
     print(f"[device] {smi}; torch {torch.__version__}; src {args.src}",
           flush=True)
-    reports = _build.build()
+    need = only | ({"topk"} if args.sass else set())
+    reports = _build.build([n for n in _build.KERNELS
+                            if need & GROUP_LIBS.get(n, set(GROUPS))])
     g = torch.Generator(device="cuda").manual_seed(0)
     res = {"nvidia_smi": smi, "src": args.src}
     if args.sass:
@@ -215,6 +242,9 @@ def main() -> int:
     if "bwd" in only:
         trace_bwd(torch, fa, _build, reports.get("flash_attention_bwd"), g,
                   max(args.iters, 20), res)
+    if "k4" in only:
+        trace_k4(torch, fa, _build, reports.get("flash_attention"), g,
+                 max(args.iters, 20), res)
     out = ROOT / args.out
     out.mkdir(parents=True, exist_ok=True)
     (out / "trace_kernels.json").write_text(json.dumps(res, indent=1))
@@ -752,6 +782,87 @@ def trace_bwd(torch, fa, _build, report, g, iters: int, res: dict) -> None:
         res.setdefault("sass_bwd_one_pass", {})[name] = c
         print(f"[sass] {name[:90]}: whole {c['function']}; loops with FFMA: "
               + "; ".join(str(x) for x in c["loops"]), flush=True)
+
+
+def trace_k4(torch, fa, _build, report, g, iters: int, res: dict) -> None:
+    """bf16 K4 at K4_CALLS (B 1, L 4,096, causal): each call's device ms
+    beside scaled_dot_product_attention's on the same inputs and the bound
+    (the causal half's products, 2 H (Dq + Dv) flops a (query, key) pair,
+    at 989 TFLOP/s, or q, k, v and o once at 3.35 TB/s, the larger); two
+    calls compared bit for bit; where the library has the unrouted probe
+    entry ``flash_attention_probe`` (the Hopper template at a padded
+    width), that too at qwen3's call. Then ptxas's registers, spills and
+    serialisation warnings of every bf16 forward instance (where this run
+    built the library)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+    B, L = 1, 4096
+    for label, H, Hkv, Dq, Dv in K4_CALLS:
+        q = torch.randn((B, L, H, Dq), generator=g, device="cuda").bfloat16()
+        k = torch.randn((B, L, Hkv, Dq), generator=g,
+                        device="cuda").bfloat16()
+        v = torch.randn((B, L, Hkv, Dv), generator=g,
+                        device="cuda").bfloat16()
+        call = lambda: fa.flash_attention(q, k, v, causal=True)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=H != Hkv)
+        pairs = L * (L + 1) // 2
+        flops = 2.0 * B * H * (Dq + Dv) * pairs
+        nbytes = 2 * B * L * (H * Dq + Hkv * Dq + Hkv * Dv + H * Dv)
+        bound_ms = 1e3 * max(flops / H100_BF16_FLOPS,
+                             nbytes / H100_BYTES_PER_S)
+        own = device_kernel_ms(torch, call, iters)[0]
+        lib = device_kernel_ms(torch, sdpa, iters)[0]
+        again = device_kernel_ms(torch, call, iters)[0]
+        same = bool(torch.equal(call(), call()))
+        rec = {"H": H, "Hkv": Hkv, "Dq": Dq, "Dv": Dv, "kernels_ms": own,
+               "kernel_ms": sum(own.values()) if own else None,
+               "again_kernels_ms": again,
+               "library_ms": sum(lib.values()) if lib else None,
+               "bound_ms": bound_ms, "bit_identical": same}
+        probe = _probe_entry(_build)
+        if probe is not None and (Dq, Dv, Hkv) == (128, 128, 8):
+            out = torch.empty((B, L, H, Dv), dtype=q.dtype, device="cuda")
+            pcall = lambda: K.launch(q, k, v, out, None, causal=True,
+                                     window=0, prefix_len=0, q_offset=0,
+                                     strides=(), entry=probe)
+            prob = device_kernel_ms(torch, pcall, iters)[0]
+            pcall()
+            ref_out = call()
+            torch.cuda.synchronize()
+            rec["probe_kernels_ms"] = prob
+            rec["probe_ms"] = sum(prob.values()) if prob else None
+            rec["probe_max_abs_diff"] = float(
+                (out.float() - ref_out.float()).abs().max())
+        res[f"k4/{label}"] = rec
+        share = bound_ms / rec["kernel_ms"] if rec["kernel_ms"] else None
+        print(f"[trace] k4 {label} B={B} L={L} H={H}/{Hkv} Dq={Dq} Dv={Dv} "
+              f"bf16 causal: " + "; ".join(f"{n.split('(')[0]} {t:.4f} ms"
+                                            for n, t in own.items())
+              + f" (again {sum(again.values()):.4f}); SDPA "
+                f"{rec['library_ms']:.4f} ms; bound {bound_ms:.4f} ms "
+                f"(share {share:.3f}); repeats bit-identical {same}"
+              + ("" if "probe_ms" not in rec else
+                 f"; probe (Hopper template at 128/128) "
+                 f"{rec['probe_ms']:.4f} ms in "
+                 f"{[n.split('(')[0] for n in rec['probe_kernels_ms']]},"
+                 f" max |probe - K4| {rec['probe_max_abs_diff']:.3g}"),
+              flush=True)
+        del q, k, v, qt, kt, vt
+    for name, r in ptxas_functions(report).items():
+        if "flash_bf16" in name:
+            res.setdefault("k4_ptxas", {})[name] = r
+            print(f"[ptxas] {name}: {r}", flush=True)
+
+
+def _probe_entry(_build):
+    """The unrouted probe entry of K4's library, or None where the library
+    has none (an older tree)."""
+    try:
+        return _build.entry("flash_attention", "flash_attention_probe")
+    except AttributeError:
+        return None
 
 
 if __name__ == "__main__":
