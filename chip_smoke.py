@@ -6109,7 +6109,56 @@ BWD_SHORT_SWEEP = tuple(
           for d in (16, 64, 100, 112, 128) for G in (1, 5, 8)
           for L in (31, 64))
 
+# the backward's widths past Dq = Dv <= 128, (Dq, Dv): the MLA pairs of
+# minicpm3-4b, deepseek-v2-236b and launch.train --reduced, (64, 128), and
+# paligemma-3b's 256 and 160; in bf16 the wgmma pair takes (96, 64), (24,
+# 16) and (64, 128), the CUDA-core pair those past 128 (its instance <192>
+# (192, 128) and 160, <256> 256)
+BWD_WIDTHS = ((96, 64), (192, 128), (24, 16), (64, 128), (256, 256),
+              (160, 160))
+# (shape, mask) of (a) at those widths: every mode at B 2, H 8/2, in f32
+# and bf16; then each width's one-pass calls in f32 (13 and 31 tokens)
+BWD_WIDTH_SWEEP = tuple(
+    (dict(B=2, Lq=lq, Lkv=lkv, H=8, Hkv=2, Dh=dq, Dv=dv), kw)
+    for dq, dv in BWD_WIDTHS for lq, lkv, kw in (
+        (200, 200, dict(causal=True)),
+        (150, 150, dict(causal=False)),
+        (300, 300, dict(causal=True, window=70)),
+        (260, 260, dict(causal=True, prefix_len=96)),
+        (77, 190, dict(causal=False)),
+        (100, 230, dict(causal=True, q_offset=40)),
+        (90, 90, dict(causal=True, q_offset=-20))))
+BWD_WIDTH_SHORT = tuple(
+    (dict(B=2, Lq=L, Lkv=L, H=8, Hkv=1, Dh=dq, Dv=dv), dict(causal=True))
+    for dq, dv in BWD_WIDTHS for L in (13, 31))
+# the new modes at the main path's widths, bf16 B 1 x 4,096, causal (each
+# also timed there): minicpm3-4b's 40 heads of (96, 64); paligemma-3b's 8
+# query heads and 1 kv head of 256 with its 256-token image prefix;
+# deepseek-v2-236b's 128 heads of (192, 128), held at 1,024 tokens (its
+# training step does not fit the card: phase 11 serves 4 of its 60 layers)
+BWD_MLA = dict(B=1, Lq=4096, Lkv=4096, H=40, Hkv=40, Dh=96, Dv=64)
+BWD_PALIGEMMA = dict(B=1, Lq=4096, Lkv=4096, H=8, Hkv=1, Dh=256)
+BWD_PALIGEMMA_MASK = dict(causal=True, prefix_len=256)
+BWD_DEEPSEEK = dict(B=1, Lq=4096, Lkv=4096, H=128, Hkv=128, Dh=192, Dv=128)
+# K5-bwd (B, L, H, K) of (a) in f32 and bf16, each with and without a
+# final-state cotangent and a carried state; rwkv6-7b's 64 heads of 64 at
+# (b)'s 4,096 tokens with the planted fault; timed there too
+WKV6_BWD_SWEEP = ((2, 1, 3, 64), (2, 17, 3, 64), (1, 100, 2, 16),
+                  (2, 33, 2, 40), (3, 50, 2, 24), (1, 300, 4, 64))
+WKV6_BWD_HELD = dict(B=1, L=4096, H=64, K=64)
+WKV6_BWD_TIMED = dict(B=1, L=4096, H=64, K=64)
+WKV6_BWD_RTOL = 1e-5    # of each gradient's largest |gradient|; dr, dk and
+                        # dv in bf16 also 2^-7 |plain| (both round them)
+
 TRAIN_ARCH = "qwen3-14b"
+# (b)'s other kinds at full width: MLA, the VLM prefix-LM at head dim 256,
+# the SSM (WKV6); each cut to TRAIN_LAYERS layers
+TRAIN_KINDS = ("minicpm3-4b", "paligemma-3b", "rwkv6-7b")
+TRAIN_PLAIN_SEQ = {"rwkv6-7b": 1024}    # the plain WKV6 loop's autograd
+                                        # keeps every step's state
+# (c): launch.train --reduced for every kind whose backward phase 13 runs
+REDUCED_ARCHS = ("qwen3-14b", "minicpm3-4b", "deepseek-v2-236b",
+                 "paligemma-3b", "rwkv6-7b")
 TRAIN_LAYERS = 4     # of 40: 2.88 B params, 34.5 GB with bf16 grads and
                      # f32 moments; all 40 would be about 177 GB
 TRAIN_SEQ = 4096     # train_4k's sequence length, B 1
@@ -6117,6 +6166,12 @@ TRAIN_CE_CHUNK = 512
 TRAIN_STEPS = 4
 TRAIN_LR = 3e-3      # warmup 1, as the reference's tiny train
                      # (tests/test_models.py:115)
+# rwkv6-7b's 4 steps take launch.train's learning rate for a full-size
+# model: its gradient norm is about 740 (qwen3's 9.5; the bonus u and the
+# decay take the largest), and at 3e-3 AdamW's fourth step on the fixed
+# batch overshot (losses 11.95, 9.51, 9.11, 14.03) after its held step had
+# matched the plain one within the limits
+TRAIN_LR_FOR = {"rwkv6-7b": 3e-4}
 # one step's loss, global grad norm and per-leaf gradients against the same
 # step with every attention call plain (written before the first run):
 # K4's bf16 output sits within 2^-5 of a row's rms of the plain one, and the
@@ -6129,8 +6184,8 @@ EMBED_TRAIN_STEPS = 60
 
 
 def bwd_inputs(torch, shape: dict, dtype, seed: int, **kw):
-    """q, k, v, the plain forward's output o (contiguous, as K4's) and a
-    seeded cotangent do."""
+    """q, k, v (v of ``shape["Dv"]`` where given), the plain forward's
+    output o (contiguous, as K4's) and a seeded cotangent do."""
     from repro_torch.kernels.flash_attention import ref
     q, k, v = flash_inputs(torch, **shape, dtype=dtype, seed=seed)
     o = ref.attention_ref(q, k, v, p_dtype=v.dtype, **kw).contiguous()
@@ -6152,6 +6207,23 @@ def bwd_excess(torch, got, plain, rss) -> float:
                for a, b, r in zip(got, plain, rss))
 
 
+def bwd_key(torch, dtype, route: str, Dq: int, Dv: int) -> str:
+    """The kernels-line family a backward call belongs to: ``one_pass``;
+    ``float32`` (the f32 tiled pair); in bf16 ``bfloat16`` (the wgmma pair
+    at Dv = Dq), ``dv`` (the wgmma pair at Dv != Dq), ``cc`` and ``cc192``
+    (the CUDA-core pair's instances at DP 256 and 192)."""
+    if route == "one_pass":
+        return "one_pass"
+    if dtype == torch.float32:
+        return "float32"
+    if route == "tiled_cc":
+        return "cc192" if max(Dq, Dv) <= 192 else "cc"
+    return "dv" if Dv != Dq else "bfloat16"
+
+
+BWD_KEYS = ("float32", "bfloat16", "one_pass", "dv", "cc", "cc192")
+
+
 def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
                 fault: bool = False, **kw) -> None:
     """The backward kernels on seeded inputs against attention_bwd_ref;
@@ -6159,17 +6231,19 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
     tile in (a)'s pass 2 and without one kv tile's (b) CTA (for the
     one-pass kernel's calls, Lkv <= 64: without BWD_FAULT_KEYS in dQ's sum
     and with those rows of dK zeroed), each of which must fail the limit
-    against the plain version; the one-pass kernel's calls run twice and
-    must repeat bit for bit. Notes the largest |kernel - plain| of dq and
-    of dk/dv and the largest share of the limit in ``res``, by route
-    (``one_pass``, or the tiled pair's dtype)."""
+    against the plain version; the one-pass kernel's calls and those at a
+    width past Dq = Dv <= 128 run twice and must repeat bit for bit. Notes
+    the largest |kernel - plain| of dq and of dk/dv, the largest share of
+    the limit and the calls in ``res``, by ``bwd_key``."""
     from repro_torch.kernels.flash_attention import ops, ref
     q, k, v, o, do = bwd_inputs(torch, shape, dtype, seed, **kw)
     got = ops.flash_attention_bwd(q, k, v, o, do, **kw)
     torch.cuda.synchronize()
-    route = ops.bwd_route(dtype, shape["Lq"], shape["Lkv"], shape["Dh"])
+    Dq, Dv = shape["Dh"], shape.get("Dv", shape["Dh"])
+    route = ops.bwd_route(dtype, shape["Lq"], shape["Lkv"], Dq, Dv)
+    dt = bwd_key(torch, dtype, route, Dq, Dv)
     ctx = f"[train] backward {shape} {_dtype_name(dtype)} {kw} ({route})"
-    if route == "one_pass":
+    if route == "one_pass" or Dv != Dq or Dq > 128:
         again = ops.flash_attention_bwd(q, k, v, o, do, **kw)
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
@@ -6180,8 +6254,8 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
     for g in got:
         check(bool(torch.isfinite(g).all()), f"{ctx}: non-finite gradient")
     x = bwd_excess(torch, got, plain, rss)
-    dt = "one_pass" if route == "one_pass" else _dtype_name(dtype)
     res["share"][dt] = max(res["share"][dt], x)
+    res["calls"][dt] += 1
     err = res["err"][dt]
     err["dq"] = max(err["dq"], float(
         (got[0].float() - plain[0].float()).abs().max()))
@@ -6211,6 +6285,69 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
           f"{fa:.3g}, dk {fb:.3g})")
 
 
+def wkv6_bwd_excess(torch, got, plain) -> float:
+    """The largest error of K5-bwd's six gradients over its limit:
+    WKV6_BWD_RTOL of the gradient's largest |plain|, plus 2^-7 |plain|
+    where both round it to bf16."""
+    from repro_torch.kernels import BF16_RTOL
+    out = 0.0
+    for a, b in zip(got, plain):
+        rounded = a.dtype == torch.bfloat16
+        a, b = a.float(), b.float()
+        lim = WKV6_BWD_RTOL * float(b.abs().max()) + (
+            BF16_RTOL * b.abs() if rounded else 0)
+        d = (a - b).abs()
+        if float(d.max()):
+            out = max(out, float((d / lim).max()))
+    return out
+
+
+def wkv6_bwd_inputs(torch, B, L, H, K, dtype, carried: bool, seed: int):
+    """``wkv6_inputs``' r, k, v, w, u, state, with seeded cotangents dy (B,
+    L, H, K) and ds (B, H, K, K) f32."""
+    xs = wkv6_inputs(torch, B, L, H, K, dtype, carried, seed)
+    g = gen(torch, seed + 1)
+    dy = torch.randn((B, L, H, K), generator=g, device=DEV)
+    ds = torch.randn((B, H, K, K), generator=g, device=DEV)
+    return xs, dy, ds
+
+
+def wkv6_bwd_compare(torch, res: dict, B, L, H, K, dtype, cot: bool,
+                     seed: int, fault: bool = False) -> None:
+    """K5-bwd on seeded inputs (a carried state; the final state's
+    cotangent with ``cot``) against ``wkv6_bwd_ref``, twice and
+    bit-identical; with ``fault``, the plain backward with the cotangent
+    of one step's y dropped must fail the limit against the kernel."""
+    from repro_torch.kernels.wkv6 import ops, ref
+    xs, dy, ds = wkv6_bwd_inputs(torch, B, L, H, K, dtype, True, seed)
+    ds = ds if cot else None
+    got = ops.wkv6_bwd(*xs, dy, ds)
+    again = ops.wkv6_bwd(*xs, dy, ds)
+    torch.cuda.synchronize()
+    ctx = f"[train] K5-bwd B {B} L {L} H {H} K {K} {_dtype_name(dtype)} " \
+          f"final-state cotangent {cot}"
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{ctx}: two calls differ")
+    for t in got:
+        check(bool(torch.isfinite(t).all()), f"{ctx}: non-finite gradient")
+    plain = ref.wkv6_bwd_ref(*xs, dy, ds)
+    x = wkv6_bwd_excess(torch, got, plain)
+    res["share"] = max(res["share"], x)
+    res["err"] = max(res["err"], max(float((a.float() - b.float()).abs()
+                                           .max()) for a, b in zip(got,
+                                                                   plain)))
+    res["n"] += 1
+    check(x <= 1.0, f"{ctx}: {x:.3g} of the limit")
+    if fault:
+        faulty = dy.clone()
+        faulty[:, L // 2] = 0
+        f = wkv6_bwd_excess(torch, got, ref.wkv6_bwd_ref(*xs, faulty, ds))
+        res["fault"] = {"shape": (B, L, H, K), "dy_step_dropped": L // 2,
+                        "share": f}
+        check(f > 1.0, f"{ctx}: the plain backward without step {L // 2}'s "
+                       f"dy stays within the limit ({f:.3g})")
+
+
 def train_kernels(torch, seed: int) -> dict:
     """(a): the backward kernels against their plain version over
     BWD_SWEEP in f32 and bf16, at qwen3-14b's 4,096-token prefill in bf16
@@ -6218,15 +6355,27 @@ def train_kernels(torch, seed: int) -> dict:
     f32 (the one-pass kernel), and at the shapes (c)'s trainers give them
     (the embedder's in f32, one pass; the reduced qwen3's in bf16); the
     planted faults at 256 tokens, at 4,096 and at both trainers' shapes.
-    The backward's counters are zeroed before and read after: the tiled
-    f32 pair's launches here are its ``sweep_launches`` on the kernels
-    line, whose ``launches`` (the main path's) are 0 for it."""
+    The widths past Dq = Dv <= 128 over BWD_WIDTH_SWEEP in f32 and bf16
+    and BWD_WIDTH_SHORT in f32, each call twice and bit-identical, with a
+    planted fault at each width at 256 tokens; at minicpm3-4b's and
+    paligemma-3b's calls of (b) (BWD_MLA, BWD_PALIGEMMA) and at
+    deepseek-v2's 128 heads of (192, 128) at 1,024 tokens in bf16, each
+    with its fault. K5-bwd over WKV6_BWD_SWEEP in f32 and bf16, and at
+    WKV6_BWD_HELD with its fault. The backward's counters are zeroed
+    before and read after: the tiled f32 pair's launches and the
+    CUDA-core pair's DP 192 instance's (deepseek-v2's) here are their
+    ``sweep_launches`` on the kernels line, whose ``launches`` (the main
+    path's) are 0 for them."""
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.wkv6 import ops as wkv6_ops
     fa.flash_attention.launches_bwd = fa.flash_attention.launches_bwd_f32 \
-        = fa.flash_attention.launches_bwd_f32_one_pass = 0
-    res = {"err": {dt: {"dq": 0.0, "dkv": 0.0}
-                   for dt in ("float32", "bfloat16", "one_pass")},
-           "share": {"float32": 0.0, "bfloat16": 0.0, "one_pass": 0.0},
+        = fa.flash_attention.launches_bwd_f32_one_pass \
+        = fa.flash_attention.launches_bwd_dv \
+        = fa.flash_attention.launches_bwd_cc = 0
+    wkv6_ops.wkv6.launches_bwd = 0
+    res = {"err": {dt: {"dq": 0.0, "dkv": 0.0} for dt in BWD_KEYS},
+           "share": {dt: 0.0 for dt in BWD_KEYS},
+           "calls": {dt: 0 for dt in BWD_KEYS},
            "n": 0, "faults": []}
     for dtype in (torch.float32, torch.bfloat16):
         for i, (shape, kw) in enumerate(BWD_SWEEP):
@@ -6234,7 +6383,13 @@ def train_kernels(torch, seed: int) -> dict:
         bwd_compare(torch, res, dict(B=1, Lq=256, Lkv=256, H=8, Hkv=2,
                                      Dh=128), dtype, seed + 340, fault=True,
                     causal=True)
-    for i, (shape, kw) in enumerate(BWD_SHORT_SWEEP):
+        for i, (shape, kw) in enumerate(BWD_WIDTH_SWEEP):
+            bwd_compare(torch, res, shape, dtype, seed + 500 + i, **kw)
+        for i, (dq, dv) in enumerate(BWD_WIDTHS):
+            bwd_compare(torch, res, dict(B=1, Lq=256, Lkv=256, H=8, Hkv=2,
+                                         Dh=dq, Dv=dv), dtype,
+                        seed + 560 + i, fault=True, causal=True)
+    for i, (shape, kw) in enumerate(BWD_SHORT_SWEEP + BWD_WIDTH_SHORT):
         bwd_compare(torch, res, shape, torch.float32, seed + 350 + i, **kw)
     bwd_compare(torch, res, dict(BWD_TIMED, Lq=1024, Lkv=1024),
                 torch.float32, seed + 341, causal=True)
@@ -6244,14 +6399,34 @@ def train_kernels(torch, seed: int) -> dict:
                 fault=True, causal=False)
     bwd_compare(torch, res, BWD_REDUCED, torch.bfloat16, seed + 344,
                 fault=True, causal=True)
+    bwd_compare(torch, res, BWD_MLA, torch.bfloat16, seed + 345,
+                fault=True, causal=True)
+    bwd_compare(torch, res, BWD_PALIGEMMA, torch.bfloat16, seed + 346,
+                fault=True, **BWD_PALIGEMMA_MASK)
+    bwd_compare(torch, res, dict(BWD_DEEPSEEK, Lq=1024, Lkv=1024),
+                torch.bfloat16, seed + 347, fault=True, causal=True)
     one = fa.flash_attention.launches_bwd_f32_one_pass
     res["launches"] = {
         "one_pass": one,
         "tiled_f32": fa.flash_attention.launches_bwd_f32 - one,
         "tiled_bf16": fa.flash_attention.launches_bwd
-        - fa.flash_attention.launches_bwd_f32}
-    check(one >= len(BWD_SHORT_SWEEP) and res["launches"]["tiled_f32"] > 0,
-          f"[train] (a) backward launches by route {res['launches']}")
+        - fa.flash_attention.launches_bwd_f32,
+        "tiled_dv": fa.flash_attention.launches_bwd_dv,
+        "tiled_cc": fa.flash_attention.launches_bwd_cc}
+    check(one >= len(BWD_SHORT_SWEEP) and res["launches"]["tiled_f32"] > 0
+          and all(res["calls"][dt] > 0 for dt in BWD_KEYS),
+          f"[train] (a) backward launches by route {res['launches']}, calls "
+          f"by family {res['calls']}")
+    wkv = {"share": 0.0, "err": 0.0, "n": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (B, L, H, K) in enumerate(WKV6_BWD_SWEEP):
+            for cot in (False, True):
+                wkv6_bwd_compare(torch, wkv, B, L, H, K, dtype, cot,
+                                 seed + 600 + 2 * i + cot)
+    wkv6_bwd_compare(torch, wkv, *(WKV6_BWD_HELD[x] for x in "BLHK"),
+                     torch.bfloat16, True, seed + 620, fault=True)
+    wkv["launches"] = wkv6_ops.wkv6.launches_bwd
+    res["wkv6_bwd"] = wkv
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[train] (a) {res['n']} backward calls agree with the plain version "
@@ -6259,24 +6434,37 @@ def train_kernels(torch, seed: int) -> dict:
         f"tiled {res['share']['float32']:.3g}, one-pass "
         f"{res['share']['one_pass']:.3g}; bf16 2^-7 |plain| + 2^-5 x the "
         f"row's rms of the terms' root sum of squares, largest share "
-        f"{res['share']['bfloat16']:.3g}); max abs err dq, dk/dv: " + ", ".join(
+        f"{res['share']['bfloat16']:.3g}, Dv != Dq on the wgmma pair "
+        f"{res['share']['dv']:.3g}, the CUDA-core pair at DP 256 "
+        f"{res['share']['cc']:.3g} and 192 {res['share']['cc192']:.3g}); max "
+        f"abs err dq, dk/dv: " + ", ".join(
             f"{dt} {e['dq']:.3g}, {e['dkv']:.3g}"
-            for dt, e in res["err"].items()) + f"; launches by route "
-        f"{res['launches']}; one-pass repeats bit-identical; planted "
-        "faults " + "; ".join(
-            f"{f['dtype']} B {f['shape']['B']} L {f['shape']['Lq']} keys "
-            f"{f['keys'][0]}-{f['keys'][1]}: dq {f['dq_tile_dropped']:.3g}"
-            f", dk {f['dkv_tile_dropped']:.3g} of the limit"
-            for f in res["faults"]))
+            for dt, e in res["err"].items()) + f"; calls by family "
+        f"{res['calls']}; launches by route {res['launches']}; one-pass "
+        "and new-width repeats bit-identical; planted faults " + "; ".join(
+            f"{f['dtype']} B {f['shape']['B']} L {f['shape']['Lq']} D "
+            f"{f['shape']['Dh']}/{f['shape'].get('Dv', f['shape']['Dh'])} "
+            f"keys {f['keys'][0]}-{f['keys'][1]}: dq "
+            f"{f['dq_tile_dropped']:.3g}, dk {f['dkv_tile_dropped']:.3g} of "
+            f"the limit" for f in res["faults"]))
+    log(f"[train] (a) K5-bwd: {wkv['n']} calls agree with wkv6_bwd_ref "
+        f"(1e-5 of each gradient's largest |gradient|, bf16 outputs also "
+        f"2^-7 |plain|; largest share {wkv['share']:.3g}, max abs err "
+        f"{wkv['err']:.3g}), each twice and bit-identical, {wkv['launches']} "
+        f"launches; planted fault (dy of step "
+        f"{wkv['fault']['dy_step_dropped']} dropped at "
+        f"{wkv['fault']['shape']}): {wkv['fault']['share']:.3g} of the "
+        f"limit")
     return res
 
 
 def train_trace(torch, fn) -> dict:
     """``fn`` (one train step) under torch.profiler: the device's busy ms,
-    the backward kernels' ms (``fab::bwd``) and K4's forward (``fa::flash_``)
-    and their shares of it, the largest kernels. The profiled wall clock
-    carries the profiler's own host cost; the caller sets the idle share
-    against an untraced step's."""
+    the backward kernels' ms (``fab::bwd``, and K5-bwd's ``wkvb::``), K4's
+    forward (``fa::flash_``) and K5's (``wkv::wkv6``) and their shares of
+    it, the largest kernels. The profiled wall clock carries the
+    profiler's own host cost; the caller sets the idle share against an
+    untraced step's."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -6289,34 +6477,73 @@ def train_trace(torch, fn) -> dict:
     if not tr:
         return {"profiled_wall_ms": wall}
     by = tr.pop("by_name_ms")
-    bwd = {n.split("(")[0][:60]: t for n, t in by.items() if "fab::bwd" in n}
+    bwd = {n.split("(")[0][:60]: t for n, t in by.items()
+           if "fab::bwd" in n or "wkvb::" in n}
     k4 = sum(t for n, t in by.items() if "fa::flash_" in n)
-    return {"profiled_wall_ms": wall, **tr, "bwd_ms": bwd, "bwd_share": sum(bwd.values()) / tr["busy_ms"],
-            "k4_ms": k4, "k4_share": k4 / tr["busy_ms"]}
+    k5 = sum(t for n, t in by.items() if "wkv::wkv6" in n)
+    return {"profiled_wall_ms": wall, **tr, "bwd_ms": bwd,
+            "bwd_share": sum(bwd.values()) / tr["busy_ms"],
+            "k4_ms": k4, "k4_share": k4 / tr["busy_ms"],
+            "k5_ms": k5, "k5_share": k5 / tr["busy_ms"]}
 
 
-def train_qwen3(torch, np, seed: int) -> dict:
-    """(b): qwen3-14b at full width cut to TRAIN_LAYERS layers, remat on,
-    bf16 params: one step's loss, grad norm and gradients held against the
-    same step with every attention call plain; then TRAIN_STEPS steps of
-    ``make_train_step`` on one fixed B 1 x TRAIN_SEQ batch, the last one
-    traced."""
-    from repro_torch.configs.base import get_config
+def train_counts() -> dict:
+    """The training path's kernel counters: K4-bwd's launches (every one,
+    the f32 ones, the one-pass ones, the wgmma pair's Dv != Dq ones, the
+    CUDA-core bf16 pair's), K5's and K5-bwd's, and the plain attention
+    backward's calls."""
     from repro_torch.kernels.flash_attention import ops as fa, ref as fr
+    from repro_torch.kernels.wkv6 import ops as wkv6_ops
+    f = fa.flash_attention
+    return {"flash_attention_bwd": f.launches_bwd,
+            "flash_attention_bwd_f32": f.launches_bwd_f32,
+            "flash_attention_bwd_f32_one_pass": f.launches_bwd_f32_one_pass,
+            "flash_attention_bwd_dv": f.launches_bwd_dv,
+            "flash_attention_bwd_cc": f.launches_bwd_cc,
+            "wkv6": wkv6_ops.wkv6.launches,
+            "wkv6_bwd": wkv6_ops.wkv6.launches_bwd,
+            "plain_attention_bwd": fr.attention_bwd_ref.calls}
+
+
+def zero_train_counts() -> None:
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fr
+    from repro_torch.kernels.wkv6 import ops as wkv6_ops
+    f = fa.flash_attention
+    f.launches_bwd = f.launches_bwd_f32 = f.launches_bwd_f32_one_pass = \
+        f.launches_bwd_dv = f.launches_bwd_cc = 0
+    wkv6_ops.wkv6.launches = wkv6_ops.wkv6.launches_bwd = 0
+    fr.attention_bwd_ref.calls = 0
+
+
+def train_full(torch, np, arch: str, seed: int) -> dict:
+    """(b): ``arch`` at full width cut to TRAIN_LAYERS layers, remat on,
+    bf16 params: one step's loss, grad norm and gradients held against the
+    same step with every attention call and every WKV6 recurrence plain
+    (``swap_attention``), on B 1 x TRAIN_SEQ tokens (TRAIN_PLAIN_SEQ where
+    set: rwkv6's plain loop keeps every step's state for autograd); then
+    TRAIN_STEPS steps of ``make_train_step`` on one fixed B 1 x TRAIN_SEQ
+    batch, the last one traced. The kind's backward kernels must launch
+    in the steps (K4-bwd twice a layer a step, on the route its widths
+    take; K5-bwd once) and the plain attention backward never."""
+    from repro_torch.configs.base import get_config
     from repro_torch.launch import steps
     from repro_torch.launch.train import synth_batch
-    from repro_torch.models import layers as L, lm
+    from repro_torch.models import layers as L, lm, ssm as S
     from repro_torch.training import optimizer as opt
-    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS, remat=True)
+    cfg = get_config(arch).replace(n_layers=TRAIN_LAYERS, remat=True)
     params = lm.init_params(gen(torch, seed + 400), cfg, DEV)
     n_params = lm.n_params(params)
-    batch = synth_batch(cfg, np.random.default_rng(seed + 401), 1, TRAIN_SEQ,
-                        DEV)
+    rng = np.random.default_rng(seed + 401)
+    batch = synth_batch(cfg, rng, 1, TRAIN_SEQ, DEV)
+    held_seq = TRAIN_PLAIN_SEQ.get(arch, TRAIN_SEQ)
+    held_batch = batch if held_seq == TRAIN_SEQ else \
+        synth_batch(cfg, rng, 1, held_seq, DEV)
+
     def grads():
         return steps.value_and_grad(lambda p: steps.chunked_ce_loss(
-            p, cfg, batch, TRAIN_CE_CHUNK)[0], params)
+            p, cfg, held_batch, TRAIN_CE_CHUNK)[0], params)
     loss_k, g_k = grads()
-    with swap_attention(L):
+    with swap_attention(L, S=S):
         loss_p, g_p = grads()
     norm_k, norm_p = float(opt.global_norm(g_k)), float(opt.global_norm(g_p))
     worst, worst_leaf = 0.0, None
@@ -6329,31 +6556,31 @@ def train_qwen3(torch, np, seed: int) -> dict:
     del g_k, g_p
     held = {"loss": float(loss_k), "loss_plain": float(loss_p),
             "grad_norm": norm_k, "grad_norm_plain": norm_p,
-            "worst_leaf": worst_leaf, "worst_leaf_rel": worst}
-    log(f"[train] (b) {TRAIN_ARCH} x {TRAIN_LAYERS} layers ({n_params / 1e9:.2f}"
-        f" B params, bf16, remat), B 1 x {TRAIN_SEQ}: one step with the "
-        f"kernels against the plain attention: loss {held['loss']:.5f} vs "
-        f"{held['loss_plain']:.5f}, grad norm {norm_k:.5f} vs {norm_p:.5f}, "
-        f"largest leaf difference {worst:.4g} of its largest |gradient| "
-        f"({worst_leaf})")
+            "worst_leaf": worst_leaf, "worst_leaf_rel": worst,
+            "seq": held_seq}
+    log(f"[train] (b) {arch} x {TRAIN_LAYERS} layers ({n_params / 1e9:.2f} "
+        f"B params, bf16, remat), B 1 x {held_seq}: one step with the "
+        f"kernels against the plain attention and WKV6: loss "
+        f"{held['loss']:.5f} vs {held['loss_plain']:.5f}, grad norm "
+        f"{norm_k:.5f} vs {norm_p:.5f}, largest leaf difference {worst:.4g} "
+        f"of its largest |gradient| ({worst_leaf})")
     check(abs(held["loss"] - held["loss_plain"])
           <= TRAIN_LOSS_RTOL * abs(held["loss_plain"]),
-          f"[train] loss {held['loss']} vs plain {held['loss_plain']}")
+          f"[train] {arch} loss {held['loss']} vs plain {held['loss_plain']}")
     check(abs(norm_k - norm_p) <= TRAIN_GNORM_RTOL * norm_p,
-          f"[train] grad norm {norm_k} vs plain {norm_p}")
+          f"[train] {arch} grad norm {norm_k} vs plain {norm_p}")
     check(worst <= TRAIN_GRAD_RTOL,
-          f"[train] gradient leaf {worst_leaf} differs by {worst:.4g} of its "
-          f"largest |gradient|")
+          f"[train] {arch} gradient leaf {worst_leaf} differs by {worst:.4g} "
+          f"of its largest |gradient|")
+    del held_batch
     gc.collect()
     torch.cuda.empty_cache()
     state = opt.init_state(params)
+    lr = TRAIN_LR_FOR.get(arch, TRAIN_LR)
     step = steps.make_train_step(cfg, optc=opt.AdamWConfig(
-        lr=TRAIN_LR, warmup_steps=1, total_steps=30),
+        lr=lr, warmup_steps=1, total_steps=30),
         ce_chunk=TRAIN_CE_CHUNK)
-    zero_attention_launches()
-    fa.flash_attention.launches_bwd = fa.flash_attention.launches_bwd_f32 \
-        = fa.flash_attention.launches_bwd_f32_one_pass = 0
-    fr.attention_bwd_ref.calls = 0
+    before, att0 = train_counts(), attention_launches()
     torch.cuda.reset_peak_memory_stats()
     losses, host_ms, tr = [], [], {}
     for i in range(TRAIN_STEPS):
@@ -6372,44 +6599,59 @@ def train_qwen3(torch, np, seed: int) -> dict:
     step_ms = statistics.median(host_ms[:-1])
     if tr.get("busy_ms"):
         tr["idle_share"] = max(0.0, 1.0 - tr["busy_ms"] / step_ms)
-    bwd_launches = fa.flash_attention.launches_bwd
-    plain_bwd = fr.attention_bwd_ref.calls
-    att = attention_launches()
-    log(f"[train] (b) {TRAIN_STEPS} steps (lr {TRAIN_LR}, warmup 1): losses "
-        f"{[round(x, 5) for x in losses]}; host ms a step "
-        f"{[round(x, 1) for x in host_ms]} (the last profiled; median of "
-        f"the others {step_ms:.1f}); peak memory "
-        f"{peak:.1f} GiB; backward kernel launches {bwd_launches}, plain "
-        f"backward calls {plain_bwd}, K4 launches {att['flash_attention']}")
+    counts = {n: c - before[n] for n, c in train_counts().items()}
+    att = {n: c - att0[n] for n, c in attention_launches().items()}
+    log(f"[train] (b) {arch}: {TRAIN_STEPS} steps (lr {lr}, warmup "
+        f"1), B 1 x {TRAIN_SEQ}: losses {[round(x, 5) for x in losses]}; "
+        f"host ms a step {[round(x, 1) for x in host_ms]} (the last "
+        f"profiled; median of the others {step_ms:.1f}); peak memory "
+        f"{peak:.1f} GiB; kernel launches {counts}; forward attention "
+        f"launches {att}")
     if tr.get("busy_ms"):
-        log(f"[train] (b) traced step: wall {tr['profiled_wall_ms']:.1f} ms, "
-            f"device busy {tr['busy_ms']:.3f} ms (idle share "
-            f"{tr['idle_share']:.3f} of an untraced step's "
-            f"{step_ms:.1f} ms; {tr['device_events']} device events); "
-            f"backward kernels {tr['bwd_ms']} ({tr['bwd_share']:.4f} of busy)"
-            f", K4 forward {tr['k4_ms']:.3f} ms ({tr['k4_share']:.4f}); most "
-            "device time: " + "; ".join(f"{n} {t:.3f} ms"
-                                        for n, t in tr["top_kernels_ms"]))
+        log(f"[train] (b) {arch} traced step: wall "
+            f"{tr['profiled_wall_ms']:.1f} ms, device busy "
+            f"{tr['busy_ms']:.3f} ms (idle share {tr['idle_share']:.3f} of "
+            f"an untraced step's {step_ms:.1f} ms; {tr['device_events']} "
+            f"device events); backward kernels {tr['bwd_ms']} "
+            f"({tr['bwd_share']:.4f} of busy), K4 forward "
+            f"{tr['k4_ms']:.3f} ms ({tr['k4_share']:.4f}), K5 forward "
+            f"{tr['k5_ms']:.3f} ms ({tr['k5_share']:.4f}); most device "
+            "time: " + "; ".join(f"{n} {t:.3f} ms"
+                                 for n, t in tr["top_kernels_ms"]))
     else:
-        log("[train] (b) traced step: no device activity recorded (not "
-            "measured)")
-    check(all(np.isfinite(losses)), f"[train] non-finite loss {losses}")
-    check(losses[-1] < losses[0], f"[train] the loss did not fall: {losses}")
-    check(bwd_launches >= 2 * TRAIN_LAYERS * TRAIN_STEPS,
-          f"[train] {bwd_launches} backward kernel launches in "
-          f"{TRAIN_STEPS} steps of {TRAIN_LAYERS} layers")
-    check(plain_bwd == 0, f"[train] the plain backward ran {plain_bwd} "
-                          f"times on the card")
+        log(f"[train] (b) {arch} traced step: no device activity recorded "
+            "(not measured)")
+    check(all(np.isfinite(losses)), f"[train] {arch} non-finite loss "
+                                    f"{losses}")
+    check(losses[-1] < losses[0], f"[train] {arch}: the loss did not fall: "
+                                  f"{losses}")
+    n = TRAIN_LAYERS * TRAIN_STEPS
+    if cfg.ssm_kind == "rwkv6":
+        need = {"wkv6": n, "wkv6_bwd": n}
+    else:
+        route = {"mla": "flash_attention_bwd_dv"}.get(
+            cfg.attn_kind, "flash_attention_bwd_cc" if cfg.head_dim > 128
+            else "flash_attention_bwd")
+        need = {"flash_attention_bwd": 2 * n, route: 2 * n}
+    check(all(counts[k] >= v for k, v in need.items()),
+          f"[train] {arch}: kernel launches {counts} in {TRAIN_STEPS} steps "
+          f"of {TRAIN_LAYERS} layers, short of {need}")
+    check(counts["plain_attention_bwd"] == 0,
+          f"[train] {arch}: the plain attention backward ran "
+          f"{counts['plain_attention_bwd']} times on the card")
     del params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
     return {"n_params": n_params, "held": held, "losses": losses,
             "host_ms": host_ms, "step_ms": step_ms, "peak_gib": peak,
-            "trace": tr,
-            "bwd_launches": bwd_launches, "launches": att}
+            "trace": tr, "launches": counts, "attention_launches": att}
 
 
 def train_launchers(torch, np) -> dict:
-    """(c): ``launch.train`` on the reduced model, 10 steps on the card,
-    and ``launch.train_embedder`` at the full siso-embedder in f32 for
+    """(c): ``launch.train --reduced`` for each of REDUCED_ARCHS, 10 steps
+    on the card (the loss decreases; the kind's backward kernel launches,
+    the plain attention backward never), and ``launch.train_embedder`` at
+    the full siso-embedder in f32 for
     EMBED_TRAIN_STEPS steps (f32 K4 forward and the one-pass backward
     kernel every step: 12 calls a step, two encodes of 6 layers), each
     step timed on the host and the last one traced (busy ms, idle share
@@ -6417,12 +6659,23 @@ def train_launchers(torch, np) -> dict:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch import train, train_embedder
     t0 = time.perf_counter()
-    res = train.run(["--reduced", "--steps", "10", "--device", DEV])
-    losses = res["losses"]
-    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
-    check(last < first, f"[train] (c) launch.train's loss did not decrease: "
-                        f"{losses}")
+    reduced = {}
+    for arch in REDUCED_ARCHS:
+        before = train_counts()
+        losses = train.run(["--arch", arch, "--reduced", "--steps", "10",
+                            "--device", DEV])["losses"]
+        first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+        reduced[arch] = {"losses": losses, "launches": {
+            n: c - before[n] for n, c in train_counts().items()}}
+        check(last < first, f"[train] (c) launch.train --arch {arch} "
+                            f"--reduced: the loss did not decrease: {losses}")
+        bwd = "wkv6_bwd" if arch == "rwkv6-7b" else "flash_attention_bwd"
+        check(reduced[arch]["launches"][bwd] >= 10
+              and reduced[arch]["launches"]["plain_attention_bwd"] == 0,
+              f"[train] (c) {arch}: launches {reduced[arch]['launches']}")
     lm_s = time.perf_counter() - t0
+    losses = reduced[REDUCED_ARCHS[0]]["losses"]
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
     f32_0, one_0 = fa.flash_attention.launches_f32, \
         fa.flash_attention.launches_bwd_f32_one_pass
     host_ms, tr = [], {}
@@ -6449,6 +6702,10 @@ def train_launchers(torch, np) -> dict:
     step_ms = statistics.median(host_ms[1:-1])    # past the first step
     if tr.get("busy_ms"):
         tr["idle_share"] = max(0.0, 1.0 - tr["busy_ms"] / step_ms)
+    log("[train] (c) launch.train --reduced, 10 steps each: " + "; ".join(
+        f"{a} loss {np.mean(r['losses'][:3]):.3f} -> "
+        f"{np.mean(r['losses'][-3:]):.3f}, launches {r['launches']}"
+        for a, r in reduced.items()) + f" ({lm_s:.1f} s in all)")
     log(f"[train] (c) launch.train --reduced: loss {first:.3f} -> {last:.3f} "
         f"in 10 steps ({lm_s:.1f} s); train_embedder (d 768, f32, "
         f"{EMBED_TRAIN_STEPS} steps, {emb_s:.1f} s, {step_ms:.2f} ms a step "
@@ -6474,116 +6731,196 @@ def train_launchers(torch, np) -> dict:
           and one >= EMBED_TRAIN_STEPS * per_step,
           f"[train] (c) f32 K4 launches {f32}, one-pass backward launches "
           f"{one} in {EMBED_TRAIN_STEPS} steps")
-    return {"lm_losses": losses, "embedder": emb, "lm_s": lm_s,
+    return {"lm_losses": losses, "reduced": reduced, "embedder": emb,
+            "lm_s": lm_s,
             "embedder_s": emb_s, "embedder_host_ms": host_ms,
             "embedder_step_ms": step_ms, "embedder_trace": tr}
 
 
 def phase_train(torch, np, seed: int) -> dict:
-    """Phase 13: the backward kernels against their plain version (a),
-    qwen3-14b training at full width (b) and the two trainers (c). The
-    backward's launches and K4's on the main path are counted from (b)'s
-    steps to the end of (c): every f32 call there (the embedder's) takes
-    the one-pass kernel, so the tiled f32 pair has none."""
-    from repro_torch.kernels.flash_attention import ops as fa
+    """Phase 13: the backward kernels against their plain versions (a),
+    qwen3-14b, minicpm3-4b, paligemma-3b and rwkv6-7b training at full
+    width (b) and the trainers (c). The forward's and backward's launches
+    on the main path are counted from (b) to the end of (c): every f32
+    call there (the embedder's) takes the one-pass kernel, so the tiled
+    f32 pair has none, and no call takes the CUDA-core pair's DP 192
+    instance (deepseek-v2's widths, held in (a) only)."""
     t0 = time.perf_counter()
     kern = train_kernels(torch, seed)
-    qwen = train_qwen3(torch, np, seed)
-    gc.collect()
-    torch.cuda.empty_cache()
+    walls = {"a": time.perf_counter() - t0}
+    zero_attention_launches()
+    zero_train_counts()
+    runs = {}
+    for arch in (TRAIN_ARCH,) + TRAIN_KINDS:
+        t = time.perf_counter()
+        runs[arch] = train_full(torch, np, arch, seed)
+        walls[arch] = time.perf_counter() - t
+    t = time.perf_counter()
     launchers = train_launchers(torch, np)
+    walls["c"] = time.perf_counter() - t
     launches = attention_launches()
-    launches["flash_attention_bwd"] = fa.flash_attention.launches_bwd
-    launches["flash_attention_bwd_f32"] = fa.flash_attention.launches_bwd_f32
-    launches["flash_attention_bwd_f32_one_pass"] = \
-        fa.flash_attention.launches_bwd_f32_one_pass
+    launches.update(train_counts())
     check(launches["flash_attention_bwd_f32"]
           == launches["flash_attention_bwd_f32_one_pass"],
           f"[train] an f32 backward call of the main path took the tiled "
           f"pair: {launches}")
+    check(launches["plain_attention_bwd"] == 0,
+          f"[train] the plain attention backward ran on the main path: "
+          f"{launches}")
     wall = time.perf_counter() - t0
-    log(f"[train] phase done in {wall:.1f} s; launches {launches}")
-    return {"kernels": kern, "qwen3": qwen, "launchers": launchers,
-            "launches": launches, "wall_s": wall}
+    log(f"[train] phase done in {wall:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in walls.items()) + f"); launches "
+        f"{launches}")
+    return {"kernels": kern, "qwen3": runs[TRAIN_ARCH], "walls": walls,
+            "kinds": {a: runs[a] for a in TRAIN_KINDS},
+            "launchers": launchers, "launches": launches, "wall_s": wall}
+
+
+def mask_pairs(L: int, causal: bool, prefix_len: int = 0) -> int:
+    """The (query, key) pairs a square mask lets through: all, or the
+    causal half with the first ``prefix_len`` keys seen by every row."""
+    if not causal:
+        return L * L
+    p = min(prefix_len, L)
+    return L * (L + 1) // 2 + p * (p - 1) // 2
+
+
+def plain_bwd(torch, q, k, v, o, do, **kw):
+    """``attention_bwd_ref`` on the call's inputs; where its f32 score
+    tensors would pass 2^30 elements (deepseek-v2's 128 heads at 4,096
+    tokens), a block of kv heads at a time, 2^29 elements each: the same
+    function on the same inputs, its tensors cut to fit the card."""
+    from repro_torch.kernels.flash_attention import ref as fr
+    B, Lq, H, _ = q.shape
+    Lkv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    if B * H * Lq * Lkv <= 2 ** 30:
+        return fr.attention_bwd_ref(q, k, v, o, do, **kw)
+    step = max(1, min(Hkv, 2 ** 29 // (B * G * Lq * Lkv)))
+    out = [fr.attention_bwd_ref(q[:, :, h * G:(h + step) * G],
+                                k[:, :, h:h + step], v[:, :, h:h + step],
+                                o[:, :, h * G:(h + step) * G],
+                                do[:, :, h * G:(h + step) * G], **kw)
+           for h in range(0, Hkv, step)]
+    return tuple(torch.cat(x, dim=2) for x in zip(*out))
+
+
+def sdpa_bwd_call(torch, q, k, v, do, **kw):
+    """SDPA's backward (autograd of scaled_dot_product_attention, with
+    enable_gqa; the mask as is_causal, or as a boolean mask where a prefix
+    is set) on the call's inputs, a yardstick the port never calls; None
+    where SDPA does not take the call."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ref as fr
+    H, Hkv = q.shape[2], k.shape[2]
+    causal, prefix = kw.get("causal", True), kw.get("prefix_len", 0)
+    mask = None
+    if prefix:
+        mask = fr.attention_mask(q.shape[1], k.shape[1], causal=causal,
+                                 window=None, prefix_len=prefix, q_offset=0,
+                                 kv_valid_len=None, device=q.device)[0]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    try:
+        out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=H != Hkv)
+        dot = do.transpose(1, 2)
+        lib = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                          retain_graph=True)
+        lib()
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        log(f"[timing] SDPA does not take {tuple(q.shape)} x "
+            f"{tuple(v.shape)} {kw}: {str(e).splitlines()[0][:120]}")
+        return None
+    return lib
 
 
 def bwd_timing(torch, seed: int) -> dict:
     """The backward's kernels, each beside the plain backward, SDPA's
-    backward (autograd of scaled_dot_product_attention, is_causal,
-    enable_gqa; a yardstick the port never calls) and its bound, with its
-    device ms from a profiled ``flash_attention_bwd`` call, which must
-    launch the route's kernels and nothing else: the tiled pair at
-    qwen3-14b's 4,096-token causal prefill (BWD_TIMED, bf16) and at phase
-    13 (a)'s 1,024-token f32 call (the f32 instances), each kernel by CUDA
+    backward (``sdpa_bwd_call``; None where SDPA does not take the call)
+    and its bound, with its device ms from a profiled
+    ``flash_attention_bwd`` call, which must launch the route's kernels and
+    nothing else: the tiled pair at qwen3-14b's 4,096-token causal prefill
+    (BWD_TIMED, bf16) and at phase 13 (a)'s 1,024-token f32 call (the f32
+    instances), the wgmma pair at minicpm3-4b's (96, 64) (BWD_MLA), the
+    CUDA-core bf16 pair at paligemma-3b's 256 with its prefix
+    (BWD_PALIGEMMA) and at deepseek-v2's (192, 128) (BWD_DEEPSEEK; its
+    plain backward by ``plain_bwd``'s head blocks), each kernel by CUDA
     events, (a) then (b) on the same buffers; and the one-pass kernel at
     the embedder's call (BWD_EMBED, f32, bidirectional), by CUDA events
     around one launch. The bound of each pair kernel counts the products
-    its outputs need in a standard backward, over the causal half: (a) S,
-    dP and dQ, (b) S, dP, dV and dK (the extra Q K^T pass of (a) is not
-    credited), against the bytes of its inputs read and outputs written
-    once; the one-pass kernel's is the whole backward's: the five
-    products (S, dP, dV, dQ, dK) against q, k, v, o, do read and dq, dk,
-    dv written once. A profiled call that records no kernel fails."""
-    import torch.nn.functional as F
+    its outputs need in a standard backward, over the pairs the mask lets
+    through: (a) S (over Dq), dP (over Dv) and dQ (Dq), (b) S, dP, dV
+    (Dv) and dK (Dq) (the extra Q K^T pass of (a) is not credited), at
+    the peak of the inputs' type (bf16's tensor cores for the CUDA-core
+    pair too), against the bytes of its inputs read and outputs written
+    once; the one-pass kernel's is the whole backward's: the five products
+    against q, k, v, o, do read and dq, dk, dv written once. A profiled
+    call that records no kernel fails."""
     from repro_torch.kernels.flash_attention import kernel as K
-    from repro_torch.kernels.flash_attention import ops as fa, ref as fr
+    from repro_torch.kernels.flash_attention import ops as fa
     sys.path.insert(0, str(ROOT))
     from tools.trace_kernels import device_kernel_ms
     out = {}
-    for label, shape, dtype, causal in (
-            ("prefill", BWD_TIMED, torch.bfloat16, True),
+    for label, shape, dtype, kw in (
+            ("prefill", BWD_TIMED, torch.bfloat16, dict(causal=True)),
             ("tiled_f32", dict(BWD_TIMED, Lq=1024, Lkv=1024), torch.float32,
-             True),
-            ("embedder", BWD_EMBED, torch.float32, False)):
-        B, L, H, Hkv, Dh = (shape[x] for x in ("B", "Lq", "H", "Hkv", "Dh"))
-        route = fa.bwd_route(dtype, L, L, Dh)
-        q, k, v, o, do = bwd_inputs(torch, shape, dtype, seed + 39,
-                                    causal=causal)
+             dict(causal=True)),
+            ("embedder", BWD_EMBED, torch.float32, dict(causal=False)),
+            ("dv", BWD_MLA, torch.bfloat16, dict(causal=True)),
+            ("cc", BWD_PALIGEMMA, torch.bfloat16, BWD_PALIGEMMA_MASK),
+            ("cc192", BWD_DEEPSEEK, torch.bfloat16, dict(causal=True))):
+        B, L, H, Hkv, Dq = (shape[x] for x in ("B", "Lq", "H", "Hkv", "Dh"))
+        Dv = shape.get("Dv", Dq)
+        route = fa.bwd_route(dtype, L, L, Dq, Dv)
+        q, k, v, o, do = bwd_inputs(torch, shape, dtype, seed + 39, **kw)
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
         lse, dsum = (None, None) if route == "one_pass" else \
-            K.bwd_scratch(q)
+            K.bwd_scratch(q, route)
         esz = q.element_size()
-        pairs = L * (L + 1) // 2 if causal else L * L
-        prod = 2.0 * B * H * Dh * pairs
+        pairs = mask_pairs(L, kw["causal"], kw.get("prefix_len", 0))
+        pq, pv = 2.0 * B * H * Dq * pairs, 2.0 * B * H * Dv * pairs
         peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else \
             H100_FP32_FLOPS
-        qb, kb = esz * B * L * H * Dh, esz * B * L * Hkv * Dh
+        qb, ob = esz * B * L * H * Dq, esz * B * L * H * Dv
+        kb, vb = esz * B * L * Hkv * Dq, esz * B * L * Hkv * Dv
         stats = 2 * 4 * B * H * L
-        whole = att_bound(3 * qb + 2 * kb + qb + 2 * kb, 5 * prod, peak)
-        bounds = {"dq": att_bound(3 * qb + 2 * kb + qb + stats, 3 * prod,
-                                  peak),
-                  "dkv": att_bound(2 * qb + 2 * kb + 2 * kb + stats,
-                                   4 * prod, peak),
+        whole = att_bound(2 * (qb + ob + kb + vb), 3 * pq + 2 * pv, peak)
+        bounds = {"dq": att_bound(2 * qb + 2 * ob + kb + vb + stats,
+                                  2 * pq + pv, peak),
+                  "dkv": att_bound(qb + ob + 2 * (kb + vb) + stats,
+                                   2 * pq + 2 * pv, peak),
                   "one_pass": whole}
-        plain_ms = cuda_ms(torch, lambda: fr.attention_bwd_ref(
-            q, k, v, o, do, causal=causal), iters=3, warmup=1)
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                      for x in (q, k, v))
-        sdpa_out = F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=H != Hkv)
-        dot = do.transpose(1, 2)
-        lib = lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
-                                          retain_graph=True)
-        lib_ms = cuda_ms(torch, lib)
-        lib_dev = library_device_ms(torch, lib)
+        plain_ms = cuda_ms(torch, lambda: plain_bwd(torch, q, k, v, o, do,
+                                                    **kw), iters=3, warmup=1)
+        lib = sdpa_bwd_call(torch, q, k, v, do, **kw)
+        lib_ms = None if lib is None else cuda_ms(torch, lib)
+        lib_dev = {"library_device_ms": None} if lib is None else \
+            library_device_ms(torch, lib)
+        # the CUDA-core pair's calls take 30-200 ms: fewer of them
+        iters = 5 if route == "tiled_cc" else 20
         own, records = device_kernel_ms(torch, lambda: fa.flash_attention_bwd(
-            q, k, v, o, do, causal=causal), iters=10)
+            q, k, v, o, do, **kw), iters=iters // 2)
         names = sorted(n.split("(")[0].split("<")[0].replace("void ", "")
                        for n in own)
         parts = (("one_pass", 2),) if route == "one_pass" else \
             (("dq", 0), ("dkv", 1))
-        check(names == sorted(f"fab::bwd_{name}_{_kind(dtype)}"
+        kind = "cc_bf16" if route == "tiled_cc" else _kind(dtype)
+        check(names == sorted(f"fab::bwd_{name}_{kind}"
                               for name, _ in parts),
               f"[timing] flash_attention_bwd {label}: one call launches "
               f"{list(own)}, not the {route} route's kernels alone")
         for name, part in parts:
             call = (lambda part=part: K.launch_bwd(
-                q, k, v, o, do, dq, dk, dv, lse, dsum, causal=causal,
-                window=0, prefix_len=0, q_offset=0, part=part))
+                q, k, v, o, do, dq, dk, dv, lse, dsum, causal=kw["causal"],
+                window=0, prefix_len=kw.get("prefix_len", 0), q_offset=0,
+                part=part))
             dev = [t for n, t in own.items() if f"bwd_{name}_" in n]
             b_ms, b_by = bounds[name]
-            rec = {"shape": shape, "dtype": _dtype_name(dtype),
-                   "causal": causal, "ms": cuda_ms(torch, call),
+            rec = {"shape": shape, "dtype": _dtype_name(dtype), **kw,
+                   "route": route, "ms": cuda_ms(torch, call, iters=iters),
                    "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": b_ms, "bound_by": b_by,
                    "device_ms": dev[0],
@@ -6592,45 +6929,104 @@ def bwd_timing(torch, seed: int) -> dict:
                    "device_records": list(records.values())}
             key = {"prefill": f"flash_attention_bwd_{name}",
                    "tiled_f32": f"flash_attention_bwd_{name}_f32",
-                   "embedder": "flash_attention_bwd_f32"}[label]
+                   "embedder": "flash_attention_bwd_f32"}.get(
+                label, f"flash_attention_bwd_{name}_{label}")
             out[key] = rec
             what = {"dq": "(a) dq", "dkv": "(b) dkv",
                     "one_pass": "one-pass"}[name]
+            lib_txt = "none" if lib_ms is None else (
+                f"{lib_ms:.4f} ms ({rec['library_device_ms']} ms on the "
+                f"device)")
             log(f"[timing] flash_attention_bwd {what} {label} {shape} "
-                f"{_dtype_name(dtype)}: kernel "
+                f"{_dtype_name(dtype)} {kw} ({route}): kernel "
                 f"{rec['ms']:.4f} ms (CUDA events), {rec['device_ms']:.4f} ms "
                 f"on the device ({b_ms / rec['device_ms']:.3f} of its bound)"
                 f", plain backward {plain_ms:.4f} ms, SDPA's backward "
-                f"{lib_ms:.4f} ms ({rec['library_device_ms']} ms on the "
-                f"device), bound {b_ms:.4f} ms ({b_by}; the whole "
+                f"{lib_txt}, bound {b_ms:.4f} ms ({b_by}; the whole "
                 f"backward's {whole[0]:.4f} ms, {whole[1]})")
-        del q, k, v, o, do, dq, dk, dv, qt, kt, vt, sdpa_out, dot
+        del q, k, v, o, do, dq, dk, dv, lib
         gc.collect()
         torch.cuda.empty_cache()
+    out["wkv6_bwd"] = wkv6_bwd_timing(torch, seed)
     return out
 
 
+def wkv6_bwd_timing(torch, seed: int) -> dict:
+    """K5-bwd at rwkv6-7b's training shape (WKV6_BWD_TIMED, bf16 r/k/v, a
+    zero state, the cotangent of y alone): the kernel (CUDA events and
+    torch.profiler), its plain reverse loop, and the bound: the fp32
+    flops the function needs a (token, head), 14 K V (the state P_t once
+    more, 3 K V; per entry FMAs for dr, dk, dw and dv, and a product and
+    an FMA for G), against r, k, v, dr, dk, dv (bf16), w, dy, dw (f32), u,
+    du and the state and its cotangent (f32) moved once. No single
+    PyTorch call computes this function: library_ms is None."""
+    from repro_torch.kernels.wkv6 import ops, ref
+    B, L, H, K = (WKV6_BWD_TIMED[x] for x in "BLHK")
+    xs, dy, _ = wkv6_bwd_inputs(torch, B, L, H, K, torch.bfloat16, False,
+                                seed + 37)
+    flops = 14.0 * B * L * H * K * K
+    nbytes = (6 * 2 + 3 * 4) * B * L * H * K + 2 * 4 * H * K \
+        + 2 * 4 * B * H * K * K
+    b_ms, b_by = att_bound(nbytes, flops, H100_FP32_FLOPS)
+    call = lambda: ops.wkv6_bwd(*xs, dy)
+    rec = {"shape": WKV6_BWD_TIMED, "dtype": "bfloat16",
+           "ms": cuda_ms(torch, call),
+           "plain_ms": cuda_ms(torch, lambda: ref.wkv6_bwd_ref(*xs, dy),
+                               iters=1, warmup=1),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    sys.path.insert(0, str(ROOT))
+    from tools.trace_kernels import device_kernel_ms
+    own, _ = device_kernel_ms(torch, call, iters=10)
+    kern = {n: t for n, t in own.items() if "wkv6_bwd" in n}
+    check(len(kern) == 1, f"[timing] wkv6_bwd: one call launches "
+                          f"{list(own)}")
+    rec["device_ms"] = sum(kern.values())
+    rec["device_kernels"] = {n.split("(")[0][:60]: t for n, t in own.items()}
+    log(f"[timing] wkv6_bwd {WKV6_BWD_TIMED} bf16: kernel {rec['ms']:.4f} ms "
+        f"(CUDA events), {rec['device_ms']:.4f} ms on the device "
+        f"({b_ms / rec['device_ms']:.3f} of the bound), plain "
+        f"{rec['plain_ms']:.2f} ms, library none, bound {b_ms:.4f} ms "
+        f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); device "
+        f"kernels {rec['device_kernels']}")
+    return rec
+
+
 # what the bf16 backward kernels (csrc/flash_attention_bwd.cu) ask for at
-# launch besides ptxas's figures: the consumer warpgroups' registers after
-# setmaxnreg (the producer's drop to 24), and the dynamic shared memory of
-# Tiles<DP>: 1 KB of alignment, four resident 64-row tiles (Q and dO, or K
-# and V) and three ring stages (a K and a V tile; or a Q and a dO tile with
-# 1 KB for LSE and D)
+# launch besides ptxas's figures: the wgmma pair's consumer warpgroups'
+# registers after setmaxnreg (the producer's drop to 24), and its dynamic
+# shared memory of Tiles<DQP, DVP>: 1 KB of alignment, four resident 64-row
+# tiles (Q and dO, or K and V, each at its own width) and three ring
+# stages (a K tile and a V slot as wide as the wider of K and V; or a Q and
+# a dO tile with 1 KB for LSE and D); the CUDA-core pair's CC<DP, 32>
 BWD_CONSUMER_REGS = 240
 
 
-def bwd_bf16_smem(kernel: str, dp: int) -> int:
-    tile = dp // 64 * 64 * 128
-    stage = 2 * tile if kernel == "bwd_dq_bf16" else 2 * tile + 1024
-    return 1024 + 4 * tile + 3 * stage
+def bwd_bf16_smem(kernel: str, dq: int, dv: int) -> int:
+    tq, tv = dq // 64 * 64 * 128, dv // 64 * 64 * 128
+    if kernel in ("bwd_dq_cc_bf16", "bwd_dkv_cc_bf16"):
+        ld, ls = dq + 1, 33
+        return 4 * (4 * 32 * ld + 32 * ls + 32
+                    + (32 * ls + 32 if kernel == "bwd_dkv_cc_bf16" else 0))
+    stage = tq + max(tq, tv) if kernel == "bwd_dq_bf16" else tq + tv + 1024
+    return 1024 + 2 * tq + 2 * tv + 3 * stage
+
+
+# the bf16 instances the C dispatch has: the wgmma pair at every (DQP,
+# DVP) of 64 and 128, the CUDA-core pair at DP 192 and 256
+BWD_BF16_INSTANCES = tuple(
+    f"{k}<{dq}, {dv}>" for k in ("bwd_dq_bf16", "bwd_dkv_bf16")
+    for dq in (64, 128) for dv in (64, 128)) + tuple(
+    f"{k}<{d}, {d}>" for k in ("bwd_dq_cc_bf16", "bwd_dkv_cc_bf16")
+    for d in (192, 256))
 
 
 def bwd_bf16_ptxas(report) -> dict:
     """Registers, shared memory and spills of each bf16 backward kernel
-    instance from the ptxas report of its library's build, logged; fails
-    if one spills, if ptxas serialised its wgmma (a warning that names the
-    function: about a fifth of dQ's time when it happened), or if one is
-    missing from a report (a build of this run)."""
+    instance (BWD_BF16_INSTANCES) from the ptxas report of its library's
+    build, logged; fails if one spills, if ptxas serialised a wgmma
+    instance's products (a warning that names the function: about a fifth
+    of dQ's time when it happened), or if one is missing from a report (a
+    build of this run)."""
     import re
     if report is None:
         log("[build] flash_attention_bwd was built before this run: no "
@@ -6640,25 +7036,60 @@ def bwd_bf16_ptxas(report) -> dict:
     from tools.trace_kernels import ptxas_functions
     out = {}
     for fn, r in ptxas_functions(report).items():
-        m = re.match(r"_ZN3fab\d+(bwd_\w+_bf16)ILi(\d+)E", fn)
+        m = re.match(r"_ZN3fab\d+(bwd_(?:dq|dkv)_(?:cc_)?bf16)ILi(\d+)E"
+                     r"(?:Li(\d+)E)?", fn)
         if m:
-            out.setdefault(f"{m.group(1)}<{m.group(2)}>", {
-                "kernel": m.group(1), "dp": int(m.group(2))}).update(r)
-    check(len(out) == 4, f"[build] the ptxas report names {sorted(out)}, "
-          f"not the four bf16 backward kernels")
+            dq = int(m.group(2))
+            dv = int(m.group(3) or dq)
+            out.setdefault(f"{m.group(1)}<{dq}, {dv}>", {
+                "kernel": m.group(1), "dq": dq, "dv": dv}).update(r)
+    check(sorted(out) == sorted(BWD_BF16_INSTANCES),
+          f"[build] the ptxas report names {sorted(out)}, not the bf16 "
+          f"backward kernels {sorted(BWD_BF16_INSTANCES)}")
     for name, r in sorted(out.items()):
-        r["dynamic_smem"] = bwd_bf16_smem(r["kernel"], r["dp"])
-        r["consumer_registers"] = BWD_CONSUMER_REGS
+        wgmma = "_cc_" not in r["kernel"]
+        r["dynamic_smem"] = bwd_bf16_smem(r["kernel"], r["dq"], r["dv"])
+        if wgmma:
+            r["consumer_registers"] = BWD_CONSUMER_REGS
         log(f"[build] fab::{name}: {r.get('registers')} registers a thread "
-            f"at launch ({BWD_CONSUMER_REGS} in the consumer warpgroups by "
-            f"setmaxnreg), {r.get('static_smem')} B static + "
-            f"{r['dynamic_smem']:,} B dynamic shared memory, "
-            f"{r.get('spill_stores')} B spill stores, "
+            f"at launch" + (f" ({BWD_CONSUMER_REGS} in the consumer "
+                            f"warpgroups by setmaxnreg)" if wgmma else "")
+            + f", {r.get('static_smem')} B static + {r['dynamic_smem']:,} B "
+            f"dynamic shared memory, {r.get('spill_stores')} B spill stores, "
             f"{r.get('spill_loads')} B spill loads, {r.get('stack')} B stack")
         check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
               f"[build] fab::{name} spills: {r}")
         check("wgmma_serialized" not in r,
               f"[build] fab::{name}: {r.get('wgmma_serialized')}")
+    return out
+
+
+def wkv6_bwd_ptxas(report) -> dict:
+    """Registers and spills of K5-bwd's instances (``wkv6_bwd_pair`` for K
+    > 32, a cluster of two CTAs, and ``wkv6_bwd_one``, each in f32 and
+    bf16) from the ptxas report of its library's build, logged; fails if
+    one spills or is missing from a report of this run."""
+    import re
+    if report is None:
+        log("[build] wkv6_bwd was built before this run: no ptxas report to "
+            "read")
+        return {}
+    sys.path.insert(0, str(ROOT))
+    from tools.trace_kernels import ptxas_functions
+    out = {}
+    for fn, r in ptxas_functions(report).items():
+        m = re.match(r"_ZN4wkvb\d+(wkv6_bwd_\w+?)I(f|13__nv_bfloat16)E", fn)
+        if m:
+            out[f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}>"] \
+                = r
+    check(len(out) == 4, f"[build] the ptxas report names {sorted(out)}, "
+                         f"not K5-bwd's four instances")
+    for name, r in sorted(out.items()):
+        log(f"[build] wkvb::{name}: {r.get('registers')} registers a thread, "
+            f"{r.get('spill_stores')} B spill stores, {r.get('spill_loads')} "
+            f"B spill loads, {r.get('stack')} B stack")
+        check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+              f"[build] wkvb::{name} spills: {r}")
     return out
 
 
@@ -6887,6 +7318,7 @@ def main() -> int:
         reports.get("flash_attention_bwd"))
     detail["bwd_one_pass_ptxas"] = bwd_one_pass_ptxas(
         reports.get("flash_attention_bwd"))
+    detail["wkv6_bwd_ptxas"] = wkv6_bwd_ptxas(reports.get("wkv6_bwd"))
     detail["fwd_bf16_ptxas"] = fwd_bf16_ptxas(reports.get("flash_attention"))
     for name in _build.KERNELS:
         _build.load(name)
@@ -7016,7 +7448,13 @@ def main() -> int:
         "flash_attention_bwd_dkv": "src/repro/models/layers.py:157",
         "flash_attention_bwd_dq_f32": "src/repro/models/layers.py:157",
         "flash_attention_bwd_dkv_f32": "src/repro/models/layers.py:157",
-        "flash_attention_bwd_f32": "src/repro/models/layers.py:157"}
+        "flash_attention_bwd_f32": "src/repro/models/layers.py:157",
+        **{f"flash_attention_bwd_{part}_{mode}":
+           "src/repro/models/layers.py:157"
+           for part in ("dq", "dkv") for mode in ("dv", "cc", "cc192")},
+        # no Pallas kernel and no VJP: the reference differentiates its jnp
+        # step scan
+        "wkv6_bwd": "src/repro/models/ssm.py:93"}
     sources = {
         "cosine_topk": "src/repro_torch/csrc/cosine_topk.cu",
         "cosine_top1_local": "src/repro_torch/csrc/cosine_topk.cu",
@@ -7036,7 +7474,11 @@ def main() -> int:
         "flash_attention_bwd_dkv_f32":
             "src/repro_torch/csrc/flash_attention_bwd.cu",
         "flash_attention_bwd_f32":
-            "src/repro_torch/csrc/flash_attention_bwd.cu"}
+            "src/repro_torch/csrc/flash_attention_bwd.cu",
+        **{f"flash_attention_bwd_{part}_{mode}":
+           "src/repro_torch/csrc/flash_attention_bwd.cu"
+           for part in ("dq", "dkv") for mode in ("dv", "cc", "cc192")},
+        "wkv6_bwd": "src/repro_torch/csrc/wkv6_bwd.cu"}
     # launches on the main path: K1/K2 in their served stream, the slo
     # phase's runs, the planes phase (its killed child included), the
     # replicas phase (its children and the launcher's workers included)
@@ -7068,26 +7510,41 @@ def main() -> int:
             + ssm["launches"][name] + train["launches"][name]
         check(launches[name] > 0, f"[kernels] {name} was never launched on "
                                   f"the main path")
-    # WKV6: phase 12's rwkv6 engine run
-    launches["wkv6"] = ssm["launches"]["wkv6"]
+    # WKV6: phase 12's rwkv6 engine run and phase 13's rwkv6 training
+    launches["wkv6"] = ssm["launches"]["wkv6"] + train["launches"]["wkv6"]
     check(launches["wkv6"] > 0, "[kernels] wkv6 was never launched on the "
                                 "main path")
     # the backward: phase 13's training steps and trainers; bf16 calls (in
-    # (b)'s steps and launch.train) launch the tiled pair, (a) and (b), the
-    # f32 ones (the embedder's) the one-pass kernel. No call of the main
-    # path reaches the tiled f32 pair (phase_train checks it), so its
-    # launches are 0 and exempt from the check; phase 13 (a)'s sweep
-    # launches are its ``sweep_launches``
-    n_f32 = train["launches"]["flash_attention_bwd_f32"]
-    n_bf16 = train["launches"]["flash_attention_bwd"] - n_f32
-    tiled_f32 = ("flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32")
+    # (b)'s steps and launch.train) launch a pair, (a) and (b): the wgmma
+    # pair at Dv = Dq (qwen3, the reduced models), the wgmma pair at Dv !=
+    # Dq (``_dv``: minicpm3-4b, the reduced MLA models), the CUDA-core pair
+    # at DP 256 (``_cc``: paligemma-3b); the f32 ones (the embedder's) the
+    # one-pass kernel; K5-bwd rwkv6-7b's. No call of the main path reaches
+    # the tiled f32 pair (phase_train checks it) or the CUDA-core pair's
+    # DP 192 instance (``_cc192``: deepseek-v2's widths, whose training
+    # step does not fit the card), so their launches are 0 and exempt from
+    # the check; phase 13 (a)'s sweep launches are their
+    # ``sweep_launches``
+    tl = train["launches"]
+    n_bf16 = tl["flash_attention_bwd"] - tl["flash_attention_bwd_f32"] \
+        - tl["flash_attention_bwd_dv"] - tl["flash_attention_bwd_cc"]
+    sweep_only = ("flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32",
+                  "flash_attention_bwd_dq_cc192",
+                  "flash_attention_bwd_dkv_cc192")
     for part in ("dq", "dkv"):
         launches[f"flash_attention_bwd_{part}"] = n_bf16 // 2
+        launches[f"flash_attention_bwd_{part}_dv"] = \
+            tl["flash_attention_bwd_dv"] // 2
+        launches[f"flash_attention_bwd_{part}_cc"] = \
+            tl["flash_attention_bwd_cc"] // 2
         launches[f"flash_attention_bwd_{part}_f32"] = 0
+        launches[f"flash_attention_bwd_{part}_cc192"] = 0
     launches["flash_attention_bwd_f32"] = \
-        train["launches"]["flash_attention_bwd_f32_one_pass"]
-    for name in [n for n in launches if n.startswith("flash_attention_bwd")
-                 and n not in tiled_f32]:
+        tl["flash_attention_bwd_f32_one_pass"]
+    launches["wkv6_bwd"] = tl["wkv6_bwd"]
+    for name in [n for n in launches if (n.startswith("flash_attention_bwd")
+                                         or n == "wkv6_bwd")
+                 and n not in sweep_only]:
         check(launches[name] > 0, f"[kernels] {name} was never launched on "
                                   f"the main path")
     # timed at the main path's shapes: K1/K2 at the served batch; K4 at the
@@ -7109,18 +7566,28 @@ def main() -> int:
     # prefill, the f32 pair at phase 13 (a)'s 1,024 tokens, the one-pass
     # kernel at the embedder's call
     timed["wkv6"] = timing["wkv6"]
+    # the new backward modes at their main-path widths, B 1 x 4,096:
+    # minicpm3-4b's (96, 64) (``_dv``), paligemma-3b's 256 with its prefix
+    # (``_cc``), deepseek-v2's (192, 128) (``_cc192``); K5-bwd at rwkv6-7b's
+    # 64 heads of 64
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32",
-                 "flash_attention_bwd_f32"):
+                 "flash_attention_bwd_f32", "wkv6_bwd",
+                 *(f"flash_attention_bwd_{part}_{mode}"
+                   for mode in ("dv", "cc", "cc192")
+                   for part in ("dq", "dkv"))):
         timed[name] = timing[name]
     one_err = train["kernels"]["err"]["one_pass"]
     all_err = {**err, **att_err, "wkv6": ssm["wkv6_max_abs_err"],
                **{f"flash_attention_bwd_{part}{sfx}":
                   train["kernels"]["err"][dt][part]
                   for part in ("dq", "dkv")
-                  for sfx, dt in (("", "bfloat16"), ("_f32", "float32"))},
+                  for sfx, dt in (("", "bfloat16"), ("_f32", "float32"),
+                                  ("_dv", "dv"), ("_cc", "cc"),
+                                  ("_cc192", "cc192"))},
                "flash_attention_bwd_f32": max(one_err["dq"],
-                                              one_err["dkv"])}
+                                              one_err["dkv"]),
+               "wkv6_bwd": train["kernels"]["wkv6_bwd"]["err"]}
     kernels = []
     for name, rec in timed.items():
         kernels.append({
@@ -7132,9 +7599,12 @@ def main() -> int:
         for key in ("device_ms", "library_device_ms"):   # from the profiler
             if key in rec:
                 kernels[-1][key] = rec[key]
-        if name in tiled_f32:
+        if name in sweep_only[:2]:
             kernels[-1]["sweep_launches"] = \
                 train["kernels"]["launches"]["tiled_f32"] // 2
+        elif name in sweep_only:
+            kernels[-1]["sweep_launches"] = \
+                train["kernels"]["calls"]["cc192"]
     detail["total_s"] = time.perf_counter() - t_start
     log(f"[done] every phase passed in {detail['total_s']:.1f} s")
     out_dir = ROOT / args.out

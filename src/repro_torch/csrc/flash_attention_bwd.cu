@@ -11,15 +11,18 @@
 // ref.py attention_bwd_ref and, through it, against jax.grad of the
 // reference layer. The mask is ref.py attention_mask's, element by element.
 //
-// Contract. Recurrence (all sums in f32): LSE = m + log(l) over the
-// masked, scaled scores S = Q K^T / sqrt(Dh); D = rowsum(do . o); P =
-// exp(S - LSE); dV = P^T do; dP = do V^T; dS = P . (dP - D); dQ = dS K /
-// sqrt(Dh); dK = dS^T Q / sqrt(Dh). A fully masked row has P = 0
-// everywhere, never NaN. Every kernel here is deterministic (no atomics;
-// every output element is written by one CTA after a fixed-order loop, so
-// repeats are bit-identical). An f32 call with Lq <= 64 and Lkv <= 64 takes
-// one fused kernel (below); every other call takes two, launched one after
-// the other on the caller's stream:
+// Contract. q and k have head dim Dq, v (and o, do) Dv: every pair the
+// forward takes (MLA's (96, 64), (192, 128), (24, 16)) and Dq = Dv up to
+// 256. Recurrence (all sums in f32): LSE = m + log(l) over the masked,
+// scaled scores S = Q K^T / sqrt(Dq) (a sum over Dq); D = rowsum(do . o)
+// (over Dv); P = exp(S - LSE); dV = P^T do; dP = do V^T (over Dv); dS = P .
+// (dP - D); dQ = dS K / sqrt(Dq); dK = dS^T Q / sqrt(Dq). A fully masked
+// row has P = 0 everywhere, never NaN. Every kernel here is deterministic
+// (no atomics; every output element is written by one CTA after a
+// fixed-order loop, so repeats are bit-identical). An f32 call with Lq and
+// Lkv <= 64 (<= 32 where a head dim is over 128) takes one fused kernel
+// (below); every other call takes two, launched one after the other on the
+// caller's stream:
 //   (a) dq: a CTA owns a q tile of one head. It computes D from do and o,
 //       runs pass 1 over the kv tiles for the row max and sum, writes LSE
 //       and D to a (B, H, Lq) scratch, and runs pass 2 over the kv tiles
@@ -32,25 +35,43 @@
 // pass 1; an LSE stored by the forward, with its output bit-identical, is
 // later work. Tiles that the mask hides entirely (causal, window) are
 // skipped by an exact test on the tile's corner positions (tile_live).
-// Takes f32 and bf16, Dq = Dv up to 128, padded to 64 or 128 (zeros past
-// Dh), so any Dh <= 128 (zamba2's 112, launch.train --reduced's 16); the
-// wrapper raises on Dv != Dq, Dh > 128 and a kv_valid_len. Tensors are
-// contiguous (B, L, H, Dh); scale_dim is the head dim of the scale (the
-// wrapper gives bf16 rows of a head dim that is not a multiple of 8 as a
-// zero-padded copy, with the scale of the unpadded one).
+// Takes f32 and bf16; each head dim is padded in shared memory (zeros
+// past it), so any Dq, Dv <= 256; the wrapper raises on a kv_valid_len
+// (no training path passes one). Routes (ops.bwd_route mirrors the
+// dispatch at the end of this file): bf16 with Dq, Dv <= 128 takes the
+// wgmma pair at DQP, DVP of 64 or 128 each (qwen3's 128/128, minicpm3's
+// (96, 64) at <128, 64>, the reduced MLA's (24, 16) at <64, 64>); bf16
+// past 128 (paligemma's 256, deepseek-v2's (192, 128)) the CUDA-core pair
+// on bf16 operands (below); f32 the CUDA-core pair or the one-pass
+// kernel. Tensors are contiguous (B, L, H, D); scale_dim is the head dim
+// of the scale (the wrapper gives bf16 rows of a head dim that is not a
+// multiple of 8 as a zero-padded copy, each tensor to its own width, with
+// the scale of the unpadded Dq).
 //
-// Bound on an H100: the five products of a standard backward (S, dP, dV,
-// dQ, dK) at qwen3-14b's L = 4,096, H = 40/8, Dh = 128, causal half, are
-// 430 GFLOP, 0.435 ms at 989 TFLOP/s bf16; q, k, v, o, do, dq, dk and dv
-// once are 0.15 ms of bytes: bound by operations, on the tensor cores.
+// Bound on an H100: the five products of a standard backward (S and dQ
+// and dK over Dq, dP and dV over Dv) at qwen3-14b's L = 4,096, H = 40/8,
+// Dh = 128, causal half, are 430 GFLOP, 0.435 ms at 989 TFLOP/s bf16; q,
+// k, v, o, do, dq, dk and dv once are 0.15 ms of bytes: bound by
+// operations, on the tensor cores. The same holds at every width here
+// (paligemma's 256 with its prefix: 0.174 ms of products over 8 query
+// heads; deepseek-v2's 128 heads of (192, 128): 1.81 ms).
 //
-// bf16 (the training path's): warp-specialised for Hopper, as K4's
-// forward. A CTA has three warpgroups: one producer thread keeps TMA loads
-// in flight (4-D tensor maps with 128-byte swizzle, boxes of 64 columns x
-// 64 rows, zero fill past Dh and past the sequence) into a three-stage
-// ring on full/empty mbarriers, and two consumer warpgroups of 64 rows
-// each run every product on wgmma; setmaxnreg moves registers from the
-// producer (24) to the consumers (240).
+// bf16 (the training path's), Dq and Dv <= 128: warp-specialised for
+// Hopper, as K4's forward. A CTA has three warpgroups: one producer thread
+// keeps TMA loads in flight (4-D tensor maps with 128-byte swizzle, boxes
+// of 64 columns x 64 rows, zero fill past each tensor's head dim and past
+// the sequence) into a three-stage ring on full/empty mbarriers, and two
+// consumer warpgroups of 64 rows each run every product on wgmma;
+// setmaxnreg moves registers from the producer (24) to the consumers
+// (240). Q and K tiles are DQP wide, V and dO tiles DVP wide, each product
+// runs at its own width (S over DQP, dP over DVP, dQ and dK with DQP
+// columns, dV with DVP), and (a)'s ring slot that holds V in pass 2 and a
+// second K tile in pass 1 is the wider of the two: at (96, 64) 148,480
+// bytes of shared memory against the 128/128 instance's 164,864, and a
+// consumer of (b) holds dK and dV at 64 + 32 f32 registers against 64 +
+// 64. Past 128 the template does not fit: at DP 256 its tiles would need
+// 328,704 bytes (the card gives a block 232,448) and (b)'s accumulators
+// about 320 registers a thread against setmaxnreg's 240.
 //   (a) takes 128 q rows. Q and dO load once; pass 1 streams two 64-key K
 //       tiles a stage (the stage's V slot holds the second), pass 2 one K
 //       and one V tile. S = Q K^T and dP = dO V^T have both operands in
@@ -104,9 +125,21 @@
 //   independent FFMA chains), with K and V swizzled by 16-byte chunk. The
 //   bound of the embedder's call is its bytes: q, k, v, o, do read and dq,
 //   dk, dv written once, 28.3 MB, 0.0085 ms at 3.35 TB/s (its five
-//   products, 0.21 GFLOP, take 0.0032 ms at 67 TFLOP/s).
-//   Tiled (longer calls): one CTA of 256 threads a 64-row tile, (a) then
-//   (b) as above, with the LSE and D scratch.
+//   products, 0.21 GFLOP, take 0.0032 ms at 67 TFLOP/s). At Dv != Dq the
+//   tiles take the larger head dim padded to 64 or 128, zeros past each
+//   tensor's own; past 128 the 32 x 32 tile alone, at 256 (140 KB of
+//   shared memory, 255 registers a thread: one CTA an SM).
+//   Tiled (longer calls): one CTA of 256 threads a BT-row tile, (a) then
+//   (b) as above, with the LSE and D scratch (the CUDA-core pair below).
+//
+// The CUDA-core pair (f32 past the one-pass band, and bf16 with a head dim
+// over 128): each tile of Q, K, V and dO is held as f32 in shared memory
+// at DP columns, the larger head dim padded to 64, 128, 192 or 256 (bf16
+// operands widened as they load), zeros past each tensor's own; rows of 64
+// up to DP 128 and of 32 past it (137 KB of shared memory at DP 256);
+// every product is register-tiled FMAs from shared memory, one read per
+// FMA at 32-row tiles, so the pair runs far below the tensor cores' bound:
+// a port of what is right, whose speed is later work (PERF.md).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,18 +151,18 @@ namespace fab {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BQ = 64;    // f32: query rows of a (a) CTA; (b)'s q tile
-constexpr int BK = 64;    // f32: keys of a (b) CTA; (a)'s kv tile
-
 struct Args {
   const void *q, *k, *v, *o, *dout;
   void *dq, *dk, *dv;
-  float *lse, *dsum;      // (B, H, Lq) scratch: (a) writes, (b) reads; in
-                          // bf16 Lq rounded up to 64, LSE in log2 units
-  int B, Lq, Lkv, H, Hkv, D, G;
+  float *lse, *dsum;      // (B, H, ls) scratch: (a) writes, (b) reads; on
+                          // the wgmma pair ls is Lq rounded up to 64 and
+                          // LSE is in log2 units
+  int B, Lq, Lkv, H, Hkv;
+  int D, Dv;              // q/k/dq/dk head dim; v/o/do/dv head dim
+  int G, ls;
   int causal, window, prefix_len, q_offset;
-  int vec;                // 16-byte loads: aligned bases, D a multiple
-  float scale;
+  int vec;                // 16-byte loads: aligned bases, D and Dv multiples
+  float scale;            // 1 / sqrt(the unpadded Dq)
 };
 
 // ref.py attention_mask: query row i (position q_offset + i) may attend to
@@ -160,8 +193,14 @@ __device__ __forceinline__ bool tile_live(const Args& a, int q0, int q1,
 
 template <typename T> __device__ __forceinline__ float f32(T x);
 template <> __device__ __forceinline__ float f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ float f32<bf16>(bf16 x) {
+  return __bfloat162float(x);
+}
 template <typename S> __device__ __forceinline__ S as(float x);
 template <> __device__ __forceinline__ float as<float>(float x) { return x; }
+template <> __device__ __forceinline__ bf16 as<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 // rows [row0, row0 + rows) of a (row stride ``stride``) into dst (row
 // stride LD), columns [0, DP); zeros past D and past nvalid rows
@@ -189,14 +228,15 @@ __device__ void load_rows(S* dst, const T* src, size_t stride, int row0,
   }
 }
 
-// D = rowsum(do . o) for rows [q0, q0 + BQ) of one head, TPR threads a row
+// D = rowsum(do . o) over Dv for rows [q0, q0 + 256 / TPR) of one head,
+// TPR threads a row
 template <typename T, int TPR>
 __device__ void row_dsum(const Args& a, const T* o, const T* dout,
                          size_t stride, int q0, float* Ds, float* dsum_row) {
   const int r = threadIdx.x / TPR, part = threadIdx.x % TPR, gr = q0 + r;
   float acc = 0.f;
   if (gr < a.Lq)
-    for (int c = part; c < a.D; c += TPR)
+    for (int c = part; c < a.Dv; c += TPR)
       acc += f32(dout[gr * stride + c]) * f32(o[gr * stride + c]);
 #pragma unroll
   for (int off = 1; off < TPR; off <<= 1)
@@ -208,77 +248,91 @@ __device__ void row_dsum(const Args& a, const T* o, const T* dout,
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA-core FMAs; 256 threads as 16 x 16, a thread owns rows ty + 16 i
-// and columns tx + 16 j of every 64 x 64 tile (shared rows padded by one
-// float, so the 16 columns a half-warp reads fall in 16 banks)
+// The CUDA-core pair (f32 calls past the one-pass band, and bf16 calls with
+// a head dim over 128): fp32 FMAs, no tensor cores. 256 threads as 16 x 16,
+// a thread owns rows ty + 16 i and columns tx + 16 j of every BT x BT tile
+// (shared rows padded by one float, so the 16 columns a half-warp reads
+// fall in 16 banks). Q, K, V and dO are held as f32 at DP columns, DP the
+// larger head dim padded to 64, 128, 192 or 256, zeros past each tensor's
+// own (D for q/k, Dv for v/o/do), so S runs over Dq and dP over Dv; BT is
+// 64 up to DP 128 and 32 past it (137 KB of shared memory at DP 256).
 // ---------------------------------------------------------------------------
 
-template <int DP>
-__device__ __forceinline__ void scores_f32(const float* A, const float* Bm,
-                                           float s[4][4]) {
+template <int DP, int RI>
+__device__ __forceinline__ void scores_cc(const float* A, const float* Bm,
+                                          float (&s)[RI][RI]) {
   constexpr int LD = DP + 1;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int j = 0; j < RI; ++j) s[i][j] = 0.f;
   for (int d = 0; d < DP; ++d) {
-    float av[4], bv[4];
+    float av[RI], bv[RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = A[(ty + 16 * i) * LD + d];
+    for (int i = 0; i < RI; ++i) av[i] = A[(ty + 16 * i) * LD + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = Bm[(tx + 16 * j) * LD + d];
+    for (int j = 0; j < RI; ++j) bv[j] = Bm[(tx + 16 * j) * LD + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+      for (int j = 0; j < RI; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(256) bwd_dq_f32(Args a) {
-  constexpr int LD = DP + 1, LS = BK + 1, NJ = DP / 16;
-  extern __shared__ float sm[];
+template <int DP, int BT>
+struct CC {
+  static constexpr int LD = DP + 1, LS = BT + 1;
+  static constexpr int DQ_SMEM = (4 * BT * LD + BT * LS + BT) * 4;
+  static constexpr int DKV_SMEM = (4 * BT * LD + 2 * BT * LS + 2 * BT) * 4;
+};
+
+// (a): dq, and LSE and D into the scratch, for a BT-row q tile of one head
+template <typename T, int DP, int BT>
+__device__ __forceinline__ void dq_cc(const Args& a, float* sm) {
+  constexpr int LD = CC<DP, BT>::LD, LS = CC<DP, BT>::LS;
+  constexpr int RI = BT / 16, NJ = DP / 16;
   float* Qs = sm;
-  float* dOs = Qs + BQ * LD;
-  float* Ks = dOs + BQ * LD;
-  float* Vs = Ks + BK * LD;
-  float* dSs = Vs + BK * LD;
-  float* Ds = dSs + BQ * LS;
+  float* dOs = Qs + BT * LD;
+  float* Ks = dOs + BT * LD;
+  float* Vs = Ks + BT * LD;
+  float* dSs = Vs + BT * LD;
+  float* Ds = dSs + BT * LS;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / a.G, q0 = blockIdx.x * BQ;
-  const size_t qs = (size_t)a.H * a.D, ks = (size_t)a.Hkv * a.D;
-  const size_t qoff = ((size_t)b * a.Lq * a.H + h) * a.D;
-  const size_t koff = ((size_t)b * a.Lkv * a.Hkv + hk) * a.D;
-  const float* q = static_cast<const float*>(a.q) + qoff;
-  const float* o = static_cast<const float*>(a.o) + qoff;
-  const float* dout = static_cast<const float*>(a.dout) + qoff;
-  const float* k = static_cast<const float*>(a.k) + koff;
-  const float* v = static_cast<const float*>(a.v) + koff;
-  float* lse_row = a.lse + ((size_t)b * a.H + h) * a.Lq;
-  load_rows<float, float, DP, LD>(Qs, q, qs, q0, a.Lq, BQ, a.D, a.vec);
-  load_rows<float, float, DP, LD>(dOs, dout, qs, q0, a.Lq, BQ, a.D, a.vec);
-  row_dsum<float, 4>(a, o, dout, qs, q0, Ds,
-                     a.dsum + ((size_t)b * a.H + h) * a.Lq);
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / a.G, q0 = blockIdx.x * BT;
+  const size_t qs = (size_t)a.H * a.D, os = (size_t)a.H * a.Dv;
+  const size_t ks = (size_t)a.Hkv * a.D, vs = (size_t)a.Hkv * a.Dv;
+  const size_t row = (size_t)b * a.Lq * a.H + h;
+  const size_t krow = (size_t)b * a.Lkv * a.Hkv + hk;
+  const T* q = static_cast<const T*>(a.q) + row * a.D;
+  const T* o = static_cast<const T*>(a.o) + row * a.Dv;
+  const T* dout = static_cast<const T*>(a.dout) + row * a.Dv;
+  const T* k = static_cast<const T*>(a.k) + krow * a.D;
+  const T* v = static_cast<const T*>(a.v) + krow * a.Dv;
+  float* lse_row = a.lse + ((size_t)b * a.H + h) * a.ls;
+  load_rows<T, float, DP, LD>(Qs, q, qs, q0, a.Lq, BT, a.D, a.vec);
+  load_rows<T, float, DP, LD>(dOs, dout, os, q0, a.Lq, BT, a.Dv, a.vec);
+  row_dsum<T, 256 / BT>(a, o, dout, os, q0, Ds,
+                        a.dsum + ((size_t)b * a.H + h) * a.ls);
   __syncthreads();
-  const int nkt = (a.Lkv + BK - 1) / BK;
+  const int nkt = (a.Lkv + BT - 1) / BT;
   // pass 1: the row max m and sum l, online over the kv tiles
-  float m[4], l[4];
+  float m[RI], l[RI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
+  for (int i = 0; i < RI; ++i) m[i] = -INFINITY, l[i] = 0.f;
   for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * BK;
-    if (!tile_live(a, q0, q0 + BQ, k0, k0 + BK)) continue;
+    const int k0 = kt * BT;
+    if (!tile_live(a, q0, q0 + BT, k0, k0 + BT)) continue;
     __syncthreads();
-    load_rows<float, float, DP, LD>(Ks, k, ks, k0, a.Lkv, BK, a.D, a.vec);
+    load_rows<T, float, DP, LD>(Ks, k, ks, k0, a.Lkv, BT, a.D, a.vec);
     __syncthreads();
-    float s[4][4];
-    scores_f32<DP>(Qs, Ks, s);
+    float s[RI][RI];
+    scores_cc<DP, RI>(Qs, Ks, s);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < RI; ++i) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         s[i][j] = allowed(a, q0 + ty + 16 * i, k0 + tx + 16 * j)
                       ? s[i][j] * a.scale : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
@@ -289,7 +343,7 @@ __global__ void __launch_bounds__(256) bwd_dq_f32(Args a) {
       const float mn = fmaxf(m[i], mx), base = mn == -INFINITY ? 0.f : mn;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - base);
+      for (int j = 0; j < RI; ++j) sum += expf(s[i][j] - base);
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
@@ -297,117 +351,119 @@ __global__ void __launch_bounds__(256) bwd_dq_f32(Args a) {
       m[i] = mn;
     }
   }
-  float lse[4];
+  float lse[RI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     lse[i] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
     const int gr = q0 + ty + 16 * i;
     if (tx == 0 && gr < a.Lq) lse_row[gr] = lse[i];
   }
   // pass 2: dQ += dS K
-  float acc[4][NJ];
+  float acc[RI][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * BK;
-    if (!tile_live(a, q0, q0 + BQ, k0, k0 + BK)) continue;
+    const int k0 = kt * BT;
+    if (!tile_live(a, q0, q0 + BT, k0, k0 + BT)) continue;
     __syncthreads();
-    load_rows<float, float, DP, LD>(Ks, k, ks, k0, a.Lkv, BK, a.D, a.vec);
-    load_rows<float, float, DP, LD>(Vs, v, ks, k0, a.Lkv, BK, a.D, a.vec);
+    load_rows<T, float, DP, LD>(Ks, k, ks, k0, a.Lkv, BT, a.D, a.vec);
+    load_rows<T, float, DP, LD>(Vs, v, vs, k0, a.Lkv, BT, a.Dv, a.vec);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    scores_f32<DP>(Qs, Ks, s);
-    scores_f32<DP>(dOs, Vs, dp);
+    float s[RI][RI], dp[RI][RI];
+    scores_cc<DP, RI>(Qs, Ks, s);
+    scores_cc<DP, RI>(dOs, Vs, dp);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
         const float p = allowed(a, q0 + r, k0 + c)
                             ? expf(s[i][j] * a.scale - lse[i]) : 0.f;
         dSs[r * LS + c] = p * (dp[i][j] - Ds[r]);
       }
     __syncthreads();
-    for (int kk = 0; kk < BK; ++kk) {
+    for (int kk = 0; kk < BT; ++kk) {
       float kv[NJ];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) kv[j] = Ks[kk * LD + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         const float d = dSs[(ty + 16 * i) * LS + kk];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(d, kv[j], acc[i][j]);
       }
     }
   }
-  float* dq = static_cast<float*>(a.dq) + qoff;
+  T* dq = static_cast<T*>(a.dq) + row * a.D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int gr = q0 + ty + 16 * i;
     if (gr >= a.Lq) continue;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 16 * j;
-      if (c < a.D) dq[gr * qs + c] = acc[i][j] * a.scale;
+      if (c < a.D) dq[gr * qs + c] = as<T>(acc[i][j] * a.scale);
     }
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(256) bwd_dkv_f32(Args a) {
-  constexpr int LD = DP + 1, LS = BK + 1, NJ = DP / 16;
-  extern __shared__ float sm[];
+// (b): dk and dv for a BT-key tile of one kv head, over its G query heads
+template <typename T, int DP, int BT>
+__device__ __forceinline__ void dkv_cc(const Args& a, float* sm) {
+  constexpr int LD = CC<DP, BT>::LD, LS = CC<DP, BT>::LS;
+  constexpr int RI = BT / 16, NJ = DP / 16;
   float* Ks = sm;
-  float* Vs = Ks + BK * LD;
-  float* Qs = Vs + BK * LD;
-  float* dOs = Qs + BQ * LD;
-  float* Ps = dOs + BQ * LD;
-  float* dSs = Ps + BQ * LS;
-  float* Ls = dSs + BQ * LS;
-  float* Ds = Ls + BQ;
+  float* Vs = Ks + BT * LD;
+  float* Qs = Vs + BT * LD;
+  float* dOs = Qs + BT * LD;
+  float* Ps = dOs + BT * LD;
+  float* dSs = Ps + BT * LS;
+  float* Ls = dSs + BT * LS;
+  float* Ds = Ls + BT;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int hk = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BK;
-  const size_t qs = (size_t)a.H * a.D, ks = (size_t)a.Hkv * a.D;
-  const size_t koff = ((size_t)b * a.Lkv * a.Hkv + hk) * a.D;
-  load_rows<float, float, DP, LD>(Ks, static_cast<const float*>(a.k) + koff,
-                                  ks, k0, a.Lkv, BK, a.D, a.vec);
-  load_rows<float, float, DP, LD>(Vs, static_cast<const float*>(a.v) + koff,
-                                  ks, k0, a.Lkv, BK, a.D, a.vec);
-  float dk[4][NJ], dv[4][NJ];
+  const int hk = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BT;
+  const size_t qs = (size_t)a.H * a.D, os = (size_t)a.H * a.Dv;
+  const size_t ks = (size_t)a.Hkv * a.D, vs = (size_t)a.Hkv * a.Dv;
+  const size_t krow = (size_t)b * a.Lkv * a.Hkv + hk;
+  load_rows<T, float, DP, LD>(Ks, static_cast<const T*>(a.k) + krow * a.D,
+                              ks, k0, a.Lkv, BT, a.D, a.vec);
+  load_rows<T, float, DP, LD>(Vs, static_cast<const T*>(a.v) + krow * a.Dv,
+                              vs, k0, a.Lkv, BT, a.Dv, a.vec);
+  float dk[RI][NJ], dv[RI][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
-  const int nqt = (a.Lq + BQ - 1) / BQ;
+  const int nqt = (a.Lq + BT - 1) / BT;
   for (int g = 0; g < a.G; ++g) {
     const int h = hk * a.G + g;
-    const size_t qoff = ((size_t)b * a.Lq * a.H + h) * a.D;
-    const float* q = static_cast<const float*>(a.q) + qoff;
-    const float* dout = static_cast<const float*>(a.dout) + qoff;
-    const float* lse_row = a.lse + ((size_t)b * a.H + h) * a.Lq;
-    const float* dsum_row = a.dsum + ((size_t)b * a.H + h) * a.Lq;
+    const size_t row = (size_t)b * a.Lq * a.H + h;
+    const T* q = static_cast<const T*>(a.q) + row * a.D;
+    const T* dout = static_cast<const T*>(a.dout) + row * a.Dv;
+    const float* lse_row = a.lse + ((size_t)b * a.H + h) * a.ls;
+    const float* dsum_row = a.dsum + ((size_t)b * a.H + h) * a.ls;
     for (int qt = 0; qt < nqt; ++qt) {
-      const int q0 = qt * BQ;
-      if (!tile_live(a, q0, q0 + BQ, k0, k0 + BK)) continue;
+      const int q0 = qt * BT;
+      if (!tile_live(a, q0, q0 + BT, k0, k0 + BT)) continue;
       __syncthreads();
-      load_rows<float, float, DP, LD>(Qs, q, qs, q0, a.Lq, BQ, a.D, a.vec);
-      load_rows<float, float, DP, LD>(dOs, dout, qs, q0, a.Lq, BQ, a.D,
-                                      a.vec);
-      if (threadIdx.x < BQ) {
+      load_rows<T, float, DP, LD>(Qs, q, qs, q0, a.Lq, BT, a.D, a.vec);
+      load_rows<T, float, DP, LD>(dOs, dout, os, q0, a.Lq, BT, a.Dv, a.vec);
+      if (threadIdx.x < BT) {
         const int gr = q0 + threadIdx.x;
         Ls[threadIdx.x] = gr < a.Lq ? lse_row[gr] : 0.f;
         Ds[threadIdx.x] = gr < a.Lq ? dsum_row[gr] : 0.f;
       }
       __syncthreads();
-      float s[4][4], dp[4][4];
-      scores_f32<DP>(Qs, Ks, s);    // s[i][j]: query ty + 16 i, key tx + 16 j
-      scores_f32<DP>(dOs, Vs, dp);
+      float s[RI][RI], dp[RI][RI];
+      // s[i][j]: query ty + 16 i, key tx + 16 j
+      scores_cc<DP, RI>(Qs, Ks, s);
+      scores_cc<DP, RI>(dOs, Vs, dp);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           const int r = ty + 16 * i, c = tx + 16 * j;
           const float p = allowed(a, q0 + r, k0 + c)
                               ? expf(s[i][j] * a.scale - Ls[r]) : 0.f;
@@ -415,7 +471,7 @@ __global__ void __launch_bounds__(256) bwd_dkv_f32(Args a) {
           dSs[r * LS + c] = p * (dp[i][j] - Ds[r]);
         }
       __syncthreads();
-      for (int qq = 0; qq < BQ; ++qq) {
+      for (int qq = 0; qq < BT; ++qq) {
         float ov[NJ], qv[NJ];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
@@ -423,7 +479,7 @@ __global__ void __launch_bounds__(256) bwd_dkv_f32(Args a) {
           qv[j] = Qs[qq * LD + tx + 16 * j];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RI; ++i) {
           const float pv = Ps[qq * LS + ty + 16 * i];
           const float sv = dSs[qq * LS + ty + 16 * i];
 #pragma unroll
@@ -435,33 +491,56 @@ __global__ void __launch_bounds__(256) bwd_dkv_f32(Args a) {
       }
     }
   }
-  float* dkp = static_cast<float*>(a.dk) + koff;
-  float* dvp = static_cast<float*>(a.dv) + koff;
+  T* dkp = static_cast<T*>(a.dk) + krow * a.D;
+  T* dvp = static_cast<T*>(a.dv) + krow * a.Dv;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int gr = k0 + ty + 16 * i;
     if (gr >= a.Lkv) continue;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 16 * j;
-      if (c < a.D) {
-        dkp[gr * ks + c] = dk[i][j] * a.scale;
-        dvp[gr * ks + c] = dv[i][j];
-      }
+      if (c < a.D) dkp[gr * ks + c] = as<T>(dk[i][j] * a.scale);
+      if (c < a.Dv) dvp[gr * vs + c] = as<T>(dv[i][j]);
     }
   }
+}
+
+// f32 (the tiled pair)
+template <int DP, int BT>
+__global__ void __launch_bounds__(256) bwd_dq_f32(Args a) {
+  extern __shared__ float sm[];
+  dq_cc<float, DP, BT>(a, sm);
+}
+template <int DP, int BT>
+__global__ void __launch_bounds__(256) bwd_dkv_f32(Args a) {
+  extern __shared__ float sm[];
+  dkv_cc<float, DP, BT>(a, sm);
+}
+// bf16 past the wgmma pair's head dims (paligemma's 256, deepseek-v2's
+// (192, 128)): the same pair on bf16 operands widened to f32
+template <int DP>
+__global__ void __launch_bounds__(256) bwd_dq_cc_bf16(Args a) {
+  extern __shared__ float sm[];
+  dq_cc<bf16, DP, 32>(a, sm);
+}
+template <int DP>
+__global__ void __launch_bounds__(256) bwd_dkv_cc_bf16(Args a) {
+  extern __shared__ float sm[];
+  dkv_cc<bf16, DP, 32>(a, sm);
 }
 
 // ---------------------------------------------------------------------------
 // bf16: warp-specialised TMA + wgmma. A CTA has three warpgroups: one
 // producer thread keeps TMA loads in flight into a ring of STAGES stages on
 // full/empty mbarriers, and two consumer warpgroups of 64 rows each run the
-// products on wgmma. Every shared tile is 64 rows of the head dim padded to
-// DP (64 or 128) columns, stored as DP / 64 slabs of 64 rows x 128 bytes
-// with 128-byte swizzle; TMA zero-fills the columns past Dh and the rows
-// past the sequence. In an m64nN accumulator, thread (warp w, lane 4 g +
-// t) of a warpgroup holds rows 16 w + g and 16 w + g + 8, columns 8 j + 2
-// t and 8 j + 2 t + 1: element 4 j + e is row (e >> 1), column (e & 1).
+// products on wgmma. Every shared tile is 64 rows of a head dim padded to
+// 64 or 128 columns (DQP for q and k, DVP for v and do), stored as 1 or 2
+// slabs of 64 rows x 128 bytes with 128-byte swizzle; TMA zero-fills the
+// columns past each tensor's head dim and the rows past the sequence. In
+// an m64nN accumulator, thread (warp w, lane 4 g + t) of a warpgroup holds
+// rows 16 w + g and 16 w + g + 8, columns 8 j + 2 t and 8 j + 2 t + 1:
+// element 4 j + e is row (e >> 1), column (e & 1).
 // ---------------------------------------------------------------------------
 
 constexpr int WG = 128;                 // threads in a warpgroup
@@ -471,17 +550,21 @@ constexpr int STAGES = 3;               // ring depth
 constexpr int SLAB = 64;                // bf16 columns of one 128-byte row
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int DP>
+template <int DQP, int DVP>
 struct Tiles {
-  static constexpr int SLABS = DP / SLAB;
-  static constexpr int TILE = SLABS * TR * 128;         // one 64-row tile
-  // (a): Q and dO (a tile per consumer each), then K and V a stage
-  static constexpr int DQ_SMEM = 1024 + 4 * TILE + STAGES * 2 * TILE;
+  static constexpr int SQ = DQP / SLAB, SV = DVP / SLAB;   // slabs a row
+  static constexpr int TQ = SQ * TR * 128;      // one 64-row tile of q or k
+  static constexpr int TV = SV * TR * 128;      // one of v or do
+  // (a): Q and dO (a tile per consumer each), then a stage of K and V; pass
+  // 1 loads a second K tile into the V slot, which is the wider of the two
+  static constexpr int VSLOT = TQ > TV ? TQ : TV;
+  static constexpr int DQ_SMEM =
+      1024 + 2 * TQ + 2 * TV + STAGES * (TQ + VSLOT);
   // (b): K and V (a tile per consumer each), then a stage of Q, dO, and
   // 64 LSE and 64 D, padded to keep the next stage 1,024-byte aligned
   static constexpr int STAT = TR * 4;
-  static constexpr int DKV_STAGE = 2 * TILE + 1024;
-  static constexpr int DKV_SMEM = 1024 + 4 * TILE + STAGES * DKV_STAGE;
+  static constexpr int DKV_STAGE = TQ + TV + 1024;
+  static constexpr int DKV_SMEM = 1024 + 2 * TQ + 2 * TV + STAGES * DKV_STAGE;
 };
 
 // whether the mask allows every (row, key) of rows [q0, q1) x keys [k0,
@@ -774,19 +857,19 @@ __device__ __forceinline__ int next_kv(const Args& a, int row0, int n,
   return n;
 }
 
-template <int DP>
+template <int DQP, int DVP>
 __global__ void __launch_bounds__(HTHREADS, 1)
 bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
             const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv,
             const __grid_constant__ CUtensorMap tdo, const Args a) {
-  using T = Tiles<DP>;
+  using T = Tiles<DQP, DVP>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
   unsigned char* Qs = align1024(smem_raw);
-  unsigned char* dOs = Qs + 2 * T::TILE;
-  unsigned char* Ks = dOs + 2 * T::TILE;          // [STAGES] K tiles
-  unsigned char* Vs = Ks + STAGES * T::TILE;      // [STAGES] V tiles
+  unsigned char* dOs = Qs + 2 * T::TQ;
+  unsigned char* Ks = dOs + 2 * T::TV;            // [STAGES] K tiles
+  unsigned char* Vs = Ks + STAGES * T::TQ;        // [STAGES] V slots
   uint64_t* qd_full = bars;
   uint64_t* full = bars + 1;
   uint64_t* empty = full + STAGES;
@@ -811,14 +894,15 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
     // ---- producer: Q and dO once; K (pass 1), then K and V (pass 2) ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(qd_full, 4 * T::TILE);
-      for (int half = 0; half < 2; ++half)
-        for (int sl = 0; sl < T::SLABS; ++sl) {
-          const int off = half * T::TILE + sl * TR * 128;
-          tma_load(Qs + off, &tq, qd_full, sl * SLAB, h, row0 + TR * half, b);
-          tma_load(dOs + off, &tdo, qd_full, sl * SLAB, h, row0 + TR * half,
-                   b);
-        }
+      mbar_expect_tx(qd_full, 2 * T::TQ + 2 * T::TV);
+      for (int half = 0; half < 2; ++half) {
+        for (int sl = 0; sl < T::SQ; ++sl)
+          tma_load(Qs + half * T::TQ + sl * TR * 128, &tq, qd_full,
+                   sl * SLAB, h, row0 + TR * half, b);
+        for (int sl = 0; sl < T::SV; ++sl)
+          tma_load(dOs + half * T::TV + sl * TR * 128, &tdo, qd_full,
+                   sl * SLAB, h, row0 + TR * half, b);
+      }
       int it = 0;
       for (int pass = 0; pass < 2; ++pass)
         for (int n = next_kv(a, row0, 0, nkt); n < nkt;) {
@@ -827,14 +911,15 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
           const uint32_t ph = (it / STAGES) & 1;
           ++it;
           mbar_wait(empty + st, ph ^ 1);
-          mbar_expect_tx(full + st, (n2 < nkt ? 2 : 1) * T::TILE);
-          for (int sl = 0; sl < T::SLABS; ++sl) {
-            const int off = st * T::TILE + sl * TR * 128;
-            tma_load(Ks + off, &tk, full + st, sl * SLAB, hk, n * TR, b);
-            if (n2 < nkt)
-              tma_load(Vs + off, pass ? &tv : &tk, full + st, sl * SLAB, hk,
-                       n2 * TR, b);
-          }
+          mbar_expect_tx(full + st, T::TQ + (n2 >= nkt ? 0
+                                             : pass ? T::TV : T::TQ));
+          for (int sl = 0; sl < T::SQ; ++sl)
+            tma_load(Ks + st * T::TQ + sl * TR * 128, &tk, full + st,
+                     sl * SLAB, hk, n * TR, b);
+          if (n2 < nkt)
+            for (int sl = 0; sl < (pass ? T::SV : T::SQ); ++sl)
+              tma_load(Vs + st * T::VSLOT + sl * TR * 128, pass ? &tv : &tk,
+                       full + st, sl * SLAB, hk, n2 * TR, b);
           n = n2 < nkt ? next_kv(a, row0, n2 + 1, nkt) : nkt;
         }
     }
@@ -846,21 +931,23 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
     const int r0 = row0 + TR * cw;                // this consumer's rows
     const int rl = r0 + 16 * warp + g;            // a thread's: rl, rl + 8
     const float sl2 = a.scale * LOG2E;            // exp2 domain
-    const uint32_t q_addr = smem_u32(Qs + cw * T::TILE);
-    const uint32_t do_addr = smem_u32(dOs + cw * T::TILE);
-    const size_t qs = (size_t)a.H * a.D;
-    const size_t qoff = ((size_t)b * a.Lq * a.H + h) * a.D;
-    // D = rowsum(do . o) of rows rl and rl + 8 (a quad splits the columns),
-    // read while Q and dO land
+    const uint32_t q_addr = smem_u32(Qs + cw * T::TQ);
+    const uint32_t do_addr = smem_u32(dOs + cw * T::TV);
+    const size_t qs = (size_t)a.H * a.D, os = (size_t)a.H * a.Dv;
+    const size_t hrow = (size_t)b * a.Lq * a.H + h;
+    // D = rowsum(do . o) over Dv of rows rl and rl + 8 (a quad splits the
+    // columns), read while Q and dO land
     float dsr[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = rl + 8 * r;
       float acc = 0.f;
       if (row < a.Lq) {
-        const bf16* op = static_cast<const bf16*>(a.o) + qoff + row * qs;
-        const bf16* dp = static_cast<const bf16*>(a.dout) + qoff + row * qs;
-        for (int c = 8 * t; c < a.D; c += 32) {
+        const bf16* op =
+            static_cast<const bf16*>(a.o) + hrow * a.Dv + row * os;
+        const bf16* dp =
+            static_cast<const bf16*>(a.dout) + hrow * a.Dv + row * os;
+        for (int c = 8 * t; c < a.Dv; c += 32) {
           const uint4 x = *reinterpret_cast<const uint4*>(op + c);
           const uint4 y = *reinterpret_cast<const uint4*>(dp + c);
           const __nv_bfloat162* xe =
@@ -961,8 +1048,9 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
       mbar_wait(full + st, (it / STAGES) & 1);
       ++it;
       wgmma_fence();
-      gemm_rows<DP>(s[0], q_addr, smem_u32(Ks + st * T::TILE));   // S
-      if (n2 < nkt) gemm_rows<DP>(s[1], q_addr, smem_u32(Vs + st * T::TILE));
+      gemm_rows<DQP>(s[0], q_addr, smem_u32(Ks + st * T::TQ));    // S
+      if (n2 < nkt)
+        gemm_rows<DQP>(s[1], q_addr, smem_u32(Vs + st * T::VSLOT));
       wgmma_commit();
       wgmma_wait0();
       keep(s[0]);
@@ -988,9 +1076,9 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
     // pass 2: dS = P (dP - D); dQ += dS K. A tile's dQ product is waited
     // for, and its stage released, after the next tile's S and dP.
     float (&dp)[TR / 2] = s[1];
-    float acc[DP / 2];
+    float acc[DQP / 2];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DQP / 2; ++i) acc[i] = 0.f;
     uint32_t dsf[TR / 16][4];
     int held = -1;                          // the stage the last dQ reads
     for (int n = next_kv(a, row0, 0, nkt); n < nkt;
@@ -999,10 +1087,10 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
       const int st = it % STAGES;
       mbar_wait(full + st, (it / STAGES) & 1);
       ++it;
-      const uint32_t k_addr = smem_u32(Ks + st * T::TILE);
+      const uint32_t k_addr = smem_u32(Ks + st * T::TQ);
       wgmma_fence();
-      gemm_rows<DP>(s[0], q_addr, k_addr);                         // S
-      gemm_rows<DP>(dp, do_addr, smem_u32(Vs + st * T::TILE));     // dP
+      gemm_rows<DQP>(s[0], q_addr, k_addr);                        // S
+      gemm_rows<DVP>(dp, do_addr, smem_u32(Vs + st * T::VSLOT));   // dP
       wgmma_commit();
       wgmma_wait0();
       keep(s[0]);
@@ -1026,20 +1114,20 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
       keep(acc);
       keep(dsf);
       wgmma_fence();
-      gemm_frags<DP>(acc, dsf, k_addr);            // K read MN-major
+      gemm_frags<DQP>(acc, dsf, k_addr);           // K read MN-major
       wgmma_commit();
       held = st;
     }
     wgmma_wait0();
     keep(acc);
     if (held >= 0 && lane == 0) mbar_arrive(empty + held);
-    bf16* dq = static_cast<bf16*>(a.dq) + qoff;
+    bf16* dq = static_cast<bf16*>(a.dq) + hrow * a.D;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = rl + 8 * r;
       if (row >= a.Lq) continue;
 #pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
+      for (int j = 0; j < DQP / 8; ++j) {
         const int c = 8 * j + 2 * t;
         if (c < a.D)
           *reinterpret_cast<__nv_bfloat162*>(dq + row * qs + c) =
@@ -1050,18 +1138,18 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-template <int DP>
+template <int DQP, int DVP>
 __global__ void __launch_bounds__(HTHREADS, 1)
 bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv,
              const __grid_constant__ CUtensorMap tdo, const Args a) {
-  using T = Tiles<DP>;
+  using T = Tiles<DQP, DVP>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
   unsigned char* Ks = align1024(smem_raw);
-  unsigned char* Vs = Ks + 2 * T::TILE;
-  unsigned char* ring = Vs + 2 * T::TILE;     // [STAGES][Q | dO | LSE | D]
+  unsigned char* Vs = Ks + 2 * T::TQ;
+  unsigned char* ring = Vs + 2 * T::TV;       // [STAGES][Q | dO | LSE | D]
   uint64_t* kv_full = bars;
   uint64_t* full = bars + 1;
   uint64_t* empty = full + STAGES;
@@ -1085,13 +1173,15 @@ bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
     // each of the G heads, in order ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(kv_full, 4 * T::TILE);
-      for (int half = 0; half < 2; ++half)
-        for (int sl = 0; sl < T::SLABS; ++sl) {
-          const int off = half * T::TILE + sl * TR * 128;
-          tma_load(Ks + off, &tk, kv_full, sl * SLAB, hk, k0 + TR * half, b);
-          tma_load(Vs + off, &tv, kv_full, sl * SLAB, hk, k0 + TR * half, b);
-        }
+      mbar_expect_tx(kv_full, 2 * T::TQ + 2 * T::TV);
+      for (int half = 0; half < 2; ++half) {
+        for (int sl = 0; sl < T::SQ; ++sl)
+          tma_load(Ks + half * T::TQ + sl * TR * 128, &tk, kv_full,
+                   sl * SLAB, hk, k0 + TR * half, b);
+        for (int sl = 0; sl < T::SV; ++sl)
+          tma_load(Vs + half * T::TV + sl * TR * 128, &tv, kv_full,
+                   sl * SLAB, hk, k0 + TR * half, b);
+      }
       int it = 0;
       for (int gq = 0; gq < a.G; ++gq) {
         const int h = hk * a.G + gq;
@@ -1104,15 +1194,15 @@ bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
           ++it;
           unsigned char* sp = ring + st * T::DKV_STAGE;
           mbar_wait(empty + st, ph ^ 1);
-          mbar_expect_tx(full + st, 2 * T::TILE + 2 * T::STAT);
-          for (int sl = 0; sl < T::SLABS; ++sl) {
+          mbar_expect_tx(full + st, T::TQ + T::TV + 2 * T::STAT);
+          for (int sl = 0; sl < T::SQ; ++sl)
             tma_load(sp + sl * TR * 128, &tq, full + st, sl * SLAB, h, q0, b);
-            tma_load(sp + T::TILE + sl * TR * 128, &tdo, full + st, sl * SLAB,
+          for (int sl = 0; sl < T::SV; ++sl)
+            tma_load(sp + T::TQ + sl * TR * 128, &tdo, full + st, sl * SLAB,
                      h, q0, b);
-          }
-          bulk_load(sp + 2 * T::TILE, a.lse + srow + q0, T::STAT, full + st);
-          bulk_load(sp + 2 * T::TILE + T::STAT, a.dsum + srow + q0, T::STAT,
-                    full + st);
+          unsigned char* stats = sp + T::TQ + T::TV;
+          bulk_load(stats, a.lse + srow + q0, T::STAT, full + st);
+          bulk_load(stats + T::STAT, a.dsum + srow + q0, T::STAT, full + st);
         }
       }
     }
@@ -1125,11 +1215,13 @@ bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
     const int kr0 = k0 + TR * cw;                 // this consumer's keys
     const int kl = kr0 + 16 * warp + g;           // a thread's: kl, kl + 8
     const float sl2 = a.scale * LOG2E;
-    const uint32_t k_addr = smem_u32(Ks + cw * T::TILE);
-    const uint32_t v_addr = smem_u32(Vs + cw * T::TILE);
-    float dk[DP / 2], dv[DP / 2];
+    const uint32_t k_addr = smem_u32(Ks + cw * T::TQ);
+    const uint32_t v_addr = smem_u32(Vs + cw * T::TV);
+    float dk[DQP / 2], dv[DVP / 2];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < DQP / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DVP / 2; ++i) dv[i] = 0.f;
     float s[TR / 2], dp[TR / 2];
     uint32_t pf[TR / 16][4], dsf[TR / 16][4];
     // Both consumers run every q tile of the CTA (where one's keys see no
@@ -1151,13 +1243,13 @@ bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
         mbar_wait(full + st, ph);
         const unsigned char* sp = ring + st * T::DKV_STAGE;
         const uint32_t q_addr = smem_u32(sp);
-        const uint32_t do_addr = smem_u32(sp + T::TILE);
-        const float* Ls = reinterpret_cast<const float*>(sp + 2 * T::TILE);
+        const uint32_t do_addr = smem_u32(sp + T::TQ);
+        const float* Ls = reinterpret_cast<const float*>(sp + T::TQ + T::TV);
         const float* Ds = Ls + TR;
         turns.take();
         wgmma_fence();
-        gemm_rows<DP>(s, k_addr, q_addr);         // S^T = K Q^T
-        gemm_rows<DP>(dp, v_addr, do_addr);       // dP^T = V dO^T
+        gemm_rows<DQP>(s, k_addr, q_addr);        // S^T = K Q^T
+        gemm_rows<DVP>(dp, v_addr, do_addr);      // dP^T = V dO^T
         wgmma_commit();
         turns.pass();
         wgmma_wait0();
@@ -1204,8 +1296,8 @@ bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
         keep(dsf);
         turns.take();
         wgmma_fence();
-        gemm_frags<DP>(dv, pf, do_addr);          // dO read MN-major
-        gemm_frags<DP>(dk, dsf, q_addr);          // Q read MN-major
+        gemm_frags<DVP>(dv, pf, do_addr);         // dO read MN-major
+        gemm_frags<DQP>(dk, dsf, q_addr);         // Q read MN-major
         wgmma_commit();
         turns.pass();
         wgmma_wait0();
@@ -1214,24 +1306,28 @@ bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
         if (lane == 0) mbar_arrive(empty + st);
       }
     }
-    const size_t ks = (size_t)a.Hkv * a.D;
-    const size_t koff = ((size_t)b * a.Lkv * a.Hkv + hk) * a.D;
-    bf16* dkp = static_cast<bf16*>(a.dk) + koff;
-    bf16* dvp = static_cast<bf16*>(a.dv) + koff;
+    const size_t ks = (size_t)a.Hkv * a.D, vs = (size_t)a.Hkv * a.Dv;
+    const size_t krow = (size_t)b * a.Lkv * a.Hkv + hk;
+    bf16* dkp = static_cast<bf16*>(a.dk) + krow * a.D;
+    bf16* dvp = static_cast<bf16*>(a.dv) + krow * a.Dv;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int key = kl + 8 * r;
       if (key >= a.Lkv) continue;
 #pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
+      for (int j = 0; j < DQP / 8; ++j) {
         const int c = 8 * j + 2 * t;
-        if (c < a.D) {
+        if (c < a.D)
           *reinterpret_cast<__nv_bfloat162*>(dkp + key * ks + c) =
               __floats2bfloat162_rn(dk[4 * j + 2 * r] * a.scale,
                                     dk[4 * j + 2 * r + 1] * a.scale);
-          *reinterpret_cast<__nv_bfloat162*>(dvp + key * ks + c) =
+      }
+#pragma unroll
+      for (int j = 0; j < DVP / 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        if (c < a.Dv)
+          *reinterpret_cast<__nv_bfloat162*>(dvp + key * vs + c) =
               __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
-        }
       }
     }
   }
@@ -1393,15 +1489,15 @@ __device__ __forceinline__ void kv_rows(const float* Ps, const float* dSs,
   }
 }
 
-// dk / sqrt(Dh) and dv of keys r0, r0 + 1 (those below Lkv) at chunks tl +
-// 8 c (those below D)
+// dk / sqrt(Dq) and dv of keys r0, r0 + 1 (those below Lkv) at chunks tl +
+// 8 c (those below D, and below Dv)
 template <bool VEC, int NC>
-__device__ __forceinline__ void store_kv(const Args& a, size_t koff, int r0,
+__device__ __forceinline__ void store_kv(const Args& a, size_t krow, int r0,
                                          int tl, const float (&dk)[2][NC][4],
                                          const float (&dv)[2][NC][4]) {
-  const size_t ks = (size_t)a.Hkv * a.D;
-  float* dkp = static_cast<float*>(a.dk) + koff;
-  float* dvp = static_cast<float*>(a.dv) + koff;
+  const size_t ks = (size_t)a.Hkv * a.D, vs = (size_t)a.Hkv * a.Dv;
+  float* dkp = static_cast<float*>(a.dk) + krow * a.D;
+  float* dvp = static_cast<float*>(a.dv) + krow * a.Dv;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = r0 + i;
@@ -1409,21 +1505,21 @@ __device__ __forceinline__ void store_kv(const Args& a, size_t koff, int r0,
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int d0 = (tl + 8 * c) * 4;
-      if (d0 >= a.D) continue;
       const float rk[4] = {dk[i][c][0] * a.scale, dk[i][c][1] * a.scale,
                            dk[i][c][2] * a.scale, dk[i][c][3] * a.scale};
       if (VEC) {
-        *reinterpret_cast<float4*>(dkp + key * ks + d0) =
-            make_float4(rk[0], rk[1], rk[2], rk[3]);
-        *reinterpret_cast<float4*>(dvp + key * ks + d0) =
-            make_float4(dv[i][c][0], dv[i][c][1], dv[i][c][2], dv[i][c][3]);
+        if (d0 < a.D)
+          *reinterpret_cast<float4*>(dkp + key * ks + d0) =
+              make_float4(rk[0], rk[1], rk[2], rk[3]);
+        if (d0 < a.Dv)
+          *reinterpret_cast<float4*>(dvp + key * vs + d0) = make_float4(
+              dv[i][c][0], dv[i][c][1], dv[i][c][2], dv[i][c][3]);
       } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (d0 + e < a.D) {
-            dkp[key * ks + d0 + e] = rk[e];
-            dvp[key * ks + d0 + e] = dv[i][c][e];
-          }
+        for (int e = 0; e < 4; ++e) {
+          if (d0 + e < a.D) dkp[key * ks + d0 + e] = rk[e];
+          if (d0 + e < a.Dv) dvp[key * vs + d0 + e] = dv[i][c][e];
+        }
       }
     }
   }
@@ -1448,7 +1544,8 @@ bwd_one_pass_f32(Args a) {
   const int tl = lane & 7, r0 = warp * 8 + (lane >> 3) * 2;
   const int hk = blockIdx.x, b = blockIdx.y;
   const size_t qs = (size_t)a.H * a.D, ks = (size_t)a.Hkv * a.D;
-  const size_t koff = ((size_t)b * a.Lkv * a.Hkv + hk) * a.D;
+  const size_t os = (size_t)a.H * a.Dv, vs = (size_t)a.Hkv * a.Dv;
+  const size_t krow = (size_t)b * a.Lkv * a.Hkv + hk;
   const float* o = static_cast<const float*>(a.o);
   // the rows and keys read: up to the next multiple of 8 (a warp's slots)
   // past Lq and Lkv, zero-filled past them
@@ -1457,18 +1554,19 @@ bwd_one_pass_f32(Args a) {
   const bool full = tile_full(a, 0, T, 0, T);
   const int pre = min(a.prefix_len, a.Lkv);
   const float sl2 = a.scale * LOG2E;              // exp2 domain
-  async_rows<DP, VEC, true>(Ks, static_cast<const float*>(a.k) + koff, ks,
-                            nk, a.Lkv, a.D);
-  async_rows<DP, VEC, true>(Vs, static_cast<const float*>(a.v) + koff, ks,
-                            nk, a.Lkv, a.D);
+  async_rows<DP, VEC, true>(Ks, static_cast<const float*>(a.k) + krow * a.D,
+                            ks, nk, a.Lkv, a.D);
+  async_rows<DP, VEC, true>(Vs, static_cast<const float*>(a.v) + krow * a.Dv,
+                            vs, nk, a.Lkv, a.Dv);
   float dk[2][NC][4] = {}, dv[2][NC][4] = {};   // over the G heads (GQA)
   for (int g = 0; g < (GQA ? a.G : 1); ++g) {
-    const size_t qoff = ((size_t)b * a.Lq * a.H + hk * a.G + g) * a.D;
+    const size_t hrow = (size_t)b * a.Lq * a.H + hk * a.G + g;
+    const size_t qoff = hrow * a.D, ooff = hrow * a.Dv;
     if (g) __syncthreads();       // the last head's dK/dV reads are done
     async_rows<DP, VEC, false>(Qs, static_cast<const float*>(a.q) + qoff, qs,
                                nr, a.Lq, a.D);
-    async_rows<DP, VEC, false>(dOs, static_cast<const float*>(a.dout) + qoff,
-                               qs, nr, a.Lq, a.D);
+    async_rows<DP, VEC, false>(dOs, static_cast<const float*>(a.dout) + ooff,
+                               os, nr, a.Lq, a.Dv);
     // O at the thread's rows and chunks, from global memory while the
     // copies land, for D = rowsum(dO . O)
     float4 ov[2][NC];
@@ -1477,16 +1575,16 @@ bwd_one_pass_f32(Args a) {
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int row = r0 + i, d0 = (tl + 8 * c) * 4;
-        const float* op = o + qoff + row * qs + d0;
+        const float* op = o + ooff + row * os + d0;
         ov[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (row < a.Lq && d0 < a.D) {
+        if (row < a.Lq && d0 < a.Dv) {
           if (VEC) {
             ov[i][c] = *reinterpret_cast<const float4*>(op);
           } else {
             ov[i][c].x = op[0];
-            if (d0 + 1 < a.D) ov[i][c].y = op[1];
-            if (d0 + 2 < a.D) ov[i][c].z = op[2];
-            if (d0 + 3 < a.D) ov[i][c].w = op[3];
+            if (d0 + 1 < a.Dv) ov[i][c].y = op[1];
+            if (d0 + 2 < a.Dv) ov[i][c].z = op[2];
+            if (d0 + 3 < a.Dv) ov[i][c].w = op[3];
           }
         }
       }
@@ -1621,11 +1719,11 @@ bwd_one_pass_f32(Args a) {
       } else {            // one head: the accumulators live here alone
         float dk1[2][NC][4] = {}, dv1[2][NC][4] = {};
         kv_rows<DP, LDP>(Ps, dSs, Qs, dOs, nr, r0, tl, dk1, dv1);
-        store_kv<VEC>(a, koff, r0, tl, dk1, dv1);
+        store_kv<VEC>(a, krow, r0, tl, dk1, dv1);
       }
     }
   }
-  if (GQA && keys_live) store_kv<VEC>(a, koff, r0, tl, dk, dv);
+  if (GQA && keys_live) store_kv<VEC>(a, krow, r0, tl, dk, dv);
 }
 
 // cuTensorMapEncodeTiled from the driver, without linking libcuda.
@@ -1672,10 +1770,11 @@ static bool encode_rows(CUtensorMap* map, const void* ptr, int D, int Hn,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DP>
+template <int DQP, int DVP>
 static cudaError_t run_bf16(const Args& a, int part, cudaStream_t s) {
-  auto kern = part == 0 ? bwd_dq_bf16<DP> : bwd_dkv_bf16<DP>;
-  const int smem = part == 0 ? Tiles<DP>::DQ_SMEM : Tiles<DP>::DKV_SMEM;
+  using T = Tiles<DQP, DVP>;
+  auto kern = part == 0 ? bwd_dq_bf16<DQP, DVP> : bwd_dkv_bf16<DQP, DVP>;
+  const int smem = part == 0 ? T::DQ_SMEM : T::DKV_SMEM;
   const dim3 grid = part == 0
       ? dim3(a.H, a.B, (a.Lq + 2 * TR - 1) / (2 * TR))
       : dim3(a.Hkv, a.B, (a.Lkv + 2 * TR - 1) / (2 * TR));
@@ -1688,8 +1787,8 @@ static cudaError_t run_bf16(const Args& a, int part, cudaStream_t s) {
   alignas(64) CUtensorMap tq, tk, tv, tdo;
   if (!encode_rows(&tq, a.q, a.D, a.H, a.Lq, a.B) ||
       !encode_rows(&tk, a.k, a.D, a.Hkv, a.Lkv, a.B) ||
-      !encode_rows(&tv, a.v, a.D, a.Hkv, a.Lkv, a.B) ||
-      !encode_rows(&tdo, a.dout, a.D, a.H, a.Lq, a.B))
+      !encode_rows(&tv, a.v, a.Dv, a.Hkv, a.Lkv, a.B) ||
+      !encode_rows(&tdo, a.dout, a.Dv, a.H, a.Lq, a.B))
     return cudaErrorInvalidValue;
   kern<<<grid, HTHREADS, smem, s>>>(tq, tk, tv, tdo, a);
   return cudaGetLastError();
@@ -1706,8 +1805,8 @@ static cudaError_t launch(Kern kern, dim3 grid, int threads, size_t smem,
 }
 
 // the one-pass kernel's instance for the call: a 32 x 32 tile where both
-// lengths are at most 32, else 64 x 64; the head dim padded to 64 or 128;
-// one query head a kv head (the embedder's) or G
+// lengths are at most 32, else 64 x 64; the larger head dim padded to 64,
+// 128 or (32 x 32 only) 256; one query head a kv head (the embedder's) or G
 template <int T, int DP, bool GQA = true>
 static cudaError_t run_one_pass(const Args& a, cudaStream_t s) {
   using C = OnePass<T, DP, GQA>;
@@ -1724,23 +1823,48 @@ static cudaError_t run_one_pass(const Args& a, cudaStream_t s) {
 
 static cudaError_t run_one_pass_f32(const Args& a, cudaStream_t s) {
   const bool small = a.Lq <= 32 && a.Lkv <= 32;
-  if (a.D <= 64 && small && a.G == 1) return run_one_pass<32, 64, false>(a, s);
-  if (a.D <= 64)
+  const int d = a.D > a.Dv ? a.D : a.Dv;
+  if (d > 128)
+    return small ? run_one_pass<32, 256>(a, s) : cudaErrorInvalidValue;
+  if (d <= 64 && small && a.G == 1) return run_one_pass<32, 64, false>(a, s);
+  if (d <= 64)
     return small ? run_one_pass<32, 64>(a, s) : run_one_pass<64, 64>(a, s);
   return small ? run_one_pass<32, 128>(a, s) : run_one_pass<64, 128>(a, s);
 }
 
-template <int DP>
-static cudaError_t run_f32(const Args& a, int part, cudaStream_t s) {
-  const dim3 gq((a.Lq + BQ - 1) / BQ, a.H, a.B);
-  const dim3 gk((a.Lkv + BK - 1) / BK, a.Hkv, a.B);
-  constexpr int LD = DP + 1, LS = BK + 1;
-  if (part == 0)
-    return launch(bwd_dq_f32<DP>, gq, 256,
-                  ((size_t)(2 * BQ + 2 * BK) * LD + BQ * LS + BQ) * 4, a, s);
-  return launch(bwd_dkv_f32<DP>, gk, 256,
-                ((size_t)(2 * BK + 2 * BQ) * LD + 2 * BQ * LS + 2 * BQ) * 4,
-                a, s);
+// the CUDA-core pair: f32 (bwd_dq_f32 / bwd_dkv_f32) or bf16
+// (bwd_dq_cc_bf16 / bwd_dkv_cc_bf16, 32-row tiles), BT-row tiles
+template <int DP, int BT, bool BF16>
+static cudaError_t run_cc(const Args& a, int part, cudaStream_t s) {
+  using C = CC<DP, BT>;
+  const dim3 gq((a.Lq + BT - 1) / BT, a.H, a.B);
+  const dim3 gk((a.Lkv + BT - 1) / BT, a.Hkv, a.B);
+  if constexpr (BF16) {
+    static_assert(BT == 32, "the bf16 CUDA-core pair takes 32-row tiles");
+    return part == 0 ? launch(bwd_dq_cc_bf16<DP>, gq, 256, C::DQ_SMEM, a, s)
+                     : launch(bwd_dkv_cc_bf16<DP>, gk, 256, C::DKV_SMEM, a,
+                              s);
+  } else {
+    return part == 0 ? launch(bwd_dq_f32<DP, BT>, gq, 256, C::DQ_SMEM, a, s)
+                     : launch(bwd_dkv_f32<DP, BT>, gk, 256, C::DKV_SMEM, a,
+                              s);
+  }
+}
+
+// DP: the larger head dim padded to 64, 128, 192 or 256 (bf16 reaches this
+// pair only past 128)
+static cudaError_t run_cc_f32(const Args& a, int part, cudaStream_t s) {
+  const int d = a.D > a.Dv ? a.D : a.Dv;
+  if (d <= 64) return run_cc<64, 64, false>(a, part, s);
+  if (d <= 128) return run_cc<128, 64, false>(a, part, s);
+  if (d <= 192) return run_cc<192, 32, false>(a, part, s);
+  return run_cc<256, 32, false>(a, part, s);
+}
+
+static cudaError_t run_cc_bf16(const Args& a, int part, cudaStream_t s) {
+  const int d = a.D > a.Dv ? a.D : a.Dv;
+  if (d <= 192) return run_cc<192, 32, true>(a, part, s);
+  return run_cc<256, 32, true>(a, part, s);
 }
 
 }  // namespace fab
@@ -1748,21 +1872,24 @@ static cudaError_t run_f32(const Args& a, int part, cudaStream_t s) {
 // part 0 launches (a), which writes dq, lse and dsum; part 1 launches (b),
 // which reads lse and dsum and writes dk and dv; part 2 launches the f32
 // one-pass kernel, which writes dq, dk and dv and takes no lse or dsum
-// (null), for Lq <= 64 and Lkv <= 64 only. All tensors contiguous (B, L, H,
-// D); lse and dsum (B, H, Lq) f32, in bf16 (B, H, Lq rounded up to 64).
-// bf16 takes D a multiple of 8 and 16-byte aligned bases (TMA); scale_dim
-// is the head dim of the scale 1 / sqrt(scale_dim). Returns the launch's
-// CUDA error code (0 on success).
+// (null), for Lq, Lkv <= 64 at head dims up to 128 and Lq, Lkv <= 32 up to
+// 256. All tensors contiguous (B, L, H, D) for q, k, dq, dk and (B, L, H,
+// Dv) for v, o, do, dv; lse and dsum (B, H, Lq) f32, on the wgmma pair (bf16
+// with D, Dv <= 128) (B, H, Lq rounded up to 64). bf16 takes D and Dv
+// multiples of 8 and 16-byte aligned bases; a bf16 call with D or Dv over
+// 128 takes the CUDA-core pair. scale_dim is the head dim of the scale 1 /
+// sqrt(scale_dim). Returns the launch's CUDA error code (0 on success).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, float* lse, float* dsum,
     long long B, long long Lq, long long Lkv, long long H, long long Hkv,
-    long long D, long long scale_dim, long long causal, long long window,
-    long long prefix_len, long long q_offset, long long is_bf16,
-    long long part, void* stream) {
+    long long D, long long Dv, long long scale_dim, long long causal,
+    long long window, long long prefix_len, long long q_offset,
+    long long is_bf16, long long part, void* stream) {
   using namespace fab;
   if (B == 0 || Lq == 0 || H == 0 || Lkv == 0) return 0;
-  if (D < 1 || D > 128 || scale_dim < 1 || Hkv < 1 || H % Hkv)
+  if (D < 1 || D > 256 || Dv < 1 || Dv > 256 || scale_dim < 1 || Hkv < 1 ||
+      H % Hkv)
     return (int)cudaErrorInvalidValue;
   const uintptr_t bases = reinterpret_cast<uintptr_t>(q) |
                           reinterpret_cast<uintptr_t>(k) |
@@ -1774,28 +1901,35 @@ extern "C" int flash_attention_bwd(
                          reinterpret_cast<uintptr_t>(dv) |
                          reinterpret_cast<uintptr_t>(lse) |
                          reinterpret_cast<uintptr_t>(dsum);
-  if (is_bf16 && (D % 8 || ((bases | outs) & 15)))
+  if (is_bf16 && (D % 8 || Dv % 8 || ((bases | outs) & 15)))
     return (int)cudaErrorInvalidValue;
-  if (part == 2 && (is_bf16 || Lq > 64 || Lkv > 64))
+  const int lmax = Lq > Lkv ? (int)Lq : (int)Lkv;
+  if (part == 2 && (is_bf16 || lmax > (D > 128 || Dv > 128 ? 32 : 64)))
     return (int)cudaErrorInvalidValue;
+  const bool wgmma = is_bf16 && D <= 128 && Dv <= 128;
   const int vec_elems = is_bf16 ? 8 : 4;
   // the one-pass kernel stores dq/dk/dv 16 bytes at a time where vec is
-  // set, so its outputs' alignment counts too; the tiled pair's does not
+  // set, so its outputs' alignment counts too; the tiled pairs' does not
   const uintptr_t vec_ptrs = part == 2 ? (bases | outs) : bases;
   Args a{q, k, v, o, dout, dq, dk, dv, lse, dsum,
-         (int)B, (int)Lq, (int)Lkv, (int)H, (int)Hkv, (int)D, (int)(H / Hkv),
+         (int)B, (int)Lq, (int)Lkv, (int)H, (int)Hkv, (int)D, (int)Dv,
+         (int)(H / Hkv), wgmma ? (int)((Lq + TR - 1) / TR * TR) : (int)Lq,
          (int)causal, (int)window, (int)prefix_len, (int)q_offset,
-         (int)((vec_ptrs & 15) == 0 && D % vec_elems == 0),
+         (int)((vec_ptrs & 15) == 0 && D % vec_elems == 0 &&
+               Dv % vec_elems == 0),
          1.0f / sqrtf((float)scale_dim)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (is_bf16)
-    err = D <= 64 ? run_bf16<64>(a, (int)part, s)
-                  : run_bf16<128>(a, (int)part, s);
+  if (wgmma)
+    err = D <= 64 ? (Dv <= 64 ? run_bf16<64, 64>(a, (int)part, s)
+                              : run_bf16<64, 128>(a, (int)part, s))
+                  : (Dv <= 64 ? run_bf16<128, 64>(a, (int)part, s)
+                              : run_bf16<128, 128>(a, (int)part, s));
+  else if (is_bf16)
+    err = run_cc_bf16(a, (int)part, s);
   else if (part == 2)
     err = run_one_pass_f32(a, s);
   else
-    err = D <= 64 ? run_f32<64>(a, (int)part, s)
-                  : run_f32<128>(a, (int)part, s);
+    err = run_cc_f32(a, (int)part, s);
   return (int)err;
 }

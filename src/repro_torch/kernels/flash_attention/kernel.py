@@ -1,5 +1,5 @@
 """Launch the hand-written Hopper prefill attention kernel (K4,
-``repro_torch/csrc/flash_attention.cu``) and its backward's two kernels
+``repro_torch/csrc/flash_attention.cu``) and its backward's kernels
 (``repro_torch/csrc/flash_attention_bwd.cu``), built and bound by
 ``repro_torch.kernels._build``. Nothing here runs at import time."""
 from __future__ import annotations
@@ -61,12 +61,14 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_rc(rc, "flash_attention")
 
 
-def bwd_scratch(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def bwd_scratch(q: torch.Tensor, route: str = "tiled"
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The backward's (B, H, Lq) f32 scratch for LSE and D, which (a)
-    writes and (b) reads: in bf16 Lq is rounded up to the kernels' 64-row
-    tile, whose rows past Lq (a) fills, so that (b) loads whole tiles."""
+    writes and (b) reads: on the bf16 wgmma pair (``route`` "tiled" in
+    bf16) Lq is rounded up to the kernels' 64-row tile, whose rows past Lq
+    (a) fills, so that (b) loads whole tiles."""
     B, Lq, H, _ = q.shape
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and route == "tiled":
         Lq = -(-Lq // 64) * 64
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     return lse, torch.empty_like(lse)
@@ -80,13 +82,14 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                part: int, scale_dim: int | None = None) -> None:
     """One of the backward's kernels (``csrc/flash_attention_bwd.cu``):
     ``part`` 0 (a) writes dq, ``lse`` and ``dsum``; ``part`` 1 (b) reads
-    them and writes dk and dv; ``part`` 2, the f32 one-pass kernel (Lq and
-    Lkv at most 64), writes dq, dk and dv and takes no ``lse`` or ``dsum``
-    (None). Every tensor contiguous: q, o, do, dq (B, Lq, H, Dh); k, v,
-    dk, dv (B, Lkv, Hkv, Dh); lse, dsum from ``bwd_scratch``; in bf16 each
-    16-byte aligned with Dh a multiple of 8 (the tensor maps'). ``window``
-    0 for none; the scale is 1 / sqrt(``scale_dim``) (default Dh). The
-    caller has checked shapes, dtypes and devices."""
+    them and writes dk and dv; ``part`` 2, the f32 one-pass kernel, writes
+    dq, dk and dv and takes no ``lse`` or ``dsum`` (None). Every tensor
+    contiguous: q, dq (B, Lq, H, Dq); o, do (B, Lq, H, Dv); k, dk (B, Lkv,
+    Hkv, Dq); v, dv (B, Lkv, Hkv, Dv); lse, dsum from ``bwd_scratch`` for
+    the call's route; in bf16 each 16-byte aligned with Dq and Dv multiples
+    of 8 (the tensor maps'). ``window`` 0 for none; the scale is 1 /
+    sqrt(``scale_dim``) (default Dq). The caller has checked shapes,
+    dtypes and devices."""
     fn = _build.load("flash_attention_bwd")
     index = q.device.index
     if index != torch._C._cuda_getDevice():
@@ -100,7 +103,7 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             0 if lse is None else lse.data_ptr(),
             0 if dsum is None else dsum.data_ptr(), B, Lq, k.shape[1], H,
-            k.shape[2], D, scale_dim or D, int(causal), window, prefix_len,
-            q_offset, int(q.dtype == torch.bfloat16), part,
+            k.shape[2], D, v.shape[3], scale_dim or D, int(causal), window,
+            prefix_len, q_offset, int(q.dtype == torch.bfloat16), part,
             torch._C._cuda_getCurrentRawStream(index))
     _build.check_rc(rc, "flash_attention_bwd")

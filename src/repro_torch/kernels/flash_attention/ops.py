@@ -31,17 +31,26 @@ Training: with grad mode on and an input that requires grad,
 ``flash_attention`` goes through ``FlashAttentionFn``, whose backward is
 ``flash_attention_bwd``: hand-written kernels on CUDA tensors
 (``csrc/flash_attention_bwd.cu``), ``ref.attention_bwd_ref`` on CPU
-tensors. On the card ``bwd_route`` picks the kernels: an f32 call with Lq
-and Lkv at most 64 (the embedder's 24 tokens) takes one fused one-pass
-kernel, one launch with no LSE/D scratch; every other call takes the
-tiled pair, (a) dQ then (b) dK/dV. Every backward launch counts in
+tensors, at every (Dq, Dv) the forward takes (the MLA pairs among them)
+and head dims up to 256. On the card ``bwd_route`` picks the kernels: an
+f32 call with Lq and Lkv at most 64 (32 past head dim 128; the embedder's
+24 tokens) takes one fused one-pass kernel, one launch with no LSE/D
+scratch; every other call a pair, (a) dQ then (b) dK/dV: the tiled pair
+("tiled": the wgmma kernels in bf16 with both head dims at most 128, the
+CUDA-core kernels in f32) or, in bf16 past 128 (paligemma's 256,
+deepseek-v2's (192, 128)), the CUDA-core kernels on bf16 operands
+("tiled_cc"). Every backward launch counts in
 ``flash_attention.launches_bwd``; the f32 ones also in
 ``flash_attention.launches_bwd_f32``, and of those the one-pass ones in
-``flash_attention.launches_bwd_f32_one_pass``. Neither route falls back
-to the other or to the plain version: a kernel that fails to build or
-launch raises. The backward is a port extension: the Pallas kernel has no
-VJP, and the reference differentiates its jnp attention (held against
-``jax.grad`` of ``repro/models/layers.py``'s ``flash_attention``).
+``flash_attention.launches_bwd_f32_one_pass``; the bf16 "tiled_cc" ones
+in ``launches_bwd_cc``, and the other bf16 ones with Dv != Dq (the wgmma
+pair's MLA calls) in ``launches_bwd_dv``. No route falls back to another
+or to the plain version: a kernel that fails to build or launch raises.
+Only a ragged ``kv_valid_len`` has no backward (``bwd_check``): no
+training path passes one. The backward is a port extension: the Pallas
+kernel has no VJP, and the reference differentiates its jnp attention
+(held against ``jax.grad`` of ``repro/models/layers.py``'s
+``flash_attention``).
 Serving, without grad, takes the plain forward route above.
 """
 from __future__ import annotations
@@ -71,8 +80,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     With grad mode on and q, k or v requiring grad, the call goes through
     ``FlashAttentionFn`` (the same forward, and the backward kernels on
-    CUDA tensors), which takes Dv = Dh <= 128 and no ``kv_valid_len``;
-    anything else raises ``NotImplementedError`` there."""
+    CUDA tensors), which takes no ``kv_valid_len``: that raises
+    ``NotImplementedError`` there."""
     Lq, Lkv = q.shape[1], k.shape[1]
     if q_offset is None:
         q_offset = Lkv - Lq
@@ -144,35 +153,44 @@ flash_attention.launches_persistent = 0     # bf16 on flash_bf16_persistent
 flash_attention.launches_bwd = 0    # every backward kernel launch
 flash_attention.launches_bwd_f32 = 0    # of which f32
 flash_attention.launches_bwd_f32_one_pass = 0   # of which one-pass (embedder)
+flash_attention.launches_bwd_dv = 0     # bf16 wgmma pair, Dv != Dq (MLA)
+flash_attention.launches_bwd_cc = 0     # bf16 CUDA-core pair (past 128)
 
-BWD_DH_MAX = 128
-BWD_ONE_PASS_MAX = 64     # the one-pass kernel's largest Lq and Lkv
+BWD_DH_MAX = 256
+BWD_WGMMA_DH_MAX = 128      # the bf16 wgmma pair's largest head dims
+BWD_ONE_PASS_MAX = 64       # the one-pass kernel's largest Lq and Lkv,
+BWD_ONE_PASS_WIDE_MAX = 32  # and past head dim 128
 
 
-def bwd_route(dtype: torch.dtype, Lq: int, Lkv: int, Dh: int) -> str:
-    """The backward kernels a CUDA call takes: ``"one_pass"`` (one fused
-    kernel) for float32 with Lq and Lkv at most 64, else ``"tiled"`` (the
-    pair (a) dQ, (b) dK/dV). Raises ``ValueError`` for a head dim that no
-    backward kernel takes (outside [1, 128])."""
-    if not 1 <= Dh <= BWD_DH_MAX:
-        raise ValueError(f"head dim {Dh} outside [1, {BWD_DH_MAX}]")
-    if dtype == torch.float32 and max(Lq, Lkv) <= BWD_ONE_PASS_MAX:
-        return "one_pass"
-    return "tiled"
+def bwd_route(dtype: torch.dtype, Lq: int, Lkv: int, Dq: int,
+              Dv: Optional[int] = None) -> str:
+    """The backward kernels a CUDA call with q/k head dim Dq and v head dim
+    Dv (default Dq) takes, as the C dispatch of
+    ``csrc/flash_attention_bwd.cu`` picks them: ``"one_pass"`` (one fused
+    kernel, ``bwd_one_pass_f32``) for float32 with Lq and Lkv at most 64,
+    or at most 32 where a head dim is over 128; ``"tiled"``, the pair (a)
+    dQ, (b) dK/dV, for every other call: ``bwd_dq_bf16<DQP, DVP>`` /
+    ``bwd_dkv_bf16`` (wgmma, each width padded to 64 or 128) in bf16,
+    ``bwd_dq_f32<DP, BT>`` / ``bwd_dkv_f32`` (CUDA cores) in f32;
+    ``"tiled_cc"`` for bf16 with a head dim over 128: ``bwd_dq_cc_bf16<DP>``
+    / ``bwd_dkv_cc_bf16`` (CUDA cores, DP 192 or 256). Raises
+    ``ValueError`` for a head dim outside [1, 256]."""
+    Dv = Dq if Dv is None else Dv
+    if not (1 <= Dq <= BWD_DH_MAX and 1 <= Dv <= BWD_DH_MAX):
+        raise ValueError(f"head dims {Dq}, {Dv} outside [1, {BWD_DH_MAX}]")
+    wide = max(Dq, Dv) > BWD_WGMMA_DH_MAX
+    if dtype == torch.float32:
+        short = BWD_ONE_PASS_WIDE_MAX if wide else BWD_ONE_PASS_MAX
+        return "one_pass" if max(Lq, Lkv) <= short else "tiled"
+    return "tiled_cc" if wide else "tiled"
 
 
 def bwd_check(Dq: int, Dv: int, kv_valid_len) -> None:
     """Raise ``NotImplementedError`` for what the backward kernels do not
-    take: a value head dim other than the q/k one (MLA), a head dim over
-    128 (paligemma's 256) and a ragged ``kv_valid_len``. Nothing sends
-    these to the plain version instead."""
-    if Dv != Dq:
-        raise NotImplementedError(
-            f"the attention backward takes Dv = Dq, got Dq {Dq}, Dv {Dv}")
-    if Dq > BWD_DH_MAX:
-        raise NotImplementedError(
-            f"the attention backward takes head dims up to {BWD_DH_MAX}, "
-            f"got {Dq}")
+    take: a ragged ``kv_valid_len`` (no training path passes one). Every
+    (Dq, Dv) that the forward takes has a backward route
+    (``bwd_route``). Nothing sends a refused call to the plain version
+    instead."""
     if kv_valid_len is not None:
         raise NotImplementedError("the attention backward takes no "
                                   "kv_valid_len")
@@ -203,15 +221,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: Optional[int] = None,
                         prefix_len: int = 0, q_offset: Optional[int] = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) of ``flash_attention`` at q, k, v given its output o and
-    the output's cotangent do, in the inputs' dtypes: on CUDA tensors the
-    kernels ``bwd_route`` names (the one-pass kernel in one launch, or (a)
-    then (b)), each launch counted as the module docstring says;
+    """(dq, dk, dv) of ``flash_attention`` at q (B, Lq, H, Dq), k (B, Lkv,
+    Hkv, Dq), v (B, Lkv, Hkv, Dv) given its output o and the output's
+    cotangent do (B, Lq, H, Dv), in the inputs' dtypes: on CUDA tensors
+    the kernels ``bwd_route`` names (the one-pass kernel in one launch, or
+    (a) then (b)), each launch counted as the module docstring says;
     ``ref.attention_bwd_ref`` on CPU tensors. Inputs of any strides are
     copied contiguous first, and bf16 ones as ``bwd_operands`` gives them
-    (the gradients of a padded head dim sliced back). The modes
-    ``bwd_check`` refuses are refused by ``flash_attention`` before its
-    forward; here v must be shaped like k, and Dh at most 128."""
+    (the gradients of a padded head dim sliced back). The scale is 1 /
+    sqrt(Dq). ``kv_valid_len`` is refused by ``flash_attention`` before
+    its forward."""
     Lq, Lkv = q.shape[1], k.shape[1]
     if q_offset is None:
         q_offset = Lkv - Lq
@@ -219,22 +238,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref.attention_bwd_ref(q, k, v, o, do, causal=causal,
                                      window=window, prefix_len=prefix_len,
                                      q_offset=q_offset)
-    B, _, H, Dh = q.shape
-    Hkv = k.shape[2]
+    B, _, H, Dq = q.shape
+    Hkv, Dv = k.shape[2], v.shape[-1]
     dtype = q.dtype
     if dtype not in DTYPES or any(t.dtype != dtype for t in (k, v, o, do)):
         raise TypeError(f"q/k/v/o/do must all be float32 or all bfloat16, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}, {o.dtype}, "
                         f"{do.dtype}")
-    if k.shape != (B, Lkv, Hkv, Dh) or v.shape != k.shape \
-            or o.shape != q.shape or do.shape != q.shape:
-        raise ValueError(f"k/v must be (B, Lkv, Hkv, {Dh}) and o/do like q "
+    if k.shape != (B, Lkv, Hkv, Dq) or v.shape != (B, Lkv, Hkv, Dv) \
+            or o.shape != (B, Lq, H, Dv) or do.shape != o.shape:
+        raise ValueError(f"k must be (B, Lkv, Hkv, {Dq}), v (B, Lkv, Hkv, "
+                         f"Dv) and o/do (B, Lq, H, Dv) for q "
                          f"{tuple(q.shape)}, got {tuple(k.shape)}, "
                          f"{tuple(v.shape)}, {tuple(o.shape)}, "
                          f"{tuple(do.shape)}")
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"H={H} must be a multiple of Hkv={Hkv}")
-    route = bwd_route(dtype, Lq, Lkv, Dh)
+    route = bwd_route(dtype, Lq, Lkv, Dq, Dv)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if not (B and Lq and H and Lkv):
@@ -245,34 +265,43 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse, dsum = (None, None) if route == "one_pass" else K.bwd_scratch(q)
+    lse, dsum = (None, None) if route == "one_pass" else \
+        K.bwd_scratch(q, route)
     for part in (2,) if route == "one_pass" else (0, 1):
         K.launch_bwd(q, k, v, o, do, dq, dk, dv, lse, dsum, causal=causal,
                      window=window or 0, prefix_len=prefix_len,
-                     q_offset=q_offset, part=part, scale_dim=Dh)
+                     q_offset=q_offset, part=part, scale_dim=Dq)
         flash_attention.launches_bwd += 1
         if dtype == torch.float32:
             flash_attention.launches_bwd_f32 += 1
+        elif route == "tiled_cc":
+            flash_attention.launches_bwd_cc += 1
+        elif Dv != Dq:
+            flash_attention.launches_bwd_dv += 1
         if part == 2:
             flash_attention.launches_bwd_f32_one_pass += 1
-    if q.shape[-1] != Dh:
-        return tuple(t[..., :Dh].contiguous() for t in (dq, dk, dv))
+    if q.shape[-1] != Dq:
+        dq, dk = dq[..., :Dq].contiguous(), dk[..., :Dq].contiguous()
+    if v.shape[-1] != Dv:
+        dv = dv[..., :Dv].contiguous()
     return dq, dk, dv
 
 
 def bwd_operands(*tensors: torch.Tensor) -> list[torch.Tensor]:
-    """q, k, v, o and do as the bf16 backward kernels read them through TMA
-    tensor maps: contiguous, with a 16-byte aligned base (a contiguous view
-    at a misaligned storage offset is copied) and a head dim that is a
-    multiple of 8 (16-byte rows): another head dim (100) is given as a
-    copy zero-padded to the next multiple, which adds nothing to S, dP or
-    D, and whose gradients' extra columns are zero. The kernels take the
-    scale of the unpadded head dim. Tensors already so are passed as they
-    are; nothing here depends on the device."""
-    pad = -tensors[0].shape[-1] % 8
+    """q, k, v, o and do as the bf16 backward kernels read them (through TMA
+    tensor maps on the wgmma pair, 16 bytes at a time on the CUDA-core
+    pair): contiguous, with a 16-byte aligned base (a contiguous view at a
+    misaligned storage offset is copied) and a head dim that is a multiple
+    of 8 (16-byte rows): another head dim (100) is given as a copy
+    zero-padded to the next multiple, each tensor to its own (q and k by
+    Dq, v, o and do by Dv), which adds nothing to S, dP or D, and whose
+    gradients' extra columns are zero. The kernels take the scale of the
+    unpadded Dq. Tensors already so are passed as they are; nothing here
+    depends on the device."""
     out = []
     for t in tensors:
         t = t.contiguous()
+        pad = -t.shape[-1] % 8
         if pad:
             t = torch.nn.functional.pad(t, (0, pad))
         elif t.data_ptr() % 16:

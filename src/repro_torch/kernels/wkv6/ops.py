@@ -1,22 +1,29 @@
-"""Wrapper around the WKV6 recurrence kernel (K5).
+"""Wrapper around the WKV6 recurrence kernel (K5) and its backward (K5-bwd).
 
 For CUDA tensors ``wkv6`` launches the hand-written kernel (see
 ``kernel.py``) on the current stream, or raises; for CPU tensors it runs
 the plain step loop in ``ref.py``. There is no fallback from one to the
-other. Launches are counted in ``wkv6.launches``. The kernel has no
-backward yet: under grad mode with an input that requires grad it raises
-(``kernels.refuse_grad``); the plain loop differentiates.
+other. Launches are counted in ``wkv6.launches``.
+
+Training: with grad mode on and an input that requires grad, ``wkv6``
+goes through ``WKV6Fn``, whose forward is the same call and whose
+backward is ``wkv6_bwd``: the hand-written kernel on CUDA tensors
+(``csrc/wkv6_bwd.cu``, launches counted in ``wkv6.launches_bwd``),
+``ref.wkv6_bwd_ref`` on CPU tensors. Neither falls back to the other.
 
 The reference has no Pallas kernel here: XLA compiles its step scan
 (``repro/models/ssm.py:93``, ``rwkv6_linear_attention``) into one loop on
 the TPU, where eager PyTorch would run L steps of small ops a layer. The
-kernel is a port extension, held against that jnp function.
+kernel and its backward are port extensions, held against that jnp
+function and ``jax.grad`` of it.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from repro_torch.kernels import on_cpu, refuse_grad
+from repro_torch.kernels import on_cpu
 from repro_torch.kernels.wkv6 import kernel as K
 from repro_torch.kernels.wkv6 import ref
 
@@ -31,10 +38,32 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides (unit stride in the last dim); w: (B, L, H, K) f32 decay; u:
     (H, K) bonus, widened to f32; state: (B, H, K, K) f32, read, not
     written. K = V <= 64. Returns (y (B, L, H, K) f32, the final state
-    (B, H, K, K) f32)."""
+    (B, H, K, K) f32). Under grad with an input that requires grad, the
+    call goes through ``WKV6Fn``."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, state)):
+        return WKV6Fn.apply(r, k, v, w, u.float(), state)
+    return _forward(r, k, v, w, u, state)
+
+
+def _forward(r, k, v, w, u, state) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5's launch on CUDA tensors, ``ref.wkv6_ref`` on CPU tensors."""
     if on_cpu(r, k, v, w, u, state):
         return ref.wkv6_ref(r, k, v, w, u, state)
-    refuse_grad("wkv6", r, k, v, w, u, state)
+    B, L, H, Kd = r.shape
+    _check(r, k, v, w, u, state)
+    u = u.to(torch.float32).contiguous()
+    s_in = state.contiguous()
+    y = torch.empty((B, L, H, Kd), dtype=torch.float32, device=r.device)
+    s_out = torch.empty_like(s_in)
+    if B * H == 0:
+        return y, s_out
+    K.launch(r, k, v, w, u, s_in, y, s_out)
+    wkv6.launches += 1
+    return y, s_out
+
+
+def _check(r, k, v, w, u, state) -> None:
     B, L, H, Kd = r.shape
     if k.shape != r.shape or v.shape != r.shape or w.shape != r.shape:
         raise ValueError(f"r, k, v and w must all be (B, L, H, K), got "
@@ -54,15 +83,55 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{state.dtype}")
     if any(t.stride(-1) != 1 for t in (r, k, v, w)):
         raise ValueError("r, k, v and w need unit stride in the head dim")
-    u = u.to(torch.float32).contiguous()
-    s_in = state.contiguous()
-    y = torch.empty((B, L, H, Kd), dtype=torch.float32, device=r.device)
-    s_out = torch.empty_like(s_in)
-    if B * H == 0:
-        return y, s_out
-    K.launch(r, k, v, w, u, s_in, y, s_out)
-    wkv6.launches += 1
-    return y, s_out
 
 
-wkv6.launches = 0
+wkv6.launches = 0           # every K5 launch
+wkv6.launches_bwd = 0       # every K5-bwd launch
+
+
+class WKV6Fn(torch.autograd.Function):
+    """The WKV6 recurrence with a hand-written backward: the forward is K5
+    (or ``ref.wkv6_ref`` on CPU tensors), unchanged; the backward
+    ``wkv6_bwd`` from the saved inputs. u comes in f32 (``wkv6`` widens
+    it outside, so autograd casts its gradient back)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, state)
+        return _forward(r, k, v, w, u, state)
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        return wkv6_bwd(*ctx.saved_tensors, dy, ds)
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+             dy: Optional[torch.Tensor], ds: Optional[torch.Tensor] = None
+             ) -> tuple[torch.Tensor, ...]:
+    """(dr, dk, dv, dw, du, d(state)) of ``wkv6`` at its inputs given the
+    cotangents dy of y and ds of the final state (either None for zero),
+    each in its input's dtype: on CUDA tensors one launch of K5-bwd
+    (counted in ``wkv6.launches_bwd``; B, L and H at least 1),
+    ``ref.wkv6_bwd_ref`` on CPU tensors. Inputs as ``wkv6`` takes them; dy
+    and ds are made contiguous f32."""
+    if on_cpu(r, k, v, w, u, state, dy, ds):
+        return ref.wkv6_bwd_ref(r, k, v, w, u, state, dy, ds)
+    _check(r, k, v, w, u, state)
+    B, L, H, Kd = r.shape
+    f32 = dict(dtype=torch.float32, device=r.device)
+    dr, dk, dv = (torch.empty((B, L, H, Kd), dtype=r.dtype, device=r.device)
+                  for _ in range(3))
+    dw = torch.empty((B, L, H, Kd), **f32)
+    du = torch.empty((H, Kd), **f32)
+    ds_in = torch.empty((B, H, Kd, Kd), **f32)
+    dy = torch.zeros((B, L, H, Kd), **f32) if dy is None else \
+        dy.to(torch.float32).contiguous()
+    if ds is not None:
+        ds = ds.to(torch.float32).contiguous()
+    K.launch_bwd(r, k, v, w, u.to(torch.float32).contiguous(),
+                 state.contiguous(), dy, ds, dr, dk, dv, dw, du, ds_in,
+                 K.bwd_scratch(r))
+    wkv6.launches_bwd += 1
+    return dr, dk, dv, dw, du.to(u.dtype), ds_in.to(state.dtype)

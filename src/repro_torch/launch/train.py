@@ -10,7 +10,9 @@ cross-entropy, backward, AdamW), the metrics line, a checkpoint every
 ``--ckpt-every`` steps through ``checkpoint.CheckpointManager`` (params,
 moments and the step, the reference's layout), ``--resume`` from the
 newest one. It runs on ``--device`` (default ``cuda``: K4 forward and its
-backward kernels; ``cpu`` runs the plain versions). ``--data``/``--model``
+backward kernels, for every attention kind (the MLA pairs and head dims
+up to 256 among them), and K5 with its backward kernel for rwkv6; ``cpu``
+runs the plain versions). Every LM configuration trains on the card. ``--data``/``--model``
 above 1 (meshes) raise until the parallel-training slice;
 ``--grad-compression`` is parsed and unused, as in the reference.
 

@@ -6,9 +6,11 @@ RWKV6 recurrence (per head, K = V = head_dim):
     y_t = r_t (S_{t-1} + diag(u . k_t) v_t^T)
 ``rwkv6_linear_attention`` runs it exactly, step by step: the WKV6 kernel
 (K5, ``kernels/wkv6``) on CUDA tensors, its plain step loop on CPU
-tensors. The reference scans it in chunks padded with w = 1, k = 0 steps,
-which leave the state as it was; the port runs the L real steps, which
-gives the same y and the same final state.
+tensors; under grad its backward is the K5-bwd kernel on CUDA tensors and
+the plain reverse recurrence on CPU tensors (``wkv6_ops.WKV6Fn``). The
+reference scans it in chunks padded with w = 1, k = 0 steps, which leave
+the state as it was; the port runs the L real steps, which gives the same
+y and the same final state.
 
 Mamba2 SSD (scalar-per-head decay a_t = exp(dt_t * A_h)):
     h_t = a_t h_{t-1} + dt_t * B_t (x) x_t ;  y_t = C_t . h_t + D x_t
@@ -106,9 +108,9 @@ def rwkv6_linear_attention(r, k, v, w, u, state, chunk: int):
     """The exact recurrence. r, k, w: (B, L, H, K); v: (B, L, H, V); u:
     (H, K); state: (B, H, K, V). Returns (y (B, L, H, V) f32, the final
     state f32), from ``kernels.wkv6.ops.wkv6``: the WKV6 kernel on CUDA
-    tensors (it launches or raises), its plain step loop on CPU tensors.
-    ``chunk`` is the reference's scan chunk; the result does not depend on
-    it."""
+    tensors (it launches or raises), its plain step loop on CPU tensors,
+    and under grad the backward kernel or its plain version. ``chunk`` is
+    the reference's scan chunk; the result does not depend on it."""
     return wkv6_ops.wkv6(r, k, v, w, u, state)
 
 

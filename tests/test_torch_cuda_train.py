@@ -9,11 +9,16 @@ rows), bf16 at the edges of the pair's 64-row tiles (L 1 to 4,095), the
 one-pass kernel at its 32- and 64-row tiles' edges (L 1 to 64; 65 goes to
 the pair), a misaligned bf16 view, a planted fault in each kernel that the
 limit must catch, bit-identical repeats and the launch count by route;
-``FlashAttentionFn`` on CUDA tensors (the backward kernels run, the plain
-backward does not); the kernels without a backward (K1, K2, K3, K5)
-refusing inputs that require grad; and one reduced train step on the card
-against the same step on the CPU. The kernels have no CPU mode, so these
-tests are marked ``gpu`` and skip without a CUDA device:
+the widths past Dq = Dv <= 128 (the MLA pairs (96, 64), (192, 128) and
+(24, 16), and head dim 256 with paligemma's MQA) in every mask mode, at L
+1 to 4,095, with planted faults and repeats; ``FlashAttentionFn`` on CUDA
+tensors (the backward kernels run, the plain backward does not); the
+WKV6 backward kernel (K5-bwd) against ``wkv6_bwd_ref`` at K 16 and 64
+with a carried state and a final-state cotangent, its planted fault and
+repeats, and ``WKV6Fn`` on CUDA tensors; the kernels without a backward
+(K1, K2, K3) refusing inputs that require grad; and one reduced train step
+on the card against the same step on the CPU. The kernels have no CPU
+mode, so these tests are marked ``gpu`` and skip without a CUDA device:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_train.py
 
@@ -23,18 +28,21 @@ Tolerances: f32 gradients within 1e-5 of the plain version's largest
 (``ref.attention_bwd_rss``: P and dS are bf16 operands of the
 tensor-core products, and a gradient row can cancel to 0 where its terms
 do not); the reduced f32 train step's loss at 1e-5 and each gradient leaf
-within 1e-4 of its largest |gradient|.
+within 1e-4 of its largest |gradient|; K5-bwd in f32 within 1e-5 of each
+gradient's largest |gradient|, and in bf16 (dr, dk and dv rounded to bf16
+by both) within 2^-7 |plain| more.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import bf16_excess
+from repro_torch.kernels import BF16_RTOL, bf16_excess
 from repro_torch.kernels.cosine_topk import ops as ctk_ops
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.wkv6 import ops as wkv6_ops
+from repro_torch.kernels.wkv6 import ref as wkv6_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -60,11 +68,11 @@ def _needs_cuda():
         pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
 
 
-def _inputs(B, Lq, Lkv, H, Hkv, D, dtype, seed, **kw):
+def _inputs(B, Lq, Lkv, H, Hkv, D, dtype, seed, Dv=None, **kw):
     g = torch.Generator(device=DEV).manual_seed(seed)
     q, k, v = (torch.randn(shape, generator=g, device=DEV).to(dtype)
                for shape in ((B, Lq, H, D), (B, Lkv, Hkv, D),
-                             (B, Lkv, Hkv, D)))
+                             (B, Lkv, Hkv, D if Dv is None else Dv)))
     o = fa_ref.attention_ref(q, k, v, p_dtype=v.dtype, **kw)
     do = torch.randn(o.shape, generator=g, device=DEV).to(dtype)
     return q, k, v, o, do
@@ -91,16 +99,27 @@ def _launches():
             fa.launches_bwd_f32_one_pass)
 
 
-def _check(B, Lq, Lkv, H, Hkv, D, dtype, seed, exact_zero=(), **kw):
-    q, k, v, o, do = _inputs(B, Lq, Lkv, H, Hkv, D, dtype, seed, **kw)
-    one_pass = fa_ops.bwd_route(dtype, Lq, Lkv, D) == "one_pass"
+def _new_launches():
+    fa = fa_ops.flash_attention
+    return fa.launches_bwd_dv, fa.launches_bwd_cc
+
+
+def _check(B, Lq, Lkv, H, Hkv, D, dtype, seed, exact_zero=(), Dv=None,
+           **kw):
+    q, k, v, o, do = _inputs(B, Lq, Lkv, H, Hkv, D, dtype, seed, Dv, **kw)
+    route = fa_ops.bwd_route(dtype, Lq, Lkv, D, Dv)
+    one_pass = route == "one_pass"
     n = 1 if one_pass else 2          # launches: one kernel, or (a) and (b)
-    before = _launches()
+    bf16 = dtype == torch.bfloat16
+    before, new = _launches(), _new_launches()
     got = fa_ops.flash_attention_bwd(q, k, v, o, do, **kw)
     torch.cuda.synchronize()
     assert _launches() == (before[0] + n,
                            before[1] + n * (dtype == torch.float32),
                            before[2] + one_pass)
+    assert _new_launches() == (
+        new[0] + n * (route == "tiled" and bf16 and Dv not in (None, D)),
+        new[1] + n * (route == "tiled_cc"))
     plain = fa_ref.attention_bwd_ref(q, k, v, o, do, **kw)
     rss = fa_ref.attention_bwd_rss(q, k, v, o, do, **kw)
     assert bwd_excess(got, plain, rss, dtype, exact_zero) <= 1.0
@@ -346,6 +365,188 @@ def test_flash_attention_fn_runs_the_backward_kernels():
         assert torch.equal(a, b)
 
 
+# the widths past Dq = Dv <= 128 (Dq, Dv): minicpm3-4b's and deepseek-v2's
+# MLA pairs, launch.train --reduced's MLA, paligemma-3b's 256
+WIDTHS = {"96x64": (96, 64), "192x128": (192, 128), "24x16": (24, 16),
+          "256": (256, 256)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+@pytest.mark.parametrize("mode", list(MODES))
+def test_new_widths_every_mask_mode(mode, width, dtype):
+    """q/k of Dq with v of Dv, and head dim 256, in every mask mode: the
+    bf16 wgmma pair at (96, 64) and (24, 16), the bf16 CUDA-core pair at
+    (192, 128) and 256, the f32 tiled pair at all four."""
+    Lq, Lkv, causal, window, prefix, q_offset = MODES[mode]
+    Dq, Dv = WIDTHS[width]
+    _check(2, Lq, Lkv, 8, 2, Dq, dtype, seed=len(mode) + Dq, Dv=Dv,
+           causal=causal, window=window, prefix_len=prefix,
+           q_offset=q_offset)
+
+
+# every mask mode at L queries: (keys past L, mask)
+EDGE_MODES = {"causal": (0, dict(causal=True)),
+              "bidirectional": (0, dict(causal=False)),
+              "window": (0, dict(causal=True, window=37)),
+              "prefix": (0, dict(causal=True, prefix_len=40)),
+              "cross": (37, dict(causal=False)),
+              "q_offset": (40, dict(causal=True, q_offset=40)),
+              "masked_rows": (0, dict(causal=True, q_offset=-20))}
+
+
+@pytest.mark.parametrize("mode", list(EDGE_MODES))
+@pytest.mark.parametrize("width", list(WIDTHS))
+@pytest.mark.parametrize("L", [1, 63, 64, 65, 127, 128, 129, 4095])
+def test_new_widths_bf16_at_tile_edges(L, width, mode):
+    """bf16 at the new widths around the pairs' tiles (the wgmma pair's 64
+    rows, the CUDA-core pair's 32), in every mask mode, one kv head for 8
+    query heads (paligemma's MQA); at 4,095 tokens two heads only."""
+    Dq, Dv = WIDTHS[width]
+    extra, kw = EDGE_MODES[mode]
+    H = 2 if L == 4095 else 8
+    _check(1, L, L + extra, H, 1, Dq, torch.bfloat16, seed=L + Dq, Dv=Dv,
+           **kw)
+
+
+@pytest.mark.parametrize("width", list(WIDTHS))
+@pytest.mark.parametrize("L", [1, 24, 31, 32, 33, 64, 65])
+def test_new_widths_f32_at_the_one_pass_edges(L, width):
+    """f32 at the one-pass band's edges (64 tokens up to head dim 128, 32
+    past it) at the new widths; at L = 1 dq and dk are 0 in exact
+    arithmetic and are held to the largest |gradient| of the three."""
+    Dq, Dv = WIDTHS[width]
+    _check(2, L, L, 10, 2, Dq, torch.float32, seed=L + Dq, Dv=Dv,
+           exact_zero=(0, 1) if L == 1 else (), causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("width", list(WIDTHS))
+def test_new_widths_planted_faults_and_repeats(width, dtype):
+    """A dQ without one 64-key tile and a dK with those rows zeroed must
+    each fail the limit against the right output; a second call repeats
+    the first bit for bit."""
+    Dq, Dv = WIDTHS[width]
+    kw = dict(causal=True)
+    q, k, v, o, do, got, plain, rss = _check(1, 256, 256, 8, 2, Dq, dtype,
+                                              seed=19, Dv=Dv, **kw)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got, again):
+        assert x.data_ptr() != y.data_ptr() and torch.equal(x, y)
+    t0, t1 = 64, 128
+    p, dp, dsum, _, _, scale = fa_ref._bwd_terms(q, k, v, o, do, True, None,
+                                                 0, None)
+    ds = (p * (dp - dsum))[..., t0:t1]
+    part = torch.einsum("bhgqk,bkhd->bqhgd", ds, k[:, t0:t1].float())
+    dq_fault = (got[0].float() - part.reshape(q.shape) * scale).to(dtype)
+    dk_fault = got[1].clone()
+    dk_fault[:, t0:t1] = 0
+    assert bwd_excess((dq_fault, got[1], got[2]), plain, rss, dtype) > 1
+    assert bwd_excess((got[0], dk_fault, got[2]), plain, rss, dtype) > 1
+
+
+@pytest.mark.parametrize("width", ["96x64", "256"])
+def test_flash_attention_fn_at_the_new_widths(width):
+    """Under autograd the MLA pair and head dim 256 run K4's forward and
+    the backward kernels, never the plain backward."""
+    Dq, Dv = WIDTHS[width]
+    q, k, v, _, do = _inputs(1, 200, 200, 8, 1, Dq, torch.bfloat16, 9, Dv,
+                             causal=True, prefix_len=30)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    plain_calls = fa_ref.attention_bwd_ref.calls
+    before = fa_ops.flash_attention.launches_bwd
+    out = fa_ops.flash_attention(*xs, causal=True, prefix_len=30)
+    grads = torch.autograd.grad(out, xs, do)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches_bwd == before + 2
+    assert fa_ref.attention_bwd_ref.calls == plain_calls
+    want = fa_ops.flash_attention_bwd(q, k, v, out.detach(), do,
+                                      causal=True, prefix_len=30)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
+
+
+def _wkv6_inputs(B, L, H, K, dtype, seed):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    r, k, v = (torch.randn((B, L, H, K), generator=g, device=DEV).to(dtype)
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.rand((B, L, H, K), generator=g,
+                                        device=DEV) * 4 - 3))
+    u = torch.randn((H, K), generator=g, device=DEV)
+    s = torch.randn((B, H, K, K), generator=g, device=DEV)
+    dy = torch.randn((B, L, H, K), generator=g, device=DEV)
+    ds = torch.randn((B, H, K, K), generator=g, device=DEV)
+    return (r, k, v, w, u, s), dy, ds
+
+
+def wkv6_excess(got, plain) -> float:
+    """The largest error of the six gradients over its limit: 1e-5 of the
+    gradient's largest |plain|, plus 2^-7 |plain| where both round it to
+    bf16."""
+    out = 0.0
+    for a, b in zip(got, plain):
+        lim = F32_RTOL * float(b.float().abs().max()) + (
+            BF16_RTOL * b.float().abs() if a.dtype == torch.bfloat16 else 0)
+        d = (a.float() - b.float()).abs()
+        out = max(out, float((d / lim).max()) if float(d.max()) else 0.0)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("K", [16, 64])
+@pytest.mark.parametrize("L", [1, 17, 100])
+@pytest.mark.parametrize("cot", [False, True], ids=["y", "y_and_state"])
+def test_wkv6_backward_kernel_matches_plain(cot, L, K, dtype):
+    """K5-bwd against ``wkv6_bwd_ref`` with a carried state, the cotangent
+    of y alone or also of the final state: one launch, every gradient
+    within the limit, and a second call bit-identical."""
+    xs, dy, ds = _wkv6_inputs(2, L, 3, K, dtype, seed=L + K)
+    ds = ds if cot else None
+    n = wkv6_ops.wkv6.launches_bwd
+    got = wkv6_ops.wkv6_bwd(*xs, dy, ds)
+    again = wkv6_ops.wkv6_bwd(*xs, dy, ds)
+    torch.cuda.synchronize()
+    assert wkv6_ops.wkv6.launches_bwd == n + 2
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    plain = wkv6_ref.wkv6_bwd_ref(*xs, dy, ds)
+    assert [g.dtype for g in got] == [g.dtype for g in plain]
+    assert wkv6_excess(got, plain) <= 1.0
+
+
+def test_wkv6_backward_kernel_catches_a_planted_fault():
+    """The plain backward with one step's dy dropped must fail the limit
+    against the kernel's output."""
+    xs, dy, ds = _wkv6_inputs(1, 300, 4, 64, torch.float32, seed=3)
+    got = wkv6_ops.wkv6_bwd(*xs, dy, ds)
+    faulty = dy.clone()
+    faulty[:, 150] = 0
+    plain = wkv6_ref.wkv6_bwd_ref(*xs, faulty, ds)
+    assert wkv6_excess(got, plain) > 1.0
+
+
+def test_wkv6_fn_runs_the_backward_kernel():
+    """Under autograd WKV6 runs K5 forward and K5-bwd once each; the
+    gradients equal a direct ``wkv6_bwd`` call, u's cast back to bf16."""
+    xs, dy, _ = _wkv6_inputs(1, 40, 2, 64, torch.bfloat16, seed=4)
+    r, k, v, w, u, s = xs
+    u = u.to(torch.bfloat16)
+    leaves = [x.clone().requires_grad_() for x in (r, k, v, w, u)]
+    before = (wkv6_ops.wkv6.launches, wkv6_ops.wkv6.launches_bwd)
+    y, _ = wkv6_ops.wkv6(*leaves, s)
+    grads = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert (wkv6_ops.wkv6.launches, wkv6_ops.wkv6.launches_bwd) == (
+        before[0] + 1, before[1] + 1)
+    want = wkv6_ops.wkv6_bwd(r, k, v, w, u.float(), s, dy)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b.to(a.dtype))
+
+
 def test_kernels_without_a_backward_refuse_grad():
     g = torch.Generator(device=DEV).manual_seed(0)
     q = torch.randn((4, 64), generator=g, device=DEV, requires_grad=True)
@@ -365,12 +566,6 @@ def test_kernels_without_a_backward_refuse_grad():
     with pytest.raises(RuntimeError, match="no backward"):
         da_ops.decode_attention(qd, cache, cache,
                                 torch.full((2,), 20, device=DEV))
-    r = torch.randn((1, 20, 2, 16), generator=g, device=DEV,
-                    requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        wkv6_ops.wkv6(r, r.detach(), r.detach(), torch.rand_like(r),
-                      torch.zeros(2, 16, device=DEV),
-                      torch.zeros(1, 2, 16, 16, device=DEV))
     with torch.no_grad():                 # serving is unchanged
         ctk_ops.cosine_topk(q, rows)
 

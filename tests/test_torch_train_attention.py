@@ -2,8 +2,11 @@
 ``kernels.flash_attention.ops.flash_attention`` takes under grad) held
 against ``jax.grad`` of the reference model layer's ``flash_attention``
 (also at the embedder's layout: 12 heads of 64, 24 tokens,
-bidirectional), the route ``ops.bwd_route`` gives a call on the card
-(the one-pass kernel or the tiled pair), and its plain version
+bidirectional; and at the MLA pairs (96, 64), (192, 128) and the reduced
+(24, 16), and at paligemma's head dim 256 with its bidirectional prefix
+and 8 query heads a kv head), the route ``ops.bwd_route`` gives a call on
+the card (the one-pass kernel, the tiled pair or the CUDA-core bf16 pair)
+and what ``ops.bwd_check`` refuses, and its plain version
 ``attention_bwd_ref`` against autograd through
 ``attention_ref``, in every mask mode (causal, bidirectional, window,
 prefix, cross attention with Lq != Lkv, an explicit q_offset, a fully
@@ -11,9 +14,10 @@ masked row) with GQA (1 and 4 query heads a kv head); the route by
 which the bf16 kernels take a head dim that is not a multiple of 8 (a
 zero-padded copy, ``ops.bwd_operands``) against the unpadded one, and the
 aligned copy it makes of a misaligned view; what the
-backward does not take raises under grad; the wrappers of the kernels
-without a backward refuse inputs that require grad (``refuse_grad``, on
-CUDA tensors only: on the CPU their plain versions differentiate).
+backward does not take (a ragged ``kv_valid_len``) raises under grad; the
+wrappers of the kernels without a backward refuse inputs that require
+grad (``refuse_grad``, on CUDA tensors only: on the CPU their plain
+versions differentiate).
 
 Tolerance: f32 gradients within 1e-5 of the largest |gradient| (f32 sums
 in another order).
@@ -48,12 +52,13 @@ MODES = {
 }
 
 
-def _inputs(B, Lq, Lkv, H, Hkv, D, seed):
+def _inputs(B, Lq, Lkv, H, Hkv, D, seed, Dv=None):
+    Dv = D if Dv is None else Dv
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(B, Lq, H, D)).astype(np.float32)
     k = rng.normal(size=(B, Lkv, Hkv, D)).astype(np.float32)
-    v = rng.normal(size=(B, Lkv, Hkv, D)).astype(np.float32)
-    do = rng.normal(size=(B, Lq, H, D)).astype(np.float32)
+    v = rng.normal(size=(B, Lkv, Hkv, Dv)).astype(np.float32)
+    do = rng.normal(size=(B, Lq, H, Dv)).astype(np.float32)
     return q, k, v, do
 
 
@@ -67,14 +72,29 @@ def _close(got, want):
 # bidirectional, 12 heads of 64; on the card its backward is the one-pass
 # kernel
 EMBED_MODE = (24, 24, False, None, 0, 0)
+# the backward's other widths (Dq, Dv): minicpm3-4b's and deepseek-v2-236b's
+# MLA pairs, the reduced MLA's, paligemma-3b's 256
+WIDTHS = ((96, 64), (192, 128), (24, 16), (256, 256))
+FN_CASES = ([(m, G, None) for m in MODES for G in (1, 4)]
+            + [("embedder", 1, None)]
+            + [(m, 1, d) for d in WIDTHS for m in MODES]
+            + [("prefix", 8, d) for d in WIDTHS])
 
 
-@pytest.mark.parametrize("mode,G", [(m, G) for m in MODES for G in (1, 4)]
-                         + [("embedder", 1)])
-def test_flash_attention_fn_grads_match_jax(mode, G):
+@pytest.mark.parametrize(
+    "mode,G,dims", FN_CASES,
+    ids=[f"{m}-{G}" + (f"-{d[0]}x{d[1]}" if d else "")
+         for m, G, d in FN_CASES])
+def test_flash_attention_fn_grads_match_jax(mode, G, dims):
+    """Head dim 16 (64 at the embedder's layout) with Dv = Dq, and the
+    widths of ``WIDTHS``: q/k of Dq with v of Dv, the scale 1 / sqrt(Dq);
+    at G = 8 one kv head serves 8 query heads, as paligemma's MQA."""
     Lq, Lkv, causal, window, prefix, q_offset = MODES.get(mode, EMBED_MODE)
     H, Hkv, D = (12, 12, 64) if mode == "embedder" else (2 * G, 2, 16)
-    q, k, v, do = _inputs(2, Lq, Lkv, H, Hkv, D, seed=G)
+    Dv = D
+    if dims:
+        (D, Dv), Hkv, H = dims, 2 if G == 1 else 1, 2 if G == 1 else G
+    q, k, v, do = _inputs(2, Lq, Lkv, H, Hkv, D, seed=G, Dv=Dv)
     kw = dict(causal=causal, window=window, prefix_len=prefix,
               q_offset=q_offset)
 
@@ -102,19 +122,67 @@ def test_flash_attention_fn_grads_match_jax(mode, G):
     (torch.float32, 1024, 1024, 128, "tiled"),
     (torch.bfloat16, 24, 24, 64, "tiled"),
     (torch.bfloat16, 1, 1, 16, "tiled"),
-    (torch.float32, 24, 24, 129, ValueError),
+    (torch.float32, 24, 24, 129, "one_pass"),
+    (torch.float32, 32, 32, 256, "one_pass"),
+    (torch.float32, 33, 33, 129, "tiled"),
+    (torch.float32, 4096, 4096, 256, "tiled"),
+    (torch.bfloat16, 4096, 4096, 128, "tiled"),
+    (torch.bfloat16, 24, 24, 129, "tiled_cc"),
+    (torch.bfloat16, 4096, 4096, 256, "tiled_cc"),
+    (torch.float32, 24, 24, 257, ValueError),
     (torch.float32, 24, 24, 0, ValueError),
 ], ids=lambda x: str(x).replace("torch.", "") if not isinstance(x, type)
    else x.__name__)
 def test_bwd_route(dtype, Lq, Lkv, Dh, route):
-    """f32 calls with both lengths at most 64 take the one-pass kernel,
-    every other call the tiled pair; a head dim no backward kernel takes
-    raises."""
+    """f32 calls with both lengths at most 64 (32 past head dim 128) take
+    the one-pass kernel, every other call a pair: the tiled pair, or in
+    bf16 past head dim 128 the CUDA-core pair ("tiled_cc"); a head dim no
+    backward kernel takes (outside [1, 256]) raises."""
     if isinstance(route, type):
         with pytest.raises(route):
             fa_ops.bwd_route(dtype, Lq, Lkv, Dh)
     else:
         assert fa_ops.bwd_route(dtype, Lq, Lkv, Dh) == route
+
+
+@pytest.mark.parametrize("dtype,Lq,Lkv,Dq,Dv,route", [
+    (torch.bfloat16, 4096, 4096, 96, 64, "tiled"),      # minicpm3-4b
+    (torch.bfloat16, 128, 128, 24, 16, "tiled"),        # --reduced MLA
+    (torch.bfloat16, 300, 300, 64, 128, "tiled"),
+    (torch.bfloat16, 4096, 4096, 192, 128, "tiled_cc"),  # deepseek-v2
+    (torch.bfloat16, 4096, 4096, 256, 256, "tiled_cc"),  # paligemma-3b
+    (torch.float32, 64, 64, 96, 64, "one_pass"),
+    (torch.float32, 64, 64, 192, 128, "tiled"),
+    (torch.float32, 32, 32, 192, 128, "one_pass"),
+    (torch.float32, 65, 65, 24, 16, "tiled"),
+    (torch.float32, 24, 24, 64, 257, ValueError),
+    (torch.bfloat16, 24, 24, 0, 64, ValueError),
+], ids=lambda x: str(x).replace("torch.", "") if not isinstance(x, type)
+   else x.__name__)
+def test_bwd_route_of_q_and_v_widths(dtype, Lq, Lkv, Dq, Dv, route):
+    """The route of a call whose v head dim differs from the q/k one: the
+    larger of the two decides the one-pass band (64 tokens up to 128, 32
+    past it) and, in bf16, the wgmma pair (both up to 128) or the
+    CUDA-core pair."""
+    if isinstance(route, type):
+        with pytest.raises(route):
+            fa_ops.bwd_route(dtype, Lq, Lkv, Dq, Dv)
+    else:
+        assert fa_ops.bwd_route(dtype, Lq, Lkv, Dq, Dv) == route
+
+
+@pytest.mark.parametrize("Dq,Dv", [(16, 16), (96, 64), (192, 128),
+                                   (24, 16), (256, 256)])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_bwd_check_refuses_only_kv_valid_len(Dq, Dv, ragged):
+    """Every width the forward takes has a backward; a ragged
+    ``kv_valid_len`` raises, at every width."""
+    kvl = torch.tensor([3]) if ragged else None
+    if ragged:
+        with pytest.raises(NotImplementedError):
+            fa_ops.bwd_check(Dq, Dv, kvl)
+    else:
+        fa_ops.bwd_check(Dq, Dv, kvl)
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -187,13 +255,18 @@ def test_without_grad_serving_takes_the_plain_forward():
 
 @pytest.mark.parametrize("case", ["dv", "dh", "kv_valid_len"])
 def test_backward_modes_it_does_not_take_raise_under_grad(case):
+    """A ragged ``kv_valid_len`` has no backward: under grad it raises, at
+    the MLA pair (96, 64) ("dv"), at head dim 256 ("dh") and at 16; the
+    widths themselves now train (``FlashAttentionFn``)."""
     Dq, Dv = {"dv": (96, 64), "dh": (256, 256)}.get(case, (16, 16))
     q = torch.randn(1, 4, 2, Dq, requires_grad=True)
     k = torch.randn(1, 4, 2, Dq)
     v = torch.randn(1, 4, 2, Dv)
-    kvl = torch.tensor([3]) if case == "kv_valid_len" else None
+    kvl = torch.tensor([3])
     with pytest.raises(NotImplementedError):
         fa_ops.flash_attention(q, k, v, kv_valid_len=kvl)
+    out = fa_ops.flash_attention(q, k, v)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
     with torch.no_grad():                 # serving takes them all
         fa_ops.flash_attention(q, k, v, kv_valid_len=kvl)
 
@@ -208,13 +281,15 @@ def test_refuse_grad():
 
 
 def test_wkv6_plain_version_differentiates_on_the_cpu():
-    """On CPU tensors the WKV6 wrapper runs its plain loop, which autograd
-    differentiates (its kernel refuses grad on the card)."""
+    """On CPU tensors under grad the WKV6 wrapper runs ``WKV6Fn``: its
+    plain loop forward and the plain reverse recurrence
+    (``wkv6_bwd_ref``) backward, which reach every input."""
     g = torch.Generator().manual_seed(0)
     r, k, v = (torch.randn(1, 5, 2, 4, generator=g, requires_grad=True)
                for _ in range(3))
     w = torch.rand(1, 5, 2, 4, generator=g)
     u = torch.randn(2, 4, generator=g)
     y, s = wkv6_ops.wkv6(r, k, v, w, u, torch.zeros(1, 2, 4, 4))
+    assert type(y.grad_fn).__name__ == "WKV6FnBackward"
     grads = torch.autograd.grad((y.sum() + s.sum()), (r, k, v))
     assert all(bool(x.abs().sum() > 0) for x in grads)

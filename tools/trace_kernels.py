@@ -3,7 +3,7 @@
 read from a ``torch.profiler`` trace, at the main path's shapes.
 
     python3 tools/trace_kernels.py [--src DIR] [--iters N] [--out DIR]
-                                   [--only topk,prefill,decode,embed,local,ssm,bwd,k4]
+                                   [--only topk,prefill,decode,embed,local,ssm,bwd,k4,train]
                                    [--sass]
 
 Traces K1 (f32 cosine top-k, k=1, early exit on, random queries so every
@@ -47,7 +47,14 @@ each beside scaled_dot_product_attention and its operations bound, twice,
 with two calls compared bit for bit; at qwen3's call also the unrouted
 probe ``flash_attention_probe`` (flash_bf16_persistent at 128 / 128,
 where the library has it) against the routed flash_bf16; then ptxas's
-report of every bf16 forward instance.
+report of every bf16 forward instance; and (``train``) the training
+path's backward modes at B 1 x 4,096 tokens: the bf16 attention backward
+at minicpm3-4b's 40 heads of (96, 64) and deepseek-v2-236b's 128 of
+(192, 128), causal, and at paligemma-3b's 8/1 heads of 256 with its
+256-token prefix, each (a) and (b) apart beside SDPA's backward (where it
+takes the call) and the operations bound of its products over the mask's
+pairs; K5-bwd at rwkv6-7b's 64 heads of 64 beside its operations bound;
+then ptxas's lines of every bf16 backward instance and of K5-bwd.
 For each call it prints every device kernel the call launched (pass 1
 and pass 2 of K1/K2 apart, K3's casts and passes apart) with its
 mean time per call; for K4 the achieved TFLOP/s of the causal half, for
@@ -76,15 +83,18 @@ PREFILL = dict(B=1, L=4096, H=40, Hkv=8, Dh=128)
 DECODE = dict(B=4, H=40, Hkv=8, Dh=128)
 DECODE_CALLS = ((8192, 4096), (32768, 32768))   # (cache length, kv_len)
 H100_BYTES_PER_S = 3.35e12
-GROUPS = ("topk", "prefill", "decode", "embed", "local", "ssm", "bwd", "k4")
+GROUPS = ("topk", "prefill", "decode", "embed", "local", "ssm", "bwd", "k4",
+          "train")
 H100_FP32_FLOPS = 67e12
 TOPK_BATCHES = (1, 4, 8, 32)
 H100_BF16_FLOPS = 989e12
 # the groups that need each kernel library: a run builds only those
 GROUP_LIBS = {"cosine_topk": {"topk", "local"}, "cosine_topk_q8": {"topk"},
               "decode_attention": {"decode", "ssm"}, "wkv6": {"ssm"},
-              "flash_attention": {"prefill", "embed", "ssm", "bwd", "k4"},
-              "flash_attention_bwd": {"bwd"}}
+              "flash_attention": {"prefill", "embed", "ssm", "bwd", "k4",
+                                  "train"},
+              "flash_attention_bwd": {"bwd", "train"},
+              "wkv6_bwd": {"train"}}
 # bf16 K4 at the main path's prefill calls (B 1, 4,096 causal tokens):
 # (label, H, Hkv, Dq, Dv)
 K4_CALLS = (("qwen3-14b", 40, 8, 128, 128), ("minicpm3-4b", 40, 40, 96, 64),
@@ -245,6 +255,8 @@ def main() -> int:
     if "k4" in only:
         trace_k4(torch, fa, _build, reports.get("flash_attention"), g,
                  max(args.iters, 20), res)
+    if "train" in only:
+        trace_train(torch, fa, reports, g, args.iters, res)
     out = ROOT / args.out
     out.mkdir(parents=True, exist_ok=True)
     (out / "trace_kernels.json").write_text(json.dumps(res, indent=1))
@@ -863,6 +875,109 @@ def _probe_entry(_build):
         return _build.entry("flash_attention", "flash_attention_probe")
     except AttributeError:
         return None
+
+
+# the training path's backward modes (label, H, Hkv, Dq, Dv, prefix_len), B 1
+# x 4,096 causal bf16 tokens
+TRAIN_CALLS = (("minicpm3-4b", 40, 40, 96, 64, 0),
+               ("deepseek-v2-236b", 128, 128, 192, 128, 0),
+               ("paligemma-3b", 8, 1, 256, 256, 256))
+WKV6_BWD = dict(B=1, L=4096, H=64, K=64)
+
+
+def trace_train(torch, fa, reports, g, iters: int, res: dict) -> None:
+    """The bf16 attention backward at TRAIN_CALLS, (a) and (b) apart through
+    ``kernel.launch_bwd`` and the whole ``flash_attention_bwd`` call, beside
+    SDPA's backward (is_causal, or a boolean mask with the prefix; none
+    where SDPA refuses the call) and the operations bound of the products
+    the outputs need over the mask's pairs (S, dP, dQ for (a); S, dP, dV,
+    dK for (b); each over Dq or Dv) at 989 TFLOP/s; K5-bwd at WKV6_BWD
+    (bf16 r, k, v, a zero state) beside its bound (14 K V fp32 flops a
+    (token, head) at 67 TFLOP/s); then ptxas's lines of every bf16
+    backward instance and K5-bwd's."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ref as fr
+    from repro_torch.kernels.wkv6 import ops as wo
+    B, L = 1, 4096
+    for label, H, Hkv, Dq, Dv, prefix in TRAIN_CALLS:
+        q = torch.randn((B, L, H, Dq), generator=g, device="cuda").bfloat16()
+        k = torch.randn((B, L, Hkv, Dq), generator=g, device="cuda").bfloat16()
+        v = torch.randn((B, L, Hkv, Dv), generator=g, device="cuda").bfloat16()
+        kw = dict(causal=True, prefix_len=prefix)
+        o = fa.flash_attention(q, k, v, **kw)
+        do = torch.randn(o.shape, generator=g, device="cuda").bfloat16()
+        route = fa.bwd_route(torch.bfloat16, L, L, Dq, Dv)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        lse, dsum = K.bwd_scratch(q, route)
+        parts = {n: (lambda part=part: K.launch_bwd(
+            q, k, v, o, do, dq, dk, dv, lse, dsum, causal=True, window=0,
+            prefix_len=prefix, q_offset=0, part=part))
+            for n, part in (("dq", 0), ("dkv", 1))}
+        pairs = L * (L + 1) // 2 + prefix * (prefix - 1) // 2
+        pq, pv = 2.0 * B * H * Dq * pairs, 2.0 * B * H * Dv * pairs
+        bound = {"dq": 1e3 * (2 * pq + pv) / H100_BF16_FLOPS,
+                 "dkv": 1e3 * (2 * pq + 2 * pv) / H100_BF16_FLOPS}
+        rec = {"H": H, "Hkv": Hkv, "Dq": Dq, "Dv": Dv, "prefix_len": prefix,
+               "route": route, "bound_ms": bound}
+        for n, f in parts.items():
+            own = device_kernel_ms(torch, f, iters)[0]
+            rec[f"{n}_kernels_ms"] = own
+        whole = device_kernel_ms(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, o, do, **kw), iters)[0]
+        rec["kernels_ms"] = whole
+        mask = None if not prefix else fr.attention_mask(
+            L, L, causal=True, window=None, prefix_len=prefix, q_offset=0,
+            kv_valid_len=None, device="cuda")[0]
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        try:
+            out = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=H != Hkv)
+            dot = do.transpose(1, 2)
+            other = device_kernel_ms(torch, lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True), iters)[0]
+            rec["library_ms"] = sum(other.values()) if other else None
+            del out, dot
+        except RuntimeError as e:
+            rec["library_ms"] = None
+            rec["library_refused"] = str(e).splitlines()[0][:160]
+        res[f"flash_attention_bwd/{label}"] = rec
+        print(f"[trace] flash_attention_bwd bf16 {label} B 1 x {L}, {H}/"
+              f"{Hkv} heads of {Dq}/{Dv}, causal, prefix {prefix} ({route}): "
+              + "; ".join(f"({n}) " + ", ".join(
+                  f"{x} {t:.4f} ms" for x, t in rec[f'{n}_kernels_ms'].items())
+                  + f" (bound {bound[n]:.4f} ms)" for n in parts)
+              + f"; the call {sum(whole.values()):.4f} ms; SDPA's backward "
+              + ("refused" if rec["library_ms"] is None else
+                 f"{rec['library_ms']:.4f} ms"), flush=True)
+        del q, k, v, o, do, dq, dk, dv, lse, dsum, qt, kt, vt
+        torch.cuda.empty_cache()
+    Bw, Lw, Hw, Kw = (WKV6_BWD[x] for x in "BLHK")
+    r, kk, vv = (torch.randn((Bw, Lw, Hw, Kw), generator=g, device="cuda")
+                 .bfloat16() for _ in range(3))
+    w = torch.exp(-torch.exp(torch.rand((Bw, Lw, Hw, Kw), generator=g,
+                                        device="cuda") * 4 - 3))
+    u = torch.randn((Hw, Kw), generator=g, device="cuda")
+    s0 = torch.zeros((Bw, Hw, Kw, Kw), device="cuda")
+    dy = torch.randn((Bw, Lw, Hw, Kw), generator=g, device="cuda")
+    own = device_kernel_ms(torch, lambda: wo.wkv6_bwd(r, kk, vv, w, u, s0,
+                                                      dy), iters)[0]
+    fwd = device_kernel_ms(torch, lambda: wo.wkv6(r, kk, vv, w, u, s0),
+                           iters)[0]
+    bound = 1e3 * 14.0 * Bw * Lw * Hw * Kw * Kw / H100_FP32_FLOPS
+    res["wkv6_bwd"] = {"shape": WKV6_BWD, "kernels_ms": own,
+                       "forward_kernels_ms": fwd, "bound_ms": bound}
+    print(f"[trace] wkv6_bwd {WKV6_BWD} bf16: " + "; ".join(
+        f"{n} {t:.4f} ms" for n, t in own.items()) + f" (bound {bound:.4f} "
+        f"ms, operations); the forward K5 " + "; ".join(
+        f"{n} {t:.4f} ms" for n, t in fwd.items()), flush=True)
+    for lib, key in (("flash_attention_bwd", "bf16"), ("wkv6_bwd", "wkvb")):
+        for name, r in ptxas_functions(reports.get(lib)).items():
+            if key in name:
+                res.setdefault("train_ptxas", {})[name] = r
+                print(f"[ptxas] {name}: {r}", flush=True)
 
 
 if __name__ == "__main__":
