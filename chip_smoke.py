@@ -6112,8 +6112,8 @@ BWD_SHORT_SWEEP = tuple(
 # the backward's widths past Dq = Dv <= 128, (Dq, Dv): the MLA pairs of
 # minicpm3-4b, deepseek-v2-236b and launch.train --reduced, (64, 128), and
 # paligemma-3b's 256 and 160; in bf16 the wgmma pair takes (96, 64), (24,
-# 16) and (64, 128), the CUDA-core pair those past 128 (its instance <192>
-# (192, 128) and 160, <256> 256)
+# 16) and (64, 128), the wide wgmma pair those past 128 (its instance <192,
+# 128> (192, 128), <256, 256> 256 and 160)
 BWD_WIDTHS = ((96, 64), (192, 128), (24, 16), (64, 128), (256, 256),
               (160, 160))
 # (shape, mask) of (a) at those widths: every mode at B 2, H 8/2, in f32
@@ -6133,11 +6133,12 @@ BWD_WIDTH_SHORT = tuple(
     for dq, dv in BWD_WIDTHS for L in (13, 31))
 # the new modes at the main path's widths, bf16 B 1 x 4,096, causal (each
 # also timed there): minicpm3-4b's 40 heads of (96, 64); paligemma-3b's 8
-# query heads and 1 kv head of 256 with its 256-token image prefix;
+# query heads and 1 kv head of 256 with its 256-token image prefix, at the
+# 4,352 tokens (256 patches and 4,096 text tokens) of phase 13 (b)'s step;
 # deepseek-v2-236b's 128 heads of (192, 128), held at 1,024 tokens (its
 # training step does not fit the card: phase 11 serves 4 of its 60 layers)
 BWD_MLA = dict(B=1, Lq=4096, Lkv=4096, H=40, Hkv=40, Dh=96, Dv=64)
-BWD_PALIGEMMA = dict(B=1, Lq=4096, Lkv=4096, H=8, Hkv=1, Dh=256)
+BWD_PALIGEMMA = dict(B=1, Lq=4352, Lkv=4352, H=8, Hkv=1, Dh=256)
 BWD_PALIGEMMA_MASK = dict(causal=True, prefix_len=256)
 BWD_DEEPSEEK = dict(B=1, Lq=4096, Lkv=4096, H=128, Hkv=128, Dh=192, Dv=128)
 # K5-bwd (B, L, H, K) of (a) in f32 and bf16, each with and without a
@@ -6210,18 +6211,30 @@ def bwd_excess(torch, got, plain, rss) -> float:
 def bwd_key(torch, dtype, route: str, Dq: int, Dv: int) -> str:
     """The kernels-line family a backward call belongs to: ``one_pass``;
     ``float32`` (the f32 tiled pair); in bf16 ``bfloat16`` (the wgmma pair
-    at Dv = Dq), ``dv`` (the wgmma pair at Dv != Dq), ``cc`` and ``cc192``
-    (the CUDA-core pair's instances at DP 256 and 192)."""
+    at Dv = Dq), ``dv`` (the wgmma pair at Dv != Dq), ``wide`` and
+    ``wide192`` (the wide wgmma pair's instances <256, 256> and <192,
+    128>)."""
     if route == "one_pass":
         return "one_pass"
     if dtype == torch.float32:
         return "float32"
-    if route == "tiled_cc":
-        return "cc192" if max(Dq, Dv) <= 192 else "cc"
+    if route == "tiled_wide":
+        return "wide192" if Dq <= 192 and Dv <= 128 else "wide"
     return "dv" if Dv != Dq else "bfloat16"
 
 
-BWD_KEYS = ("float32", "bfloat16", "one_pass", "dv", "cc", "cc192")
+BWD_KEYS = ("float32", "bfloat16", "one_pass", "dv", "wide", "wide192")
+# (a)'s ragged calls, kv_valid_len [L, L // 2 + 5, 0] (a full row, one that
+# ends inside a tile, one of 0), causal and with a 19-token prefix: each
+# backward family (the one-pass kernel, the f32 tiled pair, the wgmma pair
+# at Dv = Dq and at (96, 64), the wide pair at (192, 128) and 256)
+BWD_RAGGED = (
+    ("float32", dict(B=3, Lq=40, Lkv=40, H=8, Hkv=2, Dh=64)),
+    ("float32", dict(B=3, Lq=200, Lkv=200, H=8, Hkv=2, Dh=64)),
+    ("bfloat16", dict(B=3, Lq=300, Lkv=300, H=8, Hkv=2, Dh=128)),
+    ("bfloat16", dict(B=3, Lq=300, Lkv=300, H=8, Hkv=2, Dh=96, Dv=64)),
+    ("bfloat16", dict(B=3, Lq=300, Lkv=300, H=8, Hkv=2, Dh=192, Dv=128)),
+    ("bfloat16", dict(B=3, Lq=300, Lkv=300, H=8, Hkv=1, Dh=256)))
 
 
 def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
@@ -6234,7 +6247,10 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
     against the plain version; the one-pass kernel's calls and those at a
     width past Dq = Dv <= 128 run twice and must repeat bit for bit. Notes
     the largest |kernel - plain| of dq and of dk/dv, the largest share of
-    the limit and the calls in ``res``, by ``bwd_key``."""
+    the limit and the calls in ``res``, by ``bwd_key``. With a ragged
+    ``kv_valid_len`` in ``kw``, dk and dv must be zero at and past each
+    row's end, and the plain version without it (a kernel that ignored
+    it) must fail the limit (noted in ``res["ragged"]``)."""
     from repro_torch.kernels.flash_attention import ops, ref
     q, k, v, o, do = bwd_inputs(torch, shape, dtype, seed, **kw)
     got = ops.flash_attention_bwd(q, k, v, o, do, **kw)
@@ -6242,7 +6258,9 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
     Dq, Dv = shape["Dh"], shape.get("Dv", shape["Dh"])
     route = ops.bwd_route(dtype, shape["Lq"], shape["Lkv"], Dq, Dv)
     dt = bwd_key(torch, dtype, route, Dq, Dv)
-    ctx = f"[train] backward {shape} {_dtype_name(dtype)} {kw} ({route})"
+    kvl = kw.get("kv_valid_len")
+    shown = kw if kvl is None else dict(kw, kv_valid_len=kvl.tolist())
+    ctx = f"[train] backward {shape} {_dtype_name(dtype)} {shown} ({route})"
     if route == "one_pass" or Dv != Dq or Dq > 128:
         again = ops.flash_attention_bwd(q, k, v, o, do, **kw)
         torch.cuda.synchronize()
@@ -6264,6 +6282,18 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
         for a, b in zip(got[1:], plain[1:])))
     res["n"] += 1
     check(x <= 1.0, f"{ctx}: {x:.3g} of the limit")
+    if kvl is not None:
+        for b, n in enumerate(kvl.tolist()):
+            check(bool((got[1][b, n:] == 0).all()
+                       and (got[2][b, n:] == 0).all()),
+                  f"{ctx}: dk or dv of row {b} not zero past its {n} keys")
+        unmasked = {n: a for n, a in kw.items() if n != "kv_valid_len"}
+        f = bwd_excess(torch, got, ref.attention_bwd_ref(q, k, v, o, do,
+                                                         **unmasked), rss)
+        res["ragged"].append({"shape": shape, "dtype": dt, **shown,
+                              "share": x, "kv_valid_len_ignored": f})
+        check(f > 1.0, f"{ctx}: the plain version without kv_valid_len "
+                       f"stays within the limit ({f:.3g})")
     if not fault:
         return
     t0, t1 = BWD_FAULT_TILE if shape["Lkv"] > 64 else BWD_FAULT_KEYS
@@ -6360,23 +6390,24 @@ def train_kernels(torch, seed: int) -> dict:
     planted fault at each width at 256 tokens; at minicpm3-4b's and
     paligemma-3b's calls of (b) (BWD_MLA, BWD_PALIGEMMA) and at
     deepseek-v2's 128 heads of (192, 128) at 1,024 tokens in bf16, each
-    with its fault. K5-bwd over WKV6_BWD_SWEEP in f32 and bf16, and at
-    WKV6_BWD_HELD with its fault. The backward's counters are zeroed
-    before and read after: the tiled f32 pair's launches and the
-    CUDA-core pair's DP 192 instance's (deepseek-v2's) here are their
-    ``sweep_launches`` on the kernels line, whose ``launches`` (the main
-    path's) are 0 for them."""
+    with its fault. Every family with a ragged kv_valid_len (BWD_RAGGED),
+    with its fault (the plain version without it). K5-bwd over
+    WKV6_BWD_SWEEP in f32 and bf16, and at WKV6_BWD_HELD with its fault.
+    The backward's counters are zeroed before and read after: the tiled
+    f32 pair's launches and the wide pair's <192, 128> instance's
+    (deepseek-v2's) here are their ``sweep_launches`` on the kernels line,
+    whose ``launches`` (the main path's) are 0 for them."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.wkv6 import ops as wkv6_ops
     fa.flash_attention.launches_bwd = fa.flash_attention.launches_bwd_f32 \
         = fa.flash_attention.launches_bwd_f32_one_pass \
         = fa.flash_attention.launches_bwd_dv \
-        = fa.flash_attention.launches_bwd_cc = 0
+        = fa.flash_attention.launches_bwd_wide = 0
     wkv6_ops.wkv6.launches_bwd = 0
     res = {"err": {dt: {"dq": 0.0, "dkv": 0.0} for dt in BWD_KEYS},
            "share": {dt: 0.0 for dt in BWD_KEYS},
            "calls": {dt: 0 for dt in BWD_KEYS},
-           "n": 0, "faults": []}
+           "n": 0, "faults": [], "ragged": []}
     for dtype in (torch.float32, torch.bfloat16):
         for i, (shape, kw) in enumerate(BWD_SWEEP):
             bwd_compare(torch, res, shape, dtype, seed + 300 + i, **kw)
@@ -6405,6 +6436,18 @@ def train_kernels(torch, seed: int) -> dict:
                 fault=True, **BWD_PALIGEMMA_MASK)
     bwd_compare(torch, res, dict(BWD_DEEPSEEK, Lq=1024, Lkv=1024),
                 torch.bfloat16, seed + 347, fault=True, causal=True)
+    # the wide pair's (b) at <256, 256> with dK's and dV's columns whole:
+    # 4 x 8 kv heads x 5 key tiles, 160 CTAs, more than the 132 SMs
+    bwd_compare(torch, res, dict(B=4, Lq=300, Lkv=300, H=16, Hkv=8,
+                                 Dh=256), torch.bfloat16, seed + 348,
+                fault=True, causal=True, prefix_len=40)
+    for i, (dt, shape) in enumerate(BWD_RAGGED):
+        L = shape["Lkv"]
+        kvl = torch.tensor([L, L // 2 + 5, 0], device=DEV)
+        for j, mask in enumerate((dict(causal=True),
+                                  dict(causal=True, prefix_len=19))):
+            bwd_compare(torch, res, shape, getattr(torch, dt),
+                        seed + 700 + 2 * i + j, kv_valid_len=kvl, **mask)
     one = fa.flash_attention.launches_bwd_f32_one_pass
     res["launches"] = {
         "one_pass": one,
@@ -6412,7 +6455,7 @@ def train_kernels(torch, seed: int) -> dict:
         "tiled_bf16": fa.flash_attention.launches_bwd
         - fa.flash_attention.launches_bwd_f32,
         "tiled_dv": fa.flash_attention.launches_bwd_dv,
-        "tiled_cc": fa.flash_attention.launches_bwd_cc}
+        "tiled_wide": fa.flash_attention.launches_bwd_wide}
     check(one >= len(BWD_SHORT_SWEEP) and res["launches"]["tiled_f32"] > 0
           and all(res["calls"][dt] > 0 for dt in BWD_KEYS),
           f"[train] (a) backward launches by route {res['launches']}, calls "
@@ -6435,8 +6478,9 @@ def train_kernels(torch, seed: int) -> dict:
         f"{res['share']['one_pass']:.3g}; bf16 2^-7 |plain| + 2^-5 x the "
         f"row's rms of the terms' root sum of squares, largest share "
         f"{res['share']['bfloat16']:.3g}, Dv != Dq on the wgmma pair "
-        f"{res['share']['dv']:.3g}, the CUDA-core pair at DP 256 "
-        f"{res['share']['cc']:.3g} and 192 {res['share']['cc192']:.3g}); max "
+        f"{res['share']['dv']:.3g}, the wide pair at <256, 256> "
+        f"{res['share']['wide']:.3g} and <192, 128> "
+        f"{res['share']['wide192']:.3g}); max "
         f"abs err dq, dk/dv: " + ", ".join(
             f"{dt} {e['dq']:.3g}, {e['dkv']:.3g}"
             for dt, e in res["err"].items()) + f"; calls by family "
@@ -6447,6 +6491,12 @@ def train_kernels(torch, seed: int) -> dict:
             f"keys {f['keys'][0]}-{f['keys'][1]}: dq "
             f"{f['dq_tile_dropped']:.3g}, dk {f['dkv_tile_dropped']:.3g} of "
             f"the limit" for f in res["faults"]))
+    log("[train] (a) a ragged kv_valid_len on every family (share of the "
+        "limit; the plain version without it): " + "; ".join(
+            f"{r['dtype']} L {r['shape']['Lq']} D {r['shape']['Dh']}/"
+            f"{r['shape'].get('Dv', r['shape']['Dh'])} prefix "
+            f"{r.get('prefix_len', 0)}: {r['share']:.3g}, ignored "
+            f"{r['kv_valid_len_ignored']:.3g}" for r in res["ragged"]))
     log(f"[train] (a) K5-bwd: {wkv['n']} calls agree with wkv6_bwd_ref "
         f"(1e-5 of each gradient's largest |gradient|, bf16 outputs also "
         f"2^-7 |plain|; largest share {wkv['share']:.3g}, max abs err "
@@ -6490,7 +6540,7 @@ def train_trace(torch, fn) -> dict:
 def train_counts() -> dict:
     """The training path's kernel counters: K4-bwd's launches (every one,
     the f32 ones, the one-pass ones, the wgmma pair's Dv != Dq ones, the
-    CUDA-core bf16 pair's), K5's and K5-bwd's, and the plain attention
+    wide bf16 pair's), K5's and K5-bwd's, and the plain attention
     backward's calls."""
     from repro_torch.kernels.flash_attention import ops as fa, ref as fr
     from repro_torch.kernels.wkv6 import ops as wkv6_ops
@@ -6499,7 +6549,7 @@ def train_counts() -> dict:
             "flash_attention_bwd_f32": f.launches_bwd_f32,
             "flash_attention_bwd_f32_one_pass": f.launches_bwd_f32_one_pass,
             "flash_attention_bwd_dv": f.launches_bwd_dv,
-            "flash_attention_bwd_cc": f.launches_bwd_cc,
+            "flash_attention_bwd_wide": f.launches_bwd_wide,
             "wkv6": wkv6_ops.wkv6.launches,
             "wkv6_bwd": wkv6_ops.wkv6.launches_bwd,
             "plain_attention_bwd": fr.attention_bwd_ref.calls}
@@ -6510,7 +6560,7 @@ def zero_train_counts() -> None:
     from repro_torch.kernels.wkv6 import ops as wkv6_ops
     f = fa.flash_attention
     f.launches_bwd = f.launches_bwd_f32 = f.launches_bwd_f32_one_pass = \
-        f.launches_bwd_dv = f.launches_bwd_cc = 0
+        f.launches_bwd_dv = f.launches_bwd_wide = 0
     wkv6_ops.wkv6.launches = wkv6_ops.wkv6.launches_bwd = 0
     fr.attention_bwd_ref.calls = 0
 
@@ -6630,7 +6680,7 @@ def train_full(torch, np, arch: str, seed: int) -> dict:
         need = {"wkv6": n, "wkv6_bwd": n}
     else:
         route = {"mla": "flash_attention_bwd_dv"}.get(
-            cfg.attn_kind, "flash_attention_bwd_cc" if cfg.head_dim > 128
+            cfg.attn_kind, "flash_attention_bwd_wide" if cfg.head_dim > 128
             else "flash_attention_bwd")
         need = {"flash_attention_bwd": 2 * n, route: 2 * n}
     check(all(counts[k] >= v for k, v in need.items()),
@@ -6743,7 +6793,7 @@ def phase_train(torch, np, seed: int) -> dict:
     width (b) and the trainers (c). The forward's and backward's launches
     on the main path are counted from (b) to the end of (c): every f32
     call there (the embedder's) takes the one-pass kernel, so the tiled
-    f32 pair has none, and no call takes the CUDA-core pair's DP 192
+    f32 pair has none, and no call takes the wide pair's <192, 128>
     instance (deepseek-v2's widths, held in (a) only)."""
     t0 = time.perf_counter()
     kern = train_kernels(torch, seed)
@@ -6845,20 +6895,21 @@ def bwd_timing(torch, seed: int) -> dict:
     nothing else: the tiled pair at qwen3-14b's 4,096-token causal prefill
     (BWD_TIMED, bf16) and at phase 13 (a)'s 1,024-token f32 call (the f32
     instances), the wgmma pair at minicpm3-4b's (96, 64) (BWD_MLA), the
-    CUDA-core bf16 pair at paligemma-3b's 256 with its prefix
-    (BWD_PALIGEMMA) and at deepseek-v2's (192, 128) (BWD_DEEPSEEK; its
-    plain backward by ``plain_bwd``'s head blocks), each kernel by CUDA
-    events, (a) then (b) on the same buffers; and the one-pass kernel at
-    the embedder's call (BWD_EMBED, f32, bidirectional), by CUDA events
-    around one launch. The bound of each pair kernel counts the products
+    wide bf16 pair at paligemma-3b's 256 with its prefix at phase 13 (b)'s
+    4,352 tokens (BWD_PALIGEMMA; (b) must take the SPLIT instance that the
+    library picks for that grid, as the step's call does) and at
+    deepseek-v2's (192, 128) (BWD_DEEPSEEK; its plain backward by
+    ``plain_bwd``'s head blocks), each kernel by CUDA events, (a) then (b)
+    on the same buffers; and the one-pass kernel at the embedder's call
+    (BWD_EMBED, f32, bidirectional), by CUDA events around one launch. The
+    bound of each pair kernel counts the products
     its outputs need in a standard backward, over the pairs the mask lets
     through: (a) S (over Dq), dP (over Dv) and dQ (Dq), (b) S, dP, dV
     (Dv) and dK (Dq) (the extra Q K^T pass of (a) is not credited), at
-    the peak of the inputs' type (bf16's tensor cores for the CUDA-core
-    pair too), against the bytes of its inputs read and outputs written
-    once; the one-pass kernel's is the whole backward's: the five products
-    against q, k, v, o, do read and dq, dk, dv written once. A profiled
-    call that records no kernel fails."""
+    the peak of the inputs' type, against the bytes of its inputs read and
+    outputs written once; the one-pass kernel's is the whole backward's:
+    the five products against q, k, v, o, do read and dq, dk, dv written
+    once. A profiled call that records no kernel fails."""
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ops as fa
     sys.path.insert(0, str(ROOT))
@@ -6870,15 +6921,15 @@ def bwd_timing(torch, seed: int) -> dict:
              dict(causal=True)),
             ("embedder", BWD_EMBED, torch.float32, dict(causal=False)),
             ("dv", BWD_MLA, torch.bfloat16, dict(causal=True)),
-            ("cc", BWD_PALIGEMMA, torch.bfloat16, BWD_PALIGEMMA_MASK),
-            ("cc192", BWD_DEEPSEEK, torch.bfloat16, dict(causal=True))):
+            ("wide", BWD_PALIGEMMA, torch.bfloat16, BWD_PALIGEMMA_MASK),
+            ("wide192", BWD_DEEPSEEK, torch.bfloat16, dict(causal=True))):
         B, L, H, Hkv, Dq = (shape[x] for x in ("B", "Lq", "H", "Hkv", "Dh"))
         Dv = shape.get("Dv", Dq)
         route = fa.bwd_route(dtype, L, L, Dq, Dv)
         q, k, v, o, do = bwd_inputs(torch, shape, dtype, seed + 39, **kw)
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
         lse, dsum = (None, None) if route == "one_pass" else \
-            K.bwd_scratch(q, route)
+            K.bwd_scratch(q)
         esz = q.element_size()
         pairs = mask_pairs(L, kw["causal"], kw.get("prefix_len", 0))
         pq, pv = 2.0 * B * H * Dq * pairs, 2.0 * B * H * Dv * pairs
@@ -6899,19 +6950,26 @@ def bwd_timing(torch, seed: int) -> dict:
         lib_ms = None if lib is None else cuda_ms(torch, lib)
         lib_dev = {"library_device_ms": None} if lib is None else \
             library_device_ms(torch, lib)
-        # the CUDA-core pair's calls take 30-200 ms: fewer of them
-        iters = 5 if route == "tiled_cc" else 20
         own, records = device_kernel_ms(torch, lambda: fa.flash_attention_bwd(
-            q, k, v, o, do, **kw), iters=iters // 2)
+            q, k, v, o, do, **kw), iters=10)
         names = sorted(n.split("(")[0].split("<")[0].replace("void ", "")
                        for n in own)
         parts = (("one_pass", 2),) if route == "one_pass" else \
             (("dq", 0), ("dkv", 1))
-        kind = "cc_bf16" if route == "tiled_cc" else _kind(dtype)
+        kind = "wide_bf16" if route == "tiled_wide" else _kind(dtype)
         check(names == sorted(f"fab::bwd_{name}_{kind}"
                               for name, _ in parts),
               f"[timing] flash_attention_bwd {label}: one call launches "
               f"{list(own)}, not the {route} route's kernels alone")
+        if route == "tiled_wide" and max(Dq, Dv) > 192:
+            # (b) at <256, 256> has an instance a SPLIT: the one the
+            # library picks for this grid, which the main path's call of
+            # this shape takes too
+            split = bwd_lib_fn("flash_attention_bwd_split")(B, Hkv, L)
+            want = f"fab::bwd_dkv_wide_bf16<256, 256, {split}>"
+            check(any(want in n for n in own),
+                  f"[timing] flash_attention_bwd {label}: one call launches "
+                  f"{list(own)}, not {want}")
         for name, part in parts:
             call = (lambda part=part: K.launch_bwd(
                 q, k, v, o, do, dq, dk, dv, lse, dsum, causal=kw["causal"],
@@ -6920,7 +6978,10 @@ def bwd_timing(torch, seed: int) -> dict:
             dev = [t for n, t in own.items() if f"bwd_{name}_" in n]
             b_ms, b_by = bounds[name]
             rec = {"shape": shape, "dtype": _dtype_name(dtype), **kw,
-                   "route": route, "ms": cuda_ms(torch, call, iters=iters),
+                   "route": route,
+                   "instance": [n.split("(")[0].replace("void ", "")
+                                for n in own if f"bwd_{name}_" in n][0],
+                   "ms": cuda_ms(torch, call, iters=20),
                    "plain_ms": plain_ms, "library_ms": lib_ms,
                    "bound_ms": b_ms, "bound_by": b_by,
                    "device_ms": dev[0],
@@ -6938,7 +6999,7 @@ def bwd_timing(torch, seed: int) -> dict:
                 f"{lib_ms:.4f} ms ({rec['library_device_ms']} ms on the "
                 f"device)")
             log(f"[timing] flash_attention_bwd {what} {label} {shape} "
-                f"{_dtype_name(dtype)} {kw} ({route}): kernel "
+                f"{_dtype_name(dtype)} {kw} ({route}): {rec['instance']} "
                 f"{rec['ms']:.4f} ms (CUDA events), {rec['device_ms']:.4f} ms "
                 f"on the device ({b_ms / rec['device_ms']:.3f} of its bound)"
                 f", plain backward {plain_ms:.4f} ms, SDPA's backward "
@@ -6991,76 +7052,106 @@ def wkv6_bwd_timing(torch, seed: int) -> dict:
     return rec
 
 
-# what the bf16 backward kernels (csrc/flash_attention_bwd.cu) ask for at
-# launch besides ptxas's figures: the wgmma pair's consumer warpgroups'
-# registers after setmaxnreg (the producer's drop to 24), and its dynamic
-# shared memory of Tiles<DQP, DVP>: 1 KB of alignment, four resident 64-row
-# tiles (Q and dO, or K and V, each at its own width) and three ring
-# stages (a K tile and a V slot as wide as the wider of K and V; or a Q and
-# a dO tile with 1 KB for LSE and D); the CUDA-core pair's CC<DP, 32>
+# the consumer warpgroups' registers after setmaxnreg in the bf16 backward
+# kernels (csrc/flash_attention_bwd.cu; the producer's drop to 24), which
+# ptxas does not report; their dynamic shared memory comes from the
+# library itself (``bwd_bf16_smem``)
 BWD_CONSUMER_REGS = 240
 
 
+def bwd_lib_fn(name: str):
+    """C function ``name`` of the built backward library, of three int64
+    arguments and an int result, which launches nothing."""
+    import ctypes
+    from repro_torch.kernels import _build
+    fn = getattr(ctypes.CDLL(str(_build._lib_path("flash_attention_bwd"))),
+                 name)
+    fn.argtypes = [ctypes.c_longlong] * 3
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def bwd_bf16_smem(kernel: str, dq: int, dv: int) -> int:
-    tq, tv = dq // 64 * 64 * 128, dv // 64 * 64 * 128
-    if kernel in ("bwd_dq_cc_bf16", "bwd_dkv_cc_bf16"):
-        ld, ls = dq + 1, 33
-        return 4 * (4 * 32 * ld + 32 * ls + 32
-                    + (32 * ls + 32 if kernel == "bwd_dkv_cc_bf16" else 0))
-    stage = tq + max(tq, tv) if kernel == "bwd_dq_bf16" else tq + tv + 1024
-    return 1024 + 2 * tq + 2 * tv + 3 * stage
+    """The dynamic shared memory that the built library launches bf16
+    backward kernel ``kernel`` at widths <dq, dv> with (its C function
+    ``flash_attention_bwd_smem``, from the sizes the launch uses)."""
+    smem = bwd_lib_fn("flash_attention_bwd_smem")(
+        dq, dv, 0 if kernel.startswith("bwd_dq_") else 1)
+    check(smem > 0, f"[build] flash_attention_bwd_smem({dq}, {dv}) of "
+                    f"{kernel}: {smem}")
+    return smem
 
 
 # the bf16 instances the C dispatch has: the wgmma pair at every (DQP,
-# DVP) of 64 and 128, the CUDA-core pair at DP 192 and 256
+# DVP) of 64 and 128, without and with kv_valid_len (<..., RAGGED>), the
+# wide pair at <192, 128> and <256, 256> (its (b) with dK's and dV's
+# columns whole or split across two CTAs, <..., SPLIT>)
 BWD_BF16_INSTANCES = tuple(
-    f"{k}<{dq}, {dv}>" for k in ("bwd_dq_bf16", "bwd_dkv_bf16")
-    for dq in (64, 128) for dv in (64, 128)) + tuple(
-    f"{k}<{d}, {d}>" for k in ("bwd_dq_cc_bf16", "bwd_dkv_cc_bf16")
-    for d in (192, 256))
+    f"{k}<{dq}, {dv}, {r}>" for k in ("bwd_dq_bf16", "bwd_dkv_bf16")
+    for dq in (64, 128) for dv in (64, 128) for r in ("false", "true")
+) + tuple(
+    f"bwd_dq_wide_bf16<{dq}, {dv}>" for dq, dv in ((192, 128), (256, 256))
+) + tuple(f"bwd_dkv_wide_bf16<{dq}, {dv}, {n}>"
+          for dq, dv, n in ((192, 128, 1), (256, 256, 1), (256, 256, 2)))
 
 
 def bwd_bf16_ptxas(report) -> dict:
     """Registers, shared memory and spills of each bf16 backward kernel
     instance (BWD_BF16_INSTANCES) from the ptxas report of its library's
-    build, logged; fails if one spills, if ptxas serialised a wgmma
-    instance's products (a warning that names the function: about a fifth
-    of dQ's time when it happened), or if one is missing from a report (a
-    build of this run)."""
+    build, and the HGMMA instructions of its SASS (``cuobjdump -sass``),
+    logged; fails if one spills, if ptxas serialised a wgmma instance's
+    products (a warning that names the function: about a fifth of dQ's
+    time when it happened), if one runs no HGMMA, or if one is missing
+    from a report (a build of this run)."""
     import re
+    from repro_torch.kernels import _build
     if report is None:
         log("[build] flash_attention_bwd was built before this run: no "
             "ptxas report to read")
         return {}
     sys.path.insert(0, str(ROOT))
-    from tools.trace_kernels import ptxas_functions
+    from tools.trace_kernels import ptxas_functions, sass_mix
+
+    def instance(fn):
+        m = re.match(r"_ZN3fab\d+(bwd_(?:dq|dkv)_(?:wide_)?bf16)ILi(\d+)E"
+                     r"Li(\d+)E(?:Li(\d+)E|Lb(\d)E)?", fn)
+        if m is None:
+            return None
+        last = "" if m.group(4) is None else f", {m.group(4)}"
+        if m.group(5) is not None:
+            last = ", true" if m.group(5) == "1" else ", false"
+        return (f"{m.group(1)}<{m.group(2)}, {m.group(3)}{last}>",
+                m.group(1), int(m.group(2)), int(m.group(3)))
     out = {}
     for fn, r in ptxas_functions(report).items():
-        m = re.match(r"_ZN3fab\d+(bwd_(?:dq|dkv)_(?:cc_)?bf16)ILi(\d+)E"
-                     r"(?:Li(\d+)E)?", fn)
+        m = instance(fn)
         if m:
-            dq = int(m.group(2))
-            dv = int(m.group(3) or dq)
-            out.setdefault(f"{m.group(1)}<{dq}, {dv}>", {
-                "kernel": m.group(1), "dq": dq, "dv": dv}).update(r)
+            out.setdefault(m[0], {"kernel": m[1], "dq": m[2],
+                                  "dv": m[3]}).update(r)
+    for fn, c in sass_mix(str(_build._lib_path("flash_attention_bwd")),
+                          "bf16").items():
+        m = instance(fn)
+        if m and m[0] in out:
+            out[m[0]]["hgmma"] = c["function"]["HGMMA"]
     check(sorted(out) == sorted(BWD_BF16_INSTANCES),
           f"[build] the ptxas report names {sorted(out)}, not the bf16 "
           f"backward kernels {sorted(BWD_BF16_INSTANCES)}")
     for name, r in sorted(out.items()):
-        wgmma = "_cc_" not in r["kernel"]
         r["dynamic_smem"] = bwd_bf16_smem(r["kernel"], r["dq"], r["dv"])
-        if wgmma:
-            r["consumer_registers"] = BWD_CONSUMER_REGS
+        r["consumer_registers"] = BWD_CONSUMER_REGS
         log(f"[build] fab::{name}: {r.get('registers')} registers a thread "
-            f"at launch" + (f" ({BWD_CONSUMER_REGS} in the consumer "
-                            f"warpgroups by setmaxnreg)" if wgmma else "")
-            + f", {r.get('static_smem')} B static + {r['dynamic_smem']:,} B "
+            f"at launch ({BWD_CONSUMER_REGS} in the consumer warpgroups by "
+            f"setmaxnreg), {r.get('static_smem')} B static + "
+            f"{r['dynamic_smem']:,} B "
             f"dynamic shared memory, {r.get('spill_stores')} B spill stores, "
-            f"{r.get('spill_loads')} B spill loads, {r.get('stack')} B stack")
+            f"{r.get('spill_loads')} B spill loads, {r.get('stack')} B "
+            f"stack, {r.get('hgmma')} HGMMA in its SASS")
         check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
               f"[build] fab::{name} spills: {r}")
         check("wgmma_serialized" not in r,
               f"[build] fab::{name}: {r.get('wgmma_serialized')}")
+        check(r.get("hgmma", 0) > 0, f"[build] fab::{name}: no HGMMA in its "
+                                     f"SASS: {r}")
     return out
 
 
@@ -7451,7 +7542,7 @@ def main() -> int:
         "flash_attention_bwd_f32": "src/repro/models/layers.py:157",
         **{f"flash_attention_bwd_{part}_{mode}":
            "src/repro/models/layers.py:157"
-           for part in ("dq", "dkv") for mode in ("dv", "cc", "cc192")},
+           for part in ("dq", "dkv") for mode in ("dv", "wide", "wide192")},
         # no Pallas kernel and no VJP: the reference differentiates its jnp
         # step scan
         "wkv6_bwd": "src/repro/models/ssm.py:93"}
@@ -7477,7 +7568,7 @@ def main() -> int:
             "src/repro_torch/csrc/flash_attention_bwd.cu",
         **{f"flash_attention_bwd_{part}_{mode}":
            "src/repro_torch/csrc/flash_attention_bwd.cu"
-           for part in ("dq", "dkv") for mode in ("dv", "cc", "cc192")},
+           for part in ("dq", "dkv") for mode in ("dv", "wide", "wide192")},
         "wkv6_bwd": "src/repro_torch/csrc/wkv6_bwd.cu"}
     # launches on the main path: K1/K2 in their served stream, the slo
     # phase's runs, the planes phase (its killed child included), the
@@ -7517,28 +7608,28 @@ def main() -> int:
     # the backward: phase 13's training steps and trainers; bf16 calls (in
     # (b)'s steps and launch.train) launch a pair, (a) and (b): the wgmma
     # pair at Dv = Dq (qwen3, the reduced models), the wgmma pair at Dv !=
-    # Dq (``_dv``: minicpm3-4b, the reduced MLA models), the CUDA-core pair
-    # at DP 256 (``_cc``: paligemma-3b); the f32 ones (the embedder's) the
-    # one-pass kernel; K5-bwd rwkv6-7b's. No call of the main path reaches
-    # the tiled f32 pair (phase_train checks it) or the CUDA-core pair's
-    # DP 192 instance (``_cc192``: deepseek-v2's widths, whose training
-    # step does not fit the card), so their launches are 0 and exempt from
-    # the check; phase 13 (a)'s sweep launches are their
+    # Dq (``_dv``: minicpm3-4b, the reduced MLA models), the wide pair at
+    # <256, 256> (``_wide``: paligemma-3b); the f32 ones (the embedder's)
+    # the one-pass kernel; K5-bwd rwkv6-7b's. No call of the main path
+    # reaches the tiled f32 pair (phase_train checks it) or the wide pair's
+    # <192, 128> instance (``_wide192``: deepseek-v2's widths, whose
+    # training step does not fit the card), so their launches are 0 and
+    # exempt from the check; phase 13 (a)'s sweep launches are their
     # ``sweep_launches``
     tl = train["launches"]
     n_bf16 = tl["flash_attention_bwd"] - tl["flash_attention_bwd_f32"] \
-        - tl["flash_attention_bwd_dv"] - tl["flash_attention_bwd_cc"]
+        - tl["flash_attention_bwd_dv"] - tl["flash_attention_bwd_wide"]
     sweep_only = ("flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32",
-                  "flash_attention_bwd_dq_cc192",
-                  "flash_attention_bwd_dkv_cc192")
+                  "flash_attention_bwd_dq_wide192",
+                  "flash_attention_bwd_dkv_wide192")
     for part in ("dq", "dkv"):
         launches[f"flash_attention_bwd_{part}"] = n_bf16 // 2
         launches[f"flash_attention_bwd_{part}_dv"] = \
             tl["flash_attention_bwd_dv"] // 2
-        launches[f"flash_attention_bwd_{part}_cc"] = \
-            tl["flash_attention_bwd_cc"] // 2
+        launches[f"flash_attention_bwd_{part}_wide"] = \
+            tl["flash_attention_bwd_wide"] // 2
         launches[f"flash_attention_bwd_{part}_f32"] = 0
-        launches[f"flash_attention_bwd_{part}_cc192"] = 0
+        launches[f"flash_attention_bwd_{part}_wide192"] = 0
     launches["flash_attention_bwd_f32"] = \
         tl["flash_attention_bwd_f32_one_pass"]
     launches["wkv6_bwd"] = tl["wkv6_bwd"]
@@ -7568,13 +7659,14 @@ def main() -> int:
     timed["wkv6"] = timing["wkv6"]
     # the new backward modes at their main-path widths, B 1 x 4,096:
     # minicpm3-4b's (96, 64) (``_dv``), paligemma-3b's 256 with its prefix
-    # (``_cc``), deepseek-v2's (192, 128) (``_cc192``); K5-bwd at rwkv6-7b's
-    # 64 heads of 64
+    # at its step's 4,352 tokens (``_wide``), deepseek-v2's (192, 128)
+    # (``_wide192``); K5-bwd at
+    # rwkv6-7b's 64 heads of 64
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32",
                  "flash_attention_bwd_f32", "wkv6_bwd",
                  *(f"flash_attention_bwd_{part}_{mode}"
-                   for mode in ("dv", "cc", "cc192")
+                   for mode in ("dv", "wide", "wide192")
                    for part in ("dq", "dkv"))):
         timed[name] = timing[name]
     one_err = train["kernels"]["err"]["one_pass"]
@@ -7583,8 +7675,8 @@ def main() -> int:
                   train["kernels"]["err"][dt][part]
                   for part in ("dq", "dkv")
                   for sfx, dt in (("", "bfloat16"), ("_f32", "float32"),
-                                  ("_dv", "dv"), ("_cc", "cc"),
-                                  ("_cc192", "cc192"))},
+                                  ("_dv", "dv"), ("_wide", "wide"),
+                                  ("_wide192", "wide192"))},
                "flash_attention_bwd_f32": max(one_err["dq"],
                                               one_err["dkv"]),
                "wkv6_bwd": train["kernels"]["wkv6_bwd"]["err"]}
@@ -7604,7 +7696,7 @@ def main() -> int:
                 train["kernels"]["launches"]["tiled_f32"] // 2
         elif name in sweep_only:
             kernels[-1]["sweep_launches"] = \
-                train["kernels"]["calls"]["cc192"]
+                train["kernels"]["calls"]["wide192"]
     detail["total_s"] = time.perf_counter() - t_start
     log(f"[done] every phase passed in {detail['total_s']:.1f} s")
     out_dir = ROOT / args.out

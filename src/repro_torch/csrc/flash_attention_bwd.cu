@@ -1,7 +1,7 @@
 // K4-bwd: the backward of the prefill attention (K4) with GQA, causal,
-// sliding window, bidirectional prefix, cross attention (Lq != Lkv) and an
-// explicit q_offset: dq, dk and dv from q, k, v, K4's output o and the
-// output's cotangent do.
+// sliding window, bidirectional prefix, cross attention (Lq != Lkv), an
+// explicit q_offset and a ragged kv_valid_len: dq, dk and dv from q, k, v,
+// K4's output o and the output's cotangent do.
 //
 // Replaces no TPU kernel: the Pallas kernel has no VJP, and the reference
 // trains through its jnp blockwise attention (src/repro/models/layers.py
@@ -16,13 +16,16 @@
 // 256. Recurrence (all sums in f32): LSE = m + log(l) over the masked,
 // scaled scores S = Q K^T / sqrt(Dq) (a sum over Dq); D = rowsum(do . o)
 // (over Dv); P = exp(S - LSE); dV = P^T do; dP = do V^T (over Dv); dS = P .
-// (dP - D); dQ = dS K / sqrt(Dq); dK = dS^T Q / sqrt(Dq). A fully masked
-// row has P = 0 everywhere, never NaN. Every kernel here is deterministic
-// (no atomics; every output element is written by one CTA after a
-// fixed-order loop, so repeats are bit-identical). An f32 call with Lq and
-// Lkv <= 64 (<= 32 where a head dim is over 128) takes one fused kernel
-// (below); every other call takes two, launched one after the other on the
-// caller's stream:
+// (dP - D); dQ = dS K / sqrt(Dq); dK = dS^T Q / sqrt(Dq). A row that sees
+// no key has P = 0 everywhere, never NaN. kv_valid_len (int32 (B,), or
+// null) ends row b's keys at kend = min(Lkv, kv_valid_len[b]) (kv_end):
+// every family ANDs it onto causal, window and prefix in allowed,
+// tile_live and tile_full; keys in [kend, Lkv) get zero dK and dV. Every
+// kernel here is deterministic (no atomics; every output element is
+// written by one CTA after a fixed-order loop, so repeats are
+// bit-identical). An f32 call with Lq and Lkv <= 64 (<= 32 where a head dim
+// is over 128) takes one fused kernel (below); every other call takes two,
+// launched one after the other on the caller's stream:
 //   (a) dq: a CTA owns a q tile of one head. It computes D from do and o,
 //       runs pass 1 over the kv tiles for the row max and sum, writes LSE
 //       and D to a (B, H, Lq) scratch, and runs pass 2 over the kv tiles
@@ -33,18 +36,17 @@
 //       over the G heads is this loop).
 // K4's forward (flash_attention.cu) writes no LSE, so (a) recomputes it in
 // pass 1; an LSE stored by the forward, with its output bit-identical, is
-// later work. Tiles that the mask hides entirely (causal, window) are
-// skipped by an exact test on the tile's corner positions (tile_live).
-// Takes f32 and bf16; each head dim is padded in shared memory (zeros
-// past it), so any Dq, Dv <= 256; the wrapper raises on a kv_valid_len
-// (no training path passes one). Routes (ops.bwd_route mirrors the
-// dispatch at the end of this file): bf16 with Dq, Dv <= 128 takes the
-// wgmma pair at DQP, DVP of 64 or 128 each (qwen3's 128/128, minicpm3's
-// (96, 64) at <128, 64>, the reduced MLA's (24, 16) at <64, 64>); bf16
-// past 128 (paligemma's 256, deepseek-v2's (192, 128)) the CUDA-core pair
-// on bf16 operands (below); f32 the CUDA-core pair or the one-pass
-// kernel. Tensors are contiguous (B, L, H, D); scale_dim is the head dim
-// of the scale (the wrapper gives bf16 rows of a head dim that is not a
+// later work. Tiles that the mask hides entirely (causal, window, past
+// kend) are skipped by an exact test on the tile's corner positions
+// (tile_live). Routes (ops.bwd_route mirrors the dispatch at the end of
+// this file): bf16 with Dq, Dv <= 128 takes the wgmma pair at DQP, DVP of
+// 64 or 128 each (qwen3's 128/128, minicpm3's (96, 64) at <128, 64>, the
+// reduced MLA's (24, 16) at <64, 64>); bf16 past 128 the wide wgmma pair
+// (deepseek-v2's (192, 128) at <192, 128>, paligemma's 256 and every other
+// pair at <256, 256>); f32 the CUDA-core pair or the one-pass kernel. Each
+// head dim is padded in shared memory (zeros past it), so any Dq, Dv <=
+// 256. Tensors are contiguous (B, L, H, D); scale_dim is the head dim of
+// the scale (the wrapper gives bf16 rows of a head dim that is not a
 // multiple of 8 as a zero-padded copy, each tensor to its own width, with
 // the scale of the unpadded Dq).
 //
@@ -56,45 +58,64 @@
 // (paligemma's 256 with its prefix: 0.174 ms of products over 8 query
 // heads; deepseek-v2's 128 heads of (192, 128): 1.81 ms).
 //
-// bf16 (the training path's), Dq and Dv <= 128: warp-specialised for
-// Hopper, as K4's forward. A CTA has three warpgroups: one producer thread
-// keeps TMA loads in flight (4-D tensor maps with 128-byte swizzle, boxes
-// of 64 columns x 64 rows, zero fill past each tensor's head dim and past
-// the sequence) into a three-stage ring on full/empty mbarriers, and two
-// consumer warpgroups of 64 rows each run every product on wgmma;
-// setmaxnreg moves registers from the producer (24) to the consumers
-// (240). Q and K tiles are DQP wide, V and dO tiles DVP wide, each product
-// runs at its own width (S over DQP, dP over DVP, dQ and dK with DQP
-// columns, dV with DVP), and (a)'s ring slot that holds V in pass 2 and a
-// second K tile in pass 1 is the wider of the two: at (96, 64) 148,480
-// bytes of shared memory against the 128/128 instance's 164,864, and a
-// consumer of (b) holds dK and dV at 64 + 32 f32 registers against 64 +
-// 64. Past 128 the template does not fit: at DP 256 its tiles would need
-// 328,704 bytes (the card gives a block 232,448) and (b)'s accumulators
-// about 320 registers a thread against setmaxnreg's 240.
-//   (a) takes 128 q rows. Q and dO load once; pass 1 streams two 64-key K
-//       tiles a stage (the stage's V slot holds the second), pass 2 one K
-//       and one V tile. S = Q K^T and dP = dO V^T have both operands in
-//       shared memory (K and V read K-major); dQ += dS K takes dS from
-//       registers (the accumulator rounded to bf16 A fragments, as K4 does
-//       with P) and reads K MN-major from the same swizzled tile. A tile's
-//       dQ product is waited for after the next tile's S and dP are
-//       issued. Pass 1's row max and sum run through four partials a row.
-//   (b) takes 128 keys. K and V load once; Q, dO and the 64 LSE and D of
-//       each live 64-row q tile of each of the G heads stream through the
-//       ring. S^T = K Q^T and dP^T = V dO^T are shared-memory products;
-//       dV += P^T dO and dK += dS^T Q take P^T and dS^T from registers and
-//       read dO and Q MN-major from the tiles that fed the K-major
-//       products. The two consumers take the tensor cores in turn (named
-//       barriers), so that one's softmax runs under the other's products;
-//       in (a) the turns measured slower and are not taken.
+// bf16 (the training path's): warp-specialised for Hopper, as K4's
+// forward. A CTA has three warpgroups: one producer thread keeps TMA loads
+// in flight (4-D tensor maps with 128-byte swizzle, boxes of 64 columns x
+// 64 or 32 rows, zero fill past each tensor's head dim and past the
+// sequence) into a ring on full/empty mbarriers, and two consumer
+// warpgroups run every product on wgmma, bf16 operands and f32
+// accumulators; setmaxnreg moves registers from the producer (24) to the
+// consumers (240). Q and K tiles are DQP wide, V and dO tiles DVP wide,
+// and each product runs at its own width (S over DQP, dP over DVP, dQ and
+// dK with DQP columns, dV with DVP).
+//   (a) (bwd_dq_bf16, and bwd_dq_wide_bf16 past 128: one template, dq_tma)
+//       takes 128 q rows, 64 a consumer. Q and dO load once; pass 1
+//       streams two BK-key K tiles a stage (the stage's V slot holds the
+//       second), pass 2 one K and one V tile. S = Q K^T and dP = dO V^T
+//       have both operands in shared memory (K and V read K-major); dQ +=
+//       dS K takes dS from registers (the accumulator rounded to bf16 A
+//       fragments, as K4 does with P) and reads K MN-major from the same
+//       swizzled tile. A tile's dQ product is waited for after the next
+//       tile's S and dP are issued. Pass 1's row max and sum run through
+//       four partials a row. BK is 64 where three stages fit beside Q and
+//       dO, and 32 at <256, 256> (Q and dO alone take 128 KB there): dQ's
+//       128 f32 registers a thread leave room for S and dP at 16 each.
+//   (b) up to 128 (bwd_dkv_bf16) takes 128 keys, 64 a consumer. K and V
+//       load once; Q, dO and the 64 LSE and D of each live 64-row q tile
+//       of each of the G heads stream through the ring. S^T = K Q^T and
+//       dP^T = V dO^T are shared-memory products; dV += P^T dO and dK +=
+//       dS^T Q take P^T and dS^T from registers and read dO and Q MN-major
+//       from the tiles that fed the K-major products. The two consumers
+//       take the tensor cores in turn (named barriers), so that one's
+//       softmax runs under the other's products; in (a) the turns measured
+//       slower and are not taken.
+//   (b) past 128 (bwd_dkv_wide_bf16) takes 64 keys. One consumer's dK and
+//       dV at 256 columns would take 256 f32 registers a thread, so the
+//       two consumers split the outputs instead of the keys: the P side
+//       computes S^T = K Q^T, P^T, and dV += P^T dO; the dS side dP^T = V
+//       dO^T, then dS^T = P^T . (dP^T - D) with P^T read from a shared
+//       buffer that the P side fills (f32, in the accumulator's own layout,
+//       handed over on two named barriers), and dK += dS^T Q. Each side
+//       holds one output (128 + 32 + 16 registers at 256) and runs two of
+//       the four products, no product twice. Two ring stages at <256, 256>,
+//       three at <192, 128>. Where one CTA a key tile would fill at most
+//       the SMs (paligemma's one kv head and 4,352 keys: 68 CTAs of 132),
+//       <256, 256> splits dK's and dV's columns across two CTAs (SPLIT),
+//       each computing S^T and dP^T over the full depth: twice the CTAs
+//       at 1.5x the products, measured faster up to a grid of one CTA an
+//       SM and slower past it (PERF.md).
 // Scores go to the exp2 domain with scale * log2(e) folded into one FFMA
 // before ex2; the scratch LSE is in log2 units and +inf where a row sees no
 // key or lies past Lq, so P is 0 there without a mask. The per-element
 // mask runs only on edge tiles (the causal diagonal, the window's far
-// edge, the prefix boundary, the sequence's end: tile_full), one branch a
-// tile; interior tiles take none. The heaviest causal tiles start first:
-// (a)'s q tile is its slowest grid index, reversed, and (b)'s kv tile its
+// edge, the prefix boundary, kend, the sequence's end: tile_full), one
+// branch a tile; interior tiles take none. Keys past Lkv are zeros from
+// TMA's fill; keys in [kend, Lkv) are real data, so a tile that reaches
+// past kend takes the mask. The pair up to 128 keeps an instance without
+// kv_valid_len (RAGGED false: kend is Lkv and tile_full skips its test),
+// the one every training path takes: with the test it measured about 3%
+// slower (PERF.md). The heaviest causal tiles start first: (a)'s
+// q tile is its slowest grid index, reversed, and (b)'s kv tile its
 // slowest, kv tile 0 (the longest) first. Every consumer runs every live
 // tile of its CTA (where its own rows or keys see none of the tile, the
 // mask gives P = 0), so that both wait on and release each stage. An
@@ -129,23 +150,20 @@
 //   tiles take the larger head dim padded to 64 or 128, zeros past each
 //   tensor's own; past 128 the 32 x 32 tile alone, at 256 (140 KB of
 //   shared memory, 255 registers a thread: one CTA an SM).
-//   Tiled (longer calls): one CTA of 256 threads a BT-row tile, (a) then
-//   (b) as above, with the LSE and D scratch (the CUDA-core pair below).
-//
-// The CUDA-core pair (f32 past the one-pass band, and bf16 with a head dim
-// over 128): each tile of Q, K, V and dO is held as f32 in shared memory
-// at DP columns, the larger head dim padded to 64, 128, 192 or 256 (bf16
-// operands widened as they load), zeros past each tensor's own; rows of 64
-// up to DP 128 and of 32 past it (137 KB of shared memory at DP 256);
-// every product is register-tiled FMAs from shared memory, one read per
-// FMA at 32-row tiles, so the pair runs far below the tensor cores' bound:
-// a port of what is right, whose speed is later work (PERF.md).
+//   Tiled (longer calls, the CUDA-core pair): one CTA of 256 threads a
+//   BT-row tile, (a) then (b) as above, with the LSE and D scratch. Each
+//   tile of Q, K, V and dO is held in shared memory at DP columns, the
+//   larger head dim padded to 64, 128, 192 or 256, zeros past each
+//   tensor's own; rows of 64 up to DP 128 and of 32 past it; every product
+//   is register-tiled FMAs from shared memory.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace fab {
 
@@ -155,8 +173,9 @@ struct Args {
   const void *q, *k, *v, *o, *dout;
   void *dq, *dk, *dv;
   float *lse, *dsum;      // (B, H, ls) scratch: (a) writes, (b) reads; on
-                          // the wgmma pair ls is Lq rounded up to 64 and
+                          // the wgmma pairs ls is Lq rounded up to 64 and
                           // LSE is in log2 units
+  const int* kvl;         // kv_valid_len (B,), or null
   int B, Lq, Lkv, H, Hkv;
   int D, Dv;              // q/k/dq/dk head dim; v/o/do/dv head dim
   int G, ls;
@@ -165,10 +184,16 @@ struct Args {
   float scale;            // 1 / sqrt(the unpadded Dq)
 };
 
+// the end of batch row b's keys: min(Lkv, kv_valid_len[b]), at least 0
+__device__ __forceinline__ int kv_end(const Args& a, int b) {
+  return a.kvl ? max(0, min(a.Lkv, a.kvl[b])) : a.Lkv;
+}
+
 // ref.py attention_mask: query row i (position q_offset + i) may attend to
-// key j
-__device__ __forceinline__ bool allowed(const Args& a, int i, int j) {
-  if (i >= a.Lq || j >= a.Lkv) return false;
+// key j of a batch row whose keys end at kend
+__device__ __forceinline__ bool allowed(const Args& a, int i, int j,
+                                        int kend) {
+  if (i >= a.Lq || j >= kend) return false;
   if (j < a.prefix_len) return true;
   const int qpos = a.q_offset + i;
   if (a.causal && j > qpos) return false;
@@ -179,9 +204,9 @@ __device__ __forceinline__ bool allowed(const Args& a, int i, int j) {
 // whether any (row, key) of rows [q0, q1) x keys [k0, k1) is allowed: the
 // differences qpos - kpos of the tile cover [dmin, dmax] without gaps
 __device__ __forceinline__ bool tile_live(const Args& a, int q0, int q1,
-                                          int k0, int k1) {
+                                          int k0, int k1, int kend) {
   q1 = min(q1, a.Lq);
-  k1 = min(k1, a.Lkv);
+  k1 = min(k1, kend);
   if (q0 >= q1 || k0 >= k1) return false;
   if (k0 < a.prefix_len) return true;
   const long long dmin = (long long)a.q_offset + q0 - (k1 - 1);
@@ -191,53 +216,59 @@ __device__ __forceinline__ bool tile_live(const Args& a, int q0, int q1,
   return true;
 }
 
-template <typename T> __device__ __forceinline__ float f32(T x);
-template <> __device__ __forceinline__ float f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float f32<bf16>(bf16 x) {
-  return __bfloat162float(x);
-}
-template <typename S> __device__ __forceinline__ S as(float x);
-template <> __device__ __forceinline__ float as<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 as<bf16>(float x) {
-  return __float2bfloat16_rn(x);
+// whether the mask allows every (row, key) of rows [q0, q1) x keys [k0,
+// k1), rows clipped to Lq and keys to Lkv: such a tile runs without the
+// per-element mask (keys past Lkv are the caller's to mask where they
+// matter; keys in [kend, Lkv) make the tile an edge tile). RAGGED false:
+// the call has no kv_valid_len (kend is Lkv), and the test is left out
+template <bool RAGGED = true>
+__device__ __forceinline__ bool tile_full(const Args& a, int q0, int q1,
+                                          int k0, int k1, int kend) {
+  q1 = min(q1, a.Lq);
+  k1 = min(k1, a.Lkv);
+  if (RAGGED && k1 > kend) return false;
+  if (k1 <= a.prefix_len) return true;
+  const long long qlo = (long long)a.q_offset + q0;
+  const long long qhi = (long long)a.q_offset + q1 - 1;
+  return (!a.causal || k1 - 1 <= qlo) &&
+         (a.window <= 0 || qhi - k0 < a.window);
 }
 
 // rows [row0, row0 + rows) of a (row stride ``stride``) into dst (row
 // stride LD), columns [0, DP); zeros past D and past nvalid rows
-template <typename T, typename S, int DP, int LD>
-__device__ void load_rows(S* dst, const T* src, size_t stride, int row0,
-                          int nvalid, int rows, int D, bool vec) {
-  constexpr int VEC = 16 / sizeof(T);
+template <int DP, int LD>
+__device__ void load_rows(float* dst, const float* src, size_t stride,
+                          int row0, int nvalid, int rows, int D, bool vec) {
   if (vec) {
-    constexpr int VPR = DP / VEC;
+    constexpr int VPR = DP / 4;
     for (int idx = threadIdx.x; idx < rows * VPR; idx += blockDim.x) {
-      const int r = idx / VPR, c = (idx % VPR) * VEC, gr = row0 + r;
-      const uint4 u = gr < nvalid && c < D
-          ? *reinterpret_cast<const uint4*>(src + gr * stride + c)
-          : make_uint4(0, 0, 0, 0);
-      const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) dst[r * LD + c + i] = as<S>(f32(e[i]));
+      const int r = idx / VPR, c = (idx % VPR) * 4, gr = row0 + r;
+      const float4 u = gr < nvalid && c < D
+          ? *reinterpret_cast<const float4*>(src + gr * stride + c)
+          : make_float4(0.f, 0.f, 0.f, 0.f);
+      dst[r * LD + c] = u.x;
+      dst[r * LD + c + 1] = u.y;
+      dst[r * LD + c + 2] = u.z;
+      dst[r * LD + c + 3] = u.w;
     }
   } else {
     for (int idx = threadIdx.x; idx < rows * DP; idx += blockDim.x) {
       const int r = idx / DP, c = idx % DP, gr = row0 + r;
-      dst[r * LD + c] = as<S>(gr < nvalid && c < D
-                                   ? f32(src[gr * stride + c]) : 0.f);
+      dst[r * LD + c] = gr < nvalid && c < D ? src[gr * stride + c] : 0.f;
     }
   }
 }
 
 // D = rowsum(do . o) over Dv for rows [q0, q0 + 256 / TPR) of one head,
 // TPR threads a row
-template <typename T, int TPR>
-__device__ void row_dsum(const Args& a, const T* o, const T* dout,
+template <int TPR>
+__device__ void row_dsum(const Args& a, const float* o, const float* dout,
                          size_t stride, int q0, float* Ds, float* dsum_row) {
   const int r = threadIdx.x / TPR, part = threadIdx.x % TPR, gr = q0 + r;
   float acc = 0.f;
   if (gr < a.Lq)
     for (int c = part; c < a.Dv; c += TPR)
-      acc += f32(dout[gr * stride + c]) * f32(o[gr * stride + c]);
+      acc += dout[gr * stride + c] * o[gr * stride + c];
 #pragma unroll
   for (int off = 1; off < TPR; off <<= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -248,14 +279,14 @@ __device__ void row_dsum(const Args& a, const T* o, const T* dout,
 }
 
 // ---------------------------------------------------------------------------
-// The CUDA-core pair (f32 calls past the one-pass band, and bf16 calls with
-// a head dim over 128): fp32 FMAs, no tensor cores. 256 threads as 16 x 16,
-// a thread owns rows ty + 16 i and columns tx + 16 j of every BT x BT tile
-// (shared rows padded by one float, so the 16 columns a half-warp reads
-// fall in 16 banks). Q, K, V and dO are held as f32 at DP columns, DP the
-// larger head dim padded to 64, 128, 192 or 256, zeros past each tensor's
-// own (D for q/k, Dv for v/o/do), so S runs over Dq and dP over Dv; BT is
-// 64 up to DP 128 and 32 past it (137 KB of shared memory at DP 256).
+// The CUDA-core pair (f32 calls past the one-pass band): fp32 FMAs, no
+// tensor cores. 256 threads as 16 x 16, a thread owns rows ty + 16 i and
+// columns tx + 16 j of every BT x BT tile (shared rows padded by one
+// float, so the 16 columns a half-warp reads fall in 16 banks). Q, K, V
+// and dO are held at DP columns, DP the larger head dim padded to 64, 128,
+// 192 or 256, zeros past each tensor's own (D for q/k, Dv for v/o/do), so
+// S runs over Dq and dP over Dv; BT is 64 up to DP 128 and 32 past it (137
+// KB of shared memory at DP 256).
 // ---------------------------------------------------------------------------
 
 template <int DP, int RI>
@@ -288,7 +319,7 @@ struct CC {
 };
 
 // (a): dq, and LSE and D into the scratch, for a BT-row q tile of one head
-template <typename T, int DP, int BT>
+template <int DP, int BT>
 __device__ __forceinline__ void dq_cc(const Args& a, float* sm) {
   constexpr int LD = CC<DP, BT>::LD, LS = CC<DP, BT>::LS;
   constexpr int RI = BT / 16, NJ = DP / 16;
@@ -300,20 +331,21 @@ __device__ __forceinline__ void dq_cc(const Args& a, float* sm) {
   float* Ds = dSs + BT * LS;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / a.G, q0 = blockIdx.x * BT;
+  const int kend = kv_end(a, b);
   const size_t qs = (size_t)a.H * a.D, os = (size_t)a.H * a.Dv;
   const size_t ks = (size_t)a.Hkv * a.D, vs = (size_t)a.Hkv * a.Dv;
   const size_t row = (size_t)b * a.Lq * a.H + h;
   const size_t krow = (size_t)b * a.Lkv * a.Hkv + hk;
-  const T* q = static_cast<const T*>(a.q) + row * a.D;
-  const T* o = static_cast<const T*>(a.o) + row * a.Dv;
-  const T* dout = static_cast<const T*>(a.dout) + row * a.Dv;
-  const T* k = static_cast<const T*>(a.k) + krow * a.D;
-  const T* v = static_cast<const T*>(a.v) + krow * a.Dv;
+  const float* q = static_cast<const float*>(a.q) + row * a.D;
+  const float* o = static_cast<const float*>(a.o) + row * a.Dv;
+  const float* dout = static_cast<const float*>(a.dout) + row * a.Dv;
+  const float* k = static_cast<const float*>(a.k) + krow * a.D;
+  const float* v = static_cast<const float*>(a.v) + krow * a.Dv;
   float* lse_row = a.lse + ((size_t)b * a.H + h) * a.ls;
-  load_rows<T, float, DP, LD>(Qs, q, qs, q0, a.Lq, BT, a.D, a.vec);
-  load_rows<T, float, DP, LD>(dOs, dout, os, q0, a.Lq, BT, a.Dv, a.vec);
-  row_dsum<T, 256 / BT>(a, o, dout, os, q0, Ds,
-                        a.dsum + ((size_t)b * a.H + h) * a.ls);
+  load_rows<DP, LD>(Qs, q, qs, q0, a.Lq, BT, a.D, a.vec);
+  load_rows<DP, LD>(dOs, dout, os, q0, a.Lq, BT, a.Dv, a.vec);
+  row_dsum<256 / BT>(a, o, dout, os, q0, Ds,
+                     a.dsum + ((size_t)b * a.H + h) * a.ls);
   __syncthreads();
   const int nkt = (a.Lkv + BT - 1) / BT;
   // pass 1: the row max m and sum l, online over the kv tiles
@@ -322,9 +354,9 @@ __device__ __forceinline__ void dq_cc(const Args& a, float* sm) {
   for (int i = 0; i < RI; ++i) m[i] = -INFINITY, l[i] = 0.f;
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * BT;
-    if (!tile_live(a, q0, q0 + BT, k0, k0 + BT)) continue;
+    if (!tile_live(a, q0, q0 + BT, k0, k0 + BT, kend)) continue;
     __syncthreads();
-    load_rows<T, float, DP, LD>(Ks, k, ks, k0, a.Lkv, BT, a.D, a.vec);
+    load_rows<DP, LD>(Ks, k, ks, k0, a.Lkv, BT, a.D, a.vec);
     __syncthreads();
     float s[RI][RI];
     scores_cc<DP, RI>(Qs, Ks, s);
@@ -333,7 +365,7 @@ __device__ __forceinline__ void dq_cc(const Args& a, float* sm) {
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < RI; ++j) {
-        s[i][j] = allowed(a, q0 + ty + 16 * i, k0 + tx + 16 * j)
+        s[i][j] = allowed(a, q0 + ty + 16 * i, k0 + tx + 16 * j, kend)
                       ? s[i][j] * a.scale : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -366,10 +398,10 @@ __device__ __forceinline__ void dq_cc(const Args& a, float* sm) {
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * BT;
-    if (!tile_live(a, q0, q0 + BT, k0, k0 + BT)) continue;
+    if (!tile_live(a, q0, q0 + BT, k0, k0 + BT, kend)) continue;
     __syncthreads();
-    load_rows<T, float, DP, LD>(Ks, k, ks, k0, a.Lkv, BT, a.D, a.vec);
-    load_rows<T, float, DP, LD>(Vs, v, vs, k0, a.Lkv, BT, a.Dv, a.vec);
+    load_rows<DP, LD>(Ks, k, ks, k0, a.Lkv, BT, a.D, a.vec);
+    load_rows<DP, LD>(Vs, v, vs, k0, a.Lkv, BT, a.Dv, a.vec);
     __syncthreads();
     float s[RI][RI], dp[RI][RI];
     scores_cc<DP, RI>(Qs, Ks, s);
@@ -379,7 +411,7 @@ __device__ __forceinline__ void dq_cc(const Args& a, float* sm) {
 #pragma unroll
       for (int j = 0; j < RI; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
-        const float p = allowed(a, q0 + r, k0 + c)
+        const float p = allowed(a, q0 + r, k0 + c, kend)
                             ? expf(s[i][j] * a.scale - lse[i]) : 0.f;
         dSs[r * LS + c] = p * (dp[i][j] - Ds[r]);
       }
@@ -396,7 +428,7 @@ __device__ __forceinline__ void dq_cc(const Args& a, float* sm) {
       }
     }
   }
-  T* dq = static_cast<T*>(a.dq) + row * a.D;
+  float* dq = static_cast<float*>(a.dq) + row * a.D;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int gr = q0 + ty + 16 * i;
@@ -404,13 +436,13 @@ __device__ __forceinline__ void dq_cc(const Args& a, float* sm) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 16 * j;
-      if (c < a.D) dq[gr * qs + c] = as<T>(acc[i][j] * a.scale);
+      if (c < a.D) dq[gr * qs + c] = acc[i][j] * a.scale;
     }
   }
 }
 
 // (b): dk and dv for a BT-key tile of one kv head, over its G query heads
-template <typename T, int DP, int BT>
+template <int DP, int BT>
 __device__ __forceinline__ void dkv_cc(const Args& a, float* sm) {
   constexpr int LD = CC<DP, BT>::LD, LS = CC<DP, BT>::LS;
   constexpr int RI = BT / 16, NJ = DP / 16;
@@ -424,13 +456,14 @@ __device__ __forceinline__ void dkv_cc(const Args& a, float* sm) {
   float* Ds = Ls + BT;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int hk = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BT;
+  const int kend = kv_end(a, b);
   const size_t qs = (size_t)a.H * a.D, os = (size_t)a.H * a.Dv;
   const size_t ks = (size_t)a.Hkv * a.D, vs = (size_t)a.Hkv * a.Dv;
   const size_t krow = (size_t)b * a.Lkv * a.Hkv + hk;
-  load_rows<T, float, DP, LD>(Ks, static_cast<const T*>(a.k) + krow * a.D,
-                              ks, k0, a.Lkv, BT, a.D, a.vec);
-  load_rows<T, float, DP, LD>(Vs, static_cast<const T*>(a.v) + krow * a.Dv,
-                              vs, k0, a.Lkv, BT, a.Dv, a.vec);
+  load_rows<DP, LD>(Ks, static_cast<const float*>(a.k) + krow * a.D, ks, k0,
+                    a.Lkv, BT, a.D, a.vec);
+  load_rows<DP, LD>(Vs, static_cast<const float*>(a.v) + krow * a.Dv, vs, k0,
+                    a.Lkv, BT, a.Dv, a.vec);
   float dk[RI][NJ], dv[RI][NJ];
 #pragma unroll
   for (int i = 0; i < RI; ++i)
@@ -440,16 +473,16 @@ __device__ __forceinline__ void dkv_cc(const Args& a, float* sm) {
   for (int g = 0; g < a.G; ++g) {
     const int h = hk * a.G + g;
     const size_t row = (size_t)b * a.Lq * a.H + h;
-    const T* q = static_cast<const T*>(a.q) + row * a.D;
-    const T* dout = static_cast<const T*>(a.dout) + row * a.Dv;
+    const float* q = static_cast<const float*>(a.q) + row * a.D;
+    const float* dout = static_cast<const float*>(a.dout) + row * a.Dv;
     const float* lse_row = a.lse + ((size_t)b * a.H + h) * a.ls;
     const float* dsum_row = a.dsum + ((size_t)b * a.H + h) * a.ls;
     for (int qt = 0; qt < nqt; ++qt) {
       const int q0 = qt * BT;
-      if (!tile_live(a, q0, q0 + BT, k0, k0 + BT)) continue;
+      if (!tile_live(a, q0, q0 + BT, k0, k0 + BT, kend)) continue;
       __syncthreads();
-      load_rows<T, float, DP, LD>(Qs, q, qs, q0, a.Lq, BT, a.D, a.vec);
-      load_rows<T, float, DP, LD>(dOs, dout, os, q0, a.Lq, BT, a.Dv, a.vec);
+      load_rows<DP, LD>(Qs, q, qs, q0, a.Lq, BT, a.D, a.vec);
+      load_rows<DP, LD>(dOs, dout, os, q0, a.Lq, BT, a.Dv, a.vec);
       if (threadIdx.x < BT) {
         const int gr = q0 + threadIdx.x;
         Ls[threadIdx.x] = gr < a.Lq ? lse_row[gr] : 0.f;
@@ -465,7 +498,7 @@ __device__ __forceinline__ void dkv_cc(const Args& a, float* sm) {
 #pragma unroll
         for (int j = 0; j < RI; ++j) {
           const int r = ty + 16 * i, c = tx + 16 * j;
-          const float p = allowed(a, q0 + r, k0 + c)
+          const float p = allowed(a, q0 + r, k0 + c, kend)
                               ? expf(s[i][j] * a.scale - Ls[r]) : 0.f;
           Ps[r * LS + c] = p;
           dSs[r * LS + c] = p * (dp[i][j] - Ds[r]);
@@ -491,8 +524,8 @@ __device__ __forceinline__ void dkv_cc(const Args& a, float* sm) {
       }
     }
   }
-  T* dkp = static_cast<T*>(a.dk) + krow * a.D;
-  T* dvp = static_cast<T*>(a.dv) + krow * a.Dv;
+  float* dkp = static_cast<float*>(a.dk) + krow * a.D;
+  float* dvp = static_cast<float*>(a.dv) + krow * a.Dv;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int gr = k0 + ty + 16 * i;
@@ -500,66 +533,58 @@ __device__ __forceinline__ void dkv_cc(const Args& a, float* sm) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = tx + 16 * j;
-      if (c < a.D) dkp[gr * ks + c] = as<T>(dk[i][j] * a.scale);
-      if (c < a.Dv) dvp[gr * vs + c] = as<T>(dv[i][j]);
+      if (c < a.D) dkp[gr * ks + c] = dk[i][j] * a.scale;
+      if (c < a.Dv) dvp[gr * vs + c] = dv[i][j];
     }
   }
 }
 
-// f32 (the tiled pair)
 template <int DP, int BT>
 __global__ void __launch_bounds__(256) bwd_dq_f32(Args a) {
   extern __shared__ float sm[];
-  dq_cc<float, DP, BT>(a, sm);
+  dq_cc<DP, BT>(a, sm);
 }
 template <int DP, int BT>
 __global__ void __launch_bounds__(256) bwd_dkv_f32(Args a) {
   extern __shared__ float sm[];
-  dkv_cc<float, DP, BT>(a, sm);
-}
-// bf16 past the wgmma pair's head dims (paligemma's 256, deepseek-v2's
-// (192, 128)): the same pair on bf16 operands widened to f32
-template <int DP>
-__global__ void __launch_bounds__(256) bwd_dq_cc_bf16(Args a) {
-  extern __shared__ float sm[];
-  dq_cc<bf16, DP, 32>(a, sm);
-}
-template <int DP>
-__global__ void __launch_bounds__(256) bwd_dkv_cc_bf16(Args a) {
-  extern __shared__ float sm[];
-  dkv_cc<bf16, DP, 32>(a, sm);
+  dkv_cc<DP, BT>(a, sm);
 }
 
 // ---------------------------------------------------------------------------
 // bf16: warp-specialised TMA + wgmma. A CTA has three warpgroups: one
-// producer thread keeps TMA loads in flight into a ring of STAGES stages on
-// full/empty mbarriers, and two consumer warpgroups of 64 rows each run the
-// products on wgmma. Every shared tile is 64 rows of a head dim padded to
-// 64 or 128 columns (DQP for q and k, DVP for v and do), stored as 1 or 2
-// slabs of 64 rows x 128 bytes with 128-byte swizzle; TMA zero-fills the
-// columns past each tensor's head dim and the rows past the sequence. In
-// an m64nN accumulator, thread (warp w, lane 4 g + t) of a warpgroup holds
-// rows 16 w + g and 16 w + g + 8, columns 8 j + 2 t and 8 j + 2 t + 1:
-// element 4 j + e is row (e >> 1), column (e & 1).
+// producer thread keeps TMA loads in flight into a ring on full/empty
+// mbarriers, and two consumer warpgroups run the products on wgmma. Every
+// shared tile is 64 rows (q tiles, and the keys of (b)) or BK rows ((a)'s
+// key tiles) of a head dim padded to a multiple of 64 columns (DQP for q
+// and k, DVP for v and do), stored as slabs of rows x 128 bytes with
+// 128-byte swizzle; TMA zero-fills the columns past each tensor's head dim
+// and the rows past the sequence. In an m64nN accumulator, thread (warp w,
+// lane 4 g + t) of a warpgroup holds rows 16 w + g and 16 w + g + 8,
+// columns 8 j + 2 t and 8 j + 2 t + 1: element 4 j + e is row (e >> 1),
+// column (e & 1).
 // ---------------------------------------------------------------------------
 
 constexpr int WG = 128;                 // threads in a warpgroup
 constexpr int HTHREADS = 3 * WG;        // producer + two consumers
-constexpr int TR = 64;                  // rows of a tile (a consumer's share)
+constexpr int TR = 64;                  // rows of a q tile (a consumer's)
 constexpr int STAGES = 3;               // ring depth
 constexpr int SLAB = 64;                // bf16 columns of one 128-byte row
+constexpr int SMEM_MAX = 232448 - 1024; // dynamic shared memory a block
+                                        // gets, less the static barriers
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int DQP, int DVP>
+template <int DQP, int DVP, int BK = TR>
 struct Tiles {
   static constexpr int SQ = DQP / SLAB, SV = DVP / SLAB;   // slabs a row
   static constexpr int TQ = SQ * TR * 128;      // one 64-row tile of q or k
   static constexpr int TV = SV * TR * 128;      // one of v or do
+  static constexpr int KQ = SQ * BK * 128;      // (a)'s BK-row K tile
+  static constexpr int KV = SV * BK * 128;      // (a)'s BK-row V tile
   // (a): Q and dO (a tile per consumer each), then a stage of K and V; pass
   // 1 loads a second K tile into the V slot, which is the wider of the two
-  static constexpr int VSLOT = TQ > TV ? TQ : TV;
+  static constexpr int VSLOT = KQ > KV ? KQ : KV;
   static constexpr int DQ_SMEM =
-      1024 + 2 * TQ + 2 * TV + STAGES * (TQ + VSLOT);
+      1024 + 2 * TQ + 2 * TV + STAGES * (KQ + VSLOT);
   // (b): K and V (a tile per consumer each), then a stage of Q, dO, and
   // 64 LSE and 64 D, padded to keep the next stage 1,024-byte aligned
   static constexpr int STAT = TR * 4;
@@ -567,20 +592,24 @@ struct Tiles {
   static constexpr int DKV_SMEM = 1024 + 2 * TQ + 2 * TV + STAGES * DKV_STAGE;
 };
 
-// whether the mask allows every (row, key) of rows [q0, q1) x keys [k0,
-// k1), rows clipped to Lq and keys to Lkv: such a tile runs without the
-// per-element mask (keys past Lkv are the caller's to mask where they
-// matter)
-__device__ __forceinline__ bool tile_full(const Args& a, int q0, int q1,
-                                          int k0, int k1) {
-  q1 = min(q1, a.Lq);
-  k1 = min(k1, a.Lkv);
-  if (k1 <= a.prefix_len) return true;
-  const long long qlo = (long long)a.q_offset + q0;
-  const long long qhi = (long long)a.q_offset + q1 - 1;
-  return (!a.causal || k1 - 1 <= qlo) &&
-         (a.window <= 0 || qhi - k0 < a.window);
+// (a)'s key tile: 64 rows where three stages of them fit beside Q and dO,
+// else 32 (<256, 256>)
+template <int DQP, int DVP>
+__host__ __device__ constexpr int dq_bk() {
+  return Tiles<DQP, DVP, TR>::DQ_SMEM <= SMEM_MAX ? TR : TR / 2;
 }
+
+// the wide (b): K and V of its 64 keys, a ring of NS stages of Q, dO and
+// the stats (three where they fit), and P^T (64 x 64 f32) for the dS side
+template <int DQP, int DVP>
+struct WideKV {
+  using T = Tiles<DQP, DVP>;
+  static constexpr int STAGE = T::TQ + T::TV + 1024;
+  static constexpr int PBUF = TR * TR * 4;
+  static constexpr int BASE = 1024 + T::TQ + T::TV + PBUF;
+  static constexpr int NS = BASE + 3 * STAGE <= SMEM_MAX ? 3 : 2;
+  static constexpr int SMEM = BASE + NS * STAGE;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -712,48 +741,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// S = A B^T over one k-step of 16: A and B from shared memory, both
-// K-major; m64n64k16, bf16 in, f32 accumulate (each accumulator register an
-// operand). wgmma_ss64_first overwrites d, which is then no input, so the
-// previous tile's values are dead before the product starts.
-__device__ __forceinline__ void wgmma_ss64(float* d, uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
-      "%27, %28, %29, %30, %31}"
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_ss64_first(float* d, uint64_t a,
-                                                 uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
-      "%27, %28, %29, %30, %31}"
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
-        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
-        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
-        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
-        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
-        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
-        "=f"(d[30]), "=f"(d[31])
-      : "l"(a), "l"(b), "r"(0));
-}
+// wgmma with both operands from shared memory, K-major (A 64 rows, B N
+// rows): m64nNk16, bf16 in, f32 accumulate (each accumulator register an
+// operand). FIRST overwrites d, which is then no input, so the previous
+// tile's values are dead before the product starts.
+template <int N, bool FIRST>
+__device__ void wgmma_ss(float* d, uint64_t a, uint64_t b);
 
 // C += A M: A (bf16) from registers, M from shared memory read MN-major
 // (trans-b = 1); m64nNk16, accumulating.
@@ -761,23 +754,100 @@ template <int N>
 __device__ void wgmma_rs(float* d, const uint32_t* a, uint64_t b);
 
 template <>
+__device__ __forceinline__ void wgmma_ss<32, true>(float* d, uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]),
+        "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+      : "l"(a), "l"(b), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32, false>(float* d, uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64, true>(float* d, uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]),
+        "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]),
+        "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]),
+        "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]),
+        "=f"(d[31])
+      : "l"(a), "l"(b), "r"(0));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64, false>(float* d, uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
                                               uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
-      "%27, %28, %29, %30, %31}"
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -787,58 +857,150 @@ __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
-      "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// C (64 x 64) = A B^T over DP columns: A and B 64-row tiles in shared
-// memory, both read K-major (S = Q K^T, dP = dO V^T and their transposes)
-template <int DP>
-__device__ __forceinline__ void gemm_rows(float (&c)[TR / 2], uint32_t a,
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),
+        "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]),
+        "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]),
+        "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]),
+        "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]),
+        "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]),
+        "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// C (64 x N) = A B^T over DP columns: A a 64-row and B an N-row tile in
+// shared memory, both read K-major (S = Q K^T, dP = dO V^T and their
+// transposes)
+template <int DP, int N>
+__device__ __forceinline__ void gemm_rows(float (&c)[N / 2], uint32_t a,
                                           uint32_t b) {
-  wgmma_ss64_first(c, desc_sw128(a, 16, 1024), desc_sw128(b, 16, 1024));
+  wgmma_ss<N, true>(c, desc_sw128(a, 16, 1024), desc_sw128(b, 16, 1024));
 #pragma unroll
   for (int kk = 1; kk < DP / 16; ++kk) {
-    const uint32_t off = (kk / 4) * TR * 128 + (kk % 4) * 32;
-    wgmma_ss64(c, desc_sw128(a + off, 16, 1024),
-               desc_sw128(b + off, 16, 1024));
+    const uint32_t ka = (kk / 4) * TR * 128 + (kk % 4) * 32;
+    const uint32_t kb = (kk / 4) * N * 128 + (kk % 4) * 32;
+    wgmma_ss<N, false>(c, desc_sw128(a + ka, 16, 1024),
+                       desc_sw128(b + kb, 16, 1024));
   }
 }
 
-// C (64 x DP) += F M: F (64 x 64) bf16 A fragments in registers, M a
-// 64-row tile in shared memory read MN-major (dQ += dS K, dV += P^T dO,
-// dK += dS^T Q)
-template <int DP>
+// C (64 x DP) += F M: F (64 x K) bf16 A fragments in registers, M a K-row
+// tile in shared memory read MN-major (dQ += dS K, dV += P^T dO, dK +=
+// dS^T Q)
+template <int DP, int K>
 __device__ __forceinline__ void gemm_frags(float (&c)[DP / 2],
-                                           uint32_t (&f)[TR / 16][4],
+                                           uint32_t (&f)[K / 16][4],
                                            uint32_t m) {
 #pragma unroll
-  for (int kk = 0; kk < TR / 16; ++kk)
-    wgmma_rs<DP>(c, f[kk], desc_sw128(m + kk * 16 * 128, TR * 128, 1024));
+  for (int kk = 0; kk < K / 16; ++kk)
+    wgmma_rs<DP>(c, f[kk], desc_sw128(m + kk * 16 * 128, K * 128, 1024));
 }
 
-// the 16 columns 16 kk .. 16 kk + 15 of a 64 x 64 accumulator as the A
+// the 16 columns 16 kk .. 16 kk + 15 of a 64 x N accumulator as the A
 // fragment of one k-step (rounded to bf16)
-__device__ __forceinline__ void to_frag(const float (&s)[TR / 2], int kk,
+template <int N>
+__device__ __forceinline__ void to_frag(const float (&s)[N], int kk,
                                         uint32_t (&f)[4]) {
   f[0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
   f[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
@@ -846,30 +1008,35 @@ __device__ __forceinline__ void to_frag(const float (&s)[TR / 2], int kk,
   f[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
 }
 
-// whether kv tile n (64 keys) holds a key that a row of the CTA's 128 sees
-__device__ __forceinline__ bool kv_live(const Args& a, int row0, int n) {
-  return tile_live(a, row0, row0 + 2 * TR, n * TR, n * TR + TR);
+// whether kv tile n (BK keys) holds a key that a row of the CTA's 128 sees
+template <int BK>
+__device__ __forceinline__ bool kv_live(const Args& a, int row0, int n,
+                                        int kend) {
+  return tile_live(a, row0, row0 + 2 * TR, n * BK, n * BK + BK, kend);
 }
 
+template <int BK>
 __device__ __forceinline__ int next_kv(const Args& a, int row0, int n,
-                                       int nkt) {
-  while (n < nkt && !kv_live(a, row0, n)) ++n;
+                                       int nkt, int kend) {
+  while (n < nkt && !kv_live<BK>(a, row0, n, kend)) ++n;
   return n;
 }
 
-template <int DQP, int DVP>
-__global__ void __launch_bounds__(HTHREADS, 1)
-bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
-            const __grid_constant__ CUtensorMap tk,
-            const __grid_constant__ CUtensorMap tv,
-            const __grid_constant__ CUtensorMap tdo, const Args a) {
-  using T = Tiles<DQP, DVP>;
-  extern __shared__ unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
+// (a) for a 128-row q tile (two consumers of 64 rows) with BK-key tiles:
+// the body of bwd_dq_bf16 (BK 64) and bwd_dq_wide_bf16. RAGGED false: the
+// call has no kv_valid_len
+template <int DQP, int DVP, int BK, bool RAGGED>
+__device__ __forceinline__ void dq_tma(const CUtensorMap& tq,
+                                       const CUtensorMap& tk,
+                                       const CUtensorMap& tv,
+                                       const CUtensorMap& tdo, const Args& a,
+                                       unsigned char* smem_raw,
+                                       uint64_t* bars) {
+  using T = Tiles<DQP, DVP, BK>;
   unsigned char* Qs = align1024(smem_raw);
   unsigned char* dOs = Qs + 2 * T::TQ;
   unsigned char* Ks = dOs + 2 * T::TV;            // [STAGES] K tiles
-  unsigned char* Vs = Ks + STAGES * T::TQ;        // [STAGES] V slots
+  unsigned char* Vs = Ks + STAGES * T::KQ;        // [STAGES] V slots
   uint64_t* qd_full = bars;
   uint64_t* full = bars + 1;
   uint64_t* empty = full + STAGES;
@@ -877,7 +1044,8 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
   // index, reversed
   const int row0 = (gridDim.z - 1 - blockIdx.z) * 2 * TR;
   const int h = blockIdx.x, b = blockIdx.y, hk = h / a.G;
-  const int nkt = (a.Lkv + TR - 1) / TR;
+  const int nkt = (a.Lkv + BK - 1) / BK;
+  const int kend = RAGGED ? kv_end(a, b) : a.Lkv;
   if (threadIdx.x == 0) {
     mbar_init(qd_full, 1);
     for (int s = 0; s < STAGES; ++s) {
@@ -905,22 +1073,22 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
       }
       int it = 0;
       for (int pass = 0; pass < 2; ++pass)
-        for (int n = next_kv(a, row0, 0, nkt); n < nkt;) {
-          const int n2 = pass ? n : next_kv(a, row0, n + 1, nkt);
+        for (int n = next_kv<BK>(a, row0, 0, nkt, kend); n < nkt;) {
+          const int n2 = pass ? n : next_kv<BK>(a, row0, n + 1, nkt, kend);
           const int st = it % STAGES;
           const uint32_t ph = (it / STAGES) & 1;
           ++it;
           mbar_wait(empty + st, ph ^ 1);
-          mbar_expect_tx(full + st, T::TQ + (n2 >= nkt ? 0
-                                             : pass ? T::TV : T::TQ));
+          mbar_expect_tx(full + st, T::KQ + (n2 >= nkt ? 0
+                                             : pass ? T::KV : T::KQ));
           for (int sl = 0; sl < T::SQ; ++sl)
-            tma_load(Ks + st * T::TQ + sl * TR * 128, &tk, full + st,
-                     sl * SLAB, hk, n * TR, b);
+            tma_load(Ks + st * T::KQ + sl * BK * 128, &tk, full + st,
+                     sl * SLAB, hk, n * BK, b);
           if (n2 < nkt)
             for (int sl = 0; sl < (pass ? T::SV : T::SQ); ++sl)
-              tma_load(Vs + st * T::VSLOT + sl * TR * 128, pass ? &tv : &tk,
-                       full + st, sl * SLAB, hk, n2 * TR, b);
-          n = n2 < nkt ? next_kv(a, row0, n2 + 1, nkt) : nkt;
+              tma_load(Vs + st * T::VSLOT + sl * BK * 128, pass ? &tv : &tk,
+                       full + st, sl * SLAB, hk, n2 * BK, b);
+          n = n2 < nkt ? next_kv<BK>(a, row0, n2 + 1, nkt, kend) : nkt;
         }
     }
   } else {
@@ -977,26 +1145,27 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
     // The mask writes a copy: an instruction that writes the accumulator
     // registers themselves makes ptxas serialise every wgmma of the kernel.
-    auto row_stats = [&](const float (&acc_s)[2][TR / 2], int k0a, int k0b) {
-      float x[2][TR / 2];
+    auto row_stats = [&](const float (&acc_s)[2][BK / 2], int k0a, int k0b) {
+      float x[2][BK / 2];
 #pragma unroll
       for (int tt = 0; tt < 2; ++tt)
 #pragma unroll
-        for (int i = 0; i < TR / 2; ++i) x[tt][i] = acc_s[tt][i];
+        for (int i = 0; i < BK / 2; ++i) x[tt][i] = acc_s[tt][i];
 #pragma unroll
       for (int tt = 0; tt < 2; ++tt) {
         const int k0 = tt ? k0b : k0a;
         if (k0 < 0) {
 #pragma unroll
-          for (int i = 0; i < TR / 2; ++i) x[tt][i] = -INFINITY;
-        } else if (!(k0 + TR <= a.Lkv &&
-                     tile_full(a, r0, r0 + TR, k0, k0 + TR))) {
+          for (int i = 0; i < BK / 2; ++i) x[tt][i] = -INFINITY;
+        } else if (!(k0 + BK <= a.Lkv &&
+                     tile_full<RAGGED>(a, r0, r0 + TR, k0, k0 + BK,
+                                       kend))) {
           // an edge tile: the causal diagonal, the window's far edge, the
-          // prefix boundary, the sequence's end
+          // prefix boundary, kend, the sequence's end
 #pragma unroll
-          for (int i = 0; i < TR / 2; ++i)
+          for (int i = 0; i < BK / 2; ++i)
             if (!allowed(a, rl + 8 * ((i >> 1) & 1),
-                         k0 + 8 * (i >> 2) + 2 * t + (i & 1)))
+                         k0 + 8 * (i >> 2) + 2 * t + (i & 1), kend))
               x[tt][i] = -INFINITY;
         }
       }
@@ -1008,7 +1177,7 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int tt = 0; tt < 2; ++tt)
 #pragma unroll
-        for (int i = 0; i < TR / 2; ++i) {
+        for (int i = 0; i < BK / 2; ++i) {
           float& mx = mp[(i >> 1) & 1][((i >> 2) & 1) * 2 + (i & 1)];
           mx = fmaxf(mx, x[tt][i]);
         }
@@ -1027,7 +1196,7 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int tt = 0; tt < 2; ++tt)
 #pragma unroll
-        for (int i = 0; i < TR / 2; ++i) {
+        for (int i = 0; i < BK / 2; ++i) {
           const int r = (i >> 1) & 1;
           lp[r][((i >> 2) & 1) * 2 + (i & 1)] +=
               ex2(fmaf(x[tt][i], sl2, -safe[r]));
@@ -1040,24 +1209,24 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
         l[r] += ls;
       }
     };
-    float s[2][TR / 2];
+    float s[2][BK / 2];
     int it = 0;
-    for (int n = next_kv(a, row0, 0, nkt); n < nkt;) {
-      const int n2 = next_kv(a, row0, n + 1, nkt);
+    for (int n = next_kv<BK>(a, row0, 0, nkt, kend); n < nkt;) {
+      const int n2 = next_kv<BK>(a, row0, n + 1, nkt, kend);
       const int st = it % STAGES;
       mbar_wait(full + st, (it / STAGES) & 1);
       ++it;
       wgmma_fence();
-      gemm_rows<DQP>(s[0], q_addr, smem_u32(Ks + st * T::TQ));    // S
+      gemm_rows<DQP, BK>(s[0], q_addr, smem_u32(Ks + st * T::KQ));   // S
       if (n2 < nkt)
-        gemm_rows<DQP>(s[1], q_addr, smem_u32(Vs + st * T::VSLOT));
+        gemm_rows<DQP, BK>(s[1], q_addr, smem_u32(Vs + st * T::VSLOT));
       wgmma_commit();
       wgmma_wait0();
       keep(s[0]);
       keep(s[1]);
       if (lane == 0) mbar_arrive(empty + st);
-      row_stats(s, n * TR, n2 < nkt ? n2 * TR : -1);
-      n = n2 < nkt ? next_kv(a, row0, n2 + 1, nkt) : nkt;
+      row_stats(s, n * BK, n2 < nkt ? n2 * BK : -1);
+      n = n2 < nkt ? next_kv<BK>(a, row0, n2 + 1, nkt, kend) : nkt;
     }
     // LSE in log2 units; +inf where a row sees no key (and past Lq), so
     // that P = 2^(S log2e scale - LSE) is 0 there without a mask
@@ -1075,46 +1244,47 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
     }
     // pass 2: dS = P (dP - D); dQ += dS K. A tile's dQ product is waited
     // for, and its stage released, after the next tile's S and dP.
-    float (&dp)[TR / 2] = s[1];
+    float (&dp)[BK / 2] = s[1];
     float acc[DQP / 2];
 #pragma unroll
     for (int i = 0; i < DQP / 2; ++i) acc[i] = 0.f;
-    uint32_t dsf[TR / 16][4];
+    uint32_t dsf[BK / 16][4];
     int held = -1;                          // the stage the last dQ reads
-    for (int n = next_kv(a, row0, 0, nkt); n < nkt;
-         n = next_kv(a, row0, n + 1, nkt)) {
-      const int k0 = n * TR;
+    for (int n = next_kv<BK>(a, row0, 0, nkt, kend); n < nkt;
+         n = next_kv<BK>(a, row0, n + 1, nkt, kend)) {
+      const int k0 = n * BK;
       const int st = it % STAGES;
       mbar_wait(full + st, (it / STAGES) & 1);
       ++it;
-      const uint32_t k_addr = smem_u32(Ks + st * T::TQ);
+      const uint32_t k_addr = smem_u32(Ks + st * T::KQ);
       wgmma_fence();
-      gemm_rows<DQP>(s[0], q_addr, k_addr);                        // S
-      gemm_rows<DVP>(dp, do_addr, smem_u32(Vs + st * T::VSLOT));   // dP
+      gemm_rows<DQP, BK>(s[0], q_addr, k_addr);                      // S
+      gemm_rows<DVP, BK>(dp, do_addr, smem_u32(Vs + st * T::VSLOT)); // dP
       wgmma_commit();
       wgmma_wait0();
       keep(s[0]);
       keep(dp);
       if (held >= 0 && lane == 0) mbar_arrive(empty + held);
-      float (&p)[TR / 2] = s[0];
+      float (&p)[BK / 2] = s[0];
 #pragma unroll
-      for (int i = 0; i < TR / 2; ++i)
+      for (int i = 0; i < BK / 2; ++i)
         p[i] = ex2(fmaf(p[i], sl2, -lse2[(i >> 1) & 1]));
-      if (!(k0 + TR <= a.Lkv && tile_full(a, r0, r0 + TR, k0, k0 + TR)))
+      if (!(k0 + BK <= a.Lkv &&
+            tile_full<RAGGED>(a, r0, r0 + TR, k0, k0 + BK, kend)))
 #pragma unroll
-        for (int i = 0; i < TR / 2; ++i)         // an edge tile: the mask
+        for (int i = 0; i < BK / 2; ++i)         // an edge tile: the mask
           if (!allowed(a, rl + 8 * ((i >> 1) & 1),
-                       k0 + 8 * (i >> 2) + 2 * t + (i & 1)))
+                       k0 + 8 * (i >> 2) + 2 * t + (i & 1), kend))
             p[i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < TR / 2; ++i)
+      for (int i = 0; i < BK / 2; ++i)
         p[i] *= dp[i] - dsr[(i >> 1) & 1];                      // dS
 #pragma unroll
-      for (int kk = 0; kk < TR / 16; ++kk) to_frag(p, kk, dsf[kk]);
+      for (int kk = 0; kk < BK / 16; ++kk) to_frag(p, kk, dsf[kk]);
       keep(acc);
       keep(dsf);
       wgmma_fence();
-      gemm_frags<DQP>(acc, dsf, k_addr);           // K read MN-major
+      gemm_frags<DQP, BK>(acc, dsf, k_addr);       // K read MN-major
       wgmma_commit();
       held = st;
     }
@@ -1138,7 +1308,34 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// (a), Dq and Dv <= 128: 64-key tiles; RAGGED false for a call without
+// kv_valid_len
+template <int DQP, int DVP, bool RAGGED>
+__global__ void __launch_bounds__(HTHREADS, 1)
+bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
+            const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv,
+            const __grid_constant__ CUtensorMap tdo, const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
+  dq_tma<DQP, DVP, TR, RAGGED>(tq, tk, tv, tdo, a, smem_raw, bars);
+}
+
+// (a) past 128: <192, 128> at 64-key tiles, <256, 256> at 32
 template <int DQP, int DVP>
+__global__ void __launch_bounds__(HTHREADS, 1)
+bwd_dq_wide_bf16(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo, const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
+  dq_tma<DQP, DVP, dq_bk<DQP, DVP>(), true>(tq, tk, tv, tdo, a, smem_raw,
+                                             bars);
+}
+
+// (b), Dq and Dv <= 128: 128 keys, 64 a consumer; RAGGED as (a)'s
+template <int DQP, int DVP, bool RAGGED>
 __global__ void __launch_bounds__(HTHREADS, 1)
 bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
@@ -1158,6 +1355,7 @@ bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
   const int k0 = blockIdx.z * 2 * TR;
   const int hk = blockIdx.x, b = blockIdx.y;
   const int nqt = (a.Lq + TR - 1) / TR, Lqp = nqt * TR;
+  const int kend = RAGGED ? kv_end(a, b) : a.Lkv;
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
     for (int s = 0; s < STAGES; ++s) {
@@ -1188,7 +1386,7 @@ bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
         const size_t srow = ((size_t)b * a.H + h) * Lqp;
         for (int qt = 0; qt < nqt; ++qt) {
           const int q0 = qt * TR;
-          if (!tile_live(a, q0, q0 + TR, k0, k0 + 2 * TR)) continue;
+          if (!tile_live(a, q0, q0 + TR, k0, k0 + 2 * TR, kend)) continue;
           const int st = it % STAGES;
           const uint32_t ph = (it / STAGES) & 1;
           ++it;
@@ -1229,14 +1427,14 @@ bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
     // then dV and dK.
     int nlive = 0;
     for (int qt = 0; qt < nqt; ++qt)
-      nlive += tile_live(a, qt * TR, qt * TR + TR, k0, k0 + 2 * TR);
+      nlive += tile_live(a, qt * TR, qt * TR + TR, k0, k0 + 2 * TR, kend);
     Turns turns(cw, 2 * a.G * nlive);
     mbar_wait(kv_full, 0);
     int it = 0;
     for (int gq = 0; gq < a.G; ++gq) {
       for (int qt = 0; qt < nqt; ++qt) {
         const int q0 = qt * TR;
-        if (!tile_live(a, q0, q0 + TR, k0, k0 + 2 * TR)) continue;
+        if (!tile_live(a, q0, q0 + TR, k0, k0 + 2 * TR, kend)) continue;
         const int st = it % STAGES;
         const uint32_t ph = (it / STAGES) & 1;
         ++it;
@@ -1248,8 +1446,8 @@ bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
         const float* Ds = Ls + TR;
         turns.take();
         wgmma_fence();
-        gemm_rows<DQP>(s, k_addr, q_addr);        // S^T = K Q^T
-        gemm_rows<DVP>(dp, v_addr, do_addr);      // dP^T = V dO^T
+        gemm_rows<DQP, TR>(s, k_addr, q_addr);    // S^T = K Q^T
+        gemm_rows<DVP, TR>(dp, v_addr, do_addr);  // dP^T = V dO^T
         wgmma_commit();
         turns.pass();
         wgmma_wait0();
@@ -1258,7 +1456,7 @@ bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
         // S^T's rows are keys and its columns queries: the mask takes them
         // swapped, LSE and D are the column's. Queries past Lq have LSE
         // +inf, so P is 0 there without the mask; keys past Lkv give rows
-        // that are not stored.
+        // that are not stored, keys in [kend, Lkv) take the mask.
 #pragma unroll
         for (int j = 0; j < TR / 8; ++j) {          // P^T
           const float2 lv =
@@ -1269,11 +1467,11 @@ bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
             x = ex2(fmaf(x, sl2, (e & 1) ? -lv.y : -lv.x));
           }
         }
-        if (!tile_full(a, q0, q0 + TR, kr0, kr0 + TR))
+        if (!tile_full<RAGGED>(a, q0, q0 + TR, kr0, kr0 + TR, kend))
 #pragma unroll
           for (int i = 0; i < TR / 2; ++i)       // an edge tile: the mask
             if (!allowed(a, q0 + 8 * (i >> 2) + 2 * t + (i & 1),
-                         kl + 8 * ((i >> 1) & 1)))
+                         kl + 8 * ((i >> 1) & 1), kend))
               s[i] = 0.f;
 #pragma unroll
         for (int j = 0; j < TR / 8; ++j) {
@@ -1296,8 +1494,8 @@ bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
         keep(dsf);
         turns.take();
         wgmma_fence();
-        gemm_frags<DVP>(dv, pf, do_addr);         // dO read MN-major
-        gemm_frags<DQP>(dk, dsf, q_addr);         // Q read MN-major
+        gemm_frags<DVP, TR>(dv, pf, do_addr);     // dO read MN-major
+        gemm_frags<DQP, TR>(dk, dsf, q_addr);     // Q read MN-major
         wgmma_commit();
         turns.pass();
         wgmma_wait0();
@@ -1328,6 +1526,260 @@ bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
         if (c < a.Dv)
           *reinterpret_cast<__nv_bfloat162*>(dvp + key * vs + c) =
               __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+
+// the wide (b)'s hand-over of P^T from the P side to the dS side: named
+// barriers over both consumers (256 threads), FULL after the P side wrote
+// the buffer, EMPTY after the dS side read it
+constexpr int P_FULL = 1, P_EMPTY = 2;
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(id) : "memory");
+}
+
+// (b) past 128: 64 keys of one kv head, and 1 / SPLIT of dK's and dV's
+// columns (SPLIT CTAs share the keys where one CTA a key tile would fill
+// at most the SMs; each computes S^T and dP^T over the full depth);
+// the P side (consumer 0) holds dV, the dS side (consumer 1) dK, each over
+// every live q tile of the G heads
+template <int DQP, int DVP, int SPLIT>
+__global__ void __launch_bounds__(HTHREADS, 1)
+bwd_dkv_wide_bf16(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo, const Args a) {
+  using T = Tiles<DQP, DVP>;
+  using W = WideKV<DQP, DVP>;
+  constexpr int NS = W::NS;
+  constexpr int DQH = DQP / SPLIT, DVH = DVP / SPLIT;  // a CTA's columns
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * NS];
+  unsigned char* Ks = align1024(smem_raw);
+  unsigned char* Vs = Ks + T::TQ;
+  unsigned char* ring = Vs + T::TV;       // [NS][Q | dO | LSE | D]
+  float* Pbuf = reinterpret_cast<float*>(ring + NS * W::STAGE);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + NS;
+  // the heaviest causal kv tiles (the first) first: the kv tile is the
+  // slowest grid index
+  const int k0 = blockIdx.z * TR;
+  const int hk = blockIdx.x / SPLIT, col = blockIdx.x % SPLIT;
+  const int b = blockIdx.y;
+  const int nqt = (a.Lq + TR - 1) / TR, Lqp = nqt * TR;
+  const int kend = kv_end(a, b);
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);               // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < WG) {
+    // ---- producer: K and V once; Q, dO, LSE and D of each live q tile of
+    // each of the G heads, in order ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kv_full, T::TQ + T::TV);
+      for (int sl = 0; sl < T::SQ; ++sl)
+        tma_load(Ks + sl * TR * 128, &tk, kv_full, sl * SLAB, hk, k0, b);
+      for (int sl = 0; sl < T::SV; ++sl)
+        tma_load(Vs + sl * TR * 128, &tv, kv_full, sl * SLAB, hk, k0, b);
+      int it = 0;
+      for (int gq = 0; gq < a.G; ++gq) {
+        const int h = hk * a.G + gq;
+        const size_t srow = ((size_t)b * a.H + h) * Lqp;
+        for (int qt = 0; qt < nqt; ++qt) {
+          const int q0 = qt * TR;
+          if (!tile_live(a, q0, q0 + TR, k0, k0 + TR, kend)) continue;
+          const int st = it % NS;
+          const uint32_t ph = (it / NS) & 1;
+          ++it;
+          unsigned char* sp = ring + st * W::STAGE;
+          mbar_wait(empty + st, ph ^ 1);
+          mbar_expect_tx(full + st, T::TQ + T::TV + 2 * T::STAT);
+          for (int sl = 0; sl < T::SQ; ++sl)
+            tma_load(sp + sl * TR * 128, &tq, full + st, sl * SLAB, h, q0, b);
+          for (int sl = 0; sl < T::SV; ++sl)
+            tma_load(sp + T::TQ + sl * TR * 128, &tdo, full + st, sl * SLAB,
+                     h, q0, b);
+          unsigned char* stats = sp + T::TQ + T::TV;
+          bulk_load(stats, a.lse + srow + q0, T::STAT, full + st);
+          bulk_load(stats + T::STAT, a.dsum + srow + q0, T::STAT, full + st);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: the same 64 keys; S^T, dP^T (keys x queries), dV
+    // and dK split between them ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = threadIdx.x / WG - 1, tid = threadIdx.x % WG;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int kl = k0 + 16 * warp + g;            // a thread's: kl, kl + 8
+    const float sl2 = a.scale * LOG2E;
+    int nlive = 0;
+    for (int qt = 0; qt < nqt; ++qt)
+      nlive += tile_live(a, qt * TR, qt * TR + TR, k0, k0 + TR, kend);
+    int left = a.G * nlive;                       // tiles to hand over
+    const size_t ks = (size_t)a.Hkv * a.D, vs = (size_t)a.Hkv * a.Dv;
+    const size_t krow = (size_t)b * a.Lkv * a.Hkv + hk;
+    mbar_wait(kv_full, 0);
+    if (cw == 0) {
+      // the P side: S^T = K Q^T, P^T into the buffer, dV += P^T dO
+      const uint32_t k_addr = smem_u32(Ks);
+      float dv[DVH / 2];
+#pragma unroll
+      for (int i = 0; i < DVH / 2; ++i) dv[i] = 0.f;
+      float s[TR / 2];
+      uint32_t pf[TR / 16][4];
+      int it = 0;
+      for (int gq = 0; gq < a.G; ++gq) {
+        for (int qt = 0; qt < nqt; ++qt) {
+          const int q0 = qt * TR;
+          if (!tile_live(a, q0, q0 + TR, k0, k0 + TR, kend)) continue;
+          const int st = it % NS;
+          const uint32_t ph = (it / NS) & 1;
+          ++it;
+          mbar_wait(full + st, ph);
+          const unsigned char* sp = ring + st * W::STAGE;
+          const uint32_t q_addr = smem_u32(sp);
+          const uint32_t do_addr = smem_u32(sp + T::TQ);
+          const float* Ls =
+              reinterpret_cast<const float*>(sp + T::TQ + T::TV);
+          wgmma_fence();
+          gemm_rows<DQP, TR>(s, k_addr, q_addr);          // S^T = K Q^T
+          wgmma_commit();
+          wgmma_wait0();
+          keep(s);
+          // S^T's rows are keys and its columns queries: the mask takes
+          // them swapped, LSE is the column's. Queries past Lq have LSE
+          // +inf, so P is 0 there without the mask; keys past Lkv give rows
+          // that are not stored, keys in [kend, Lkv) take the mask.
+#pragma unroll
+          for (int j = 0; j < TR / 8; ++j) {              // P^T
+            const float2 lv =
+                *reinterpret_cast<const float2*>(Ls + 8 * j + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float& x = s[4 * j + e];
+              x = ex2(fmaf(x, sl2, (e & 1) ? -lv.y : -lv.x));
+            }
+          }
+          if (!tile_full(a, q0, q0 + TR, k0, k0 + TR, kend))
+#pragma unroll
+            for (int i = 0; i < TR / 2; ++i)     // an edge tile: the mask
+              if (!allowed(a, q0 + 8 * (i >> 2) + 2 * t + (i & 1),
+                           kl + 8 * ((i >> 1) & 1), kend))
+                s[i] = 0.f;
+          // the buffer in the accumulator's layout: the dS side's thread
+          // tid holds the same (key, query) pairs as this one
+          named_sync(P_EMPTY);
+#pragma unroll
+          for (int i = 0; i < TR / 2; ++i) Pbuf[i * WG + tid] = s[i];
+          named_arrive(P_FULL);
+#pragma unroll
+          for (int kk = 0; kk < TR / 16; ++kk) to_frag(s, kk, pf[kk]);
+          keep(dv);
+          keep(pf);
+          wgmma_fence();
+          gemm_frags<DVH, TR>(dv, pf, do_addr +       // dO read MN-major
+                              col * (DVH / SLAB) * TR * 128);
+          wgmma_commit();
+          wgmma_wait0();
+          keep(dv);
+          if (lane == 0) mbar_arrive(empty + st);
+        }
+      }
+      bf16* dvp = static_cast<bf16*>(a.dv) + krow * a.Dv;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = kl + 8 * r;
+        if (key >= a.Lkv) continue;
+#pragma unroll
+        for (int j = 0; j < DVH / 8; ++j) {
+          const int c = col * DVH + 8 * j + 2 * t;
+          if (c < a.Dv)
+            *reinterpret_cast<__nv_bfloat162*>(dvp + key * vs + c) =
+                __floats2bfloat162_rn(dv[4 * j + 2 * r],
+                                      dv[4 * j + 2 * r + 1]);
+        }
+      }
+    } else {
+      // the dS side: dP^T = V dO^T, dS^T = P^T (dP^T - D), dK += dS^T Q
+      const uint32_t v_addr = smem_u32(Vs);
+      float dk[DQH / 2];
+#pragma unroll
+      for (int i = 0; i < DQH / 2; ++i) dk[i] = 0.f;
+      float dp[TR / 2];
+      uint32_t dsf[TR / 16][4];
+      if (left > 0) named_arrive(P_EMPTY);        // the buffer starts empty
+      int it = 0;
+      for (int gq = 0; gq < a.G; ++gq) {
+        for (int qt = 0; qt < nqt; ++qt) {
+          const int q0 = qt * TR;
+          if (!tile_live(a, q0, q0 + TR, k0, k0 + TR, kend)) continue;
+          const int st = it % NS;
+          const uint32_t ph = (it / NS) & 1;
+          ++it;
+          mbar_wait(full + st, ph);
+          const unsigned char* sp = ring + st * W::STAGE;
+          const uint32_t q_addr = smem_u32(sp);
+          const uint32_t do_addr = smem_u32(sp + T::TQ);
+          const float* Ds =
+              reinterpret_cast<const float*>(sp + T::TQ + T::TV) + TR;
+          wgmma_fence();
+          gemm_rows<DVP, TR>(dp, v_addr, do_addr);        // dP^T = V dO^T
+          wgmma_commit();
+          wgmma_wait0();
+          keep(dp);
+          named_sync(P_FULL);
+#pragma unroll
+          for (int j = 0; j < TR / 8; ++j) {              // dS^T
+            const float2 dd =
+                *reinterpret_cast<const float2*>(Ds + 8 * j + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              float& x = dp[4 * j + e];
+              x = Pbuf[(4 * j + e) * WG + tid] *
+                  (x - ((e & 1) ? dd.y : dd.x));
+            }
+          }
+          if (--left > 0) named_arrive(P_EMPTY);
+#pragma unroll
+          for (int kk = 0; kk < TR / 16; ++kk) to_frag(dp, kk, dsf[kk]);
+          keep(dk);
+          keep(dsf);
+          wgmma_fence();
+          gemm_frags<DQH, TR>(dk, dsf, q_addr +       // Q read MN-major
+                              col * (DQH / SLAB) * TR * 128);
+          wgmma_commit();
+          wgmma_wait0();
+          keep(dk);
+          if (lane == 0) mbar_arrive(empty + st);
+        }
+      }
+      bf16* dkp = static_cast<bf16*>(a.dk) + krow * a.D;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = kl + 8 * r;
+        if (key >= a.Lkv) continue;
+#pragma unroll
+        for (int j = 0; j < DQH / 8; ++j) {
+          const int c = col * DQH + 8 * j + 2 * t;
+          if (c < a.D)
+            *reinterpret_cast<__nv_bfloat162*>(dkp + key * ks + c) =
+                __floats2bfloat162_rn(dk[4 * j + 2 * r] * a.scale,
+                                      dk[4 * j + 2 * r + 1] * a.scale);
+        }
       }
     }
   }
@@ -1551,8 +2003,9 @@ bwd_one_pass_f32(Args a) {
   // past Lq and Lkv, zero-filled past them
   const int nr = min(T, (a.Lq + 7) & ~7), nk = min(T, (a.Lkv + 7) & ~7);
   const bool rows_live = warp * 8 < a.Lq, keys_live = warp * 8 < a.Lkv;
-  const bool full = tile_full(a, 0, T, 0, T);
-  const int pre = min(a.prefix_len, a.Lkv);
+  const int kend = kv_end(a, b);
+  const bool full = tile_full(a, 0, T, 0, T, kend);
+  const int pre = min(a.prefix_len, kend);
   const float sl2 = a.scale * LOG2E;              // exp2 domain
   async_rows<DP, VEC, true>(Ks, static_cast<const float*>(a.k) + krow * a.D,
                             ks, nk, a.Lkv, a.D);
@@ -1617,20 +2070,20 @@ bwd_one_pass_f32(Args a) {
       dots_upto<DP, KJ>(nk >> 3, Qs, Ks, r0, tl, s);
       dots_upto<DP, KJ>(nk >> 3, dOs, Vs, r0, tl, dp);
       // the mask (ref.py attention_mask) as per-row bounds: key j is seen
-      // when lo <= j < hi or j < pre; a tile the mask shows whole tests
-      // only j < Lkv. Then an exact softmax over the whole row: no online
-      // rescale, no LSE kept
+      // when lo <= j < hi or j < pre (both within kend); a tile the mask
+      // shows whole tests only j < kend. Then an exact softmax over the
+      // whole row: no online rescale, no LSE kept
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int row = r0 + i, qp = a.q_offset + row;
         const bool rv = row < a.Lq;
-        const int hi = a.causal ? min(a.Lkv, qp + 1) : a.Lkv;
+        const int hi = a.causal ? min(kend, qp + 1) : kend;
         const int lo = a.window > 0 ? qp - a.window + 1 : INT_MIN;
         float mx = -INFINITY;
 #pragma unroll
         for (int j = 0; j < KJ; ++j) {
           const int key = tl + 8 * j;
-          const bool ok = rv && (full ? key < a.Lkv
+          const bool ok = rv && (full ? key < kend
                                       : key < pre || (key >= lo && key < hi));
           s[i][j] = ok ? s[i][j] : -INFINITY;
           mx = fmaxf(mx, s[i][j]);
@@ -1752,17 +2205,17 @@ static EncodeTiled encode_tiled() {
 }
 
 // A contiguous (B, L, Hn, D) bf16 tensor as a 4-D map (D, Hn, L, B): boxes
-// of 64 columns x 64 positions, 128-byte swizzle, zero fill past the
+// of 64 columns x ``rows`` positions, 128-byte swizzle, zero fill past the
 // tensor's extent (columns past D, positions past L).
 static bool encode_rows(CUtensorMap* map, const void* ptr, int D, int Hn,
-                        int L, int B) {
+                        int L, int B, int rows) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hn, (cuuint64_t)L,
                               (cuuint64_t)B};
   const cuuint64_t row = (cuuint64_t)D * 2;
   const cuuint64_t strides[3] = {row, row * Hn, row * Hn * L};
-  const cuuint32_t box[4] = {SLAB, 1, TR, 1};
+  const cuuint32_t box[4] = {SLAB, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -1770,14 +2223,10 @@ static bool encode_rows(CUtensorMap* map, const void* ptr, int D, int Hn,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DQP, int DVP>
-static cudaError_t run_bf16(const Args& a, int part, cudaStream_t s) {
-  using T = Tiles<DQP, DVP>;
-  auto kern = part == 0 ? bwd_dq_bf16<DQP, DVP> : bwd_dkv_bf16<DQP, DVP>;
-  const int smem = part == 0 ? T::DQ_SMEM : T::DKV_SMEM;
-  const dim3 grid = part == 0
-      ? dim3(a.H, a.B, (a.Lq + 2 * TR - 1) / (2 * TR))
-      : dim3(a.Hkv, a.B, (a.Lkv + 2 * TR - 1) / (2 * TR));
+// one wgmma kernel: q and do in boxes of 64 rows, k and v of ``kv_rows``
+template <typename Kern>
+static cudaError_t run_tma(Kern kern, dim3 grid, int smem, int kv_rows,
+                           const Args& a, cudaStream_t s) {
   // a runtime call first: it makes the device's primary context current
   // on this thread (autograd runs the backward on a thread of its own,
   // where none may be yet), which the driver's map encoding needs
@@ -1785,13 +2234,94 @@ static cudaError_t run_bf16(const Args& a, int part, cudaStream_t s) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   alignas(64) CUtensorMap tq, tk, tv, tdo;
-  if (!encode_rows(&tq, a.q, a.D, a.H, a.Lq, a.B) ||
-      !encode_rows(&tk, a.k, a.D, a.Hkv, a.Lkv, a.B) ||
-      !encode_rows(&tv, a.v, a.Dv, a.Hkv, a.Lkv, a.B) ||
-      !encode_rows(&tdo, a.dout, a.Dv, a.H, a.Lq, a.B))
+  if (!encode_rows(&tq, a.q, a.D, a.H, a.Lq, a.B, TR) ||
+      !encode_rows(&tk, a.k, a.D, a.Hkv, a.Lkv, a.B, kv_rows) ||
+      !encode_rows(&tv, a.v, a.Dv, a.Hkv, a.Lkv, a.B, kv_rows) ||
+      !encode_rows(&tdo, a.dout, a.Dv, a.H, a.Lq, a.B, TR))
     return cudaErrorInvalidValue;
   kern<<<grid, HTHREADS, smem, s>>>(tq, tk, tv, tdo, a);
   return cudaGetLastError();
+}
+
+// the dynamic shared memory of the wgmma kernel of part 0 ((a)) or 1 ((b))
+// at <DQP, DVP>: the pair up to 128, the wide pair past it
+template <int DQP, int DVP>
+constexpr int tma_smem(int part) {
+  if constexpr (DQP > 128)
+    return part ? WideKV<DQP, DVP>::SMEM
+                : Tiles<DQP, DVP, dq_bk<DQP, DVP>()>::DQ_SMEM;
+  else
+    return part ? Tiles<DQP, DVP>::DKV_SMEM : Tiles<DQP, DVP>::DQ_SMEM;
+}
+
+template <int N>
+using Int = std::integral_constant<int, N>;
+
+// f(Int<DQP>(), Int<DVP>()) at the widths a bf16 call at head dims D and
+// Dv takes: 64 or 128 each up to 128, past it <192, 128> or <256, 256>
+template <typename F>
+static auto at_widths(int D, int Dv, F f) {
+  if (D > 128 || Dv > 128)
+    return D <= 192 && Dv <= 128 ? f(Int<192>(), Int<128>())
+                                 : f(Int<256>(), Int<256>());
+  if (D <= 64)
+    return Dv <= 64 ? f(Int<64>(), Int<64>()) : f(Int<64>(), Int<128>());
+  return Dv <= 64 ? f(Int<128>(), Int<64>()) : f(Int<128>(), Int<128>());
+}
+
+// the wgmma pair, Dq and Dv <= 128, with or without kv_valid_len
+template <int DQP, int DVP, bool RAGGED>
+static cudaError_t run_pair(const Args& a, int part, cudaStream_t s) {
+  if (part == 0)
+    return run_tma(bwd_dq_bf16<DQP, DVP, RAGGED>,
+                   dim3(a.H, a.B, (a.Lq + 2 * TR - 1) / (2 * TR)),
+                   tma_smem<DQP, DVP>(0), TR, a, s);
+  return run_tma(bwd_dkv_bf16<DQP, DVP, RAGGED>,
+                 dim3(a.Hkv, a.B, (a.Lkv + 2 * TR - 1) / (2 * TR)),
+                 tma_smem<DQP, DVP>(1), TR, a, s);
+}
+
+template <int DQP, int DVP>
+static cudaError_t run_bf16(const Args& a, int part, cudaStream_t s) {
+  return a.kvl ? run_pair<DQP, DVP, true>(a, part, s)
+               : run_pair<DQP, DVP, false>(a, part, s);
+}
+
+// (b) at <256, 256> splits dK's and dV's columns across two CTAs where its
+// grid of one CTA a key tile is at most SPLIT_PCT % of the SMs: twice the
+// CTAs at 1.5x the products, faster at grids of 64-132 CTAs on 132 SMs and
+// slower at 144 and more (PERF.md)
+constexpr unsigned SPLIT_PCT = 100;
+
+// the wide (b)'s SPLIT at <256, 256> for a grid of one CTA a key tile
+static cudaError_t wide_split(dim3 grid, int* split) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *split = grid.x * grid.y * grid.z * 100 <= SPLIT_PCT * (unsigned)sms ? 2 : 1;
+  return err;
+}
+
+// the wide wgmma pair, a head dim over 128
+template <int DQP, int DVP>
+static cudaError_t run_wide(const Args& a, int part, cudaStream_t s) {
+  if (part == 0)
+    return run_tma(bwd_dq_wide_bf16<DQP, DVP>,
+                   dim3(a.H, a.B, (a.Lq + 2 * TR - 1) / (2 * TR)),
+                   tma_smem<DQP, DVP>(0), dq_bk<DQP, DVP>(), a, s);
+  const dim3 grid(a.Hkv, a.B, (a.Lkv + TR - 1) / TR);
+  if constexpr (DQP == 256 && DVP == 256) {
+    int split = 1;
+    const cudaError_t err = wide_split(grid, &split);
+    if (err != cudaSuccess) return err;
+    if (split == 2)
+      return run_tma(bwd_dkv_wide_bf16<DQP, DVP, 2>,
+                     dim3(2 * grid.x, grid.y, grid.z),
+                     tma_smem<DQP, DVP>(1), TR, a, s);
+  }
+  return run_tma(bwd_dkv_wide_bf16<DQP, DVP, 1>, grid,
+                 tma_smem<DQP, DVP>(1), TR, a, s);
 }
 
 template <typename Kern>
@@ -1832,39 +2362,24 @@ static cudaError_t run_one_pass_f32(const Args& a, cudaStream_t s) {
   return small ? run_one_pass<32, 128>(a, s) : run_one_pass<64, 128>(a, s);
 }
 
-// the CUDA-core pair: f32 (bwd_dq_f32 / bwd_dkv_f32) or bf16
-// (bwd_dq_cc_bf16 / bwd_dkv_cc_bf16, 32-row tiles), BT-row tiles
-template <int DP, int BT, bool BF16>
+// the CUDA-core pair (bwd_dq_f32 / bwd_dkv_f32) at BT-row tiles
+template <int DP, int BT>
 static cudaError_t run_cc(const Args& a, int part, cudaStream_t s) {
   using C = CC<DP, BT>;
-  const dim3 gq((a.Lq + BT - 1) / BT, a.H, a.B);
-  const dim3 gk((a.Lkv + BT - 1) / BT, a.Hkv, a.B);
-  if constexpr (BF16) {
-    static_assert(BT == 32, "the bf16 CUDA-core pair takes 32-row tiles");
-    return part == 0 ? launch(bwd_dq_cc_bf16<DP>, gq, 256, C::DQ_SMEM, a, s)
-                     : launch(bwd_dkv_cc_bf16<DP>, gk, 256, C::DKV_SMEM, a,
-                              s);
-  } else {
-    return part == 0 ? launch(bwd_dq_f32<DP, BT>, gq, 256, C::DQ_SMEM, a, s)
-                     : launch(bwd_dkv_f32<DP, BT>, gk, 256, C::DKV_SMEM, a,
-                              s);
-  }
+  if (part == 0)
+    return launch(bwd_dq_f32<DP, BT>, dim3((a.Lq + BT - 1) / BT, a.H, a.B),
+                  256, C::DQ_SMEM, a, s);
+  return launch(bwd_dkv_f32<DP, BT>, dim3((a.Lkv + BT - 1) / BT, a.Hkv, a.B),
+                256, C::DKV_SMEM, a, s);
 }
 
-// DP: the larger head dim padded to 64, 128, 192 or 256 (bf16 reaches this
-// pair only past 128)
+// DP: the larger head dim padded to 64, 128, 192 or 256
 static cudaError_t run_cc_f32(const Args& a, int part, cudaStream_t s) {
   const int d = a.D > a.Dv ? a.D : a.Dv;
-  if (d <= 64) return run_cc<64, 64, false>(a, part, s);
-  if (d <= 128) return run_cc<128, 64, false>(a, part, s);
-  if (d <= 192) return run_cc<192, 32, false>(a, part, s);
-  return run_cc<256, 32, false>(a, part, s);
-}
-
-static cudaError_t run_cc_bf16(const Args& a, int part, cudaStream_t s) {
-  const int d = a.D > a.Dv ? a.D : a.Dv;
-  if (d <= 192) return run_cc<192, 32, true>(a, part, s);
-  return run_cc<256, 32, true>(a, part, s);
+  if (d <= 64) return run_cc<64, 64>(a, part, s);
+  if (d <= 128) return run_cc<128, 64>(a, part, s);
+  if (d <= 192) return run_cc<192, 32>(a, part, s);
+  return run_cc<256, 32>(a, part, s);
 }
 
 }  // namespace fab
@@ -1874,18 +2389,19 @@ static cudaError_t run_cc_bf16(const Args& a, int part, cudaStream_t s) {
 // one-pass kernel, which writes dq, dk and dv and takes no lse or dsum
 // (null), for Lq, Lkv <= 64 at head dims up to 128 and Lq, Lkv <= 32 up to
 // 256. All tensors contiguous (B, L, H, D) for q, k, dq, dk and (B, L, H,
-// Dv) for v, o, do, dv; lse and dsum (B, H, Lq) f32, on the wgmma pair (bf16
-// with D, Dv <= 128) (B, H, Lq rounded up to 64). bf16 takes D and Dv
-// multiples of 8 and 16-byte aligned bases; a bf16 call with D or Dv over
-// 128 takes the CUDA-core pair. scale_dim is the head dim of the scale 1 /
-// sqrt(scale_dim). Returns the launch's CUDA error code (0 on success).
+// Dv) for v, o, do, dv; lse and dsum (B, H, Lq) f32, in bf16 (the wgmma
+// pairs) (B, H, Lq rounded up to 64). kvl: kv_valid_len, int32 (B,), or
+// null. bf16 takes D and Dv multiples of 8 and 16-byte aligned bases; a
+// bf16 call with D or Dv over 128 takes the wide pair. scale_dim is the
+// head dim of the scale 1 / sqrt(scale_dim). Returns the launch's CUDA
+// error code (0 on success).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, void* dq, void* dk, void* dv, float* lse, float* dsum,
-    long long B, long long Lq, long long Lkv, long long H, long long Hkv,
-    long long D, long long Dv, long long scale_dim, long long causal,
-    long long window, long long prefix_len, long long q_offset,
-    long long is_bf16, long long part, void* stream) {
+    const int* kvl, long long B, long long Lq, long long Lkv, long long H,
+    long long Hkv, long long D, long long Dv, long long scale_dim,
+    long long causal, long long window, long long prefix_len,
+    long long q_offset, long long is_bf16, long long part, void* stream) {
   using namespace fab;
   if (B == 0 || Lq == 0 || H == 0 || Lkv == 0) return 0;
   if (D < 1 || D > 256 || Dv < 1 || Dv > 256 || scale_dim < 1 || Hkv < 1 ||
@@ -1906,30 +2422,57 @@ extern "C" int flash_attention_bwd(
   const int lmax = Lq > Lkv ? (int)Lq : (int)Lkv;
   if (part == 2 && (is_bf16 || lmax > (D > 128 || Dv > 128 ? 32 : 64)))
     return (int)cudaErrorInvalidValue;
-  const bool wgmma = is_bf16 && D <= 128 && Dv <= 128;
   const int vec_elems = is_bf16 ? 8 : 4;
   // the one-pass kernel stores dq/dk/dv 16 bytes at a time where vec is
   // set, so its outputs' alignment counts too; the tiled pairs' does not
   const uintptr_t vec_ptrs = part == 2 ? (bases | outs) : bases;
-  Args a{q, k, v, o, dout, dq, dk, dv, lse, dsum,
+  Args a{q, k, v, o, dout, dq, dk, dv, lse, dsum, kvl,
          (int)B, (int)Lq, (int)Lkv, (int)H, (int)Hkv, (int)D, (int)Dv,
-         (int)(H / Hkv), wgmma ? (int)((Lq + TR - 1) / TR * TR) : (int)Lq,
+         (int)(H / Hkv), is_bf16 ? (int)((Lq + TR - 1) / TR * TR) : (int)Lq,
          (int)causal, (int)window, (int)prefix_len, (int)q_offset,
          (int)((vec_ptrs & 15) == 0 && D % vec_elems == 0 &&
                Dv % vec_elems == 0),
          1.0f / sqrtf((float)scale_dim)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (wgmma)
-    err = D <= 64 ? (Dv <= 64 ? run_bf16<64, 64>(a, (int)part, s)
-                              : run_bf16<64, 128>(a, (int)part, s))
-                  : (Dv <= 64 ? run_bf16<128, 64>(a, (int)part, s)
-                              : run_bf16<128, 128>(a, (int)part, s));
-  else if (is_bf16)
-    err = run_cc_bf16(a, (int)part, s);
+  if (is_bf16)
+    err = at_widths(a.D, a.Dv, [&](auto dq, auto dv) {
+      constexpr int DQP = decltype(dq)::value, DVP = decltype(dv)::value;
+      if constexpr (DQP > 128)
+        return run_wide<DQP, DVP>(a, (int)part, s);
+      else
+        return run_bf16<DQP, DVP>(a, (int)part, s);
+    });
   else if (part == 2)
     err = run_one_pass_f32(a, s);
   else
     err = run_cc_f32(a, (int)part, s);
   return (int)err;
+}
+
+// the dynamic shared memory (bytes) of the bf16 wgmma kernel that part 0
+// ((a)) or 1 ((b)) of a call at head dims D and Dv launches, or -1 outside
+// them; nothing is launched (a build's checks log it beside ptxas's report)
+extern "C" int flash_attention_bwd_smem(long long D, long long Dv,
+                                        long long part) {
+  using namespace fab;
+  if (D < 1 || D > 256 || Dv < 1 || Dv > 256 || part < 0 || part > 1)
+    return -1;
+  return at_widths((int)D, (int)Dv, [&](auto dq, auto dv) {
+    return tma_smem<decltype(dq)::value, decltype(dv)::value>((int)part);
+  });
+}
+
+// the SPLIT (1 or 2) that (b) at <256, 256> runs a call of B sequences, Hkv
+// kv heads and Lkv keys with on this device, or a negative CUDA error;
+// nothing is launched (a check that a timed call took the instance the
+// main path takes)
+extern "C" int flash_attention_bwd_split(long long B, long long Hkv,
+                                         long long Lkv) {
+  using namespace fab;
+  int split = 1;
+  const cudaError_t err = wide_split(
+      dim3((unsigned)Hkv, (unsigned)B, (unsigned)((Lkv + TR - 1) / TR)),
+      &split);
+  return err == cudaSuccess ? split : -(int)err;
 }

@@ -61,14 +61,13 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_rc(rc, "flash_attention")
 
 
-def bwd_scratch(q: torch.Tensor, route: str = "tiled"
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+def bwd_scratch(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The backward's (B, H, Lq) f32 scratch for LSE and D, which (a)
-    writes and (b) reads: on the bf16 wgmma pair (``route`` "tiled" in
-    bf16) Lq is rounded up to the kernels' 64-row tile, whose rows past Lq
-    (a) fills, so that (b) loads whole tiles."""
+    writes and (b) reads; in bf16 (the wgmma pairs) Lq is rounded up to
+    the kernels' 64-row q tile, whose rows past Lq (a) fills, so that (b)
+    loads whole tiles."""
     B, Lq, H, _ = q.shape
-    if q.dtype == torch.bfloat16 and route == "tiled":
+    if q.dtype == torch.bfloat16:
         Lq = -(-Lq // 64) * 64
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     return lse, torch.empty_like(lse)
@@ -79,17 +78,19 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                dk: torch.Tensor, dv: torch.Tensor,
                lse: torch.Tensor | None, dsum: torch.Tensor | None, *,
                causal: bool, window: int, prefix_len: int, q_offset: int,
-               part: int, scale_dim: int | None = None) -> None:
+               part: int, scale_dim: int | None = None,
+               kv_valid_len: torch.Tensor | None = None) -> None:
     """One of the backward's kernels (``csrc/flash_attention_bwd.cu``):
     ``part`` 0 (a) writes dq, ``lse`` and ``dsum``; ``part`` 1 (b) reads
     them and writes dk and dv; ``part`` 2, the f32 one-pass kernel, writes
     dq, dk and dv and takes no ``lse`` or ``dsum`` (None). Every tensor
     contiguous: q, dq (B, Lq, H, Dq); o, do (B, Lq, H, Dv); k, dk (B, Lkv,
-    Hkv, Dq); v, dv (B, Lkv, Hkv, Dv); lse, dsum from ``bwd_scratch`` for
-    the call's route; in bf16 each 16-byte aligned with Dq and Dv multiples
-    of 8 (the tensor maps'). ``window`` 0 for none; the scale is 1 /
-    sqrt(``scale_dim``) (default Dq). The caller has checked shapes,
-    dtypes and devices."""
+    Hkv, Dq); v, dv (B, Lkv, Hkv, Dv); lse, dsum from ``bwd_scratch``; in
+    bf16 each 16-byte aligned with Dq and Dv multiples of 8 (the tensor
+    maps'). ``window`` 0 for none; the scale is 1 /
+    sqrt(``scale_dim``) (default Dq); ``kv_valid_len`` (B,) int32
+    contiguous, or None: keys of row b at or past it are masked. The
+    caller has checked shapes, dtypes and devices."""
     fn = _build.load("flash_attention_bwd")
     index = q.device.index
     if index != torch._C._cuda_getDevice():
@@ -97,12 +98,15 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return launch_bwd(q, k, v, o, do, dq, dk, dv, lse, dsum,
                               causal=causal, window=window,
                               prefix_len=prefix_len, q_offset=q_offset,
-                              part=part, scale_dim=scale_dim)
+                              part=part, scale_dim=scale_dim,
+                              kv_valid_len=kv_valid_len)
     B, Lq, H, D = q.shape
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             0 if lse is None else lse.data_ptr(),
-            0 if dsum is None else dsum.data_ptr(), B, Lq, k.shape[1], H,
+            0 if dsum is None else dsum.data_ptr(),
+            0 if kv_valid_len is None else kv_valid_len.data_ptr(),
+            B, Lq, k.shape[1], H,
             k.shape[2], D, v.shape[3], scale_dim or D, int(causal), window,
             prefix_len, q_offset, int(q.dtype == torch.bfloat16), part,
             torch._C._cuda_getCurrentRawStream(index))

@@ -31,26 +31,25 @@ Training: with grad mode on and an input that requires grad,
 ``flash_attention`` goes through ``FlashAttentionFn``, whose backward is
 ``flash_attention_bwd``: hand-written kernels on CUDA tensors
 (``csrc/flash_attention_bwd.cu``), ``ref.attention_bwd_ref`` on CPU
-tensors, at every (Dq, Dv) the forward takes (the MLA pairs among them)
-and head dims up to 256. On the card ``bwd_route`` picks the kernels: an
-f32 call with Lq and Lkv at most 64 (32 past head dim 128; the embedder's
-24 tokens) takes one fused one-pass kernel, one launch with no LSE/D
-scratch; every other call a pair, (a) dQ then (b) dK/dV: the tiled pair
-("tiled": the wgmma kernels in bf16 with both head dims at most 128, the
-CUDA-core kernels in f32) or, in bf16 past 128 (paligemma's 256,
-deepseek-v2's (192, 128)), the CUDA-core kernels on bf16 operands
-("tiled_cc"). Every backward launch counts in
+tensors, at every (Dq, Dv) the forward takes (the MLA pairs among them),
+head dims up to 256 and a ragged ``kv_valid_len`` (a non-differentiable
+input that every backward kernel takes). On the card ``bwd_route`` picks
+the kernels: an f32 call with Lq and Lkv at most 64 (32 past head dim
+128; the embedder's 24 tokens) takes one fused one-pass kernel, one
+launch with no LSE/D scratch; every other call a pair, (a) dQ then (b)
+dK/dV: the tiled pair ("tiled": the wgmma kernels in bf16 with both head
+dims at most 128, the CUDA-core kernels in f32) or, in bf16 past 128
+(paligemma's 256, deepseek-v2's (192, 128)), the wide wgmma pair
+("tiled_wide"). Every backward launch counts in
 ``flash_attention.launches_bwd``; the f32 ones also in
 ``flash_attention.launches_bwd_f32``, and of those the one-pass ones in
-``flash_attention.launches_bwd_f32_one_pass``; the bf16 "tiled_cc" ones
-in ``launches_bwd_cc``, and the other bf16 ones with Dv != Dq (the wgmma
-pair's MLA calls) in ``launches_bwd_dv``. No route falls back to another
-or to the plain version: a kernel that fails to build or launch raises.
-Only a ragged ``kv_valid_len`` has no backward (``bwd_check``): no
-training path passes one. The backward is a port extension: the Pallas
-kernel has no VJP, and the reference differentiates its jnp attention
-(held against ``jax.grad`` of ``repro/models/layers.py``'s
-``flash_attention``).
+``flash_attention.launches_bwd_f32_one_pass``; the bf16 "tiled_wide" ones
+in ``launches_bwd_wide``, and the other bf16 ones with Dv != Dq (the
+wgmma pair's MLA calls) in ``launches_bwd_dv``. No route falls back to
+another or to the plain version: a kernel that fails to build or launch
+raises. The backward is a port extension: the Pallas kernel has no VJP,
+and the reference differentiates its jnp attention (held against
+``jax.grad`` of ``repro/models/layers.py``'s ``flash_attention``).
 Serving, without grad, takes the plain forward route above.
 """
 from __future__ import annotations
@@ -80,16 +79,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     With grad mode on and q, k or v requiring grad, the call goes through
     ``FlashAttentionFn`` (the same forward, and the backward kernels on
-    CUDA tensors), which takes no ``kv_valid_len``: that raises
-    ``NotImplementedError`` there."""
+    CUDA tensors); ``kv_valid_len`` gets no gradient."""
     Lq, Lkv = q.shape[1], k.shape[1]
     if q_offset is None:
         q_offset = Lkv - Lq
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        bwd_check(q.shape[-1], v.shape[-1], kv_valid_len)
         return FlashAttentionFn.apply(q, k, v, causal, window, prefix_len,
-                                      q_offset)
+                                      q_offset, kv_valid_len)
     return _forward(q, k, v, causal, window, prefix_len, q_offset,
                     kv_valid_len)
 
@@ -154,7 +151,7 @@ flash_attention.launches_bwd = 0    # every backward kernel launch
 flash_attention.launches_bwd_f32 = 0    # of which f32
 flash_attention.launches_bwd_f32_one_pass = 0   # of which one-pass (embedder)
 flash_attention.launches_bwd_dv = 0     # bf16 wgmma pair, Dv != Dq (MLA)
-flash_attention.launches_bwd_cc = 0     # bf16 CUDA-core pair (past 128)
+flash_attention.launches_bwd_wide = 0   # bf16 wide wgmma pair (past 128)
 
 BWD_DH_MAX = 256
 BWD_WGMMA_DH_MAX = 128      # the bf16 wgmma pair's largest head dims
@@ -172,9 +169,12 @@ def bwd_route(dtype: torch.dtype, Lq: int, Lkv: int, Dq: int,
     dQ, (b) dK/dV, for every other call: ``bwd_dq_bf16<DQP, DVP>`` /
     ``bwd_dkv_bf16`` (wgmma, each width padded to 64 or 128) in bf16,
     ``bwd_dq_f32<DP, BT>`` / ``bwd_dkv_f32`` (CUDA cores) in f32;
-    ``"tiled_cc"`` for bf16 with a head dim over 128: ``bwd_dq_cc_bf16<DP>``
-    / ``bwd_dkv_cc_bf16`` (CUDA cores, DP 192 or 256). Raises
-    ``ValueError`` for a head dim outside [1, 256]."""
+    ``"tiled_wide"`` for bf16 with a head dim over 128:
+    ``bwd_dq_wide_bf16<DQP, DVP>`` / ``bwd_dkv_wide_bf16`` (wgmma, at
+    <192, 128> where Dq <= 192 and Dv <= 128, deepseek-v2's, else <256,
+    256>, whose (b) splits dK's and dV's columns across two CTAs where its
+    grid would fill at most the SMs). Raises ``ValueError`` for a head
+    dim outside [1, 256]."""
     Dv = Dq if Dv is None else Dv
     if not (1 <= Dq <= BWD_DH_MAX and 1 <= Dv <= BWD_DH_MAX):
         raise ValueError(f"head dims {Dq}, {Dv} outside [1, {BWD_DH_MAX}]")
@@ -182,18 +182,7 @@ def bwd_route(dtype: torch.dtype, Lq: int, Lkv: int, Dq: int,
     if dtype == torch.float32:
         short = BWD_ONE_PASS_WIDE_MAX if wide else BWD_ONE_PASS_MAX
         return "one_pass" if max(Lq, Lkv) <= short else "tiled"
-    return "tiled_cc" if wide else "tiled"
-
-
-def bwd_check(Dq: int, Dv: int, kv_valid_len) -> None:
-    """Raise ``NotImplementedError`` for what the backward kernels do not
-    take: a ragged ``kv_valid_len`` (no training path passes one). Every
-    (Dq, Dv) that the forward takes has a backward route
-    (``bwd_route``). Nothing sends a refused call to the plain version
-    instead."""
-    if kv_valid_len is not None:
-        raise NotImplementedError("the attention backward takes no "
-                                  "kv_valid_len")
+    return "tiled_wide" if wide else "tiled"
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -202,24 +191,29 @@ class FlashAttentionFn(torch.autograd.Function):
     ``flash_attention_bwd`` from q, k, v and the saved output."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, prefix_len, q_offset):
-        out = _forward(q, k, v, causal, window, prefix_len, q_offset, None)
-        ctx.save_for_backward(q, k, v, out)
+    def forward(ctx, q, k, v, causal, window, prefix_len, q_offset,
+                kv_valid_len):
+        out = _forward(q, k, v, causal, window, prefix_len, q_offset,
+                       kv_valid_len)
+        ctx.save_for_backward(q, k, v, out, kv_valid_len)
         ctx.mask = dict(causal=causal, window=window, prefix_len=prefix_len,
                         q_offset=q_offset)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, **ctx.mask)
-        return dq, dk, dv, None, None, None, None
+        q, k, v, o, kv_valid_len = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do,
+                                         kv_valid_len=kv_valid_len,
+                                         **ctx.mask)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
-                        prefix_len: int = 0, q_offset: Optional[int] = None
+                        prefix_len: int = 0, q_offset: Optional[int] = None,
+                        kv_valid_len: Optional[torch.Tensor] = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention`` at q (B, Lq, H, Dq), k (B, Lkv,
     Hkv, Dq), v (B, Lkv, Hkv, Dv) given its output o and the output's
@@ -229,15 +223,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``ref.attention_bwd_ref`` on CPU tensors. Inputs of any strides are
     copied contiguous first, and bf16 ones as ``bwd_operands`` gives them
     (the gradients of a padded head dim sliced back). The scale is 1 /
-    sqrt(Dq). ``kv_valid_len`` is refused by ``flash_attention`` before
-    its forward."""
+    sqrt(Dq). ``kv_valid_len`` (B,) masks keys of row b at or past it:
+    every route takes it, and keys that no row sees get zero dk and dv."""
     Lq, Lkv = q.shape[1], k.shape[1]
     if q_offset is None:
         q_offset = Lkv - Lq
-    if on_cpu(q, k, v, o, do):
+    if on_cpu(q, k, v, o, do, kv_valid_len):
         return ref.attention_bwd_ref(q, k, v, o, do, causal=causal,
                                      window=window, prefix_len=prefix_len,
-                                     q_offset=q_offset)
+                                     q_offset=q_offset,
+                                     kv_valid_len=kv_valid_len)
     B, _, H, Dq = q.shape
     Hkv, Dv = k.shape[2], v.shape[-1]
     dtype = q.dtype
@@ -257,6 +252,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     route = bwd_route(dtype, Lq, Lkv, Dq, Dv)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
+    if kv_valid_len is not None:
+        if kv_valid_len.shape != (B,):
+            raise ValueError(f"kv_valid_len must have shape ({B},)")
+        kv_valid_len = kv_valid_len.to(torch.int32).contiguous()
     if not (B and Lq and H and Lkv):
         return tuple(torch.zeros(t.shape, dtype=dtype, device=t.device)
                      for t in (q, k, v))
@@ -266,16 +265,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lse, dsum = (None, None) if route == "one_pass" else \
-        K.bwd_scratch(q, route)
+        K.bwd_scratch(q)
     for part in (2,) if route == "one_pass" else (0, 1):
         K.launch_bwd(q, k, v, o, do, dq, dk, dv, lse, dsum, causal=causal,
                      window=window or 0, prefix_len=prefix_len,
-                     q_offset=q_offset, part=part, scale_dim=Dq)
+                     q_offset=q_offset, part=part, scale_dim=Dq,
+                     kv_valid_len=kv_valid_len)
         flash_attention.launches_bwd += 1
         if dtype == torch.float32:
             flash_attention.launches_bwd_f32 += 1
-        elif route == "tiled_cc":
-            flash_attention.launches_bwd_cc += 1
+        elif route == "tiled_wide":
+            flash_attention.launches_bwd_wide += 1
         elif Dv != Dq:
             flash_attention.launches_bwd_dv += 1
         if part == 2:
@@ -289,8 +289,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def bwd_operands(*tensors: torch.Tensor) -> list[torch.Tensor]:
     """q, k, v, o and do as the bf16 backward kernels read them (through TMA
-    tensor maps on the wgmma pair, 16 bytes at a time on the CUDA-core
-    pair): contiguous, with a 16-byte aligned base (a contiguous view at a
+    tensor maps, and o and do 16 bytes at a time for D): contiguous, with a 16-byte aligned base (a contiguous view at a
     misaligned storage offset is copied) and a head dim that is a multiple
     of 8 (16-byte rows): another head dim (100) is given as a copy
     zero-padded to the next multiple, each tensor to its own (q and k by

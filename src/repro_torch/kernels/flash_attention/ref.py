@@ -79,10 +79,11 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _bwd_terms(q, k, v, o, do, causal, window, prefix_len, q_offset,
-               scale=None):
+               scale=None, kv_valid_len=None):
     """P, dP and D (broadcast) (B, Hkv, G, Lq, Lkv) f32 of the backward's
     recurrence, with the f32 q (B, Lq, Hkv, G, Dq), do (B, Lq, Hkv, G, Dv)
-    and the scale (default 1 / sqrt(Dq))."""
+    and the scale (default 1 / sqrt(Dq)); the mask is ``attention_mask``'s,
+    ``kv_valid_len`` (B,) included."""
     B, Lq, H, Dq = q.shape
     _, Lkv, Hkv, Dv = v.shape
     G = H // Hkv
@@ -95,7 +96,8 @@ def _bwd_terms(q, k, v, o, do, causal, window, prefix_len, q_offset,
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
     mask = attention_mask(Lq, Lkv, causal=causal, window=window,
                           prefix_len=prefix_len, q_offset=q_offset,
-                          kv_valid_len=None, device=q.device)[:, None, None]
+                          kv_valid_len=kv_valid_len,
+                          device=q.device)[:, None, None]
     s = s.masked_fill(~mask, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -111,7 +113,8 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, do: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
                       prefix_len: int = 0, q_offset: Optional[int] = None,
-                      scale: Optional[float] = None
+                      scale: Optional[float] = None,
+                      kv_valid_len: Optional[torch.Tensor] = None
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of ``attention_ref`` at q, k, v, given its
     output o and the output's cotangent do (B, Lq, H, Dv), in the
@@ -122,11 +125,14 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv sum over its G query heads. A fully masked row has P = 0 and gives
     no gradient, as its output is 0. Each gradient is returned in its
     input's dtype. ``scale`` replaces 1 / sqrt(Dq) (the route of a head
-    dim zero-padded for the bf16 kernels keeps the unpadded one's). Calls
-    are counted in ``attention_bwd_ref.calls``."""
+    dim zero-padded for the bf16 kernels keeps the unpadded one's). A
+    ragged ``kv_valid_len`` (B,) masks keys at or past it, as the forward
+    does; keys that no row sees get zero dk and dv. Calls are counted in
+    ``attention_bwd_ref.calls``."""
     attention_bwd_ref.calls += 1
     p, dp, dsum, qf, dof, scale = _bwd_terms(q, k, v, o, do, causal, window,
-                                             prefix_len, q_offset, scale)
+                                             prefix_len, q_offset, scale,
+                                             kv_valid_len)
     ds = p * (dp - dsum)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
@@ -139,7 +145,8 @@ attention_bwd_ref.calls = 0
 
 def attention_bwd_rss(q, k, v, o, do, *, causal: bool = True,
                       window: Optional[int] = None, prefix_len: int = 0,
-                      q_offset: Optional[int] = None):
+                      q_offset: Optional[int] = None,
+                      kv_valid_len: Optional[torch.Tensor] = None):
     """The root sum of squares of each gradient's terms, f32, shaped as dq,
     dk and dv: sqrt(sum_k (dS_qk K_kd)^2) / sqrt(Dq), sqrt(sum_q (dS_qk
     Q_qd)^2) / sqrt(Dq) and sqrt(sum_q (P_qk do_qd)^2), with |dS| taken as
@@ -149,7 +156,8 @@ def attention_bwd_rss(q, k, v, o, do, *, causal: bool = True,
     backward kernels are held to 2^-7 |plain| + c x the row's rms of it
     (``kernels.bf16_excess``'s ``scale``)."""
     p, dp, dsum, qf, dof, scale = _bwd_terms(q, k, v, o, do, causal, window,
-                                             prefix_len, q_offset)
+                                             prefix_len, q_offset,
+                                             kv_valid_len=kv_valid_len)
     ds2 = torch.square(p * (dp.abs() + dsum.abs()))
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds2, torch.square(k.float()))
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds2, torch.square(qf))

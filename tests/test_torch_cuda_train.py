@@ -1,8 +1,8 @@
 """The training path on the card: the attention backward's kernels
-(``csrc/flash_attention_bwd.cu``: the tiled pair (a) dQ, (b) dK/dV, and
-the f32 one-pass kernel that ``ops.bwd_route`` sends f32 calls with Lq and
-Lkv at most 64 to) against their plain version ``attention_bwd_ref`` in
-f32 and bf16, head dims 16, 64, 100, 112 and 128, GQA with 1, 5 and 8
+(``csrc/flash_attention_bwd.cu``: the tiled pair (a) dQ, (b) dK/dV, the
+wide bf16 pair past head dim 128, and the f32 one-pass kernel that
+``ops.bwd_route`` sends f32 calls with Lq and Lkv at most 64 to) against
+their plain version ``attention_bwd_ref`` in f32 and bf16, head dims 16, 64, 100, 112 and 128, GQA with 1, 5 and 8
 query heads a kv head, every mask mode (causal, bidirectional, window,
 prefix, cross attention with Lq != Lkv, an explicit q_offset, fully masked
 rows), bf16 at the edges of the pair's 64-row tiles (L 1 to 4,095), the
@@ -11,7 +11,12 @@ the pair), a misaligned bf16 view, a planted fault in each kernel that the
 limit must catch, bit-identical repeats and the launch count by route;
 the widths past Dq = Dv <= 128 (the MLA pairs (96, 64), (192, 128) and
 (24, 16), and head dim 256 with paligemma's MQA) in every mask mode, at L
-1 to 4,095, with planted faults and repeats; ``FlashAttentionFn`` on CUDA
+1 to 4,095, with planted faults and repeats; the wide pair at paligemma's
+8 query heads of 256 with its 256-token prefix, a dropped 32-key tile of
+(a) and a dropped 64-key CTA of (b); a ragged ``kv_valid_len`` (a full
+row, a short one, one of 0) on every kernel family, against the plain
+version with it and, as a planted fault, without it; ``FlashAttentionFn``
+on CUDA
 tensors (the backward kernels run, the plain backward does not); the
 WKV6 backward kernel (K5-bwd) against ``wkv6_bwd_ref`` at K 16 and 64
 with a carried state and a final-state cotangent, its planted fault and
@@ -101,7 +106,7 @@ def _launches():
 
 def _new_launches():
     fa = fa_ops.flash_attention
-    return fa.launches_bwd_dv, fa.launches_bwd_cc
+    return fa.launches_bwd_dv, fa.launches_bwd_wide
 
 
 def _check(B, Lq, Lkv, H, Hkv, D, dtype, seed, exact_zero=(), Dv=None,
@@ -119,7 +124,7 @@ def _check(B, Lq, Lkv, H, Hkv, D, dtype, seed, exact_zero=(), Dv=None,
                            before[2] + one_pass)
     assert _new_launches() == (
         new[0] + n * (route == "tiled" and bf16 and Dv not in (None, D)),
-        new[1] + n * (route == "tiled_cc"))
+        new[1] + n * (route == "tiled_wide"))
     plain = fa_ref.attention_bwd_ref(q, k, v, o, do, **kw)
     rss = fa_ref.attention_bwd_rss(q, k, v, o, do, **kw)
     assert bwd_excess(got, plain, rss, dtype, exact_zero) <= 1.0
@@ -377,8 +382,8 @@ WIDTHS = {"96x64": (96, 64), "192x128": (192, 128), "24x16": (24, 16),
 @pytest.mark.parametrize("mode", list(MODES))
 def test_new_widths_every_mask_mode(mode, width, dtype):
     """q/k of Dq with v of Dv, and head dim 256, in every mask mode: the
-    bf16 wgmma pair at (96, 64) and (24, 16), the bf16 CUDA-core pair at
-    (192, 128) and 256, the f32 tiled pair at all four."""
+    bf16 wgmma pair at (96, 64) and (24, 16), the bf16 wide pair at (192,
+    128) and 256, the f32 tiled pair at all four."""
     Lq, Lkv, causal, window, prefix, q_offset = MODES[mode]
     Dq, Dv = WIDTHS[width]
     _check(2, Lq, Lkv, 8, 2, Dq, dtype, seed=len(mode) + Dq, Dv=Dv,
@@ -398,11 +403,13 @@ EDGE_MODES = {"causal": (0, dict(causal=True)),
 
 @pytest.mark.parametrize("mode", list(EDGE_MODES))
 @pytest.mark.parametrize("width", list(WIDTHS))
-@pytest.mark.parametrize("L", [1, 63, 64, 65, 127, 128, 129, 4095])
+@pytest.mark.parametrize("L", [1, 31, 33, 63, 64, 65, 97, 127, 128, 129,
+                               4095])
 def test_new_widths_bf16_at_tile_edges(L, width, mode):
-    """bf16 at the new widths around the pairs' tiles (the wgmma pair's 64
-    rows, the CUDA-core pair's 32), in every mask mode, one kv head for 8
-    query heads (paligemma's MQA); at 4,095 tokens two heads only."""
+    """bf16 at the new widths around the pairs' tiles (64 rows; the wide
+    pair's (a) at 256 takes keys 32 at a time, its (b) 64 keys a CTA), in
+    every mask mode, one kv head for 8 query heads (paligemma's MQA); at
+    4,095 tokens two heads only."""
     Dq, Dv = WIDTHS[width]
     extra, kw = EDGE_MODES[mode]
     H = 2 if L == 4095 else 8
@@ -446,6 +453,113 @@ def test_new_widths_planted_faults_and_repeats(width, dtype):
     dk_fault[:, t0:t1] = 0
     assert bwd_excess((dq_fault, got[1], got[2]), plain, rss, dtype) > 1
     assert bwd_excess((got[0], dk_fault, got[2]), plain, rss, dtype) > 1
+
+
+@pytest.mark.parametrize("width", ["192x128", "256"])
+def test_wide_pair_at_paligemmas_layout(width):
+    """The wide pair at paligemma-3b's 8 query heads for one kv head with
+    its 256-token prefix, 600 tokens (not a multiple of 64): within the
+    limit, two calls bit-identical, and (a) without one of its key tiles
+    (32 keys at 256, 64 at (192, 128)) or (b) without one 64-key CTA's dK
+    or dV (at 256 a CTA there writes half the columns) must fail it."""
+    Dq, Dv = WIDTHS[width]
+    kw = dict(causal=True, prefix_len=256)
+    q, k, v, o, do, got, plain, rss = _check(1, 600, 600, 8, 1, Dq,
+                                              torch.bfloat16, seed=23, Dv=Dv,
+                                              **kw)
+    assert fa_ops.bwd_route(torch.bfloat16, 600, 600, Dq, Dv) == "tiled_wide"
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got, again):
+        assert x.data_ptr() != y.data_ptr() and torch.equal(x, y)
+    bk = 32 if Dq > 192 else 64
+    p, dp, dsum, _, _, scale = fa_ref._bwd_terms(q, k, v, o, do, True, None,
+                                                 256, None)
+    t0, t1 = 288, 288 + bk          # past the prefix, on the diagonal band
+    ds = (p * (dp - dsum))[..., t0:t1]
+    part = torch.einsum("bhgqk,bkhd->bqhgd", ds, k[:, t0:t1].float())
+    dq_fault = (got[0].float() - part.reshape(q.shape) * scale).to(q.dtype)
+    dk_fault, dv_fault = got[1].clone(), got[2].clone()
+    dk_fault[:, 320:384, :, :Dq // 2] = 0
+    dv_fault[:, 320:384, :, :Dv // 2] = 0
+    for fault in ((dq_fault, got[1], got[2]), (got[0], dk_fault, got[2]),
+                  (got[0], got[1], dv_fault)):
+        assert bwd_excess(fault, plain, rss, torch.bfloat16) > 1
+
+
+@pytest.mark.parametrize("B,Hkv", [(1, 1), (4, 8)], ids=["split", "whole"])
+def test_wide_dkv_whole_and_split_columns(B, Hkv):
+    """The wide pair's (b) at 256: one kv head (10 CTAs of 64 keys, at most
+    one an SM) splits dK's and dV's columns across two CTAs, 4 x 8 kv
+    heads (160 CTAs, more than an H100's 132 SMs) keep them whole; both
+    within the limit, with a prefix, and two calls bit-identical."""
+    kw = dict(causal=True, prefix_len=40)
+    q, k, v, o, do, got, _, _ = _check(B, 600 if B == 1 else 300,
+                                       600 if B == 1 else 300, 2 * Hkv, Hkv,
+                                       256, torch.bfloat16, seed=29, **kw)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+
+
+# a ragged kv_valid_len on each kernel family: (dtype, B, L, H, Hkv, Dq, Dv)
+RAGGED_FAMILIES = {
+    "one_pass": (torch.float32, 3, 40, 8, 2, 64, 64),
+    "one_pass_256": (torch.float32, 3, 24, 4, 1, 256, 256),
+    "tiled_f32": (torch.float32, 3, 200, 8, 2, 64, 64),
+    "tiled_f32_192x128": (torch.float32, 3, 150, 4, 2, 192, 128),
+    "tiled_bf16": (torch.bfloat16, 3, 300, 8, 2, 128, 128),
+    "tiled_bf16_96x64": (torch.bfloat16, 3, 300, 8, 2, 96, 64),
+    "wide_192x128": (torch.bfloat16, 3, 300, 8, 2, 192, 128),
+    "wide_256": (torch.bfloat16, 3, 300, 8, 1, 256, 256),
+}
+RAGGED_MASKS = {"causal": dict(causal=True),
+                "bidirectional": dict(causal=False),
+                "prefix": dict(causal=True, prefix_len=19),
+                "window": dict(causal=True, window=29)}
+
+
+@pytest.mark.parametrize("mask", list(RAGGED_MASKS))
+@pytest.mark.parametrize("family", list(RAGGED_FAMILIES))
+def test_ragged_kv_valid_len_every_family(family, mask):
+    """Each kernel family with kv_valid_len (a full row, one that ends
+    inside a tile, one of 0) against ``attention_bwd_ref`` with it: within
+    the limit, zero dk and dv at and past each row's end, zero gradients
+    in the row of 0; the plain version without kv_valid_len (a kernel that
+    ignored it) must fail the limit."""
+    dtype, B, L, H, Hkv, Dq, Dv = RAGGED_FAMILIES[family]
+    kvl = torch.tensor([L, L // 2 + 5, 0], device=DEV)
+    kw = dict(RAGGED_MASKS[mask], kv_valid_len=kvl)
+    q, k, v, o, do, got, plain, rss = _check(B, L, L, H, Hkv, Dq, dtype,
+                                              seed=L + Dq, Dv=Dv, **kw)
+    for b, n in enumerate(kvl.tolist()):
+        assert bool((got[1][b, n:] == 0).all() and (got[2][b, n:] == 0).all())
+    assert all(bool((g[2] == 0).all()) for g in got)
+    kw.pop("kv_valid_len")
+    ignored = fa_ref.attention_bwd_ref(q, k, v, o, do, **kw)
+    assert bwd_excess(got, ignored, rss, dtype) > 1
+
+
+def test_flash_attention_fn_ragged_on_the_card():
+    """Under autograd a ragged kv_valid_len runs K4 and the backward
+    kernels with it, never the plain backward, and the gradients equal a
+    direct ``flash_attention_bwd`` call."""
+    kvl = torch.tensor([200, 77], device=DEV)
+    q, k, v, _, do = _inputs(2, 200, 200, 8, 1, 256, torch.bfloat16, 31,
+                             causal=True, kv_valid_len=kvl)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    plain_calls = fa_ref.attention_bwd_ref.calls
+    before = fa_ops.flash_attention.launches_bwd_wide
+    out = fa_ops.flash_attention(*xs, causal=True, kv_valid_len=kvl)
+    grads = torch.autograd.grad(out, xs, do)
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention.launches_bwd_wide == before + 2
+    assert fa_ref.attention_bwd_ref.calls == plain_calls
+    want = fa_ops.flash_attention_bwd(q, k, v, out.detach(), do,
+                                      causal=True, kv_valid_len=kvl)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("width", ["96x64", "256"])

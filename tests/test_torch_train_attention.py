@@ -5,19 +5,19 @@ against ``jax.grad`` of the reference model layer's ``flash_attention``
 bidirectional; and at the MLA pairs (96, 64), (192, 128) and the reduced
 (24, 16), and at paligemma's head dim 256 with its bidirectional prefix
 and 8 query heads a kv head), the route ``ops.bwd_route`` gives a call on
-the card (the one-pass kernel, the tiled pair or the CUDA-core bf16 pair)
-and what ``ops.bwd_check`` refuses, and its plain version
-``attention_bwd_ref`` against autograd through
-``attention_ref``, in every mask mode (causal, bidirectional, window,
-prefix, cross attention with Lq != Lkv, an explicit q_offset, a fully
-masked row) with GQA (1 and 4 query heads a kv head); the route by
-which the bf16 kernels take a head dim that is not a multiple of 8 (a
-zero-padded copy, ``ops.bwd_operands``) against the unpadded one, and the
-aligned copy it makes of a misaligned view; what the
-backward does not take (a ragged ``kv_valid_len``) raises under grad; the
-wrappers of the kernels without a backward refuse inputs that require
-grad (``refuse_grad``, on CUDA tensors only: on the CPU their plain
-versions differentiate).
+the card (the one-pass kernel, the tiled pair or the wide bf16 pair),
+a ragged ``kv_valid_len`` (a full row, a short row and a row of 0, whose
+gradients are 0 in both packages) in every mask mode at G 1, 4 and 8 and
+at every width, and its plain version ``attention_bwd_ref`` against
+autograd through ``attention_ref``, in every mask mode (causal,
+bidirectional, window, prefix, cross attention with Lq != Lkv, an
+explicit q_offset, a fully masked row) with GQA (1 and 4 query heads a kv
+head), with and without a ragged ``kv_valid_len``; the route by which the
+bf16 kernels take a head dim that is not a multiple of 8 (a zero-padded
+copy, ``ops.bwd_operands``) against the unpadded one, and the aligned
+copy it makes of a misaligned view; the wrappers of the kernels without a
+backward refuse inputs that require grad (``refuse_grad``, on CUDA
+tensors only: on the CPU their plain versions differentiate).
 
 Tolerance: f32 gradients within 1e-5 of the largest |gradient| (f32 sums
 in another order).
@@ -81,6 +81,50 @@ FN_CASES = ([(m, G, None) for m in MODES for G in (1, 4)]
             + [("prefix", 8, d) for d in WIDTHS])
 
 
+def _ragged(B, Lkv):
+    """kv_valid_len of B rows: the full length, about half of it, 0 (a row
+    that sees no key, whose gradients are 0 in both packages), and again."""
+    return np.array([Lkv, Lkv // 2 + 1, 0, Lkv][:B], dtype=np.int32)
+
+
+def _fn_grads_match(mode, G, dims, ragged):
+    """``FlashAttentionFn`` on CPU tensors (its backward the plain
+    ``attention_bwd_ref``, called once) against ``jax.grad`` of the
+    reference layer at the same inputs: head dim 16 (64 at the embedder's
+    layout) with Dv = Dq, or (Dq, Dv) = ``dims``, one kv head for G query
+    heads past G = 1; with ``ragged``, B 3 and ``_ragged``'s
+    kv_valid_len."""
+    Lq, Lkv, causal, window, prefix, q_offset = MODES.get(mode, EMBED_MODE)
+    H, Hkv, D = (12, 12, 64) if mode == "embedder" else (2 * G, 2, 16)
+    Dv = D
+    if dims:
+        (D, Dv), Hkv, H = dims, 2 if G == 1 else 1, 2 if G == 1 else G
+    B = 3 if ragged else 2
+    q, k, v, do = _inputs(B, Lq, Lkv, H, Hkv, D, seed=G, Dv=Dv)
+    kw = dict(causal=causal, window=window, prefix_len=prefix,
+              q_offset=q_offset)
+    kvl = _ragged(B, Lkv) if ragged else None
+
+    def j_loss(q, k, v):
+        return jnp.sum(JL.flash_attention(
+            q, k, v, kv_valid_len=None if kvl is None else jnp.asarray(kvl),
+            **kw) * do)
+    jg = jax.grad(j_loss, argnums=(0, 1, 2))(q, k, v)
+    assert all(bool(np.isfinite(np.asarray(x)).all()) for x in jg)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    calls = fa_ref.attention_bwd_ref.calls
+    out = fa_ops.flash_attention(
+        tq, tk, tv, kv_valid_len=None if kvl is None
+        else torch.from_numpy(kvl), **kw)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    tg = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    assert fa_ref.attention_bwd_ref.calls == calls + 1
+    for a, b in zip(tg, jg):
+        _close(a.numpy(), b)
+    if ragged:          # the row that sees no key has no gradient
+        assert all(bool((a[2] == 0).all()) for a in tg)
+
+
 @pytest.mark.parametrize(
     "mode,G,dims", FN_CASES,
     ids=[f"{m}-{G}" + (f"-{d[0]}x{d[1]}" if d else "")
@@ -89,26 +133,23 @@ def test_flash_attention_fn_grads_match_jax(mode, G, dims):
     """Head dim 16 (64 at the embedder's layout) with Dv = Dq, and the
     widths of ``WIDTHS``: q/k of Dq with v of Dv, the scale 1 / sqrt(Dq);
     at G = 8 one kv head serves 8 query heads, as paligemma's MQA."""
-    Lq, Lkv, causal, window, prefix, q_offset = MODES.get(mode, EMBED_MODE)
-    H, Hkv, D = (12, 12, 64) if mode == "embedder" else (2 * G, 2, 16)
-    Dv = D
-    if dims:
-        (D, Dv), Hkv, H = dims, 2 if G == 1 else 1, 2 if G == 1 else G
-    q, k, v, do = _inputs(2, Lq, Lkv, H, Hkv, D, seed=G, Dv=Dv)
-    kw = dict(causal=causal, window=window, prefix_len=prefix,
-              q_offset=q_offset)
+    _fn_grads_match(mode, G, dims, ragged=False)
 
-    def j_loss(q, k, v):
-        return jnp.sum(JL.flash_attention(q, k, v, **kw) * do)
-    jg = jax.grad(j_loss, argnums=(0, 1, 2))(q, k, v)
-    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
-    calls = fa_ref.attention_bwd_ref.calls
-    out = fa_ops.flash_attention(tq, tk, tv, **kw)
-    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
-    tg = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
-    assert fa_ref.attention_bwd_ref.calls == calls + 1
-    for a, b in zip(tg, jg):
-        _close(a.numpy(), b)
+
+RAGGED_CASES = ([(m, G, None) for m in MODES for G in (1, 4, 8)]
+                + [(m, 1, d) for d in WIDTHS for m in MODES]
+                + [("prefix", 8, d) for d in WIDTHS])
+
+
+@pytest.mark.parametrize(
+    "mode,G,dims", RAGGED_CASES,
+    ids=[f"{m}-{G}" + (f"-{d[0]}x{d[1]}" if d else "")
+         for m, G, d in RAGGED_CASES])
+def test_flash_attention_fn_ragged_grads_match_jax(mode, G, dims):
+    """A ragged ``kv_valid_len`` under grad, in every mask mode at G 1, 4
+    and 8 and at every width of ``WIDTHS``: the batch rows see all their
+    keys, about half, and none (zero gradients, finite in both)."""
+    _fn_grads_match(mode, G, dims, ragged=True)
 
 
 @pytest.mark.parametrize("dtype,Lq,Lkv,Dh,route", [
@@ -127,8 +168,8 @@ def test_flash_attention_fn_grads_match_jax(mode, G, dims):
     (torch.float32, 33, 33, 129, "tiled"),
     (torch.float32, 4096, 4096, 256, "tiled"),
     (torch.bfloat16, 4096, 4096, 128, "tiled"),
-    (torch.bfloat16, 24, 24, 129, "tiled_cc"),
-    (torch.bfloat16, 4096, 4096, 256, "tiled_cc"),
+    (torch.bfloat16, 24, 24, 129, "tiled_wide"),
+    (torch.bfloat16, 4096, 4096, 256, "tiled_wide"),
     (torch.float32, 24, 24, 257, ValueError),
     (torch.float32, 24, 24, 0, ValueError),
 ], ids=lambda x: str(x).replace("torch.", "") if not isinstance(x, type)
@@ -136,7 +177,7 @@ def test_flash_attention_fn_grads_match_jax(mode, G, dims):
 def test_bwd_route(dtype, Lq, Lkv, Dh, route):
     """f32 calls with both lengths at most 64 (32 past head dim 128) take
     the one-pass kernel, every other call a pair: the tiled pair, or in
-    bf16 past head dim 128 the CUDA-core pair ("tiled_cc"); a head dim no
+    bf16 past head dim 128 the wide wgmma pair ("tiled_wide"); a head dim no
     backward kernel takes (outside [1, 256]) raises."""
     if isinstance(route, type):
         with pytest.raises(route):
@@ -149,8 +190,8 @@ def test_bwd_route(dtype, Lq, Lkv, Dh, route):
     (torch.bfloat16, 4096, 4096, 96, 64, "tiled"),      # minicpm3-4b
     (torch.bfloat16, 128, 128, 24, 16, "tiled"),        # --reduced MLA
     (torch.bfloat16, 300, 300, 64, 128, "tiled"),
-    (torch.bfloat16, 4096, 4096, 192, 128, "tiled_cc"),  # deepseek-v2
-    (torch.bfloat16, 4096, 4096, 256, 256, "tiled_cc"),  # paligemma-3b
+    (torch.bfloat16, 4096, 4096, 192, 128, "tiled_wide"),  # deepseek-v2
+    (torch.bfloat16, 4096, 4096, 256, 256, "tiled_wide"),  # paligemma-3b
     (torch.float32, 64, 64, 96, 64, "one_pass"),
     (torch.float32, 64, 64, 192, 128, "tiled"),
     (torch.float32, 32, 32, 192, 128, "one_pass"),
@@ -162,8 +203,8 @@ def test_bwd_route(dtype, Lq, Lkv, Dh, route):
 def test_bwd_route_of_q_and_v_widths(dtype, Lq, Lkv, Dq, Dv, route):
     """The route of a call whose v head dim differs from the q/k one: the
     larger of the two decides the one-pass band (64 tokens up to 128, 32
-    past it) and, in bf16, the wgmma pair (both up to 128) or the
-    CUDA-core pair."""
+    past it) and, in bf16, the wgmma pair (both up to 128) or the wide
+    wgmma pair."""
     if isinstance(route, type):
         with pytest.raises(route):
             fa_ops.bwd_route(dtype, Lq, Lkv, Dq, Dv)
@@ -175,14 +216,27 @@ def test_bwd_route_of_q_and_v_widths(dtype, Lq, Lkv, Dq, Dv, route):
                                    (24, 16), (256, 256)])
 @pytest.mark.parametrize("ragged", [False, True])
 def test_bwd_check_refuses_only_kv_valid_len(Dq, Dv, ragged):
-    """Every width the forward takes has a backward; a ragged
-    ``kv_valid_len`` raises, at every width."""
-    kvl = torch.tensor([3]) if ragged else None
-    if ragged:
-        with pytest.raises(NotImplementedError):
-            fa_ops.bwd_check(Dq, Dv, kvl)
-    else:
-        fa_ops.bwd_check(Dq, Dv, kvl)
+    """Named for the refusal it once held (kept so that its cases carry on
+    under one name); it now checks the opposite. Every width the forward
+    takes has a backward, with and without a ragged ``kv_valid_len``:
+    under grad the call trains through ``FlashAttentionFn`` and matches
+    ``jax.grad`` of the reference layer, at one kv head for two query
+    heads, causal, with a short row (3 keys of 12) beside a full one."""
+    q, k, v, do = _inputs(2, 12, 12, 2, 1, Dq, seed=Dq + Dv, Dv=Dv)
+    kvl = np.array([12, 3], dtype=np.int32) if ragged else None
+
+    def j_loss(q, k, v):
+        return jnp.sum(JL.flash_attention(
+            q, k, v, causal=True,
+            kv_valid_len=None if kvl is None else jnp.asarray(kvl)) * do)
+    jg = jax.grad(j_loss, argnums=(0, 1, 2))(q, k, v)
+    xs = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = fa_ops.flash_attention(
+        *xs, causal=True, q_offset=0,
+        kv_valid_len=None if kvl is None else torch.from_numpy(kvl))
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    for a, b in zip(torch.autograd.grad(out, xs, torch.from_numpy(do)), jg):
+        _close(a.numpy(), b)
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -206,6 +260,34 @@ def test_attention_bwd_ref_is_the_autograd_of_attention_ref(mode):
                                  kv_valid_len=None, device="cpu")[0]
     for r, seen in zip(rss, (mask.any(1), mask.any(0), mask.any(0))):
         assert bool((r.amax(dim=(0, 2, 3)) > 0).eq(seen).all())
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_attention_bwd_ref_ragged_is_the_autograd_of_attention_ref(mode):
+    """``attention_bwd_ref`` and ``attention_bwd_rss`` with a ragged
+    ``kv_valid_len`` (``_ragged``: a full row, a short one, one of 0): the
+    gradients of ``attention_ref`` under the same mask, zero past each
+    row's keys, and the rss 0 exactly where nothing is attended."""
+    Lq, Lkv, causal, window, prefix, q_offset = MODES[mode]
+    q, k, v, do = (torch.from_numpy(x) for x in
+                   _inputs(3, Lq, Lkv, 6, 2, 8, seed=9))
+    kvl = torch.from_numpy(_ragged(3, Lkv))
+    kw = dict(causal=causal, window=window, prefix_len=prefix,
+              q_offset=q_offset, kv_valid_len=kvl)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = fa_ref.attention_ref(*xs, **kw)
+    want = torch.autograd.grad(out, xs, do)
+    got = fa_ref.attention_bwd_ref(q, k, v, out.detach(), do, **kw)
+    for a, b in zip(got, want):
+        _close(a.numpy(), b.numpy())
+    for b, n in enumerate(kvl.tolist()):
+        assert bool((got[1][b, n:] == 0).all() and (got[2][b, n:] == 0).all())
+    rss = fa_ref.attention_bwd_rss(q, k, v, out.detach(), do, **kw)
+    mask = fa_ref.attention_mask(Lq, Lkv, causal=causal, window=window,
+                                 prefix_len=prefix, q_offset=q_offset,
+                                 kv_valid_len=kvl, device="cpu")
+    for r, seen in zip(rss, (mask.any(2), mask.any(1), mask.any(1))):
+        assert bool((r.amax(dim=(2, 3)) > 0).eq(seen).all())
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -255,18 +337,28 @@ def test_without_grad_serving_takes_the_plain_forward():
 
 @pytest.mark.parametrize("case", ["dv", "dh", "kv_valid_len"])
 def test_backward_modes_it_does_not_take_raise_under_grad(case):
-    """A ragged ``kv_valid_len`` has no backward: under grad it raises, at
-    the MLA pair (96, 64) ("dv"), at head dim 256 ("dh") and at 16; the
-    widths themselves now train (``FlashAttentionFn``)."""
+    """Named for the error it once expected (kept so that its cases carry
+    on under one name); it now checks the opposite. A ragged
+    ``kv_valid_len`` under grad trains at
+    the MLA pair (96, 64) ("dv"), at head dim 256 ("dh") and at 16: the
+    call goes through ``FlashAttentionFn``, and its gradients equal
+    autograd through ``ref.attention_ref`` with the same mask, within 1e-5
+    of the largest |gradient|; serving, without grad, takes it too."""
     Dq, Dv = {"dv": (96, 64), "dh": (256, 256)}.get(case, (16, 16))
-    q = torch.randn(1, 4, 2, Dq, requires_grad=True)
-    k = torch.randn(1, 4, 2, Dq)
-    v = torch.randn(1, 4, 2, Dv)
-    kvl = torch.tensor([3])
-    with pytest.raises(NotImplementedError):
-        fa_ops.flash_attention(q, k, v, kv_valid_len=kvl)
-    out = fa_ops.flash_attention(q, k, v)
+    g = torch.Generator().manual_seed(len(case))
+    q = torch.randn(2, 4, 2, Dq, generator=g, requires_grad=True)
+    k = torch.randn(2, 4, 2, Dq, generator=g, requires_grad=True)
+    v = torch.randn(2, 4, 2, Dv, generator=g, requires_grad=True)
+    do = torch.randn(2, 4, 2, Dv, generator=g)
+    kvl = torch.tensor([3, 1])
+    out = fa_ops.flash_attention(q, k, v, kv_valid_len=kvl)
     assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    got = torch.autograd.grad(out, (q, k, v), do)
+    want = torch.autograd.grad(
+        fa_ref.attention_ref(q, k, v, kv_valid_len=kvl), (q, k, v), do)
+    for a, b in zip(got, want):
+        _close(a.numpy(), b.numpy())
+    assert bool((got[1][:, 3:] == 0).all() and (got[2][1, 1:] == 0).all())
     with torch.no_grad():                 # serving takes them all
         fa_ops.flash_attention(q, k, v, kv_valid_len=kvl)
 

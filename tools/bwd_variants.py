@@ -1,0 +1,187 @@
+#!/usr/bin/env python3
+"""Time edited copies of the bf16 attention backward
+(``csrc/flash_attention_bwd.cu``'s wgmma pairs) beside the tree they come
+from: the design alternatives behind PERF.md's findings on the wide pair
+and on what the ragged ``kv_valid_len`` costs the pair up to 128.
+
+    python3 tools/bwd_variants.py [--src DIR] [--iters N]
+                                  [--calls qwen3,minicpm3,paligemma,deepseek]
+                                  [--lens 4096,...] NAME [NAME ...]
+
+Each NAME copies ``DIR/repro_torch`` (default: this checkout's ``src``)
+into ``build/bwd_variants/TREE-NAME/src`` (TREE: the name of ``DIR``'s
+parent directory), applies that variant's text edits to
+its ``flash_attention_bwd.cu`` (each must match exactly once, or the run
+stops) and builds the library there, unless a library of that source is
+there from an earlier run; the builds start together. A NAME given twice
+runs twice on one build. Then, in
+a process of its own for each variant (two libraries that define kernels
+of one name cannot share a process), it holds the variant against
+``ref.attention_bwd_ref`` at 600 tokens (the bf16 row limit of the tests,
+``kernels.bf16_excess``) and times (a) and (b) apart through
+``kernel.launch_bwd`` at ``--calls`` of CALLS, B 1 x each of ``--lens``
+tokens (default 4,096), causal (device ms a call, the mean
+of ``--iters``
+under ``torch.profiler``, ``tools/trace_kernels.py``'s
+``device_kernel_ms``), the variants one after another in the order given.
+The name ``base`` takes the tree unedited. Needs one CUDA card.
+
+Variants: ``dq-bk32``, (a) at <192, 128> with 32-key tiles (as at <256,
+256>) instead of 64; ``dkv-one``, (b) at <256, 256> with one CTA a key
+tile where the tree splits dK's and dV's columns across two CTAs (half
+the CTAs at paligemma's one kv head, 2/3 of the products);
+``dkv-split``, (b) at <256, 256> with dK's and dV's columns split across
+two CTAs at every grid;
+``ragged-always``, the pair up to 128 in its instance with
+kv_valid_len (the test of each tile against the end of its row's keys)
+for every call, as before the instance without it was added.
+"""
+from __future__ import annotations
+
+import argparse
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+DQ_BK32 = [(
+    "  return Tiles<DQP, DVP, TR>::DQ_SMEM <= SMEM_MAX ? TR : TR / 2;",
+    "  return TR / 2;                          // variant: 32-key tiles")]
+
+SPLIT_TEST = ("  *split = grid.x * grid.y * grid.z * 100 <= SPLIT_PCT * "
+              "(unsigned)sms ? 2 : 1;")
+DKV_ONE = [(SPLIT_TEST, "  *split = 1;   // variant: never split")]
+DKV_SPLIT = [(SPLIT_TEST, "  *split = 2;   // variant: always split")]
+
+RAGGED_ALWAYS = [(
+    "  return a.kvl ? run_pair<DQP, DVP, true>(a, part, s)\n"
+    "               : run_pair<DQP, DVP, false>(a, part, s);",
+    "  return run_pair<DQP, DVP, true>(a, part, s);   // variant")]
+
+VARIANTS = {"base": [], "dq-bk32": DQ_BK32, "dkv-one": DKV_ONE,
+            "dkv-split": DKV_SPLIT, "ragged-always": RAGGED_ALWAYS}
+
+# (label, H, Hkv, Dq, Dv, prefix_len), B 1 x 4,096, causal
+CALLS = {"qwen3": ("qwen3-14b", 40, 8, 128, 128, 0),
+         "minicpm3": ("minicpm3-4b", 40, 40, 96, 64, 0),
+         "paligemma": ("paligemma-3b", 8, 1, 256, 256, 256),
+         "deepseek": ("deepseek-v2-236b", 128, 128, 192, 128, 0)}
+
+
+def make(name: str, src: Path) -> Path:
+    """The variant's tree under build/bwd_variants/TREE-NAME/src."""
+    dst = ROOT / "build" / "bwd_variants" / f"{src.parent.name}-{name}" / \
+        "src"
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(src / "repro_torch", dst / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    cu = dst / "repro_torch" / "csrc" / "flash_attention_bwd.cu"
+    text = cu.read_text()
+    for old, new in VARIANTS[name]:
+        n = text.count(old)
+        if n != 1:
+            raise SystemExit(f"{name}: an edit matches {n} times, not once: "
+                             f"{old[:60]!r}")
+        text = text.replace(old, new)
+    cu.write_text(text)
+    return dst
+
+
+def build(dst: Path) -> subprocess.Popen:
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
+         "from repro_torch.kernels import _build;"
+         "print(_build.build(['flash_attention_bwd'])"
+         ".get('flash_attention_bwd', ''))", str(dst)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+RUN = """
+import sys
+sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, sys.argv[2])
+import torch
+from repro_torch.kernels import bf16_excess
+from repro_torch.kernels.flash_attention import kernel as K, ops, ref
+from tools.trace_kernels import device_kernel_ms
+name, iters, calls, lens = sys.argv[3], int(sys.argv[4]), %r, %r
+g = torch.Generator(device="cuda").manual_seed(0)
+
+
+def inputs(L, H, Hkv, Dq, Dv, prefix):
+    q = torch.randn((1, L, H, Dq), generator=g, device="cuda").bfloat16()
+    k = torch.randn((1, L, Hkv, Dq), generator=g, device="cuda").bfloat16()
+    v = torch.randn((1, L, Hkv, Dv), generator=g, device="cuda").bfloat16()
+    o = ref.attention_ref(q, k, v, causal=True, prefix_len=prefix,
+                          p_dtype=v.dtype).contiguous()
+    do = torch.randn(o.shape, generator=g, device="cuda").bfloat16()
+    return q, k, v, o, do
+
+
+for label, H, Hkv, Dq, Dv, prefix in calls:
+    kw = dict(causal=True, prefix_len=prefix)
+    xs = inputs(600, min(H, 16), min(Hkv, 16), Dq, Dv, prefix)
+    got = ops.flash_attention_bwd(*xs, **kw)
+    plain = ref.attention_bwd_ref(*xs, **kw)
+    rss = ref.attention_bwd_rss(*xs, **kw)
+    share = max(bf16_excess(a, b, 2.0 ** -5, scale=r)
+                for a, b, r in zip(got, plain, rss))
+    for L in lens:
+        q, k, v, o, do = inputs(L, H, Hkv, Dq, Dv, prefix)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        lse, dsum = K.bwd_scratch(q)
+        ms, kern = {}, {}
+        for part, what in ((0, "a"), (1, "b")):
+            own = device_kernel_ms(torch, lambda: K.launch_bwd(
+                q, k, v, o, do, dq, dk, dv, lse, dsum, causal=True, window=0,
+                prefix_len=prefix, q_offset=0, part=part), iters)[0]
+            ms[what] = sum(own.values())
+            kern[what] = ", ".join(n.split("(")[0].replace("void ", "")
+                                   for n in own)
+        print(f"[variant] {name} {label} B 1 x {L}, {H}/{Hkv} heads of "
+              f"{Dq}/{Dv}, prefix {prefix}: (a) {ms['a']:.4f} ms, (b) "
+              f"{ms['b']:.4f} ms ({kern['b']}), the pair "
+              f"{ms['a'] + ms['b']:.4f} ms; at 600 tokens {share:.3f} of "
+              f"the bf16 row limit", flush=True)
+        del q, k, v, o, do, dq, dk, dv, lse, dsum
+        torch.cuda.empty_cache()
+"""
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("names", nargs="+", choices=sorted(VARIANTS))
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--calls", default=",".join(CALLS))
+    ap.add_argument("--lens", default="4096")
+    args = ap.parse_args()
+    calls = tuple(CALLS[c] for c in args.calls.split(","))
+    lens = tuple(int(x) for x in args.lens.split(","))
+    trees = {n: make(n, Path(args.src).resolve()) for n in set(args.names)}
+    procs = {n: build(d) for n, d in trees.items()}
+    for n, p in procs.items():
+        report = p.communicate()[0]
+        if p.returncode:
+            print(f"[variant] {n}: the build failed\n{report}", flush=True)
+            return 1
+        fn = ""
+        for line in report.splitlines():
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1] if "'" in line else line
+            elif "wide" in fn and ("spill" in line or "registers" in line):
+                print(f"[build] {n}: {fn[:40]}: {line.strip()}", flush=True)
+    for n in args.names:
+        rc = subprocess.run([sys.executable, "-c", RUN % (calls, lens),
+                             str(trees[n]), str(ROOT), n,
+                             str(args.iters)]).returncode
+        if rc:
+            print(f"[variant] {n}: exit {rc}", flush=True)
+            return rc
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -49,12 +49,14 @@ probe ``flash_attention_probe`` (flash_bf16_persistent at 128 / 128,
 where the library has it) against the routed flash_bf16; then ptxas's
 report of every bf16 forward instance; and (``train``) the training
 path's backward modes at B 1 x 4,096 tokens: the bf16 attention backward
-at minicpm3-4b's 40 heads of (96, 64) and deepseek-v2-236b's 128 of
-(192, 128), causal, and at paligemma-3b's 8/1 heads of 256 with its
-256-token prefix, each (a) and (b) apart beside SDPA's backward (where it
-takes the call) and the operations bound of its products over the mask's
-pairs; K5-bwd at rwkv6-7b's 64 heads of 64 beside its operations bound;
-then ptxas's lines of every bf16 backward instance and of K5-bwd.
+at qwen3-14b's 40/8 heads of 128, minicpm3-4b's 40 heads of (96, 64) and
+deepseek-v2-236b's 128 of (192, 128), causal, and at paligemma-3b's 8/1
+heads of 256 with its 256-token prefix, each (a) and (b) apart beside
+SDPA's backward (where it takes the call) and the operations bound of its
+products over the mask's pairs; K5-bwd at rwkv6-7b's 64 heads of 64
+beside its operations bound; then ptxas's lines of every bf16 backward
+instance and of K5-bwd, and the HGMMA and FFMA counts of each bf16
+backward instance's SASS.
 For each call it prints every device kernel the call launched (pass 1
 and pass 2 of K1/K2 apart, K3's casts and passes apart) with its
 mean time per call; for K4 the achieved TFLOP/s of the causal half, for
@@ -580,9 +582,9 @@ def empty_launcher(torch, _build):
 
 def sass_mix(lib: str, match: str) -> dict:
     """For each kernel of the shared library ``lib`` whose name holds
-    ``match``: its instruction count and mix (FFMA, scalar and 16-byte
-    shared and global loads, cp.async) over the whole function and over
-    each loop (a backward branch) that holds an FFMA, from
+    ``match``: its instruction count and mix (FFMA, HGMMA, scalar and
+    16-byte shared and global loads, cp.async) over the whole function and
+    over each loop (a backward branch) that holds an FFMA, from
     ``cuobjdump -sass``."""
     import collections
     import re
@@ -598,6 +600,7 @@ def sass_mix(lib: str, match: str) -> dict:
                 "top": collections.Counter(
                     i.split()[0] for i in body).most_common(12),
                 "FFMA": n(lambda i: i.startswith("FFMA")),
+                "HGMMA": n(lambda i: i.startswith("HGMMA")),
                 "LDS": n(lambda i: i.startswith("LDS")
                          and ".64" not in i and ".128" not in i),
                 "LDS.64": n(lambda i: i.startswith("LDS") and ".64" in i),
@@ -879,7 +882,8 @@ def _probe_entry(_build):
 
 # the training path's backward modes (label, H, Hkv, Dq, Dv, prefix_len), B 1
 # x 4,096 causal bf16 tokens
-TRAIN_CALLS = (("minicpm3-4b", 40, 40, 96, 64, 0),
+TRAIN_CALLS = (("qwen3-14b", 40, 8, 128, 128, 0),
+               ("minicpm3-4b", 40, 40, 96, 64, 0),
                ("deepseek-v2-236b", 128, 128, 192, 128, 0),
                ("paligemma-3b", 8, 1, 256, 256, 256))
 WKV6_BWD = dict(B=1, L=4096, H=64, K=64)
@@ -894,7 +898,8 @@ def trace_train(torch, fa, reports, g, iters: int, res: dict) -> None:
     dK for (b); each over Dq or Dv) at 989 TFLOP/s; K5-bwd at WKV6_BWD
     (bf16 r, k, v, a zero state) beside its bound (14 K V fp32 flops a
     (token, head) at 67 TFLOP/s); then ptxas's lines of every bf16
-    backward instance and K5-bwd's."""
+    backward instance and K5-bwd's, and the HGMMA and FFMA counts of
+    every bf16 backward instance's SASS."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as K
     from repro_torch.kernels.flash_attention import ref as fr
@@ -909,7 +914,7 @@ def trace_train(torch, fa, reports, g, iters: int, res: dict) -> None:
         do = torch.randn(o.shape, generator=g, device="cuda").bfloat16()
         route = fa.bwd_route(torch.bfloat16, L, L, Dq, Dv)
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-        lse, dsum = K.bwd_scratch(q, route)
+        lse, dsum = K.bwd_scratch(q)
         parts = {n: (lambda part=part: K.launch_bwd(
             q, k, v, o, do, dq, dk, dv, lse, dsum, causal=True, window=0,
             prefix_len=prefix, q_offset=0, part=part))
@@ -978,6 +983,13 @@ def trace_train(torch, fa, reports, g, iters: int, res: dict) -> None:
             if key in name:
                 res.setdefault("train_ptxas", {})[name] = r
                 print(f"[ptxas] {name}: {r}", flush=True)
+    from repro_torch.kernels import _build
+    lib = str(_build._lib_path("flash_attention_bwd"))
+    for name, c in sass_mix(lib, "bf16").items():
+        res.setdefault("train_sass", {})[name] = c["function"]
+        print(f"[sass] {name[:80]}: HGMMA {c['function']['HGMMA']}, FFMA "
+              f"{c['function']['FFMA']}, {c['function']['instructions']} "
+              "instructions", flush=True)
 
 
 if __name__ == "__main__":
