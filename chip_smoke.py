@@ -293,7 +293,15 @@ Phases (any failure exits non-zero and prints no result line):
               shape), and at the embedder's 8 keys dropped from dQ's sum
               and 8 rows of dK zeroed; the counters zeroed and read
               around (a), whose f32 pair launches are the pair's
-              ``sweep_launches`` (no main-path call reaches it); (b)
+              ``sweep_launches`` (no main-path call reaches it); the WKV6
+              backward (K5-bwd, ``csrc/wkv6_bwd.cu``) against
+              ``wkv6_bwd_ref`` over WKV6_BWD_SWEEP in f32 and bf16 and at
+              rwkv6-7b's 4,096 tokens, each call from the checkpoints K5
+              writes and from none (K5 runs first), bit-identical; K5's y
+              and state the same bits with checkpoint writes, its
+              checkpoints against ``wkv6_ckpt_ref``; one step's dy
+              dropped and checkpoints of other inputs must fail the
+              limit; (b)
               qwen3-14b at full
               width cut to 4 of 40 layers (2.88 B params; remat on, bf16),
               B 1 x 4,096 tokens, chunked CE of 512: one step's loss, grad
@@ -335,7 +343,12 @@ from the launched-on-the-main-path check; (a)'s correctness sweep, which
 must launch them, gives its count as ``sweep_launches``), each with the
 bound of the products its own outputs need, and ``flash_attention_bwd_f32``, the one-pass kernel at the
 embedder's call (launches phase 13's one-pass ones, the whole backward's
-bound), each with SDPA's backward as its library call; every
+bound), each with SDPA's backward as its library call; the WKV6
+backward ``wkv6_bwd`` and K5 with checkpoint writes ``wkv6_ckpt``
+(rwkv6-7b's B 1 x 4,096, 64 heads of 64; no library call computes
+either), which also carry ``parent_device_ms`` (K5-bwd's first design,
+``tools/wkv6_bwd_probe.py``, timed in turns with it) and
+``no_ckpt_device_ms`` (K5 without checkpoint writes at that shape); every
 entry also carries ``device_ms``, the profiler's
 device time, and each entry with a library call ``library_device_ms``,
 that call's); the line
@@ -6145,9 +6158,14 @@ BWD_DEEPSEEK = dict(B=1, Lq=4096, Lkv=4096, H=128, Hkv=128, Dh=192, Dv=128)
 # final-state cotangent and a carried state; rwkv6-7b's 64 heads of 64 at
 # (b)'s 4,096 tokens with the planted fault; timed there too
 WKV6_BWD_SWEEP = ((2, 1, 3, 64), (2, 17, 3, 64), (1, 100, 2, 16),
-                  (2, 33, 2, 40), (3, 50, 2, 24), (1, 300, 4, 64))
+                  (2, 33, 2, 40), (3, 50, 2, 24), (2, 33, 2, 17),
+                  (1, 300, 4, 64))
 WKV6_BWD_HELD = dict(B=1, L=4096, H=64, K=64)
 WKV6_BWD_TIMED = dict(B=1, L=4096, H=64, K=64)
+WKV6_BWD_ROUNDS = 4     # timing rounds, alternating order
+WKV6_CKPT_RTOL = 1e-6   # K5's checkpoints against wkv6_ckpt_ref's, of the
+                        # largest |state| (f32 updates, FMA against a
+                        # product and a sum)
 WKV6_BWD_RTOL = 1e-5    # of each gradient's largest |gradient|; dr, dk and
                         # dv in bf16 also 2^-7 |plain| (both round them)
 
@@ -6345,19 +6363,39 @@ def wkv6_bwd_inputs(torch, B, L, H, K, dtype, carried: bool, seed: int):
 def wkv6_bwd_compare(torch, res: dict, B, L, H, K, dtype, cot: bool,
                      seed: int, fault: bool = False) -> None:
     """K5-bwd on seeded inputs (a carried state; the final state's
-    cotangent with ``cot``) against ``wkv6_bwd_ref``, twice and
-    bit-identical; with ``fault``, the plain backward with the cotangent
-    of one step's y dropped must fail the limit against the kernel."""
+    cotangent with ``cot``) against ``wkv6_bwd_ref`` through both routes:
+    from the checkpoints K5 writes (``WKV6Fn``'s forward, here
+    ``ops._forward(..., ckpt=True)``) and given none (the call runs the
+    checkpointing K5 itself), twice from the saved ones, all three
+    bit-identical. K5's y and final state must be the same bits with and
+    without checkpoint writes, and its checkpoints within WKV6_CKPT_RTOL
+    of the largest |state| of ``wkv6_ckpt_ref``'s. With ``fault``, the
+    plain backward with the cotangent of one step's y dropped, and the
+    kernel given checkpoints of other inputs (the state carried in moved
+    by 1), must each fail the limit."""
     from repro_torch.kernels.wkv6 import ops, ref
     xs, dy, ds = wkv6_bwd_inputs(torch, B, L, H, K, dtype, True, seed)
     ds = ds if cot else None
-    got = ops.wkv6_bwd(*xs, dy, ds)
-    again = ops.wkv6_bwd(*xs, dy, ds)
-    torch.cuda.synchronize()
     ctx = f"[train] K5-bwd B {B} L {L} H {H} K {K} {_dtype_name(dtype)} " \
           f"final-state cotangent {cot}"
-    check(all(torch.equal(a, b) for a, b in zip(got, again)),
-          f"{ctx}: two calls differ")
+    y0, s0 = ops.wkv6(*xs)
+    y1, s1, ck = ops._forward(*xs, ckpt=True)
+    check(torch.equal(y0, y1) and torch.equal(s0, s1),
+          f"{ctx}: K5's y or final state moves with checkpoint writes")
+    want = ref.wkv6_ckpt_ref(xs[1], xs[2], xs[3], xs[5])
+    ck_err = float((ck - want).abs().max())
+    check(ck_err <= WKV6_CKPT_RTOL * float(want.abs().max()),
+          f"{ctx}: K5's checkpoints {ck_err:.3g} from the plain ones")
+    res["ckpt_err"] = max(res["ckpt_err"], ck_err)
+    del y0, s0, y1, s1, want
+    got = ops.wkv6_bwd(*xs, dy, ds, ckpt=ck)
+    again = ops.wkv6_bwd(*xs, dy, ds, ckpt=ck)
+    none = ops.wkv6_bwd(*xs, dy, ds)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) and torch.equal(a, c)
+              for a, b, c in zip(got, again, none)),
+          f"{ctx}: two calls, or the saved checkpoints and none, differ")
+    del again, none
     for t in got:
         check(bool(torch.isfinite(t).all()), f"{ctx}: non-finite gradient")
     plain = ref.wkv6_bwd_ref(*xs, dy, ds)
@@ -6372,10 +6410,15 @@ def wkv6_bwd_compare(torch, res: dict, B, L, H, K, dtype, cot: bool,
         faulty = dy.clone()
         faulty[:, L // 2] = 0
         f = wkv6_bwd_excess(torch, got, ref.wkv6_bwd_ref(*xs, faulty, ds))
+        other = ops._forward(*xs[:5], xs[5] + 1.0, ckpt=True)[2]
+        fc = wkv6_bwd_excess(torch, ops.wkv6_bwd(*xs, dy, ds, ckpt=other),
+                             plain)
         res["fault"] = {"shape": (B, L, H, K), "dy_step_dropped": L // 2,
-                        "share": f}
+                        "share": f, "other_checkpoints": fc}
         check(f > 1.0, f"{ctx}: the plain backward without step {L // 2}'s "
                        f"dy stays within the limit ({f:.3g})")
+        check(fc > 1.0, f"{ctx}: checkpoints of other inputs stay within "
+                        f"the limit ({fc:.3g})")
 
 
 def train_kernels(torch, seed: int) -> dict:
@@ -6403,7 +6446,7 @@ def train_kernels(torch, seed: int) -> dict:
         = fa.flash_attention.launches_bwd_f32_one_pass \
         = fa.flash_attention.launches_bwd_dv \
         = fa.flash_attention.launches_bwd_wide = 0
-    wkv6_ops.wkv6.launches_bwd = 0
+    wkv6_ops.wkv6.launches_bwd = wkv6_ops.wkv6.launches_ckpt = 0
     res = {"err": {dt: {"dq": 0.0, "dkv": 0.0} for dt in BWD_KEYS},
            "share": {dt: 0.0 for dt in BWD_KEYS},
            "calls": {dt: 0 for dt in BWD_KEYS},
@@ -6460,7 +6503,7 @@ def train_kernels(torch, seed: int) -> dict:
           and all(res["calls"][dt] > 0 for dt in BWD_KEYS),
           f"[train] (a) backward launches by route {res['launches']}, calls "
           f"by family {res['calls']}")
-    wkv = {"share": 0.0, "err": 0.0, "n": 0}
+    wkv = {"share": 0.0, "err": 0.0, "n": 0, "ckpt_err": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for i, (B, L, H, K) in enumerate(WKV6_BWD_SWEEP):
             for cot in (False, True):
@@ -6469,6 +6512,7 @@ def train_kernels(torch, seed: int) -> dict:
     wkv6_bwd_compare(torch, wkv, *(WKV6_BWD_HELD[x] for x in "BLHK"),
                      torch.bfloat16, True, seed + 620, fault=True)
     wkv["launches"] = wkv6_ops.wkv6.launches_bwd
+    wkv["launches_ckpt"] = wkv6_ops.wkv6.launches_ckpt
     res["wkv6_bwd"] = wkv
     gc.collect()
     torch.cuda.empty_cache()
@@ -6500,11 +6544,15 @@ def train_kernels(torch, seed: int) -> dict:
     log(f"[train] (a) K5-bwd: {wkv['n']} calls agree with wkv6_bwd_ref "
         f"(1e-5 of each gradient's largest |gradient|, bf16 outputs also "
         f"2^-7 |plain|; largest share {wkv['share']:.3g}, max abs err "
-        f"{wkv['err']:.3g}), each twice and bit-identical, {wkv['launches']} "
-        f"launches; planted fault (dy of step "
-        f"{wkv['fault']['dy_step_dropped']} dropped at "
-        f"{wkv['fault']['shape']}): {wkv['fault']['share']:.3g} of the "
-        f"limit")
+        f"{wkv['err']:.3g}), from K5's checkpoints (twice) and from none, "
+        f"the three bit-identical; {wkv['launches']} K5-bwd launches, "
+        f"{wkv['launches_ckpt']} checkpointing K5 launches; K5's y and "
+        f"state the same bits with checkpoint writes, its checkpoints "
+        f"within {wkv['ckpt_err']:.3g} of the plain ones; planted faults "
+        f"at {wkv['fault']['shape']}: dy of step "
+        f"{wkv['fault']['dy_step_dropped']} dropped "
+        f"{wkv['fault']['share']:.3g}, checkpoints of other inputs "
+        f"{wkv['fault']['other_checkpoints']:.3g} of the limit")
     return res
 
 
@@ -6541,7 +6589,8 @@ def train_counts() -> dict:
     """The training path's kernel counters: K4-bwd's launches (every one,
     the f32 ones, the one-pass ones, the wgmma pair's Dv != Dq ones, the
     wide bf16 pair's), K5's and K5-bwd's, and the plain attention
-    backward's calls."""
+    backward's calls; K5's checkpointing launches (``wkv6_ckpt``) are
+    among K5's."""
     from repro_torch.kernels.flash_attention import ops as fa, ref as fr
     from repro_torch.kernels.wkv6 import ops as wkv6_ops
     f = fa.flash_attention
@@ -6551,6 +6600,7 @@ def train_counts() -> dict:
             "flash_attention_bwd_dv": f.launches_bwd_dv,
             "flash_attention_bwd_wide": f.launches_bwd_wide,
             "wkv6": wkv6_ops.wkv6.launches,
+            "wkv6_ckpt": wkv6_ops.wkv6.launches_ckpt,
             "wkv6_bwd": wkv6_ops.wkv6.launches_bwd,
             "plain_attention_bwd": fr.attention_bwd_ref.calls}
 
@@ -6561,7 +6611,8 @@ def zero_train_counts() -> None:
     f = fa.flash_attention
     f.launches_bwd = f.launches_bwd_f32 = f.launches_bwd_f32_one_pass = \
         f.launches_bwd_dv = f.launches_bwd_wide = 0
-    wkv6_ops.wkv6.launches = wkv6_ops.wkv6.launches_bwd = 0
+    wkv6_ops.wkv6.launches = wkv6_ops.wkv6.launches_bwd = \
+        wkv6_ops.wkv6.launches_ckpt = 0
     fr.attention_bwd_ref.calls = 0
 
 
@@ -6677,7 +6728,7 @@ def train_full(torch, np, arch: str, seed: int) -> dict:
                                   f"{losses}")
     n = TRAIN_LAYERS * TRAIN_STEPS
     if cfg.ssm_kind == "rwkv6":
-        need = {"wkv6": n, "wkv6_bwd": n}
+        need = {"wkv6": n, "wkv6_ckpt": n, "wkv6_bwd": n}
     else:
         route = {"mla": "flash_attention_bwd_dv"}.get(
             cfg.attn_kind, "flash_attention_bwd_wide" if cfg.head_dim > 128
@@ -7008,48 +7059,101 @@ def bwd_timing(torch, seed: int) -> dict:
         del q, k, v, o, do, dq, dk, dv, lib
         gc.collect()
         torch.cuda.empty_cache()
-    out["wkv6_bwd"] = wkv6_bwd_timing(torch, seed)
+    out["wkv6_bwd"], out["wkv6_ckpt"] = wkv6_bwd_timing(torch, seed)
     return out
 
 
-def wkv6_bwd_timing(torch, seed: int) -> dict:
-    """K5-bwd at rwkv6-7b's training shape (WKV6_BWD_TIMED, bf16 r/k/v, a
-    zero state, the cotangent of y alone): the kernel (CUDA events and
-    torch.profiler), its plain reverse loop, and the bound: the fp32
-    flops the function needs a (token, head), 14 K V (the state P_t once
-    more, 3 K V; per entry FMAs for dr, dk, dw and dv, and a product and
-    an FMA for G), against r, k, v, dr, dk, dv (bf16), w, dy, dw (f32), u,
-    du and the state and its cotangent (f32) moved once. No single
-    PyTorch call computes this function: library_ms is None."""
-    from repro_torch.kernels.wkv6 import ops, ref
+def wkv6_bwd_timing(torch, seed: int) -> tuple[dict, dict]:
+    """K5-bwd and the checkpointing K5 at rwkv6-7b's training shape
+    (WKV6_BWD_TIMED, bf16 r/k/v, a zero state, the cotangent of y alone).
+    K5-bwd alone from saved checkpoints (CUDA events and torch.profiler),
+    its plain reverse loop, and the bound: the fp32 flops the function
+    needs a (token, head), 14 K V (the state P_t once more, 3 K V; per
+    entry FMAs for dr, dk, dw and dv, and a product and an FMA for G),
+    against r, k, v, dr, dk, dv (bf16), w, dy, dw (f32), u, du and the
+    state and its cotangent (f32) moved once. K5 with checkpoint writes
+    (``wkv6_ckpt``) at the same shape beside K5 without them, its plain
+    version (``wkv6_ref`` and ``wkv6_ckpt_ref``) and its bound (K5's, with
+    the checkpoints' bytes written). Then the device ms of K5-bwd, of its
+    first design (``tools/wkv6_bwd_probe.py``'s ``three_sweeps``, on no
+    path) and of K5 with and without checkpoint writes, in WKV6_BWD_ROUNDS
+    rounds of alternating order (first design, K5-bwd, K5, K5 with
+    checkpoints; then the reverse): medians and readings. No single
+    PyTorch call computes either function: library_ms is None."""
+    import statistics
+    from repro_torch.kernels.wkv6 import kernel as K5, ops, ref
+    sys.path.insert(0, str(ROOT))
+    from tools.trace_kernels import device_kernel_ms
+    from tools.wkv6_bwd_probe import three_sweeps
     B, L, H, K = (WKV6_BWD_TIMED[x] for x in "BLHK")
     xs, dy, _ = wkv6_bwd_inputs(torch, B, L, H, K, torch.bfloat16, False,
                                 seed + 37)
+    r, k, v, w, u, s = xs
+    uf = u.float().contiguous()
+    y, s_out = torch.empty((B, L, H, K), device=DEV), torch.empty_like(s)
+    ck = K5.ckpt_buffer(r)
+    calls = {"three_sweeps": lambda: three_sweeps(torch, *xs, dy),
+             "wkv6_bwd": lambda: ops.wkv6_bwd(*xs, dy, ckpt=ck),
+             "wkv6": lambda: K5.launch(r, k, v, w, uf, s, y, s_out),
+             "wkv6_ckpt": lambda: K5.launch(r, k, v, w, uf, s, y, s_out,
+                                            ck)}
+    calls["wkv6_ckpt"]()
     flops = 14.0 * B * L * H * K * K
     nbytes = (6 * 2 + 3 * 4) * B * L * H * K + 2 * 4 * H * K \
         + 2 * 4 * B * H * K * K
     b_ms, b_by = att_bound(nbytes, flops, H100_FP32_FLOPS)
-    call = lambda: ops.wkv6_bwd(*xs, dy)
     rec = {"shape": WKV6_BWD_TIMED, "dtype": "bfloat16",
-           "ms": cuda_ms(torch, call),
+           "ms": cuda_ms(torch, calls["wkv6_bwd"]),
            "plain_ms": cuda_ms(torch, lambda: ref.wkv6_bwd_ref(*xs, dy),
                                iters=1, warmup=1),
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-    sys.path.insert(0, str(ROOT))
-    from tools.trace_kernels import device_kernel_ms
-    own, _ = device_kernel_ms(torch, call, iters=10)
-    kern = {n: t for n, t in own.items() if "wkv6_bwd" in n}
-    check(len(kern) == 1, f"[timing] wkv6_bwd: one call launches "
-                          f"{list(own)}")
-    rec["device_ms"] = sum(kern.values())
-    rec["device_kernels"] = {n.split("(")[0][:60]: t for n, t in own.items()}
+    fflops = B * L * H * (5.0 * K * K + 3 * K + 2 * K)
+    fbytes = (3 * 2 + 4 + 4) * B * L * H * K + 2 * H * K \
+        + 2 * 4 * B * H * K * K + 4 * ck.numel()
+    fb_ms, fb_by = att_bound(fbytes, fflops, H100_FP32_FLOPS)
+    crec = {"shape": WKV6_BWD_TIMED, "dtype": "bfloat16",
+            "ms": cuda_ms(torch, calls["wkv6_ckpt"]),
+            "no_ckpt_ms": cuda_ms(torch, calls["wkv6"]),
+            "plain_ms": cuda_ms(torch, lambda: (
+                ref.wkv6_ref(*xs), ref.wkv6_ckpt_ref(k, v, w, s)),
+                iters=1, warmup=1),
+            "library_ms": None, "bound_ms": fb_ms, "bound_by": fb_by}
+    keys = {"three_sweeps": "wkv6_bwd", "wkv6_bwd": "wkv6_bwd",
+            "wkv6": "wkv6_fwd<", "wkv6_ckpt": "wkv6_fwd_ckpt"}
+    got = {n: [] for n in calls}
+    order = list(calls)
+    for i in range(WKV6_BWD_ROUNDS):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            own, _ = device_kernel_ms(torch, calls[name], iters=10)
+            kern = [t for n, t in own.items() if keys[name] in n]
+            check(len(kern) == 1, f"[timing] {name}: one call launches "
+                                  f"{list(own)}")
+            got[name].append(kern[0])
+    med = {n: statistics.median(t) for n, t in got.items()}
+    rec.update(device_ms=med["wkv6_bwd"],
+               parent_device_ms=med["three_sweeps"], readings=got)
+    crec.update(device_ms=med["wkv6_ckpt"], no_ckpt_device_ms=med["wkv6"])
+    del xs, dy, y, s_out, ck
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"[timing] wkv6_bwd {WKV6_BWD_TIMED} bf16: kernel {rec['ms']:.4f} ms "
         f"(CUDA events), {rec['device_ms']:.4f} ms on the device "
-        f"({b_ms / rec['device_ms']:.3f} of the bound), plain "
-        f"{rec['plain_ms']:.2f} ms, library none, bound {b_ms:.4f} ms "
-        f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB); device "
-        f"kernels {rec['device_kernels']}")
-    return rec
+        f"({b_ms / rec['device_ms']:.3f} of the bound; median of "
+        f"{WKV6_BWD_ROUNDS} readings), the first design "
+        f"{rec['parent_device_ms']:.4f} ms ({rec['parent_device_ms'] / rec['device_ms']:.2f}x), "
+        f"plain {rec['plain_ms']:.2f} ms, library none, bound "
+        f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB); readings {got}")
+    log(f"[timing] wkv6_ckpt {WKV6_BWD_TIMED} bf16: kernel {crec['ms']:.4f} "
+        f"ms (CUDA events; without checkpoint writes "
+        f"{crec['no_ckpt_ms']:.4f}), {crec['device_ms']:.4f} ms on the "
+        f"device (without {crec['no_ckpt_device_ms']:.4f}: "
+        f"{crec['device_ms'] - crec['no_ckpt_device_ms']:+.4f} ms for "
+        f"{4 * K * K * B * H * -(-L // 16) / 1e6:.1f} MB of checkpoints; "
+        f"{fb_ms / crec['device_ms']:.3f} of the bound), plain "
+        f"{crec['plain_ms']:.2f} ms, library none, bound {fb_ms:.4f} ms "
+        f"({fb_by}; {fbytes / 1e6:.1f} MB)")
+    return rec, crec
 
 
 # the consumer warpgroups' registers after setmaxnreg in the bf16 backward
@@ -7156,10 +7260,10 @@ def bwd_bf16_ptxas(report) -> dict:
 
 
 def wkv6_bwd_ptxas(report) -> dict:
-    """Registers and spills of K5-bwd's instances (``wkv6_bwd_pair`` for K
-    > 32, a cluster of two CTAs, and ``wkv6_bwd_one``, each in f32 and
-    bf16) from the ptxas report of its library's build, logged; fails if
-    one spills or is missing from a report of this run."""
+    """Registers and spills of K5-bwd's instances (``wkv6_bwd_chunks``, 32
+    state columns a CTA, in f32 and bf16) from the ptxas report of its
+    library's build, logged; fails if one spills or is missing from a
+    report of this run."""
     import re
     if report is None:
         log("[build] wkv6_bwd was built before this run: no ptxas report to "
@@ -7173,8 +7277,8 @@ def wkv6_bwd_ptxas(report) -> dict:
         if m:
             out[f"{m.group(1)}<{'float' if m.group(2) == 'f' else 'bf16'}>"] \
                 = r
-    check(len(out) == 4, f"[build] the ptxas report names {sorted(out)}, "
-                         f"not K5-bwd's four instances")
+    check(len(out) == 2, f"[build] the ptxas report names {sorted(out)}, "
+                         f"not K5-bwd's two instances")
     for name, r in sorted(out.items()):
         log(f"[build] wkvb::{name}: {r.get('registers')} registers a thread, "
             f"{r.get('spill_stores')} B spill stores, {r.get('spill_loads')} "
@@ -7545,7 +7649,9 @@ def main() -> int:
            for part in ("dq", "dkv") for mode in ("dv", "wide", "wide192")},
         # no Pallas kernel and no VJP: the reference differentiates its jnp
         # step scan
-        "wkv6_bwd": "src/repro/models/ssm.py:93"}
+        "wkv6_bwd": "src/repro/models/ssm.py:93",
+        # K5 with the checkpoints its backward restarts from
+        "wkv6_ckpt": "src/repro/models/ssm.py:93"}
     sources = {
         "cosine_topk": "src/repro_torch/csrc/cosine_topk.cu",
         "cosine_top1_local": "src/repro_torch/csrc/cosine_topk.cu",
@@ -7569,7 +7675,8 @@ def main() -> int:
         **{f"flash_attention_bwd_{part}_{mode}":
            "src/repro_torch/csrc/flash_attention_bwd.cu"
            for part in ("dq", "dkv") for mode in ("dv", "wide", "wide192")},
-        "wkv6_bwd": "src/repro_torch/csrc/wkv6_bwd.cu"}
+        "wkv6_bwd": "src/repro_torch/csrc/wkv6_bwd.cu",
+        "wkv6_ckpt": "src/repro_torch/csrc/wkv6.cu"}
     # launches on the main path: K1/K2 in their served stream, the slo
     # phase's runs, the planes phase (its killed child included), the
     # replicas phase (its children and the launcher's workers included)
@@ -7633,8 +7740,9 @@ def main() -> int:
     launches["flash_attention_bwd_f32"] = \
         tl["flash_attention_bwd_f32_one_pass"]
     launches["wkv6_bwd"] = tl["wkv6_bwd"]
+    launches["wkv6_ckpt"] = tl["wkv6_ckpt"]
     for name in [n for n in launches if (n.startswith("flash_attention_bwd")
-                                         or n == "wkv6_bwd")
+                                         or n in ("wkv6_bwd", "wkv6_ckpt"))
                  and n not in sweep_only]:
         check(launches[name] > 0, f"[kernels] {name} was never launched on "
                                   f"the main path")
@@ -7660,11 +7768,11 @@ def main() -> int:
     # the new backward modes at their main-path widths, B 1 x 4,096:
     # minicpm3-4b's (96, 64) (``_dv``), paligemma-3b's 256 with its prefix
     # at its step's 4,352 tokens (``_wide``), deepseek-v2's (192, 128)
-    # (``_wide192``); K5-bwd at
-    # rwkv6-7b's 64 heads of 64
+    # (``_wide192``); K5-bwd and the checkpointing K5 at rwkv6-7b's 64
+    # heads of 64, B 1 x 4,096
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32",
-                 "flash_attention_bwd_f32", "wkv6_bwd",
+                 "flash_attention_bwd_f32", "wkv6_bwd", "wkv6_ckpt",
                  *(f"flash_attention_bwd_{part}_{mode}"
                    for mode in ("dv", "wide", "wide192")
                    for part in ("dq", "dkv"))):
@@ -7679,7 +7787,8 @@ def main() -> int:
                                   ("_wide192", "wide192"))},
                "flash_attention_bwd_f32": max(one_err["dq"],
                                               one_err["dkv"]),
-               "wkv6_bwd": train["kernels"]["wkv6_bwd"]["err"]}
+               "wkv6_bwd": train["kernels"]["wkv6_bwd"]["err"],
+               "wkv6_ckpt": train["kernels"]["wkv6_bwd"]["ckpt_err"]}
     kernels = []
     for name, rec in timed.items():
         kernels.append({
@@ -7688,7 +7797,8 @@ def main() -> int:
             "max_abs_err": all_err[name], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
-        for key in ("device_ms", "library_device_ms"):   # from the profiler
+        for key in ("device_ms", "library_device_ms", "parent_device_ms",
+                    "no_ckpt_device_ms"):   # from the profiler
             if key in rec:
                 kernels[-1][key] = rec[key]
         if name in sweep_only[:2]:

@@ -67,6 +67,15 @@
 //   16-step tile: a call is one latency-bound read and write of the state,
 //   and a thread per column with its 64 loads in flight read 0.0055 ms at
 //   rwkv6's 4-slot decode against the split kernel's 0.0076.
+// - Training calls (WKV6Fn's forward) run wkv6_fwd_ckpt, the same body
+//   compiled with the checkpoints K5-bwd restarts from: the state at the
+//   start of every CKT = 16-step chunk, written from the registers that
+//   hold it, transposed (a thread's 4 rows of a column one 16-byte store,
+//   a column pair's lanes a whole 256-byte column): 268 MB at rwkv6's 4,096
+//   tokens for 0.01 ms more than wkv6_fwd (PERF.md); below 16 steps
+//   wkv6_fwd_cols' CK instance, whose one checkpoint is the state carried
+//   in. Inference keeps the instances compiled without them; y and the
+//   state are the same bits.
 // - No atomics: repeats are bit-identical. fp32 FFMAs only; no tensor
 //   cores, no TF32. The next step past this is the chunked form
 //   (intra-chunk products on the tensor cores in exact f32 emulation),
@@ -77,23 +86,13 @@
 
 #include <initializer_list>
 
+#include "wkv6_common.cuh"
+
 namespace wkv {
 
 constexpr int VC = 32;    // state columns per CTA
 constexpr int CPT = 2;    // state columns per thread
 constexpr int RPT = 4;    // state rows per thread (a float4 of r, k, w)
-
-__device__ __forceinline__ float widen(const float* p) { return *p; }
-__device__ __forceinline__ float widen(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-// two consecutive elements (4- or 8-byte aligned)
-__device__ __forceinline__ float2 widen2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 widen2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 
 struct Args {
   const void* r;
@@ -104,6 +103,7 @@ struct Args {
   const float* s_in;
   float* y;
   float* s_out;
+  float* ck;              // null, or the state at each CKT-step chunk's start
   long long rsB, rsL, rsH, ksB, ksL, ksH, vsB, vsL, vsH, wsB, wsL, wsH;
   int B, L, H, K;
   int cb;                 // bytes a staging copy: 16, 8, 4, or 2 (plain)
@@ -127,90 +127,12 @@ struct Tile {
   static_assert(TT % NW == 0 && SPW % 4 == 0, "a time");
 };
 
-__device__ __forceinline__ void copy_chunk(void* dst, const void* src,
-                                           int cb) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  switch (cb) {
-    case 16:
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                   "l"(src));
-      break;
-    case 8:
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-                   "l"(src));
-      break;
-    case 4:
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                   "l"(src));
-      break;
-    default:
-      *static_cast<uint16_t*>(dst) = *static_cast<const uint16_t*>(src);
-  }
-}
-
-// A thread's share of copying rows in cb-byte chunks over n threads, fixed
-// once per kernel so that a tile's copies cost no division: a row's `per`
-// chunks (per <= n: a row is at most 2 K_P chunks, a CTA 4 K_P threads),
-// n / per rows at a time, chunk `off` of rows r0, r0 + step, ...
-struct RowCopy {
-  int r0, step, off;
-  __device__ RowCopy(int bytes, int cb, int tid, int n) {
-    const int per = bytes / cb;
-    step = n / per;
-    r0 = tid < per * step ? tid / per : 1 << 30;   // the rest: nothing
-    off = (tid % per) * cb;
-  }
-  __device__ __forceinline__ void run(unsigned char* dst, int pitch,
-                                      const unsigned char* src,
-                                      long long stride, int rows,
-                                      int cb) const {
-    for (int r = r0; r < rows; r += step)
-      copy_chunk(dst + r * pitch + off, src + r * stride + off, cb);
-  }
-};
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// A sum over LG lanes of N values a lane: at lane bit O a lane keeps one
-// half of its values (the upper where the bit is set), sends the other and
-// adds what its partner sent; once one value is left, the remaining levels
-// add it whole. Lane l ends with the sums of flat indices
-// scatter_base<N, LG>(l) + m, m < max(1, N / LG), in yp[m].
-template <int N, int O, int LG, int S>
-__device__ __forceinline__ void reduce_scatter(float (&yp)[S], int lane) {
-  if constexpr (O < LG) {
-    if constexpr (N >= 2) {
-      const bool hi = lane & O;
-#pragma unroll
-      for (int m = 0; m < N / 2; ++m) {
-        const float send = hi ? yp[m] : yp[m + N / 2];
-        const float keep = hi ? yp[m + N / 2] : yp[m];
-        yp[m] = keep + __shfl_xor_sync(0xffffffffu, send, O);
-      }
-      reduce_scatter<N / 2, 2 * O, LG, S>(yp, lane);
-    } else {
-      yp[0] += __shfl_xor_sync(0xffffffffu, yp[0], O);
-      reduce_scatter<1, 2 * O, LG, S>(yp, lane);
-    }
-  }
-}
-
-template <int N, int LG>
-__device__ __forceinline__ int scatter_base(int lane) {
-  int base = 0;
-#pragma unroll
-  for (int o = 1, n = N; o < LG && n >= 2; o <<= 1, n >>= 1)
-    if (lane & o) base += n / 2;
-  return base;
-}
-
-template <typename T, int KP, int TT>
-__global__ void __launch_bounds__(Tile<T, KP, TT>::NT) wkv6_fwd(Args a) {
+// CK: with checkpoint writes (a.ck set), an instance of its own, so that
+// the inference kernel is compiled as it was: with `a` by reference its
+// SASS is the kernel's before checkpoints (tools/sass_diff.py); by value
+// ptxas allocates it anew
+template <typename T, int KP, int TT, bool CK>
+__device__ __forceinline__ void fwd_body(const Args& a) {
   using F = Tile<T, KP, TT>;
   constexpr int ES = F::ES, LG = F::LG, NT = F::NT, NW = F::NW;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -225,6 +147,8 @@ __global__ void __launch_bounds__(Tile<T, KP, TT>::NT) wkv6_fwd(Args a) {
   const int lane = tid & 31, warp = tid >> 5;
   const int nvc = min(VC, K - c0);            // this CTA's real columns
   const int ntile = (L + TT - 1) / TT;
+  const int nck = (L + CKT - 1) / CKT;        // checkpoints a (b, h)
+  static_assert(TT % CKT == 0, "checkpoints at tile steps");
 
   const unsigned char* R = static_cast<const unsigned char*>(a.r) +
                            (b * a.rsB + h * a.rsH) * ES;
@@ -272,7 +196,7 @@ __global__ void __launch_bounds__(Tile<T, KP, TT>::NT) wkv6_fwd(Args a) {
   const float u0 = x < K ? a.u[h * K + x] : 0.f;
   const float u1 = x + 1 < K ? a.u[h * K + x + 1] : 0.f;
   constexpr int G = 4;                        // steps converted together
-  const int abase = scatter_base<G, 32>(lane);
+  const int abase = scatter_base<G, 1, 32>(lane);
   auto convert = [&](int i) {
     const unsigned char* st = smem + (i & 1) * F::RAW;
     const T* rr = reinterpret_cast<const T*>(st);
@@ -327,7 +251,7 @@ __global__ void __launch_bounds__(Tile<T, KP, TT>::NT) wkv6_fwd(Args a) {
   // after the reduce-scatter of y, lane li holds M of the tile's (step,
   // column) sums: flat index base + m, step = index / CPT
   constexpr int M = TT * CPT / LG;
-  const int base = scatter_base<TT * CPT, LG>(li);
+  const int base = scatter_base<TT * CPT, 1, LG>(li);
   const long long yrow = (long long)a.H * K;
   for (int i = 0; i < ntile; ++i) {
     cp_wait1();                               // tile i has landed
@@ -364,15 +288,42 @@ __global__ void __launch_bounds__(Tile<T, KP, TT>::NT) wkv6_fwd(Args a) {
           S[c][j] = fmaf(ww[j], S[c][j], kk[j] * vc[c]);
       }
     };
+    // the state before step t0 + t, t a multiple of CKT, into its chunk's
+    // checkpoint, stored transposed (column v's K rows contiguous): a
+    // thread's 4 rows of a column are one 16-byte store, a column pair's
+    // lanes a whole 256-byte column (stores to device memory do not hold
+    // back the step loop's shared-memory loads)
+    auto checkpoint = [&](int t) {
+      float* dst = a.ck + ((((long long)b * a.H + h) * nck + (t0 + t) / CKT)
+                           * K + c0 + CPT * p) * K + RPT * li;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        if (CPT * p + c >= nvc) continue;
+        if (K % RPT == 0 && RPT * li < K) {
+          *reinterpret_cast<float4*>(dst + c * K) =
+              make_float4(S[c][0], S[c][1], S[c][2], S[c][3]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < RPT; ++j)
+            if (RPT * li + j < K) dst[c * K + j] = S[c][j];
+        }
+      }
+    };
     // a whole tile without a test a step: 0.248 ms at rwkv6's prefill
     // against 0.263 with one (the same H100)
     if (nt == TT) {
 #pragma unroll
-      for (int t = 0; t < TT; ++t) step(t);
+      for (int t = 0; t < TT; ++t) {
+        if (CK && t % CKT == 0) checkpoint(t);
+        step(t);
+      }
     } else {
 #pragma unroll
       for (int t = 0; t < TT; ++t)
-        if (t < nt) step(t);
+        if (t < nt) {
+          if (CK && t % CKT == 0) checkpoint(t);
+          step(t);
+        }
     }
     // y's sum over k: a reduce-scatter over the pair's lanes
     reduce_scatter<TT * CPT, 1, LG, TT * CPT>(yp, li);
@@ -395,6 +346,18 @@ __global__ void __launch_bounds__(Tile<T, KP, TT>::NT) wkv6_fwd(Args a) {
     }
 }
 
+template <typename T, int KP, int TT>
+__global__ void __launch_bounds__(Tile<T, KP, TT>::NT) wkv6_fwd(Args a) {
+  fwd_body<T, KP, TT, false>(a);
+}
+
+// training calls: the same, and the state at every chunk's start
+template <typename T, int KP, int TT>
+__global__ void __launch_bounds__(Tile<T, KP, TT>::NT, 1)
+    wkv6_fwd_ckpt(Args a) {
+  fwd_body<T, KP, TT, true>(a);
+}
+
 // ---- decode (L < 16): the first column kernel. A call is one read and one
 // write of the state, bound by its latency: one CTA per (head, sequence),
 // thread j the state column S[:, j] in K_P registers, all 64 loads in
@@ -404,7 +367,7 @@ __global__ void __launch_bounds__(Tile<T, KP, TT>::NT) wkv6_fwd(Args a) {
 // entry) and update
 constexpr int TD = 16;                        // steps it stages: L < TD
 
-template <typename T, int KP>
+template <typename T, int KP, bool CK>    // CK: with checkpoint writes
 __global__ void __launch_bounds__(KP < 32 ? 32 : KP) wkv6_fwd_cols(Args a) {
   constexpr int NT = KP < 32 ? 32 : KP;
   __shared__ __align__(16) float rs[TD][KP];
@@ -425,6 +388,11 @@ __global__ void __launch_bounds__(KP < 32 ? 32 : KP) wkv6_fwd_cols(Args a) {
 #pragma unroll
   for (int i = 0; i < KP; ++i)
     S[i] = (j < K && i < K) ? a.s_in[sbase + (long long)i * K + j] : 0.f;
+  if (CK && L > 0) {                  // one chunk: the state carried in,
+#pragma unroll                        // transposed
+    for (int i = 0; i < KP; ++i)
+      if (j < K && i < K) a.ck[sbase + (long long)j * K + i] = S[i];
+  }
   for (int i = j; i < KP; i += NT) us[i] = i < K ? a.u[h * K + i] : 0.f;
   for (int e = j; e < TD * KP; e += NT) {
     const int t = e / KP, i = e % KP;
@@ -475,20 +443,20 @@ __global__ void __launch_bounds__(KP < 32 ? 32 : KP) wkv6_fwd_cols(Args a) {
 template <typename T, int KP, int TT>
 cudaError_t launch(const Args& a, cudaStream_t s) {
   using F = Tile<T, KP, TT>;
+  auto kern = a.ck ? wkv6_fwd_ckpt<T, KP, TT> : wkv6_fwd<T, KP, TT>;
   if (F::SMEM > 48 * 1024) {
-    static bool opted[64] = {};               // per device
+    static bool opted[2][64] = {};            // per kernel and device
     int dev = 0;
     cudaGetDevice(&dev);
-    if (!opted[dev & 63]) {
+    if (!opted[a.ck != nullptr][dev & 63]) {
       const cudaError_t e = cudaFuncSetAttribute(
-          wkv6_fwd<T, KP, TT>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM);
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, F::SMEM);
       if (e != cudaSuccess) return e;
-      opted[dev & 63] = true;
+      opted[a.ck != nullptr][dev & 63] = true;
     }
   }
   dim3 grid((a.K + VC - 1) / VC, a.H, a.B);
-  wkv6_fwd<T, KP, TT><<<grid, F::NT, F::SMEM, s>>>(a);
+  kern<<<grid, F::NT, F::SMEM, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -496,7 +464,8 @@ cudaError_t launch(const Args& a, cudaStream_t s) {
 template <typename T, int KP>
 cudaError_t launch_k(const Args& a, cudaStream_t s) {
   if (a.L >= TD) return launch<T, KP, 32>(a, s);
-  wkv6_fwd_cols<T, KP><<<dim3(a.H, a.B), KP < 32 ? 32 : KP, 0, s>>>(a);
+  auto cols = a.ck ? wkv6_fwd_cols<T, KP, true> : wkv6_fwd_cols<T, KP, false>;
+  cols<<<dim3(a.H, a.B), KP < 32 ? 32 : KP, 0, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -513,11 +482,15 @@ cudaError_t dispatch(const Args& a, cudaStream_t s) {
 // with unit stride in the last dim and the given B/L/H element strides; u
 // (H, K), s_in and s_out (B, H, K, K) f32 contiguous (s_out may alias
 // s_in: each thread reads its entries of the state before it writes
-// them); y contiguous (B, L, H, K) f32. 1 <= K <= 64. Returns the launch's
-// CUDA error (0 on success).
+// them); y contiguous (B, L, H, K) f32. ck: null, or (B, H, ceil(L / 16),
+// K, K) f32 contiguous, which gets the state at the start of every 16-step
+// chunk (chunk 0's is s_in), transposed (ck[b][h][c][v][k] = S[k][v]),
+// for K5-bwd; y and s_out are the same bits with and without it. 1 <= K <= 64. Returns the launch's CUDA error (0 on
+// success).
 extern "C" int wkv6(const void* r, const void* k, const void* v,
                     const float* w, const float* u, const float* s_in,
-                    float* y, float* s_out, long long rsB, long long rsL,
+                    float* y, float* s_out, float* ck, long long rsB,
+                    long long rsL,
                     long long rsH, long long ksB, long long ksL,
                     long long ksH, long long vsB, long long vsL,
                     long long vsH, long long wsB, long long wsL,
@@ -536,9 +509,9 @@ extern "C" int wkv6(const void* r, const void* k, const void* v,
   m |= K * es | (unsigned long long)(K % wkv::VC) * es;
   int cb = 16;
   while (cb > 2 && m % cb) cb >>= 1;
-  const wkv::Args a{r,   k,   v,   w,   u,   s_in, y,   s_out, rsB,
-                    rsL, rsH, ksB, ksL, ksH, vsB,  vsL, vsH,   wsB,
-                    wsL, wsH, B,   L,   H,   K,    cb};
+  const wkv::Args a{r,   k,   v,   w,   u,   s_in, y,   s_out, ck,
+                    rsB, rsL, rsH, ksB, ksL, ksH,  vsB, vsL,   vsH,
+                    wsB, wsL, wsH, B,   L,   H,    K,   cb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16 ? wkv::dispatch<__nv_bfloat16>(a, s)
                        : wkv::dispatch<float>(a, s));

@@ -38,11 +38,11 @@ KERNELS = {
                         [ctypes.c_char_p, _P]),
     "decode_attention": ("decode_attention.cu", "decode_attention",
                          [_P] * 10 + [_L] * 21 + [_P]),
-    "wkv6": ("wkv6.cu", "wkv6", [_P] * 8 + [_L] * 12 + [_I] * 5 + [_P]),
+    "wkv6": ("wkv6.cu", "wkv6", [_P] * 9 + [_L] * 12 + [_I] * 5 + [_P]),
     "flash_attention_bwd": ("flash_attention_bwd.cu", "flash_attention_bwd",
                             [_P] * 11 + [_L] * 14 + [_P]),
     "wkv6_bwd": ("wkv6_bwd.cu", "wkv6_bwd",
-                 [_P] * 15 + [_L] * 12 + [_I] * 5 + [_P]),
+                 [_P] * 14 + [_L] * 12 + [_I] * 5 + [_P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

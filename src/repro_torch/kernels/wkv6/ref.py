@@ -12,15 +12,49 @@ its chunk with w = 1 and k = 0; a padded step leaves S exactly as it was
 gives the same y and the same final state. The CPU tests run it, and
 ``chip_smoke.py`` holds the kernel against it on the card.
 
+``wkv6_ckpt_ref`` is the plain version of K5's checkpoints: the state at
+the start of every 16-step chunk, transposed, which K5 writes for its
+backward.
 ``wkv6_bwd_ref`` is the plain version of the backward kernel (K5-bwd,
 ``csrc/wkv6_bwd.cu``): the explicit reverse recurrence, a step loop that
-autograd takes no part in.
+autograd takes no part in, which restarts its states at given
+checkpoints.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+CKT = 16        # steps between two state checkpoints (K5's, csrc/wkv6_common.cuh)
+
+
+def _step(S: torch.Tensor, kt: torch.Tensor, vt: torch.Tensor,
+          wt: torch.Tensor) -> torch.Tensor:
+    """The state after one step, S (B, H, K, V) f32 and the step's f32 k,
+    v, w (B, H, K or V): the one expression of the update that the
+    checkpoints and the backward's recomputed states share, so that both
+    are the same bits."""
+    return wt[..., None] * S + kt[..., :, None] * vt[..., None, :]
+
+
+def wkv6_ckpt_ref(k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+                  state: torch.Tensor) -> torch.Tensor:
+    """The state at the start of every CKT-step chunk, transposed (K5's
+    layout: a column's K rows contiguous): (B, H, ceil(L / CKT), V, K) f32,
+    chunk 0's the state carried in. k, w (B, L, H, K), v (B, L, H, V) and
+    state (B, H, K, V) are widened to f32."""
+    L = k.shape[1]
+    S = state.float()
+    out = []
+    for t in range(L):
+        if t % CKT == 0:
+            out.append(S)
+        S = _step(S, k[:, t].float(), v[:, t].float(), w[:, t].float())
+    if not out:
+        return torch.zeros((*S.shape[:2], 0, *S.shape[2:][::-1]),
+                           dtype=torch.float32, device=S.device)
+    return torch.stack(out, dim=2).transpose(-1, -2).contiguous()
 
 
 def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -46,7 +80,8 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  w: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
-                 dy: Optional[torch.Tensor], ds: Optional[torch.Tensor] = None
+                 dy: Optional[torch.Tensor], ds: Optional[torch.Tensor] = None,
+                 ckpt: Optional[torch.Tensor] = None
                  ) -> tuple[torch.Tensor, ...]:
     """The gradients (dr, dk, dv, dw, du, d(state)) of ``wkv6_ref`` at its
     inputs, given the cotangents of its outputs: dy (B, L, H, V) and ds
@@ -60,15 +95,20 @@ def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         du  += sum over the batch of r_t k_t (dy_t . v_t)
         G   <- diag(w_t) G + r_t dy_t^T,   d(state) = G after step 0
 
-    in f32, the states P_t recomputed forward first. Each gradient comes
-    back in its input's dtype."""
+    in f32, the states P_t recomputed forward first: from ``state``, or
+    with ``ckpt`` (``wkv6_ckpt_ref``'s layout) from each chunk's
+    checkpoint, which gives the same bits where the checkpoints are
+    ``wkv6_ckpt_ref``'s of these inputs. Each gradient comes back in its
+    input's dtype."""
     B, L, H, K = r.shape
     rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
     uf = u.float()
     P = [state.float()]
     for t in range(L):
-        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]
-        P.append(wf[:, t, :, :, None] * P[t] + kv)
+        if ckpt is not None and t % CKT == 0:
+            P[t] = ckpt[:, :, t // CKT].float().transpose(-1, -2) \
+                .contiguous()
+        P.append(_step(P[t], kf[:, t], vf[:, t], wf[:, t]))
     G = torch.zeros_like(P[0]) if ds is None else ds.float().clone()
     dyf = torch.zeros_like(vf) if dy is None else dy.float()
     dr, dk, dv, dw = (torch.zeros_like(x) for x in (rf, kf, vf, wf))

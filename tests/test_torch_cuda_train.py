@@ -20,7 +20,11 @@ on CUDA
 tensors (the backward kernels run, the plain backward does not); the
 WKV6 backward kernel (K5-bwd) against ``wkv6_bwd_ref`` at K 16 and 64
 with a carried state and a final-state cotangent, its planted fault and
-repeats, and ``WKV6Fn`` on CUDA tensors; the kernels without a backward
+repeats, and ``WKV6Fn`` on CUDA tensors; the checkpoints K5 writes for it
+(y and the final state the same bits with and without them, the
+checkpoints against ``wkv6_ckpt_ref``, K5-bwd from saved ones and from
+none the same bits, checkpoints of other inputs caught) and K5-bwd's
+cp.async staging of views the tensor maps cannot take; the kernels without a backward
 (K1, K2, K3) refusing inputs that require grad; and one reduced train step
 on the card against the same step on the CPU. The kernels have no CPU
 mode, so these tests are marked ``gpu`` and skip without a CUDA device:
@@ -35,7 +39,8 @@ tensor-core products, and a gradient row can cancel to 0 where its terms
 do not); the reduced f32 train step's loss at 1e-5 and each gradient leaf
 within 1e-4 of its largest |gradient|; K5-bwd in f32 within 1e-5 of each
 gradient's largest |gradient|, and in bf16 (dr, dk and dv rounded to bf16
-by both) within 2^-7 |plain| more.
+by both) within 2^-7 |plain| more; K5's checkpoints within 1e-6 of the
+largest |state| (an FMA against a product and a sum a step).
 """
 import numpy as np
 import pytest
@@ -611,7 +616,7 @@ def wkv6_excess(got, plain) -> float:
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("K", [16, 64])
+@pytest.mark.parametrize("K", [16, 33, 64])
 @pytest.mark.parametrize("L", [1, 17, 100])
 @pytest.mark.parametrize("cot", [False, True], ids=["y", "y_and_state"])
 def test_wkv6_backward_kernel_matches_plain(cot, L, K, dtype):
@@ -644,21 +649,97 @@ def test_wkv6_backward_kernel_catches_a_planted_fault():
 
 
 def test_wkv6_fn_runs_the_backward_kernel():
-    """Under autograd WKV6 runs K5 forward and K5-bwd once each; the
-    gradients equal a direct ``wkv6_bwd`` call, u's cast back to bf16."""
+    """Under autograd WKV6 runs K5 forward (with its checkpoint writes)
+    and K5-bwd once each; the gradients equal a direct ``wkv6_bwd`` call,
+    u's cast back to bf16."""
     xs, dy, _ = _wkv6_inputs(1, 40, 2, 64, torch.bfloat16, seed=4)
     r, k, v, w, u, s = xs
     u = u.to(torch.bfloat16)
     leaves = [x.clone().requires_grad_() for x in (r, k, v, w, u)]
-    before = (wkv6_ops.wkv6.launches, wkv6_ops.wkv6.launches_bwd)
+    f = wkv6_ops.wkv6
+    before = (f.launches, f.launches_ckpt, f.launches_bwd)
     y, _ = wkv6_ops.wkv6(*leaves, s)
     grads = torch.autograd.grad(y, leaves, dy)
     torch.cuda.synchronize()
-    assert (wkv6_ops.wkv6.launches, wkv6_ops.wkv6.launches_bwd) == (
-        before[0] + 1, before[1] + 1)
+    assert (f.launches, f.launches_ckpt, f.launches_bwd) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
     want = wkv6_ops.wkv6_bwd(r, k, v, w, u.float(), s, dy)
     for a, b in zip(grads, want):
         assert torch.equal(a, b.to(a.dtype))
+
+
+WKV6_CKPT_RTOL = 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(2, 1, 3, 64), (2, 17, 3, 64),
+                                   (1, 100, 2, 16), (2, 33, 2, 40),
+                                   (3, 50, 2, 24), (2, 33, 2, 17)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_wkv6_checkpoints_leave_the_forward_as_it_was(shape, dtype):
+    """K5 with checkpoint writes (the decode kernel at L 1, the split
+    kernel past it): y and the final state the same bits as without them,
+    one counted checkpointing launch, and the checkpoints (each state
+    transposed) within 1e-6 of the largest |state| of the plain ones."""
+    xs, _, _ = _wkv6_inputs(*shape, dtype, seed=sum(shape))
+    y0, s0 = wkv6_ops.wkv6(*xs)
+    n = wkv6_ops.wkv6.launches_ckpt
+    y1, s1, ck = wkv6_ops._forward(*xs, ckpt=True)
+    torch.cuda.synchronize()
+    assert wkv6_ops.wkv6.launches_ckpt == n + 1
+    assert torch.equal(y0, y1) and torch.equal(s0, s1)
+    want = wkv6_ref.wkv6_ckpt_ref(xs[1], xs[2], xs[3], xs[5])
+    assert ck.shape == want.shape
+    assert float((ck - want).abs().max()) <= \
+        WKV6_CKPT_RTOL * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("L", [1, 17, 100])
+def test_wkv6_bwd_from_saved_checkpoints_is_bit_identical(L, dtype):
+    """K5-bwd given the checkpoints K5 wrote and given none (the call runs
+    the checkpointing K5 itself) gives the same bits."""
+    xs, dy, ds = _wkv6_inputs(2, L, 3, 64, dtype, seed=7 * L)
+    ck = wkv6_ops._forward(*xs, ckpt=True)[2]
+    saved = wkv6_ops.wkv6_bwd(*xs, dy, ds, ckpt=ck)
+    n = wkv6_ops.wkv6.launches_ckpt
+    none = wkv6_ops.wkv6_bwd(*xs, dy, ds)
+    torch.cuda.synchronize()
+    assert wkv6_ops.wkv6.launches_ckpt == n + 1
+    for a, b in zip(saved, none):
+        assert torch.equal(a, b)
+
+
+def test_wkv6_bwd_catches_checkpoints_of_other_inputs():
+    """K5-bwd restarts its states at the checkpoints: given those of other
+    inputs (the state carried in moved by 1) it must fail the limit
+    against the plain backward."""
+    xs, dy, ds = _wkv6_inputs(1, 300, 4, 64, torch.float32, seed=5)
+    other = wkv6_ops._forward(*xs[:5], xs[5] + 1.0, ckpt=True)[2]
+    got = wkv6_ops.wkv6_bwd(*xs, dy, ds, ckpt=other)
+    plain = wkv6_ref.wkv6_bwd_ref(*xs, dy, ds)
+    assert wkv6_excess(got, plain) > 1.0
+
+
+@pytest.mark.parametrize("view", ["K20", "K36", "offset"])
+def test_wkv6_bwd_stages_views_the_tensor_maps_cannot_take(view):
+    """bf16 rows of 40 or 72 bytes, and r, k, v one element off their
+    allocations, go through K5-bwd's cp.async staging: against the plain
+    backward, and bit-identical from saved checkpoints and from none."""
+    K = {"K20": 20, "K36": 36}.get(view, 64)
+    xs, dy, ds = _wkv6_inputs(2, 33, 3, K, torch.bfloat16, seed=K)
+    if view == "offset":
+        xs = tuple(torch.cat([x, x[..., :1]], -1)[..., 1:] if i < 3 else x
+                   for i, x in enumerate(xs))
+    got = wkv6_ops.wkv6_bwd(*xs, dy, ds)
+    ck = wkv6_ops._forward(*xs, ckpt=True)[2]
+    again = wkv6_ops.wkv6_bwd(*xs, dy, ds, ckpt=ck)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert wkv6_excess(got, wkv6_ref.wkv6_bwd_ref(*xs, dy, ds)) <= 1.0
 
 
 def test_kernels_without_a_backward_refuse_grad():

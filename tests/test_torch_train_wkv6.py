@@ -6,11 +6,18 @@ chunked step scan padded with w = 1, k = 0 steps), and ``WKV6Fn`` (the
 route ``kernels.wkv6.ops.wkv6`` takes under grad) giving those gradients
 on CPU tensors. Cases: L = 1, 17 and 33 (the reference's chunk 16 pads 17
 and 33), a nonzero initial state, a cotangent of the final state, K = V
-of 4 and 16.
+of 4 and 16. The checkpoints that K5 writes for K5-bwd: their plain
+version ``wkv6_ckpt_ref`` (the state at the start of every 16-step chunk)
+against the reference's final state on each 16 c-step prefix, at K 16, 17
+and 64 and L 1, 17 and 50 with a carried state; ``wkv6_bwd`` given them and
+given none (it recomputes them), and through ``WKV6Fn``, which saves
+them, the same bits; checkpoints of other inputs move its gradients.
 
 Inputs are made from a numpy seed in f32; w is the reference's decay
 exp(-exp(x)) over x in [-3, 1]. Tolerance: each gradient within 1e-5 of
-its largest |gradient| (f32 sums in another order).
+its largest |gradient| (f32 sums in another order); a checkpoint within
+1e-6 of the largest |state| (f32 updates in another order, one product
+and sum a step).
 """
 import jax
 import jax.numpy as jnp
@@ -120,3 +127,53 @@ def test_wkv6_bwd_ref_keeps_each_input_dtype():
                                  torch.from_numpy(dy))
     for a, b in zip(got, want):
         assert torch.equal(a, b.to(a.dtype))
+
+
+CKPT_RTOL = 1e-6
+
+
+@pytest.mark.parametrize("K", [16, 17, 64])
+@pytest.mark.parametrize("L", [1, 17, 50])
+def test_wkv6_ckpt_ref_matches_the_reference_prefix_states(L, K):
+    """Chunk c's checkpoint is the reference's final state after the first
+    16 c steps (chunk 0's the state carried in), transposed."""
+    xs, _, _ = _inputs(2, L, 2, K, True, False, seed=7 * L + K)
+    r, k, v, w, u, s = xs
+    got = wkv6_ref.wkv6_ckpt_ref(*(torch.from_numpy(x) for x in (k, v, w, s)))
+    nc = -(-L // CHUNK)
+    assert got.shape == (2, 2, nc, K, K) and got.dtype == torch.float32
+    for c in range(nc):
+        t = c * CHUNK
+        want = s if t == 0 else np.asarray(j_wkv(
+            r[:, :t], k[:, :t], v[:, :t], w[:, :t], u, s, CHUNK)[1])
+        # K5's layout: each state transposed
+        err = np.abs(got[:, :, c].transpose(-1, -2).numpy() - want).max()
+        assert err <= CKPT_RTOL * np.abs(want).max(), (c, err)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_wkv6_bwd_from_checkpoints_gives_the_same_bits(case):
+    """``wkv6_bwd`` on CPU tensors given ``wkv6_ckpt_ref``'s checkpoints
+    and given none, and autograd through ``WKV6Fn`` (which saves them),
+    agree bit for bit; checkpoints of other inputs change the gradients
+    (the backward restarts its states there)."""
+    B, L, H, K, carried, cot = CASES[case]
+    xs, dy, ds = _inputs(B, L, H, K, carried, cot, seed=5 * L + K)
+    tx = [torch.from_numpy(x) for x in xs]
+    tdy = torch.from_numpy(dy)
+    tds = None if ds is None else torch.from_numpy(ds)
+    ckpt = wkv6_ref.wkv6_ckpt_ref(tx[1], tx[2], tx[3], tx[5])
+    none = wkv6_ops.wkv6_bwd(*tx, tdy, tds)
+    given = wkv6_ops.wkv6_bwd(*tx, tdy, tds, ckpt=ckpt)
+    leaves = [x.clone().requires_grad_() for x in tx]
+    y, S = wkv6_ops.wkv6(*leaves)
+    outs, cots = [y], [tdy]
+    if tds is not None:
+        outs.append(S)
+        cots.append(tds)
+    auto = torch.autograd.grad(outs, leaves, cots)
+    for name, a, b, c in zip(NAMES, none, given, auto):
+        assert torch.equal(a, b) and torch.equal(a, c), name
+    other = wkv6_ref.wkv6_ckpt_ref(tx[1], tx[2], tx[3], tx[5] + 1.0)
+    moved = wkv6_ops.wkv6_bwd(*tx, tdy, tds, ckpt=other)
+    assert not all(torch.equal(a, b) for a, b in zip(none, moved))

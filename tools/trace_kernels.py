@@ -54,7 +54,8 @@ deepseek-v2-236b's 128 of (192, 128), causal, and at paligemma-3b's 8/1
 heads of 256 with its 256-token prefix, each (a) and (b) apart beside
 SDPA's backward (where it takes the call) and the operations bound of its
 products over the mask's pairs; K5-bwd at rwkv6-7b's 64 heads of 64
-beside its operations bound; then ptxas's lines of every bf16 backward
+beside its operations bound, its first design and K5 without and with
+checkpoint writes, in turns; then ptxas's lines of every bf16 backward
 instance and of K5-bwd, and the HGMMA and FFMA counts of each bf16
 backward instance's SASS.
 For each call it prints every device kernel the call launched (pass 1
@@ -896,8 +897,10 @@ def trace_train(torch, fa, reports, g, iters: int, res: dict) -> None:
     where SDPA refuses the call) and the operations bound of the products
     the outputs need over the mask's pairs (S, dP, dQ for (a); S, dP, dV,
     dK for (b); each over Dq or Dv) at 989 TFLOP/s; K5-bwd at WKV6_BWD
-    (bf16 r, k, v, a zero state) beside its bound (14 K V fp32 flops a
-    (token, head) at 67 TFLOP/s); then ptxas's lines of every bf16
+    (bf16 r, k, v, a zero state) from saved checkpoints beside its bound
+    (14 K V fp32 flops a (token, head) at 67 TFLOP/s), its first design
+    (``tools/wkv6_bwd_probe.py``) and K5 without and with checkpoint
+    writes, in two rounds of opposite order; then ptxas's lines of every bf16
     backward instance and K5-bwd's, and the HGMMA and FFMA counts of
     every bf16 backward instance's SASS."""
     import torch.nn.functional as F
@@ -967,17 +970,31 @@ def trace_train(torch, fa, reports, g, iters: int, res: dict) -> None:
     u = torch.randn((Hw, Kw), generator=g, device="cuda")
     s0 = torch.zeros((Bw, Hw, Kw, Kw), device="cuda")
     dy = torch.randn((Bw, Lw, Hw, Kw), generator=g, device="cuda")
-    own = device_kernel_ms(torch, lambda: wo.wkv6_bwd(r, kk, vv, w, u, s0,
-                                                      dy), iters)[0]
-    fwd = device_kernel_ms(torch, lambda: wo.wkv6(r, kk, vv, w, u, s0),
-                           iters)[0]
+    ck = wo._forward(r, kk, vv, w, u, s0, ckpt=True)[2]
+    sys.path.insert(0, str(ROOT))
+    from tools.wkv6_bwd_probe import three_sweeps
+    # K5-bwd from saved checkpoints, its first design, K5 without and
+    # with checkpoint writes; two rounds, the second in reverse order
+    calls = {"first design": lambda: three_sweeps(torch, r, kk, vv, w, u,
+                                                  s0, dy),
+             "K5-bwd": lambda: wo.wkv6_bwd(r, kk, vv, w, u, s0, dy,
+                                           ckpt=ck),
+             "K5": lambda: wo._forward(r, kk, vv, w, u, s0),
+             "K5 with checkpoints": lambda: wo._forward(r, kk, vv, w, u, s0,
+                                                        ckpt=True)}
+    got = {n: [] for n in calls}
+    for order in (list(calls), list(calls)[::-1]):
+        for n in order:
+            got[n].append(device_kernel_ms(torch, calls[n], iters)[0])
     bound = 1e3 * 14.0 * Bw * Lw * Hw * Kw * Kw / H100_FP32_FLOPS
-    res["wkv6_bwd"] = {"shape": WKV6_BWD, "kernels_ms": own,
-                       "forward_kernels_ms": fwd, "bound_ms": bound}
-    print(f"[trace] wkv6_bwd {WKV6_BWD} bf16: " + "; ".join(
-        f"{n} {t:.4f} ms" for n, t in own.items()) + f" (bound {bound:.4f} "
-        f"ms, operations); the forward K5 " + "; ".join(
-        f"{n} {t:.4f} ms" for n, t in fwd.items()), flush=True)
+    res["wkv6_bwd"] = {"shape": WKV6_BWD, "bound_ms": bound,
+                       "kernels_ms": got}
+    print(f"[trace] wkv6_bwd {WKV6_BWD} bf16 (bound {bound:.4f} ms, "
+          f"operations), two readings each: " + "; ".join(
+              f"{n}: " + " / ".join(", ".join(
+                  f"{k.split('(')[0].replace('void ', '')} {t:.4f} ms"
+                  for k, t in rd.items()) for rd in rds)
+              for n, rds in got.items()), flush=True)
     for lib, key in (("flash_attention_bwd", "bf16"), ("wkv6_bwd", "wkvb")):
         for name, r in ptxas_functions(reports.get(lib)).items():
             if key in name:
