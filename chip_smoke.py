@@ -348,7 +348,11 @@ backward ``wkv6_bwd`` and K5 with checkpoint writes ``wkv6_ckpt``
 (rwkv6-7b's B 1 x 4,096, 64 heads of 64; no library call computes
 either), which also carry ``parent_device_ms`` (K5-bwd's first design,
 ``tools/wkv6_bwd_probe.py``, timed in turns with it) and
-``no_ckpt_device_ms`` (K5 without checkpoint writes at that shape); every
+``no_ckpt_device_ms`` (K5 without checkpoint writes at that shape);
+K4-Dv's training instance, which writes the LSE,
+``flash_attention_dv_lse`` (``no_lse_device_ms``: the serving instance in
+turns with it; SDPA's training forward, which keeps the LSE too, its
+library call); every
 entry also carries ``device_ms``, the profiler's
 device time, and each entry with a library call ``library_device_ms``,
 that call's); the line
@@ -1193,6 +1197,8 @@ def dv_timing(torch, seed: int) -> dict:
     key) pairs, decode's 2 B H kv_len (Dq + Dv)."""
     out = {"flash_attention_dv/prefill": dv_prefill_timing(
         torch, DV_PREFILL_SHAPE, "Dv prefill", seed + 33)}
+    out["flash_attention_dv_lse"] = dv_lse_timing(torch, DV_PREFILL_SHAPE,
+                                                  seed + 33)
     out["flash_attention_dv/deepseek_prefill"] = dv_prefill_timing(
         torch, DV_DEEPSEEK_PREFILL_SHAPE, "Dv prefill deepseek-v2", seed + 35)
     Lc, n_kv = DV_DECODE_TIMED
@@ -1238,6 +1244,83 @@ def dv_prefill_timing(torch, sh: dict, label: str, seed: int) -> dict:
            f"{rec['device_ms']:.4f} ms ({b_ms / rec['device_ms']:.3f} of "
            f"the bound) in {list(rec['device_kernels'])}, library "
            f"{rec['library_device_ms']} ms in {rec['library_kernels']}"))
+    return rec
+
+
+def dv_lse_timing(torch, sh: dict, seed: int) -> dict:
+    """K4's training forward at minicpm3's prefill (``sh``, causal): the
+    instance that also writes each row's LSE for the backward
+    (``flash_bf16_persistent_lse<96, 64, 192>``) beside the serving one on
+    the same inputs, and SDPA's training forward (q, k and v requiring
+    grad: the one PyTorch call that computes O and keeps each row's
+    logsumexp for its backward), in turns (serving, training, SDPA, SDPA,
+    training, serving; CUDA events and the profiler's device time, each
+    K4 call launching its own instance alone); its output the same bits as
+    the serving kernel's. The plain version is ``ref.attention_ref`` and
+    ``ref.attention_lse``; the bound the serving kernel's, its bytes plus
+    the LSE's (B H Lq f32 written once)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa, ref as fr
+    sys.path.insert(0, str(ROOT))
+    from tools.trace_kernels import device_kernel_ms
+    B, L, H, Hkv, Dq, Dv = (sh[x] for x in ("B", "Lq", "H", "Hkv", "Dh",
+                                            "Dv"))
+    q, k, v = flash_inputs(torch, **sh, dtype=torch.bfloat16, seed=seed)
+    serve = lambda: fa._forward(q, k, v, True, None, 0, 0, None)
+    train = lambda: fa._forward(q, k, v, True, None, 0, 0, None,
+                                with_lse=True)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    check(sdpa().grad_fn is not None, "[timing] SDPA's training forward "
+                                      "keeps no graph")
+    out, lse = train()
+    check(torch.equal(out, serve()), "[timing] K4-Dv's output moves with "
+                                     "the LSE write")
+    del out, lse
+    lse_bytes = 4 * B * H * fr.lse_rows(L)
+    nbytes = 2 * B * L * (H * Dq + Hkv * Dq + Hkv * Dv + H * Dv) + lse_bytes
+    flops = 2.0 * B * H * (Dq + Dv) * (L * (L + 1) // 2)
+    b_ms, b_by = att_bound(nbytes, flops, H100_BF16_FLOPS)
+    fns = {"serve": serve, "train": train, "sdpa": sdpa}
+    ev = {name: [] for name in fns}
+    dev = {name: [] for name in fns}
+    lib_kernels = {}
+    for name in ("serve", "train", "sdpa", "sdpa", "train", "serve"):
+        ev[name].append(cuda_ms(torch, fns[name]))
+        own = device_kernel_ms(torch, fns[name], iters=20)[0]
+        dev[name].append(sum(own.values()) if own else None)
+        if name == "sdpa":
+            lib_kernels = {n.split("(")[0][:60]: t for n, t in own.items()}
+            continue
+        want = "flash_bf16_persistent_lse<96, 64, 192>" if name == "train" \
+            else "flash_bf16_persistent<96, 64, 192>"
+        check(len(own) == 1 and want in next(iter(own)),
+              f"[timing] K4-Dv {name}: one call launches {list(own)}, not "
+              f"{want} alone")
+    rec = {"shape": sh, "dtype": "bfloat16", "causal": True,
+           "ms": statistics.mean(ev["train"]),
+           "no_lse_ms": statistics.mean(ev["serve"]),
+           "device_ms": statistics.mean(dev["train"]),
+           "no_lse_device_ms": statistics.mean(dev["serve"]),
+           "device_turns": dev, "lse_bytes": lse_bytes,
+           "plain_ms": cuda_ms(torch, lambda: (
+               fr.attention_ref(q, k, v, causal=True, p_dtype=v.dtype),
+               fr.attention_lse(q, k, causal=True)), iters=3, warmup=1),
+           "library_ms": statistics.mean(ev["sdpa"]),
+           "library_device_ms": None if None in dev["sdpa"] else
+           statistics.mean(dev["sdpa"]),
+           "library_kernels": lib_kernels,
+           "bound_ms": b_ms, "bound_by": b_by}
+    log(f"[timing] flash_attention_dv_lse {sh} bf16 (K4's training forward, "
+        f"the LSE written): {rec['ms']:.4f} ms (CUDA events), "
+        f"{rec['device_ms']:.4f} ms on the device, against the serving "
+        f"instance's {rec['no_lse_ms']:.4f} ms, {rec['no_lse_device_ms']:.4f}"
+        f" ms on the device, and SDPA's training forward's "
+        f"{rec['library_ms']:.4f} ms, {rec['library_device_ms']} ms on the "
+        f"device in {lib_kernels} (turns {dev}); the LSE {lse_bytes:,} B; "
+        f"plain {rec['plain_ms']:.4f} ms; bound {b_ms:.4f} ms ({b_by}), "
+        f"{b_ms / rec['device_ms']:.3f} of it")
     return rec
 
 
@@ -6199,6 +6282,9 @@ TRAIN_LR_FOR = {"rwkv6-7b": 3e-4}
 TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GNORM_RTOL = 1e-2
 TRAIN_GRAD_RTOL = 0.05
+# the traced step's device busy ms of an earlier run of (b) (NVIDIA H100
+# 80GB HBM3 at 700.00 W), logged beside this run's
+EARLIER_BUSY_MS = {"minicpm3-4b": (95.270, "before the exact-width pair")}
 EMBED_TRAIN_STEPS = 60
 
 
@@ -6268,7 +6354,12 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
     the limit and the calls in ``res``, by ``bwd_key``. With a ragged
     ``kv_valid_len`` in ``kw``, dk and dv must be zero at and past each
     row's end, and the plain version without it (a kernel that ignored
-    it) must fail the limit (noted in ``res["ragged"]``)."""
+    it) must fail the limit (noted in ``res["ragged"]``). At the class
+    whose forward saves the LSE (``ops.saves_lse``: minicpm3's (96, 64))
+    the call checked is the main path's, from the LSE of K4's training
+    forward on q, k, v (``bwd_saved_lse``); the call without one (pass
+    1) must meet the same limit, and with ``fault`` the backward from the
+    LSE of other inputs must fail it."""
     from repro_torch.kernels.flash_attention import ops, ref
     q, k, v, o, do = bwd_inputs(torch, shape, dtype, seed, **kw)
     got = ops.flash_attention_bwd(q, k, v, o, do, **kw)
@@ -6279,8 +6370,14 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
     kvl = kw.get("kv_valid_len")
     shown = kw if kvl is None else dict(kw, kv_valid_len=kvl.tolist())
     ctx = f"[train] backward {shape} {_dtype_name(dtype)} {shown} ({route})"
+    lse, pass1 = None, None
+    if ops.saves_lse(dtype, Dq, Dv):
+        lse = bwd_saved_lse(torch, res, q, k, v, kw, ctx)
+        pass1 = got
+        got = ops.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+        torch.cuda.synchronize()
     if route == "one_pass" or Dv != Dq or Dq > 128:
-        again = ops.flash_attention_bwd(q, k, v, o, do, **kw)
+        again = ops.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"{ctx}: two calls differ")
@@ -6292,6 +6389,12 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
     x = bwd_excess(torch, got, plain, rss)
     res["share"][dt] = max(res["share"][dt], x)
     res["calls"][dt] += 1
+    if pass1 is not None:
+        x1 = bwd_excess(torch, pass1, plain, rss)
+        res["lse"]["pass1_share"] = max(res["lse"]["pass1_share"], x1)
+        check(x1 <= 1.0, f"{ctx}: without a saved LSE (pass 1) {x1:.3g} of "
+                         f"the limit")
+        del pass1
     err = res["err"][dt]
     err["dq"] = max(err["dq"], float(
         (got[0].float() - plain[0].float()).abs().max()))
@@ -6331,6 +6434,54 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
     check(fa > 1.0 and fb > 1.0,
           f"{ctx}: dropped keys {t0}-{t1} stay within the limit (dq "
           f"{fa:.3g}, dk {fb:.3g})")
+    if lse is not None:
+        q2 = q.clone()
+        q2[..., 4] += 1
+        other = bwd_saved_lse(torch, None, q2, k, v, kw, ctx)
+        fl = bwd_excess(torch, ops.flash_attention_bwd(
+            q, k, v, o, do, lse=other, **kw), plain, rss)
+        res["faults"][-1]["other_lse"] = fl
+        check(fl > 1.0, f"{ctx}: the backward from the LSE of other inputs "
+                        f"stays within the limit ({fl:.3g})")
+
+
+# the LSE K4's training forward writes against ``ref.attention_lse``, in
+# log2 units: f32 sums of f32 products of the same bf16 values in another
+# order, ex2 on the SFU (2^-22 relative); one 2^-10 moves P by 0.07%
+BWD_LSE_ATOL = 2.0 ** -10
+
+
+def bwd_saved_lse(torch, res, q, k, v, kw, ctx: str):
+    """K4's training forward (``flash_bf16_persistent_lse``) at q, k, v
+    and the mask ``kw``: its output must be the serving kernel's, bit for
+    bit, its LSE within BWD_LSE_ATOL of ``ref.attention_lse``'s (+inf
+    exactly where the plain one is). Notes the largest difference in
+    ``res["lse"]`` (unless ``res`` is None); returns the LSE."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    mask = dict(causal=kw.get("causal", True), window=kw.get("window"),
+                prefix_len=kw.get("prefix_len", 0),
+                q_offset=kw.get("q_offset"),
+                kv_valid_len=kw.get("kv_valid_len"))
+    if mask["q_offset"] is None:
+        mask["q_offset"] = k.shape[1] - q.shape[1]
+    out, lse = ops._forward(q, k, v, *mask.values(), with_lse=True)
+    served = ops._forward(q, k, v, *mask.values())
+    torch.cuda.synchronize()
+    check(torch.equal(out, served), f"{ctx}: K4's output moves with the "
+                                    f"LSE write")
+    plain = ref.attention_lse(q, k, **mask)
+    inf = torch.isposinf(plain)
+    check(torch.equal(torch.isposinf(lse), inf),
+          f"{ctx}: the LSE is +inf at other rows than the plain one's")
+    err = float((lse - plain)[~inf].abs().max()) if bool((~inf).any()) \
+        else 0.0
+    check(err <= BWD_LSE_ATOL, f"{ctx}: K4's LSE {err:.3g} from the plain "
+                               f"one")
+    if res is not None:
+        res["lse"]["err"] = max(res["lse"]["err"], err)
+        res["lse"]["calls"] += 1
+    del out, served, plain
+    return lse
 
 
 def wkv6_bwd_excess(torch, got, plain) -> float:
@@ -6445,12 +6596,14 @@ def train_kernels(torch, seed: int) -> dict:
     fa.flash_attention.launches_bwd = fa.flash_attention.launches_bwd_f32 \
         = fa.flash_attention.launches_bwd_f32_one_pass \
         = fa.flash_attention.launches_bwd_dv \
+        = fa.flash_attention.launches_bwd_exact \
         = fa.flash_attention.launches_bwd_wide = 0
     wkv6_ops.wkv6.launches_bwd = wkv6_ops.wkv6.launches_ckpt = 0
     res = {"err": {dt: {"dq": 0.0, "dkv": 0.0} for dt in BWD_KEYS},
            "share": {dt: 0.0 for dt in BWD_KEYS},
            "calls": {dt: 0 for dt in BWD_KEYS},
-           "n": 0, "faults": [], "ragged": []}
+           "n": 0, "faults": [], "ragged": [],
+           "lse": {"calls": 0, "err": 0.0, "pass1_share": 0.0}}
     for dtype in (torch.float32, torch.bfloat16):
         for i, (shape, kw) in enumerate(BWD_SWEEP):
             bwd_compare(torch, res, shape, dtype, seed + 300 + i, **kw)
@@ -6498,9 +6651,11 @@ def train_kernels(torch, seed: int) -> dict:
         "tiled_bf16": fa.flash_attention.launches_bwd
         - fa.flash_attention.launches_bwd_f32,
         "tiled_dv": fa.flash_attention.launches_bwd_dv,
+        "tiled_exact": fa.flash_attention.launches_bwd_exact,
         "tiled_wide": fa.flash_attention.launches_bwd_wide}
     check(one >= len(BWD_SHORT_SWEEP) and res["launches"]["tiled_f32"] > 0
-          and all(res["calls"][dt] > 0 for dt in BWD_KEYS),
+          and all(res["calls"][dt] > 0 for dt in BWD_KEYS)
+          and res["lse"]["calls"] > 0,
           f"[train] (a) backward launches by route {res['launches']}, calls "
           f"by family {res['calls']}")
     wkv = {"share": 0.0, "err": 0.0, "n": 0, "ckpt_err": 0.0}
@@ -6535,6 +6690,15 @@ def train_kernels(torch, seed: int) -> dict:
             f"keys {f['keys'][0]}-{f['keys'][1]}: dq "
             f"{f['dq_tile_dropped']:.3g}, dk {f['dkv_tile_dropped']:.3g} of "
             f"the limit" for f in res["faults"]))
+    log(f"[train] (a) the exact-width pair <96, 64> from K4's saved LSE: "
+        f"{res['lse']['calls']} calls, K4's output the same bits with the "
+        f"LSE write, its LSE within {res['lse']['err']:.3g} of the plain "
+        f"one (log2 units; limit {BWD_LSE_ATOL:.3g}); the same calls "
+        f"without a saved LSE (pass 1) at most "
+        f"{res['lse']['pass1_share']:.3g} of the limit; the backward from "
+        f"the LSE of other inputs " + "; ".join(
+            f"{f['other_lse']:.3g}" for f in res["faults"]
+            if "other_lse" in f) + " of the limit")
     log("[train] (a) a ragged kv_valid_len on every family (share of the "
         "limit; the plain version without it): " + "; ".join(
             f"{r['dtype']} L {r['shape']['Lq']} D {r['shape']['Dh']}/"
@@ -6587,8 +6751,9 @@ def train_trace(torch, fn) -> dict:
 
 def train_counts() -> dict:
     """The training path's kernel counters: K4-bwd's launches (every one,
-    the f32 ones, the one-pass ones, the wgmma pair's Dv != Dq ones, the
-    wide bf16 pair's), K5's and K5-bwd's, and the plain attention
+    the f32 ones, the one-pass ones, the wgmma pair's Dv != Dq ones and of
+    those the exact-width pair's, the wide bf16 pair's), K4's launches that
+    write the LSE for it, K5's and K5-bwd's, and the plain attention
     backward's calls; K5's checkpointing launches (``wkv6_ckpt``) are
     among K5's."""
     from repro_torch.kernels.flash_attention import ops as fa, ref as fr
@@ -6598,7 +6763,9 @@ def train_counts() -> dict:
             "flash_attention_bwd_f32": f.launches_bwd_f32,
             "flash_attention_bwd_f32_one_pass": f.launches_bwd_f32_one_pass,
             "flash_attention_bwd_dv": f.launches_bwd_dv,
+            "flash_attention_bwd_exact": f.launches_bwd_exact,
             "flash_attention_bwd_wide": f.launches_bwd_wide,
+            "flash_attention_lse": f.launches_lse,
             "wkv6": wkv6_ops.wkv6.launches,
             "wkv6_ckpt": wkv6_ops.wkv6.launches_ckpt,
             "wkv6_bwd": wkv6_ops.wkv6.launches_bwd,
@@ -6610,7 +6777,8 @@ def zero_train_counts() -> None:
     from repro_torch.kernels.wkv6 import ops as wkv6_ops
     f = fa.flash_attention
     f.launches_bwd = f.launches_bwd_f32 = f.launches_bwd_f32_one_pass = \
-        f.launches_bwd_dv = f.launches_bwd_wide = 0
+        f.launches_bwd_dv = f.launches_bwd_exact = f.launches_bwd_wide = \
+        f.launches_lse = 0
     wkv6_ops.wkv6.launches = wkv6_ops.wkv6.launches_bwd = \
         wkv6_ops.wkv6.launches_ckpt = 0
     fr.attention_bwd_ref.calls = 0
@@ -6628,6 +6796,7 @@ def train_full(torch, np, arch: str, seed: int) -> dict:
     take; K5-bwd once) and the plain attention backward never."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import steps
+    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch.train import synth_batch
     from repro_torch.models import layers as L, lm, ssm as S
     from repro_torch.training import optimizer as opt
@@ -6719,6 +6888,10 @@ def train_full(torch, np, arch: str, seed: int) -> dict:
             f"{tr['k5_ms']:.3f} ms ({tr['k5_share']:.4f}); most device "
             "time: " + "; ".join(f"{n} {t:.3f} ms"
                                  for n, t in tr["top_kernels_ms"]))
+        if arch in EARLIER_BUSY_MS:
+            was, what = EARLIER_BUSY_MS[arch]
+            log(f"[train] (b) {arch}: device busy {tr['busy_ms']:.3f} ms a "
+                f"step against {was:.3f} ms {what}")
     else:
         log(f"[train] (b) {arch} traced step: no device activity recorded "
             "(not measured)")
@@ -6734,6 +6907,12 @@ def train_full(torch, np, arch: str, seed: int) -> dict:
             cfg.attn_kind, "flash_attention_bwd_wide" if cfg.head_dim > 128
             else "flash_attention_bwd")
         need = {"flash_attention_bwd": 2 * n, route: 2 * n}
+        dq, dv = (cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim) \
+            if cfg.attn_kind == "mla" else (cfg.head_dim, cfg.head_dim)
+        if fa.saves_lse(getattr(torch, cfg.dtype), dq, dv):
+            # the forward's LSE, the exact pair
+            need.update(flash_attention_lse=n,
+                        flash_attention_bwd_exact=2 * n)
     check(all(counts[k] >= v for k, v in need.items()),
           f"[train] {arch}: kernel launches {counts} in {TRAIN_STEPS} steps "
           f"of {TRAIN_LAYERS} layers, short of {need}")
@@ -6981,6 +7160,13 @@ def bwd_timing(torch, seed: int) -> dict:
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
         lse, dsum = (None, None) if route == "one_pass" else \
             K.bwd_scratch(q)
+        saved = None
+        if fa.saves_lse(dtype, Dq, Dv):
+            # the training path's call: (a) from K4's saved LSE
+            saved = fa._forward(q, k, v, kw["causal"], None,
+                                kw.get("prefix_len", 0), 0, None,
+                                with_lse=True)[1]
+            lse = saved
         esz = q.element_size()
         pairs = mask_pairs(L, kw["causal"], kw.get("prefix_len", 0))
         pq, pv = 2.0 * B * H * Dq * pairs, 2.0 * B * H * Dv * pairs
@@ -7002,14 +7188,16 @@ def bwd_timing(torch, seed: int) -> dict:
         lib_dev = {"library_device_ms": None} if lib is None else \
             library_device_ms(torch, lib)
         own, records = device_kernel_ms(torch, lambda: fa.flash_attention_bwd(
-            q, k, v, o, do, **kw), iters=10)
+            q, k, v, o, do, lse=saved, **kw), iters=10)
         names = sorted(n.split("(")[0].split("<")[0].replace("void ", "")
                        for n in own)
         parts = (("one_pass", 2),) if route == "one_pass" else \
-            (("dq", 0), ("dkv", 1))
+            (("dq", 0 if saved is None else 3), ("dkv", 1))
         kind = "wide_bf16" if route == "tiled_wide" else _kind(dtype)
-        check(names == sorted(f"fab::bwd_{name}_{kind}"
-                              for name, _ in parts),
+        want = [f"fab::bwd_{name}_{kind}" for name, _ in parts]
+        if saved is not None:
+            want[0] = "fab::bwd_dq_lse_bf16"
+        check(names == sorted(want),
               f"[timing] flash_attention_bwd {label}: one call launches "
               f"{list(own)}, not the {route} route's kernels alone")
         if route == "tiled_wide" and max(Dq, Dv) > 192:
@@ -7029,7 +7217,7 @@ def bwd_timing(torch, seed: int) -> dict:
             dev = [t for n, t in own.items() if f"bwd_{name}_" in n]
             b_ms, b_by = bounds[name]
             rec = {"shape": shape, "dtype": _dtype_name(dtype), **kw,
-                   "route": route,
+                   "route": route, "saved_lse": saved is not None,
                    "instance": [n.split("(")[0].replace("void ", "")
                                 for n in own if f"bwd_{name}_" in n][0],
                    "ms": cuda_ms(torch, call, iters=20),
@@ -7056,7 +7244,7 @@ def bwd_timing(torch, seed: int) -> dict:
                 f", plain backward {plain_ms:.4f} ms, SDPA's backward "
                 f"{lib_txt}, bound {b_ms:.4f} ms ({b_by}; the whole "
                 f"backward's {whole[0]:.4f} ms, {whole[1]})")
-        del q, k, v, o, do, dq, dk, dv, lib
+        del q, k, v, o, do, dq, dk, dv, lib, saved, lse, dsum
         gc.collect()
         torch.cuda.empty_cache()
     out["wkv6_bwd"], out["wkv6_ckpt"] = wkv6_bwd_timing(torch, seed)
@@ -7179,8 +7367,9 @@ def bwd_bf16_smem(kernel: str, dq: int, dv: int) -> int:
     """The dynamic shared memory that the built library launches bf16
     backward kernel ``kernel`` at widths <dq, dv> with (its C function
     ``flash_attention_bwd_smem``, from the sizes the launch uses)."""
-    smem = bwd_lib_fn("flash_attention_bwd_smem")(
-        dq, dv, 0 if kernel.startswith("bwd_dq_") else 1)
+    part = 3 if kernel == "bwd_dq_lse_bf16" else \
+        0 if kernel.startswith("bwd_dq_") else 1
+    smem = bwd_lib_fn("flash_attention_bwd_smem")(dq, dv, part)
     check(smem > 0, f"[build] flash_attention_bwd_smem({dq}, {dv}) of "
                     f"{kernel}: {smem}")
     return smem
@@ -7188,11 +7377,15 @@ def bwd_bf16_smem(kernel: str, dq: int, dv: int) -> int:
 
 # the bf16 instances the C dispatch has: the wgmma pair at every (DQP,
 # DVP) of 64 and 128, without and with kv_valid_len (<..., RAGGED>), the
-# wide pair at <192, 128> and <256, 256> (its (b) with dK's and dV's
-# columns whole or split across two CTAs, <..., SPLIT>)
+# exact-width pair at <96, 64> ((a) from a saved LSE, bwd_dq_lse_bf16, and
+# (b)), the wide pair at <192, 128> and <256, 256> (its (b) with dK's and
+# dV's columns whole or split across two CTAs, <..., SPLIT>)
 BWD_BF16_INSTANCES = tuple(
     f"{k}<{dq}, {dv}, {r}>" for k in ("bwd_dq_bf16", "bwd_dkv_bf16")
     for dq in (64, 128) for dv in (64, 128) for r in ("false", "true")
+) + tuple(
+    f"{k}<96, 64, {r}>" for k in ("bwd_dq_lse_bf16", "bwd_dkv_bf16")
+    for r in ("false", "true")
 ) + tuple(
     f"bwd_dq_wide_bf16<{dq}, {dv}>" for dq, dv in ((192, 128), (256, 256))
 ) + tuple(f"bwd_dkv_wide_bf16<{dq}, {dv}, {n}>"
@@ -7217,8 +7410,8 @@ def bwd_bf16_ptxas(report) -> dict:
     from tools.trace_kernels import ptxas_functions, sass_mix
 
     def instance(fn):
-        m = re.match(r"_ZN3fab\d+(bwd_(?:dq|dkv)_(?:wide_)?bf16)ILi(\d+)E"
-                     r"Li(\d+)E(?:Li(\d+)E|Lb(\d)E)?", fn)
+        m = re.match(r"_ZN3fab\d+(bwd_(?:dq|dkv)_(?:wide_|lse_)?bf16)"
+                     r"ILi(\d+)ELi(\d+)E(?:Li(\d+)E|Lb(\d)E)?", fn)
         if m is None:
             return None
         last = "" if m.group(4) is None else f", {m.group(4)}"
@@ -7336,12 +7529,14 @@ def fwd_bf16_smem(kernel: str, dq: int, dv: int, bk: int) -> int:
 
 def fwd_bf16_ptxas(report) -> dict:
     """Registers, shared memory and spills of every bf16 K4 instance
-    (``fa::flash_bf16<DQ, DV, BK>`` and
-    ``fa::flash_bf16_persistent<DQ, DV, BK>``) from the ptxas report of
-    its library's build, logged; fails if a flash_bf16_persistent instance
-    spills or ptxas serialised its wgmma, or if an instance that
-    ``ops.fwd_route`` names is missing from a report of this run. The
-    older flash_bf16 instances are logged only."""
+    (``fa::flash_bf16<DQ, DV, BK>``,
+    ``fa::flash_bf16_persistent<DQ, DV, BK>`` and the training forward's
+    ``fa::flash_bf16_persistent_lse<96, 64, 192>``) from the ptxas report
+    of its library's build, logged; fails if a flash_bf16_persistent
+    instance (or its _lse twin) spills or ptxas serialised its wgmma, or
+    if an instance that ``ops.fwd_route`` names, or the _lse one, is
+    missing from a report of this run. The older flash_bf16 instances are
+    logged only."""
     import re
     import torch
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -7353,15 +7548,15 @@ def fwd_bf16_ptxas(report) -> dict:
     from tools.trace_kernels import ptxas_functions
     out = {}
     for fn, r in ptxas_functions(report).items():
-        m = re.match(r"_ZN2fa\d+(flash_bf16(?:_persistent)?)ILi(\d+)ELi(\d+)"
-                     r"ELi(\d+)E", fn)
+        m = re.match(r"_ZN2fa\d+(flash_bf16(?:_persistent(?:_lse)?)?)ILi"
+                     r"(\d+)ELi(\d+)ELi(\d+)E", fn)
         if m:
             kernel, dq, dv, bk = m.group(1), *map(int, m.group(2, 3, 4))
             out.setdefault(f"{kernel}<{dq}, {dv}, {bk}>", {
                 "kernel": kernel,
                 "dynamic_smem": fwd_bf16_smem(kernel, dq, dv, bk)}).update(r)
     for name, r in sorted(out.items()):
-        new = r["kernel"] == "flash_bf16_persistent"
+        new = r["kernel"].startswith("flash_bf16_persistent")
         log(f"[build] fa::{name}: {r.get('registers')} registers a thread "
             f"at launch, {r.get('static_smem')} B static + "
             f"{r['dynamic_smem']:,} B dynamic shared memory, "
@@ -7378,6 +7573,8 @@ def fwd_bf16_ptxas(report) -> dict:
     routed = {fa_ops.fwd_route(torch.bfloat16, dq, dv)
               for dq, dv in PERSISTENT_PAIRS + ((64, 64), (128, 128),
                                                 (256, 256))}
+    # minicpm3's training forward: the instance that writes the LSE
+    routed.add("flash_bf16_persistent_lse<96, 64, 192>")
     check(routed <= set(out), f"[build] the ptxas report names "
           f"{sorted(out)}, not every routed bf16 instance {sorted(routed)}")
     return out
@@ -7651,7 +7848,10 @@ def main() -> int:
         # step scan
         "wkv6_bwd": "src/repro/models/ssm.py:93",
         # K5 with the checkpoints its backward restarts from
-        "wkv6_ckpt": "src/repro/models/ssm.py:93"}
+        "wkv6_ckpt": "src/repro/models/ssm.py:93",
+        # K4-Dv with the LSE its backward's exact-width pair reads: the
+        # reference differentiates its jnp attention
+        "flash_attention_dv_lse": "src/repro/models/layers.py:157"}
     sources = {
         "cosine_topk": "src/repro_torch/csrc/cosine_topk.cu",
         "cosine_top1_local": "src/repro_torch/csrc/cosine_topk.cu",
@@ -7676,7 +7876,8 @@ def main() -> int:
            "src/repro_torch/csrc/flash_attention_bwd.cu"
            for part in ("dq", "dkv") for mode in ("dv", "wide", "wide192")},
         "wkv6_bwd": "src/repro_torch/csrc/wkv6_bwd.cu",
-        "wkv6_ckpt": "src/repro_torch/csrc/wkv6.cu"}
+        "wkv6_ckpt": "src/repro_torch/csrc/wkv6.cu",
+        "flash_attention_dv_lse": "src/repro_torch/csrc/flash_attention.cu"}
     # launches on the main path: K1/K2 in their served stream, the slo
     # phase's runs, the planes phase (its killed child included), the
     # replicas phase (its children and the launcher's workers included)
@@ -7714,8 +7915,9 @@ def main() -> int:
                                 "main path")
     # the backward: phase 13's training steps and trainers; bf16 calls (in
     # (b)'s steps and launch.train) launch a pair, (a) and (b): the wgmma
-    # pair at Dv = Dq (qwen3, the reduced models), the wgmma pair at Dv !=
-    # Dq (``_dv``: minicpm3-4b, the reduced MLA models), the wide pair at
+    # pair at its padded widths (qwen3, the reduced models, the reduced
+    # MLA's (24, 16)), the exact-width pair at <96, 64> from the forward's
+    # LSE (``_dv``: minicpm3-4b), the wide pair at
     # <256, 256> (``_wide``: paligemma-3b); the f32 ones (the embedder's)
     # the one-pass kernel; K5-bwd rwkv6-7b's. No call of the main path
     # reaches the tiled f32 pair (phase_train checks it) or the wide pair's
@@ -7725,14 +7927,14 @@ def main() -> int:
     # ``sweep_launches``
     tl = train["launches"]
     n_bf16 = tl["flash_attention_bwd"] - tl["flash_attention_bwd_f32"] \
-        - tl["flash_attention_bwd_dv"] - tl["flash_attention_bwd_wide"]
+        - tl["flash_attention_bwd_exact"] - tl["flash_attention_bwd_wide"]
     sweep_only = ("flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32",
                   "flash_attention_bwd_dq_wide192",
                   "flash_attention_bwd_dkv_wide192")
     for part in ("dq", "dkv"):
         launches[f"flash_attention_bwd_{part}"] = n_bf16 // 2
         launches[f"flash_attention_bwd_{part}_dv"] = \
-            tl["flash_attention_bwd_dv"] // 2
+            tl["flash_attention_bwd_exact"] // 2
         launches[f"flash_attention_bwd_{part}_wide"] = \
             tl["flash_attention_bwd_wide"] // 2
         launches[f"flash_attention_bwd_{part}_f32"] = 0
@@ -7741,8 +7943,10 @@ def main() -> int:
         tl["flash_attention_bwd_f32_one_pass"]
     launches["wkv6_bwd"] = tl["wkv6_bwd"]
     launches["wkv6_ckpt"] = tl["wkv6_ckpt"]
+    launches["flash_attention_dv_lse"] = tl["flash_attention_lse"]
     for name in [n for n in launches if (n.startswith("flash_attention_bwd")
-                                         or n in ("wkv6_bwd", "wkv6_ckpt"))
+                                         or n in ("wkv6_bwd", "wkv6_ckpt",
+                                                  "flash_attention_dv_lse"))
                  and n not in sweep_only]:
         check(launches[name] > 0, f"[kernels] {name} was never launched on "
                                   f"the main path")
@@ -7773,6 +7977,7 @@ def main() -> int:
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
                  "flash_attention_bwd_dq_f32", "flash_attention_bwd_dkv_f32",
                  "flash_attention_bwd_f32", "wkv6_bwd", "wkv6_ckpt",
+                 "flash_attention_dv_lse",
                  *(f"flash_attention_bwd_{part}_{mode}"
                    for mode in ("dv", "wide", "wide192")
                    for part in ("dq", "dkv"))):
@@ -7788,7 +7993,8 @@ def main() -> int:
                "flash_attention_bwd_f32": max(one_err["dq"],
                                               one_err["dkv"]),
                "wkv6_bwd": train["kernels"]["wkv6_bwd"]["err"],
-               "wkv6_ckpt": train["kernels"]["wkv6_bwd"]["ckpt_err"]}
+               "wkv6_ckpt": train["kernels"]["wkv6_bwd"]["ckpt_err"],
+               "flash_attention_dv_lse": train["kernels"]["lse"]["err"]}
     kernels = []
     for name, rec in timed.items():
         kernels.append({
@@ -7798,7 +8004,7 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
         for key in ("device_ms", "library_device_ms", "parent_device_ms",
-                    "no_ckpt_device_ms"):   # from the profiler
+                    "no_ckpt_device_ms", "no_lse_device_ms"):  # profiler
             if key in rec:
                 kernels[-1][key] = rec[key]
         if name in sweep_only[:2]:

@@ -89,6 +89,14 @@
 //     No write to a wgmma accumulator between the groups that ptxas cannot
 //     order: chip_smoke fails on a spill or on ptxas's "wgmma ...
 //     serialized" warning for these instances.
+//     - training calls at <96, 64, 192> (minicpm3's MLA; ops.py
+//       FlashAttentionFn) take flash_bf16_persistent_lse, the same body
+//       with each row's LSE (m + log2 l in the exp2 domain, +inf where the
+//       row sees no key or lies past Lq) written into a (B, H, Lq rounded
+//       up to 64) f32 buffer for the backward's exact-width pair, which
+//       then runs no pass 1 (flash_attention_bwd.cu). O is the same bits;
+//       the serving instance is compiled as before (persistent_body takes
+//       its arguments by reference).
 //   * f32: CUDA-core FMAs in full fp32, never TF32 and no tensor cores (a
 //     TF32 score moves the embedding and can flip a theta_R decision). The
 //     embedder's call (B = 4 or 1, L = 24, H = 12, Dh = 64) is 0.4 us of
@@ -140,6 +148,7 @@ struct Args {
   long long qsB, qsL, qsH, ksB, ksL, ksH, vsB, vsL, vsH;
   int causal, window, prefix_len, q_offset;   // window <= 0: none
   float scale;
+  float* lse;              // null, or the row LSE a training call writes
 };
 
 __device__ __forceinline__ bool allowed(const Args& a, int qp, int kp,
@@ -978,12 +987,16 @@ __device__ __forceinline__ bool next_q_tile(const Args& a, int& k,
   }
 }
 
-template <int DQ, int DV, int BK>
-__global__ void __launch_bounds__(FA_THREADS, 1)
-flash_bf16_persistent(const __grid_constant__ CUtensorMap tq,
-                      const __grid_constant__ CUtensorMap tk,
-                      const __grid_constant__ CUtensorMap tv,
-                      const __grid_constant__ CUtensorMap to, const Args a) {
+// LSE: also each row's log-sum-exp into a.lse (flash_bf16_persistent_lse,
+// a training call's), an instance of its own, so that the serving kernel
+// is compiled as it was: with the arguments by reference its SASS is the
+// kernel's before the write (tools/sass_diff.py)
+template <int DQ, int DV, int BK, bool LSE>
+__device__ __forceinline__ void persistent_body(const CUtensorMap& tq,
+                                                const CUtensorMap& tk,
+                                                const CUtensorMap& tv,
+                                                const CUtensorMap& to,
+                                                const Args& a) {
   using C = PCfg<DQ, DV, BK>;
   constexpr int ST = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -1278,6 +1291,20 @@ flash_bf16_persistent(const __grid_constant__ CUtensorMap tq,
                                      (((i % 8) ^ (row & 7)) << 4) + 4 * t) = v;
       }
     }
+    if constexpr (LSE) {
+      // the backward's LSE (flash_attention_bwd.cu's scratch, (B, H, Lq
+      // rounded up to 64)): log2 units with the scale folded, m + log2(l),
+      // +inf where a row sees no key or lies past Lq
+      const int Lqp = (a.Lq + 63) / 64 * 64;
+      if (t == 0)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = T.row0 + 64 * cw + rl + 8 * r;
+          if (row < Lqp)
+            a.lse[((size_t)T.b * a.H + T.h) * Lqp + row] =
+                row < a.Lq && l[r] > 0.f ? m[r] + log2f(l[r]) : INFINITY;
+        }
+    }
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     bar_sync_wg(3 + cw);
     if (tid == 0) {
@@ -1292,8 +1319,39 @@ flash_bf16_persistent(const __grid_constant__ CUtensorMap tq,
 }
 
 template <int DQ, int DV, int BK>
+__global__ void __launch_bounds__(FA_THREADS, 1)
+flash_bf16_persistent(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap to, const Args a) {
+  persistent_body<DQ, DV, BK, false>(tq, tk, tv, to, a);
+}
+
+// training calls: the same O, and each row's LSE into a.lse
+template <int DQ, int DV, int BK>
+__global__ void __launch_bounds__(FA_THREADS, 1)
+flash_bf16_persistent_lse(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap to,
+                          const Args a) {
+  persistent_body<DQ, DV, BK, true>(tq, tk, tv, to, a);
+}
+
+// the instance a call takes: with the LSE write or without (no other
+// width's _lse instance is compiled)
+template <int DQ, int DV, int BK, bool LSE>
+static auto persistent_kernel() {
+  if constexpr (LSE)
+    return flash_bf16_persistent_lse<DQ, DV, BK>;
+  else
+    return flash_bf16_persistent<DQ, DV, BK>;
+}
+
+template <int DQ, int DV, int BK, bool LSE = false>
 cudaError_t launch_persistent(const Args& a, cudaStream_t s) {
   using C = PCfg<DQ, DV, BK>;
+  const auto kern = persistent_kernel<DQ, DV, BK, LSE>();
   alignas(64) CUtensorMap tq, tk, tv, to;
   const long long so = a.Dv;                     // o contiguous
   if (!encode_map(&tq, a.q, a.Dq, a.H, a.Lq, a.B, a.qsH, a.qsL, a.qsB, 64) ||
@@ -1310,8 +1368,7 @@ cudaError_t launch_persistent(const Args& a, cudaStream_t s) {
   cudaGetDevice(&dev);
   if (!raised[dev & 63]) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bf16_persistent<DQ, DV, BK>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (e != cudaSuccess) return e;
     e = cudaDeviceGetAttribute(&sms[dev & 63],
                                cudaDevAttrMultiProcessorCount, dev);
@@ -1321,8 +1378,7 @@ cudaError_t launch_persistent(const Args& a, cudaStream_t s) {
   const long long nq = (a.Lq + BQ - 1) / BQ;
   const long long units = (long long)a.B * a.H * ((nq + 1) / 2);
   const int grid = (int)(units < sms[dev & 63] ? units : sms[dev & 63]);
-  flash_bf16_persistent<DQ, DV, BK><<<grid, FA_THREADS, C::SMEM, s>>>(
-      tq, tk, tv, to, a);
+  kern<<<grid, FA_THREADS, C::SMEM, s>>>(tq, tk, tv, to, a);
   return cudaGetLastError();
 }
 
@@ -1737,12 +1793,15 @@ inline bool f32_aligned(const void* p, long long sB, long long sL,
 
 }  // namespace fa
 
-// The arguments come packed as 29 int64 (one ctypes argument instead of 27:
+// The arguments come packed as 30 int64 (one ctypes argument instead of 28:
 // converting each costs the host more than the launch itself):
 //   [0..4]   q, k, v, o, kv_valid (pointers; kv_valid 0 for none)
 //   [5..11]  B, Lq, Lkv, H, Hkv, Dq, Dv
 //   [12..23] the element strides of q, k, v, four each (B, L, H, head dim)
 //   [24..28] causal, window, prefix_len, q_offset, is_bf16
+//   [29]     lse (pointer, 0 for none): a training call's (B, H, Lq rounded
+//            up to 64) f32 row LSE, bf16 at Dq in (64, 96] with Dv <= 64
+//            alone (the backward's exact-width pair reads it)
 // q (B, Lq, H, Dq), k (B, Lkv, Hkv, Dq), v (B, Lkv, Hkv, Dv), each with unit
 // stride in its head dim and the given strides for B, L, H; o contiguous
 // (B, Lq, H, Dv) of q's dtype (bf16 when is_bf16, else f32); kv_valid (B,)
@@ -1758,7 +1817,8 @@ static fa::Args unpack(const long long* p) {
                   (int)p[7], (int)p[8], (int)p[9], (int)p[10], (int)p[11],
                   qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1],
                   vs[2], (int)p[24], (int)p[25], (int)p[26], (int)p[27],
-                  1.0f / sqrtf((float)p[10])};
+                  1.0f / sqrtf((float)p[10]),
+                  reinterpret_cast<float*>(p[29])};
 }
 
 // The kernel a call takes (ops.py fwd_route mirrors it). bf16: (Dq, Dv) =
@@ -1771,7 +1831,10 @@ extern "C" int flash_attention(const long long* p, void* stream) {
   using namespace fa;
   const Args a = unpack(p);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool lse_class = p[28] && a.Dq > 64 && a.Dq <= 96 && a.Dv <= 64;
+  if (a.lse && !lse_class) return (int)cudaErrorInvalidValue;
   if (a.B == 0 || a.Lq == 0 || a.H == 0) return 0;
+  if (a.lse) return (int)launch_persistent<96, 64, 192, true>(a, s);
   if (p[28]) {
     if (a.Dq == 112 && a.Dv == 112)
       return (int)launch_persistent<112, 112, 128>(a, s);
@@ -1800,7 +1863,8 @@ extern "C" int flash_attention(const long long* p, void* stream) {
 extern "C" int flash_attention_probe(const long long* p, void* stream) {
   using namespace fa;
   const Args a = unpack(p);
-  if (!p[28] || a.Dq > 128 || a.Dv > 128) return (int)cudaErrorInvalidValue;
+  if (!p[28] || a.Dq > 128 || a.Dv > 128 || a.lse)
+    return (int)cudaErrorInvalidValue;
   if (a.B == 0 || a.Lq == 0 || a.H == 0) return 0;
   return (int)launch_persistent<128, 128, 128>(
       a, static_cast<cudaStream_t>(stream));

@@ -34,21 +34,26 @@
 //       query heads of the kv head in order g = 0 .. G - 1 and over their
 //       live q tiles, reads LSE and D, and accumulates dK and dV (GQA's sum
 //       over the G heads is this loop).
-// K4's forward (flash_attention.cu) writes no LSE, so (a) recomputes it in
-// pass 1; an LSE stored by the forward, with its output bit-identical, is
-// later work. Tiles that the mask hides entirely (causal, window, past
+// K4's forward (flash_attention.cu) writes no LSE at most widths, so (a)
+// recomputes it in pass 1. At minicpm3's (96, 64) class (Dq in (64, 96],
+// Dv <= 64) a training forward (flash_bf16_persistent_lse, O bit-identical
+// to the serving kernel's) writes it into the scratch's lse, in the units
+// below, and (a) from it (bwd_dq_lse_bf16, part 3) runs pass 2 alone; a
+// call of that class without a saved LSE takes (a) at <128, 64>, passes 1
+// and 2. Tiles that the mask hides entirely (causal, window, past
 // kend) are skipped by an exact test on the tile's corner positions
 // (tile_live). Routes (ops.bwd_route mirrors the dispatch at the end of
 // this file): bf16 with Dq, Dv <= 128 takes the wgmma pair at DQP, DVP of
-// 64 or 128 each (qwen3's 128/128, minicpm3's (96, 64) at <128, 64>, the
-// reduced MLA's (24, 16) at <64, 64>); bf16 past 128 the wide wgmma pair
-// (deepseek-v2's (192, 128) at <192, 128>, paligemma's 256 and every other
-// pair at <256, 256>); f32 the CUDA-core pair or the one-pass kernel. Each
-// head dim is padded in shared memory (zeros past it), so any Dq, Dv <=
-// 256. Tensors are contiguous (B, L, H, D); scale_dim is the head dim of
-// the scale (the wrapper gives bf16 rows of a head dim that is not a
-// multiple of 8 as a zero-padded copy, each tensor to its own width, with
-// the scale of the unpadded Dq).
+// 64 or 128 each (qwen3's 128/128, the reduced MLA's (24, 16) at <64,
+// 64>), but minicpm3's class at the exact widths <96, 64> (S and S^T in 6
+// k-steps, dQ and dK at N = 96, the MN-major operand one and a half
+// slabs); bf16 past 128 the wide wgmma pair (deepseek-v2's (192, 128) at
+// <192, 128>, paligemma's 256 and every other pair at <256, 256>); f32 the
+// CUDA-core pair or the one-pass kernel. Each head dim is padded in shared
+// memory (zeros past it), so any Dq, Dv <= 256. Tensors are contiguous (B,
+// L, H, D); scale_dim is the head dim of the scale (the wrapper gives bf16
+// rows of a head dim that is not a multiple of 8 as a zero-padded copy,
+// each tensor to its own width, with the scale of the unpadded Dq).
 //
 // Bound on an H100: the five products of a standard backward (S and dQ
 // and dK over Dq, dP and dV over Dv) at qwen3-14b's L = 4,096, H = 40/8,
@@ -104,6 +109,18 @@
 //       each computing S^T and dP^T over the full depth: twice the CTAs
 //       at 1.5x the products, measured faster up to a grid of one CTA an
 //       SM and slower past it (PERF.md).
+//   The exact-width pair <96, 64> (minicpm3's class) is (a) and (b) above
+//   at DQ 96: S and S^T in 6 k-steps, dQ and dK at N = 96 as one wgmma
+//   whose MN-major descriptor steps across the two 64-column slabs
+//   (N = 64 then N = 32 measured slower, PERF.md). Its (a)
+//   (bwd_dq_lse_bf16) reads the LSE K4's training forward saved and runs
+//   pass 2 alone, one batch of products a tile, tile j's S and dP with
+//   tile j - 1's dQ, so that tile j's dS runs under dQ(j - 1)
+//   (DQ_PIPELINE); its (b) the same, one turn a tile, tile j's S^T and
+//   dP^T with tile j - 1's dV and dK (DKV_PIPELINE). Its CTAs take the
+//   (sequence, head) pairs in groups of 8, each group's tiles heaviest
+//   first, so that the K and V ((a)) or Q and dO ((b)) of the CTAs in
+//   flight stay in L2 (grouped_unit).
 // Scores go to the exp2 domain with scale * log2(e) folded into one FFMA
 // before ex2; the scratch LSE is in log2 units and +inf where a row sees no
 // key or lies past Lq, so P is 0 there without a mask. The per-element
@@ -573,16 +590,20 @@ constexpr int SMEM_MAX = 232448 - 1024; // dynamic shared memory a block
                                         // gets, less the static barriers
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int DQP, int DVP, int BK = TR>
+template <int DQP, int DVP, int BK = TR, bool PASS1 = true>
 struct Tiles {
-  static constexpr int SQ = DQP / SLAB, SV = DVP / SLAB;   // slabs a row
+  // slabs a row: DQP 96 (the exact-width pair) takes two, TMA zero-filling
+  // the second past column 96
+  static constexpr int SQ = (DQP + SLAB - 1) / SLAB;
+  static constexpr int SV = (DVP + SLAB - 1) / SLAB;
   static constexpr int TQ = SQ * TR * 128;      // one 64-row tile of q or k
   static constexpr int TV = SV * TR * 128;      // one of v or do
   static constexpr int KQ = SQ * BK * 128;      // (a)'s BK-row K tile
   static constexpr int KV = SV * BK * 128;      // (a)'s BK-row V tile
   // (a): Q and dO (a tile per consumer each), then a stage of K and V; pass
   // 1 loads a second K tile into the V slot, which is the wider of the two
-  static constexpr int VSLOT = KQ > KV ? KQ : KV;
+  // (without pass 1, (a) from a saved LSE, the slot holds V alone)
+  static constexpr int VSLOT = PASS1 && KQ > KV ? KQ : KV;
   static constexpr int DQ_SMEM =
       1024 + 2 * TQ + 2 * TV + STAGES * (KQ + VSLOT);
   // (b): K and V (a tile per consumer each), then a stage of Q, dO, and
@@ -852,6 +873,32 @@ __device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
 }
 
 template <>
+__device__ __forceinline__ void wgmma_rs<96>(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
                                               uint64_t b) {
   asm volatile(
@@ -987,7 +1034,9 @@ __device__ __forceinline__ void gemm_rows(float (&c)[N / 2], uint32_t a,
 
 // C (64 x DP) += F M: F (64 x K) bf16 A fragments in registers, M a K-row
 // tile in shared memory read MN-major (dQ += dS K, dV += P^T dO, dK +=
-// dS^T Q)
+// dS^T Q). At DP 96 M spans one and a half 64-column slabs: one N = 96
+// product whose descriptor steps to the second slab by its leading byte
+// offset
 template <int DP, int K>
 __device__ __forceinline__ void gemm_frags(float (&c)[DP / 2],
                                            uint32_t (&f)[K / 16][4],
@@ -1022,17 +1071,160 @@ __device__ __forceinline__ int next_kv(const Args& a, int row0, int n,
   return n;
 }
 
-// (a) for a 128-row q tile (two consumers of 64 rows) with BK-key tiles:
-// the body of bwd_dq_bf16 (BK 64) and bwd_dq_wide_bf16. RAGGED false: the
-// call has no kv_valid_len
+// The exact-width pair's order of CTAs: the (sequence, head) pairs in
+// groups of GROUP_BH, each group's tiles in turn from the heaviest causal
+// one, head by head within a tile, so that the CTAs in flight read the K
+// and V ((a)) or the Q and dO ((b)) of about GROUP_BH heads, which stay in
+// L2 (all 40 of minicpm3's, 52 MB, do not). The other instances take the
+// grid as it comes (the slowest index the tile).
+constexpr int GROUP_BH = 8;
+
+// this CTA's (sequence, head) pair bh of n_bh, and its tile of n_t in
+// that order (0 the first)
+__device__ __forceinline__ void grouped_unit(int n_bh, int n_t, int& bh,
+                                             int& tile) {
+  const int u =
+      blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int g0 = u / (GROUP_BH * n_t) * GROUP_BH;   // the group's first bh
+  const int gn = min(GROUP_BH, n_bh - g0);          // and its size
+  const int r = u - g0 * n_t;
+  tile = r / gn;
+  bh = g0 + r % gn;
+}
+
+// (a)'s CTA: the first of its 128 q rows, its head and sequence
+struct DqUnit {
+  int row0, h, b;
+};
+template <int DQP>
+__device__ __forceinline__ DqUnit dq_unit(const Args& a) {
+  if constexpr (DQP == 96) {
+    const int nqt = (a.Lq + 2 * TR - 1) / (2 * TR);
+    int bh, tile;
+    grouped_unit(a.B * a.H, nqt, bh, tile);
+    return {(nqt - 1 - tile) * 2 * TR, bh % a.H, bh / a.H};
+  } else {
+    // the heaviest causal q tiles first: the q tile is the slowest grid
+    // index, reversed
+    return {(int)((gridDim.z - 1 - blockIdx.z) * 2 * TR), (int)blockIdx.x,
+            (int)blockIdx.y};
+  }
+}
+
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// (a) from a saved LSE takes one batch of products a tile: S and dP of
+// tile j, then dQ of tile j - 1, as two commit groups; wait_group 1
+// retires the first, and tile j's dS runs in place (f32) under dQ(j - 1),
+// whose fragments it may not overwrite until wait_group 0, as K4's
+// persistent forward overlaps its softmax with P V (false: S and dP
+// issued and waited for, then dQ, as the other instances;
+// tools/bwd_variants.py's dq-nopipeline). Issuing S and dP of tile j + 1
+// into a second register set before tile j's softmax measured 0.5982 ms
+// against 0.4441 at minicpm3's call on an H100: ptxas serialised every
+// wgmma of the kernel.
+constexpr bool DQ_PIPELINE = true;
+
+// the pass 2 of (a) from a saved LSE, one consumer's 64 rows (rl, rl + 8
+// a thread's), as DQ_PIPELINE says. ``it`` counts the stages taken;
+// ``held`` is left at the stage the last dQ, in flight, reads.
 template <int DQP, int DVP, int BK, bool RAGGED>
+__device__ __forceinline__ void dq_pipelined_loop(
+    const Args& a, float (&s)[2][BK / 2], float (&acc)[DQP / 2],
+    uint32_t (&dsf)[BK / 16][4], const float (&lse2)[2],
+    const float (&dsr)[2], unsigned char* Ks, unsigned char* Vs,
+    uint64_t* full, uint64_t* empty, uint32_t q_addr, uint32_t do_addr,
+    int row0, int r0, int rl, int t, int lane, int nkt, int kend, int& it,
+    int& held) {
+  using T = Tiles<DQP, DVP, BK, false>;
+  const float sl2 = a.scale * LOG2E;
+  float (&p)[BK / 2] = s[0];
+  float (&dp)[BK / 2] = s[1];
+  auto issue_s = [&](int st) {                           // S and dP
+    gemm_rows<DQP, BK>(p, q_addr, smem_u32(Ks + st * T::KQ));
+    gemm_rows<DVP, BK>(dp, do_addr, smem_u32(Vs + st * T::VSLOT));
+  };
+  // dS = P (dP - D) of the tile at k0, in place in p
+  auto ds = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      p[i] = ex2(fmaf(p[i], sl2, -lse2[(i >> 1) & 1]));
+    if (!(k0 + BK <= a.Lkv &&
+          tile_full<RAGGED>(a, r0, r0 + TR, k0, k0 + BK, kend)))
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)           // an edge tile: the mask
+        if (!allowed(a, rl + 8 * ((i >> 1) & 1),
+                     k0 + 8 * (i >> 2) + 2 * t + (i & 1), kend))
+          p[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) p[i] *= dp[i] - dsr[(i >> 1) & 1];
+  };
+  int n = next_kv<BK>(a, row0, 0, nkt, kend);
+  if (n >= nkt) return;
+  int st = it % STAGES;
+  mbar_wait(full + st, (it / STAGES) & 1);
+  ++it;
+  keep(p);
+  keep(dp);
+  wgmma_fence();
+  issue_s(st);
+  wgmma_commit();
+  wgmma_wait0();
+  keep(p);
+  keep(dp);
+  ds(n * BK);
+  for (int nn = next_kv<BK>(a, row0, n + 1, nkt, kend); nn < nkt;
+       nn = next_kv<BK>(a, row0, nn + 1, nkt, kend)) {
+    const int st2 = it % STAGES;
+    mbar_wait(full + st2, (it / STAGES) & 1);
+    ++it;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) to_frag(p, kk, dsf[kk]);
+    keep(p);
+    keep(dp);
+    keep(acc);
+    keep(dsf);
+    wgmma_fence();
+    issue_s(st2);
+    wgmma_commit();
+    gemm_frags<DQP, BK>(acc, dsf, smem_u32(Ks + st * T::KQ));  // MN-major
+    wgmma_commit();
+    wgmma_wait1();                            // S and dP of tile nn
+    keep(p);
+    keep(dp);
+    ds(nn * BK);
+    wgmma_wait0();                            // dQ of tile n
+    keep(acc);
+    keep(dsf);
+    if (lane == 0) mbar_arrive(empty + st);
+    n = nn;
+    st = st2;
+  }
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) to_frag(p, kk, dsf[kk]);
+  keep(acc);
+  keep(dsf);
+  wgmma_fence();
+  gemm_frags<DQP, BK>(acc, dsf, smem_u32(Ks + st * T::KQ));
+  wgmma_commit();
+  held = st;
+}
+
+// (a) for a 128-row q tile (two consumers of 64 rows) with BK-key tiles:
+// the body of bwd_dq_bf16 (BK 64), bwd_dq_wide_bf16 and bwd_dq_lse_bf16.
+// RAGGED false: the call has no kv_valid_len. PASS1 false: the LSE comes
+// from the forward (a.lse, which K4's flash_bf16_persistent_lse wrote), so
+// pass 1 is not run and only D is written
+template <int DQP, int DVP, int BK, bool RAGGED, bool PASS1 = true>
 __device__ __forceinline__ void dq_tma(const CUtensorMap& tq,
                                        const CUtensorMap& tk,
                                        const CUtensorMap& tv,
                                        const CUtensorMap& tdo, const Args& a,
                                        unsigned char* smem_raw,
                                        uint64_t* bars) {
-  using T = Tiles<DQP, DVP, BK>;
+  using T = Tiles<DQP, DVP, BK, PASS1>;
   unsigned char* Qs = align1024(smem_raw);
   unsigned char* dOs = Qs + 2 * T::TQ;
   unsigned char* Ks = dOs + 2 * T::TV;            // [STAGES] K tiles
@@ -1040,10 +1232,9 @@ __device__ __forceinline__ void dq_tma(const CUtensorMap& tq,
   uint64_t* qd_full = bars;
   uint64_t* full = bars + 1;
   uint64_t* empty = full + STAGES;
-  // the heaviest causal q tiles first: the q tile is the slowest grid
-  // index, reversed
-  const int row0 = (gridDim.z - 1 - blockIdx.z) * 2 * TR;
-  const int h = blockIdx.x, b = blockIdx.y, hk = h / a.G;
+  const DqUnit unit = dq_unit<DQP>(a);
+  const int row0 = unit.row0;
+  const int h = unit.h, b = unit.b, hk = h / a.G;
   const int nkt = (a.Lkv + BK - 1) / BK;
   const int kend = RAGGED ? kv_end(a, b) : a.Lkv;
   if (threadIdx.x == 0) {
@@ -1072,7 +1263,7 @@ __device__ __forceinline__ void dq_tma(const CUtensorMap& tq,
                    sl * SLAB, h, row0 + TR * half, b);
       }
       int it = 0;
-      for (int pass = 0; pass < 2; ++pass)
+      for (int pass = PASS1 ? 0 : 1; pass < 2; ++pass)
         for (int n = next_kv<BK>(a, row0, 0, nkt, kend); n < nkt;) {
           const int n2 = pass ? n : next_kv<BK>(a, row0, n + 1, nkt, kend);
           const int st = it % STAGES;
@@ -1135,111 +1326,127 @@ __device__ __forceinline__ void dq_tma(const CUtensorMap& tq,
       acc += __shfl_xor_sync(0xffffffffu, acc, 2);
       dsr[r] = acc;
     }
+    float lse2[2];
+    if constexpr (!PASS1) {
+      // the forward's LSE, in the same units, +inf past Lq, read while Q
+      // and dO land; rows past Lqp (the second consumer of a last 64-row
+      // tile) read none
+      const int Lqp = (a.Lq + TR - 1) / TR * TR;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = rl + 8 * r;
+        const size_t at = ((size_t)b * a.H + h) * Lqp + row;
+        lse2[r] = row < Lqp ? a.lse[at] : INFINITY;
+        if (t == 0 && row < Lqp) a.dsum[at] = row < a.Lq ? dsr[r] : 0.f;
+      }
+    }
     // Both consumers run every live kv tile of the CTA (where one's rows
     // see no key of it, the mask gives P = 0).
     mbar_wait(qd_full, 0);
-    // pass 1: the row max m and sum l, online, in the exp2 domain, over a
-    // stage's two tiles at once (x[1] of the last stage may be empty: k0b
-    // < 0). Row sums and maxima go through four partials each, so that no
-    // dependent chain is longer than 8.
-    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    // The mask writes a copy: an instruction that writes the accumulator
-    // registers themselves makes ptxas serialise every wgmma of the kernel.
-    auto row_stats = [&](const float (&acc_s)[2][BK / 2], int k0a, int k0b) {
-      float x[2][BK / 2];
-#pragma unroll
-      for (int tt = 0; tt < 2; ++tt)
-#pragma unroll
-        for (int i = 0; i < BK / 2; ++i) x[tt][i] = acc_s[tt][i];
-#pragma unroll
-      for (int tt = 0; tt < 2; ++tt) {
-        const int k0 = tt ? k0b : k0a;
-        if (k0 < 0) {
-#pragma unroll
-          for (int i = 0; i < BK / 2; ++i) x[tt][i] = -INFINITY;
-        } else if (!(k0 + BK <= a.Lkv &&
-                     tile_full<RAGGED>(a, r0, r0 + TR, k0, k0 + BK,
-                                       kend))) {
-          // an edge tile: the causal diagonal, the window's far edge, the
-          // prefix boundary, kend, the sequence's end
-#pragma unroll
-          for (int i = 0; i < BK / 2; ++i)
-            if (!allowed(a, rl + 8 * ((i >> 1) & 1),
-                         k0 + 8 * (i >> 2) + 2 * t + (i & 1), kend))
-              x[tt][i] = -INFINITY;
-        }
-      }
-      float mp[2][4], lp[2][4];
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) mp[r][c] = -INFINITY, lp[r][c] = 0.f;
-#pragma unroll
-      for (int tt = 0; tt < 2; ++tt)
-#pragma unroll
-        for (int i = 0; i < BK / 2; ++i) {
-          float& mx = mp[(i >> 1) & 1][((i >> 2) & 1) * 2 + (i & 1)];
-          mx = fmaxf(mx, x[tt][i]);
-        }
-      float safe[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mt = fmaxf(fmaxf(mp[r][0], mp[r][1]),
-                         fmaxf(mp[r][2], mp[r][3]));
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-        const float mn = fmaxf(m[r], mt * sl2);
-        safe[r] = mn == -INFINITY ? 0.f : mn;
-        l[r] *= ex2(m[r] - safe[r]);                // 0 while m is -inf
-        m[r] = mn;
-      }
-#pragma unroll
-      for (int tt = 0; tt < 2; ++tt)
-#pragma unroll
-        for (int i = 0; i < BK / 2; ++i) {
-          const int r = (i >> 1) & 1;
-          lp[r][((i >> 2) & 1) * 2 + (i & 1)] +=
-              ex2(fmaf(x[tt][i], sl2, -safe[r]));
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float ls = (lp[r][0] + lp[r][1]) + (lp[r][2] + lp[r][3]);
-        ls += __shfl_xor_sync(0xffffffffu, ls, 1);
-        ls += __shfl_xor_sync(0xffffffffu, ls, 2);
-        l[r] += ls;
-      }
-    };
     float s[2][BK / 2];
     int it = 0;
-    for (int n = next_kv<BK>(a, row0, 0, nkt, kend); n < nkt;) {
-      const int n2 = next_kv<BK>(a, row0, n + 1, nkt, kend);
-      const int st = it % STAGES;
-      mbar_wait(full + st, (it / STAGES) & 1);
-      ++it;
-      wgmma_fence();
-      gemm_rows<DQP, BK>(s[0], q_addr, smem_u32(Ks + st * T::KQ));   // S
-      if (n2 < nkt)
-        gemm_rows<DQP, BK>(s[1], q_addr, smem_u32(Vs + st * T::VSLOT));
-      wgmma_commit();
-      wgmma_wait0();
-      keep(s[0]);
-      keep(s[1]);
-      if (lane == 0) mbar_arrive(empty + st);
-      row_stats(s, n * BK, n2 < nkt ? n2 * BK : -1);
-      n = n2 < nkt ? next_kv<BK>(a, row0, n2 + 1, nkt, kend) : nkt;
-    }
-    // LSE in log2 units; +inf where a row sees no key (and past Lq), so
-    // that P = 2^(S log2e scale - LSE) is 0 there without a mask
-    const int Lqp = (a.Lq + TR - 1) / TR * TR;
-    float lse2[2];
+    if constexpr (PASS1) {
+      // pass 1: the row max m and sum l, online, in the exp2 domain, over a
+      // stage's two tiles at once (x[1] of the last stage may be empty: k0b
+      // < 0). Row sums and maxima go through four partials each, so that no
+      // dependent chain is longer than 8.
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+      // The mask writes a copy: an instruction that writes the accumulator
+      // registers themselves makes ptxas serialise every wgmma of the kernel.
+      auto row_stats = [&](const float (&acc_s)[2][BK / 2], int k0a,
+                           int k0b) {
+        float x[2][BK / 2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = rl + 8 * r;
-      lse2[r] = l[r] > 0.f ? m[r] + log2f(l[r]) : INFINITY;
-      if (t == 0 && row < Lqp) {
-        const size_t at = ((size_t)b * a.H + h) * Lqp + row;
-        a.lse[at] = row < a.Lq ? lse2[r] : INFINITY;
-        a.dsum[at] = row < a.Lq ? dsr[r] : 0.f;
+        for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i) x[tt][i] = acc_s[tt][i];
+#pragma unroll
+        for (int tt = 0; tt < 2; ++tt) {
+          const int k0 = tt ? k0b : k0a;
+          if (k0 < 0) {
+#pragma unroll
+            for (int i = 0; i < BK / 2; ++i) x[tt][i] = -INFINITY;
+          } else if (!(k0 + BK <= a.Lkv &&
+                       tile_full<RAGGED>(a, r0, r0 + TR, k0, k0 + BK,
+                                         kend))) {
+            // an edge tile: the causal diagonal, the window's far edge, the
+            // prefix boundary, kend, the sequence's end
+#pragma unroll
+            for (int i = 0; i < BK / 2; ++i)
+              if (!allowed(a, rl + 8 * ((i >> 1) & 1),
+                           k0 + 8 * (i >> 2) + 2 * t + (i & 1), kend))
+                x[tt][i] = -INFINITY;
+          }
+        }
+        float mp[2][4], lp[2][4];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) mp[r][c] = -INFINITY, lp[r][c] = 0.f;
+#pragma unroll
+        for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i) {
+            float& mx = mp[(i >> 1) & 1][((i >> 2) & 1) * 2 + (i & 1)];
+            mx = fmaxf(mx, x[tt][i]);
+          }
+        float safe[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mt = fmaxf(fmaxf(mp[r][0], mp[r][1]),
+                           fmaxf(mp[r][2], mp[r][3]));
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+          mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+          const float mn = fmaxf(m[r], mt * sl2);
+          safe[r] = mn == -INFINITY ? 0.f : mn;
+          l[r] *= ex2(m[r] - safe[r]);                // 0 while m is -inf
+          m[r] = mn;
+        }
+#pragma unroll
+        for (int tt = 0; tt < 2; ++tt)
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i) {
+            const int r = (i >> 1) & 1;
+            lp[r][((i >> 2) & 1) * 2 + (i & 1)] +=
+                ex2(fmaf(x[tt][i], sl2, -safe[r]));
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float ls = (lp[r][0] + lp[r][1]) + (lp[r][2] + lp[r][3]);
+          ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+          ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+          l[r] += ls;
+        }
+      };
+      for (int n = next_kv<BK>(a, row0, 0, nkt, kend); n < nkt;) {
+        const int n2 = next_kv<BK>(a, row0, n + 1, nkt, kend);
+        const int st = it % STAGES;
+        mbar_wait(full + st, (it / STAGES) & 1);
+        ++it;
+        wgmma_fence();
+        gemm_rows<DQP, BK>(s[0], q_addr, smem_u32(Ks + st * T::KQ));   // S
+        if (n2 < nkt)
+          gemm_rows<DQP, BK>(s[1], q_addr, smem_u32(Vs + st * T::VSLOT));
+        wgmma_commit();
+        wgmma_wait0();
+        keep(s[0]);
+        keep(s[1]);
+        if (lane == 0) mbar_arrive(empty + st);
+        row_stats(s, n * BK, n2 < nkt ? n2 * BK : -1);
+        n = n2 < nkt ? next_kv<BK>(a, row0, n2 + 1, nkt, kend) : nkt;
+      }
+      // LSE in log2 units; +inf where a row sees no key (and past Lq), so
+      // that P = 2^(S log2e scale - LSE) is 0 there without a mask
+      const int Lqp = (a.Lq + TR - 1) / TR * TR;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = rl + 8 * r;
+        lse2[r] = l[r] > 0.f ? m[r] + log2f(l[r]) : INFINITY;
+        if (t == 0 && row < Lqp) {
+          const size_t at = ((size_t)b * a.H + h) * Lqp + row;
+          a.lse[at] = row < a.Lq ? lse2[r] : INFINITY;
+          a.dsum[at] = row < a.Lq ? dsr[r] : 0.f;
+        }
       }
     }
     // pass 2: dS = P (dP - D); dQ += dS K. A tile's dQ product is waited
@@ -1250,6 +1457,11 @@ __device__ __forceinline__ void dq_tma(const CUtensorMap& tq,
     for (int i = 0; i < DQP / 2; ++i) acc[i] = 0.f;
     uint32_t dsf[BK / 16][4];
     int held = -1;                          // the stage the last dQ reads
+    if constexpr (!PASS1 && DQ_PIPELINE) {
+      dq_pipelined_loop<DQP, DVP, BK, RAGGED>(
+          a, s, acc, dsf, lse2, dsr, Ks, Vs, full, empty, q_addr, do_addr,
+          row0, r0, rl, t, lane, nkt, kend, it, held);
+    } else {
     for (int n = next_kv<BK>(a, row0, 0, nkt, kend); n < nkt;
          n = next_kv<BK>(a, row0, n + 1, nkt, kend)) {
       const int k0 = n * BK;
@@ -1288,6 +1500,7 @@ __device__ __forceinline__ void dq_tma(const CUtensorMap& tq,
       wgmma_commit();
       held = st;
     }
+    }
     wgmma_wait0();
     keep(acc);
     if (held >= 0 && lane == 0) mbar_arrive(empty + held);
@@ -1321,6 +1534,19 @@ bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
   dq_tma<DQP, DVP, TR, RAGGED>(tq, tk, tv, tdo, a, smem_raw, bars);
 }
 
+// (a) at the exact widths <96, 64> from the LSE that K4's training forward
+// wrote: pass 2 alone; RAGGED as bwd_dq_bf16's
+template <int DQP, int DVP, bool RAGGED>
+__global__ void __launch_bounds__(HTHREADS, 1)
+bwd_dq_lse_bf16(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo, const Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
+  dq_tma<DQP, DVP, TR, RAGGED, false>(tq, tk, tv, tdo, a, smem_raw, bars);
+}
+
 // (a) past 128: <192, 128> at 64-key tiles, <256, 256> at 32
 template <int DQP, int DVP>
 __global__ void __launch_bounds__(HTHREADS, 1)
@@ -1332,6 +1558,134 @@ bwd_dq_wide_bf16(const __grid_constant__ CUtensorMap tq,
   __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
   dq_tma<DQP, DVP, dq_bk<DQP, DVP>(), true>(tq, tk, tv, tdo, a, smem_raw,
                                              bars);
+}
+
+// (b) at <96, 64> issues one batch a tile: S^T and dP^T of tile j, then
+// dV and dK of tile j - 1, as two commit groups; wait_group 1 retires the
+// first, and tile j's softmax runs in place (f32) under dV and dK(j - 1),
+// whose fragments it may not overwrite until wait_group 0 (false: two
+// turns a tile, each waited for, as the other instances;
+// tools/bwd_variants.py's dkv-nopipeline)
+constexpr bool DKV_PIPELINE = true;
+
+// (b)'s loop over the n live (head, q tile)s of the CTA at <96, 64>, one
+// consumer's 64 keys (kr0; a thread's kl, kl + 8), in the producer's order;
+// its two consumers issue freely, without (b)'s turns elsewhere (measured
+// faster, PERF.md)
+template <int DQP, int DVP, bool RAGGED>
+__device__ __forceinline__ void dkv_pipelined_loop(
+    const Args& a, float (&dk)[DQP / 2], float (&dv)[DVP / 2],
+    float (&s)[TR / 2], float (&dp)[TR / 2], uint32_t (&pf)[TR / 16][4],
+    uint32_t (&dsf)[TR / 16][4], unsigned char* ring, uint64_t* full,
+    uint64_t* empty, uint64_t* kv_full, uint32_t k_addr, uint32_t v_addr,
+    int k0, int kr0, int kl, int t, int lane, int nqt, int n, int kend) {
+  using T = Tiles<DQP, DVP>;
+  const float sl2 = a.scale * LOG2E;
+  mbar_wait(kv_full, 0);
+  if (n == 0) return;
+  int qt = -1;                          // the live q tiles, head by head
+  auto next_q0 = [&]() {
+    do {
+      qt = qt + 1 == nqt ? 0 : qt + 1;
+    } while (!tile_live(a, qt * TR, qt * TR + TR, k0, k0 + 2 * TR, kend));
+    return qt * TR;
+  };
+  auto stage = [&](int j) { return ring + (j % STAGES) * T::DKV_STAGE; };
+  auto issue_s = [&](int j) {                     // S^T = K Q^T, dP^T
+    gemm_rows<DQP, TR>(s, k_addr, smem_u32(stage(j)));
+    gemm_rows<DVP, TR>(dp, v_addr, smem_u32(stage(j) + T::TQ));
+  };
+  auto issue_kv = [&](int j) {          // dV += P^T dO, dK += dS^T Q
+    gemm_frags<DVP, TR>(dv, pf, smem_u32(stage(j) + T::TQ));
+    gemm_frags<DQP, TR>(dk, dsf, smem_u32(stage(j)));
+  };
+  // P^T and dS^T of tile j (queries q0..) in place, as the other
+  // instances compute them
+  auto softmax = [&](int j, int q0) {
+    const float* Ls =
+        reinterpret_cast<const float*>(stage(j) + T::TQ + T::TV);
+    const float* Ds = Ls + TR;
+#pragma unroll
+    for (int jj = 0; jj < TR / 8; ++jj) {         // P^T
+      const float2 lv = *reinterpret_cast<const float2*>(Ls + 8 * jj + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float& x = s[4 * jj + e];
+        x = ex2(fmaf(x, sl2, (e & 1) ? -lv.y : -lv.x));
+      }
+    }
+    if (!tile_full<RAGGED>(a, q0, q0 + TR, kr0, kr0 + TR, kend))
+#pragma unroll
+      for (int i = 0; i < TR / 2; ++i)           // an edge tile: the mask
+        if (!allowed(a, q0 + 8 * (i >> 2) + 2 * t + (i & 1),
+                     kl + 8 * ((i >> 1) & 1), kend))
+          s[i] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < TR / 8; ++jj) {
+      const float2 dd = *reinterpret_cast<const float2*>(Ds + 8 * jj + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {                        // dS^T
+        float& x = dp[4 * jj + e];
+        x = s[4 * jj + e] * (x - ((e & 1) ? dd.y : dd.x));
+      }
+    }
+  };
+  auto frags = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < TR / 16; ++kk) {
+      to_frag(s, kk, pf[kk]);
+      to_frag(dp, kk, dsf[kk]);
+    }
+  };
+  int q0 = next_q0();
+  mbar_wait(full, 0);
+  keep(s);
+  keep(dp);
+  wgmma_fence();
+  issue_s(0);
+  wgmma_commit();
+  wgmma_wait0();
+  keep(s);
+  keep(dp);
+  softmax(0, q0);
+  frags();
+  for (int j = 1; j < n; ++j) {
+    q0 = next_q0();
+    mbar_wait(full + j % STAGES, (j / STAGES) & 1);
+    keep(s);
+    keep(dp);
+    keep(dk);
+    keep(dv);
+    keep(pf);
+    keep(dsf);
+    wgmma_fence();
+    issue_s(j);
+    wgmma_commit();
+    issue_kv(j - 1);
+    wgmma_commit();
+    wgmma_wait1();                            // S^T and dP^T of tile j
+    keep(s);
+    keep(dp);
+    softmax(j, q0);
+    wgmma_wait0();                            // dV and dK of tile j - 1
+    keep(dk);
+    keep(dv);
+    keep(pf);
+    keep(dsf);
+    if (lane == 0) mbar_arrive(empty + (j - 1) % STAGES);
+    frags();
+  }
+  keep(dk);
+  keep(dv);
+  keep(pf);
+  keep(dsf);
+  wgmma_fence();
+  issue_kv(n - 1);
+  wgmma_commit();
+  wgmma_wait0();
+  keep(dk);
+  keep(dv);
+  if (lane == 0) mbar_arrive(empty + (n - 1) % STAGES);
 }
 
 // (b), Dq and Dv <= 128: 128 keys, 64 a consumer; RAGGED as (a)'s
@@ -1351,9 +1705,16 @@ bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
   uint64_t* full = bars + 1;
   uint64_t* empty = full + STAGES;
   // the heaviest causal kv tiles (the first) first: the kv tile is the
-  // slowest grid index
-  const int k0 = blockIdx.z * 2 * TR;
-  const int hk = blockIdx.x, b = blockIdx.y;
+  // slowest grid index (at <96, 64> in groups of heads, grouped_unit)
+  int k0 = blockIdx.z * 2 * TR;
+  int hk = blockIdx.x, b = blockIdx.y;
+  if constexpr (DQP == 96) {
+    int bh, tile;
+    grouped_unit(a.B * a.Hkv, (a.Lkv + 2 * TR - 1) / (2 * TR), bh, tile);
+    k0 = tile * 2 * TR;
+    hk = bh % a.Hkv;
+    b = bh / a.Hkv;
+  }
   const int nqt = (a.Lq + TR - 1) / TR, Lqp = nqt * TR;
   const int kend = RAGGED ? kv_end(a, b) : a.Lkv;
   if (threadIdx.x == 0) {
@@ -1428,6 +1789,11 @@ bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
     int nlive = 0;
     for (int qt = 0; qt < nqt; ++qt)
       nlive += tile_live(a, qt * TR, qt * TR + TR, k0, k0 + 2 * TR, kend);
+    if constexpr (DQP == 96 && DKV_PIPELINE) {
+      dkv_pipelined_loop<DQP, DVP, RAGGED>(
+          a, dk, dv, s, dp, pf, dsf, ring, full, empty, kv_full, k_addr,
+          v_addr, k0, kr0, kl, t, lane, nqt, a.G * nlive, kend);
+    } else {
     Turns turns(cw, 2 * a.G * nlive);
     mbar_wait(kv_full, 0);
     int it = 0;
@@ -1503,6 +1869,7 @@ bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
         keep(dv);
         if (lane == 0) mbar_arrive(empty + st);
       }
+    }
     }
     const size_t ks = (size_t)a.Hkv * a.D, vs = (size_t)a.Hkv * a.Dv;
     const size_t krow = (size_t)b * a.Lkv * a.Hkv + hk;
@@ -2243,13 +2610,17 @@ static cudaError_t run_tma(Kern kern, dim3 grid, int smem, int kv_rows,
   return cudaGetLastError();
 }
 
-// the dynamic shared memory of the wgmma kernel of part 0 ((a)) or 1 ((b))
-// at <DQP, DVP>: the pair up to 128, the wide pair past it
+// the dynamic shared memory of the wgmma kernel of part 0 ((a)), 1 ((b))
+// or 3 ((a) from a saved LSE, <96, 64> alone) at <DQP, DVP>: the pair up to
+// 128, the wide pair past it; part 0 at <96, 64> launches (a) at <128, 64>
 template <int DQP, int DVP>
 constexpr int tma_smem(int part) {
   if constexpr (DQP > 128)
     return part ? WideKV<DQP, DVP>::SMEM
                 : Tiles<DQP, DVP, dq_bk<DQP, DVP>()>::DQ_SMEM;
+  else if constexpr (DQP == 96)
+    return part == 3 ? Tiles<DQP, DVP, TR, false>::DQ_SMEM
+         : part ? Tiles<DQP, DVP>::DKV_SMEM : Tiles<128, DVP>::DQ_SMEM;
   else
     return part ? Tiles<DQP, DVP>::DKV_SMEM : Tiles<DQP, DVP>::DQ_SMEM;
 }
@@ -2258,7 +2629,9 @@ template <int N>
 using Int = std::integral_constant<int, N>;
 
 // f(Int<DQP>(), Int<DVP>()) at the widths a bf16 call at head dims D and
-// Dv takes: 64 or 128 each up to 128, past it <192, 128> or <256, 256>
+// Dv takes: 64 or 128 each up to 128, but Dq in (64, 96] with Dv <= 64
+// (minicpm3's MLA) at the exact widths <96, 64>; past 128 <192, 128> or
+// <256, 256>
 template <typename F>
 static auto at_widths(int D, int Dv, F f) {
   if (D > 128 || Dv > 128)
@@ -2266,16 +2639,29 @@ static auto at_widths(int D, int Dv, F f) {
                                  : f(Int<256>(), Int<256>());
   if (D <= 64)
     return Dv <= 64 ? f(Int<64>(), Int<64>()) : f(Int<64>(), Int<128>());
+  if (D <= 96 && Dv <= 64) return f(Int<96>(), Int<64>());
   return Dv <= 64 ? f(Int<128>(), Int<64>()) : f(Int<128>(), Int<128>());
 }
 
-// the wgmma pair, Dq and Dv <= 128, with or without kv_valid_len
+// the wgmma pair, Dq and Dv <= 128, with or without kv_valid_len. At
+// <96, 64> (a) from a saved LSE is part 3, and part 0 (a call without one)
+// takes (a) at <128, 64>: pass 1 recovers the LSE there
 template <int DQP, int DVP, bool RAGGED>
 static cudaError_t run_pair(const Args& a, int part, cudaStream_t s) {
-  if (part == 0)
-    return run_tma(bwd_dq_bf16<DQP, DVP, RAGGED>,
-                   dim3(a.H, a.B, (a.Lq + 2 * TR - 1) / (2 * TR)),
-                   tma_smem<DQP, DVP>(0), TR, a, s);
+  const dim3 qgrid(a.H, a.B, (a.Lq + 2 * TR - 1) / (2 * TR));
+  if constexpr (DQP == 96) {
+    if (part == 3)
+      return run_tma(bwd_dq_lse_bf16<DQP, DVP, RAGGED>, qgrid,
+                     tma_smem<DQP, DVP>(3), TR, a, s);
+    if (part == 0)
+      return run_tma(bwd_dq_bf16<128, DVP, RAGGED>, qgrid,
+                     tma_smem<DQP, DVP>(0), TR, a, s);
+  } else {
+    if (part == 3) return cudaErrorInvalidValue;
+    if (part == 0)
+      return run_tma(bwd_dq_bf16<DQP, DVP, RAGGED>, qgrid,
+                     tma_smem<DQP, DVP>(0), TR, a, s);
+  }
   return run_tma(bwd_dkv_bf16<DQP, DVP, RAGGED>,
                  dim3(a.Hkv, a.B, (a.Lkv + 2 * TR - 1) / (2 * TR)),
                  tma_smem<DQP, DVP>(1), TR, a, s);
@@ -2388,11 +2774,14 @@ static cudaError_t run_cc_f32(const Args& a, int part, cudaStream_t s) {
 // which reads lse and dsum and writes dk and dv; part 2 launches the f32
 // one-pass kernel, which writes dq, dk and dv and takes no lse or dsum
 // (null), for Lq, Lkv <= 64 at head dims up to 128 and Lq, Lkv <= 32 up to
-// 256. All tensors contiguous (B, L, H, D) for q, k, dq, dk and (B, L, H,
-// Dv) for v, o, do, dv; lse and dsum (B, H, Lq) f32, in bf16 (the wgmma
-// pairs) (B, H, Lq rounded up to 64). kvl: kv_valid_len, int32 (B,), or
-// null. bf16 takes D and Dv multiples of 8 and 16-byte aligned bases; a
-// bf16 call with D or Dv over 128 takes the wide pair. scale_dim is the
+// 256; part 3 launches (a) from a saved LSE (bf16, Dq in (64, 96] with Dv
+// <= 64 alone: lse holds what K4's training forward wrote), which reads lse
+// and writes dq and dsum. All tensors contiguous (B, L, H, D) for q, k,
+// dq, dk and (B, L, H, Dv) for v, o, do, dv; lse and dsum (B, H, Lq) f32,
+// in bf16 (the wgmma pairs) (B, H, Lq rounded up to 64). kvl:
+// kv_valid_len, int32 (B,), or null. bf16 takes D and Dv multiples of 8
+// and 16-byte aligned bases; a bf16 call with D or Dv over 128 takes the
+// wide pair. scale_dim is the
 // head dim of the scale 1 / sqrt(scale_dim). Returns the launch's CUDA
 // error code (0 on success).
 extern "C" int flash_attention_bwd(
@@ -2418,6 +2807,9 @@ extern "C" int flash_attention_bwd(
                          reinterpret_cast<uintptr_t>(lse) |
                          reinterpret_cast<uintptr_t>(dsum);
   if (is_bf16 && (D % 8 || Dv % 8 || ((bases | outs) & 15)))
+    return (int)cudaErrorInvalidValue;
+  if (part < 0 || part > 3 ||
+      (part == 3 && !(is_bf16 && D > 64 && D <= 96 && Dv <= 64)))
     return (int)cudaErrorInvalidValue;
   const int lmax = Lq > Lkv ? (int)Lq : (int)Lkv;
   if (part == 2 && (is_bf16 || lmax > (D > 128 || Dv > 128 ? 32 : 64)))
@@ -2451,12 +2843,14 @@ extern "C" int flash_attention_bwd(
 }
 
 // the dynamic shared memory (bytes) of the bf16 wgmma kernel that part 0
-// ((a)) or 1 ((b)) of a call at head dims D and Dv launches, or -1 outside
-// them; nothing is launched (a build's checks log it beside ptxas's report)
+// ((a)), 1 ((b)) or 3 ((a) from a saved LSE) of a call at head dims D and
+// Dv launches, or -1 outside them; nothing is launched (a build's checks
+// log it beside ptxas's report)
 extern "C" int flash_attention_bwd_smem(long long D, long long Dv,
                                         long long part) {
   using namespace fab;
-  if (D < 1 || D > 256 || Dv < 1 || Dv > 256 || part < 0 || part > 1)
+  if (D < 1 || D > 256 || Dv < 1 || Dv > 256 || part < 0 || part == 2 ||
+      part > 3 || (part == 3 && !(D > 64 && D <= 96 && Dv <= 64)))
     return -1;
   return at_widths((int)D, (int)Dv, [&](auto dq, auto dv) {
     return tma_smem<decltype(dq)::value, decltype(dv)::value>((int)part);

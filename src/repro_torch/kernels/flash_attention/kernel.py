@@ -9,9 +9,10 @@ import struct
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ref
 
-# the C entry point's 29 int64 arguments, packed into one bytes object
-_ARGS = struct.Struct("29q")
+# the C entry point's 30 int64 arguments, packed into one bytes object
+_ARGS = struct.Struct("30q")
 
 
 def _strides(t: torch.Tensor) -> list[int]:
@@ -27,7 +28,8 @@ def _strides(t: torch.Tensor) -> list[int]:
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            out: torch.Tensor, kv_valid: torch.Tensor | None, *, causal: bool,
            window: int, prefix_len: int, q_offset: int,
-           strides: tuple, entry=None) -> None:
+           strides: tuple, entry=None, lse: torch.Tensor | None = None
+           ) -> None:
     """q (B, Lq, H, Dq), k (B, Lkv, Hkv, Dq), v (B, Lkv, Hkv, Dv), each
     with unit stride in its head dim, read in place through their strides;
     ``out`` contiguous (B, Lq, H, Dv) of q's dtype; ``kv_valid`` (B,)
@@ -37,14 +39,18 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     they are (and ignore those of dims of length 1), the bf16 tensor maps
     take ``_strides``. ``entry``: another C entry point of the library
     with the same arguments (``tools/trace_kernels.py``'s unrouted
-    probe); default the routed one."""
+    probe); default the routed one. ``lse``: None, or a training call's
+    (B, H, Lq rounded up to 64) f32 buffer (``bwd_scratch``'s) that the
+    kernel fills with each row's LSE for the backward (bf16 at Dq in (64,
+    96] with Dv <= 64 alone: ``flash_bf16_persistent_lse``)."""
     fn = entry or _build.load("flash_attention")
     index = q.device.index
     if index != torch._C._cuda_getDevice():
         with torch.cuda.device(index):
             return launch(q, k, v, out, kv_valid, causal=causal,
                           window=window, prefix_len=prefix_len,
-                          q_offset=q_offset, strides=strides, entry=entry)
+                          q_offset=q_offset, strides=strides, entry=entry,
+                          lse=lse)
     B, Lq, H, Dq = q.shape
     is_bf16 = q.dtype == torch.bfloat16
     if is_bf16:
@@ -54,7 +60,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        0 if kv_valid is None else kv_valid.data_ptr(),
                        B, Lq, k.shape[1], H, k.shape[2], Dq, v.shape[3],
                        *strides, causal, window, prefix_len, q_offset,
-                       is_bf16),
+                       is_bf16, 0 if lse is None else lse.data_ptr()),
             # torch.cuda.current_stream(dev).cuda_stream, without building
             # a Stream object
             torch._C._cuda_getCurrentRawStream(index))
@@ -68,7 +74,7 @@ def bwd_scratch(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     loads whole tiles."""
     B, Lq, H, _ = q.shape
     if q.dtype == torch.bfloat16:
-        Lq = -(-Lq // 64) * 64
+        Lq = ref.lse_rows(Lq)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     return lse, torch.empty_like(lse)
 
@@ -83,7 +89,10 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """One of the backward's kernels (``csrc/flash_attention_bwd.cu``):
     ``part`` 0 (a) writes dq, ``lse`` and ``dsum``; ``part`` 1 (b) reads
     them and writes dk and dv; ``part`` 2, the f32 one-pass kernel, writes
-    dq, dk and dv and takes no ``lse`` or ``dsum`` (None). Every tensor
+    dq, dk and dv and takes no ``lse`` or ``dsum`` (None); ``part`` 3, (a)
+    from a saved LSE (bf16 at Dq in (64, 96] with Dv <= 64 alone), reads
+    ``lse`` (as K4's training forward wrote it) and writes dq and
+    ``dsum``. Every tensor
     contiguous: q, dq (B, Lq, H, Dq); o, do (B, Lq, H, Dv); k, dk (B, Lkv,
     Hkv, Dq); v, dv (B, Lkv, Hkv, Dv); lse, dsum from ``bwd_scratch``; in
     bf16 each 16-byte aligned with Dq and Dv multiples of 8 (the tensor

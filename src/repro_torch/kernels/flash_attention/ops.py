@@ -13,8 +13,10 @@ other pairs ``flash_bf16``. Launches are counted
 in ``flash_attention.launches``; of them, those with a value head dim
 other than the q/k one also in ``flash_attention.launches_dv``, and the
 other f32 ones in ``flash_attention.launches_f32`` (the two are
-disjoint); the bf16 ones on ``flash_bf16_persistent`` also in
-``flash_attention.launches_persistent``.
+disjoint); the bf16 ones on ``flash_bf16_persistent`` (or its
+``_lse`` instance) also in ``flash_attention.launches_persistent``, and
+those that write the LSE for the backward in
+``flash_attention.launches_lse``.
 
 The Dv mode (MLA: q/k of Dq = 96 with v of Dv = 64 in minicpm3, 192 with
 128 in deepseek-v2) is a port extension: the Pallas kernel takes one head
@@ -38,18 +40,24 @@ the kernels: an f32 call with Lq and Lkv at most 64 (32 past head dim
 128; the embedder's 24 tokens) takes one fused one-pass kernel, one
 launch with no LSE/D scratch; every other call a pair, (a) dQ then (b)
 dK/dV: the tiled pair ("tiled": the wgmma kernels in bf16 with both head
-dims at most 128, the CUDA-core kernels in f32) or, in bf16 past 128
-(paligemma's 256, deepseek-v2's (192, 128)), the wide wgmma pair
-("tiled_wide"). Every backward launch counts in
-``flash_attention.launches_bwd``; the f32 ones also in
-``flash_attention.launches_bwd_f32``, and of those the one-pass ones in
-``flash_attention.launches_bwd_f32_one_pass``; the bf16 "tiled_wide" ones
-in ``launches_bwd_wide``, and the other bf16 ones with Dv != Dq (the
-wgmma pair's MLA calls) in ``launches_bwd_dv``. No route falls back to
-another or to the plain version: a kernel that fails to build or launch
-raises. The backward is a port extension: the Pallas kernel has no VJP,
-and the reference differentiates its jnp attention (held against
-``jax.grad`` of ``repro/models/layers.py``'s ``flash_attention``).
+dims at most 128, the CUDA-core kernels in f32), in bf16 at minicpm3's
+class (Dq in (64, 96], Dv <= 64) the wgmma pair at its exact widths
+("tiled_exact", whose (a) takes the LSE that the forward saved), or, in
+bf16 past 128 (paligemma's 256, deepseek-v2's (192, 128)), the wide wgmma
+pair ("tiled_wide"). At that class (``saves_lse``) ``FlashAttentionFn``'s
+forward writes each row's LSE (K4's ``flash_bf16_persistent_lse``; on
+CPU tensors ``ref.attention_lse``) and saves it for the backward. Every
+backward launch counts in ``flash_attention.launches_bwd``; the f32 ones
+also in ``flash_attention.launches_bwd_f32``, and of those the one-pass
+ones in ``flash_attention.launches_bwd_f32_one_pass``; the bf16
+"tiled_wide" ones in ``launches_bwd_wide``, and the other bf16 ones with
+Dv != Dq (the wgmma pair's MLA calls) in ``launches_bwd_dv``, of which
+those of the exact-width instances in ``launches_bwd_exact``. No route
+falls back to another or to the plain version: a kernel that fails to
+build or launch raises. The backward is a port extension: the Pallas
+kernel has no VJP, and the reference differentiates its jnp attention
+(held against ``jax.grad`` of ``repro/models/layers.py``'s
+``flash_attention``).
 Serving, without grad, takes the plain forward route above.
 """
 from __future__ import annotations
@@ -91,16 +99,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_valid_len)
 
 
-def _forward(q, k, v, causal, window, prefix_len, q_offset, kv_valid_len
-             ) -> torch.Tensor:
-    """K4's launch on CUDA tensors, ``ref.attention_ref`` on CPU tensors."""
+def _forward(q, k, v, causal, window, prefix_len, q_offset, kv_valid_len,
+             with_lse: bool = False):
+    """K4's launch on CUDA tensors, ``ref.attention_ref`` on CPU tensors.
+    With ``with_lse`` (a call that ``saves_lse`` takes) it returns (out,
+    lse): the rows' LSE as ``ref.attention_lse`` gives it, written by the
+    kernel's ``_lse`` instance (the same out, bit for bit) or, on CPU
+    tensors, by ``ref.attention_lse``."""
     B, Lq, H, Dh = q.shape
     Lkv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if with_lse and not saves_lse(q.dtype, Dh, Dv):
+        raise ValueError(f"no kernel instance writes the LSE of a "
+                         f"{q.dtype} call at head dims {Dh}, {Dv}")
     if on_cpu(q, k, v, kv_valid_len):
-        return ref.attention_ref(q, k, v, causal=causal, window=window,
-                                 prefix_len=prefix_len, q_offset=q_offset,
-                                 kv_valid_len=kv_valid_len,
-                                 p_dtype=v.dtype)
+        out = ref.attention_ref(q, k, v, causal=causal, window=window,
+                                prefix_len=prefix_len, q_offset=q_offset,
+                                kv_valid_len=kv_valid_len, p_dtype=v.dtype)
+        if not with_lse:
+            return out
+        return out, ref.attention_lse(q, k, causal=causal, window=window,
+                                      prefix_len=prefix_len,
+                                      q_offset=q_offset,
+                                      kv_valid_len=kv_valid_len)
     dtype = q.dtype
     if dtype not in DTYPES or k.dtype != dtype or v.dtype != dtype:
         raise TypeError(f"q/k/v must all be float32 or all bfloat16, got "
@@ -128,35 +148,48 @@ def _forward(q, k, v, causal, window, prefix_len, q_offset, kv_valid_len
     if dtype == torch.bfloat16:
         tma_layout_check(q, k, v)
     out = torch.empty((B, Lq, H, Dv), dtype=dtype, device=q.device)
+    lse = torch.empty((B, H, ref.lse_rows(Lq)), dtype=torch.float32,
+                      device=q.device) if with_lse else None
     if not (B and Lq and H):
-        return out
+        return (out, lse) if with_lse else out
     K.launch(q, k, v, out, kv_valid_len, causal=causal,
              window=window or 0, prefix_len=prefix_len, q_offset=q_offset,
-             strides=strides)
+             strides=strides, lse=lse)
     flash_attention.launches += 1
+    flash_attention.launches_lse += with_lse
     if Dv != Dh:
         flash_attention.launches_dv += 1
     elif dtype == torch.float32:
         flash_attention.launches_f32 += 1
     if dtype == torch.bfloat16 and _persistent(Dh, Dv):
         flash_attention.launches_persistent += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_attention.launches = 0        # every K4 launch
 flash_attention.launches_f32 = 0    # of which f32 with Dv = Dq (embedder)
 flash_attention.launches_dv = 0     # of which Dv != Dq (MLA's prefill)
 flash_attention.launches_persistent = 0     # bf16 on flash_bf16_persistent
+flash_attention.launches_lse = 0    # of which writing the LSE (training)
 flash_attention.launches_bwd = 0    # every backward kernel launch
 flash_attention.launches_bwd_f32 = 0    # of which f32
 flash_attention.launches_bwd_f32_one_pass = 0   # of which one-pass (embedder)
 flash_attention.launches_bwd_dv = 0     # bf16 wgmma pair, Dv != Dq (MLA)
+flash_attention.launches_bwd_exact = 0  # of which at the exact <96, 64>
 flash_attention.launches_bwd_wide = 0   # bf16 wide wgmma pair (past 128)
 
 BWD_DH_MAX = 256
 BWD_WGMMA_DH_MAX = 128      # the bf16 wgmma pair's largest head dims
 BWD_ONE_PASS_MAX = 64       # the one-pass kernel's largest Lq and Lkv,
 BWD_ONE_PASS_WIDE_MAX = 32  # and past head dim 128
+
+
+def saves_lse(dtype: torch.dtype, Dq: int, Dv: int) -> bool:
+    """True for the calls whose training forward writes each row's LSE for
+    the backward (K4's ``flash_bf16_persistent_lse<96, 64, 192>``): bf16
+    with Dq in (64, 96] and Dv <= 64, minicpm3's MLA class, whose backward
+    is the ``"tiled_exact"`` pair."""
+    return dtype == torch.bfloat16 and 64 < Dq <= 96 and 1 <= Dv <= 64
 
 
 def bwd_route(dtype: torch.dtype, Lq: int, Lkv: int, Dq: int,
@@ -169,6 +202,11 @@ def bwd_route(dtype: torch.dtype, Lq: int, Lkv: int, Dq: int,
     dQ, (b) dK/dV, for every other call: ``bwd_dq_bf16<DQP, DVP>`` /
     ``bwd_dkv_bf16`` (wgmma, each width padded to 64 or 128) in bf16,
     ``bwd_dq_f32<DP, BT>`` / ``bwd_dkv_f32`` (CUDA cores) in f32;
+    ``"tiled_exact"`` for bf16 with Dq in (64, 96] and Dv <= 64
+    (minicpm3's MLA, ``saves_lse``): the wgmma pair at the exact widths
+    <96, 64>, (a) ``bwd_dq_lse_bf16<96, 64>`` from the LSE the forward
+    saved (pass 2 alone) or, for a call without one, ``bwd_dq_bf16<128,
+    64>`` (passes 1 and 2), and (b) ``bwd_dkv_bf16<96, 64>``;
     ``"tiled_wide"`` for bf16 with a head dim over 128:
     ``bwd_dq_wide_bf16<DQP, DVP>`` / ``bwd_dkv_wide_bf16`` (wgmma, at
     <192, 128> where Dq <= 192 and Dv <= 128, deepseek-v2's, else <256,
@@ -182,29 +220,39 @@ def bwd_route(dtype: torch.dtype, Lq: int, Lkv: int, Dq: int,
     if dtype == torch.float32:
         short = BWD_ONE_PASS_WIDE_MAX if wide else BWD_ONE_PASS_MAX
         return "one_pass" if max(Lq, Lkv) <= short else "tiled"
+    if saves_lse(dtype, Dq, Dv):
+        return "tiled_exact"
     return "tiled_wide" if wide else "tiled"
 
 
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with a hand-written backward: the forward is K4 (or
     ``ref.attention_ref`` on CPU tensors), the backward
-    ``flash_attention_bwd`` from q, k, v and the saved output."""
+    ``flash_attention_bwd`` from q, k, v, the saved output and, where
+    ``saves_lse`` holds, the rows' LSE that the forward wrote (saved like
+    the output, so that a recomputed forward, under ``torch.utils.
+    checkpoint``, writes it again)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, prefix_len, q_offset,
                 kv_valid_len):
-        out = _forward(q, k, v, causal, window, prefix_len, q_offset,
-                       kv_valid_len)
-        ctx.save_for_backward(q, k, v, out, kv_valid_len)
+        lse = None
+        if saves_lse(q.dtype, q.shape[-1], v.shape[-1]):
+            out, lse = _forward(q, k, v, causal, window, prefix_len,
+                                q_offset, kv_valid_len, with_lse=True)
+        else:
+            out = _forward(q, k, v, causal, window, prefix_len, q_offset,
+                           kv_valid_len)
+        ctx.save_for_backward(q, k, v, out, kv_valid_len, lse)
         ctx.mask = dict(causal=causal, window=window, prefix_len=prefix_len,
                         q_offset=q_offset)
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, kv_valid_len = ctx.saved_tensors
+        q, k, v, o, kv_valid_len, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, do,
-                                         kv_valid_len=kv_valid_len,
+                                         kv_valid_len=kv_valid_len, lse=lse,
                                          **ctx.mask)
         return dq, dk, dv, None, None, None, None, None
 
@@ -213,26 +261,30 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         prefix_len: int = 0, q_offset: Optional[int] = None,
-                        kv_valid_len: Optional[torch.Tensor] = None
+                        kv_valid_len: Optional[torch.Tensor] = None,
+                        lse: Optional[torch.Tensor] = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention`` at q (B, Lq, H, Dq), k (B, Lkv,
     Hkv, Dq), v (B, Lkv, Hkv, Dv) given its output o and the output's
     cotangent do (B, Lq, H, Dv), in the inputs' dtypes: on CUDA tensors
     the kernels ``bwd_route`` names (the one-pass kernel in one launch, or
     (a) then (b)), each launch counted as the module docstring says;
-    ``ref.attention_bwd_ref`` on CPU tensors. Inputs of any strides are
-    copied contiguous first, and bf16 ones as ``bwd_operands`` gives them
-    (the gradients of a padded head dim sliced back). The scale is 1 /
-    sqrt(Dq). ``kv_valid_len`` (B,) masks keys of row b at or past it:
+    ``ref.attention_bwd_ref`` on CPU tensors. ``lse``: the rows' LSE that
+    the forward saved (``_forward(..., with_lse=True)``, (B, H,
+    ``ref.lse_rows(Lq)``) f32), which the "tiled_exact" route's (a) reads
+    in place of its pass 1; another route raises on it. Inputs of any
+    strides are copied contiguous first, and bf16 ones as
+    ``bwd_operands`` gives them (the gradients of a padded head dim
+    sliced back). The scale is 1 / sqrt(Dq). ``kv_valid_len`` (B,) masks keys of row b at or past it:
     every route takes it, and keys that no row sees get zero dk and dv."""
     Lq, Lkv = q.shape[1], k.shape[1]
     if q_offset is None:
         q_offset = Lkv - Lq
-    if on_cpu(q, k, v, o, do, kv_valid_len):
+    if on_cpu(q, k, v, o, do, kv_valid_len, lse):
         return ref.attention_bwd_ref(q, k, v, o, do, causal=causal,
                                      window=window, prefix_len=prefix_len,
                                      q_offset=q_offset,
-                                     kv_valid_len=kv_valid_len)
+                                     kv_valid_len=kv_valid_len, lse=lse)
     B, _, H, Dq = q.shape
     Hkv, Dv = k.shape[2], v.shape[-1]
     dtype = q.dtype
@@ -250,6 +302,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Hkv == 0 or H % Hkv:
         raise ValueError(f"H={H} must be a multiple of Hkv={Hkv}")
     route = bwd_route(dtype, Lq, Lkv, Dq, Dv)
+    if lse is not None:
+        if route != "tiled_exact":
+            raise ValueError(f"a saved LSE is read by the tiled_exact route "
+                             f"alone, not by {route} (head dims {Dq}, {Dv})")
+        if lse.dtype != torch.float32 or not lse.is_contiguous() or \
+                lse.shape != (B, H, ref.lse_rows(Lq)):
+            raise ValueError(f"lse must be contiguous float32 (B, H, "
+                             f"{ref.lse_rows(Lq)}), got {lse.dtype} "
+                             f"{tuple(lse.shape)}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if kv_valid_len is not None:
@@ -264,9 +325,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse, dsum = (None, None) if route == "one_pass" else \
-        K.bwd_scratch(q)
-    for part in (2,) if route == "one_pass" else (0, 1):
+    if lse is not None:                 # (a) from it, then (b)
+        dsum, parts = torch.empty_like(lse), (3, 1)
+    else:
+        lse, dsum = (None, None) if route == "one_pass" else \
+            K.bwd_scratch(q)
+        parts = (2,) if route == "one_pass" else (0, 1)
+    for part in parts:
         K.launch_bwd(q, k, v, o, do, dq, dk, dv, lse, dsum, causal=causal,
                      window=window or 0, prefix_len=prefix_len,
                      q_offset=q_offset, part=part, scale_dim=Dq,
@@ -278,6 +343,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             flash_attention.launches_bwd_wide += 1
         elif Dv != Dq:
             flash_attention.launches_bwd_dv += 1
+            # the exact-width instances: (b), and (a) from a saved LSE
+            flash_attention.launches_bwd_exact += (route == "tiled_exact"
+                                                   and part != 0)
         if part == 2:
             flash_attention.launches_bwd_f32_one_pass += 1
     if q.shape[-1] != Dq:

@@ -18,7 +18,9 @@ with ``p_dtype`` the value dtype. The CPU tests run it, and
 ``chip_smoke.py`` holds the kernel against it on the card.
 
 ``attention_bwd_ref`` is the plain version of the backward kernel: the
-gradients of ``attention_ref`` in the recurrence that kernel runs.
+gradients of ``attention_ref`` in the recurrence that kernel runs, from
+the LSE it recomputes or from a saved one; ``attention_lse`` is the plain
+version of the LSE that K4's training forward writes for it.
 """
 from __future__ import annotations
 
@@ -26,6 +28,14 @@ import math
 from typing import Optional
 
 import torch
+
+LOG2E = 1.4426950408889634
+
+
+def lse_rows(Lq: int) -> int:
+    """The rows of a saved LSE (and of the bf16 backward's scratch): Lq
+    rounded up to the kernels' 64-row q tile."""
+    return -(-Lq // 64) * 64
 
 
 def attention_mask(Lq: int, Lkv: int, *, causal: bool, window: Optional[int],
@@ -78,12 +88,43 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Lq, H, Dv).to(q.dtype)
 
 
+def attention_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                  window: Optional[int] = None, prefix_len: int = 0,
+                  q_offset: Optional[int] = None,
+                  kv_valid_len: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """Each row's log-sum-exp as K4's training forward writes it for the
+    backward (``flash_bf16_persistent_lse``): (B, H, ``lse_rows(Lq)``) f32
+    in log2 units with the scale folded, log2 sum_k 2^(log2(e) S_qk /
+    sqrt(Dq)) over the keys the mask (``attention_mask``'s) lets row q
+    see; +inf where a row sees no key and in the rows past Lq."""
+    B, Lq, H, Dq = q.shape
+    _, Lkv, Hkv, _ = k.shape
+    if q_offset is None:
+        q_offset = Lkv - Lq
+    qg = q.float().reshape(B, Lq, Hkv, H // Hkv, Dq)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) \
+        * (1.0 / math.sqrt(Dq))
+    mask = attention_mask(Lq, Lkv, causal=causal, window=window,
+                          prefix_len=prefix_len, q_offset=q_offset,
+                          kv_valid_len=kv_valid_len, device=q.device)
+    s = s.masked_fill(~mask[:, None, None], float("-inf"))
+    lse = torch.logsumexp(s, dim=-1) * LOG2E                 # (B,Hkv,G,Lq)
+    lse = torch.where(torch.isfinite(lse), lse, float("inf"))
+    out = torch.full((B, H, lse_rows(Lq)), float("inf"), dtype=torch.float32,
+                     device=q.device)
+    out[..., :Lq] = lse.reshape(B, H, Lq)
+    return out
+
+
 def _bwd_terms(q, k, v, o, do, causal, window, prefix_len, q_offset,
-               scale=None, kv_valid_len=None):
+               scale=None, kv_valid_len=None, lse=None):
     """P, dP and D (broadcast) (B, Hkv, G, Lq, Lkv) f32 of the backward's
     recurrence, with the f32 q (B, Lq, Hkv, G, Dq), do (B, Lq, Hkv, G, Dv)
     and the scale (default 1 / sqrt(Dq)); the mask is ``attention_mask``'s,
-    ``kv_valid_len`` (B,) included."""
+    ``kv_valid_len`` (B,) included. P is exp(S - LSE) with the LSE
+    recomputed from S, or 2^(log2(e) S - ``lse``) from a saved one
+    (``attention_lse``'s form)."""
     B, Lq, H, Dq = q.shape
     _, Lkv, Hkv, Dv = v.shape
     G = H // Hkv
@@ -99,11 +140,16 @@ def _bwd_terms(q, k, v, o, do, causal, window, prefix_len, q_offset,
                           kv_valid_len=kv_valid_len,
                           device=q.device)[:, None, None]
     s = s.masked_fill(~mask, float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    lse = m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True))
-    p = torch.where(mask, torch.exp(s - torch.where(
-        torch.isfinite(lse), lse, torch.zeros_like(lse))), 0.0)
+    if lse is None:
+        m = s.amax(dim=-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        lse = m + torch.log(torch.exp(s - m).sum(dim=-1, keepdim=True))
+        p = torch.where(mask, torch.exp(s - torch.where(
+            torch.isfinite(lse), lse, torch.zeros_like(lse))), 0.0)
+    else:
+        l2 = lse[..., :Lq].to(s.device, torch.float32).reshape(
+            B, Hkv, G, Lq)[..., None]
+        p = torch.where(mask, torch.exp2(s * LOG2E - l2), 0.0)
     dsum = (dof * o.float().reshape(B, Lq, Hkv, G, Dv)).sum(dim=-1)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
     return p, dp, dsum.permute(0, 2, 3, 1)[..., None], qf, dof, scale
@@ -114,12 +160,15 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool = True, window: Optional[int] = None,
                       prefix_len: int = 0, q_offset: Optional[int] = None,
                       scale: Optional[float] = None,
-                      kv_valid_len: Optional[torch.Tensor] = None
+                      kv_valid_len: Optional[torch.Tensor] = None,
+                      lse: Optional[torch.Tensor] = None
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients (dq, dk, dv) of ``attention_ref`` at q, k, v, given its
     output o and the output's cotangent do (B, Lq, H, Dv), in the
     recurrence the backward kernel (``csrc/flash_attention_bwd.cu``) runs,
-    all in f32: the row logsumexp LSE recomputed from the masked scores S,
+    all in f32: the row logsumexp LSE recomputed from the masked scores S
+    (or a saved one, ``lse`` in ``attention_lse``'s form, as K4's training
+    forward writes it),
     D = rowsum(do . o), P = exp(S - LSE), dV = P^T do, dS = P . (do V^T -
     D), dQ = dS K / sqrt(Dq), dK = dS^T Q / sqrt(Dq). A kv head's dk and
     dv sum over its G query heads. A fully masked row has P = 0 and gives
@@ -132,7 +181,7 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attention_bwd_ref.calls += 1
     p, dp, dsum, qf, dof, scale = _bwd_terms(q, k, v, o, do, causal, window,
                                              prefix_len, q_offset, scale,
-                                             kv_valid_len)
+                                             kv_valid_len, lse)
     ds = p * (dp - dsum)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale

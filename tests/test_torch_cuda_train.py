@@ -128,7 +128,8 @@ def _check(B, Lq, Lkv, H, Hkv, D, dtype, seed, exact_zero=(), Dv=None,
                            before[1] + n * (dtype == torch.float32),
                            before[2] + one_pass)
     assert _new_launches() == (
-        new[0] + n * (route == "tiled" and bf16 and Dv not in (None, D)),
+        new[0] + n * (route in ("tiled", "tiled_exact") and bf16
+                      and Dv not in (None, D)),
         new[1] + n * (route == "tiled_wide"))
     plain = fa_ref.attention_bwd_ref(q, k, v, o, do, **kw)
     rss = fa_ref.attention_bwd_rss(q, k, v, o, do, **kw)
@@ -570,22 +571,186 @@ def test_flash_attention_fn_ragged_on_the_card():
 @pytest.mark.parametrize("width", ["96x64", "256"])
 def test_flash_attention_fn_at_the_new_widths(width):
     """Under autograd the MLA pair and head dim 256 run K4's forward and
-    the backward kernels, never the plain backward."""
+    the backward kernels, never the plain backward; at (96, 64) the
+    forward writes the LSE (flash_bf16_persistent_lse) and the backward is
+    the exact-width pair from it, the same bits as a direct call given
+    that LSE."""
     Dq, Dv = WIDTHS[width]
     q, k, v, _, do = _inputs(1, 200, 200, 8, 1, Dq, torch.bfloat16, 9, Dv,
                              causal=True, prefix_len=30)
     xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    f = fa_ops.flash_attention
     plain_calls = fa_ref.attention_bwd_ref.calls
-    before = fa_ops.flash_attention.launches_bwd
+    before = (f.launches_bwd, f.launches_bwd_exact, f.launches_lse)
     out = fa_ops.flash_attention(*xs, causal=True, prefix_len=30)
     grads = torch.autograd.grad(out, xs, do)
     torch.cuda.synchronize()
-    assert fa_ops.flash_attention.launches_bwd == before + 2
+    exact = width == "96x64"
+    assert (f.launches_bwd, f.launches_bwd_exact, f.launches_lse) == (
+        before[0] + 2, before[1] + 2 * exact, before[2] + exact)
     assert fa_ref.attention_bwd_ref.calls == plain_calls
+    lse = None
+    if exact:
+        o, lse = fa_ops._forward(q, k, v, True, None, 30, 0, None,
+                                 with_lse=True)
+        assert torch.equal(o, out.detach())
     want = fa_ops.flash_attention_bwd(q, k, v, out.detach(), do,
-                                      causal=True, prefix_len=30)
+                                      causal=True, prefix_len=30, lse=lse)
     for a, b in zip(grads, want):
         assert torch.equal(a, b)
+
+
+# -- the exact-width pair <96, 64> from the LSE K4's training forward writes
+LSE_WIDTHS = {"96x64": (96, 64), "80x48": (80, 48)}
+LSE_ATOL = 2.0 ** -10   # the kernel's LSE against the plain one, log2 units:
+                        # f32 sums of f32 products of the same bf16 values
+                        # in another order, ex2 on the SFU (2^-22 relative)
+
+
+def _lse_inputs(B, Lq, Lkv, H, Hkv, Dq, Dv, seed, **kw):
+    """Seeded bf16 q, k, v and do, and K4's training forward on them: o and
+    the LSE it wrote."""
+    q, k, v, _, do = _inputs(B, Lq, Lkv, H, Hkv, Dq, torch.bfloat16, seed,
+                             Dv, **kw)
+    if kw.get("q_offset") is None:
+        kw["q_offset"] = Lkv - Lq
+    o, lse = fa_ops._forward(q, k, v, kw.get("causal", True),
+                             kw.get("window"), kw.get("prefix_len", 0),
+                             kw["q_offset"], kw.get("kv_valid_len"),
+                             with_lse=True)
+    return q, k, v, o, do, lse
+
+
+def _lse_check(B, Lq, Lkv, H, Hkv, Dq, Dv, seed, **kw):
+    """K4-Dv's training forward and the exact-width pair from its LSE: the
+    forward's o the same bits as the serving kernel's, its LSE within
+    LSE_ATOL of ``ref.attention_lse`` (+inf exactly where the plain one
+    is), and the backward from it and the one with pass 1 (no saved LSE)
+    each within the bf16 limit of the plain backward, with their
+    launches counted."""
+    if kw.get("q_offset") is None:
+        kw["q_offset"] = Lkv - Lq
+    q, k, v, o, do, lse = _lse_inputs(B, Lq, Lkv, H, Hkv, Dq, Dv, seed, **kw)
+    served = fa_ops._forward(q, k, v, kw.get("causal", True),
+                             kw.get("window"), kw.get("prefix_len", 0),
+                             kw["q_offset"], kw.get("kv_valid_len"))
+    torch.cuda.synchronize()
+    assert torch.equal(o, served)
+    plain_lse = fa_ref.attention_lse(q, k, **kw)
+    inf = torch.isposinf(plain_lse)
+    assert torch.equal(torch.isposinf(lse), inf)
+    diff = (lse - plain_lse)[~inf].abs()
+    assert diff.numel() == 0 or float(diff.max()) <= LSE_ATOL
+    f = fa_ops.flash_attention
+    before = (f.launches_bwd, f.launches_bwd_dv, f.launches_bwd_exact)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    one_pass1 = fa_ops.flash_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    assert (f.launches_bwd, f.launches_bwd_dv, f.launches_bwd_exact) == (
+        before[0] + 4, before[1] + 4, before[2] + 3)
+    plain = fa_ref.attention_bwd_ref(q, k, v, o, do, **kw)
+    rss = fa_ref.attention_bwd_rss(q, k, v, o, do, **kw)
+    assert bwd_excess(got, plain, rss, torch.bfloat16) <= 1.0
+    assert bwd_excess(one_pass1, plain, rss, torch.bfloat16) <= 1.0
+    return q, k, v, o, do, lse, got, plain, rss
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["full", "ragged"])
+@pytest.mark.parametrize("width", list(LSE_WIDTHS))
+@pytest.mark.parametrize("mode", list(MODES))
+def test_exact_pair_from_saved_lse_every_mask_mode(mode, width, ragged):
+    """Every mask mode at (96, 64) and (80, 48), one kv head for four
+    query heads, without and with a ragged kv_valid_len (a full row, one
+    that ends inside a tile, one of 0): ``_lse_check``."""
+    Lq, Lkv, causal, window, prefix, q_offset = MODES[mode]
+    Dq, Dv = LSE_WIDTHS[width]
+    kw = dict(causal=causal, window=window, prefix_len=prefix,
+              q_offset=q_offset)
+    B = 3 if ragged else 2
+    if ragged:
+        kw["kv_valid_len"] = torch.tensor([Lkv, Lkv // 2 + 5, 0][:B],
+                                          device=DEV)
+    *_, got, _, _ = _lse_check(B, Lq, Lkv, 8, 2, Dq, Dv, seed=len(mode) + Dq,
+                               **kw)
+    if ragged:
+        assert all(bool((g[2] == 0).all()) for g in got)
+
+
+@pytest.mark.parametrize("mode", list(EDGE_MODES))
+@pytest.mark.parametrize("L", [1, 31, 33, 63, 64, 65, 97, 127, 128, 129,
+                               191, 192, 193, 255, 257, 1000, 4095])
+def test_exact_pair_from_saved_lse_at_tile_edges(L, mode):
+    """(96, 64) around the forward's 128-row q tiles and 192-key kv tiles
+    and the backward's 64-row and 64-key tiles, in every mask mode, one
+    kv head for 8 query heads (2 at 4,095 tokens): ``_lse_check``."""
+    extra, kw = EDGE_MODES[mode]
+    _lse_check(1, L, L + extra, 2 if L == 4095 else 8, 1, 96, 64, seed=L,
+               **dict(kw))
+
+
+@pytest.mark.parametrize("width", list(LSE_WIDTHS))
+def test_exact_pair_planted_faults_and_repeats(width):
+    """From a saved LSE: two calls bit-identical; a dQ without one 64-key
+    tile, a dK with those rows zeroed, and the backward from the LSE of
+    other inputs (q moved by one in its fifth column) must each fail the
+    limit; a kernel LSE that lost one 64-key tile's terms must fail
+    LSE_ATOL."""
+    Dq, Dv = LSE_WIDTHS[width]
+    kw = dict(causal=True)
+    q, k, v, o, do, lse, got, plain, rss = _lse_check(
+        1, 256, 256, 8, 2, Dq, Dv, seed=37, **kw)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got, again):
+        assert x.data_ptr() != y.data_ptr() and torch.equal(x, y)
+    t0, t1 = 64, 128
+    p, dp, dsum, _, _, scale = fa_ref._bwd_terms(q, k, v, o, do, True, None,
+                                                 0, None)
+    ds = (p * (dp - dsum))[..., t0:t1]
+    part = torch.einsum("bhgqk,bkhd->bqhgd", ds, k[:, t0:t1].float())
+    dq_fault = (got[0].float() - part.reshape(q.shape) * scale).to(q.dtype)
+    dk_fault = got[1].clone()
+    dk_fault[:, t0:t1] = 0
+    assert bwd_excess((dq_fault, got[1], got[2]), plain, rss,
+                      torch.bfloat16) > 1
+    assert bwd_excess((got[0], dk_fault, got[2]), plain, rss,
+                      torch.bfloat16) > 1
+    q2 = q.clone()
+    q2[..., 4] += 1
+    other = fa_ops._forward(q2, k, v, True, None, 0, 0, None,
+                            with_lse=True)[1]
+    wrong = fa_ops.flash_attention_bwd(q, k, v, o, do, lse=other, **kw)
+    assert bwd_excess(wrong, plain, rss, torch.bfloat16) > 1
+    # the plain LSE without the tile's keys, on the rows that see them
+    B, L, H, _ = q.shape
+    Hkv = k.shape[2]
+    sc = torch.einsum("bqhgd,bkhd->bhgqk",
+                      q.float().reshape(B, L, Hkv, H // Hkv, Dq),
+                      k.float()) * scale
+    mask = fa_ref.attention_mask(L, L, causal=True, window=None,
+                                 prefix_len=0, q_offset=0, kv_valid_len=None,
+                                 device=DEV)[:, None, None].clone()
+    mask[..., t0:t1] = False
+    cut = torch.logsumexp(sc.masked_fill(~mask, float("-inf")), dim=-1) \
+        * fa_ref.LOG2E
+    assert float((lse[..., t1:L] - cut.reshape(B, H, L)[..., t1:])
+                 .abs().max()) > LSE_ATOL
+
+
+def test_saved_lse_refused_off_the_class():
+    """A saved LSE on another route, or of the wrong shape, raises before
+    any launch; the forward writes none off the class."""
+    q, k, v, o, do = _inputs(1, 100, 100, 4, 2, 128, torch.bfloat16, 3,
+                             causal=True)
+    lse = torch.zeros((1, 4, 128), device=DEV)
+    with pytest.raises(ValueError, match="tiled_exact"):
+        fa_ops.flash_attention_bwd(q, k, v, o, do, lse=lse)
+    with pytest.raises(ValueError, match="writes the LSE"):
+        fa_ops._forward(q, k, v, True, None, 0, 0, None, with_lse=True)
+    q, k, v, o, do, lse = _lse_inputs(1, 100, 100, 4, 2, 96, 64, 3,
+                                      causal=True)
+    with pytest.raises(ValueError, match="lse must be"):
+        fa_ops.flash_attention_bwd(q, k, v, o, do, lse=lse[..., :100])
 
 
 def _wkv6_inputs(B, L, H, K, dtype, seed):

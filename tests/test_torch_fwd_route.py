@@ -37,6 +37,7 @@ def _old_dv_supported(Dq: int, Dv: int) -> bool:
     (BF16, 192, 128, "flash_bf16_persistent<192, 128, 96>"),   # deepseek-v2
     (BF16, 112, 112, "flash_bf16_persistent<112, 112, 128>"),  # zamba2
     (BF16, 72, 48, "flash_bf16_persistent<96, 64, 192>"),
+    (BF16, 80, 48, "flash_bf16_persistent<96, 64, 192>"),
     (BF16, 96, 8, "flash_bf16_persistent<96, 64, 192>"),
     (BF16, 128, 64, "flash_bf16_persistent<192, 128, 96>"),
     (BF16, 104, 64, "flash_bf16_persistent<192, 128, 96>"),

@@ -187,12 +187,19 @@ def test_bwd_route(dtype, Lq, Lkv, Dh, route):
 
 
 @pytest.mark.parametrize("dtype,Lq,Lkv,Dq,Dv,route", [
-    (torch.bfloat16, 4096, 4096, 96, 64, "tiled"),      # minicpm3-4b
+    (torch.bfloat16, 4096, 4096, 96, 64, "tiled_exact"),  # minicpm3-4b
+    (torch.bfloat16, 600, 600, 80, 48, "tiled_exact"),
+    (torch.bfloat16, 300, 300, 72, 8, "tiled_exact"),
+    (torch.bfloat16, 300, 300, 104, 64, "tiled"),
+    (torch.bfloat16, 300, 300, 96, 72, "tiled"),
+    (torch.bfloat16, 300, 300, 64, 64, "tiled"),
+    (torch.bfloat16, 300, 300, 128, 128, "tiled"),      # qwen3-14b
     (torch.bfloat16, 128, 128, 24, 16, "tiled"),        # --reduced MLA
     (torch.bfloat16, 300, 300, 64, 128, "tiled"),
     (torch.bfloat16, 4096, 4096, 192, 128, "tiled_wide"),  # deepseek-v2
     (torch.bfloat16, 4096, 4096, 256, 256, "tiled_wide"),  # paligemma-3b
     (torch.float32, 64, 64, 96, 64, "one_pass"),
+    (torch.float32, 65, 65, 96, 64, "tiled"),
     (torch.float32, 64, 64, 192, 128, "tiled"),
     (torch.float32, 32, 32, 192, 128, "one_pass"),
     (torch.float32, 65, 65, 24, 16, "tiled"),
@@ -203,8 +210,9 @@ def test_bwd_route(dtype, Lq, Lkv, Dh, route):
 def test_bwd_route_of_q_and_v_widths(dtype, Lq, Lkv, Dq, Dv, route):
     """The route of a call whose v head dim differs from the q/k one: the
     larger of the two decides the one-pass band (64 tokens up to 128, 32
-    past it) and, in bf16, the wgmma pair (both up to 128) or the wide
-    wgmma pair."""
+    past it) and, in bf16, the wgmma pair (both up to 128; at the exact
+    widths <96, 64> for Dq in (64, 96] with Dv <= 64, "tiled_exact") or
+    the wide wgmma pair."""
     if isinstance(route, type):
         with pytest.raises(route):
             fa_ops.bwd_route(dtype, Lq, Lkv, Dq, Dv)

@@ -34,7 +34,20 @@ the CTAs at paligemma's one kv head, 2/3 of the products);
 two CTAs at every grid;
 ``ragged-always``, the pair up to 128 in its instance with
 kv_valid_len (the test of each tile against the end of its row's keys)
-for every call, as before the instance without it was added.
+for every call, as before the instance without it was added;
+``groupN``, the exact-width pair <96, 64>'s CTAs in groups of N
+(sequence, head) pairs instead of 8 (``GROUP_BH``; ``group4096`` holds every head in one group, the tile the
+slowest index, as the other instances order them); ``dq-nopipeline``,
+its (a) with S and dP issued and waited for, then dQ, instead of tile
+j's S and dP issued with tile j - 1's dQ;
+``dkv-nopipeline``, its (b) in two turns a tile, each waited for,
+instead of one turn that issues tile j's S^T and dP^T with tile j - 1's
+dV and dK; ``nopipeline``, both; ``stages4``, every ring four
+stages deep instead of three (the exact pair's calls alone are timed).
+
+A call of the exact-width class (minicpm3's (96, 64)) is timed as the
+training path runs it: (a) from the LSE that K4's training forward wrote
+(part 3), then (b).
 """
 from __future__ import annotations
 
@@ -60,8 +73,21 @@ RAGGED_ALWAYS = [(
     "               : run_pair<DQP, DVP, false>(a, part, s);",
     "  return run_pair<DQP, DVP, true>(a, part, s);   // variant")]
 
+GROUP = "constexpr int GROUP_BH = 8;"
+DQ_NOPIPELINE = [("constexpr bool DQ_PIPELINE = true;",
+                  "constexpr bool DQ_PIPELINE = false;   // variant")]
+DKV_NOPIPELINE = [("constexpr bool DKV_PIPELINE = true;",
+                   "constexpr bool DKV_PIPELINE = false;   // variant")]
+
 VARIANTS = {"base": [], "dq-bk32": DQ_BK32, "dkv-one": DKV_ONE,
-            "dkv-split": DKV_SPLIT, "ragged-always": RAGGED_ALWAYS}
+            "dkv-split": DKV_SPLIT, "ragged-always": RAGGED_ALWAYS,
+            "dq-nopipeline": DQ_NOPIPELINE,
+            "dkv-nopipeline": DKV_NOPIPELINE,
+            "nopipeline": DQ_NOPIPELINE + DKV_NOPIPELINE,
+            "stages4": [("constexpr int STAGES = 3;  ",
+                         "constexpr int STAGES = 4;  // variant  ")],
+            **{f"group{n}": [(GROUP, f"constexpr int GROUP_BH = {n};")]
+               for n in (1, 4, 16, 4096)}}
 
 # (label, H, Hkv, Dq, Dv, prefix_len), B 1 x 4,096, causal
 CALLS = {"qwen3": ("qwen3-14b", 40, 8, 128, 128, 0),
@@ -114,26 +140,33 @@ def inputs(L, H, Hkv, Dq, Dv, prefix):
     q = torch.randn((1, L, H, Dq), generator=g, device="cuda").bfloat16()
     k = torch.randn((1, L, Hkv, Dq), generator=g, device="cuda").bfloat16()
     v = torch.randn((1, L, Hkv, Dv), generator=g, device="cuda").bfloat16()
-    o = ref.attention_ref(q, k, v, causal=True, prefix_len=prefix,
-                          p_dtype=v.dtype).contiguous()
+    lse = None
+    if ops.saves_lse(q.dtype, Dq, Dv):      # K4's training forward
+        o, lse = ops._forward(q, k, v, True, None, prefix, 0, None,
+                              with_lse=True)
+    else:
+        o = ref.attention_ref(q, k, v, causal=True, prefix_len=prefix,
+                              p_dtype=v.dtype).contiguous()
     do = torch.randn(o.shape, generator=g, device="cuda").bfloat16()
-    return q, k, v, o, do
+    return q, k, v, o, do, lse
 
 
 for label, H, Hkv, Dq, Dv, prefix in calls:
     kw = dict(causal=True, prefix_len=prefix)
-    xs = inputs(600, min(H, 16), min(Hkv, 16), Dq, Dv, prefix)
-    got = ops.flash_attention_bwd(*xs, **kw)
+    *xs, lse = inputs(600, min(H, 16), min(Hkv, 16), Dq, Dv, prefix)
+    got = ops.flash_attention_bwd(*xs, lse=lse, **kw)
     plain = ref.attention_bwd_ref(*xs, **kw)
     rss = ref.attention_bwd_rss(*xs, **kw)
     share = max(bf16_excess(a, b, 2.0 ** -5, scale=r)
                 for a, b, r in zip(got, plain, rss))
     for L in lens:
-        q, k, v, o, do = inputs(L, H, Hkv, Dq, Dv, prefix)
+        q, k, v, o, do, saved = inputs(L, H, Hkv, Dq, Dv, prefix)
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
         lse, dsum = K.bwd_scratch(q)
+        if saved is not None:
+            lse = saved
         ms, kern = {}, {}
-        for part, what in ((0, "a"), (1, "b")):
+        for part, what in ((0 if saved is None else 3, "a"), (1, "b")):
             own = device_kernel_ms(torch, lambda: K.launch_bwd(
                 q, k, v, o, do, dq, dk, dv, lse, dsum, causal=True, window=0,
                 prefix_len=prefix, q_offset=0, part=part), iters)[0]
@@ -142,10 +175,10 @@ for label, H, Hkv, Dq, Dv, prefix in calls:
                                    for n in own)
         print(f"[variant] {name} {label} B 1 x {L}, {H}/{Hkv} heads of "
               f"{Dq}/{Dv}, prefix {prefix}: (a) {ms['a']:.4f} ms, (b) "
-              f"{ms['b']:.4f} ms ({kern['b']}), the pair "
+              f"{ms['b']:.4f} ms ({kern['a']}; {kern['b']}), the pair "
               f"{ms['a'] + ms['b']:.4f} ms; at 600 tokens {share:.3f} of "
               f"the bf16 row limit", flush=True)
-        del q, k, v, o, do, dq, dk, dv, lse, dsum
+        del q, k, v, o, do, dq, dk, dv, lse, dsum, saved
         torch.cuda.empty_cache()
 """
 
@@ -171,7 +204,8 @@ def main() -> int:
         for line in report.splitlines():
             if "Compiling entry function" in line:
                 fn = line.split("'")[1] if "'" in line else line
-            elif "wide" in fn and ("spill" in line or "registers" in line):
+            elif "wgmma" in line or ("wide" in fn or "Li96E" in fn) and (
+                    "spill" in line or "registers" in line):
                 print(f"[build] {n}: {fn[:40]}: {line.strip()}", flush=True)
     for n in args.names:
         rc = subprocess.run([sys.executable, "-c", RUN % (calls, lens),

@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""One kernel of one CUDA source of the port, built from two source trees,
+"""Kernels of one CUDA source of the port, built from two source trees,
 side by side: ptxas's registers, stack and spills, and the SASS
 instructions that differ.
 
     python3 tools/sass_diff.py --a PARENT/src --b src --source wkv6.cu \
-        --function _ZN3wkv8wkv6_fwdI13__nv_bfloat16Li64ELi32EEEvNS_4ArgsE
+        --function _ZN3wkv8wkv6_fwdI13__nv_bfloat16Li64ELi32EEEvNS_4ArgsE \
+        [--function ...]
 
-Each tree's ``repro_torch/csrc/SOURCE`` is built to a cubin with the
+Each tree's ``repro_torch/csrc/SOURCE`` is built once to a cubin with the
 port's nvcc flags (``kernels/_build.py``) under ``build/sass_diff``. The
-SASS of ``--function`` is read with ``cuobjdump -sass``; constant-bank
-offsets and branch targets are masked, so that a kernel whose parameters
-moved but whose code did not compares equal. Prints, for each tree, the
-ptxas line and the instruction count by opcode where they differ, then
-the number of instructions that differ. Needs ``nvcc`` (the machine with
-the GPU).
+SASS of each ``--function`` (a mangled name, or a part of one that names
+one function alone, such as ``bwd_dq_bf16ILi128ELi128ELb0E``) is read
+with ``cuobjdump -sass``; constant-bank offsets and branch targets are
+masked, so that a kernel whose parameters moved but whose code did not
+compares equal. Prints, for each tree, the ptxas line and the
+instruction count by opcode where they differ, then the number of
+instructions that differ. Needs ``nvcc`` (the machine with the GPU).
 """
 from __future__ import annotations
 
@@ -45,16 +47,24 @@ def build(tree: Path, source: str, out: Path) -> str:
     return p.stdout + p.stderr
 
 
-def sass(cubin: Path, function: str) -> list[str]:
-    """``function``'s instructions, constant offsets and targets masked."""
+def sass(cubin: Path, function: str) -> tuple[str, list[str]]:
+    """The mangled name ``function`` names (itself, or the one name that
+    holds it) and its instructions, constant offsets and targets masked."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     txt = subprocess.run([tool, "-sass", str(cubin)], capture_output=True,
                          text=True, check=True).stdout
-    out, on, names = [], False, []
+    names = [line.split("Function :")[1].strip()
+             for line in txt.splitlines() if "Function :" in line]
+    hits = [n for n in names if n == function] or \
+        [n for n in names if function in n]
+    if len(hits) != 1:
+        raise SystemExit(f"{cubin}: {function} names {hits}; the cubin has "
+                         f"{names}")
+    function = hits[0]
+    out, on = [], False
     for line in txt.splitlines():
         if "Function :" in line:
-            names.append(line.split("Function :")[1].strip())
-            on = names[-1] == function
+            on = line.split("Function :")[1].strip() == function
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
         if on and m:
@@ -65,7 +75,7 @@ def sass(cubin: Path, function: str) -> list[str]:
             out.append(ins)
     if not out:
         raise SystemExit(f"{cubin}: no SASS for {function}; it has {names}")
-    return out
+    return function, out
 
 
 def opcode(ins: str) -> str:
@@ -79,28 +89,33 @@ def main() -> int:
     ap.add_argument("--a", required=True, type=Path)
     ap.add_argument("--b", required=True, type=Path)
     ap.add_argument("--source", required=True)
-    ap.add_argument("--function", required=True)
+    ap.add_argument("--function", required=True, action="append")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     from tools.trace_kernels import ptxas_functions
-    got = {}
+    cubins, reps = {}, {}
     for key, tree in (("a", args.a), ("b", args.b)):
-        cubin = ROOT / "build" / "sass_diff" / key / (args.source + ".cubin")
-        rep = ptxas_functions(build(tree.resolve(), args.source, cubin))
-        got[key] = sass(cubin, args.function)
-        print(f"[sass] {key} {tree}: ptxas {rep.get(args.function)}; "
-              f"{len(got[key])} instructions")
-    ops = {k: collections.Counter(opcode(i) for i in v)
-           for k, v in got.items()}
-    moved = {o: (ops["a"][o], ops["b"][o]) for o in ops["a"] | ops["b"]
-             if ops["a"][o] != ops["b"][o]}
-    print(f"[sass] opcodes whose count differs (a, b): "
-          f"{dict(sorted(moved.items()))}")
-    sm = difflib.SequenceMatcher(a=got["a"], b=got["b"], autojunk=False)
-    diff = sum(max(i2 - i1, j2 - j1)
-               for tag, i1, i2, j1, j2 in sm.get_opcodes() if tag != "equal")
-    print(f"[sass] {args.function}: {diff} instructions differ "
-          f"({len(got['a'])} against {len(got['b'])})")
+        cubins[key] = ROOT / "build" / "sass_diff" / key / \
+            (args.source + ".cubin")
+        reps[key] = ptxas_functions(build(tree.resolve(), args.source,
+                                          cubins[key]))
+    for function in args.function:
+        got = {}
+        for key, tree in (("a", args.a), ("b", args.b)):
+            name, got[key] = sass(cubins[key], function)
+            print(f"[sass] {key} {tree}: {name}: ptxas "
+                  f"{reps[key].get(name)}; {len(got[key])} instructions")
+        ops = {k: collections.Counter(opcode(i) for i in v)
+               for k, v in got.items()}
+        moved = {o: (ops["a"][o], ops["b"][o]) for o in ops["a"] | ops["b"]
+                 if ops["a"][o] != ops["b"][o]}
+        print(f"[sass] opcodes whose count differs (a, b): "
+              f"{dict(sorted(moved.items()))}")
+        sm = difflib.SequenceMatcher(a=got["a"], b=got["b"], autojunk=False)
+        diff = sum(max(i2 - i1, j2 - j1) for tag, i1, i2, j1, j2
+                   in sm.get_opcodes() if tag != "equal")
+        print(f"[sass] {function}: {diff} instructions differ "
+              f"({len(got['a'])} against {len(got['b'])})", flush=True)
     return 0
 
 

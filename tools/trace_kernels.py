@@ -918,10 +918,17 @@ def trace_train(torch, fa, reports, g, iters: int, res: dict) -> None:
         route = fa.bwd_route(torch.bfloat16, L, L, Dq, Dv)
         dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
         lse, dsum = K.bwd_scratch(q)
+        saved = None
+        if fa.saves_lse(torch.bfloat16, Dq, Dv):
+            # the training path's call: (a) from the LSE K4's training
+            # forward writes
+            o, saved = fa._forward(q, k, v, True, None, prefix, 0, None,
+                                   with_lse=True)
+            lse = saved
         parts = {n: (lambda part=part: K.launch_bwd(
             q, k, v, o, do, dq, dk, dv, lse, dsum, causal=True, window=0,
             prefix_len=prefix, q_offset=0, part=part))
-            for n, part in (("dq", 0), ("dkv", 1))}
+            for n, part in (("dq", 0 if saved is None else 3), ("dkv", 1))}
         pairs = L * (L + 1) // 2 + prefix * (prefix - 1) // 2
         pq, pv = 2.0 * B * H * Dq * pairs, 2.0 * B * H * Dv * pairs
         bound = {"dq": 1e3 * (2 * pq + pv) / H100_BF16_FLOPS,
@@ -932,7 +939,7 @@ def trace_train(torch, fa, reports, g, iters: int, res: dict) -> None:
             own = device_kernel_ms(torch, f, iters)[0]
             rec[f"{n}_kernels_ms"] = own
         whole = device_kernel_ms(torch, lambda: fa.flash_attention_bwd(
-            q, k, v, o, do, **kw), iters)[0]
+            q, k, v, o, do, lse=saved, **kw), iters)[0]
         rec["kernels_ms"] = whole
         mask = None if not prefix else fr.attention_mask(
             L, L, causal=True, window=None, prefix_len=prefix, q_offset=0,
@@ -960,7 +967,7 @@ def trace_train(torch, fa, reports, g, iters: int, res: dict) -> None:
               + f"; the call {sum(whole.values()):.4f} ms; SDPA's backward "
               + ("refused" if rec["library_ms"] is None else
                  f"{rec['library_ms']:.4f} ms"), flush=True)
-        del q, k, v, o, do, dq, dk, dv, lse, dsum, qt, kt, vt
+        del q, k, v, o, do, dq, dk, dv, lse, dsum, qt, kt, vt, saved
         torch.cuda.empty_cache()
     Bw, Lw, Hw, Kw = (WKV6_BWD[x] for x in "BLHK")
     r, kk, vv = (torch.randn((Bw, Lw, Hw, Kw), generator=g, device="cuda")
