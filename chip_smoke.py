@@ -11,7 +11,10 @@ Phases (any failure exits non-zero and prints no result line):
               together; ptxas register and spill lines logged, and for
               the attention backward's two bf16 kernels (TMA and wgmma,
               each instance) their registers, shared memory and spills,
-              which must be none;
+              which must be none, and for its f32 tiled pair (each
+              instance) registers and spills, which must be none, and the
+              tensor-core instructions (HMMA, HGMMA) of its SASS, which
+              must be none too;
 2. kernels  — K1 (f32) and K2 (int8) against their plain PyTorch versions
               at serving shapes (D=768, N=65,536 rows, B in {0, 1, 4, 5, 8,
               32, 33}, k in {1, 16}, early exit on/off, a valid mask with
@@ -335,12 +338,16 @@ their own bounds; the WKV6 recurrence ``wkv6``, which no library call
 computes; the attention backward's two kernels,
 ``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv`` (the tiled
 pair, bf16, at qwen3-14b's prefill), their f32 instances
-``flash_attention_bwd_dq_f32`` and ``flash_attention_bwd_dkv_f32`` (at
-phase 13 (a)'s 1,024 causal tokens, 40/8 heads of 128; no call of the
-main path reaches the f32 pair since the embedder's went to the one-pass
-kernel, so their ``launches`` are 0 and only these two entries are exempt
-from the launched-on-the-main-path check; (a)'s correctness sweep, which
-must launch them, gives its count as ``sweep_launches``), each with the
+``flash_attention_bwd_dq_f32`` and ``flash_attention_bwd_dkv_f32`` (the
+CUDA-core pair on 8 x 8 register micro-tiles with cp.async stages and
+heavy-first grids, at phase 13 (a)'s 1,024 causal tokens, 40/8 heads of
+128; no call of the main path reaches the f32 pair since the embedder's
+went to the one-pass kernel, so their ``launches`` are 0 and only these
+two entries are exempt from the launched-on-the-main-path check; (a)'s
+correctness sweep, which must launch them, gives its count as
+``sweep_launches``; they also carry ``parent_device_ms``, the pair before
+its Hopper redesign, ``tools/attention_bwd_f32_parent.cu``, timed in turns
+with them), each with the
 bound of the products its own outputs need, and ``flash_attention_bwd_f32``, the one-pass kernel at the
 embedder's call (launches phase 13's one-pass ones, the whole backward's
 bound), each with SDPA's backward as its library call; the WKV6
@@ -6168,7 +6175,11 @@ BWD_RTOL_F32 = 1e-5
 BWD_ROW_RTOL = 2.0 ** -5
 BWD_TIMED = dict(B=1, Lq=4096, Lkv=4096, H=40, Hkv=8, Dh=128)  # qwen3-14b
 BWD_EMBED = dict(B=48, Lq=24, Lkv=24, H=12, Hkv=12, Dh=64)     # embedder
-BWD_FAULT_TILE = (64, 128)   # the kv tile each planted fault drops
+BWD_FAULT_TILE = (64, 128)   # the kv tile each planted fault drops (the
+                             # f32 tiled pair's (a) tile at DP <= 128)
+BWD_FAULT_F32_KEYS = 32      # the keys of one f32 tiled (b) CTA, whose dK
+                             # rows its fault zeroes (from BWD_FAULT_TILE[0];
+                             # also (a)'s key tile past head dim 128)
 BWD_FAULT_KEYS = (8, 16)     # the keys it drops where Lkv <= 64 (the
                              # one-pass kernel's calls)
 # launch.train --reduced's attention (B 8 x 128 tokens, qwen3-14b reduced)
@@ -6345,11 +6356,13 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
                 fault: bool = False, **kw) -> None:
     """The backward kernels on seeded inputs against attention_bwd_ref;
     with ``fault``, also the kernels' output as it would be without one kv
-    tile in (a)'s pass 2 and without one kv tile's (b) CTA (for the
-    one-pass kernel's calls, Lkv <= 64: without BWD_FAULT_KEYS in dQ's sum
-    and with those rows of dK zeroed), each of which must fail the limit
-    against the plain version; the one-pass kernel's calls and those at a
-    width past Dq = Dv <= 128 run twice and must repeat bit for bit. Notes
+    tile in (a)'s pass 2 and without one kv tile's (b) CTA (BWD_FAULT_TILE;
+    on the f32 tiled pair (b)'s CTA is BWD_FAULT_F32_KEYS keys, and so is
+    (a)'s tile past head dim 128; for the one-pass kernel's calls, Lkv <=
+    64: without BWD_FAULT_KEYS in dQ's sum and with those rows of dK
+    zeroed), each of which must fail the limit against the plain version;
+    every f32 call and those at a width past Dq = Dv <= 128 run twice and
+    must repeat bit for bit. Notes
     the largest |kernel - plain| of dq and of dk/dv, the largest share of
     the limit and the calls in ``res``, by ``bwd_key``. With a ragged
     ``kv_valid_len`` in ``kw``, dk and dv must be zero at and past each
@@ -6376,7 +6389,7 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
         pass1 = got
         got = ops.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
         torch.cuda.synchronize()
-    if route == "one_pass" or Dv != Dq or Dq > 128:
+    if dtype == torch.float32 or Dv != Dq or Dq > 128:
         again = ops.flash_attention_bwd(q, k, v, o, do, lse=lse, **kw)
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
@@ -6418,6 +6431,11 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
     if not fault:
         return
     t0, t1 = BWD_FAULT_TILE if shape["Lkv"] > 64 else BWD_FAULT_KEYS
+    k1 = t1             # the end of the dK rows the fault zeroes
+    if route == "tiled" and dtype == torch.float32:
+        k1 = t0 + BWD_FAULT_F32_KEYS
+        if max(Dq, Dv) > 128:
+            t1 = k1
     p, dp, dsum, _, _, scale = ref._bwd_terms(
         q, k, v, o, do, kw.get("causal", True), kw.get("window"),
         kw.get("prefix_len", 0), kw.get("q_offset"))
@@ -6425,15 +6443,16 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
                         k[:, t0:t1].float())
     dq_fault = (got[0].float() - part.reshape(q.shape) * scale).to(dtype)
     dk_fault = got[1].clone()
-    dk_fault[:, t0:t1] = 0
+    dk_fault[:, t0:k1] = 0
     del p, dp, dsum, part
     fa = bwd_excess(torch, (dq_fault, got[1], got[2]), plain, rss)
     fb = bwd_excess(torch, (got[0], dk_fault, got[2]), plain, rss)
     res["faults"].append({"shape": shape, "dtype": dt, "keys": (t0, t1),
+                          "dk_rows": (t0, k1),
                           "dq_tile_dropped": fa, "dkv_tile_dropped": fb})
     check(fa > 1.0 and fb > 1.0,
-          f"{ctx}: dropped keys {t0}-{t1} stay within the limit (dq "
-          f"{fa:.3g}, dk {fb:.3g})")
+          f"{ctx}: dropped keys {t0}-{t1} (dk rows {t0}-{k1}) stay within "
+          f"the limit (dq {fa:.3g}, dk {fb:.3g})")
     if lse is not None:
         q2 = q.clone()
         q2[..., 4] += 1
@@ -7244,11 +7263,69 @@ def bwd_timing(torch, seed: int) -> dict:
                 f", plain backward {plain_ms:.4f} ms, SDPA's backward "
                 f"{lib_txt}, bound {b_ms:.4f} ms ({b_by}; the whole "
                 f"backward's {whole[0]:.4f} ms, {whole[1]})")
+        if label == "tiled_f32":
+            f32_parent_turns(torch, (q, k, v, o, do), kw, out)
         del q, k, v, o, do, dq, dk, dv, lib, saved, lse, dsum
         gc.collect()
         torch.cuda.empty_cache()
     out["wkv6_bwd"], out["wkv6_ckpt"] = wkv6_bwd_timing(torch, seed)
     return out
+
+
+BWD_F32_ROUNDS = 4      # rounds of the f32 pair against its parent
+
+
+def f32_parent_turns(torch, xs, kw: dict, out: dict) -> None:
+    """The f32 tiled pair's (a) and (b) at ``xs`` beside the pair before
+    its Hopper redesign (``tools/attention_bwd_f32_parent.cu``, built here
+    from the checkout), each launched alone under torch.profiler (device ms
+    a call, the mean of 10), in BWD_F32_ROUNDS rounds of alternating order
+    (the port's, the parent's; then the reverse), each pair on its own
+    scratch. Adds ``parent_device_ms`` (the median) and ``turns`` (every
+    reading) to the ``flash_attention_bwd_{dq,dkv}_f32`` records; fails if
+    a launch records a kernel other than the one asked for."""
+    import statistics
+    from repro_torch.kernels.flash_attention import kernel as K
+    sys.path.insert(0, str(ROOT))
+    from tools.bwd_variants import launch_parent_f32, parent_f32_entry
+    from tools.trace_kernels import device_kernel_ms
+    parent, _ = parent_f32_entry()
+    q = xs[0]
+    args = dict(causal=kw["causal"], window=0,
+                prefix_len=kw.get("prefix_len", 0), q_offset=0)
+    fns = {"port": K.launch_bwd,
+           "parent": lambda *a, **k: launch_parent_f32(torch, parent, *a,
+                                                       **k)}
+    runs = {}
+    for who, fn in fns.items():
+        grads = [torch.empty_like(x) for x in xs[:3]]
+        scratch = K.bwd_scratch(q)
+        runs[who] = [lambda fn=fn, part=part, g=grads, s=scratch: fn(
+            *xs, *g, *s, part=part, **args) for part in (0, 1)]
+        for call in runs[who]:
+            call()
+    got = {(who, name): [] for who in runs for name in ("dq", "dkv")}
+    for r in range(BWD_F32_ROUNDS):
+        for who in (("port", "parent") if r % 2 == 0 else ("parent", "port")):
+            for part, name in enumerate(("dq", "dkv")):
+                own = device_kernel_ms(torch, runs[who][part], iters=10)[0]
+                want = ("fab_parent::" if who == "parent" else "fab::") + \
+                    f"bwd_{name}_f32<"
+                check(len(own) == 1 and want in next(iter(own)),
+                      f"[timing] {who}'s f32 {name}: one launch records "
+                      f"{list(own)}")
+                got[(who, name)].append(sum(own.values()))
+    for name in ("dq", "dkv"):
+        rec = out[f"flash_attention_bwd_{name}_f32"]
+        rec["parent_device_ms"] = statistics.median(got[("parent", name)])
+        rec["turns"] = {who: got[(who, name)] for who in runs}
+        port = statistics.median(got[("port", name)])
+        log(f"[timing] flash_attention_bwd {name} f32 in turns with the "
+            f"pair before its Hopper redesign ({BWD_F32_ROUNDS} rounds, "
+            f"medians): {port:.4f} ms on the device against "
+            f"{rec['parent_device_ms']:.4f} ms "
+            f"({rec['parent_device_ms'] / port:.2f}x); readings "
+            f"{rec['turns']}")
 
 
 def wkv6_bwd_timing(torch, seed: int) -> tuple[dict, dict]:
@@ -7514,6 +7591,57 @@ def bwd_one_pass_ptxas(report) -> dict:
     return out
 
 
+# the f32 tiled pair's instances: (a) and (b) at DP 64, 128 and 256, with
+# 16-byte copies (VEC) and without
+BWD_TILED_F32_INSTANCES = tuple(
+    f"{k}<{dp}, {vec}>" for k in ("bwd_dq_f32", "bwd_dkv_f32")
+    for dp in (64, 128, 256) for vec in ("false", "true"))
+
+
+def bwd_tiled_f32_ptxas(report) -> dict:
+    """Registers and spills of each instance of the f32 tiled pair
+    (BWD_TILED_F32_INSTANCES) from the ptxas report of its library's build,
+    and the FFMA and tensor-core (HMMA, HGMMA) instructions of its SASS
+    (``cuobjdump -sass``), logged; fails if one spills, if one runs a
+    tensor-core instruction (the pair's contract is fp32 FFMAs alone), or
+    if one is missing from a report of this run."""
+    import re
+    from repro_torch.kernels import _build
+    if report is None:
+        return {}
+    sys.path.insert(0, str(ROOT))
+    from tools.trace_kernels import ptxas_functions, sass_mix
+
+    def instance(fn):
+        m = re.match(r"_ZN3fab\d+(bwd_(?:dq|dkv)_f32)ILi(\d+)ELb(\d)E", fn)
+        return None if m is None else "{}<{}, {}>".format(
+            m.group(1), m.group(2), "true" if m.group(3) == "1" else "false")
+    out = {}
+    for fn, r in ptxas_functions(report).items():
+        if instance(fn):
+            out.setdefault(instance(fn), {}).update(r)
+    for fn, c in sass_mix(str(_build._lib_path("flash_attention_bwd")),
+                          "_f32").items():
+        if instance(fn) in out:
+            out[instance(fn)].update(
+                {x: c["function"][x] for x in ("FFMA", "HMMA", "HGMMA")})
+    check(sorted(out) == sorted(BWD_TILED_F32_INSTANCES),
+          f"[build] the ptxas report names {sorted(out)}, not the f32 tiled "
+          f"pair's {sorted(BWD_TILED_F32_INSTANCES)}")
+    for name, r in sorted(out.items()):
+        log(f"[build] fab::{name}: {r.get('registers')} registers a thread, "
+            f"{r.get('spill_stores')} B spill stores, {r.get('spill_loads')} "
+            f"B spill loads, {r.get('stack')} B stack; SASS FFMA "
+            f"{r.get('FFMA')}, HMMA {r.get('HMMA')}, HGMMA {r.get('HGMMA')}")
+        check(r.get("spill_stores") == 0 and r.get("spill_loads") == 0,
+              f"[build] fab::{name} spills: {r}")
+        check(r.get("FFMA", 0) > 0 and r.get("HMMA") == 0
+              and r.get("HGMMA") == 0,
+              f"[build] fab::{name}: tensor-core instructions in its SASS, "
+              f"or no FFMA: {r}")
+    return out
+
+
 def fwd_bf16_smem(kernel: str, dq: int, dv: int, bk: int) -> int:
     """Dynamic shared memory of a bf16 K4 instance (flash_attention.cu's
     Layout and PCfg): 64-column slabs of 128-byte rows; flash_bf16 one Q
@@ -7709,6 +7837,8 @@ def main() -> int:
     detail["bwd_bf16_ptxas"] = bwd_bf16_ptxas(
         reports.get("flash_attention_bwd"))
     detail["bwd_one_pass_ptxas"] = bwd_one_pass_ptxas(
+        reports.get("flash_attention_bwd"))
+    detail["bwd_tiled_f32_ptxas"] = bwd_tiled_f32_ptxas(
         reports.get("flash_attention_bwd"))
     detail["wkv6_bwd_ptxas"] = wkv6_bwd_ptxas(reports.get("wkv6_bwd"))
     detail["fwd_bf16_ptxas"] = fwd_bf16_ptxas(reports.get("flash_attention"))

@@ -167,12 +167,21 @@
 //   tiles take the larger head dim padded to 64 or 128, zeros past each
 //   tensor's own; past 128 the 32 x 32 tile alone, at 256 (140 KB of
 //   shared memory, 255 registers a thread: one CTA an SM).
-//   Tiled (longer calls, the CUDA-core pair): one CTA of 256 threads a
-//   BT-row tile, (a) then (b) as above, with the LSE and D scratch. Each
-//   tile of Q, K, V and dO is held in shared memory at DP columns, the
-//   larger head dim padded to 64, 128, 192 or 256, zeros past each
-//   tensor's own; rows of 64 up to DP 128 and of 32 past it; every product
-//   is register-tiled FMAs from shared memory.
+//   Tiled (longer calls, the CUDA-core pair bwd_dq_f32 / bwd_dkv_f32):
+//   (a) then (b) as above, with the LSE (log2 units) and D scratch, one
+//   CTA of 256 threads an SM. Each tile of Q, K, V and dO is held in shared
+//   memory at DP columns, the larger head dim padded to 64, 128 or 256
+//   (zeros past each tensor's own; a call in (128, 192] at 256), swizzled
+//   by 16-byte chunk and copied by cp.async into two stages, the next
+//   tile's under this one's products. Every product is an 8 x 8 register
+//   micro-tile, 4 FFMAs a 4-byte shared read; the score products split the
+//   head dim across lanes and sum by shuffles. (a) takes 64 q rows and 64
+//   keys a step (32 and 32 at DP 256), (b) 32 keys a CTA, the heaviest
+//   causal tiles first in both grids (the section before the tensor maps).
+//   Bound at phase 13 (a)'s B 1 x 1,024, 40/8 heads of 128, causal: the
+//   products of (a)'s outputs (S, dP, dQ) 0.24 ms at 67 TFLOP/s fp32,
+//   (b)'s (S, dP, dV, dK) 0.32 ms; (a) also reruns S for the LSE (K4-f32
+//   writes none).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -249,322 +258,6 @@ __device__ __forceinline__ bool tile_full(const Args& a, int q0, int q1,
   const long long qhi = (long long)a.q_offset + q1 - 1;
   return (!a.causal || k1 - 1 <= qlo) &&
          (a.window <= 0 || qhi - k0 < a.window);
-}
-
-// rows [row0, row0 + rows) of a (row stride ``stride``) into dst (row
-// stride LD), columns [0, DP); zeros past D and past nvalid rows
-template <int DP, int LD>
-__device__ void load_rows(float* dst, const float* src, size_t stride,
-                          int row0, int nvalid, int rows, int D, bool vec) {
-  if (vec) {
-    constexpr int VPR = DP / 4;
-    for (int idx = threadIdx.x; idx < rows * VPR; idx += blockDim.x) {
-      const int r = idx / VPR, c = (idx % VPR) * 4, gr = row0 + r;
-      const float4 u = gr < nvalid && c < D
-          ? *reinterpret_cast<const float4*>(src + gr * stride + c)
-          : make_float4(0.f, 0.f, 0.f, 0.f);
-      dst[r * LD + c] = u.x;
-      dst[r * LD + c + 1] = u.y;
-      dst[r * LD + c + 2] = u.z;
-      dst[r * LD + c + 3] = u.w;
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < rows * DP; idx += blockDim.x) {
-      const int r = idx / DP, c = idx % DP, gr = row0 + r;
-      dst[r * LD + c] = gr < nvalid && c < D ? src[gr * stride + c] : 0.f;
-    }
-  }
-}
-
-// D = rowsum(do . o) over Dv for rows [q0, q0 + 256 / TPR) of one head,
-// TPR threads a row
-template <int TPR>
-__device__ void row_dsum(const Args& a, const float* o, const float* dout,
-                         size_t stride, int q0, float* Ds, float* dsum_row) {
-  const int r = threadIdx.x / TPR, part = threadIdx.x % TPR, gr = q0 + r;
-  float acc = 0.f;
-  if (gr < a.Lq)
-    for (int c = part; c < a.Dv; c += TPR)
-      acc += dout[gr * stride + c] * o[gr * stride + c];
-#pragma unroll
-  for (int off = 1; off < TPR; off <<= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (part == 0) {
-    Ds[r] = acc;
-    if (gr < a.Lq) dsum_row[gr] = acc;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The CUDA-core pair (f32 calls past the one-pass band): fp32 FMAs, no
-// tensor cores. 256 threads as 16 x 16, a thread owns rows ty + 16 i and
-// columns tx + 16 j of every BT x BT tile (shared rows padded by one
-// float, so the 16 columns a half-warp reads fall in 16 banks). Q, K, V
-// and dO are held at DP columns, DP the larger head dim padded to 64, 128,
-// 192 or 256, zeros past each tensor's own (D for q/k, Dv for v/o/do), so
-// S runs over Dq and dP over Dv; BT is 64 up to DP 128 and 32 past it (137
-// KB of shared memory at DP 256).
-// ---------------------------------------------------------------------------
-
-template <int DP, int RI>
-__device__ __forceinline__ void scores_cc(const float* A, const float* Bm,
-                                          float (&s)[RI][RI]) {
-  constexpr int LD = DP + 1;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < RI; ++j) s[i][j] = 0.f;
-  for (int d = 0; d < DP; ++d) {
-    float av[RI], bv[RI];
-#pragma unroll
-    for (int i = 0; i < RI; ++i) av[i] = A[(ty + 16 * i) * LD + d];
-#pragma unroll
-    for (int j = 0; j < RI; ++j) bv[j] = Bm[(tx + 16 * j) * LD + d];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < RI; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
-
-template <int DP, int BT>
-struct CC {
-  static constexpr int LD = DP + 1, LS = BT + 1;
-  static constexpr int DQ_SMEM = (4 * BT * LD + BT * LS + BT) * 4;
-  static constexpr int DKV_SMEM = (4 * BT * LD + 2 * BT * LS + 2 * BT) * 4;
-};
-
-// (a): dq, and LSE and D into the scratch, for a BT-row q tile of one head
-template <int DP, int BT>
-__device__ __forceinline__ void dq_cc(const Args& a, float* sm) {
-  constexpr int LD = CC<DP, BT>::LD, LS = CC<DP, BT>::LS;
-  constexpr int RI = BT / 16, NJ = DP / 16;
-  float* Qs = sm;
-  float* dOs = Qs + BT * LD;
-  float* Ks = dOs + BT * LD;
-  float* Vs = Ks + BT * LD;
-  float* dSs = Vs + BT * LD;
-  float* Ds = dSs + BT * LS;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / a.G, q0 = blockIdx.x * BT;
-  const int kend = kv_end(a, b);
-  const size_t qs = (size_t)a.H * a.D, os = (size_t)a.H * a.Dv;
-  const size_t ks = (size_t)a.Hkv * a.D, vs = (size_t)a.Hkv * a.Dv;
-  const size_t row = (size_t)b * a.Lq * a.H + h;
-  const size_t krow = (size_t)b * a.Lkv * a.Hkv + hk;
-  const float* q = static_cast<const float*>(a.q) + row * a.D;
-  const float* o = static_cast<const float*>(a.o) + row * a.Dv;
-  const float* dout = static_cast<const float*>(a.dout) + row * a.Dv;
-  const float* k = static_cast<const float*>(a.k) + krow * a.D;
-  const float* v = static_cast<const float*>(a.v) + krow * a.Dv;
-  float* lse_row = a.lse + ((size_t)b * a.H + h) * a.ls;
-  load_rows<DP, LD>(Qs, q, qs, q0, a.Lq, BT, a.D, a.vec);
-  load_rows<DP, LD>(dOs, dout, os, q0, a.Lq, BT, a.Dv, a.vec);
-  row_dsum<256 / BT>(a, o, dout, os, q0, Ds,
-                     a.dsum + ((size_t)b * a.H + h) * a.ls);
-  __syncthreads();
-  const int nkt = (a.Lkv + BT - 1) / BT;
-  // pass 1: the row max m and sum l, online over the kv tiles
-  float m[RI], l[RI];
-#pragma unroll
-  for (int i = 0; i < RI; ++i) m[i] = -INFINITY, l[i] = 0.f;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * BT;
-    if (!tile_live(a, q0, q0 + BT, k0, k0 + BT, kend)) continue;
-    __syncthreads();
-    load_rows<DP, LD>(Ks, k, ks, k0, a.Lkv, BT, a.D, a.vec);
-    __syncthreads();
-    float s[RI][RI];
-    scores_cc<DP, RI>(Qs, Ks, s);
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < RI; ++j) {
-        s[i][j] = allowed(a, q0 + ty + 16 * i, k0 + tx + 16 * j, kend)
-                      ? s[i][j] * a.scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float mn = fmaxf(m[i], mx), base = mn == -INFINITY ? 0.f : mn;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < RI; ++j) sum += expf(s[i][j] - base);
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * (m[i] == -INFINITY ? 0.f : expf(m[i] - base)) + sum;
-      m[i] = mn;
-    }
-  }
-  float lse[RI];
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    lse[i] = l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
-    const int gr = q0 + ty + 16 * i;
-    if (tx == 0 && gr < a.Lq) lse_row[gr] = lse[i];
-  }
-  // pass 2: dQ += dS K
-  float acc[RI][NJ];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * BT;
-    if (!tile_live(a, q0, q0 + BT, k0, k0 + BT, kend)) continue;
-    __syncthreads();
-    load_rows<DP, LD>(Ks, k, ks, k0, a.Lkv, BT, a.D, a.vec);
-    load_rows<DP, LD>(Vs, v, vs, k0, a.Lkv, BT, a.Dv, a.vec);
-    __syncthreads();
-    float s[RI][RI], dp[RI][RI];
-    scores_cc<DP, RI>(Qs, Ks, s);
-    scores_cc<DP, RI>(dOs, Vs, dp);
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < RI; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const float p = allowed(a, q0 + r, k0 + c, kend)
-                            ? expf(s[i][j] * a.scale - lse[i]) : 0.f;
-        dSs[r * LS + c] = p * (dp[i][j] - Ds[r]);
-      }
-    __syncthreads();
-    for (int kk = 0; kk < BT; ++kk) {
-      float kv[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) kv[j] = Ks[kk * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float d = dSs[(ty + 16 * i) * LS + kk];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(d, kv[j], acc[i][j]);
-      }
-    }
-  }
-  float* dq = static_cast<float*>(a.dq) + row * a.D;
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int gr = q0 + ty + 16 * i;
-    if (gr >= a.Lq) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < a.D) dq[gr * qs + c] = acc[i][j] * a.scale;
-    }
-  }
-}
-
-// (b): dk and dv for a BT-key tile of one kv head, over its G query heads
-template <int DP, int BT>
-__device__ __forceinline__ void dkv_cc(const Args& a, float* sm) {
-  constexpr int LD = CC<DP, BT>::LD, LS = CC<DP, BT>::LS;
-  constexpr int RI = BT / 16, NJ = DP / 16;
-  float* Ks = sm;
-  float* Vs = Ks + BT * LD;
-  float* Qs = Vs + BT * LD;
-  float* dOs = Qs + BT * LD;
-  float* Ps = dOs + BT * LD;
-  float* dSs = Ps + BT * LS;
-  float* Ls = dSs + BT * LS;
-  float* Ds = Ls + BT;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int hk = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BT;
-  const int kend = kv_end(a, b);
-  const size_t qs = (size_t)a.H * a.D, os = (size_t)a.H * a.Dv;
-  const size_t ks = (size_t)a.Hkv * a.D, vs = (size_t)a.Hkv * a.Dv;
-  const size_t krow = (size_t)b * a.Lkv * a.Hkv + hk;
-  load_rows<DP, LD>(Ks, static_cast<const float*>(a.k) + krow * a.D, ks, k0,
-                    a.Lkv, BT, a.D, a.vec);
-  load_rows<DP, LD>(Vs, static_cast<const float*>(a.v) + krow * a.Dv, vs, k0,
-                    a.Lkv, BT, a.Dv, a.vec);
-  float dk[RI][NJ], dv[RI][NJ];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
-  const int nqt = (a.Lq + BT - 1) / BT;
-  for (int g = 0; g < a.G; ++g) {
-    const int h = hk * a.G + g;
-    const size_t row = (size_t)b * a.Lq * a.H + h;
-    const float* q = static_cast<const float*>(a.q) + row * a.D;
-    const float* dout = static_cast<const float*>(a.dout) + row * a.Dv;
-    const float* lse_row = a.lse + ((size_t)b * a.H + h) * a.ls;
-    const float* dsum_row = a.dsum + ((size_t)b * a.H + h) * a.ls;
-    for (int qt = 0; qt < nqt; ++qt) {
-      const int q0 = qt * BT;
-      if (!tile_live(a, q0, q0 + BT, k0, k0 + BT, kend)) continue;
-      __syncthreads();
-      load_rows<DP, LD>(Qs, q, qs, q0, a.Lq, BT, a.D, a.vec);
-      load_rows<DP, LD>(dOs, dout, os, q0, a.Lq, BT, a.Dv, a.vec);
-      if (threadIdx.x < BT) {
-        const int gr = q0 + threadIdx.x;
-        Ls[threadIdx.x] = gr < a.Lq ? lse_row[gr] : 0.f;
-        Ds[threadIdx.x] = gr < a.Lq ? dsum_row[gr] : 0.f;
-      }
-      __syncthreads();
-      float s[RI][RI], dp[RI][RI];
-      // s[i][j]: query ty + 16 i, key tx + 16 j
-      scores_cc<DP, RI>(Qs, Ks, s);
-      scores_cc<DP, RI>(dOs, Vs, dp);
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < RI; ++j) {
-          const int r = ty + 16 * i, c = tx + 16 * j;
-          const float p = allowed(a, q0 + r, k0 + c, kend)
-                              ? expf(s[i][j] * a.scale - Ls[r]) : 0.f;
-          Ps[r * LS + c] = p;
-          dSs[r * LS + c] = p * (dp[i][j] - Ds[r]);
-        }
-      __syncthreads();
-      for (int qq = 0; qq < BT; ++qq) {
-        float ov[NJ], qv[NJ];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          ov[j] = dOs[qq * LD + tx + 16 * j];
-          qv[j] = Qs[qq * LD + tx + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < RI; ++i) {
-          const float pv = Ps[qq * LS + ty + 16 * i];
-          const float sv = dSs[qq * LS + ty + 16 * i];
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            dv[i][j] = fmaf(pv, ov[j], dv[i][j]);
-            dk[i][j] = fmaf(sv, qv[j], dk[i][j]);
-          }
-        }
-      }
-    }
-  }
-  float* dkp = static_cast<float*>(a.dk) + krow * a.D;
-  float* dvp = static_cast<float*>(a.dv) + krow * a.Dv;
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int gr = k0 + ty + 16 * i;
-    if (gr >= a.Lkv) continue;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      if (c < a.D) dkp[gr * ks + c] = dk[i][j] * a.scale;
-      if (c < a.Dv) dvp[gr * vs + c] = dv[i][j];
-    }
-  }
-}
-
-template <int DP, int BT>
-__global__ void __launch_bounds__(256) bwd_dq_f32(Args a) {
-  extern __shared__ float sm[];
-  dq_cc<DP, BT>(a, sm);
-}
-template <int DP, int BT>
-__global__ void __launch_bounds__(256) bwd_dkv_f32(Args a) {
-  extern __shared__ float sm[];
-  dkv_cc<DP, BT>(a, sm);
 }
 
 // ---------------------------------------------------------------------------
@@ -2546,6 +2239,696 @@ bwd_one_pass_f32(Args a) {
   if (GQA && keys_live) store_kv<VEC>(a, krow, r0, tl, dk, dv);
 }
 
+// ---------------------------------------------------------------------------
+// f32, tiled: the CUDA-core pair for calls past the one-pass band, fp32
+// FFMAs only. A CTA is 256 threads as two groups of four warps, A (threads
+// 0-127) and B (128-255), one CTA an SM (its shared memory).
+//   Tiles of Q, dO, K and V are [rows][DP] f32 in shared memory, DP the
+// larger head dim padded to 64, 128 or 256 (zeros past each tensor's own),
+// chunk c (16 bytes) of row r stored at chunk c ^ (r & 7); they arrive by
+// cp.async (16 bytes where aligned, else 4; a thread copies one chunk of
+// every few rows) into two stages, the next tile's copy issued when this
+// one's products start.
+//   Score products (S, dP, and (b)'s S^T, dP^T) are dot products along the
+// head dim: a thread holds an 8 x 8 register micro-tile, rows pr + FR i x
+// columns pc + FC j of the score tile, and per 16-byte chunk reads 8 + 8
+// float4 for 256 FFMAs (4 FFMAs a 4-byte read). Eight lanes of a warp
+// share pr and read 8 distinct columns' rows (8 bank groups under the
+// swizzle); the score tile has too few micro-tiles for a group, so SK
+// lanes of a warp split the head dim and a butterfly of shuffles
+// (reduce_scatter) leaves each with 64 / SK of the summed elements. Group A
+// computes S (S^T), group B dP (dP^T) on the same positions; the two swap
+// halves through shared memory (swap_halves), so that each forms P and dS
+// = P . (dP - D) for half the rows.
+//   Output products (dQ, dK, dV) are outer products: a thread holds 8 rows x
+// 8 columns (16-byte chunks dg and dg + DP / 8) and per step of the
+// reduction reads 8 values of dS (P) as two float4 and two float4 of K (dO,
+// Q): 64 FFMAs. Where the output has fewer micro-tiles than threads the
+// reduction is split (dQ's keys in KS slices, dK's and dV's rows in RS),
+// and the partials are summed once, in slice order, at the end.
+//   (a) bwd_dq_f32: a CTA owns BM q rows of one head; Q and dO load once, D
+//       comes from O in global memory. Pass 1 streams two K tiles a stage
+//       (A scores the first, B the second) for each row's max and sum in
+//       the exp2 domain (each lane's own, merged once at the end) into the
+//       LSE (log2 units, +inf for a row that sees no key) written to the
+//       scratch; pass 2 streams K and V, writes dS transposed to shared
+//       memory, and all eight warps add dS K into dQ.
+//   (b) bwd_dkv_f32: a CTA owns BNB keys of one kv head; K and V load once,
+//       Q, dO and the LSE and D rows of each live BMB-row q tile of its G
+//       query heads (g = 0 .. G - 1 in order) stream. P^T and dS^T go to
+//       shared memory; A adds P^T dO into dV, B dS^T Q into dK. BNB = 32
+//       keys: at a causal call the key tile's work falls with its index,
+//       and 32 keys make enough CTAs that the heavy ones (first in the
+//       grid) do not set the kernel's time.
+// The mask runs only on edge tiles (tile_full; tiles past Lkv in (a)'s
+// sums, past Lq in (b)), one test a tile.
+// ---------------------------------------------------------------------------
+
+constexpr int TT = 256;                // threads of a tiled f32 CTA
+constexpr int TG = 128;                // of a group
+constexpr bool F32_HEAVY_FIRST = true; // grid: the tile its slowest index,
+                                       // the heaviest causal tiles first
+
+template <int DP>
+struct Tf32 {
+  // (a): BM q rows a CTA, BN keys a step; (b): BNB keys a CTA, BMB q rows
+  // a step. Past 128 the tiles halve (Q, dO and two K/V stages at DP 256)
+  static constexpr int BM = DP > 128 ? 32 : 64;
+  static constexpr int BN = DP > 128 ? 32 : 64;
+  static constexpr int BNB = 32;
+  static constexpr int BMB = DP > 128 ? 32 : 64;
+  static constexpr int SKA = 8192 / (BM * BN);    // head-dim splits of S, dP
+  static constexpr int KS = 64 * TT / (BM * DP);  // key splits of dQ
+  static constexpr int LDT = BM + 4;              // dS^T row stride
+  static constexpr int SKB = 8192 / (BNB * BMB);  // of S^T, dP^T
+  static constexpr int RS = 64 * TG / (BNB * DP); // row splits of dK, dV
+  static constexpr int LDP = BNB + 4;             // P, dS row stride
+  // the score products' chunk loop unrolled 2 deep, where that spills
+  // nothing ((a) past 128 and at 64 spills at 2: 1 there)
+  static constexpr int UNR_A = DP == 128 ? 2 : 1;
+  static constexpr int UNR_B = 2;
+  // Q, dO; two stages of two K (V) tiles; the swapped halves (and pass
+  // 1's statistics); dS^T; LSE and D
+  static constexpr int DQ_SMEM =
+      4 * (2 * BM * DP + 4 * BN * DP + BM * BN + BN * LDT + 2 * BM);
+  // K, V; two stages of Q, dO, LSE and D; P and dS; the swapped halves
+  static constexpr int DKV_SMEM = 4 * (2 * BNB * DP + 4 * BMB * DP +
+                                       4 * BMB + 2 * BMB * LDP + 8192 / SKB);
+  static_assert(DQ_SMEM <= 232448 && DKV_SMEM <= 232448, "shared memory");
+  static_assert(KS >= 1 && RS >= 1 && SKA <= 8 && SKB <= 8, "splits");
+};
+
+// rows [0, ROWS) of a [ROWS][DP] tile from global rows src + r * stride,
+// zeros past nvalid rows and past D columns, chunk c of row r stored at
+// chunk c ^ (r & 7), by cp.async from all TT threads. A thread copies the
+// same 16-byte chunk (VEC; else the same 4 bytes) of every RS-th row, so
+// the unrolled loop only steps the row.
+template <int DP, int ROWS, bool VEC>
+__device__ __forceinline__ void async_tile(float* dst, const float* src,
+                                           size_t stride, int nvalid,
+                                           int D) {
+  constexpr int CH = DP / 4, PER = VEC ? CH : DP, RS = TT / PER;
+  static_assert(TT % PER == 0 && ROWS % RS == 0, "whole passes");
+  const int e = threadIdx.x % PER, r0 = threadIdx.x / PER;
+  const int c = VEC ? e : e >> 2;
+  const bool cin = VEC ? 4 * c < D : e < D;
+  const float* sp = src + r0 * stride + (VEC ? 4 * c : e);
+#pragma unroll
+  for (int i = 0; i < ROWS / RS; ++i) {
+    const int r = r0 + RS * i;
+    // r & 7 is (r0 & 7) ^ ((RS i) & 7): r0 < RS, a power of two
+    float* dp = dst + r * DP + ((c ^ (r0 & 7) ^ ((RS * i) & 7)) << 2);
+    const bool in = cin && r < nvalid;
+    const float* s = in ? sp + RS * i * stride : src;
+    if constexpr (VEC)
+      cp_async16(dp, s, in ? 16 : 0);
+    else
+      cp_async4(dp + (e & 3), s, in ? 4 : 0);
+  }
+}
+
+// acc[i][j] = row pr + FR i of A . row pc + FC j of Bm over head-dim split
+// s of SK (chunks [s CS, (s + 1) CS)); both tiles swizzled, pr < FR and pc
+// < FC powers of two, so row (p + F i) & 7 is (p & 7) ^ ((F i) & 7)
+template <int DP, int FR, int FC, int SK, int UNR>
+__device__ __forceinline__ void score_frag(const float* A, const float* Bm,
+                                           int pr, int pc, int s,
+                                           float (&acc)[8][8]) {
+  constexpr int CS = DP / 4 / SK;
+  const float* ap = A + pr * DP;
+  const float* bp = Bm + pc * DP;
+  const int swa = pr & 7, swb = pc & 7;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll UNR
+  for (int cc = 0; cc < CS; ++cc) {
+    const int c = s * CS + cc;
+    float4 av[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      av[i] = *reinterpret_cast<const float4*>(
+          ap + i * FR * DP + ((c ^ swa ^ ((FR * i) & 7)) << 2));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 bv = *reinterpret_cast<const float4*>(
+          bp + j * FC * DP + ((c ^ swb ^ ((FC * j) & 7)) << 2));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        acc[i][j] = fmaf(av[i].x, bv.x, acc[i][j]);
+        acc[i][j] = fmaf(av[i].y, bv.y, acc[i][j]);
+        acc[i][j] = fmaf(av[i].z, bv.z, acc[i][j]);
+        acc[i][j] = fmaf(av[i].w, bv.w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// The SK lanes of a split (lane bits log2(P) up) sum their micro-tiles:
+// each round halves the elements a lane keeps (rows, then columns, then
+// rows), sending the other half to the lane that keeps it. After it lane
+// split s holds elements [0, RI) x [0, CJ) of acc as fragment rows roff + i
+// and columns coff + j (Split<SK>::rows, Split<SK>::cols).
+template <int SK, int P>
+__device__ __forceinline__ void reduce_scatter(float (&acc)[8][8], int s) {
+  if constexpr (SK >= 2) {
+    const bool hi = s & 1;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float send = hi ? acc[i][j] : acc[i + 4][j];
+        const float keep = hi ? acc[i + 4][j] : acc[i][j];
+        acc[i][j] = keep + __shfl_xor_sync(0xffffffffu, send, P);
+      }
+  }
+  if constexpr (SK >= 4) {
+    const bool hi = (s >> 1) & 1;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float send = hi ? acc[i][j] : acc[i][j + 4];
+        const float keep = hi ? acc[i][j + 4] : acc[i][j];
+        acc[i][j] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * P);
+      }
+  }
+  if constexpr (SK >= 8) {
+    const bool hi = (s >> 2) & 1;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float send = hi ? acc[i][j] : acc[i + 2][j];
+        const float keep = hi ? acc[i + 2][j] : acc[i][j];
+        acc[i][j] = keep + __shfl_xor_sync(0xffffffffu, send, 4 * P);
+      }
+  }
+}
+
+template <int SK>
+struct Split {
+  static constexpr int RI = SK >= 8 ? 2 : SK >= 2 ? 4 : 8;
+  static constexpr int CJ = SK >= 4 ? 4 : 8;
+  static __device__ __forceinline__ int rows(int s) {
+    return (SK >= 2 ? 4 * (s & 1) : 0) + (SK >= 8 ? 2 * ((s >> 2) & 1) : 0);
+  }
+  static __device__ __forceinline__ int cols(int s) {
+    return SK >= 4 ? 4 * ((s >> 1) & 1) : 0;
+  }
+};
+
+// The group pair's micro-tiles (same positions; A's holds S, B's dP) split
+// by rows: A keeps rows [0, RI / 2) and sends the rest through X ([RI CJ][TG]
+// floats), B the reverse; then f(i, j, S, dP) runs on each element of the
+// rows this thread keeps, so both groups do half the elementwise work
+template <int RI, int CJ, typename F>
+__device__ __forceinline__ void swap_halves(const float (&acc)[8][8],
+                                            float* X, int grp, int gt,
+                                            F f) {
+  constexpr int RH = RI / 2;
+  if (grp == 0) {
+#pragma unroll
+    for (int i = RH; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) X[(i * CJ + j) * TG + gt] = acc[i][j];
+  } else {
+#pragma unroll
+    for (int i = 0; i < RH; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j) X[(i * CJ + j) * TG + gt] = acc[i][j];
+  }
+  __syncthreads();
+  if (grp == 0) {
+#pragma unroll
+    for (int i = 0; i < RH; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j)
+        f(i, j, acc[i][j], X[(i * CJ + j) * TG + gt]);
+  } else {
+#pragma unroll
+    for (int i = RH; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < CJ; ++j)
+        f(i, j, X[(i * CJ + j) * TG + gt], acc[i][j]);
+  }
+}
+
+// o[i][e] += X[n][x0 + i] Y[n][chunk dg + (e >> 2) DP / 8] over n in [n0,
+// n0 + NN): X rows of stride LDX, Y rows of DP swizzled
+template <int DP, int LDX, int NN>
+__device__ __forceinline__ void outer_frag(const float* X, const float* Y,
+                                           int n0, int dg,
+                                           float (&o)[8][8]) {
+  constexpr int DG = DP / 8;
+#pragma unroll 2
+  for (int nn = 0; nn < NN; ++nn) {
+    const int n = n0 + nn, sw = n & 7;
+    const float4 x0 = *reinterpret_cast<const float4*>(X + n * LDX);
+    const float4 x1 = *reinterpret_cast<const float4*>(X + n * LDX + 4);
+    const float4 y0 = *reinterpret_cast<const float4*>(
+        Y + n * DP + ((dg ^ sw) << 2));
+    const float4 y1 = *reinterpret_cast<const float4*>(
+        Y + n * DP + (((dg + DG) ^ sw) << 2));
+    const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      o[i][0] = fmaf(xv[i], y0.x, o[i][0]);
+      o[i][1] = fmaf(xv[i], y0.y, o[i][1]);
+      o[i][2] = fmaf(xv[i], y0.z, o[i][2]);
+      o[i][3] = fmaf(xv[i], y0.w, o[i][3]);
+      o[i][4] = fmaf(xv[i], y1.x, o[i][4]);
+      o[i][5] = fmaf(xv[i], y1.y, o[i][5]);
+      o[i][6] = fmaf(xv[i], y1.z, o[i][6]);
+      o[i][7] = fmaf(xv[i], y1.w, o[i][7]);
+    }
+  }
+}
+
+// The output micro-tiles of NS splits (thread t of NP positions a split:
+// split t / NP) summed in split order into split 0's registers through
+// buf (NS - 1) x NP x 64 floats; every thread of the CTA calls it
+template <int NS, int NP>
+__device__ __forceinline__ void sum_splits(float (&o)[8][8], int t,
+                                           float* buf) {
+  if constexpr (NS > 1) {
+    const int sp = t / NP, p = t % NP;
+    if (sp > 0) {
+      float4* dst = reinterpret_cast<float4*>(buf) + ((sp - 1) * 16) * NP + p;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          dst[(2 * i + h) * NP] = make_float4(o[i][4 * h], o[i][4 * h + 1],
+                                              o[i][4 * h + 2], o[i][4 * h + 3]);
+    }
+    __syncthreads();
+    if (sp == 0)
+#pragma unroll 1
+      for (int q = 1; q < NS; ++q) {
+        const float4* src =
+            reinterpret_cast<const float4*>(buf) + ((q - 1) * 16) * NP + p;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float4 u = src[(2 * i + h) * NP];
+            o[i][4 * h] += u.x;
+            o[i][4 * h + 1] += u.y;
+            o[i][4 * h + 2] += u.z;
+            o[i][4 * h + 3] += u.w;
+          }
+      }
+  }
+}
+
+// rows r0 + i (below nrows) x columns 4 dg + e and 4 (dg + DP / 8) + e (below
+// D) of a row-major output of row stride ld, times mul
+template <int DP>
+__device__ __forceinline__ void store_frag(float* out, size_t ld, int r0,
+                                           int nrows, int dg, int D,
+                                           float mul,
+                                           const float (&o)[8][8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    if (r0 + i >= nrows) continue;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int c = 4 * (dg + (e >> 2) * (DP / 8)) + (e & 3);
+      if (c < D) out[(r0 + i) * ld + c] = o[i][e] * mul;
+    }
+  }
+}
+
+// D = rowsum(do . o) over Dv for rows [q0, q0 + BM) of one head (TT / BM
+// threads a row, 16-byte loads where VEC holds, all issued before the
+// sums): into Ds and the scratch row
+template <int DP, int BM, bool VEC>
+__device__ __forceinline__ void dsum_rows(const Args& a, const float* o,
+                                          const float* dout, size_t stride,
+                                          int q0, float* Ds,
+                                          float* dsum_row) {
+  constexpr int TPR = TT / BM, NC = DP / 4 / TPR;
+  const int r = threadIdx.x / TPR, part = threadIdx.x % TPR, gr = q0 + r;
+  float acc = 0.f;
+  if (gr < a.Lq) {
+    const float* op = o + gr * stride;
+    const float* dp = dout + gr * stride;
+    if constexpr (VEC) {
+      float4 x[NC], y[NC];
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int c = 4 * (part + TPR * i);
+        x[i] = y[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (c < a.Dv) {
+          x[i] = *reinterpret_cast<const float4*>(dp + c);
+          y[i] = *reinterpret_cast<const float4*>(op + c);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NC; ++i)
+        acc += x[i].x * y[i].x + x[i].y * y[i].y + x[i].z * y[i].z +
+               x[i].w * y[i].w;
+    } else {
+      for (int c = part; c < a.Dv; c += TPR) acc += dp[c] * op[c];
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < TPR; off <<= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (part == 0) {
+    Ds[r] = acc;
+    if (gr < a.Lq) dsum_row[gr] = acc;
+  }
+}
+
+// the tile's unit: (head, sequence, tile index, tiles) from the grid
+__device__ __forceinline__ void f32_unit(int& head, int& b, int& tile,
+                                         int& nt) {
+  if (F32_HEAVY_FIRST) {
+    head = blockIdx.x, b = blockIdx.y, tile = blockIdx.z, nt = gridDim.z;
+  } else {
+    head = blockIdx.y, b = blockIdx.z, tile = blockIdx.x, nt = gridDim.x;
+  }
+}
+
+// (a): dq, and LSE and D into the scratch, for BM q rows of one head
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(TT, 1) bwd_dq_f32(Args a) {
+  using T = Tf32<DP>;
+  constexpr int BM = T::BM, BN = T::BN, SK = T::SKA, KS = T::KS;
+  constexpr int FR = BM / 8, FC = BN / 8, P = 32 / SK, LDT = T::LDT;
+  constexpr int RI = Split<SK>::RI, CJ = Split<SK>::CJ;
+  constexpr int NPOS = BM * DP / 64, DG = DP / 8;
+  static_assert(P % FC == 0, "a row's lanes within a warp");
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                      // [BM][DP]
+  float* dOs = Qs + BM * DP;            // [BM][DP]
+  float* ring = dOs + BM * DP;          // 2 x [2][BN][DP]
+  float* Pb = ring + 4 * BN * DP;       // [RI CJ][TG]: swapped halves
+  float* dSt = Pb + BM * BN;            // [BN][LDT]: dS^T
+  float* Ls = dSt + BN * LDT;           // [BM] LSE, log2 units
+  float* Ds = Ls + BM;                  // [BM] D
+  const int tid = threadIdx.x, grp = tid >> 7, gt = tid & (TG - 1);
+  int h, b, tile, nt;
+  f32_unit(h, b, tile, nt);
+  const int qt = F32_HEAVY_FIRST ? nt - 1 - tile : tile;
+  const int q0 = qt * BM, hk = h / a.G, kend = kv_end(a, b);
+  const size_t qs = (size_t)a.H * a.D, os = (size_t)a.H * a.Dv;
+  const size_t ks = (size_t)a.Hkv * a.D, vs = (size_t)a.Hkv * a.Dv;
+  const size_t row = (size_t)b * a.Lq * a.H + h;
+  const size_t krow = (size_t)b * a.Lkv * a.Hkv + hk;
+  const float* q = static_cast<const float*>(a.q) + row * a.D;
+  const float* o = static_cast<const float*>(a.o) + row * a.Dv;
+  const float* dout = static_cast<const float*>(a.dout) + row * a.Dv;
+  const float* k = static_cast<const float*>(a.k) + krow * a.D;
+  const float* v = static_cast<const float*>(a.v) + krow * a.Dv;
+  float* lse_row = a.lse + ((size_t)b * a.H + h) * a.ls;
+  const float sl2 = a.scale * LOG2E;
+  // score positions: warp-local lane l of split s = l / P
+  const int lane = gt & 31, pos = (gt >> 5) * P + lane % P, s = lane / P;
+  const int pr = pos / FC, pc = pos % FC;
+  const int roff = Split<SK>::rows(s), coff = Split<SK>::cols(s);
+  // dQ positions: rows 8 rg .. 8 rg + 7, chunks dg and dg + DG; key split kq
+  const int dg = tid % NPOS % DG, rg = tid % NPOS / DG, kq = tid / NPOS;
+  async_tile<DP, BM, VEC>(Qs, q + q0 * qs, qs, a.Lq - q0, a.D);
+  async_tile<DP, BM, VEC>(dOs, dout + q0 * os, os, a.Lq - q0, a.Dv);
+  const int nkt = (a.Lkv + BN - 1) / BN;
+  auto next_live = [&](int kt) {
+    while (kt < nkt && !tile_live(a, q0, q0 + BM, kt * BN, kt * BN + BN, kend))
+      ++kt;
+    return kt;
+  };
+  // a stage's job: pass 1 tiles t0 and t1 (t1 == nkt: none), pass 2 tile
+  // t0; pass 0: none
+  struct Job { int pass, t0, t1; };
+  auto next_job = [&](Job j) -> Job {
+    if (j.pass == 1) {
+      const int t0 = j.t1 < nkt ? next_live(j.t1 + 1) : nkt;
+      if (t0 < nkt) return {1, t0, next_live(t0 + 1)};
+      return {2, next_live(0), nkt};
+    }
+    if (j.pass == 2) {
+      const int t = next_live(j.t0 + 1);
+      return t < nkt ? Job{2, t, nkt} : Job{0, 0, 0};
+    }
+    return j;
+  };
+  auto issue = [&](Job j, int st) {
+    if (!j.pass) return;
+    float* K0 = ring + st * 2 * BN * DP;
+    float* K1 = K0 + BN * DP;
+    const int k0 = j.t0 * BN;
+    async_tile<DP, BN, VEC>(K0, k + k0 * ks, ks, a.Lkv - k0, a.D);
+    if (j.pass == 2) {
+      async_tile<DP, BN, VEC>(K1, v + k0 * vs, vs, a.Lkv - k0, a.Dv);
+    } else if (j.t1 < nkt) {
+      const int k1 = j.t1 * BN;
+      async_tile<DP, BN, VEC>(K1, k + k1 * ks, ks, a.Lkv - k1, a.D);
+    }
+  };
+  const int first = next_live(0);
+  Job cur = first < nkt ? Job{1, first, next_live(first + 1)} : Job{0, 0, 0};
+  issue(cur, 0);
+  dsum_rows<DP, BM, VEC>(a, o, dout, os, q0, Ds,
+                         a.dsum + ((size_t)b * a.H + h) * a.ls);
+  // pass 1 state: each row's max and sum over this lane's keys
+  float m[RI], l[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) m[i] = -INFINITY, l[i] = 0.f;
+  // (m, l) of two key sets merged into (m[i], l[i])
+  auto merge = [&](int i, float mo, float lo) {
+    const float mx = fmaxf(m[i], mo), base = mx == -INFINITY ? 0.f : mx;
+    l[i] = l[i] * ex2(m[i] - base) + lo * ex2(mo - base);
+    m[i] = mx;
+  };
+  // the LSE from the lanes' statistics and from A's and B's (B's through
+  // Pb), into Ls and the scratch
+  auto finish_lse = [&]() {
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+#pragma unroll
+      for (int off = 1; off < FC; off <<= 1)
+        merge(i, __shfl_xor_sync(0xffffffffu, m[i], off),
+              __shfl_xor_sync(0xffffffffu, l[i], off));
+      if constexpr (SK >= 4)
+        merge(i, __shfl_xor_sync(0xffffffffu, m[i], 2 * P),
+              __shfl_xor_sync(0xffffffffu, l[i], 2 * P));
+    }
+    const bool writer = pc == 0 && coff == 0;
+    if (grp == 1 && writer)
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const int r = pr + FR * (roff + i);
+        Pb[r] = m[i];
+        Pb[BM + r] = l[i];
+      }
+    __syncthreads();
+    if (grp == 0 && writer)
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const int r = pr + FR * (roff + i);
+        merge(i, Pb[r], Pb[BM + r]);
+        const float lse = l[i] > 0.f ? m[i] + log2f(l[i]) : INFINITY;
+        Ls[r] = lse;
+        if (q0 + r < a.Lq) lse_row[q0 + r] = lse;
+      }
+    __syncthreads();
+  };
+  float dq[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dq[i][e] = 0.f;
+  bool lse_done = false;
+  int st = 0;
+  while (cur.pass) {
+    cp_async_wait_all();
+    __syncthreads();          // stage st landed; stage st ^ 1 is free
+    const Job nx = next_job(cur);
+    issue(nx, st ^ 1);
+    const float* K0 = ring + st * 2 * BN * DP;
+    const float* K1 = K0 + BN * DP;
+    float acc[8][8];
+    if (cur.pass == 1) {
+      const int t = grp ? cur.t1 : cur.t0;
+      if (t < nkt) {
+        score_frag<DP, FR, FC, SK, T::UNR_A>(Qs, grp ? K1 : K0, pr, pc, s,
+                                             acc);
+        reduce_scatter<SK, P>(acc, s);
+        const int k0 = t * BN;
+        const bool edge = !tile_full(a, q0, q0 + BM, k0, k0 + BN, kend) ||
+                          k0 + BN > a.Lkv;
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          const int r = pr + FR * (roff + i);
+          float mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < CJ; ++j) {
+            float x = acc[i][j] * sl2;
+            if (edge && !allowed(a, q0 + r, k0 + pc + FC * (coff + j), kend))
+              x = -INFINITY;
+            acc[i][j] = x;
+            mx = fmaxf(mx, x);
+          }
+          const float mn = fmaxf(m[i], mx), base = mn == -INFINITY ? 0.f : mn;
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < CJ; ++j) sum += ex2(acc[i][j] - base);
+          l[i] = l[i] * ex2(m[i] - base) + sum;
+          m[i] = mn;
+        }
+      }
+    } else {
+      if (!lse_done) finish_lse(), lse_done = true;
+      // A: S = Q K^T and P; B: dP = dO V^T and dS = P . (dP - D)
+      score_frag<DP, FR, FC, SK, T::UNR_A>(grp ? dOs : Qs, grp ? K1 : K0, pr,
+                                           pc, s, acc);
+      reduce_scatter<SK, P>(acc, s);
+      const int k0 = cur.t0 * BN;
+      const bool edge = !tile_full(a, q0, q0 + BM, k0, k0 + BN, kend);
+      swap_halves<RI, CJ>(acc, Pb, grp, gt,
+                          [&](int i, int j, float sv, float dpv) {
+        const int r = pr + FR * (roff + i), n = pc + FC * (coff + j);
+        float p = ex2(fmaf(sv, sl2, -Ls[r]));
+        if (edge && !allowed(a, q0 + r, k0 + n, kend)) p = 0.f;
+        dSt[n * LDT + r] = p * (dpv - Ds[r]);
+      });
+      __syncthreads();
+      outer_frag<DP, LDT, BN / KS>(dSt + 8 * rg, K0, kq * (BN / KS), dg, dq);
+    }
+    st ^= 1;
+    cur = nx;
+  }
+  if (!lse_done) finish_lse();      // no live tile: every LSE is +inf
+  cp_async_wait_all();
+  __syncthreads();
+  sum_splits<KS, NPOS>(dq, tid, ring);
+  if (kq == 0)
+    store_frag<DP>(static_cast<float*>(a.dq) + row * a.D + q0 * qs, qs,
+                   8 * rg, a.Lq - q0, dg, a.D, a.scale, dq);
+}
+
+// (b): dk and dv for BNB keys of one kv head, over its G query heads
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(TT, 1) bwd_dkv_f32(Args a) {
+  using T = Tf32<DP>;
+  constexpr int BN = T::BNB, BM = T::BMB, SK = T::SKB, RS = T::RS;
+  constexpr int FR = BN / 8, FC = BM / 8, P = 32 / SK, LDP = T::LDP;
+  constexpr int RI = Split<SK>::RI, CJ = Split<SK>::CJ;
+  constexpr int NPOS = BN * DP / 64, DG = DP / 8;
+  constexpr int STAGE = 2 * BM * DP + 2 * BM;
+  extern __shared__ __align__(16) float fsm[];
+  float* Ks = fsm;                      // [BN][DP]
+  float* Vs = Ks + BN * DP;             // [BN][DP]
+  float* ring = Vs + BN * DP;           // 2 x (Q, dO [BM][DP]; LSE, D [BM])
+  float* Ps = ring + 2 * STAGE;         // [BM][LDP]: P
+  float* dSs = Ps + BM * LDP;           // [BM][LDP]: dS
+  float* Xb = dSs + BM * LDP;           // [RI CJ][TG]: swapped halves
+  const int tid = threadIdx.x, grp = tid >> 7, gt = tid & (TG - 1);
+  int hk, b, kt, nt;
+  f32_unit(hk, b, kt, nt);
+  const int k0 = kt * BN, kend = kv_end(a, b);
+  const size_t qs = (size_t)a.H * a.D, os = (size_t)a.H * a.Dv;
+  const size_t ks = (size_t)a.Hkv * a.D, vs = (size_t)a.Hkv * a.Dv;
+  const size_t krow = (size_t)b * a.Lkv * a.Hkv + hk;
+  const float sl2 = a.scale * LOG2E;
+  const int lane = gt & 31, pos = (gt >> 5) * P + lane % P, s = lane / P;
+  const int pr = pos / FC, pc = pos % FC;
+  const int roff = Split<SK>::rows(s), coff = Split<SK>::cols(s);
+  // output positions: keys 8 kg .. 8 kg + 7, chunks dg and dg + DG; row
+  // split rq
+  const int dg = gt % NPOS % DG, kg = gt % NPOS / DG, rq = gt / NPOS;
+  async_tile<DP, BN, VEC>(Ks, static_cast<const float*>(a.k) + krow * a.D +
+                                  k0 * ks, ks, a.Lkv - k0, a.D);
+  async_tile<DP, BN, VEC>(Vs, static_cast<const float*>(a.v) + krow * a.Dv +
+                                  k0 * vs, vs, a.Lkv - k0, a.Dv);
+  const int nqt = (a.Lq + BM - 1) / BM;
+  auto next_live = [&](int qt) {
+    while (qt < nqt && !tile_live(a, qt * BM, qt * BM + BM, k0, k0 + BN, kend))
+      ++qt;
+    return qt;
+  };
+  const int qfirst = next_live(0);
+  // a stage's job: q tile qt of query head g; g == G: none
+  struct Job { int g, qt; };
+  auto next_job = [&](Job j) -> Job {
+    const int t = next_live(j.qt + 1);
+    return t < nqt ? Job{j.g, t} : Job{j.g + 1, qfirst};
+  };
+  auto issue = [&](Job j, int st) {
+    if (j.g >= a.G) return;
+    float* Qd = ring + st * STAGE;
+    float* dOd = Qd + BM * DP;
+    float* Ld = dOd + BM * DP;
+    const int h = hk * a.G + j.g, q0 = j.qt * BM;
+    const size_t row = (size_t)b * a.Lq * a.H + h;
+    async_tile<DP, BM, VEC>(Qd, static_cast<const float*>(a.q) +
+                                    row * a.D + q0 * qs, qs, a.Lq - q0, a.D);
+    async_tile<DP, BM, VEC>(dOd, static_cast<const float*>(a.dout) +
+                                     row * a.Dv + q0 * os, os, a.Lq - q0,
+                            a.Dv);
+    if (tid < 2 * BM) {
+      const int r = tid % BM;
+      const float* src = (tid < BM ? a.lse : a.dsum) +
+                         ((size_t)b * a.H + h) * a.ls + q0 + r;
+      cp_async4(Ld + tid, q0 + r < a.Lq ? src : a.lse,
+                q0 + r < a.Lq ? 4 : 0);
+    }
+  };
+  float acc[8][8], out[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) out[i][e] = 0.f;
+  Job cur = qfirst < nqt ? Job{0, qfirst} : Job{a.G, 0};
+  issue(cur, 0);
+  int st = 0;
+  while (cur.g < a.G) {
+    cp_async_wait_all();
+    __syncthreads();          // stage st landed; stage st ^ 1, P, dS free
+    const Job nx = next_job(cur);
+    issue(nx, st ^ 1);
+    const float* Qt = ring + st * STAGE;
+    const float* dOt = Qt + BM * DP;
+    const float* Lt = dOt + BM * DP;
+    const float* Dt = Lt + BM;
+    // A: S^T = K Q^T and P^T; B: dP^T = V dO^T and dS^T
+    score_frag<DP, FR, FC, SK, T::UNR_B>(grp ? Vs : Ks, grp ? dOt : Qt, pr, pc,
+                                         s, acc);
+    reduce_scatter<SK, P>(acc, s);
+    const int q0 = cur.qt * BM;
+    const bool edge = !tile_full(a, q0, q0 + BM, k0, k0 + BN, kend) ||
+                      q0 + BM > a.Lq;
+    swap_halves<RI, CJ>(acc, Xb, grp, gt,
+                        [&](int i, int j, float sv, float dpv) {
+      const int n = pr + FR * (roff + i), r = pc + FC * (coff + j);
+      float p = ex2(fmaf(sv, sl2, -Lt[r]));
+      if (edge && !allowed(a, q0 + r, k0 + n, kend)) p = 0.f;
+      Ps[r * LDP + n] = p;
+      dSs[r * LDP + n] = p * (dpv - Dt[r]);
+    });
+    __syncthreads();
+    // A: dV += P^T dO; B: dK += dS^T Q
+    outer_frag<DP, LDP, BM / RS>((grp ? dSs : Ps) + 8 * kg, grp ? Qt : dOt,
+                                 rq * (BM / RS), dg, out);
+    st ^= 1;
+    cur = nx;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  sum_splits<RS, NPOS>(out, gt, ring + grp * (RS - 1) * NPOS * 64);
+  if (rq == 0) {
+    if (grp == 0)
+      store_frag<DP>(static_cast<float*>(a.dv) + krow * a.Dv + k0 * vs, vs,
+                     8 * kg, a.Lkv - k0, dg, a.Dv, 1.f, out);
+    else
+      store_frag<DP>(static_cast<float*>(a.dk) + krow * a.D + k0 * ks, ks,
+                     8 * kg, a.Lkv - k0, dg, a.D, a.scale, out);
+  }
+}
+
 // cuTensorMapEncodeTiled from the driver, without linking libcuda.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -2748,24 +3131,31 @@ static cudaError_t run_one_pass_f32(const Args& a, cudaStream_t s) {
   return small ? run_one_pass<32, 128>(a, s) : run_one_pass<64, 128>(a, s);
 }
 
-// the CUDA-core pair (bwd_dq_f32 / bwd_dkv_f32) at BT-row tiles
-template <int DP, int BT>
-static cudaError_t run_cc(const Args& a, int part, cudaStream_t s) {
-  using C = CC<DP, BT>;
+// the CUDA-core pair at the larger head dim padded to DP: (a) on a grid of
+// one CTA a (q tile, head, sequence), (b) one a (key tile, kv head,
+// sequence), the tile the slowest index where F32_HEAVY_FIRST holds
+template <int DP>
+static cudaError_t run_f32(const Args& a, int part, cudaStream_t s) {
+  using T = Tf32<DP>;
+  const int nt = part == 0 ? (a.Lq + T::BM - 1) / T::BM
+                           : (a.Lkv + T::BNB - 1) / T::BNB;
+  const int heads = part == 0 ? a.H : a.Hkv;
+  const dim3 grid = F32_HEAVY_FIRST ? dim3(heads, a.B, nt)
+                                    : dim3(nt, heads, a.B);
   if (part == 0)
-    return launch(bwd_dq_f32<DP, BT>, dim3((a.Lq + BT - 1) / BT, a.H, a.B),
-                  256, C::DQ_SMEM, a, s);
-  return launch(bwd_dkv_f32<DP, BT>, dim3((a.Lkv + BT - 1) / BT, a.Hkv, a.B),
-                256, C::DKV_SMEM, a, s);
+    return launch(a.vec ? bwd_dq_f32<DP, true> : bwd_dq_f32<DP, false>,
+                  grid, TT, T::DQ_SMEM, a, s);
+  return launch(a.vec ? bwd_dkv_f32<DP, true> : bwd_dkv_f32<DP, false>,
+                grid, TT, T::DKV_SMEM, a, s);
 }
 
-// DP: the larger head dim padded to 64, 128, 192 or 256
+// DP: the larger head dim padded to 64, 128 or 256 (a call in (128, 192]
+// runs at 256, zeros past its width)
 static cudaError_t run_cc_f32(const Args& a, int part, cudaStream_t s) {
   const int d = a.D > a.Dv ? a.D : a.Dv;
-  if (d <= 64) return run_cc<64, 64>(a, part, s);
-  if (d <= 128) return run_cc<128, 64>(a, part, s);
-  if (d <= 192) return run_cc<192, 32>(a, part, s);
-  return run_cc<256, 32>(a, part, s);
+  if (d <= 64) return run_f32<64>(a, part, s);
+  if (d <= 128) return run_f32<128>(a, part, s);
+  return run_f32<256>(a, part, s);
 }
 
 }  // namespace fab

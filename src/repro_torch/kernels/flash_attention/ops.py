@@ -201,7 +201,8 @@ def bwd_route(dtype: torch.dtype, Lq: int, Lkv: int, Dq: int,
     or at most 32 where a head dim is over 128; ``"tiled"``, the pair (a)
     dQ, (b) dK/dV, for every other call: ``bwd_dq_bf16<DQP, DVP>`` /
     ``bwd_dkv_bf16`` (wgmma, each width padded to 64 or 128) in bf16,
-    ``bwd_dq_f32<DP, BT>`` / ``bwd_dkv_f32`` (CUDA cores) in f32;
+    ``bwd_dq_f32<DP, VEC>`` / ``bwd_dkv_f32`` (CUDA cores, the larger
+    head dim padded to 64, 128 or 256) in f32;
     ``"tiled_exact"`` for bf16 with Dq in (64, 96] and Dv <= 64
     (minicpm3's MLA, ``saves_lse``): the wgmma pair at the exact widths
     <96, 64>, (a) ``bwd_dq_lse_bf16<96, 64>`` from the LSE the forward

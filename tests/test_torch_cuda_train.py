@@ -15,8 +15,11 @@ the widths past Dq = Dv <= 128 (the MLA pairs (96, 64), (192, 128) and
 8 query heads of 256 with its 256-token prefix, a dropped 32-key tile of
 (a) and a dropped 64-key CTA of (b); a ragged ``kv_valid_len`` (a full
 row, a short one, one of 0) on every kernel family, against the plain
-version with it and, as a planted fault, without it; ``FlashAttentionFn``
-on CUDA
+version with it and, as a planted fault, without it; the f32 tiled pair
+at every instance (DP 64, 128, 256; equal and unequal head dims) around
+its tiles (T - 1, T, T + 1, 2 T + 1), G 1, 5 and 8, in every mask mode,
+with a ragged kv_valid_len and planted faults, each call repeated bit for
+bit; ``FlashAttentionFn`` on CUDA
 tensors (the backward kernels run, the plain backward does not); the
 WKV6 backward kernel (K5-bwd) against ``wkv6_bwd_ref`` at K 16 and 64
 with a carried state and a final-state cotangent, its planted fault and
@@ -507,6 +510,99 @@ def test_wide_dkv_whole_and_split_columns(B, Hkv):
     torch.cuda.synchronize()
     for x, y in zip(got, again):
         assert torch.equal(x, y)
+
+
+# the f32 tiled pair's instances: (Dq, Dv) at DP 64, 128 and 256 (a call
+# in (128, 192] runs at 256), equal and unequal widths
+F32_TILED_WIDTHS = {"64": (64, 64), "48x64": (48, 64), "128": (128, 128),
+                    "96x64": (96, 64), "64x128": (64, 128),
+                    "192x128": (192, 128), "256": (256, 256),
+                    "200x256": (200, 256)}
+
+
+def _f32_tiled(B, L, H, Hkv, width, seed, **kw):
+    """``_check`` of an f32 call that takes the tiled pair (L query rows;
+    keys L, or L + 64 where L alone would take the one-pass kernel, the
+    queries right-aligned), and a second call bit for bit."""
+    Dq, Dv = F32_TILED_WIDTHS[width]
+    Lkv = L
+    if fa_ops.bwd_route(torch.float32, L, L, Dq, Dv) != "tiled":
+        Lkv = L + 64
+        kw.setdefault("q_offset", 64)
+    assert fa_ops.bwd_route(torch.float32, L, Lkv, Dq, Dv) == "tiled"
+    out = _check(B, L, Lkv, H, Hkv, Dq, torch.float32, seed, Dv=Dv, **kw)
+    q, k, v, o, do, got = out[:6]
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got, again):
+        assert x.data_ptr() != y.data_ptr() and torch.equal(x, y)
+    return out
+
+
+@pytest.mark.parametrize("width", list(F32_TILED_WIDTHS))
+@pytest.mark.parametrize("G", [1, 5, 8])
+@pytest.mark.parametrize("L", [31, 32, 33, 63, 64, 65, 127, 128, 129])
+def test_f32_tiled_pair_at_tile_edges(L, G, width):
+    """The f32 tiled pair around its tiles (T - 1, T, T + 1 and 2 T + 1 of
+    (a)'s 64 q rows and keys a step, 32 past head dim 128, and of (b)'s 32
+    keys a CTA), causal, G query heads a kv head, every instance with equal
+    and unequal head dims: within the limit and bit-identical twice."""
+    _f32_tiled(1, L, 2 * G, 2, width, seed=L + 10 * G + len(width),
+               causal=True)
+
+
+@pytest.mark.parametrize("width", list(F32_TILED_WIDTHS))
+@pytest.mark.parametrize("mode", list(MODES))
+def test_f32_tiled_pair_every_mask_mode(mode, width):
+    """The f32 tiled pair in every mask mode (heavy-first grids: (a)'s last
+    q tile first, (b)'s first key tile first) at every instance."""
+    Lq, Lkv, causal, window, prefix, q_offset = MODES[mode]
+    Dq, Dv = F32_TILED_WIDTHS[width]
+    _check(2, Lq, Lkv, 8, 2, Dq, torch.float32, seed=len(mode) + Dq, Dv=Dv,
+           causal=causal, window=window, prefix_len=prefix,
+           q_offset=q_offset)
+
+
+@pytest.mark.parametrize("mask", ["causal", "prefix", "window"])
+@pytest.mark.parametrize("width", list(F32_TILED_WIDTHS))
+def test_f32_tiled_pair_ragged(width, mask):
+    """A ragged kv_valid_len (a full row, one that ends inside a 32-key
+    tile, one of 0) on every instance: within the limit, zero dk and dv at
+    and past each row's end; the plain version without it must fail."""
+    L = 200
+    kvl = torch.tensor([L, L // 2 + 5, 0], device=DEV)
+    kw = dict(RAGGED_MASKS[mask], kv_valid_len=kvl)
+    q, k, v, o, do, got, plain, rss = _f32_tiled(3, L, 8, 2, width,
+                                                 seed=L + len(width), **kw)
+    for b, n in enumerate(kvl.tolist()):
+        assert bool((got[1][b, n:] == 0).all() and (got[2][b, n:] == 0).all())
+    assert all(bool((g[2] == 0).all()) for g in got)
+    kw.pop("kv_valid_len")
+    ignored = fa_ref.attention_bwd_ref(q, k, v, o, do, **kw)
+    assert bwd_excess(got, ignored, rss, torch.float32) > 1
+
+
+@pytest.mark.parametrize("width", list(F32_TILED_WIDTHS))
+def test_f32_tiled_pair_planted_faults(width):
+    """(a) without one of its key tiles (64 keys a step, 32 past head dim
+    128) and (b) without one 32-key CTA's dK or dV: each made from the
+    kernel's output must fail the limit."""
+    Dq, Dv = F32_TILED_WIDTHS[width]
+    kw = dict(causal=True)
+    q, k, v, o, do, got, plain, rss = _f32_tiled(1, 256, 8, 2, width,
+                                                 seed=31, **kw)
+    bk = 32 if max(Dq, Dv) > 128 else 64
+    p, dp, dsum, _, _, scale = fa_ref._bwd_terms(q, k, v, o, do, True, None,
+                                                 0, None)
+    ds = (p * (dp - dsum))[..., 64:64 + bk]
+    part = torch.einsum("bhgqk,bkhd->bqhgd", ds, k[:, 64:64 + bk].float())
+    dq_fault = got[0] - part.reshape(q.shape) * scale
+    dk_fault, dv_fault = got[1].clone(), got[2].clone()
+    dk_fault[:, 96:128] = 0
+    dv_fault[:, 96:128] = 0
+    for fault in ((dq_fault, got[1], got[2]), (got[0], dk_fault, got[2]),
+                  (got[0], got[1], dv_fault)):
+        assert bwd_excess(fault, plain, rss, torch.float32) > 1
 
 
 # a ragged kv_valid_len on each kernel family: (dtype, B, L, H, Hkv, Dq, Dv)

@@ -203,6 +203,15 @@ def test_bwd_route(dtype, Lq, Lkv, Dh, route):
     (torch.float32, 64, 64, 192, 128, "tiled"),
     (torch.float32, 32, 32, 192, 128, "one_pass"),
     (torch.float32, 65, 65, 24, 16, "tiled"),
+    # the f32 tiled pair past the one-pass band at each instance: DP 64,
+    # 128 and 256 (which a call in (128, 192] takes)
+    (torch.float32, 65, 64, 48, 64, "tiled"),
+    (torch.float32, 64, 65, 64, 48, "tiled"),
+    (torch.float32, 100, 100, 128, 96, "tiled"),
+    (torch.float32, 33, 32, 192, 128, "tiled"),
+    (torch.float32, 32, 33, 160, 160, "tiled"),
+    (torch.float32, 33, 33, 200, 256, "tiled"),
+    (torch.float32, 32, 32, 200, 256, "one_pass"),
     (torch.float32, 24, 24, 64, 257, ValueError),
     (torch.bfloat16, 24, 24, 0, 64, ValueError),
 ], ids=lambda x: str(x).replace("torch.", "") if not isinstance(x, type)

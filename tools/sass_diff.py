@@ -5,7 +5,7 @@ instructions that differ.
 
     python3 tools/sass_diff.py --a PARENT/src --b src --source wkv6.cu \
         --function _ZN3wkv8wkv6_fwdI13__nv_bfloat16Li64ELi32EEEvNS_4ArgsE \
-        [--function ...]
+        [--function ...] [--every]
 
 Each tree's ``repro_torch/csrc/SOURCE`` is built once to a cubin with the
 port's nvcc flags (``kernels/_build.py``) under ``build/sass_diff``. The
@@ -15,13 +15,16 @@ with ``cuobjdump -sass``; constant-bank offsets and branch targets are
 masked, so that a kernel whose parameters moved but whose code did not
 compares equal. Prints, for each tree, the ptxas line and the
 instruction count by opcode where they differ, then the number of
-instructions that differ. Needs ``nvcc`` (the machine with the GPU).
+instructions that differ. ``--every`` compares every function the two
+cubins share, and names those that one of them alone holds. Needs
+``nvcc`` (the machine with the GPU).
 """
 from __future__ import annotations
 
 import argparse
 import collections
 import difflib
+import functools
 import re
 import shutil
 import subprocess
@@ -47,14 +50,21 @@ def build(tree: Path, source: str, out: Path) -> str:
     return p.stdout + p.stderr
 
 
-def sass(cubin: Path, function: str) -> tuple[str, list[str]]:
-    """The mangled name ``function`` names (itself, or the one name that
-    holds it) and its instructions, constant offsets and targets masked."""
+@functools.lru_cache(maxsize=None)
+def dump(cubin: Path) -> tuple[str, list[str]]:
+    """``cuobjdump -sass`` of ``cubin`` and the mangled names it holds
+    (read once a cubin)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     txt = subprocess.run([tool, "-sass", str(cubin)], capture_output=True,
                          text=True, check=True).stdout
-    names = [line.split("Function :")[1].strip()
-             for line in txt.splitlines() if "Function :" in line]
+    return txt, [line.split("Function :")[1].strip()
+                 for line in txt.splitlines() if "Function :" in line]
+
+
+def sass(cubin: Path, function: str) -> tuple[str, list[str]]:
+    """The mangled name ``function`` names (itself, or the one name that
+    holds it) and its instructions, constant offsets and targets masked."""
+    txt, names = dump(cubin)
     hits = [n for n in names if n == function] or \
         [n for n in names if function in n]
     if len(hits) != 1:
@@ -89,17 +99,30 @@ def main() -> int:
     ap.add_argument("--a", required=True, type=Path)
     ap.add_argument("--b", required=True, type=Path)
     ap.add_argument("--source", required=True)
-    ap.add_argument("--function", required=True, action="append")
+    ap.add_argument("--function", action="append", default=[])
+    ap.add_argument("--every", action="store_true")
     args = ap.parse_args()
+    if not args.function and not args.every:
+        ap.error("name a --function or give --every")
     sys.path.insert(0, str(ROOT))
     from tools.trace_kernels import ptxas_functions
-    cubins, reps = {}, {}
-    for key, tree in (("a", args.a), ("b", args.b)):
-        cubins[key] = ROOT / "build" / "sass_diff" / key / \
-            (args.source + ".cubin")
-        reps[key] = ptxas_functions(build(tree.resolve(), args.source,
-                                          cubins[key]))
-    for function in args.function:
+    from concurrent.futures import ThreadPoolExecutor
+    trees = {"a": args.a, "b": args.b}
+    cubins = {key: ROOT / "build" / "sass_diff" / key /
+              (args.source + ".cubin") for key in trees}
+    with ThreadPoolExecutor(2) as pool:      # both builds at once
+        built = {key: pool.submit(build, tree.resolve(), args.source,
+                                  cubins[key]) for key, tree in trees.items()}
+        reps = {key: ptxas_functions(f.result()) for key, f in built.items()}
+    functions = list(args.function)
+    if args.every:
+        names = {key: set(dump(c)[1]) for key, c in cubins.items()}
+        for key, other in (("a", "b"), ("b", "a")):
+            for n in sorted(names[key] - names[other]):
+                print(f"[sass] only in {key}: {n}")
+        functions += sorted(names["a"] & names["b"])
+    same = 0
+    for function in functions:
         got = {}
         for key, tree in (("a", args.a), ("b", args.b)):
             name, got[key] = sass(cubins[key], function)
@@ -111,11 +134,16 @@ def main() -> int:
                  if ops["a"][o] != ops["b"][o]}
         print(f"[sass] opcodes whose count differs (a, b): "
               f"{dict(sorted(moved.items()))}")
-        sm = difflib.SequenceMatcher(a=got["a"], b=got["b"], autojunk=False)
-        diff = sum(max(i2 - i1, j2 - j1) for tag, i1, i2, j1, j2
-                   in sm.get_opcodes() if tag != "equal")
+        diff = 0
+        if got["a"] != got["b"]:
+            sm = difflib.SequenceMatcher(a=got["a"], b=got["b"],
+                                         autojunk=False)
+            diff = sum(max(i2 - i1, j2 - j1) for tag, i1, i2, j1, j2
+                       in sm.get_opcodes() if tag != "equal")
         print(f"[sass] {function}: {diff} instructions differ "
               f"({len(got['a'])} against {len(got['b'])})", flush=True)
+        same += diff == 0
+    print(f"[sass] {same} of {len(functions)} functions the same")
     return 0
 
 

@@ -583,7 +583,7 @@ def empty_launcher(torch, _build):
 
 def sass_mix(lib: str, match: str) -> dict:
     """For each kernel of the shared library ``lib`` whose name holds
-    ``match``: its instruction count and mix (FFMA, HGMMA, scalar and
+    ``match``: its instruction count and mix (FFMA, HGMMA, HMMA, scalar and
     16-byte shared and global loads, cp.async) over the whole function and
     over each loop (a backward branch) that holds an FFMA, from
     ``cuobjdump -sass``."""
@@ -602,6 +602,7 @@ def sass_mix(lib: str, match: str) -> dict:
                     i.split()[0] for i in body).most_common(12),
                 "FFMA": n(lambda i: i.startswith("FFMA")),
                 "HGMMA": n(lambda i: i.startswith("HGMMA")),
+                "HMMA": n(lambda i: i.startswith("HMMA")),
                 "LDS": n(lambda i: i.startswith("LDS")
                          and ".64" not in i and ".128" not in i),
                 "LDS.64": n(lambda i: i.startswith("LDS") and ".64" in i),
