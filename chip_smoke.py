@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--layers N] [--seed S] [--out DIR]
+    python3 chip_smoke.py --only parallel     # the build and phase 14
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -323,6 +324,37 @@ Phases (any failure exits non-zero and prints no result line):
               backward call of (b)-(c) one pass), each step timed on the
               host and the last traced (busy ms, idle share, the
               backward's and K4's shares).
+14. parallel — the parallel training plane on virtual meshes of the
+              card ([cuda:0] * N), after phase 13 and the main-path
+              shape checks: (a) qwen3-14b at full width (4 layers) placed
+              on a (data 2, model 2) mesh by param_specs(fsdp=True), every
+              block its spec's shape, the gathers bit-exact, one copy of
+              the weights on the card; the specs of every LM
+              configuration on meta structs; (d) its 4 blocks over 4
+              virtual pipeline stages (stage_spans), 4 microbatches of
+              1 x 1,024, against the blocks in order (0.05 of the largest
+              |output|; a microbatch sent past the next stage must fail);
+              (b) the sharded train step on the (2, 2) mesh, global batch
+              2 x 2,048 (1 x 2,048 a data rank), CE chunk 512, remat,
+              AdamW: loss, grad norm and every mean-gradient leaf against
+              make_train_step's on one device at TRAIN_*_RTOL; two steps
+              from the same state give the same bits; K4 and the bf16
+              backward pair launch, the plain backward never; host ms,
+              busy ms, idle share and peak memory logged; (c) the two
+              ranks' full-width gradients through the ring all-reduce
+              (the same bits on both, their f32 sum; a skipped hop must
+              fail), the int8 all-reduce (relative error < 0.05) and top-k
+              with feedback at 0.01 (kept + residual == g + r); (e)
+              moe_apply_shard_map on mixtral-8x7b's MoE layer over (2, 4)
+              (expert parallel) and (2, 3) (the ffn sliced unevenly) and
+              deepseek-v2's over (2, 4), at full width, against
+              moe_apply(groups=2) within the bf16 row limit (one shard's
+              partial dropped must fail); (f) ElasticRunner with the
+              sharded step on the reduced qwen3 over 4 virtual devices, 2
+              lost at step 3, a checkpoint every 2 steps, resume(): one
+              remesh, the end state within the train tolerances of an
+              uninterrupted run. The phase adds no kernel and leaves the
+              kernels line as it was.
 
 Every kernel's timing (CUDA events, the plain version, the library call,
 the bound, and the profiler's device time) is taken in one child process
@@ -7713,6 +7745,693 @@ def _kind(dtype) -> str:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the parallel training plane
+# ---------------------------------------------------------------------------
+
+# virtual (data, model) devices on the card: [cuda:0] * 4
+PAR_MESH = (2, 2)
+# (b): the global batch, one 1 x 2,048 row a data rank
+PAR_BATCH = (2, 2048)
+# (c): the ring's sum against the f32 sum of the ranks' gradients, of the
+# largest |sum| (two ranks: one f32 add a chunk, exact); the int8
+# all-reduce's relative error against the exact mean over the whole
+# gradient (the reference's bound, tests/test_distributed.py:294); top-k's
+# kept fraction
+PAR_RING_RTOL = 1e-6
+PAR_COMPRESS_RTOL = 0.05
+PAR_TOPK_FRAC = 0.01
+# (d): qwen3-14b's TRAIN_LAYERS blocks over as many virtual stages, four
+# microbatches of 1 x 1,024; the block outputs within the kinds' logits
+# limit (0.05 of the largest |value|) of the blocks run in order
+PAR_PIPE = dict(stages=4, micro=4, B=4, L=1024)
+PAR_PIPE_RTOL = 0.05
+# (e): each MoE layer at full width on a virtual mesh: expert parallel
+# where E % model == 0, else every expert's ffn sliced (mixtral's 14,336
+# over 3: 4,779, 4,779, 4,778); B 2 x 2,048 tokens, one row a data shard;
+# held against moe_apply(..., groups=2), the same per-shard capacity in
+# one dispatch, to the bf16 limit of a sum of bf16 partials: 2^-7 (|plain|
+# + the sum of the "model" shards' |partial outputs|) + PAR_MOE_ROW_RTOL x
+# the row's rms of plain. Each partial rounds to bf16 before the sum (half
+# an ulp, 2^-9 of it, in each of the two packages' roundings), and the
+# sliced ffn's partials cancel, so an element's error scales with its
+# partials, not with the output (par_moe_excess)
+PAR_MOE = (("mixtral-8x7b", (2, 4)), ("mixtral-8x7b", (2, 3)),
+           ("deepseek-v2-236b", (2, 4)))
+PAR_MOE_TOKENS = (2, 2048)
+PAR_MOE_ROW_RTOL = 2.0 ** -5
+# (f): ElasticRunner over 4 virtual devices with the sharded step on the
+# reduced qwen3-14b in f32 (the host holds the state between meshes); 2
+# lost at step 3, a checkpoint every 2 steps, 6 steps of B 4 x 128
+PAR_ELASTIC = dict(devices=4, lose=2, at=3, ckpt_every=2, steps=6, B=4,
+                   L=128)
+
+
+def par_bits(torch, x):
+    """``x``'s bit pattern as integers of its width (exact comparisons)."""
+    return x.contiguous().view({1: torch.int8, 2: torch.int16,
+                                4: torch.int32}[x.element_size()])
+
+
+def par_checksum(torch, x, chunk: int = 1 << 26) -> tuple:
+    """Two integer sums of ``x``'s bit pattern (plain and position
+    weighted), in chunks: equal checksums of two runs' moments stand for
+    equal bits without holding both runs' 23 GB."""
+    v = par_bits(torch, x).reshape(-1)
+    s = w = 0
+    for lo in range(0, v.numel(), chunk):
+        c = v[lo:lo + chunk].to(torch.int64)
+        idx = torch.arange(lo, lo + c.numel(), device=c.device) % 65521 + 1
+        s += int(c.sum())
+        w += int((c * idx).sum())
+    return s, w
+
+
+def par_leaf_rel(torch, a, b) -> float:
+    """max |a - b| over max |b| (0 where both are 0)."""
+    top = float(b.float().abs().max())
+    d = float((a.float() - b.float()).abs().max())
+    return d / top if top else d
+
+
+def par_moe_excess(torch, out, plain, abs_sum) -> float:
+    """The largest |out - plain| over the limit of a sum of bf16 partials
+    (PAR_MOE's comment): 2^-7 (|plain| + ``abs_sum``) + PAR_MOE_ROW_RTOL
+    x the rms of plain's row. At most 1 passes."""
+    out, plain = out.float(), plain.float()
+    lim = 2.0 ** -7 * (plain.abs() + abs_sum) + PAR_MOE_ROW_RTOL \
+        * plain.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    d = (out - plain).abs()
+    ratio = torch.where(lim > 0, d / lim,
+                        torch.where(d > 0, float("inf"), 0.0))
+    return float(ratio.max())
+
+
+def par_placements(torch, np, params, cfg, mesh) -> tuple:
+    """(a): qwen3-14b at full width placed by ``param_specs(fsdp=True)``:
+    every block has its spec's shape, the gather gives the same bits, and
+    the virtual mesh holds one copy of the weights (no replica of a block
+    on the one card); then the specs of every LM configuration on meta
+    structs (rank, axes, divisibility at the production mesh's sizes for
+    the MoE kinds, as tests/test_distributed.py:47)."""
+    from repro_torch.configs.base import get_config, list_configs
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.training import optimizer as opt
+    t0 = time.perf_counter()
+    specs = shd.param_specs(params, cfg, fsdp=True)
+    placed = shd.place_tree(params, shd.named(mesh, specs))
+    n_blocks = 0
+    for (path, x), (_, p) in zip(opt.tree_leaves(params),
+                                 opt.tree_leaves(placed)):
+        for coord, key in p.keys():
+            sl = shd.block_slices(x.shape, mesh, p.sharding.spec, coord)
+            check(tuple(p.blocks[key].shape) == tuple(x[sl].shape),
+                  f"[parallel] (a) {path} block at {coord}: "
+                  f"{tuple(p.blocks[key].shape)}, spec {p.sharding.spec}")
+        n_blocks += len(p.blocks)
+        check(torch.equal(par_bits(torch, shd.gather(p)),
+                          par_bits(torch, x)),
+              f"[parallel] (a) {path}: the gather changed bits")
+    placed_bytes = sum(p.nbytes() for _, p in opt.tree_leaves(placed))
+    param_bytes = sum(x.numel() * x.element_size()
+                      for _, x in opt.tree_leaves(params))
+    check(placed_bytes == param_bytes,
+          f"[parallel] (a) the virtual mesh holds {placed_bytes} bytes for "
+          f"{param_bytes} bytes of weights")
+    sizes = {"data": 16, "model": 16, "pod": 2}
+    n_leaves = 0
+    for arch in list_configs():
+        acfg = get_config(arch)
+        if acfg.family == "embedder":
+            continue
+        ps = steps.params_struct(acfg)
+        for fsdp in (True, False):
+            for (path, leaf), (_, spec) in zip(
+                    opt.tree_leaves(ps),
+                    opt.tree_leaves(shd.param_specs(ps, acfg, fsdp))):
+                n_leaves += 1
+                check(len(spec) == leaf.ndim and set(spec) <= {
+                    None, "data", "model"}, f"[parallel] (a) {arch} "
+                    f"{path}: spec {spec} for shape {tuple(leaf.shape)}")
+                for dim, ax in enumerate(spec):
+                    if ax is not None and acfg.is_moe and "mlp" in path:
+                        check(leaf.shape[dim] % sizes[ax] == 0,
+                              f"[parallel] (a) {arch} {path}: dim {dim} "
+                              f"of {tuple(leaf.shape)} over {ax}")
+    out = {"blocks": n_blocks, "placed_bytes": placed_bytes,
+           "spec_leaves_checked": n_leaves,
+           "wall_s": time.perf_counter() - t0}
+    log(f"[parallel] (a) qwen3-14b x {TRAIN_LAYERS} layers on a "
+        f"{PAR_MESH} virtual mesh: {n_blocks} blocks, every shape its "
+        f"spec's, gathers bit-exact, {placed_bytes / 1e9:.2f} GB placed "
+        f"for {param_bytes / 1e9:.2f} GB of weights; {n_leaves} specs of "
+        f"the LM configurations checked ({out['wall_s']:.1f} s)")
+    return placed, out
+
+
+def par_pipeline(torch, np, cfg, params, seed: int) -> dict:
+    """(d): qwen3-14b's blocks at full width split by ``stage_spans`` over
+    PAR_PIPE stages on virtual devices, PAR_PIPE microbatches, against the
+    blocks run in order on the whole batch; one microbatch sent past the
+    next stage (a planted fault) must fail the limit."""
+    import numpy as onp
+    from repro_torch.distributed import pipeline
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import layers as L, lm
+    t0 = time.perf_counter()
+    S, M, B, Lq = (PAR_PIPE[k] for k in ("stages", "micro", "B", "L"))
+    blocks = params["blocks"]
+    rng = np.random.default_rng(seed + 1410)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, Lq))
+                            .astype(onp.int32)).to(DEV)
+    pos = torch.arange(Lq, device=DEV)
+
+    def run(bps, h):
+        for bp in bps:
+            h = lm._block(bp, cfg, h, lambda a, bp=bp: L.gqa_attend(
+                bp["attn"], cfg, a, pos, causal=True))
+        return h
+    spans = pipeline.stage_spans(len(blocks), S)
+    mesh = Mesh(onp.array([torch.device(DEV, 0)] * S, dtype=object),
+                ("stage",))
+    stage_params = [blocks[a:b] for a, b in spans]
+    with torch.no_grad():
+        x = lm.embed_tokens(params, cfg, toks)
+        want = run(blocks, x)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = pipeline.pipeline_forward(run, stage_params, x, mesh=mesh,
+                                        n_microbatches=M)
+        torch.cuda.synchronize()
+        pipe_ms = 1e3 * (time.perf_counter() - t)
+        rel = par_leaf_rel(torch, got, want)
+        real = pipeline._downstream
+        pipeline._downstream = lambda s, mb: s + 2 if (s, mb) == (0, 0) \
+            and S > 2 else s + 1
+        try:
+            bad = pipeline.pipeline_forward(run, stage_params, x, mesh=mesh,
+                                            n_microbatches=M)
+        finally:
+            pipeline._downstream = real
+        fault = par_leaf_rel(torch, bad, want)
+    check(bool(torch.isfinite(got.float()).all()),
+          "[parallel] (d) non-finite pipeline output")
+    check(rel <= PAR_PIPE_RTOL, f"[parallel] (d) the pipeline's output "
+                                f"differs by {rel:.4g} of the largest")
+    check(fault > PAR_PIPE_RTOL, f"[parallel] (d) the limit passes a "
+                                 f"microbatch sent to the wrong stage "
+                                 f"({fault:.4g})")
+    out = {"spans": spans, "rel": rel, "fault_rel": fault,
+           "pipeline_ms": pipe_ms,
+           "bubble": pipeline.bubble_fraction(S, M),
+           "wall_s": time.perf_counter() - t0}
+    log(f"[parallel] (d) qwen3-14b's {len(blocks)} blocks over {S} "
+        f"virtual stages {spans}, {M} microbatches of 1 x {Lq}: "
+        f"{rel:.4g} of the largest |output| from the blocks in order "
+        f"(limit {PAR_PIPE_RTOL}); a microbatch sent past stage 1: "
+        f"{fault:.4g}; {pipe_ms:.1f} ms on the host (GPipe bubble "
+        f"{out['bubble']:.3f}; the stages share one card)")
+    return out
+
+
+def par_collectives(torch, np, sf, placed, batch) -> dict:
+    """(c): the two data ranks' full-width gradients of (b)'s step, leaf
+    by leaf: the ring all-reduce (the same bits on both ranks, within
+    PAR_RING_RTOL of their f32 sum), the int8 all-reduce (relative error
+    of the whole gradient against the exact mean), top-k with feedback at
+    PAR_TOPK_FRAC (kept + residual == g + r exactly, the mean the kept
+    parts' ring mean); one ring hop skipped (a planted fault) must fail
+    the ring's check."""
+    from repro_torch.distributed import collectives, compression
+    from repro_torch.training import optimizer as opt
+    t0 = time.perf_counter()
+    grads = [[x for _, x in opt.tree_leaves(sf.rank_grads(placed, batch,
+                                                          r)[1])]
+             for r in range(2)]
+    paths = [p for p, _ in opt.tree_leaves(placed)]
+    ring_worst = 0.0
+    err2 = ref2 = 0.0
+    topk_kept = 0
+    n = 0
+    for i, path in enumerate(paths):
+        xs = [grads[r][i].float() for r in range(2)]
+        exact = xs[0] + xs[1]
+        out = collectives.ring_allreduce_schedule(xs)
+        check(torch.equal(par_bits(torch, out[0]), par_bits(torch, out[1])),
+              f"[parallel] (c) {path}: the ranks' ring sums differ")
+        ring_worst = max(ring_worst, par_leaf_rel(torch, out[0], exact))
+        del out
+        mean = compression.compressed_psum([{"g": grads[r][i]}
+                                            for r in range(2)])
+        check(torch.equal(par_bits(torch, mean[0]["g"]),
+                          par_bits(torch, mean[1]["g"])),
+              f"[parallel] (c) {path}: the ranks' int8 means differ")
+        err2 += float(((mean[0]["g"].float() - exact / 2) ** 2).sum())
+        ref2 += float(((exact / 2) ** 2).sum())
+        del mean
+        res0 = [torch.zeros_like(x) for x in xs]
+        tmean, tres = compression.topk_psum_with_feedback(
+            [{"g": grads[r][i]} for r in range(2)],
+            [{"g": res0[r]} for r in range(2)], frac=PAR_TOPK_FRAC)
+        kept = []
+        for r in range(2):
+            k_r, _ = compression.topk_sparsify(xs[r] + res0[r],
+                                               PAR_TOPK_FRAC)
+            check(torch.equal(k_r + tres[r]["g"], xs[r] + res0[r]),
+                  f"[parallel] (c) {path}: kept + residual != g + r")
+            kept.append(k_r)
+            topk_kept += int((k_r != 0).sum())
+        check(torch.equal(par_bits(torch, tmean[0]["g"]),
+                          par_bits(torch, ((kept[0] + kept[1]) / 2)
+                                   .to(tmean[0]["g"].dtype))),
+              f"[parallel] (c) {path}: top-k's mean is not the kept parts'")
+        n += 2 * xs[0].numel()
+        del xs, exact, res0, tmean, tres, kept
+    comp_rel = (err2 / ref2) ** 0.5
+    # the planted fault: the first hop of one ring delivers nothing
+    xs = [grads[r][0].float() for r in range(2)]
+    exact = xs[0] + xs[1]
+    real, hops = collectives._hop, []
+
+    def skip_first(chunk, device):
+        hops.append(1)
+        return torch.zeros_like(chunk) if len(hops) == 1 else \
+            real(chunk, device)
+    collectives._hop = skip_first
+    try:
+        out = collectives.ring_allreduce_schedule(xs)
+    finally:
+        collectives._hop = real
+    fault = max(par_leaf_rel(torch, o, exact) for o in out)
+    del grads, xs, exact, out
+    check(ring_worst <= PAR_RING_RTOL,
+          f"[parallel] (c) the ring sum differs by {ring_worst:.3g}")
+    check(fault > PAR_RING_RTOL,
+          f"[parallel] (c) the ring's check passes a skipped hop "
+          f"({fault:.3g})")
+    check(comp_rel < PAR_COMPRESS_RTOL,
+          f"[parallel] (c) int8 all-reduce relative error {comp_rel:.4g}")
+    res = {"ring_worst_rel": ring_worst, "ring_fault_rel": fault,
+           "int8_rel_err": comp_rel, "topk_kept_share": topk_kept / n,
+           "wall_s": time.perf_counter() - t0}
+    log(f"[parallel] (c) the two ranks' full-width gradients, "
+        f"{len(paths)} leaves: ring sums the same bits on both ranks, "
+        f"{ring_worst:.3g} of the largest from the f32 sum (limit "
+        f"{PAR_RING_RTOL}; one hop skipped: {fault:.3g}); int8 all-reduce "
+        f"relative error {comp_rel:.4g} of the exact mean (limit "
+        f"{PAR_COMPRESS_RTOL}); top-k at {PAR_TOPK_FRAC}: kept + residual "
+        f"== g + r exactly, {res['topk_kept_share']:.4f} of the entries "
+        f"kept (ties kept); {res['wall_s']:.1f} s")
+    return res
+
+
+def par_step(torch, np, cfg, mesh, box: dict, placed, seed: int) -> dict:
+    """(b): the sharded train step of qwen3-14b at full width on the
+    virtual (2, 2) mesh, global batch PAR_BATCH, CE chunk 512, remat,
+    AdamW: its loss, grad norm and mean gradient held against
+    ``make_train_step``'s (``value_and_grad`` of the same loss) on one
+    device at TRAIN_*_RTOL; then (c) on its ranks' gradients; then two
+    steps from the same state, which must give the same bits (params
+    compared whole, the moments by checksums), the second traced. K4 and
+    the bf16 backward pair must launch in a step, twice a layer a rank (a
+    pair a call), and the plain attention backward never. ``box["params"]``
+    (the unplaced weights) is dropped once the one-device gradient is
+    taken."""
+    from repro_torch.distributed import sharded_train as st
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import lm
+    from repro_torch.training import optimizer as opt
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = box.pop("params")
+    rng = np.random.default_rng(seed + 1401)
+    batch = synth_batch(cfg, rng, *PAR_BATCH, DEV)
+    loss1, g1 = steps.value_and_grad(lambda p: steps.chunked_ce_loss(
+        p, cfg, batch, TRAIN_CE_CHUNK)[0], params)
+    norm1 = float(opt.global_norm(g1))
+    one_s = time.perf_counter() - t0
+    optc = opt.AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=30)
+    sf = st.make_sharded_train_step(cfg, mesh, optc=optc,
+                                    ce_chunk=TRAIN_CE_CHUNK)
+    bp = st.place_batch(batch, cfg, mesh)
+    loss_s, mean, norm_s = sf.grads(placed, bp)
+    worst, worst_leaf = 0.0, None
+    for (path, a), (_, b) in zip(opt.tree_leaves(mean), opt.tree_leaves(g1)):
+        r = par_leaf_rel(torch, a, b)
+        if r > worst:
+            worst, worst_leaf = r, "/".join(map(str, path))
+    del mean, g1
+    held = {"loss": float(loss_s), "loss_one_device": float(loss1),
+            "grad_norm": float(norm_s), "grad_norm_one_device": norm1,
+            "worst_leaf": worst_leaf, "worst_leaf_rel": worst}
+    log(f"[parallel] (b) qwen3-14b x {TRAIN_LAYERS} layers, global batch "
+        f"{PAR_BATCH[0]} x {PAR_BATCH[1]} on a {PAR_MESH} virtual mesh "
+        f"(1 x {PAR_BATCH[1]} a data rank): loss {held['loss']:.5f} vs "
+        f"{held['loss_one_device']:.5f} on one device, grad norm "
+        f"{held['grad_norm']:.5f} vs {norm1:.5f}, largest leaf difference "
+        f"{worst:.4g} of its largest |gradient| ({worst_leaf})")
+    check(abs(held["loss"] - held["loss_one_device"])
+          <= TRAIN_LOSS_RTOL * abs(held["loss_one_device"]),
+          f"[parallel] (b) loss {held['loss']} vs one device "
+          f"{held['loss_one_device']}")
+    check(abs(held["grad_norm"] - norm1) <= TRAIN_GNORM_RTOL * norm1,
+          f"[parallel] (b) grad norm {held['grad_norm']} vs {norm1}")
+    check(worst <= TRAIN_GRAD_RTOL,
+          f"[parallel] (b) gradient leaf {worst_leaf} differs by {worst:.4g}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    coll = par_collectives(torch, np, sf, placed, bp)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def moments_sums(state):
+        return [par_checksum(torch, b) for t in (state.m, state.v)
+                for _, x in opt.tree_leaves(t) for b in x.blocks.values()]
+
+    runs = []
+    for i in range(2):
+        if i:
+            p = lm.init_params(gen(torch, seed + 1400), cfg, DEV)
+            placed = st.place_params(p, cfg, mesh)
+            del p
+        state = st.init_placed_state(placed)
+        zero_attention_launches()
+        zero_train_counts()
+        out = {}
+
+        def one():
+            out["r"] = sf(placed, state, bp)
+            out["loss"] = float(out["r"][2]["loss"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr = {}
+        if i:
+            tr = train_trace(torch, one)
+        else:
+            one()
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t)
+        counts = {**attention_launches(), **train_counts()}
+        new_params, state, met = out["r"]
+        runs.append({"host_ms": host_ms, "trace": tr, "launches": counts,
+                     "metrics": {k: float(v) for k, v in met.items()},
+                     "moments": moments_sums(state)})
+        if i == 0:
+            first = new_params
+        else:
+            for (path, a), (_, b) in zip(opt.tree_leaves(new_params),
+                                         opt.tree_leaves(first)):
+                for key, blk in a.blocks.items():
+                    check(torch.equal(par_bits(torch, blk),
+                                      par_bits(torch, b.blocks[key])),
+                          f"[parallel] (b) {path}: the second step's "
+                          f"params differ from the first's")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    del first, placed, new_params
+    a, b = runs
+    check(a["metrics"] == b["metrics"] and a["moments"] == b["moments"],
+          f"[parallel] (b) the step did not repeat: {a['metrics']} vs "
+          f"{b['metrics']}, moments equal {a['moments'] == b['moments']}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = TRAIN_LAYERS * PAR_MESH[0]          # attention calls a step
+    c = a["launches"]
+    need = {"flash_attention": n, "flash_attention_bwd": 2 * n}
+    check(all(c[k] >= v for k, v in need.items()),
+          f"[parallel] (b) launches {c} in one step, short of {need}")
+    check(c["plain_attention_bwd"] == 0,
+          f"[parallel] (b) the plain attention backward ran "
+          f"{c['plain_attention_bwd']} times")
+    tr = b["trace"]
+    if tr.get("busy_ms"):
+        tr["idle_share"] = max(0.0, 1.0 - tr["busy_ms"] / a["host_ms"])
+        log(f"[parallel] (b) traced step: wall "
+            f"{tr['profiled_wall_ms']:.1f} ms, device busy "
+            f"{tr['busy_ms']:.3f} ms (idle share {tr['idle_share']:.3f} of "
+            f"the untraced step's {a['host_ms']:.1f} ms; "
+            f"{tr['device_events']} device events); backward kernels "
+            f"{tr['bwd_ms']} ({tr['bwd_share']:.4f} of busy), K4 forward "
+            f"{tr['k4_ms']:.3f} ms ({tr['k4_share']:.4f}); most device "
+            "time: " + "; ".join(f"{k} {t:.3f} ms"
+                                 for k, t in tr["top_kernels_ms"]))
+    else:
+        log("[parallel] (b) traced step: no device activity recorded (not "
+            "measured)")
+    log(f"[parallel] (b) two steps from the same state: the same bits "
+        f"(params whole, moments by checksum), loss {a['metrics']['loss']:.5f}"
+        f", host ms {a['host_ms']:.1f} untraced, {b['host_ms']:.1f} traced; "
+        f"peak memory {peak:.1f} GiB; launches in a step {c}; one-device "
+        f"gradient {one_s:.1f} s")
+    return {"held": held, "collectives": coll, "runs": runs,
+            "peak_gib": peak, "launches": c,
+            "wall_s": time.perf_counter() - t0}
+
+
+def par_moe(torch, np, seed: int) -> dict:
+    """(e): ``moe_apply_shard_map`` on full-width MoE layers (PAR_MOE) over
+    virtual meshes against ``moe_apply(..., groups=2)``, each within the
+    bf16 limit of a sum of partials (``par_moe_excess``); one expert
+    shard's partial output dropped (a planted fault) must fail it. Each
+    call runs once untimed first."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import bf16_excess
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as L
+    t0 = time.perf_counter()
+    out, params = {}, {}
+    for i, (arch, shape) in enumerate(PAR_MOE):
+        cfg = get_config(arch).replace(moe_impl="shard_map",
+                                       act_dp=("data",))
+        if arch not in params:
+            params.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            params[arch] = L.moe_init(gen(torch, seed + 1420 + i), cfg,
+                                      torch.bfloat16, DEV)
+        p = params[arch]
+        x = torch.randn((*PAR_MOE_TOKENS, cfg.d_model),
+                        generator=gen(torch, seed + 1430 + i), device=DEV,
+                        dtype=torch.float32).to(torch.bfloat16)
+        mesh = make_host_mesh(*shape, devices=[torch.device(DEV, 0)]
+                              * (shape[0] * shape[1]))
+        tp = shape[1]
+        ep = cfg.n_experts % tp == 0 and cfg.n_experts >= tp
+        with torch.no_grad():
+            scatter = cfg.replace(moe_impl="scatter")
+            L.moe_apply(p, scatter, x, groups=shape[0])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            want, aux_w = L.moe_apply(p, scatter, x, groups=shape[0])
+            torch.cuda.synchronize()
+            one_ms = 1e3 * (time.perf_counter() - t)
+            L.set_shard_mesh(mesh)
+            real, calls, sq = L._moe_partial, [], []
+
+            def keep_sums(*a, **kw):        # a data shard's tp calls in turn
+                y, aux = real(*a, **kw)
+                calls.append(1)
+                if len(calls) % tp == 1 or tp == 1:
+                    sq.append(torch.zeros_like(y, dtype=torch.float32))
+                sq[-1] += y.float().abs()
+                return y, aux
+
+            def drop_one(*a, **kw):
+                calls.append(1)
+                y, aux = real(*a, **kw)
+                return (torch.zeros_like(y) if len(calls) == 2 else y), aux
+            try:
+                L.moe_apply(p, cfg, x)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got, aux = L.moe_apply(p, cfg, x)
+                torch.cuda.synchronize()
+                shard_ms = 1e3 * (time.perf_counter() - t)
+                L._moe_partial = keep_sums
+                L.moe_apply(p, cfg, x)
+                calls.clear()
+                L._moe_partial = drop_one
+                bad, _ = L.moe_apply(p, cfg, x)
+            finally:
+                L._moe_partial = real
+                L.set_shard_mesh(None)
+        abs_sum = torch.cat(sq)         # each data shard's, in row order
+        del sq
+        ex = par_moe_excess(torch, got, want, abs_sum)
+        fault = par_moe_excess(torch, bad, want, abs_sum)
+        aux_d = abs(float(aux) - float(aux_w))
+        key = f"{arch} {shape[0]}x{shape[1]}"
+        out[key] = {"mode": "expert parallel" if ep else "ffn sliced",
+                    "excess": ex, "fault_excess": fault, "aux_diff": aux_d,
+                    "shard_map_ms": shard_ms, "groups_ms": one_ms}
+        log(f"[parallel] (e) {arch} MoE layer at full width on a {shape} "
+            f"virtual mesh ({out[key]['mode']}), {PAR_MOE_TOKENS[0]} x "
+            f"{PAR_MOE_TOKENS[1]} tokens: {ex:.3g} of the limit of a sum "
+            f"of bf16 partials ({bf16_excess(got, want, PAR_MOE_ROW_RTOL):.3g}"
+            f" of the output's bf16 row limit) against "
+            f"moe_apply(groups=2), aux {float(aux):.6f} vs "
+            f"{float(aux_w):.6f}; one shard's partial dropped: {fault:.3g}; "
+            f"host ms {shard_ms:.1f} per shard against {one_ms:.1f} in one "
+            f"dispatch")
+        check(bool(torch.isfinite(got.float()).all()),
+              f"[parallel] (e) {key}: non-finite output")
+        check(ex <= 1.0, f"[parallel] (e) {key}: {ex:.3g} of the limit")
+        check(aux_d <= 1e-5 * max(1.0, abs(float(aux_w))),
+              f"[parallel] (e) {key}: aux {float(aux)} vs {float(aux_w)}")
+        check(fault > 1.0, f"[parallel] (e) {key}: the limit passes a "
+                           f"dropped expert shard ({fault:.3g})")
+        del x, want, got, bad, abs_sum
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def par_elastic(torch, np, seed: int) -> dict:
+    """(f): ``ElasticRunner`` with the sharded step over PAR_ELASTIC
+    virtual devices: a node loss, one remesh, checkpoints and
+    ``resume()``; the end state against an uninterrupted run within the
+    train tolerances (each leaf's largest difference of its largest |value|
+    at TRAIN_GRAD_RTOL, the losses at TRAIN_LOSS_RTOL)."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import sharded_train as st
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.fault_tolerance import (
+        ElasticRunner, FaultInjector, reshard, to_host)
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import lm
+    from repro_torch.training import optimizer as opt
+    t0 = time.perf_counter()
+    E = PAR_ELASTIC
+    cfg = get_config(TRAIN_ARCH).reduced().replace(remat=False,
+                                                   dtype="float32")
+    optc = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    params = lm.init_params(gen(torch, seed + 1440), cfg, DEV)
+    specs_of = lambda fsdp: shd.param_specs(params, cfg, fsdp=fsdp)
+
+    def run(injector, ckpt_dir=None):
+        losses = []
+
+        def make_step(mesh):
+            sf = st.make_sharded_train_step(cfg, mesh, optc=optc,
+                                            ce_chunk=E["L"])
+            specs = specs_of(mesh.shape["data"] > 1)
+
+            def step(state):
+                s = state["opt"].step
+                b = st.place_batch(synth_batch(
+                    cfg, np.random.default_rng((seed, s)), E["B"], E["L"],
+                    DEV), cfg, mesh)
+                p, o, met = sf(state["params"], state["opt"], b)
+                losses.append(float(met["loss"]))
+                return {"params": p, "opt": o}
+
+            def shard(host):
+                return {"params": reshard(host["params"], specs, mesh),
+                        "opt": opt.AdamWState(
+                            int(host["opt"]["step"]),
+                            reshard(host["opt"]["m"], specs, mesh),
+                            reshard(host["opt"]["v"], specs, mesh))}
+
+            def unshard(state):
+                return {"params": to_host(state["params"]),
+                        "opt": {"step": np.asarray(state["opt"].step),
+                                "m": to_host(state["opt"].m),
+                                "v": to_host(state["opt"].v)}}
+            return step, shard, unshard
+        zeros = opt.init_state(params)
+        state0 = {"params": to_host(params),
+                  "opt": {"step": np.zeros((), np.int32),
+                          "m": to_host(zeros.m), "v": to_host(zeros.v)}}
+        cm = CheckpointManager(ckpt_dir, keep=2) if ckpt_dir else None
+        r = ElasticRunner(make_step, devices=[torch.device(DEV, 0)]
+                          * E["devices"], model_parallel=1,
+                          injector=injector, ckpt_manager=cm,
+                          ckpt_every=E["ckpt_every"])
+        return r, r.run(state0, n_steps=E["steps"]), losses
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = Path(tempfile.mkdtemp(prefix="elastic-", dir=ROOT / "build"))
+    try:
+        r, state, losses = run(FaultInjector({E["at"]: E["lose"]}), str(d))
+        step, back = r.resume()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    _, whole, whole_losses = run(FaultInjector())
+    worst = 0.0
+    for key in ("params", "m", "v"):
+        a = state["params"] if key == "params" else state["opt"][key]
+        b = whole["params"] if key == "params" else whole["opt"][key]
+        for (path, x), (_, y) in zip(opt.tree_leaves(a), opt.tree_leaves(b)):
+            worst = max(worst, par_leaf_rel(torch, x, y))
+    loss_worst = max(abs(x - y) / abs(y) for x, y in
+                     zip(losses, whole_losses))
+    same = all(torch.equal(par_bits(torch, torch.as_tensor(x)),
+                           par_bits(torch, y)) for (_, x), (_, y) in
+               zip(opt.tree_leaves(back["params"]),
+                   opt.tree_leaves(state["params"])))
+    want_log = [f"step {E['at']}: remesh {E['devices']}->"
+                f"{E['devices'] - E['lose']}"]
+    check(r.log == want_log, f"[parallel] (f) log {r.log}")
+    check(step == E["steps"] and same,
+          f"[parallel] (f) resume() gave step {step}, the same params "
+          f"{same}")
+    check(worst <= TRAIN_GRAD_RTOL and loss_worst <= TRAIN_LOSS_RTOL,
+          f"[parallel] (f) the elastic run ends {worst:.4g} (state) and "
+          f"{loss_worst:.4g} (losses) from the uninterrupted one")
+    out = {"log": r.log, "mesh": dict(r.mesh.shape), "losses": losses,
+           "uninterrupted_losses": whole_losses, "state_rel": worst,
+           "loss_rel": loss_worst, "resumed_step": step,
+           "wall_s": time.perf_counter() - t0}
+    log(f"[parallel] (f) ElasticRunner, reduced {TRAIN_ARCH} on "
+        f"{E['devices']} virtual devices, {E['lose']} lost at step "
+        f"{E['at']}: log {r.log}, mesh {out['mesh']}; losses "
+        f"{[round(x, 5) for x in losses]}; the end state "
+        f"{worst:.4g} of each leaf's largest from the uninterrupted run's, "
+        f"losses within {loss_worst:.4g}; resume() at step {step}, the "
+        f"same bits ({out['wall_s']:.1f} s)")
+    return out
+
+
+def phase_parallel(torch, np, seed: int) -> dict:
+    """Phase 14: the parallel training plane on virtual meshes of the one
+    card: placements (a), the sharded train step (b), the collectives on
+    its gradients (c), the pipeline (d), the MoE dispatch per shard (e)
+    and elastic training (f). The phase adds no kernel: the plane's own
+    device work is torch ops, as the reference's is jnp; K4 and the
+    attention backward run inside the steps."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS, remat=True)
+    mesh = make_host_mesh(*PAR_MESH, devices=[torch.device(DEV, 0)]
+                          * (PAR_MESH[0] * PAR_MESH[1]))
+    params = lm.init_params(gen(torch, seed + 1400), cfg, DEV)
+    placed, place = par_placements(torch, np, params, cfg, mesh)
+    pipe = par_pipeline(torch, np, cfg, params, seed)
+    box = {"params": params}
+    del params
+    step = par_step(torch, np, cfg, mesh, box, placed, seed)
+    del placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = par_moe(torch, np, seed)
+    elastic = par_elastic(torch, np, seed)
+    wall = time.perf_counter() - t0
+    log(f"[parallel] phase done in {wall:.1f} s ((a) {place['wall_s']:.1f}, "
+        f"(d) {pipe['wall_s']:.1f}, (b)+(c) {step['wall_s']:.1f}, (e) "
+        f"{moe['wall_s']:.1f}, (f) {elastic['wall_s']:.1f})")
+    return {"placements": place, "step": step, "pipeline": pipe,
+            "moe": moe, "elastic": elastic, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
 # timing, in a fresh process
 # ---------------------------------------------------------------------------
 
@@ -7786,6 +8505,9 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # phase 8's killed replicas
     ap.add_argument("--timing-child", metavar="DIR",
                     help=argparse.SUPPRESS)   # every kernel's timing
+    ap.add_argument("--only", choices=["parallel"],
+                    help="build the kernels and run this phase alone (no "
+                         "result lines)")
     args = ap.parse_args()
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found next to this "
@@ -7844,6 +8566,15 @@ def main() -> int:
     detail["fwd_bf16_ptxas"] = fwd_bf16_ptxas(reports.get("flash_attention"))
     for name in _build.KERNELS:
         _build.load(name)
+    if args.only == "parallel":
+        parallel = phase_parallel(torch, np, args.seed)
+        out_dir = ROOT / args.out
+        out_dir.mkdir(parents=True, exist_ok=True)
+        (out_dir / "chip_smoke_parallel.json").write_text(json.dumps(
+            {**detail, "parallel": parallel}, indent=1, default=str))
+        log(f"[done] phase 14 alone passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     t = time.perf_counter()
     err = phase_kernels(torch, args.seed)
     agree = phase_attention_kernels(torch, args.seed)
@@ -7937,6 +8668,11 @@ def main() -> int:
                   bf16_limit_share=agree.share,
                   main_path_calls=sorted(recorder.calls),
                   main_path_attention_calls=sorted(att_calls, key=repr))
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel = phase_parallel(torch, np, args.seed)
+    detail["parallel"] = parallel
+    detail["parallel_s"] = parallel["wall_s"]
 
     main_b = 4      # the served batch size, the one the kernels line times
     timed_n = {name: N_ROWS for name in err}

@@ -16,8 +16,9 @@ rows' answers.
   over the concatenated host rows), the theta compare is f32, and the
   answer comes from the owner shard's block only.
 
-``ring_allreduce_schedule`` is a training collective and comes with the
-training slice.
+* :func:`ring_allreduce_schedule` — the training plane's sum over ranks:
+  the reference's reduce-scatter + all-gather ring, one hop a copy of
+  one chunk to the next rank's device.
 """
 from __future__ import annotations
 
@@ -102,3 +103,46 @@ def cross_shard_top1(best: Sequence[torch.Tensor],
     answer_out = torch.where(hit[:, None], ans_win, torch.zeros_like(ans_win))
     aid_out = torch.where(hit, aid_win, torch.full_like(aid_win, -1))
     return hit, m, row_win, answer_out, aid_out
+
+
+def _hop(chunk: torch.Tensor, device) -> torch.Tensor:
+    """One ring hop: ``chunk`` copied to the next rank's ``device``."""
+    return chunk.to(device)
+
+
+def ring_allreduce_schedule(xs: Sequence[torch.Tensor]) -> list:
+    """The sum of ``xs`` (one tensor a rank, rank r's on its own device)
+    on every rank, by the reference's ring (``collectives.py:113``): the
+    leading dim padded to a multiple of the world size and cut into that
+    many chunks; world - 1 reduce-scatter hops, after which rank r holds
+    chunk (r + 1) % world fully summed; world - 1 all-gather hops. A hop
+    moves one chunk to the next rank's device (``_hop``). Every rank gets
+    the same bits: each chunk is summed once, on one rank, in ring order,
+    and copied from there. Returns one tensor a rank, on its device."""
+    world = len(xs)
+    if world == 1:
+        return [xs[0]]
+    devs = [x.device for x in xs]
+    n = xs[0].shape[0]
+    pad = (-n) % world
+    acc = []
+    for x in xs:
+        xp = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))]) if pad else \
+            x.clone()
+        acc.append(xp.reshape(world, -1, *x.shape[1:]))
+    # reduce-scatter: at hop i rank r adds rank r-1's chunk (r - i - 1)
+    for i in range(world - 1):
+        recv = [_hop(acc[(r - 1) % world][(r - i - 1) % world], devs[r])
+                for r in range(world)]
+        for r in range(world):
+            idx = (r - i - 1) % world
+            acc[r][idx] = acc[r][idx] + recv[r]
+    own = [(r + 1) % world for r in range(world)]
+    # all-gather in place: at hop i rank r takes rank r-1's chunk
+    # (own_r - i - 1); the world - 1 hops overwrite every chunk but its own
+    for i in range(world - 1):
+        recv = [_hop(acc[(r - 1) % world][(own[r] - i - 1) % world], devs[r])
+                for r in range(world)]
+        for r in range(world):
+            acc[r][(own[r] - i - 1) % world] = recv[r]
+    return [a.reshape(-1, *xs[0].shape[1:])[:n] for a in acc]

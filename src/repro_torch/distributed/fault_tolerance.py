@@ -1,17 +1,27 @@
-"""Host-side fault tooling (port of the host parts of
+"""Fault tolerance and elastic scaling (port of
 ``repro/distributed/fault_tolerance.py``, DESIGN.md §6 and §17).
 
-Two pieces, both plain Python with no device work:
+The recovery contract:
 
-* :class:`NetworkFaultHooks` — deterministic link-level fault injection
-  (delay, drop every Nth record, partitions that heal) consulted by
-  ``SocketTransport``'s sender threads;
-* :func:`spawn_and_kill` — run a child and SIGKILL it the moment a
-  readiness probe fires: the machinery behind the kill-and-recover drills.
+  1. every state object (params, optimizer moments, the step) flows
+     through the checkpoint manager (``repro_torch.checkpoint``) on a
+     cadence;
+  2. on failure, the coordinator rebuilds a mesh over the surviving
+     devices (``remesh``) and re-places the host-side state onto it
+     (``reshard``): device counts may differ from save time;
+  3. stragglers are flagged by a step-time watchdog (``StepWatchdog``).
 
-The reference module's training side (elastic re-meshing, resharding,
-``FaultInjector``, ``StepWatchdog``, ``ElasticRunner``) is not ported
-here; it comes with the training plane.
+The "cluster" is a list of torch devices driven by this one process; a
+device may repeat (virtual devices on one card), so failures are
+*simulated* by building meshes over device subsets, which runs the same
+re-place path a real loss would. Between meshes the state is on the host
+(``to_host``).
+
+The host tooling of the replica drills: :class:`NetworkFaultHooks` —
+deterministic link-level fault injection (delay, drop every Nth record,
+partitions that heal) consulted by ``SocketTransport``'s sender threads;
+:func:`spawn_and_kill` — run a child and SIGKILL it the moment a
+readiness probe fires.
 """
 from __future__ import annotations
 
@@ -19,7 +29,109 @@ import signal
 import subprocess
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import Mesh
+
+
+# ---------------------------------------------------------------------------
+# elastic re-meshing
+# ---------------------------------------------------------------------------
+
+
+def largest_mesh_shape(n_devices: int, model_parallel: int
+                       ) -> tuple[int, int]:
+    """Biggest (data, model) grid over surviving devices, keeping the model
+    axis intact (TP groups must stay whole; losing one chip of a TP group
+    kills the whole group)."""
+    data = n_devices // model_parallel
+    if data < 1:
+        raise RuntimeError(
+            f"cannot keep model_parallel={model_parallel} with "
+            f"{n_devices} devices")
+    return data, model_parallel
+
+
+def remesh(devices: list, model_parallel: int,
+           axis_names: tuple[str, str] = ("data", "model")) -> Mesh:
+    """Build a fresh mesh over an explicit device list (survivors)."""
+    data, model = largest_mesh_shape(len(devices), model_parallel)
+    grid = np.asarray(devices[: data * model], dtype=object)
+    return Mesh(grid.reshape(data, model), axis_names)
+
+
+def to_host(tree: Any) -> Any:
+    """Device -> host: every tensor (placed ones gathered whole) as a CPU
+    tensor, bf16 kept bit for bit (as the checkpoint manager stores and
+    restores it); the representation that survives a re-mesh."""
+    def one(x):
+        if isinstance(x, shd.Placed):
+            x = shd.gather(x, "cpu")
+        return x.detach().to("cpu", copy=True) \
+            if isinstance(x, torch.Tensor) else x
+    return shd.tree_map(one, tree)
+
+
+def reshard(tree_host: Any, specs: Any, mesh) -> Any:
+    """Host state -> new mesh under the given PartitionSpecs (numpy arrays
+    become tensors first)."""
+    return shd.tree_map(
+        lambda x, s: shd.device_put(torch.as_tensor(x),
+                                    shd.NamedSharding(mesh, s)),
+        tree_host, specs)
+
+
+# ---------------------------------------------------------------------------
+# failure simulation + watchdog
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class FailureEvent:
+    step: int
+    kind: str                 # "node_loss" | "straggler" | "restart"
+    detail: str = ""
+
+
+@dataclass
+class FaultInjector:
+    """Deterministic failure schedule for integration tests: at step s,
+    drop `lose` devices (forcing a re-mesh) or stall (watchdog path)."""
+    node_loss_steps: dict[int, int] = field(default_factory=dict)
+    events: list[FailureEvent] = field(default_factory=list)
+
+    def check(self, step: int, devices: list) -> list:
+        lose = self.node_loss_steps.get(step, 0)
+        if lose:
+            self.events.append(FailureEvent(step, "node_loss",
+                                            f"lost {lose} devices"))
+            return devices[:-lose]
+        return devices
+
+
+@dataclass
+class StepWatchdog:
+    """Detects straggling steps: if a step exceeds `factor` x the trailing
+    median, it is flagged (real deployments would hedge/evict the slow
+    host; here the signal feeds the test assertions + logs)."""
+    factor: float = 3.0
+    window: int = 16
+    _times: list = field(default_factory=list)
+    flagged: list = field(default_factory=list)
+
+    def observe(self, step: int, dt: float) -> bool:
+        slow = False
+        if len(self._times) >= 4:
+            med = float(np.median(self._times[-self.window:]))
+            slow = dt > self.factor * med
+            if slow:
+                self.flagged.append((step, dt, med))
+        self._times.append(dt)
+        return slow
 
 
 # ---------------------------------------------------------------------------
@@ -125,4 +237,72 @@ def spawn_and_kill(argv: list[str], ready: Callable[[], bool],
             proc.wait()
 
 
-__all__ = ["NetworkFaultHooks", "spawn_and_kill"]
+# ---------------------------------------------------------------------------
+# recovery orchestration
+# ---------------------------------------------------------------------------
+
+
+def _visible_devices() -> list:
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n == 0:
+        raise RuntimeError("no CUDA device visible; pass devices= (CPU "
+                           "devices run the plain versions)")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+class ElasticRunner:
+    """Drives train/serve steps with failure handling.
+
+    make_step(mesh) -> (step_fn, shard(state_host) -> state_dev,
+                        unshard(state_dev) -> state_host)
+    On injected node loss: state -> host, remesh over survivors,
+    reshard, continue. Checkpoints via the provided manager every
+    `ckpt_every` steps; restart-from-checkpoint is `resume()`. The
+    devices default to the visible CUDA devices.
+    """
+
+    def __init__(self, make_step: Callable, devices: Optional[list] = None,
+                 model_parallel: int = 1,
+                 injector: Optional[FaultInjector] = None,
+                 ckpt_manager=None, ckpt_every: int = 50):
+        self.make_step = make_step
+        self.devices = list(devices or _visible_devices())
+        self.model_parallel = model_parallel
+        self.injector = injector or FaultInjector()
+        self.ckpt = ckpt_manager
+        self.ckpt_every = ckpt_every
+        self.watchdog = StepWatchdog()
+        self.mesh = remesh(self.devices, model_parallel)
+        self.step_fn, self.shard, self.unshard = make_step(self.mesh)
+        self.log: list[str] = []
+
+    def run(self, state_host: Any, n_steps: int, start_step: int = 0) -> Any:
+        state = self.shard(state_host)
+        for step in range(start_step, start_step + n_steps):
+            survivors = self.injector.check(step, self.devices)
+            if len(survivors) != len(self.devices):      # node failure
+                self.log.append(f"step {step}: remesh "
+                                f"{len(self.devices)}->{len(survivors)}")
+                state_host = self.unshard(state)
+                self.devices = survivors
+                self.mesh = remesh(self.devices, self.model_parallel)
+                self.step_fn, self.shard, self.unshard = \
+                    self.make_step(self.mesh)
+                state = self.shard(state_host)
+            t0 = time.perf_counter()
+            state = self.step_fn(state)
+            self.watchdog.observe(step, time.perf_counter() - t0)
+            if self.ckpt is not None and (step + 1) % self.ckpt_every == 0:
+                self.ckpt.save(step + 1, self.unshard(state))
+        return self.unshard(state)
+
+    def resume(self) -> tuple[int, Any]:
+        assert self.ckpt is not None
+        self.ckpt.wait()
+        step, state_host = self.ckpt.restore_latest()
+        return step, state_host
+
+
+__all__ = ["ElasticRunner", "FailureEvent", "FaultInjector",
+           "NetworkFaultHooks", "StepWatchdog", "largest_mesh_shape",
+           "remesh", "reshard", "spawn_and_kill", "to_host"]

@@ -1,20 +1,25 @@
 """Runnable trainer (port of ``repro/launch/train.py``): any ``--arch``,
-reduced or at full width, on one device.
+reduced or at full width, on a (data, model) mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b \\
         --reduced --steps 20 --batch 8 --seq 128 [--device cpu] \\
-        [--ckpt-dir DIR --ckpt-every N [--resume]]
+        [--data 2 --model 1] [--ckpt-dir DIR --ckpt-every N [--resume]]
 
-The loop: a synthetic batch, ``make_train_step`` (forward, chunked
-cross-entropy, backward, AdamW), the metrics line, a checkpoint every
+The loop: a synthetic batch, the sharded train step
+(``distributed.sharded_train``: each data rank's forward, chunked
+cross-entropy and backward on its rows, the ring all-reduce, AdamW on
+each placed block), the metrics line, a checkpoint every
 ``--ckpt-every`` steps through ``checkpoint.CheckpointManager`` (params,
 moments and the step, the reference's layout), ``--resume`` from the
-newest one. It runs on ``--device`` (default ``cuda``: K4 forward and its
-backward kernels, for every attention kind (the MLA pairs and head dims
-up to 256 among them), and K5 with its backward kernel for rwkv6; ``cpu``
-runs the plain versions). Every LM configuration trains on the card. ``--data``/``--model``
-above 1 (meshes) raise until the parallel-training slice;
-``--grad-compression`` is parsed and unused, as in the reference.
+newest one. The mesh is ``make_host_mesh(--data, --model)``: on ``cuda``
+(the default: K4 forward and its backward kernels for every attention
+kind, K5 with its backward kernel for rwkv6) over the visible cards, with
+the reference's clamp, so one card gives (1, 1); on ``cpu`` (the plain
+versions) over data x model virtual CPU devices. On a (1, 1) mesh the
+step is ``make_train_step``'s, bit for bit. An MoE model's step on more
+than one data rank raises unless its ``moe_impl`` is ``"shard_map"``
+(``distributed/sharded_train.py``). ``--grad-compression`` is parsed and
+unused, as in the reference.
 
 Unlike the reference, whose batch stream restarts from the seed on a
 resume, step s draws its batch from ``default_rng((seed, s))``, so a
@@ -33,7 +38,9 @@ import torch
 
 from repro_torch.configs.base import get_config
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import make_train_step
+from repro_torch.distributed import sharded_train as st
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import lm
 from repro_torch.training import optimizer as opt
 
@@ -54,12 +61,6 @@ def synth_batch(cfg, rng, batch: int, seq: int, device=None) -> dict:
         out["frames"] = rng.normal(
             size=(batch, cfg.enc_len, cfg.d_model)).astype(np.float32)
     return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
-
-
-def _to(tree, device):
-    """A restored checkpoint tree (numpy arrays, CPU bf16 tensors) on
-    ``device``."""
-    return opt.tree_map(lambda x: torch.as_tensor(x).to(device), tree)
 
 
 def run(argv=None) -> dict:
@@ -84,10 +85,11 @@ def run(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
     args = ap.parse_args(argv)
-    if args.data > 1 or args.model > 1:
-        raise NotImplementedError("--data/--model above 1 need the parallel "
-                                  "training plane, which is not ported yet")
     dev = resolve_device(args.device)
+    mesh = make_host_mesh(args.data, args.model, devices=None
+                          if dev.type == "cuda" else
+                          [dev] * (args.data * args.model))
+    print(f"mesh: {mesh}")
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -95,9 +97,8 @@ def run(argv=None) -> dict:
     lr = args.lr if args.lr is not None else 3e-3 if args.reduced else 3e-4
     optc = opt.AdamWConfig(lr=lr, total_steps=max(args.steps, 2),
                            warmup_steps=max(2, args.steps // 10))
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = lm.init_params(gen, cfg, dev)
-    state = opt.init_state(params)
+    fsdp = mesh.shape["data"] > 1
+    place = lambda tree: st.place_params(tree, cfg, mesh, fsdp=fsdp)
     start_step = 0
     ckpt = None
     if args.ckpt_dir:
@@ -105,18 +106,24 @@ def run(argv=None) -> dict:
         ckpt = CheckpointManager(args.ckpt_dir, keep=2)
     if ckpt and args.resume and ckpt.all_steps():
         start_step, rec = ckpt.restore_latest()
-        params = _to(rec["params"], dev)
+        params = place(rec["params"])
         state = opt.AdamWState(int(rec["meta"]["step"]),
-                               _to(rec["opt_m"], dev), _to(rec["opt_v"], dev))
+                               place(rec["opt_m"]), place(rec["opt_v"]))
         print(f"resumed from step {start_step}")
+    else:
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        params = place(lm.init_params(gen, cfg, dev))
+        state = st.init_placed_state(params)
 
-    step_fn = make_train_step(cfg, accum=args.accum, optc=optc,
-                              ce_chunk=min(512, args.seq))
+    step_fn = st.make_sharded_train_step(cfg, mesh, accum=args.accum,
+                                         optc=optc,
+                                         ce_chunk=min(512, args.seq))
     losses = []
     for step in range(start_step, args.steps):
         t0 = time.perf_counter()
-        batch = synth_batch(cfg, np.random.default_rng((args.seed, step)),
-                            args.batch, args.seq, dev)
+        batch = st.place_batch(synth_batch(
+            cfg, np.random.default_rng((args.seed, step)), args.batch,
+            args.seq, dev), cfg, mesh)
         params, state, metrics = step_fn(params, state, batch)
         loss = float(metrics["loss"])
         losses.append(loss)
@@ -126,7 +133,9 @@ def run(argv=None) -> dict:
               f"dt={time.perf_counter() - t0:6.2f}s", flush=True)
         if ckpt and (step + 1) % args.ckpt_every == 0:
             ckpt.save(step + 1, {
-                "params": params, "opt_m": state.m, "opt_v": state.v,
+                "params": shd.gather_tree(params),
+                "opt_m": shd.gather_tree(state.m),
+                "opt_v": shd.gather_tree(state.v),
                 "meta": {"step": np.asarray(state.step)}})
     if len(losses) >= 5:
         first, last = np.mean(losses[:3]), np.mean(losses[-3:])
@@ -134,6 +143,7 @@ def run(argv=None) -> dict:
               f"({'DECREASED' if last < first else 'no decrease'})")
     if ckpt:
         ckpt.wait()
+    params, state = st.gather_state(params, state)
     return {"losses": losses, "params": params, "state": state}
 
 

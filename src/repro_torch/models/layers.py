@@ -19,6 +19,7 @@ cast of P to the value dtype before P·V.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Any, Callable, Optional
 
@@ -73,9 +74,11 @@ def set_bf16_boundary(on: bool) -> None:
 
 def dp_constrain(x: torch.Tensor, axes: tuple) -> torch.Tensor:
     """A layer-boundary activation. The reference pins its batch dim to the
-    data-parallel mesh ``axes``; the port runs on one device, so the
-    placement is the identity (meshes belong to the parallel-training
-    slice), and a bf16 ``x`` passes ``bf16_grad_barrier`` when the
+    data-parallel mesh ``axes`` so that GSPMD keeps the ZeRO-3 choice
+    (per-layer weight gathers). The port's sharded train step
+    (``distributed/sharded_train.py``) runs each data rank's forward on
+    its own rows with the weights gathered, so here the placement is the
+    identity, and a bf16 ``x`` passes ``bf16_grad_barrier`` when the
     boundary is on."""
     if _BF16_BOUNDARY[0] and x.dtype == torch.bfloat16:
         return bf16_grad_barrier(x)
@@ -493,7 +496,8 @@ def _experts(p: Params, cfg, buf: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["w_down"])
 
 
-def _moe_dispatch(p: Params, cfg, xg: torch.Tensor
+def _moe_dispatch(p: Params, cfg, xg: torch.Tensor,
+                  expert_lo: Optional[int] = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """G independent dispatches of T tokens each, xg (G, T, d) -> (out
     (G, T, d), aux (G,)): each group has its own capacity C, its own
@@ -502,9 +506,16 @@ def _moe_dispatch(p: Params, cfg, xg: torch.Tensor
 
     Each (token, k) assignment is ranked within its (group, expert) by a
     stable argsort, so earlier tokens take the slots first; assignments
-    ranked past C go to the trash slot E x G x C and read zeros back."""
+    ranked past C go to the trash slot E x G x C and read zeros back.
+
+    ``expert_lo``: ``p`` holds only the experts [expert_lo, expert_lo +
+    E_loc) (an expert-parallel shard); the ranking and the capacity are
+    over all E experts, and assignments outside the range go to the trash
+    slot, so this shard's output lacks them (``moe_apply_shard_map`` sums
+    the shards')."""
     G, T, d = xg.shape
     E, k = cfg.n_experts, cfg.top_k
+    E_loc = p["w_gate"].shape[0]
     C = moe_capacity(cfg, T)
     dev = xg.device
     xt = xg.reshape(G * T, d)
@@ -518,18 +529,23 @@ def _moe_dispatch(p: Params, cfg, xg: torch.Tensor
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.empty_like(key)
     pos[order] = torch.arange(key.numel(), device=dev) - starts[key[order]]
-    slot = torch.where(pos < C, (flat_e * G + group) * C + pos,
-                       torch.full_like(pos, E * G * C))
+    keep = pos < C
+    le = flat_e
+    if expert_lo is not None or E_loc != E:
+        le = flat_e - (expert_lo or 0)
+        keep = keep & (le >= 0) & (le < E_loc)
+    slot = torch.where(keep, (le * G + group) * C + pos,
+                       torch.full_like(pos, E_loc * G * C))
 
     x_rep = xt.repeat_interleave(k, dim=0)                     # (G*T*k, d)
     # the slots are unique apart from the trash slot: the add is a copy
-    buf = torch.zeros((E * G * C + 1, d), dtype=xg.dtype, device=dev)
+    buf = torch.zeros((E_loc * G * C + 1, d), dtype=xg.dtype, device=dev)
     buf.index_add_(0, slot, x_rep)
-    buf = buf[:-1].reshape(E, G * C, d)
+    buf = buf[:-1].reshape(E_loc, G * C, d)
 
-    y = _experts(p, cfg, buf)                                  # (E, G*C, d)
+    y = _experts(p, cfg, buf)                              # (E_loc, G*C, d)
 
-    y_flat = torch.cat([y.reshape(E * G * C, d),
+    y_flat = torch.cat([y.reshape(E_loc * G * C, d),
                         torch.zeros((1, d), dtype=y.dtype, device=dev)])
     y_tok = y_flat[slot] * gates.reshape(-1, 1).to(y.dtype)
     out = y_tok.reshape(G * T, k, d).sum(dim=1)
@@ -538,7 +554,104 @@ def _moe_dispatch(p: Params, cfg, xg: torch.Tensor
     return out.reshape(G, T, d), aux
 
 
-def moe_apply(p: Params, cfg, x: torch.Tensor, groups: int = 1
+# the mesh ``moe_apply_shard_map`` runs on; set by the launcher
+# (``launch/steps.cell_shardings``), as the reference's
+_SHARD_MESH: list = [None]
+
+
+def set_shard_mesh(mesh) -> None:
+    _SHARD_MESH[0] = mesh
+
+
+def _mesh_coords(mesh, dp: tuple) -> list:
+    """For each data shard (row-major over the ``dp`` axes), the mesh
+    coordinates of its "model" shards, in "model" order."""
+    ranks = itertools.product(*(range(mesh.shape[a]) for a in dp))
+    return [[{**dict(zip(dp, r)), "model": m}
+             for m in range(mesh.shape["model"])] for r in ranks]
+
+
+def _moe_shard_params(p: Params, cfg, m: int, tp: int, ep: bool) -> Params:
+    """Model shard ``m`` of ``tp`` of an MoE layer's params, as views: the
+    experts [m E/tp, (m+1) E/tp) (expert parallel) or every expert's ffn
+    columns [m c, (m+1) c), c = ceil(dff / tp) (the last slices short or
+    empty, as XLA pads); the router whole, a shared MLP's ffn sliced."""
+    def cols(n):
+        c = -(-n // tp)
+        return slice(min(m * c, n), min((m + 1) * c, n))
+    out: Params = {"router": p["router"]}
+    if ep:
+        e = cfg.n_experts // tp
+        for k in ("w_gate", "w_up", "w_down"):
+            out[k] = p[k][m * e:(m + 1) * e]
+    else:
+        f = cols(p["w_gate"].shape[-1])
+        out["w_gate"], out["w_up"] = p["w_gate"][..., f], p["w_up"][..., f]
+        out["w_down"] = p["w_down"][:, f]
+    if "shared" in p:
+        f = cols(p["shared"]["w_up"].shape[-1])
+        out["shared"] = {k: (v[f] if k == "w_down" else v[:, f])
+                         for k, v in p["shared"].items()}
+    return out
+
+
+def _moe_partial(p: Params, cfg, x: torch.Tensor, expert_lo: Optional[int]
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One (data, model) shard's dispatch of its data shard's tokens x
+    (b, L, d): its partial output and its aux loss."""
+    return moe_apply(p, cfg, x, expert_lo=expert_lo)
+
+
+def moe_apply_shard_map(p: Params, cfg, x: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-shard MoE dispatch over the mesh ``set_shard_mesh`` set (the
+    reference's ``moe_apply_shard_map``): each data shard (the batch split
+    over ``cfg.act_dp``'s axes) dispatches only its own tokens, at its own
+    capacity. When E % tp == 0 and E >= tp the experts split over "model"
+    (each shard's assignments outside its range go to the trash slot),
+    otherwise every expert's ffn dim is sliced over "model"; a shared
+    MLP's ffn dim is sliced either way. Shard (r, m) runs on the mesh's
+    device at that coordinate; the "model" shards' partial outputs are
+    summed in "model" order on shard (r, 0)'s device, and the aux loss is
+    the mean of the data shards'. With no mesh, or no data or "model"
+    axis in it, the scatter dispatch of all the tokens."""
+    mesh = _SHARD_MESH[0]
+    dp = tuple(a for a in cfg.act_dp
+               if mesh is not None and a in mesh.axis_names)
+    if not dp or "model" not in getattr(mesh, "axis_names", ()):
+        return moe_apply(p, cfg.replace(moe_impl="scatter"), x)
+    local_cfg = cfg.replace(moe_impl="scatter", act_dp=())
+    tp = mesh.shape["model"]
+    ep = cfg.n_experts % tp == 0 and cfg.n_experts >= tp
+    shards = _mesh_coords(mesh, dp)
+    B = x.shape[0]
+    if B % len(shards):
+        raise ValueError(f"batch {B} does not split over {len(shards)} data "
+                         f"shards")
+    b = B // len(shards)
+    ys, auxes = [], []
+    for r, coords in enumerate(shards):
+        xr = x[r * b:(r + 1) * b]
+        acc, aux = None, None
+        for m, c in enumerate(coords):
+            dev = mesh.device(**c)
+            pm = _moe_shard_params(p, cfg, m, tp, ep)
+            pm = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.to(dev))
+                  for k, v in pm.items()}
+            y, a = _moe_partial(pm, local_cfg, xr.to(dev),
+                                m * (cfg.n_experts // tp) if ep else None)
+            if acc is None:
+                acc, aux = y, a
+            else:
+                acc = acc + y.to(acc.device)
+        ys.append(acc.to(x.device))
+        auxes.append(aux.to(x.device))
+    return torch.cat(ys), torch.stack(auxes).mean()
+
+
+def moe_apply(p: Params, cfg, x: torch.Tensor, groups: int = 1,
+              expert_lo: Optional[int] = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B, L, d) -> (out, aux loss): the reference's ``moe_apply``.
 
@@ -548,7 +661,12 @@ def moe_apply(p: Params, cfg, x: torch.Tensor, groups: int = 1
     vmaps a one-row call over the batch (its engine's decode over slots).
     ``cfg.moe_chunk_tokens`` cuts each dispatch into chunks of at most that
     many tokens (the largest divisor), run one after another with a
-    capacity each, and averages their aux losses."""
+    capacity each, and averages their aux losses. ``expert_lo``: ``p``
+    holds an expert-parallel shard's experts (``_moe_dispatch``).
+    ``cfg.moe_impl == "shard_map"`` with ``cfg.act_dp`` set takes
+    ``moe_apply_shard_map``."""
+    if cfg.moe_impl == "shard_map" and cfg.act_dp and groups == 1:
+        return moe_apply_shard_map(p, cfg, x)
     B, L, d = x.shape
     Tg = B * L // groups
     xg = x.reshape(groups, Tg, d)
@@ -558,10 +676,10 @@ def moe_apply(p: Params, cfg, x: torch.Tensor, groups: int = 1
             chunk -= 1
         outs, aux = [], torch.zeros((groups,), device=x.device)
         for c in range(0, Tg, chunk):
-            y, a = _moe_dispatch(p, cfg, xg[:, c:c + chunk])
+            y, a = _moe_dispatch(p, cfg, xg[:, c:c + chunk], expert_lo)
             outs.append(y)
             aux = aux + a
         return (torch.cat(outs, dim=1).reshape(B, L, d),
                 (aux / (Tg // chunk)).mean())
-    y, aux = _moe_dispatch(p, cfg, xg)
+    y, aux = _moe_dispatch(p, cfg, xg, expert_lo)
     return y.reshape(B, L, d), aux.mean()

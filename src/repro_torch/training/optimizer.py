@@ -102,6 +102,46 @@ def global_norm(tree) -> torch.Tensor:
                           for _, x in tree_leaves(tree)))
 
 
+def check_moments(state: AdamWState, cfg: AdamWConfig) -> None:
+    """Raise unless the moments are stored in ``cfg.moment_dtype``."""
+    mdt = getattr(torch, cfg.moment_dtype)
+    for _, m in tree_leaves(state.m):
+        if m.dtype != mdt:
+            raise ValueError(f"moments stored in {m.dtype}, the config "
+                             f"asks for {cfg.moment_dtype}")
+        break
+
+
+def update_scalars(cfg: AdamWConfig, step: int, gnorm: torch.Tensor
+                   ) -> tuple[torch.Tensor, ...]:
+    """The f32 scalars of update ``step`` (1-based) at gradient norm
+    ``gnorm``: (clip factor, learning rate, b1 and b2 bias corrections)."""
+    clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    lr = schedule(cfg, step)
+    stepf = torch.tensor(step, dtype=torch.float32)
+    b1c = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32), stepf)
+    b2c = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32), stepf)
+    return clip, lr, b1c, b2c
+
+
+@torch.no_grad()
+def update_leaf(path, p, g, m, v, scalars, cfg: AdamWConfig) -> None:
+    """One leaf's (or one block of a leaf's) AdamW update, in place, in
+    f32: ``scalars`` from ``update_scalars``."""
+    # a CPU scalar joins an op on any device; one on another card moves
+    clip, lr, b1c, b2c = (x if x.device in (p.device, torch.device("cpu"))
+                          else x.to(p.device) for x in scalars)
+    gf = g.float() * clip
+    mf = cfg.b1 * m.float() + (1 - cfg.b1) * gf
+    vf = cfg.b2 * v.float() + (1 - cfg.b2) * torch.square(gf)
+    upd = (mf / b1c) / (torch.sqrt(vf / b2c) + cfg.eps)
+    if cfg.weight_decay and _decay_mask(path):
+        upd = upd + cfg.weight_decay * p.float()
+    p.copy_(p.float() - lr * upd)
+    m.copy_(mf)
+    v.copy_(vf)
+
+
 @torch.no_grad()
 def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig
                   ) -> tuple[Any, AdamWState, dict]:
@@ -109,30 +149,13 @@ def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig
     float dtype). Writes the new parameters and moments in place and
     returns (params, the new state, {"grad_norm", "lr"}). The state's
     moments must be stored in ``cfg.moment_dtype`` (``init_state``)."""
-    mdt = getattr(torch, cfg.moment_dtype)
-    for _, m in tree_leaves(state.m):
-        if m.dtype != mdt:
-            raise ValueError(f"moments stored in {m.dtype}, the config "
-                             f"asks for {cfg.moment_dtype}")
-        break
+    check_moments(state, cfg)
     gnorm = global_norm(grads)
-    clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
-    lr = schedule(cfg, step)
-    stepf = torch.tensor(step, dtype=torch.float32)
-    b1c = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32), stepf)
-    b2c = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32), stepf)
+    scalars = update_scalars(cfg, step, gnorm)
     leaves = zip(tree_leaves(params), tree_leaves(grads),
                  tree_leaves(state.m), tree_leaves(state.v))
     for (path, p), (_, g), (_, m), (_, v) in leaves:
-        gf = g.float() * clip
-        mf = cfg.b1 * m.float() + (1 - cfg.b1) * gf
-        vf = cfg.b2 * v.float() + (1 - cfg.b2) * torch.square(gf)
-        upd = (mf / b1c) / (torch.sqrt(vf / b2c) + cfg.eps)
-        if cfg.weight_decay and _decay_mask(path):
-            upd = upd + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * upd)
-        m.copy_(mf)
-        v.copy_(vf)
+        update_leaf(path, p, g, m, v, scalars, cfg)
     return params, AdamWState(step, state.m, state.v), \
-        {"grad_norm": gnorm, "lr": lr}
+        {"grad_norm": gnorm, "lr": scalars[1]}

@@ -2,7 +2,8 @@
 --reduced --device cpu`` lowers its loss in 10 steps and prints the
 reference's lines; a run stopped at a checkpoint and resumed with
 ``--resume`` equals the uninterrupted run bit for bit (params, moments,
-losses); mesh flags raise until the parallel-training slice;
+losses); on a mesh with more than one data rank an MoE model whose
+dispatch takes its capacity from the whole batch raises;
 ``launch.train_embedder`` widens the dup/non-dup similarity gap of the
 reduced embedder, and its ``wrap_step`` hook sees every step; the
 prefill and decode step builders are ``lm``'s calls without grad.
@@ -71,8 +72,13 @@ def test_an_explicit_learning_rate_of_zero_is_kept():
 
 
 def test_mesh_flags_raise():
-    with pytest.raises(NotImplementedError):
-        train.run(["--reduced", "--device", "cpu", "--data", "2"])
+    """``--data 2`` runs the sharded step on two virtual CPU devices; for
+    mixtral, whose scatter dispatch takes one capacity over the whole
+    batch, a step per data rank would differ, so it raises."""
+    with pytest.raises(NotImplementedError, match="capacity"):
+        train.run(["--arch", "mixtral-8x7b", "--reduced", "--device", "cpu",
+                   "--data", "2", "--batch", "2", "--seq", "16",
+                   "--steps", "1"])
 
 
 def test_embedder_training_widens_the_gap():
