@@ -51,7 +51,8 @@ Phases (any failure exits non-zero and prints no result line):
 4. serve    — the serve_with_siso stream (40 requests, batches of 4,
               max_new=8) through the ServingGateway: siso-embedder at its
               published widths in fp32, qwen3-14b at full width in bf16
-              with seeded random weights (``--layers`` cuts depth only),
+              with seeded random weights, 20 of its 40 layers
+              (``--layers``; SERVED_LAYERS),
               SISO bootstrapped from a synthetic history into a centroid
               region of >= 32,768 rows. Once with backend "pallas" (K1),
               once with "pallas_q8" (K2); each kernel's launch counter is
@@ -67,7 +68,7 @@ Phases (any failure exits non-zero and prints no result line):
               engine check (reduced qwen3, fp32: cached decode equals
               re-prefill greedy decoding; with the int8 KV cache, batched
               decode equals one-sequence decode) runs on the card;
-5. engine-long — qwen3-14b at full width and depth, the served run's
+5. engine-long — qwen3-14b at full width and the served depth, the served run's
               weights, ModelEngine(n_slots=4, max_len=8192): four 4,096-token
               prompts through prefill (K4 on every layer), then 16 decode
               steps (K3 on every layer), once with the bf16 KV cache and
@@ -127,7 +128,7 @@ Phases (any failure exits non-zero and prints no result line):
               after planes, on the served weights: (a) two Replicas in a
               ReplicaGroup (sync_every=1), each a
               ServingGateway.from_config over its own ModelEngine
-              (qwen3-14b, 40 layers, bf16) on backend pallas at dim 768,
+              (the served qwen3-14b, bf16) on backend pallas at dim 768,
               the served embedder on every request, behind the port's
               CacheHTTPServer driven by urllib: 16 requests (a fresh
               query from user 0, its repeat from user 1 on the other
@@ -173,7 +174,7 @@ Phases (any failure exits non-zero and prints no result line):
               other bit for bit, row writes and no rebuild; (b) the served
               stream from the SISO's pre-stream state through
               ServingGateway.from_config with sharding over 4 shards and
-              the 40-layer qwen3-14b engine: served-by per request as one
+              the served qwen3-14b engine: served-by per request as one
               device's pallas gateway, answers and answer ids as one
               device's dense gateway; cache_shards, rows and bytes per
               shard logged; (c) the S=4 cache saved through the
@@ -210,7 +211,14 @@ Phases (any failure exits non-zero and prints no result line):
               phases', and a short torch.profiler trace of a prefill and
               two decode steps: busy ms, K4's/K3's share, the MoE's and
               its dispatch's share; prefill and decode ms and the peak
-              memory logged.
+              memory logged; (d) the two other dense kinds at full size,
+              qwen2.5-14b (48 layers, qkv biases) and command-r-35b (40
+              layers, 64/8 heads, a tied 256,000-row embedding, 60.6 GB),
+              each through ModelEngine(n_slots=4, max_len=4,352) with the
+              bf16 and the int8 KV cache: four 4,096-token prompts, 16
+              decode steps, the first prefill's (plain attention 1,024
+              query rows at a time) and the first step's logits held at
+              ZOO_RTOL, every K3/K4 call noted for the re-checks.
 11. mla_encdec — the MLA kind and the encoder-decoder, after zoo, once its
               weights are freed: (a) minicpm3-4b at full size (62 layers,
               d 2,560, 40 heads, q_lora 768, kv_lora 256, Dq 64 + 32, Dv
@@ -323,7 +331,17 @@ Phases (any failure exits non-zero and prints no result line):
               backward every step, at least 12 launches a step; every f32
               backward call of (b)-(c) one pass), each step timed on the
               host and the last traced (busy ms, idle share, the
-              backward's and K4's shares).
+              backward's and K4's shares). Since PR 36 (b) also trains
+              qwen2.5-14b, command-r-35b (2 layers), mixtral-8x7b (2
+              layers, 4,608 tokens past its window; an MoE step held with
+              the kernel step's routing forced where tokens flipped),
+              zamba2-7b (12 layers: Dh 112, the SSD under autograd, each
+              of the shared block's two invocations' LoRA gradient above
+              0), whisper-base whole (6 + 6 layers: the cross-attention's
+              backward; its cross-attention key bias, whose exact
+              gradient is 0, held below TRAIN_ZERO_FLOOR of the tree's
+              largest |gradient|), and (c) runs launch.train --reduced
+              for all ten kinds.
 14. parallel — the parallel training plane on virtual meshes of the
               card ([cuda:0] * N), after phase 13 and the main-path
               shape checks: (a) qwen3-14b at full width (4 layers) placed
@@ -355,6 +373,18 @@ Phases (any failure exits non-zero and prints no result line):
               remesh, the end state within the train tolerances of an
               uninterrupted run. The phase adds no kernel and leaves the
               kernels line as it was.
+15. dryrun  — the dry-run against the card, after phase 14: (a)
+              launch.dryrun.run_cell on the meta device for each step
+              phase 13 (b) trained (one device, its cut configuration)
+              and for phase 14 (b)'s sharded step (the virtual mesh
+              traced whole): the predicted peak of live bytes beside
+              torch.cuda.max_memory_allocated over the same step,
+              qwen3-14b's two within DRYRUN_PEAK_RTOL; each kind's mfu,
+              model_flops over (busy s x 989e12); (b) the three examples
+              (examples/torch_*.py) on cuda as subprocesses, their lines
+              logged, each named kernel counter above 0 (K1 and K2 for
+              quickstart and serve_with_siso, K4-f32 and the one-pass
+              backward for train_embedder).
 
 Every kernel's timing (CUDA events, the plain version, the library call,
 the bound, and the profiler's device time) is taken in one child process
@@ -1936,12 +1966,16 @@ def serve_once(torch, np, backend, models, recorder, att_recorders,
 
 
 # ---------------------------------------------------------------------------
-# phase 5: engine-long, qwen3-14b at full depth on 4,096-token prompts
+# phase 5: engine-long, the served qwen3-14b on 4,096-token prompts
 # ---------------------------------------------------------------------------
 
 LONG_PROMPT, LONG_SLOTS, LONG_MAX, LONG_STEPS = 4096, 4, 8192, 16
+# the served qwen3-14b's depth (``--layers``), phases 4-9: 20 of its 40
+# layers since the script grew by a quarter (the dense kinds, five more
+# trained kinds and phase 15); widths unchanged
+SERVED_LAYERS = 20
 ENGINE_RTOL = 0.05   # largest |kernel - plain| logit over the largest
-                     # |plain| logit: bf16 activations through 40 layers of
+                     # |plain| logit: bf16 activations through the layers of
                      # random weights round differently once an attention
                      # output moves by one bf16 ulp. Each K3/K4 call is
                      # also held against its plain version at its own
@@ -4718,6 +4752,12 @@ MIXTRAL_LAYERS = 8  # of 32: 32 layers in bf16 are 93.4 GB, more than the
 MIXTRAL_PROMPT = 4608       # past the 4,096-token window: the ring wraps
 MIXTRAL_SLOTS, MIXTRAL_MAX, MIXTRAL_STEPS = 4, 8192, 16     # Lc = 4,096
 PALI_B, PALI_TEXT, PALI_STEPS = 2, 256, 8    # after 256 patch embeddings
+# the dense kinds never served elsewhere, at full size: qwen2.5-14b (48
+# layers, qkv biases, 29.5 GB in bf16) and command-r-35b (40 layers, 8192
+# wide, tied 256,000-row embedding, 60.6 GB); four prompts, 16 steps
+DENSE_ARCHS = ("qwen2.5-14b", "command-r-35b")
+DENSE_SLOTS, DENSE_PROMPT, DENSE_STEPS = 4, 4096, 16
+DENSE_MAX = DENSE_PROMPT + 256      # command-r's bf16 cache: 2.9 GB
 
 
 class routing:
@@ -4985,6 +5025,127 @@ def zoo_mixtral(torch, np, L, lm, mparams, mcfg, att_recorders, seed: int,
     return rec
 
 
+def zoo_dense(torch, np, L, lm, arch: str, att_recorders, seed: int
+              ) -> dict:
+    """``arch`` at full size through ``ModelEngine(n_slots=DENSE_SLOTS,
+    max_len=DENSE_MAX)``, with the bf16 and the int8 KV cache: four
+    DENSE_PROMPT-token prompts prefilled (K4 on every layer), then
+    DENSE_STEPS batched decode steps (K3). The first prefill's
+    last-position logits and the first decode step's are held against the
+    plain layers at ZOO_RTOL (the plain prefill attention PLAIN_ROWS query
+    rows at a time, ``plain_rows``: command-r's 64 heads of f32 scores at
+    4,096 tokens would take 13 GB beside its 60.6 GB of weights). Every
+    K3/K4 call is noted for the re-checks."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving.engine import ModelEngine
+    full = get_config(arch)
+    t0 = time.perf_counter()
+    params = lm.init_params(gen(torch, seed + 22), full, device=DEV)
+    torch.cuda.synchronize()
+    n = full.n_layers
+    log(f"[zoo] {arch} at full size: {n} layers, d={full.d_model} heads="
+        f"{full.n_heads}/{full.n_kv_heads} d_head={full.head_dim} d_ff="
+        f"{full.d_ff} vocab={full.vocab_size} (tied "
+        f"{full.tie_embeddings}, qkv bias {full.qkv_bias}): "
+        f"{lm.n_params(params) * 2 / 1e9:.1f} GB in bf16, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed + 12)
+    prompts = [rng.integers(0, full.vocab_size, DENSE_PROMPT)
+               for _ in range(DENSE_SLOTS)]
+    first = {"tokens": torch.tensor(prompts[0][None], device=DEV)}
+    out: dict = {"n_params": lm.n_params(params)}
+    launches = dict.fromkeys(ATT_KEYS, 0)
+    for kv_dtype in ("bfloat16", "int8"):
+        cfg = full.replace(kv_dtype=kv_dtype)
+        torch.cuda.reset_peak_memory_stats()
+        rec: dict = {"kv_dtype": kv_dtype}
+        with torch.inference_mode():
+            def prefill1():
+                return lm.prefill(params, cfg, first, lm.init_cache(
+                    cfg, 1, DENSE_PROMPT, device=DEV))[0]
+            kl = prefill1()
+            with swap_attention(L, flash=plain_rows(torch, L)):
+                pl = prefill1()
+            rec["prefill_rel_diff"] = r = zoo_rel(torch, cfg, kl, pl)
+            check(r <= ZOO_RTOL, f"[zoo] {arch} {kv_dtype} prefill: kernel "
+                                 f"vs plain logits {r:.4g} of the largest, "
+                                 f"over {ZOO_RTOL}")
+            del kl, pl
+        torch.cuda.empty_cache()
+        eng = ModelEngine(params, cfg, n_slots=DENSE_SLOTS,
+                          max_len=DENSE_MAX, device=DEV)
+        torch.cuda.synchronize()
+        zero_attention_launches()
+        prefill_ms, toks = [], []
+        with recorded_ops(L, att_recorders):
+            for s, p in enumerate(prompts):
+                t = time.perf_counter()
+                toks.append(eng.prefill_into(s, p))
+                torch.cuda.synchronize()
+                prefill_ms.append(1e3 * (time.perf_counter() - t))
+        got = attention_launches()
+        toks = np.asarray(toks, np.int64)
+        with torch.inference_mode():
+            pos = torch.tensor(eng.pos.astype(np.int64), device=DEV)
+            tok = torch.tensor(toks, device=DEV)[:, None]
+
+            def decode1():
+                return lm.decode_step(params, cfg, tok, eng.cache, pos,
+                                      kv_len=pos + 1)[0]
+            kd = decode1()
+            with swap_attention(L):
+                pd = decode1()
+            rec["decode_rel_diff"] = r = zoo_rel(torch, cfg, kd, pd)
+            check(r <= ZOO_RTOL, f"[zoo] {arch} {kv_dtype} decode: kernel "
+                                 f"vs plain logits {r:.4g} of the largest, "
+                                 f"over {ZOO_RTOL}")
+            del kd, pd
+        torch.cuda.synchronize()
+        zero_attention_launches()
+        decode_ms = []
+        with recorded_ops(L, att_recorders):
+            for _ in range(DENSE_STEPS):
+                t = time.perf_counter()
+                toks = eng.decode_active(toks)
+                decode_ms.append(1e3 * (time.perf_counter() - t))
+            torch.cuda.synchronize()
+        for k, v in attention_launches().items():
+            got[k] += v
+        for k, v in got.items():
+            launches[k] += v
+        k3 = "decode_attention_int8" if kv_dtype == "int8" else \
+            "decode_attention"
+        check(got["flash_attention"] == DENSE_SLOTS * n
+              and got[k3] == DENSE_STEPS * n,
+              f"[zoo] {arch} {kv_dtype}: launches {got}, expected "
+              f"{DENSE_SLOTS * n} K4 and {DENSE_STEPS * n} {k3}")
+        check(all(0 <= t < cfg.vocab_size for t in toks),
+              f"[zoo] {arch} {kv_dtype}: bad tokens {toks}")
+        rec.update(launches=got, prefill_ms=prefill_ms, decode_ms=decode_ms,
+                   prefill_ms_median=statistics.median(prefill_ms),
+                   decode_ms_median=statistics.median(decode_ms),
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        log(f"[zoo] {arch} {kv_dtype} KV: {DENSE_SLOTS} prompts of "
+            f"{DENSE_PROMPT} tokens, prefill {rec['prefill_ms_median']:.1f} "
+            f"ms per prompt (median; "
+            f"{', '.join(f'{t:.1f}' for t in prefill_ms)}), {DENSE_STEPS} "
+            f"decode steps {rec['decode_ms_median']:.2f} ms per step "
+            f"(median); kernel vs plain logits {rec['prefill_rel_diff']:.4g}"
+            f" (prefill) and {rec['decode_rel_diff']:.4g} (decode) of the "
+            f"largest (limit {ZOO_RTOL}); launches {got}; peak memory "
+            f"{rec['max_memory_allocated'] / 2**30:.1f} GiB")
+        out[kv_dtype] = rec
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def zoo_paligemma(torch, np, L, lm, att_recorders, seed: int) -> dict:
     """paligemma-3b at full size: B = 2 of 256 seeded patch embeddings and
     256 text tokens through ``lm.prefill`` (K4: prefix 256, Dh 256, one kv
@@ -5125,14 +5286,21 @@ def phase_zoo(torch, np, att_recorders, seed: int) -> dict:
     del mparams
     torch.cuda.empty_cache()
     pali = zoo_paligemma(torch, np, L, lm, att_recorders, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense = {}
+    for arch in DENSE_ARCHS:
+        dense[arch] = zoo_dense(torch, np, L, lm, arch, att_recorders, seed)
     launches = dict.fromkeys(ATT_KEYS, 0)
-    for r in (*mixtral.values(), pali):
+    for r in (*mixtral.values(), pali, *dense.values()):
         for k, v in r["launches"].items():
             launches[k] += v
     wall = time.perf_counter() - t0
-    log(f"[zoo] phase done in {wall:.1f} s; launches {launches}")
-    return {"mixtral": mixtral, "paligemma": pali, "launches": launches,
-            "wall_s": wall}
+    log(f"[zoo] phase done in {wall:.1f} s ("
+        + ", ".join(f"{a} {r['wall_s']:.1f} s" for a, r in dense.items())
+        + f"); launches {launches}")
+    return {"mixtral": mixtral, "paligemma": pali, "dense": dense,
+            "launches": launches, "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -6297,16 +6465,32 @@ WKV6_BWD_RTOL = 1e-5    # of each gradient's largest |gradient|; dr, dk and
 
 TRAIN_ARCH = "qwen3-14b"
 # (b)'s other kinds at full width: MLA, the VLM prefix-LM at head dim 256,
-# the SSM (WKV6); each cut to TRAIN_LAYERS layers
-TRAIN_KINDS = ("minicpm3-4b", "paligemma-3b", "rwkv6-7b")
+# the SSM (WKV6), the two other dense kinds, the MoE with its window, the
+# hybrid (Dh 112, Mamba2's SSD, the shared block's LoRA), the
+# encoder-decoder (cross-attention's backward); each cut to TRAIN_LAYERS
+# layers, or TRAIN_LAYERS_FOR's
+TRAIN_KINDS = ("minicpm3-4b", "paligemma-3b", "rwkv6-7b", "qwen2.5-14b",
+               "command-r-35b", "mixtral-8x7b", "zamba2-7b", "whisper-base")
 TRAIN_PLAIN_SEQ = {"rwkv6-7b": 1024}    # the plain WKV6 loop's autograd
                                         # keeps every step's state
 # (c): launch.train --reduced for every kind whose backward phase 13 runs
 REDUCED_ARCHS = ("qwen3-14b", "minicpm3-4b", "deepseek-v2-236b",
-                 "paligemma-3b", "rwkv6-7b")
+                 "paligemma-3b", "rwkv6-7b", "qwen2.5-14b", "command-r-35b",
+                 "mixtral-8x7b", "zamba2-7b", "whisper-base")
 TRAIN_LAYERS = 4     # of 40: 2.88 B params, 34.5 GB with bf16 grads and
                      # f32 moments; all 40 would be about 177 GB
+# other depths (0: the whole model), each from the dry-run's peak on one
+# device (launch/dryrun.run_cell, B 1 x the kind's tokens): command-r-35b
+# 2 of 40 (3.5 B params, its tied embedding 2.1 B of them: 54.8 GiB; 4
+# layers would be 70.6), mixtral-8x7b 2 of 32 (3.2 B: 38.9 GiB; 3 would
+# be 55.1), zamba2-7b 12 of 81 (the shared block's two invocations, each
+# LoRA trained: 18.3 GiB), whisper-base whole (0: its 6 + 6 layers)
+TRAIN_LAYERS_FOR = {"command-r-35b": 2, "mixtral-8x7b": 2, "zamba2-7b": 12,
+                    "whisper-base": 0}
 TRAIN_SEQ = 4096     # train_4k's sequence length, B 1
+# mixtral past its 4,096-token window, so the window masks keys in the
+# backward
+TRAIN_SEQ_FOR = {"mixtral-8x7b": 4608}
 TRAIN_CE_CHUNK = 512
 TRAIN_STEPS = 4
 TRAIN_LR = 3e-3      # warmup 1, as the reference's tiny train
@@ -6325,6 +6509,17 @@ TRAIN_LR_FOR = {"rwkv6-7b": 3e-4}
 TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GNORM_RTOL = 1e-2
 TRAIN_GRAD_RTOL = 0.05
+# A leaf whose exact gradient is 0 (whisper's cross-attention key bias: it
+# shifts every score of a row alike, which the softmax ignores) reads
+# rounding noise in both steps, so its difference is held as
+# tests/test_torch_train_grads.py holds it (ZERO_FLOOR): where the plain
+# step's leaf is below TRAIN_ZERO_FLOOR of the tree's largest |gradient|,
+# the kernel step's must be too. Set before the first run on the card from
+# tools/whisper_bwd_rounding.py (the kernels' rounding emulated on the
+# CPU) at whisper's B 1 x 4,096: the plain step's 6.2e-6 to 1.5e-5, the
+# backward with D from the bf16 output 5.5e-5 to 1.6e-4, with D =
+# rowsum(P dP) 1.0e-5 to 1.6e-5
+TRAIN_ZERO_FLOOR = 2.0 ** -14
 # the traced step's device busy ms of an earlier run of (b) (NVIDIA H100
 # 80GB HBM3 at 700.00 W), logged beside this run's
 EARLIER_BUSY_MS = {"minicpm3-4b": (95.270, "before the exact-width pair")}
@@ -6402,9 +6597,11 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
     it) must fail the limit (noted in ``res["ragged"]``). At the class
     whose forward saves the LSE (``ops.saves_lse``: minicpm3's (96, 64))
     the call checked is the main path's, from the LSE of K4's training
-    forward on q, k, v (``bwd_saved_lse``); the call without one (pass
-    1) must meet the same limit, and with ``fault`` the backward from the
-    LSE of other inputs must fail it."""
+    forward on q, k, v (``bwd_saved_lse``), held against the plain
+    version from that LSE (D from the bf16 o, as that route forms it); the
+    call without one (pass 1) must meet the same limit against the plain
+    version without it (D = rowsum(P dP)), and with ``fault`` the backward
+    from the LSE of other inputs must fail it."""
     from repro_torch.kernels.flash_attention import ops, ref
     q, k, v, o, do = bwd_inputs(torch, shape, dtype, seed, **kw)
     got = ops.flash_attention_bwd(q, k, v, o, do, **kw)
@@ -6427,7 +6624,10 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
               f"{ctx}: two calls differ")
         del again
-    plain = ref.attention_bwd_ref(q, k, v, o, do, **kw)
+    # each route against the plain version of its own recurrence: from a
+    # saved LSE, D = rowsum(do . o) from the bf16 o; with pass 1, rowsum(P
+    # dP)
+    plain = ref.attention_bwd_ref(q, k, v, o, do, lse=lse, **kw)
     rss = ref.attention_bwd_rss(q, k, v, o, do, **kw)
     for g in got:
         check(bool(torch.isfinite(g).all()), f"{ctx}: non-finite gradient")
@@ -6435,7 +6635,8 @@ def bwd_compare(torch, res: dict, shape: dict, dtype, seed: int,
     res["share"][dt] = max(res["share"][dt], x)
     res["calls"][dt] += 1
     if pass1 is not None:
-        x1 = bwd_excess(torch, pass1, plain, rss)
+        x1 = bwd_excess(torch, pass1,
+                        ref.attention_bwd_ref(q, k, v, o, do, **kw), rss)
         res["lse"]["pass1_share"] = max(res["lse"]["pass1_share"], x1)
         check(x1 <= 1.0, f"{ctx}: without a saved LSE (pass 1) {x1:.3g} of "
                          f"the limit")
@@ -6836,55 +7037,87 @@ def zero_train_counts() -> None:
 
 
 def train_full(torch, np, arch: str, seed: int) -> dict:
-    """(b): ``arch`` at full width cut to TRAIN_LAYERS layers, remat on,
+    """(b): ``arch`` at full width cut as ``train_cfg`` cuts it, remat on,
     bf16 params: one step's loss, grad norm and gradients held against the
     same step with every attention call and every WKV6 recurrence plain
-    (``swap_attention``), on B 1 x TRAIN_SEQ tokens (TRAIN_PLAIN_SEQ where
-    set: rwkv6's plain loop keeps every step's state for autograd); then
-    TRAIN_STEPS steps of ``make_train_step`` on one fixed B 1 x TRAIN_SEQ
-    batch, the last one traced. The kind's backward kernels must launch
-    in the steps (K4-bwd twice a layer a step, on the route its widths
-    take; K5-bwd once) and the plain attention backward never."""
-    from repro_torch.configs.base import get_config
+    (``swap_attention``), on B 1 x TRAIN_SEQ tokens (TRAIN_SEQ_FOR's where
+    set; TRAIN_PLAIN_SEQ where set: rwkv6's plain loop keeps every step's
+    state for autograd); an MoE kind's plain step is held with the kernel
+    step's routing forced where a token's experts flipped (``routing``);
+    then TRAIN_STEPS steps of ``make_train_step`` on one fixed batch, the
+    last one traced. The kind's backward kernels must launch in the steps
+    (K4-bwd twice an attention call a step, on the route its widths take;
+    K5-bwd once a layer) and the plain attention backward never."""
     from repro_torch.launch import steps
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch.train import synth_batch
     from repro_torch.models import layers as L, lm, ssm as S
     from repro_torch.training import optimizer as opt
-    cfg = get_config(arch).replace(n_layers=TRAIN_LAYERS, remat=True)
+    cfg = train_cfg(arch)
     params = lm.init_params(gen(torch, seed + 400), cfg, DEV)
     n_params = lm.n_params(params)
     rng = np.random.default_rng(seed + 401)
-    batch = synth_batch(cfg, rng, 1, TRAIN_SEQ, DEV)
-    held_seq = TRAIN_PLAIN_SEQ.get(arch, TRAIN_SEQ)
-    held_batch = batch if held_seq == TRAIN_SEQ else \
+    seq = TRAIN_SEQ_FOR.get(arch, TRAIN_SEQ)
+    batch = synth_batch(cfg, rng, 1, seq, DEV)
+    held_seq = TRAIN_PLAIN_SEQ.get(arch, seq)
+    held_batch = batch if held_seq == seq else \
         synth_batch(cfg, rng, 1, held_seq, DEV)
 
     def grads():
         return steps.value_and_grad(lambda p: steps.chunked_ce_loss(
             p, cfg, held_batch, TRAIN_CE_CHUNK)[0], params)
-    loss_k, g_k = grads()
-    with swap_attention(L, S=S):
+    with routing(L) as kr:
+        loss_k, g_k = grads()
+    if cfg.attn_every:
+        # each invocation of the shared block trains its own LoRA (its
+        # lora_b starts at zero, so lora_a's first gradient is zero)
+        lora = g_k["shared_attn"]["lora_b"]
+        got = [float(lora[i].abs().max()) for i in range(lora.shape[0])]
+        check(len(got) >= 2 and all(g > 0 for g in got),
+              f"[train] {arch}: the shared block's LoRA gradients by "
+              f"invocation {got}")
+        log(f"[train] (b) {arch}: the shared block ran {len(got)} times; "
+            f"its LoRA's largest |gradient| by invocation "
+            f"{[f'{g:.4g}' for g in got]}")
+    with routing(L) as pr, swap_attention(L, S=S):
         loss_p, g_p = grads()
+    flips = flip_shares(kr.idx, pr.idx)
+    if any(flips):
+        del g_p
+        with routing(L, force=kr.idx), swap_attention(L, S=S):
+            loss_p, g_p = grads()
+        log(f"[train] (b) {arch}: routing flips per MoE call "
+            f"{[round(x, 4) for x in flips]}; the plain step held with the "
+            f"kernel step's routing forced")
     norm_k, norm_p = float(opt.global_norm(g_k)), float(opt.global_norm(g_p))
-    worst, worst_leaf = 0.0, None
+    worst, worst_leaf, zero = 0.0, None, {}
+    tree = max(float(b.abs().max()) for _, b in opt.tree_leaves(g_p))
     for (path, a), (_, b) in zip(opt.tree_leaves(g_k), opt.tree_leaves(g_p)):
         top = float(b.abs().max())
         r = float((a.float() - b.float()).abs().max()) / top if top else \
             float(a.abs().max())
-        if r > worst:
-            worst, worst_leaf = r, "/".join(map(str, path))
+        name = "/".join(map(str, path))
+        if r > TRAIN_GRAD_RTOL and top < TRAIN_ZERO_FLOOR * tree:
+            zero[name] = (float(a.abs().max()) / tree, top / tree)
+        elif r > worst:
+            worst, worst_leaf = r, name
     del g_k, g_p
     held = {"loss": float(loss_k), "loss_plain": float(loss_p),
             "grad_norm": norm_k, "grad_norm_plain": norm_p,
             "worst_leaf": worst_leaf, "worst_leaf_rel": worst,
-            "seq": held_seq}
-    log(f"[train] (b) {arch} x {TRAIN_LAYERS} layers ({n_params / 1e9:.2f} "
+            "zero_leaves_of_tree": zero,
+            "seq": held_seq, "routing_flip_share": flips}
+    log(f"[train] (b) {arch} x {cfg.n_layers} layers ({n_params / 1e9:.2f} "
         f"B params, bf16, remat), B 1 x {held_seq}: one step with the "
         f"kernels against the plain attention and WKV6: loss "
         f"{held['loss']:.5f} vs {held['loss_plain']:.5f}, grad norm "
         f"{norm_k:.5f} vs {norm_p:.5f}, largest leaf difference {worst:.4g} "
         f"of its largest |gradient| ({worst_leaf})")
+    if zero:
+        log(f"[train] (b) {arch}: leaves at the plain step's rounding noise "
+            f"(exact gradient 0), largest |gradient| of the tree's, kernels "
+            f"vs plain (floor {TRAIN_ZERO_FLOOR:.3g}): " + "; ".join(
+                f"{n} {k:.3g} vs {p:.3g}" for n, (k, p) in zero.items()))
     check(abs(held["loss"] - held["loss_plain"])
           <= TRAIN_LOSS_RTOL * abs(held["loss_plain"]),
           f"[train] {arch} loss {held['loss']} vs plain {held['loss_plain']}")
@@ -6893,6 +7126,10 @@ def train_full(torch, np, arch: str, seed: int) -> dict:
     check(worst <= TRAIN_GRAD_RTOL,
           f"[train] {arch} gradient leaf {worst_leaf} differs by {worst:.4g} "
           f"of its largest |gradient|")
+    check(all(k < TRAIN_ZERO_FLOOR for k, _ in zero.values()),
+          f"[train] {arch}: a leaf whose plain gradient is rounding noise is "
+          f"above {TRAIN_ZERO_FLOOR:.3g} of the tree's largest with the "
+          f"kernels: {zero}")
     del held_batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -6903,6 +7140,7 @@ def train_full(torch, np, arch: str, seed: int) -> dict:
         ce_chunk=TRAIN_CE_CHUNK)
     before, att0 = train_counts(), attention_launches()
     torch.cuda.reset_peak_memory_stats()
+    alloc0 = torch.cuda.memory_allocated()
     losses, host_ms, tr = [], [], {}
     for i in range(TRAIN_STEPS):
         def one():
@@ -6923,7 +7161,7 @@ def train_full(torch, np, arch: str, seed: int) -> dict:
     counts = {n: c - before[n] for n, c in train_counts().items()}
     att = {n: c - att0[n] for n, c in attention_launches().items()}
     log(f"[train] (b) {arch}: {TRAIN_STEPS} steps (lr {lr}, warmup "
-        f"1), B 1 x {TRAIN_SEQ}: losses {[round(x, 5) for x in losses]}; "
+        f"1), B 1 x {seq}: losses {[round(x, 5) for x in losses]}; "
         f"host ms a step {[round(x, 1) for x in host_ms]} (the last "
         f"profiled; median of the others {step_ms:.1f}); peak memory "
         f"{peak:.1f} GiB; kernel launches {counts}; forward attention "
@@ -6950,8 +7188,9 @@ def train_full(torch, np, arch: str, seed: int) -> dict:
                                     f"{losses}")
     check(losses[-1] < losses[0], f"[train] {arch}: the loss did not fall: "
                                   f"{losses}")
-    n = TRAIN_LAYERS * TRAIN_STEPS
+    n = attention_calls(cfg) * TRAIN_STEPS
     if cfg.ssm_kind == "rwkv6":
+        n = cfg.n_layers * TRAIN_STEPS
         need = {"wkv6": n, "wkv6_ckpt": n, "wkv6_bwd": n}
     else:
         route = {"mla": "flash_attention_bwd_dv"}.get(
@@ -6966,7 +7205,7 @@ def train_full(torch, np, arch: str, seed: int) -> dict:
                         flash_attention_bwd_exact=2 * n)
     check(all(counts[k] >= v for k, v in need.items()),
           f"[train] {arch}: kernel launches {counts} in {TRAIN_STEPS} steps "
-          f"of {TRAIN_LAYERS} layers, short of {need}")
+          f"of {cfg.n_layers} layers, short of {need}")
     check(counts["plain_attention_bwd"] == 0,
           f"[train] {arch}: the plain attention backward ran "
           f"{counts['plain_attention_bwd']} times on the card")
@@ -6975,7 +7214,32 @@ def train_full(torch, np, arch: str, seed: int) -> dict:
     torch.cuda.empty_cache()
     return {"n_params": n_params, "held": held, "losses": losses,
             "host_ms": host_ms, "step_ms": step_ms, "peak_gib": peak,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "alloc_before_bytes": alloc0, "layers": cfg.n_layers, "seq": seq,
             "trace": tr, "launches": counts, "attention_launches": att}
+
+
+def train_cfg(arch: str):
+    """``arch`` as phase 13 (b) trains it: full width, the depth cut to
+    TRAIN_LAYERS (TRAIN_LAYERS_FOR's where set; 0 the whole model), remat
+    on, bf16."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    layers = TRAIN_LAYERS_FOR.get(arch, TRAIN_LAYERS)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    return cfg.replace(remat=True)
+
+
+def attention_calls(cfg) -> int:
+    """The attention calls in one forward of ``cfg``: one a layer, the
+    hybrid's shared block once an invocation, the encoder-decoder's
+    encoder layers once and decoder layers twice (self and cross)."""
+    if cfg.attn_every:
+        return cfg.n_layers // cfg.attn_every
+    if cfg.is_encoder_decoder:
+        return cfg.enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
 
 
 def train_launchers(torch, np) -> dict:
@@ -8130,7 +8394,13 @@ def par_step(torch, np, cfg, mesh, box: dict, placed, seed: int) -> dict:
         if i:
             tr = train_trace(torch, one)
         else:
+            # the step's own peak, for the dry-run's prediction (phase 15)
+            pre_peak = torch.cuda.max_memory_allocated()
+            step_alloc0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             one()
+            torch.cuda.synchronize()
+            step_peak = torch.cuda.max_memory_allocated()
         torch.cuda.synchronize()
         host_ms = 1e3 * (time.perf_counter() - t)
         counts = {**attention_launches(), **train_counts()}
@@ -8156,7 +8426,7 @@ def par_step(torch, np, cfg, mesh, box: dict, placed, seed: int) -> dict:
     check(a["metrics"] == b["metrics"] and a["moments"] == b["moments"],
           f"[parallel] (b) the step did not repeat: {a['metrics']} vs "
           f"{b['metrics']}, moments equal {a['moments'] == b['moments']}")
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak = max(pre_peak, torch.cuda.max_memory_allocated()) / 2 ** 30
     n = TRAIN_LAYERS * PAR_MESH[0]          # attention calls a step
     c = a["launches"]
     need = {"flash_attention": n, "flash_attention_bwd": 2 * n}
@@ -8186,7 +8456,8 @@ def par_step(torch, np, cfg, mesh, box: dict, placed, seed: int) -> dict:
         f"peak memory {peak:.1f} GiB; launches in a step {c}; one-device "
         f"gradient {one_s:.1f} s")
     return {"held": held, "collectives": coll, "runs": runs,
-            "peak_gib": peak, "launches": c,
+            "peak_gib": peak, "step_peak_bytes": step_peak,
+            "step_alloc_before_bytes": step_alloc0, "launches": c,
             "wall_s": time.perf_counter() - t0}
 
 
@@ -8432,6 +8703,159 @@ def phase_parallel(torch, np, seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the dry-run against the card, and the examples on it
+# ---------------------------------------------------------------------------
+
+# the dry-run's predicted peak of live bytes (``launch.dryrun.run_cell`` on
+# the meta device) against ``torch.cuda.max_memory_allocated`` over the
+# same step, written before the first read: within 10% of the prediction
+# (the trace counts every storage the step makes and frees in its order;
+# the card adds its kernels' scratch, cuBLAS's workspace and the
+# allocator's 512-byte rounding)
+DRYRUN_PEAK_RTOL = 0.10
+# (script, arguments, the counters that must be above 0) at quick sizes;
+# the embedder at 200 steps, where the port's initial weights widen the
+# gap (at the reference's 60 they may not)
+EXAMPLE_RUNS = (
+    ("torch_quickstart.py", ("--backend", "pallas"), ("cosine_topk",)),
+    ("torch_quickstart.py", ("--backend", "pallas_q8"), ("cosine_topk_q8",)),
+    ("torch_serve_with_siso.py", ("--backend", "pallas"),
+     ("cosine_topk", "flash_attention", "flash_attention_f32",
+      "decode_attention")),
+    ("torch_serve_with_siso.py", ("--backend", "pallas_q8"),
+     ("cosine_topk_q8",)),
+    ("torch_train_embedder.py", ("--steps", "200"),
+     ("flash_attention_f32", "flash_attention_bwd_f32_one_pass")))
+
+
+def dryrun_peaks(torch, np, train: dict, parallel: dict) -> dict:
+    """(a): ``run_cell`` for each step phase 13 (b) ran (one device,
+    ``make_train_step``, the cut configuration, B 1 x its tokens) and for
+    phase 14 (b)'s sharded step (the (2, 2) virtual mesh traced whole, as
+    the one card holds it), each prediction beside the measured peak and
+    the bytes allocated as the step began; qwen3-14b's two held at
+    DRYRUN_PEAK_RTOL. Then each trained kind's ``mfu``: ``model_flops`` of
+    its cut configuration over (the traced step's busy s x 989e12), and
+    the traced FLOPs' share of the same."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, roofline, steps
+    from repro_torch.launch.mesh import make_host_mesh
+    meta = torch.device("meta")
+    pol = steps.CellPolicy(ce_chunk=TRAIN_CE_CHUNK)
+    runs = {TRAIN_ARCH: train["qwen3"], **train["kinds"]}
+    out: dict = {}
+    for arch, run in runs.items():
+        cfg = train_cfg(arch)
+        # a VLM's step takes its patch prefix beside the text tokens
+        shape = ShapeConfig("train", run["seq"] + cfg.prefix_len, 1, "train")
+        rec = dryrun.run_cell(arch, "train", None, "one", pol, cfg=cfg,
+                              shape=shape)
+        check(rec["status"] == "ok", f"[dryrun] {arch}: {rec.get('error')}")
+        pred, meas = rec["live_bytes_per_device"], run["peak_bytes"]
+        busy = run["trace"].get("busy_ms")
+        mf = roofline.model_flops(cfg, shape)
+        r = {"predicted_peak_bytes": pred, "measured_peak_bytes": meas,
+             "peak_rel": (meas - pred) / pred,
+             "predicted_args_bytes": rec["argument_bytes_per_device"],
+             "measured_alloc_before_bytes": run["alloc_before_bytes"],
+             "traced_flops": rec["flops_per_device"], "model_flops": mf,
+             "busy_ms": busy, "trace_s": rec["trace_s"],
+             "mfu": mf / (busy / 1e3 * H100_BF16_FLOPS) if busy else None,
+             "traced_flops_share": rec["flops_per_device"]
+             / (busy / 1e3 * H100_BF16_FLOPS) if busy else None}
+        out[arch] = r
+        log(f"[dryrun] (a) {arch} x {cfg.n_layers} layers, B 1 x "
+            f"{run['seq']}, one device: predicted peak "
+            f"{pred / 2**30:.2f} GiB, measured {meas / 2**30:.2f} GiB "
+            f"({r['peak_rel']:+.4f}); arguments predicted "
+            f"{r['predicted_args_bytes'] / 2**30:.2f} GiB, allocated as the "
+            f"steps began {run['alloc_before_bytes'] / 2**30:.2f} GiB; mfu "
+            + (f"{r['mfu']:.4f} ({mf:.4e} model FLOPs over {busy:.3f} busy "
+               f"ms), traced FLOPs {r['traced_flops_share']:.4f} of peak"
+               if busy else "not measured (no traced step)")
+            + f"; trace {rec['trace_s']:.1f} s")
+    qwen = out[TRAIN_ARCH]
+    check(abs(qwen["peak_rel"]) <= DRYRUN_PEAK_RTOL,
+          f"[dryrun] {TRAIN_ARCH}'s one-device step: measured peak "
+          f"{qwen['measured_peak_bytes']} bytes, predicted "
+          f"{qwen['predicted_peak_bytes']} ({qwen['peak_rel']:+.4f})")
+    st = parallel["step"]
+    cfg = train_cfg(TRAIN_ARCH)
+    shape = ShapeConfig("train", PAR_BATCH[1], PAR_BATCH[0], "train")
+    mesh = make_host_mesh(*PAR_MESH, devices=[meta] * (PAR_MESH[0]
+                                                       * PAR_MESH[1]))
+    rec = dryrun.run_cell(TRAIN_ARCH, "train", mesh, "2x2", pol, cfg=cfg,
+                          shape=shape, whole_step=True)
+    check(rec["status"] == "ok", f"[dryrun] sharded: {rec.get('error')}")
+    pred, meas = rec["live_bytes_per_device"], st["step_peak_bytes"]
+    sh = {"predicted_peak_bytes": pred, "measured_peak_bytes": meas,
+          "peak_rel": (meas - pred) / pred,
+          "predicted_args_bytes": rec["argument_bytes_per_device"],
+          "measured_alloc_before_bytes": st["step_alloc_before_bytes"],
+          "collective_by_op": rec["collective_by_op"],
+          "traced_flops": rec["flops_per_device"], "trace_s": rec["trace_s"]}
+    out["sharded"] = sh
+    log(f"[dryrun] (a) phase 14 (b)'s sharded step, {TRAIN_ARCH} x "
+        f"{cfg.n_layers} layers on the {PAR_MESH} virtual mesh, "
+        f"{PAR_BATCH[0]} x {PAR_BATCH[1]}: predicted peak "
+        f"{pred / 2**30:.2f} GiB, measured {meas / 2**30:.2f} GiB "
+        f"({sh['peak_rel']:+.4f}); arguments predicted "
+        f"{sh['predicted_args_bytes'] / 2**30:.2f} GiB, allocated as the step "
+        f"began {st['step_alloc_before_bytes'] / 2**30:.2f} GiB; the plan's "
+        f"wire bytes a device {rec['collective_by_op']}")
+    check(abs(sh["peak_rel"]) <= DRYRUN_PEAK_RTOL,
+          f"[dryrun] the sharded step: measured peak {meas} bytes, "
+          f"predicted {pred} ({sh['peak_rel']:+.4f})")
+    return out
+
+
+def run_examples(torch) -> dict:
+    """(b): each of EXAMPLE_RUNS as a subprocess on ``cuda``: its output
+    lines logged, its last line's kernel launches read, each named
+    counter above 0."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    for script, args, need in EXAMPLE_RUNS:
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / script), "--device",
+             "cuda", *args], cwd=str(ROOT), env=env, capture_output=True,
+            text=True, timeout=600)
+        wall = time.perf_counter() - t
+        tag = f"{script} {' '.join(args)}"
+        for line in proc.stdout.splitlines():
+            log(f"[examples] {tag}: {line}")
+        check(proc.returncode == 0, f"[examples] {tag} exited "
+                                    f"{proc.returncode}: {proc.stderr[-2000:]}")
+        last = proc.stdout.strip().splitlines()[-1]
+        check(last.startswith("kernel launches: "),
+              f"[examples] {tag}: no launch line, last line {last!r}")
+        launches = json.loads(last[len("kernel launches: "):])
+        check(all(launches.get(k, 0) > 0 for k in need),
+              f"[examples] {tag}: launches {launches}, {need} must be "
+              f"above 0")
+        log(f"[examples] {tag}: {wall:.1f} s, launches {launches}")
+        out[tag] = {"launches": launches, "wall_s": wall,
+                    "stdout": proc.stdout}
+    return out
+
+
+def phase_dryrun(torch, np, train: dict, parallel: dict) -> dict:
+    """Phase 15: (a) the dry-run's predicted peaks beside the measured
+    ones of phases 13 (b) and 14 (b), and each trained kind's ``mfu``;
+    (b) the three examples on ``cuda`` (``EXAMPLE_RUNS``)."""
+    t0 = time.perf_counter()
+    peaks = dryrun_peaks(torch, np, train, parallel)
+    t = time.perf_counter()
+    examples = run_examples(torch)
+    wall = time.perf_counter() - t0
+    log(f"[dryrun] phase done in {wall:.1f} s ((a) {t - t0:.1f} s, the "
+        f"examples {wall - (t - t0):.1f} s)")
+    return {"peaks": peaks, "examples": examples, "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
 # timing, in a fresh process
 # ---------------------------------------------------------------------------
 
@@ -8493,8 +8917,9 @@ def nvidia_smi() -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--layers", type=int, default=40,
-                    help="qwen3-14b depth (widths are never cut)")
+    ap.add_argument("--layers", type=int, default=SERVED_LAYERS,
+                    help="the served qwen3-14b's depth (widths are never "
+                         "cut)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="results",
                     help="directory for chip_smoke.json, relative to the "
@@ -8673,6 +9098,11 @@ def main() -> int:
     parallel = phase_parallel(torch, np, args.seed)
     detail["parallel"] = parallel
     detail["parallel_s"] = parallel["wall_s"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = phase_dryrun(torch, np, train, parallel)
+    detail["dryrun"] = dry
+    detail["dryrun_s"] = dry["wall_s"]
 
     main_b = 4      # the served batch size, the one the kernels line times
     timed_n = {name: N_ROWS for name in err}

@@ -14,9 +14,17 @@
 // Contract. q and k have head dim Dq, v (and o, do) Dv: every pair the
 // forward takes (MLA's (96, 64), (192, 128), (24, 16)) and Dq = Dv up to
 // 256. Recurrence (all sums in f32): LSE = m + log(l) over the masked,
-// scaled scores S = Q K^T / sqrt(Dq) (a sum over Dq); D = rowsum(do . o)
-// (over Dv); P = exp(S - LSE); dV = P^T do; dP = do V^T (over Dv); dS = P .
-// (dP - D); dQ = dS K / sqrt(Dq); dK = dS^T Q / sqrt(Dq). A row that sees
+// scaled scores S = Q K^T / sqrt(Dq) (a sum over Dq); P = exp(S - LSE);
+// dV = P^T do; dP = do V^T (over Dv); D = rowsum(P . dP), which is
+// rowsum(do . o) (over Dv) of the exact o; dS = P . (dP - D); dQ = dS K /
+// sqrt(Dq); dK = dS^T Q / sqrt(Dq). The f32 kernels form D from o, which
+// they read in f32. The bf16 (a) with pass 1 sums P . dP there: from the
+// bf16 o, D would carry o's rounding (2^-9 of |do| |o|) into every dS of
+// the row alike, and where a row's P is nearly uniform over keys with a
+// large common part (whisper-base's decoder) that error in dQ and dK,
+// and in a key bias whose exact gradient is 0, outgrew the gradient's own
+// rounding. (a) from a saved LSE (minicpm3's class, no pass 1) forms D
+// from the bf16 o. A row that sees
 // no key has P = 0 everywhere, never NaN. kv_valid_len (int32 (B,), or
 // null) ends row b's keys at kend = min(Lkv, kv_valid_len[b]) (kv_end):
 // every family ANDs it onto causal, window and prefix in allowed,
@@ -26,10 +34,10 @@
 // bit-identical). An f32 call with Lq and Lkv <= 64 (<= 32 where a head dim
 // is over 128) takes one fused kernel (below); every other call takes two,
 // launched one after the other on the caller's stream:
-//   (a) dq: a CTA owns a q tile of one head. It computes D from do and o,
-//       runs pass 1 over the kv tiles for the row max and sum, writes LSE
-//       and D to a (B, H, Lq) scratch, and runs pass 2 over the kv tiles
-//       again, accumulating dQ.
+//   (a) dq: a CTA owns a q tile of one head. It runs pass 1 over the kv
+//       tiles for the row max and sum (and, in bf16, D), writes LSE and D
+//       to a (B, H, Lq) scratch, and runs pass 2 over the kv tiles again,
+//       accumulating dQ.
 //   (b) dk/dv: a CTA owns a kv tile of one kv head. It loops over the G
 //       query heads of the kv head in order g = 0 .. G - 1 and over their
 //       live q tiles, reads LSE and D, and accumulates dK and dV (GQA's sum
@@ -74,9 +82,10 @@
 // and each product runs at its own width (S over DQP, dP over DVP, dQ and
 // dK with DQP columns, dV with DVP).
 //   (a) (bwd_dq_bf16, and bwd_dq_wide_bf16 past 128: one template, dq_tma)
-//       takes 128 q rows, 64 a consumer. Q and dO load once; pass 1
-//       streams two BK-key K tiles a stage (the stage's V slot holds the
-//       second), pass 2 one K and one V tile. S = Q K^T and dP = dO V^T
+//       takes 128 q rows, 64 a consumer. Q and dO load once; each pass
+//       streams one K and one V tile a stage: pass 1 computes S and dP for
+//       the row max, the sum and D, pass 2 S and dP again for dS. S = Q
+//       K^T and dP = dO V^T
 //       have both operands in shared memory (K and V read K-major); dQ +=
 //       dS K takes dS from registers (the accumulator rounded to bf16 A
 //       fragments, as K4 does with P) and reads K MN-major from the same
@@ -283,7 +292,7 @@ constexpr int SMEM_MAX = 232448 - 1024; // dynamic shared memory a block
                                         // gets, less the static barriers
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int DQP, int DVP, int BK = TR, bool PASS1 = true>
+template <int DQP, int DVP, int BK = TR>
 struct Tiles {
   // slabs a row: DQP 96 (the exact-width pair) takes two, TMA zero-filling
   // the second past column 96
@@ -293,12 +302,8 @@ struct Tiles {
   static constexpr int TV = SV * TR * 128;      // one of v or do
   static constexpr int KQ = SQ * BK * 128;      // (a)'s BK-row K tile
   static constexpr int KV = SV * BK * 128;      // (a)'s BK-row V tile
-  // (a): Q and dO (a tile per consumer each), then a stage of K and V; pass
-  // 1 loads a second K tile into the V slot, which is the wider of the two
-  // (without pass 1, (a) from a saved LSE, the slot holds V alone)
-  static constexpr int VSLOT = PASS1 && KQ > KV ? KQ : KV;
-  static constexpr int DQ_SMEM =
-      1024 + 2 * TQ + 2 * TV + STAGES * (KQ + VSLOT);
+  // (a): Q and dO (a tile per consumer each), then a stage of K and V
+  static constexpr int DQ_SMEM = 1024 + 2 * TQ + 2 * TV + STAGES * (KQ + KV);
   // (b): K and V (a tile per consumer each), then a stage of Q, dO, and
   // 64 LSE and 64 D, padded to keep the next stage 1,024-byte aligned
   static constexpr int STAT = TR * 4;
@@ -831,13 +836,13 @@ __device__ __forceinline__ void dq_pipelined_loop(
     uint64_t* full, uint64_t* empty, uint32_t q_addr, uint32_t do_addr,
     int row0, int r0, int rl, int t, int lane, int nkt, int kend, int& it,
     int& held) {
-  using T = Tiles<DQP, DVP, BK, false>;
+  using T = Tiles<DQP, DVP, BK>;
   const float sl2 = a.scale * LOG2E;
   float (&p)[BK / 2] = s[0];
   float (&dp)[BK / 2] = s[1];
   auto issue_s = [&](int st) {                           // S and dP
     gemm_rows<DQP, BK>(p, q_addr, smem_u32(Ks + st * T::KQ));
-    gemm_rows<DVP, BK>(dp, do_addr, smem_u32(Vs + st * T::VSLOT));
+    gemm_rows<DVP, BK>(dp, do_addr, smem_u32(Vs + st * T::KV));
   };
   // dS = P (dP - D) of the tile at k0, in place in p
   auto ds = [&](int k0) {
@@ -907,9 +912,10 @@ __device__ __forceinline__ void dq_pipelined_loop(
 
 // (a) for a 128-row q tile (two consumers of 64 rows) with BK-key tiles:
 // the body of bwd_dq_bf16 (BK 64), bwd_dq_wide_bf16 and bwd_dq_lse_bf16.
-// RAGGED false: the call has no kv_valid_len. PASS1 false: the LSE comes
-// from the forward (a.lse, which K4's flash_bf16_persistent_lse wrote), so
-// pass 1 is not run and only D is written
+// RAGGED false: the call has no kv_valid_len. PASS1: pass 1 finds each
+// row's LSE and D = sum_k P dP; PASS1 false: the LSE comes from the
+// forward (a.lse, which K4's flash_bf16_persistent_lse wrote), pass 1 is
+// not run, and D = rowsum(dO . O) is read from the bf16 O and written
 template <int DQP, int DVP, int BK, bool RAGGED, bool PASS1 = true>
 __device__ __forceinline__ void dq_tma(const CUtensorMap& tq,
                                        const CUtensorMap& tk,
@@ -917,7 +923,7 @@ __device__ __forceinline__ void dq_tma(const CUtensorMap& tq,
                                        const CUtensorMap& tdo, const Args& a,
                                        unsigned char* smem_raw,
                                        uint64_t* bars) {
-  using T = Tiles<DQP, DVP, BK, PASS1>;
+  using T = Tiles<DQP, DVP, BK>;
   unsigned char* Qs = align1024(smem_raw);
   unsigned char* dOs = Qs + 2 * T::TQ;
   unsigned char* Ks = dOs + 2 * T::TV;            // [STAGES] K tiles
@@ -940,10 +946,9 @@ __device__ __forceinline__ void dq_tma(const CUtensorMap& tq,
   }
   __syncthreads();
 
-  // Pass 1 takes the live kv tiles two at a time, a stage's K and V slots
-  // each holding a K tile; pass 2 one at a time, K and V.
+  // Each pass takes the live kv tiles one at a time, K and V a stage.
   if (threadIdx.x < WG) {
-    // ---- producer: Q and dO once; K (pass 1), then K and V (pass 2) ----
+    // ---- producer: Q and dO once; K and V (pass 1, then pass 2) ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(qd_full, 2 * T::TQ + 2 * T::TV);
@@ -957,22 +962,19 @@ __device__ __forceinline__ void dq_tma(const CUtensorMap& tq,
       }
       int it = 0;
       for (int pass = PASS1 ? 0 : 1; pass < 2; ++pass)
-        for (int n = next_kv<BK>(a, row0, 0, nkt, kend); n < nkt;) {
-          const int n2 = pass ? n : next_kv<BK>(a, row0, n + 1, nkt, kend);
+        for (int n = next_kv<BK>(a, row0, 0, nkt, kend); n < nkt;
+             n = next_kv<BK>(a, row0, n + 1, nkt, kend)) {
           const int st = it % STAGES;
           const uint32_t ph = (it / STAGES) & 1;
           ++it;
           mbar_wait(empty + st, ph ^ 1);
-          mbar_expect_tx(full + st, T::KQ + (n2 >= nkt ? 0
-                                             : pass ? T::KV : T::KQ));
+          mbar_expect_tx(full + st, T::KQ + T::KV);
           for (int sl = 0; sl < T::SQ; ++sl)
             tma_load(Ks + st * T::KQ + sl * BK * 128, &tk, full + st,
                      sl * SLAB, hk, n * BK, b);
-          if (n2 < nkt)
-            for (int sl = 0; sl < (pass ? T::SV : T::SQ); ++sl)
-              tma_load(Vs + st * T::VSLOT + sl * BK * 128, pass ? &tv : &tk,
-                       full + st, sl * SLAB, hk, n2 * BK, b);
-          n = n2 < nkt ? next_kv<BK>(a, row0, n2 + 1, nkt, kend) : nkt;
+          for (int sl = 0; sl < T::SV; ++sl)
+            tma_load(Vs + st * T::KV + sl * BK * 128, &tv, full + st,
+                     sl * SLAB, hk, n * BK, b);
         }
     }
   } else {
@@ -987,11 +989,11 @@ __device__ __forceinline__ void dq_tma(const CUtensorMap& tq,
     const uint32_t do_addr = smem_u32(dOs + cw * T::TV);
     const size_t qs = (size_t)a.H * a.D, os = (size_t)a.H * a.Dv;
     const size_t hrow = (size_t)b * a.Lq * a.H + h;
-    // D = rowsum(do . o) over Dv of rows rl and rl + 8 (a quad splits the
-    // columns), read while Q and dO land
-    float dsr[2];
+    // D of rows rl and rl + 8: without pass 1, rowsum(do . o) over Dv (a
+    // quad splits the columns), read while Q and dO land
+    float dsr[2] = {0.f, 0.f};
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
+    for (int r = 0; r < 2 && !PASS1; ++r) {
       const int row = rl + 8 * r;
       float acc = 0.f;
       if (row < a.Lq) {
@@ -1039,50 +1041,55 @@ __device__ __forceinline__ void dq_tma(const CUtensorMap& tq,
     float s[2][BK / 2];
     int it = 0;
     if constexpr (PASS1) {
-      // pass 1: the row max m and sum l, online, in the exp2 domain, over a
-      // stage's two tiles at once (x[1] of the last stage may be empty: k0b
-      // < 0). Row sums and maxima go through four partials each, so that no
-      // dependent chain is longer than 8.
+      // pass 1: the row max m, the sum l and dl = sum_k 2^(S' - m) dP (S'
+      // the scaled score in the exp2 domain), online, over one kv tile a
+      // stage (S = Q K^T and dP = dO V^T); then D = dl / l = sum_k P dP in
+      // f32 (the contract above says why not from O). Row sums and maxima
+      // go through four partials each, so that no dependent chain is
+      // longer than 8.
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-      // The mask writes a copy: an instruction that writes the accumulator
-      // registers themselves makes ptxas serialise every wgmma of the kernel.
-      auto row_stats = [&](const float (&acc_s)[2][BK / 2], int k0a,
-                           int k0b) {
-        float x[2][BK / 2];
+      float dl[2] = {0.f, 0.f};
+      float (&dp)[BK / 2] = s[1];
+      for (int n = next_kv<BK>(a, row0, 0, nkt, kend); n < nkt;
+           n = next_kv<BK>(a, row0, n + 1, nkt, kend)) {
+        const int k0 = n * BK;
+        const int st = it % STAGES;
+        mbar_wait(full + st, (it / STAGES) & 1);
+        ++it;
+        wgmma_fence();
+        gemm_rows<DQP, BK>(s[0], q_addr, smem_u32(Ks + st * T::KQ));   // S
+        gemm_rows<DVP, BK>(dp, do_addr, smem_u32(Vs + st * T::KV));   // dP
+        wgmma_commit();
+        wgmma_wait0();
+        keep(s[0]);
+        keep(dp);
+        if (lane == 0) mbar_arrive(empty + st);
+        // The mask writes a copy: an instruction that writes the
+        // accumulator registers themselves makes ptxas serialise every
+        // wgmma of the kernel.
+        float x[BK / 2];
 #pragma unroll
-        for (int tt = 0; tt < 2; ++tt)
+        for (int i = 0; i < BK / 2; ++i) x[i] = s[0][i];
+        if (!(k0 + BK <= a.Lkv &&
+              tile_full<RAGGED>(a, r0, r0 + TR, k0, k0 + BK, kend)))
+          // an edge tile: the causal diagonal, the window's far edge, the
+          // prefix boundary, kend, the sequence's end
 #pragma unroll
-          for (int i = 0; i < BK / 2; ++i) x[tt][i] = acc_s[tt][i];
-#pragma unroll
-        for (int tt = 0; tt < 2; ++tt) {
-          const int k0 = tt ? k0b : k0a;
-          if (k0 < 0) {
-#pragma unroll
-            for (int i = 0; i < BK / 2; ++i) x[tt][i] = -INFINITY;
-          } else if (!(k0 + BK <= a.Lkv &&
-                       tile_full<RAGGED>(a, r0, r0 + TR, k0, k0 + BK,
-                                         kend))) {
-            // an edge tile: the causal diagonal, the window's far edge, the
-            // prefix boundary, kend, the sequence's end
-#pragma unroll
-            for (int i = 0; i < BK / 2; ++i)
-              if (!allowed(a, rl + 8 * ((i >> 1) & 1),
-                           k0 + 8 * (i >> 2) + 2 * t + (i & 1), kend))
-                x[tt][i] = -INFINITY;
-          }
-        }
-        float mp[2][4], lp[2][4];
+          for (int i = 0; i < BK / 2; ++i)
+            if (!allowed(a, rl + 8 * ((i >> 1) & 1),
+                         k0 + 8 * (i >> 2) + 2 * t + (i & 1), kend))
+              x[i] = -INFINITY;
+        float mp[2][4], lp[2][4], dlp[2][4];
 #pragma unroll
         for (int r = 0; r < 2; ++r)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) mp[r][c] = -INFINITY, lp[r][c] = 0.f;
+          for (int c = 0; c < 4; ++c)
+            mp[r][c] = -INFINITY, lp[r][c] = 0.f, dlp[r][c] = 0.f;
 #pragma unroll
-        for (int tt = 0; tt < 2; ++tt)
-#pragma unroll
-          for (int i = 0; i < BK / 2; ++i) {
-            float& mx = mp[(i >> 1) & 1][((i >> 2) & 1) * 2 + (i & 1)];
-            mx = fmaxf(mx, x[tt][i]);
-          }
+        for (int i = 0; i < BK / 2; ++i) {
+          float& mx = mp[(i >> 1) & 1][((i >> 2) & 1) * 2 + (i & 1)];
+          mx = fmaxf(mx, x[i]);
+        }
         float safe[2];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -1092,49 +1099,39 @@ __device__ __forceinline__ void dq_tma(const CUtensorMap& tq,
           mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
           const float mn = fmaxf(m[r], mt * sl2);
           safe[r] = mn == -INFINITY ? 0.f : mn;
-          l[r] *= ex2(m[r] - safe[r]);                // 0 while m is -inf
+          const float c = ex2(m[r] - safe[r]);        // 0 while m is -inf
+          l[r] *= c;
+          dl[r] *= c;
           m[r] = mn;
         }
 #pragma unroll
-        for (int tt = 0; tt < 2; ++tt)
-#pragma unroll
-          for (int i = 0; i < BK / 2; ++i) {
-            const int r = (i >> 1) & 1;
-            lp[r][((i >> 2) & 1) * 2 + (i & 1)] +=
-                ex2(fmaf(x[tt][i], sl2, -safe[r]));
-          }
+        for (int i = 0; i < BK / 2; ++i) {
+          const int r = (i >> 1) & 1, c = ((i >> 2) & 1) * 2 + (i & 1);
+          const float e = ex2(fmaf(x[i], sl2, -safe[r]));
+          lp[r][c] += e;
+          dlp[r][c] = fmaf(e, dp[i], dlp[r][c]);
+        }
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           float ls = (lp[r][0] + lp[r][1]) + (lp[r][2] + lp[r][3]);
+          float ds = (dlp[r][0] + dlp[r][1]) + (dlp[r][2] + dlp[r][3]);
           ls += __shfl_xor_sync(0xffffffffu, ls, 1);
+          ds += __shfl_xor_sync(0xffffffffu, ds, 1);
           ls += __shfl_xor_sync(0xffffffffu, ls, 2);
+          ds += __shfl_xor_sync(0xffffffffu, ds, 2);
           l[r] += ls;
+          dl[r] += ds;
         }
-      };
-      for (int n = next_kv<BK>(a, row0, 0, nkt, kend); n < nkt;) {
-        const int n2 = next_kv<BK>(a, row0, n + 1, nkt, kend);
-        const int st = it % STAGES;
-        mbar_wait(full + st, (it / STAGES) & 1);
-        ++it;
-        wgmma_fence();
-        gemm_rows<DQP, BK>(s[0], q_addr, smem_u32(Ks + st * T::KQ));   // S
-        if (n2 < nkt)
-          gemm_rows<DQP, BK>(s[1], q_addr, smem_u32(Vs + st * T::VSLOT));
-        wgmma_commit();
-        wgmma_wait0();
-        keep(s[0]);
-        keep(s[1]);
-        if (lane == 0) mbar_arrive(empty + st);
-        row_stats(s, n * BK, n2 < nkt ? n2 * BK : -1);
-        n = n2 < nkt ? next_kv<BK>(a, row0, n2 + 1, nkt, kend) : nkt;
       }
       // LSE in log2 units; +inf where a row sees no key (and past Lq), so
-      // that P = 2^(S log2e scale - LSE) is 0 there without a mask
+      // that P = 2^(S log2e scale - LSE) is 0 there without a mask; D 0
+      // there
       const int Lqp = (a.Lq + TR - 1) / TR * TR;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = rl + 8 * r;
         lse2[r] = l[r] > 0.f ? m[r] + log2f(l[r]) : INFINITY;
+        dsr[r] = l[r] > 0.f ? dl[r] / l[r] : 0.f;
         if (t == 0 && row < Lqp) {
           const size_t at = ((size_t)b * a.H + h) * Lqp + row;
           a.lse[at] = row < a.Lq ? lse2[r] : INFINITY;
@@ -1164,7 +1161,7 @@ __device__ __forceinline__ void dq_tma(const CUtensorMap& tq,
       const uint32_t k_addr = smem_u32(Ks + st * T::KQ);
       wgmma_fence();
       gemm_rows<DQP, BK>(s[0], q_addr, k_addr);                      // S
-      gemm_rows<DVP, BK>(dp, do_addr, smem_u32(Vs + st * T::VSLOT)); // dP
+      gemm_rows<DVP, BK>(dp, do_addr, smem_u32(Vs + st * T::KV)); // dP
       wgmma_commit();
       wgmma_wait0();
       keep(s[0]);
@@ -3002,7 +2999,7 @@ constexpr int tma_smem(int part) {
     return part ? WideKV<DQP, DVP>::SMEM
                 : Tiles<DQP, DVP, dq_bk<DQP, DVP>()>::DQ_SMEM;
   else if constexpr (DQP == 96)
-    return part == 3 ? Tiles<DQP, DVP, TR, false>::DQ_SMEM
+    return part == 3 ? Tiles<DQP, DVP>::DQ_SMEM
          : part ? Tiles<DQP, DVP>::DKV_SMEM : Tiles<128, DVP>::DQ_SMEM;
   else
     return part ? Tiles<DQP, DVP>::DKV_SMEM : Tiles<DQP, DVP>::DQ_SMEM;

@@ -2,8 +2,24 @@
 three files: ``kernel.py`` (build + launch of the CUDA source in
 ``repro_torch/csrc``), ``ops.py`` (the wrapper: kernel for CUDA tensors,
 plain version for CPU tensors) and ``ref.py`` (the plain PyTorch version).
-``_build`` builds and binds every CUDA source."""
+``_build`` builds and binds every CUDA source. On ``meta`` tensors each
+wrapper takes its kernel's shape-only op (``meta``): outputs of the
+kernel's shapes, its FLOPs counted, nothing computed."""
 from __future__ import annotations
+
+
+def on_meta(*tensors) -> bool:
+    """True when every tensor (None skipped) lies on the ``meta`` device,
+    so a wrapper takes its kernel's shape-only op (``kernels.meta``);
+    False when the first does not (``on_cpu`` then picks the route). A
+    meta tensor beside a real one raises."""
+    if not tensors[0].is_meta:
+        return False
+    devs = [t.device for t in tensors if t is not None]
+    if any(d.type != "meta" for d in devs):
+        raise ValueError(f"a kernel's meta route needs every tensor on "
+                         f"meta, got {devs}")
+    return True
 
 
 def on_cpu(*tensors) -> bool:

@@ -3,8 +3,9 @@ shard-local mode for the sharded cache plane, ``cosine_top1_local``).
 
 For CUDA tensors each wrapper launches its hand-written kernel (see
 ``kernel.py``) on the current stream, or raises; for CPU tensors it runs
-the plain version in ``ref.py``. There is no fallback from one to the
-other. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+the plain version in ``ref.py``; for meta tensors the shape-only
+``meta.topk_meta``. There is no fallback from one to the other. Each
+wrapper counts its kernel launches in ``<wrapper>.launches``.
 The kernels have no backward: under grad mode with an input that requires
 grad they raise (``kernels.refuse_grad``).
 
@@ -15,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build, on_cpu, refuse_grad
+from repro_torch.kernels import _build, meta, on_cpu, on_meta, refuse_grad
 from repro_torch.kernels.cosine_topk import kernel as K
 from repro_torch.kernels.cosine_topk import ref
 
@@ -135,7 +136,9 @@ def cosine_topk(queries: torch.Tensor, centroids: torch.Tensor, k: int = 1,
     serving mirror) is read in place.
     """
     _check_k(k)
-    if on_cpu(queries, centroids, valid):
+    if on_meta(queries, centroids, valid):
+        out = meta.topk_meta(queries, centroids, k)
+    elif on_cpu(queries, centroids, valid):
         out = ref.cosine_topk_ref(queries, centroids, k, valid, theta,
                                   early_exit, block_n)
     elif queries.shape[0] == 0:
@@ -177,6 +180,9 @@ def cosine_top1_local(queries: torch.Tensor, centroids: torch.Tensor,
     which loses every cross-shard comparison. Returns ((B,) best sims f32,
     (B,) local rows i32). Its launches count in
     ``cosine_top1_local.launches``, not in K1's."""
+    if on_meta(queries, centroids, valid):
+        vals, idx, _ = meta.topk_meta(queries, centroids, 1)
+        return vals[:, 0], idx[:, 0]
     if on_cpu(queries, centroids, valid):
         return ref.cosine_top1_local_ref(queries, centroids, valid, block_n)
     if queries.shape[0] == 0:
@@ -207,7 +213,9 @@ def cosine_topk_q8(queries: torch.Tensor, codes: torch.Tensor,
     _check_k(k)
     B, D = queries.shape
     N, Dc = codes.shape
-    if on_cpu(queries, codes, scales, valid):
+    if on_meta(queries, codes, scales, valid):
+        out = meta.topk_meta(queries, codes, k)
+    elif on_cpu(queries, codes, scales, valid):
         out = ref.cosine_topk_q8_ref(queries, codes, scales, k, valid,
                                      theta, margin, early_exit, block_n)
     elif B == 0:

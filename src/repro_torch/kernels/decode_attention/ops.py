@@ -3,7 +3,8 @@
 For CUDA tensors ``decode_attention`` launches the hand-written kernel
 (see ``kernel.py``) on the current stream, or raises; for CPU tensors it
 runs the plain version in ``ref.py``. There is no fallback from one to
-the other. Launches are counted in ``decode_attention.launches`` (every
+the other; meta tensors take the shape-only ``meta.decode_attention_meta``.
+Launches are counted in ``decode_attention.launches`` (every
 mode); of them, those with a value head dim other than the q/k one (MLA's
 materialised decode: a port extension, held against the model layer's jnp
 ``decode_attention``, which takes a separate Dv) also in
@@ -22,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import on_cpu, refuse_grad
+from repro_torch.kernels import meta, on_cpu, on_meta, refuse_grad
 from repro_torch.kernels.decode_attention import kernel as K
 from repro_torch.kernels.decode_attention import ref
 
@@ -47,6 +48,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if quant != (v_scale is not None) or quant != (k_cache.dtype == torch.int8):
         raise ValueError("int8 caches go with both k_scale and v_scale, "
                          "and only they do")
+    if on_meta(q, k_cache, v_cache, kv_len, k_scale, v_scale):
+        return meta.decode_attention_meta(q, k_cache, v_cache)
     if on_cpu(q, k_cache, v_cache, kv_len, k_scale, v_scale):
         return ref.decode_attention_ref(q, k_cache, v_cache, kv_len,
                                         k_scale=k_scale, v_scale=v_scale)

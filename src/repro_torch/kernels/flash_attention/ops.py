@@ -58,7 +58,9 @@ build or launch raises. The backward is a port extension: the Pallas
 kernel has no VJP, and the reference differentiates its jnp attention
 (held against ``jax.grad`` of ``repro/models/layers.py``'s
 ``flash_attention``).
-Serving, without grad, takes the plain forward route above.
+Serving, without grad, takes the plain forward route above. On meta
+tensors the forward and the backward are shape-only ops
+(``kernels.meta``) that count the kernels' FLOPs.
 """
 from __future__ import annotations
 
@@ -66,7 +68,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import on_cpu
+from repro_torch.kernels import meta, on_cpu, on_meta
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ref
 
@@ -111,6 +113,10 @@ def _forward(q, k, v, causal, window, prefix_len, q_offset, kv_valid_len,
     if with_lse and not saves_lse(q.dtype, Dh, Dv):
         raise ValueError(f"no kernel instance writes the LSE of a "
                          f"{q.dtype} call at head dims {Dh}, {Dv}")
+    if on_meta(q, k, v, kv_valid_len):
+        out, lse = meta.flash_attention_meta(q, k, v, causal, window or 0,
+                                             prefix_len, q_offset, with_lse)
+        return (out, lse) if with_lse else out
     if on_cpu(q, k, v, kv_valid_len):
         out = ref.attention_ref(q, k, v, causal=causal, window=window,
                                 prefix_len=prefix_len, q_offset=q_offset,
@@ -281,6 +287,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Lq, Lkv = q.shape[1], k.shape[1]
     if q_offset is None:
         q_offset = Lkv - Lq
+    if on_meta(q, k, v, o, do, kv_valid_len, lse):
+        return meta.flash_attention_bwd_meta(q, k, v, causal, window or 0,
+                                             prefix_len, q_offset)
     if on_cpu(q, k, v, o, do, kv_valid_len, lse):
         return ref.attention_bwd_ref(q, k, v, o, do, causal=causal,
                                      window=window, prefix_len=prefix_len,

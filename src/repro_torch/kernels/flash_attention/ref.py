@@ -124,7 +124,9 @@ def _bwd_terms(q, k, v, o, do, causal, window, prefix_len, q_offset,
     and the scale (default 1 / sqrt(Dq)); the mask is ``attention_mask``'s,
     ``kv_valid_len`` (B,) included. P is exp(S - LSE) with the LSE
     recomputed from S, or 2^(log2(e) S - ``lse``) from a saved one
-    (``attention_lse``'s form)."""
+    (``attention_lse``'s form). D is rowsum(P . dP) for bf16 without a
+    saved LSE (the bf16 kernels' pass 1 sums it so: from the bf16 o it
+    carries o's rounding into every dS of the row), else rowsum(do . o)."""
     B, Lq, H, Dq = q.shape
     _, Lkv, Hkv, Dv = v.shape
     G = H // Hkv
@@ -140,6 +142,7 @@ def _bwd_terms(q, k, v, o, do, causal, window, prefix_len, q_offset,
                           kv_valid_len=kv_valid_len,
                           device=q.device)[:, None, None]
     s = s.masked_fill(~mask, float("-inf"))
+    sums_p_dp = lse is None and o.dtype == torch.bfloat16
     if lse is None:
         m = s.amax(dim=-1, keepdim=True)
         m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -150,9 +153,13 @@ def _bwd_terms(q, k, v, o, do, causal, window, prefix_len, q_offset,
         l2 = lse[..., :Lq].to(s.device, torch.float32).reshape(
             B, Hkv, G, Lq)[..., None]
         p = torch.where(mask, torch.exp2(s * LOG2E - l2), 0.0)
-    dsum = (dof * o.float().reshape(B, Lq, Hkv, G, Dv)).sum(dim=-1)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
-    return p, dp, dsum.permute(0, 2, 3, 1)[..., None], qf, dof, scale
+    if sums_p_dp:
+        dsum = (p * dp).sum(dim=-1, keepdim=True)
+    else:
+        dsum = (dof * o.float().reshape(B, Lq, Hkv, G, Dv)).sum(
+            dim=-1).permute(0, 2, 3, 1)[..., None]
+    return p, dp, dsum, qf, dof, scale
 
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -169,15 +176,16 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     all in f32: the row logsumexp LSE recomputed from the masked scores S
     (or a saved one, ``lse`` in ``attention_lse``'s form, as K4's training
     forward writes it),
-    D = rowsum(do . o), P = exp(S - LSE), dV = P^T do, dS = P . (do V^T -
-    D), dQ = dS K / sqrt(Dq), dK = dS^T Q / sqrt(Dq). A kv head's dk and
-    dv sum over its G query heads. A fully masked row has P = 0 and gives
-    no gradient, as its output is 0. Each gradient is returned in its
-    input's dtype. ``scale`` replaces 1 / sqrt(Dq) (the route of a head
-    dim zero-padded for the bf16 kernels keeps the unpadded one's). A
-    ragged ``kv_valid_len`` (B,) masks keys at or past it, as the forward
-    does; keys that no row sees get zero dk and dv. Calls are counted in
-    ``attention_bwd_ref.calls``."""
+    P = exp(S - LSE), dV = P^T do, D = rowsum(P . do V^T) in bf16 without
+    ``lse`` (as the bf16 kernels' pass 1 forms it) and rowsum(do . o)
+    otherwise, dS = P . (do V^T - D), dQ = dS K / sqrt(Dq), dK = dS^T Q /
+    sqrt(Dq). A kv head's dk and dv sum over its G query heads. A fully
+    masked row has P = 0 and gives no gradient, as its output is 0. Each
+    gradient is returned in its input's dtype. ``scale`` replaces 1 /
+    sqrt(Dq) (the route of a head dim zero-padded for the bf16 kernels keeps
+    the unpadded one's). A ragged ``kv_valid_len`` (B,) masks keys at or
+    past it, as the forward does; keys that no row sees get zero dk and dv.
+    Calls are counted in ``attention_bwd_ref.calls``."""
     attention_bwd_ref.calls += 1
     p, dp, dsum, qf, dof, scale = _bwd_terms(q, k, v, o, do, causal, window,
                                              prefix_len, q_offset, scale,

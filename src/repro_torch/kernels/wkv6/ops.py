@@ -26,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import on_cpu
+from repro_torch.kernels import meta, on_cpu, on_meta
 from repro_torch.kernels.wkv6 import kernel as K
 from repro_torch.kernels.wkv6 import ref
 
@@ -53,7 +53,11 @@ def _forward(r, k, v, w, u, state, ckpt: bool = False
              ) -> tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """(y, the final state, and with ``ckpt`` the state at the start of
     every 16-step chunk, else None): K5's launch on CUDA tensors,
-    ``ref.wkv6_ref`` (and ``ref.wkv6_ckpt_ref``) on CPU tensors."""
+    ``ref.wkv6_ref`` (and ``ref.wkv6_ckpt_ref``) on CPU tensors, the
+    shape-only ``meta.wkv6_meta`` on meta tensors."""
+    if on_meta(r, k, v, w, u, state):
+        y, s_out, ck = meta.wkv6_meta(r, state, ckpt)
+        return y, s_out, ck if ckpt else None
     if on_cpu(r, k, v, w, u, state):
         y, s_out = ref.wkv6_ref(r, k, v, w, u, state)
         return y, s_out, ref.wkv6_ckpt_ref(k, v, w, state) if ckpt else None
@@ -135,7 +139,10 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     call launches K5 with checkpoint writes first (its y and final state
     dropped). ``ref.wkv6_bwd_ref`` on CPU tensors, from ``ckpt`` where
     given. Inputs as ``wkv6`` takes them; dy and ds are made contiguous
-    f32."""
+    f32. On meta tensors the shape-only ``meta.wkv6_bwd_meta``."""
+    if on_meta(r, k, v, w, u, state, dy, ds, ckpt):
+        dr, dk, dv, dw, du, ds_in = meta.wkv6_bwd_meta(r, w, u, state)
+        return dr, dk, dv, dw, du.to(u.dtype), ds_in.to(state.dtype)
     if on_cpu(r, k, v, w, u, state, dy, ds, ckpt):
         return ref.wkv6_bwd_ref(r, k, v, w, u, state, dy, ds, ckpt)
     _check(r, k, v, w, u, state)

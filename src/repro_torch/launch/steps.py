@@ -196,14 +196,17 @@ def cache_struct(cfg: ModelConfig, batch: int, max_len: int):
 
 
 def input_specs(arch: str, shape_name: str,
-                policy: Optional["CellPolicy"] = None) -> dict:
+                policy: Optional["CellPolicy"] = None, *,
+                cfg: Optional[ModelConfig] = None,
+                shape: Optional[ShapeConfig] = None) -> dict:
     """All inputs for the cell's step, as meta tensors keyed by the
     step's argument names. A policy with kv_dtype changes the cache
-    structure, so pass the same policy used for cell_shardings."""
-    cfg = get_config(arch)
+    structure, so pass the same policy used for cell_shardings. ``cfg``
+    and ``shape`` replace the registry's, as in ``cell_shardings``."""
+    cfg = cfg or get_config(arch)
     if policy is not None and policy.kv_dtype:
         cfg = cfg.replace(kv_dtype=policy.kv_dtype)
-    shape = SHAPES[shape_name]
+    shape = shape or SHAPES[shape_name]
     params = params_struct(cfg)
     if shape.kind == "train":
         mdt = policy.moment_dtype if policy is not None else "float32"
@@ -307,18 +310,23 @@ def _dp_size(mesh, dp) -> int:
 
 
 def cell_shardings(arch: str, shape_name: str, mesh,
-                   policy: Optional[CellPolicy] = None):
+                   policy: Optional[CellPolicy] = None, *,
+                   cfg: Optional[ModelConfig] = None,
+                   shape: Optional[ShapeConfig] = None):
     """(step, in_shardings dict, out_shardings, donate_argnames) aligned
     with input_specs(arch, shape_name). A train cell's step is the sharded
     train step over ``mesh`` (``distributed.sharded_train``), on inputs
     placed by ``in_shardings``; a serving cell's is the one-device prefill
-    or decode step, and its shardings are the reference's placements."""
+    or decode step, and its shardings are the reference's placements.
+    ``cfg`` and ``shape`` replace the registry's (a cut configuration, a
+    shape of the caller's; ``policy`` then defaults to ``CellPolicy()``)."""
     from repro_torch.distributed.sharded_train import \
         make_sharded_train_step
     from repro_torch.models.layers import set_bf16_boundary, set_shard_mesh
-    cfg = get_config(arch)
-    shape = SHAPES[shape_name]
-    pol = policy or cell_policy(arch, shape_name)
+    pol = policy or (cell_policy(arch, shape_name)
+                     if cfg is None and shape is None else CellPolicy())
+    cfg = cfg or get_config(arch)
+    shape = shape or SHAPES[shape_name]
     if not pol.remat and shape.kind == "train":
         cfg = cfg.replace(remat=False)
     dp = data_axes(mesh)

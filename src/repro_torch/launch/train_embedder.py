@@ -52,7 +52,7 @@ def info_nce(params, cfg, a_ids, a_mask, b_ids, b_mask,
 
 def train(steps: int = 400, batch: int = 48, lr=None, seed: int = 0,
           full: bool = False, device=None, log_every: int = 10,
-          wrap_step=None) -> dict:
+          wrap_step=None, params=None) -> dict:
     """Train and return {"before": (dup, nondup), "after": (dup, nondup),
     "losses": the per-step losses}: the median cosine of duplicate and of
     non-duplicate pairs over 128 fresh pairs each. ``lr`` defaults to the
@@ -64,7 +64,9 @@ def train(steps: int = 400, batch: int = 48, lr=None, seed: int = 0,
     a training option: the command line never sets it, and
     ``chip_smoke.py`` uses it to time each step on the host and trace the
     last one, which it cannot reach from outside ``train`` (the step is a
-    closure over the optimiser state)."""
+    closure over the optimiser state). ``params``: the embedder's initial
+    weights on ``device`` (default: drawn from ``seed``), as a test gives
+    the reference's."""
     dev = resolve_device(device)
     if lr is None:
         lr = 3e-4 if full else 2e-3
@@ -75,8 +77,9 @@ def train(steps: int = 400, batch: int = 48, lr=None, seed: int = 0,
     tok = HashTokenizer(vocab_size=cfg.vocab_size, max_len=24)
     rng = np.random.default_rng(seed)
     sentence = make_corpus(rng)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    params = E.init_params(gen, cfg, dev)
+    if params is None:
+        params = E.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               cfg, dev)
     state = opt.init_state(params)
     optc = opt.AdamWConfig(lr=lr, warmup_steps=5, total_steps=steps,
                            weight_decay=0.01)
@@ -100,8 +103,10 @@ def train(steps: int = 400, batch: int = 48, lr=None, seed: int = 0,
         c = [sentence((t + 1 + rng.integers(N_TOPICS - 2)) % N_TOPICS)
              for t in topics]
         za, zb, zc = (E.encode(params, cfg, *encode(x)) for x in (a, b, c))
-        dup = float(torch.median(torch.sum(za * zb, -1)))
-        nondup = float(torch.median(torch.sum(za * zc, -1)))
+        # the reference's median: of an even count, the mean of the two
+        # middle values (torch.median gives the lower one)
+        dup = float(torch.quantile(torch.sum(za * zb, -1), 0.5))
+        nondup = float(torch.quantile(torch.sum(za * zc, -1), 0.5))
         return dup, nondup
 
     before = eval_gap()

@@ -149,8 +149,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     ) -> torch.Tensor:
     """Softmax attention with GQA and the reference's masks: K4 on CUDA
     tensors, ``flash_attention_plain`` on CPU tensors (arguments as
-    there)."""
-    if q.is_cuda:
+    there). Meta tensors take the wrapper too: its shape-only op, never
+    the plain version's score matrix."""
+    if q.is_cuda or q.is_meta:
         return fa_ops.flash_attention(q, k, v, causal=causal, window=window,
                                       prefix_len=prefix_len,
                                       q_offset=q_offset,
@@ -195,8 +196,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     codes and f16 scales read in place), ``decode_attention_plain`` on CPU
     tensors. q: (B, 1, Hq, D); caches (B, Lmax, Hkv, D) and (B, Lmax, Hkv,
     Dv), int8 when ``k_scale``/``v_scale`` (B, Lmax, Hkv) are given;
-    kv_len: (B,). Returns (B, 1, Hq, Dv)."""
-    if q.is_cuda:
+    kv_len: (B,). Returns (B, 1, Hq, Dv). Meta tensors take the wrapper's
+    shape-only op."""
+    if q.is_cuda or q.is_meta:
         if window is not None:
             raise NotImplementedError("decode attention with a window has "
                                       "no kernel yet")
@@ -525,7 +527,9 @@ def _moe_dispatch(p: Params, cfg, xg: torch.Tensor,
     flat_e = idx.reshape(-1)                                   # (G*T*k,)
     key = group * E + flat_e
     order = torch.argsort(key, stable=True)
-    counts = torch.bincount(key, minlength=G * E)
+    # bincount's integers by a scatter, which has a meta kernel
+    counts = torch.zeros(G * E, dtype=key.dtype, device=dev).scatter_add_(
+        0, key, torch.ones_like(key))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.empty_like(key)
     pos[order] = torch.arange(key.numel(), device=dev) - starts[key[order]]

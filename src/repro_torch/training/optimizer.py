@@ -124,18 +124,39 @@ def update_scalars(cfg: AdamWConfig, step: int, gnorm: torch.Tensor
     return clip, lr, b1c, b2c
 
 
+# the elements of a leaf one pass of ``update_leaf`` takes at once: its f32
+# temporaries (half a dozen of them) stay at 256 MB each, where a whole
+# 2.1 B-parameter embedding (command-r-35b's) would hold 8.4 GB each
+UPDATE_CHUNK = 1 << 26
+
+
 @torch.no_grad()
 def update_leaf(path, p, g, m, v, scalars, cfg: AdamWConfig) -> None:
     """One leaf's (or one block of a leaf's) AdamW update, in place, in
-    f32: ``scalars`` from ``update_scalars``."""
+    f32: ``scalars`` from ``update_scalars``. A leaf of more than
+    ``UPDATE_CHUNK`` elements goes a block of its leading rows at a time:
+    the same elementwise arithmetic, so the same bits."""
     # a CPU scalar joins an op on any device; one on another card moves
-    clip, lr, b1c, b2c = (x if x.device in (p.device, torch.device("cpu"))
-                          else x.to(p.device) for x in scalars)
+    sc = tuple(x if x.device in (p.device, torch.device("cpu"))
+               else x.to(p.device) for x in scalars)
+    decay = bool(cfg.weight_decay and _decay_mask(path))
+    rows = p.shape[0] if p.dim() else 1
+    step = max(1, UPDATE_CHUNK // max(1, p.numel() // max(rows, 1)))
+    if rows <= step:                    # a 0-d leaf too
+        return _update_rows(p, g, m, v, sc, cfg, decay)
+    for i in range(0, rows, step):
+        sl = slice(i, i + step)
+        _update_rows(p[sl], g[sl], m[sl], v[sl], sc, cfg, decay)
+
+
+def _update_rows(p, g, m, v, scalars, cfg: AdamWConfig, decay: bool
+                 ) -> None:
+    clip, lr, b1c, b2c = scalars
     gf = g.float() * clip
     mf = cfg.b1 * m.float() + (1 - cfg.b1) * gf
     vf = cfg.b2 * v.float() + (1 - cfg.b2) * torch.square(gf)
     upd = (mf / b1c) / (torch.sqrt(vf / b2c) + cfg.eps)
-    if cfg.weight_decay and _decay_mask(path):
+    if decay:
         upd = upd + cfg.weight_decay * p.float()
     p.copy_(p.float() - lr * upd)
     m.copy_(mf)

@@ -19,7 +19,9 @@ version with it and, as a planted fault, without it; the f32 tiled pair
 at every instance (DP 64, 128, 256; equal and unequal head dims) around
 its tiles (T - 1, T, T + 1, 2 T + 1), G 1, 5 and 8, in every mask mode,
 with a ragged kv_valid_len and planted faults, each call repeated bit for
-bit; ``FlashAttentionFn`` on CUDA
+bit; D = rowsum(P dP) as every bf16 (a) with pass 1 writes it, at keys
+with a large common part (whisper-base's decoder); ``FlashAttentionFn``
+on CUDA
 tensors (the backward kernels run, the plain backward does not); the
 WKV6 backward kernel (K5-bwd) against ``wkv6_bwd_ref`` at K 16 and 64
 with a carried state and a final-state cotangent, its planted fault and
@@ -214,6 +216,49 @@ def test_backward_at_the_trainers_shapes(shape, dtype, causal):
     """The calls ``launch.train_embedder --full`` and ``launch.train
     --reduced`` make on the card."""
     _check(*shape, dtype, seed=7, causal=causal)
+
+
+@pytest.mark.parametrize("causal,Lkv", [(True, 448), (False, 1500)],
+                         ids=["self", "cross"])
+@pytest.mark.parametrize("Dq,Dv", [(64, 64), (128, 128), (96, 64),
+                                   (192, 128), (256, 256)])
+def test_bf16_pass1_sums_d_from_p_and_dp(Dq, Dv, causal, Lkv):
+    """Each bf16 (a) with pass 1 (<64, 64>, <128, 128>, <128, 64> for (96,
+    64) without a saved LSE, and the wide <192, 128> and <256, 256>) writes
+    D = rowsum(P dP) into the scratch that (b) reads, within 1e-5 of the
+    largest |D| of the f32 sum, at keys with a common part four times the
+    rest (a whisper-base decoder's rows attend nearly uniformly over such
+    keys) and at whisper's shapes (448 tokens; self and cross attention
+    over 1,500 frames). D = rowsum(dO . O) from the bf16 output, as (a)
+    formed it before, is 20x that far or more: O's rounding enters every
+    dS of a row alike, and whisper-base's training step missed
+    chip_smoke's per-leaf limit by it."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    rng = np.random.default_rng(11)
+    H, Lq = 4, 448
+    q = rng.normal(size=(1, Lq, H, Dq)) * 0.3
+    k = rng.normal(size=(1, Lkv, H, Dq)) * 0.3 + \
+        4.0 * rng.normal(size=(1, 1, H, Dq))
+    v = rng.normal(size=(1, Lkv, H, Dv))
+    do = rng.normal(size=(1, Lq, H, Dv))
+    q, k, v, do = (torch.tensor(x, dtype=torch.bfloat16, device=DEV)
+                   for x in (q, k, v, do))
+    o = fa_ops.flash_attention(q, k, v, causal=causal)
+    ops_in = fa_ops.bwd_operands(q, k, v, o, do)
+    grads = [torch.empty_like(x) for x in ops_in[:3]]
+    lse, dsum = K.bwd_scratch(ops_in[0])
+    K.launch_bwd(*ops_in, *grads, lse, dsum, causal=causal, window=0,
+                 prefix_len=0, q_offset=Lkv - Lq, part=0, scale_dim=Dq)
+    torch.cuda.synchronize()
+    p, dp, old, *_ = fa_ref._bwd_terms(q, k, v, o.float(), do, causal, None,
+                                       0, Lkv - Lq)
+    exact = (p * dp).sum(dim=-1).reshape(1, H, Lq)
+    old = old[..., 0].reshape(1, H, Lq)
+    got = dsum[..., :Lq]
+    top = float(exact.abs().max())
+    err, err_old = (float((x - exact).abs().max()) for x in (got, old))
+    assert err <= 1e-5 * top, (err, top)
+    assert err_old >= 20 * err, (err_old, err)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -722,8 +767,10 @@ def _lse_check(B, Lq, Lkv, H, Hkv, Dq, Dv, seed, **kw):
     forward's o the same bits as the serving kernel's, its LSE within
     LSE_ATOL of ``ref.attention_lse`` (+inf exactly where the plain one
     is), and the backward from it and the one with pass 1 (no saved LSE)
-    each within the bf16 limit of the plain backward, with their
-    launches counted."""
+    each within the bf16 limit of the plain backward of its own recurrence
+    (from the LSE, D = rowsum(dO . O) from the bf16 O; with pass 1, D =
+    rowsum(P dP)), with their launches counted. Returns the plain backward
+    from the LSE as ``plain``."""
     if kw.get("q_offset") is None:
         kw["q_offset"] = Lkv - Lq
     q, k, v, o, do, lse = _lse_inputs(B, Lq, Lkv, H, Hkv, Dq, Dv, seed, **kw)
@@ -744,10 +791,11 @@ def _lse_check(B, Lq, Lkv, H, Hkv, Dq, Dv, seed, **kw):
     torch.cuda.synchronize()
     assert (f.launches_bwd, f.launches_bwd_dv, f.launches_bwd_exact) == (
         before[0] + 4, before[1] + 4, before[2] + 3)
-    plain = fa_ref.attention_bwd_ref(q, k, v, o, do, **kw)
+    plain = fa_ref.attention_bwd_ref(q, k, v, o, do, lse=lse, **kw)
+    plain_pass1 = fa_ref.attention_bwd_ref(q, k, v, o, do, **kw)
     rss = fa_ref.attention_bwd_rss(q, k, v, o, do, **kw)
     assert bwd_excess(got, plain, rss, torch.bfloat16) <= 1.0
-    assert bwd_excess(one_pass1, plain, rss, torch.bfloat16) <= 1.0
+    assert bwd_excess(one_pass1, plain_pass1, rss, torch.bfloat16) <= 1.0
     return q, k, v, o, do, lse, got, plain, rss
 
 

@@ -15,7 +15,9 @@ explicit q_offset, a fully masked row) with GQA (1 and 4 query heads a kv
 head), with and without a ragged ``kv_valid_len``; the route by which the
 bf16 kernels take a head dim that is not a multiple of 8 (a zero-padded
 copy, ``ops.bwd_operands``) against the unpadded one, and the aligned
-copy it makes of a misaligned view; the wrappers of the kernels without a
+copy it makes of a misaligned view; the bf16 route's dq and dk at keys
+with a large common part (whisper-base's decoder) as close to the f32
+gradient as the plain version's autograd; the wrappers of the kernels without a
 backward refuse inputs that require grad (``refuse_grad``, on CUDA
 tensors only: on the CPU their plain versions differentiate).
 
@@ -305,6 +307,55 @@ def test_attention_bwd_ref_ragged_is_the_autograd_of_attention_ref(mode):
                                  kv_valid_len=kvl, device="cpu")
     for r, seen in zip(rss, (mask.any(2), mask.any(1), mask.any(1))):
         assert bool((r.amax(dim=(2, 3)) > 0).eq(seen).all())
+
+
+def common_key_errors(device, causal: bool, Lkv: int, H: int = 4,
+                      Lq: int = 448, D: int = 64, seed: int = 11) -> dict:
+    """dq's and dk's largest error against the f32 gradient, over the f32
+    gradient's largest, of the bf16 backward (``flash_attention_bwd`` on
+    ``device``) and of autograd through the bf16 plain version, at keys
+    with a common part four times the rest (a whisper-base decoder's rows
+    attend nearly uniformly over such keys). dS's row sums are 0 there, so
+    dq = dS K sees only the keys' varying part; a D that carried the bf16
+    output's rounding would add it times the common part to every row."""
+    from repro_torch.models.layers import flash_attention_plain
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(1, Lq, H, D)) * 0.3
+    k = rng.normal(size=(1, Lkv, H, D)) * 0.3 + \
+        4.0 * rng.normal(size=(1, 1, H, D))
+    v = rng.normal(size=(1, Lkv, H, D))
+    do = rng.normal(size=(1, Lq, H, D))
+    q, k, v, do = (torch.tensor(x, dtype=torch.bfloat16, device=device)
+                   for x in (q, k, v, do))
+
+    def grads(dtype):
+        xs = [x.detach().to(dtype).requires_grad_() for x in (q, k, v)]
+        out = flash_attention_plain(*xs, causal=causal)
+        return torch.autograd.grad(out, xs, do.to(dtype))
+    exact = [g.cpu().double() for g in grads(torch.float32)]
+    plain = grads(torch.bfloat16)
+    o = fa_ops.flash_attention(q, k, v, causal=causal)
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, causal=causal)
+
+    def err(g, i):
+        return float((g[i].cpu().double() - exact[i]).abs().max()
+                     / exact[i].abs().max())
+    return {name: (err(got, i), err(plain, i))
+            for i, name in enumerate(("dq", "dk"))}
+
+
+@pytest.mark.parametrize("causal,Lkv", [(True, 448), (False, 1500)],
+                         ids=["self", "cross"])
+def test_bf16_backward_keeps_dq_of_keys_with_a_common_part(causal, Lkv):
+    """The bf16 route (``attention_bwd_ref``, the kernels' recurrence: D =
+    rowsum(P dP)) is as close to the f32 gradient as the plain version's
+    autograd, within 2x, at whisper-base's decoder shapes (448 tokens, 64
+    wide; self and cross attention over 1,500 frames). With D from the
+    bf16 output, as the kernels formed it before, dq read 12x the plain
+    version's error (self and cross), and whisper-base's training step
+    missed phase 13's per-leaf limit on the card."""
+    for name, (got, plain) in common_key_errors("cpu", causal, Lkv).items():
+        assert got <= 2 * plain, (name, got, plain)
 
 
 @pytest.mark.parametrize("mode", list(MODES))

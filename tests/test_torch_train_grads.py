@@ -1,8 +1,9 @@
 """``launch.steps.chunked_ce_loss`` and its gradients held against
 ``jax.value_and_grad`` of the reference's, on reduced fp32 configs with
 the reference's parameters and the same numpy batch: the dense kind
-(qwen3), MoE with its aux loss (mixtral), MLA (minicpm3) and the SSM kind
-(rwkv6) here; the hybrid, the encoder-decoder and the VLM in
+(qwen3; qwen2.5's qkv biases; command-r's tied embedding), MoE with its
+aux loss (mixtral), MLA (minicpm3) and the SSM kind (rwkv6) here; the
+hybrid, the encoder-decoder and the VLM in
 ``test_torch_train_grads_kinds.py``. The reference's gradient tree is
 carried into the port's layout by ``weights.convert_lm``.
 
@@ -59,7 +60,8 @@ def grads_match(arch: str, B: int = 2, L: int = 32, chunk: int = 8) -> None:
 
 
 @pytest.mark.parametrize("arch", ["qwen3-14b", "mixtral-8x7b",
-                                  "minicpm3-4b", "rwkv6-7b"])
+                                  "minicpm3-4b", "rwkv6-7b", "qwen2.5-14b",
+                                  "command-r-35b"])
 def test_chunked_ce_grads_match_jax(arch):
     grads_match(arch)
 

@@ -166,3 +166,38 @@ def test_loss_decreases_tiny_train():
         losses.append(float(metrics["loss"]))
     assert losses[-1] < losses[0]
     assert params["embed"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_update_leaf_in_row_blocks_gives_the_same_bits(moment_dtype,
+                                                       monkeypatch):
+    """A leaf past ``UPDATE_CHUNK`` elements is updated a block of its
+    leading rows at a time (its f32 temporaries bounded: command-r-35b's
+    2.1 B-parameter embedding on one card): the same bits as one pass,
+    for the parameter and both moments, decayed leaves or not."""
+    rng = np.random.default_rng(0)
+    mdt = getattr(torch, moment_dtype)
+    scalars = opt.update_scalars(opt.AdamWConfig(), 3,
+                                 torch.tensor(2.5, dtype=torch.float32))
+    for path, shape, gdt in ((("blocks", 0, "w"), (37, 11), torch.float32),
+                             (("embed",), (50, 3, 4), torch.bfloat16),
+                             (("ln", "scale"), (45,), torch.bfloat16),
+                             (("x",), (), torch.float32)):
+        p0 = torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(torch.bfloat16)
+        g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(gdt)
+        m0, v0 = (torch.from_numpy(rng.uniform(0, 1, shape)
+                                   .astype(np.float32)).to(mdt)
+                  for _ in range(2))
+        outs = []
+        for chunk in (1 << 26, 7, 1):
+            monkeypatch.setattr(opt, "UPDATE_CHUNK", chunk)
+            p, m, v = p0.clone(), m0.clone(), v0.clone()
+            opt.update_leaf(path, p, g, m, v, scalars, opt.AdamWConfig())
+            outs.append((p, m, v))
+        for p, m, v in outs[1:]:
+            for a, b in zip((p, m, v), outs[0]):
+                assert torch.equal(a.reshape(-1).view(torch.uint8),
+                                   b.reshape(-1).view(torch.uint8))
+        assert not torch.equal(outs[0][1], m0)     # an update was made
